@@ -1,0 +1,79 @@
+"""Build a kernel source under ``csrc/`` into a plain-C shared library at
+first use, and load it with ctypes.
+
+``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles one ``.cu`` file
+(no PyTorch headers, so a build takes seconds) into
+``<checkout>/build/bigdl_tpu_torch/``, a directory ``.gitignore`` lists.
+The library's file name carries a hash of the source, the flags and the
+nvcc path, so an edited source builds anew and an unchanged one is
+loaded as it is. ``nvcc`` and the CUDA headers are the only
+requirements. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["build_dir", "find_nvcc", "load_library"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+#: Hopper only: the `a` keeps wgmma/setmaxnreg available to later kernels
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas=-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    return _PKG.parent / "build" / "bigdl_tpu_torch"
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and
+                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                       "PATH): the CUDA kernels build from source at "
+                       "first use")
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<source>``, built if needed. The
+    compiler's register/spill report is kept beside the library as
+    ``<name>.ptxas.txt``."""
+    if source in _loaded:
+        return _loaded[source]
+    src = _CSRC / source
+    nvcc = find_nvcc()
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(ARCH_FLAGS + FLAGS + (nvcc,)).encode()
+                         ).hexdigest()[:16]
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"{src.stem}-{key}.so"
+    if not lib.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [nvcc, *ARCH_FLAGS, *FLAGS, "-o", tmp, str(src)],
+                capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            lib.with_suffix(".ptxas.txt").write_text(proc.stderr)
+            os.replace(tmp, lib)       # atomic: concurrent builders agree
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    handle = ctypes.CDLL(str(lib))
+    _loaded[source] = handle
+    return handle

@@ -1,0 +1,167 @@
+"""Paged attention: grouped causal attention of q straight off the KV
+page pool (counterpart of ``bigdl_tpu/ops/pallas/paged_attention.py``).
+
+``paged_attention`` walks each row's block table page by page with an
+online softmax — on a CUDA tensor through the hand-written Hopper kernel
+``csrc/paged_attention.cu`` (built at first use, see ``_build.py``), on a
+CPU tensor through ``paged_attention_ref``, its plain PyTorch version:
+the ``_paged_view`` gather of every row's pages into a dense cache
+followed by ``_attend_grouped``. The choice follows the tensor's device
+alone; on a CUDA tensor the wrapper launches the kernel or raises.
+
+``dense_cache_attention`` serves a dense per-row (B, M, KV, D) cache
+through the same kernel: the cache is a pool of ``M // S`` contiguous
+pages per row with an identity block table (a reshape, not a copy).
+
+``launches`` counts kernel launches, so a run can show its main path
+went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+__all__ = ["paged_attention", "paged_attention_ref",
+           "dense_cache_attention", "dense_cache_page_size", "launches"]
+
+_NEG = -1e9  # finite mask value, as in the JAX package
+_HEAD_DIMS = (32, 64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+
+#: kernel launches since import (reset by assigning 0)
+launches = 0
+
+
+def _paged_view(pool, table):
+    """(num_pages, S, KV, D) pool + (B, P) table -> (B, P*S, KV, D)
+    gathered per-row cache view (the logical dense cache)."""
+    b, p = table.shape
+    g = pool[table.reshape(-1).long()]           # (B*P, S, KV, D)
+    s, kv, d = pool.shape[1:]
+    return g.reshape(b, p * s, kv, d)
+
+
+def _attend_grouped(q, ck, cv, upto, num_heads, scale):
+    """Grouped causal attention of q (B,T,H,D) against a cached view
+    (B, M, KV, D), masked to key positions <= ``upto`` (B, T) per row.
+    Cache-dtype operands with f32 accumulation (the operands are widened
+    to f32, where a product of two bf16 values is exact); returns f32."""
+    b, t, _, hd = q.shape
+    kv = ck.shape[2]
+    g = num_heads // kv
+    qg = q.reshape(b, t, kv, g, hd).to(ck.dtype)
+    s = torch.einsum("btkgd,bmkd->bkgtm", qg.float(), ck.float()) * scale
+    kpos = torch.arange(ck.shape[1], device=ck.device)
+    s = torch.where(kpos > upto[:, None, None, :, None], _NEG, s)
+    p = torch.softmax(s, dim=-1).to(cv.dtype)
+    o = torch.einsum("bkgtm,bmkd->btkgd", p.float(), cv.float())
+    return o.reshape(b, t, num_heads, hd)
+
+
+def paged_attention_ref(q, kp, vp, table, q_start, *, scale=None):
+    """Plain PyTorch version of :func:`paged_attention` (same arguments,
+    same result): gather the dense view, attend with the causal mask
+    ``key position <= q_start + t``."""
+    t, d = q.shape[1], q.shape[3]
+    scale = d ** -0.5 if scale is None else scale
+    upto = (q_start.long()[:, None]
+            + torch.arange(t, device=q.device)[None, :])
+    return _attend_grouped(q, _paged_view(kp, table), _paged_view(vp, table),
+                           upto, q.shape[2], scale)
+
+
+@functools.cache
+def _kernel_fn():
+    """The C entry of csrc/paged_attention.cu, built at first use."""
+    from bigdl_tpu_torch.ops._build import load_library
+    fn = load_library("paged_attention.cu").bigdl_paged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError(f"paged_attention: {msg}")
+
+
+def paged_attention(q, kp, vp, table, q_start, *, scale=None):
+    """Grouped causal attention of ``q`` (B, T, H, D) directly against
+    the page pools — no dense per-row view on the card.
+
+    ``kp``/``vp``: (num_pages, S, KV, D) pools (float32 or bfloat16;
+    q is cast to their dtype); ``table``: (B, P) physical page ids, every
+    entry a legal pool index; ``q_start``: (B,) absolute position of each
+    row's first query column — column t attends key positions <=
+    q_start + t. Returns (B, T, H, D) float32."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
+    global launches
+    b, t, h, d = q.shape
+    _, s, kv, _ = kp.shape
+    _check(q.is_cuda and all(x.device == q.device
+                             for x in (kp, vp, table, q_start)),
+           "q, pools, table and q_start must be on one CUDA device")
+    _check(kp.shape == vp.shape and kp.shape[3] == d,
+           f"pool shapes {tuple(kp.shape)}/{tuple(vp.shape)} do not match "
+           f"q {tuple(q.shape)}")
+    _check(h % kv == 0, f"{h} query heads not divisible by {kv} kv heads")
+    _check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
+    _check(kp.dtype in _DTYPE_CODES and vp.dtype == kp.dtype,
+           f"pool dtype {kp.dtype}/{vp.dtype} not float32 or bfloat16")
+    _check(kp.is_contiguous() and vp.is_contiguous(),
+           "pools must be contiguous")
+    _check(kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned")
+    _check(table.dim() == 2 and table.shape[0] == b
+           and q_start.shape == (b,),
+           f"table {tuple(table.shape)} / q_start {tuple(q_start.shape)} "
+           f"do not match batch {b}")
+    smem = 4 * s * d * kp.element_size()
+    _check(smem <= _SMEM_LIMIT,
+           f"page of {s} slots needs {smem} bytes of shared memory")
+    scale = d ** -0.5 if scale is None else scale
+    fn = _kernel_fn()
+    qc = q.to(kp.dtype).contiguous()
+    table = table.to(torch.int32).contiguous()
+    q_start = q_start.to(torch.int32).contiguous()
+    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[kp.dtype], qc.data_ptr(), kp.data_ptr(),
+                 vp.data_ptr(), table.data_ptr(), q_start.data_ptr(),
+                 out.data_ptr(), b, t, h, kv, d, s, table.shape[1],
+                 float(scale), stream)
+    if err:
+        raise RuntimeError(f"paged_attention kernel launch failed "
+                           f"(code {err})")
+    launches += 1
+    return out
+
+
+def dense_cache_page_size(max_len: int, cap: int = 128,
+                          floor: int = 8) -> int:
+    """Page size the dense-cache view splits a (B, M, KV, D) cache into:
+    the largest divisor of M in [floor, cap], else M itself (one page per
+    row)."""
+    return next((s for s in range(min(cap, max_len), floor - 1, -1)
+                 if max_len % s == 0), max_len)
+
+
+def dense_cache_attention(q, ck, cv, q_start, *, scale=None):
+    """:func:`paged_attention` over a dense per-row cache (B, M, KV, D):
+    the cache is a pool of ``M // S`` contiguous pages per row with the
+    identity block table, so short rows skip their empty tail pages."""
+    b, m, kv, d = ck.shape
+    s = dense_cache_page_size(m)
+    n = m // s
+    pool_k = ck.reshape(b * n, s, kv, d)
+    pool_v = cv.reshape(b * n, s, kv, d)
+    table = (torch.arange(b, dtype=torch.int32, device=ck.device)[:, None]
+             * n + torch.arange(n, dtype=torch.int32,
+                                device=ck.device)[None, :])
+    return paged_attention(q, pool_k, pool_v, table, q_start, scale=scale)
