@@ -13,8 +13,10 @@ the caller passes another device.
 
 Ported so far: the serving path of the transformer LM
 (``models.transformer.serving.ContinuousBatcher``) with paged attention
-as a CUDA kernel (``ops.paged_attention``). See ROADMAP.md for the
-queue.
+as a CUDA kernel (``ops.paged_attention``), and its training path
+(``models.transformer.train`` through ``optim.Optimizer``) with flash
+attention forward and backward as CUDA kernels (``ops.flash_attention``).
+See ROADMAP.md for the queue.
 """
 
 __version__ = "0.1.0"

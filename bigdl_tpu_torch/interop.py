@@ -6,13 +6,15 @@ with numpy arrays (or anything ``np.asarray`` reads) as leaves, into a
 ``state_dict`` whose keys are the tree paths joined by ``.`` and whose
 shapes are the leaves' — the layout this package's modules use. No JAX
 import is needed: the caller hands over host arrays.
+``sgd_state_from_jax`` does the same for an SGD state, so a run can start
+both packages from one mid-run point.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "load_jax_params"]
+__all__ = ["params_from_jax", "load_jax_params", "sgd_state_from_jax"]
 
 
 def params_from_jax(tree, prefix: str = "") -> dict:
@@ -35,3 +37,15 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     (``load_state_dict`` raises otherwise)."""
     model.load_state_dict(params_from_jax(tree), strict=True)
     return model
+
+
+def sgd_state_from_jax(state, device="cpu") -> dict:
+    """A JAX ``SGD`` state (``neval``, ``epoch`` and, with momentum, the
+    ``velocity`` tree; numpy leaves) -> the port's SGD state: host-int
+    counters and the velocity keyed by parameter name, on ``device``."""
+    out = {"neval": int(np.asarray(state["neval"])),
+           "epoch": int(np.asarray(state.get("epoch", 1)))}
+    if "velocity" in state:
+        out["velocity"] = {n: t.to(device) for n, t in
+                           params_from_jax(state["velocity"]).items()}
+    return out

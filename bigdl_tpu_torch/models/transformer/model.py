@@ -4,10 +4,11 @@
 The same Sequential structure as the JAX model — 0 embed, 1..L blocks,
 L+1 final LayerNorm, L+2 LM head (L+3 LogSoftMax) — so ``state_dict``
 keys are the JAX params-tree paths and ``model.params`` is read by the
-decode and serving functions as the JAX tree is. The full-sequence
-forward needs flash attention and comes with the training slice; until
-then calling the model raises ``NotImplementedError`` (from
-``MultiHeadAttention``).
+decode and serving functions as the JAX tree is. ``model(x)`` is the
+full-sequence forward of training, whose attention takes the flash
+kernels; ``model(x, flash=False)`` runs the same forward with every
+block's attention core on the plain f32 path, for checks that hold the
+kernels against it.
 """
 from __future__ import annotations
 
@@ -23,21 +24,46 @@ from bigdl_tpu_torch.tensor import activation_dtype, resolve_device
 __all__ = ["TransformerLM", "TransformerBlock"]
 
 
+def _no_dropout(dropout: float):
+    if dropout > 0:
+        raise NotImplementedError(
+            "dropout > 0 needs nn.Dropout, which is not ported yet "
+            "(ROADMAP.md, queue A step 5)")
+
+
 class _Residual(Container):
     """y = x + inner(norm(x)) — pre-LN residual wrapper."""
 
     def __init__(self, d_model: int, inner: Module, *, device):
         super().__init__(nn.LayerNorm(d_model, device=device), inner)
 
-    def forward(self, x):
-        return x + self[1](self[0](x))
+    def forward(self, x, **kw):
+        return x + self[1](self[0](x), **kw)
 
 
-def TransformerBlock(d_model: int, num_heads: int, ffn_mult: int = 4, *,
-                     rope: bool = False, num_kv_heads: int | None = None,
-                     device="cuda",
+class _Block(nn.Sequential):
+    """The two residuals of a block; ``flash`` goes to the attention."""
+
+    def forward(self, x, *, flash: str | bool = "auto"):
+        return self[1](self[0](x, flash=flash))
+
+
+class _LM(nn.Sequential):
+    """The LM's Sequential; ``flash`` is every block's attention core
+    choice (``dot_product_attention``'s argument)."""
+
+    def forward(self, x, *, flash: str | bool = "auto"):
+        for m in self._modules.values():
+            x = m(x, flash=flash) if isinstance(m, _Block) else m(x)
+        return x
+
+
+def TransformerBlock(d_model: int, num_heads: int, ffn_mult: int = 4,
+                     dropout: float = 0.0, *, rope: bool = False,
+                     num_kv_heads: int | None = None, device="cuda",
                      generator: torch.Generator | None = None):
     """Pre-LN block: x + MHA(LN(x)); x + FFN(LN(x))."""
+    _no_dropout(dropout)
     device = resolve_device(device)
     mha = nn.MultiHeadAttention(d_model, num_heads, causal=True, rope=rope,
                                 num_kv_heads=num_kv_heads, device=device,
@@ -48,7 +74,7 @@ def TransformerBlock(d_model: int, num_heads: int, ffn_mult: int = 4, *,
            .add(nn.ReLU())
            .add(nn.Linear(ffn_mult * d_model, d_model, device=device,
                           generator=generator)))
-    return (nn.Sequential()
+    return (_Block()
             .add(_Residual(d_model, mha, device=device))
             .add(_Residual(d_model, ffn, device=device)))
 
@@ -82,7 +108,8 @@ class _TokenAndPosition(Module):
 
 def TransformerLM(vocab_size: int, d_model: int = 128, num_heads: int = 4,
                   num_layers: int = 2, max_len: int = 512,
-                  ffn_mult: int = 4, with_log_softmax: bool = True,
+                  ffn_mult: int = 4, dropout: float = 0.0,
+                  with_log_softmax: bool = True,
                   pos_encoding: str = "learned",
                   num_kv_heads: int | None = None, *, device="cuda",
                   generator: torch.Generator | None = None
@@ -94,10 +121,11 @@ def TransformerLM(vocab_size: int, d_model: int = 128, num_heads: int = 4,
     ``device``."""
     if pos_encoding not in ("learned", "rope"):
         raise ValueError(f"pos_encoding={pos_encoding!r}")
+    _no_dropout(dropout)
     device = resolve_device(device)
     rope = pos_encoding == "rope"
     kw = dict(device=device, generator=generator)
-    model = nn.Sequential().add(
+    model = _LM().add(
         _TokenAndPosition(vocab_size, d_model, max_len, with_pos=not rope,
                           **kw).set_name("embed"))
     for i in range(num_layers):
@@ -115,3 +143,4 @@ def TransformerLM(vocab_size: int, d_model: int = 128, num_heads: int = 4,
                      "vocab": vocab_size, "pos_encoding": pos_encoding,
                      "num_kv_heads": num_kv_heads}
     return model
+

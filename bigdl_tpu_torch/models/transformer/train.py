@@ -1,0 +1,87 @@
+"""Transformer LM training main (counterpart of
+``bigdl_tpu/models/transformer/train.py``).
+
+    python -m bigdl_tpu_torch.models.transformer.train -f <dir_with_input.txt>
+        [--seqLength 128] [--device cuda]
+
+The same flags as the JAX main, plus ``--device`` (default ``cuda``;
+``cpu`` runs the plain versions of the kernels). It trains on one device
+through ``LocalOptimizer`` with ``CrossEntropyCriterion`` on raw logits,
+SGD(0.02, decay 0.001) and a validation loss every epoch. Weights come
+from torch's default generator (``torch.manual_seed`` seeds them), the
+data order from ``utils.random.RandomGenerator``. Not ported yet, and
+refused (ROADMAP.md, queue A step 5): ``--chips`` > 1 and
+``--sequenceParallel`` (multi-card), ``--model``/``--state``/
+``--checkpoint`` (snapshots), ``--dropout`` > 0. The JAX main runs
+``DistriOptimizer`` over a one-chip mesh; the step math is the same.
+
+``main`` returns the optimizer, whose ``history`` holds every step's
+loss and ``validation_results`` every validation pass.
+"""
+from __future__ import annotations
+
+from bigdl_tpu_torch.models.utils.cli import base_train_parser, setup_logging
+
+_QUEUED = "is not ported yet (ROADMAP.md, queue A step 5)"
+
+
+def main(argv=None):
+    setup_logging()
+    parser = base_train_parser("Train a Transformer LM")
+    parser.add_argument("--vocabSize", type=int, default=4000)
+    parser.add_argument("--dModel", type=int, default=128)
+    parser.add_argument("--numHeads", type=int, default=4)
+    parser.add_argument("--numLayers", type=int, default=2)
+    parser.add_argument("--seqLength", type=int, default=128)
+    parser.add_argument("--dropout", type=float, default=0.0)
+    parser.add_argument("--posEncoding", default="learned",
+                        choices=["learned", "rope"])
+    parser.add_argument("--numKvHeads", type=int, default=None,
+                        help="< numHeads selects grouped-query attention")
+    parser.add_argument("--sequenceParallel", default=None,
+                        choices=[None, "ring", "ulysses"])
+    args = parser.parse_args(argv)
+    if args.chips is not None and args.chips > 1:
+        raise NotImplementedError(f"--chips {args.chips}: multi-card "
+                                  f"training {_QUEUED}")
+    if args.sequenceParallel:
+        raise NotImplementedError(f"--sequenceParallel {_QUEUED}")
+    for flag in ("model", "state", "checkpoint"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: snapshots (utils/file.py) "
+                                      f"{_QUEUED}")
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.models.utils.text_lm import build_text_lm_datasets
+    from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, every_epoch,
+                                       max_epoch)
+    from bigdl_tpu_torch.tensor import resolve_device
+
+    device = resolve_device(args.device)
+    batch = args.batchSize or 32
+    train_set, val_set, vocab, _ = build_text_lm_datasets(
+        args.folder, args.vocabSize, args.seqLength, batch, one_hot=False)
+    # raw-logits head + the lse-form CrossEntropy: no (B, S, V) f32
+    # log-prob tensor is kept for the backward
+    model = TransformerLM(vocab, d_model=args.dModel,
+                          num_heads=args.numHeads,
+                          num_layers=args.numLayers,
+                          max_len=args.seqLength, dropout=args.dropout,
+                          with_log_softmax=False,
+                          pos_encoding=args.posEncoding,
+                          num_kv_heads=args.numKvHeads, device=device)
+    criterion = nn.CrossEntropyCriterion()
+    optimizer = Optimizer(model, train_set, criterion)
+    optimizer.set_optim_method(SGD(
+        learning_rate=args.learningRate or 0.02,
+        learning_rate_decay=0.001))
+    optimizer.set_validation(every_epoch(), val_set,
+                             [Loss(criterion.clone_criterion())])
+    optimizer.set_end_when(max_epoch(args.maxEpoch or 10))
+    optimizer.optimize()
+    return optimizer
+
+
+if __name__ == "__main__":
+    main()

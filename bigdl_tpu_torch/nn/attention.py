@@ -1,9 +1,10 @@
 """Attention (counterpart of ``bigdl_tpu/nn/attention.py``).
 
-This slice carries the parameters and the rotary embedding that the
-serving path reads. The full-sequence forward dispatches flash attention
-in the JAX package (``parallel/sequence.py``); it arrives with the
-training slice together with its kernel, and raises until then.
+``MultiHeadAttention`` holds the parameters the serving path reads and
+runs the full-sequence forward of training: projections in the compute
+dtype, RoPE, GQA widening, then ``parallel.sequence.dot_product_attention``
+(the flash kernels whenever they support the call). The ring and Ulysses
+cores are not ported yet (ROADMAP.md, queue A step 5).
 """
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import torch
 
 from bigdl_tpu_torch.nn import init as init_mod
 from bigdl_tpu_torch.nn.module import Module
-from bigdl_tpu_torch.tensor import resolve_device
+from bigdl_tpu_torch.parallel.sequence import dot_product_attention
+from bigdl_tpu_torch.tensor import (activation_dtype, compute_dtype,
+                                    resolve_device)
 
 __all__ = ["MultiHeadAttention", "apply_rope"]
 
@@ -71,8 +74,33 @@ class MultiHeadAttention(Module):
                 self.register_parameter(f"{name}_bias", torch.nn.Parameter(
                     init_mod.zeros((out_dim,), device=device)))
 
-    def forward(self, x):
-        raise NotImplementedError(
-            "full-sequence attention dispatches flash attention, which "
-            "comes with the training slice (ROADMAP.md, queue A step 1); "
-            "this slice serves through models.transformer.serving")
+    def _proj(self, name, x):
+        cdt = compute_dtype()
+        y = x.to(cdt) @ getattr(self, f"{name}_weight").to(cdt).T
+        bias = self._parameters.get(f"{name}_bias")
+        if bias is not None:
+            y = y + bias.to(cdt)
+        return y
+
+    def forward(self, x, *, flash: str | bool = "auto"):
+        """Self-attention over (batch, seq, embed). ``flash`` is
+        ``dot_product_attention``'s: "auto" (the kernels wherever they
+        support the call), True or False (the plain f32 path)."""
+        b, s, e = x.shape
+        q = self._proj("q", x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self._proj("k", x).reshape(b, s, self.num_kv_heads,
+                                       self.head_dim)
+        v = self._proj("v", x).reshape(b, s, self.num_kv_heads,
+                                       self.head_dim)
+        if self.rope:
+            pos = torch.arange(s, device=x.device)
+            q = apply_rope(q, pos)
+            k = apply_rope(k, pos)
+        group = self.num_heads // self.num_kv_heads
+        if group > 1:
+            # kv head j serves query heads j*group .. j*group+group-1, as
+            # jnp.repeat(..., axis=2); .repeat/.expand would interleave
+            k = torch.repeat_interleave(k, group, dim=2)
+            v = torch.repeat_interleave(v, group, dim=2)
+        o = dot_product_attention(q, k, v, causal=self.causal, flash=flash)
+        return self._proj("out", o.reshape(b, s, e)).to(activation_dtype())

@@ -10,9 +10,11 @@ the JAX tree paths joined by ``.``.
 """
 from __future__ import annotations
 
+import copy
+
 import torch
 
-__all__ = ["Module", "Container"]
+__all__ = ["Module", "Container", "Criterion"]
 
 
 class Module(torch.nn.Module):
@@ -34,6 +36,8 @@ class Module(torch.nn.Module):
         self.name = name
         return self
 
+    # The JAX package's ``training()`` is torch's ``train()`` here: torch
+    # keeps the train-mode flag, a plain bool, in ``self.training``.
     def evaluate(self):
         """Inference mode (the JAX package's name for ``eval()``)."""
         return self.eval()
@@ -54,3 +58,25 @@ class Container(Module):
 
     def __getitem__(self, i: int) -> Module:
         return self._modules[str(i)]
+
+
+class Criterion:
+    """Loss base (counterpart of ``Criterion`` in ``bigdl_tpu/nn/module.py``):
+    ``loss = criterion(input, target)``, a scalar tensor that autograd
+    differentiates. Class targets are 1-based, as in the JAX package."""
+
+    size_average: bool = True
+
+    def apply(self, x, target):
+        raise NotImplementedError
+
+    def forward(self, x, target):
+        return self.apply(x, target)
+
+    __call__ = forward
+
+    def clone_criterion(self):
+        return copy.deepcopy(self)
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"

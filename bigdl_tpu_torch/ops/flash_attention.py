@@ -1,0 +1,278 @@
+"""Flash attention, forward and FlashAttention-2 backward (counterpart of
+``bigdl_tpu/ops/pallas/flash_attention.py``).
+
+Three kernels, each with its plain PyTorch version beside it:
+
+- ``flash_fwd``  — online-softmax attention, emits o and the per-row lse;
+- ``flash_dq``   — dq = Σ_k dS·K·scale with dS = P∘(dO·Vᵀ − delta);
+- ``flash_dkdv`` — dk = Σ_q dSᵀ·Q·scale and dv = Σ_q Pᵀ·dO, fused.
+
+On a CUDA tensor each launches the hand-written Hopper kernel of
+``csrc/flash_attention.cu`` (built at first use, see ``_build.py``) or
+raises; on a CPU tensor it takes its plain version (``*_ref``). The
+choice follows the tensor's device alone. ``_Flash`` (a
+``torch.autograd.Function``) saves (q, k, v, o, lse) and its backward
+computes ``delta = rowsum(dO∘O) − g_lse`` in torch, as the JAX package
+does on the XLA side, so the lse cotangent (ring attention's merge) folds
+into the same two kernels.
+
+Layout is the public (B, S, H, D) throughout: the kernels index
+``[b, s, h, :]`` with a row stride of H·D, so no (B·H, S, D) transpose is
+materialised. lse is (B, S, H) f32. Arithmetic matches the TPU kernel:
+f32 scores times ``scale``, the finite −1e9 causal mask (key position >
+query position, both counted from 0), P rounded to v's dtype before P·V
+and to dO's dtype before dv, dS rounded to k's dtype for dq and to q's
+dtype for dk; o/dq/dk/dv in the input dtype.
+
+``fwd_launches``, ``dq_launches`` and ``dkdv_launches`` count kernel
+launches, so a run can show its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+__all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
+           "flash_attention_ref", "flash_fwd", "flash_dq", "flash_dkdv",
+           "flash_fwd_ref", "flash_dq_ref", "flash_dkdv_ref",
+           "fwd_launches", "dq_launches", "dkdv_launches"]
+
+_NEG = -1e9  # finite mask value, as in the JAX package
+_HEAD_DIMS = (64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: kernel launches since import (reset by assigning 0)
+fwd_launches = 0
+dq_launches = 0
+dkdv_launches = 0
+
+
+def flash_supported(q, k) -> bool:
+    """Shapes and dtypes the kernels take: (B, S, H, D) q and k with equal
+    B, H and D, D in (64, 128), float32 or bfloat16. Any sequence
+    lengths (ragged tile tails are masked in the kernel)."""
+    return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] in _HEAD_DIMS
+            and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
+            and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
+            and q.shape[1] > 0 and k.shape[1] > 0)
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def _scores(q, k, scale, causal, q_offset=0, kv_offset=0):
+    """(B, H, Sq, Skv) f32 scaled scores with the −1e9 causal mask
+    (positions counted from the offsets)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = kv_offset + torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(kpos > qpos, _NEG, s)
+    return s
+
+
+def _row(x):
+    """(B, S, H) per-row statistic -> (B, H, S, 1) for score broadcast."""
+    return x.permute(0, 2, 1)[..., None]
+
+
+def flash_fwd_ref(q, k, v, scale, causal):
+    """Plain version of :func:`flash_fwd`: o (q's dtype) and lse (B, S, H)
+    f32. P is rounded to v's dtype before P·V, unnormalised, as the
+    kernel rounds it."""
+    s = _scores(q, k, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = o / l.squeeze(-1).permute(0, 2, 1)[..., None]
+    lse = (m + torch.log(l)).squeeze(-1).permute(0, 2, 1)
+    return o.to(q.dtype), lse.contiguous()
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, scale, causal):
+    s = _scores(q, k, scale, causal)
+    p = torch.exp(s - _row(lse))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - _row(delta)) * scale
+
+
+def flash_dq_ref(q, k, v, do, lse, delta, scale, causal):
+    """Plain version of :func:`flash_dq`."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def flash_dkdv_ref(q, k, v, do, lse, delta, scale, causal):
+    """Plain version of :func:`flash_dkdv`: (dk, dv)."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = False,
+                        scale: float | None = None, q_offset: int = 0,
+                        kv_offset: int = 0):
+    """The plain version of :func:`flash_attention_with_lse` as one
+    differentiable torch function: f32 scores, the −1e9 causal mask and
+    softmax, giving o (q's dtype) and lse (B, S, H) f32. The offsets are
+    the global positions of element 0 (``dot_product_attention``'s)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = _scores(q, k, scale, causal, q_offset, kv_offset)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o.to(q.dtype), lse.permute(0, 2, 1)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _kernel_fns():
+    """The three C entries of csrc/flash_attention.cu, built at first
+    use."""
+    from bigdl_tpu_torch.ops._build import load_library
+    return bind(load_library("flash_attention.cu"))
+
+
+def bind(lib: ctypes.CDLL) -> dict:
+    """The typed entries ``{"fwd", "dq", "dkdv"}`` of a library built from
+    csrc/flash_attention.cu."""
+    dims = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p]
+    fns = {}
+    for name, n_ptr in (("fwd", 5), ("dq", 7), ("dkdv", 8)):
+        fn = getattr(lib, f"bigdl_flash_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
+        fns[name] = fn
+    return fns
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError(f"flash_attention: {msg}")
+
+
+def _check_cuda(q, k, v, *rest):
+    """Device, shape, dtype, contiguity and alignment of the inputs."""
+    _check(q.is_cuda and all(x.device == q.device for x in (k, v, *rest)),
+           "all tensors must be on one CUDA device")
+    _check(flash_supported(q, k) and v.shape == k.shape
+           and v.dtype == q.dtype,
+           f"unsupported q{tuple(q.shape)} k{tuple(k.shape)} "
+           f"v{tuple(v.shape)} {q.dtype}: need (B, S, H, D) with D in "
+           f"{_HEAD_DIMS}, equal B/H/D, float32 or bfloat16")
+    for x in (q, k, v, *rest):
+        _check(x.is_contiguous(), "inputs must be contiguous")
+        _check(x.data_ptr() % 16 == 0, "inputs must be 16-byte aligned")
+
+
+def _check_cuda_bwd(q, k, v, do, lse, delta):
+    _check_cuda(q, k, v, do, lse, delta)
+    _check(do.shape == q.shape and do.dtype == q.dtype
+           and lse.dtype == delta.dtype == torch.float32
+           and lse.shape == delta.shape == q.shape[:3],
+           "dO must match q; lse and delta must be (B, S, H) float32")
+
+
+def _launch(name, q, k, ptrs, scale, causal):
+    b, sq, h, d = q.shape
+    fn = _kernel_fns()[name]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[q.dtype], *[x.data_ptr() for x in ptrs], b, h,
+                 sq, k.shape[1], d, float(scale), int(bool(causal)),
+                 stream)
+    if err:
+        raise RuntimeError(f"flash_{name} kernel launch failed (code {err})")
+
+
+def flash_fwd(q, k, v, scale, causal):
+    """Forward: (o, lse) of q (B, Sq, H, D) against k, v (B, Skv, H, D)."""
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, scale, causal)
+    global fwd_launches
+    _check_cuda(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("fwd", q, k, (q, k, v, o, lse), scale, causal)
+    fwd_launches += 1
+    return o, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, scale, causal):
+    """dq from the saved lse and delta = rowsum(dO∘O) − g_lse."""
+    if q.device.type == "cpu":
+        return flash_dq_ref(q, k, v, do, lse, delta, scale, causal)
+    global dq_launches
+    _check_cuda_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _launch("dq", q, k, (q, k, v, do, lse, delta, dq), scale, causal)
+    dq_launches += 1
+    return dq
+
+
+def flash_dkdv(q, k, v, do, lse, delta, scale, causal):
+    """(dk, dv) from the saved lse and delta."""
+    if q.device.type == "cpu":
+        return flash_dkdv_ref(q, k, v, do, lse, delta, scale, causal)
+    global dkdv_launches
+    _check_cuda_bwd(q, k, v, do, lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("dkdv", q, k, (q, k, v, do, lse, delta, dk, dv), scale, causal)
+    dkdv_launches += 1
+    return dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """(o, lse) with the FlashAttention-2 backward; both outputs are
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros_like(o)
+        # with lse an output, dS gains + g_lse·P: fold it into delta
+        delta = (g.float() * o.float()).sum(dim=-1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        g = g.to(q.dtype).contiguous()
+        delta = delta.contiguous()
+        dq = flash_dq(q, k, v, g, lse, delta, ctx.scale, ctx.causal)
+        dk, dv = flash_dkdv(q, k, v, g, lse, delta, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = False,
+                             scale: float | None = None):
+    """Tiled online-softmax attention over (B, S, H, D) that also returns
+    the per-row logsumexp (B, S, H) f32 of the scaled scores. Both
+    outputs are differentiable."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    return _Flash.apply(q, k, v, scale, bool(causal))
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    scale: float | None = None):
+    """Attention over (B, S, H, D) through the flash kernels;
+    differentiable via the fused FlashAttention-2 backward."""
+    o, _ = flash_attention_with_lse(q, k, v, causal=causal, scale=scale)
+    return o

@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA
-card: build every kernel from the checkout's sources, hold each against
-its plain PyTorch version at the shapes the serving path gives it, then
-serve requests end to end through ``ContinuousBatcher`` at the full width
-of the flagship LM (d_model 1024, 12 layers, 8 heads, 2 kv heads, RoPE,
-vocab 32768) with weights made from a seed.
+card: build every kernel from the checkout's sources (one nvcc per
+source, all at once) and hold each against its plain PyTorch version at
+the shapes its path gives it, then drive both main paths end to end at
+the full width of the flagship LM with weights made from a seed:
+
+- ``[serve]``: 16 requests through ``ContinuousBatcher`` (d_model 1024,
+  12 layers, 8 heads, 2 kv heads, RoPE, vocab 32768) — paged attention;
+- ``[train]``: the port's train main (``models/transformer/train.py``)
+  on a generated text, at the ``bench.py:1040-1063`` training geometry
+  (learned positions, full MHA, batch 4 x 2048, bf16 policy) for two
+  epochs — flash attention forward, dq and dkdv.
 
     python3 chip_smoke.py [--seed N]
 
@@ -18,10 +24,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +39,7 @@ import torch
 # the card's published peaks (H100 SXM data sheet), for the bounds
 _HBM_BYTES_PER_S = 3.35e12
 _BF16_FLOPS = 989e12
+_F32_FLOPS = 67e12          # CUDA-core f32 (the f32 kernels do f32 math)
 _FLUSH_BYTES = 256 << 20    # > 50 MB L2, and long enough to hide launches
 _DEV = "cuda"
 
@@ -50,6 +60,35 @@ _TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 #: travels through 12 blocks; bounded relative to the logits' scale
 _LOGIT_REL_TOL = 0.1
 
+# the training geometry (bench.py:1040-1063, learned positions, full MHA)
+_TRAIN = dict(vocab=32768, d_model=1024, heads=8, layers=12, seq=2048,
+              batch=4, epochs=2)
+#: flash kernel vs plain, element by element: |kernel - plain| <=
+#: rtol·|plain| + atol·rms(plain), the rms over the whole output, as
+#: (rtol, atol) by dtype and output. bf16: where the f32 sums differ in
+#: order an element rounds at most one bf16 step (2^-7·|plain|) away. o
+#: also differs before rounding: the forward rounds P to bf16 at each
+#: tile's running max, the plain version at the row's final max (2^-8
+#: relative per weight, so about 0.3 % of a row's typical |o|); 0.05·rms
+#: is some ten times the largest such difference expected at the train
+#: shapes, where a typical late row's |o| is itself about 0.4·rms. The
+#: backward rounds the same P and dS and agrees bit for bit: one bf16
+#: step of the element and of the rms. f32 rounds nothing: sum order
+#: alone. lse is f32 on both sides and held absolutely.
+_FLASH_TOL = {(torch.bfloat16, "o"): (2 ** -7, 0.05),
+              (torch.bfloat16, "grad"): (2 ** -7, 2 ** -7),
+              (torch.float32, "o"): (1e-5, 1e-4),
+              (torch.float32, "grad"): (1e-5, 1e-4)}
+_LSE_TOL = 1e-4
+#: kernel vs flash=False on one training batch under the bf16 policy:
+#: both round attention outputs to bf16; the kernel rounds P and dS to
+#: bf16 before their products where the plain path keeps f32, so the
+#: loss (about 10.4) moves in its 5th digit or later, and a gradient
+#: element by a few bf16 steps of the gradients through 12 blocks,
+#: bounded relative to the largest element
+_TRAIN_LOSS_TOL = 1e-3
+_TRAIN_GRAD_REL_TOL = 5e-2
+
 
 def _card() -> str:
     return subprocess.run(
@@ -59,16 +98,19 @@ def _card() -> str:
 
 
 def _print_ptxas(report: str) -> None:
-    """Registers and spills of each paged-attention instantiation, from
-    the compiler's ``-Xptxas=-v`` report (pool type, head dim, rows per
-    warp)."""
+    """Registers and spills of each kernel instantiation, from the
+    compiler's ``-Xptxas=-v`` report (kernel, type, head dim and, for
+    paged attention, rows per warp)."""
     name = None
     for line in report.splitlines():
-        m = re.search(r"entry function '\S*paged_attention_kernelI"
-                      r"(\w+?)Li(\d+)ELi(\d+)E", line)
+        m = re.search(r"entry function '\S*?(paged_attention|flash_fwd|"
+                      r"flash_dq|flash_dkdv)_kernelI(\w+?)Li(\d+)E"
+                      r"(?:Li(\d+)E)?", line)
         if m:
-            name = (f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
-                    f"D={m.group(2)} rows/warp={m.group(3)}")
+            name = (f"{m.group(1)} "
+                    f"{'bf16' if 'bfloat16' in m.group(2) else 'f32'} "
+                    f"D={m.group(3)}"
+                    + (f" rows/warp={m.group(4)}" if m.group(4) else ""))
         elif name and ("registers" in line or "spill" in line):
             print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -326,6 +368,329 @@ def phase_serve(pa, seed):
     return launches
 
 
+def _flash_bound(b, s, h, d, dtype, half_products):
+    """Least time for one flash kernel at (b, s, h, d), causal: each
+    input read once and each output written once over the memory rate,
+    vs the operations the causal half needs (2·d per (q, k) pair and
+    half-product) over the peak for the dtype's arithmetic."""
+    pairs = b * h * s * (s + 1) // 2
+    flops = 2 * d * half_products * pairs
+    elt = torch.finfo(dtype).bits // 8
+    rows = b * s * h
+    # fwd: q, k, v in, o and lse out; dq: q, k, v, dO, lse, delta in, dq
+    # out; dkdv: the same in, dk and dv out
+    tensors, row_arrays = {2: (4, 1), 3: (5, 2), 4: (6, 2)}[half_products]
+    bytes_ = tensors * rows * d * elt + row_arrays * rows * 4
+    peak = _BF16_FLOPS if dtype == torch.bfloat16 else _F32_FLOPS
+    tb, tf = bytes_ / _HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _flash_err(what, got, want):
+    """Max abs error of one flash output against its plain version, and
+    the worst ratio of an element's error to its limit (pass: <= 1)."""
+    diff = (got.float() - want.float()).abs()
+    if what == "lse":
+        limit = _LSE_TOL
+    else:
+        rtol, atol = _FLASH_TOL[(want.dtype, "o" if what == "o" else "grad")]
+        w = want.float()
+        limit = rtol * w.abs() + atol * w.square().mean().sqrt()
+    return float(diff.max()), float((diff / limit).max())
+
+
+def _flash_outputs(fa, q, k, v, do, scale, causal, kernel):
+    """o, lse, dq, dk, dv of the kernels (``kernel``) or their plain
+    versions, the backward from the plain forward's lse and delta."""
+    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do.float() * ro.float()).sum(-1)
+    if not kernel:
+        return (ro, rlse, fa.flash_dq_ref(q, k, v, do, rlse, delta, scale,
+                                          causal),
+                *fa.flash_dkdv_ref(q, k, v, do, rlse, delta, scale, causal))
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
+    return (o, lse, fa.flash_dq(q, k, v, do, rlse, delta, scale, causal),
+            *fa.flash_dkdv(q, k, v, do, rlse, delta, scale, causal))
+
+
+def _flash_compare(got, want, label):
+    """Max abs error of each output; raises where one is not finite or
+    past its limit."""
+    errs, worst = {}, {}
+    for what, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        errs[what], worst[what] = _flash_err(what, g, w)
+        if not (torch.isfinite(g).all() and worst[what] <= 1):
+            raise AssertionError(
+                f"flash {what} {label}: max abs err {errs[what]}, "
+                f"{worst[what]} x its limit")
+    return errs, worst
+
+
+def _flash_tails(fa, gen):
+    """Ragged tile tails on the card: sequence lengths that 64 does not
+    divide, Sq != Skv (non-causal), both head dims and dtypes."""
+    for b, sq, skv, h, d, causal, dtype in (
+            (2, 100, 100, 3, 64, True, torch.float32),
+            (2, 100, 77, 3, 64, False, torch.bfloat16),
+            (1, 130, 200, 2, 128, False, torch.float32),
+            (1, 130, 130, 2, 128, True, torch.bfloat16)):
+        q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
+                 .to(_DEV) for _ in range(2))
+        k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
+                .to(_DEV) for _ in range(2))
+        got = _flash_outputs(fa, q, k, v, do, d ** -0.5, causal, True)
+        torch.cuda.synchronize()
+        want = _flash_outputs(fa, q, k, v, do, d ** -0.5, causal, False)
+        label = (f"tails B={b} Sq={sq} Skv={skv} H={h} D={d} "
+                 f"causal={causal} {str(dtype)[6:]}")
+        errs, worst = _flash_compare(got, want, label)
+        print(f"[kernels] flash {label} max abs errs " + json.dumps(errs)
+              + " worst error / limit " + json.dumps(worst), flush=True)
+
+
+def phase_flash(fa, gen):
+    """The three flash kernels vs their plain versions at the training
+    shapes (B4 S2048 H8 D128, causal), bf16 and f32; SDPA as the library
+    yardstick (forward; backward = autograd's fwd+bwd minus fwd, one call
+    that gives dq, dk and dv together)."""
+    import torch.nn.functional as F
+    _flash_tails(fa, gen)
+    b, s, h, d = (_TRAIN["batch"], _TRAIN["seq"], _TRAIN["heads"],
+                  _TRAIN["d_model"] // _TRAIN["heads"])
+    scale = d ** -0.5
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(dtype)
+                       .to(_DEV) for _ in range(4))
+        got = _flash_outputs(fa, q, k, v, do, scale, True, True)
+        torch.cuda.synchronize()
+        want = _flash_outputs(fa, q, k, v, do, scale, True, False)
+        errs, worst = _flash_compare(got, want, f"[{name}]")
+        rlse = want[1]
+        delta = (do.float() * want[0].float()).sum(-1)
+        del got, want
+        # the library's layout is (B, H, S, D): transposed copies, made
+        # outside the timed calls
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            out.backward(dot)
+
+        lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        lib_bwd = _time_ms(sdpa_fwd_bwd) - lib_fwd
+        kernels = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
+                          lambda: fa.flash_fwd_ref(q, k, v, scale, True),
+                          2, lib_fwd, max(errs["o"], errs["lse"])),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, rlse, delta,
+                                             scale, True),
+                         lambda: fa.flash_dq_ref(q, k, v, do, rlse, delta,
+                                                 scale, True),
+                         3, lib_bwd, errs["dq"]),
+            "flash_dkdv": (lambda: fa.flash_dkdv(q, k, v, do, rlse, delta,
+                                                 scale, True),
+                           lambda: fa.flash_dkdv_ref(q, k, v, do, rlse,
+                                                     delta, scale, True),
+                           4, lib_bwd, max(errs["dk"], errs["dv"])),
+        }
+        for kname, (kern, plain, halves, lib, err) in kernels.items():
+            bound, by = _flash_bound(b, s, h, d, dtype, halves)
+            row = dict(max_abs_err=err, ms=_time_ms(kern),
+                       plain_ms=_time_ms(plain), bound_ms=bound,
+                       bound_by=by, library_ms=lib)
+            rows[(kname, dtype)] = row
+            print(f"[kernels] {kname}[{name}] B={b} S={s} H={h} D={d} "
+                  f"causal " + json.dumps(row), flush=True)
+        o_tol, g_tol = (_FLASH_TOL[(dtype, w)] for w in ("o", "grad"))
+        print(f"[kernels] flash [{name}] max abs errs vs plain "
+              + json.dumps(errs) + " worst error / limit "
+              + json.dumps(worst) + f" (limit rtol·|plain| + atol·"
+              f"rms(plain): o {o_tol}, dq/dk/dv {g_tol}; lse {_LSE_TOL})",
+              flush=True)
+        del q, k, v, do, qt, kt, vt, dot, qg, kg, vg
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _write_text(folder: Path, seed: int, vocab_words: int) -> None:
+    """About 20 sentences of about 2100 words, every word w0..w{n-1} at
+    least once, order and fill drawn from the seed."""
+    rs = np.random.default_rng(seed)
+    n_sent, per = 20, 2100
+    words = np.concatenate([rs.permutation(vocab_words),
+                            rs.integers(0, vocab_words,
+                                        size=n_sent * per - vocab_words)])
+    rs.shuffle(words)
+    lines = [" ".join(f"w{i}" for i in chunk) + "."
+             for chunk in np.split(words, n_sent)]
+    (folder / "input.txt").write_text(" ".join(lines))
+
+
+def phase_train(fa, seed):
+    """The port's train main at the flagship training geometry: two
+    epochs of SGD on a generated text, then one batch once more with the
+    plain attention (``flash=False``) to hold loss and gradients."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.transformer import train
+    from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    set_policy(DTypePolicy(param_dtype=torch.float32,
+                           compute_dtype=torch.bfloat16,
+                           activation_dtype=torch.bfloat16))
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        folder = Path(tmp)
+        _write_text(folder, seed, _TRAIN["vocab"] - 1)
+        torch.manual_seed(seed)
+        RandomGenerator.set_seed(seed)
+        torch.cuda.reset_peak_memory_stats()
+        fa.fwd_launches = fa.dq_launches = fa.dkdv_launches = 0
+        t0 = time.perf_counter()
+        opt = train.main(["-f", str(folder), "--vocabSize",
+                          str(_TRAIN["vocab"] - 1), "--dModel",
+                          str(_TRAIN["d_model"]), "--numHeads",
+                          str(_TRAIN["heads"]), "--numLayers",
+                          str(_TRAIN["layers"]), "--seqLength",
+                          str(_TRAIN["seq"]), "-b", str(_TRAIN["batch"]),
+                          "-e", str(_TRAIN["epochs"]), "--device", _DEV])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                    "dkdv": fa.dkdv_launches}
+        peak = torch.cuda.max_memory_allocated()
+    model, hist = opt.model, opt.history
+    losses = [h["loss"] for h in hist]
+    steps = len(hist)
+    val_batches = sum(1 for _ in opt.validation_dataset.data(train=False))
+    passes = len(opt.validation_results)
+    layers = _TRAIN["layers"]
+    expect = {"fwd": layers * (steps + passes * val_batches),
+              "dq": layers * steps, "dkdv": layers * steps}
+    if launches != expect:
+        raise AssertionError(f"flash launches {launches}, expected "
+                             f"{expect} ({steps} steps, {passes} x "
+                             f"{val_batches} validation batches)")
+    if not all(math.isfinite(x) for x in losses) or steps == 0:
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if abs(losses[0] - math.log(_TRAIN["vocab"])) > 0.5:
+        raise AssertionError(f"first loss {losses[0]} not within 0.5 of "
+                             f"ln {_TRAIN['vocab']}")
+    timed = sum(h["step_time"] for h in hist[1:])
+    card = _card()
+    val = [round(r["Loss"].result()[0], 6) for _, r in
+           opt.validation_results]
+    print(f"[train] card='{card}' steps={steps} losses={losses} "
+          f"validation_losses={val} flash_launches={launches} "
+          f"(={layers}x{steps} bwd, {layers}x({steps}+{passes}x"
+          f"{val_batches}) fwd)",
+          flush=True)
+    print(f"[train] card='{card}' wall_s={wall} steps_per_s="
+          f"{(steps - 1) / timed} tokens_per_s="
+          f"{(steps - 1) * _TRAIN['batch'] * _TRAIN['seq'] / timed} "
+          f"(over steps 2..{steps}, host step times with the loss "
+          f"readback shared across each window) peak_mem_bytes={peak}",
+          flush=True)
+
+    # one batch through the kernels and through the plain attention
+    batch = next(iter(opt.validation_dataset.data(train=False)))
+    data = torch.as_tensor(batch.data).to(_DEV)
+    labels = torch.as_tensor(batch.labels).to(_DEV)
+    crit = nn.CrossEntropyCriterion()
+    watch = {"lm_head.weight": model[layers + 2].weight,
+             "block_0.q_weight": model[1][0][1].q_weight}
+    out = {}
+    model.train()
+    for mode in ("auto", False):
+        loss = crit(model(data, flash=mode), labels)
+        grads = torch.autograd.grad(loss, list(watch.values()))
+        out[mode] = (float(loss.detach()), grads)
+        del loss
+        torch.cuda.empty_cache()
+    model.evaluate()
+    dloss = abs(out["auto"][0] - out[False][0])
+    report = {"loss_kernel": out["auto"][0], "loss_plain": out[False][0],
+              "loss_diff": dloss}
+    if not dloss <= _TRAIN_LOSS_TOL:
+        raise AssertionError(f"kernel vs plain loss differ by {dloss}")
+    for name, gk, gp in zip(watch, out["auto"][1], out[False][1]):
+        diff = float((gk - gp).abs().max())
+        scale = float(gp.abs().max())
+        report[name] = {"max_abs_diff": diff, "max_abs_grad": scale}
+        if not (torch.isfinite(gk).all()
+                and diff <= _TRAIN_GRAD_REL_TOL * scale):
+            raise AssertionError(f"kernel vs plain grad of {name} differs "
+                                 f"by {diff} > {_TRAIN_GRAD_REL_TOL} x "
+                                 f"{scale}")
+    print(f"[train] kernel vs flash=False on one batch (bf16 policy): "
+          + json.dumps(report) + f" tol loss {_TRAIN_LOSS_TOL}, grads "
+          f"{_TRAIN_GRAD_REL_TOL} x max|grad|", flush=True)
+    _profile_steps(model, data, labels, card)
+    return launches
+
+
+def _profile_steps(model, data, labels, card, steps=2):
+    """Where a training step's device time goes: two more train steps
+    (the train main's step function, SGD as train.py sets it) under
+    ``torch.profiler``, kernel time summed by kind, and the device's
+    busy share of the window's wall clock. Runs after every check, so
+    the launches it makes are in no count."""
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.optim.accumulation import make_train_step
+    params = dict(model.named_parameters())
+    sgd = SGD(learning_rate=0.02, learning_rate_decay=0.001)
+    step = make_train_step(fwd=model, criterion=nn.CrossEntropyCriterion(),
+                           params=params, update_fn=sgd.update)
+    state = sgd.init_state(params)
+    model.train()
+    state, _ = step(state, data, labels, 1)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, loss = step(state, data, labels, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    model.evaluate()
+    kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key
+        low = name.lower()
+        kind = ("flash" if "flash_" in low else
+                "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma",
+                                                 "nvjet", "cublas", "sm90_"))
+                else "other")
+        kinds[kind] += us / 1e3 / steps
+        top.append((us / 1e3 / steps, e.count // steps, name[:60]))
+    busy = sum(kinds.values())
+    top.sort(reverse=True)
+    print(f"[train] card='{card}' profile of {steps} steps at "
+          f"B{data.shape[0]} S{data.shape[1]}: wall_ms_per_step="
+          f"{wall_ms / steps} device_ms_per_step={busy} "
+          f"(flash kernels {kinds['flash']}, GEMMs {kinds['gemm']}, "
+          f"other {kinds['other']}) device_idle_share="
+          f"{1 - busy / (wall_ms / steps) if busy else 'not measured'}",
+          flush=True)
+    for ms, n, name in top[:8]:
+        print(f"[train]   {ms:.4f} ms/step in {n} launches/step: {name}",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -335,6 +700,7 @@ def main(argv=None) -> int:
               "card", file=sys.stderr)
         return 2
     from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops import paged_attention as pa
 
     card = _card()
@@ -346,24 +712,40 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    lib = _build.load_library("paged_attention.cu")
-    print(f"[build] paged_attention.cu -> {lib._name} in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    _print_ptxas(Path(lib._name).with_suffix(".ptxas.txt").read_text())
+    sources = ("paged_attention.cu", "flash_attention.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(_build.load_library, sources))
+    print(f"[build] {' + '.join(sources)} (one nvcc each, in parallel) "
+          f"in {time.perf_counter() - t0:.3f} s", flush=True)
+    for lib in libs:
+        _print_ptxas(Path(lib._name).with_suffix(".ptxas.txt").read_text())
 
     gen = torch.Generator().manual_seed(args.seed)
     rows = phase_kernels(pa, gen)
+    flash_rows = phase_flash(fa, gen)
     launches = phase_serve(pa, args.seed)
+    flash_launches = phase_train(fa, args.seed)
 
     dec = rows["decode"]
     err = max(r["max_abs_err"] for r in rows.values())
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
         "launches": launches, "max_abs_err": err, "ms": dec["ms"],
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"]}]}))
+        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"]}]
+    # the main path trains in bf16: its rows are the bf16 measurements
+    for name, line, count in (("flash_fwd", 190, "fwd"),
+                              ("flash_dq", 306, "dq"),
+                              ("flash_dkdv", 322, "dkdv")):
+        row = flash_rows[(name, torch.bfloat16)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": flash_launches[count], **row})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,166 @@
+"""The port's flash attention (bigdl_tpu_torch.ops.flash_attention) and
+attention core (parallel.sequence.dot_product_attention) against the JAX
+package's Pallas kernel, run as its own tests run it on the CPU
+(interpret mode), and against its XLA path.
+
+On the CPU the port's wrappers take their plain versions
+(``flash_fwd_ref``, ``flash_dq_ref``, ``flash_dkdv_ref``) inside the same
+``autograd.Function`` the card runs, so these tests hold the yardsticks
+that ``chip_smoke.py`` compares the CUDA kernels with to the JAX kernels,
+backward and lse cotangent included.
+
+Tolerances. float32: 2e-5 on o and lse, 5e-5 on the gradients: the same
+math, sums in another order. bfloat16 (inputs, o and the gradients in
+bf16): 2e-2 absolute on values of order 1 — one bf16 rounding step
+(2^-8 relative) of the output, plus P rounded to bf16 at different
+points of the two online softmaxes; lse stays f32 and is held at 1e-4.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bigdl_tpu.ops.pallas import flash_attention as jfa
+from bigdl_tpu.parallel import sequence as jseq
+from bigdl_tpu_torch.ops import flash_attention as tfa
+from bigdl_tpu_torch.parallel import sequence as tseq
+
+_DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5, 5e-5),
+           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2, 2e-2)}
+
+
+def _inputs(b, s, h, d, seed=0, kv=None, skv=None):
+    rs = np.random.default_rng(seed)
+    kv = kv or h
+    skv = skv or s
+    q = rs.standard_normal((b, s, h, d), np.float32)
+    k = rs.standard_normal((b, skv, kv, d), np.float32)
+    v = rs.standard_normal((b, skv, kv, d), np.float32)
+    g = rs.standard_normal((b, s, h, d), np.float32)
+    g_lse = rs.standard_normal((b, s, h), np.float32)
+    return q, k, v, g, g_lse
+
+
+def _close(got, want, tol, what):
+    got = got.detach().float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_matches_jax_kernel(causal, dtype):
+    """o, lse and dq/dk/dv of (o, lse) with nonzero cotangents on both
+    (the analogue of tests/test_flash_attention.py's lse-cotangent test),
+    at (B2, S128, H2, D64)."""
+    jdt, tdt, tol, gtol = _DTYPES[dtype]
+    q, k, v, g, g_lse = _inputs(2, 128, 2, 64)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+
+    def jf(q_, k_, v_):
+        return jfa.flash_attention_with_lse(q_, k_, v_, causal=causal,
+                                            interpret=True)
+
+    (jo, jlse), vjp = jax.vjp(jf, jq, jk, jv)
+    jdq, jdk, jdv = vjp((jnp.asarray(g, jdt), jnp.asarray(g_lse)))
+
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    to, tlse = tfa.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    assert to.dtype == tdt and tlse.dtype == torch.float32
+    assert tlse.shape == (2, 128, 2)
+    tdq, tdk, tdv = torch.autograd.grad(
+        (to.float() * torch.from_numpy(g).to(tdt).float()).sum()
+        + (tlse * torch.from_numpy(g_lse)).sum(), (tq, tk, tv))
+    _close(to, jo, tol, "o")
+    _close(tlse, jlse, 1e-4 if dtype == "bf16" else tol, "lse")
+    for name, got, want in (("dq", tdq, jdq), ("dk", tdk, jdk),
+                            ("dv", tdv, jdv)):
+        assert got.dtype == tdt, name
+        _close(got, want, gtol, name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_plain_versions_agree_with_one_autograd_function(causal):
+    """The three plain kernel versions, composed by ``_Flash``, equal
+    autograd through ``flash_attention_ref`` (f32, ragged S = 37 and a
+    different key length when not causal): 2e-5."""
+    q, k, v, g, g_lse = _inputs(2, 37, 3, 64, seed=1,
+                                skv=37 if causal else 29)
+    grads = []
+    for fn in (tfa.flash_attention_with_lse, tfa.flash_attention_ref):
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_()
+                      for x in (q, k, v))
+        o, lse = fn(tq, tk, tv, causal=causal)
+        loss = (o * torch.from_numpy(g)).sum() \
+            + (lse * torch.from_numpy(g_lse)).sum()
+        grads.append((o, lse) + torch.autograd.grad(loss, (tq, tk, tv)))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=2e-5, rtol=2e-5)
+
+
+def test_cpu_path_counts_no_kernel_launches():
+    q, k, v, _, _ = _inputs(1, 16, 1, 64)
+    before = (tfa.fwd_launches, tfa.dq_launches, tfa.dkdv_launches)
+    tq = torch.from_numpy(q).requires_grad_()
+    tfa.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v),
+                        causal=True).sum().backward()
+    assert (tfa.fwd_launches, tfa.dq_launches, tfa.dkdv_launches) == before
+
+
+@pytest.mark.parametrize("flash", ["auto", False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dot_product_attention_gqa_matches_jax_xla_path(causal, flash):
+    """GQA widening (repeat_interleave = jnp.repeat on the head axis),
+    then the port's attention core (flash "auto": the flash path; False:
+    the plain f32 path) against JAX's XLA path at f32: 2e-5."""
+    q, k, v, _, _ = _inputs(2, 48, 4, 64, seed=2, kv=2)
+    jk = jnp.repeat(jnp.asarray(k), 2, axis=2)
+    jv = jnp.repeat(jnp.asarray(v), 2, axis=2)
+    want = jseq.dot_product_attention(jnp.asarray(q), jk, jv, causal=causal,
+                                      flash=False)
+    tk = torch.repeat_interleave(torch.from_numpy(k), 2, dim=2)
+    tv = torch.repeat_interleave(torch.from_numpy(v), 2, dim=2)
+    got = tseq.dot_product_attention(torch.from_numpy(q), tk, tv,
+                                     causal=causal, flash=flash)
+    _close(got, want, 2e-5, "o")
+
+
+def test_dot_product_attention_offsets_and_unsupported_shapes():
+    """Causal offsets take the plain path (as in the JAX package);
+    flash=True refuses what the kernels do not take; head dim 16 on CPU
+    tensors takes the plain path under "auto"."""
+    q, k, v, _, _ = _inputs(1, 8, 2, 16, seed=3)
+    want = jseq.dot_product_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=True,
+                                      q_offset=4, kv_offset=2, flash=False)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = tseq.dot_product_attention(tq, tk, tv, causal=True, q_offset=4,
+                                     kv_offset=2)
+    _close(got, want, 2e-5, "offsets")
+    with pytest.raises(ValueError, match="flash=True"):
+        tseq.dot_product_attention(tq, tk, tv, flash=True)
+    assert not tfa.flash_supported(tq, tk)
+    q64, k64, _, _, _ = _inputs(1, 8, 2, 64, seed=3)
+    assert tfa.flash_supported(torch.from_numpy(q64), torch.from_numpy(k64))
+    with pytest.raises(ValueError, match="flash=True"):
+        tseq.dot_product_attention(torch.from_numpy(q64),
+                                   torch.from_numpy(k64),
+                                   torch.from_numpy(k64), causal=True,
+                                   q_offset=1, flash=True)
+
+
+@pytest.mark.parametrize("what", ["head_dim", "offsets"])
+def test_auto_refuses_unsupported_calls_off_the_cpu(what):
+    """Off the CPU (meta tensors stand in for the card's here), "auto"
+    raises where the kernels do not take the call instead of quietly
+    building the (B, H, S, S) plain path; flash=False still takes it."""
+    d, kw = {"head_dim": (16, {}),
+             "offsets": (64, dict(q_offset=4, kv_offset=2))}[what]
+    q = torch.empty((1, 8, 2, d), device="meta")
+    with pytest.raises(ValueError, match="flash=False takes the plain"):
+        tseq.dot_product_attention(q, q, q, causal=True, **kw)
+    o = tseq.dot_product_attention(q, q, q, causal=True, flash=False, **kw)
+    assert o.shape == q.shape and o.device.type == "meta"

@@ -1,6 +1,7 @@
-"""The port runs without JAX: importing it, down to the serving path,
-loads neither ``jax`` nor any module of ``bigdl_tpu`` (checked in a fresh
-interpreter, since this test process has both loaded)."""
+"""The port runs without JAX: importing it, down to the serving and the
+training paths, loads neither ``jax`` nor any module of ``bigdl_tpu``
+(checked in a fresh interpreter, since this test process has both
+loaded)."""
 import os
 import subprocess
 import sys
@@ -12,6 +13,16 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
     code = ("import sys\n"
             "import bigdl_tpu_torch\n"
             "import bigdl_tpu_torch.models.transformer.serving\n"
+            "import bigdl_tpu_torch.models.transformer.train\n"
+            "import bigdl_tpu_torch.models.utils.text_lm\n"
+            "import bigdl_tpu_torch.ops.flash_attention\n"
+            "import bigdl_tpu_torch.parallel.sequence\n"
+            "import bigdl_tpu_torch.optim\n"
+            "import bigdl_tpu_torch.optim.accumulation\n"
+            "import bigdl_tpu_torch.optim.validation\n"
+            "import bigdl_tpu_torch.dataset\n"
+            "import bigdl_tpu_torch.dataset.text\n"
+            "import bigdl_tpu_torch.utils.random\n"
             "import bigdl_tpu_torch.interop\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith(('jax.', 'jaxlib'))\n"

@@ -71,12 +71,6 @@ def test_load_jax_params_is_strict():
         load_jax_params(tm, tree)
 
 
-def test_full_forward_waits_for_the_training_slice():
-    _, tm, _ = _models()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(torch.ones((1, 4), dtype=torch.int64))
-
-
 def test_block_helpers_parity():
     """_ln / _proj / _ffn / _embed / _rope_rows on the same inputs and
     weights."""
