@@ -19,7 +19,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build_dir", "find_nvcc", "load_library"]
+__all__ = ["build_copy", "build_dir", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -46,6 +46,27 @@ def find_nvcc() -> str:
                        "first use")
 
 
+def _nvcc(cu, lib) -> str:
+    """Compile ``cu`` into the shared library ``lib``; the compiler's
+    register/spill report."""
+    proc = subprocess.run([find_nvcc(), *ARCH_FLAGS, *FLAGS, "-o", str(lib),
+                           str(cu)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr}")
+    return proc.stderr
+
+
+def build_copy(text: str, out: Path) -> ctypes.CDLL:
+    """Build ``text``, an edited copy of a ``csrc/`` source, as
+    ``out.cu`` into ``out.so`` and load it (for the scripts that plant
+    faults or knock parts out of a kernel; ``out`` lies outside the
+    checkout)."""
+    cu, lib = out.with_suffix(".cu"), out.with_suffix(".so")
+    cu.write_text(text)
+    _nvcc(cu, lib)
+    return ctypes.CDLL(str(lib))
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """The ctypes handle of ``csrc/<source>``, built if needed. The
     compiler's register/spill report is kept beside the library as
@@ -64,12 +85,8 @@ def load_library(source: str) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [nvcc, *ARCH_FLAGS, *FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True)
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-            lib.with_suffix(".ptxas.txt").write_text(proc.stderr)
+            report = _nvcc(src, tmp)
+            lib.with_suffix(".ptxas.txt").write_text(report)
             os.replace(tmp, lib)       # atomic: concurrent builders agree
         finally:
             if os.path.exists(tmp):

@@ -25,9 +25,7 @@ iteration could pick the wrong half of the K/V double buffer:
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -54,17 +52,6 @@ FAULTS = {
 }
 
 
-def _build_copy(src: str, out: Path) -> ctypes.CDLL:
-    cu, lib = out.with_suffix(".cu"), out.with_suffix(".so")
-    cu.write_text(src)
-    proc = subprocess.run([_build.find_nvcc(), *_build.ARCH_FLAGS,
-                           *_build.FLAGS, "-o", str(lib), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr}")
-    return ctypes.CDLL(str(lib))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -88,7 +75,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(sources)) as pool:
             libs = dict(zip(sources, pool.map(
-                lambda kv: _build_copy(kv[1], Path(tmp) / kv[0]),
+                lambda kv: _build.build_copy(kv[1], Path(tmp) / kv[0]),
                 sources.items())))
         for name, lib in libs.items():
             fns = fa.bind(lib)

@@ -1,0 +1,185 @@
+"""The port's fused LM-head cross-entropy (bigdl_tpu_torch.ops.fused_ce)
+against the JAX package's Pallas kernel, run as its own tests run it on
+the CPU (``use_kernel=True, interpret=True``), and against its XLA path
+(``use_kernel=False``).
+
+On the CPU the port's wrappers take their plain versions
+(``fused_ce_fwd_ref``, ``fused_ce_dh_ref``, ``fused_ce_dw_ref``) inside
+the same ``autograd.Function`` the card runs, so these tests hold the
+yardsticks that ``chip_smoke.py`` compares the CUDA kernels with to the
+JAX kernels, values and gradients.
+
+Tolerances. float32: rtol 2e-5 (atol 1e-6 on the gradients, whose
+smallest elements are near 0): the same math, sums in another order.
+bfloat16 (h and W in bf16, the bias f32): the loss is f32 on both sides
+and differs in summation order only (rtol 1e-5); dh and dW come out in
+bf16, and a sum that lands near a rounding boundary may round to the
+neighbouring bf16 value on one side, one step of 2^-8 relative, so they
+are held at rtol 2^-7 plus atol 2^-7·max|grad|; db stays f32 (rtol
+2e-5).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bigdl_tpu.ops.pallas import fused_ce as jce
+from bigdl_tpu_torch.ops import fused_ce as tce
+
+
+def _case(n=256, d=128, v=512, seed=0):
+    rs = np.random.default_rng(seed)
+    h = (0.5 * rs.standard_normal((n, d))).astype(np.float32)
+    w = (0.5 * rs.standard_normal((v, d)) / np.sqrt(d)).astype(np.float32)
+    b = (0.1 * rs.standard_normal((v,))).astype(np.float32)
+    t = rs.integers(1, v + 1, size=(n,)).astype(np.int32)
+    return h, w, b, t
+
+
+_DTYPES = {"f32": (jnp.float32, torch.float32),
+           "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _jax_value_and_grads(h, w, b, t, jdt, reduction="mean", **kw):
+    """Loss and (dh, dw[, db]) of the JAX function, as float32 numpy."""
+    args = [jnp.asarray(h, jdt), jnp.asarray(w, jdt)]
+    if b is not None:
+        args.append(jnp.asarray(b))
+
+    def f(*a):
+        bias = a[2] if b is not None else None
+        return jce.linear_cross_entropy(a[0], a[1], bias, jnp.asarray(t),
+                                        reduction=reduction, **kw)
+
+    loss, grads = jax.value_and_grad(f, argnums=tuple(range(len(args))))(
+        *args)
+    return float(loss), [np.asarray(jnp.asarray(g, jnp.float32))
+                         for g in grads]
+
+
+def _torch_value_and_grads(h, w, b, t, tdt, reduction="mean", **kw):
+    args = [torch.from_numpy(h).to(tdt).requires_grad_(),
+            torch.from_numpy(w).to(tdt).requires_grad_()]
+    if b is not None:
+        args.append(torch.from_numpy(b).requires_grad_())
+    loss = tce.linear_cross_entropy(args[0], args[1],
+                                    args[2] if b is not None else None,
+                                    torch.from_numpy(t),
+                                    reduction=reduction, **kw)
+    grads = torch.autograd.grad(loss, args)
+    for a, g in zip(args, grads):
+        assert g.dtype == a.dtype and g.shape == a.shape
+    return float(loss.detach()), [g.float().numpy() for g in grads]
+
+
+def _grad_close(got, want, dtype, what):
+    if dtype == "f32" or what == "db":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6,
+                                   err_msg=what)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2 ** -7,
+                                   atol=2 ** -7 * np.abs(want).max(),
+                                   err_msg=what)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_matches_jax_interpret_kernel(dtype, reduction):
+    """Loss and the gradients of h, W and b at (N, D, V) = (256, 128,
+    512) against the interpret-mode Pallas kernel."""
+    jdt, tdt = _DTYPES[dtype]
+    h, w, b, t = _case()
+    jl, jg = _jax_value_and_grads(h, w, b, t, jdt, reduction,
+                                  use_kernel=True, interpret=True)
+    tl, tg = _torch_value_and_grads(h, w, b, t, tdt, reduction)
+    np.testing.assert_allclose(tl, jl, rtol=2e-5 if dtype == "f32"
+                               else 1e-5)
+    for what, got, want in zip(("dh", "dw", "db"), tg, jg):
+        _grad_close(got, want, dtype, what)
+
+
+def test_no_bias_matches_jax():
+    h, w, _, t = _case(seed=1)
+    jl, jg = _jax_value_and_grads(h, w, None, t, jnp.float32,
+                                  use_kernel=True, interpret=True)
+    tl, tg = _torch_value_and_grads(h, w, None, t, torch.float32)
+    np.testing.assert_allclose(tl, jl, rtol=2e-5)
+    for what, got, want in zip(("dh", "dw"), tg, jg):
+        _grad_close(got, want, "f32", what)
+
+
+@pytest.mark.parametrize("bad", [0, 600])    # below 1 / above V = 512
+def test_out_of_contract_targets_match_jax(bad):
+    """A quarter of the targets out of [1, V]: their nll is lse and their
+    one-hot zero, on both sides."""
+    h, w, b, t = _case(seed=2)
+    t[:64] = bad
+    jl, jg = _jax_value_and_grads(h, w, b, t, jnp.float32, use_kernel=True,
+                                  interpret=True)
+    tl, tg = _torch_value_and_grads(h, w, b, t, torch.float32)
+    np.testing.assert_allclose(tl, jl, rtol=2e-5)
+    for what, got, want in zip(("dh", "dw", "db"), tg, jg):
+        _grad_close(got, want, "f32", what)
+    nll, lse = tce.fused_ce_fwd_ref(*(torch.from_numpy(x) for x in (h, w, b)),
+                                    torch.from_numpy(t))
+    torch.testing.assert_close(nll[:64], lse[:64], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_use_kernel_false_matches_jax_xla_path(dtype):
+    """The materialised path (``linear_cross_entropy_ref``) against JAX's
+    ``use_kernel=False``, with an out-of-contract target among them; in
+    bf16 both round the logits to bf16 before adding the f32 bias."""
+    jdt, tdt = _DTYPES[dtype]
+    h, w, b, t = _case(seed=3)
+    t[5] = 0
+    jl, jg = _jax_value_and_grads(h, w, b, t, jdt, use_kernel=False)
+    tl, tg = _torch_value_and_grads(h, w, b, t, tdt, use_kernel=False)
+    np.testing.assert_allclose(tl, jl, rtol=2e-5 if dtype == "f32" else 1e-5)
+    for what, got, want in zip(("dh", "dw", "db"), tg, jg):
+        _grad_close(got, want, dtype, what)
+
+
+@pytest.mark.parametrize("v", [300, 50257 // 64])
+def test_plain_kernel_versions_agree_with_the_materialised_path(v):
+    """The three plain kernel versions, composed by ``_LinearCE``, equal
+    autograd through ``linear_cross_entropy_ref`` (f32, N = 100 and V not
+    a multiple of 128, one padding target): rtol 2e-5."""
+    h, w, b, t = _case(n=100, d=24, v=v, seed=4)
+    t[7] = 0
+    kl, kg = _torch_value_and_grads(h, w, b, t, torch.float32)
+    rl, rg = _torch_value_and_grads(h, w, b, t, torch.float32,
+                                    use_kernel=False)
+    np.testing.assert_allclose(kl, rl, rtol=2e-5)
+    for what, got, want in zip(("dh", "dw", "db"), kg, rg):
+        _grad_close(got, want, "f32", what)
+
+
+def test_cpu_path_counts_no_kernel_launches_and_refuses_bad_calls():
+    h, w, b, t = (torch.from_numpy(x) for x in _case(n=16, d=16, v=32))
+    before = (tce.fwd_launches, tce.dh_launches, tce.dw_launches)
+    hh = h.clone().requires_grad_()
+    tce.linear_cross_entropy(hh, w, b, t).backward()
+    assert (tce.fwd_launches, tce.dh_launches, tce.dw_launches) == before
+    assert tce.linear_ce_supported(h, w)
+    # fp16, or a feature width that is no multiple of 8: "auto" on CPU
+    # tensors takes the materialised path, True raises
+    for hb, wb in ((h.half(), w.half()), (h[:, :12], w[:, :12])):
+        assert not tce.linear_ce_supported(hb, wb)
+        want = tce.linear_cross_entropy_ref(hb.float(), wb.float(), b, t)
+        got = tce.linear_cross_entropy(hb, wb, b, t)
+        torch.testing.assert_close(got.float(), want, rtol=2e-3, atol=0)
+        with pytest.raises(ValueError, match="use_kernel=False"):
+            tce.linear_cross_entropy(hb, wb, b, t, use_kernel=True)
+
+
+def test_auto_refuses_unsupported_calls_off_the_cpu():
+    """Off the CPU (meta tensors stand in for the card's here), "auto"
+    raises where the kernels do not take the call (fp16) instead of
+    materialising the logits unseen."""
+    h = torch.empty((8, 16), dtype=torch.float16, device="meta")
+    w = torch.empty((32, 16), dtype=torch.float16, device="meta")
+    t = torch.ones(8, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="use_kernel=False takes"):
+        tce.linear_cross_entropy(h, w, None, t)

@@ -1,7 +1,7 @@
 """The port runs without JAX: importing it, down to the serving and the
-training paths, loads neither ``jax`` nor any module of ``bigdl_tpu``
-(checked in a fresh interpreter, since this test process has both
-loaded)."""
+training paths and the throughput harness, loads neither ``jax`` nor any
+module of ``bigdl_tpu`` (checked in a fresh interpreter, since this test
+process has both loaded)."""
 import os
 import subprocess
 import sys
@@ -16,6 +16,8 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "import bigdl_tpu_torch.models.transformer.train\n"
             "import bigdl_tpu_torch.models.utils.text_lm\n"
             "import bigdl_tpu_torch.ops.flash_attention\n"
+            "import bigdl_tpu_torch.ops.fused_ce\n"
+            "import bigdl_tpu_torch.models.utils.perf\n"
             "import bigdl_tpu_torch.parallel.sequence\n"
             "import bigdl_tpu_torch.optim\n"
             "import bigdl_tpu_torch.optim.accumulation\n"
