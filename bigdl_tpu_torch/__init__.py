@@ -13,10 +13,15 @@ the caller passes another device.
 
 Ported so far: the serving path of the transformer LM
 (``models.transformer.serving.ContinuousBatcher``) with paged attention
-as a CUDA kernel (``ops.paged_attention``), and its training path
+as a CUDA kernel (``ops.paged_attention``); its training path
 (``models.transformer.train`` through ``optim.Optimizer``) with flash
-attention forward and backward as CUDA kernels (``ops.flash_attention``).
-See ROADMAP.md for the queue.
+attention forward and backward as CUDA kernels (``ops.flash_attention``);
+the throughput harness (``models.utils.perf``): the LM step with the
+fused LM-head cross-entropy kernels (``ops.fused_ce``) and the
+Inception-v1 step (``models.inception``) with the cross-map LRN kernels
+(``ops.lrn``). ``ops.maxpool.maxpool3x3s1`` holds the 3x3 / stride-1
+max-pool backward kernel, opt-in as in the JAX package. See ROADMAP.md
+for the queue.
 """
 
 __version__ = "0.1.0"

@@ -3,11 +3,22 @@
 seeded data, plus ``--device`` (default ``cuda``; ``cpu`` runs the
 kernels' plain versions).
 
+    python -m bigdl_tpu_torch.models.utils.perf -m inception_v1 \\
+        [-b 128] [--classNum 1000] [--dataType bf16|f32] [--device cuda]
     python -m bigdl_tpu_torch.models.utils.perf -m transformer \\
         [-b 8] [--seqLen 2048] [--dModel 512] [--numLayers 6] \\
         [--fusedHeadLoss auto|off] [--device cuda]
     python -m bigdl_tpu_torch.models.utils.perf -m attention [...]
 
+``-m inception_v1`` times the train step of
+``Inception_v1_NoAuxClassifier`` (ClassNLL, SGD(0.01, momentum 0.9),
+weights from seed 0, (B, 3, 224, 224) standard-normal images and 1-based
+labels from ``np.random.default_rng(0)``, the bf16 policy under
+``--dataType bf16``); its two LRN layers run the hand-written LRN
+kernels on the card, and its dropout draws from a generator seeded 0 on
+the device. In place of XLA's cost analysis it reports the analytic step
+FLOPs (counted by forward hooks on the first step) and the step's peak
+device memory.
 ``-m transformer`` times the LM train step (SGD(0.01), learned positions
 unless ``--posEncoding rope``, the bf16 policy under ``--dataType
 bf16``). With ``--fusedHeadLoss auto`` on the card it runs the body up to
@@ -18,8 +29,8 @@ the model's logits. In place of XLA's cost analysis it reports the
 analytic step FLOPs of ``bench.py`` and the step's peak device memory.
 ``-m attention`` times fwd+bwd of ``dot_product_attention`` with
 ``flash=True`` and ``flash=False``. Not ported yet, and refused:
-``-m decode`` (ROADMAP.md queue A step 3, ``generate``) and the conv
-models (steps 2 and 5).
+``-m decode`` (ROADMAP.md queue A step 3, ``generate``), ``lenet5`` and
+``inception_v2`` (step 2) and the other conv models (step 5).
 
 ``main`` returns what it measured (a dict) besides printing it.
 """
@@ -31,10 +42,14 @@ import time
 import numpy as np
 import torch
 
+#: conv models not ported yet, and the ROADMAP.md queue A step that
+#: brings them
 MODELS = {
-    "inception_v1": 2, "inception_v2": 2, "lenet5": 2,
+    "inception_v2": 2, "lenet5": 2,
     "vgg16": 5, "vgg19": 5, "alexnet": 5, "resnet50": 5,
 }
+#: ported conv models: constructor and image size
+CONV_MODELS = {"inception_v1": ("Inception_v1_NoAuxClassifier", 224)}
 
 
 def _attention_perf(args, device):
@@ -200,11 +215,113 @@ def _transformer_perf(args, device):
     return out
 
 
+def _flop_hooks(model):
+    """Forward hooks that add each conv's and linear's training FLOPs to
+    the returned list's one element: 2 per multiply-add of the forward,
+    times 3 for the forward, dx and dW, or 2 where the layer computes no
+    dx (``propagate_back=False``: ``conv1``). Returns (handles, total)."""
+    from bigdl_tpu_torch import nn
+    total = [0]
+
+    def conv(m, inp, out):
+        macs = out.numel() * m.weight[0].numel()
+        total[0] += 2 * macs * (3 if m.propagate_back else 2)
+
+    def linear(m, inp, out):
+        total[0] += 2 * out.numel() * m.input_size * 3
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, nn.SpatialConvolution):
+            handles.append(m.register_forward_hook(conv))
+        elif isinstance(m, nn.Linear):
+            handles.append(m.register_forward_hook(linear))
+    return handles, total
+
+
+def make_conv_step(model, sgd):
+    """``step(opt_state, data, labels, epoch) -> (opt_state, loss)``:
+    ``ClassNLLCriterion`` on the model's log-probabilities, autograd,
+    ``sgd.update`` in place."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim.accumulation import make_train_step
+    return make_train_step(fwd=model, criterion=nn.ClassNLLCriterion(),
+                           params=dict(model.named_parameters()),
+                           update_fn=sgd.update)
+
+
+def _conv_perf(args, device):
+    """Conv-model train-step throughput (records/s), as the JAX
+    harness's ``main`` sets it up."""
+    from bigdl_tpu_torch import models, nn
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
+
+    if args.dataType == "bf16":
+        set_policy(DTypePolicy(param_dtype=torch.float32,
+                               compute_dtype=torch.bfloat16,
+                               activation_dtype=torch.bfloat16))
+    ctor, size = CONV_MODELS[args.module]
+    b = args.batchSize
+    model = getattr(models, ctor)(args.classNum, device=device,
+                                  generator=torch.Generator().manual_seed(0))
+    model.train()
+    dropout_gen = torch.Generator(device=device).manual_seed(0)
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.generator = dropout_gen
+    sgd = SGD(learning_rate=0.01, momentum=0.9)
+    state = sgd.init_state(dict(model.named_parameters()))
+    step = make_conv_step(model, sgd)
+
+    host = np.random.default_rng(0)
+    data = torch.as_tensor(host.standard_normal(
+        (b, 3, size, size), np.float32)).to(device)
+    labels = torch.as_tensor(host.integers(
+        1, args.classNum + 1, size=(b,))).to(device)
+    handles, flops = _flop_hooks(model)      # the first step's FLOPs
+    try:
+        state, loss = step(state, data, labels, 1)
+    finally:
+        for h in handles:
+            h.remove()
+    flops = flops[0]
+    first = float(loss)
+    for _ in range(args.warmUp - 1):
+        state, loss = step(state, data, labels, 1)
+    float(loss)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(args.iteration):
+        state, loss = step(state, data, labels, 1)
+    final = float(loss)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    if not np.isfinite(final):
+        raise SystemExit(f"{args.module} perf run diverged: loss={final} "
+                         f"(throughput would be meaningless)")
+    out = {"first_loss": first, "final_loss": final,
+           "records_per_s": b * args.iteration / dt,
+           "ms_per_step": dt / args.iteration * 1e3,
+           "step_flops": flops,
+           "tflops": flops * args.iteration / dt / 1e12,
+           "peak_bytes": peak, "model": model, "data": data,
+           "labels": labels, "sgd": sgd, "opt_state": state}
+    print(f"{args.module}: {out['records_per_s']:.2f} records/second "
+          f"({out['ms_per_step']:.2f} ms/iteration, B{b} {size}x{size}, "
+          f"final loss {final:.4f}) [{out['tflops']:.1f} TFLOP/s analytic] "
+          f"peak memory "
+          + (f"{peak} bytes" if cuda else "not measured (CPU)"))
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="training perf harness")
     parser.add_argument("-m", "--module", default="inception_v1",
-                        choices=sorted(MODELS) + ["attention",
-                                                  "transformer", "decode"])
+                        choices=sorted([*MODELS, *CONV_MODELS])
+                        + ["attention", "transformer", "decode"])
     parser.add_argument("-b", "--batchSize", type=int, default=None,
                         help="default: 128 (conv models), 4 (attention), "
                              "8 (transformer)")
@@ -251,11 +368,14 @@ def main(argv=None):
     from bigdl_tpu_torch.tensor import resolve_device
     device = resolve_device(args.device)
     if args.batchSize is None:
-        args.batchSize = {"attention": 4, "transformer": 8}[args.module]
+        args.batchSize = {"attention": 4, "transformer": 8}.get(
+            args.module, 128)
     if args.seqLen is None:
         args.seqLen = 2048 if args.module == "transformer" else 4096
     if args.classNum is None:
-        args.classNum = 8192
+        args.classNum = 8192 if args.module == "transformer" else 1000
+    if args.module in CONV_MODELS:
+        return _conv_perf(args, device)
     if args.module == "attention":
         return _attention_perf(args, device)
     return _transformer_perf(args, device)

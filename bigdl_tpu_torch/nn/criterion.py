@@ -1,12 +1,13 @@
 """Criteria (counterpart of ``bigdl_tpu/nn/criterion.py``): the
-cross-entropy the transformer LM trains with. Targets are 1-based."""
+cross-entropy the transformer LM trains with and the ClassNLL of the conv
+models. Targets are 1-based."""
 from __future__ import annotations
 
 import torch
 
 from bigdl_tpu_torch.nn.module import Criterion
 
-__all__ = ["CrossEntropyCriterion"]
+__all__ = ["ClassNLLCriterion", "CrossEntropyCriterion"]
 
 
 def _nll_reduce(per, t, weights, size_average):
@@ -18,6 +19,23 @@ def _nll_reduce(per, t, weights, size_average):
         return total / torch.sum(w) if size_average else total
     total = torch.sum(per)
     return total / t.shape[0] if size_average else total
+
+
+class ClassNLLCriterion(Criterion):
+    """Negative log-likelihood of the 1-based ``target`` class in rows of
+    log-probabilities, reduced with optional per-class ``weights``."""
+
+    def __init__(self, weights=None, size_average: bool = True):
+        self.weights = None if weights is None else torch.as_tensor(weights)
+        self.size_average = size_average
+
+    def apply(self, x, target):
+        t = target.to(device=x.device).long().reshape(-1) - 1
+        logp = x.reshape(-1, x.shape[-1])
+        picked = torch.gather(logp, 1, t[:, None])[:, 0]
+        w = None if self.weights is None else self.weights.to(
+            device=x.device, dtype=logp.dtype)
+        return _nll_reduce(-picked, t, w, self.size_average)
 
 
 class CrossEntropyCriterion(Criterion):

@@ -1,0 +1,197 @@
+"""Cross-map LRN, forward and analytic backward (counterpart of
+``bigdl_tpu/ops/pallas/lrn.py``):
+
+    y = r · (k + α/n · Σ_win r²)^−β,    r = x, or max(x, 0) with ``relu``
+
+over the channels of an NCHW activation, the window of channel c being
+[c − half, c + n − 1 − half] with half = (n − 1) // 2 (asymmetric for an
+even n). The backward is the analytic one of the TPU kernel:
+
+    dx = g·s^−β − (2αβ/n) · r · Σ_adj (g·r·s^−β / s)
+
+summed over the adjoint (mirrored) window, and masked by x > 0 on the
+pre-ReLU x under ``relu``.
+
+Two kernels, each with its plain PyTorch version beside it:
+
+- ``lrn_fwd`` — read x, write y;
+- ``lrn_bwd`` — read g and x, recompute the window sums, write dx.
+
+On a CUDA tensor each launches the hand-written Hopper kernel of
+``csrc/lrn.cu`` (built at first use, see ``_build.py``) or raises; on a
+CPU tensor it takes its plain version (``lrn_ref`` / ``lrn_bwd_ref``).
+``lrn`` is a ``torch.autograd.Function`` that saves only x, as the JAX
+``custom_vjp`` does. All arithmetic is f32; inputs and outputs keep the
+activation dtype (float32 or bfloat16).
+
+``fwd_launches`` and ``bwd_launches`` count kernel launches, so a run
+can show its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.ops import pow_neg_beta
+
+__all__ = ["lrn", "lrn_fwd", "lrn_bwd", "lrn_ref", "lrn_bwd_ref",
+           "MAX_SIZE", "fwd_launches", "bwd_launches"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: widest window the kernels take (each size is its own instantiation,
+#: the window kept in registers)
+MAX_SIZE = 9
+
+#: kernel launches since import (reset by assigning 0)
+fwd_launches = 0
+bwd_launches = 0
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def _window_sum(v, size, adjoint=False):
+    """Sum over the size-wide channel window (NCHW axis 1) as shifted
+    slices of a zero-padded tensor. ``adjoint`` mirrors the window: the
+    sum over the windows that cover a channel."""
+    half = (size - 1) // 2
+    lo, hi = (size - 1 - half, half) if adjoint else (half, size - 1 - half)
+    c = v.shape[1]
+    p = F.pad(v, (0, 0, 0, 0, lo, hi))
+    out = p[:, 0:c]
+    for d in range(1, size):
+        out = out + p[:, d:d + c]
+    return out
+
+
+def _s(r, size, alpha, k):
+    return k + (alpha / size) * _window_sum(r * r, size)
+
+
+def lrn_ref(x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
+    """Plain version of :func:`lrn_fwd`: f32 math, y in x's dtype."""
+    r = x.float()
+    if relu:
+        r = torch.clamp_min(r, 0.0)
+    return (r * pow_neg_beta(_s(r, size, alpha, k), beta)).to(x.dtype)
+
+
+def lrn_bwd_ref(g, x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
+    """Plain version of :func:`lrn_bwd`: dx in x's dtype from the
+    cotangent g and the (pre-ReLU) input x, s recomputed in f32."""
+    xf, gf = x.float(), g.float()
+    r = torch.clamp_min(xf, 0.0) if relu else xf
+    s = _s(r, size, alpha, k)
+    sb = pow_neg_beta(s, beta)
+    acc = _window_sum(gf * r * sb / s, size, adjoint=True)
+    dx = gf * sb - (2.0 * alpha * beta / size) * r * acc
+    if relu:
+        dx = torch.where(xf > 0.0, dx, torch.zeros_like(dx))
+    return dx.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _kernel_fns():
+    """The typed C entries ``{"fwd", "bwd"}`` of csrc/lrn.cu, built at
+    first use."""
+    from bigdl_tpu_torch.ops._build import load_library
+    lib = load_library("lrn.cu")
+    tail = ([ctypes.c_int] * 4 + [ctypes.c_float] * 3
+            + [ctypes.c_int, ctypes.c_void_p])
+    fns = {}
+    for name, n_ptr in (("fwd", 2), ("bwd", 3)):
+        fn = getattr(lib, f"bigdl_lrn_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + tail
+        fns[name] = fn
+    return fns
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError(f"lrn: {msg}")
+
+
+def _check_cuda(x, size, *rest):
+    _check(x.is_cuda and all(t.device == x.device for t in rest),
+           "all tensors must be on one CUDA device")
+    _check(x.dim() == 4, f"need an NCHW tensor, got shape {tuple(x.shape)}")
+    _check(x.dtype in _DTYPE_CODES,
+           f"dtype {x.dtype} not supported (float32 or bfloat16)")
+    _check(1 <= size <= MAX_SIZE,
+           f"size {size} outside the kernels' 1..{MAX_SIZE}")
+    for t in (x, *rest):
+        _check(t.shape == x.shape and t.dtype == x.dtype,
+               "g must match x in shape and dtype")
+        _check(t.is_contiguous(), "inputs must be contiguous NCHW")
+
+
+def _launch(name, x, ptrs, size, alpha, beta, k, relu):
+    n, c, h, w = x.shape
+    fn = _kernel_fns()[name]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(_DTYPE_CODES[x.dtype], *[t.data_ptr() for t in ptrs], n, c,
+                 h * w, size, float(alpha), float(beta), float(k),
+                 int(bool(relu)), stream)
+    if err:
+        raise RuntimeError(f"lrn_{name} kernel launch failed (code {err})")
+
+
+def lrn_fwd(x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
+    """Forward: y (x's dtype) of NCHW x."""
+    if x.device.type == "cpu":
+        return lrn_ref(x, size, alpha, beta, k, relu)
+    global fwd_launches
+    _check_cuda(x, size)
+    y = torch.empty_like(x)
+    if x.numel():
+        _launch("fwd", x, (x, y), size, alpha, beta, k, relu)
+        fwd_launches += 1
+    return y
+
+
+def lrn_bwd(g, x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
+    """Backward: dx (x's dtype) from the cotangent g and the saved x."""
+    if x.device.type == "cpu":
+        return lrn_bwd_ref(g, x, size, alpha, beta, k, relu)
+    global bwd_launches
+    _check_cuda(x, size, g)
+    dx = torch.empty_like(x)
+    if x.numel():
+        _launch("bwd", x, (g, x, dx), size, alpha, beta, k, relu)
+        bwd_launches += 1
+    return dx
+
+
+class _LRN(torch.autograd.Function):
+    """The forward kernel, and the backward kernel from the saved x."""
+
+    @staticmethod
+    def forward(ctx, x, size, alpha, beta, k, relu):
+        ctx.save_for_backward(x)
+        ctx.args = (size, alpha, beta, k, relu)
+        return lrn_fwd(x, size, alpha, beta, k, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        # autograd may hand over a broadcast or strided cotangent
+        return (lrn_bwd(g.contiguous(), x, *ctx.args),
+                None, None, None, None, None)
+
+
+def lrn(x, size: int = 5, alpha: float = 1.0, beta: float = 0.75,
+        k: float = 1.0, relu: bool = False):
+    """Cross-map LRN over NCHW ``x``; ``relu=True`` applies ReLU first in
+    the same pass (y = lrn(max(x, 0)), gradient masked on the pre-ReLU
+    x). Differentiable in x; saves only x for the backward."""
+    return _LRN.apply(x, size, alpha, beta, k, relu)

@@ -14,7 +14,13 @@ the full width of the flagship LM with weights made from a seed:
 - ``[perf]``: the throughput harness (``models/utils/perf.py -m
   transformer``) at the same geometry with the fused LM head + CE — the
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
-  its ``-m attention`` mode once.
+  its ``-m attention`` mode once;
+- ``[inception]``: the harness's ``-m inception_v1`` at the
+  ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
+  policy, SGD with momentum) — the LRN forward and backward kernels.
+  The opt-in 3x3 / stride-1 max-pool backward kernel is held against its
+  plain version at the in-block pools' shapes and must launch 0 times
+  there.
 
     python3 chip_smoke.py [--seed N]
 
@@ -142,6 +148,52 @@ _PERF = dict(batch=4, seq=2048, vocab=32768, d_model=1024, layers=12,
 # defaults to (B4 S4096 H8 D128)
 _PERF_ATTENTION = dict(batch=4, seq=4096, heads=8, head_dim=128)
 
+# the LRN kernels: norm1 and norm2 of Inception-v1 at batch 256 (the
+# path's rows, bf16, fused ReLU, size 5, alpha 1e-4, beta 0.75, k 1), the
+# same in f32, and a ragged case (odd N, C not a multiple of 8, H·W not
+# a multiple of the 4-wide vectors, an even window, no ReLU, a larger
+# alpha so the normalisation is far from the identity)
+_LRN_ARGS = dict(size=5, alpha=1e-4, beta=0.75, k=1.0, relu=True)
+_LRN_CASES = (("norm1", (256, 64, 56, 56), _LRN_ARGS),
+              ("norm2", (256, 192, 56, 56), _LRN_ARGS),
+              ("ragged", (3, 13, 5, 7),
+               dict(size=4, alpha=0.5, beta=0.75, k=1.0, relu=False)))
+#: LRN kernel vs plain, element by element: |kernel - plain| <=
+#: rtol·|plain| + atol·rms(plain). Both compute in f32 from the same
+#: inputs and differ in rsqrt/sqrt routines and the order of a few sums
+#: (a few f32 steps); bf16 outputs are rounded once from those f32
+#: values, so an element may land one bf16 step away (rtol 2^-7), and
+#: atol covers dx elements that are a small difference of two large
+#: terms.
+_LRN_TOL = {torch.bfloat16: (2 ** -7, 2 ** -7), torch.float32: (1e-5, 1e-5)}
+# the max-pool backward at the in-block pools' planes (28x28 of
+# inception_3a/3b, 14x14 of 4a-4e, 7x7 of 5a/5b) at batch 256: small
+# integers (ties in every window) with integer cotangents, and random
+# normals; all must be bit-exact (the kernel and the plain version add
+# the same f32 terms in the same order and round once)
+_MAXPOOL_CASES = (((256, 256, 28, 28), torch.bfloat16, False),
+                  ((256, 192, 28, 28), torch.bfloat16, True),
+                  ((256, 512, 14, 14), torch.bfloat16, True),
+                  ((256, 832, 7, 7), torch.bfloat16, False),
+                  ((256, 192, 28, 28), torch.float32, False),
+                  ((256, 480, 14, 14), torch.float32, True),
+                  ((256, 832, 7, 7), torch.float32, True))
+# the Inception-v1 harness run: bench.py:109-202's geometry, 2 warm-up
+# steps and 8 timed ones
+_INCEPTION = dict(batch=256, warm_up=2, iterations=8, classes=1000)
+#: first loss: 1000 classes, log-probabilities near uniform at the
+#: Xavier init (6.9028 on the CPU at batch 4 from the same seed)
+_INCEPTION_LOSS_BAND = 0.05
+#: kernel vs plain LRN on one harness batch under the bf16 policy,
+#: dropout off: the kernels and their plain versions round the same f32
+#: values to bf16, so LRN outputs and input gradients differ by one bf16
+#: step in a few elements; a step can flip the maximum of a pooling
+#: window downstream, which moves a cotangent to a neighbouring pixel,
+#: so gradients are bounded relative to their largest element and the
+#: loss (about 6.9) absolutely
+_INCEPTION_LOSS_TOL = 1e-3
+_INCEPTION_GRAD_REL_TOL = 5e-2
+
 
 def _perf_args(**over):
     p = dict(_PERF, **over)
@@ -161,14 +213,37 @@ def _card() -> str:
 def _print_ptxas(report: str) -> None:
     """Registers and spills of each kernel instantiation, from the
     compiler's ``-Xptxas=-v`` report (kernel, type, head dim and, for
-    paged attention, rows per warp)."""
+    paged attention, rows per warp; of the LRN kernels' 72
+    instantiations, the path's window of 5 with 4-wide vectors), then
+    the most registers and the spilling instantiations of the file."""
     name = None
+    kernels, regs, spilled = 0, 0, 0
     for line in report.splitlines():
+        if "entry function" in line:
+            kernels += 1
+        r = re.search(r"Used (\d+) registers", line)
+        if r:
+            regs = max(regs, int(r.group(1)))
+        if re.search(r"[1-9]\d* bytes spill stores", line):
+            spilled += 1
         m = re.search(r"entry function '\S*?(paged_attention|flash_fwd|"
                       r"flash_dq|flash_dkdv)_kernelI(\w+?)Li(\d+)E"
                       r"(?:Li(\d+)E)?", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
-        if m:
+        lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
+                       r"Li(\d+)ELi(\d+)E", line)
+        mp = re.search(r"entry function '\S*?(maxpool3x3s1_bwd)_kernelI(\w+?)"
+                       r"E", line)
+        if lr:
+            # the path's instantiations: window 5, 4-wide vectors
+            name = (f"{lr.group(1)} "
+                    f"{'bf16' if 'bfloat16' in lr.group(2) else 'f32'} "
+                    f"size={lr.group(3)} vec={lr.group(4)}"
+                    if lr.group(3) == "5" and lr.group(4) == "4" else None)
+        elif mp:
+            name = (f"{mp.group(1)} "
+                    f"{'bf16' if 'bfloat16' in mp.group(2) else 'f32'}")
+        elif m:
             name = (f"{m.group(1)} "
                     f"{'bf16' if 'bfloat16' in m.group(2) else 'f32'} "
                     f"D={m.group(3)}"
@@ -184,6 +259,8 @@ def _print_ptxas(report: str) -> None:
             name = None
         elif name and ("registers" in line or "spill" in line):
             print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
+    print(f"[build] {kernels} instantiations: at most {regs} registers a "
+          f"thread, {spilled} spilling")
 
 
 def _time_ms(fn, iters=20):
@@ -738,12 +815,25 @@ def phase_train(fa, seed):
     return launches
 
 
-def _profile_steps(step, state, data, labels, tag, card, steps=2):
+def _lm_kind(name: str) -> str:
+    """Kernel kind of a device kernel of the LM steps, by its name."""
+    low = name.lower()
+    return ("fused_ce" if "fce_" in low else
+            "flash" if "flash_" in low else
+            "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma",
+                                             "nvjet", "cublas", "sm90_"))
+            else "other")
+
+
+def _profile_steps(step, state, data, labels, tag, card, steps=2,
+                   kind=_lm_kind, shape=None):
     """Where a training step's device time goes: ``steps`` more calls of
     ``step`` (a ``make_train_step`` step, from optimizer state ``state``)
-    under ``torch.profiler``, kernel time summed by kind, and the device's
-    busy share of the window's wall clock. Runs after every check, so the
-    launches it makes are in no count."""
+    under ``torch.profiler``, kernel time summed by ``kind`` (a function
+    of the kernel's name), and the device's busy share of the window's
+    wall clock. Runs after every check, so the launches it makes are in
+    no count. Returns the device ms a step by kind and the wall ms a
+    step."""
     from torch.profiler import ProfilerActivity, profile
     state, _ = step(state, data, labels, 1)          # warm
     torch.cuda.synchronize()
@@ -754,36 +844,35 @@ def _profile_steps(step, state, data, labels, tag, card, steps=2):
             state, loss = step(state, data, labels, 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"fused_ce": 0.0, "flash": 0.0, "gemm": 0.0, "other": 0.0}
-    top = []
+    kinds, top = _device_ms(prof, steps, kind)
+    busy = sum(kinds.values())
+    shape = shape or f"B{data.shape[0]} S{data.shape[1]}"
+    print(f"[{tag}] card='{card}' profile of {steps} steps at {shape}: "
+          f"wall_ms_per_step={wall_ms / steps} device_ms_per_step={busy} "
+          f"by kind " + json.dumps(kinds) + " device_idle_share="
+          f"{1 - busy / (wall_ms / steps) if busy else 'not measured'}",
+          flush=True)
+    for ms, n, name in top[:8]:
+        print(f"[{tag}]   {ms:.4f} ms/step in {n} launches/step: {name}",
+              flush=True)
+    return kinds, wall_ms / steps
+
+
+def _device_ms(prof, steps, kind):
+    """Device ms per step summed by ``kind`` of kernel name, and the
+    kernels by time ((ms, launches, name) per step, largest first)."""
+    kinds, top = {}, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        name = e.key
-        low = name.lower()
-        kind = ("fused_ce" if "fce_" in low else
-                "flash" if "flash_" in low else
-                "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma",
-                                                 "nvjet", "cublas", "sm90_"))
-                else "other")
-        kinds[kind] += us / 1e3 / steps
-        top.append((us / 1e3 / steps, e.count // steps, name[:60]))
-    busy = sum(kinds.values())
+        k = kind(e.key)
+        kinds[k] = kinds.get(k, 0.0) + us / 1e3 / steps
+        top.append((us / 1e3 / steps, e.count // steps, e.key[:60]))
     top.sort(reverse=True)
-    print(f"[{tag}] card='{card}' profile of {steps} steps at "
-          f"B{data.shape[0]} S{data.shape[1]}: wall_ms_per_step="
-          f"{wall_ms / steps} device_ms_per_step={busy} "
-          f"(fused-CE kernels {kinds['fused_ce']}, flash kernels "
-          f"{kinds['flash']}, GEMMs {kinds['gemm']}, other "
-          f"{kinds['other']}) device_idle_share="
-          f"{1 - busy / (wall_ms / steps) if busy else 'not measured'}",
-          flush=True)
-    for ms, n, name in top[:8]:
-        print(f"[{tag}]   {ms:.4f} ms/step in {n} launches/step: {name}",
-              flush=True)
+    return kinds, top
 
 
 def _fce_inputs(n, v, d, dtype, gen, zero_target):
@@ -1011,6 +1100,292 @@ def phase_perf(fce):
     return launches
 
 
+def _lrn_bound(shape, dtype, size, backward):
+    """Least time for one LRN kernel: x (and g) read once and the output
+    written once over the memory rate, vs its f32 operations (2·size for
+    the window's squares and sum, about 6 more a channel forward; the
+    adjoint window's sum and about 10 more backward) over the CUDA
+    cores' f32 peak."""
+    n = math.prod(shape)
+    elt = torch.finfo(dtype).bits // 8
+    bytes_ = (3 if backward else 2) * n * elt
+    flops = n * (3 * size + 10 if backward else 2 * size + 6)
+    tb, tf = bytes_ / _HBM_BYTES_PER_S * 1e3, flops / _F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _lrn_library_ms(x, g, a):
+    """``F.local_response_norm`` after ``F.relu`` (odd window: the same
+    function), timed here only: the forward, and autograd's forward +
+    backward minus the forward."""
+    import torch.nn.functional as F
+
+    def fwd(v):
+        return F.local_response_norm(F.relu(v) if a["relu"] else v,
+                                     a["size"], a["alpha"], a["beta"],
+                                     a["k"])
+    xg = x.detach().clone().requires_grad_()
+
+    def fwd_bwd():
+        xg.grad = None
+        fwd(xg).backward(g)
+    f = _time_ms(lambda: fwd(x))
+    return f, _time_ms(fwd_bwd) - f
+
+
+def phase_lrn(lrn, gen):
+    """The LRN kernels vs their plain versions at norm1 and norm2 of the
+    Inception-v1 step (batch 256) in bf16 and f32 and at a ragged case;
+    each path row timed against its bound, its plain version and the
+    library call."""
+    rows = {}
+    for case, shape, a in _LRN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            scale = 4.0 if case != "ragged" else 1.5
+            x = (scale * torch.randn(shape, generator=gen)).to(dtype).to(_DEV)
+            g = torch.randn(shape, generator=gen).to(dtype).to(_DEV)
+            args = (a["size"], a["alpha"], a["beta"], a["k"], a["relu"])
+            tol = _LRN_TOL[dtype]
+            errs, worst = {}, {}
+            y = lrn.lrn_fwd(x, *args)
+            torch.cuda.synchronize()
+            errs["fwd"], worst["fwd"] = _worst(y, lrn.lrn_ref(x, *args), *tol)
+            dx = lrn.lrn_bwd(g, x, *args)
+            torch.cuda.synchronize()
+            errs["bwd"], worst["bwd"] = _worst(dx, lrn.lrn_bwd_ref(g, x, *args),
+                                               *tol)
+            del y, dx
+            for what in ("fwd", "bwd"):
+                if not worst[what] <= 1:
+                    raise AssertionError(
+                        f"lrn_{what}[{case} {name}] max abs err "
+                        f"{errs[what]}, {worst[what]} x its limit")
+            print(f"[kernels] lrn[{case} {name}] shape={list(shape)} "
+                  f"args={json.dumps(a)} max abs errs " + json.dumps(errs)
+                  + " worst error / limit " + json.dumps(worst)
+                  + f" (limit rtol·|plain| + atol·rms(plain), {tol})",
+                  flush=True)
+            if case != "ragged":
+                lib_fwd, lib_bwd = _lrn_library_ms(x, g, a)
+                for what, kern, plain, lib in (
+                        ("fwd", lambda: lrn.lrn_fwd(x, *args),
+                         lambda: lrn.lrn_ref(x, *args), lib_fwd),
+                        ("bwd", lambda: lrn.lrn_bwd(g, x, *args),
+                         lambda: lrn.lrn_bwd_ref(g, x, *args), lib_bwd)):
+                    bound, by = _lrn_bound(shape, dtype, a["size"],
+                                           what == "bwd")
+                    row = dict(max_abs_err=errs[what], ms=_time_ms(kern),
+                               plain_ms=_time_ms(plain), bound_ms=bound,
+                               bound_by=by, library_ms=lib)
+                    rows[(f"lrn_{what}", case, dtype)] = row
+                    print(f"[kernels] lrn_{what}[{case} {name}] "
+                          + json.dumps(row), flush=True)
+            del x, g
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _maxpool_inputs(shape, dtype, ties, gen):
+    if ties:
+        x = torch.randint(0, 4, shape, generator=gen)
+        dy = torch.randint(-8, 9, shape, generator=gen)
+    else:
+        x = torch.randn(shape, generator=gen)
+        dy = torch.randn(shape, generator=gen)
+    return x.to(dtype).to(_DEV), dy.to(dtype).to(_DEV)
+
+
+def phase_maxpool(mp, gen):
+    """The opt-in max-pool backward kernel vs its plain version, bit for
+    bit, at the in-block pools' shapes (batch 256, bf16 and f32, tied and
+    random inputs); the first bf16 case is timed against its bound, its
+    plain version and the library's backward."""
+    import torch.nn.functional as F
+    row = None
+    for shape, dtype, ties in _MAXPOOL_CASES:
+        name = str(dtype)[6:]
+        x, dy = _maxpool_inputs(shape, dtype, ties, gen)
+        y = F.max_pool2d(x, 3, 1, 1)
+        got = mp.maxpool3x3s1_bwd(x, y, dy)
+        torch.cuda.synchronize()
+        want = mp.maxpool3x3s1_bwd_ref(x, y, dy)
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"maxpool3x3s1_bwd {shape} {name} ties="
+                                 f"{ties}: not bit-exact (max abs err "
+                                 f"{err})")
+        print(f"[kernels] maxpool3x3s1_bwd shape={list(shape)} {name} "
+              f"{'ties, integer dy' if ties else 'random normal'}: "
+              f"bit-exact", flush=True)
+        if row is None:
+            xg = x.detach().clone().requires_grad_()
+
+            def lib_fwd_bwd():
+                xg.grad = None
+                F.max_pool2d(xg, 3, 1, 1).backward(dy)
+            lib = _time_ms(lib_fwd_bwd) - _time_ms(
+                lambda: F.max_pool2d(x, 3, 1, 1))
+            bytes_ = 4 * x.numel() * x.element_size()   # x, y, dy, dx
+            row = dict(max_abs_err=err,
+                       ms=_time_ms(lambda: mp.maxpool3x3s1_bwd(x, y, dy)),
+                       plain_ms=_time_ms(
+                           lambda: mp.maxpool3x3s1_bwd_ref(x, y, dy)),
+                       bound_ms=bytes_ / _HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", library_ms=lib)
+            print(f"[kernels] maxpool3x3s1_bwd[{name}] shape={list(shape)} "
+                  + json.dumps(row), flush=True)
+            del xg
+        del x, dy, y, got, want
+        torch.cuda.empty_cache()
+    return row
+
+
+def _conv_kind(name: str) -> str:
+    """Kernel kind of a device kernel of the Inception step, by name."""
+    low = name.lower()
+    if "lrn_" in low:
+        return "lrn"
+    if "pool" in low:
+        return "pooling"
+    if any(w in low for w in ("conv", "cudnn", "xmma", "implicit", "gemm",
+                              "sm90", "cutlass", "winograd", "fft", "nhwc",
+                              "nchw", "wgrad", "dgrad", "fprop")):
+        return "cudnn_conv"
+    return "elementwise"
+
+
+def _plain_lrn(x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
+    """``ops.lrn.lrn`` on the plain versions: the same autograd function
+    shape (saves x, analytic backward), no kernel."""
+    from bigdl_tpu_torch.ops import lrn
+
+    class _Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, v):
+            ctx.save_for_backward(v)
+            return lrn.lrn_ref(v, size, alpha, beta, k, relu)
+
+        @staticmethod
+        def backward(ctx, g):
+            (v,) = ctx.saved_tensors
+            return lrn.lrn_bwd_ref(g.contiguous(), v, size, alpha, beta, k,
+                                   relu)
+    return _Plain.apply(x)
+
+
+def phase_inception(lrn, mp):
+    """The harness's ``-m inception_v1`` at bench.py:109-202's geometry:
+    exact LRN launch counts (2 forward and 2 backward a step, no max-pool
+    kernel), the first loss, one batch through the kernels and the plain
+    LRN, and a profile of two more steps."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.utils import perf
+    from bigdl_tpu_torch.ops import lrn as lrn_mod
+    card = _card()
+    c = _INCEPTION
+    lrn.fwd_launches = lrn.bwd_launches = mp.bwd_launches = 0
+    out = perf.main(["-m", "inception_v1", "-b", str(c["batch"]),
+                     "--warmUp", str(c["warm_up"]), "-i",
+                     str(c["iterations"]), "--classNum", str(c["classes"]),
+                     "--device", _DEV])
+    launches = {"lrn_fwd": lrn.fwd_launches, "lrn_bwd": lrn.bwd_launches,
+                "maxpool3x3s1_bwd": mp.bwd_launches}
+    steps = c["warm_up"] + c["iterations"]
+    expect = {"lrn_fwd": 2 * steps, "lrn_bwd": 2 * steps,
+              "maxpool3x3s1_bwd": 0}
+    if launches != expect:
+        raise AssertionError(f"[inception] launches {launches}, expected "
+                             f"{expect} ({steps} steps)")
+    first, final = out["first_loss"], out["final_loss"]
+    if not (math.isfinite(first) and math.isfinite(final)):
+        raise AssertionError(f"non-finite harness loss: {first}, {final}")
+    if abs(first - math.log(c["classes"])) > _INCEPTION_LOSS_BAND:
+        raise AssertionError(f"first loss {first} not within "
+                             f"{_INCEPTION_LOSS_BAND} of ln {c['classes']}")
+    numbers = {k: out[k] for k in ("records_per_s", "ms_per_step", "tflops",
+                                   "step_flops", "peak_bytes", "first_loss",
+                                   "final_loss")}
+    print(f"[inception] card='{card}' inception_v1 " + json.dumps(c)
+          + " 224x224 bf16 policy, SGD(0.01, momentum 0.9): "
+          + json.dumps(numbers) + f" launches={launches} (=2 per step x "
+          f"{steps} steps; TFLOP/s from the analytic step count, host clock "
+          f"over the timed steps ending in the loss readback)", flush=True)
+
+    # one batch through the kernels and through the plain LRN, dropout off
+    model, data, labels = out["model"], out["data"], out["labels"]
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.set_p(0.0)
+    watch = {"conv1/7x7_s2": model[0].weight,
+             "inception_3a/3x3": model[8][1][2].weight,
+             "loss3/classifier": model[22].weight}
+    crit = nn.ClassNLLCriterion()
+    kernel_lrn = lrn_mod.lrn
+    res = {}
+    try:
+        for mode, fn in (("kernel", kernel_lrn), ("plain", _plain_lrn)):
+            lrn_mod.lrn = fn
+            loss = crit(model(data), labels)
+            res[mode] = (float(loss.detach()),
+                         torch.autograd.grad(loss, list(watch.values())))
+            del loss
+            torch.cuda.empty_cache()
+    finally:
+        lrn_mod.lrn = kernel_lrn
+    dloss = abs(res["kernel"][0] - res["plain"][0])
+    report = {"loss_kernel": res["kernel"][0], "loss_plain": res["plain"][0],
+              "loss_diff": dloss}
+    if not dloss <= _INCEPTION_LOSS_TOL:
+        raise AssertionError(f"kernel vs plain LRN loss differ by {dloss}")
+    for name, gk, gp in zip(watch, res["kernel"][1], res["plain"][1]):
+        diff = float((gk - gp).abs().max())
+        scale = float(gp.abs().max())
+        report[name] = {"max_abs_diff": diff, "max_abs_grad": scale}
+        if not (torch.isfinite(gk).all()
+                and diff <= _INCEPTION_GRAD_REL_TOL * scale):
+            raise AssertionError(f"kernel vs plain LRN grad of {name} "
+                                 f"differs by {diff} > "
+                                 f"{_INCEPTION_GRAD_REL_TOL} x {scale}")
+    print(f"[inception] kernel vs plain LRN on one batch (bf16 policy, "
+          f"dropout off): " + json.dumps(report) + f" tol loss "
+          f"{_INCEPTION_LOSS_TOL}, grads {_INCEPTION_GRAD_REL_TOL} x "
+          f"max|grad|", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # two more steps under the profiler, and the SGD update alone
+    from torch.profiler import ProfilerActivity, profile
+    sgd, state = out["sgd"], out["opt_state"]
+    shape = f"B{data.shape[0]} {data.shape[2]}x{data.shape[3]}"
+    kinds, wall = _profile_steps(perf.make_conv_step(model, sgd), state,
+                                 data, labels, "inception", card,
+                                 kind=_conv_kind, shape=shape)
+    params = dict(model.named_parameters())
+    grads = {n: torch.zeros_like(p) for n, p in params.items()}
+    sgd_state = dict(sgd.init_state(params), neval=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            sgd_state = sgd.update(grads, params, sgd_state)
+        torch.cuda.synchronize()
+    sgd_kinds, _ = _device_ms(prof, 2, lambda name: "sgd")
+    sgd_ms = sgd_kinds.get("sgd", 0.0)
+    busy = sum(kinds.values())
+    split = {"cudnn_conv": kinds.get("cudnn_conv", 0.0),
+             "lrn": kinds.get("lrn", 0.0),
+             "pooling": kinds.get("pooling", 0.0),
+             "elementwise": kinds.get("elementwise", 0.0) - sgd_ms,
+             "sgd": sgd_ms}
+    print(f"[inception] card='{card}' device ms a step by kind (the SGD "
+          f"update profiled alone, its time taken out of the elementwise "
+          f"kernels): " + json.dumps(split) + f" device_ms_per_step={busy} "
+          f"wall_ms_per_step={wall} device_idle_share={1 - busy / wall}",
+          flush=True)
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1022,6 +1397,8 @@ def main(argv=None) -> int:
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops import fused_ce as fce
+    from bigdl_tpu_torch.ops import lrn
+    from bigdl_tpu_torch.ops import maxpool as mp
     from bigdl_tpu_torch.ops import paged_attention as pa
 
     card = _card()
@@ -1033,7 +1410,8 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    sources = ("paged_attention.cu", "flash_attention.cu", "fused_ce.cu")
+    sources = ("paged_attention.cu", "flash_attention.cu", "fused_ce.cu",
+               "lrn.cu", "maxpool.cu")
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.load_library, sources))
     print(f"[build] {' + '.join(sources)} (one nvcc each, in parallel) "
@@ -1045,9 +1423,13 @@ def main(argv=None) -> int:
     rows = phase_kernels(pa, gen)
     flash_rows = phase_flash(fa, gen)
     fce_rows = phase_fused_ce(fce, gen)
+    lrn_rows = phase_lrn(lrn, gen)
+    mp_row = phase_maxpool(mp, gen)
     launches = phase_serve(pa, args.seed)
     flash_launches = phase_train(fa, args.seed)
     fce_launches = phase_perf(fce)
+    torch.cuda.empty_cache()
+    conv_launches, _ = phase_inception(lrn, mp)
 
     dec = rows["decode"]
     err = max(r["max_abs_err"] for r in rows.values())
@@ -1077,6 +1459,19 @@ def main(argv=None) -> int:
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fce_launches[count],
             **fce_rows[(name, torch.bfloat16)]})
+    # the path's LRN rows: norm2, the larger of the two, in bf16
+    for name in ("lrn_fwd", "lrn_bwd"):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/lrn.cu",
+            "replaces": "bigdl_tpu/ops/pallas/lrn.py:150",
+            "launches": conv_launches[name],
+            **lrn_rows[(name, "norm2", torch.bfloat16)]})
+    kernels.append({
+        "name": "maxpool3x3s1_bwd", "route": "cuda",
+        "source": "bigdl_tpu_torch/csrc/maxpool.cu",
+        "replaces": "bigdl_tpu/ops/pallas/maxpool.py:186",
+        "launches": conv_launches["maxpool3x3s1_bwd"], **mp_row})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The port runs without JAX: importing it, down to the serving and the
-training paths and the throughput harness, loads neither ``jax`` nor any
+training paths, the throughput harness, Inception-v1 and the LRN and
+max-pool kernels' wrappers, loads neither ``jax`` nor any
 module of ``bigdl_tpu`` (checked in a fresh interpreter, since this test
 process has both loaded)."""
 import os
@@ -17,6 +18,13 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "import bigdl_tpu_torch.models.utils.text_lm\n"
             "import bigdl_tpu_torch.ops.flash_attention\n"
             "import bigdl_tpu_torch.ops.fused_ce\n"
+            "import bigdl_tpu_torch.ops.lrn\n"
+            "import bigdl_tpu_torch.ops.maxpool\n"
+            "import bigdl_tpu_torch.nn.conv\n"
+            "import bigdl_tpu_torch.nn.pooling\n"
+            "import bigdl_tpu_torch.nn.dropout\n"
+            "import bigdl_tpu_torch.nn.structural\n"
+            "import bigdl_tpu_torch.models.inception\n"
             "import bigdl_tpu_torch.models.utils.perf\n"
             "import bigdl_tpu_torch.parallel.sequence\n"
             "import bigdl_tpu_torch.optim\n"

@@ -10,7 +10,9 @@ versions on the CPU), 2 layers, batch 2 x 64, vocab 256, with the JAX
 model's weights moved across (``load_jax_params``). The two differ only
 in the order of sums: 1e-5 on the loss, 1e-4 on the gradients and on
 the parameters after one SGD(0.01) update (as the LM tests of
-``test_torch_train.py`` hold them).
+``test_torch_train.py`` hold them). The conv path (``-m inception_v1``)
+is held against the JAX package in ``test_torch_inception.py``; here it
+runs as a main on the CPU, with its analytic FLOP count.
 """
 import jax
 import jax.numpy as jnp
@@ -24,8 +26,12 @@ from bigdl_tpu.optim import SGD as JSGD
 from bigdl_tpu_torch.interop import load_jax_params, params_from_jax
 from bigdl_tpu_torch.models import TransformerLM
 from bigdl_tpu_torch.models.utils import perf
+from bigdl_tpu_torch import nn as tnn
 from bigdl_tpu_torch.ops import fused_ce as tce
+from bigdl_tpu_torch.ops import lrn as tlrn
+from bigdl_tpu_torch.ops import maxpool as tmp
 from bigdl_tpu_torch.optim import SGD
+from bigdl_tpu_torch.tensor import get_policy, policy_scope
 
 _VOCAB, _D, _LAYERS, _B, _S = 256, 128, 2, 2, 64
 
@@ -132,8 +138,40 @@ def test_transformer_and_attention_mains_on_the_cpu():
 
 
 @pytest.mark.parametrize("module,step", [("decode", "3"), ("lenet5", "2"),
-                                         ("inception_v1", "2"),
+                                         ("inception_v2", "2"),
                                          ("vgg16", "5")])
 def test_unported_modes_are_refused(module, step):
     with pytest.raises(NotImplementedError, match=f"queue A step {step}"):
         perf.main(["-m", module, "--device", "cpu"])
+
+
+def test_flop_hooks_count_forward_dx_and_dw():
+    """2 FLOPs a multiply-add, x3 for a training step, x2 for a conv that
+    computes no dx."""
+    m = tnn.Sequential(
+        tnn.SpatialConvolution(3, 4, 3, 3, propagate_back=False,
+                               device="cpu"),
+        tnn.View(4 * 3 * 3), tnn.Linear(36, 5, device="cpu"))
+    handles, total = perf._flop_hooks(m)
+    m(torch.zeros(2, 3, 5, 5))
+    for h in handles:
+        h.remove()
+    conv_macs = 2 * 4 * 3 * 3 * (3 * 3 * 3)
+    assert total[0] == 2 * conv_macs * 2 + 2 * (2 * 5 * 36) * 3
+
+
+def test_inception_main_on_the_cpu():
+    """``-m inception_v1`` at batch 1 under the bf16 policy on the CPU:
+    a finite first loss near ln 10, Inception-v1's training FLOPs (about
+    3 x 2 x 1.5 G multiply-adds an image), no kernel launches."""
+    before = (tlrn.fwd_launches, tlrn.bwd_launches, tmp.bwd_launches)
+    with policy_scope(get_policy()):
+        out = perf.main(["-m", "inception_v1", "-b", "1", "-i", "1",
+                         "--warmUp", "1", "--classNum", "10", "--device",
+                         "cpu"])
+    assert out["peak_bytes"] is None and out["records_per_s"] > 0
+    assert abs(out["first_loss"] - np.log(10)) < 0.5
+    assert np.isfinite(out["final_loss"])
+    assert 8e9 < out["step_flops"] < 1e10
+    assert (tlrn.fwd_launches, tlrn.bwd_launches,
+            tmp.bwd_launches) == before
