@@ -2,9 +2,9 @@
 // FlashAttention-2 backward as two kernels (dq; dk and dv fused).
 //
 // Replaces the Pallas TPU kernels of bigdl_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_kernel  <- `_fwd_kernel`   (the pl.pallas_call at line 190)
-//   flash_dq_kernel   <- `_dq_kernel`    (the pl.pallas_call at line 306)
-//   flash_dkdv_kernel <- `_dkdv_kernel`  (the pl.pallas_call at line 322)
+//   flash_fwd_*kernel  <- `_fwd_kernel`   (the pl.pallas_call at line 190)
+//   flash_dq_*kernel   <- `_dq_kernel`    (the pl.pallas_call at line 306)
+//   flash_dkdv_*kernel <- `_dkdv_kernel`  (the pl.pallas_call at line 322)
 // They compute the same functions, not the same programs:
 //
 //   s    = q·kᵀ·scale, or the finite -1e9 where causal and kpos > qpos
@@ -13,44 +13,73 @@
 //   dq   = dS·k,  dk = dSᵀ·q,  dv = pᵀ·dO
 //
 // with delta = rowsum(dO∘o) - g_lse computed by the caller. Rounding as
-// the TPU kernel: p is rounded to v's dtype before p·v (unnormalised, in
-// the online softmax) and to dO's dtype before pᵀ·dO; dS to k's dtype for
-// dq and to q's dtype for dk (all inputs share one dtype T here). Sums
-// are f32 in registers; o/dq/dk/dv are written in T, lse in f32.
+// the TPU kernel: p is rounded to v's dtype before p·v (unnormalised, at
+// the running max of the online softmax) and to dO's dtype before pᵀ·dO;
+// dS (from the unrounded p) to k's dtype for dq and to q's dtype for dk
+// (all inputs share one dtype T here). Sums are f32; o/dq/dk/dv are
+// written in T, lse in f32.
 //
 // Layout: tensors are (B, S, H, D) as the model produces them; element
-// [b, s, h, d] sits at ((b*S + s)*H + h)*D + d, so a tile of 64 rows of
-// one head is 64 strided rows of D elements. lse and delta are (B, S, H).
-//
-// Design (simple and right first; the fast version is later work):
-// - 256 threads per CTA as a 16 x 16 grid (ty, tx). Every 64 x 64 score
-//   tile is computed with thread (ty, tx) owning rows ty*4 + i and
-//   columns tx + 16*j (i, j < 4), f32 CUDA-core FMAs over 4-element
-//   vector reads of the two shared-memory operand tiles. Row reductions
-//   (max, sum) finish with shuffles among the 16 lanes of a row group.
-// - Products with the D axis as output (p·v, dS·k, pᵀ·dO, dSᵀ·q) read
-//   the 64 x 64 tile back from shared memory (f32, already rounded to
-//   the operand dtype) and give each thread 4 rows x D/16 dims.
-// - Forward and dq: one CTA per (b·h, 64-query tile), walking key tiles;
-//   dkdv: one CTA per (b·h, 64-key tile), walking query tiles from the
-//   diagonal down. The TPU grid's sequential axis (scratch carried across
-//   grid steps) is this loop inside the CTA; causal tiles that are
-//   entirely masked are never loaded.
-// - The walked operand tiles are staged with cp.async, double buffered,
-//   so the next tile's load overlaps this tile's arithmetic. Rows past
-//   the sequence end are zero-filled (cp.async src-size 0) and masked:
-//   any S and Sq != Skv (non-causal) work, head dims 64 and 128.
-// - The kernels allocate nothing; the Python wrapper allocates outputs
-//   and checks shapes, dtypes, contiguity and alignment.
+// [b, s, h, d] sits at ((b*S + s)*H + h)*D + d, so a tile of rows of one
+// head is rows at a stride of H·D elements. lse and delta are (B, S, H).
 //
 // Bound on the H100: at the training shapes (B 4, S 2048, H 8, D 128,
-// bf16, causal) the forward does 34.4 GFLOP on 67 MB of inputs and
-// outputs, about 510 flops a byte, and the backward kernels more: above
-// the ~295 flops/byte at which the tensor cores bind, so all three are
-// bound by operations. These kernels run them on the CUDA cores (f32
-// FMA), not the tensor cores: mma/wgmma with TMA-fed tiles is the next
-// step.
+// causal) the forward does 34.4 GFLOP on 67 MB of inputs and outputs in
+// bf16, about 510 flops a byte, and the backward kernels more: above the
+// ~295 flops/byte at which the tensor cores bind, so all three are bound
+// by operations. Two kernel families, chosen by dtype in the C entries
+// (a dispatch on the dtype, not a fallback; nothing reroutes a call):
+//
+// bfloat16 -> tensor cores (namespace tc, flash_*_tc_kernel):
+// - Products are `wgmma` (m64nNk16, f32 sums): a warpgroup multiplies a
+//   64-row tile. Q·Kᵀ-type products take both operands from shared
+//   memory, K-major; products with D as output (P·V, dS·K, Pᵀ·dO,
+//   dSᵀ·Q) take P or dS from registers, rounded to bf16 in the
+//   accumulator's own layout (the f32 accumulator of a m64nN product is
+//   the A fragment of the next, two columns per register), and V, K, dO
+//   or Q from shared memory in their MN-major (transposed) form, which
+//   16-bit types allow. No product needs a transposed copy.
+// - Tiles come in by TMA: each tensor is a 4-D map (D, H, S, B) with a
+//   box of (64, 1, rows, 1), so a tile is D/64 boxes of [rows][64] bf16
+//   (128-byte rows, 128-byte swizzle, the wgmma descriptors' layout),
+//   and rows past S are zero-filled inside their own (b, h) — never the
+//   next batch's rows. The maps are made in the C entry from the
+//   pointers and shapes (cuTensorMapEncodeTiled, found through
+//   cudaGetDriverEntryPoint so the library links no -lcuda) and passed
+//   as __grid_constant__ parameters.
+// - One CTA = two consumer warpgroups (256 threads), each owning 64 rows
+//   of the CTA's 128 (query rows for fwd and dq, key rows for dkdv).
+//   The walked operand tiles (K and V; Q and dO for dkdv) sit in a ring
+//   of 2 stages with full/empty mbarriers; thread 0 refills a stage as
+//   soon as all 8 warps have released it. No producer warp and no
+//   setmaxnreg: with 256 threads every thread may hold 255 registers,
+//   which dk and dv (64 + 64 f32 each at D 128) plus the two score
+//   tiles need.
+// - Forward: 128 queries x 128-key tiles; online softmax in f32
+//   registers (row max and sum over the four lanes of a row quad).
+//   dq: 128 queries x 64-key tiles, S and dP recomputed per tile.
+//   dkdv: 128 keys x 64-query tiles, Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so
+//   Pᵀ and dSᵀ come out with keys as rows, the A operand of dv += Pᵀ·dO
+//   and dk += dSᵀ·Q. The two backward launches cost 7 half-products
+//   against a fused backward's 5, but keep dq deterministic, with no
+//   atomics and no f32 scratch.
+// - Causal: tiles wholly above the diagonal are never loaded; scores are
+//   masked element-wise only in tiles that cross the diagonal or the end
+//   of the sequence. Outputs are stored from registers, rows past S
+//   skipped.
+//
+// float32 -> CUDA cores (the tensor cores take no f32 operand; TF32
+// would round the inputs): 256 threads per CTA as a 16 x 16 grid (ty,
+// tx) over 64 x 64 tiles, thread (ty, tx) owning rows ty*4 + i and
+// columns tx + 16*j, f32 FMAs over 4-element vector reads of the
+// shared-memory operands; products with D as output read the p or dS
+// tile back from shared memory. One CTA per (b·h, 64-row tile), the
+// walked tiles double-buffered with cp.async, rows past S zero-filled.
+//
+// The kernels allocate nothing; the Python wrapper allocates outputs
+// and checks shapes, dtypes, contiguity and alignment.
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,10 +87,23 @@
 
 namespace {
 
+constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+// ===========================================================================
+// float32: CUDA cores
+// ===========================================================================
+
 constexpr int kTile = 64;          // query rows and key rows per tile
 constexpr int kThreads = 256;      // 16 x 16 thread grid
 constexpr int kPP = kTile + 1;     // pitch (floats) of the f32 p/dS tile
-constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
 
 // shared-memory row pitch in elements: D plus 16 bytes of padding, so
 // 16-byte cp.async chunks stay aligned and strided rows spread banks
@@ -79,33 +121,9 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                      float (&x)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
 
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p,
-                                      const float (&x)[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 v;
-  v.x = *reinterpret_cast<unsigned*>(&a);
-  v.y = *reinterpret_cast<unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = v;
-}
-
-// x as a product operand of dtype T sees it
-__device__ __forceinline__ float round_as(float x, float) { return x; }
-__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -299,7 +317,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        ps[(ty * 4 + i) * kPP + tx + 16 * j] = round_as(p, T{});
+        ps[(ty * 4 + i) * kPP + tx + 16 * j] = p;
       }
       l[i] = l[i] * corr + group16_sum(sum);
       m[i] = m_new;
@@ -391,7 +409,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                    : s[i][j] * scale;
         const float p = expf(sc - row_lse[i]);
         const float ds = p * (dp[i][j] - row_delta[i]) * scale;
-        ds_tile[(ty * 4 + i) * kPP + tx + 16 * j] = round_as(ds, T{});
+        ds_tile[(ty * 4 + i) * kPP + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -476,7 +494,7 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          : (causal && kpos > qpos) ? kMask
                                                    : s[i][j] * scale;
         s[i][j] = expf(sc - col_lse[j]);                  // p
-        w_tile[(ty * 4 + i) * kPP + tx + 16 * j] = round_as(s[i][j], T{});
+        w_tile[(ty * 4 + i) * kPP + tx + 16 * j] = s[i][j];
       }
     }
     __syncthreads();                       // pᵀ tile complete
@@ -487,7 +505,7 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float ds = s[i][j] * (dp[i][j] - col_delta[j]) * scale;
-        w_tile[(ty * 4 + i) * kPP + tx + 16 * j] = round_as(ds, T{});
+        w_tile[(ty * 4 + i) * kPP + tx + 16 * j] = ds;
       }
     __syncthreads();                       // dSᵀ tile complete
     mul_tile<T, D>(w_tile, qs, ty, tx, dk_acc);
@@ -497,18 +515,6 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   store_rows<T, D>(dk, dk_acc, one, b, h, k0, Skv, H, ty, tx);
   store_rows<T, D>(dv, dv_acc, one, b, h, k0, Skv, H, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
-// launchers
-// ---------------------------------------------------------------------------
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
 }
 
 constexpr size_t kWTileBytes = kTile * kPP * sizeof(float);
@@ -558,21 +564,839 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dispatch on (dtype code, head dim): 0 = float32, 1 = bfloat16
+// ===========================================================================
+// bfloat16: tensor cores (wgmma), tiles by TMA
+// ===========================================================================
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;      // two warpgroups of 128
+constexpr int kRows = 128;         // rows a CTA owns (64 per warpgroup)
+constexpr int kStages = 2;         // ring of walked tiles
+constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers ---
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+// arrive and expect `bytes` of TMA traffic before the phase completes
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+      ::"r"(bar) : "memory");
+}
+// wait for the completion of the phase of parity `parity`
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+// the same for a whole warp, reconverged for the .aligned wgmma after it
+__device__ __forceinline__ void warp_wait(uint32_t bar, uint32_t parity) {
+  bar_wait(bar, parity);
+  __syncwarp();
+}
+
+// --- TMA ---
+
+// box (64, 1, rows, 1) of a (D, H, S, B) map at (d0, h, s0, b) into dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int h, int s0,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
+        "r"(h), "r"(s0), "r"(b) : "memory");
+}
+
+// rows [s0, s0 + ROWS) of head h as D/64 boxes of [ROWS][64]
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int b, int h,
+                                          int s0) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load(dst + c * ROWS * kRowBytes, map, bar, c * 64, h, s0, b);
+}
+
+// --- wgmma ---
+
+// shared-memory operand descriptor, 128-byte swizzle: 8-row groups 1024
+// bytes apart (SBO); the leading offset is unused (K-major, or MN-major
+// with one 64-wide chunk per instruction). `addr` lies in a 1024-aligned
+// swizzle atom, advanced by 32 bytes per K step inside a K-major row.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// K step kk (16 columns) of a K-major tile of TOTAL rows, from row r0
+template <int TOTAL>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return desc(tile + (kk / 4) * TOTAL * kRowBytes + r0 * kRowBytes +
+              (kk % 4) * 32);
+}
+// K step kk (16 rows) of column chunk c of an MN-major tile of TOTAL rows
+template <int TOTAL>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int c, int kk) {
+  return desc(tile + c * TOTAL * kRowBytes + kk * 16 * kRowBytes);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pin registers the async products read or write to after the wait
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d (+)= A·B, A and B K-major in shared memory (descriptors), M64 N64 K16;
+// acc 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// the same at N128
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += A·B, A (M64 K16 bf16) in registers, B MN-major in shared memory
+// (transposed, imm-trans-b 1), N64
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// --- accumulator layout ---
+// Element i of a m64nN f32 accumulator, in thread (warp w of the
+// warpgroup, lane l): row 16w + l/4 + 8·((i%4)/2), column 8·(i/4) +
+// 2·(l%4) + i%2. Two neighbouring n8 blocks of it are one m64k16 A
+// fragment, so a score tile becomes the next product's A operand in
+// place.
+
+__device__ __forceinline__ int acc_row(int i) { return 8 * ((i % 4) / 2); }
+__device__ __forceinline__ int acc_col(int i, int l) {
+  return 8 * (i / 4) + 2 * (l % 4) + (i % 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x (m64 x 16·K f32) rounded to bf16 as K A fragments
+template <int K>
+__device__ __forceinline__ void to_frags(const float (&x)[8 * K],
+                                         uint32_t (&f)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// a (B, S, H) f32 statistic at this thread's 16 accumulator columns
+// q0 + acc_col(i, l) (0 past S), element i at v[2·(i/4) + i%2]
+__device__ __forceinline__ void load_cols(float (&v)[16],
+                                          const float* __restrict__ x,
+                                          int b, int h, int q0, int S,
+                                          int H, int l) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qpos = q0 + acc_col(4 * j + e, l);
+      v[2 * j + e] =
+          qpos < S ? x[(static_cast<int64_t>(b) * S + qpos) * H + h] : 0.f;
+    }
+}
+
+// rows row0 and row0 + 8 (if below S) of a (B, S, H, D) bf16 output from
+// the D/64 accumulators of a warpgroup, row r scaled by mul[r]
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 64][32],
+                                          const float (&mul)[2], int b,
+                                          int h, int row0, int S, int H,
+                                          int l) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = row0 + 8 * r;
+    if (s >= S) continue;
+    bf16* row = out + ((static_cast<int64_t>(b) * S + s) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<uint32_t*>(row + 64 * c + acc_col(i, l)) =
+            pack_bf16(acc[c][i] * mul[r], acc[c][i + 1] * mul[r]);
+      }
+  }
+}
+
+// Shared memory of a kernel: 1024-aligned tiles, then the barriers
+// full[kStages], empty[kStages] and one for the tiles loaded once.
+struct Ring {
+  uint32_t base, bars;
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (kStages + s); }
+  __device__ uint32_t once() const { return bars + 16 * kStages; }
+};
+
+template <int kFixedBytes, int kStageBytes>
+struct Layout {
+  static constexpr int kBars = kFixedBytes + kStages * kStageBytes;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (2 * kStages + 1);
+};
+
+// Barriers set up by thread 0; empty stages take one arrival per warp.
+__device__ __forceinline__ Ring make_ring(unsigned char* raw, int bars_at) {
+  Ring r;
+  r.base = (smem_u32(raw) + 1023) & ~1023u;
+  r.bars = r.base + bars_at;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(r.full(s), 1);
+      bar_init(r.empty(s), kThreads / 32);
+    }
+    bar_init(r.once(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// forward: o and lse. CTA: 128 queries of one (b, h); K/V tiles of 128.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                    const __grid_constant__ CUtensorMap km,
+                    const __grid_constant__ CUtensorMap vm,
+                    bf16* __restrict__ o, float* __restrict__ lse, int H,
+                    int Sq, int Skv, float scale, int causal) {
+  constexpr int kN = 128, kC = D / 64;
+  constexpr int kQ = kRows * D * 2, kKV = kN * D * 2;
+  using L = Layout<kQ, 2 * kKV>;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring ring = make_ring(smem_raw, L::kBars);
+  const uint32_t qs = ring.base, kv0 = ring.base + kQ;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heavy tiles first
+  const int nk = (Skv + kN - 1) / kN;
+  const int nkt =
+      causal ? min(nk, (min(q0 + kRows, Sq) - 1) / kN + 1) : nk;
+  const int tid = threadIdx.x, g = tid / 128, l = tid % 32;
+  const int row0 = q0 + 64 * g + 16 * ((tid / 32) % 4) + l / 4;
+
+  if (tid == 0) {
+    bar_expect(ring.once(), kQ);
+    load_rows<D, kRows>(qs, &qm, ring.once(), b, h, q0);
+    for (int t = 0; t < min(kStages, nkt); ++t) {
+      bar_expect(ring.full(t), 2 * kKV);
+      load_rows<D, kN>(kv0 + t * 2 * kKV, &km, ring.full(t), b, h, t * kN);
+      load_rows<D, kN>(kv0 + t * 2 * kKV + kKV, &vm, ring.full(t), b, h,
+                       t * kN);
+    }
+  }
+  __syncwarp();
+
+  float acc[kC][32], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kC; ++c) zero(acc[c]);
+  warp_wait(ring.once(), 0);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt % kStages;
+    // refill the stage tile kt - 1 used, once all warps released it
+    if (tid == 0 && kt >= 1 && kt - 1 + kStages < nkt) {
+      const int t = kt - 1 + kStages, s2 = t % kStages;
+      bar_wait(ring.empty(s2), ((kt - 1) / kStages) & 1);
+      bar_expect(ring.full(s2), 2 * kKV);
+      load_rows<D, kN>(kv0 + s2 * 2 * kKV, &km, ring.full(s2), b, h, t * kN);
+      load_rows<D, kN>(kv0 + s2 * 2 * kKV + kKV, &vm, ring.full(s2), b, h,
+                       t * kN);
+    }
+    __syncwarp();
+    warp_wait(ring.full(st), (kt / kStages) & 1);
+    const uint32_t ks = kv0 + st * 2 * kKV;
+    const uint32_t vs = ks + kKV;
+
+    float s[64];
+    zero(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(s, desc_k<kRows>(qs, 64 * g, kk), desc_k<kN>(ks, 0, kk),
+                    kk > 0);
+    wg_commit();
+    wg_wait();
+    keep(s);
+
+    // scale, mask where the tile crosses the diagonal or the end
+    const int k0 = kt * kN;
+    const bool edge = (causal && k0 + kN - 1 > q0 + 64 * g) || k0 + kN > Skv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = s[i] * scale;
+      if (edge) {
+        const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+        x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+      }
+      s[i] = x;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      lsum[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      s[i] = expf(s[i] - m[(i % 4) / 2]);
+      lsum[(i % 4) / 2] += s[i];           // this thread's part of the row
+    }
+    uint32_t pf[kN / 16][4];
+    to_frags<kN / 16>(s, pf);             // p in bf16 at the running max
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i % 4) / 2];
+
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        wgmma_rs_n64(acc[c], pf[kk], desc_mn<kN>(vs, c, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) keep(acc[c]);
+    keep(pf);
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(st));
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] = quad_sum(lsum[r]);
+    inv[r] = 1.f / lsum[r];
+  }
+  store_acc<D>(o, acc, inv, b, h, row0, Sq, H, l);
+  if (l % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = row0 + 8 * r;
+      if (s < Sq)
+        lse[(static_cast<int64_t>(b) * Sq + s) * H + h] =
+            m[r] + logf(lsum[r]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: dq. CTA: 128 queries; K/V tiles of 64 keys.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                   const __grid_constant__ CUtensorMap km,
+                   const __grid_constant__ CUtensorMap vm,
+                   const __grid_constant__ CUtensorMap dom,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int H, int Sq, int Skv, float scale, int causal) {
+  constexpr int kN = 64, kC = D / 64;
+  constexpr int kQ = kRows * D * 2, kKV = kN * D * 2;
+  using L = Layout<2 * kQ, 2 * kKV>;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring ring = make_ring(smem_raw, L::kBars);
+  const uint32_t qs = ring.base, dos = qs + kQ, kv0 = dos + kQ;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int nk = (Skv + kN - 1) / kN;
+  const int nkt =
+      causal ? min(nk, (min(q0 + kRows, Sq) - 1) / kN + 1) : nk;
+  const int tid = threadIdx.x, g = tid / 128, l = tid % 32;
+  const int row0 = q0 + 64 * g + 16 * ((tid / 32) % 4) + l / 4;
+
+  if (tid == 0) {
+    bar_expect(ring.once(), 2 * kQ);
+    load_rows<D, kRows>(qs, &qm, ring.once(), b, h, q0);
+    load_rows<D, kRows>(dos, &dom, ring.once(), b, h, q0);
+    for (int t = 0; t < min(kStages, nkt); ++t) {
+      bar_expect(ring.full(t), 2 * kKV);
+      load_rows<D, kN>(kv0 + t * 2 * kKV, &km, ring.full(t), b, h, t * kN);
+      load_rows<D, kN>(kv0 + t * 2 * kKV + kKV, &vm, ring.full(t), b, h,
+                       t * kN);
+    }
+  }
+  __syncwarp();
+
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = row0 + 8 * r;
+    const int64_t at = (static_cast<int64_t>(b) * Sq + s) * H + h;
+    row_lse[r] = s < Sq ? lse[at] : 0.f;
+    row_delta[r] = s < Sq ? delta[at] : 0.f;
+  }
+  float acc[kC][32];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) zero(acc[c]);
+  warp_wait(ring.once(), 0);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt % kStages;
+    if (tid == 0 && kt >= 1 && kt - 1 + kStages < nkt) {
+      const int t = kt - 1 + kStages, s2 = t % kStages;
+      bar_wait(ring.empty(s2), ((kt - 1) / kStages) & 1);
+      bar_expect(ring.full(s2), 2 * kKV);
+      load_rows<D, kN>(kv0 + s2 * 2 * kKV, &km, ring.full(s2), b, h, t * kN);
+      load_rows<D, kN>(kv0 + s2 * 2 * kKV + kKV, &vm, ring.full(s2), b, h,
+                       t * kN);
+    }
+    __syncwarp();
+    warp_wait(ring.full(st), (kt / kStages) & 1);
+    const uint32_t ks = kv0 + st * 2 * kKV;
+    const uint32_t vs = ks + kKV;
+
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<kRows>(qs, 64 * g, kk), desc_k<kN>(ks, 0, kk),
+                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<kRows>(dos, 64 * g, kk), desc_k<kN>(vs, 0, kk),
+                   kk > 0);
+    wg_commit();
+    wg_wait();
+    keep(s);
+    keep(dp);
+
+    const int k0 = kt * kN;
+    const bool edge = (causal && k0 + kN - 1 > q0 + 64 * g) || k0 + kN > Skv;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i % 4) / 2;
+      float x = s[i] * scale;
+      if (edge) {
+        const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+        x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+      }
+      const float p = expf(x - row_lse[r]);
+      s[i] = p * (dp[i] - row_delta[r]) * scale;          // dS
+    }
+    uint32_t dsf[kN / 16][4];
+    to_frags<kN / 16>(s, dsf);
+
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        wgmma_rs_n64(acc[c], dsf[kk], desc_mn<kN>(ks, c, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) keep(acc[c]);
+    keep(dsf);
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(st));
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(dq, acc, one, b, h, row0, Sq, H, l);
+}
+
+// ---------------------------------------------------------------------------
+// backward: dk and dv. CTA: 128 keys; Q/dO tiles of 64 queries.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                     const __grid_constant__ CUtensorMap km,
+                     const __grid_constant__ CUtensorMap vm,
+                     const __grid_constant__ CUtensorMap dom,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Sq, int Skv,
+                     float scale, int causal) {
+  constexpr int kM = 64, kC = D / 64;
+  constexpr int kK = kRows * D * 2, kQD = kM * D * 2;
+  using L = Layout<2 * kK, 2 * kQD>;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring ring = make_ring(smem_raw, L::kBars);
+  const uint32_t ks = ring.base, vs = ks + kK, qd0 = vs + kK;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heavy tiles first
+  const int nq = (Sq + kM - 1) / kM;
+  // causal: query tiles wholly before this key tile see none of its keys
+  const int qt0 = causal ? min(k0 / kM, nq) : 0;
+  const int n = nq - qt0;
+  const int tid = threadIdx.x, g = tid / 128, l = tid % 32;
+  const int krow0 = k0 + 64 * g + 16 * ((tid / 32) % 4) + l / 4;
+
+  if (tid == 0) {
+    bar_expect(ring.once(), 2 * kK);
+    load_rows<D, kRows>(ks, &km, ring.once(), b, h, k0);
+    load_rows<D, kRows>(vs, &vm, ring.once(), b, h, k0);
+    for (int t = 0; t < min(kStages, n); ++t) {
+      bar_expect(ring.full(t), 2 * kQD);
+      load_rows<D, kM>(qd0 + t * 2 * kQD, &qm, ring.full(t), b, h,
+                       (qt0 + t) * kM);
+      load_rows<D, kM>(qd0 + t * 2 * kQD + kQD, &dom, ring.full(t), b, h,
+                       (qt0 + t) * kM);
+    }
+  }
+  __syncwarp();
+
+  float dka[kC][32], dva[kC][32];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    zero(dka[c]);
+    zero(dva[c]);
+  }
+  warp_wait(ring.once(), 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it % kStages;
+    if (tid == 0 && it >= 1 && it - 1 + kStages < n) {
+      const int t = it - 1 + kStages, s2 = t % kStages;
+      bar_wait(ring.empty(s2), ((it - 1) / kStages) & 1);
+      bar_expect(ring.full(s2), 2 * kQD);
+      load_rows<D, kM>(qd0 + s2 * 2 * kQD, &qm, ring.full(s2), b, h,
+                       (qt0 + t) * kM);
+      load_rows<D, kM>(qd0 + s2 * 2 * kQD + kQD, &dom, ring.full(s2), b, h,
+                       (qt0 + t) * kM);
+    }
+    __syncwarp();
+    warp_wait(ring.full(st), (it / kStages) & 1);
+    const uint32_t qs = qd0 + st * 2 * kQD;
+    const uint32_t dos = qs + kQD;
+    const int q0 = (qt0 + it) * kM;
+
+    // Sᵀ = K·Qᵀ: rows are this warpgroup's keys, columns the queries
+    float s[32];
+    zero(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<kRows>(ks, 64 * g, kk), desc_k<kM>(qs, 0, kk),
+                   kk > 0);
+    wg_commit();
+    float col[16];                          // lse, then delta, per column
+    load_cols(col, lse, b, h, q0, Sq, H, l);   // in flight with the product
+    wg_wait();
+    keep(s);
+
+    const bool edge = (causal && k0 + 64 * g + 63 > q0) || q0 + kM > Sq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qpos = q0 + acc_col(i, l), kpos = krow0 + acc_row(i);
+      float x = s[i] * scale;
+      if (edge)
+        x = qpos >= Sq ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+      s[i] = expf(x - col[2 * (i / 4) + i % 2]);
+    }
+    uint32_t pf[kM / 16][4];
+    to_frags<kM / 16>(s, pf);             // pᵀ in bf16
+
+    // dv += Pᵀ·dO, and dPᵀ = V·dOᵀ
+    float dp[32];
+    zero(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kM / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        wgmma_rs_n64(dva[c], pf[kk], desc_mn<kM>(dos, c, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<kRows>(vs, 64 * g, kk), desc_k<kM>(dos, 0, kk),
+                   kk > 0);
+    wg_commit();
+    load_cols(col, delta, b, h, q0, Sq, H, l);
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) keep(dva[c]);
+    keep(dp);
+    keep(pf);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = s[i] * (dp[i] - col[2 * (i / 4) + i % 2]) * scale;   // dSᵀ
+    uint32_t dsf[kM / 16][4];
+    to_frags<kM / 16>(s, dsf);
+
+    // dk += dSᵀ·Q
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kM / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        wgmma_rs_n64(dka[c], dsf[kk], desc_mn<kM>(qs, c, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) keep(dka[c]);
+    keep(dsf);
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(st));
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(dk, dka, one, b, h, krow0, Skv, H, l);
+  store_acc<D>(dv, dva, one, b, h, krow0, Skv, H, l);
+}
+
+// --- host: tensor maps and launchers ---
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kNoEncoder = -2;     // the driver has no cuTensorMapEncodeTiled
+constexpr int kMapFailed = 1000;   // + the CUresult of a refused map
+
+// (B, S, H, D) bf16 at ptr as a (D, H, S, B) map with boxes (64, 1, rows,
+// 1), 128-byte swizzle; reads past S fill zeros
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+             int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return kNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[3] = {row, row * H, row * H * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapFailed + static_cast<int>(r);
+}
+
+template <int D>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+        int B, int H, int Sq, int Skv, float scale, int causal,
+        cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (int e = make_map(&qm, q, B, Sq, H, D, kRows)) return e;
+  if (int e = make_map(&km, k, B, Skv, H, D, 128)) return e;
+  if (int e = make_map(&vm, v, B, Skv, H, D, 128)) return e;
+  constexpr size_t smem = Layout<kRows * D * 2, 2 * 128 * D * 2>::kSmem;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, st>>>(qm, km, vm, static_cast<bf16*>(o),
+                                       lse, H, Sq, Skv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const float* lse, const float* delta, void* dq_out, int B, int H,
+       int Sq, int Skv, float scale, int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm, dom;
+  if (int e = make_map(&qm, q, B, Sq, H, D, kRows)) return e;
+  if (int e = make_map(&dom, dout, B, Sq, H, D, kRows)) return e;
+  if (int e = make_map(&km, k, B, Skv, H, D, 64)) return e;
+  if (int e = make_map(&vm, v, B, Skv, H, D, 64)) return e;
+  constexpr size_t smem = Layout<2 * kRows * D * 2, 2 * 64 * D * 2>::kSmem;
+  auto kernel = flash_dq_tc_kernel<D>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, st>>>(qm, km, vm, dom, lse, delta,
+                                       static_cast<bf16*>(dq_out), H, Sq,
+                                       Skv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dkdv(const void* q, const void* k, const void* v, const void* dout,
+         const float* lse, const float* delta, void* dk, void* dv, int B,
+         int H, int Sq, int Skv, float scale, int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm, dom;
+  if (int e = make_map(&km, k, B, Skv, H, D, kRows)) return e;
+  if (int e = make_map(&vm, v, B, Skv, H, D, kRows)) return e;
+  if (int e = make_map(&qm, q, B, Sq, H, D, 64)) return e;
+  if (int e = make_map(&dom, dout, B, Sq, H, D, 64)) return e;
+  constexpr size_t smem = Layout<2 * kRows * D * 2, 2 * 64 * D * 2>::kSmem;
+  auto kernel = flash_dkdv_tc_kernel<D>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Skv + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, st>>>(qm, km, vm, dom, lse, delta,
+                                       static_cast<bf16*>(dk),
+                                       static_cast<bf16*>(dv), H, Sq, Skv,
+                                       scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// dispatch on (dtype code, head dim): 0 = float32 (CUDA cores), 1 =
+// bfloat16 (tensor cores)
 #define BIGDL_FLASH_DISPATCH(FN, ...)                                    \
   do {                                                                    \
     if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);         \
     if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__);       \
-    if (dtype == 1 && D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__); \
-    if (dtype == 1 && D == 128)                                           \
-      return FN<__nv_bfloat16, 128>(__VA_ARGS__);                         \
+    if (dtype == 1 && D == 64) return tc::FN<64>(__VA_ARGS__);            \
+    if (dtype == 1 && D == 128) return tc::FN<128>(__VA_ARGS__);          \
     return -1;                                                            \
   } while (0)
 
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a (dtype, head dim) the
-// kernels were not built for, else the CUDA error code of the launch.
+// kernels were not built for, -2 where the driver offers no tensor-map
+// encoder, 1000 + the CUresult of a tensor map the driver refused, else
+// the CUDA error code of the launch.
 extern "C" int bigdl_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, float* lse, int B,
                                int H, int Sq, int Skv, int D, float scale,

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA
 card: build every kernel from the checkout's sources (one nvcc per
-source, all at once) and hold each against its plain PyTorch version at
+source, all at once), count the tensor-core instructions in the bf16
+flash kernels' SASS (none fails the run), and hold each kernel against
+its plain PyTorch version at
 the shapes its path gives it, then drive the main paths end to end at
 the full width of the flagship LM with weights made from a seed:
 
@@ -91,11 +93,24 @@ _TRAIN = dict(vocab=32768, d_model=1024, heads=8, layers=12, seq=2048,
 #: relative per weight, so about 0.3 % of a row's typical |o|); 0.05·rms
 #: is some ten times the largest such difference expected at the train
 #: shapes, where a typical late row's |o| is itself about 0.4·rms. The
-#: backward rounds the same P and dS and agrees bit for bit: one bf16
-#: step of the element and of the rms. f32 rounds nothing: sum order
-#: alone. lse is f32 on both sides and held absolutely.
+#: bf16 backward rounds P and dS from scores that its tensor cores sum in
+#: another order than the plain version's f32 products (last-bit
+#: differences), so the few P or dS lying that close to a bf16 rounding
+#: boundary round to the neighbouring value: its
+#: term of dq/dk/dv moves by one bf16 step of the term (up to 2^-8 of
+#: P·|dO| for a P near 1, up to 2^-7 of a large dS·|k|). Where one such
+#: term dominates an element this adds a step to the element's own
+#: rounding step: rtol two steps, 2^-6. Elsewhere a few flipped terms of
+#: a sum of up to 2048 land on elements of any size, small ones too: at
+#: B4 S2048 H8 D128 they read 0.75-1.37 x the old limit (2^-7, 2^-7),
+#: which rested on bit-equal P and dS as the CUDA-core kernels' FMA
+#: chains gave (scripts/flash_fault_check.py, seeds 0-5), and 3.06 x it
+#: on this script's own draw: atol 2^-4 (0.0625·rms) puts them at 0.2-0.6
+#: of the limit, while a wrong dO tile in dk/dv reads 25-70 x it (the
+#: same script). f32 rounds nothing: sum order alone. lse is f32 on both
+#: sides and held absolutely.
 _FLASH_TOL = {(torch.bfloat16, "o"): (2 ** -7, 0.05),
-              (torch.bfloat16, "grad"): (2 ** -7, 2 ** -7),
+              (torch.bfloat16, "grad"): (2 ** -6, 2 ** -4),
               (torch.float32, "o"): (1e-5, 1e-4),
               (torch.float32, "grad"): (1e-5, 1e-4)}
 _LSE_TOL = 1e-4
@@ -229,12 +244,16 @@ def _print_ptxas(report: str) -> None:
         m = re.search(r"entry function '\S*?(paged_attention|flash_fwd|"
                       r"flash_dq|flash_dkdv)_kernelI(\w+?)Li(\d+)E"
                       r"(?:Li(\d+)E)?", line)
+        t = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
+                      r"_tc_kernelILi(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
         mp = re.search(r"entry function '\S*?(maxpool3x3s1_bwd)_kernelI(\w+?)"
                        r"E", line)
-        if lr:
+        if t:
+            name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
+        elif lr:
             # the path's instantiations: window 5, 4-wide vectors
             name = (f"{lr.group(1)} "
                     f"{'bf16' if 'bfloat16' in lr.group(2) else 'f32'} "
@@ -261,6 +280,38 @@ def _print_ptxas(report: str) -> None:
             print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
     print(f"[build] {kernels} instantiations: at most {regs} registers a "
           f"thread, {spilled} spilling")
+
+
+def _check_tensor_cores(lib: str) -> dict:
+    """Tensor-core instructions in the SASS of each bf16 flash kernel
+    (``HGMMA``: wgmma; ``HMMA``: mma.sync), from ``cuobjdump
+    --dump-sass`` of the built library; fails unless each of the six
+    (fwd, dq, dkdv x D 64, 128) has some."""
+    from bigdl_tpu_torch.ops import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass", lib], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_tc_kernelILi(\d+)E",
+                          line)
+            name = f"{f.group(1)} bf16 D={f.group(2)}" if f else None
+            if name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in counts[name]:
+                counts[name][op] += bool(re.search(rf"\b{op}\.", line))
+    print("[build] tensor-core instructions in the bf16 flash kernels' "
+          "SASS: " + json.dumps(counts), flush=True)
+    bare = sorted(f"{k} bf16 D={d}" for k in ("flash_fwd", "flash_dq",
+                                              "flash_dkdv")
+                  for d in (64, 128)
+                  if not sum(counts.get(f"{k} bf16 D={d}", {}).values()))
+    if bare:
+        raise AssertionError(f"no tensor-core instructions in {bare}")
+    return counts
 
 
 def _time_ms(fn, iters=20):
@@ -525,13 +576,18 @@ def phase_serve(pa, seed):
     return launches
 
 
+def _flash_flops(b, s, h, d, half_products):
+    """Operations of one flash kernel at (b, s, h, d), causal: 2·d per
+    (q, k) pair of the causal half and per half-product."""
+    return 2 * d * half_products * (b * h * s * (s + 1) // 2)
+
+
 def _flash_bound(b, s, h, d, dtype, half_products):
     """Least time for one flash kernel at (b, s, h, d), causal: each
     input read once and each output written once over the memory rate,
-    vs the operations the causal half needs (2·d per (q, k) pair and
-    half-product) over the peak for the dtype's arithmetic."""
-    pairs = b * h * s * (s + 1) // 2
-    flops = 2 * d * half_products * pairs
+    vs the operations the causal half needs over the peak for the
+    dtype's arithmetic."""
+    flops = _flash_flops(b, s, h, d, half_products)
     elt = torch.finfo(dtype).bits // 8
     rows = b * s * h
     # fwd: q, k, v in, o and lse out; dq: q, k, v, dO, lse, delta in, dq
@@ -598,12 +654,18 @@ def _flash_compare(got, want, label):
 
 def _flash_tails(fa, gen):
     """Ragged tile tails on the card: sequence lengths that 64 does not
-    divide, Sq != Skv (non-causal), both head dims and dtypes."""
+    divide, Sq != Skv (non-causal), both head dims and dtypes; in bf16
+    also a 128-row tile with a ragged tail (S 200, Skv 136) and each
+    head dim both causal and not."""
     for b, sq, skv, h, d, causal, dtype in (
             (2, 100, 100, 3, 64, True, torch.float32),
             (2, 100, 77, 3, 64, False, torch.bfloat16),
             (1, 130, 200, 2, 128, False, torch.float32),
-            (1, 130, 130, 2, 128, True, torch.bfloat16)):
+            (1, 130, 130, 2, 128, True, torch.bfloat16),
+            (2, 100, 100, 3, 64, True, torch.bfloat16),
+            (1, 130, 200, 2, 128, False, torch.bfloat16),
+            (1, 200, 136, 2, 128, False, torch.bfloat16),
+            (1, 200, 200, 2, 128, True, torch.bfloat16)):
         q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
                  .to(_DEV) for _ in range(2))
         k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
@@ -620,9 +682,11 @@ def _flash_tails(fa, gen):
 
 def phase_flash(fa, gen):
     """The three flash kernels vs their plain versions at the training
-    shapes (B4 S2048 H8 D128, causal), bf16 and f32; SDPA as the library
-    yardstick (forward; backward = autograd's fwd+bwd minus fwd, one call
-    that gives dq, dk and dv together)."""
+    shapes (B4 S2048 H8 D128, causal), bf16 (tensor cores) and f32 (CUDA
+    cores); SDPA as the library yardstick (forward; backward = autograd's
+    fwd+bwd minus fwd, one call that gives dq, dk and dv together). Each
+    row also gives the kernel's rate over the causal half's operations
+    and its share of the bound (bound_ms / ms)."""
     import torch.nn.functional as F
     _flash_tails(fa, gen)
     b, s, h, d = (_TRAIN["batch"], _TRAIN["seq"], _TRAIN["heads"],
@@ -670,9 +734,11 @@ def phase_flash(fa, gen):
         }
         for kname, (kern, plain, halves, lib, err) in kernels.items():
             bound, by = _flash_bound(b, s, h, d, dtype, halves)
-            row = dict(max_abs_err=err, ms=_time_ms(kern),
-                       plain_ms=_time_ms(plain), bound_ms=bound,
-                       bound_by=by, library_ms=lib)
+            ms = _time_ms(kern)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
+                       bound_ms=bound, bound_by=by, library_ms=lib,
+                       tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
+                       share_of_bound=bound / ms)
             rows[(kname, dtype)] = row
             print(f"[kernels] {kname}[{name}] B={b} S={s} H={h} D={d} "
                   f"causal " + json.dumps(row), flush=True)
@@ -1418,6 +1484,7 @@ def main(argv=None) -> int:
           f"in {time.perf_counter() - t0:.3f} s", flush=True)
     for lib in libs:
         _print_ptxas(Path(lib._name).with_suffix(".ptxas.txt").read_text())
+    _check_tensor_cores(libs[sources.index("flash_attention.cu")]._name)
 
     gen = torch.Generator().manual_seed(args.seed)
     rows = phase_kernels(pa, gen)
@@ -1441,6 +1508,7 @@ def main(argv=None) -> int:
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"]}]
     # the main paths train in bf16: their rows are the bf16 measurements
+    # (the line keeps its keys; tflops and share_of_bound are in [kernels])
     for name, line, count in (("flash_fwd", 190, "fwd"),
                               ("flash_dq", 306, "dq"),
                               ("flash_dkdv", 322, "dkdv")):
@@ -1449,7 +1517,9 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": flash_launches[count], **row})
+            "launches": flash_launches[count],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):

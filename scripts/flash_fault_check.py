@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""Planted-fault check of ``chip_smoke.py``'s flash forward tolerance on
-one NVIDIA card.
+"""Planted-fault check of ``chip_smoke.py``'s flash tolerances on one
+NVIDIA card.
 
 Builds ``bigdl_tpu_torch/csrc/flash_attention.cu`` as it is and in
 broken copies (written to a temporary directory, never into the
-checkout), runs each forward at the training shapes (B4 S2048 H8 D128,
-bf16, causal) and prints, for each, o's max abs error against the plain
-version and its worst error over the elementwise limit that
-``chip_smoke.py`` applies (pass: <= 1), beside the limit it applied
-before, 1e-2 x max(1, max|plain|).
+checkout), runs each forward and backward at the training shapes (B4
+S2048 H8 D128, bf16, causal) and prints, for each, the max abs error of
+o, dq, dk and dv against the plain versions and their worst error over
+the elementwise limits that ``chip_smoke.py`` applies (pass: <= 1),
+beside o's earlier limit, 1e-2 x max(1, max|plain|), and the
+gradients' earlier one, (2^-7, 2^-7). Run with several ``--seed``
+values, the sound rows give the spread that the gradient limit rests
+on.
 
-The faults, each in the forward kernel's last key tile (the diagonal
-one) of every query tile after the first, where a prefetch-free final
-iteration could pick the wrong half of the K/V double buffer:
+The forward faults, each in the bf16 tensor-core forward
+(``flash_fwd_tc_kernel``, the one the bf16 training path runs) on its
+last key tile (the diagonal one) of every query tile after the first,
+where P·V could be handed the wrong stage of the K/V ring:
 
-- ``v_prev_tile``: P·V reads V of the previous key tile;
+- ``v_prev_tile``: P·V reads V from the previous ring stage (the
+  previous key tile);
 - ``v_prev_tile_late``: the same, in the query tiles of the second half
   of the sequence only (late rows average many keys, so their |o| is
   small and a wrong V moves them least);
 - ``v_prev_tile_last``: the same, in the last query tile only.
+
+The backward fault, in the bf16 dk/dv kernel (``flash_dkdv_tc_kernel``),
+which the looser gradient limit must still catch:
+
+- ``do_prev_tile``: on the last query tile of every key tile, dPᵀ and
+  Pᵀ·dO read dO from the previous ring stage (the previous 64 queries).
 
     python3 scripts/flash_fault_check.py [--seed N]
 """
@@ -40,15 +51,23 @@ import chip_smoke  # noqa: E402
 from bigdl_tpu_torch.ops import _build  # noqa: E402
 from bigdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-_V_LINE = "    const T* vs = ks + kT;\n"   # the forward's V tile, first match
-_PREV = "kv + ((kt - 1) & 1) * 2 * kT + kT"
+# the bf16 forward's V stage, first match (the dq kernel has the second)
+_V_LINE = "    const uint32_t vs = ks + kKV;\n"
+_PREV = "kv0 + ((kt - 1) % kStages) * 2 * kKV + kKV"
 FAULTS = {
-    "v_prev_tile": f"    const T* vs = (kt >= 1 && kt == nkt - 1) ? {_PREV}"
-                   f" : ks + kT;\n",
-    "v_prev_tile_late": f"    const T* vs = (kt >= 1 && kt == nkt - 1 && "
-                        f"2 * q0 >= Sq) ? {_PREV} : ks + kT;\n",
-    "v_prev_tile_last": f"    const T* vs = (kt >= 1 && kt == nkt - 1 && "
-                        f"q0 + kTile >= Sq) ? {_PREV} : ks + kT;\n",
+    "v_prev_tile": f"    const uint32_t vs = (kt >= 1 && kt == nkt - 1) ? "
+                   f"{_PREV} : ks + kKV;\n",
+    "v_prev_tile_late": f"    const uint32_t vs = (kt >= 1 && kt == nkt - 1 "
+                        f"&& 2 * q0 >= Sq) ? {_PREV} : ks + kKV;\n",
+    "v_prev_tile_last": f"    const uint32_t vs = (kt >= 1 && kt == nkt - 1 "
+                        f"&& q0 + kRows >= Sq) ? {_PREV} : ks + kKV;\n",
+}
+# the bf16 dk/dv kernel's dO stage (the only such line)
+_DO_LINE = "    const uint32_t dos = qs + kQD;\n"
+BWD_FAULTS = {
+    "do_prev_tile": "    const uint32_t dos = (it >= 1 && it == n - 1) ? "
+                    "qd0 + ((it - 1) % kStages) * 2 * kQD + kQD : "
+                    "qs + kQD;\n",
 }
 
 
@@ -60,16 +79,29 @@ def main(argv=None) -> int:
         print("flash_fault_check: CUDA is not available", file=sys.stderr)
         return 2
     src = (ROOT / "bigdl_tpu_torch/csrc/flash_attention.cu").read_text()
-    if src.count(_V_LINE) != 2:         # forward first, then dq
-        raise RuntimeError("the forward's V tile line has moved; update "
-                           "the planted faults")
-    sources = {"sound": src, **{name: src.replace(_V_LINE, line, 1)
-                                for name, line in FAULTS.items()}}
+    if (src.count(_V_LINE) != 2         # forward first, then dq
+            or src.index(_V_LINE) > src.index("flash_dq_tc_kernel(")
+            or src.index(_V_LINE) < src.index("flash_fwd_tc_kernel(")):
+        raise RuntimeError("the bf16 forward's V stage line has moved; "
+                           "update the planted faults")
+    if src.count(_DO_LINE) != 1:
+        raise RuntimeError("the bf16 dk/dv kernel's dO stage line has "
+                           "moved; update the planted faults")
+    sources = {"sound": src,
+               **{name: src.replace(_V_LINE, line, 1)
+                  for name, line in FAULTS.items()},
+               **{name: src.replace(_DO_LINE, line)
+                  for name, line in BWD_FAULTS.items()}}
     b, s, h, d = 4, 2048, 8, 128
+    scale = d ** -0.5
     gen = torch.Generator().manual_seed(args.seed)
-    q, k, v = (torch.randn((b, s, h, d), generator=gen)
-               .to(torch.bfloat16).cuda() for _ in range(3))
-    want, _ = fa.flash_fwd_ref(q, k, v, d ** -0.5, True)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen)
+                   .to(torch.bfloat16).cuda() for _ in range(4))
+    want, lse = fa.flash_fwd_ref(q, k, v, scale, True)
+    delta = (do.float() * want.float()).sum(-1)
+    want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, scale, True)
+    want_dk, want_dv = fa.flash_dkdv_ref(q, k, v, do, lse, delta, scale,
+                                         True)
     old_limit = 1e-2 * max(1.0, float(want.float().abs().max()))
     rms = float(want.float().square().mean().sqrt())
     with tempfile.TemporaryDirectory() as tmp:
@@ -80,14 +112,26 @@ def main(argv=None) -> int:
         for name, lib in libs.items():
             fns = fa.bind(lib)
             fa._kernel_fns = lambda fns=fns: fns
-            o, _ = fa.flash_fwd(q, k, v, d ** -0.5, True)
+            o, _ = fa.flash_fwd(q, k, v, scale, True)
+            dq = fa.flash_dq(q, k, v, do, lse, delta, scale, True)
+            dk, dv = fa.flash_dkdv(q, k, v, do, lse, delta, scale, True)
             torch.cuda.synchronize()
             err, worst = chip_smoke._flash_err("o", o, want)
-            print(f"[fault] {name}: " + json.dumps(dict(
-                max_abs_err=err, worst_over_limit=worst,
-                caught=not worst <= 1, old_limit=old_limit,
-                caught_by_old=not err <= old_limit, rms_o=rms,
-                max_abs_o=float(want.float().abs().max()))), flush=True)
+            row = dict(max_abs_err=err, worst_over_limit=worst,
+                       old_limit=old_limit,
+                       caught_by_old=not err <= old_limit, rms_o=rms,
+                       max_abs_o=float(want.float().abs().max()))
+            for what, got, ref in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                                   ("dv", dv, want_dv)):
+                e, w = chip_smoke._flash_err(what, got, ref)
+                row.update({f"{what}_max_abs_err": e,
+                            f"{what}_worst_over_limit": w,
+                            # the earlier limit, for bit-equal P and dS
+                            f"{what}_worst_over_old_limit": chip_smoke._worst(
+                                got, ref, 2 ** -7, 2 ** -7)[1]})
+                worst = max(worst, w)
+            print(f"[fault] {name}: caught={not worst <= 1} "
+                  + json.dumps(row), flush=True)
     print(chip_smoke._card())
     return 0
 

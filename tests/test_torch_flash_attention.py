@@ -23,6 +23,7 @@ import torch
 
 from bigdl_tpu.ops.pallas import flash_attention as jfa
 from bigdl_tpu.parallel import sequence as jseq
+from bigdl_tpu.tuning.records import TuningRecords, set_default_records
 from bigdl_tpu_torch.ops import flash_attention as tfa
 from bigdl_tpu_torch.parallel import sequence as tseq
 
@@ -48,14 +49,12 @@ def _close(got, want, tol, what):
     np.testing.assert_allclose(got, want, atol=tol, rtol=tol, err_msg=what)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_matches_jax_kernel(causal, dtype):
+def _check_against_jax_kernel(b, s, h, d, causal, dtype, skv=None):
     """o, lse and dq/dk/dv of (o, lse) with nonzero cotangents on both
     (the analogue of tests/test_flash_attention.py's lse-cotangent test),
-    at (B2, S128, H2, D64)."""
+    the port against the JAX kernel in interpret mode."""
     jdt, tdt, tol, gtol = _DTYPES[dtype]
-    q, k, v, g, g_lse = _inputs(2, 128, 2, 64)
+    q, k, v, g, g_lse = _inputs(b, s, h, d, skv=skv)
     jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
 
     def jf(q_, k_, v_):
@@ -69,7 +68,7 @@ def test_flash_matches_jax_kernel(causal, dtype):
                   for x in (q, k, v))
     to, tlse = tfa.flash_attention_with_lse(tq, tk, tv, causal=causal)
     assert to.dtype == tdt and tlse.dtype == torch.float32
-    assert tlse.shape == (2, 128, 2)
+    assert tlse.shape == (b, s, h)
     tdq, tdk, tdv = torch.autograd.grad(
         (to.float() * torch.from_numpy(g).to(tdt).float()).sum()
         + (tlse * torch.from_numpy(g_lse)).sum(), (tq, tk, tv))
@@ -79,6 +78,33 @@ def test_flash_matches_jax_kernel(causal, dtype):
                             ("dv", tdv, jdv)):
         assert got.dtype == tdt, name
         _close(got, want, gtol, name)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_matches_jax_kernel(causal, dtype):
+    """(B2, S128, H2, D64) against the JAX kernel."""
+    _check_against_jax_kernel(2, 128, 2, 64, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_matches_jax_kernel_at_ragged_tile_edges(causal, dtype):
+    """D 128 at Sq 200: one 128-row tile of the card's kernels and a
+    ragged tail of 72 rows; Skv 136 when not causal (a 128-key tile and
+    8 keys). These are the yardsticks chip_smoke.py holds the kernels to
+    at those edges. The JAX kernel tiles only lengths with a divisor it
+    knows, so an in-memory tuning record hands it blocks that divide
+    these (a record is honoured when its blocks divide the lengths)."""
+    skv = 200 if causal else 136
+    records = TuningRecords()
+    records.record("flash_attention", {"sq": 200, "skv": skv},
+                   {"bq": 40, "bk": 40 if causal else 136})
+    set_default_records(records)
+    try:
+        _check_against_jax_kernel(1, 200, 2, 128, causal, dtype, skv=skv)
+    finally:
+        set_default_records(None)
 
 
 @pytest.mark.parametrize("causal", [True, False])
