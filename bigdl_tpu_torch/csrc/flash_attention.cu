@@ -40,10 +40,12 @@
 //   or Q from shared memory in their MN-major (transposed) form, which
 //   16-bit types allow. No product needs a transposed copy.
 // - Tiles come in by TMA: each tensor is a 4-D map (D, H, S, B) with a
-//   box of (64, 1, rows, 1), so a tile is D/64 boxes of [rows][64] bf16
-//   (128-byte rows, 128-byte swizzle, the wgmma descriptors' layout),
-//   and rows past S are zero-filled inside their own (b, h) — never the
-//   next batch's rows. The maps are made in the C entry from the
+//   box of (64, 1, rows, 1), so a tile is ceil(D/64) boxes of [rows][64]
+//   bf16 (128-byte rows, 128-byte swizzle, the wgmma descriptors'
+//   layout), and rows past S are zero-filled inside their own (b, h) —
+//   never the next batch's rows. At D 32 the box reaches past D and its
+//   columns 32..63 fill with zeros: products over D take 2 K steps,
+//   products with D as output run at N 64 and drop the zero half. The maps are made in the C entry from the
 //   pointers and shapes (cuTensorMapEncodeTiled, found through
 //   cudaGetDriverEntryPoint so the library links no -lcuda) and passed
 //   as __grid_constant__ parameters.
@@ -71,7 +73,8 @@
 // float32 -> CUDA cores (the tensor cores take no f32 operand; TF32
 // would round the inputs): 256 threads per CTA as a 16 x 16 grid (ty,
 // tx) over 64 x 64 tiles, thread (ty, tx) owning rows ty*4 + i and
-// columns tx + 16*j, f32 FMAs over 4-element vector reads of the
+// columns tx + 16*j (of D-wide outputs, 4 adjacent columns in each
+// 64-wide chunk, 2 at D 32), f32 FMAs over vector reads of the
 // shared-memory operands; products with D as output read the p or dS
 // tile back from shared memory. One CTA per (b·h, 64-row tile), the
 // walked tiles double-buffered with cp.async, rows past S zero-filled.
@@ -85,17 +88,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"       // mbarriers, TMA, wgmma, tensor maps
+
 namespace {
 
-constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
+using hopper::set_smem;
 
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
+constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
 
 // ===========================================================================
 // float32: CUDA cores
@@ -124,6 +123,32 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
 
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// Products with D as output cover it in chunks of kChunk<D> columns, 16
+// threads across a chunk, kPer<D> adjacent columns each (4 at D 64 and
+// 128, 2 at D 32).
+template <int D>
+constexpr int kChunk = D < 64 ? D : 64;
+template <int D>
+constexpr int kPer = kChunk<D> / 16;
+
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    load4(p, x);
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float (&x)[N]) {
+  if constexpr (N == 4)
+    store4(p, x);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -183,8 +208,9 @@ __device__ __forceinline__ void dot_tile(const T* A, const T* B, int ty,
   }
 }
 
-// acc[i][u*4 + e] += Σ_c W[ty*4 + i][c] · X[c][tx*4 + 64*u + e]: W the
-// f32 64 x 64 tile at pitch kPP, X a staged tile at pitch P
+// acc[i][u*E + e] += Σ_c W[ty*4 + i][c] · X[c][tx*E + kChunk*u + e]
+// (E = kPer<D>): W the f32 64 x 64 tile at pitch kPP, X a staged tile at
+// pitch P
 template <typename T, int D>
 __device__ __forceinline__ void mul_tile(const float* W, const T* X, int ty,
                                          int tx, float (&acc)[4][D / 16]) {
@@ -194,14 +220,15 @@ __device__ __forceinline__ void mul_tile(const float* W, const T* X, int ty,
     float w[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) w[i] = W[(ty * 4 + i) * kPP + c];
+    constexpr int E = kPer<D>;
 #pragma unroll
-    for (int u = 0; u < D / 64; ++u) {
-      float x[4];
-      load4(X + c * P + tx * 4 + 64 * u, x);
+    for (int u = 0; u < D / kChunk<D>; ++u) {
+      float x[E];
+      load_n(X + c * P + tx * E + kChunk<D> * u, x);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][u * 4 + e] += w[i] * x[e];
+        for (int e = 0; e < E; ++e) acc[i][u * E + e] += w[i] * x[e];
     }
   }
 }
@@ -218,12 +245,13 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][D / 16]
     const int s = row0 + ty * 4 + i;
     if (s >= S) continue;
     T* row = out + ((static_cast<int64_t>(b) * S + s) * H + h) * D;
+    constexpr int E = kPer<D>;
 #pragma unroll
-    for (int u = 0; u < D / 64; ++u) {
-      float x[4];
+    for (int u = 0; u < D / kChunk<D>; ++u) {
+      float x[E];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = acc[i][u * 4 + e] * inv[i];
-      store4(row + tx * 4 + 64 * u, x);
+      for (int e = 0; e < E; ++e) x[e] = acc[i][u * E + e] * inv[i];
+      store_n(row + tx * E + kChunk<D> * u, x);
     }
   }
 }
@@ -570,221 +598,27 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 
 namespace tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;      // two warpgroups of 128
 constexpr int kRows = 128;         // rows a CTA owns (64 per warpgroup)
 constexpr int kStages = 2;         // ring of walked tiles
-constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// 64-wide column chunks of a D-wide tile; D 32 is one chunk whose
+// columns 32..63 TMA fills with zeros (the box reaches past D), so
+// products over D take only the first D/16 K steps, and products with D
+// as output give zero columns past D, which store_acc skips
+__host__ __device__ constexpr int chunks(int D) { return (D + 63) / 64; }
 
-// --- mbarriers ---
-
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-// arrive and expect `bytes` of TMA traffic before the phase completes
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-      ::"r"(bar) : "memory");
-}
-// wait for the completion of the phase of parity `parity`
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-// the same for a whole warp, reconverged for the .aligned wgmma after it
-__device__ __forceinline__ void warp_wait(uint32_t bar, uint32_t parity) {
-  bar_wait(bar, parity);
-  __syncwarp();
-}
-
-// --- TMA ---
-
-// box (64, 1, rows, 1) of a (D, H, S, B) map at (d0, h, s0, b) into dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int h, int s0,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
-        "r"(h), "r"(s0), "r"(b) : "memory");
-}
-
-// rows [s0, s0 + ROWS) of head h as D/64 boxes of [ROWS][64]
+// rows [s0, s0 + ROWS) of head h as chunks(D) boxes of [ROWS][64]
 template <int D, int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int b, int h,
                                           int s0) {
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c)
+  for (int c = 0; c < chunks(D); ++c)
     tma_load(dst + c * ROWS * kRowBytes, map, bar, c * 64, h, s0, b);
-}
-
-// --- wgmma ---
-
-// shared-memory operand descriptor, 128-byte swizzle: 8-row groups 1024
-// bytes apart (SBO); the leading offset is unused (K-major, or MN-major
-// with one 64-wide chunk per instruction). `addr` lies in a 1024-aligned
-// swizzle atom, advanced by 32 bytes per K step inside a K-major row.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// K step kk (16 columns) of a K-major tile of TOTAL rows, from row r0
-template <int TOTAL>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
-  return desc(tile + (kk / 4) * TOTAL * kRowBytes + r0 * kRowBytes +
-              (kk % 4) * 32);
-}
-// K step kk (16 rows) of column chunk c of an MN-major tile of TOTAL rows
-template <int TOTAL>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int c, int kk) {
-  return desc(tile + c * TOTAL * kRowBytes + kk * 16 * kRowBytes);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// pin registers the async products read or write to after the wait
-template <int N>
-__device__ __forceinline__ void keep(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// d (+)= A·B, A and B K-major in shared memory (descriptors), M64 N64 K16;
-// acc 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// the same at N128
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += A·B, A (M64 K16 bf16) in registers, B MN-major in shared memory
-// (transposed, imm-trans-b 1), N64
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// --- accumulator layout ---
-// Element i of a m64nN f32 accumulator, in thread (warp w of the
-// warpgroup, lane l): row 16w + l/4 + 8·((i%4)/2), column 8·(i/4) +
-// 2·(l%4) + i%2. Two neighbouring n8 blocks of it are one m64k16 A
-// fragment, so a score tile becomes the next product's A operand in
-// place.
-
-__device__ __forceinline__ int acc_row(int i) { return 8 * ((i % 4) / 2); }
-__device__ __forceinline__ int acc_col(int i, int l) {
-  return 8 * (i / 4) + 2 * (l % 4) + (i % 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x (m64 x 16·K f32) rounded to bf16 as K A fragments
-template <int K>
-__device__ __forceinline__ void to_frags(const float (&x)[8 * K],
-                                         uint32_t (&f)[K][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      f[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -813,9 +647,10 @@ __device__ __forceinline__ void load_cols(float (&v)[16],
 }
 
 // rows row0 and row0 + 8 (if below S) of a (B, S, H, D) bf16 output from
-// the D/64 accumulators of a warpgroup, row r scaled by mul[r]
+// the chunks(D) accumulators of a warpgroup, row r scaled by mul[r]
 template <int D>
-__device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 64][32],
+__device__ __forceinline__ void store_acc(bf16* out,
+                                          const float (&acc)[chunks(D)][32],
                                           const float (&mul)[2], int b,
                                           int h, int row0, int S, int H,
                                           int l) {
@@ -825,9 +660,10 @@ __device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 64][
     if (s >= S) continue;
     bf16* row = out + ((static_cast<int64_t>(b) * S + s) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c)
+    for (int c = 0; c < chunks(D); ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (64 * c + 8 * j >= D) continue;       // zero padding past D
         const int i = 4 * j + 2 * r;
         *reinterpret_cast<uint32_t*>(row + 64 * c + acc_col(i, l)) =
             pack_bf16(acc[c][i] * mul[r], acc[c][i + 1] * mul[r]);
@@ -835,36 +671,13 @@ __device__ __forceinline__ void store_acc(bf16* out, const float (&acc)[D / 64][
   }
 }
 
-// Shared memory of a kernel: 1024-aligned tiles, then the barriers
-// full[kStages], empty[kStages] and one for the tiles loaded once.
-struct Ring {
-  uint32_t base, bars;
-  __device__ uint32_t full(int s) const { return bars + 8 * s; }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (kStages + s); }
-  __device__ uint32_t once() const { return bars + 16 * kStages; }
-};
-
+using Ring = hopper::Ring<kStages>;
 template <int kFixedBytes, int kStageBytes>
-struct Layout {
-  static constexpr int kBars = kFixedBytes + kStages * kStageBytes;
-  static constexpr size_t kSmem = 1024 + kBars + 8 * (2 * kStages + 1);
-};
+using Layout = hopper::Layout<kStages, kFixedBytes, kStageBytes>;
 
-// Barriers set up by thread 0; empty stages take one arrival per warp.
+// empty stages take one arrival per warp
 __device__ __forceinline__ Ring make_ring(unsigned char* raw, int bars_at) {
-  Ring r;
-  r.base = (smem_u32(raw) + 1023) & ~1023u;
-  r.bars = r.base + bars_at;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      bar_init(r.full(s), 1);
-      bar_init(r.empty(s), kThreads / 32);
-    }
-    bar_init(r.once(), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  return r;
+  return hopper::make_ring<kStages>(raw, bars_at, kThreads / 32);
 }
 
 // ---------------------------------------------------------------------------
@@ -878,8 +691,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
                     const __grid_constant__ CUtensorMap vm,
                     bf16* __restrict__ o, float* __restrict__ lse, int H,
                     int Sq, int Skv, float scale, int causal) {
-  constexpr int kN = 128, kC = D / 64;
-  constexpr int kQ = kRows * D * 2, kKV = kN * D * 2;
+  constexpr int kN = 128, kC = chunks(D);
+  constexpr int kQ = kRows * kC * kRowBytes, kKV = kN * kC * kRowBytes;
   using L = Layout<kQ, 2 * kKV>;
   extern __shared__ unsigned char smem_raw[];
   const Ring ring = make_ring(smem_raw, L::kBars);
@@ -1017,8 +830,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap qm,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int H, int Sq, int Skv, float scale, int causal) {
-  constexpr int kN = 64, kC = D / 64;
-  constexpr int kQ = kRows * D * 2, kKV = kN * D * 2;
+  constexpr int kN = 64, kC = chunks(D);
+  constexpr int kQ = kRows * kC * kRowBytes, kKV = kN * kC * kRowBytes;
   using L = Layout<2 * kQ, 2 * kKV>;
   extern __shared__ unsigned char smem_raw[];
   const Ring ring = make_ring(smem_raw, L::kBars);
@@ -1139,8 +952,8 @@ flash_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qm,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int H, int Sq, int Skv,
                      float scale, int causal) {
-  constexpr int kM = 64, kC = D / 64;
-  constexpr int kK = kRows * D * 2, kQD = kM * D * 2;
+  constexpr int kM = 64, kC = chunks(D);
+  constexpr int kK = kRows * kC * kRowBytes, kQD = kM * kC * kRowBytes;
   using L = Layout<2 * kK, 2 * kQD>;
   extern __shared__ unsigned char smem_raw[];
   const Ring ring = make_ring(smem_raw, L::kBars);
@@ -1270,37 +1083,8 @@ flash_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qm,
 
 // --- host: tensor maps and launchers ---
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-constexpr int kNoEncoder = -2;     // the driver has no cuTensorMapEncodeTiled
-constexpr int kMapFailed = 1000;   // + the CUresult of a refused map
-
 // (B, S, H, D) bf16 at ptr as a (D, H, S, B) map with boxes (64, 1, rows,
-// 1), 128-byte swizzle; reads past S fill zeros
+// 1), 128-byte swizzle; reads past S (and past D, at D 32) fill zeros
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
              int rows) {
   const EncodeTiled enc = encode_tiled();
@@ -1330,7 +1114,9 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   if (int e = make_map(&qm, q, B, Sq, H, D, kRows)) return e;
   if (int e = make_map(&km, k, B, Skv, H, D, 128)) return e;
   if (int e = make_map(&vm, v, B, Skv, H, D, 128)) return e;
-  constexpr size_t smem = Layout<kRows * D * 2, 2 * 128 * D * 2>::kSmem;
+  constexpr int kTileRow = chunks(D) * kRowBytes;
+  constexpr size_t smem =
+      Layout<kRows * kTileRow, 2 * 128 * kTileRow>::kSmem;
   auto kernel = flash_fwd_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
@@ -1348,7 +1134,9 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   if (int e = make_map(&dom, dout, B, Sq, H, D, kRows)) return e;
   if (int e = make_map(&km, k, B, Skv, H, D, 64)) return e;
   if (int e = make_map(&vm, v, B, Skv, H, D, 64)) return e;
-  constexpr size_t smem = Layout<2 * kRows * D * 2, 2 * 64 * D * 2>::kSmem;
+  constexpr int kTileRow = chunks(D) * kRowBytes;
+  constexpr size_t smem =
+      Layout<2 * kRows * kTileRow, 2 * 64 * kTileRow>::kSmem;
   auto kernel = flash_dq_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
@@ -1367,7 +1155,9 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
   if (int e = make_map(&vm, v, B, Skv, H, D, kRows)) return e;
   if (int e = make_map(&qm, q, B, Sq, H, D, 64)) return e;
   if (int e = make_map(&dom, dout, B, Sq, H, D, 64)) return e;
-  constexpr size_t smem = Layout<2 * kRows * D * 2, 2 * 64 * D * 2>::kSmem;
+  constexpr int kTileRow = chunks(D) * kRowBytes;
+  constexpr size_t smem =
+      Layout<2 * kRows * kTileRow, 2 * 64 * kTileRow>::kSmem;
   auto kernel = flash_dkdv_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
   const dim3 grid(B * H, (Skv + kRows - 1) / kRows);
@@ -1384,8 +1174,10 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 // bfloat16 (tensor cores)
 #define BIGDL_FLASH_DISPATCH(FN, ...)                                    \
   do {                                                                    \
+    if (dtype == 0 && D == 32) return FN<float, 32>(__VA_ARGS__);         \
     if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);         \
     if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__);       \
+    if (dtype == 1 && D == 32) return tc::FN<32>(__VA_ARGS__);            \
     if (dtype == 1 && D == 64) return tc::FN<64>(__VA_ARGS__);            \
     if (dtype == 1 && D == 128) return tc::FN<128>(__VA_ARGS__);          \
     return -1;                                                            \

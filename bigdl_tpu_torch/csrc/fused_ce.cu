@@ -31,22 +31,63 @@
 // accumulator — the TPU's (512, D) and (1024, D) f32 VMEM tiles — is
 // what does not fit: an SM has 256 KB of registers.
 //
-// bf16 with D <= 1024 (the LM head's path): thread-block clusters.
-// Four CTAs on four SMs share 64 resident rows; CTA q of the cluster
-// owns feature columns [256q, 256q + 256). It keeps its slice of the 64
-// R rows in shared memory for the whole walk and stages only its slice
-// of each X tile (cp.async, double buffered), so an X element crosses
-// L2 once per cluster. Per tile: each CTA forms the partial S of its
-// slice with warp-level tensor-core products (mma.sync m16n8k16, bf16 in,
-// f32 accumulate; ldmatrix operands); a cluster barrier; then every CTA
-// reads the four partials through distributed shared memory and sums
-// them in one fixed order. CTA q takes rows [16q, 16q + 16) of the tile:
-// the forward folds them into the online logsumexp; the backward turns
-// them into dlogits, rounded to bf16, and writes them into all four
-// CTAs' copies of the (64 x 64) dlogits tile; after a second cluster
-// barrier every CTA multiplies the whole tile by the same X slice it
-// already holds into its (64 x 256) f32 accumulator (64 registers a
-// thread). Nothing is recomputed and no partial sum leaves the cluster.
+// bf16 with D <= 1024 (the LM head's path): thread-block clusters of
+// four CTAs on four SMs; CTA q of a cluster owns feature columns [256q,
+// 256q + 256). D-wide f32 state does not fit one SM, so each CTA keeps a
+// quarter of it and the partial logits are summed across the cluster.
+//
+// Forward (fce_fwd_cluster_kernel): 64 resident rows per cluster. Each
+// CTA keeps its slice of the R rows in shared memory and stages its
+// slice of each X tile (cp.async, double buffered), forms the partial S
+// of its slice with warp-level tensor-core products (mma.sync m16n8k16,
+// ldmatrix operands); after a cluster barrier every CTA reads the four
+// partials through distributed shared memory, sums them in one fixed
+// order and folds rows [16q, 16q + 16) into the online logsumexp.
+//
+// Backward, dh and dW/db (fce_bwd_tc_kernel): bound by operations (see
+// below), so the products run on wgmma fed by TMA. 128 resident rows per
+// cluster, two consumer warpgroups of 64 rows in each CTA (256 threads).
+// - Loads: the CTA's R slice (128 x 256 bf16, 64 KB) once by TMA, as four
+//   [128][64] boxes of 128-byte swizzled rows; X tiles (64 x 256, 32 KB)
+//   through a 3-stage ring with full mbarriers. Thread 0 issues the load
+//   of tile t + 2 right after tile t's first cluster barrier, by which
+//   every warp of the CTA has finished the products that read the stage
+//   (the cluster barriers already order all warps twice a tile, so a
+//   producer warp could run no further ahead, and registers stay with the
+//   consumers: no setmaxnreg). The 2-D tensor maps (D, rows) zero-fill
+//   rows past N or V and columns past D; a 64-column box that lies wholly
+//   past D is not loaded, its shared memory zeroed once.
+// - Partial logits: each warpgroup forms its 64 x 64 partial S of tile t
+//   (32 f32 a thread) with wgmma m64n64k16 over 16 K steps, both operands
+//   K-major, and stores it to the CTA's f32 tile (128 x 64). Tile t + 1's
+//   partial products are issued while the cluster gathers tile t's dl.
+// - Cluster sum: after a cluster barrier CTA q sums rows [32q, 32q + 32)
+//   of the four CTAs' tiles through distributed shared memory in rank
+//   order, forms dl in f32, rounds it to bf16 and writes it into all four
+//   CTAs' 128 x 64 dl tile (128-byte swizzled rows); a second cluster
+//   barrier follows. db sums the unrounded dl per row.
+// - Accumulate: each warpgroup loads its 64 dl rows as A fragments
+//   (ldmatrix) and adds dl·X_slice into its 64 x 256 f32 accumulator (128
+//   registers a thread) with wgmma m64n256k16, X read MN-major (its 256
+//   columns as four 64-wide chunks). dl from registers, not shared
+//   memory: wgmma would read the tile through the async proxy, which
+//   needs a proxy fence after the remote writes, and that fence cost a
+//   tenth of the kernel's time.
+// - Two cluster barriers per 128 resident rows, and each X element
+//   crosses L2 once per cluster. What bounds the kernel is the exchange,
+//   not the tensor cores: its barriers and reads of remote partials take
+//   about two thirds of the time (scripts/fused_ce_knockout.py). Pushing
+//   the partials (remote stores, bulk copies, st.async with mbarriers) in
+//   place of reading them measured no faster; overlapping one tile's
+//   exchange with another's products needs a second set of exchange
+//   buffers, for which shared memory has no room.
+// - Waves: an H100 holds 30 such clusters at once. dW runs V/128 of them
+//   (256 at V 32768: 8.5 waves' work in 9). dh's N/128 (64 at N 8192)
+//   would fill waves of 30, 30 and 4, so dh splits its vocab walk into S
+//   parts (dh_splits: the S in 1..4 with the fewest whole-walk waves, 4
+//   here: 256 quarter walks in 9 waves), each writing f32 partial sums
+//   that fce_dh_merge_kernel adds in split order and rounds to bf16.
+// - Sums are f32 in a fixed order (no atomics): deterministic.
 //
 // f32 (and bf16 with D > 1024): f32 arithmetic on the CUDA cores, one
 // CTA per 16 resident rows. D is streamed in 64-column chunks of R and X
@@ -61,7 +102,7 @@
 // few rows still fill the card; fce_merge_kernel merges the per-split
 // (max, sum of exp, target logit) of each row into nll and lse. The
 // kernels allocate nothing: the Python wrapper (ops/fused_ce.py)
-// allocates outputs and the forward's partials and checks shapes,
+// allocates outputs and the forward's and dh's partials and checks shapes,
 // dtypes, contiguity and alignment. Any N, any V, D a multiple of 8
 // (16-byte row chunks for cp.async); ragged tiles are zero-filled and
 // masked.
@@ -70,19 +111,24 @@
 // bf16) the forward does 2·N·V·D = 5.5e11 operations on 85 MB of inputs
 // and each backward kernel twice that, thousands of operations a byte,
 // far above the ~295 at which the tensor cores bind: all three are bound
-// by operations (0.56 / 1.1 / 1.1 ms at 989 TFLOP/s). mma.sync reaches a
-// fraction of that rate; wgmma fed by TMA is the next step.
+// by operations (0.56 / 1.1 / 1.1 ms at 989 TFLOP/s). The forward's
+// mma.sync reaches a fraction of that rate; its move to wgmma and TMA, as
+// the backward's, is the next step.
 
 #include <cooperative_groups.h>
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"       // mbarriers, TMA, wgmma, tensor maps
+
 namespace {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
+using hopper::set_smem;
 
 constexpr int kThreads = 256;
 constexpr int kX = 64;        // streamed rows per tile (both paths)
@@ -242,15 +288,13 @@ constexpr int kCR = 64;               // resident rows per cluster
 constexpr int kSlice = 256;           // feature columns per CTA
 constexpr int kSP = kSlice + 8;       // pitch (bf16) of R and X slices
 constexpr int kPSP = kX + 4;          // pitch (f32) of a partial S tile
-constexpr int kGP = kX + 8;           // pitch (bf16) of the dlogits tile
 constexpr int kClusterD = kRanks * kSlice;
 
-// shared memory of a cluster CTA (bytes): R slice, two X slices, two
-// partial S tiles, the dlogits tile
+// shared memory of a forward cluster CTA (bytes): R slice, two X slices,
+// two partial S tiles
 constexpr size_t kOffX = kCR * kSP * sizeof(bf16);
 constexpr size_t kOffPS = kOffX + 2 * kX * kSP * sizeof(bf16);
-constexpr size_t kOffG = kOffPS + 2 * kCR * kPSP * sizeof(float);
-constexpr size_t kClusterSmem = kOffG + kCR * kGP * sizeof(bf16);
+constexpr size_t kClusterSmem = kOffPS + 2 * kCR * kPSP * sizeof(float);
 
 // c += a·b, one m16n8k16 tensor-core product (bf16 in, f32 accumulate)
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
@@ -263,8 +307,8 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // four 8 x 8 bf16 matrices from shared memory; lane i gives the address
-// of row i % 8 of matrix i / 8. Plain: lane t receives row t / 4, columns
-// 2(t % 4) .. +1 of each; trans: rows 2(t % 4) .. +1 of column t / 4.
+// of row i % 8 of matrix i / 8, lane t receives row t / 4, columns
+// 2(t % 4) .. +1 of each
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
@@ -272,14 +316,6 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // A fragment (16 rows from `row0`, k16 from `k0`) of a row-major tile
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile,
                                        int pitch, int row0, int k0) {
@@ -316,28 +352,6 @@ __device__ __forceinline__ void partial_s(float* ps, const bf16* Rs,
     p[1] = c[t][1];
     p[8 * kPSP] = c[t][2];
     p[8 * kPSP + 1] = c[t][3];
-  }
-}
-
-// acc (this CTA's 64 x 256 slice of dh or dW) += G (64 x 64 bf16
-// dlogits) · Xs (64 x 256). Warp w: rows 16(w % 4) .., columns
-// 128(w / 4) .. +128 as 16 m16n8 fragments.
-__device__ __forceinline__ void accumulate_tc(float (&acc)[16][4],
-                                              const bf16* G, const bf16* Xs) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int mb = (warp % 4) * 16, nb = (warp / 4) * 128;
-#pragma unroll
-  for (int k0 = 0; k0 < kX; k0 += 16) {
-    uint32_t a[4];
-    a_frag(a, G, kGP, mb, k0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {           // pairs of n8 tiles
-      uint32_t b[4];
-      ldsm4_t(b, Xs + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kSP + nb +
-                     j * 16 + (lane >> 4) * 8);
-      mma(acc[2 * j], a, b[0], b[1]);
-      mma(acc[2 * j + 1], a, b[2], b[3]);
-    }
   }
 }
 
@@ -437,103 +451,369 @@ fce_fwd_cluster_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// backward: CTA q forms rows 16q .. 16q + 15 of the dlogits tile (thread
-// t: row 16q + t / 16, columns 4(t % 16) .. +3), writes them rounded into
-// every CTA's copy of the tile, and after a second cluster barrier each
-// CTA multiplies the whole tile into its slice
+// backward (dh; dW and db): wgmma fed by TMA, 128 resident rows per cluster
 // ---------------------------------------------------------------------------
 
-template <bool kVocabRows>
-struct ClusterBwdEpi {
-  const float *b, *lse, *g;
-  const int* tgt;
-  bf16* G;
-  int r0, nR, nX;
-  float db;
-  float acc[16][4];
-  __device__ void operator()(int xt, const float* const (&parts)[kRanks],
-                             const bf16* xs) {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int r = static_cast<int>(cluster.block_rank()) * 16 +
-                  threadIdx.x / 16;
-    const int c0 = (threadIdx.x % 16) * 4;
-    float s[4];
-    full_s<4>(s, parts, r, c0);
-    const int rr = r0 + r;
-    // dh: the resident row is the token; dW: the vocab entry
-    const bool row_ok = rr < nR;
-    const float row_lse = !kVocabRows && row_ok ? lse[rr] : 0.f;
-    const float row_g = !kVocabRows && row_ok ? g[rr] : 0.f;
-    const int row_t = !kVocabRows && row_ok ? tgt[rr] - 1 : -1;
-    const float row_b = kVocabRows && row_ok ? b[rr] : 0.f;
-    float dl[4];
+namespace tc {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 128;            // resident rows per cluster
+constexpr int kChunks = kSlice / 64;  // 64-column boxes of a CTA's slice
+constexpr int kStages = 3;            // ring of X tiles
+constexpr int kPP = kX + 8;           // pitch (f32) of the partial S tile
+
+// shared memory (bytes from the 1024-aligned base): the R slice, the X
+// ring, the partial S tile (f32), the dl tile (bf16, swizzled), barriers
+constexpr int kRBytes = kRows * kSlice * 2;
+constexpr int kXBytes = kX * kSlice * 2;
+constexpr int kOffX = kRBytes;
+constexpr int kOffP = kOffX + kStages * kXBytes;
+constexpr int kOffG = kOffP + kRows * kPP * 4;
+constexpr int kBarsAt = kOffG + kRows * kX * 2;
+constexpr size_t kSmem = 1024 + kBarsAt + 8 * (2 * kStages + 1);
+static_assert(kOffG % 1024 == 0, "the dl tile is one swizzle-aligned tile");
+static_assert(kSmem <= 232448, "more shared memory than a CTA may have");
+
+// this warpgroup's partial logits of an X tile: s (64 x 64) = R rows
+// [64wg, 64wg + 64) of the slice · X tileᵀ, 16 K steps of 16 columns
+__device__ __forceinline__ void partial(float (&s)[32], uint32_t rs,
+                                        uint32_t xs, int wg) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int x = xt * kX + c0 + e;
-      dl[e] = 0.f;
-      if (row_ok && x < nX)
-        dl[e] = kVocabRows
-                    ? dlogit(s[e] + row_b, lse[x], g[x], tgt[x] - 1 == rr)
-                    : dlogit(s[e] + b[x], row_lse, row_g, x == row_t);
-      db += dl[e];
-    }
-    __nv_bfloat162 lo = __floats2bfloat162_rn(dl[0], dl[1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(dl[2], dl[3]);
-    uint2 packed;
-    packed.x = *reinterpret_cast<unsigned*>(&lo);
-    packed.y = *reinterpret_cast<unsigned*>(&hi);
-    // G is rewritten at the next tile only after the next tile's first
-    // cluster barrier, which every CTA reaches after this product
+  for (int kk = 0; kk < kSlice / 16; ++kk)
+    wgmma_ss_n64(s, desc_k<kRows>(rs, 64 * wg, kk), desc_k<kX>(xs, 0, kk),
+                 kk > 0);
+}
+
+// this warpgroup's dl rows [64wg, 64wg + 64) of the swizzled dl tile G
+// as the A fragments of 4 K steps (ldmatrix: generic loads, which the
+// cluster barrier orders after the remote writes; a wgmma operand read
+// from shared memory would need a proxy fence after them)
+__device__ __forceinline__ void dl_frags(uint32_t (&a)[kX / 16][4],
+                                         const unsigned char* G, int wg) {
+  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4;
+  const int r = 64 * wg + 16 * w + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int q = 0; q < kRanks; ++q)
-      *reinterpret_cast<uint2*>(cluster.map_shared_rank(G, q) + r * kGP +
-                                c0) = packed;
-    cluster.sync();                        // every CTA's tile is complete
-    accumulate_tc(acc, G, xs);
+  for (int kk = 0; kk < kX / 16; ++kk) {
+    const int c = 2 * kk + (lane >> 4);    // 16-byte chunk of the row
+    ldsm4(a[kk], reinterpret_cast<const bf16*>(
+                     G + r * kRowBytes + ((c ^ (r % 8)) * 16)));
   }
-};
+}
+
+// acc (64 x 256) += dl (64 x 64, A fragments in registers) · the X tile's
+// slice (64 x 256, read MN-major), 4 K steps of 16 X rows
+__device__ __forceinline__ void accumulate(float (&acc)[128],
+                                           const uint32_t (&a)[kX / 16][4],
+                                           uint32_t xs) {
+#pragma unroll
+  for (int kk = 0; kk < kX / 16; ++kk)
+    wgmma_rs_n256_tb(acc, a[kk], desc_mn_wide<kX>(xs, kk));
+}
+
+// X tile t0 + i, the walk's i-th, into its ring stage: the slice's nc
+// boxes of [64][64]
+__device__ __forceinline__ void load_x(const Ring<kStages>& ring,
+                                       const CUtensorMap* xm, int t0, int i,
+                                       int nc, int d0) {
+  const int st = i % kStages;
+  const uint32_t dst = ring.base + kOffX + st * kXBytes;
+  bar_expect(ring.full(st), nc * kX * kRowBytes);
+  for (int c = 0; c < nc; ++c)
+    tma_load_2d(dst + c * kX * kRowBytes, xm, ring.full(st), d0 + 64 * c,
+                (t0 + i) * kX);
+}
 
 template <bool kVocabRows>
 __global__ void __cluster_dims__(1, kRanks, 1) __launch_bounds__(kThreads, 1)
-fce_bwd_cluster_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                       const float* __restrict__ b,
-                       const int* __restrict__ tgt,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ g, bf16* __restrict__ out,
-                       float* __restrict__ db, int N, int V, int D) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const bf16* R = kVocabRows ? w : h;
-  const bf16* X = kVocabRows ? h : w;
-  const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
-  const int r0 = blockIdx.x * kCR;
-  ClusterBwdEpi<kVocabRows> epi{b, lse, g, tgt,
-                                reinterpret_cast<bf16*>(smem_raw + kOffG),
-                                r0, nR, nX, 0.f, {}};
-  cluster_walk(R, r0, nR, X, nX, 0, (nX + kX - 1) / kX, D, smem_raw, epi);
+fce_bwd_tc_kernel(const __grid_constant__ CUtensorMap rm,
+                  const __grid_constant__ CUtensorMap xm,
+                  const float* __restrict__ b, const int* __restrict__ tgt,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ g, bf16* __restrict__ out,
+                  float* __restrict__ part, float* __restrict__ db, int N,
+                  int V, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Ring<kStages> ring =
+      make_ring<kStages>(smem_raw, kBarsAt, kThreads / 32);
+  unsigned char* const base = smem_raw + (ring.base - smem_u32(smem_raw));
+  float* const P = reinterpret_cast<float*>(base + kOffP);
+  unsigned char* const G = base + kOffG;
+  const uint32_t rs = ring.base, xs0 = ring.base + kOffX;
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int d0 = blockIdx.y * kSlice + (warp / 4) * 128 + tig * 2;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int d0 = rank * kSlice;
+  const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
+  const int r0 = blockIdx.x * kRows;
+  // this walk's X tiles [t0, t0 + nxt): split z of gridDim.z (balanced,
+  // none empty: the launcher takes no more splits than tiles)
+  const int all = (nX + kX - 1) / kX;
+  const int t0 = blockIdx.z * all / gridDim.z;
+  const int nxt = (blockIdx.z + 1) * all / gridDim.z - t0;
+  // boxes of this slice that hold a column below D; the rest stay zero
+  const int nc = max(0, min(kChunks, (D - d0 + 63) / 64));
+  const int tid = threadIdx.x, wg = tid / 128, l = tid % 32;
+  // accumulator row of element 0 (local to the cluster's 128)
+  const int arow = 64 * wg + 16 * ((tid / 32) % 4) + l / 4;
+
+  if (nc < kChunks) {
+    constexpr int kVecs = kRowBytes / 16;  // uint4 a swizzled row
+    for (int i = tid; i < (kChunks - nc) * kRows * kVecs; i += kThreads)
+      reinterpret_cast<uint4*>(base + nc * kRows * kRowBytes)[i] = uint4{};
+    for (int st = 0; st < kStages; ++st)
+      for (int i = tid; i < (kChunks - nc) * kX * kVecs; i += kThreads)
+        reinterpret_cast<uint4*>(base + kOffX + st * kXBytes +
+                                 nc * kX * kRowBytes)[i] = uint4{};
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (tid == 0) {
+    bar_expect(ring.once(), nc * kRows * kRowBytes);
+    for (int c = 0; c < nc; ++c)
+      tma_load_2d(rs + c * kRows * kRowBytes, &rm, ring.once(), d0 + 64 * c,
+                  r0);
+    for (int i = 0; i < min(kStages - 1, nxt); ++i)
+      load_x(ring, &xm, t0, i, nc, d0);
+  }
+  __syncwarp();
+
+  // the epilogue's row (local er, of this CTA's 32) and 8 columns ec ..
+  const int er = 32 * rank + tid / 8, ec = 8 * (tid % 8);
+  const int erow = r0 + er;
+  const bool row_ok = erow < nR;
+  // dh: the resident row is the token (its lse, g and target); dW: the
+  // vocab entry (its bias)
+  const float row_lse = !kVocabRows && row_ok ? lse[erow] : 0.f;
+  const float row_g = !kVocabRows && row_ok ? g[erow] : 0.f;
+  const int row_t = !kVocabRows && row_ok ? tgt[erow] - 1 : -1;
+  const float row_b = kVocabRows && row_ok ? b[erow] : 0.f;
+  float db_sum = 0.f;
+
+  // Registers that wgmma writes are pinned (keep) before the first
+  // product group and after each wait, so that no other instruction
+  // defines them while a group is in flight (ptxas would serialise the
+  // products).
+  float acc[128], s[32];
+  uint32_t a[kX / 16][4] = {};
+  zero(acc);
+  zero(s);
+  keep(acc);
+  keep(s);
+  warp_wait(ring.once(), 0);
+  warp_wait(ring.full(0), 0);
+  wg_fence();
+  partial(s, rs, xs0, wg);
+  wg_commit();
+
+  for (int t = 0; t < nxt; ++t) {
+    const uint32_t xs = xs0 + (t % kStages) * kXBytes;
+    wg_wait();
+    keep(acc);
+    keep(s);
+    keep(a);
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int d = d0 + j * 8;
-    if (d >= D) continue;
+    for (int i = 0; i < 32; i += 2)
+      *reinterpret_cast<float2*>(P + (arow + acc_row(i)) * kPP +
+                                 acc_col(i, l)) = make_float2(s[i], s[i + 1]);
+    cluster_arrive();
+    // the tile's column values, loaded in the barrier's shadow (into the
+    // registers s held): dh the vocab bias; dW each token's lse, g and
+    // target
+    float cb[8], cl[8], cg_[8];
+    int ct[8];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + (warp % 4) * 16 + gid + 8 * half;
-      if (r < nR)
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + static_cast<int64_t>(r) * D + d) =
-            __floats2bfloat162_rn(epi.acc[j][2 * half],
-                                  epi.acc[j][2 * half + 1]);
+    for (int e = 0; e < 8; ++e) {
+      const int x = (t0 + t) * kX + ec + e;
+      const bool ok = x < nX;
+      cb[e] = !kVocabRows && ok ? b[x] : 0.f;
+      cl[e] = kVocabRows && ok ? lse[x] : 0.f;
+      cg_[e] = kVocabRows && ok ? g[x] : 0.f;
+      ct[e] = kVocabRows && ok ? tgt[x] - 1 : -1;
+    }
+    // the four partials are complete, and every product of tile t - 1 is
+    // done: its X stage is free
+    cluster_wait();
+    if (tid == 0 && t + kStages - 1 < nxt)
+      load_x(ring, &xm, t0, t + kStages - 1, nc, d0);
+    __syncwarp();
+
+    float sv[8] = {};
+#pragma unroll
+    for (int q = 0; q < kRanks; ++q) {
+      const float* part = cluster.map_shared_rank(P, q) + er * kPP + ec;
+      const float4 lo = *reinterpret_cast<const float4*>(part);
+      const float4 hi = *reinterpret_cast<const float4*>(part + 4);
+      sv[0] += lo.x; sv[1] += lo.y; sv[2] += lo.z; sv[3] += lo.w;
+      sv[4] += hi.x; sv[5] += hi.y; sv[6] += hi.z; sv[7] += hi.w;
+    }
+    uint32_t packed[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      float dl[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = (t0 + t) * kX + ec + e + u;
+        dl[u] = 0.f;
+        if (row_ok && x < nX)
+          dl[u] = kVocabRows
+                      ? dlogit(sv[e + u] + row_b, cl[e + u], cg_[e + u],
+                               ct[e + u] == erow)
+                      : dlogit(sv[e + u] + cb[e + u], row_lse, row_g,
+                               x == row_t);
+        db_sum += dl[u];
+      }
+      packed[e / 2] = pack_bf16(dl[0], dl[1]);
+    }
+    // row er, 16-byte chunk tid % 8 of its 128-byte row, 128-byte swizzle
+    const int off = er * kRowBytes + (((tid % 8) ^ (er % 8)) * 16);
+    const uint4 v = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+#pragma unroll
+    for (int q = 0; q < kRanks; ++q)
+      *reinterpret_cast<uint4*>(cluster.map_shared_rank(G, q) + off) = v;
+    cluster_arrive();
+    // the next tile's partial logits run while the cluster gathers the dl
+    // tiles; the last tile repeats its own (a product every tile, so no
+    // branch around the products)
+    const int tn = min(t + 1, nxt - 1);
+    if (tn > t) warp_wait(ring.full(tn % kStages), (tn / kStages) & 1);
+    keep(s);
+    wg_fence();
+    partial(s, rs, xs0 + (tn % kStages) * kXBytes, wg);
+    wg_commit();
+    cluster_wait();                        // every CTA's dl tile is complete
+    dl_frags(a, G, wg);
+    wg_fence();
+    accumulate(acc, a, xs);
+    wg_commit();
+  }
+  wg_wait();
+  keep(acc);
+
+  // this warpgroup's 64 rows of this CTA's 256 columns: in bf16, or in
+  // f32 into the split's partial sums
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + arow + 8 * r;
+    if (row >= nR) continue;
+    const int64_t at = (static_cast<int64_t>(blockIdx.z) * nR + row) * D + d0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * (l % 4);
+      if (d0 + c >= D) continue;           // D a multiple of 8: c + 1 too
+      const float lo = acc[4 * j + 2 * r], hi = acc[4 * j + 2 * r + 1];
+      if (gridDim.z == 1)
+        *reinterpret_cast<uint32_t*>(out + at + c) = pack_bf16(lo, hi);
+      else
+        *reinterpret_cast<float2*>(part + at + c) = make_float2(lo, hi);
     }
   }
-  if (kVocabRows) {                        // this CTA's 16 rows of db
-    const float sum = group_sum<16>(epi.db);
-    const int v = r0 + blockIdx.y * 16 + threadIdx.x / 16;
-    if (threadIdx.x % 16 == 0 && v < V) db[v] = sum;
+  if (kVocabRows) {                        // the row's db, over its 8 lanes
+    const float sum = group_sum<8>(db_sum);
+    if (tid % 8 == 0 && row_ok) db[erow] = sum;
   }
 }
+
+// (rows, D) bf16 at ptr as a 2-D (D, rows) map with boxes (64, box_rows),
+// 128-byte swizzle; reads past either edge fill zeros
+int make_map(CUtensorMap* map, const void* ptr, int rows, int D,
+             int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return kNoEncoder;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapFailed + static_cast<int>(r);
+}
+
+// dh = the split walks' f32 partial sums added in split order, in bf16
+// (n elements, a multiple of 4)
+__global__ void fce_dh_merge_kernel(const float* __restrict__ part,
+                                    int splits, int64_t n,
+                                    bf16* __restrict__ out) {
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x) * 4;
+  if (i >= n) return;
+  float x[4], y[4];
+  load4(part + i, x);
+  for (int z = 1; z < splits; ++z) {
+    load4(part + z * n + i, y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] += y[e];
+  }
+  store4(out + i, x);
+}
+
+// How many walks the dh kernel splits the vocab into: the clusters the
+// card holds at once come in waves (30 on an H100 SXM), and N / 128
+// clusters of a whole walk each may leave the last wave nearly empty
+// (64 at N 8192: waves of 30, 30, 4); S walks of a part each, their f32
+// partial sums added by fce_dh_merge_kernel, take the S in 1..4 with the
+// fewest whole-walk waves, ceil(S·N/128 / clusters) / S.
+// clusters of the backward kernel the card holds at once (0 if the
+// runtime cannot say)
+int bwd_clusters() {
+  static const int clusters = [] {
+    auto kernel = fce_bwd_tc_kernel<false>;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, kRanks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmem;
+    int n = 0;
+    if (set_smem(kernel, kSmem) ||
+        cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();                  // clear it: no split, no error
+      return 0;
+    }
+    return n;
+  }();
+  return clusters;
+}
+
+int dh_splits(int N, int V) {
+  const int clusters = bwd_clusters();
+  const int rows = (N + kRows - 1) / kRows, tiles = (V + kX - 1) / kX;
+  int best = 1;
+  for (int s = 2; s <= 4 && s <= tiles && clusters > 0; ++s)
+    if (((rows * s + clusters - 1) / clusters) * best <
+        ((rows * best + clusters - 1) / clusters) * s)
+      best = s;
+  return best;
+}
+
+template <bool kVocabRows>
+int bwd(const void* h, const void* w, const float* b, const int* t,
+        const float* lse, const float* g, void* out, float* part, float* db,
+        int N, int V, int D, int splits, cudaStream_t st) {
+  const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
+  CUtensorMap rm, xm;
+  if (int e = make_map(&rm, kVocabRows ? w : h, nR, D, kRows)) return e;
+  if (int e = make_map(&xm, kVocabRows ? h : w, nX, D, kX)) return e;
+  auto kernel = fce_bwd_tc_kernel<kVocabRows>;
+  if (int e = set_smem(kernel, kSmem)) return e;
+  kernel<<<dim3((nR + kRows - 1) / kRows, kRanks, splits), kThreads, kSmem,
+           st>>>(rm, xm, b, t, lse, g, static_cast<bf16*>(out), part, db, N,
+                 V, D);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  if (splits > 1) {
+    const int64_t n = static_cast<int64_t>(nR) * D;
+    fce_dh_merge_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0,
+                          st>>>(part, splits, n, static_cast<bf16*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 // ===========================================================================
 // f32 (and bf16 with D > 1024): CUDA cores, 16 resident rows a CTA
@@ -755,14 +1035,6 @@ fce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
 // the tensor-core cluster kernels take bf16 with D <= 1024
 template <typename T>
 constexpr bool clustered(int D) {
@@ -812,21 +1084,18 @@ int fwd(const void* h, const void* w, const float* b, const int* t,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dh (kVocabRows false: out = dh, db unused) or dW and db (true)
+// dh (kVocabRows false: out = dh, db unused; the bf16 cluster kernel
+// walks `splits` parts of the vocab into `part`, f32 splits x N x D, when
+// splits > 1) or dW and db (true: one walk)
 template <typename T, bool kVocabRows>
 int bwd(const void* h, const void* w, const float* b, const int* t,
-        const float* lse, const float* g, void* out, float* db, int N, int V,
-        int D, cudaStream_t st) {
+        const float* lse, const float* g, void* out, float* part, float* db,
+        int N, int V, int D, int splits, cudaStream_t st) {
   const int nR = kVocabRows ? V : N;
   if constexpr (sizeof(T) == 2) {
-    if (clustered<T>(D)) {
-      auto kernel = fce_bwd_cluster_kernel<kVocabRows>;
-      if (int e = set_smem(kernel, kClusterSmem)) return e;
-      kernel<<<dim3((nR + kCR - 1) / kCR, kRanks), kThreads, kClusterSmem,
-               st>>>(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-                     b, t, lse, g, static_cast<bf16*>(out), db, N, V, D);
-      return static_cast<int>(cudaGetLastError());
-    }
+    if (clustered<T>(D))
+      return tc::bwd<kVocabRows>(h, w, b, t, lse, g, out, part, db, N, V, D,
+                                 splits, st);
   }
   constexpr size_t smem = smem_bytes<T>(true);
   auto kernel = fce_bwd_kernel<T, kVocabRows>;
@@ -848,16 +1117,17 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
 
 template <typename T>
 int dh(const void* h, const void* w, const float* b, const int* t,
-       const float* lse, const float* g, void* out, int N, int V, int D,
-       cudaStream_t st) {
-  return bwd<T, false>(h, w, b, t, lse, g, out, nullptr, N, V, D, st);
+       const float* lse, const float* g, void* out, float* part, int N,
+       int V, int D, int splits, cudaStream_t st) {
+  return bwd<T, false>(h, w, b, t, lse, g, out, part, nullptr, N, V, D,
+                       splits, st);
 }
 
 template <typename T>
 int dw(const void* h, const void* w, const float* b, const int* t,
        const float* lse, const float* g, void* out, float* db, int N, int V,
        int D, cudaStream_t st) {
-  return bwd<T, true>(h, w, b, t, lse, g, out, db, N, V, D, st);
+  return bwd<T, true>(h, w, b, t, lse, g, out, nullptr, db, N, V, D, 1, st);
 }
 
 }  // namespace
@@ -881,12 +1151,21 @@ extern "C" int bigdl_fce_fwd_splits(int dtype, int N, int V, int D,
                     : fwd_splits<float>(N, V, D, sms);
 }
 
+// `part` holds splits x N x D floats when splits > 1 (else unused),
+// splits from bigdl_fce_dh_splits.
 extern "C" int bigdl_fce_dh(int dtype, const void* h, const void* w,
                             const float* b, const int* t, const float* lse,
-                            const float* g, void* dh_out, int N, int V,
-                            int D, void* stream) {
+                            const float* g, void* dh_out, float* part, int N,
+                            int V, int D, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FCE_DISPATCH(dh, h, w, b, t, lse, g, dh_out, N, V, D, st);
+  BIGDL_FCE_DISPATCH(dh, h, w, b, t, lse, g, dh_out, part, N, V, D, splits,
+                     st);
+}
+
+// how many parts the bf16 dh kernel splits the vocab into (1 for the
+// CUDA-core kernels)
+extern "C" int bigdl_fce_dh_splits(int dtype, int N, int V, int D) {
+  return dtype == 1 && clustered<bf16>(D) ? tc::dh_splits(N, V) : 1;
 }
 
 extern "C" int bigdl_fce_dw(int dtype, const void* h, const void* w,

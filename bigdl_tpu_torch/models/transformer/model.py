@@ -24,13 +24,6 @@ from bigdl_tpu_torch.tensor import activation_dtype, resolve_device
 __all__ = ["TransformerLM", "TransformerBlock"]
 
 
-def _no_dropout(dropout: float):
-    if dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 needs nn.Dropout, which is not ported yet "
-            "(ROADMAP.md, queue A step 5)")
-
-
 class _Residual(Container):
     """y = x + inner(norm(x)) — pre-LN residual wrapper."""
 
@@ -62,8 +55,9 @@ def TransformerBlock(d_model: int, num_heads: int, ffn_mult: int = 4,
                      dropout: float = 0.0, *, rope: bool = False,
                      num_kv_heads: int | None = None, device="cuda",
                      generator: torch.Generator | None = None):
-    """Pre-LN block: x + MHA(LN(x)); x + FFN(LN(x))."""
-    _no_dropout(dropout)
+    """Pre-LN block: x + MHA(LN(x)); x + FFN(LN(x)). ``dropout`` > 0
+    appends ``nn.Dropout`` to the FFN, as the JAX block does; the caller
+    sets its ``generator`` before training."""
     device = resolve_device(device)
     mha = nn.MultiHeadAttention(d_model, num_heads, causal=True, rope=rope,
                                 num_kv_heads=num_kv_heads, device=device,
@@ -74,6 +68,8 @@ def TransformerBlock(d_model: int, num_heads: int, ffn_mult: int = 4,
            .add(nn.ReLU())
            .add(nn.Linear(ffn_mult * d_model, d_model, device=device,
                           generator=generator)))
+    if dropout > 0:
+        ffn.add(nn.Dropout(dropout))
     return (_Block()
             .add(_Residual(d_model, mha, device=device))
             .add(_Residual(d_model, ffn, device=device)))
@@ -118,10 +114,10 @@ def TransformerLM(vocab_size: int, d_model: int = 128, num_heads: int = 4,
     or "rope"; ``num_kv_heads`` < ``num_heads`` selects grouped-query
     attention. Weights are drawn from ``generator`` (a CPU
     ``torch.Generator``; torch's default one when None) and placed on
-    ``device``."""
+    ``device``. ``dropout`` > 0 puts an ``nn.Dropout`` after every FFN,
+    whose ``generator`` (one on ``device``) the caller sets."""
     if pos_encoding not in ("learned", "rope"):
         raise ValueError(f"pos_encoding={pos_encoding!r}")
-    _no_dropout(dropout)
     device = resolve_device(device)
     rope = pos_encoding == "rope"
     kw = dict(device=device, generator=generator)
@@ -129,8 +125,9 @@ def TransformerLM(vocab_size: int, d_model: int = 128, num_heads: int = 4,
         _TokenAndPosition(vocab_size, d_model, max_len, with_pos=not rope,
                           **kw).set_name("embed"))
     for i in range(num_layers):
-        model.add(TransformerBlock(d_model, num_heads, ffn_mult, rope=rope,
-                                   num_kv_heads=num_kv_heads, **kw)
+        model.add(TransformerBlock(d_model, num_heads, ffn_mult, dropout,
+                                   rope=rope, num_kv_heads=num_kv_heads,
+                                   **kw)
                   .set_name(f"block_{i}"))
     model.add(nn.LayerNorm(d_model, device=device).set_name("final_norm"))
     model.add(nn.Linear(d_model, vocab_size, init_method=init_mod.Xavier,

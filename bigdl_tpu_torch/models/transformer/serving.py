@@ -7,8 +7,9 @@
 - ``paged_prefill`` / ``paged_decode``: the JAX ``_impl`` bodies as eager
   PyTorch; the decode ``lax.scan`` is a Python loop. Attention goes
   through ``_attend_paged``, switched by ``paged_kernel``: "auto" (the
-  CUDA kernel for pools on the card, the plain version for pools on the
-  CPU), "kernel" or "dense" (the plain ``_paged_view`` +
+  CUDA kernel for pools on the card, refusing a geometry it does not
+  take; the plain version for pools on the CPU), "kernel" or "dense"
+  (the plain ``_paged_view`` +
   ``_attend_grouped`` version, on any device). There is no environment
   override: nothing outside the call turns the kernel off.
 - ``ContinuousBatcher``: the host-side admit / decode-burst / retire loop.
@@ -38,7 +39,8 @@ from bigdl_tpu_torch.models.transformer.generate import (
 # _attend_grouped and _paged_view live beside the kernel they are the
 # plain version of; they are importable from here as in the JAX package
 from bigdl_tpu_torch.ops.paged_attention import (  # noqa: F401
-    _attend_grouped, _paged_view, paged_attention, paged_attention_ref)
+    _attend_grouped, _paged_view, paged_attention, paged_attention_ref,
+    paged_kernel_supported)
 from bigdl_tpu_torch.tensor import activation_dtype, resolve_device
 
 __all__ = ["PagedKVCache", "paged_prefill", "paged_decode",
@@ -131,19 +133,31 @@ class PagedKVCache:
         return len(self._free)
 
 
-def _resolve_paged_kernel(mode, device: torch.device) -> str:
-    """``paged_kernel=`` -> "kernel" or "dense" for pools on ``device``:
-    "auto" is the kernel on the card and the plain version on the
-    CPU."""
+def _resolve_paged_kernel(mode, device: torch.device, head_dim: int,
+                          page_size: int, dtype) -> str:
+    """``paged_kernel=`` -> "kernel" or "dense" for pools of this geometry
+    on ``device``: "auto" is the kernel off the CPU and the plain version
+    on the CPU. A pool off the CPU whose geometry the kernel does not take
+    (``paged_kernel_supported``) raises here under "auto", before any
+    work: on the card the dense path is taken only when asked for.
+    "kernel" raises at its first call for such a pool."""
     if mode not in PAGED_KERNEL_MODES:
         raise ValueError(f"paged_kernel must be one of "
                          f"{PAGED_KERNEL_MODES}, got {mode!r}")
-    if mode == "auto":
-        return "kernel" if device.type == "cuda" else "dense"
     if mode == "kernel" and device.type != "cuda":
         raise ValueError("paged_kernel='kernel' needs the pools on a CUDA "
                          f"device, they are on {device}")
-    return mode
+    if mode == "auto" and device.type == "cpu":
+        return "dense"
+    if mode == "auto" and not paged_kernel_supported(head_dim, page_size,
+                                                     dtype):
+        raise ValueError(
+            f"paged_kernel='auto' on {device.type} pools but the kernel "
+            f"does not take their geometry: head dim {head_dim}, pages of "
+            f"{page_size} slots, {dtype} (need head dim 32, 64, 128 or "
+            f"256, float32 or bfloat16, 4·S·D·bytes within a block's "
+            f"shared memory); paged_kernel='dense' takes the plain path")
+    return "kernel" if mode == "auto" else mode
 
 
 def _attend_paged(q, kp, vp, table, q_start, scale, kernel: str):
@@ -155,12 +169,16 @@ def _attend_paged(q, kp, vp, table, q_start, scale, kernel: str):
     return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
 
 
-def _meta_statics(model, paged_kernel, device):
+def _meta_statics(model, paged_kernel, cache: PagedKVCache):
+    """The step functions' static arguments for ``model`` over
+    ``cache``."""
     meta = model.lm_meta
+    kernel = _resolve_paged_kernel(paged_kernel, cache.device,
+                                   cache.head_dim, cache.page_size,
+                                   cache.kp[0].dtype)
     return dict(num_layers=meta["num_layers"], num_heads=meta["num_heads"],
                 rope=meta.get("pos_encoding", "learned") == "rope",
-                num_kv_heads=meta.get("num_kv_heads"),
-                paged_kernel=_resolve_paged_kernel(paged_kernel, device))
+                num_kv_heads=meta.get("num_kv_heads"), paged_kernel=kernel)
 
 
 @torch.no_grad()
@@ -240,7 +258,7 @@ def paged_prefill(model, cache: PagedKVCache, table, prompts, *,
             f"= {capacity}-token capacity")
     logits = _paged_prefill_impl(
         params, cache, table, batch, lengths,
-        **_meta_statics(model, paged_kernel, cache.device))
+        **_meta_statics(model, paged_kernel, cache))
     first = torch.argmax(logits.to(torch.float32), dim=-1) + 1
     return first, lengths
 
@@ -321,7 +339,7 @@ def paged_decode(model, cache: PagedKVCache, table, lengths, last_tokens,
         torch.as_tensor(np.asarray(last_tokens, np.int64), device=dev),
         n_new=n_new, temperature=config.temperature, top_k=config.top_k,
         generator=generator,
-        **_meta_statics(model, paged_kernel, dev))
+        **_meta_statics(model, paged_kernel, cache))
 
 
 class ContinuousBatcher:
@@ -353,10 +371,11 @@ class ContinuousBatcher:
         self.eos_id = eos_id
         self.page_size = page_size
         tok = model.params["0"]["tok"]
-        _resolve_paged_kernel(paged_kernel, tok.device)    # validate now
-        self.paged_kernel = paged_kernel
         kv = meta.get("num_kv_heads") or meta["num_heads"]
         head_dim = tok.shape[1] // meta["num_heads"]
+        _resolve_paged_kernel(paged_kernel, tok.device, head_dim,  # validate
+                              page_size, activation_dtype())       # now
+        self.paged_kernel = paged_kernel
         self.cache = PagedKVCache(meta["num_layers"], num_pages,
                                   page_size, kv, head_dim,
                                   device=tok.device)

@@ -9,10 +9,11 @@ The same flags as the JAX main, plus ``--device`` (default ``cuda``;
 through ``LocalOptimizer`` with ``CrossEntropyCriterion`` on raw logits,
 SGD(0.02, decay 0.001) and a validation loss every epoch. Weights come
 from torch's default generator (``torch.manual_seed`` seeds them), the
-data order from ``utils.random.RandomGenerator``. Not ported yet, and
-refused (ROADMAP.md, queue A step 5): ``--chips`` > 1 and
-``--sequenceParallel`` (multi-card), ``--model``/``--state``/
-``--checkpoint`` (snapshots), ``--dropout`` > 0. The JAX main runs
+data order from ``utils.random.RandomGenerator``; ``--dropout`` > 0
+draws its masks from a generator on the device seeded with
+``torch.initial_seed()``. Not ported yet, and refused (ROADMAP.md, queue
+A step 5): ``--chips`` > 1 and ``--sequenceParallel`` (multi-card),
+``--model``/``--state``/``--checkpoint`` (snapshots). The JAX main runs
 ``DistriOptimizer`` over a one-chip mesh; the step math is the same.
 
 ``main`` returns the optimizer, whose ``history`` holds every step's
@@ -51,6 +52,8 @@ def main(argv=None):
             raise NotImplementedError(f"--{flag}: snapshots (utils/file.py) "
                                       f"{_QUEUED}")
 
+    import torch
+
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.models import TransformerLM
     from bigdl_tpu_torch.models.utils.text_lm import build_text_lm_datasets
@@ -71,6 +74,11 @@ def main(argv=None):
                           with_log_softmax=False,
                           pos_encoding=args.posEncoding,
                           num_kv_heads=args.numKvHeads, device=device)
+    dropout_gen = torch.Generator(device=device).manual_seed(
+        torch.initial_seed())
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.generator = dropout_gen
     criterion = nn.CrossEntropyCriterion()
     optimizer = Optimizer(model, train_set, criterion)
     optimizer.set_optim_method(SGD(

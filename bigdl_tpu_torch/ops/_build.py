@@ -2,12 +2,13 @@
 first use, and load it with ctypes.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles one ``.cu`` file
-(no PyTorch headers, so a build takes seconds) into
+(no PyTorch headers, so a build takes seconds), with ``csrc/`` on the
+include path for the shared ``*.cuh`` headers, into
 ``<checkout>/build/bigdl_tpu_torch/``, a directory ``.gitignore`` lists.
-The library's file name carries a hash of the source, the flags and the
-nvcc path, so an edited source builds anew and an unchanged one is
-loaded as it is. ``nvcc`` and the CUDA headers are the only
-requirements. Nothing here runs at import time.
+The library's file name carries a hash of the source, the headers, the
+flags and the nvcc path, so an edited source or header builds anew and
+an unchanged one is loaded as it is. ``nvcc`` and the CUDA headers are
+the only requirements. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -49,8 +50,9 @@ def find_nvcc() -> str:
 def _nvcc(cu, lib) -> str:
     """Compile ``cu`` into the shared library ``lib``; the compiler's
     register/spill report."""
-    proc = subprocess.run([find_nvcc(), *ARCH_FLAGS, *FLAGS, "-o", str(lib),
-                           str(cu)], capture_output=True, text=True)
+    proc = subprocess.run([find_nvcc(), *ARCH_FLAGS, *FLAGS, "-I",
+                           str(_CSRC), "-o", str(lib), str(cu)],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr}")
     return proc.stderr
@@ -60,7 +62,7 @@ def build_copy(text: str, out: Path) -> ctypes.CDLL:
     """Build ``text``, an edited copy of a ``csrc/`` source, as
     ``out.cu`` into ``out.so`` and load it (for the scripts that plant
     faults or knock parts out of a kernel; ``out`` lies outside the
-    checkout)."""
+    checkout, and the copy includes the checkout's headers)."""
     cu, lib = out.with_suffix(".cu"), out.with_suffix(".so")
     cu.write_text(text)
     _nvcc(cu, lib)
@@ -75,7 +77,8 @@ def load_library(source: str) -> ctypes.CDLL:
         return _loaded[source]
     src = _CSRC / source
     nvcc = find_nvcc()
-    key = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(ARCH_FLAGS + FLAGS + (nvcc,)).encode()
                          ).hexdigest()[:16]
     out_dir = build_dir()

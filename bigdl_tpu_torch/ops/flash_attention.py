@@ -40,7 +40,7 @@ __all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
            "fwd_launches", "dq_launches", "dkdv_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since import (reset by assigning 0)
@@ -51,7 +51,7 @@ dkdv_launches = 0
 
 def flash_supported(q, k) -> bool:
     """Shapes and dtypes the kernels take: (B, S, H, D) q and k with equal
-    B, H and D, D in (64, 128), float32 or bfloat16. Any sequence
+    B, H and D, D in (32, 64, 128), float32 or bfloat16. Any sequence
     lengths (ragged tile tails are masked in the kernel)."""
     return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] in _HEAD_DIMS
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]

@@ -126,20 +126,21 @@ def _kernel_fns():
 
 
 def bind(lib: ctypes.CDLL) -> dict:
-    """The typed entries ``{"fwd", "fwd_splits", "dh", "dw"}`` of a
-    library built from csrc/fused_ce.cu."""
+    """The typed entries ``{"fwd", "fwd_splits", "dh", "dh_splits",
+    "dw"}`` of a library built from csrc/fused_ce.cu."""
     dims = [ctypes.c_int] * 3
     fns = {}
-    for name, n_ptr, extra in (("fwd", 7, 1), ("dh", 7, 0), ("dw", 8, 0)):
+    for name, n_ptr, extra in (("fwd", 7, 1), ("dh", 8, 1), ("dw", 8, 0)):
         fn = getattr(lib, f"bigdl_fce_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
                        + [ctypes.c_int] * extra + [ctypes.c_void_p])
         fns[name] = fn
-    fn = lib.bigdl_fce_fwd_splits
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5
-    fns["fwd_splits"] = fn
+    for name, n_int in (("fwd_splits", 5), ("dh_splits", 4)):
+        fn = getattr(lib, f"bigdl_fce_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * n_int
+        fns[name] = fn
     return fns
 
 
@@ -173,7 +174,8 @@ def _launch(name, h, ptrs, *extra):
     fn = _kernel_fns()[name]
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(_DTYPE_CODES[h.dtype], *[x.data_ptr() for x in ptrs], n,
+        err = fn(_DTYPE_CODES[h.dtype],
+                 *[0 if x is None else x.data_ptr() for x in ptrs], n,
                  ptrs[1].shape[0], d, *extra, stream)
     if err:
         raise RuntimeError(f"fused_ce_{name} kernel launch failed "
@@ -205,8 +207,14 @@ def fused_ce_dh(h, w, b, t, lse, g):
         return fused_ce_dh_ref(h, w, b, t, lse, g)
     global dh_launches
     _check_cuda(h, w, b, t, lse, g)
+    (n, d), v = h.shape, w.shape[0]
     dh = torch.empty_like(h)
-    _launch("dh", h, (h, w, b, t, lse, g, dh))
+    # the bf16 kernel may split the vocab into walks whose f32 partial
+    # sums it adds up, so that the last wave of clusters is not near empty
+    splits = _kernel_fns()["dh_splits"](_DTYPE_CODES[h.dtype], n, v, d)
+    part = (torch.empty((splits, n, d), dtype=torch.float32, device=h.device)
+            if splits > 1 else None)
+    _launch("dh", h, (h, w, b, t, lse, g, dh, part), splits)
     dh_launches += 1
     return dh
 

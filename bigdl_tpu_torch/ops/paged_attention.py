@@ -24,7 +24,8 @@ import functools
 import torch
 
 __all__ = ["paged_attention", "paged_attention_ref",
-           "dense_cache_attention", "dense_cache_page_size", "launches"]
+           "dense_cache_attention", "dense_cache_page_size",
+           "paged_kernel_supported", "launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
 _HEAD_DIMS = (32, 64, 128, 256)
@@ -33,6 +34,18 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 #: kernel launches since import (reset by assigning 0)
 launches = 0
+
+
+def paged_kernel_supported(head_dim: int, page_size: int, dtype) -> bool:
+    """Pool geometries the kernel takes (the counterpart of the reference's
+    ``paged_supported``): head dim in (32, 64, 128, 256), float32 or
+    bfloat16 pools, and one page of K and V, double buffered
+    (4·S·D·bytes), within a block's shared memory. :func:`paged_attention`
+    refuses a CUDA call whose pools fail it."""
+    if head_dim not in _HEAD_DIMS or dtype not in _DTYPE_CODES:
+        return False
+    elt = torch.empty((), dtype=dtype).element_size()
+    return 4 * page_size * head_dim * elt <= _SMEM_LIMIT
 
 
 def _paged_view(pool, table):
@@ -110,9 +123,12 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
            f"pool shapes {tuple(kp.shape)}/{tuple(vp.shape)} do not match "
            f"q {tuple(q.shape)}")
     _check(h % kv == 0, f"{h} query heads not divisible by {kv} kv heads")
-    _check(d in _HEAD_DIMS, f"head dim {d} not in {_HEAD_DIMS}")
-    _check(kp.dtype in _DTYPE_CODES and vp.dtype == kp.dtype,
-           f"pool dtype {kp.dtype}/{vp.dtype} not float32 or bfloat16")
+    _check(paged_kernel_supported(d, s, kp.dtype) and vp.dtype == kp.dtype,
+           f"pool geometry the kernel does not take: head dim {d} (need "
+           f"one of {_HEAD_DIMS}), pool dtype {kp.dtype}/{vp.dtype} (need "
+           f"float32 or bfloat16), pages of {s} slots ({4 * s * d} "
+           f"elements of K and V in shared memory, at most "
+           f"{_SMEM_LIMIT} bytes)")
     _check(kp.is_contiguous() and vp.is_contiguous(),
            "pools must be contiguous")
     _check(kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0,
@@ -121,9 +137,6 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
            and q_start.shape == (b,),
            f"table {tuple(table.shape)} / q_start {tuple(q_start.shape)} "
            f"do not match batch {b}")
-    smem = 4 * s * d * kp.element_size()
-    _check(smem <= _SMEM_LIMIT,
-           f"page of {s} slots needs {smem} bytes of shared memory")
     scale = d ** -0.5 if scale is None else scale
     fn = _kernel_fn()
     qc = q.to(kp.dtype).contiguous()

@@ -24,7 +24,7 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
 
     ``flash="auto"`` routes to the flash kernels
     (``ops/flash_attention.py``) for every call they support: head dim
-    64 or 128, float32 or bfloat16, zero offsets when causal. On a CUDA
+    32, 64 or 128, float32 or bfloat16, zero offsets when causal. On a CUDA
     tensor that is the hand-written kernel, on a CPU tensor its plain
     version. A call they do not support raises under ``flash=True``, and
     under ``"auto"`` too unless the tensors lie on the CPU: on the card
@@ -41,7 +41,7 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
                 f"kernel does not support this call: q{tuple(q.shape)} "
                 f"{q.dtype}, k{tuple(k.shape)} {k.dtype}, "
                 f"q_offset={q_offset} kv_offset={kv_offset} (need "
-                f"head_dim 64 or 128, float32 or bfloat16, equal "
+                f"head_dim 32, 64 or 128, float32 or bfloat16, equal "
                 f"batch/heads, zero offsets when causal); flash=False "
                 f"takes the plain path")
         if supported:

@@ -272,7 +272,9 @@ def _print_ptxas(report: str) -> None:
             kind, rest = f.groups()
             name = kind.replace("fce_bwd", "fce_dw" if "Lb1E" in rest
                                 else "fce_dh")
-            if kind != "fce_merge":
+            if name.endswith("_tc"):
+                name = name[:-3] + " bf16 (tensor cores)"
+            elif not kind.endswith("merge"):
                 name += " bf16" if "bfloat16" in rest else " f32"
         elif "entry function" in line:
             name = None
@@ -282,35 +284,43 @@ def _print_ptxas(report: str) -> None:
           f"thread, {spilled} spilling")
 
 
-def _check_tensor_cores(lib: str) -> dict:
-    """Tensor-core instructions in the SASS of each bf16 flash kernel
-    (``HGMMA``: wgmma; ``HMMA``: mma.sync), from ``cuobjdump
-    --dump-sass`` of the built library; fails unless each of the six
-    (fwd, dq, dkdv x D 64, 128) has some."""
+def _check_tensor_cores(flash_lib: str, fce_lib: str) -> dict:
+    """Tensor-core instructions in the SASS of each bf16 flash kernel and
+    of the bf16 fused-CE dh and dW/db kernels (``HGMMA``: wgmma; ``HMMA``:
+    mma.sync), from ``cuobjdump --dump-sass`` of the built libraries;
+    fails unless each of the nine flash kernels (fwd, dq, dkdv x D 32,
+    64, 128) has some and both fused-CE backward kernels have
+    ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "--dump-sass", lib], check=True,
-                          capture_output=True, text=True,
-                          timeout=300).stdout
     counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_tc_kernelILi(\d+)E",
-                          line)
-            name = f"{f.group(1)} bf16 D={f.group(2)}" if f else None
-            if name:
-                counts[name] = {"HGMMA": 0, "HMMA": 0}
-        elif name:
-            for op in counts[name]:
-                counts[name][op] += bool(re.search(rf"\b{op}\.", line))
-    print("[build] tensor-core instructions in the bf16 flash kernels' "
-          "SASS: " + json.dumps(counts), flush=True)
+    for lib in (flash_lib, fce_lib):
+        sass = subprocess.run([str(tool), "--dump-sass", lib], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        for line in sass.splitlines():
+            if "Function :" in line:
+                f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_tc_kernel"
+                              r"ILi(\d+)E", line)
+                c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
+                name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
+                        f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
+                        if c else None)
+                if name:
+                    counts[name] = {"HGMMA": 0, "HMMA": 0}
+            elif name:
+                for op in counts[name]:
+                    counts[name][op] += bool(re.search(rf"\b{op}\.", line))
+    print("[build] tensor-core instructions in the SASS of the bf16 flash "
+          "and fused-CE backward kernels: " + json.dumps(counts), flush=True)
     bare = sorted(f"{k} bf16 D={d}" for k in ("flash_fwd", "flash_dq",
                                               "flash_dkdv")
-                  for d in (64, 128)
+                  for d in (32, 64, 128)
                   if not sum(counts.get(f"{k} bf16 D={d}", {}).values()))
+    bare += [k for k in ("fused_ce_dh bf16", "fused_ce_dw bf16")
+             if not counts.get(k, {}).get("HGMMA")]
     if bare:
-        raise AssertionError(f"no tensor-core instructions in {bare}")
+        raise AssertionError(f"no (wgmma) tensor-core instructions in {bare}")
     return counts
 
 
@@ -555,7 +565,7 @@ def phase_serve(pa, seed):
                              device=_DEV)
         logits[mode] = _paged_prefill_impl(
             model.params, cache, table, batch, lengths,
-            **_meta_statics(model, mode, cache.device)).float()
+            **_meta_statics(model, mode, cache)).float()
         del cache
     diff = float((logits["kernel"] - logits["dense"]).abs().max())
     scale = float(logits["dense"].abs().max())
@@ -654,10 +664,16 @@ def _flash_compare(got, want, label):
 
 def _flash_tails(fa, gen):
     """Ragged tile tails on the card: sequence lengths that 64 does not
-    divide, Sq != Skv (non-causal), both head dims and dtypes; in bf16
+    divide, Sq != Skv (non-causal), every head dim and dtype; in bf16
     also a 128-row tile with a ragged tail (S 200, Skv 136) and each
-    head dim both causal and not."""
+    head dim both causal and not. Head dim 32 is the train main's
+    default width (d_model 128, 4 heads)."""
     for b, sq, skv, h, d, causal, dtype in (
+            (2, 100, 100, 3, 32, True, torch.float32),
+            (1, 130, 200, 2, 32, False, torch.float32),
+            (2, 100, 100, 3, 32, True, torch.bfloat16),
+            (1, 200, 136, 2, 32, False, torch.bfloat16),
+            (4, 128, 128, 4, 32, True, torch.bfloat16),
             (2, 100, 100, 3, 64, True, torch.float32),
             (2, 100, 77, 3, 64, False, torch.bfloat16),
             (1, 130, 200, 2, 128, False, torch.float32),
@@ -1032,7 +1048,10 @@ def phase_fused_ce(fce, gen):
             h, w, b, t, g = _fce_inputs(n, v, d, dtype, gen, case != "main")
             errs, worst, rlse = _fce_check(fce, h, w, b, t, g,
                                            f"[{case} {name}]")
+            splits = fce._kernel_fns()["dh_splits"](
+                fce._DTYPE_CODES[dtype], n, v, d)
             print(f"[kernels] fused_ce[{case} {name}] N={n} V={v} D={d} "
+                  f"dh_splits={splits} "
                   f"max abs errs " + json.dumps(errs) + " worst error / "
                   "limit " + json.dumps(worst) + f" (limit rtol·|plain| + "
                   f"atol·rms(plain): dh/dw {_FCE_TOL[dtype]}, db "
@@ -1484,7 +1503,8 @@ def main(argv=None) -> int:
           f"in {time.perf_counter() - t0:.3f} s", flush=True)
     for lib in libs:
         _print_ptxas(Path(lib._name).with_suffix(".ptxas.txt").read_text())
-    _check_tensor_cores(libs[sources.index("flash_attention.cu")]._name)
+    _check_tensor_cores(libs[sources.index("flash_attention.cu")]._name,
+                        libs[sources.index("fused_ce.cu")]._name)
 
     gen = torch.Generator().manual_seed(args.seed)
     rows = phase_kernels(pa, gen)

@@ -190,3 +190,12 @@ def test_auto_refuses_unsupported_calls_off_the_cpu(what):
         tseq.dot_product_attention(q, q, q, causal=True, **kw)
     o = tseq.dot_product_attention(q, q, q, causal=True, flash=False, **kw)
     assert o.shape == q.shape and o.device.type == "meta"
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_matches_jax_kernel_at_head_dim_32(causal, dtype):
+    """Head dim 32, the train main's default width (d_model 128, 4
+    heads), which the card's kernels take as one zero-padded 64-wide
+    chunk: (B2, S128, H2, D32) against the JAX kernel."""
+    _check_against_jax_kernel(2, 128, 2, 32, causal, dtype)

@@ -135,11 +135,60 @@ class TestNoSilentFallback:
             tpa.paged_attention(q, kp, kp, table, qs)
 
     def test_kernel_mode_on_cpu_pools_raises(self):
+        geom = (128, 16, torch.bfloat16)
+        cpu, cuda = torch.device("cpu"), torch.device("cuda")
         with pytest.raises(ValueError, match="CUDA"):
-            tsv._resolve_paged_kernel("kernel", torch.device("cpu"))
+            tsv._resolve_paged_kernel("kernel", cpu, *geom)
         with pytest.raises(ValueError, match="paged_kernel"):
-            tsv._resolve_paged_kernel("interpret", torch.device("cpu"))
-        assert tsv._resolve_paged_kernel("auto",
-                                         torch.device("cpu")) == "dense"
-        assert tsv._resolve_paged_kernel("auto",
-                                         torch.device("cuda")) == "kernel"
+            tsv._resolve_paged_kernel("interpret", cpu, *geom)
+        assert tsv._resolve_paged_kernel("auto", cpu, *geom) == "dense"
+        assert tsv._resolve_paged_kernel("auto", cuda, *geom) == "kernel"
+
+    # (head dim, page size, pool dtype) -> the kernel takes it
+    _GEOMETRIES = {
+        "d32": ((32, 16, torch.bfloat16), True),
+        "d96": ((96, 16, torch.bfloat16), False),
+        "s128-f32-d128": ((128, 128, torch.float32), False),
+        "s256-bf16-d128": ((128, 256, torch.bfloat16), False),
+        "s128-bf16-d128": ((128, 128, torch.bfloat16), True),
+        "fp16": ((128, 16, torch.float16), False),
+    }
+
+    @pytest.mark.parametrize("case", sorted(_GEOMETRIES))
+    def test_auto_consults_the_pool_geometry(self, case):
+        """``paged_kernel_supported`` is the wrapper's geometry checks
+        (head dim in (32, 64, 128, 256), f32 or bf16, 4·S·D·bytes within
+        shared memory); "auto" takes the kernel for a CUDA pool where it
+        holds and refuses the pool where it does not, naming "dense";
+        "kernel" and "dense" are taken as asked."""
+        geom, ok = self._GEOMETRIES[case]
+        assert tpa.paged_kernel_supported(*geom) is ok
+        cuda = torch.device("cuda")
+        if ok:
+            assert tsv._resolve_paged_kernel("auto", cuda, *geom) == "kernel"
+        else:
+            with pytest.raises(ValueError, match="paged_kernel='dense'"):
+                tsv._resolve_paged_kernel("auto", cuda, *geom)
+        assert tsv._resolve_paged_kernel("kernel", cuda, *geom) == "kernel"
+        assert tsv._resolve_paged_kernel("dense", cuda, *geom) == "dense"
+        assert tsv._resolve_paged_kernel("auto", torch.device("cpu"),
+                                         *geom) == "dense"
+
+    def test_auto_refuses_unsupported_pools_off_the_cpu(self):
+        """A prefill/decode step over a pool off the CPU whose geometry
+        the kernel does not take raises under "auto" instead of taking
+        the dense path unseen (meta pools stand in for the card's);
+        "dense" is taken as asked, and CPU pools take it under "auto"."""
+        class _Model:
+            lm_meta = dict(num_layers=1, num_heads=2, num_kv_heads=1)
+
+        meta = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
+                                device="meta")
+        with pytest.raises(ValueError, match="head dim 96"):
+            tsv._meta_statics(_Model, "auto", meta)
+        assert tsv._meta_statics(_Model, "dense", meta)["paged_kernel"] \
+            == "dense"
+        cpu = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
+                               device="cpu")
+        assert tsv._meta_statics(_Model, "auto", cpu)["paged_kernel"] \
+            == "dense"

@@ -34,6 +34,7 @@ from bigdl_tpu_torch.dataset import SampleToBatch as TToBatch
 from bigdl_tpu_torch.interop import (load_jax_params, params_from_jax,
                                      sgd_state_from_jax)
 from bigdl_tpu_torch.models import TransformerLM
+from bigdl_tpu_torch.ops import flash_attention as tfa
 from bigdl_tpu_torch.utils.random import RandomGenerator as TRandom
 
 ttrain = importlib.import_module("bigdl_tpu_torch.models.transformer.train")
@@ -215,9 +216,99 @@ def test_lm_forward_and_loss_gradient_match_jax(case):
 
 
 def test_lm_dropout_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(32, d_model=16, num_heads=2, num_layers=1,
-                      dropout=0.1, device="cpu")
+    """An LM with dropout > 0 refuses to train until the caller sets the
+    masks' generator. It builds: ``nn.Dropout`` ends every FFN, at the
+    JAX block's position, and evaluation is the identity."""
+    tm = TransformerLM(32, d_model=16, num_heads=2, num_layers=1,
+                       dropout=0.1, device="cpu")
+    jm = JaxLM(32, d_model=16, num_heads=2, num_layers=1, dropout=0.1)
+    ffn, jffn = tm[1][1][1], jm.modules[1].modules[1].modules[1]
+    assert [type(m).__name__ for m in ffn._modules.values()] == \
+        [type(m).__name__ for m in jffn.modules]
+    assert isinstance(ffn[3], tnn.Dropout) and ffn[3].p == 0.1
+    x = torch.ones((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="generator"):
+        tm(x)
+    tm.evaluate()
+    assert torch.isfinite(tm(x)).all()
+
+
+def test_lm_dropout_p0_matches_jax():
+    """An LM built with dropout, its Dropout modules at p = 0, in
+    training mode: logits, loss and every gradient as JAX's."""
+    jm, tm = _lm_pair(dropout=0.2, **_LM_CASES["rope-kv2"])
+    for m in tm.modules():
+        if isinstance(m, tnn.Dropout):
+            m.set_p(0.0)
+    n = 0
+    for blk in jm.modules[1:3]:
+        blk.modules[1].modules[1].modules[3].set_p(0.0)
+        n += 1
+    assert n == 2
+    rs = np.random.default_rng(6)
+    x = rs.integers(1, 97, size=(2, 16)).astype(np.int32)
+    t = rs.integers(1, 97, size=(2, 16)).astype(np.float32)
+    crit = jnn.CrossEntropyCriterion()
+
+    def jloss(p):
+        y, _ = jm.apply(p, jm.state, jnp.asarray(x), training=True,
+                        rng=jax.random.PRNGKey(1))
+        return crit.apply(y, jnp.asarray(t)), y
+
+    (jl, jy), jg = jax.value_and_grad(jloss, has_aux=True)(jm.params)
+    tm.train()
+    ty = tm(torch.from_numpy(x))
+    tl = tnn.CrossEntropyCriterion()(ty, torch.from_numpy(t))
+    tl.backward()
+    _close(ty, jy, 1e-4, "logits")
+    _close(tl, jl, 1e-5, "loss")
+    want = params_from_jax(jax.tree.map(np.asarray, jg))
+    for name, p in tm.named_parameters():
+        _close(p.grad, want[name], 1e-4, name)
+
+
+def test_lm_dropout_statistics():
+    """At p = 0.25 each FFN's Dropout zeroes about a quarter of its input
+    (16 x 64 x 64 draws: 5 standard deviations is 0.009) and scales the
+    rest by 1/0.75; a reseeded generator repeats the masks, and the loss
+    moves against p = 0."""
+    tm = TransformerLM(64, d_model=64, num_heads=4, num_layers=2,
+                       max_len=64, dropout=0.25, with_log_softmax=False,
+                       device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    drops = [m for m in tm.modules() if isinstance(m, tnn.Dropout)]
+    assert len(drops) == 2
+    seen = []
+
+    def hook(mod, inp, out):
+        seen.append((inp[0].detach(), out.detach()))
+    for m in drops:
+        m.register_forward_hook(hook)
+    x = torch.from_numpy(np.random.default_rng(7).integers(
+        1, 65, size=(16, 64)).astype(np.int32))
+
+    def run(seed):
+        gen = torch.Generator().manual_seed(seed)
+        for m in drops:
+            m.generator = gen
+        seen.clear()
+        with torch.no_grad():
+            return tm(x), list(seen)
+    y1, s1 = run(3)
+    y2, s2 = run(3)
+    assert torch.equal(y1, y2)
+    for (i1, o1), (_, o2) in zip(s1, s2):
+        assert torch.equal(o1, o2)
+        live = i1 != 0
+        dropped = float((o1[live] == 0).float().mean())
+        assert abs(dropped - 0.25) < 0.009
+        kept = o1 != 0
+        torch.testing.assert_close(o1[kept], i1[kept] / 0.75)
+    for m in drops:
+        m.set_p(0.0)
+    with torch.no_grad():
+        y0 = tm(x)
+    assert not torch.allclose(y0, y1)
 
 
 def _lm_batches(n, seq, vocab, seed):
@@ -325,6 +416,30 @@ def test_train_main_on_the_cpu(tmp_path):
     assert (jdir / "dictionary.txt").read_text() == port_dict
     assert vocab == 41
     assert opt.model[0].tok.shape == (41, 64)
+
+
+def test_train_main_defaults_on_the_cpu(tmp_path):
+    """The train main at its default model flags (--dModel 128
+    --numHeads 4: head dim 32, which the flash kernels take) runs one
+    step of the default batch of 32 on the CPU, through the flash
+    kernels' plain versions (no launch counted); a --dropout run trains
+    too."""
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_text(str(data), n_sentences=40)      # 32 train samples
+    TRandom.set_seed(1)
+    torch.manual_seed(0)
+    before = (tfa.fwd_launches, tfa.dq_launches, tfa.dkdv_launches)
+    opt = ttrain.main(["-f", str(data), "-e", "1", "--device", "cpu"])
+    q = torch.empty((1, 8, 4, opt.model[1][0][1].head_dim))
+    assert q.shape[-1] == 32 and tfa.flash_supported(q, q)
+    assert len(opt.history) == 1 and np.isfinite(opt.history[0]["loss"])
+    assert (tfa.fwd_launches, tfa.dq_launches, tfa.dkdv_launches) == before
+    opt = ttrain.main(["-f", str(data), "-e", "1", "--dropout", "0.1",
+                       "--numLayers", "1", "--device", "cpu"])
+    assert isinstance(opt.model[1][1][1][3], tnn.Dropout)
+    assert opt.model[1][1][1][3].generator is not None
+    assert np.isfinite(opt.history[0]["loss"])
 
 
 @pytest.mark.parametrize("flags", [["--chips", "2"], ["--model", "m"],
