@@ -20,33 +20,72 @@
 // the unrounded f32 dlogits. Targets are 1-based; one outside [1, V]
 // matches no column (nll = lse, zero one-hot in the backward).
 //
-// Every kernel walks "resident" rows R against tiles of 64 "streamed"
-// rows X: the forward and dh take R = token rows, X = vocab tiles; dW
-// takes R = vocab rows, X = token tiles. For each X tile it forms the
-// logits tile S = R·Xᵀ over the whole feature axis D, then either folds
-// S into an online logsumexp (forward) or turns it into dlogits and adds
-// dl·X into a D-wide accumulator (dh, dW). The TPU grid carries that
-// state across its sequential axis in VMEM scratch; here the axis is a
-// loop inside the CTA and the state lives in registers. The D-wide
-// accumulator — the TPU's (512, D) and (1024, D) f32 VMEM tiles — is
-// what does not fit: an SM has 256 KB of registers.
+// Every kernel walks "resident" rows R against tiles of "streamed" rows
+// X: the forward and dh take R = token rows, X = vocab tiles; dW takes R
+// = vocab rows, X = token tiles. For each X tile it forms the logits
+// tile S = R·Xᵀ over the whole feature axis D, then either folds S into
+// an online logsumexp (forward) or turns it into dlogits and adds dl·X
+// into a D-wide accumulator (dh, dW). The TPU grid carries that state
+// across its sequential axis in VMEM scratch; here the axis is a loop
+// inside the CTA and the state lives in registers.
 //
-// bf16 with D <= 1024 (the LM head's path): thread-block clusters of
-// four CTAs on four SMs; CTA q of a cluster owns feature columns [256q,
-// 256q + 256). D-wide f32 state does not fit one SM, so each CTA keeps a
-// quarter of it and the partial logits are summed across the cluster.
+// Bound on the H100: at the harness shapes (N 8192, V 32768, D 1024,
+// bf16) the forward does 2·N·V·D = 5.5e11 operations on 85 MB of inputs
+// and each backward kernel twice that, thousands of operations a byte,
+// far above the ~295 at which the tensor cores bind: all three are bound
+// by operations (0.56 / 1.1 / 1.1 ms at 989 TFLOP/s). So in bf16 the
+// products run on wgmma fed by TMA.
 //
-// Forward (fce_fwd_cluster_kernel): 64 resident rows per cluster. Each
-// CTA keeps its slice of the R rows in shared memory and stages its
-// slice of each X tile (cp.async, double buffered), forms the partial S
-// of its slice with warp-level tensor-core products (mma.sync m16n8k16,
-// ldmatrix operands); after a cluster barrier every CTA reads the four
-// partials through distributed shared memory, sums them in one fixed
-// order and folds rows [16q, 16q + 16) into the online logsumexp.
+// Forward, bf16 (fce_fwd_tc_kernel): a GEMM with an online-logsumexp
+// epilogue. Its only state is a logits tile and three floats a row, so
+// D is the GEMM's K axis and is streamed; nothing is split across CTAs.
+// - Tile: 128 token rows x 256 vocab columns a CTA; two consumer
+//   warpgroups of 64 rows each hold a 64 x 256 f32 accumulator (128
+//   registers a thread) and run wgmma m64n256k16, both operands K-major
+//   in shared memory with the 128-byte swizzle.
+// - Loads: one thread of a producer warpgroup (384 threads a CTA) streams
+//   (vocab tile, 64-column D box) pairs in order through a 4-stage ring:
+//   per stage an h box [128][64] (16 KB) and a W box [256][64] (32 KB) by
+//   TMA from 2-D tensor maps, full/empty mbarriers. The ring runs
+//   straight across vocab tiles, so the next tile's first boxes load
+//   while this tile's epilogue runs. The maps zero-fill rows past N or V
+//   and columns past D, so any D that is a multiple of 8 works (D 72:
+//   two boxes). setmaxnreg hands the producer's registers to the
+//   consumers (40 / 232 a thread): with a lone producer warp (288
+//   threads) a scheduler holds three of the nine warps and ptxas caps
+//   every thread at 168 registers, too few for the accumulator and the
+//   epilogue (fused_ce_knockout.py times that design).
+// - Products: per box four wgmma per warpgroup, one commit group; the
+//   previous box's group is waited for (wait_group 1) and its stage
+//   released, so one box's products overlap the next box's issue. The
+//   accumulator starts each tile through wgmma's scale-d flag, not by
+//   assignment (an instruction defining it in a group's window makes
+//   ptxas serialise the products).
+// - Epilogue, in registers: add the bias and mask columns past V to
+//   -inf, pick out the target logit, take the row max over the four
+//   lanes that share a row, rescale and add the tile's exps (ex2 of one
+//   FMA each). After the walk, (max, sum of exp, target logit) go to the
+//   split's partials for fce_merge_kernel. The tile's bias is loaded
+//   into registers before its products: loaded in the epilogue, its
+//   latency stood unhidden there. The epilogue does not overlap the
+//   products (both warpgroups fold at once); delaying one warpgroup by
+//   up to three ring stages, so that one folds while the other's
+//   products run, measured no faster.
+// - What bounds it: the products, about four fifths of its time; the
+//   epilogue and the loads' waits share the rest (fused_ce_knockout.py,
+//   PERF.md).
+// - Grid: N/128 row tiles x vocab splits (fwd_splits: one CTA per SM,
+//   128 CTAs at N 8192 and at N 1000). The CTAs of one split walk the
+//   same W tiles in step, so W crosses HBM about once per split and h
+//   stays in L2.
 //
-// Backward, dh and dW/db (fce_bwd_tc_kernel): bound by operations (see
-// below), so the products run on wgmma fed by TMA. 128 resident rows per
-// cluster, two consumer warpgroups of 64 rows in each CTA (256 threads).
+// Backward, bf16 with D <= 1024 (fce_bwd_tc_kernel): thread-block
+// clusters of four CTAs on four SMs; CTA q of a cluster owns feature
+// columns [256q, 256q + 256). The D-wide f32 accumulator — the TPU's
+// (512, D) and (1024, D) f32 VMEM tiles — does not fit one SM (256 KB of
+// registers), so each CTA keeps a quarter of it and the partial logits
+// are summed across the cluster. 128 resident rows per cluster, two
+// consumer warpgroups of 64 rows in each CTA (256 threads).
 // - Loads: the CTA's R slice (128 x 256 bf16, 64 KB) once by TMA, as four
 //   [128][64] boxes of 128-byte swizzled rows; X tiles (64 x 256, 32 KB)
 //   through a 3-stage ring with full mbarriers. Thread 0 issues the load
@@ -89,14 +128,14 @@
 //   that fce_dh_merge_kernel adds in split order and rounds to bf16.
 // - Sums are f32 in a fixed order (no atomics): deterministic.
 //
-// f32 (and bf16 with D > 1024): f32 arithmetic on the CUDA cores, one
-// CTA per 16 resident rows. D is streamed in 64-column chunks of R and X
-// (cp.async, double buffered); the 256 threads split a chunk's columns
-// into four parts of 64 threads, each owning 4 x 4 register tiles,
-// summed through shared memory at the end. The backward's accumulator
-// is 16 rows x 1024 columns (thread t: columns 4t .. 4t+3), X's rows
-// read back from L2; D beyond 1024 takes more CTAs along a second grid
-// axis, each recomputing S.
+// f32 (and the bf16 backward with D > 1024): f32 arithmetic on the CUDA
+// cores, one CTA per 16 resident rows and 64-row X tiles. D is streamed
+// in 64-column chunks of R and X (cp.async, double buffered); the 256
+// threads split a chunk's columns into four parts of 64 threads, each
+// owning 4 x 4 register tiles, summed through shared memory at the end.
+// The backward's accumulator is 16 rows x 1024 columns (thread t:
+// columns 4t .. 4t+3), X's rows read back from L2; D beyond 1024 takes
+// more CTAs along a second grid axis, each recomputing S.
 //
 // Both forwards may split the vocab across a further grid axis so that a
 // few rows still fill the card; fce_merge_kernel merges the per-split
@@ -104,16 +143,8 @@
 // kernels allocate nothing: the Python wrapper (ops/fused_ce.py)
 // allocates outputs and the forward's and dh's partials and checks shapes,
 // dtypes, contiguity and alignment. Any N, any V, D a multiple of 8
-// (16-byte row chunks for cp.async); ragged tiles are zero-filled and
-// masked.
-//
-// Bound on the H100: at the harness shapes (N 8192, V 32768, D 1024,
-// bf16) the forward does 2·N·V·D = 5.5e11 operations on 85 MB of inputs
-// and each backward kernel twice that, thousands of operations a byte,
-// far above the ~295 at which the tensor cores bind: all three are bound
-// by operations (0.56 / 1.1 / 1.1 ms at 989 TFLOP/s). The forward's
-// mma.sync reaches a fraction of that rate; its move to wgmma and TMA, as
-// the backward's, is the next step.
+// (16-byte rows for cp.async and the tensor maps); ragged tiles are
+// zero-filled and masked.
 
 #include <cooperative_groups.h>
 #include <cuda.h>           // CUtensorMap and its enums (types only)
@@ -280,31 +311,12 @@ __device__ __forceinline__ float dlogit(float s, float lse, float g,
 }
 
 // ===========================================================================
-// bf16, D <= 1024: thread-block clusters and tensor cores
+// bf16: tensor cores (wgmma) fed by TMA
 // ===========================================================================
 
-constexpr int kRanks = 4;             // CTAs of a cluster
-constexpr int kCR = 64;               // resident rows per cluster
-constexpr int kSlice = 256;           // feature columns per CTA
-constexpr int kSP = kSlice + 8;       // pitch (bf16) of R and X slices
-constexpr int kPSP = kX + 4;          // pitch (f32) of a partial S tile
+constexpr int kRanks = 4;             // CTAs of a backward cluster
+constexpr int kSlice = 256;           // feature columns per backward CTA
 constexpr int kClusterD = kRanks * kSlice;
-
-// shared memory of a forward cluster CTA (bytes): R slice, two X slices,
-// two partial S tiles
-constexpr size_t kOffX = kCR * kSP * sizeof(bf16);
-constexpr size_t kOffPS = kOffX + 2 * kX * kSP * sizeof(bf16);
-constexpr size_t kClusterSmem = kOffPS + 2 * kCR * kPSP * sizeof(float);
-
-// c += a·b, one m16n8k16 tensor-core product (bf16 in, f32 accumulate)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // four 8 x 8 bf16 matrices from shared memory; lane i gives the address
 // of row i % 8 of matrix i / 8, lane t receives row t / 4, columns
@@ -315,139 +327,6 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
-}
-// A fragment (16 rows from `row0`, k16 from `k0`) of a row-major tile
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile,
-                                       int pitch, int row0, int k0) {
-  const int lane = threadIdx.x % 32;
-  ldsm4(a, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + k0 +
-               (lane >> 4) * 8);
-}
-
-// this CTA's partial logits tile: ps (64 x 64 f32) = Rs · Xsᵀ over its
-// 256 feature columns. Warp w: rows 16(w % 4) .., columns 32(w / 4) ..
-__device__ __forceinline__ void partial_s(float* ps, const bf16* Rs,
-                                          const bf16* Xs) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int mb = (warp % 4) * 16, nb = (warp / 4) * 32;
-  float c[4][4] = {};
-#pragma unroll 4
-  for (int k0 = 0; k0 < kSlice; k0 += 16) {
-    uint32_t a[4];
-    a_frag(a, Rs, kSP, mb, k0);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {           // two pairs of n8 tiles
-      uint32_t b[4];
-      ldsm4(b, Xs + (nb + j * 16 + (lane >> 4) * 8 + (lane & 7)) * kSP + k0 +
-                   ((lane >> 3) & 1) * 8);
-      mma(c[2 * j], a, b[0], b[1]);
-      mma(c[2 * j + 1], a, b[2], b[3]);
-    }
-  }
-  const int gid = lane / 4, tig = lane % 4;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    float* p = ps + (mb + gid) * kPSP + nb + t * 8 + tig * 2;
-    p[0] = c[t][0];
-    p[1] = c[t][1];
-    p[8 * kPSP] = c[t][2];
-    p[8 * kPSP + 1] = c[t][3];
-  }
-}
-
-// Walk X tiles [xt0, xt1) against the cluster's 64 resident rows from
-// r0: this CTA stages its feature slice, forms its partial S of each tile
-// and, after a cluster barrier, calls epi(xt, parts, xs) with the four
-// CTAs' partial tiles (parts[q], shared memory of CTA q) and its own X
-// slice. Every thread calls epi; it may synchronise the CTA.
-template <typename Epi>
-__device__ __forceinline__ void cluster_walk(const bf16* __restrict__ R,
-                                             int r0, int nR,
-                                             const bf16* __restrict__ X,
-                                             int nX, int xt0, int xt1, int D,
-                                             unsigned char* smem, Epi& epi) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int d0 = static_cast<int>(cluster.block_rank()) * kSlice;
-  bf16* const Rs = reinterpret_cast<bf16*>(smem);
-  bf16* const Xs = reinterpret_cast<bf16*>(smem + kOffX);
-  float* const ps = reinterpret_cast<float*>(smem + kOffPS);
-
-  stage_rows<bf16>(Rs, kSP, R, r0, kCR, nR, D, d0, kSlice);
-  if (xt0 < xt1) stage_rows<bf16>(Xs, kSP, X, xt0 * kX, kX, nX, D, d0, kSlice);
-  cp_async_commit();
-  for (int xt = xt0; xt < xt1; ++xt) {
-    const int i = xt - xt0;
-    const bf16* xs = Xs + (i & 1) * kX * kSP;
-    if (xt + 1 < xt1)
-      stage_rows<bf16>(Xs + ((i + 1) & 1) * kX * kSP, kSP, X, (xt + 1) * kX,
-                       kX, nX, D, d0, kSlice);
-    cp_async_commit();
-    cp_async_wait_prev();                  // R and this tile's X landed
-    __syncthreads();
-    // partial tiles are double buffered: a CTA rewrites buffer i & 1
-    // only after every CTA passed the barrier of tile i - 1, so after
-    // all reads of it at tile i - 2
-    float* p = ps + (i & 1) * kCR * kPSP;
-    partial_s(p, Rs, xs);
-    cluster.sync();                        // the four partials are complete
-    const float* parts[kRanks];
-#pragma unroll
-    for (int q = 0; q < kRanks; ++q) parts[q] = cluster.map_shared_rank(p, q);
-    epi(xt, parts, xs);
-    __syncthreads();                       // X buffer free for reuse
-  }
-  cluster.sync();             // no CTA leaves while others read its tiles
-}
-
-// S[row][col .. col + n) summed over the cluster's partials, in rank order
-template <int n>
-__device__ __forceinline__ void full_s(float (&s)[n],
-                                       const float* const (&parts)[kRanks],
-                                       int row, int col) {
-#pragma unroll
-  for (int e = 0; e < n; ++e) s[e] = 0.f;
-#pragma unroll
-  for (int q = 0; q < kRanks; ++q)
-#pragma unroll
-    for (int e = 0; e < n; e += 4) {
-      float x[4];
-      load4(parts[q] + row * kPSP + col + e, x);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) s[e + u] += x[u];
-    }
-}
-
-// ---------------------------------------------------------------------------
-// forward: CTA q takes rows 16q .. 16q + 15 of the cluster's 64
-// ---------------------------------------------------------------------------
-
-struct ClusterFwdEpi {
-  OnlineLse lse;
-  int local_row;
-  __device__ void operator()(int xt, const float* const (&parts)[kRanks],
-                             const bf16*) {
-    float s[4];
-    full_s<4>(s, parts, local_row, (threadIdx.x % 16) * 4);
-    lse(xt, s);
-  }
-};
-
-__global__ void __cluster_dims__(1, kRanks, 1) __launch_bounds__(kThreads, 1)
-fce_fwd_cluster_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                       const float* __restrict__ b,
-                       const int* __restrict__ tgt, float* __restrict__ part,
-                       int N, int V, int D, int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int r0 = blockIdx.x * kCR, split = blockIdx.z;
-  const int local_row = blockIdx.y * 16 + threadIdx.x / 16;
-  const int row = r0 + local_row;
-  const int nvt = (V + kX - 1) / kX;
-  const int xt0 = split * tiles_per_split;
-  const int xt1 = min(xt0 + tiles_per_split, nvt);
-  ClusterFwdEpi epi{{b, V, row < N ? tgt[row] - 1 : -1, -INFINITY, 0.f, 0.f},
-                    local_row};
-  cluster_walk(h, r0, N, w, V, xt0, xt1, D, smem_raw, epi);
-  epi.lse.write(part, split, gridDim.z, N, row);
 }
 
 // ---------------------------------------------------------------------------
@@ -736,6 +615,208 @@ int make_map(CUtensorMap* map, const void* ptr, int rows, int D,
   return r == CUDA_SUCCESS ? 0 : kMapFailed + static_cast<int>(r);
 }
 
+// ---------------------------------------------------------------------------
+// forward: a GEMM with an online-logsumexp epilogue, 128 token rows a CTA
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;         // token rows per CTA
+constexpr int kFwdCols = 256;         // vocab columns per tile
+constexpr int kFwdStages = 4;         // ring of (h box, W box) pairs
+constexpr int kConsumers = 256;       // two warpgroups of 64 rows
+constexpr int kFwdThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // setmaxnreg
+static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <= 65536,
+              "more registers than an SM holds");
+constexpr int kHBox = kFwdRows * kRowBytes;    // [128][64] bf16
+constexpr int kWBox = kFwdCols * kRowBytes;    // [256][64] bf16
+constexpr int kFwdStage = kHBox + kWBox;
+using FwdLayout = Layout<kFwdStages, 0, kFwdStage>;
+static_assert(FwdLayout::kSmem <= 232448,
+              "more shared memory than a CTA may have");
+
+// this thread's bias pairs of a vocab tile (columns c0 + 8j, +1; c0
+// even), -inf past V. Loaded when the tile's products start, so that the
+// loads' latency hides behind them, not in the epilogue.
+__device__ __forceinline__ void load_bias(float2 (&bias)[32],
+                                          const float* __restrict__ b,
+                                          int V, int v0, int c0) {
+  if (v0 + kFwdCols <= V) {                // every column in the vocab
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      bias[j] = __ldg(reinterpret_cast<const float2*>(b + c0 + 8 * j));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = c0 + 8 * j;
+      bias[j].x = c < V ? __ldg(b + c) : -INFINITY;
+      bias[j].y = c + 1 < V ? __ldg(b + c + 1) : -INFINITY;
+    }
+  }
+}
+
+// 2^x (ex2.approx: relative error about 2^-22; results below 2^-126
+// flush to 0, which a sum of exps of order 1 does not see)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fold one logits tile into its rows' online logsumexp. This thread holds
+// 2 rows x 64 columns of the tile's accumulator (rows h = 0, 1 at +8h,
+// columns c0 + 8j + e, c0 = v0 + 2(lane % 4)): add the bias (-inf past
+// V, which masks those columns), add the target column's logit to tl,
+// then rescale the rows' sums of exp to the new row max, taken over the
+// four lanes of the row, and add this thread's exps. m is the same in
+// the four lanes; ls and tl are this lane's shares. Maxima and sums run
+// in four independent chains a row, so that two warps a scheduler are
+// not bound by the latency of one chain of 64.
+__device__ __forceinline__ void fold(float (&acc)[128],
+                                     const float2 (&bias)[32], int c0,
+                                     const int (&tcol)[2], float (&m)[2],
+                                     float (&ls)[2], float (&tl)[2]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  float mx[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mx[h][k] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float& s0 = acc[4 * j + 2 * h];
+      float& s1 = acc[4 * j + 2 * h + 1];
+      s0 += bias[j].x;
+      s1 += bias[j].y;
+      mx[h][j % 4] = fmaxf(mx[h][j % 4], fmaxf(s0, s1));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // the target's logit, in the one tile of the walk that holds it
+    if (static_cast<unsigned>(tcol[h] - c0) < kFwdCols) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c0 + 8 * j + e == tcol[h]) tl[h] += acc[4 * j + 2 * h + e];
+    }
+    const float tile = fmaxf(fmaxf(mx[h][0], mx[h][1]),
+                             fmaxf(mx[h][2], mx[h][3]));
+    const float m_new = fmaxf(m[h], group_max<4>(tile));
+    ls[h] *= ex2((m[h] - m_new) * kLog2e);   // 0 before the first tile
+    m[h] = m_new;
+  }
+  float sum[2][4] = {};
+  const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
+#pragma unroll
+  for (int i = 0; i < 128; ++i) {
+    const int h = (i % 4) / 2;
+    sum[h][(i / 4) % 4] += ex2(fmaf(acc[i], kLog2e, -ml[h]));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    ls[h] += (sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]);
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fce_fwd_tc_kernel(const __grid_constant__ CUtensorMap hm,
+                  const __grid_constant__ CUtensorMap wm,
+                  const float* __restrict__ b, const int* __restrict__ tgt,
+                  float* __restrict__ part, int N, int V, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<kFwdStages> ring =
+      make_ring<kFwdStages>(smem_raw, FwdLayout::kBars, kConsumers / 32);
+  const int r0 = blockIdx.x * kFwdRows;
+  // this split's vocab tiles [t0, t0 + nt): balanced, none empty (the
+  // launcher takes no more splits than tiles)
+  const int all = (V + kFwdCols - 1) / kFwdCols;
+  const int t0 = blockIdx.y * all / gridDim.y;
+  const int nt = (blockIdx.y + 1) * all / gridDim.y - t0;
+  const int nb = (D + 63) / 64;            // 64-column boxes of D
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {                 // the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      for (int i = 0; i < nt * nb; ++i) {
+        const int st = i % kFwdStages;
+        // the stage's previous boxes released by all eight consumer warps
+        if (i >= kFwdStages)
+          bar_wait(ring.empty(st), (i / kFwdStages - 1) & 1);
+        const uint32_t dst = ring.base + st * kFwdStage;
+        const int d0 = 64 * (i % nb);
+        bar_expect(ring.full(st), kFwdStage);
+        tma_load_2d(dst, &hm, ring.full(st), d0, r0);
+        tma_load_2d(dst + kHBox, &wm, ring.full(st), d0,
+                    (t0 + i / nb) * kFwdCols);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = tid / 128, l = tid % 32;
+  const int row = r0 + 64 * wg + 16 * ((tid / 32) % 4) + l / 4;  // and +8
+  int tcol[2];                             // the target column, or -1
+  float m[2], ls[2], tl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = row + 8 * h < N ? tgt[row + 8 * h] - 1 : -1;
+    tcol[h] = t >= 0 && t < V ? t : -1;
+    m[h] = -INFINITY;
+    ls[h] = tl[h] = 0.f;
+  }
+  // released by a warp once the products that read the stage are done
+  auto release = [&](int i) {
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(i % kFwdStages));
+  };
+
+  float acc[128];
+  zero(acc);
+  keep(acc);
+  for (int t = 0, i = 0; t < nt; ++t) {
+    const int v0 = (t0 + t) * kFwdCols, c0 = v0 + 2 * (l % 4);
+    float2 bias[32];
+    load_bias(bias, b, V, v0, c0);
+    for (int kb = 0; kb < nb; ++kb, ++i) {
+      const int st = i % kFwdStages;
+      const uint32_t hs = ring.base + st * kFwdStage, ws = hs + kHBox;
+      warp_wait(ring.full(st), (i / kFwdStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n256(acc, desc_k<kFwdRows>(hs, 64 * wg, kk),
+                      desc_k<kFwdCols>(ws, 0, kk), kb > 0 || kk > 0);
+      wg_commit();
+      if (kb > 0) {
+        wg_wait<1>();                      // the previous box's products
+        release(i - 1);
+      }
+    }
+    wg_wait();
+    keep(acc);
+    release(i - 1);
+    fold(acc, bias, c0, tcol, m, ls, tl);
+  }
+
+  // this split's (max, sum of exp, target logit) of the two rows
+  const int64_t plane = static_cast<int64_t>(gridDim.y) * N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = group_sum<4>(ls[h]), t = group_sum<4>(tl[h]);
+    const int r = row + 8 * h;
+    if (l % 4 == 0 && r < N) {
+      const int64_t at = static_cast<int64_t>(blockIdx.y) * N + r;
+      part[at] = m[h];
+      part[plane + at] = sum;
+      part[2 * plane + at] = t;
+    }
+  }
+}
+
 // dh = the split walks' f32 partial sums added in split order, in bf16
 // (n elements, a multiple of 4)
 __global__ void fce_dh_merge_kernel(const float* __restrict__ part,
@@ -810,6 +891,29 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
     fce_dh_merge_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0,
                           st>>>(part, splits, n, static_cast<bf16*>(out));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the forward's vocab splits: as many as keep one CTA on every SM at once,
+// no more than the vocab tiles
+int fwd_splits(int N, int V, int sms) {
+  const int ctas = (N + kFwdRows - 1) / kFwdRows;
+  return max(1, min((V + kFwdCols - 1) / kFwdCols, sms / ctas));
+}
+
+int fwd(const void* h, const void* w, const float* b, const int* t,
+        float* part, float* nll, float* lse, int N, int V, int D,
+        int splits, cudaStream_t st) {
+  CUtensorMap hm, wm;
+  if (int e = make_map(&hm, h, N, D, kFwdRows)) return e;
+  if (int e = make_map(&wm, w, V, D, kFwdCols)) return e;
+  if (int e = set_smem(fce_fwd_tc_kernel, FwdLayout::kSmem)) return e;
+  fce_fwd_tc_kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, splits),
+                      kFwdThreads, FwdLayout::kSmem, st>>>(hm, wm, b, t,
+                                                           part, N, V, D);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  fce_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, splits, N, nll,
+                                                     lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1035,53 +1139,38 @@ fce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
 // launchers
 // ---------------------------------------------------------------------------
 
-// the tensor-core cluster kernels take bf16 with D <= 1024
+// the bf16 backward's cluster kernels take D <= 1024
 template <typename T>
 constexpr bool clustered(int D) {
   return sizeof(T) == 2 && D <= kClusterD;
 }
 
-// vocab splits of the forward: as many as keep every CTA resident at
-// once (a cluster CTA fills an SM; two generic CTAs share one)
-template <typename T>
-int fwd_splits(int N, int V, int D, int sms) {
-  const bool c = clustered<T>(D);
-  const int rows = c ? kCR : kR;
-  const int ctas = (N + rows - 1) / rows * (c ? kRanks : 1);
-  const int resident = sms * (c ? 1 : 2);
-  return max(1, min((V + kX - 1) / kX, resident / ctas));
+// vocab splits of the f32 forward: as many as keep every CTA resident at
+// once (two CTAs share an SM)
+int fwd_splits_f32(int N, int V, int sms) {
+  const int ctas = (N + kR - 1) / kR;
+  return max(1, min((V + kX - 1) / kX, 2 * sms / ctas));
 }
 
 template <typename T>
 int fwd(const void* h, const void* w, const float* b, const int* t,
         float* part, float* nll, float* lse, int N, int V, int D,
         int splits, cudaStream_t st) {
-  const int tiles_per_split = ((V + kX - 1) / kX + splits - 1) / splits;
-  const int rows = clustered<T>(D) ? kCR : kR;
-  const int row_tiles = (N + rows - 1) / rows;
   if constexpr (sizeof(T) == 2) {
-    if (clustered<T>(D)) {
-      auto kernel = fce_fwd_cluster_kernel;
-      if (int e = set_smem(kernel, kClusterSmem)) return e;
-      kernel<<<dim3(row_tiles, kRanks, splits), kThreads, kClusterSmem,
-               st>>>(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-                     b, t, part, N, V, D, tiles_per_split);
-      if (int e = static_cast<int>(cudaGetLastError())) return e;
-      fce_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, splits, N, nll,
-                                                         lse);
-      return static_cast<int>(cudaGetLastError());
-    }
+    return tc::fwd(h, w, b, t, part, nll, lse, N, V, D, splits, st);
+  } else {
+    const int tiles_per_split = ((V + kX - 1) / kX + splits - 1) / splits;
+    constexpr size_t smem = smem_bytes<T>(false);
+    auto kernel = fce_fwd_kernel<T>;
+    if (int e = set_smem(kernel, smem)) return e;
+    kernel<<<dim3((N + kR - 1) / kR, splits), kThreads, smem, st>>>(
+        static_cast<const T*>(h), static_cast<const T*>(w), b, t, part, N,
+        V, D, tiles_per_split);
+    if (int e = static_cast<int>(cudaGetLastError())) return e;
+    fce_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, splits, N, nll,
+                                                       lse);
+    return static_cast<int>(cudaGetLastError());
   }
-  constexpr size_t smem = smem_bytes<T>(false);
-  auto kernel = fce_fwd_kernel<T>;
-  if (int e = set_smem(kernel, smem)) return e;
-  kernel<<<dim3(row_tiles, splits), kThreads, smem, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), b, t, part, N, V,
-      D, tiles_per_split);
-  if (int e = static_cast<int>(cudaGetLastError())) return e;
-  fce_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, splits, N, nll,
-                                                     lse);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // dh (kVocabRows false: out = dh, db unused; the bf16 cluster kernel
@@ -1147,8 +1236,7 @@ extern "C" int bigdl_fce_fwd(int dtype, const void* h, const void* w,
 // SMs
 extern "C" int bigdl_fce_fwd_splits(int dtype, int N, int V, int D,
                                     int sms) {
-  return dtype == 1 ? fwd_splits<bf16>(N, V, D, sms)
-                    : fwd_splits<float>(N, V, D, sms);
+  return dtype == 1 ? tc::fwd_splits(N, V, sms) : fwd_splits_f32(N, V, sms);
 }
 
 // `part` holds splits x N x D floats when splits > 1 (else unused),

@@ -126,9 +126,11 @@ _TRAIN_GRAD_REL_TOL = 5e-2
 # the fused-CE kernels at the harness's head: B4 x S2048 rows of the
 # d1024 LM against its 32768-word vocab; the tails case has GPT-2's
 # vocab and a row count that no tile divides; two small cases take the
-# kernels' other widths: D 72 (bf16: three of a cluster's four feature
-# slices empty) and D 1032 (past the cluster path's 1024: the CUDA-core
-# kernels in both dtypes, two accumulator blocks along D)
+# kernels' other widths: D 72 (bf16 forward: two 64-column boxes, most
+# of the second zero fill; bf16 backward: three of a cluster's four
+# feature slices empty) and D 1032 (bf16 forward: 17 boxes; past the
+# backward cluster path's 1024: the CUDA-core backward in both dtypes,
+# two accumulator blocks along D)
 _FCE_CASES = (("main", 8192, 32768, 1024), ("tails", 1000, 50257, 1024),
               ("narrow", 300, 1000, 72), ("wide", 300, 1000, 1032))
 #: fused-CE kernel vs plain, element by element as the flash outputs:
@@ -286,10 +288,10 @@ def _print_ptxas(report: str) -> None:
 
 def _check_tensor_cores(flash_lib: str, fce_lib: str) -> dict:
     """Tensor-core instructions in the SASS of each bf16 flash kernel and
-    of the bf16 fused-CE dh and dW/db kernels (``HGMMA``: wgmma; ``HMMA``:
-    mma.sync), from ``cuobjdump --dump-sass`` of the built libraries;
-    fails unless each of the nine flash kernels (fwd, dq, dkdv x D 32,
-    64, 128) has some and both fused-CE backward kernels have
+    of the bf16 fused-CE forward, dh and dW/db kernels (``HGMMA``: wgmma;
+    ``HMMA``: mma.sync), from ``cuobjdump --dump-sass`` of the built
+    libraries; fails unless each of the nine flash kernels (fwd, dq,
+    dkdv x D 32, 64, 128) has some and all three fused-CE kernels have
     ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -305,19 +307,21 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str) -> dict:
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
-                        if c else None)
+                        if c else "fused_ce_fwd bf16"
+                        if "fce_fwd_tc_kernel" in line else None)
                 if name:
                     counts[name] = {"HGMMA": 0, "HMMA": 0}
             elif name:
                 for op in counts[name]:
                     counts[name][op] += bool(re.search(rf"\b{op}\.", line))
     print("[build] tensor-core instructions in the SASS of the bf16 flash "
-          "and fused-CE backward kernels: " + json.dumps(counts), flush=True)
+          "and fused-CE kernels: " + json.dumps(counts), flush=True)
     bare = sorted(f"{k} bf16 D={d}" for k in ("flash_fwd", "flash_dq",
                                               "flash_dkdv")
                   for d in (32, 64, 128)
                   if not sum(counts.get(f"{k} bf16 D={d}", {}).values()))
-    bare += [k for k in ("fused_ce_dh bf16", "fused_ce_dw bf16")
+    bare += [k for k in ("fused_ce_fwd bf16", "fused_ce_dh bf16",
+                         "fused_ce_dw bf16")
              if not counts.get(k, {}).get("HGMMA")]
     if bare:
         raise AssertionError(f"no (wgmma) tensor-core instructions in {bare}")
@@ -1040,7 +1044,12 @@ def phase_fused_ce(fce, gen):
     head's shapes (N 8192, V 32768, D 1024) in bf16 and f32 and at a
     tails case (N 1000, V 50257, one target 0); at the main shapes each
     is timed against its bound, its plain version and the library
-    composition."""
+    composition. The forward's rows also give its rate over 2·N·V·D,
+    its share of the bound (bound_ms / ms) and, as the product's
+    yardstick, the time of a bare ``F.linear(h, w)`` at the same shape
+    and dtype (``gemm_ms``: the logits alone, not the same function)."""
+    import torch.nn.functional as F
+    sms = torch.cuda.get_device_properties(_DEV).multi_processor_count
     rows = {}
     for case, n, v, d in _FCE_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1048,10 +1057,11 @@ def phase_fused_ce(fce, gen):
             h, w, b, t, g = _fce_inputs(n, v, d, dtype, gen, case != "main")
             errs, worst, rlse = _fce_check(fce, h, w, b, t, g,
                                            f"[{case} {name}]")
-            splits = fce._kernel_fns()["dh_splits"](
-                fce._DTYPE_CODES[dtype], n, v, d)
+            code = fce._DTYPE_CODES[dtype]
+            fwd_splits = fce._kernel_fns()["fwd_splits"](code, n, v, d, sms)
+            splits = fce._kernel_fns()["dh_splits"](code, n, v, d)
             print(f"[kernels] fused_ce[{case} {name}] N={n} V={v} D={d} "
-                  f"dh_splits={splits} "
+                  f"fwd_splits={fwd_splits} dh_splits={splits} "
                   f"max abs errs " + json.dumps(errs) + " worst error / "
                   "limit " + json.dumps(worst) + f" (limit rtol·|plain| + "
                   f"atol·rms(plain): dh/dw {_FCE_TOL[dtype]}, db "
@@ -1071,9 +1081,14 @@ def phase_fused_ce(fce, gen):
                 }
                 for kname, (kern, plain, lib, err) in kernels.items():
                     bound, by = _fce_bound(n, v, d, dtype, kname)
-                    row = dict(max_abs_err=err, ms=_time_ms(kern),
+                    ms = _time_ms(kern)
+                    row = dict(max_abs_err=err, ms=ms,
                                plain_ms=_time_ms(plain), bound_ms=bound,
                                bound_by=by, library_ms=lib)
+                    if kname == "fwd":
+                        row.update(tflops=2 * n * v * d / ms / 1e9,
+                                   share_of_bound=bound / ms,
+                                   gemm_ms=_time_ms(lambda: F.linear(h, w)))
                     rows[(f"fused_ce_{kname}", dtype)] = row
                     print(f"[kernels] fused_ce_{kname}[{name}] N={n} V={v} "
                           f"D={d} " + json.dumps(row), flush=True)
@@ -1528,7 +1543,10 @@ def main(argv=None) -> int:
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"]}]
     # the main paths train in bf16: their rows are the bf16 measurements
-    # (the line keeps its keys; tflops and share_of_bound are in [kernels])
+    # (the line keeps its keys; tflops, share_of_bound and the forward's
+    # gemm_ms are in [kernels])
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     for name, line, count in (("flash_fwd", 190, "fwd"),
                               ("flash_dq", 306, "dq"),
                               ("flash_dkdv", 322, "dkdv")):
@@ -1538,17 +1556,17 @@ def main(argv=None) -> int:
             "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": flash_launches[count],
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+            **{k: row[k] for k in keys}})
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):
+        row = fce_rows[(name, torch.bfloat16)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fce_launches[count],
-            **fce_rows[(name, torch.bfloat16)]})
+            **{k: row[k] for k in keys}})
     # the path's LRN rows: norm2, the larger of the two, in bf16
     for name in ("lrn_fwd", "lrn_bwd"):
         kernels.append({

@@ -99,6 +99,58 @@ def test_matches_jax_interpret_kernel(dtype, reduction):
         _grad_close(got, want, dtype, what)
 
 
+def test_ragged_bf16_matches_jax_interpret_kernel():
+    """The geometry the bf16 forward masks on the card: N 130 (no
+    multiple of its 128 rows), V 300 (no multiple of its 256 columns), D
+    72 (one 64-column box and 8 columns of a second) and one target 0,
+    against the interpret-mode Pallas kernel. That kernel takes only
+    tile-divisible shapes, so it runs the same problem padded to h (256,
+    128) and W (384, 128): zero feature columns add no product terms,
+    padded vocab rows carry a bias of -1e30 (exp 0 in every lse, no dW or
+    db) and padded token rows a zero cotangent (no share of dh, dW or
+    db). Per-row nll and lse, the mean loss and the unpadded gradients
+    are compared: nll and lse at rtol 1e-5 (f32 sums in another order),
+    the gradients as in ``_grad_close``."""
+    n, d, v = 130, 72, 300
+    h, w, b, t = _case(n=n, d=d, v=v, seed=5)
+    t[17] = 0
+    hp = np.zeros((256, 128), np.float32)
+    hp[:n, :d] = h
+    wp = np.zeros((384, 128), np.float32)
+    wp[:v, :d] = w
+    bp = np.full(384, -1e30, np.float32)
+    bp[:v] = b
+    tp = np.ones(256, np.int32)
+    tp[:n] = t
+    mask = jnp.asarray(np.arange(256) < n, jnp.float32)
+    targets = jnp.asarray(tp)
+
+    def f(hh, ww, bb):
+        nll = jce._linear_ce(hh, ww, bb, targets, True)
+        return jnp.sum(nll * mask) / n
+
+    args = (jnp.asarray(hp, jnp.bfloat16), jnp.asarray(wp, jnp.bfloat16),
+            jnp.asarray(bp))
+    jl, jg = jax.value_and_grad(f, argnums=(0, 1, 2))(*args)
+    jnll, jlse = jce._forward(*args, targets, True)
+    jdh, jdw, jdb = (np.asarray(jnp.asarray(g, jnp.float32)) for g in jg)
+
+    tl, (tdh, tdw, tdb) = _torch_value_and_grads(h, w, b, t, torch.bfloat16)
+    tnll, tlse = tce.fused_ce_fwd_ref(
+        torch.from_numpy(h).to(torch.bfloat16),
+        torch.from_numpy(w).to(torch.bfloat16), torch.from_numpy(b),
+        torch.from_numpy(t))
+    np.testing.assert_allclose(tnll.numpy(), np.asarray(jnll)[:n],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:n, 0],
+                               rtol=1e-5, atol=1e-5)
+    assert tnll[17] == tlse[17]
+    np.testing.assert_allclose(tl, float(jl), rtol=1e-5)
+    for what, got, want in (("dh", tdh, jdh[:n, :d]), ("dw", tdw, jdw[:v, :d]),
+                            ("db", tdb, jdb[:v])):
+        _grad_close(got, want, "bf16", what)
+
+
 def test_no_bias_matches_jax():
     h, w, _, t = _case(seed=1)
     jl, jg = _jax_value_and_grads(h, w, None, t, jnp.float32,
