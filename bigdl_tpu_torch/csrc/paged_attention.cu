@@ -12,7 +12,12 @@
 // where logical key position k of row b lives in physical page
 // table[b, k / S], slot k % S, of the (num_pages, S, KV, D) pools.
 //
-// Design (simple and right first; the fast version is later work):
+// The C entry picks one of two designs by shape alone: a call whose T·G
+// query rows of a kv head fit one tile (T·G <= kSplitRows, every decode
+// step) takes the split-KV decode kernel; every other call (prefill)
+// takes `paged_attention_kernel`.
+//
+// paged_attention_kernel (prefill):
 // - One CTA of 4 warps per (row b, kv head, tile of query rows). The G
 //   query heads that share a kv head fold into the tile's rows (row r is
 //   query column r / G, head r % G), as the TPU kernel folds them into the
@@ -24,20 +29,58 @@
 //   never loaded: a short row in a long table reads only its own pages.
 // - K/V pages are staged in shared memory with cp.async, double buffered,
 //   so the next page's load overlaps this page's arithmetic.
-// - Each warp owns RPW query rows; each lane owns D/32 of the head dims.
+// - Each warp owns 4 query rows; each lane owns D/32 of the head dims.
 //   Scores are f32 dot products finished with warp shuffles; the running
 //   max, sum and accumulator are f32 in registers (online softmax). P·V
 //   takes p rounded to the pool dtype, as the TPU kernel does. Output f32.
-// - The kernel allocates nothing; the Python wrapper allocates `out` and
-//   checks shapes, dtypes, contiguity and alignment.
+// - Prefill (T = the prompt bucket) is bound by operations, and this
+//   kernel does them on the CUDA cores, not the tensor cores.
 //
-// Bound on the H100: decode (T = 1) moves the K/V pages each row needs
-// and does ~4·D flops per key and head, far under the ~295 flops/byte at
-// which the tensor cores would bind, so it is bound by bytes. Its grid of
-// B·KV CTAs (16 at B=8, KV=2) underfills the 132 SMs: splitting the key
-// range across CTAs (split-KV) is the next step. Prefill (T = the prompt
-// bucket) is bound by operations, and this kernel does them on the CUDA
-// cores, not the tensor cores (wgmma and TMA are later work).
+// paged_decode_split_kernel (decode, flash-decoding):
+// - Bound: a decode step does ~4·D operations per key and head, far under
+//   the ~295 operations a byte at which the tensor cores matter, so it is
+//   bound by the bytes of the K/V pages its rows reach — and, at serving
+//   sizes (a few MB), by latency: one CTA per (row, kv head) walking its
+//   pages one at a time leaves most of the 132 SMs idle.
+// - So the key range is cut into splits of `pps` pages, chosen on the
+//   host from host integers alone (ops/paged_attention.py,
+//   decode_split_pages): grid (B·KV, ceil(P / pps)). A CTA whose split
+//   starts past its row's last key (q_start + T - 1) exits at once; the
+//   others read only keys up to that last key.
+// - A CTA reads q_start, its split's page ids and q together, then
+//   issues cp.async loads of every key row of its split (K and V,
+//   one kv head, 16-byte copies) before it waits, when the split fits
+//   shared memory (one stage); a longer split runs in chunks through two
+//   stages, the next chunk in flight while this one is scored. Keys are
+//   staged row by row through the block table, so any page size works
+//   (a chunk may hold part of a page or several pages).
+// - Scores: two threads a key, each half of D (lanes l and l + 16 of a
+//   warp, joined by one shuffle), two keys a thread; a thread reads its
+//   half of each K row once in 16-byte vectors (rows padded by 16 bytes,
+//   so 8 lanes reading 8 rows at one offset hit 8 distinct bank groups)
+//   and forms the dot products of all T·G query rows of the kv head
+//   against it (q in shared memory as f32, read by broadcast). No per-key
+//   warp reduction.
+// - Softmax: one warp per query row takes the chunk's max and sum once a
+//   chunk (online across chunks); p is rounded to the pool dtype before
+//   P·V, masked keys score the finite -1e9, as in the prefill kernel.
+// - P·V: a thread owns one 16-byte slice of D for all rows and a strided
+//   subset of the chunk's keys, so each V vector is read once and feeds
+//   every row; slices are summed over threads once, at the end.
+// - Each CTA writes an f32 partial per (query row, split): running max m,
+//   sum l and the unnormalised accumulator, to a workspace the wrapper
+//   allocates. The last live split CTA of a (row, kv head) to finish —
+//   counted with an atomic counter per (row, kv head), the live splits
+//   counted from q_start on the card — merges the row's partials:
+//   o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, and resets its
+//   counter to 0 for the next call.
+// - The merge runs in the last CTA rather than a second kernel: a separate
+//   merge kernel took 4.7 µs of a 21 µs call at the serving decode shapes
+//   on an H100, plus its launch; the counters are the price: B·KV ints,
+//   zeroed once by the wrapper and left zeroed by every call.
+// - The kernel allocates nothing; the Python wrapper allocates `out`, the
+//   workspace and the counters and checks shapes, dtypes, contiguity and
+//   alignment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +115,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // Stage physical page `page`, kv head `h`, of both pools into smem
@@ -231,38 +277,479 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// Split-KV decode
+
+constexpr int kSplitRows = 16;     // T·G query rows a split CTA holds
+constexpr int kSmemMax = 232448;   // bytes of shared memory one block may use
+
+struct Call {                      // one call's operands and geometry
+  const void *q, *kp, *vp;
+  const int *table, *q_start;
+  float *out, *ws;
+  int* counters;
+  int B, T, H, KV, D, S, P, pps;
+  float scale;
+  cudaStream_t stream;
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// one 16-byte vector of shared memory, widened to f32
+__device__ __forceinline__ void load_vec(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {      // element 2i is the low half of word i
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Shared memory of a split CTA, in bytes (rows = the kernel's ROWS, the
+// query rows past T·G zero): [stage | q (f32) | q as copied (bf16 pools
+// only) | scores | key offsets | m, l, corr, last flag | page ids]. The
+// stage region (nst stages of K and V rows, kc keys each, rows of D·elt
+// + 16 bytes) is reused at the end for the partial accumulators of
+// `red_groups` thread groups; the key offsets (the pool element of each
+// staged row) are kept per stage.
+struct SplitSmem {
+  size_t q, qraw, sc, koff, stats, pages, total;
+};
+__host__ __device__ inline size_t up16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+__host__ __device__ inline SplitSmem split_smem(int rows, int d, int elt,
+                                                int kc, int nst,
+                                                int red_groups, int pps) {
+  const size_t stage = static_cast<size_t>(nst) * 2 * kc * (d * elt + 16);
+  const size_t red = static_cast<size_t>(red_groups) * rows * d * 4;
+  SplitSmem m;
+  m.q = stage > red ? stage : red;
+  m.qraw = m.q + static_cast<size_t>(rows) * d * 4;
+  m.sc = m.qraw + (elt == 4 ? 0 : static_cast<size_t>(rows) * d * elt);
+  m.koff = up16(m.sc + static_cast<size_t>(rows) * kc * 4);
+  m.stats = m.koff + static_cast<size_t>(nst) * kc * 8;
+  m.pages = up16(m.stats + (3ull * rows + 1) * 4);
+  m.total = m.pages + static_cast<size_t>(pps) * 4;
+  return m;
+}
+
 template <typename T, int D>
-int launch_rows(const void* q, const void* kp, const void* vp,
-                const int* table, const int* q_start, float* out, int B,
-                int T_, int H, int KV, int S, int P, float scale,
-                cudaStream_t stream) {
-  // decode tiles hold a handful of rows (T = 1, G heads): one row per
-  // warp; prefill tiles take four rows per warp
-  if (T_ * (H / KV) <= kWarps)
-    return launch<T, D, 1>(q, kp, vp, table, q_start, out, B, T_, H, KV, S,
-                           P, scale, stream);
-  return launch<T, D, 4>(q, kp, vp, table, q_start, out, B, T_, H, KV, S, P,
-                         scale, stream);
+struct SplitShape {
+  static constexpr int kVec = 16 / sizeof(T);     // elements per vector
+  static constexpr int kVpr = D / kVec;           // vectors per K/V row
+  static constexpr int kRowB = D * sizeof(T) + 16;  // padded smem row
+  // P·V: a thread owns one vector slice of D; kKeyGroups threads share it
+  static constexpr int kKeyGroups = kThreads / kVpr;
+  // after the lanes that share a slice are summed by shuffles, one
+  // partial per warp (per key group where a slice spans two warps)
+  static constexpr int kRedSpan = kVpr < 32 ? 32 : kVpr;
+  static constexpr int kRedGroups = kThreads / kRedSpan;
+};
+
+// One CTA per (row b, kv head, split of pps pages). Writes the split's f32
+// partial (m, l, unnormalised acc) per query row; the last live split CTA
+// of a (row, kv head) to finish (counted in `counters`, which it resets to
+// 0 for the next call) merges the row's live partials into `out`.
+template <typename T, int D, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                          const T* __restrict__ vp,
+                          const int* __restrict__ table,
+                          const int* __restrict__ q_start,
+                          float* __restrict__ out, float* part_acc,
+                          float* part_ml, int* counters, int T_, int H,
+                          int KV, int S, int P, int pps, int kc, int nst,
+                          float scale) {
+  using Sh = SplitShape<T, D>;
+  constexpr int kVec = Sh::kVec, kVpr = Sh::kVpr, kRowB = Sh::kRowB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int G = H / KV, R = T_ * G;
+  const int bkv = blockIdx.x, b = bkv / KV, h = bkv % KV;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const SplitSmem lay =
+      split_smem(ROWS, D, sizeof(T), kc, nst, Sh::kRedGroups, pps);
+  unsigned char* const stage = smem_raw;
+  float* const q_s = reinterpret_cast<float*>(smem_raw + lay.q);
+  // q as copied: f32 pools copy straight into q_s
+  T* const q_raw = reinterpret_cast<T*>(smem_raw + (sizeof(T) == 4 ? lay.q
+                                                                   : lay.qraw));
+  float* const sc = reinterpret_cast<float*>(smem_raw + lay.sc);
+  int64_t* const koff = reinterpret_cast<int64_t*>(smem_raw + lay.koff);
+  float* const st_m = reinterpret_cast<float*>(smem_raw + lay.stats);
+  float* const st_l = st_m + ROWS;
+  float* const st_c = st_l + ROWS;
+  int* const last_flag = reinterpret_cast<int*>(st_c + ROWS);
+  int* const pages = reinterpret_cast<int*>(smem_raw + lay.pages);
+
+  // q_start, the split's page ids and the q rows (cp.async, one 16-byte
+  // vector a thread): loads issued together, before the row's length is
+  // known; the rows past R are zeros, so the row loops need no bound
+  const int qs = q_start[b];
+  const int p0 = split * pps, n_pages = min(pps, P - p0);
+  for (int i = tid; i < n_pages; i += kThreads)
+    pages[i] = table[static_cast<int64_t>(b) * P + p0 + i];
+  for (int i = tid; i < ROWS * kVpr; i += kThreads) {
+    const int r = i / kVpr, v = i % kVpr;
+    T* const dst = q_raw + r * D + v * kVec;
+    if (r < R) {
+      const int t = r / G, head = h * G + r % G;
+      cp_async16(dst, q + ((static_cast<int64_t>(b) * T_ + t) * H + head) *
+                              D + v * kVec);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  cp_async_commit();
+  const int last = qs + T_ - 1;                 // last key any row attends
+  const int k_begin = p0 * S;
+  if (k_begin > last) {                         // split wholly past the row
+    cp_async_wait_all();
+    return;
+  }
+  const int k_end = min(min(k_begin + pps * S, last + 1), P * S);
+  const int n_chunks = (k_end - k_begin + kc - 1) / kc;
+  if (tid < ROWS) {
+    st_m[tid] = -INFINITY;
+    st_l[tid] = 0.f;
+    st_c[tid] = 0.f;
+  }
+  __syncthreads();                              // pages
+
+  // issue cp.async copies of the K and V rows of chunk c into stage st
+  // (stage st's offsets were last read before the previous chunk's syncs)
+  auto load_chunk = [&](int c, int st) {
+    const int k0 = c * kc;                      // relative to k_begin
+    const int n = min(kc, k_end - k_begin - k0);
+    int64_t* const off = koff + static_cast<size_t>(st) * kc;
+    for (int k = tid; k < n; k += kThreads) {
+      const int rel = k0 + k;
+      off[k] = ((static_cast<int64_t>(pages[rel / S]) * S + rel % S) * KV +
+                h) * D;
+    }
+    __syncthreads();
+    unsigned char* const ks = stage + static_cast<size_t>(st) * 2 * kc * kRowB;
+    unsigned char* const vs = ks + static_cast<size_t>(kc) * kRowB;
+    for (int i = tid; i < n * kVpr; i += kThreads) {
+      const int k = i / kVpr, v = i % kVpr;
+      const int64_t g = off[k] + v * kVec;
+      cp_async16(ks + k * kRowB + v * 16, kp + g);
+      cp_async16(vs + k * kRowB + v * 16, vp + g);
+    }
+  };
+  load_chunk(0, 0);
+  cp_async_commit();
+
+  float acc[ROWS][kVec];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[r][i] = 0.f;
+  const int slice = tid % kVpr, kg = tid / kVpr;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    // nst == 1 only when the whole split is one chunk
+    if (c + 1 < n_chunks) load_chunk(c + 1, (c + 1) % nst);
+    cp_async_commit();
+    cp_async_wait_prev();                        // chunk c has landed
+    __syncthreads();
+    const int k0 = k_begin + c * kc;
+    const int n = min(kc, k_end - k0);
+    const unsigned char* const ks =
+        stage + static_cast<size_t>(c % nst) * 2 * kc * kRowB;
+    const unsigned char* const vs = ks + static_cast<size_t>(kc) * kRowB;
+
+    if (sizeof(T) == 2 && c == 0) {     // q rows to f32, once
+      for (int e = tid; e < ROWS * D; e += kThreads) q_s[e] = to_f32(q_raw[e]);
+      __syncthreads();
+    }
+
+    // scores: two threads a key (lanes l and l + 16 of a warp take the
+    // two halves of D, one shuffle joins them) and two keys a thread (64
+    // apart), so each q vector read from shared memory feeds both keys;
+    // every query row from one read of each K vector; rows past R score 0
+    // and are never read as p
+    for (int kb = 0; kb < n; kb += kThreads) {
+      const int ka = kb + warp * 16 + lane % 16, kz = ka + kThreads / 2;
+      const int half = lane / 16;
+      const bool oka = ka < n, okz = kz < n;
+      float sa[ROWS], sz[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) sa[r] = sz[r] = 0.f;
+      const int hoff = half * (kVpr / 2) * 16;
+      const unsigned char* const kra = ks + (oka ? ka : 0) * kRowB + hoff;
+      const unsigned char* const krz = ks + (okz ? kz : 0) * kRowB + hoff;
+      const float* const qh = q_s + half * (D / 2);
+      // unrolled whole where registers allow, so loads run ahead of FMAs
+      constexpr int kScoreUnroll = ROWS <= 4 ? kVpr / 2 : 2;
+#pragma unroll (kScoreUnroll)
+      for (int v = 0; v < kVpr / 2; ++v) {
+        float fa[kVec], fz[kVec];
+        load_vec(reinterpret_cast<const T*>(kra + v * 16), fa);
+        load_vec(reinterpret_cast<const T*>(krz + v * 16), fz);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float* const qr = qh + r * D + v * kVec;
+#pragma unroll
+          for (int e = 0; e < kVec; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+            sa[r] = fmaf(qv.x, fa[e], sa[r]);
+            sz[r] = fmaf(qv.x, fz[e], sz[r]);
+            sa[r] = fmaf(qv.y, fa[e + 1], sa[r]);
+            sz[r] = fmaf(qv.y, fz[e + 1], sz[r]);
+            sa[r] = fmaf(qv.z, fa[e + 2], sa[r]);
+            sz[r] = fmaf(qv.z, fz[e + 2], sz[r]);
+            sa[r] = fmaf(qv.w, fa[e + 3], sa[r]);
+            sz[r] = fmaf(qv.w, fz[e + 3], sz[r]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float a = sa[r] + __shfl_xor_sync(0xffffffffu, sa[r], 16);
+        const float z = sz[r] + __shfl_xor_sync(0xffffffffu, sz[r], 16);
+        if (half == 0) {
+          const int last_r = qs + r / G;
+          if (oka) sc[r * kc + ka] = k0 + ka > last_r ? kMask : a * scale;
+          if (okz) sc[r * kc + kz] = k0 + kz > last_r ? kMask : z * scale;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax, once a chunk: one warp per query row
+    for (int r = warp; r < R; r += kWarps) {
+      float* const row = sc + r * kc;
+      float cm = -INFINITY;
+      for (int k = lane; k < n; k += 32) cm = fmaxf(cm, row[k]);
+      cm = warp_max(cm);
+      const float m_old = st_m[r];
+      const float m_new = fmaxf(m_old, cm);
+      float ps = 0.f;
+      for (int k = lane; k < n; k += 32) {
+        const float p = expf(row[k] - m_new);
+        ps += p;
+        row[k] = round_as(p, T{});     // P·V takes p in the pool dtype
+      }
+      ps = warp_sum(ps);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        st_c[r] = corr;
+        st_l[r] = st_l[r] * corr + ps;
+        st_m[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P·V: one V vector read feeds every query row
+    // (rows past R accumulate scores, not p; they are never written)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float corr = st_c[r];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[r][i] *= corr;
+    }
+#pragma unroll 4
+    for (int k = kg; k < n; k += Sh::kKeyGroups) {
+      float vf[kVec];
+      load_vec(reinterpret_cast<const T*>(vs + k * kRowB + slice * 16), vf);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float p = sc[r * kc + k];
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i]);
+      }
+    }
+    __syncthreads();                   // the stage and scores are refilled
+  }
+
+  // sum the slices' partials: lanes that share a slice, then groups
+#pragma unroll
+  for (int o = kVpr; o < 32; o <<= 1)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], o);
+  float* const red = reinterpret_cast<float*>(stage);  // no copy in flight
+  if (tid % Sh::kRedSpan < kVpr) {
+    const int grp = tid / Sh::kRedSpan;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= R) break;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        red[(grp * R + r) * D + slice * kVec + i] = acc[r][i];
+    }
+  }
+  __syncthreads();
+  const int64_t base = static_cast<int64_t>(bkv) * n_split;
+  const int64_t pbase = (base + split) * R;
+  for (int e = tid; e < R * D; e += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int g = 0; g < Sh::kRedGroups; ++g) a += red[g * R * D + e];
+    part_acc[pbase * D + e] = a;
+  }
+  if (tid < R) {
+    part_ml[(pbase + tid) * 2] = st_m[tid];
+    part_ml[(pbase + tid) * 2 + 1] = st_l[tid];
+  }
+
+  // the last live split of (b, h) to get here merges: thread 0's
+  // acquire-release add orders every thread's partial stores (before the
+  // barrier) ahead of it, and the other CTAs' stores ahead of the loads
+  // below (after the barrier), as CUTLASS's barriers do
+  const int n_live = min(n_split, last / (pps * S) + 1);
+  __syncthreads();
+  if (tid == 0) {
+    int done;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(done) : "l"(counters + bkv) : "memory");
+    *last_flag = done == n_live - 1;
+    if (*last_flag) counters[bkv] = 0;   // every live split has counted
+  }
+  __syncthreads();
+  if (!*last_flag) return;
+
+  // o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s: one warp per
+  // query row, lanes over splits for M and the sum, then over D; the
+  // partials are read from L2 (__ldcg), where the other CTAs wrote them,
+  // in batches of splits whose loads are all issued before they are used
+  // (the first batch together with (m, l))
+  constexpr int kDpl = D / 32;
+  constexpr int kBatch = kDpl <= 4 ? 16 : 8;
+  for (int r = warp; r < R; r += kWarps) {
+    const float* const ml = part_ml + (base * R + r) * 2;   // split s: s·2R
+    auto load_batch = [&](int j0, float (&av)[kBatch][kDpl]) {
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj) {
+        const int j = j0 + jj < n_live ? j0 + jj : 0;   // past: weight 0
+        const float* const a = part_acc + ((base + j) * R + r) * D;
+#pragma unroll
+        for (int i = 0; i < kDpl; ++i) av[jj][i] = __ldcg(a + lane + 32 * i);
+      }
+    };
+    float av[kBatch][kDpl];
+    load_batch(0, av);
+    // lane s holds (m, l) of split s; splits past 32 are read again below
+    const float m_lane = lane < n_live ? __ldcg(ml + lane * 2 * R) : -INFINITY;
+    const float l_lane = lane < n_live ? __ldcg(ml + lane * 2 * R + 1) : 0.f;
+    float m_all = m_lane;
+    for (int s = lane + 32; s < n_live; s += 32)
+      m_all = fmaxf(m_all, __ldcg(ml + s * 2 * R));
+    m_all = warp_max(m_all);
+    float l_all = lane < n_live ? expf(m_lane - m_all) * l_lane : 0.f;
+    for (int s = lane + 32; s < n_live; s += 32)
+      l_all += expf(__ldcg(ml + s * 2 * R) - m_all) * __ldcg(ml + s * 2 * R + 1);
+    l_all = warp_sum(l_all);
+    float o[kDpl];
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) o[i] = 0.f;
+    for (int j0 = 0; j0 < n_live; j0 += kBatch) {
+      if (j0 > 0) load_batch(j0, av);
+      // lane jj < kBatch: the weight of split j0 + jj, its max from the
+      // lane that holds it (the first 32 splits) or from L2
+      const float m_held = __shfl_sync(0xffffffffu, m_lane, (j0 + lane) % 32);
+      const bool live = j0 + lane < n_live;
+      const float m_j = j0 < 32 ? m_held
+                        : live  ? __ldcg(ml + (j0 + lane) * 2 * R)
+                                : -INFINITY;
+      const float w_lane = live ? expf(m_j - m_all) : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kBatch; ++jj) {
+        const float w = __shfl_sync(0xffffffffu, w_lane, jj);
+#pragma unroll
+        for (int i = 0; i < kDpl; ++i) o[i] = fmaf(w, av[jj][i], o[i]);
+      }
+    }
+    const int t = r / G, head = h * G + r % G;
+    float* const dst = out + ((static_cast<int64_t>(b) * T_ + t) * H + head) * D;
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) dst[lane + 32 * i] = o[i] / l_all;
+  }
+}
+
+template <typename T, int D, int ROWS>
+int launch_split(const Call& a) {
+  using Sh = SplitShape<T, D>;
+  const int R = a.T * (a.H / a.KV);
+  const int n_split = (a.P + a.pps - 1) / a.pps;
+  const int split_keys = a.pps * a.S;
+  auto bytes = [&](int kc, int nst) {
+    return split_smem(ROWS, D, sizeof(T), kc, nst, Sh::kRedGroups, a.pps)
+        .total;
+  };
+  // one stage holding the whole split where it fits, else two stages of
+  // the most keys that fit (at most half the split)
+  int nst = 1, kc = split_keys;
+  if (bytes(kc, 1) > kSmemMax) {
+    nst = 2;
+    kc = (split_keys + 1) / 2;
+    while (kc > 1 && bytes(kc, 2) > kSmemMax) kc = kc * 7 / 8;
+  }
+  const size_t smem = bytes(kc, nst);
+  if (smem > kSmemMax) return -4;      // pps too large for the page ids
+  float* const part_acc = a.ws;
+  float* const part_ml =
+      a.ws + static_cast<size_t>(a.B) * a.KV * n_split * R * D;
+  auto split = paged_decode_split_kernel<T, D, ROWS>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  split<<<dim3(a.B * a.KV, n_split), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
+      static_cast<const T*>(a.vp), a.table, a.q_start, a.out, part_acc,
+      part_ml, a.counters, a.T, a.H, a.KV, a.S, a.P, a.pps, kc, nst,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_call(const Call& a) {
+  const int rows = a.T * (a.H / a.KV);
+  if (rows <= kSplitRows) {
+    if (a.ws == nullptr || a.counters == nullptr || a.pps < 1) return -3;
+    return rows <= 4 ? launch_split<T, D, 4>(a) : launch_split<T, D, 16>(a);
+  }
+  return launch<T, D, 4>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
+                         a.T, a.H, a.KV, a.S, a.P, a.scale, a.stream);
 }
 
 template <typename T>
-int launch_dims(const void* q, const void* kp, const void* vp,
-                const int* table, const int* q_start, float* out, int B,
-                int T_, int H, int KV, int D, int S, int P, float scale,
-                cudaStream_t stream) {
-  switch (D) {
+int launch_dims(const Call& a) {
+  switch (a.D) {
     case 32:
-      return launch_rows<T, 32>(q, kp, vp, table, q_start, out, B, T_, H,
-                                KV, S, P, scale, stream);
+      return launch_call<T, 32>(a);
     case 64:
-      return launch_rows<T, 64>(q, kp, vp, table, q_start, out, B, T_, H,
-                                KV, S, P, scale, stream);
+      return launch_call<T, 64>(a);
     case 128:
-      return launch_rows<T, 128>(q, kp, vp, table, q_start, out, B, T_, H,
-                                 KV, S, P, scale, stream);
+      return launch_call<T, 128>(a);
     case 256:
-      return launch_rows<T, 256>(q, kp, vp, table, q_start, out, B, T_, H,
-                                 KV, S, P, scale, stream);
+      return launch_call<T, 256>(a);
     default:
       return -1;
   }
@@ -270,21 +757,26 @@ int launch_dims(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32 pools, 1 = bfloat16 pools. Returns 0 on a clean
-// launch, -1 for a head dim the kernel was not built for, else the CUDA
-// error code of the launch.
+// dtype: 0 = float32 pools, 1 = bfloat16 pools. A call with T·G <= 16
+// query rows per kv head takes the split-KV decode kernel, with `ws` an
+// f32 workspace of B·KV·ceil(P/pps)·T·G·(D + 2) elements, `counters` B·KV
+// ints that are 0 (the kernel leaves them 0) and `pps` pages per split;
+// any other call takes the row-tile kernel (ws, counters and pps unused).
+// Returns 0 on a clean launch, -1 for a head dim the kernels were not
+// built for, -2 for another dtype, -3 for a split call without a
+// workspace, counters or pages per split, -4 for a split whose page ids
+// do not fit shared memory, else the CUDA error code of the launch.
 extern "C" int bigdl_paged_attention(int dtype, const void* q,
                                      const void* kp, const void* vp,
                                      const int* table, const int* q_start,
-                                     float* out, int B, int T, int H, int KV,
-                                     int D, int S, int P, float scale,
+                                     float* out, float* ws, int* counters,
+                                     int B, int T, int H, int KV, int D,
+                                     int S, int P, int pps, float scale,
                                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dims<float>(q, kp, vp, table, q_start, out, B, T, H, KV, D,
-                              S, P, scale, st);
-  if (dtype == 1)
-    return launch_dims<__nv_bfloat16>(q, kp, vp, table, q_start, out, B, T,
-                                      H, KV, D, S, P, scale, st);
+  const Call a{q,  kp, vp, table, q_start, out, ws,  counters, B,
+               T,  H,  KV, D,     S,       P,   pps, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_dims<float>(a);
+  if (dtype == 1) return launch_dims<__nv_bfloat16>(a);
   return -2;
 }

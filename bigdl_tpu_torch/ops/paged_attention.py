@@ -1,20 +1,30 @@
 """Paged attention: grouped causal attention of q straight off the KV
 page pool (counterpart of ``bigdl_tpu/ops/pallas/paged_attention.py``).
 
-``paged_attention`` walks each row's block table page by page with an
-online softmax — on a CUDA tensor through the hand-written Hopper kernel
+``paged_attention`` walks each row's block table with an online softmax
+— on a CUDA tensor through the hand-written Hopper kernels of
 ``csrc/paged_attention.cu`` (built at first use, see ``_build.py``), on a
 CPU tensor through ``paged_attention_ref``, its plain PyTorch version:
 the ``_paged_view`` gather of every row's pages into a dense cache
 followed by ``_attend_grouped``. The choice follows the tensor's device
 alone; on a CUDA tensor the wrapper launches the kernel or raises.
 
+On the card the C entry picks the kernel by shape: a call whose T·G query
+rows per kv head fit one tile (T·G <= 16: every decode step) runs the
+split-KV decode kernel — the key range cut into splits of
+``decode_split_pages`` pages, one CTA per (row, kv head, split) writing an
+f32 partial (max, sum, accumulator) to a workspace allocated here, the
+last CTA of each (row, kv head) merging them; ``paged_attention_split_ref``
+is its plain version. Every other call (prefill) runs the row-tile
+kernel.
+
 ``dense_cache_attention`` serves a dense per-row (B, M, KV, D) cache
 through the same kernel: the cache is a pool of ``M // S`` contiguous
 pages per row with an identity block table (a reshape, not a copy).
 
-``launches`` counts kernel launches, so a run can show its main path
-went through the kernel.
+``launches`` counts wrapper calls that launched a kernel, so a run can
+show its main path went through the kernel; ``split_launches`` counts the
+calls among them that ran the split-KV decode kernel.
 """
 from __future__ import annotations
 
@@ -24,16 +34,27 @@ import functools
 import torch
 
 __all__ = ["paged_attention", "paged_attention_ref",
+           "paged_attention_split_ref", "decode_split_pages",
            "dense_cache_attention", "dense_cache_page_size",
-           "paged_kernel_supported", "launches"]
+           "paged_kernel_supported", "launches", "split_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
 _HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+#: query rows (T·G) per kv head up to which the C entry takes the split-KV
+#: decode kernel (kSplitRows in csrc/paged_attention.cu)
+_SPLIT_ROWS = 16
+_SPLIT_MAX_PAGES = 4096
 
-#: kernel launches since import (reset by assigning 0)
+#: wrapper calls that launched a kernel since import (reset by assigning 0)
 launches = 0
+#: calls that ran the split-KV decode kernel, among ``launches``
+split_launches = 0
+#: per (CUDA device, stream): int32 counters, one per (row, kv head),
+#: that the split-KV kernel needs zeroed and leaves zeroed (a stream's
+#: calls run in order, so they can share them)
+_counters: dict = {}
 
 
 def paged_kernel_supported(head_dim: int, page_size: int, dtype) -> bool:
@@ -86,14 +107,73 @@ def paged_attention_ref(q, kp, vp, table, q_start, *, scale=None):
                            upto, q.shape[2], scale)
 
 
+def paged_attention_split_ref(q, kp, vp, table, q_start, *,
+                              pages_per_split, scale=None):
+    """Plain PyTorch version of the split-KV decode kernels (same
+    arguments as :func:`paged_attention`, same result up to where p is
+    rounded): the key range is cut into splits of ``pages_per_split``
+    pages; each split live for a row (starting at or before its last key
+    ``q_start + T - 1``) gives per query row its max m_s over the split's
+    scores (masked keys at -1e9, keys past the last unread), the sum l_s
+    of p = exp(score - m_s) and acc_s = p rounded to the pool dtype · V;
+    then o = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the live
+    splits. For the tests and ``chip_smoke.py``; no path calls it."""
+    b, t, h, d = q.shape
+    s_, kv = kp.shape[1], kp.shape[2]
+    g = h // kv
+    scale = d ** -0.5 if scale is None else scale
+    width = pages_per_split * s_
+    n_split = -(-table.shape[1] // pages_per_split)
+    ck, cv = _paged_view(kp, table), _paged_view(vp, table)
+    pad = n_split * width - ck.shape[1]
+    ck = torch.nn.functional.pad(ck, (0, 0, 0, 0, 0, pad))
+    cv = torch.nn.functional.pad(cv, (0, 0, 0, 0, 0, pad))
+    qs = q_start.long()
+    kpos = torch.arange(n_split * width, device=q.device)
+    upto = qs[:, None] + torch.arange(t, device=q.device)[None, :]
+    qg = q.reshape(b, t, kv, g, d).to(kp.dtype)
+    sc = torch.einsum("btkgd,bmkd->bkgtm", qg.float(), ck.float()) * scale
+    sc = torch.where(kpos > upto[:, None, None, :, None], _NEG, sc)
+    read = kpos[None, :] <= (qs + t - 1)[:, None]        # keys a CTA reads
+    sc = torch.where(read[:, None, None, None, :], sc, -torch.inf)
+    sc = sc.reshape(b, kv, g, t, n_split, width)
+    m = sc.amax(-1)                                      # -inf: dead split
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(sc - m_safe[..., None])
+    l_ = p.sum(-1)
+    acc = torch.einsum("bkgtsw,bswkd->bkgtsd", p.to(kp.dtype).float(),
+                       cv.reshape(b, n_split, width, kv, d).float())
+    e = torch.exp(m - m.amax(-1, keepdim=True))          # 0 for dead splits
+    o = (e[..., None] * acc).sum(-2) / (e * l_).sum(-1)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+
+
+def decode_split_pages(b: int, kv: int, p: int, sms: int) -> int:
+    """Pages per split of the split-KV decode kernel for ``b`` rows, ``kv``
+    kv heads, ``p`` block-table entries a row, on a card of ``sms`` SMs:
+    as many splits as give two CTAs an SM were every row's table full,
+    at most one a page, and at most ``_SPLIT_MAX_PAGES`` pages a split
+    (their ids are staged in shared memory). Host integers only: the
+    kernel never has the lengths (``q_start``, on the card) read back to
+    choose it."""
+    n_split = max(1, min(p, -(-2 * sms // (b * kv))),
+                  -(-p // _SPLIT_MAX_PAGES))
+    return -(-p // n_split)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _kernel_fn():
     """The C entry of csrc/paged_attention.cu, built at first use."""
     from bigdl_tpu_torch.ops._build import load_library
     fn = load_library("paged_attention.cu").bigdl_paged_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
@@ -110,10 +190,12 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     q is cast to their dtype); ``table``: (B, P) physical page ids, every
     entry a legal pool index; ``q_start``: (B,) absolute position of each
     row's first query column — column t attends key positions <=
-    q_start + t. Returns (B, T, H, D) float32."""
+    q_start + t. Returns (B, T, H, D) float32. On the card a call with
+    T·G <= 16 query rows per kv head runs the split-KV decode kernels
+    (split count from shapes alone), any other the row-tile kernel."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
-    global launches
+    global launches, split_launches
     b, t, h, d = q.shape
     _, s, kv, _ = kp.shape
     _check(q.is_cuda and all(x.device == q.device
@@ -140,19 +222,36 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     scale = d ** -0.5 if scale is None else scale
     fn = _kernel_fn()
     qc = q.to(kp.dtype).contiguous()
+    if qc.data_ptr() % 16:          # the kernels copy q in 16-byte vectors
+        qc = qc.clone()
     table = table.to(torch.int32).contiguous()
     q_start = q_start.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    p = table.shape[1]
+    rows = t * (h // kv)
+    split = rows <= _SPLIT_ROWS
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pps, ws, counters = 0, None, None
+    if split:     # f32 (max, sum, accumulator) per (row, kv head, split)
+        pps = decode_split_pages(b, kv, p, _sm_count(q.device.index))
+        ws = torch.empty(b * kv * -(-p // pps) * rows * (d + 2),
+                         dtype=torch.float32, device=q.device)
+        counters = _counters.get((q.device, stream))
+        if counters is None or counters.numel() < b * kv:
+            counters = torch.zeros(b * kv, dtype=torch.int32,
+                                   device=q.device)
+            _counters[(q.device, stream)] = counters
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODES[kp.dtype], qc.data_ptr(), kp.data_ptr(),
                  vp.data_ptr(), table.data_ptr(), q_start.data_ptr(),
-                 out.data_ptr(), b, t, h, kv, d, s, table.shape[1],
-                 float(scale), stream)
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr(),
+                 b, t, h, kv, d, s, p, pps, float(scale), stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(code {err})")
     launches += 1
+    split_launches += split
     return out
 
 

@@ -230,7 +230,8 @@ def _card() -> str:
 def _print_ptxas(report: str) -> None:
     """Registers and spills of each kernel instantiation, from the
     compiler's ``-Xptxas=-v`` report (kernel, type, head dim and, for
-    paged attention, rows per warp; of the LRN kernels' 72
+    paged attention, rows per warp of the prefill kernel and query rows
+    of the split-KV decode kernel; of the LRN kernels' 72
     instantiations, the path's window of 5 with 4-wide vectors), then
     the most registers and the spilling instantiations of the file."""
     name = None
@@ -253,7 +254,14 @@ def _print_ptxas(report: str) -> None:
                        r"Li(\d+)ELi(\d+)E", line)
         mp = re.search(r"entry function '\S*?(maxpool3x3s1_bwd)_kernelI(\w+?)"
                        r"E", line)
-        if t:
+        ps = re.search(r"entry function '\S*?paged_decode_split_kernelI"
+                       r"(\w+?)Li(\d+)ELi(\d+)E", line)
+        if ps:
+            dt, d, rows = ps.groups()
+            name = (f"paged_decode_split "
+                    f"{'bf16' if 'bfloat16' in dt else 'f32'} D={d} "
+                    f"rows<={rows}")
+        elif t:
             name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
         elif lr:
             # the path's instantiations: window 5, 4-wide vectors
@@ -329,15 +337,20 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str) -> dict:
 
 
 def _time_ms(fn, iters=20):
-    """Median device time of ``fn`` over ``iters`` runs, each after an
-    L2 flush (the serving path reaches every K/V page cold), from CUDA
-    events around the call alone."""
+    """Median device time of ``fn`` over ``iters`` runs, after three to
+    warm, each after an L2 flush (the serving path reaches every K/V
+    page cold), from CUDA events around the call alone. A spin of about
+    0.2 ms on the card follows each flush, so the host has enqueued the
+    call before its start event is reached: a call of a few µs of device
+    time would otherwise read the host's time to enqueue it."""
     flush = torch.empty(_FLUSH_BYTES, dtype=torch.uint8, device=_DEV)
-    fn()
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(400_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -348,10 +361,13 @@ def _time_ms(fn, iters=20):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def _paged_case(b, t, q_start, n_alloc, p, dtype, gen):
+def _paged_case(b, t, q_start, n_alloc, p, dtype, gen, h=_H, kv=_KV, d=_D,
+                s=_S):
     """Random pools and a block table like the batcher's: row i owns
     ``n_alloc[i]`` distinct pages in random order, the rest of its ``p``
-    table entries point at a scratch page (the pool's last)."""
+    table entries point at a scratch page (the pool's last); the serving
+    heads unless ``h``, ``kv``, ``d`` and the page size ``s`` say
+    otherwise."""
     n_pages = int(sum(n_alloc)) + 1
     perm = torch.randperm(n_pages - 1, generator=gen).tolist()
     table = torch.full((b, p), n_pages - 1, dtype=torch.int32)
@@ -359,10 +375,10 @@ def _paged_case(b, t, q_start, n_alloc, p, dtype, gen):
     for i, n in enumerate(n_alloc):
         table[i, :n] = torch.tensor(perm[at:at + n], dtype=torch.int32)
         at += n
-    shape = (n_pages, _S, _KV, _D)
+    shape = (n_pages, s, kv, d)
     kp = torch.randn(shape, generator=gen).to(dtype)
     vp = torch.randn(shape, generator=gen).to(dtype)
-    q = torch.randn((b, t, _H, _D), generator=gen).to(dtype)
+    q = torch.randn((b, t, h, d), generator=gen).to(dtype)
     return (q.to(_DEV), kp.to(_DEV), vp.to(_DEV), table.to(_DEV),
             torch.tensor(q_start, dtype=torch.int32, device=_DEV))
 
@@ -400,10 +416,146 @@ def _library_ms(q, kp, vp, table, q_start, pa):
         qq, kk, vv, attn_mask=mask))
 
 
+def _library_gather_ms(q, kp, vp, table, q_start, pa):
+    """The same function in library calls, the block-table gather
+    included: ``_paged_view`` + ``repeat_interleave`` + SDPA, all inside
+    the timed call (timed here only; the port never calls it)."""
+    import torch.nn.functional as F
+    b, t, h, d = q.shape
+    g = h // kp.shape[2]
+    qq = q.transpose(1, 2).contiguous()
+    kpos = torch.arange(table.shape[1] * kp.shape[1], device=q.device)
+    upto = q_start.long()[:, None] + torch.arange(t, device=q.device)
+    mask = (kpos[None, None, :] <= upto[:, :, None])[:, None]
+
+    def call():
+        ck = pa._paged_view(kp, table).repeat_interleave(g, dim=2)
+        cv = pa._paged_view(vp, table).repeat_interleave(g, dim=2)
+        return F.scaled_dot_product_attention(
+            qq, ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask)
+    return _time_ms(call)
+
+
+def _split_breakdown(pa, args, card):
+    """Device µs a call of the split-KV decode kernel alone under
+    ``torch.profiler`` over 20 calls, L2 flushed before each (``ms``
+    adds the launch between CUDA events); and the call's time with
+    splits of other widths (CUDA events, as ``ms``),
+    ``decode_split_pages`` swapped inside this function."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(_FLUSH_BYTES, dtype=torch.uint8, device=_DEV)
+    pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            flush.zero_()
+            pa.paged_attention(*args)
+        torch.cuda.synchronize()
+    kinds, _ = _device_ms(prof, 20, lambda n: (
+        "split" if "decode_split" in n else "other"))
+    widths = {}
+    chosen = pa.decode_split_pages
+    try:
+        for pps in (2, 4, 8, 16, 32):
+            pa.decode_split_pages = lambda *_, n=pps: n
+            widths[pps] = _time_ms(lambda: pa.paged_attention(*args))
+    finally:
+        pa.decode_split_pages = chosen
+    row = dict(kernel_us=kinds.get("split", 0.0) * 1e3,
+               ms_by_pages_per_split=widths)
+    print(f"[kernels] paged_attention[decode] split-KV breakdown, card="
+          f"'{card}': " + json.dumps(row), flush=True)
+    return row
+
+
+#: small geometries that reach every other instantiation of the split-KV
+#: decode kernel, held against both plain versions (no timing): (label,
+#: B, T, H, KV, D, page size, table entries, pool dtype, last key of each
+#: row); T·G <= 16 in each, so each takes the split-KV kernel
+_DECODE_GEOMETRIES = (
+    ("mha-d32", 4, 1, 8, 8, 32, 16, 20, torch.bfloat16, [0, 15, 16, 319]),
+    ("mqa-g8-d64", 3, 1, 8, 1, 64, 32, 9, torch.float32, [5, 100, 287]),
+    ("d256", 3, 1, 4, 2, 256, 16, 12, torch.bfloat16, [0, 64, 191]),
+    ("t2-g8-d256-f32", 2, 2, 16, 2, 256, 16, 10, torch.float32, [3, 158]),
+    ("t2-g4-d128", 4, 2, 8, 2, 128, 16, 30, torch.bfloat16,
+     [1, 127, 128, 478]),
+    ("page7-d64", 5, 1, 8, 2, 64, 7, 30, torch.bfloat16,
+     [0, 6, 7, 100, 209]),
+    # 64 rows x 8 kv heads fill the card without splitting: one split of
+    # 40 pages (640 keys) a row, staged in chunks (two stages)
+    ("one-split-chunks-f32", 64, 1, 8, 8, 128, 16, 40, torch.float32,
+     [int(x) for x in np.linspace(0, 639, 64)]),
+    ("one-split-chunks", 64, 1, 8, 8, 128, 16, 40, torch.bfloat16,
+     [int(x) for x in np.linspace(639, 0, 64)]),
+)
+
+
+def _decode_geometries(pa, gen):
+    """Every row of ``_DECODE_GEOMETRIES``: the split-KV kernel against
+    ``paged_attention_split_ref`` and ``paged_attention_ref``, the split
+    plain version against the other, each within ``_PAGED_TOL``;
+    returns the kernel's largest error against ``paged_attention_ref``
+    and the worst error / limit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err_all, worst_all, rows = 0.0, 0.0, {}
+    for label, b, t, h, kv, d, s, p, dtype, last in _DECODE_GEOMETRIES:
+        starts = [x - t + 1 if x >= t - 1 else 0 for x in last]
+        q, kp, vp, table, qs = _paged_case(
+            b, t, starts, [min(p, (x + t) // s + 1) for x in starts], p,
+            dtype, gen, h=h, kv=kv, d=d, s=s)
+        splits = pa.split_launches
+        got = pa.paged_attention(q, kp, vp, table, qs)
+        torch.cuda.synchronize()
+        if pa.split_launches - splits != 1:
+            raise AssertionError(f"decode geometry {label} did not take the "
+                                 f"split-KV kernel")
+        pps = pa.decode_split_pages(b, kv, p, sms)
+        want = pa.paged_attention_ref(q, kp, vp, table, qs)
+        want_split = pa.paged_attention_split_ref(q, kp, vp, table, qs,
+                                                  pages_per_split=pps)
+        tol = _PAGED_TOL[dtype]
+        err, worst = _paged_check(f"decode geometry {label}", got, want, tol)
+        worst = max(worst,
+                    _paged_check(f"decode geometry {label} vs split plain",
+                                 got, want_split, tol)[1],
+                    _paged_check(f"decode geometry {label}: split plain vs "
+                                 f"plain", want_split, want, tol)[1])
+        rows[label] = dict(pages_per_split=pps, max_abs_err=err,
+                           worst_err_over_limit=worst)
+        err_all, worst_all = max(err_all, err), max(worst_all, worst)
+    print("[kernels] split-KV decode at other geometries (kernel vs both "
+          "plain versions, split plain vs plain): " + json.dumps(rows),
+          flush=True)
+    return err_all, worst_all
+
+
+def _warm_card(seconds=0.5):
+    """Keep the card busy for ``seconds`` before the first timing, so
+    the clocks have left the idle state the builds leave it in."""
+    x = torch.randn((4096, 4096), device=_DEV).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            x = (x @ x).clamp_(-1, 1)
+        torch.cuda.synchronize()
+
+
 def phase_kernels(pa, gen):
-    """Kernel vs plain on the card at the serving path's shapes."""
+    """Kernel vs plain on the card at the serving path's shapes. Decode
+    calls (T·G <= 16) run the split-KV kernel: each is held against
+    both plain versions, and the split plain version against the
+    other."""
     decode_len = [16, 47, 128, 300, 511, 767, 1024, 1100]
     p_slot = -(-(2048 - 64 + 64 + 8) // _S)        # the batcher's table
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pps = pa.decode_split_pages(8, _KV, p_slot, sms)
+    width = pps * _S
+    # rows whose lengths sit one below, on and one above split boundaries
+    edge_len = [width - 1, width, width + 1, 4 * width - 1, 4 * width,
+                4 * width + 1, 8 * width, 8 * width + 1]
+    # the longest rows the batcher admits (max_len 2048)
+    long_len = np.linspace(1985, 2048, 8).round().astype(int).tolist()
     cases = {
         # T=1 decode: query at position L-1 attends L keys; rows end on
         # a page boundary (16, 128, 1024) or mid-page
@@ -418,26 +570,69 @@ def phase_kernels(pa, gen):
         "decode_f32": _paged_case(8, 1, [n - 1 for n in decode_len],
                                   [-(-n // _S) for n in decode_len],
                                   p_slot, torch.float32, gen),
+        "decode_edges": _paged_case(8, 1, [n - 1 for n in edge_len],
+                                    [-(-n // _S) for n in edge_len],
+                                    p_slot, torch.bfloat16, gen),
+        "decode_long": _paged_case(8, 1, [n - 1 for n in long_len],
+                                   [-(-n // _S) for n in long_len],
+                                   p_slot, torch.bfloat16, gen),
     }
     results = {}
+    _warm_card()
     for name, (q, kp, vp, table, qs) in cases.items():
+        launches, splits = pa.launches, pa.split_launches
         got = pa.paged_attention(q, kp, vp, table, qs)
         torch.cuda.synchronize()
+        split = pa.split_launches - splits == 1
+        if pa.launches - launches != 1 or split != name.startswith("decode"):
+            raise AssertionError(f"paged_attention[{name}] did not take the "
+                                 f"{'split-KV' if split else 'row-tile'} "
+                                 f"kernel its shape calls for")
         want = pa.paged_attention_ref(q, kp, vp, table, qs)
         tol = _PAGED_TOL[kp.dtype]
         err, worst = _paged_check(f"paged_attention[{name}]", got, want, tol)
+        row = dict(max_abs_err=err, worst_err_over_limit=worst, tol=tol)
+        if split:
+            want_split = pa.paged_attention_split_ref(
+                q, kp, vp, table, qs, pages_per_split=pps)
+            err_s, worst_s = _paged_check(
+                f"paged_attention[{name}] vs split plain", got, want_split,
+                tol)
+            _, worst_r = _paged_check(
+                f"paged_attention_split_ref[{name}] vs plain", want_split,
+                want, tol)
+            row.update(max_abs_err=max(err, err_s),
+                       worst_err_over_limit=max(worst, worst_s, worst_r),
+                       vs_split_plain=dict(max_abs_err=err_s,
+                                           worst_err_over_limit=worst_s),
+                       split_plain_vs_plain_worst=worst_r,
+                       pages_per_split=pps, n_split=-(-p_slot // pps),
+                       live_ctas=_KV * int((qs.long().cpu() // width + 1)
+                                           .clamp(max=-(-p_slot // pps))
+                                           .sum()))
         bound, by = _bound(q, table, qs, _S, _KV, kp.element_size())
-        row = dict(max_abs_err=err, worst_err_over_limit=worst, tol=tol,
-                   ms=_time_ms(lambda: pa.paged_attention(
+        row.update(ms=_time_ms(lambda: pa.paged_attention(
                        q, kp, vp, table, qs)),
                    plain_ms=_time_ms(lambda: pa.paged_attention_ref(
                        q, kp, vp, table, qs)),
                    bound_ms=bound, bound_by=by,
-                   library_ms=_library_ms(q, kp, vp, table, qs, pa))
+                   library_ms=_library_ms(q, kp, vp, table, qs, pa),
+                   library_gather_ms=_library_gather_ms(q, kp, vp, table,
+                                                        qs, pa))
+        # after 24 more calls (the split kernel's counters must be back
+        # at 0 after each) the same output, bit for bit: the merge adds
+        # the splits in one order whichever CTA runs it
+        if not torch.equal(pa.paged_attention(q, kp, vp, table, qs), got):
+            raise AssertionError(f"paged_attention[{name}] changed between "
+                                 f"calls on the same inputs")
         results[name] = row
         print(f"[kernels] paged_attention[{name}] B={q.shape[0]} "
               f"T={q.shape[1]} H={_H} KV={_KV} D={_D} S={_S} "
               f"pool={str(kp.dtype)[6:]} " + json.dumps(row), flush=True)
+    results["decode"].update(_split_breakdown(pa, cases["decode"], _card()))
+    err, worst = _decode_geometries(pa, gen)
+    results["decode_geometries"] = dict(max_abs_err=err,
+                                        worst_err_over_limit=worst)
 
     # dense-cache view: a (B, M, KV, D) cache as identity-table pages of
     # dense_cache_page_size(M) = 128 slots (64 KB of K/V per page in
@@ -514,7 +709,7 @@ def phase_serve(pa, seed):
 
     batcher = ContinuousBatcher(model, num_pages=num_pages, **kw)
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0
+    pa.launches = pa.split_launches = 0
     t0 = time.perf_counter()
     for i in range(8):
         batcher.submit(i, prompts[i])
@@ -528,7 +723,7 @@ def phase_serve(pa, seed):
     results = dict(batcher.finished())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pa.launches
+    launches, splits = pa.launches, pa.split_launches
     peak = torch.cuda.max_memory_allocated()
 
     expect = _LM["num_layers"] * (16 + 8 * bursts)
@@ -536,6 +731,10 @@ def phase_serve(pa, seed):
         raise AssertionError(f"paged_attention launched {launches} times, "
                              f"expected 12 x (16 prefills + 8 x {bursts} "
                              f"decode steps) = {expect}")
+    if splits != _LM["num_layers"] * 8 * bursts:
+        raise AssertionError(f"the split-KV kernel ran in {splits} calls, "
+                             f"expected every decode call: 12 x 8 x "
+                             f"{bursts} = {_LM['num_layers'] * 8 * bursts}")
     if sorted(results) != list(range(16)) or any(
             len(t) != new_tokens or not all(
                 1 <= x <= _LM["vocab_size"] for x in t)
@@ -546,7 +745,8 @@ def phase_serve(pa, seed):
     card = _card()
     print(f"[serve] card='{card}' requests=16 prompt_lens={lens.tolist()} "
           f"new_tokens={new_tokens} decode_bursts={bursts} "
-          f"kernel_launches={launches} (=12x(16+8x{bursts}))", flush=True)
+          f"kernel_launches={launches} (=12x(16+8x{bursts})) "
+          f"of them split-KV decode={splits} (=12x8x{bursts})", flush=True)
     print(f"[serve] card='{card}' wall_s={wall} "
           f"generated_tok_per_s={16 * new_tokens / wall} "
           f"ttft_p50_s={np.percentile(ttft, 50)} "
@@ -587,7 +787,33 @@ def phase_serve(pa, seed):
           f"{float((first_k == first_d).float().mean())} "
           f"served/dense={float((served == first_d).float().mean())}",
           flush=True)
+    _profile_decode(batcher, prompts[:8], card)
     return launches
+
+
+def _profile_decode(batcher, prompts, card):
+    """Where a decode step's device time goes: 8 requests admitted (one
+    step: prefills and a burst), then ``_profile_steps`` over two more
+    8-step decode bursts of all 8 rows (after one to warm), kernels by
+    kind; prints paged attention's device ms a decode step, the rest of
+    the step's device ms and the device's idle share."""
+    for i, p in enumerate(prompts):
+        batcher.submit(("profile", i), p)
+    batcher.step()
+    burst = batcher._resolve_burst(None)
+    kinds, wall_ms = _profile_steps(
+        lambda state, *_: (state, batcher.step()), None, None, None,
+        "serve", card, kind=lambda n: ("paged_attention" if "paged_" in
+                                       n.lower() else _lm_kind(n)),
+        shape=f"{len(prompts)} rows, bursts of {burst} decode steps")
+    busy = sum(kinds.values())
+    paged = kinds.get("paged_attention", 0.0)
+    print(f"[serve] card='{card}' decode step (profiled bursts / {burst}): "
+          f"paged_attention_device_ms={paged / burst} "
+          f"rest_device_ms={(busy - paged) / burst} "
+          f"wall_ms={wall_ms / burst} device_idle_share="
+          f"{1 - busy / wall_ms if busy else 'not measured'}", flush=True)
+    batcher.run_to_completion()
 
 
 def _flash_flops(b, s, h, d, half_products):
@@ -1541,7 +1767,8 @@ def main(argv=None) -> int:
         "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
         "launches": launches, "max_abs_err": err, "ms": dec["ms"],
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"]}]
+        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+        "library_gather_ms": dec["library_gather_ms"]}]
     # the main paths train in bf16: their rows are the bf16 measurements
     # (the line keeps its keys; tflops, share_of_bound and the forward's
     # gemm_ms are in [kernels])

@@ -5,7 +5,11 @@ the CPU (interpret mode).
 On the CPU the port's wrapper takes its plain version
 (``paged_attention_ref``: the ``_paged_view`` gather + ``_attend_grouped``),
 so these tests hold that plain version — the yardstick the CUDA kernel is
-compared with on the card by ``chip_smoke.py`` — to the JAX kernel.
+compared with on the card by ``chip_smoke.py`` — to the JAX kernel. The
+split-KV decode kernel's own plain version (``paged_attention_split_ref``:
+per-split partials and their merge) is held to the JAX kernel the same
+way, over split widths and rows that end on, before and after a split
+boundary.
 
 Tolerances: f32 pools 2e-5 (the JAX tests' own: same math, sums in
 another order). bf16 pools 1e-2 absolute: both sides round the softmax
@@ -14,6 +18,9 @@ points — the Pallas kernel rounds unnormalised per-page weights, the
 plain version normalised ones — so outputs, weighted means of N(0, 1)
 values, differ by up to about 2^-9 · max|v|.
 """
+import functools
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -37,14 +44,15 @@ def _geometry(b, t, h, kv, d, n_pages, s, p, seed=0):
     return q, kp, vp, table
 
 
-def _compare(q, kp, vp, table, q_start, dtype, scale=None):
+def _compare(q, kp, vp, table, q_start, dtype, scale=None,
+             fn=tpa.paged_attention):
     jdt, tdt, atol, rtol = _DTYPES[dtype]
     q_start = np.asarray(q_start, np.int32)
     want = jpa.paged_attention(
         jnp.asarray(q), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
         jnp.asarray(table), jnp.asarray(q_start), scale=scale,
         interpret=True)
-    got = tpa.paged_attention(
+    got = fn(
         torch.from_numpy(q), torch.from_numpy(kp).to(tdt),
         torch.from_numpy(vp).to(tdt), torch.from_numpy(table),
         torch.from_numpy(q_start), scale=scale)
@@ -92,6 +100,93 @@ class TestRefParity:
             torch.from_numpy(cv).to(tdt), torch.from_numpy(qs))
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=atol, rtol=rtol)
+
+
+def _edge_starts(width, n_keys):
+    """Decode rows (T = 1, last key = q_start) at 0 (a free batcher slot
+    decoding into its scratch page), ending one key before, on and one
+    key after the first split boundary past 0 (the key on the boundary is
+    the first of its split), and at the table's last slot."""
+    k = width if width < n_keys else 0
+    return sorted({0, max(k - 1, 0), k, min(k + 1, n_keys - 1),
+                   n_keys - 1})
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pps", [1, 2, 3, "P"])
+class TestSplitRefParity:
+    """``paged_attention_split_ref`` (the split-KV decode kernel's plain
+    version) against the JAX kernel in interpret mode, at the file's
+    tolerances; short rows leave whole splits past their last key."""
+
+    _P, _S = 6, 8
+
+    def _pps(self, pps):
+        return self._P if pps == "P" else pps
+
+    @pytest.mark.parametrize("h,kv", [(8, 2), (4, 1), (4, 4)],
+                             ids=["gqa", "mqa", "mha"])
+    def test_split_edges(self, h, kv, pps, dtype):
+        pps = self._pps(pps)
+        starts = _edge_starts(pps * self._S, self._P * self._S)
+        q, kp, vp, table = _geometry(len(starts), 1, h, kv, 32,
+                                     len(starts) * self._P + 1, self._S,
+                                     self._P, seed=7)
+        _compare(q, kp, vp, table, starts, dtype, fn=functools.partial(
+            tpa.paged_attention_split_ref, pages_per_split=pps))
+
+    def test_multi_column(self, pps, dtype):
+        """T = 2 columns of G = 2 heads (T·G = 4 rows: the split kernel's
+        tile): the first column's last key lies one before the tile's."""
+        pps = self._pps(pps)
+        width = pps * self._S
+        starts = [0, width - 2 if width > 1 else 0, width - 1, 30]
+        q, kp, vp, table = _geometry(4, 2, 4, 2, 16, 4 * self._P + 1,
+                                     self._S, self._P, seed=8)
+        _compare(q, kp, vp, table, starts, dtype, fn=functools.partial(
+            tpa.paged_attention_split_ref, pages_per_split=pps))
+
+
+@pytest.mark.parametrize("pps", [1, 3, 8, 129])
+def test_split_ref_matches_plain_at_serving_heads(pps):
+    """The two plain versions agree in f32 at the serving heads (H 8, KV
+    2, D 128, pages of 16, the batcher's 129-entry tables) over rows of
+    1..2048 keys (sum order alone: 2e-5)."""
+    lens = [1, 16, 17, 127, 128, 129, 1100, 2048]
+    q, kp, vp, table = _geometry(8, 1, 8, 2, 128, 8 * 129 + 1, 16, 129,
+                                 seed=9)
+    args = (torch.from_numpy(q), torch.from_numpy(kp),
+            torch.from_numpy(vp), torch.from_numpy(table),
+            torch.tensor([n - 1 for n in lens], dtype=torch.int32))
+    want = tpa.paged_attention_ref(*args)
+    got = tpa.paged_attention_split_ref(*args, pages_per_split=pps)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_decode_split_pages_is_a_function_of_host_integers():
+    """The split width comes from (B, KV, P, SMs) alone — never from the
+    lengths, which live on the card: splits enough for two CTAs an SM
+    were every table full, at least a page each."""
+    assert list(inspect.signature(tpa.decode_split_pages).parameters) \
+        == ["b", "kv", "p", "sms"]
+    # the serving decode: 8 rows x 2 kv heads, 129-page tables, 132 SMs
+    assert tpa.decode_split_pages(8, 2, 129, 132) == 8
+    assert -(-129 // 8) == 17
+    assert tpa.decode_split_pages(8, 2, 16, 132) == 1     # dense view
+    assert tpa.decode_split_pages(1, 2, 129, 132) == 1
+    assert tpa.decode_split_pages(64, 8, 129, 132) == 129  # one split
+    assert tpa.decode_split_pages(8, 2, 1, 132) == 1
+    # a split's page ids are staged in shared memory: at most 4096
+    assert tpa.decode_split_pages(600, 8, 10000, 132) == 3334
+    for b, kv, p, sms in [(1, 1, 1, 1), (3, 2, 50, 7), (8, 2, 129, 132),
+                          (2, 8, 4096, 132), (128, 1, 33, 132),
+                          (600, 8, 10000, 132)]:
+        pps = tpa.decode_split_pages(b, kv, p, sms)
+        n_split = -(-p // pps)
+        assert 1 <= pps <= min(p, 4096)
+        assert (n_split - 1) * pps < p                   # none empty
+        assert n_split <= max(1, -(-2 * sms // (b * kv)), -(-p // 4096))
 
 
 def test_dense_cache_page_size_matches_jax():
