@@ -621,15 +621,6 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + c * ROWS * kRowBytes, map, bar, c * 64, h, s0, b);
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // a (B, S, H) f32 statistic at this thread's 16 accumulator columns
 // q0 + acc_col(i, l) (0 past S), element i at v[2·(i/4) + i%2]
 __device__ __forceinline__ void load_cols(float (&v)[16],

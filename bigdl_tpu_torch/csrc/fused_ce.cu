@@ -654,14 +654,6 @@ __device__ __forceinline__ void load_bias(float2 (&bias)[32],
   }
 }
 
-// 2^x (ex2.approx: relative error about 2^-22; results below 2^-126
-// flush to 0, which a sum of exps of order 1 does not see)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Fold one logits tile into its rows' online logsumexp. This thread holds
 // 2 rows x 64 columns of the tile's accumulator (rows h = 0, 1 at +8h,
 // columns c0 + 8j + e, c0 = v0 + 2(lane % 4)): add the bias (-inf past

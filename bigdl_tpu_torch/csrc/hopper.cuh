@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu and fused_ce.cu: mbarriers, TMA loads, wgmma
-// descriptors and products, the wgmma accumulator layout, the ring of
-// shared-memory stages, and the host's tensor-map encoder. Included by
+// flash_attention.cu, fused_ce.cu and paged_attention.cu: mbarriers, TMA
+// loads, wgmma descriptors and products, the wgmma accumulator layout
+// with its row reductions and 2^x, the ring of shared-memory stages,
+// and the host's tensor-map encoder. Included by
 // each source, which _build.py compiles with this directory on the
 // include path; everything has internal linkage.
 
@@ -369,6 +370,24 @@ __device__ __forceinline__ void to_frags(const float (&x)[8 * K],
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       f[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// max and sum of a row's elements over the lane quad that holds them
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x (ex2.approx: relative error about 2^-22; -inf gives 0, results
+// below 2^-126 flush to 0, which a sum of exps of order 1 does not see)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int N>

@@ -12,12 +12,66 @@
 // where logical key position k of row b lives in physical page
 // table[b, k / S], slot k % S, of the (num_pages, S, KV, D) pools.
 //
-// The C entry picks one of two designs by shape alone: a call whose T·G
-// query rows of a kv head fit one tile (T·G <= kSplitRows, every decode
-// step) takes the split-KV decode kernel; every other call (prefill)
-// takes `paged_attention_kernel`.
+// The C entry picks one of three designs by dtype and shape alone
+// (route_of; ops/paged_attention.kernel_route mirrors it, and the entry
+// reports the route it took so the wrapper can hold the mirror to it):
+// a call whose T·G query rows of a kv head fit one tile (T·G <=
+// kSplitRows, every decode step) takes the split-KV decode kernel; a
+// bf16 call with more rows (prefill) whose geometry the tensor cores
+// tile (pages of S % 8 == 0 slots, 64 % G == 0, P <= kTcMaxPages) takes
+// `paged_prefill_tc_kernel`; every other call (f32 pools, pages of 7,
+// odd G) takes `paged_attention_kernel`. No call reroutes after a failed
+// map or launch: the entry returns the error.
 //
-// paged_attention_kernel (prefill):
+// paged_prefill_tc_kernel (bf16 prefill, tensor cores):
+// - Bound: prefill of a 512-token bucket (H 8, KV 2, D 128) does 0.54
+//   GFLOP on 3.7 MB (2.1 of it the f32 output): some 150 operations a
+//   byte, so its roofline bound is the bytes' 1.1 µs, twice the tensor
+//   cores' 0.54 µs, and neither is near on the CUDA cores. What a CTA
+//   waits on is latency: its chain of 1-8 key tiles, each a TMA load,
+//   two dependent products and the softmax between them.
+// - One CTA = one consumer warpgroup of 64 folded query rows of one (row
+//   b, kv head) and one producer warp: row r is query column t0 + r / G,
+//   head h·G + r % G, as the TPU kernel folds G into the matmul's rows. Q lands by one TMA load per
+//   64-dim chunk from a 4-D (D, H, T, B) map with a box of (64, G, 64/G,
+//   1): at (d0, h·G, t0, b) the box's rows are exactly the folded rows in
+//   order, [64 rows][128 bytes] with 128-byte swizzle, the wgmma operand
+//   layout; columns past T read as zeros within row b. So 64 % G == 0.
+// - Keys come in tiles of 64 straight off the pools through the block
+//   table: each pool is a (D, KV, S, num_pages) map with boxes of (64, 1,
+//   gcd(S, 64), 1), so a tile is 64 / gcd(S, 64) boxes per chunk, each at
+//   (d0, h, slot, table[b, page]), landing at its rows of the tile. Boxes
+//   stay whole 1024-byte swizzle atoms only when S % 8 == 0. The CTA
+//   stages its row's page ids (at most kTcMaxPages) in shared memory with
+//   q_start before the first load, so no TMA issue waits on a DRAM read.
+// - Pages whose first slot lies past the CTA's last query position (or
+//   past P) are never read: their slots, in the one tile that can have
+//   them (the last), are boxes at page -1, out of bounds, which TMA
+//   fills with zeros without reading memory. They lie past every query
+//   of the CTA, so they are masked with the keys past a query, and their
+//   V rows are finite, as P·V needs (0 x NaN is NaN): a NaN in a page
+//   past the row's last query never reaches the output. Keys past a
+//   query, inside a loaded page or not, score the finite -1e9; those in
+//   a loaded page are read, as the TPU kernel reads them.
+// - S = Q·Kᵀ is `wgmma` m64n64k16 with both operands in shared memory
+//   (K-major); P·V takes P from the accumulator's registers, rounded to
+//   bf16 at the running max (the TPU kernel's rounding point), and V
+//   MN-major from shared memory: no transposed copy. Online softmax in
+//   f32 registers, in base 2 (ex2.approx); scores are masked element-wise
+//   only in tiles that reach past the CTA's first query position.
+// - K/V tiles run through a ring of 4 stages (2 at D 256) with full/empty
+//   mbarriers. The producer warp issues every tile's boxes, a lane a box
+//   (one TMA issue costs some 100 cycles: a tile of 4 pages at D 128 is
+//   16 boxes), and refills a stage as soon as the 4 consumer warps
+//   release it, so only the first tile's issue is on the consumers'
+//   path. Grid (B·KV, ceil(T·G / 64)), the tiles with the most keys
+//   launched first. Output f32 straight from the accumulator; rows past
+//   T·G are not written.
+// - Tensor maps are encoded on the host per call (the pool pointer
+//   changes with each layer); at D 32 the 64-wide boxes reach past D and
+//   fill with zeros, as flash's do.
+//
+// paged_attention_kernel (f32 and other prefill geometries):
 // - One CTA of 4 warps per (row b, kv head, tile of query rows). The G
 //   query heads that share a kv head fold into the tile's rows (row r is
 //   query column r / G, head r % G), as the TPU kernel folds them into the
@@ -33,8 +87,9 @@
 //   Scores are f32 dot products finished with warp shuffles; the running
 //   max, sum and accumulator are f32 in registers (online softmax). P·V
 //   takes p rounded to the pool dtype, as the TPU kernel does. Output f32.
-// - Prefill (T = the prompt bucket) is bound by operations, and this
-//   kernel does them on the CUDA cores, not the tensor cores.
+// - It does its operations on the CUDA cores: f32 pools have no other
+//   exact route, and the geometries the tensor-core kernel does not tile
+//   are rare ones.
 //
 // paged_decode_split_kernel (decode, flash-decoding):
 // - Bound: a decode step does ~4·D operations per key and head, far under
@@ -82,10 +137,13 @@
 //   workspace and the counters and checks shapes, dtypes, contiguity and
 //   alignment.
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"       // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -288,7 +346,7 @@ struct Call {                      // one call's operands and geometry
   const int *table, *q_start;
   float *out, *ws;
   int* counters;
-  int B, T, H, KV, D, S, P, pps;
+  int B, T, H, KV, D, S, P, NP, pps;   // NP: pages in each pool
   float scale;
   cudaStream_t stream;
 };
@@ -728,28 +786,313 @@ int launch_split(const Call& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// Tensor-core prefill (bf16)
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kWgRows = 64;        // folded query rows a warpgroup
+constexpr int kTcWarpgroups = 1;   // consumer warpgroups a CTA
+constexpr int kConsumers = 128 * kTcWarpgroups;    // their threads
+constexpr int kTcThreads = kConsumers + 32;        // + the producer warp
+constexpr int kTcRows = kWgRows * kTcWarpgroups;   // folded rows a CTA
+constexpr int kTcKeys = 64;        // keys a tile
+constexpr int kTcMaxPages = 4096;  // block-table entries a CTA stages
+
+// 64-wide column chunks of a D-wide tile (D 32: one, zero-filled past D)
+__host__ __device__ constexpr int chunks(int D) { return (D + 63) / 64; }
+
+template <int D>
+struct TcShape {
+  static constexpr int kC = chunks(D);
+  static constexpr int kStages = D > 128 ? 2 : 4;
+  static constexpr int kQ = kTcRows * kC * kRowBytes;    // the Q tile
+  static constexpr int kKV = kTcKeys * kC * kRowBytes;   // a K or V tile
+  using L = Layout<kStages, kQ, 2 * kKV>;
+  // the page ids follow the barriers (offsets from the 1024-aligned base)
+  static constexpr int kPagesAt =
+      (L::kBars + 8 * (2 * kStages + 1) + 15) / 16 * 16;
+  static size_t smem(int P) {
+    return 1024 + kPagesAt + static_cast<size_t>(P) * 4;
+  }
+};
+
+// One CTA per (row b, kv head, kTcRows folded query rows); see the
+// header.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                        const __grid_constant__ CUtensorMap km,
+                        const __grid_constant__ CUtensorMap vm,
+                        const int* __restrict__ table,
+                        const int* __restrict__ q_start,
+                        float* __restrict__ out, int T_, int H, int KV,
+                        int S, int P, float scale) {
+  using Sh = TcShape<D>;
+  constexpr int kC = Sh::kC, kStages = Sh::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const int tid = threadIdx.x, g = tid / 128, w = (tid / 32) % 4;
+  const int l = tid % 32;
+  const int b = blockIdx.x / KV, h = blockIdx.x % KV, G = H / KV;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // most keys first
+  const int t0 = r0 / G;                 // first query column (64 % G == 0)
+  const int tn = min(T_ - t0, kTcRows / G);   // query columns here
+
+  // the row's page ids and q_start, read together, once, before any load
+  unsigned char* const base =
+      smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) -
+                  smem_u32(smem_raw));
+  int* const pages = reinterpret_cast<int*>(base + Sh::kPagesAt);
+  const int* const row_table = table + static_cast<int64_t>(b) * P;
+  for (int j = tid; j < P; j += kTcThreads) pages[j] = row_table[j];
+  const int qs = q_start[b];
+  const Ring<kStages> ring =
+      make_ring<kStages>(smem_raw, Sh::L::kBars, kConsumers / 32);
+
+  const int first = qs + t0;             // the CTA's first query position
+  // pages j with j·S <= the last query position hold every key read
+  const int n_pages = min(P, (first + tn - 1) / S + 1);
+  const int kend = n_pages * S;          // keys loaded
+  const int nkt = (kend + kTcKeys - 1) / kTcKeys;
+  const int br = S % 64 == 0 ? 64 : S % 32 == 0 ? 32 : S % 16 == 0 ? 16 : 8;
+  const uint32_t qsm = ring.base, kv0 = ring.base + Sh::kQ;
+
+  if (tid >= kConsumers) {
+    // the producer warp: Q, then every key tile through the ring, each
+    // stage refilled once the consumer warps have released it. A tile's
+    // boxes are issued by the warp's lanes together (a TMA issue costs
+    // some 100 cycles; the consumers never wait on one but the first
+    // tile's). Slots of pages < n_pages come from the pools; the rest
+    // are boxes at page -1, out of bounds, which TMA fills with zeros:
+    // their scores are masked and their V rows must be finite (0 x NaN
+    // is NaN), whatever a stage held before.
+    if (l == 0) {
+      bar_expect(ring.once(), Sh::kQ);
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        tma_load(qsm + c * kTcRows * kRowBytes, &qm, ring.once(), c * 64,
+                 h * G, t0, b);
+    }
+    for (int t = 0; t < nkt; ++t) {
+      const int st = t % kStages, k0 = t * kTcKeys;
+      if (t >= kStages) warp_wait(ring.empty(st), (t / kStages - 1) & 1);
+      if (l == 0) bar_expect(ring.full(st), 2 * kC * kTcKeys * kRowBytes);
+      __syncwarp();
+      const uint32_t ks = kv0 + st * 2 * Sh::kKV, vs = ks + Sh::kKV;
+      for (int e = l; e < 2 * kC * (kTcKeys / br); e += 32) {
+        const int i = e / (2 * kC) * br, c = e / 2 % kC, k = k0 + i;
+        const int page = k < kend ? pages[k / S] : -1;
+        const uint32_t at = c * kTcKeys * kRowBytes + i * kRowBytes;
+        tma_load((e % 2 ? vs : ks) + at, e % 2 ? &vm : &km, ring.full(st),
+                 c * 64, h, k % S, page);
+      }
+    }
+    return;
+  }
+
+  // this thread's accumulator rows: folded rows rl and rl + 8; its
+  // warpgroup's first row sits at query position first_wg
+  const int rl = kWgRows * g + 16 * w + l / 4;
+  const int qpos[2] = {first + rl / G, first + (rl + 8) / G};
+  const int first_wg = first + kWgRows * g / G;
+  const float scale2 = scale * 1.4426950408889634f;   // log2 e
+  float acc[kC][32], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kC; ++c) zero(acc[c]);
+  warp_wait(ring.once(), 0);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt % kStages;
+    warp_wait(ring.full(st), (kt / kStages) & 1);
+    const uint32_t ks = kv0 + st * 2 * Sh::kKV, vs = ks + Sh::kKV;
+    const int k0 = kt * kTcKeys;
+
+    float s[32];
+    zero(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<kTcRows>(qsm, kWgRows * g, kk),
+                   desc_k<kTcKeys>(ks, 0, kk), kk > 0);
+    wg_commit();
+    wg_wait();
+    keep(s);
+
+    // scale (to base 2: exp(x) = 2^(x·log2 e)); only a tile that reaches
+    // past the warpgroup's first query position masks, in a loop of its
+    // own (a test inside one loop costs every tile the masking): keys
+    // past a row's query position, and so the unloaded slots past the
+    // CTA's last one, score the finite -1e9, whose weight is 0 in either
+    // base
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (k0 + kTcKeys - 1 > first_wg) {
+      // element i sits at key k0 + 8·(i/4) + i%2 + 2·(l%4)
+      const int lim[2] = {min(qpos[0], kend - 1) - k0 - 2 * (l % 4),
+                          min(qpos[1], kend - 1) - k0 - 2 * (l % 4)};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = 8 * (i / 4) + i % 2 > lim[(i % 4) / 2] ? kMask
+                                                      : s[i] * scale2;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] *= scale2;
+        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      corr[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      lsum[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(s[i] - m[(i % 4) / 2]);
+      lsum[(i % 4) / 2] += s[i];           // this thread's part of the row
+    }
+    uint32_t pf[kTcKeys / 16][4];
+    to_frags<kTcKeys / 16>(s, pf);        // p in bf16 at the running max
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i % 4) / 2];
+
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        wgmma_rs_n64(acc[c], pf[kk], desc_mn<kTcKeys>(vs, c, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < kC; ++c) keep(acc[c]);
+    keep(pf);
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(st));
+  }
+
+  // f32 rows straight from the accumulator: folded row rl + 8r is query
+  // column t0 + (rl + 8r) / G, head h·G + (rl + 8r) % G
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv = 1.f / quad_sum(lsum[r]);
+    const int fr = rl + 8 * r, t = t0 + fr / G;
+    if (t >= T_) continue;
+    float* const row =
+        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % G) * D;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (64 * c + 8 * j >= D) continue;       // zero padding past D
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<float2*>(row + 64 * c + acc_col(i, l)) =
+            make_float2(acc[c][i] * inv, acc[c][i + 1] * inv);
+      }
+  }
+}
+
+// a contiguous bf16 tensor whose dims, innermost first, are `dims`, as a
+// 4-D map with boxes of `box`, 128-byte swizzle; reads out of bounds
+// fill zeros
+int make_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+             const cuuint32_t (&box)[4]) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return kNoEncoder;
+  const cuuint64_t row = dims[0] * 2;
+  const cuuint64_t strides[3] = {row, row * dims[1], row * dims[1] * dims[2]};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapFailed + static_cast<int>(r);
+}
+
+template <int D>
+int launch(const Call& a) {
+  using Sh = TcShape<D>;
+  const int G = a.H / a.KV;
+  const cuuint32_t br = a.S % 64 == 0 ? 64 : a.S % 32 == 0 ? 32
+                        : a.S % 16 == 0 ? 16 : 8;
+  const cuuint64_t dq[4] = {static_cast<cuuint64_t>(D),
+                            static_cast<cuuint64_t>(a.H),
+                            static_cast<cuuint64_t>(a.T),
+                            static_cast<cuuint64_t>(a.B)};
+  const cuuint64_t dp[4] = {static_cast<cuuint64_t>(D),
+                            static_cast<cuuint64_t>(a.KV),
+                            static_cast<cuuint64_t>(a.S),
+                            static_cast<cuuint64_t>(a.NP)};
+  const cuuint32_t bq[4] = {64, static_cast<cuuint32_t>(G),
+                            static_cast<cuuint32_t>(kTcRows / G), 1};
+  const cuuint32_t bp[4] = {64, 1, br, 1};
+  CUtensorMap qm, km, vm;
+  if (int e = make_map(&qm, a.q, dq, bq)) return e;
+  if (int e = make_map(&km, a.kp, dp, bp)) return e;
+  if (int e = make_map(&vm, a.vp, dp, bp)) return e;
+  const size_t smem = Sh::smem(a.P);
+  auto kernel = paged_prefill_tc_kernel<D>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(a.B * a.KV, (a.T * G + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      qm, km, vm, a.table, a.q_start, a.out, a.T, a.H, a.KV, a.S, a.P,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+enum Route { kRouteSplit = 0, kRouteTc = 1, kRouteRow = 2 };
+
+// the kernel a call runs, by dtype and shape alone
+Route route_of(int dtype, int T, int H, int KV, int S, int P) {
+  const int G = H / KV;
+  if (T * G <= kSplitRows) return kRouteSplit;
+  if (dtype == 1 && S % 8 == 0 && tc::kWgRows % G == 0 &&
+      P <= tc::kTcMaxPages)
+    return kRouteTc;
+  return kRouteRow;
+}
+
 template <typename T, int D>
-int launch_call(const Call& a) {
-  const int rows = a.T * (a.H / a.KV);
-  if (rows <= kSplitRows) {
+int launch_call(const Call& a, Route route) {
+  if (route == kRouteSplit) {
     if (a.ws == nullptr || a.counters == nullptr || a.pps < 1) return -3;
+    const int rows = a.T * (a.H / a.KV);
     return rows <= 4 ? launch_split<T, D, 4>(a) : launch_split<T, D, 16>(a);
+  }
+  if (route == kRouteTc) {
+    if constexpr (sizeof(T) == 2) {
+      const int e = tc::launch<D>(a);
+      return e == hopper::kNoEncoder ? -5 : e;
+    }
+    return -2;
   }
   return launch<T, D, 4>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
                          a.T, a.H, a.KV, a.S, a.P, a.scale, a.stream);
 }
 
 template <typename T>
-int launch_dims(const Call& a) {
+int launch_dims(const Call& a, Route route) {
   switch (a.D) {
     case 32:
-      return launch_call<T, 32>(a);
+      return launch_call<T, 32>(a, route);
     case 64:
-      return launch_call<T, 64>(a);
+      return launch_call<T, 64>(a, route);
     case 128:
-      return launch_call<T, 128>(a);
+      return launch_call<T, 128>(a, route);
     case 256:
-      return launch_call<T, 256>(a);
+      return launch_call<T, 256>(a, route);
     default:
       return -1;
   }
@@ -757,26 +1100,30 @@ int launch_dims(const Call& a) {
 
 }  // namespace
 
-// dtype: 0 = float32 pools, 1 = bfloat16 pools. A call with T·G <= 16
-// query rows per kv head takes the split-KV decode kernel, with `ws` an
-// f32 workspace of B·KV·ceil(P/pps)·T·G·(D + 2) elements, `counters` B·KV
-// ints that are 0 (the kernel leaves them 0) and `pps` pages per split;
-// any other call takes the row-tile kernel (ws, counters and pps unused).
-// Returns 0 on a clean launch, -1 for a head dim the kernels were not
-// built for, -2 for another dtype, -3 for a split call without a
-// workspace, counters or pages per split, -4 for a split whose page ids
-// do not fit shared memory, else the CUDA error code of the launch.
+// dtype: 0 = float32 pools, 1 = bfloat16 pools; NP: pages in each pool.
+// Writes the route the call takes to *route (0 split-KV, 1 tensor-core
+// prefill, 2 row-tile; route_of) before launching. A split call (T·G <=
+// 16 query rows per kv head) needs `ws`, an f32 workspace of
+// B·KV·ceil(P/pps)·T·G·(D + 2) elements, `counters`, B·KV ints that are 0
+// (the kernel leaves them 0), and `pps` pages per split; the other routes
+// leave ws, counters and pps unused. Returns 0 on a clean launch, -1 for
+// a head dim the kernels were not built for, -2 for another dtype, -3
+// for a split call without a workspace, counters or pages per split, -4
+// for a split whose page ids do not fit shared memory, -5 where the
+// driver offers no tensor-map encoder, 1000 + the CUresult of a tensor
+// map the driver refused, else the CUDA error code of the launch.
 extern "C" int bigdl_paged_attention(int dtype, const void* q,
                                      const void* kp, const void* vp,
                                      const int* table, const int* q_start,
                                      float* out, float* ws, int* counters,
-                                     int B, int T, int H, int KV, int D,
-                                     int S, int P, int pps, float scale,
-                                     void* stream) {
-  const Call a{q,  kp, vp, table, q_start, out, ws,  counters, B,
-               T,  H,  KV, D,     S,       P,   pps, scale,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch_dims<float>(a);
-  if (dtype == 1) return launch_dims<__nv_bfloat16>(a);
+                                     int* route, int B, int T, int H, int KV,
+                                     int D, int S, int P, int NP, int pps,
+                                     float scale, void* stream) {
+  const Call a{q, kp, vp, table, q_start, out, ws, counters, B, T, H, KV,
+               D, S, P, NP, pps, scale, static_cast<cudaStream_t>(stream)};
+  const Route r = route_of(dtype, T, H, KV, S, P);
+  *route = r;
+  if (dtype == 0) return launch_dims<float>(a, r);
+  if (dtype == 1) return launch_dims<__nv_bfloat16>(a, r);
   return -2;
 }

@@ -9,22 +9,33 @@ the ``_paged_view`` gather of every row's pages into a dense cache
 followed by ``_attend_grouped``. The choice follows the tensor's device
 alone; on a CUDA tensor the wrapper launches the kernel or raises.
 
-On the card the C entry picks the kernel by shape: a call whose T·G query
-rows per kv head fit one tile (T·G <= 16: every decode step) runs the
-split-KV decode kernel — the key range cut into splits of
-``decode_split_pages`` pages, one CTA per (row, kv head, split) writing an
-f32 partial (max, sum, accumulator) to a workspace allocated here, the
-last CTA of each (row, kv head) merging them; ``paged_attention_split_ref``
-is its plain version. Every other call (prefill) runs the row-tile
-kernel.
+On the card the C entry picks the kernel by dtype and shape
+(``kernel_route`` mirrors its choice, and each call holds the mirror to
+the route the entry reports):
+
+- ``"split"``: a call whose T·G query rows per kv head fit one tile (T·G
+  <= 16: every decode step) runs the split-KV decode kernel — the key
+  range cut into splits of ``decode_split_pages`` pages, one CTA per
+  (row, kv head, split) writing an f32 partial (max, sum, accumulator) to
+  a workspace allocated here, the last CTA of each (row, kv head) merging
+  them; ``paged_attention_split_ref`` is its plain version.
+- ``"tc"``: a bf16 call with more rows (prefill) whose pages hold a
+  multiple of 8 slots, with G dividing 64 and at most 4096 table entries a
+  row, runs the tensor-core prefill kernel — ``wgmma`` products on tiles
+  of 64 folded query rows and 64 keys that TMA reads straight off the
+  pools through the block table; ``paged_attention_tile_ref`` is its
+  arithmetic in its order.
+- ``"row"``: every other call (f32 pools, pages of 7, odd G) runs the
+  row-tile kernel on the CUDA cores.
 
 ``dense_cache_attention`` serves a dense per-row (B, M, KV, D) cache
 through the same kernel: the cache is a pool of ``M // S`` contiguous
 pages per row with an identity block table (a reshape, not a copy).
 
 ``launches`` counts wrapper calls that launched a kernel, so a run can
-show its main path went through the kernel; ``split_launches`` counts the
-calls among them that ran the split-KV decode kernel.
+show its main path went through the kernel; ``split_launches`` and
+``tc_launches`` count the calls among them that ran the split-KV decode
+and the tensor-core prefill kernels.
 """
 from __future__ import annotations
 
@@ -34,9 +45,10 @@ import functools
 import torch
 
 __all__ = ["paged_attention", "paged_attention_ref",
-           "paged_attention_split_ref", "decode_split_pages",
-           "dense_cache_attention", "dense_cache_page_size",
-           "paged_kernel_supported", "launches", "split_launches"]
+           "paged_attention_split_ref", "paged_attention_tile_ref",
+           "decode_split_pages", "kernel_route", "dense_cache_attention",
+           "dense_cache_page_size", "paged_kernel_supported", "launches",
+           "split_launches", "tc_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
 _HEAD_DIMS = (32, 64, 128, 256)
@@ -46,11 +58,28 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 #: decode kernel (kSplitRows in csrc/paged_attention.cu)
 _SPLIT_ROWS = 16
 _SPLIT_MAX_PAGES = 4096
+#: folded query rows a warpgroup of the tensor-core prefill kernel holds,
+#: which G must divide, and the block-table entries a CTA of it stages in
+#: shared memory (kWgRows, kTcMaxPages in csrc/paged_attention.cu)
+_TC_ROWS = 64
+_TC_MAX_PAGES = 4096
+#: the C entry's route codes
+_ROUTES = ("split", "tc", "row")
+#: the C entry's own error codes (others: 1000 + a refused tensor map's
+#: CUresult, or the CUDA error of the launch)
+_ERRORS = {-1: "a head dim the kernels were not built for",
+           -2: "a pool dtype the route does not take",
+           -3: "a split call without a workspace, counters or pages per "
+               "split",
+           -4: "a split whose page ids do not fit shared memory",
+           -5: "no tensor-map encoder in the driver"}
 
 #: wrapper calls that launched a kernel since import (reset by assigning 0)
 launches = 0
 #: calls that ran the split-KV decode kernel, among ``launches``
 split_launches = 0
+#: calls that ran the tensor-core prefill kernel, among ``launches``
+tc_launches = 0
 #: per (CUDA device, stream): int32 counters, one per (row, kv head),
 #: that the split-KV kernel needs zeroed and leaves zeroed (a stream's
 #: calls run in order, so they can share them)
@@ -67,6 +96,23 @@ def paged_kernel_supported(head_dim: int, page_size: int, dtype) -> bool:
         return False
     elt = torch.empty((), dtype=dtype).element_size()
     return 4 * page_size * head_dim * elt <= _SMEM_LIMIT
+
+
+def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
+                 dtype) -> str:
+    """The kernel the C entry runs for q (B, t, h, d) against pools of
+    pages of ``s`` slots, ``kv`` kv heads and ``dtype``, through a table of
+    ``p`` entries a row: ``"split"`` (T·G <= 16 query rows per kv head),
+    ``"tc"`` (bf16, S % 8 == 0, G dividing 64, p <= 4096) or ``"row"``.
+    Shapes and dtype only, as the C entry's ``route_of``; the wrapper
+    raises if the entry reports another route."""
+    g = h // kv
+    if t * g <= _SPLIT_ROWS:
+        return "split"
+    if (dtype == torch.bfloat16 and d in _HEAD_DIMS and s % 8 == 0
+            and _TC_ROWS % g == 0 and p <= _TC_MAX_PAGES):
+        return "tc"
+    return "row"
 
 
 def _paged_view(pool, table):
@@ -148,6 +194,50 @@ def paged_attention_split_ref(q, kp, vp, table, q_start, *,
     return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
 
 
+def paged_attention_tile_ref(q, kp, vp, table, q_start, *, key_tile,
+                             scale=None):
+    """Plain PyTorch version of the tensor-core prefill kernel's
+    arithmetic, in its order (same arguments as :func:`paged_attention`):
+    an online softmax over tiles of ``key_tile`` keys of each row's
+    gathered view — m_new = max(m, tile max), p = exp(score - m_new), l =
+    l·e^(m - m_new) + sum p, acc = acc·e^(m - m_new) + (p rounded to the
+    pool dtype)·V — then o = acc / l. Keys past q_start + t score the
+    finite -1e9; keys past the table's end, -inf. At ``key_tile`` = the
+    page size it walks the JAX kernel's tiles. For the tests and
+    ``chip_smoke.py``; no path calls it."""
+    b, t, h, d = q.shape
+    kv = kp.shape[2]
+    g = h // kv
+    scale = d ** -0.5 if scale is None else scale
+    ck, cv = _paged_view(kp, table), _paged_view(vp, table)
+    n = ck.shape[1]
+    pad = -n % key_tile
+    ck = torch.nn.functional.pad(ck, (0, 0, 0, 0, 0, pad))
+    cv = torch.nn.functional.pad(cv, (0, 0, 0, 0, 0, pad))
+    kpos = torch.arange(n + pad, device=q.device)
+    upto = (q_start.long()[:, None]
+            + torch.arange(t, device=q.device)[None, :])
+    qg = q.reshape(b, t, kv, g, d).to(kp.dtype)
+    sc = torch.einsum("btkgd,bmkd->bkgtm", qg.float(), ck.float()) * scale
+    sc = torch.where(kpos > upto[:, None, None, :, None], _NEG, sc)
+    sc = torch.where(kpos >= n, -torch.inf, sc)
+    m = torch.full(sc.shape[:-1], -torch.inf, device=q.device)
+    l_ = torch.zeros_like(m)
+    acc = torch.zeros(sc.shape[:-1] + (d,), device=q.device)
+    for k0 in range(0, n + pad, key_tile):
+        st = sc[..., k0:k0 + key_tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        l_ = l_ * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgtm,bmkd->bkgtd", p.to(kp.dtype).float(),
+            cv[:, k0:k0 + key_tile].float())
+        m = m_new
+    o = acc / l_[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+
+
 def decode_split_pages(b: int, kv: int, p: int, sms: int) -> int:
     """Pages per split of the split-KV decode kernel for ``b`` rows, ``kv``
     kv heads, ``p`` block-table entries a row, on a card of ``sms`` SMs:
@@ -166,15 +256,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _bind(lib):
+    """The C entry ``bigdl_paged_attention`` of a built
+    csrc/paged_attention.cu (or an edited copy of it), typed."""
+    fn = lib.bigdl_paged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
 @functools.cache
 def _kernel_fn():
     """The C entry of csrc/paged_attention.cu, built at first use."""
     from bigdl_tpu_torch.ops._build import load_library
-    fn = load_library("paged_attention.cu").bigdl_paged_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-    return fn
+    return _bind(load_library("paged_attention.cu"))
 
 
 def _check(cond, msg):
@@ -190,12 +286,13 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     q is cast to their dtype); ``table``: (B, P) physical page ids, every
     entry a legal pool index; ``q_start``: (B,) absolute position of each
     row's first query column — column t attends key positions <=
-    q_start + t. Returns (B, T, H, D) float32. On the card a call with
-    T·G <= 16 query rows per kv head runs the split-KV decode kernels
-    (split count from shapes alone), any other the row-tile kernel."""
+    q_start + t. Returns (B, T, H, D) float32. On the card the call runs
+    the kernel ``kernel_route`` names: the split-KV decode kernels (T·G
+    <= 16 query rows per kv head; split count from shapes alone), the
+    tensor-core prefill kernel, or the row-tile kernel."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
-    global launches, split_launches
+    global launches, split_launches, tc_launches
     b, t, h, d = q.shape
     _, s, kv, _ = kp.shape
     _check(q.is_cuda and all(x.device == q.device
@@ -229,7 +326,8 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     p = table.shape[1]
     rows = t * (h // kv)
-    split = rows <= _SPLIT_ROWS
+    want = kernel_route(t, h, kv, d, s, p, kp.dtype)
+    split = want == "split"
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pps, ws, counters = 0, None, None
     if split:     # f32 (max, sum, accumulator) per (row, kv head, split)
@@ -241,17 +339,26 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
             counters = torch.zeros(b * kv, dtype=torch.int32,
                                    device=q.device)
             _counters[(q.device, stream)] = counters
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODES[kp.dtype], qc.data_ptr(), kp.data_ptr(),
                  vp.data_ptr(), table.data_ptr(), q_start.data_ptr(),
                  out.data_ptr(), None if ws is None else ws.data_ptr(),
                  None if counters is None else counters.data_ptr(),
-                 b, t, h, kv, d, s, p, pps, float(scale), stream)
+                 ctypes.byref(route), b, t, h, kv, d, s, p, kp.shape[0],
+                 pps, float(scale), stream)
+    took = _ROUTES[route.value] if 0 <= route.value < 3 else route.value
     if err:
-        raise RuntimeError(f"paged_attention kernel launch failed "
-                           f"(code {err})")
+        why = _ERRORS.get(err, f"tensor map refused (CUresult {err - 1000})"
+                          if err >= 1000 else "CUDA error")
+        raise RuntimeError(f"paged_attention {took} kernel launch failed "
+                           f"(code {err}: {why})")
+    if took != want:
+        raise RuntimeError(f"paged_attention: the C entry ran the {took} "
+                           f"kernel where kernel_route names {want}")
     launches += 1
     split_launches += split
+    tc_launches += want == "tc"
     return out
 
 

@@ -8,7 +8,8 @@ the shapes its path gives it, then drive the main paths end to end at
 the full width of the flagship LM with weights made from a seed:
 
 - ``[serve]``: 16 requests through ``ContinuousBatcher`` (d_model 1024,
-  12 layers, 8 heads, 2 kv heads, RoPE, vocab 32768) — paged attention;
+  12 layers, 8 heads, 2 kv heads, RoPE, vocab 32768) — paged attention:
+  the split-KV decode kernel and the tensor-core prefill kernel;
 - ``[train]``: the port's train main (``models/transformer/train.py``)
   on a generated text, at the ``bench.py:1040-1063`` training geometry
   (learned positions, full MHA, batch 4 x 2048, bf16 policy) for two
@@ -75,6 +76,20 @@ _H, _KV, _D, _S = 8, 2, 128, 16
 #: pools round nothing: sum order alone. (rtol, atol) by pool dtype.
 _PAGED_TOL = {torch.bfloat16: (2 ** -7, 0.05),
               torch.float32: (1e-5, 1e-4)}
+#: the tensor-core prefill kernel vs ``paged_attention_tile_ref`` at its
+#: 64-key tiles, element by element as ``_PAGED_TOL``. Both round p to
+#: bf16 at the same running max of the same tiles, so they differ only
+#: where the tensor cores' f32 sums of a score (in another order than the
+#: plain version's) move p across a bf16 rounding boundary, which few
+#: weights lie close enough to. A flip moves its term by at most 2^-7 of
+#: it, an element by at most 2^-7·w·|v| for a weight w <= sqrt(sum w^2)
+#: of the row, so by some 0.035·rms(row) at the worst (|v| at 4.5 sigma),
+#: 2^-5; the f32 sums alone differ by far less than 2^-8·|plain|. Against
+#: ``_PAGED_TOL``'s (2^-7, 0.05), which also covers rounding at another
+#: point: (rtol, atol)
+_PAGED_TILE_TOL = (2 ** -8, 2 ** -5)
+#: prompt buckets of the batcher the prefill sweep runs
+_PREFILL_BUCKETS = (32, 128, 512, 1024)
 #: kernel vs dense serving prefill logits: both run the bf16 policy, the
 #: attention outputs are rounded to bf16 before the residual add, so a
 #: few elements round to the neighbouring bf16 value and the difference
@@ -230,7 +245,7 @@ def _card() -> str:
 def _print_ptxas(report: str) -> None:
     """Registers and spills of each kernel instantiation, from the
     compiler's ``-Xptxas=-v`` report (kernel, type, head dim and, for
-    paged attention, rows per warp of the prefill kernel and query rows
+    paged attention, rows per warp of the row-tile kernel and query rows
     of the split-KV decode kernel; of the LRN kernels' 72
     instantiations, the path's window of 5 with 4-wide vectors), then
     the most registers and the spilling instantiations of the file."""
@@ -256,7 +271,11 @@ def _print_ptxas(report: str) -> None:
                        r"E", line)
         ps = re.search(r"entry function '\S*?paged_decode_split_kernelI"
                        r"(\w+?)Li(\d+)ELi(\d+)E", line)
-        if ps:
+        pt = re.search(r"entry function '\S*?paged_prefill_tc_kernelILi(\d+)E",
+                       line)
+        if pt:
+            name = f"paged_prefill_tc bf16 (tensor cores) D={pt.group(1)}"
+        elif ps:
             dt, d, rows = ps.groups()
             name = (f"paged_decode_split "
                     f"{'bf16' if 'bfloat16' in dt else 'f32'} D={d} "
@@ -294,17 +313,18 @@ def _print_ptxas(report: str) -> None:
           f"thread, {spilled} spilling")
 
 
-def _check_tensor_cores(flash_lib: str, fce_lib: str) -> dict:
-    """Tensor-core instructions in the SASS of each bf16 flash kernel and
-    of the bf16 fused-CE forward, dh and dW/db kernels (``HGMMA``: wgmma;
-    ``HMMA``: mma.sync), from ``cuobjdump --dump-sass`` of the built
-    libraries; fails unless each of the nine flash kernels (fwd, dq,
-    dkdv x D 32, 64, 128) has some and all three fused-CE kernels have
-    ``HGMMA``."""
+def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
+    """Tensor-core instructions in the SASS of each bf16 flash kernel, of
+    the bf16 fused-CE forward, dh and dW/db kernels and of the bf16
+    paged prefill kernels (``HGMMA``: wgmma; ``HMMA``: mma.sync), from
+    ``cuobjdump --dump-sass`` of the built libraries; fails unless each
+    of the nine flash kernels (fwd, dq, dkdv x D 32, 64, 128) has some
+    and all three fused-CE kernels and the four paged prefill kernels (D
+    32, 64, 128, 256) have ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
-    for lib in (flash_lib, fce_lib):
+    for lib in (flash_lib, fce_lib, paged_lib):
         sass = subprocess.run([str(tool), "--dump-sass", lib], check=True,
                               capture_output=True, text=True,
                               timeout=300).stdout
@@ -313,7 +333,9 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str) -> dict:
                 f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_tc_kernel"
                               r"ILi(\d+)E", line)
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
+                p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
+                        f"paged_prefill_tc bf16 D={p.group(1)}" if p else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
                         if c else "fused_ce_fwd bf16"
                         if "fce_fwd_tc_kernel" in line else None)
@@ -322,14 +344,17 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str) -> dict:
             elif name:
                 for op in counts[name]:
                     counts[name][op] += bool(re.search(rf"\b{op}\.", line))
-    print("[build] tensor-core instructions in the SASS of the bf16 flash "
-          "and fused-CE kernels: " + json.dumps(counts), flush=True)
+    print("[build] tensor-core instructions in the SASS of the bf16 flash, "
+          "fused-CE and paged prefill kernels: " + json.dumps(counts),
+          flush=True)
     bare = sorted(f"{k} bf16 D={d}" for k in ("flash_fwd", "flash_dq",
                                               "flash_dkdv")
                   for d in (32, 64, 128)
                   if not sum(counts.get(f"{k} bf16 D={d}", {}).values()))
     bare += [k for k in ("fused_ce_fwd bf16", "fused_ce_dh bf16",
-                         "fused_ce_dw bf16")
+                         "fused_ce_dw bf16") + tuple(
+                             f"paged_prefill_tc bf16 D={d}"
+                             for d in (32, 64, 128, 256))
              if not counts.get(k, {}).get("HGMMA")]
     if bare:
         raise AssertionError(f"no (wgmma) tensor-core instructions in {bare}")
@@ -530,6 +555,138 @@ def _decode_geometries(pa, gen):
     return err_all, worst_all
 
 
+def _paged_call(pa, label, route, q, kp, vp, table, qs):
+    """One ``paged_attention`` call, synchronised; raises unless it ran
+    ``route``'s kernel ("split", "tc" or "row"), as ``kernel_route``
+    names it and the counters show."""
+    counts = pa.launches, pa.split_launches, pa.tc_launches
+    got = pa.paged_attention(q, kp, vp, table, qs)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip((pa.launches, pa.split_launches,
+                                    pa.tc_launches), counts)]
+    want = [1, int(route == "split"), int(route == "tc")]
+    took = pa.kernel_route(q.shape[1], q.shape[2], kp.shape[2], q.shape[3],
+                           kp.shape[1], table.shape[1], kp.dtype)
+    if moved != want or took != route:
+        raise AssertionError(f"{label} took route {took} (counters moved "
+                             f"{moved}), not the {route} kernel")
+    return got
+
+
+def _tile_check(pa, label, got, q, kp, vp, table, qs):
+    """A tensor-core prefill output against ``paged_attention_tile_ref``
+    at the kernel's 64-key tiles, within ``_PAGED_TILE_TOL``."""
+    tile = pa.paged_attention_tile_ref(q, kp, vp, table, qs, key_tile=64)
+    err, worst = _worst(got, tile, *_PAGED_TILE_TOL, rms_dims=(2, 3))
+    if not worst <= 1:
+        raise AssertionError(f"{label} vs tile plain: max abs err {err}, "
+                             f"{worst} x its limit")
+    return dict(max_abs_err=err, worst_err_over_limit=worst,
+                tol=_PAGED_TILE_TOL)
+
+
+def _prefill_buckets(pa, gen, p_slot):
+    """The tensor-core prefill at the batcher's buckets (B 1, q_start 0,
+    the pages the batcher allocates, its 129-entry table), each held
+    against both plain versions and timed beside its bound and the
+    library calls."""
+    rows = {}
+    for t in _PREFILL_BUCKETS:
+        args = _paged_case(1, t, [0], [-(-(t + 72) // _S)], p_slot,
+                           torch.bfloat16, gen)
+        label = f"prefill bucket T={t}"
+        got = _paged_call(pa, label, "tc", *args)
+        err, worst = _paged_check(label, got, pa.paged_attention_ref(*args),
+                                  _PAGED_TOL[torch.bfloat16])
+        bound, by = _bound(args[0], args[3], args[4], _S, _KV, 2)
+        rows[t] = dict(max_abs_err=err, worst_err_over_limit=worst,
+                       vs_tile_ref=_tile_check(pa, label, got, *args),
+                       ms=_time_ms(lambda: pa.paged_attention(*args)),
+                       bound_ms=bound, bound_by=by,
+                       library_ms=_library_ms(*args, pa),
+                       library_gather_ms=_library_gather_ms(*args, pa))
+    print(f"[kernels] paged_attention prefill buckets (B 1, q_start 0, "
+          f"{p_slot}-entry table), card='{_card()}': " + json.dumps(rows),
+          flush=True)
+    return rows
+
+
+#: prefill geometries besides the serving one, each held against both
+#: plain versions (the row-tile ones against paged_attention_ref): (label,
+#: B, T, H, KV, D, page size, table entries, pool dtype, q_start of each
+#: row, the route kernel_route names)
+_PREFILL_GEOMETRIES = (
+    ("d64", 2, 96, 8, 2, 64, 16, 20, torch.bfloat16, [0, 30], "tc"),
+    ("d32", 2, 96, 8, 2, 32, 16, 20, torch.bfloat16, [0, 30], "tc"),
+    ("d256", 2, 96, 4, 2, 256, 16, 20, torch.bfloat16, [0, 30], "tc"),
+    ("mha-g1", 2, 100, 8, 8, 128, 16, 20, torch.bfloat16, [0, 7], "tc"),
+    ("g8", 2, 100, 8, 1, 128, 16, 20, torch.bfloat16, [0, 7], "tc"),
+    ("t17-g1", 1, 17, 2, 2, 128, 16, 4, torch.bfloat16, [0], "tc"),
+    ("s8", 2, 100, 8, 2, 128, 8, 20, torch.bfloat16, [0, 7], "tc"),
+    ("s32", 2, 100, 8, 2, 128, 32, 20, torch.bfloat16, [0, 7], "tc"),
+    ("s128", 2, 300, 8, 2, 128, 128, 8, torch.bfloat16, [0, 7], "tc"),
+    ("s24", 2, 100, 8, 2, 128, 24, 20, torch.bfloat16, [0, 7], "tc"),
+    # chunked prefill: rows that start deep in their tables
+    ("chunked", 2, 64, 8, 2, 128, 16, 129, torch.bfloat16, [100, 517],
+     "tc"),
+    ("f32-pools", 1, 128, 8, 2, 128, 16, 20, torch.float32, [0], "row"),
+    ("s7", 1, 128, 8, 2, 64, 7, 30, torch.bfloat16, [0], "row"),
+)
+
+
+def _prefill_geometries(pa, gen):
+    """Every row of ``_PREFILL_GEOMETRIES``: the route it took, and the
+    kernel against the plain version (and the tile version where the
+    tensor-core kernel ran), each within its limit."""
+    rows = {}
+    for label, b, t, h, kv, d, s, p, dtype, starts, route in \
+            _PREFILL_GEOMETRIES:
+        args = _paged_case(b, t, starts,
+                           [min(p, (x + t) // s + 1) for x in starts], p,
+                           dtype, gen, h=h, kv=kv, d=d, s=s)
+        got = _paged_call(pa, f"prefill geometry {label}", route, *args)
+        err, worst = _paged_check(f"prefill geometry {label}", got,
+                                  pa.paged_attention_ref(*args),
+                                  _PAGED_TOL[dtype])
+        rows[label] = dict(route=route, max_abs_err=err,
+                           worst_err_over_limit=worst)
+        if route == "tc":
+            rows[label]["vs_tile_ref"] = _tile_check(
+                pa, f"prefill geometry {label}", got, *args)
+    print("[kernels] paged_attention prefill at other geometries (route, "
+          "kernel vs plain, vs tile plain): " + json.dumps(rows), flush=True)
+    return rows
+
+
+def _prefill_nan_pool(pa, gen):
+    """The tensor-core prefill over pools whose pages past each row's
+    last query hold NaN (pages no kernel may read, as the TPU kernel
+    reads none): the output must equal, bit for bit, the kernel's on the
+    same pools without the NaN, and be within ``_PAGED_TOL`` of the
+    plain version on those."""
+    q, kp, vp, table, qs = _paged_case(2, 64, [0, 40], [6, 8], 12,
+                                       torch.bfloat16, gen)
+    kn, vn = kp.clone(), vp.clone()
+    for i in range(2):
+        past = table[i, (int(qs[i]) + 63) // _S + 1:].long()
+        kn[past] = float("nan")
+        vn[past] = float("nan")
+    clean = _paged_call(pa, "prefill NaN pool (clean)", "tc", q, kp, vp,
+                        table, qs)
+    got = _paged_call(pa, "prefill NaN pool", "tc", q, kn, vn, table, qs)
+    if not torch.equal(got, clean):
+        raise AssertionError("prefill over a pool with NaN past each row's "
+                             "last query differs from the clean pool's")
+    err, worst = _paged_check("prefill NaN pool", got,
+                              pa.paged_attention_ref(q, kp, vp, table, qs),
+                              _PAGED_TOL[torch.bfloat16])
+    row = dict(equal_to_clean_pool=True, max_abs_err=err,
+               worst_err_over_limit=worst)
+    print("[kernels] paged_attention prefill, NaN in the pages past each "
+          "row's last query: " + json.dumps(row), flush=True)
+    return row
+
+
 def _warm_card(seconds=0.5):
     """Keep the card busy for ``seconds`` before the first timing, so
     the clocks have left the idle state the builds leave it in."""
@@ -545,7 +702,11 @@ def phase_kernels(pa, gen):
     """Kernel vs plain on the card at the serving path's shapes. Decode
     calls (T·G <= 16) run the split-KV kernel: each is held against
     both plain versions, and the split plain version against the
-    other."""
+    other. Prefill runs the tensor-core kernel: held against
+    ``paged_attention_ref`` and against its own arithmetic
+    (``paged_attention_tile_ref``), then swept over the batcher's
+    buckets and held at other geometries and on a pool with NaN past
+    each row's last query."""
     decode_len = [16, 47, 128, 300, 511, 767, 1024, 1100]
     p_slot = -(-(2048 - 64 + 64 + 8) // _S)        # the batcher's table
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -580,18 +741,17 @@ def phase_kernels(pa, gen):
     results = {}
     _warm_card()
     for name, (q, kp, vp, table, qs) in cases.items():
-        launches, splits = pa.launches, pa.split_launches
-        got = pa.paged_attention(q, kp, vp, table, qs)
-        torch.cuda.synchronize()
-        split = pa.split_launches - splits == 1
-        if pa.launches - launches != 1 or split != name.startswith("decode"):
-            raise AssertionError(f"paged_attention[{name}] did not take the "
-                                 f"{'split-KV' if split else 'row-tile'} "
-                                 f"kernel its shape calls for")
+        route = "split" if name.startswith("decode") else "tc"
+        got = _paged_call(pa, f"paged_attention[{name}]", route, q, kp, vp,
+                          table, qs)
+        split = route == "split"
         want = pa.paged_attention_ref(q, kp, vp, table, qs)
         tol = _PAGED_TOL[kp.dtype]
         err, worst = _paged_check(f"paged_attention[{name}]", got, want, tol)
         row = dict(max_abs_err=err, worst_err_over_limit=worst, tol=tol)
+        if route == "tc":
+            row["vs_tile_ref"] = _tile_check(pa, f"paged_attention[{name}]",
+                                             got, q, kp, vp, table, qs)
         if split:
             want_split = pa.paged_attention_split_ref(
                 q, kp, vp, table, qs, pages_per_split=pps)
@@ -633,6 +793,9 @@ def phase_kernels(pa, gen):
     err, worst = _decode_geometries(pa, gen)
     results["decode_geometries"] = dict(max_abs_err=err,
                                         worst_err_over_limit=worst)
+    results["prefill_buckets"] = _prefill_buckets(pa, gen, p_slot)
+    results["prefill_geometries"] = _prefill_geometries(pa, gen)
+    results["prefill_nan_pool"] = _prefill_nan_pool(pa, gen)
 
     # dense-cache view: a (B, M, KV, D) cache as identity-table pages of
     # dense_cache_page_size(M) = 128 slots (64 KB of K/V per page in
@@ -709,7 +872,7 @@ def phase_serve(pa, seed):
 
     batcher = ContinuousBatcher(model, num_pages=num_pages, **kw)
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = pa.split_launches = 0
+    pa.launches = pa.split_launches = pa.tc_launches = 0
     t0 = time.perf_counter()
     for i in range(8):
         batcher.submit(i, prompts[i])
@@ -723,7 +886,7 @@ def phase_serve(pa, seed):
     results = dict(batcher.finished())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, splits = pa.launches, pa.split_launches
+    launches, splits, tcs = pa.launches, pa.split_launches, pa.tc_launches
     peak = torch.cuda.max_memory_allocated()
 
     expect = _LM["num_layers"] * (16 + 8 * bursts)
@@ -735,6 +898,10 @@ def phase_serve(pa, seed):
         raise AssertionError(f"the split-KV kernel ran in {splits} calls, "
                              f"expected every decode call: 12 x 8 x "
                              f"{bursts} = {_LM['num_layers'] * 8 * bursts}")
+    if tcs != _LM["num_layers"] * 16:
+        raise AssertionError(f"the tensor-core prefill kernel ran in {tcs} "
+                             f"calls, expected every prefill call: 12 x 16 "
+                             f"= {_LM['num_layers'] * 16}")
     if sorted(results) != list(range(16)) or any(
             len(t) != new_tokens or not all(
                 1 <= x <= _LM["vocab_size"] for x in t)
@@ -746,7 +913,8 @@ def phase_serve(pa, seed):
     print(f"[serve] card='{card}' requests=16 prompt_lens={lens.tolist()} "
           f"new_tokens={new_tokens} decode_bursts={bursts} "
           f"kernel_launches={launches} (=12x(16+8x{bursts})) "
-          f"of them split-KV decode={splits} (=12x8x{bursts})", flush=True)
+          f"of them split-KV decode={splits} (=12x8x{bursts}), "
+          f"tensor-core prefill={tcs} (=12x16)", flush=True)
     print(f"[serve] card='{card}' wall_s={wall} "
           f"generated_tok_per_s={16 * new_tokens / wall} "
           f"ttft_p50_s={np.percentile(ttft, 50)} "
@@ -788,7 +956,7 @@ def phase_serve(pa, seed):
           f"served/dense={float((served == first_d).float().mean())}",
           flush=True)
     _profile_decode(batcher, prompts[:8], card)
-    return launches
+    return launches, tcs
 
 
 def _profile_decode(batcher, prompts, card):
@@ -1745,7 +1913,8 @@ def main(argv=None) -> int:
     for lib in libs:
         _print_ptxas(Path(lib._name).with_suffix(".ptxas.txt").read_text())
     _check_tensor_cores(libs[sources.index("flash_attention.cu")]._name,
-                        libs[sources.index("fused_ce.cu")]._name)
+                        libs[sources.index("fused_ce.cu")]._name,
+                        libs[sources.index("paged_attention.cu")]._name)
 
     gen = torch.Generator().manual_seed(args.seed)
     rows = phase_kernels(pa, gen)
@@ -1753,14 +1922,24 @@ def main(argv=None) -> int:
     fce_rows = phase_fused_ce(fce, gen)
     lrn_rows = phase_lrn(lrn, gen)
     mp_row = phase_maxpool(mp, gen)
-    launches = phase_serve(pa, args.seed)
+    launches, tc_launches = phase_serve(pa, args.seed)
     flash_launches = phase_train(fa, args.seed)
     fce_launches = phase_perf(fce)
     torch.cuda.empty_cache()
     conv_launches, _ = phase_inception(lrn, mp)
 
+    # errors: the paged_attention entry takes the split-KV and row-tile
+    # calls, paged_prefill_tc the tensor-core ones
     dec = rows["decode"]
-    err = max(r["max_abs_err"] for r in rows.values())
+    geo = rows["prefill_geometries"].values()
+    err = max([r["max_abs_err"] for k, r in rows.items()
+               if k.startswith("decode") or k == "dense_cache"]
+              + [r["max_abs_err"] for r in geo if r["route"] == "row"])
+    pre_err = max([rows["prefill"]["max_abs_err"],
+                   rows["prefill_nan_pool"]["max_abs_err"]]
+                  + [r["max_abs_err"]
+                     for r in rows["prefill_buckets"].values()]
+                  + [r["max_abs_err"] for r in geo if r["route"] == "tc"])
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
@@ -1769,6 +1948,16 @@ def main(argv=None) -> int:
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
         "library_gather_ms": dec["library_gather_ms"]}]
+    # B1's prefill calls: the tensor-core kernel at the [kernels] prefill
+    # case, its launches those of [serve]'s 16 prefills
+    pre = rows["prefill"]
+    kernels.append({
+        "name": "paged_prefill_tc", "route": "cuda",
+        "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
+        "launches": tc_launches, "max_abs_err": pre_err,
+        **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "library_gather_ms")}})
     # the main paths train in bf16: their rows are the bf16 measurements
     # (the line keeps its keys; tflops, share_of_bound and the forward's
     # gemm_ms are in [kernels])

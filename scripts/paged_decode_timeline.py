@@ -90,12 +90,8 @@ def instrumented(src: str) -> str:
 
 
 def _bind(lib):
-    fn = lib.bigdl_paged_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     lib.set_stamps.argtypes = [ctypes.c_void_p]
-    return fn
+    return pa._bind(lib)
 
 
 def report(label, stamps, n_ctas):

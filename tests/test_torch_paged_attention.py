@@ -11,15 +11,30 @@ per-split partials and their merge) is held to the JAX kernel the same
 way, over split widths and rows that end on, before and after a split
 boundary.
 
+The tensor-core prefill kernel's arithmetic in its order
+(``paged_attention_tile_ref``: an online softmax over key tiles, p
+rounded to the pool dtype at the running max) is held to the JAX kernel
+at tiles of one page, where both walk the same tiles, and to the plain
+version at the kernel's 64-key tiles; the route mirror
+(``kernel_route``) is pinned for the serving geometry and for each
+geometry that goes to the row-tile kernel.
+
 Tolerances: f32 pools 2e-5 (the JAX tests' own: same math, sums in
 another order). bf16 pools 1e-2 absolute: both sides round the softmax
 weights p to bf16 before P·V (relative error 2^-9), but at different
 points — the Pallas kernel rounds unnormalised per-page weights, the
 plain version normalised ones — so outputs, weighted means of N(0, 1)
-values, differ by up to about 2^-9 · max|v|.
+values, differ by up to about 2^-9 · max|v|. The tile version at tiles
+of one page against the JAX kernel: 2e-5 in both dtypes, since both
+round the same unnormalised weights at the same running max and differ
+only in the order of f32 sums (a weight whose f32 value lies within that
+difference of a bf16 rounding boundary, about one in 2^16, would round
+the other way; none does at these seeds).
 """
 import functools
 import inspect
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -189,6 +204,131 @@ def test_decode_split_pages_is_a_function_of_host_integers():
         assert n_split <= max(1, -(-2 * sms // (b * kv)), -(-p // 4096))
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("q_start", [[0, 0], [5, 13]], ids=["qs0", "qs>0"])
+@pytest.mark.parametrize("g,t", [(1, 23), (2, 11), (4, 9)],
+                         ids=["g1", "g2", "g4"])
+def test_tile_ref_at_page_tiles_matches_jax(g, t, q_start, dtype):
+    """At tiles of one page the tile version walks the JAX kernel's own
+    tiles: same running max, same rounding points (2e-5, module
+    docstring). T·G (23, 22, 36) is no multiple of 64; pages of 8, a
+    6-entry table, rows starting at 0 and past it."""
+    q, kp, vp, table = _geometry(2, t, 2 * g, 2, 16, 24, 8, 6, seed=10 + g)
+    _, tdt, _, _ = _DTYPES[dtype]
+    qs = np.asarray(q_start, np.int32)
+    want = jpa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp, _DTYPES[dtype][0]),
+        jnp.asarray(vp, _DTYPES[dtype][0]), jnp.asarray(table),
+        jnp.asarray(qs), interpret=True)
+    got = tpa.paged_attention_tile_ref(
+        torch.from_numpy(q), torch.from_numpy(kp).to(tdt),
+        torch.from_numpy(vp).to(tdt), torch.from_numpy(table),
+        torch.from_numpy(qs), key_tile=8)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("s,p,q_start", [(8, 20, [0, 37, 100]),
+                                         (16, 9, [3, 64, 127]),
+                                         (24, 7, [0, 50, 160])],
+                         ids=["s8", "s16", "s24"])
+def test_tile_ref_at_kernel_tiles_matches_plain(s, p, q_start, dtype):
+    """At the kernel's 64-key tiles (several a row, the last one cut by
+    the table's end where P·S is no multiple of 64) the tile version is
+    the plain version's function, at the file's tolerances."""
+    jdt, tdt, atol, rtol = _DTYPES[dtype]
+    q, kp, vp, table = _geometry(3, 33, 8, 2, 32, 3 * p + 2, s, p,
+                                 seed=20 + s)
+    args = (torch.from_numpy(q), torch.from_numpy(kp).to(tdt),
+            torch.from_numpy(vp).to(tdt), torch.from_numpy(table),
+            torch.tensor(q_start, dtype=torch.int32))
+    got = tpa.paged_attention_tile_ref(*args, key_tile=64)
+    want = tpa.paged_attention_ref(*args)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=atol,
+                               rtol=rtol)
+
+
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+# (t, h, kv, d, s, p, dtype) -> the kernel the C entry runs
+_ROUTE_CASES = {
+    # the serving path: prefill of a 512-token bucket, decode, the
+    # dense-cache view of a 2048-token cache (pages of 128)
+    "serve-prefill": ((512, 8, 2, 128, 16, 129, _BF16), "tc"),
+    "serve-prefill-t32": ((32, 8, 2, 128, 16, 129, _BF16), "tc"),
+    "serve-decode": ((1, 8, 2, 128, 16, 129, _BF16), "split"),
+    "decode-16-rows": ((2, 16, 2, 128, 16, 10, _BF16), "split"),
+    "17-rows": ((17, 2, 2, 128, 16, 10, _BF16), "tc"),
+    "dense-view": ((64, 8, 2, 128, 128, 16, _BF16), "tc"),
+    "d32": ((64, 4, 1, 32, 16, 9, _BF16), "tc"),
+    "d64": ((64, 8, 2, 64, 16, 9, _BF16), "tc"),
+    "d256": ((64, 4, 2, 256, 16, 9, _BF16), "tc"),
+    "mha": ((64, 8, 8, 128, 16, 9, _BF16), "tc"),
+    "g8": ((64, 8, 1, 128, 16, 9, _BF16), "tc"),
+    "s8": ((64, 8, 2, 128, 8, 9, _BF16), "tc"),
+    "s32": ((64, 8, 2, 128, 32, 9, _BF16), "tc"),
+    "4096-pages": ((64, 8, 2, 128, 16, 4096, _BF16), "tc"),
+    # the row-tile kernel: f32 pools, pages of 7, G not dividing 64, a
+    # table too long to stage
+    "f32": ((512, 8, 2, 128, 16, 129, _F32), "row"),
+    "s7": ((64, 8, 2, 64, 7, 30, _BF16), "row"),
+    "s12": ((64, 8, 2, 64, 12, 30, _BF16), "row"),
+    "g3": ((64, 6, 2, 64, 16, 9, _BF16), "row"),
+    "g128": ((1, 128, 1, 64, 16, 9, _BF16), "row"),
+    "4097-pages": ((64, 8, 2, 128, 16, 4097, _BF16), "row"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTE_CASES))
+def test_kernel_route(case):
+    args, route = _ROUTE_CASES[case]
+    assert tpa.kernel_route(*args) == route
+
+
+def test_route_constants_match_the_c_entry():
+    """The mirror's limits are the C entry's: split rows, the tensor-core
+    CTA's folded rows and its staged table entries, and route_of's test
+    of page size."""
+    src = (Path(tpa.__file__).resolve().parents[1] / "csrc"
+           / "paged_attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kSplitRows") == tpa._SPLIT_ROWS
+    assert const("kWgRows") == tpa._TC_ROWS
+    assert const("kTcMaxPages") == tpa._TC_MAX_PAGES
+    route_of = src[src.index("Route route_of("):]
+    route_of = route_of[:route_of.index("\n}\n")]
+    assert "dtype == 1 && S % 8 == 0 && tc::kWgRows % G == 0" in route_of
+    assert "P <= tc::kTcMaxPages" in route_of
+
+
+def test_binding_matches_the_c_entry():
+    """The ctypes types ``_bind`` gives the C entry, one per parameter of
+    ``bigdl_paged_attention`` in csrc/paged_attention.cu (a pointer as
+    c_void_p, an int as c_int, the scale as c_float)."""
+    import ctypes
+    src = (Path(tpa.__file__).resolve().parents[1] / "csrc"
+           / "paged_attention.cu").read_text()
+    sig = src[src.index('extern "C" int bigdl_paged_attention('):]
+    params = sig[sig.index("(") + 1:sig.index(")")].split(",")
+    kinds = [ctypes.c_void_p if "*" in x else ctypes.c_float
+             if x.split()[0] == "float" else ctypes.c_int for x in params]
+
+    class _Fn:
+        pass
+
+    class _Lib:
+        bigdl_paged_attention = _Fn()
+
+    fn = tpa._bind(_Lib())
+    assert fn.restype is ctypes.c_int
+    assert fn.argtypes == kinds
+    assert len(kinds) == 21
+
+
 def test_dense_cache_page_size_matches_jax():
     for m in (13, 24, 64, 197, 320, 2048):
         assert tpa.dense_cache_page_size(m) == jpa.dense_cache_page_size(m)
@@ -228,6 +368,24 @@ class TestNoSilentFallback:
         qs = torch.zeros((1,), dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="CUDA device"):
             tpa.paged_attention(q, kp, kp, table, qs)
+
+    def test_prefill_off_the_cpu_never_takes_a_plain_version(self):
+        """A bf16 prefill call (the tensor-core route) off the CPU takes no
+        plain version either: it must launch the kernel or raise."""
+        assert tpa.kernel_route(64, 8, 2, 128, 16, 9, torch.bfloat16) == "tc"
+        q = torch.empty((1, 64, 8, 128), dtype=torch.bfloat16, device="meta")
+        kp = torch.empty((9, 16, 2, 128), dtype=torch.bfloat16,
+                         device="meta")
+        table = torch.zeros((1, 9), dtype=torch.int32, device="meta")
+        qs = torch.zeros((1,), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="CUDA device"):
+            tpa.paged_attention(q, kp, kp, table, qs)
+        with pytest.raises(ValueError, match="CUDA device"):
+            tpa.dense_cache_attention(
+                q, torch.empty((1, 256, 2, 128), dtype=torch.bfloat16,
+                               device="meta"),
+                torch.empty((1, 256, 2, 128), dtype=torch.bfloat16,
+                            device="meta"), qs)
 
     def test_kernel_mode_on_cpu_pools_raises(self):
         geom = (128, 16, torch.bfloat16)
