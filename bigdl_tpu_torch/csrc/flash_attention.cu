@@ -69,15 +69,36 @@
 //   masked element-wise only in tiles that cross the diagonal or the end
 //   of the sequence. Outputs are stored from registers, rows past S
 //   skipped.
+// - Head dims 192 and 256 (chunks(D) = 3, 4): the tiles above hold whole
+//   tiles of D columns in shared memory (227 KB a block) and D-wide
+//   accumulators in registers (255 a thread), and at D 256 they would
+//   need: forward 64 KB of Q + 2 stages x 128 KB of K/V = 320 KB, with o
+//   (128 registers) + s (64) + P over 255; dq 128 KB of Q/dO + 2 x 64 KB
+//   = 256 KB; dkdv 256 KB, with dk + dv at 256 registers. So past D 128:
+//   - forward: 128 queries x 64-key tiles: 64 + 2 x 64 = 192 KB at D 256
+//     (144 KB at 192); o 128 + s 32 + P 16 registers;
+//   - dq: one warpgroup of 64 query rows a CTA (128 threads): Q 32 + dO
+//     32 + 2 x 64 KB of K/V = 192 KB; dq 128 + s 32 + dP 32 registers;
+//   - dkdv (flash_dkdv_split_tc_kernel): 64 keys a CTA, K 32 + V 32 + 2 x
+//     64 KB of Q/dO = 192 KB. Both warpgroups form the same Sᵀ = K·Qᵀ
+//     over the CTA's 64 keys; warpgroup 0 then accumulates dv += Pᵀ·dO,
+//     warpgroup 1 forms dPᵀ = V·dOᵀ and accumulates dk += dSᵀ·Q. Each
+//     holds one D-wide accumulator (128 registers at D 256) beside s, dP
+//     and a fragment tile; splitting D between the warpgroups instead
+//     would need both Sᵀ and dPᵀ in each (the same 3 products on the
+//     longer path) and 96-column halves at D 192.
+//   They are correct first; their speed is later work (PERF.md).
 //
 // float32 -> CUDA cores (the tensor cores take no f32 operand; TF32
 // would round the inputs): 256 threads per CTA as a 16 x 16 grid (ty,
-// tx) over 64 x 64 tiles, thread (ty, tx) owning rows ty*4 + i and
-// columns tx + 16*j (of D-wide outputs, 4 adjacent columns in each
-// 64-wide chunk, 2 at D 32), f32 FMAs over vector reads of the
-// shared-memory operands; products with D as output read the p or dS
-// tile back from shared memory. One CTA per (b·h, 64-row tile), the
+// tx) over R x R tiles, R = 64 (32 past D 128), thread (ty, tx) owning
+// rows ty*R/16 + i and columns tx + 16*j (of D-wide outputs, 4 adjacent
+// columns in each 64-wide chunk, 2 at D 32), f32 FMAs over vector reads
+// of the shared-memory operands; products with D as output read the p or
+// dS tile back from shared memory. One CTA per (b·h, R-row tile), the
 // walked tiles double-buffered with cp.async, rows past S zero-filled.
+// dq and dkdv stage six tiles of R x (D + 4) floats and the R x (R + 1)
+// p/dS tile: 219 KB at D 128 with R 64, 199 + 4 KB at D 256 with R 32.
 //
 // The kernels allocate nothing; the Python wrapper allocates outputs
 // and checks shapes, dtypes, contiguity and alignment.
@@ -100,9 +121,20 @@ constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
 // float32: CUDA cores
 // ===========================================================================
 
-constexpr int kTile = 64;          // query rows and key rows per tile
 constexpr int kThreads = 256;      // 16 x 16 thread grid
-constexpr int kPP = kTile + 1;     // pitch (floats) of the f32 p/dS tile
+
+// rows of a tile (query rows and key rows alike): 64, or 32 past D 128,
+// where the six staged tiles of dq and dkdv (64 rows of D + 4 floats
+// each: 416 KB at D 256) would pass the 227 KB a block may use; at 32
+// rows they take 6 · 33 KB + 4 KB at D 256
+template <int D>
+constexpr int kTileOf = D > 128 ? 32 : 64;
+// rows (and score columns) a thread owns: kTileOf / 16
+template <int D>
+constexpr int kMine = kTileOf<D> / 16;
+// pitch (floats) of the f32 p/dS tile
+template <int D>
+constexpr int kPP = kTileOf<D> + 1;
 
 // shared-memory row pitch in elements: D plus 16 bytes of padding, so
 // 16-byte cp.async chunks stay aligned and strided rows spread banks
@@ -113,7 +145,7 @@ __host__ __device__ constexpr int pitch() {
 
 template <typename T, int D>
 __host__ __device__ constexpr int tile_bytes() {
-  return kTile * pitch<T, D>() * static_cast<int>(sizeof(T));
+  return kTileOf<D> * pitch<T, D>() * static_cast<int>(sizeof(T));
 }
 
 __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
@@ -127,7 +159,7 @@ __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
 
 // Products with D as output cover it in chunks of kChunk<D> columns, 16
 // threads across a chunk, kPer<D> adjacent columns each (4 at D 64 and
-// 128, 2 at D 32).
+// up, 2 at D 32).
 template <int D>
 constexpr int kChunk = D < 64 ? D : 64;
 template <int D>
@@ -165,15 +197,15 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Stage rows [row0, row0 + 64) of head h of x (B, S, H, D) into dst
-// (64 rows at pitch P); rows >= S are zero-filled.
+// Stage rows [row0, row0 + R) of head h of x (B, S, H, D) into dst
+// (R = kTileOf<D> rows at pitch P); rows >= S are zero-filled.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* x, int b, int h,
                                           int row0, int S, int H) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
   constexpr int P = pitch<T, D>();
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
+  for (int c = threadIdx.x; c < kTileOf<D> * kChunks; c += kThreads) {
     const int r = c / kChunks, w = (c % kChunks) * kVec;
     const int s = row0 + r;
     const bool ok = s < S;
@@ -183,66 +215,69 @@ __device__ __forceinline__ void load_tile(T* dst, const T* x, int b, int h,
   }
 }
 
-// acc[i][j] = A[ty*4 + i] · B[tx + 16*j] over D (both tiles at pitch P)
+// acc[i][j] = A[ty*M + i] · B[tx + 16*j] over D (both tiles at pitch P,
+// M = kMine<D>)
 template <typename T, int D>
 __device__ __forceinline__ void dot_tile(const T* A, const T* B, int ty,
-                                         int tx, float (&acc)[4][4]) {
-  constexpr int P = pitch<T, D>();
+                                         int tx,
+                                         float (&acc)[kMine<D>][kMine<D>]) {
+  constexpr int P = pitch<T, D>(), M = kMine<D>;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < M; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
-    float a[4][4], bb[4][4];
+    float a[M][4], bb[M][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) load4(A + (ty * 4 + i) * P + d, a[i]);
+    for (int i = 0; i < M; ++i) load4(A + (ty * M + i) * P + d, a[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) load4(B + (tx + 16 * j) * P + d, bb[j]);
+    for (int j = 0; j < M; ++j) load4(B + (tx + 16 * j) * P + d, bb[j]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < M; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j] += a[i][e] * bb[j][e];
   }
 }
 
-// acc[i][u*E + e] += Σ_c W[ty*4 + i][c] · X[c][tx*E + kChunk*u + e]
-// (E = kPer<D>): W the f32 64 x 64 tile at pitch kPP, X a staged tile at
-// pitch P
+// acc[i][u*E + e] += Σ_c W[ty*M + i][c] · X[c][tx*E + kChunk*u + e]
+// (E = kPer<D>, M = kMine<D>): W the f32 R x R tile at pitch kPP, X a
+// staged tile at pitch P
 template <typename T, int D>
 __device__ __forceinline__ void mul_tile(const float* W, const T* X, int ty,
-                                         int tx, float (&acc)[4][D / 16]) {
-  constexpr int P = pitch<T, D>();
+                                         int tx,
+                                         float (&acc)[kMine<D>][D / 16]) {
+  constexpr int P = pitch<T, D>(), M = kMine<D>;
 #pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float w[4];
+  for (int c = 0; c < kTileOf<D>; ++c) {
+    float w[M];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = W[(ty * 4 + i) * kPP + c];
+    for (int i = 0; i < M; ++i) w[i] = W[(ty * M + i) * kPP<D> + c];
     constexpr int E = kPer<D>;
 #pragma unroll
     for (int u = 0; u < D / kChunk<D>; ++u) {
       float x[E];
       load_n(X + c * P + tx * E + kChunk<D> * u, x);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < M; ++i)
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[i][u * E + e] += w[i] * x[e];
     }
   }
 }
 
-// Write rows ty*4 + i (if below S) of a (B, S, H, D) output, scaled by
+// Write rows ty*M + i (if below S) of a (B, S, H, D) output, scaled by
 // inv[i]
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][D / 16],
-                                           const float (&inv)[4], int b,
-                                           int h, int row0, int S, int H,
-                                           int ty, int tx) {
+__device__ __forceinline__ void store_rows(
+    T* out, const float (&acc)[kMine<D>][D / 16],
+    const float (&inv)[kMine<D>], int b, int h, int row0, int S, int H,
+    int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = row0 + ty * 4 + i;
+  for (int i = 0; i < kMine<D>; ++i) {
+    const int s = row0 + ty * kMine<D> + i;
     if (s >= S) continue;
     T* row = out + ((static_cast<int64_t>(b) * S + s) * H + h) * D;
     constexpr int E = kPer<D>;
@@ -268,13 +303,14 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-// number of key tiles a query tile starting at q0 attends
+// number of key tiles of R rows a query tile starting at q0 attends
+template <int R>
 __device__ __forceinline__ int key_tiles(int q0, int Sq, int Skv,
                                          bool causal) {
-  const int nk = (Skv + kTile - 1) / kTile;
+  const int nk = (Skv + R - 1) / R;
   if (!causal) return nk;
-  const int q_last = min(q0 + kTile - 1, Sq - 1);
-  return min(nk, q_last / kTile + 1);
+  const int q_last = min(q0 + R - 1, Sq - 1);
+  return min(nk, q_last / R + 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -287,20 +323,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Skv,
                  float scale, int causal) {
+  constexpr int R = kTileOf<D>, M = kMine<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kT = kTile * pitch<T, D>();          // elements per tile
+  constexpr int kT = R * pitch<T, D>();              // elements per tile
   T* const qs = reinterpret_cast<T*>(smem_raw);
   T* const kv = qs + kT;                              // [2][K|V][tile]
   float* const ps = reinterpret_cast<float*>(kv + 4 * kT);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;   // heavy tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;   // heavy tiles first
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int nkt = key_tiles(q0, Sq, Skv, causal);
+  const int nkt = key_tiles<R>(q0, Sq, Skv, causal);
 
-  float acc[4][D / 16], m[4], l[4];
+  float acc[M][D / 16], m[M], l[M];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < M; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -316,22 +353,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vs = ks + kT;
     if (kt + 1 < nkt) {
       T* nk = kv + ((kt + 1) & 1) * 2 * kT;
-      load_tile<T, D>(nk, k, b, h, (kt + 1) * kTile, Skv, H);
-      load_tile<T, D>(nk + kT, v, b, h, (kt + 1) * kTile, Skv, H);
+      load_tile<T, D>(nk, k, b, h, (kt + 1) * R, Skv, H);
+      load_tile<T, D>(nk + kT, v, b, h, (kt + 1) * R, Skv, H);
     }
     cp_async_commit();
     cp_async_wait_prev();                  // tile kt (and q) has landed
     __syncthreads();
 
-    float s[4][4];
+    float s[M][M];
     dot_tile<T, D>(qs, ks, ty, tx, s);
-    const int k0 = kt * kTile;
+    const int k0 = kt * R;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int i = 0; i < M; ++i) {
+      const int qpos = q0 + ty * M + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < M; ++j) {
         const int kpos = k0 + tx + 16 * j;
         s[i][j] = kpos >= Skv                ? -INFINITY   // past the end
                   : (causal && kpos > qpos) ? kMask
@@ -342,10 +379,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < M; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        ps[(ty * 4 + i) * kPP + tx + 16 * j] = p;
+        ps[(ty * M + i) * kPP<D> + tx + 16 * j] = p;
       }
       l[i] = l[i] * corr + group16_sum(sum);
       m[i] = m_new;
@@ -357,14 +394,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                       // buffers free for reuse
   }
 
-  float inv[4];
+  float inv[M];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) inv[i] = 1.f / l[i];
+  for (int i = 0; i < M; ++i) inv[i] = 1.f / l[i];
   store_rows<T, D>(o, acc, inv, b, h, q0, Sq, H, ty, tx);
   if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = q0 + ty * 4 + i;
+    for (int i = 0; i < M; ++i) {
+      const int s = q0 + ty * M + i;
       if (s < Sq)
         lse[(static_cast<int64_t>(b) * Sq + s) * H + h] = m[i] + logf(l[i]);
     }
@@ -382,22 +419,23 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, int H,
                 int Sq, int Skv, float scale, int causal) {
+  constexpr int R = kTileOf<D>, M = kMine<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kT = kTile * pitch<T, D>();
+  constexpr int kT = R * pitch<T, D>();
   T* const qs = reinterpret_cast<T*>(smem_raw);
   T* const dos = qs + kT;
   T* const kv = dos + kT;                             // [2][K|V][tile]
   float* const ds_tile = reinterpret_cast<float*>(kv + 4 * kT);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int nkt = key_tiles(q0, Sq, Skv, causal);
+  const int nkt = key_tiles<R>(q0, Sq, Skv, causal);
 
-  float acc[4][D / 16], row_lse[4], row_delta[4];
+  float acc[M][D / 16], row_lse[M], row_delta[M];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
+  for (int i = 0; i < M; ++i) {
+    const int s = q0 + ty * M + i;
     const int64_t at = (static_cast<int64_t>(b) * Sq + s) * H + h;
     row_lse[i] = s < Sq ? lse[at] : 0.f;
     row_delta[i] = s < Sq ? delta[at] : 0.f;
@@ -415,29 +453,29 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vs = ks + kT;
     if (kt + 1 < nkt) {
       T* nk = kv + ((kt + 1) & 1) * 2 * kT;
-      load_tile<T, D>(nk, k, b, h, (kt + 1) * kTile, Skv, H);
-      load_tile<T, D>(nk + kT, v, b, h, (kt + 1) * kTile, Skv, H);
+      load_tile<T, D>(nk, k, b, h, (kt + 1) * R, Skv, H);
+      load_tile<T, D>(nk + kT, v, b, h, (kt + 1) * R, Skv, H);
     }
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[M][M], dp[M][M];
     dot_tile<T, D>(qs, ks, ty, tx, s);
     dot_tile<T, D>(dos, vs, ty, tx, dp);
-    const int k0 = kt * kTile;
+    const int k0 = kt * R;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int i = 0; i < M; ++i) {
+      const int qpos = q0 + ty * M + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < M; ++j) {
         const int kpos = k0 + tx + 16 * j;
         const float sc = kpos >= Skv                ? -INFINITY
                          : (causal && kpos > qpos) ? kMask
                                                    : s[i][j] * scale;
         const float p = expf(sc - row_lse[i]);
         const float ds = p * (dp[i][j] - row_delta[i]) * scale;
-        ds_tile[(ty * 4 + i) * kPP + tx + 16 * j] = ds;
+        ds_tile[(ty * M + i) * kPP<D> + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -445,7 +483,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  float one[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) one[i] = 1.f;
   store_rows<T, D>(dq, acc, one, b, h, q0, Sq, H, ty, tx);
 }
 
@@ -461,31 +501,32 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv, int H, int Sq, int Skv, float scale,
                   int causal) {
+  constexpr int R = kTileOf<D>, M = kMine<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kT = kTile * pitch<T, D>();
+  constexpr int kT = R * pitch<T, D>();
   T* const ks = reinterpret_cast<T*>(smem_raw);
   T* const vs = ks + kT;
   T* const qd = vs + kT;                              // [2][Q|dO][tile]
   float* const w_tile = reinterpret_cast<float*>(qd + 4 * kT);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = (gridDim.y - 1 - blockIdx.y) * kTile;   // heavy tiles first
+  const int k0 = (gridDim.y - 1 - blockIdx.y) * R;   // heavy tiles first
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int nq = (Sq + kTile - 1) / kTile;
+  const int nq = (Sq + R - 1) / R;
   // causal: query tiles wholly before this key tile see none of its keys
-  const int qt0 = causal ? min(k0 / kTile, nq) : 0;
+  const int qt0 = causal ? min(k0 / R, nq) : 0;
 
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  float dk_acc[M][D / 16], dv_acc[M][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int d = 0; d < D / 16; ++d) dk_acc[i][d] = dv_acc[i][d] = 0.f;
 
   load_tile<T, D>(ks, k, b, h, k0, Skv, H);
   load_tile<T, D>(vs, v, b, h, k0, Skv, H);
   if (qt0 < nq) {
-    load_tile<T, D>(qd, q, b, h, qt0 * kTile, Sq, H);
-    load_tile<T, D>(qd + kT, dout, b, h, qt0 * kTile, Sq, H);
+    load_tile<T, D>(qd, q, b, h, qt0 * R, Sq, H);
+    load_tile<T, D>(qd + kT, dout, b, h, qt0 * R, Sq, H);
   }
   cp_async_commit();
   for (int qt = qt0; qt < nq; ++qt) {
@@ -493,18 +534,18 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* dos = qs + kT;
     if (qt + 1 < nq) {
       T* nq_tile = qd + ((qt + 1 - qt0) & 1) * 2 * kT;
-      load_tile<T, D>(nq_tile, q, b, h, (qt + 1) * kTile, Sq, H);
-      load_tile<T, D>(nq_tile + kT, dout, b, h, (qt + 1) * kTile, Sq, H);
+      load_tile<T, D>(nq_tile, q, b, h, (qt + 1) * R, Sq, H);
+      load_tile<T, D>(nq_tile + kT, dout, b, h, (qt + 1) * R, Sq, H);
     }
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
 
     // transposed tiles: rows are this CTA's keys, columns the queries
-    float s[4][4], dp[4][4], col_lse[4], col_delta[4];
-    const int q0 = qt * kTile;
+    float s[M][M], dp[M][M], col_lse[M], col_delta[M];
+    const int q0 = qt * R;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < M; ++j) {
       const int qpos = q0 + tx + 16 * j;
       const int64_t at = (static_cast<int64_t>(b) * Sq + qpos) * H + h;
       col_lse[j] = qpos < Sq ? lse[at] : 0.f;
@@ -513,48 +554,52 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dot_tile<T, D>(ks, qs, ty, tx, s);
     dot_tile<T, D>(vs, dos, ty, tx, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kpos = k0 + ty * 4 + i;
+    for (int i = 0; i < M; ++i) {
+      const int kpos = k0 + ty * M + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < M; ++j) {
         const int qpos = q0 + tx + 16 * j;
         const float sc = qpos >= Sq                 ? -INFINITY
                          : (causal && kpos > qpos) ? kMask
                                                    : s[i][j] * scale;
         s[i][j] = expf(sc - col_lse[j]);                  // p
-        w_tile[(ty * 4 + i) * kPP + tx + 16 * j] = s[i][j];
+        w_tile[(ty * M + i) * kPP<D> + tx + 16 * j] = s[i][j];
       }
     }
     __syncthreads();                       // pᵀ tile complete
     mul_tile<T, D>(w_tile, dos, ty, tx, dv_acc);
     __syncthreads();                       // pᵀ tile read
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < M; ++j) {
         const float ds = s[i][j] * (dp[i][j] - col_delta[j]) * scale;
-        w_tile[(ty * 4 + i) * kPP + tx + 16 * j] = ds;
+        w_tile[(ty * M + i) * kPP<D> + tx + 16 * j] = ds;
       }
     __syncthreads();                       // dSᵀ tile complete
     mul_tile<T, D>(w_tile, qs, ty, tx, dk_acc);
     __syncthreads();                       // buffers free for reuse
   }
 
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  float one[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) one[i] = 1.f;
   store_rows<T, D>(dk, dk_acc, one, b, h, k0, Skv, H, ty, tx);
   store_rows<T, D>(dv, dv_acc, one, b, h, k0, Skv, H, ty, tx);
 }
 
-constexpr size_t kWTileBytes = kTile * kPP * sizeof(float);
+// the f32 p/dS tile
+template <int D>
+constexpr size_t kWTileBytes = kTileOf<D> * kPP<D> * sizeof(float);
 
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int B, int H, int Sq, int Skv, float scale, int causal,
         cudaStream_t st) {
-  const size_t smem = 5 * tile_bytes<T, D>() + kWTileBytes;
+  const size_t smem = 5 * tile_bytes<T, D>() + kWTileBytes<D>;
   auto kernel = flash_fwd_kernel<T, D>;
   if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Sq + kTile - 1) / kTile);
+  const dim3 grid(B * H, (Sq + kTileOf<D> - 1) / kTileOf<D>);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Skv, scale,
@@ -566,10 +611,10 @@ template <typename T, int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const float* lse, const float* delta, void* dq_out, int B, int H,
        int Sq, int Skv, float scale, int causal, cudaStream_t st) {
-  const size_t smem = 6 * tile_bytes<T, D>() + kWTileBytes;
+  const size_t smem = 6 * tile_bytes<T, D>() + kWTileBytes<D>;
   auto kernel = flash_dq_kernel<T, D>;
   if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Sq + kTile - 1) / kTile);
+  const dim3 grid(B * H, (Sq + kTileOf<D> - 1) / kTileOf<D>);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -581,10 +626,10 @@ template <typename T, int D>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const float* lse, const float* delta, void* dk, void* dv, int B,
          int H, int Sq, int Skv, float scale, int causal, cudaStream_t st) {
-  const size_t smem = 6 * tile_bytes<T, D>() + kWTileBytes;
+  const size_t smem = 6 * tile_bytes<T, D>() + kWTileBytes<D>;
   auto kernel = flash_dkdv_kernel<T, D>;
   if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Skv + kTile - 1) / kTile);
+  const dim3 grid(B * H, (Skv + kTileOf<D> - 1) / kTileOf<D>);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -604,6 +649,14 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;      // two warpgroups of 128
 constexpr int kRows = 128;         // rows a CTA owns (64 per warpgroup)
 constexpr int kStages = 2;         // ring of walked tiles
+
+// Past D 128 the tiles shrink to fit 227 KB of shared memory and 255
+// registers a thread (header): the forward walks keys in tiles of 64, a
+// dq CTA is one warpgroup of 64 query rows
+__host__ __device__ constexpr int fwd_keys(int D) { return D > 128 ? 64 : 128; }
+__host__ __device__ constexpr int dq_warpgroups(int D) {
+  return D > 128 ? 1 : 2;
+}
 
 // 64-wide column chunks of a D-wide tile; D 32 is one chunk whose
 // columns 32..63 TMA fills with zeros (the box reaches past D), so
@@ -666,13 +719,25 @@ using Ring = hopper::Ring<kStages>;
 template <int kFixedBytes, int kStageBytes>
 using Layout = hopper::Layout<kStages, kFixedBytes, kStageBytes>;
 
-// empty stages take one arrival per warp
-__device__ __forceinline__ Ring make_ring(unsigned char* raw, int bars_at) {
-  return hopper::make_ring<kStages>(raw, bars_at, kThreads / 32);
+// empty stages take one arrival per warp of the CTA's `threads`
+__device__ __forceinline__ Ring make_ring(unsigned char* raw, int bars_at,
+                                          int threads = kThreads) {
+  return hopper::make_ring<kStages>(raw, bars_at, threads / 32);
+}
+
+// d (+)= A·B at N 64 or 128 (d: N/2 f32 a thread)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, a, b, acc);
+  else
+    wgmma_ss_n128(d, a, b, acc);
 }
 
 // ---------------------------------------------------------------------------
-// forward: o and lse. CTA: 128 queries of one (b, h); K/V tiles of 128.
+// forward: o and lse. CTA: 128 queries of one (b, h); K/V tiles of 128
+// keys (64 past D 128).
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -682,7 +747,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
                     const __grid_constant__ CUtensorMap vm,
                     bf16* __restrict__ o, float* __restrict__ lse, int H,
                     int Sq, int Skv, float scale, int causal) {
-  constexpr int kN = 128, kC = chunks(D);
+  constexpr int kN = fwd_keys(D), kC = chunks(D);
   constexpr int kQ = kRows * kC * kRowBytes, kKV = kN * kC * kRowBytes;
   using L = Layout<kQ, 2 * kKV>;
   extern __shared__ unsigned char smem_raw[];
@@ -730,13 +795,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
     const uint32_t ks = kv0 + st * 2 * kKV;
     const uint32_t vs = ks + kKV;
 
-    float s[64];
+    float s[kN / 2];
     zero(s);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(s, desc_k<kRows>(qs, 64 * g, kk), desc_k<kN>(ks, 0, kk),
-                    kk > 0);
+      wgmma_ss<kN>(s, desc_k<kRows>(qs, 64 * g, kk), desc_k<kN>(ks, 0, kk),
+                   kk > 0);
     wg_commit();
     wg_wait();
     keep(s);
@@ -746,7 +811,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
     const bool edge = (causal && k0 + kN - 1 > q0 + 64 * g) || k0 + kN > Skv;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kN / 2; ++i) {
       float x = s[i] * scale;
       if (edge) {
         const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
@@ -764,7 +829,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
       lsum[r] *= corr[r];
     }
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kN / 2; ++i) {
       s[i] = expf(s[i] - m[(i % 4) / 2]);
       lsum[(i % 4) / 2] += s[i];           // this thread's part of the row
     }
@@ -809,11 +874,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qm,
 }
 
 // ---------------------------------------------------------------------------
-// backward: dq. CTA: 128 queries; K/V tiles of 64 keys.
+// backward: dq. CTA: 128 queries (64, one warpgroup, past D 128); K/V
+// tiles of 64 keys.
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(128 * dq_warpgroups(D), 1)
 flash_dq_tc_kernel(const __grid_constant__ CUtensorMap qm,
                    const __grid_constant__ CUtensorMap km,
                    const __grid_constant__ CUtensorMap vm,
@@ -821,25 +887,25 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap qm,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int H, int Sq, int Skv, float scale, int causal) {
-  constexpr int kN = 64, kC = chunks(D);
-  constexpr int kQ = kRows * kC * kRowBytes, kKV = kN * kC * kRowBytes;
+  constexpr int kN = 64, kC = chunks(D), kM = 64 * dq_warpgroups(D);
+  constexpr int kQ = kM * kC * kRowBytes, kKV = kN * kC * kRowBytes;
   using L = Layout<2 * kQ, 2 * kKV>;
   extern __shared__ unsigned char smem_raw[];
-  const Ring ring = make_ring(smem_raw, L::kBars);
+  const Ring ring = make_ring(smem_raw, L::kBars, 2 * kM);
   const uint32_t qs = ring.base, dos = qs + kQ, kv0 = dos + kQ;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kM;
   const int nk = (Skv + kN - 1) / kN;
   const int nkt =
-      causal ? min(nk, (min(q0 + kRows, Sq) - 1) / kN + 1) : nk;
+      causal ? min(nk, (min(q0 + kM, Sq) - 1) / kN + 1) : nk;
   const int tid = threadIdx.x, g = tid / 128, l = tid % 32;
   const int row0 = q0 + 64 * g + 16 * ((tid / 32) % 4) + l / 4;
 
   if (tid == 0) {
     bar_expect(ring.once(), 2 * kQ);
-    load_rows<D, kRows>(qs, &qm, ring.once(), b, h, q0);
-    load_rows<D, kRows>(dos, &dom, ring.once(), b, h, q0);
+    load_rows<D, kM>(qs, &qm, ring.once(), b, h, q0);
+    load_rows<D, kM>(dos, &dom, ring.once(), b, h, q0);
     for (int t = 0; t < min(kStages, nkt); ++t) {
       bar_expect(ring.full(t), 2 * kKV);
       load_rows<D, kN>(kv0 + t * 2 * kKV, &km, ring.full(t), b, h, t * kN);
@@ -883,11 +949,11 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap qm,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, desc_k<kRows>(qs, 64 * g, kk), desc_k<kN>(ks, 0, kk),
+      wgmma_ss_n64(s, desc_k<kM>(qs, 64 * g, kk), desc_k<kN>(ks, 0, kk),
                    kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, desc_k<kRows>(dos, 64 * g, kk), desc_k<kN>(vs, 0, kk),
+      wgmma_ss_n64(dp, desc_k<kM>(dos, 64 * g, kk), desc_k<kN>(vs, 0, kk),
                    kk > 0);
     wg_commit();
     wg_wait();
@@ -1072,6 +1138,153 @@ flash_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qm,
   store_acc<D>(dv, dva, one, b, h, krow0, Skv, H, l);
 }
 
+// ---------------------------------------------------------------------------
+// backward past D 128: dk and dv. CTA: 64 keys; Q/dO tiles of 64
+// queries. Both warpgroups hold the same 64 keys and form the same
+// Sᵀ = K·Qᵀ; warpgroup 0 accumulates dv += Pᵀ·dO, warpgroup 1 forms
+// dPᵀ = V·dOᵀ and accumulates dk += dSᵀ·Q, each over all of D: one
+// accumulator of chunks(D) x 32 registers a thread (128 at D 256), where
+// the D <= 128 kernel's dk and dv together would need 256.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkdv_split_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm,
+                           const __grid_constant__ CUtensorMap dom,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int Sq, int Skv, float scale, int causal) {
+  constexpr int kN = 64, kM = 64, kC = chunks(D);
+  constexpr int kK = kN * kC * kRowBytes, kQD = kM * kC * kRowBytes;
+  using L = Layout<2 * kK, 2 * kQD>;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring ring = make_ring(smem_raw, L::kBars);
+  const uint32_t ks = ring.base, vs = ks + kK, qd0 = vs + kK;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = (gridDim.y - 1 - blockIdx.y) * kN;    // heavy tiles first
+  const int nq = (Sq + kM - 1) / kM;
+  // causal: query tiles wholly before this key tile see none of its keys
+  const int qt0 = causal ? min(k0 / kM, nq) : 0;
+  const int n = nq - qt0;
+  const int tid = threadIdx.x, g = tid / 128, l = tid % 32;
+  const int krow0 = k0 + 16 * ((tid / 32) % 4) + l / 4;
+
+  if (tid == 0) {
+    bar_expect(ring.once(), 2 * kK);
+    load_rows<D, kN>(ks, &km, ring.once(), b, h, k0);
+    load_rows<D, kN>(vs, &vm, ring.once(), b, h, k0);
+    for (int t = 0; t < min(kStages, n); ++t) {
+      bar_expect(ring.full(t), 2 * kQD);
+      load_rows<D, kM>(qd0 + t * 2 * kQD, &qm, ring.full(t), b, h,
+                       (qt0 + t) * kM);
+      load_rows<D, kM>(qd0 + t * 2 * kQD + kQD, &dom, ring.full(t), b, h,
+                       (qt0 + t) * kM);
+    }
+  }
+  __syncwarp();
+
+  float acc[kC][32];                       // dv (warpgroup 0), dk (1)
+#pragma unroll
+  for (int c = 0; c < kC; ++c) zero(acc[c]);
+  warp_wait(ring.once(), 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it % kStages;
+    if (tid == 0 && it >= 1 && it - 1 + kStages < n) {
+      const int t = it - 1 + kStages, s2 = t % kStages;
+      bar_wait(ring.empty(s2), ((it - 1) / kStages) & 1);
+      bar_expect(ring.full(s2), 2 * kQD);
+      load_rows<D, kM>(qd0 + s2 * 2 * kQD, &qm, ring.full(s2), b, h,
+                       (qt0 + t) * kM);
+      load_rows<D, kM>(qd0 + s2 * 2 * kQD + kQD, &dom, ring.full(s2), b, h,
+                       (qt0 + t) * kM);
+    }
+    __syncwarp();
+    warp_wait(ring.full(st), (it / kStages) & 1);
+    const uint32_t qs = qd0 + st * 2 * kQD;
+    const uint32_t dos = qs + kQD;
+    const int q0 = (qt0 + it) * kM;
+
+    // Sᵀ = K·Qᵀ: rows are the CTA's keys, columns the queries
+    float s[32];
+    zero(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<kN>(ks, 0, kk), desc_k<kM>(qs, 0, kk), kk > 0);
+    wg_commit();
+    float col[16];                          // lse, then delta, per column
+    load_cols(col, lse, b, h, q0, Sq, H, l);   // in flight with the product
+    wg_wait();
+    keep(s);
+
+    const bool edge = (causal && k0 + kN - 1 > q0) || q0 + kM > Sq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qpos = q0 + acc_col(i, l), kpos = krow0 + acc_row(i);
+      float x = s[i] * scale;
+      if (edge)
+        x = qpos >= Sq ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+      s[i] = expf(x - col[2 * (i / 4) + i % 2]);
+    }
+
+    if (g == 0) {
+      // dv += Pᵀ·dO
+      uint32_t pf[kM / 16][4];
+      to_frags<kM / 16>(s, pf);             // pᵀ in bf16
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kM / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          wgmma_rs_n64(acc[c], pf[kk], desc_mn<kM>(dos, c, kk));
+      wg_commit();
+      wg_wait();
+#pragma unroll
+      for (int c = 0; c < kC; ++c) keep(acc[c]);
+      keep(pf);
+    } else {
+      // dPᵀ = V·dOᵀ, dSᵀ = Pᵀ∘(dPᵀ - delta)·scale, dk += dSᵀ·Q
+      float dp[32];
+      zero(dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<kN>(vs, 0, kk), desc_k<kM>(dos, 0, kk),
+                     kk > 0);
+      wg_commit();
+      load_cols(col, delta, b, h, q0, Sq, H, l);
+      wg_wait();
+      keep(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] = s[i] * (dp[i] - col[2 * (i / 4) + i % 2]) * scale;
+      uint32_t dsf[kM / 16][4];
+      to_frags<kM / 16>(s, dsf);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kM / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          wgmma_rs_n64(acc[c], dsf[kk], desc_mn<kM>(qs, c, kk));
+      wg_commit();
+      wg_wait();
+#pragma unroll
+      for (int c = 0; c < kC; ++c) keep(acc[c]);
+      keep(dsf);
+    }
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(st));
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(g == 0 ? dv : dk, acc, one, b, h, krow0, Skv, H, l);
+}
+
 // --- host: tensor maps and launchers ---
 
 // (B, S, H, D) bf16 at ptr as a (D, H, S, B) map with boxes (64, 1, rows,
@@ -1101,13 +1314,14 @@ template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int B, int H, int Sq, int Skv, float scale, int causal,
         cudaStream_t st) {
+  constexpr int kN = fwd_keys(D);
   CUtensorMap qm, km, vm;
   if (int e = make_map(&qm, q, B, Sq, H, D, kRows)) return e;
-  if (int e = make_map(&km, k, B, Skv, H, D, 128)) return e;
-  if (int e = make_map(&vm, v, B, Skv, H, D, 128)) return e;
+  if (int e = make_map(&km, k, B, Skv, H, D, kN)) return e;
+  if (int e = make_map(&vm, v, B, Skv, H, D, kN)) return e;
   constexpr int kTileRow = chunks(D) * kRowBytes;
   constexpr size_t smem =
-      Layout<kRows * kTileRow, 2 * 128 * kTileRow>::kSmem;
+      Layout<kRows * kTileRow, 2 * kN * kTileRow>::kSmem;
   auto kernel = flash_fwd_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
@@ -1120,38 +1334,50 @@ template <int D>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const float* lse, const float* delta, void* dq_out, int B, int H,
        int Sq, int Skv, float scale, int causal, cudaStream_t st) {
+  constexpr int kM = 64 * dq_warpgroups(D);           // query rows a CTA
   CUtensorMap qm, km, vm, dom;
-  if (int e = make_map(&qm, q, B, Sq, H, D, kRows)) return e;
-  if (int e = make_map(&dom, dout, B, Sq, H, D, kRows)) return e;
+  if (int e = make_map(&qm, q, B, Sq, H, D, kM)) return e;
+  if (int e = make_map(&dom, dout, B, Sq, H, D, kM)) return e;
   if (int e = make_map(&km, k, B, Skv, H, D, 64)) return e;
   if (int e = make_map(&vm, v, B, Skv, H, D, 64)) return e;
   constexpr int kTileRow = chunks(D) * kRowBytes;
   constexpr size_t smem =
-      Layout<2 * kRows * kTileRow, 2 * 64 * kTileRow>::kSmem;
+      Layout<2 * kM * kTileRow, 2 * 64 * kTileRow>::kSmem;
   auto kernel = flash_dq_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, st>>>(qm, km, vm, dom, lse, delta,
+  const dim3 grid(B * H, (Sq + kM - 1) / kM);
+  kernel<<<grid, 2 * kM, smem, st>>>(qm, km, vm, dom, lse, delta,
                                        static_cast<bf16*>(dq_out), H, Sq,
                                        Skv, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the dk/dv kernel of head dim D (only that one is instantiated)
+template <int D>
+constexpr auto dkdv_kernel() {
+  if constexpr (D > 128)
+    return flash_dkdv_split_tc_kernel<D>;
+  else
+    return flash_dkdv_tc_kernel<D>;
 }
 
 template <int D>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const float* lse, const float* delta, void* dk, void* dv, int B,
          int H, int Sq, int Skv, float scale, int causal, cudaStream_t st) {
+  // keys a CTA: 128 (64 a warpgroup), or 64 past D 128 (the split kernel)
+  constexpr int kN = D > 128 ? 64 : kRows;
   CUtensorMap qm, km, vm, dom;
-  if (int e = make_map(&km, k, B, Skv, H, D, kRows)) return e;
-  if (int e = make_map(&vm, v, B, Skv, H, D, kRows)) return e;
+  if (int e = make_map(&km, k, B, Skv, H, D, kN)) return e;
+  if (int e = make_map(&vm, v, B, Skv, H, D, kN)) return e;
   if (int e = make_map(&qm, q, B, Sq, H, D, 64)) return e;
   if (int e = make_map(&dom, dout, B, Sq, H, D, 64)) return e;
   constexpr int kTileRow = chunks(D) * kRowBytes;
   constexpr size_t smem =
-      Layout<2 * kRows * kTileRow, 2 * 64 * kTileRow>::kSmem;
-  auto kernel = flash_dkdv_tc_kernel<D>;
+      Layout<2 * kN * kTileRow, 2 * 64 * kTileRow>::kSmem;
+  auto kernel = dkdv_kernel<D>();
   if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Skv + kRows - 1) / kRows);
+  const dim3 grid(B * H, (Skv + kN - 1) / kN);
   kernel<<<grid, kThreads, smem, st>>>(qm, km, vm, dom, lse, delta,
                                        static_cast<bf16*>(dk),
                                        static_cast<bf16*>(dv), H, Sq, Skv,
@@ -1168,9 +1394,13 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
     if (dtype == 0 && D == 32) return FN<float, 32>(__VA_ARGS__);         \
     if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);         \
     if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__);       \
+    if (dtype == 0 && D == 192) return FN<float, 192>(__VA_ARGS__);       \
+    if (dtype == 0 && D == 256) return FN<float, 256>(__VA_ARGS__);       \
     if (dtype == 1 && D == 32) return tc::FN<32>(__VA_ARGS__);            \
     if (dtype == 1 && D == 64) return tc::FN<64>(__VA_ARGS__);            \
     if (dtype == 1 && D == 128) return tc::FN<128>(__VA_ARGS__);          \
+    if (dtype == 1 && D == 192) return tc::FN<192>(__VA_ARGS__);          \
+    if (dtype == 1 && D == 256) return tc::FN<256>(__VA_ARGS__);          \
     return -1;                                                            \
   } while (0)
 

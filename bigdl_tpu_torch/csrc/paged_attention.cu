@@ -59,7 +59,8 @@
 //   MN-major from shared memory: no transposed copy. Online softmax in
 //   f32 registers, in base 2 (ex2.approx); scores are masked element-wise
 //   only in tiles that reach past the CTA's first query position.
-// - K/V tiles run through a ring of 4 stages (2 at D 256) with full/empty
+// - K/V tiles run through a ring of 4 stages (2 past D 128: at D 192
+//   four would take 24 KB of Q + 4 x 48 KB + the page ids) with full/empty
 //   mbarriers. The producer warp issues every tile's boxes, a lane a box
 //   (one TMA issue costs some 100 cycles: a tile of 4 pages at D 128 is
 //   16 boxes), and refills a stage as soon as the 4 consumer warps
@@ -121,7 +122,9 @@
 //   P·V, masked keys score the finite -1e9, as in the prefill kernel.
 // - P·V: a thread owns one 16-byte slice of D for all rows and a strided
 //   subset of the chunk's keys, so each V vector is read once and feeds
-//   every row; slices are summed over threads once, at the end.
+//   every row; slices are summed over threads once, at the end. Where a
+//   row's slices do not divide the 128 threads (D 192: 24 of bf16, 48 of
+//   f32), the threads past the last whole group sit P·V out.
 // - Each CTA writes an f32 partial per (query row, split): running max m,
 //   sum l and the unnormalised accumulator, to a workspace the wrapper
 //   allocates. The last live split CTA of a (row, kv head) to finish —
@@ -416,10 +419,14 @@ struct SplitShape {
   static constexpr int kVpr = D / kVec;           // vectors per K/V row
   static constexpr int kRowB = D * sizeof(T) + 16;  // padded smem row
   // P·V: a thread owns one vector slice of D; kKeyGroups threads share it
+  // (at D 192, 24 or 48 vectors a row: 5 or 2 groups, and the last 8 or
+  // 32 threads take no part in P·V)
   static constexpr int kKeyGroups = kThreads / kVpr;
-  // after the lanes that share a slice are summed by shuffles, one
-  // partial per warp (per key group where a slice spans two warps)
-  static constexpr int kRedSpan = kVpr < 32 ? 32 : kVpr;
+  // where the slices of a row divide a warp, the lanes that share a slice
+  // are summed by shuffles and one partial per warp is kept; otherwise
+  // each key group keeps its own
+  static constexpr bool kShuffle = kVpr < 32 && 32 % kVpr == 0;
+  static constexpr int kRedSpan = kShuffle ? 32 : kVpr;
   static constexpr int kRedGroups = kThreads / kRedSpan;
 };
 
@@ -524,6 +531,8 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[r][i] = 0.f;
   const int slice = tid % kVpr, kg = tid / kVpr;
+  // threads past the last whole key group start past every key
+  const int kfirst = kg < Sh::kKeyGroups ? kg : kc;
 
   for (int c = 0; c < n_chunks; ++c) {
     // nst == 1 only when the whole split is one chunk
@@ -628,7 +637,7 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       for (int i = 0; i < kVec; ++i) acc[r][i] *= corr;
     }
 #pragma unroll 4
-    for (int k = kg; k < n; k += Sh::kKeyGroups) {
+    for (int k = kfirst; k < n; k += Sh::kKeyGroups) {
       float vf[kVec];
       load_vec(reinterpret_cast<const T*>(vs + k * kRowB + slice * 16), vf);
 #pragma unroll
@@ -642,15 +651,17 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 
   // sum the slices' partials: lanes that share a slice, then groups
+  if constexpr (Sh::kShuffle) {
 #pragma unroll
-  for (int o = kVpr; o < 32; o <<= 1)
+    for (int o = kVpr; o < 32; o <<= 1)
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
+      for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-      for (int i = 0; i < kVec; ++i)
-        acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], o);
+        for (int i = 0; i < kVec; ++i)
+          acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], o);
+  }
   float* const red = reinterpret_cast<float*>(stage);  // no copy in flight
-  if (tid % Sh::kRedSpan < kVpr) {
+  if (tid < Sh::kRedGroups * Sh::kRedSpan && tid % Sh::kRedSpan < kVpr) {
     const int grp = tid / Sh::kRedSpan;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -1091,6 +1102,8 @@ int launch_dims(const Call& a, Route route) {
       return launch_call<T, 64>(a, route);
     case 128:
       return launch_call<T, 128>(a, route);
+    case 192:
+      return launch_call<T, 192>(a, route);
     case 256:
       return launch_call<T, 256>(a, route);
     default:

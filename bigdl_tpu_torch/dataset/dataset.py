@@ -1,6 +1,6 @@
 """Datasets (counterpart of ``bigdl_tpu/dataset/dataset.py``): the local
 in-memory dataset and transforms over it. Sharded and record-file
-datasets are not ported yet (ROADMAP.md, queue A step 5)."""
+datasets are not ported yet (ROADMAP.md queue A, The rest)."""
 from __future__ import annotations
 
 from typing import Iterator, Sequence

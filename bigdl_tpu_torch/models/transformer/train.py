@@ -11,9 +11,10 @@ SGD(0.02, decay 0.001) and a validation loss every epoch. Weights come
 from torch's default generator (``torch.manual_seed`` seeds them), the
 data order from ``utils.random.RandomGenerator``; ``--dropout`` > 0
 draws its masks from a generator on the device seeded with
-``torch.initial_seed()``. Not ported yet, and refused (ROADMAP.md, queue
-A step 5): ``--chips`` > 1 and ``--sequenceParallel`` (multi-card),
-``--model``/``--state``/``--checkpoint`` (snapshots). The JAX main runs
+``torch.initial_seed()``. Not ported yet, and refused: ``--chips`` > 1
+and ``--sequenceParallel`` (ROADMAP.md queue A, Multi-card),
+``--model``/``--state``/``--checkpoint`` (snapshots; queue A,
+Single-device training leftovers). The JAX main runs
 ``DistriOptimizer`` over a one-chip mesh; the step math is the same.
 
 ``main`` returns the optimizer, whose ``history`` holds every step's
@@ -23,7 +24,9 @@ from __future__ import annotations
 
 from bigdl_tpu_torch.models.utils.cli import base_train_parser, setup_logging
 
-_QUEUED = "is not ported yet (ROADMAP.md, queue A step 5)"
+_MULTI_CARD = "is not ported yet (ROADMAP.md queue A, Multi-card)"
+_SNAPSHOTS = ("is not ported yet (ROADMAP.md queue A, Single-device "
+              "training leftovers)")
 
 
 def main(argv=None):
@@ -44,13 +47,13 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.chips is not None and args.chips > 1:
         raise NotImplementedError(f"--chips {args.chips}: multi-card "
-                                  f"training {_QUEUED}")
+                                  f"training {_MULTI_CARD}")
     if args.sequenceParallel:
-        raise NotImplementedError(f"--sequenceParallel {_QUEUED}")
+        raise NotImplementedError(f"--sequenceParallel {_MULTI_CARD}")
     for flag in ("model", "state", "checkpoint"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: snapshots (utils/file.py) "
-                                      f"{_QUEUED}")
+                                      f"{_SNAPSHOTS}")
 
     import torch
 

@@ -2,7 +2,7 @@
 ``bigdl_tpu/models/utils/cli.py``): the common flags -f/--folder,
 -b/--batchSize, --model/--state snapshots, --checkpoint, --overWrite,
 --maxEpoch, --learningRate, --chips. The mesh builder ``init_engine`` is
-not ported: multi-card training is ROADMAP.md queue A step 5."""
+not ported: multi-card training is ROADMAP.md queue A, Multi-card."""
 from __future__ import annotations
 
 import argparse

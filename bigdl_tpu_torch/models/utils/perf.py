@@ -29,8 +29,9 @@ the model's logits. In place of XLA's cost analysis it reports the
 analytic step FLOPs of ``bench.py`` and the step's peak device memory.
 ``-m attention`` times fwd+bwd of ``dot_product_attention`` with
 ``flash=True`` and ``flash=False``. Not ported yet, and refused:
-``-m decode`` (ROADMAP.md queue A step 3, ``generate``), ``lenet5`` and
-``inception_v2`` (step 2) and the other conv models (step 5).
+``-m decode`` (ROADMAP.md queue A, Serving depth: ``generate``), and
+the conv models but Inception-v1 (queue A, The conv zoo in the
+harness).
 
 ``main`` returns what it measured (a dict) besides printing it.
 """
@@ -42,12 +43,11 @@ import time
 import numpy as np
 import torch
 
-#: conv models not ported yet, and the ROADMAP.md queue A step that
+#: conv models not ported yet, and the ROADMAP.md queue A item that
 #: brings them
-MODELS = {
-    "inception_v2": 2, "lenet5": 2,
-    "vgg16": 5, "vgg19": 5, "alexnet": 5, "resnet50": 5,
-}
+MODELS = dict.fromkeys(
+    ("inception_v2", "lenet5", "vgg16", "vgg19", "alexnet", "resnet50"),
+    "The conv zoo in the harness")
 #: ported conv models: constructor and image size
 CONV_MODELS = {"inception_v1": ("Inception_v1_NoAuxClassifier", 224)}
 
@@ -360,11 +360,11 @@ def main(argv=None):
     if args.module == "decode":
         raise NotImplementedError(
             "-m decode needs generate(), which is not ported yet "
-            "(ROADMAP.md, queue A step 3)")
+            "(ROADMAP.md queue A, Serving depth)")
     if args.module in MODELS:
         raise NotImplementedError(
             f"-m {args.module}: the conv model zoo is not ported yet "
-            f"(ROADMAP.md, queue A step {MODELS[args.module]})")
+            f"(ROADMAP.md queue A, {MODELS[args.module]})")
     from bigdl_tpu_torch.tensor import resolve_device
     device = resolve_device(args.device)
     if args.batchSize is None:

@@ -4,7 +4,7 @@
 runs the full-sequence forward of training: projections in the compute
 dtype, RoPE, GQA widening, then ``parallel.sequence.dot_product_attention``
 (the flash kernels whenever they support the call). The ring and Ulysses
-cores are not ported yet (ROADMAP.md, queue A step 5).
+cores are not ported yet (ROADMAP.md queue A, Multi-card).
 """
 from __future__ import annotations
 

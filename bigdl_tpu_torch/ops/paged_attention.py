@@ -51,7 +51,7 @@ __all__ = ["paged_attention", "paged_attention_ref",
            "split_launches", "tc_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 #: query rows (T·G) per kv head up to which the C entry takes the split-KV
@@ -86,16 +86,47 @@ tc_launches = 0
 _counters: dict = {}
 
 
-def paged_kernel_supported(head_dim: int, page_size: int, dtype) -> bool:
-    """Pool geometries the kernel takes (the counterpart of the reference's
-    ``paged_supported``): head dim in (32, 64, 128, 256), float32 or
-    bfloat16 pools, and one page of K and V, double buffered
-    (4·S·D·bytes), within a block's shared memory. :func:`paged_attention`
-    refuses a CUDA call whose pools fail it."""
-    if head_dim not in _HEAD_DIMS or dtype not in _DTYPE_CODES:
-        return False
+def _row_tile_fits(head_dim: int, page_size: int, dtype) -> bool:
+    """The row-tile kernel stages one page of K and V, double buffered:
+    4·S·D·bytes within a block's shared memory."""
     elt = torch.empty((), dtype=dtype).element_size()
     return 4 * page_size * head_dim * elt <= _SMEM_LIMIT
+
+
+def paged_kernel_supported(head_dim: int, page_size: int, dtype,
+                           num_heads: int, num_kv_heads: int,
+                           table_pages: int) -> bool:
+    """Pool geometries the kernels take (the counterpart of the
+    reference's ``paged_supported``), for pools of ``num_kv_heads`` kv
+    heads serving ``num_heads`` query heads through tables of
+    ``table_pages`` entries a row: head dim in (32, 64, 128, 192, 256),
+    float32 or bfloat16, and every route a call on the pools can take
+    fits.
+
+    - Decode calls (T·G <= 16) take the split-KV kernel, which stages key
+      rows, not pages: any page size.
+    - A prefill call takes the route :func:`kernel_route` names from the
+      same shapes. The tensor-core kernel ("tc": bf16, S % 8 == 0, G
+      dividing 64, at most 4096 table entries) reads a page as TMA boxes
+      of gcd(S, 64) rows: any page size.
+    - The row-tile kernel ("row": every other pool) stages one page of K
+      and V twice, so it takes pages with 4·S·D·bytes within a block's
+      232,448 bytes of shared memory.
+
+    So bf16 pools with pages of a multiple of 8 slots and G dividing 64
+    take pages of any size; f32 pools, pages with S % 8 != 0, G not
+    dividing 64 and tables past 4096 entries keep the row-tile limit
+    (S <= 227 at bf16 D 128, S <= 113 at f32 D 128; ROADMAP.md queue C,
+    C7). :func:`paged_attention` refuses a CUDA call whose route does not
+    take it."""
+    if (head_dim not in _HEAD_DIMS or dtype not in _DTYPE_CODES
+            or page_size < 1 or num_kv_heads < 1
+            or num_heads % num_kv_heads):
+        return False
+    # any T with T·G > 16: the route a prefill call on these pools takes
+    prefill = kernel_route(_SPLIT_ROWS + 1, num_heads, num_kv_heads,
+                           head_dim, page_size, table_pages, dtype)
+    return prefill == "tc" or _row_tile_fits(head_dim, page_size, dtype)
 
 
 def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
@@ -302,12 +333,16 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
            f"pool shapes {tuple(kp.shape)}/{tuple(vp.shape)} do not match "
            f"q {tuple(q.shape)}")
     _check(h % kv == 0, f"{h} query heads not divisible by {kv} kv heads")
-    _check(paged_kernel_supported(d, s, kp.dtype) and vp.dtype == kp.dtype,
+    p = table.shape[1] if table.dim() == 2 else 0
+    want = kernel_route(t, h, kv, d, s, p, kp.dtype)
+    _check(d in _HEAD_DIMS and kp.dtype in _DTYPE_CODES
+           and vp.dtype == kp.dtype
+           and (want != "row" or _row_tile_fits(d, s, kp.dtype)),
            f"pool geometry the kernel does not take: head dim {d} (need "
            f"one of {_HEAD_DIMS}), pool dtype {kp.dtype}/{vp.dtype} (need "
-           f"float32 or bfloat16), pages of {s} slots ({4 * s * d} "
-           f"elements of K and V in shared memory, at most "
-           f"{_SMEM_LIMIT} bytes)")
+           f"float32 or bfloat16), pages of {s} slots (the {want} route; "
+           f"the row-tile route stages {4 * s * d * kp.element_size()} "
+           f"bytes of K and V in shared memory, at most {_SMEM_LIMIT})")
     _check(kp.is_contiguous() and vp.is_contiguous(),
            "pools must be contiguous")
     _check(kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0,
@@ -324,9 +359,7 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     table = table.to(torch.int32).contiguous()
     q_start = q_start.to(torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
-    p = table.shape[1]
     rows = t * (h // kv)
-    want = kernel_route(t, h, kv, d, s, p, kp.dtype)
     split = want == "split"
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pps, ws, counters = 0, None, None

@@ -1,8 +1,8 @@
 """The train step (counterpart of ``make_train_step`` in
 ``bigdl_tpu/optim/accumulation.py``): one forward, one backward, one
 optimizer update. Only ``num_microbatches == 1`` is ported; gradient
-accumulation over k > 1 microbatches is queued (ROADMAP.md, queue A
-step 5). PyTorch runs eagerly, so the step is a plain function where the
+accumulation over k > 1 microbatches is queued (ROADMAP.md queue A,
+Single-device training leftovers). PyTorch runs eagerly, so the step is a plain function where the
 JAX package compiles one."""
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ def make_train_step(*, fwd, criterion, params, update_fn,
     if int(num_microbatches) != 1:
         raise NotImplementedError(
             f"num_microbatches={num_microbatches}: gradient accumulation "
-            "over k > 1 microbatches is not ported yet (ROADMAP.md, queue "
-            "A step 5)")
+            "over k > 1 microbatches is not ported yet (ROADMAP.md queue "
+            "A, Single-device training leftovers)")
     names = list(params)
     tensors = [params[n] for n in names]
 

@@ -10,13 +10,15 @@ end, a validation, the run's end), ``dataset.shuffle()`` at each epoch
 end, validation on its trigger. Each drained step's log line and record
 go to ``history``; each validation pass to ``validation_results``.
 
-Not ported yet, and refused rather than ignored (ROADMAP.md, queue A
-step 5): the distributed optimizer (``mesh=``), checkpoint and resume,
-the prefetching input pipeline, the AOT executable cache, remat,
-gradient accumulation over k > 1 microbatches, pipeline and expert
-parallelism, gradient clipping, input transforms, the sharded update and
-the telemetry setters (summaries, metrics server, flight recorder,
-profiler). Each such setter raises ``NotImplementedError``.
+Not ported yet, and refused rather than ignored; each message names
+the ROADMAP.md queue A item that brings it: "Single-device training
+leftovers" (checkpoint and resume, remat, gradient accumulation over k >
+1 microbatches, gradient clipping, input transforms, the readback
+window), "Multi-card" (the distributed optimizer, ``mesh=``, pipeline
+and expert parallelism, the sharded update), "The host-only planes" (the
+telemetry setters: summaries, metrics server, flight recorder, profiler)
+and "The rest" (the prefetching input pipeline, the AOT executable
+cache). Each such setter raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,15 +35,20 @@ logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 __all__ = ["Optimizer", "LocalOptimizer"]
 
-_QUEUED = "ROADMAP.md, queue A step 5"
+# the ROADMAP.md queue A items that bring what is refused (named, not
+# numbered, so a renumbering of the queue cannot stale them)
+_TRAINING = "ROADMAP.md queue A, Single-device training leftovers"
+_MULTI_CARD = "ROADMAP.md queue A, Multi-card"
+_HOST_PLANES = "ROADMAP.md queue A, The host-only planes"
+_REST = "ROADMAP.md queue A, The rest"
 
 
-def _not_ported(name: str, what: str):
+def _not_ported(name: str, what: str, item: str):
     def method(self, *args, **kwargs):
         raise NotImplementedError(
-            f"Optimizer.{name}: {what} is not ported yet ({_QUEUED})")
+            f"Optimizer.{name}: {what} is not ported yet ({item})")
     method.__name__ = name
-    method.__doc__ = f"Not ported yet: {what} ({_QUEUED}). Raises."
+    method.__doc__ = f"Not ported yet: {what} ({item}). Raises."
     return method
 
 
@@ -58,7 +65,7 @@ class Optimizer:
             if kw.get("mesh") is not None:
                 raise NotImplementedError(
                     "Optimizer(mesh=...): the distributed optimizer is not "
-                    f"ported yet ({_QUEUED})")
+                    f"ported yet ({_MULTI_CARD})")
             return super().__new__(LocalOptimizer)
         return super().__new__(cls)
 
@@ -72,7 +79,7 @@ class Optimizer:
         if mesh is not None:
             raise NotImplementedError(
                 f"mesh=: the distributed optimizer is not ported yet "
-                f"({_QUEUED})")
+                f"({_MULTI_CARD})")
         if remat_policy not in (None, "none"):
             self.set_remat_policy(remat_policy)
         if pipeline_stages != 1 or pipeline_virtual_stages != 1 \
@@ -122,37 +129,48 @@ class Optimizer:
         if int(num_microbatches) != 1:
             raise NotImplementedError(
                 f"num_microbatches={num_microbatches}: gradient "
-                f"accumulation is not ported yet ({_QUEUED})")
+                f"accumulation is not ported yet ({_TRAINING})")
         self.grad_accumulation = 1
         return self
 
-    set_state = _not_ported("set_state", "resuming from a saved state")
-    set_checkpoint = _not_ported("set_checkpoint", "checkpointing")
+    set_state = _not_ported("set_state", "resuming from a saved state",
+                            _TRAINING)
+    set_checkpoint = _not_ported("set_checkpoint", "checkpointing",
+                                 _TRAINING)
     overwrite_checkpoint = _not_ported("overwrite_checkpoint",
-                                       "checkpointing")
+                                       "checkpointing", _TRAINING)
     set_input_pipeline = _not_ported("set_input_pipeline",
-                                     "the prefetching input pipeline")
+                                     "the prefetching input pipeline",
+                                     _REST)
     set_input_transform = _not_ported("set_input_transform",
-                                      "in-step input transforms")
+                                      "in-step input transforms",
+                                      _TRAINING)
     set_gradient_clipping = _not_ported("set_gradient_clipping",
-                                        "gradient clipping")
-    set_remat_policy = _not_ported("set_remat_policy", "remat policies")
-    set_pipeline = _not_ported("set_pipeline", "pipeline parallelism")
+                                        "gradient clipping", _TRAINING)
+    set_remat_policy = _not_ported("set_remat_policy", "remat policies",
+                                   _TRAINING)
+    set_pipeline = _not_ported("set_pipeline", "pipeline parallelism",
+                               _MULTI_CARD)
     set_expert_parallel = _not_ported("set_expert_parallel",
-                                      "expert parallelism")
+                                      "expert parallelism", _MULTI_CARD)
     set_sharded_update = _not_ported("set_sharded_update",
-                                     "the sharded weight update")
+                                     "the sharded weight update",
+                                     _MULTI_CARD)
     set_aot_cache = _not_ported("set_aot_cache",
-                                "the AOT executable cache")
-    set_train_summary = _not_ported("set_train_summary", "TrainSummary")
-    set_val_summary = _not_ported("set_val_summary", "ValidationSummary")
+                                "the AOT executable cache", _REST)
+    set_train_summary = _not_ported("set_train_summary", "TrainSummary",
+                                    _HOST_PLANES)
+    set_val_summary = _not_ported("set_val_summary", "ValidationSummary",
+                                  _HOST_PLANES)
     set_metrics_server = _not_ported("set_metrics_server",
-                                     "the metrics server")
+                                     "the metrics server", _HOST_PLANES)
     set_flight_recorder = _not_ported("set_flight_recorder",
-                                      "the flight recorder")
-    set_profiler = _not_ported("set_profiler", "the profiler hook")
+                                      "the flight recorder", _HOST_PLANES)
+    set_profiler = _not_ported("set_profiler", "the profiler hook",
+                               _HOST_PLANES)
     set_async_dispatch = _not_ported("set_async_dispatch",
-                                     "a settable readback window")
+                                     "a settable readback window",
+                                     _TRAINING)
 
     def optimize(self):
         raise NotImplementedError

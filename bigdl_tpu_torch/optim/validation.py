@@ -1,7 +1,7 @@
 """Validation methods and addable results (counterpart of
 ``bigdl_tpu/optim/validation.py``): ``Loss`` and its result. The
 cross-process gather of results comes with distributed training
-(ROADMAP.md, queue A step 5)."""
+(ROADMAP.md queue A, Multi-card)."""
 from __future__ import annotations
 
 import torch

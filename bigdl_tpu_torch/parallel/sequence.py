@@ -1,8 +1,8 @@
 """Attention over (batch, seq, heads, head_dim) (counterpart of
 ``dot_product_attention`` in ``bigdl_tpu/parallel/sequence.py``).
 
-Ring and Ulysses sequence parallelism are not ported yet (ROADMAP.md,
-queue A step 5).
+Ring and Ulysses sequence parallelism are not ported yet (ROADMAP.md
+queue A, Multi-card).
 """
 from __future__ import annotations
 
@@ -24,11 +24,11 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
 
     ``flash="auto"`` routes to the flash kernels
     (``ops/flash_attention.py``) for every call they support: head dim
-    32, 64 or 128, float32 or bfloat16, zero offsets when causal. On a CUDA
-    tensor that is the hand-written kernel, on a CPU tensor its plain
-    version. A call they do not support raises under ``flash=True``, and
-    under ``"auto"`` too unless the tensors lie on the CPU: on the card
-    the plain path is taken only when asked for. ``flash=False`` takes
+    32, 64, 128, 192 or 256, float32 or bfloat16, zero offsets when
+    causal. On a CUDA tensor that is the hand-written kernel, on a CPU
+    tensor its plain version. A call they do not support raises under
+    ``flash=True``, and under ``"auto"`` too unless the tensors lie on
+    the CPU: on the card the plain path is taken only when asked for. ``flash=False`` takes
     ``flash_attention_ref``, the reference semantics: f32 scores and
     softmax materialised as a (B, H, Sq, Skv) matrix."""
     if flash:
@@ -41,9 +41,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
                 f"kernel does not support this call: q{tuple(q.shape)} "
                 f"{q.dtype}, k{tuple(k.shape)} {k.dtype}, "
                 f"q_offset={q_offset} kv_offset={kv_offset} (need "
-                f"head_dim 32, 64 or 128, float32 or bfloat16, equal "
-                f"batch/heads, zero offsets when causal); flash=False "
-                f"takes the plain path")
+                f"head_dim 32, 64, 128, 192 or 256, float32 or "
+                f"bfloat16, equal batch/heads, zero offsets when causal); "
+                f"flash=False takes the plain path")
         if supported:
             return flash_attention(q, k, v, causal=causal, scale=scale)
     o, _ = flash_attention_ref(q, k, v, causal=causal, scale=scale,

@@ -10,14 +10,17 @@ the full width of the flagship LM with weights made from a seed:
 - ``[serve]``: 16 requests through ``ContinuousBatcher`` (d_model 1024,
   12 layers, 8 heads, 2 kv heads, RoPE, vocab 32768) — paged attention:
   the split-KV decode kernel and the tensor-core prefill kernel;
+  A tail serves 4 requests through pages of 256 slots against the dense
+  plain path;
 - ``[train]``: the port's train main (``models/transformer/train.py``)
   on a generated text, at the ``bench.py:1040-1063`` training geometry
   (learned positions, full MHA, batch 4 x 2048, bf16 policy) for two
-  epochs — flash attention forward, dq and dkdv;
+  epochs — flash attention forward, dq and dkdv — then one epoch at head
+  dim 256 (``--numHeads 4``);
 - ``[perf]``: the throughput harness (``models/utils/perf.py -m
   transformer``) at the same geometry with the fused LM head + CE — the
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
-  its ``-m attention`` mode once;
+  its ``-m attention`` mode once at head dim 128 and once at 256;
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels.
@@ -99,6 +102,15 @@ _LOGIT_REL_TOL = 0.1
 # the training geometry (bench.py:1040-1063, learned positions, full MHA)
 _TRAIN = dict(vocab=32768, d_model=1024, heads=8, layers=12, seq=2048,
               batch=4, epochs=2)
+# the same at head dim 256 (4 heads, as Gemma's heads are wide): one
+# epoch of 4 steps
+_TRAIN_WIDE = dict(_TRAIN, heads=4, epochs=1)
+# the flash kernels past D 128 timed at the training batch and length
+_FLASH_WIDE = dict(batch=4, seq=2048, heads=4, head_dim=256)
+# the serving tail through large pages: 4 requests whose prompts span
+# two to four pages of 256 slots
+_SERVE_LARGE_PAGES = dict(page_size=256, requests=4, new_tokens=16,
+                          prompt_lens=(300, 520, 777, 1000))
 #: flash kernel vs plain, element by element: |kernel - plain| <=
 #: rtol·|plain| + atol·rms(plain), the rms over the whole output, as
 #: (rtol, atol) by dtype and output. bf16: where the f32 sums differ in
@@ -176,9 +188,10 @@ _PERF = dict(batch=4, seq=2048, vocab=32768, d_model=1024, layers=12,
              warm_up=2, iterations=8)
 
 
-# the harness's attention mode, once, at the long-context shape it
-# defaults to (B4 S4096 H8 D128)
-_PERF_ATTENTION = dict(batch=4, seq=4096, heads=8, head_dim=128)
+# the harness's attention mode at the long-context shape it defaults to
+# (B4 S4096 H8 D128), and at head dim 256 (4 heads)
+_PERF_ATTENTION = (dict(batch=4, seq=4096, heads=8, head_dim=128),
+                   dict(batch=4, seq=4096, heads=4, head_dim=256))
 
 # the LRN kernels: norm1 and norm2 of Inception-v1 at batch 256 (the
 # path's rows, bf16, fused ReLU, size 5, alpha 1e-4, beta 0.75, k 1), the
@@ -262,8 +275,8 @@ def _print_ptxas(report: str) -> None:
         m = re.search(r"entry function '\S*?(paged_attention|flash_fwd|"
                       r"flash_dq|flash_dkdv)_kernelI(\w+?)Li(\d+)E"
                       r"(?:Li(\d+)E)?", line)
-        t = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
-                      r"_tc_kernelILi(\d+)E", line)
+        t = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv|"
+                      r"flash_dkdv_split)_tc_kernelILi(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
@@ -318,9 +331,11 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     the bf16 fused-CE forward, dh and dW/db kernels and of the bf16
     paged prefill kernels (``HGMMA``: wgmma; ``HMMA``: mma.sync), from
     ``cuobjdump --dump-sass`` of the built libraries; fails unless each
-    of the nine flash kernels (fwd, dq, dkdv x D 32, 64, 128) has some
-    and all three fused-CE kernels and the four paged prefill kernels (D
-    32, 64, 128, 256) have ``HGMMA``."""
+    of the nine flash kernels (fwd, dq, dkdv x D 32, 64, 128) has some,
+    and the six past D 128 (D 192, 256; dk/dv from
+    ``flash_dkdv_split_tc_kernel``), all three fused-CE kernels and the
+    five paged prefill kernels (D 32, 64, 128, 192, 256) have
+    ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -330,8 +345,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                               timeout=300).stdout
         for line in sass.splitlines():
             if "Function :" in line:
-                f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_tc_kernel"
-                              r"ILi(\d+)E", line)
+                f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)(?:_split)?"
+                              r"_tc_kernelILi(\d+)E", line)
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
                 p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
@@ -353,8 +368,12 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                   if not sum(counts.get(f"{k} bf16 D={d}", {}).values()))
     bare += [k for k in ("fused_ce_fwd bf16", "fused_ce_dh bf16",
                          "fused_ce_dw bf16") + tuple(
+                             f"{k} bf16 D={d}" for k in ("flash_fwd",
+                                                         "flash_dq",
+                                                         "flash_dkdv")
+                             for d in (192, 256)) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
-                             for d in (32, 64, 128, 256))
+                             for d in (32, 64, 128, 192, 256))
              if not counts.get(k, {}).get("HGMMA")]
     if bare:
         raise AssertionError(f"no (wgmma) tensor-core instructions in {bare}")
@@ -409,13 +428,14 @@ def _paged_case(b, t, q_start, n_alloc, p, dtype, gen, h=_H, kv=_KV, d=_D,
 
 
 def _bound(q, table, q_start, s, kv, elt):
-    """Least time for this call: bytes it must move (q, the K/V pages
-    each row's queries reach, table, q_start, the f32 output) over the
-    memory rate vs flops over the bf16 peak."""
+    """Least time for this call: bytes it must move (q, the K/V rows
+    each row's queries reach, ``min(last + 1, P·S)`` keys and not whole
+    pages, table, q_start, the f32 output) over the memory rate vs flops
+    over the bf16 peak."""
     b, t, h, d = q.shape
     last = q_start.long().cpu() + t - 1
-    pages = torch.clamp(last // s + 1, max=table.shape[1])
-    bytes_ = (q.numel() * q.element_size() + int(pages.sum()) * s * kv * d
+    keys_read = torch.clamp(last + 1, max=table.shape[1] * s)
+    bytes_ = (q.numel() * q.element_size() + int(keys_read.sum()) * kv * d
               * elt * 2 + table.numel() * 4 + q_start.numel() * 4
               + q.numel() * 4)
     keys = sum(int(q_start[i]) * t + t * (t + 1) // 2 for i in range(b))
@@ -513,15 +533,38 @@ _DECODE_GEOMETRIES = (
      [int(x) for x in np.linspace(0, 639, 64)]),
     ("one-split-chunks", 64, 1, 8, 8, 128, 16, 40, torch.bfloat16,
      [int(x) for x in np.linspace(639, 0, 64)]),
+    # head dim 192: 24 (bf16) or 48 (f32) vectors a row, which do not
+    # divide the 128 threads; both row counts
+    ("d192", 3, 1, 4, 2, 192, 16, 12, torch.bfloat16, [0, 64, 191]),
+    ("t4-g4-d192", 2, 4, 8, 2, 192, 16, 10, torch.bfloat16, [3, 158]),
+    ("t2-g8-d192-f32", 2, 2, 16, 2, 192, 16, 10, torch.float32, [3, 158]),
+    # pages of 256 slots, past the row-tile kernel's limit
+    ("s256", 4, 1, 8, 2, 128, 256, 9, torch.bfloat16, [0, 255, 256, 2100]),
 )
+
+
+#: geometry rows that are also timed (beside their bound, plain version
+#: and library calls): head dim 192 and pages of 256 slots
+_TIMED_GEOMETRIES = ("d192", "s256")
+
+
+def _geometry_times(pa, args, s, kv):
+    """ms, plain ms, bound and library ms of one paged call."""
+    bound, by = _bound(args[0], args[3], args[4], s, kv,
+                       args[1].element_size())
+    return dict(ms=_time_ms(lambda: pa.paged_attention(*args)),
+                plain_ms=_time_ms(lambda: pa.paged_attention_ref(*args)),
+                bound_ms=bound, bound_by=by,
+                library_ms=_library_ms(*args, pa),
+                library_gather_ms=_library_gather_ms(*args, pa))
 
 
 def _decode_geometries(pa, gen):
     """Every row of ``_DECODE_GEOMETRIES``: the split-KV kernel against
     ``paged_attention_split_ref`` and ``paged_attention_ref``, the split
-    plain version against the other, each within ``_PAGED_TOL``;
-    returns the kernel's largest error against ``paged_attention_ref``
-    and the worst error / limit."""
+    plain version against the other, each within ``_PAGED_TOL`` (the
+    ``_TIMED_GEOMETRIES`` rows timed too); returns the kernel's largest
+    error against ``paged_attention_ref`` and the worst error / limit."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     err_all, worst_all, rows = 0.0, 0.0, {}
     for label, b, t, h, kv, d, s, p, dtype, last in _DECODE_GEOMETRIES:
@@ -548,6 +591,9 @@ def _decode_geometries(pa, gen):
                                  f"plain", want_split, want, tol)[1])
         rows[label] = dict(pages_per_split=pps, max_abs_err=err,
                            worst_err_over_limit=worst)
+        if label in _TIMED_GEOMETRIES:
+            rows[label].update(_geometry_times(
+                pa, (q, kp, vp, table, qs), s, kv))
         err_all, worst_all = max(err_all, err), max(worst_all, worst)
     print("[kernels] split-KV decode at other geometries (kernel vs both "
           "plain versions, split plain vs plain): " + json.dumps(rows),
@@ -631,13 +677,21 @@ _PREFILL_GEOMETRIES = (
      "tc"),
     ("f32-pools", 1, 128, 8, 2, 128, 16, 20, torch.float32, [0], "row"),
     ("s7", 1, 128, 8, 2, 64, 7, 30, torch.bfloat16, [0], "row"),
+    # head dim 192 on each prefill route, and pages of 256 slots
+    ("d192", 2, 96, 4, 2, 192, 16, 20, torch.bfloat16, [0, 30], "tc"),
+    ("d192-f32", 1, 128, 8, 2, 192, 16, 20, torch.float32, [0], "row"),
+    ("d192-s12", 1, 64, 8, 2, 192, 12, 30, torch.bfloat16, [0], "row"),
+    ("s256", 2, 300, 8, 2, 128, 256, 9, torch.bfloat16, [0, 700], "tc"),
+    ("s256-chunked", 1, 64, 8, 2, 128, 256, 9, torch.bfloat16, [1500],
+     "tc"),
 )
 
 
 def _prefill_geometries(pa, gen):
     """Every row of ``_PREFILL_GEOMETRIES``: the route it took, and the
     kernel against the plain version (and the tile version where the
-    tensor-core kernel ran), each within its limit."""
+    tensor-core kernel ran), each within its limit; the
+    ``_TIMED_GEOMETRIES`` rows timed too."""
     rows = {}
     for label, b, t, h, kv, d, s, p, dtype, starts, route in \
             _PREFILL_GEOMETRIES:
@@ -653,6 +707,8 @@ def _prefill_geometries(pa, gen):
         if route == "tc":
             rows[label]["vs_tile_ref"] = _tile_check(
                 pa, f"prefill geometry {label}", got, *args)
+        if label in _TIMED_GEOMETRIES:
+            rows[label].update(_geometry_times(pa, args, s, kv))
     print("[kernels] paged_attention prefill at other geometries (route, "
           "kernel vs plain, vs tile plain): " + json.dumps(rows), flush=True)
     return rows
@@ -937,7 +993,7 @@ def phase_serve(pa, seed):
                              device=_DEV)
         logits[mode] = _paged_prefill_impl(
             model.params, cache, table, batch, lengths,
-            **_meta_statics(model, mode, cache)).float()
+            **_meta_statics(model, mode, cache, n_tab)).float()
         del cache
     diff = float((logits["kernel"] - logits["dense"]).abs().max())
     scale = float(logits["dense"].abs().max())
@@ -956,7 +1012,145 @@ def phase_serve(pa, seed):
           f"served/dense={float((served == first_d).float().mean())}",
           flush=True)
     _profile_decode(batcher, prompts[:8], card)
+    del batcher
+    torch.cuda.empty_cache()
+    _serve_large_pages(pa, model, seed)
     return launches, tcs
+
+
+def _serve_large_pages(pa, model, seed):
+    """``[serve]``'s tail: ``_SERVE_LARGE_PAGES``' 4 requests (prompts of
+    two to four pages) through a ``ContinuousBatcher`` with pages of 256
+    slots and bf16 pools, the counters set to 0 just before and read just
+    after: every prefill call on the tensor-core kernel, every decode
+    call on the split-KV kernel; then the same requests with
+    ``paged_kernel="dense"`` (no launch), their tokens compared. Held
+    within ``_LOGIT_REL_TOL`` as ``[serve]`` holds its prefill: the
+    prefill logits of both paths, and the logits of one decode step over
+    the kernel-prefilled 256-slot pools, split-KV kernel against dense
+    (tokens are printed, not held: a near-tie that flips one greedy token
+    changes every later one)."""
+    from bigdl_tpu_torch.models.transformer.serving import (
+        ContinuousBatcher, PagedKVCache, _meta_statics, _paged_prefill_impl)
+    c = _SERVE_LARGE_PAGES
+    page, new, layers = c["page_size"], c["new_tokens"], _LM["num_layers"]
+    rs = np.random.default_rng(seed + 1)
+    prompts = [rs.integers(1, _LM["vocab_size"] + 1, size=n).tolist()
+               for n in c["prompt_lens"]]
+    n = len(prompts)
+    kw = dict(max_batch=n, page_size=page, max_new_tokens=new, max_burst=8)
+    need = -(-(ContinuousBatcher._bucket(max(c["prompt_lens"])) + new + 8)
+             // page)
+    tokens, counts = {}, {}
+    for mode in ("auto", "dense"):
+        batcher = ContinuousBatcher(model, num_pages=n * need + 1,
+                                    paged_kernel=mode, **kw)
+        pa.launches = pa.split_launches = pa.tc_launches = 0
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            batcher.submit(i, p)
+        bursts = 0
+        while not batcher.idle:
+            bursts += batcher.step() > 0
+        tokens[mode] = dict(batcher.finished())
+        torch.cuda.synchronize()
+        counts[mode] = dict(wall_s=time.perf_counter() - t0,
+                            launches=pa.launches, split=pa.split_launches,
+                            tc=pa.tc_launches, bursts=bursts)
+        del batcher
+    k = counts["auto"]
+    if not (k["tc"] == layers * n and k["split"] == layers * 8 * k["bursts"]
+            and k["launches"] == k["tc"] + k["split"]):
+        raise AssertionError(f"large pages: launches {k}, expected "
+                             f"{layers * n} tensor-core prefill calls and "
+                             f"12 x 8 x bursts split-KV decode calls")
+    if counts["dense"]["launches"]:
+        raise AssertionError("large pages: the dense run launched "
+                             f"{counts['dense']['launches']} kernels")
+    if sorted(tokens["auto"]) != list(range(n)) or any(
+            len(t) != new for t in tokens["auto"].values()):
+        raise AssertionError("large pages: not every request returned "
+                             f"{new} tokens")
+    equal = float(np.mean([a == b for i in range(n) for a, b in
+                           zip(tokens["auto"][i], tokens["dense"][i])]))
+    # the prefill logits at each prompt's last position, both paths
+    width = max(ContinuousBatcher._bucket(len(p)) for p in prompts)
+    batch = np.ones((n, width), np.int32)
+    for i, p in enumerate(prompts):
+        batch[i, :len(p)] = p
+    lengths = np.asarray([len(p) for p in prompts], np.int32)
+    # one slot past the longest prompt for the decode step below
+    n_tab = -(-(width + 1) // page)
+    table = np.arange(n * n_tab, dtype=np.int32).reshape(n, n_tab)
+    logits, caches = {}, {}
+    for mode in ("kernel", "dense"):
+        caches[mode] = PagedKVCache(layers, n * n_tab, page, _KV, _D,
+                                    device=_DEV)
+        logits[mode] = _paged_prefill_impl(
+            model.params, caches[mode], table, batch, lengths,
+            **_meta_statics(model, mode, caches[mode], n_tab)).float()
+    diff = float((logits["kernel"] - logits["dense"]).abs().max())
+    scale = float(logits["dense"].abs().max())
+    if not (torch.isfinite(logits["kernel"]).all()
+            and diff <= _LOGIT_REL_TOL * scale):
+        raise AssertionError(f"large pages: kernel vs dense prefill logits "
+                             f"differ by {diff} > {_LOGIT_REL_TOL} x "
+                             f"{scale}")
+    del caches["dense"]
+    # the next token at each prompt's end, decoded over the same pools
+    table_t = torch.as_tensor(table, device=_DEV)
+    lens_t = torch.as_tensor(lengths, dtype=torch.int64, device=_DEV)
+    tok0 = logits["kernel"].argmax(-1) + 1
+    step = {}
+    for mode in ("kernel", "dense"):
+        splits = pa.split_launches
+        step[mode] = _decode_step_logits(model, caches["kernel"], table_t,
+                                         lens_t, tok0, mode)
+        if pa.split_launches - splits != (layers if mode == "kernel"
+                                          else 0):
+            raise AssertionError(f"large pages: the {mode} decode step "
+                                 f"made {pa.split_launches - splits} "
+                                 f"split-KV calls")
+    del caches
+    step_diff = float((step["kernel"] - step["dense"]).abs().max())
+    step_scale = float(step["dense"].abs().max())
+    if not (torch.isfinite(step["kernel"]).all()
+            and step_diff <= _LOGIT_REL_TOL * step_scale):
+        raise AssertionError(f"large pages: kernel vs dense decode-step "
+                             f"logits differ by {step_diff} > "
+                             f"{_LOGIT_REL_TOL} x {step_scale}")
+    print(f"[serve] card='{_card()}' pages of {page} slots (bf16 pools): "
+          f"requests={n} prompt_lens={list(c['prompt_lens'])} "
+          f"new_tokens={new} kernel run " + json.dumps(counts["auto"])
+          + " dense run " + json.dumps(counts["dense"])
+          + f" equal tokens kernel/dense={equal}; prefill logits "
+          f"max_abs_diff={diff} max_abs_logit={scale}; decode-step logits "
+          f"(split-KV vs dense) max_abs_diff={step_diff} max_abs_logit="
+          f"{step_scale} tol={_LOGIT_REL_TOL}x", flush=True)
+
+
+def _decode_step_logits(model, cache, table, lengths, tok, mode):
+    """The logits of one greedy decode step of ``_paged_decode_impl`` over
+    ``cache`` (``table``, ``lengths`` and ``tok`` tensors on the card),
+    read where the step hands them to its sampler: the step returns
+    tokens only. The step writes its own K/V slot before it attends, so
+    both modes may run over one cache."""
+    from bigdl_tpu_torch.models.transformer import serving as sv
+    seen, real = [], sv._row_logits
+
+    def keep(*a):
+        seen.append(real(*a))
+        return seen[-1]
+
+    sv._row_logits = keep
+    try:
+        sv._paged_decode_impl(
+            model.params, cache, table, lengths, tok, n_new=1,
+            temperature=0.0, top_k=None,
+            **sv._meta_statics(model, mode, cache, table.shape[1]))
+    finally:
+        sv._row_logits = real
+    return seen[0].float()
 
 
 def _profile_decode(batcher, prompts, card):
@@ -1065,7 +1259,9 @@ def _flash_tails(fa, gen):
     divide, Sq != Skv (non-causal), every head dim and dtype; in bf16
     also a 128-row tile with a ragged tail (S 200, Skv 136) and each
     head dim both causal and not. Head dim 32 is the train main's
-    default width (d_model 128, 4 heads)."""
+    default width (d_model 128, 4 heads); 192 and 256 run the tiles past
+    D 128 (64-key forward tiles, one-warpgroup dq, the split dk/dv
+    kernel; f32 tiles of 32 rows), both causal and not in each dtype."""
     for b, sq, skv, h, d, causal, dtype in (
             (2, 100, 100, 3, 32, True, torch.float32),
             (1, 130, 200, 2, 32, False, torch.float32),
@@ -1079,7 +1275,15 @@ def _flash_tails(fa, gen):
             (2, 100, 100, 3, 64, True, torch.bfloat16),
             (1, 130, 200, 2, 128, False, torch.bfloat16),
             (1, 200, 136, 2, 128, False, torch.bfloat16),
-            (1, 200, 200, 2, 128, True, torch.bfloat16)):
+            (1, 200, 200, 2, 128, True, torch.bfloat16),
+            (2, 100, 100, 3, 192, True, torch.float32),
+            (1, 130, 77, 2, 192, False, torch.float32),
+            (2, 100, 100, 3, 192, True, torch.bfloat16),
+            (1, 200, 136, 2, 192, False, torch.bfloat16),
+            (2, 100, 100, 3, 256, True, torch.float32),
+            (1, 130, 200, 2, 256, False, torch.float32),
+            (1, 200, 200, 2, 256, True, torch.bfloat16),
+            (1, 130, 77, 2, 256, False, torch.bfloat16)):
         q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
                  .to(_DEV) for _ in range(2))
         k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
@@ -1094,17 +1298,29 @@ def _flash_tails(fa, gen):
               + " worst error / limit " + json.dumps(worst), flush=True)
 
 
-def phase_flash(fa, gen):
-    """The three flash kernels vs their plain versions at the training
-    shapes (B4 S2048 H8 D128, causal), bf16 (tensor cores) and f32 (CUDA
-    cores); SDPA as the library yardstick (forward; backward = autograd's
-    fwd+bwd minus fwd, one call that gives dq, dk and dv together). Each
-    row also gives the kernel's rate over the causal half's operations
-    and its share of the bound (bound_ms / ms)."""
+def _sdpa_ms(qt, kt, vt, dot):
+    """SDPA's forward ms and its backward ms (autograd's forward +
+    backward minus the forward: one call that gives dq, dk and dv
+    together), causal, on (B, H, S, D) copies; (None, None, why) where
+    SDPA refuses the shape."""
     import torch.nn.functional as F
-    _flash_tails(fa, gen)
-    b, s, h, d = (_TRAIN["batch"], _TRAIN["seq"], _TRAIN["heads"],
-                  _TRAIN["d_model"] // _TRAIN["heads"])
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        out.backward(dot)
+    try:
+        lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        return lib_fwd, _time_ms(sdpa_fwd_bwd) - lib_fwd, None
+    except RuntimeError as e:
+        return None, None, f"SDPA refused: {str(e)[:200]}"
+
+
+def _flash_timed(fa, gen, b, s, h, d):
+    """The three flash kernels vs their plain versions at (b, s, h, d),
+    causal, bf16 (tensor cores) and f32 (CUDA cores), each timed beside
+    its bound, its plain version and SDPA; rows by (kernel, dtype)."""
     scale = d ** -0.5
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1114,7 +1330,7 @@ def phase_flash(fa, gen):
         got = _flash_outputs(fa, q, k, v, do, scale, True, True)
         torch.cuda.synchronize()
         want = _flash_outputs(fa, q, k, v, do, scale, True, False)
-        errs, worst = _flash_compare(got, want, f"[{name}]")
+        errs, worst = _flash_compare(got, want, f"[{name}] D={d}")
         rlse = want[1]
         delta = (do.float() * want[0].float()).sum(-1)
         del got, want
@@ -1122,15 +1338,7 @@ def phase_flash(fa, gen):
         # outside the timed calls
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
                            for x in (q, k, v, do))
-        qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-            out.backward(dot)
-
-        lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-        lib_bwd = _time_ms(sdpa_fwd_bwd) - lib_fwd
+        lib_fwd, lib_bwd, refused = _sdpa_ms(qt, kt, vt, dot)
         kernels = {
             "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
                           lambda: fa.flash_fwd_ref(q, k, v, scale, True),
@@ -1153,17 +1361,37 @@ def phase_flash(fa, gen):
                        bound_ms=bound, bound_by=by, library_ms=lib,
                        tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
                        share_of_bound=bound / ms)
+            if refused:
+                row["library"] = refused
             rows[(kname, dtype)] = row
             print(f"[kernels] {kname}[{name}] B={b} S={s} H={h} D={d} "
                   f"causal " + json.dumps(row), flush=True)
         o_tol, g_tol = (_FLASH_TOL[(dtype, w)] for w in ("o", "grad"))
-        print(f"[kernels] flash [{name}] max abs errs vs plain "
+        print(f"[kernels] flash [{name}] D={d} max abs errs vs plain "
               + json.dumps(errs) + " worst error / limit "
               + json.dumps(worst) + f" (limit rtol·|plain| + atol·"
               f"rms(plain): o {o_tol}, dq/dk/dv {g_tol}; lse {_LSE_TOL})",
               flush=True)
-        del q, k, v, do, qt, kt, vt, dot, qg, kg, vg
+        del q, k, v, do, qt, kt, vt, dot
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_flash(fa, gen):
+    """The three flash kernels vs their plain versions on ragged tails,
+    then timed at the training shapes (B4 S2048 H8 D128, causal) and at
+    head dim 256 (B4 S2048 H4 D256), bf16 (tensor cores) and f32 (CUDA
+    cores); SDPA as the library yardstick. Each row also gives the
+    kernel's rate over the causal half's operations and its share of the
+    bound (bound_ms / ms). Rows by (kernel, dtype, head dim)."""
+    _flash_tails(fa, gen)
+    w = _FLASH_WIDE
+    rows = {}
+    for b, s, h, d in ((_TRAIN["batch"], _TRAIN["seq"], _TRAIN["heads"],
+                        _TRAIN["d_model"] // _TRAIN["heads"]),
+                       (w["batch"], w["seq"], w["heads"], w["head_dim"])):
+        for (kname, dtype), row in _flash_timed(fa, gen, b, s, h, d).items():
+            rows[(kname, dtype, d)] = row
     return rows
 
 
@@ -1181,72 +1409,85 @@ def _write_text(folder: Path, seed: int, vocab_words: int) -> None:
     (folder / "input.txt").write_text(" ".join(lines))
 
 
-def phase_train(fa, seed):
-    """The port's train main at the flagship training geometry: two
-    epochs of SGD on a generated text, then one batch once more with the
-    plain attention (``flash=False``) to hold loss and gradients."""
-    from bigdl_tpu_torch import nn
+def _train_main_run(fa, seed, geo, tag):
+    """The port's train main at geometry ``geo`` (a ``_TRAIN``-like dict)
+    on a text generated from the seed, the flash counters set to 0 just
+    before and read just after: exact launch counts (12 fwd a step and
+    validation batch, 12 dq and dkdv a step), finite losses, the first
+    within 0.5 of ln(vocab). Prints the run's numbers; returns the
+    optimizer and the launch counts."""
     from bigdl_tpu_torch.models.transformer import train
-    from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
     from bigdl_tpu_torch.utils.random import RandomGenerator
 
-    set_policy(DTypePolicy(param_dtype=torch.float32,
-                           compute_dtype=torch.bfloat16,
-                           activation_dtype=torch.bfloat16))
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         folder = Path(tmp)
-        _write_text(folder, seed, _TRAIN["vocab"] - 1)
+        _write_text(folder, seed, geo["vocab"] - 1)
         torch.manual_seed(seed)
         RandomGenerator.set_seed(seed)
         torch.cuda.reset_peak_memory_stats()
         fa.fwd_launches = fa.dq_launches = fa.dkdv_launches = 0
         t0 = time.perf_counter()
         opt = train.main(["-f", str(folder), "--vocabSize",
-                          str(_TRAIN["vocab"] - 1), "--dModel",
-                          str(_TRAIN["d_model"]), "--numHeads",
-                          str(_TRAIN["heads"]), "--numLayers",
-                          str(_TRAIN["layers"]), "--seqLength",
-                          str(_TRAIN["seq"]), "-b", str(_TRAIN["batch"]),
-                          "-e", str(_TRAIN["epochs"]), "--device", _DEV])
+                          str(geo["vocab"] - 1), "--dModel",
+                          str(geo["d_model"]), "--numHeads",
+                          str(geo["heads"]), "--numLayers",
+                          str(geo["layers"]), "--seqLength",
+                          str(geo["seq"]), "-b", str(geo["batch"]),
+                          "-e", str(geo["epochs"]), "--device", _DEV])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
                     "dkdv": fa.dkdv_launches}
         peak = torch.cuda.max_memory_allocated()
-    model, hist = opt.model, opt.history
+    hist = opt.history
     losses = [h["loss"] for h in hist]
     steps = len(hist)
     val_batches = sum(1 for _ in opt.validation_dataset.data(train=False))
     passes = len(opt.validation_results)
-    layers = _TRAIN["layers"]
+    layers = geo["layers"]
     expect = {"fwd": layers * (steps + passes * val_batches),
               "dq": layers * steps, "dkdv": layers * steps}
     if launches != expect:
-        raise AssertionError(f"flash launches {launches}, expected "
+        raise AssertionError(f"{tag} flash launches {launches}, expected "
                              f"{expect} ({steps} steps, {passes} x "
                              f"{val_batches} validation batches)")
     if not all(math.isfinite(x) for x in losses) or steps == 0:
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if abs(losses[0] - math.log(_TRAIN["vocab"])) > 0.5:
-        raise AssertionError(f"first loss {losses[0]} not within 0.5 of "
-                             f"ln {_TRAIN['vocab']}")
+        raise AssertionError(f"{tag} non-finite training loss: {losses}")
+    if abs(losses[0] - math.log(geo["vocab"])) > 0.5:
+        raise AssertionError(f"{tag} first loss {losses[0]} not within 0.5 "
+                             f"of ln {geo['vocab']}")
     timed = sum(h["step_time"] for h in hist[1:])
     card = _card()
     val = [round(r["Loss"].result()[0], 6) for _, r in
            opt.validation_results]
-    print(f"[train] card='{card}' steps={steps} losses={losses} "
-          f"validation_losses={val} flash_launches={launches} "
-          f"(={layers}x{steps} bwd, {layers}x({steps}+{passes}x"
-          f"{val_batches}) fwd)",
-          flush=True)
-    print(f"[train] card='{card}' wall_s={wall} steps_per_s="
-          f"{(steps - 1) / timed} tokens_per_s="
-          f"{(steps - 1) * _TRAIN['batch'] * _TRAIN['seq'] / timed} "
+    head_dim = geo["d_model"] // geo["heads"]
+    print(f"[{tag}] card='{card}' head_dim={head_dim} steps={steps} "
+          f"first_loss={losses[0]} losses={losses} validation_losses={val} "
+          f"flash_launches={launches} (={layers}x{steps} bwd, "
+          f"{layers}x({steps}+{passes}x{val_batches}) fwd)", flush=True)
+    print(f"[{tag}] card='{card}' head_dim={head_dim} wall_s={wall} "
+          f"steps_per_s={(steps - 1) / timed} tokens_per_s="
+          f"{(steps - 1) * geo['batch'] * geo['seq'] / timed} "
           f"(over steps 2..{steps}, host step times with the loss "
           f"readback shared across each window) peak_mem_bytes={peak}",
           flush=True)
+    return opt, launches
+
+
+def phase_train(fa, seed):
+    """The port's train main at the flagship training geometry: two
+    epochs of SGD on a generated text, then one batch once more with the
+    plain attention (``flash=False``) to hold loss and gradients."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
+
+    set_policy(DTypePolicy(param_dtype=torch.float32,
+                           compute_dtype=torch.bfloat16,
+                           activation_dtype=torch.bfloat16))
+    opt, launches = _train_main_run(fa, seed, _TRAIN, "train")
+    model, layers, card = opt.model, _TRAIN["layers"], _card()
 
     # one batch through the kernels and through the plain attention
     batch = next(iter(opt.validation_dataset.data(train=False)))
@@ -1292,6 +1533,21 @@ def phase_train(fa, seed):
     model.train()
     _profile_steps(step, sgd.init_state(params), data, labels, "train", card)
     model.evaluate()
+    return launches
+
+
+def phase_train_wide(fa, seed):
+    """The train main at head dim 256: the ``[train]`` geometry with 4
+    heads of 256 (``--dModel 1024 --numHeads 4``), one epoch of 4 steps:
+    flash forward, dq and dk/dv at D 256 through
+    ``dot_product_attention(flash="auto")``."""
+    from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
+    set_policy(DTypePolicy(param_dtype=torch.float32,
+                           compute_dtype=torch.bfloat16,
+                           activation_dtype=torch.bfloat16))
+    opt, launches = _train_main_run(fa, seed, _TRAIN_WIDE, "train d256")
+    del opt
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1581,16 +1837,18 @@ def phase_perf(fce):
           f"bf16 logits' {logits})", flush=True)
     del off
     torch.cuda.empty_cache()
-    a = _PERF_ATTENTION
-    att = perf.main(["-m", "attention", "-b", str(a["batch"]), "--seqLen",
-                     str(a["seq"]), "--heads", str(a["heads"]), "--headDim",
-                     str(a["head_dim"]), "--warmUp", "1", "-i", "3",
-                     "--device", _DEV])
-    if att["flash"] is None:
-        raise AssertionError("perf -m attention: the flash path failed")
-    print(f"[perf] card='{card}' attention " + json.dumps(a) + " bf16 "
-          f"causal, fwd+bwd ms per iteration: " + json.dumps(att),
-          flush=True)
+    for a in _PERF_ATTENTION:
+        att = perf.main(["-m", "attention", "-b", str(a["batch"]),
+                         "--seqLen", str(a["seq"]), "--heads",
+                         str(a["heads"]), "--headDim", str(a["head_dim"]),
+                         "--warmUp", "1", "-i", "3", "--device", _DEV])
+        if att["flash"] is None:
+            raise AssertionError(f"perf -m attention at head dim "
+                                 f"{a['head_dim']}: the flash path failed")
+        print(f"[perf] card='{card}' attention " + json.dumps(a) + " bf16 "
+              f"causal, fwd+bwd ms per iteration: " + json.dumps(att),
+              flush=True)
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1924,6 +2182,8 @@ def main(argv=None) -> int:
     mp_row = phase_maxpool(mp, gen)
     launches, tc_launches = phase_serve(pa, args.seed)
     flash_launches = phase_train(fa, args.seed)
+    torch.cuda.empty_cache()
+    wide_launches = phase_train_wide(fa, args.seed)
     fce_launches = phase_perf(fce)
     torch.cuda.empty_cache()
     conv_launches, _ = phase_inception(lrn, mp)
@@ -1963,16 +2223,21 @@ def main(argv=None) -> int:
     # gemm_ms are in [kernels])
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    for name, line, count in (("flash_fwd", 190, "fwd"),
-                              ("flash_dq", 306, "dq"),
-                              ("flash_dkdv", 322, "dkdv")):
-        row = flash_rows[(name, torch.bfloat16)]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
-            "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": flash_launches[count],
-            **{k: row[k] for k in keys}})
+    # and the D 256 rows: the kernels past D 128, timed at B4 S2048 H4
+    # D256, their launches those of the D 256 [train] run
+    for d, counts, suffix in ((128, flash_launches, ""),
+                              (256, wide_launches, "_d256")):
+        for name, line, count in (("flash_fwd", 190, "fwd"),
+                                  ("flash_dq", 306, "dq"),
+                                  ("flash_dkdv", 322, "dkdv")):
+            row = flash_rows[(name, torch.bfloat16, d)]
+            kernels.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:"
+                            f"{line}",
+                "launches": counts[count],
+                **{k: row[k] for k in keys}})
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time two versions of the flash kernels in turns on one NVIDIA card.
+
+Builds ``bigdl_tpu_torch/csrc/flash_attention.cu`` of this checkout and
+the one under ``--other`` (a directory holding a ``flash_attention.cu``,
+such as another checkout's ``bigdl_tpu_torch/csrc``; both built with
+this checkout's headers) into a temporary directory and runs each
+version's forward, dq and dk/dv at the ``[train]`` shapes B4 S2048 with
+H·D = 1024 (H8 at D 128), causal, in bf16 (tensor cores) and f32 (CUDA
+cores). For each head dim and dtype it prints whether the two versions'
+outputs are bit-equal (the kernels use no atomics, so unchanged code
+gives equal bits) and each version's worst error over ``chip_smoke.py``'s
+limits against the plain versions, then times the kernels in turns
+(this, other, other, this; ``chip_smoke._time_ms`` each: L2 flushed,
+median of 20): one line per kernel with both versions' times and the
+ratio of their means (this / other). Last, the card's name and power
+limit. It exits 1 if any output of either version is non-finite or past
+its limit (after every head dim and dtype has been checked and timed,
+so that a known fault does not hide the other readings).
+
+    python3 scripts/flash_ab.py --other DIR [--dims 32 64 128]
+        [--batch 4] [--seq 2048] [--seed N]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from bigdl_tpu_torch.ops import _build  # noqa: E402
+from bigdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+_ORDER = ("this", "other", "other", "this")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True,
+                    help="directory holding the other flash_attention.cu")
+    ap.add_argument("--dims", type=int, nargs="+", default=[32, 64, 128])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("flash_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    sources = {"this": (ROOT / "bigdl_tpu_torch/csrc/flash_attention.cu")
+               .read_text(),
+               "other": (Path(args.other) / "flash_attention.cu")
+               .read_text()}
+    card = chip_smoke._card()
+    chosen = fa._kernel_fns
+    gen = torch.Generator().manual_seed(args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        with ThreadPoolExecutor(len(sources)) as pool:
+            fns = dict(zip(sources, pool.map(
+                lambda kv: fa.bind(_build.build_copy(kv[1],
+                                                     Path(tmp) / kv[0])),
+                sources.items())))
+        chip_smoke._warm_card()
+        past = []
+        try:
+            for d in args.dims:
+                for dtype in (torch.bfloat16, torch.float32):
+                    past += _ab(fns, gen, args.batch, args.seq, d, dtype,
+                                card)
+        finally:
+            fa._kernel_fns = chosen
+    if past:
+        print("[ab] past the limit (or non-finite): " + "; ".join(past),
+              flush=True)
+    print(card)
+    return 1 if past else 0
+
+
+def _ab(fns, gen, b, s, d, dtype, card):
+    """One head dim and dtype at B ``b``, S ``s`` and H·D = 1024: both
+    versions checked, then timed in turns; returns the outputs that are
+    non-finite or past their limit, by version."""
+    h = 1024 // d
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(dtype)
+                   .to(chip_smoke._DEV) for _ in range(4))
+    want = chip_smoke._flash_outputs(fa, q, k, v, do, scale, True, False)
+    lse = want[1]
+    delta = (do.float() * want[0].float()).sum(-1)
+    name = str(dtype)[6:]
+    outs, worst, past = {}, {}, []
+    for version in fns:
+        fa._kernel_fns = lambda f=fns[version]: f
+        outs[version] = chip_smoke._flash_outputs(fa, q, k, v, do, scale,
+                                                  True, True)
+        torch.cuda.synchronize()
+        worst[version] = {
+            what: chip_smoke._flash_err(what, got, ref)[1]
+            for what, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                                      outs[version], want)}
+        past += [f"{version} H={h} D={d} {name} {what} ({w})"
+                 for (what, w), x in zip(worst[version].items(),
+                                         outs[version])
+                 if not (w <= 1.0 and torch.isfinite(x).all())]
+    equal = all(torch.equal(a, b) for a, b in zip(*outs.values()))
+    print(f"[ab] check B={b} S={s} H={h} D={d} {name}: bit_equal={equal} "
+          f"worst error / limit " + json.dumps(worst), flush=True)
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True),
+        "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, scale,
+                                        True),
+        "flash_dkdv": lambda: fa.flash_dkdv(q, k, v, do, lse, delta, scale,
+                                            True),
+    }
+    times = {kname: {"this": [], "other": []} for kname in calls}
+    for version in _ORDER:
+        fa._kernel_fns = lambda f=fns[version]: f
+        for kname, call in calls.items():
+            times[kname][version].append(chip_smoke._time_ms(call))
+    for kname, t in times.items():
+        row = dict(this_ms=t["this"], other_ms=t["other"],
+                   ratio=float(np.mean(t["this"]) / np.mean(t["other"])))
+        print(f"[ab] {kname}[{name}] B={b} S={s} H={h} D={d} causal "
+              f"card='{card}' " + json.dumps(row), flush=True)
+    return past
+
+
+if __name__ == "__main__":
+    sys.exit(main())

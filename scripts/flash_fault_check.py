@@ -62,7 +62,9 @@ FAULTS = {
     "v_prev_tile_last": f"    const uint32_t vs = (kt >= 1 && kt == nkt - 1 "
                         f"&& q0 + kRows >= Sq) ? {_PREV} : ks + kKV;\n",
 }
-# the bf16 dk/dv kernel's dO stage (the only such line)
+# the bf16 dk/dv kernel's dO stage (the only such line in
+# flash_dkdv_tc_kernel; flash_dkdv_split_tc_kernel, past D 128, has its
+# own)
 _DO_LINE = "    const uint32_t dos = qs + kQD;\n"
 BWD_FAULTS = {
     "do_prev_tile": "    const uint32_t dos = (it >= 1 && it == n - 1) ? "
@@ -84,14 +86,16 @@ def main(argv=None) -> int:
             or src.index(_V_LINE) < src.index("flash_fwd_tc_kernel(")):
         raise RuntimeError("the bf16 forward's V stage line has moved; "
                            "update the planted faults")
-    if src.count(_DO_LINE) != 1:
+    dkdv = src.index("flash_dkdv_tc_kernel(")
+    split = src.index("flash_dkdv_split_tc_kernel(")
+    if not dkdv < split or src.count(_DO_LINE, dkdv, split) != 1:
         raise RuntimeError("the bf16 dk/dv kernel's dO stage line has "
                            "moved; update the planted faults")
     sources = {"sound": src,
                **{name: src.replace(_V_LINE, line, 1)
                   for name, line in FAULTS.items()},
-               **{name: src.replace(_DO_LINE, line)
-                  for name, line in BWD_FAULTS.items()}}
+               **{name: src[:dkdv] + src[dkdv:split].replace(_DO_LINE, line)
+                  + src[split:] for name, line in BWD_FAULTS.items()}}
     b, s, h, d = 4, 2048, 8, 128
     scale = d ** -0.5
     gen = torch.Generator().manual_seed(args.seed)

@@ -178,13 +178,16 @@ def test_dot_product_attention_offsets_and_unsupported_shapes():
                                    q_offset=1, flash=True)
 
 
-@pytest.mark.parametrize("what", ["head_dim", "offsets"])
+@pytest.mark.parametrize("what", ["head_dim", "offsets", "head_dim_320"])
 def test_auto_refuses_unsupported_calls_off_the_cpu(what):
     """Off the CPU (meta tensors stand in for the card's here), "auto"
     raises where the kernels do not take the call instead of quietly
-    building the (B, H, S, S) plain path; flash=False still takes it."""
+    building the (B, H, S, S) plain path; flash=False still takes it.
+    Head dim 320, which the JAX kernel takes (a multiple of 64), is past
+    the port's 256 (ROADMAP.md queue C, C7)."""
     d, kw = {"head_dim": (16, {}),
-             "offsets": (64, dict(q_offset=4, kv_offset=2))}[what]
+             "offsets": (64, dict(q_offset=4, kv_offset=2)),
+             "head_dim_320": (320, {})}[what]
     q = torch.empty((1, 8, 2, d), device="meta")
     with pytest.raises(ValueError, match="flash=False takes the plain"):
         tseq.dot_product_attention(q, q, q, causal=True, **kw)
@@ -199,3 +202,48 @@ def test_flash_matches_jax_kernel_at_head_dim_32(causal, dtype):
     heads), which the card's kernels take as one zero-padded 64-wide
     chunk: (B2, S128, H2, D32) against the JAX kernel."""
     _check_against_jax_kernel(2, 128, 2, 32, causal, dtype)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_auto_takes_wide_head_dims_off_the_cpu(d):
+    """Head dims 192 and 256 are no longer refused off the CPU: "auto"
+    hands the call to the kernel wrappers, which need a CUDA device (the
+    meta tensors standing in for the card's reach them and stop there),
+    and never to the plain path."""
+    q = torch.empty((1, 8, 2, d), device="meta")
+    assert tfa.flash_supported(q, q)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tseq.dot_product_attention(q, q, q, causal=True)
+
+
+def test_flash_supported_head_dims():
+    """The head dims the kernels take (32, 64, 128, 192, 256) and two they
+    refuse: 16 (below the 64-wide chunks the JAX kernel needs too) and
+    320 (a multiple of 64 the JAX kernel takes; ROADMAP.md queue C,
+    C7). Both dtypes; fp16 is refused."""
+    for d in (32, 64, 128, 192, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.empty((1, 4, 2, d), dtype=dt, device="meta")
+            assert tfa.flash_supported(q, q), (d, dt)
+    for d in (16, 96, 320):
+        q = torch.empty((1, 4, 2, d), device="meta")
+        assert not tfa.flash_supported(q, q), d
+    q = torch.empty((1, 4, 2, 128), dtype=torch.float16, device="meta")
+    assert not tfa.flash_supported(q, q)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,d", [(2, 128, 192), (1, 128, 256)],
+                         ids=["d192", "d256"])
+def test_flash_matches_jax_kernel_at_wide_head_dims(b, s, d, causal,
+                                                     dtype):
+    """Head dims 192 and 256 (Gemma's heads are 256 wide), which the
+    card's kernels take with tiles of their own (64-key forward tiles,
+    one-warpgroup dq CTAs, dk and dv split between the warpgroups; f32
+    tiles of 32 rows): (B, S128, H2, D) against the JAX kernel at the
+    file's tolerances. In bf16 a wider head changes nothing they rest on:
+    o, dv and dq/dk are sums over keys of bf16-rounded P or dS times
+    unit-variance values, at the same S as the D 64 case, and the extra
+    dims only lengthen f32 sums of exact bf16 products."""
+    _check_against_jax_kernel(b, s, 2, d, causal, dtype)

@@ -117,6 +117,40 @@ class TestRefParity:
                                    atol=atol, rtol=rtol)
 
 
+# (B, T, H, KV, D, page size, table entries, q_start of each row): head
+# dim 192 (three 64-wide chunks; 24 bf16 / 48 f32 16-byte vectors a row,
+# which do not divide the split kernel's 128 threads) and pages of 256
+# slots (past the row-tile kernel's limit at bf16 D 128), each for a
+# decode call (T·G <= 16: the split route) and a prefill call
+_WIDE_CASES = {
+    "d192-decode": (3, 1, 4, 2, 192, 16, 6, [0, 37, 95]),
+    "d192-prefill": (2, 40, 4, 2, 192, 16, 6, [0, 50]),
+    "s256-decode": (2, 1, 8, 2, 128, 256, 3, [100, 700]),
+    "s256-prefill": (2, 70, 8, 2, 128, 256, 3, [0, 300]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_WIDE_CASES))
+def test_wide_heads_and_large_pages_match_jax(case, dtype):
+    """Paged attention at head dim 192 and at pages of 256 slots against
+    the JAX kernel in interpret mode, at the file's tolerances: the plain
+    version, and the plain version of the kernel the call's route runs
+    on the card (``paged_attention_split_ref`` at one and at two pages a
+    split for a decode call, ``paged_attention_tile_ref`` at the
+    tensor-core kernel's 64-key tiles for a prefill call)."""
+    b, t, h, kv, d, s, p, starts = _WIDE_CASES[case]
+    q, kp, vp, table = _geometry(b, t, h, kv, d, b * p + 1, s, p, seed=31)
+    _compare(q, kp, vp, table, starts, dtype)
+    if t * (h // kv) <= tpa._SPLIT_ROWS:
+        for pps in (1, 2):
+            _compare(q, kp, vp, table, starts, dtype, fn=functools.partial(
+                tpa.paged_attention_split_ref, pages_per_split=pps))
+    else:
+        _compare(q, kp, vp, table, starts, dtype, fn=functools.partial(
+            tpa.paged_attention_tile_ref, key_tile=64))
+
+
 def _edge_starts(width, n_keys):
     """Decode rows (T = 1, last key = q_start) at 0 (a free batcher slot
     decoding into its scratch page), ending one key before, on and one
@@ -265,6 +299,10 @@ _ROUTE_CASES = {
     "d32": ((64, 4, 1, 32, 16, 9, _BF16), "tc"),
     "d64": ((64, 8, 2, 64, 16, 9, _BF16), "tc"),
     "d256": ((64, 4, 2, 256, 16, 9, _BF16), "tc"),
+    "d192": ((64, 4, 2, 192, 16, 9, _BF16), "tc"),
+    "d192-decode": ((1, 4, 2, 192, 16, 9, _BF16), "split"),
+    "s256": ((512, 8, 2, 128, 256, 9, _BF16), "tc"),
+    "s256-decode": ((1, 8, 2, 128, 256, 9, _BF16), "split"),
     "mha": ((64, 8, 8, 128, 16, 9, _BF16), "tc"),
     "g8": ((64, 8, 1, 128, 16, 9, _BF16), "tc"),
     "s8": ((64, 8, 2, 128, 8, 9, _BF16), "tc"),
@@ -273,6 +311,7 @@ _ROUTE_CASES = {
     # the row-tile kernel: f32 pools, pages of 7, G not dividing 64, a
     # table too long to stage
     "f32": ((512, 8, 2, 128, 16, 129, _F32), "row"),
+    "s256-f32": ((512, 8, 2, 128, 256, 9, _F32), "row"),
     "s7": ((64, 8, 2, 64, 7, 30, _BF16), "row"),
     "s12": ((64, 8, 2, 64, 12, 30, _BF16), "row"),
     "g3": ((64, 6, 2, 64, 16, 9, _BF16), "row"),
@@ -388,7 +427,7 @@ class TestNoSilentFallback:
                             device="meta"), qs)
 
     def test_kernel_mode_on_cpu_pools_raises(self):
-        geom = (128, 16, torch.bfloat16)
+        geom = (128, 16, torch.bfloat16, 8, 2, 9)
         cpu, cuda = torch.device("cpu"), torch.device("cuda")
         with pytest.raises(ValueError, match="CUDA"):
             tsv._resolve_paged_kernel("kernel", cpu, *geom)
@@ -397,23 +436,41 @@ class TestNoSilentFallback:
         assert tsv._resolve_paged_kernel("auto", cpu, *geom) == "dense"
         assert tsv._resolve_paged_kernel("auto", cuda, *geom) == "kernel"
 
-    # (head dim, page size, pool dtype) -> the kernel takes it
+    # (head dim, page size, pool dtype, heads, kv heads, table entries)
+    # -> the kernels take it
     _GEOMETRIES = {
-        "d32": ((32, 16, torch.bfloat16), True),
-        "d96": ((96, 16, torch.bfloat16), False),
-        "s128-f32-d128": ((128, 128, torch.float32), False),
-        "s256-bf16-d128": ((128, 256, torch.bfloat16), False),
-        "s128-bf16-d128": ((128, 128, torch.bfloat16), True),
-        "fp16": ((128, 16, torch.float16), False),
+        "d32": ((32, 16, torch.bfloat16, 1, 1, 1), True),
+        "d96": ((96, 16, torch.bfloat16, 1, 1, 1), False),
+        "d16": ((16, 16, torch.bfloat16, 1, 1, 1), False),
+        "d192": ((192, 16, torch.bfloat16, 1, 1, 1), True),
+        "d192-f32": ((192, 16, torch.float32, 1, 1, 1), True),
+        "d320": ((320, 16, torch.bfloat16, 1, 1, 1), False),
+        "s128-f32-d128": ((128, 128, torch.float32, 1, 1, 1), False),
+        "s112-f32-d128": ((128, 112, torch.float32, 1, 1, 1), True),
+        # bf16 pages of a multiple of 8 slots take the split and
+        # tensor-core routes, which hold any page size
+        "s256-bf16-d128": ((128, 256, torch.bfloat16, 1, 1, 1), True),
+        "s256-bf16-d128-g4": ((128, 256, torch.bfloat16, 8, 2, 9), True),
+        "s1024-bf16-d256-g4": ((256, 1024, torch.bfloat16, 8, 2, 2), True),
+        # ... but G 3, a 4097-entry table or pages of 300 slots send
+        # prefill to the row-tile kernel, which stages whole pages
+        "s256-bf16-d128-g3": ((128, 256, torch.bfloat16, 6, 2, 9), False),
+        "s256-bf16-d128-4097-pages": (
+            (128, 256, torch.bfloat16, 8, 2, 4097), False),
+        "s300-bf16-d128": ((128, 300, torch.bfloat16, 1, 1, 1), False),
+        "s12-bf16-d192": ((192, 12, torch.bfloat16, 1, 1, 1), True),
+        "s128-bf16-d128": ((128, 128, torch.bfloat16, 1, 1, 1), True),
+        "fp16": ((128, 16, torch.float16, 1, 1, 1), False),
     }
 
     @pytest.mark.parametrize("case", sorted(_GEOMETRIES))
     def test_auto_consults_the_pool_geometry(self, case):
-        """``paged_kernel_supported`` is the wrapper's geometry checks
-        (head dim in (32, 64, 128, 256), f32 or bf16, 4·S·D·bytes within
-        shared memory); "auto" takes the kernel for a CUDA pool where it
-        holds and refuses the pool where it does not, naming "dense";
-        "kernel" and "dense" are taken as asked."""
+        """``paged_kernel_supported`` asks of a pool what every route a
+        call on it can take needs (head dim in (32, 64, 128, 192, 256),
+        f32 or bf16; 4·S·D·bytes within shared memory where a prefill
+        call takes the row-tile kernel); "auto" takes the kernel for a
+        CUDA pool where it holds and refuses the pool where it does not,
+        naming "dense"; "kernel" and "dense" are taken as asked."""
         geom, ok = self._GEOMETRIES[case]
         assert tpa.paged_kernel_supported(*geom) is ok
         cuda = torch.device("cuda")
@@ -438,10 +495,62 @@ class TestNoSilentFallback:
         meta = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
                                 device="meta")
         with pytest.raises(ValueError, match="head dim 96"):
-            tsv._meta_statics(_Model, "auto", meta)
-        assert tsv._meta_statics(_Model, "dense", meta)["paged_kernel"] \
+            tsv._meta_statics(_Model, "auto", meta, 1)
+        assert tsv._meta_statics(_Model, "dense", meta, 1)["paged_kernel"] \
             == "dense"
         cpu = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
                                device="cpu")
-        assert tsv._meta_statics(_Model, "auto", cpu)["paged_kernel"] \
+        assert tsv._meta_statics(_Model, "auto", cpu, 1)["paged_kernel"] \
             == "dense"
+
+
+def test_auto_is_route_aware_off_the_cpu():
+    """The batcher's step path (``_meta_statics``, meta pools standing in
+    for the card's) at the serving heads (8 over 2 kv heads): bf16 pages
+    of 256 slots and head dim 192 take the kernels, an f32 pool past the
+    row-tile kernel's limit (pages of 128 slots at D 128: 256 KB) raises
+    before any work."""
+    class _Model:
+        lm_meta = dict(num_layers=1, num_heads=8, num_kv_heads=2)
+
+    for s, d, dtype, ok in ((256, 128, torch.bfloat16, True),
+                            (16, 192, torch.bfloat16, True),
+                            (16, 192, torch.float32, True),
+                            (128, 128, torch.float32, False)):
+        meta = tsv.PagedKVCache(1, 4, s, 2, d, dtype, device="meta")
+        if ok:
+            assert tsv._meta_statics(_Model, "auto", meta, 9)[
+                "paged_kernel"] == "kernel"
+        else:
+            with pytest.raises(ValueError, match="paged_kernel='dense'"):
+                tsv._meta_statics(_Model, "auto", meta, 9)
+        assert tsv._meta_statics(_Model, "dense", meta, 9)[
+            "paged_kernel"] == "dense"
+
+
+def test_wrapper_refuses_by_the_calls_route(monkeypatch):
+    """The wrapper's own check follows the call's route: at bf16 D 128
+    pages of 256 slots a prefill call with G 3 (the row-tile route) is
+    refused as a geometry; with G 4 (the tensor-core route) it passes
+    every check. Meta tensors stand in for the card's, with the device
+    check waived, so the G 4 call stops only where the kernel library is
+    built."""
+    real = tpa._check
+
+    def check(cond, msg):
+        if "CUDA device" not in msg:
+            real(cond, msg)
+    monkeypatch.setattr(tpa, "_check", check)
+
+    def call(h):
+        q = torch.empty((1, 32, h, 128), dtype=torch.bfloat16, device="meta")
+        kp = torch.empty((4, 256, 2, 128), dtype=torch.bfloat16,
+                         device="meta")
+        table = torch.zeros((1, 3), dtype=torch.int32, device="meta")
+        qs = torch.zeros((1,), dtype=torch.int32, device="meta")
+        tpa.paged_attention(q, kp, kp, table, qs)
+    with pytest.raises(ValueError, match="pool geometry.*the row route"):
+        call(6)
+    with pytest.raises(Exception) as e:
+        call(8)
+    assert "pool geometry" not in str(e.value)

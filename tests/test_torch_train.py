@@ -442,6 +442,31 @@ def test_train_main_defaults_on_the_cpu(tmp_path):
     assert np.isfinite(opt.history[0]["loss"])
 
 
+@pytest.mark.parametrize("d_model,heads", [(128, 1), (256, 1)],
+                         ids=["d128", "d256"])
+def test_train_main_one_wide_head_on_the_cpu(tmp_path, d_model, heads):
+    """The train main's model flags at one head as wide as the model
+    (``--dModel 128 --numHeads 1``: head dim 128; ``--dModel 256``: 256,
+    the head width ``[train]`` runs on the card at ``--dModel 1024
+    --numHeads 4``), one layer, one step on the CPU through the flash
+    kernels' plain versions, which the flash kernels take on the card."""
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_text(str(data), n_sentences=40)
+    TRandom.set_seed(1)
+    torch.manual_seed(0)
+    opt = ttrain.main(["-f", str(data), "-e", "1", "--dModel",
+                       str(d_model), "--numHeads", str(heads),
+                       "--numLayers", "1", "--seqLength", "32", "--device",
+                       "cpu"])
+    d = opt.model[1][0][1].head_dim
+    assert d == d_model // heads
+    q = torch.empty((1, 8, heads, d))
+    assert tfa.flash_supported(q, q)
+    assert len(opt.history) >= 1
+    assert all(np.isfinite(h["loss"]) for h in opt.history)
+
+
 @pytest.mark.parametrize("flags", [["--chips", "2"], ["--model", "m"],
                                    ["--sequenceParallel", "ring"]])
 def test_train_main_refuses_what_is_not_ported(tmp_path, flags):
