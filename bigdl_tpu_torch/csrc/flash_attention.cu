@@ -100,6 +100,31 @@
 // dq and dkdv stage six tiles of R x (D + 4) floats and the R x (R + 1)
 // p/dS tile: 219 KB at D 128 with R 64, 199 + 4 KB at D 256 with R 32.
 //
+// past D 256, either dtype -> CUDA cores, D sliced (namespace sliced,
+// flash_*_sliced_kernel<T>; D any multiple of 64, a runtime value, so one
+// instantiation per dtype serves every D). Whole D-wide tiles no longer
+// fit: at D 320 a 64-row bf16 tile is 40 KB (240 KB for the bf16
+// kernels' tiles against 227), and a D-wide f32 accumulator is 32·D/64
+// registers a thread (160 at D 320) beside the score tiles. So a CTA
+// owns one (b·h, 64-row tile, slice of 64 output columns): grid (B·H,
+// tiles, D/64). The score tiles S = Q·Kᵀ and dP = dO·Vᵀ (Sᵀ, dPᵀ for
+// dk/dv) sum over all of D in 64-column chunks of both operands, staged
+// with cp.async through a 2-stage ring into the same 16 x 16 thread grid
+// over 64 x 64 tiles as the float32 kernels (rows past S zero-filled),
+// every slice in the same chunk order, so every slice forms the same m
+// and l (the forward's lse is written by slice 0). The D-sized products
+// then touch only the CTA's slice: P·V[:, slice], dS·K[:, slice],
+// Pᵀ·dO[:, slice] and dSᵀ·Q[:, slice], the slice of each walked tile
+// staged once a tile (double-buffered by tile) beside the ring. Cost:
+// the score products are recomputed D/64 times (5 at D 320, 8 at D
+// 512), so the forward does D/64 + 1 half-products of work where one
+// D-wide CTA would do 2, dq 2·D/64 + 1 against 3 and dk/dv 2·D/64 + 2
+// against 4. The bf16 instantiation keeps the rounding contract above:
+// P is rounded to bf16 before P·V and Pᵀ·dO, dS before dS·K and dSᵀ·Q.
+// Shared memory, f32: 6, 10 and 12 chunks of 64 x 68 floats (17 KB)
+// beside the 64 x 65 f32 p/dS tile: 118, 186 and 220 KB; bf16 about
+// half. Right first; a tensor-core design past 256 is later work.
+//
 // The kernels allocate nothing; the Python wrapper allocates outputs
 // and checks shapes, dtypes, contiguity and alignment.
 
@@ -636,6 +661,502 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Skv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ===========================================================================
+// past D 256, float32 and bfloat16: CUDA cores, D sliced (header)
+// ===========================================================================
+
+namespace sliced {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kR = 64;             // rows of a tile: queries and keys alike
+constexpr int kM = kR / 16;        // rows (and score columns) a thread owns
+constexpr int kW = 64;             // output columns a CTA owns: one chunk
+constexpr int kPP = kR + 1;        // pitch (floats) of the f32 p/dS tile
+
+// a staged chunk: kR rows of 64 columns at a pitch of 64 elements plus
+// 16 bytes
+template <typename T>
+constexpr int kPitch = 64 + 16 / static_cast<int>(sizeof(T));
+template <typename T>
+constexpr int kChunk = kR * kPitch<T>;                 // elements
+template <typename T>
+constexpr size_t chunk_bytes() {
+  return static_cast<size_t>(kChunk<T>) * sizeof(T);
+}
+constexpr size_t kWBytes = kR * kPP * sizeof(float);
+
+// 4 adjacent elements of shared memory as f32, and back
+__device__ __forceinline__ void vload4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void vload4(const bf16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(v.x << 16);   // element 0: the low half
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+__device__ __forceinline__ void vstore4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void vstore4(bf16* p, const float (&x)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 c = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&c);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// p or dS as the products take it: rounded to the operand type
+__device__ __forceinline__ float operand(float x, float) { return x; }
+__device__ __forceinline__ float operand(float x, bf16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Stage rows [row0, row0 + kR), columns [col0, col0 + 64) of head h of x
+// (B, S, H, D) into dst; rows >= S are zero-filled.
+template <typename T>
+__device__ __forceinline__ void load_chunk(T* dst, const T* x, int b, int h,
+                                           int row0, int col0, int S, int H,
+                                           int D) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPer = 64 / kVec;                      // copies a row
+  for (int c = threadIdx.x; c < kR * kPer; c += kThreads) {
+    const int r = c / kPer, w = (c % kPer) * kVec;
+    const int s = row0 + r;
+    const bool ok = s < S;
+    const T* g = ok ? x + ((static_cast<int64_t>(b) * S + s) * H + h) * D +
+                          col0 + w
+                    : x;
+    cp_async16(dst + r * kPitch<T> + w, g, ok);
+  }
+}
+
+// acc[i][j] += A[ty*kM + i] · B[tx + 16*j] over one chunk's 64 columns
+template <typename T>
+__device__ __forceinline__ void dot_chunk(const T* A, const T* B, int ty,
+                                          int tx, float (&acc)[kM][kM]) {
+#pragma unroll 4
+  for (int d = 0; d < 64; d += 4) {
+    float a[kM][4], bb[kM][4];
+#pragma unroll
+    for (int i = 0; i < kM; ++i)
+      vload4(A + (ty * kM + i) * kPitch<T> + d, a[i]);
+#pragma unroll
+    for (int j = 0; j < kM; ++j)
+      vload4(B + (tx + 16 * j) * kPitch<T> + d, bb[j]);
+#pragma unroll
+    for (int i = 0; i < kM; ++i)
+#pragma unroll
+      for (int j = 0; j < kM; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j] += a[i][e] * bb[j][e];
+  }
+}
+
+// acc[i][e] += Σ_c W[ty*kM + i][c] · X[c][4·tx + e]: W the f32 kR x kR
+// tile, X a staged chunk (the CTA's slice of columns)
+template <typename T>
+__device__ __forceinline__ void mul_chunk(const float* W, const T* X, int ty,
+                                          int tx, float (&acc)[kM][4]) {
+#pragma unroll 4
+  for (int c = 0; c < kR; ++c) {
+    float w[kM], x[4];
+#pragma unroll
+    for (int i = 0; i < kM; ++i) w[i] = W[(ty * kM + i) * kPP + c];
+    vload4(X + c * kPitch<T> + 4 * tx, x);
+#pragma unroll
+    for (int i = 0; i < kM; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] += w[i] * x[e];
+  }
+}
+
+// Write columns [col0 + 4·tx, + 4) of rows ty*kM + i (if below S) of a
+// (B, S, H, D) output, row i scaled by mul[i]
+template <typename T>
+__device__ __forceinline__ void store_slice(T* out,
+                                            const float (&acc)[kM][4],
+                                            const float (&mul)[kM], int b,
+                                            int h, int row0, int col0, int S,
+                                            int H, int D, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    const int s = row0 + ty * kM + i;
+    if (s >= S) continue;
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = acc[i][e] * mul[i];
+    vstore4(out + ((static_cast<int64_t>(b) * S + s) * H + h) * D + col0 +
+                4 * tx,
+            x);
+  }
+}
+
+// Forward. CTA: kR queries of one (b, h), output columns [64·z, 64·z +
+// 64) for blockIdx.z = z. Step t of the loop is (key tile t / nc, chunk
+// t % nc): the Q and K chunks of the step are staged (double-buffered
+// with cp.async) and their product added to the score tile, so every
+// slice sums the chunks in the same order and forms the same m and l;
+// a key tile's first step also brings its V slice (double-buffered by
+// tile), which P·V takes at the tile's last step. lse comes from slice 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, int H, int Sq, int Skv,
+                        int D, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kC = kChunk<T>;
+  T* const ring = reinterpret_cast<T*>(smem_raw);     // [2][Q|K][chunk]
+  T* const vsl = ring + 4 * kC;                        // [2][V slice]
+  float* const ps = reinterpret_cast<float*>(vsl + 2 * kC);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kR;   // heavy tiles first
+  const int col = kW * blockIdx.z, nc = D / 64;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int steps = key_tiles<kR>(q0, Sq, Skv, causal) * nc;
+
+  auto fetch = [&](int t) {
+    const int kt = t / nc, c = t % nc;
+    T* const st = ring + (t & 1) * 2 * kC;
+    load_chunk<T>(st, q, b, h, q0, 64 * c, Sq, H, D);
+    load_chunk<T>(st + kC, k, b, h, kt * kR, 64 * c, Skv, H, D);
+    if (c == 0)
+      load_chunk<T>(vsl + (kt & 1) * kC, v, b, h, kt * kR, col, Skv, H, D);
+  };
+
+  float acc[kM][4], m[kM], l[kM], s[kM][kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+
+  fetch(0);
+  cp_async_commit();
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) fetch(t + 1);
+    cp_async_commit();
+    cp_async_wait_prev();                  // step t (and its V slice)
+    __syncthreads();
+    const int kt = t / nc, c = t % nc;
+    const T* const st = ring + (t & 1) * 2 * kC;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+#pragma unroll
+        for (int j = 0; j < kM; ++j) s[i][j] = 0.f;
+    }
+    dot_chunk<T>(st, st + kC, ty, tx, s);
+    if (c == nc - 1) {
+      const int k0 = kt * kR;
+#pragma unroll
+      for (int i = 0; i < kM; ++i) {
+        const int qpos = q0 + ty * kM + i;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kM; ++j) {
+          const int kpos = k0 + tx + 16 * j;
+          s[i][j] = kpos >= Skv                ? -INFINITY
+                    : (causal && kpos > qpos) ? kMask
+                                              : s[i][j] * scale;
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], group16_max(mx));
+        const float corr = expf(m[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kM; ++j) {
+          const float p = expf(s[i][j] - m_new);
+          sum += p;
+          ps[(ty * kM + i) * kPP + tx + 16 * j] = operand(p, T{});
+        }
+        l[i] = l[i] * corr + group16_sum(sum);
+        m[i] = m_new;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] *= corr;
+      }
+      __syncthreads();                     // p tile complete
+      mul_chunk<T>(ps, vsl + (kt & 1) * kC, ty, tx, acc);
+    }
+    __syncthreads();                       // stage t & 1 and p reusable
+  }
+
+  float inv[kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) inv[i] = 1.f / l[i];
+  store_slice<T>(o, acc, inv, b, h, q0, col, Sq, H, D, ty, tx);
+  if (blockIdx.z == 0 && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < kM; ++i) {
+      const int s_ = q0 + ty * kM + i;
+      if (s_ < Sq)
+        lse[(static_cast<int64_t>(b) * Sq + s_) * H + h] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// dq. CTA: kR queries, dq columns [64·z, 64·z + 64). Each step stages
+// the Q, dO, K and V chunks of (key tile, chunk) and adds to S and dP;
+// a key tile's first step also brings its K slice, which dS·K takes at
+// the tile's last step.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       int H, int Sq, int Skv, int D, float scale,
+                       int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kC = kChunk<T>;
+  T* const ring = reinterpret_cast<T*>(smem_raw);   // [2][Q|dO|K|V][chunk]
+  T* const ksl = ring + 8 * kC;                      // [2][K slice]
+  float* const ds_tile = reinterpret_cast<float*>(ksl + 2 * kC);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kR;
+  const int col = kW * blockIdx.z, nc = D / 64;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int steps = key_tiles<kR>(q0, Sq, Skv, causal) * nc;
+
+  auto fetch = [&](int t) {
+    const int kt = t / nc, c = t % nc;
+    T* const st = ring + (t & 1) * 4 * kC;
+    load_chunk<T>(st, q, b, h, q0, 64 * c, Sq, H, D);
+    load_chunk<T>(st + kC, dout, b, h, q0, 64 * c, Sq, H, D);
+    load_chunk<T>(st + 2 * kC, k, b, h, kt * kR, 64 * c, Skv, H, D);
+    load_chunk<T>(st + 3 * kC, v, b, h, kt * kR, 64 * c, Skv, H, D);
+    if (c == 0)
+      load_chunk<T>(ksl + (kt & 1) * kC, k, b, h, kt * kR, col, Skv, H, D);
+  };
+
+  float acc[kM][4], row_lse[kM], row_delta[kM], s[kM][kM], dp[kM][kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    const int s_ = q0 + ty * kM + i;
+    const int64_t at = (static_cast<int64_t>(b) * Sq + s_) * H + h;
+    row_lse[i] = s_ < Sq ? lse[at] : 0.f;
+    row_delta[i] = s_ < Sq ? delta[at] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+
+  fetch(0);
+  cp_async_commit();
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) fetch(t + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const int kt = t / nc, c = t % nc;
+    const T* const st = ring + (t & 1) * 4 * kC;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+#pragma unroll
+        for (int j = 0; j < kM; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    dot_chunk<T>(st, st + 2 * kC, ty, tx, s);           // Q·Kᵀ
+    dot_chunk<T>(st + kC, st + 3 * kC, ty, tx, dp);     // dO·Vᵀ
+    if (c == nc - 1) {
+      const int k0 = kt * kR;
+#pragma unroll
+      for (int i = 0; i < kM; ++i) {
+        const int qpos = q0 + ty * kM + i;
+#pragma unroll
+        for (int j = 0; j < kM; ++j) {
+          const int kpos = k0 + tx + 16 * j;
+          const float sc = kpos >= Skv                ? -INFINITY
+                           : (causal && kpos > qpos) ? kMask
+                                                     : s[i][j] * scale;
+          const float p = expf(sc - row_lse[i]);
+          ds_tile[(ty * kM + i) * kPP + tx + 16 * j] =
+              operand(p * (dp[i][j] - row_delta[i]) * scale, T{});
+        }
+      }
+      __syncthreads();
+      mul_chunk<T>(ds_tile, ksl + (kt & 1) * kC, ty, tx, acc);
+    }
+    __syncthreads();
+  }
+
+  float one[kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) one[i] = 1.f;
+  store_slice<T>(dq, acc, one, b, h, q0, col, Sq, H, D, ty, tx);
+}
+
+// dk and dv. CTA: kR keys, dk and dv columns [64·z, 64·z + 64). Each
+// step stages the K, V, Q and dO chunks of (query tile, chunk) and adds
+// to Sᵀ and dPᵀ; a query tile's first step also brings its Q and dO
+// slices, which Pᵀ·dO and dSᵀ·Q take at the tile's last step.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkdv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int H,
+                         int Sq, int Skv, int D, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kC = kChunk<T>;
+  T* const ring = reinterpret_cast<T*>(smem_raw);   // [2][K|V|Q|dO][chunk]
+  T* const qsl = ring + 8 * kC;                      // [2][Q | dO slice]
+  float* const w_tile = reinterpret_cast<float*>(qsl + 4 * kC);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = (gridDim.y - 1 - blockIdx.y) * kR;   // heavy tiles first
+  const int col = kW * blockIdx.z, nc = D / 64;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int nq = (Sq + kR - 1) / kR;
+  // causal: query tiles wholly before this key tile see none of its keys
+  const int qt0 = causal ? min(k0 / kR, nq) : 0;
+  const int steps = (nq - qt0) * nc;
+
+  auto fetch = [&](int t) {
+    const int it = t / nc, c = t % nc, qr = (qt0 + it) * kR;
+    T* const st = ring + (t & 1) * 4 * kC;
+    load_chunk<T>(st, k, b, h, k0, 64 * c, Skv, H, D);
+    load_chunk<T>(st + kC, v, b, h, k0, 64 * c, Skv, H, D);
+    load_chunk<T>(st + 2 * kC, q, b, h, qr, 64 * c, Sq, H, D);
+    load_chunk<T>(st + 3 * kC, dout, b, h, qr, 64 * c, Sq, H, D);
+    if (c == 0) {
+      T* const sl = qsl + (it & 1) * 2 * kC;
+      load_chunk<T>(sl, q, b, h, qr, col, Sq, H, D);
+      load_chunk<T>(sl + kC, dout, b, h, qr, col, Sq, H, D);
+    }
+  };
+
+  float dk_acc[kM][4], dv_acc[kM][4], s[kM][kM], dp[kM][kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  if (steps > 0) fetch(0);
+  cp_async_commit();
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) fetch(t + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const int it = t / nc, c = t % nc;
+    const T* const st = ring + (t & 1) * 4 * kC;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+#pragma unroll
+        for (int j = 0; j < kM; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    // transposed tiles: rows are this CTA's keys, columns the queries
+    dot_chunk<T>(st, st + 2 * kC, ty, tx, s);           // K·Qᵀ
+    dot_chunk<T>(st + kC, st + 3 * kC, ty, tx, dp);     // V·dOᵀ
+    if (c == nc - 1) {
+      const int q0 = (qt0 + it) * kR;
+      const T* const sl = qsl + (it & 1) * 2 * kC;
+      float col_lse[kM], col_delta[kM];
+#pragma unroll
+      for (int j = 0; j < kM; ++j) {
+        const int qpos = q0 + tx + 16 * j;
+        const int64_t at = (static_cast<int64_t>(b) * Sq + qpos) * H + h;
+        col_lse[j] = qpos < Sq ? lse[at] : 0.f;
+        col_delta[j] = qpos < Sq ? delta[at] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kM; ++i) {
+        const int kpos = k0 + ty * kM + i;
+#pragma unroll
+        for (int j = 0; j < kM; ++j) {
+          const int qpos = q0 + tx + 16 * j;
+          const float sc = qpos >= Sq                 ? -INFINITY
+                           : (causal && kpos > qpos) ? kMask
+                                                     : s[i][j] * scale;
+          s[i][j] = expf(sc - col_lse[j]);                  // p
+          w_tile[(ty * kM + i) * kPP + tx + 16 * j] = operand(s[i][j], T{});
+        }
+      }
+      __syncthreads();                     // pᵀ tile complete
+      mul_chunk<T>(w_tile, sl + kC, ty, tx, dv_acc);       // Pᵀ·dO
+      __syncthreads();                     // pᵀ tile read
+#pragma unroll
+      for (int i = 0; i < kM; ++i)
+#pragma unroll
+        for (int j = 0; j < kM; ++j)
+          w_tile[(ty * kM + i) * kPP + tx + 16 * j] =
+              operand(s[i][j] * (dp[i][j] - col_delta[j]) * scale, T{});
+      __syncthreads();                     // dSᵀ tile complete
+      mul_chunk<T>(w_tile, sl, ty, tx, dk_acc);            // dSᵀ·Q
+    }
+    __syncthreads();
+  }
+
+  float one[kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) one[i] = 1.f;
+  store_slice<T>(dk, dk_acc, one, b, h, k0, col, Skv, H, D, ty, tx);
+  store_slice<T>(dv, dv_acc, one, b, h, k0, col, Skv, H, D, ty, tx);
+}
+
+// staged chunks: fwd 2 stages x (Q, K) + 2 V slices; dq 2 x (Q, dO, K,
+// V) + 2 K slices; dkdv 2 x (K, V, Q, dO) + 2 x (Q, dO) slices; each
+// beside the f32 p/dS tile (dkdv in f32: 12 x 17,408 + 16,640 bytes)
+template <typename T>
+int fwd(int D, const void* q, const void* k, const void* v, void* o,
+        float* lse, int B, int H, int Sq, int Skv, float scale, int causal,
+        cudaStream_t st) {
+  const size_t smem = 6 * chunk_bytes<T>() + kWBytes;
+  auto kernel = flash_fwd_sliced_kernel<T>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Sq + kR - 1) / kR, D / kW);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Skv, D,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dq(int D, const void* q, const void* k, const void* v, const void* dout,
+       const float* lse, const float* delta, void* dq_out, int B, int H,
+       int Sq, int Skv, float scale, int causal, cudaStream_t st) {
+  const size_t smem = 10 * chunk_bytes<T>() + kWBytes;
+  auto kernel = flash_dq_sliced_kernel<T>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Sq + kR - 1) / kR, D / kW);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq_out), H, Sq, Skv, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dkdv(int D, const void* q, const void* k, const void* v,
+         const void* dout, const float* lse, const float* delta, void* dk,
+         void* dv, int B, int H, int Sq, int Skv, float scale, int causal,
+         cudaStream_t st) {
+  const size_t smem = 12 * chunk_bytes<T>() + kWBytes;
+  auto kernel = flash_dkdv_sliced_kernel<T>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Skv + kR - 1) / kR, D / kW);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Skv, D, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sliced
 
 // ===========================================================================
 // bfloat16: tensor cores (wgmma), tiles by TMA
@@ -1388,7 +1909,8 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace tc
 
 // dispatch on (dtype code, head dim): 0 = float32 (CUDA cores), 1 =
-// bfloat16 (tensor cores)
+// bfloat16 (tensor cores); past D 256 either dtype takes the D-sliced
+// CUDA-core kernels, any D that is a multiple of 64
 #define BIGDL_FLASH_DISPATCH(FN, ...)                                    \
   do {                                                                    \
     if (dtype == 0 && D == 32) return FN<float, 32>(__VA_ARGS__);         \
@@ -1401,6 +1923,10 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
     if (dtype == 1 && D == 128) return tc::FN<128>(__VA_ARGS__);          \
     if (dtype == 1 && D == 192) return tc::FN<192>(__VA_ARGS__);          \
     if (dtype == 1 && D == 256) return tc::FN<256>(__VA_ARGS__);          \
+    if (dtype == 0 && D > 256 && D % 64 == 0)                             \
+      return sliced::FN<float>(D, __VA_ARGS__);                           \
+    if (dtype == 1 && D > 256 && D % 64 == 0)                             \
+      return sliced::FN<__nv_bfloat16>(D, __VA_ARGS__);                   \
     return -1;                                                            \
   } while (0)
 

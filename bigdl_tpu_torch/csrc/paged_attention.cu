@@ -15,13 +15,15 @@
 // The C entry picks one of three designs by dtype and shape alone
 // (route_of; ops/paged_attention.kernel_route mirrors it, and the entry
 // reports the route it took so the wrapper can hold the mirror to it):
-// a call whose T·G query rows of a kv head fit one tile (T·G <=
-// kSplitRows, every decode step) takes the split-KV decode kernel; a
-// bf16 call with more rows (prefill) whose geometry the tensor cores
-// tile (pages of S % 8 == 0 slots, 64 % G == 0, P <= kTcMaxPages) takes
-// `paged_prefill_tc_kernel`; every other call (f32 pools, pages of 7,
-// odd G) takes `paged_attention_kernel`. No call reroutes after a failed
-// map or launch: the entry returns the error.
+// a call past head dim kRowOnlyPast (256) takes `paged_attention_kernel`,
+// the only kernel built for D 320-512; otherwise a call whose T·G query
+// rows of a kv head fit one tile (T·G <= kSplitRows, every decode step)
+// takes the split-KV decode kernel; a bf16 call with more rows (prefill)
+// whose geometry the tensor cores tile (pages of S % 8 == 0 slots, 64 %
+// G == 0, P <= kTcMaxPages) takes `paged_prefill_tc_kernel`; every other
+// call (f32 pools, pages of 7, odd G) takes `paged_attention_kernel`.
+// Every route takes any page size and table width. No call reroutes
+// after a failed map or launch: the entry returns the error.
 //
 // paged_prefill_tc_kernel (bf16 prefill, tensor cores):
 // - Bound: prefill of a 512-token bucket (H 8, KV 2, D 128) does 0.54
@@ -72,7 +74,7 @@
 //   changes with each layer); at D 32 the 64-wide boxes reach past D and
 //   fill with zeros, as flash's do.
 //
-// paged_attention_kernel (f32 and other prefill geometries):
+// paged_attention_kernel (f32, other prefill geometries, D past 256):
 // - One CTA of 4 warps per (row b, kv head, tile of query rows). The G
 //   query heads that share a kv head fold into the tile's rows (row r is
 //   query column r / G, head r % G), as the TPU kernel folds them into the
@@ -80,11 +82,21 @@
 // - The TPU grid's sequential page axis (scratch carried across pages)
 //   becomes a loop over the row's pages inside the CTA. The CTA reads the
 //   block table and q_start itself (no scalar prefetch).
-// - Pages whose first slot lies past the tile's last query position are
-//   never loaded: a short row in a long table reads only its own pages.
-// - K/V pages are staged in shared memory with cp.async, double buffered,
-//   so the next page's load overlaps this page's arithmetic.
-// - Each warp owns 4 query rows; each lane owns D/32 of the head dims.
+// - K/V are staged in shared memory with cp.async in chunks of C slots of
+//   a page, double buffered, so the next chunk's load overlaps this
+//   chunk's arithmetic. C (row_chunk_slots, on the host) is the whole
+//   page where 4·S·D·bytes fit the 227 KB a block may use, so such pages
+//   run the loop they always ran, else the most slots that fit in a
+//   multiple of kKeyChunk: 224 of a 300-slot bf16 page at D 128, 112 of
+//   an f32 one, 24 at f32 D 512. Keys are scored kKeyChunk at a time
+//   from each multiple of kKeyChunk of the page either way, so the
+//   arithmetic does not depend on C.
+// - Chunks whose first slot lies past the tile's last query position
+//   (and every page past it) are never loaded: a short row in a long
+//   table reads only its own keys.
+// - Each warp owns 4 query rows (2 past D 256); each lane owns D/32 of
+//   the head dims (q and the accumulator: 64 f32 registers a lane at D
+//   512 with 2 rows; 4 rows spilled at D 384).
 //   Scores are f32 dot products finished with warp shuffles; the running
 //   max, sum and accumulator are f32 in registers (online softmax). P·V
 //   takes p rounded to the pool dtype, as the TPU kernel does. Output f32.
@@ -154,6 +166,10 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeyChunk = 8;       // keys scored per online-softmax update
 constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
+constexpr int kSmemMax = 232448;   // bytes of shared memory one block may use
+// the split-KV and tensor-core kernels are built up to this head dim;
+// past it every call runs the row-tile kernel (route_of)
+constexpr int kRowOnlyPast = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -181,16 +197,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Stage physical page `page`, kv head `h`, of both pools into smem
-// (S rows of D elements each, rows contiguous).
+// Stage slots [slot0, slot0 + n) of physical page `page`, kv head `h`,
+// of both pools into smem (n rows of D elements each, rows contiguous).
 template <typename T, int D>
-__device__ __forceinline__ void load_page(T* ks, T* vs, const T* kp,
-                                          const T* vp, int64_t page, int h,
-                                          int S, int KV) {
+__device__ __forceinline__ void load_slots(T* ks, T* vs, const T* kp,
+                                           const T* vp, int64_t page,
+                                           int slot0, int n, int h, int S,
+                                           int KV) {
   constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte copy
   constexpr int kPerSlot = D / kVec;
-  const int64_t base = page * S * KV * D + static_cast<int64_t>(h) * D;
-  for (int c = threadIdx.x; c < S * kPerSlot; c += kThreads) {
+  const int64_t base =
+      (page * S + slot0) * KV * D + static_cast<int64_t>(h) * D;
+  for (int c = threadIdx.x; c < n * kPerSlot; c += kThreads) {
     const int s = c / kPerSlot, w = (c % kPerSlot) * kVec;
     const int64_t g = base + static_cast<int64_t>(s) * KV * D + w;
     cp_async16(ks + s * D + w, kp + g);
@@ -198,18 +216,21 @@ __device__ __forceinline__ void load_page(T* ks, T* vs, const T* kp,
   }
 }
 
-template <typename T, int D, int RPW>
+// CHUNKS: pages in chunks of C < S slots; else whole pages (C == S), the
+// loop the kernel ran before it streamed chunks (its own instantiation,
+// so a page that fits runs it as it ran)
+template <typename T, int D, int RPW, bool CHUNKS>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp,
                        const int* __restrict__ table,
                        const int* __restrict__ q_start,
                        float* __restrict__ out, int T_, int H, int KV,
-                       int S, int P, float scale) {
+                       int S, int P, int C, float scale) {
   constexpr int kDpl = D / 32;           // head dims per lane
   constexpr int kRows = kWarps * RPW;    // query rows per CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const buf = reinterpret_cast<T*>(smem_raw);   // [2][K|V][S][D]
+  T* const buf = reinterpret_cast<T*>(smem_raw);   // [2][K|V][C][D]
 
   const int b = blockIdx.x / KV, h = blockIdx.x % KV;
   const int G = H / KV;
@@ -218,8 +239,17 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qs = q_start[b];
   const int q_last = qs + (min(row0 + kRows, rows_total) - 1) / G;
-  // pages j with j*S <= q_last hold every key any row here may attend
-  const int n_pages = min(P, q_last / S + 1);
+  // the row's pages in chunks of Cs slots, cpp a page, in order. The
+  // chunks whose first key lies at or before q_last hold every key any
+  // row here may attend; the rest (and every page past q_last's) are
+  // never loaded
+  const int Cs = CHUNKS ? C : S;
+  const int cpp = CHUNKS ? (S + Cs - 1) / Cs : 1;
+  const int last_page = min(P - 1, q_last / S);
+  const int n_chunks =
+      !CHUNKS ? min(P, q_last / S + 1)
+      : P > 0 ? last_page * cpp + min(cpp, (q_last - last_page * S) / Cs + 1)
+              : 0;
 
   float qr[RPW][kDpl], acc[RPW][kDpl], m[RPW], l[RPW];
   int qpos[RPW];
@@ -243,29 +273,40 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 
   const int* row_table = table + static_cast<int64_t>(b) * P;
-  if (n_pages > 0) {
-    load_page<T, D>(buf, buf + S * D, kp, vp, row_table[0], h, S, KV);
-  }
+  // chunk u (slots [s0, s0 + Cs) of page j) into buffer u & 1
+  auto load = [&](int u, int j, int s0) {
+    T* const dst = buf + (u & 1) * 2 * Cs * D;
+    load_slots<T, D>(dst, dst + Cs * D, kp, vp, row_table[j], s0,
+                     CHUNKS ? min(Cs, S - s0) : S, h, S, KV);
+  };
+  if (n_chunks > 0) load(0, 0, 0);
   cp_async_commit();
-  for (int j = 0; j < n_pages; ++j) {
-    T* const ks = buf + (j & 1) * 2 * S * D;
-    T* const vs = ks + S * D;
-    if (j + 1 < n_pages) {
-      T* const nk = buf + ((j + 1) & 1) * 2 * S * D;
-      load_page<T, D>(nk, nk + S * D, kp, vp, row_table[j + 1], h, S, KV);
-    }
+  // chunk u is slots [slot0, slot0 + Cs) of page j, stepped along with
+  // u (whole pages: page u, slot 0)
+  int j = 0, slot0 = 0;
+  for (int u = 0; u < n_chunks; ++u) {
+    T* const ks = buf + (u & 1) * 2 * Cs * D;
+    T* const vs = ks + Cs * D;
+    const int page = CHUNKS ? j : u, first = CHUNKS ? slot0 : 0;
+    const bool wrap = !CHUNKS || first + Cs >= S;   // the next opens a page
+    const int j_next = wrap ? page + 1 : page;
+    const int s_next = wrap ? 0 : first + Cs;
+    if (u + 1 < n_chunks) load(u + 1, j_next, s_next);
     cp_async_commit();
-    cp_async_wait_prev();                // page j has landed
+    cp_async_wait_prev();                // chunk u has landed
     __syncthreads();
+    // keys [key0, key0 + n) of the row: groups of kKeyChunk start at
+    // multiples of kKeyChunk within the page, as Cs is one (or S)
+    const int n = CHUNKS ? min(Cs, S - first) : S, key0 = page * S + first;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       if (!live[i]) continue;            // warp-uniform
-      for (int c = 0; c < S; c += kKeyChunk) {
+      for (int c = 0; c < n; c += kKeyChunk) {
         float s[kKeyChunk];
 #pragma unroll
         for (int kk = 0; kk < kKeyChunk; ++kk) {
           float part = 0.f;
-          if (c + kk < S) {
+          if (c + kk < n) {
             const T* kr = ks + (c + kk) * D + lane * kDpl;
 #pragma unroll
             for (int d = 0; d < kDpl; ++d) part += qr[i][d] * to_f32(kr[d]);
@@ -278,9 +319,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         float m_chunk = -INFINITY;
 #pragma unroll
         for (int kk = 0; kk < kKeyChunk; ++kk) {
-          const int slot = c + kk;
-          const int kpos = j * S + slot;
-          s[kk] = slot >= S          ? -INFINITY   // past the page: no key
+          const int kpos = key0 + c + kk;
+          s[kk] = c + kk >= n        ? -INFINITY   // past the chunk: no key
                   : kpos > qpos[i]   ? kMask
                                      : s[kk] * scale;
           m_chunk = fmaxf(m_chunk, s[kk]);
@@ -294,7 +334,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         for (int kk = 0; kk < kKeyChunk; ++kk) {
           const float p = expf(s[kk] - m_new);
           psum += p;
-          if (c + kk < S) {
+          if (c + kk < n) {
             const float pr = round_as(p, T{});
             const T* vr = vs + (c + kk) * D + lane * kDpl;
 #pragma unroll
@@ -305,7 +345,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         m[i] = m_new;
       }
     }
-    __syncthreads();                     // buffer j&1 is refilled next
+    __syncthreads();                     // buffer u & 1 is refilled next
+    j = j_next;
+    slot0 = s_next;
   }
 
 #pragma unroll
@@ -316,6 +358,14 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
+// slots of a row-tile chunk: the whole page where its K and V, double
+// buffered (4·S·D·elt bytes), fit a block's shared memory, else the
+// most that do in a multiple of kKeyChunk
+int row_chunk_slots(int D, int S, int elt) {
+  const int fit = kSmemMax / (4 * D * elt);
+  return S <= fit ? S : fit / kKeyChunk * kKeyChunk;
+}
+
 template <typename T, int D, int RPW>
 int launch(const void* q, const void* kp, const void* vp, const int* table,
            const int* q_start, float* out, int B, int T_, int H, int KV,
@@ -323,8 +373,10 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   constexpr int kRows = kWarps * RPW;
   const int rows_total = T_ * (H / KV);
   const dim3 grid(B * KV, (rows_total + kRows - 1) / kRows);
-  const size_t smem = 4ull * S * D * sizeof(T);
-  auto kernel = paged_attention_kernel<T, D, RPW>;
+  const int C = row_chunk_slots(D, S, sizeof(T));
+  const size_t smem = 4ull * C * D * sizeof(T);
+  auto kernel = C < S ? paged_attention_kernel<T, D, RPW, true>
+                      : paged_attention_kernel<T, D, RPW, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -333,7 +385,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   }
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, S, P,
+      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, S, P, C,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -342,7 +394,6 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
 // Split-KV decode
 
 constexpr int kSplitRows = 16;     // T·G query rows a split CTA holds
-constexpr int kSmemMax = 232448;   // bytes of shared memory one block may use
 
 struct Call {                      // one call's operands and geometry
   const void *q, *kp, *vp;
@@ -1066,8 +1117,9 @@ int launch(const Call& a) {
 enum Route { kRouteSplit = 0, kRouteTc = 1, kRouteRow = 2 };
 
 // the kernel a call runs, by dtype and shape alone
-Route route_of(int dtype, int T, int H, int KV, int S, int P) {
+Route route_of(int dtype, int T, int H, int KV, int D, int S, int P) {
   const int G = H / KV;
+  if (D > kRowOnlyPast) return kRouteRow;
   if (T * G <= kSplitRows) return kRouteSplit;
   if (dtype == 1 && S % 8 == 0 && tc::kWgRows % G == 0 &&
       P <= tc::kTcMaxPages)
@@ -1077,20 +1129,28 @@ Route route_of(int dtype, int T, int H, int KV, int S, int P) {
 
 template <typename T, int D>
 int launch_call(const Call& a, Route route) {
-  if (route == kRouteSplit) {
+  if constexpr (D > kRowOnlyPast) {      // the row-tile kernel alone
+    if (route != kRouteRow) return -1;
+  } else if (route == kRouteSplit) {
     if (a.ws == nullptr || a.counters == nullptr || a.pps < 1) return -3;
     const int rows = a.T * (a.H / a.KV);
     return rows <= 4 ? launch_split<T, D, 4>(a) : launch_split<T, D, 16>(a);
   }
-  if (route == kRouteTc) {
-    if constexpr (sizeof(T) == 2) {
-      const int e = tc::launch<D>(a);
-      return e == hopper::kNoEncoder ? -5 : e;
+  if constexpr (D <= kRowOnlyPast) {
+    if (route == kRouteTc) {
+      if constexpr (sizeof(T) == 2) {
+        const int e = tc::launch<D>(a);
+        return e == hopper::kNoEncoder ? -5 : e;
+      }
+      return -2;
     }
-    return -2;
   }
-  return launch<T, D, 4>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
-                         a.T, a.H, a.KV, a.S, a.P, a.scale, a.stream);
+  // rows per warp: 4, or 2 past D 256, where q and the accumulator take
+  // D/16 registers a lane per row (4 rows spilled at D 384)
+  constexpr int kRpw = D > kRowOnlyPast ? 2 : 4;
+  return launch<T, D, kRpw>(a.q, a.kp, a.vp, a.table, a.q_start, a.out,
+                            a.B, a.T, a.H, a.KV, a.S, a.P, a.scale,
+                            a.stream);
 }
 
 template <typename T>
@@ -1106,6 +1166,14 @@ int launch_dims(const Call& a, Route route) {
       return launch_call<T, 192>(a, route);
     case 256:
       return launch_call<T, 256>(a, route);
+    case 320:
+      return launch_call<T, 320>(a, route);
+    case 384:
+      return launch_call<T, 384>(a, route);
+    case 448:
+      return launch_call<T, 448>(a, route);
+    case 512:
+      return launch_call<T, 512>(a, route);
     default:
       return -1;
   }
@@ -1134,7 +1202,7 @@ extern "C" int bigdl_paged_attention(int dtype, const void* q,
                                      float scale, void* stream) {
   const Call a{q, kp, vp, table, q_start, out, ws, counters, B, T, H, KV,
                D, S, P, NP, pps, scale, static_cast<cudaStream_t>(stream)};
-  const Route r = route_of(dtype, T, H, KV, S, P);
+  const Route r = route_of(dtype, T, H, KV, D, S, P);
   *route = r;
   if (dtype == 0) return launch_dims<float>(a, r);
   if (dtype == 1) return launch_dims<__nv_bfloat16>(a, r);

@@ -135,15 +135,14 @@ class PagedKVCache:
 
 def _resolve_paged_kernel(mode, device: torch.device, head_dim: int,
                           page_size: int, dtype, num_heads: int,
-                          num_kv_heads: int, table_pages: int) -> str:
+                          num_kv_heads: int) -> str:
     """``paged_kernel=`` -> "kernel" or "dense" for pools of this geometry
     on ``device`` (``num_heads`` query heads over ``num_kv_heads`` kv
-    heads, tables of ``table_pages`` entries a row): "auto" is the kernel
-    off the CPU and the plain version on the CPU. A pool off the CPU whose
-    geometry the kernels do not take (``paged_kernel_supported``, which
-    asks it of every route a call on the pool can take) raises here under
-    "auto", before any work: on the card the dense path is taken only
-    when asked for. "kernel" raises at its first call for such a pool."""
+    heads): "auto" is the kernel off the CPU and the plain version on the
+    CPU. A pool off the CPU whose geometry the kernels do not take
+    (``paged_kernel_supported``) raises here under "auto", before any
+    work: on the card the dense path is taken only when asked for.
+    "kernel" raises at its first call for such a pool."""
     if mode not in PAGED_KERNEL_MODES:
         raise ValueError(f"paged_kernel must be one of "
                          f"{PAGED_KERNEL_MODES}, got {mode!r}")
@@ -153,17 +152,14 @@ def _resolve_paged_kernel(mode, device: torch.device, head_dim: int,
     if mode == "auto" and device.type == "cpu":
         return "dense"
     if mode == "auto" and not paged_kernel_supported(
-            head_dim, page_size, dtype, num_heads, num_kv_heads,
-            table_pages):
+            head_dim, page_size, dtype, num_heads, num_kv_heads):
         raise ValueError(
             f"paged_kernel='auto' on {device.type} pools but the kernels "
             f"do not take their geometry: head dim {head_dim}, pages of "
             f"{page_size} slots, {dtype}, {num_heads} heads over "
-            f"{num_kv_heads} kv heads, {table_pages}-entry tables (need "
-            f"head dim 32, 64, 128, 192 or 256, float32 or bfloat16, and "
-            f"unless the pools are bf16 with pages of a multiple of 8 "
-            f"slots, G dividing 64 and at most 4096 table entries, "
-            f"4·S·D·bytes within a block's shared memory); "
+            f"{num_kv_heads} kv heads (need "
+            f"head dim 32, 64, 128, 192, 256, 320, 384, 448 or 512, "
+            f"float32 or bfloat16, and kv heads dividing the heads); "
             f"paged_kernel='dense' takes the plain path")
     return "kernel" if mode == "auto" else mode
 
@@ -177,15 +173,14 @@ def _attend_paged(q, kp, vp, table, q_start, scale, kernel: str):
     return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
 
 
-def _meta_statics(model, paged_kernel, cache: PagedKVCache,
-                  table_pages: int):
+def _meta_statics(model, paged_kernel, cache: PagedKVCache):
     """The step functions' static arguments for ``model`` over
-    ``cache``, read through tables of ``table_pages`` entries a row."""
+    ``cache``."""
     meta = model.lm_meta
     kernel = _resolve_paged_kernel(
         paged_kernel, cache.device, cache.head_dim, cache.page_size,
         cache.kp[0].dtype, meta["num_heads"],
-        meta.get("num_kv_heads") or meta["num_heads"], table_pages)
+        meta.get("num_kv_heads") or meta["num_heads"])
     return dict(num_layers=meta["num_layers"], num_heads=meta["num_heads"],
                 rope=meta.get("pos_encoding", "learned") == "rope",
                 num_kv_heads=meta.get("num_kv_heads"), paged_kernel=kernel)
@@ -268,7 +263,7 @@ def paged_prefill(model, cache: PagedKVCache, table, prompts, *,
             f"= {capacity}-token capacity")
     logits = _paged_prefill_impl(
         params, cache, table, batch, lengths,
-        **_meta_statics(model, paged_kernel, cache, table.shape[1]))
+        **_meta_statics(model, paged_kernel, cache))
     first = torch.argmax(logits.to(torch.float32), dim=-1) + 1
     return first, lengths
 
@@ -349,7 +344,7 @@ def paged_decode(model, cache: PagedKVCache, table, lengths, last_tokens,
         torch.as_tensor(np.asarray(last_tokens, np.int64), device=dev),
         n_new=n_new, temperature=config.temperature, top_k=config.top_k,
         generator=generator,
-        **_meta_statics(model, paged_kernel, cache, table.shape[1]))
+        **_meta_statics(model, paged_kernel, cache))
 
 
 class ContinuousBatcher:
@@ -393,7 +388,7 @@ class ContinuousBatcher:
                                   + max_burst) // page_size)
         _resolve_paged_kernel(paged_kernel, tok.device, head_dim,  # validate
                               page_size, activation_dtype(),       # now
-                              meta["num_heads"], kv, self.pages_per_slot)
+                              meta["num_heads"], kv)
         self.paged_kernel = paged_kernel
         self.cache = PagedKVCache(meta["num_layers"], num_pages,
                                   page_size, kv, head_dim,

@@ -40,6 +40,8 @@ __all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
            "fwd_launches", "dq_launches", "dkdv_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
+#: head dims with kernels of their own; past 256 every multiple of 64
+#: runs the D-sliced kernels
 _HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,17 +51,20 @@ dq_launches = 0
 dkdv_launches = 0
 
 
+def _head_dim_ok(d: int) -> bool:
+    return d in _HEAD_DIMS or (d > 256 and d % 64 == 0)
+
+
 def flash_supported(q, k) -> bool:
     """Shapes and dtypes the kernels take: (B, S, H, D) q and k with equal
-    B, H and D, D in (32, 64, 128, 192, 256), float32 or bfloat16. Any
+    B, H and D, D in (32, 64, 128, 192, 256) or any multiple of 64 past
+    256 (as the JAX kernel, plus D 32), float32 or bfloat16. Any
     sequence lengths (ragged tile tails are masked in the kernel).
 
-    The JAX kernel takes any D that is a multiple of 64; the port still
-    refuses D past 256 (ROADMAP.md queue C, C7): the bf16 kernels keep a
-    D-wide f32 accumulator in registers, 32·D/64 a thread (160 at D 320,
-    beside the score and fragment tiles of the 255 a thread may hold),
-    and a whole (64, D) bf16 tile per stage in shared memory."""
-    return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] in _HEAD_DIMS
+    Past D 256 the C entries route to the D-sliced CUDA-core kernels: a
+    CTA owns a 64-column slice of the output and sums the scores over
+    all of D in 64-column chunks (csrc/flash_attention.cu's header)."""
+    return (q.dim() == 4 and k.dim() == 4 and _head_dim_ok(q.shape[-1])
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
             and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
             and q.shape[1] > 0 and k.shape[1] > 0)
@@ -175,8 +180,8 @@ def _check_cuda(q, k, v, *rest):
            and v.dtype == q.dtype,
            f"unsupported q{tuple(q.shape)} k{tuple(k.shape)} "
            f"v{tuple(v.shape)} {q.dtype}: need (B, S, H, D) with D in "
-           f"{_HEAD_DIMS}, equal B/H/D, float32 or bfloat16 (D past 256 "
-           f"is ROADMAP.md queue C, C7)")
+           f"{_HEAD_DIMS} or a multiple of 64 past 256, equal B/H/D, "
+           f"float32 or bfloat16")
     for x in (q, k, v, *rest):
         _check(x.is_contiguous(), "inputs must be contiguous")
         _check(x.data_ptr() % 16 == 0, "inputs must be 16-byte aligned")

@@ -25,8 +25,10 @@ the route the entry reports):
   of 64 folded query rows and 64 keys that TMA reads straight off the
   pools through the block table; ``paged_attention_tile_ref`` is its
   arithmetic in its order.
-- ``"row"``: every other call (f32 pools, pages of 7, odd G) runs the
-  row-tile kernel on the CUDA cores.
+- ``"row"``: every other call (f32 pools, pages of 7, odd G, and every
+  call past head dim 256) runs the row-tile kernel on the CUDA cores,
+  which streams each page in chunks of ``row_chunk_slots`` slots;
+  ``paged_attention_row_ref`` is its arithmetic in its order.
 
 ``dense_cache_attention`` serves a dense per-row (B, M, KV, D) cache
 through the same kernel: the cache is a pool of ``M // S`` contiguous
@@ -46,14 +48,21 @@ import torch
 
 __all__ = ["paged_attention", "paged_attention_ref",
            "paged_attention_split_ref", "paged_attention_tile_ref",
-           "decode_split_pages", "kernel_route", "dense_cache_attention",
-           "dense_cache_page_size", "paged_kernel_supported", "launches",
-           "split_launches", "tc_launches"]
+           "paged_attention_row_ref",
+           "decode_split_pages", "kernel_route", "row_chunk_slots",
+           "dense_cache_attention", "dense_cache_page_size",
+           "paged_kernel_supported", "launches", "split_launches",
+           "tc_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
-_HEAD_DIMS = (32, 64, 128, 192, 256)
+_HEAD_DIMS = (32, 64, 128, 192, 256, 320, 384, 448, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+#: keys the row-tile kernel scores per online-softmax update (kKeyChunk)
+_KEY_CHUNK = 8
+#: head dims past which every call runs the row-tile kernel (kRowOnlyPast
+#: in csrc/paged_attention.cu)
+_ROW_ONLY_PAST = 256
 #: query rows (T·G) per kv head up to which the C entry takes the split-KV
 #: decode kernel (kSplitRows in csrc/paged_attention.cu)
 _SPLIT_ROWS = 16
@@ -86,58 +95,51 @@ tc_launches = 0
 _counters: dict = {}
 
 
-def _row_tile_fits(head_dim: int, page_size: int, dtype) -> bool:
-    """The row-tile kernel stages one page of K and V, double buffered:
-    4·S·D·bytes within a block's shared memory."""
-    elt = torch.empty((), dtype=dtype).element_size()
-    return 4 * page_size * head_dim * elt <= _SMEM_LIMIT
-
-
 def paged_kernel_supported(head_dim: int, page_size: int, dtype,
-                           num_heads: int, num_kv_heads: int,
-                           table_pages: int) -> bool:
+                           num_heads: int, num_kv_heads: int) -> bool:
     """Pool geometries the kernels take (the counterpart of the
     reference's ``paged_supported``), for pools of ``num_kv_heads`` kv
-    heads serving ``num_heads`` query heads through tables of
-    ``table_pages`` entries a row: head dim in (32, 64, 128, 192, 256),
-    float32 or bfloat16, and every route a call on the pools can take
-    fits.
+    heads serving ``num_heads`` query heads: head dim in (32, 64, 128,
+    192, 256, 320, 384, 448, 512), float32 or bfloat16, G = heads / kv
+    heads whole.
 
-    - Decode calls (T·G <= 16) take the split-KV kernel, which stages key
-      rows, not pages: any page size.
-    - A prefill call takes the route :func:`kernel_route` names from the
-      same shapes. The tensor-core kernel ("tc": bf16, S % 8 == 0, G
-      dividing 64, at most 4096 table entries) reads a page as TMA boxes
-      of gcd(S, 64) rows: any page size.
-    - The row-tile kernel ("row": every other pool) stages one page of K
-      and V twice, so it takes pages with 4·S·D·bytes within a block's
-      232,448 bytes of shared memory.
+    Every route takes any page size and table width: the split-KV kernel
+    stages key rows, not pages; the tensor-core kernel reads a page as
+    TMA boxes of gcd(S, 64) rows; the row-tile kernel streams a page in
+    chunks of :func:`row_chunk_slots` slots. So every pool of those head
+    dims and dtypes is taken (the JAX ``paged_supported``'s, S % 8 == 0
+    and D a multiple of 64, among them), pages of any size, any G, any
+    table width. Head dims past 512 stay refused (ROADMAP.md queue C,
+    C7)."""
+    return (head_dim in _HEAD_DIMS and dtype in _DTYPE_CODES
+            and page_size >= 1 and num_kv_heads >= 1
+            and num_heads % num_kv_heads == 0)
 
-    So bf16 pools with pages of a multiple of 8 slots and G dividing 64
-    take pages of any size; f32 pools, pages with S % 8 != 0, G not
-    dividing 64 and tables past 4096 entries keep the row-tile limit
-    (S <= 227 at bf16 D 128, S <= 113 at f32 D 128; ROADMAP.md queue C,
-    C7). :func:`paged_attention` refuses a CUDA call whose route does not
-    take it."""
-    if (head_dim not in _HEAD_DIMS or dtype not in _DTYPE_CODES
-            or page_size < 1 or num_kv_heads < 1
-            or num_heads % num_kv_heads):
-        return False
-    # any T with T·G > 16: the route a prefill call on these pools takes
-    prefill = kernel_route(_SPLIT_ROWS + 1, num_heads, num_kv_heads,
-                           head_dim, page_size, table_pages, dtype)
-    return prefill == "tc" or _row_tile_fits(head_dim, page_size, dtype)
+
+def row_chunk_slots(head_dim: int, page_size: int, dtype) -> int:
+    """Slots of a page the row-tile kernel stages at a time (its C, from
+    ``row_chunk_slots`` in csrc/paged_attention.cu): the whole page where
+    K and V, double buffered (4·S·D·bytes), fit a block's 232,448 bytes
+    of shared memory, else the most slots that do, in a multiple of the
+    8 keys it scores per softmax update (so its arithmetic is the same
+    whatever the chunk)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    fit = _SMEM_LIMIT // (4 * head_dim * elt)
+    return page_size if page_size <= fit else fit // _KEY_CHUNK * _KEY_CHUNK
 
 
 def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
                  dtype) -> str:
     """The kernel the C entry runs for q (B, t, h, d) against pools of
     pages of ``s`` slots, ``kv`` kv heads and ``dtype``, through a table of
-    ``p`` entries a row: ``"split"`` (T·G <= 16 query rows per kv head),
-    ``"tc"`` (bf16, S % 8 == 0, G dividing 64, p <= 4096) or ``"row"``.
-    Shapes and dtype only, as the C entry's ``route_of``; the wrapper
-    raises if the entry reports another route."""
+    ``p`` entries a row: ``"row"`` past head dim 256, else ``"split"``
+    (T·G <= 16 query rows per kv head), ``"tc"`` (bf16, S % 8 == 0, G
+    dividing 64, p <= 4096) or ``"row"``. Shapes and dtype only, as the C
+    entry's ``route_of``; the wrapper raises if the entry reports another
+    route."""
     g = h // kv
+    if d > _ROW_ONLY_PAST:
+        return "row"
     if t * g <= _SPLIT_ROWS:
         return "split"
     if (dtype == torch.bfloat16 and d in _HEAD_DIMS and s % 8 == 0
@@ -225,24 +227,20 @@ def paged_attention_split_ref(q, kp, vp, table, q_start, *,
     return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
 
 
-def paged_attention_tile_ref(q, kp, vp, table, q_start, *, key_tile,
-                             scale=None):
-    """Plain PyTorch version of the tensor-core prefill kernel's
-    arithmetic, in its order (same arguments as :func:`paged_attention`):
-    an online softmax over tiles of ``key_tile`` keys of each row's
-    gathered view — m_new = max(m, tile max), p = exp(score - m_new), l =
-    l·e^(m - m_new) + sum p, acc = acc·e^(m - m_new) + (p rounded to the
-    pool dtype)·V — then o = acc / l. Keys past q_start + t score the
-    finite -1e9; keys past the table's end, -inf. At ``key_tile`` = the
-    page size it walks the JAX kernel's tiles. For the tests and
-    ``chip_smoke.py``; no path calls it."""
+def _online_over_spans(q, kp, vp, table, q_start, spans, scale):
+    """The online softmax of the tile plain versions: scores of q against
+    each row's gathered view (keys past q_start + t at the finite -1e9,
+    keys at or past ``n``, the view's end, at -inf), walked over the key
+    ``spans`` (start, end) in order — m_new = max(m, span max), p =
+    exp(score - m_new), l = l·e^(m - m_new) + sum p, acc = acc·e^(m -
+    m_new) + (p rounded to the pool dtype)·V — then o = acc / l."""
     b, t, h, d = q.shape
     kv = kp.shape[2]
     g = h // kv
     scale = d ** -0.5 if scale is None else scale
     ck, cv = _paged_view(kp, table), _paged_view(vp, table)
     n = ck.shape[1]
-    pad = -n % key_tile
+    pad = max(end for _, end in spans) - n
     ck = torch.nn.functional.pad(ck, (0, 0, 0, 0, 0, pad))
     cv = torch.nn.functional.pad(cv, (0, 0, 0, 0, 0, pad))
     kpos = torch.arange(n + pad, device=q.device)
@@ -255,18 +253,51 @@ def paged_attention_tile_ref(q, kp, vp, table, q_start, *, key_tile,
     m = torch.full(sc.shape[:-1], -torch.inf, device=q.device)
     l_ = torch.zeros_like(m)
     acc = torch.zeros(sc.shape[:-1] + (d,), device=q.device)
-    for k0 in range(0, n + pad, key_tile):
-        st = sc[..., k0:k0 + key_tile]
+    for k0, k1 in spans:
+        st = sc[..., k0:k1]
         m_new = torch.maximum(m, st.amax(-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(st - m_new[..., None])
         l_ = l_ * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
             "bkgtm,bmkd->bkgtd", p.to(kp.dtype).float(),
-            cv[:, k0:k0 + key_tile].float())
+            cv[:, k0:k1].float())
         m = m_new
     o = acc / l_[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+
+
+def paged_attention_tile_ref(q, kp, vp, table, q_start, *, key_tile,
+                             scale=None):
+    """Plain PyTorch version of the tensor-core prefill kernel's
+    arithmetic, in its order (same arguments as :func:`paged_attention`):
+    an online softmax over tiles of ``key_tile`` keys of each row's
+    gathered view — m_new = max(m, tile max), p = exp(score - m_new), l =
+    l·e^(m - m_new) + sum p, acc = acc·e^(m - m_new) + (p rounded to the
+    pool dtype)·V — then o = acc / l. Keys past q_start + t score the
+    finite -1e9; keys past the table's end, -inf. At ``key_tile`` = the
+    page size it walks the JAX kernel's tiles. For the tests and
+    ``chip_smoke.py``; no path calls it."""
+    n = table.shape[1] * kp.shape[1]
+    return _online_over_spans(
+        q, kp, vp, table, q_start,
+        [(k0, k0 + key_tile) for k0 in range(0, n, key_tile)], scale)
+
+
+def paged_attention_row_ref(q, kp, vp, table, q_start, *, scale=None):
+    """Plain PyTorch version of the row-tile kernel's arithmetic, in its
+    order (same arguments as :func:`paged_attention`): the online softmax
+    of :func:`paged_attention_tile_ref` over groups of 8 keys that start
+    at each multiple of 8 of each page (the last group of a page of S %
+    8 != 0 slots is short). Whatever chunk of a page the kernel stages
+    (``row_chunk_slots``), it scores the same groups in the same order.
+    For the tests and ``chip_smoke.py``; no path calls it."""
+    s = kp.shape[1]
+    return _online_over_spans(
+        q, kp, vp, table, q_start,
+        [(j * s + c, j * s + min(c + _KEY_CHUNK, s))
+         for j in range(table.shape[1]) for c in range(0, s, _KEY_CHUNK)],
+        scale)
 
 
 def decode_split_pages(b: int, kv: int, p: int, sms: int) -> int:
@@ -320,7 +351,8 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     q_start + t. Returns (B, T, H, D) float32. On the card the call runs
     the kernel ``kernel_route`` names: the split-KV decode kernels (T·G
     <= 16 query rows per kv head; split count from shapes alone), the
-    tensor-core prefill kernel, or the row-tile kernel."""
+    tensor-core prefill kernel, or the row-tile kernel (every call past
+    head dim 256)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
     global launches, split_launches, tc_launches
@@ -336,13 +368,10 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     p = table.shape[1] if table.dim() == 2 else 0
     want = kernel_route(t, h, kv, d, s, p, kp.dtype)
     _check(d in _HEAD_DIMS and kp.dtype in _DTYPE_CODES
-           and vp.dtype == kp.dtype
-           and (want != "row" or _row_tile_fits(d, s, kp.dtype)),
+           and vp.dtype == kp.dtype,
            f"pool geometry the kernel does not take: head dim {d} (need "
-           f"one of {_HEAD_DIMS}), pool dtype {kp.dtype}/{vp.dtype} (need "
-           f"float32 or bfloat16), pages of {s} slots (the {want} route; "
-           f"the row-tile route stages {4 * s * d * kp.element_size()} "
-           f"bytes of K and V in shared memory, at most {_SMEM_LIMIT})")
+           f"one of {_HEAD_DIMS}; past 512 is ROADMAP.md queue C, C7), "
+           f"pool dtype {kp.dtype}/{vp.dtype} (need float32 or bfloat16)")
     _check(kp.is_contiguous() and vp.is_contiguous(),
            "pools must be contiguous")
     _check(kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0,

@@ -9,9 +9,10 @@ the full width of the flagship LM with weights made from a seed:
 
 - ``[serve]``: 16 requests through ``ContinuousBatcher`` (d_model 1024,
   12 layers, 8 heads, 2 kv heads, RoPE, vocab 32768) — paged attention:
-  the split-KV decode kernel and the tensor-core prefill kernel;
-  A tail serves 4 requests through pages of 256 slots against the dense
-  plain path;
+  the split-KV decode kernel and the tensor-core prefill kernel; two
+  tails serve 4 requests each through pages of 256 slots (prefill on
+  the tensor cores) and of 300 (prefill on the row-tile kernel, which
+  streams such a page in chunks) against the dense plain path;
 - ``[train]``: the port's train main (``models/transformer/train.py``)
   on a generated text, at the ``bench.py:1040-1063`` training geometry
   (learned positions, full MHA, batch 4 x 2048, bf16 policy) for two
@@ -20,7 +21,8 @@ the full width of the flagship LM with weights made from a seed:
 - ``[perf]``: the throughput harness (``models/utils/perf.py -m
   transformer``) at the same geometry with the fused LM head + CE — the
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
-  its ``-m attention`` mode once at head dim 128 and once at 256;
+  its ``-m attention`` mode at head dims 128, 256 and 512 (the D-sliced
+  flash kernels);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels.
@@ -30,8 +32,9 @@ the full width of the flagship LM with weights made from a seed:
 
     python3 chip_smoke.py [--seed N]
 
-Run it from the root of a checkout. It prints one line per phase, a
-``{"kernels": [...]}`` line, the card's name and power limit, and last
+Run it from the root of a checkout. It prints one line per phase, the
+run's wall time, a ``{"kernels": [...]}`` line, the card's name and
+power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure raises before that line
 and exits non-zero; without CUDA it exits non-zero and prints no result.
 It imports nothing of JAX or of ``bigdl_tpu``.
@@ -89,8 +92,14 @@ _PAGED_TOL = {torch.bfloat16: (2 ** -7, 0.05),
 #: of the row, so by some 0.035·rms(row) at the worst (|v| at 4.5 sigma),
 #: 2^-5; the f32 sums alone differ by far less than 2^-8·|plain|. Against
 #: ``_PAGED_TOL``'s (2^-7, 0.05), which also covers rounding at another
-#: point: (rtol, atol)
+#: point: (rtol, atol). The row-tile kernel against
+#: ``paged_attention_row_ref`` (its 8-key groups a page) is held the
+#: same way: the same roundings at the same running max, its dot products
+#: summed in another order (a warp's shuffle tree).
 _PAGED_TILE_TOL = (2 ** -8, 2 ** -5)
+#: keys of a row's gathered view up to which the row-tile kernel is also
+#: held against ``paged_attention_row_ref`` (a loop over 8-key groups)
+_ROW_REF_MAX_KEYS = 4096
 #: prompt buckets of the batcher the prefill sweep runs
 _PREFILL_BUCKETS = (32, 128, 512, 1024)
 #: kernel vs dense serving prefill logits: both run the bf16 policy, the
@@ -105,11 +114,17 @@ _TRAIN = dict(vocab=32768, d_model=1024, heads=8, layers=12, seq=2048,
 # the same at head dim 256 (4 heads, as Gemma's heads are wide): one
 # epoch of 4 steps
 _TRAIN_WIDE = dict(_TRAIN, heads=4, epochs=1)
-# the flash kernels past D 128 timed at the training batch and length
+# the flash kernels past D 128 timed at the training batch and length,
+# and the D-sliced kernels at D 512 (2 heads, batch 2)
 _FLASH_WIDE = dict(batch=4, seq=2048, heads=4, head_dim=256)
-# the serving tail through large pages: 4 requests whose prompts span
-# two to four pages of 256 slots
-_SERVE_LARGE_PAGES = dict(page_size=256, requests=4, new_tokens=16,
+_FLASH_SLICED = dict(batch=2, seq=2048, heads=2, head_dim=512)
+# bf16 flash held in full at the width where one flipped rounding read
+# past the old gradient limit (B4 S2048 H16 D64, ``_FLASH_TOL``)
+_FLASH_NARROW = dict(batch=4, seq=2048, heads=16, head_dim=64)
+# the serving tails through large pages: 4 requests whose prompts span
+# two to four pages of 256 slots (prefill on the tensor cores) and of
+# 300 slots (S % 8 != 0: prefill on the row-tile kernel, 224-slot chunks)
+_SERVE_LARGE_PAGES = dict(page_sizes=(256, 300), requests=4, new_tokens=16,
                           prompt_lens=(300, 520, 777, 1000))
 #: flash kernel vs plain, element by element: |kernel - plain| <=
 #: rtol·|plain| + atol·rms(plain), the rms over the whole output, as
@@ -136,10 +151,31 @@ _SERVE_LARGE_PAGES = dict(page_size=256, requests=4, new_tokens=16,
 #: of the limit, while a wrong dO tile in dk/dv reads 25-70 x it (the
 #: same script). f32 rounds nothing: sum order alone. lse is f32 on both
 #: sides and held absolutely.
+#:
+#: bf16 gradients at head dims of 64 and below: atol 2^-3. A flipped P of
+#: an early query row (P 0.25-1, one bf16 step 2^-9-2^-8 of it) moves its
+#: dv element by up to 2^-8·|dO|, some 0.011 at |dO| 2.8: past
+#: 2^-4·rms (0.0058, rms 0.092) where that element is small. Whether a
+#: draw holds such a flip is a lottery over the B·H early rows, and the
+#: port's widths fix H·D (d_model 1024: H 16 at D 64, 32 at D 32, 8 at D
+#: 128), so at D 64 a run holds twice the tickets of D 128 and at D 32
+#: four times. Measured (scripts/flash_fault_check.py, B4 S2048 causal,
+#: NVIDIA H100 80GB HBM3 at 700 W): the sound dv read 0.28-0.42 of the 2^-4 limit over seeds
+#: 0-29 at H16 D64 and seeds 0-5 at H8 D64, H32 D32, H8 and H16 D128;
+#: flash_ab.py's own draw at H16 D64 read 1.476, its worst element
+#: (key 1, plain -0.119) off by 0.01123 where the terms whose P lies
+#: within 2^-16 of a bf16 rounding midpoint could move it by 0.01092
+#: plus one output step (0.00049): one flipped P, no fault. 2^-3 puts that
+#: draw at 0.84 and the sound gradients of seeds 0-5 at H8 and H16 D64 at
+#: 0.13-0.36, while the planted do_prev_tile fault reads 11.6-47 x it
+#: there (at D 32, where no element's limit more than doubles, it read
+#: 38.7-87 x the 2^-4 limit). D 128 and past keep 2^-4 (the planted
+#: fault 24.6-84 x it).
 _FLASH_TOL = {(torch.bfloat16, "o"): (2 ** -7, 0.05),
               (torch.bfloat16, "grad"): (2 ** -6, 2 ** -4),
               (torch.float32, "o"): (1e-5, 1e-4),
               (torch.float32, "grad"): (1e-5, 1e-4)}
+_FLASH_NARROW_GRAD_TOL = (2 ** -6, 2 ** -3)
 _LSE_TOL = 1e-4
 #: kernel vs flash=False on one training batch under the bf16 policy:
 #: both round attention outputs to bf16; the kernel rounds P and dS to
@@ -189,9 +225,11 @@ _PERF = dict(batch=4, seq=2048, vocab=32768, d_model=1024, layers=12,
 
 
 # the harness's attention mode at the long-context shape it defaults to
-# (B4 S4096 H8 D128), and at head dim 256 (4 heads)
+# (B4 S4096 H8 D128), at head dim 256 (4 heads) and at 512 (2 heads:
+# the D-sliced kernels)
 _PERF_ATTENTION = (dict(batch=4, seq=4096, heads=8, head_dim=128),
-                   dict(batch=4, seq=4096, heads=4, head_dim=256))
+                   dict(batch=4, seq=4096, heads=4, head_dim=256),
+                   dict(batch=4, seq=4096, heads=2, head_dim=512))
 
 # the LRN kernels: norm1 and norm2 of Inception-v1 at batch 256 (the
 # path's rows, bf16, fused ReLU, size 5, alpha 1e-4, beta 0.75, k 1), the
@@ -274,9 +312,11 @@ def _print_ptxas(report: str) -> None:
             spilled += 1
         m = re.search(r"entry function '\S*?(paged_attention|flash_fwd|"
                       r"flash_dq|flash_dkdv)_kernelI(\w+?)Li(\d+)E"
-                      r"(?:Li(\d+)E)?", line)
+                      r"(?:Li(\d+)ELb([01])E)?", line)
         t = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv|"
                       r"flash_dkdv_split)_tc_kernelILi(\d+)E", line)
+        sl = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
+                       r"_sliced_kernelI(\w+?)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
@@ -295,6 +335,10 @@ def _print_ptxas(report: str) -> None:
                     f"rows<={rows}")
         elif t:
             name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
+        elif sl:
+            name = (f"{sl.group(1)}_sliced "
+                    f"{'bf16' if 'bfloat16' in sl.group(2) else 'f32'} "
+                    f"(CUDA cores, D past 256)")
         elif lr:
             # the path's instantiations: window 5, 4-wide vectors
             name = (f"{lr.group(1)} "
@@ -308,7 +352,8 @@ def _print_ptxas(report: str) -> None:
             name = (f"{m.group(1)} "
                     f"{'bf16' if 'bfloat16' in m.group(2) else 'f32'} "
                     f"D={m.group(3)}"
-                    + (f" rows/warp={m.group(4)}" if m.group(4) else ""))
+                    + (f" rows/warp={m.group(4)}" if m.group(4) else "")
+                    + (" chunks" if m.group(5) == "1" else ""))
         elif f:
             # fce_bwd's template flag: Lb0 dh, Lb1 dW/db
             kind, rest = f.groups()
@@ -631,6 +676,20 @@ def _tile_check(pa, label, got, q, kp, vp, table, qs):
                 tol=_PAGED_TILE_TOL)
 
 
+def _row_check(pa, label, got, q, kp, vp, table, qs):
+    """A row-tile output against ``paged_attention_row_ref`` within
+    ``_PAGED_TILE_TOL``, where the row's view holds at most
+    ``_ROW_REF_MAX_KEYS`` keys (else None)."""
+    if table.shape[1] * kp.shape[1] > _ROW_REF_MAX_KEYS:
+        return None
+    ref = pa.paged_attention_row_ref(q, kp, vp, table, qs)
+    err, worst = _worst(got, ref, *_PAGED_TILE_TOL, rms_dims=(2, 3))
+    if not worst <= 1:
+        raise AssertionError(f"{label} vs row plain: max abs err {err}, "
+                             f"{worst} x its limit")
+    return dict(max_abs_err=err, worst_err_over_limit=worst)
+
+
 def _prefill_buckets(pa, gen, p_slot):
     """The tensor-core prefill at the batcher's buckets (B 1, q_start 0,
     the pages the batcher allocates, its 129-entry table), each held
@@ -690,7 +749,8 @@ _PREFILL_GEOMETRIES = (
 def _prefill_geometries(pa, gen):
     """Every row of ``_PREFILL_GEOMETRIES``: the route it took, and the
     kernel against the plain version (and the tile version where the
-    tensor-core kernel ran), each within its limit; the
+    tensor-core kernel ran, the row version where the row-tile kernel
+    did), each within its limit; the
     ``_TIMED_GEOMETRIES`` rows timed too."""
     rows = {}
     for label, b, t, h, kv, d, s, p, dtype, starts, route in \
@@ -706,6 +766,9 @@ def _prefill_geometries(pa, gen):
                            worst_err_over_limit=worst)
         if route == "tc":
             rows[label]["vs_tile_ref"] = _tile_check(
+                pa, f"prefill geometry {label}", got, *args)
+        else:
+            rows[label]["vs_row_ref"] = _row_check(
                 pa, f"prefill geometry {label}", got, *args)
         if label in _TIMED_GEOMETRIES:
             rows[label].update(_geometry_times(pa, args, s, kv))
@@ -743,6 +806,70 @@ def _prefill_nan_pool(pa, gen):
     return row
 
 
+#: pools the kernels took only from their own PR on, each held against
+#: the plain version with its route checked (same columns as
+#: ``_PREFILL_GEOMETRIES``): pages past the row-tile kernel's whole-page
+#: staging (f32 pages of 256 slots, bf16 pages of 300, G 3 at 256, a
+#: 4097-entry table of 256-slot pages), streamed in chunks of
+#: ``row_chunk_slots`` slots, and head dims 320 and 512, which every call
+#: runs on the row-tile kernel (an f32 D 512 pool of 64-slot pages takes
+#: chunks of 24, 24 and 16)
+_POOL_GEOMETRIES = (
+    ("s256-f32", 2, 300, 8, 2, 128, 256, 9, torch.float32, [0, 700],
+     "row"),
+    ("s256-f32-decode", 4, 1, 8, 2, 128, 256, 9, torch.float32,
+     [0, 255, 256, 2099], "split"),
+    ("s300", 2, 300, 8, 2, 128, 300, 8, torch.bfloat16, [0, 700], "row"),
+    ("s256-g3", 2, 100, 6, 2, 128, 256, 9, torch.bfloat16, [0, 300],
+     "row"),
+    ("s256-4097-pages", 1, 64, 8, 2, 128, 256, 4097, torch.bfloat16,
+     [600], "row"),
+    ("d320", 2, 96, 4, 2, 320, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d320-decode", 3, 1, 4, 2, 320, 16, 12, torch.bfloat16, [0, 64, 191],
+     "row"),
+    ("d512", 2, 96, 4, 2, 512, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d512-decode", 3, 1, 4, 2, 512, 16, 12, torch.bfloat16,
+     [0, 64, 191], "row"),
+    ("d512-f32-s64", 1, 64, 4, 2, 512, 64, 6, torch.float32, [100], "row"),
+)
+#: the row of ``_POOL_GEOMETRIES`` timed beside its bound, plain version
+#: and library calls: the ``[serve]`` tail's 300-slot pages
+_POOL_TIMED = "s300"
+
+
+def _pool_geometries(pa, gen):
+    """Every row of ``_POOL_GEOMETRIES``: the route it took and the
+    kernel against ``paged_attention_ref`` within ``_PAGED_TOL`` (the
+    row-tile kernel also against ``paged_attention_row_ref``), with the
+    row-tile kernel's chunk (``row_chunk_slots``); ``_POOL_TIMED`` timed
+    too. Returns the rows by label."""
+    rows = {}
+    for label, b, t, h, kv, d, s, p, dtype, starts, route in \
+            _POOL_GEOMETRIES:
+        args = _paged_case(b, t, starts,
+                           [min(p, (x + t) // s + 1) for x in starts], p,
+                           dtype, gen, h=h, kv=kv, d=d, s=s)
+        got = _paged_call(pa, f"pool geometry {label}", route, *args)
+        err, worst = _paged_check(f"pool geometry {label}", got,
+                                  pa.paged_attention_ref(*args),
+                                  _PAGED_TOL[dtype])
+        rows[label] = dict(route=route, max_abs_err=err,
+                           worst_err_over_limit=worst)
+        if route == "row":
+            rows[label].update(
+                chunk_slots=pa.row_chunk_slots(d, s, dtype),
+                vs_row_ref=_row_check(pa, f"pool geometry {label}", got,
+                                      *args))
+        if label == _POOL_TIMED:
+            rows[label].update(_geometry_times(pa, args, s, kv))
+        del args, got
+    torch.cuda.empty_cache()
+    print(f"[kernels] paged_attention at pools past the row-tile kernel's "
+          f"whole pages and head dims past 256 (route, kernel vs plain), "
+          f"card='{_card()}': " + json.dumps(rows), flush=True)
+    return rows
+
+
 def _warm_card(seconds=0.5):
     """Keep the card busy for ``seconds`` before the first timing, so
     the clocks have left the idle state the builds leave it in."""
@@ -762,7 +889,8 @@ def phase_kernels(pa, gen):
     ``paged_attention_ref`` and against its own arithmetic
     (``paged_attention_tile_ref``), then swept over the batcher's
     buckets and held at other geometries and on a pool with NaN past
-    each row's last query."""
+    each row's last query; last the pools past the row-tile kernel's
+    whole pages and the head dims past 256 (``_POOL_GEOMETRIES``)."""
     decode_len = [16, 47, 128, 300, 511, 767, 1024, 1100]
     p_slot = -(-(2048 - 64 + 64 + 8) // _S)        # the batcher's table
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -852,6 +980,7 @@ def phase_kernels(pa, gen):
     results["prefill_buckets"] = _prefill_buckets(pa, gen, p_slot)
     results["prefill_geometries"] = _prefill_geometries(pa, gen)
     results["prefill_nan_pool"] = _prefill_nan_pool(pa, gen)
+    results["pool_geometries"] = _pool_geometries(pa, gen)
 
     # dense-cache view: a (B, M, KV, D) cache as identity-table pages of
     # dense_cache_page_size(M) = 128 slots (64 KB of K/V per page in
@@ -993,7 +1122,7 @@ def phase_serve(pa, seed):
                              device=_DEV)
         logits[mode] = _paged_prefill_impl(
             model.params, cache, table, batch, lengths,
-            **_meta_statics(model, mode, cache, n_tab)).float()
+            **_meta_statics(model, mode, cache)).float()
         del cache
     diff = float((logits["kernel"] - logits["dense"]).abs().max())
     scale = float(logits["dense"].abs().max())
@@ -1014,26 +1143,29 @@ def phase_serve(pa, seed):
     _profile_decode(batcher, prompts[:8], card)
     del batcher
     torch.cuda.empty_cache()
-    _serve_large_pages(pa, model, seed)
-    return launches, tcs
+    rows = {page: _serve_large_pages(pa, model, seed, page)
+            for page in _SERVE_LARGE_PAGES["page_sizes"]}
+    return launches, tcs, rows[300]
 
 
-def _serve_large_pages(pa, model, seed):
-    """``[serve]``'s tail: ``_SERVE_LARGE_PAGES``' 4 requests (prompts of
-    two to four pages) through a ``ContinuousBatcher`` with pages of 256
-    slots and bf16 pools, the counters set to 0 just before and read just
-    after: every prefill call on the tensor-core kernel, every decode
-    call on the split-KV kernel; then the same requests with
-    ``paged_kernel="dense"`` (no launch), their tokens compared. Held
-    within ``_LOGIT_REL_TOL`` as ``[serve]`` holds its prefill: the
-    prefill logits of both paths, and the logits of one decode step over
-    the kernel-prefilled 256-slot pools, split-KV kernel against dense
-    (tokens are printed, not held: a near-tie that flips one greedy token
-    changes every later one)."""
+def _serve_large_pages(pa, model, seed, page):
+    """``[serve]``'s tails: ``_SERVE_LARGE_PAGES``' 4 requests (prompts
+    of two to four pages) through a ``ContinuousBatcher`` with pages of
+    ``page`` slots and bf16 pools, the counters set to 0 just before and
+    read just after: every prefill call on the kernel ``kernel_route``
+    names (the tensor-core kernel for pages of 256 slots, the row-tile
+    kernel for pages of 300), every decode call on the split-KV kernel;
+    then the same requests with ``paged_kernel="dense"`` (no launch),
+    their tokens compared. Held within ``_LOGIT_REL_TOL`` as ``[serve]``
+    holds its prefill: the prefill logits of both paths, and the logits
+    of one decode step over the kernel-prefilled pools, split-KV kernel
+    against dense (tokens are printed, not held: a near-tie that flips
+    one greedy token changes every later one). Returns the prefill
+    kernel's launches."""
     from bigdl_tpu_torch.models.transformer.serving import (
         ContinuousBatcher, PagedKVCache, _meta_statics, _paged_prefill_impl)
     c = _SERVE_LARGE_PAGES
-    page, new, layers = c["page_size"], c["new_tokens"], _LM["num_layers"]
+    new, layers = c["new_tokens"], _LM["num_layers"]
     rs = np.random.default_rng(seed + 1)
     prompts = [rs.integers(1, _LM["vocab_size"] + 1, size=n).tolist()
                for n in c["prompt_lens"]]
@@ -1041,6 +1173,9 @@ def _serve_large_pages(pa, model, seed):
     kw = dict(max_batch=n, page_size=page, max_new_tokens=new, max_burst=8)
     need = -(-(ContinuousBatcher._bucket(max(c["prompt_lens"])) + new + 8)
              // page)
+    # every prefill call has more than 16 query rows per kv head
+    prefill = pa.kernel_route(pa._SPLIT_ROWS + 1, _H, _KV, _D, page, need,
+                              torch.bfloat16)
     tokens, counts = {}, {}
     for mode in ("auto", "dense"):
         batcher = ContinuousBatcher(model, num_pages=n * need + 1,
@@ -1056,20 +1191,23 @@ def _serve_large_pages(pa, model, seed):
         torch.cuda.synchronize()
         counts[mode] = dict(wall_s=time.perf_counter() - t0,
                             launches=pa.launches, split=pa.split_launches,
-                            tc=pa.tc_launches, bursts=bursts)
+                            tc=pa.tc_launches,
+                            row=pa.launches - pa.split_launches
+                            - pa.tc_launches, bursts=bursts)
         del batcher
     k = counts["auto"]
-    if not (k["tc"] == layers * n and k["split"] == layers * 8 * k["bursts"]
-            and k["launches"] == k["tc"] + k["split"]):
-        raise AssertionError(f"large pages: launches {k}, expected "
-                             f"{layers * n} tensor-core prefill calls and "
+    if not (k[prefill] == layers * n
+            and k["split"] == layers * 8 * k["bursts"]
+            and k["launches"] == k[prefill] + k["split"]):
+        raise AssertionError(f"pages of {page}: launches {k}, expected "
+                             f"{layers * n} {prefill} prefill calls and "
                              f"12 x 8 x bursts split-KV decode calls")
     if counts["dense"]["launches"]:
-        raise AssertionError("large pages: the dense run launched "
+        raise AssertionError(f"pages of {page}: the dense run launched "
                              f"{counts['dense']['launches']} kernels")
     if sorted(tokens["auto"]) != list(range(n)) or any(
             len(t) != new for t in tokens["auto"].values()):
-        raise AssertionError("large pages: not every request returned "
+        raise AssertionError(f"pages of {page}: not every request returned "
                              f"{new} tokens")
     equal = float(np.mean([a == b for i in range(n) for a, b in
                            zip(tokens["auto"][i], tokens["dense"][i])]))
@@ -1088,13 +1226,13 @@ def _serve_large_pages(pa, model, seed):
                                     device=_DEV)
         logits[mode] = _paged_prefill_impl(
             model.params, caches[mode], table, batch, lengths,
-            **_meta_statics(model, mode, caches[mode], n_tab)).float()
+            **_meta_statics(model, mode, caches[mode])).float()
     diff = float((logits["kernel"] - logits["dense"]).abs().max())
     scale = float(logits["dense"].abs().max())
     if not (torch.isfinite(logits["kernel"]).all()
             and diff <= _LOGIT_REL_TOL * scale):
-        raise AssertionError(f"large pages: kernel vs dense prefill logits "
-                             f"differ by {diff} > {_LOGIT_REL_TOL} x "
+        raise AssertionError(f"pages of {page}: kernel vs dense prefill "
+                             f"logits differ by {diff} > {_LOGIT_REL_TOL} x "
                              f"{scale}")
     del caches["dense"]
     # the next token at each prompt's end, decoded over the same pools
@@ -1108,7 +1246,7 @@ def _serve_large_pages(pa, model, seed):
                                          lens_t, tok0, mode)
         if pa.split_launches - splits != (layers if mode == "kernel"
                                           else 0):
-            raise AssertionError(f"large pages: the {mode} decode step "
+            raise AssertionError(f"pages of {page}: the {mode} decode step "
                                  f"made {pa.split_launches - splits} "
                                  f"split-KV calls")
     del caches
@@ -1116,10 +1254,11 @@ def _serve_large_pages(pa, model, seed):
     step_scale = float(step["dense"].abs().max())
     if not (torch.isfinite(step["kernel"]).all()
             and step_diff <= _LOGIT_REL_TOL * step_scale):
-        raise AssertionError(f"large pages: kernel vs dense decode-step "
+        raise AssertionError(f"pages of {page}: kernel vs dense decode-step "
                              f"logits differ by {step_diff} > "
                              f"{_LOGIT_REL_TOL} x {step_scale}")
-    print(f"[serve] card='{_card()}' pages of {page} slots (bf16 pools): "
+    print(f"[serve] card='{_card()}' pages of {page} slots (bf16 pools, "
+          f"prefill on the {prefill} kernel): "
           f"requests={n} prompt_lens={list(c['prompt_lens'])} "
           f"new_tokens={new} kernel run " + json.dumps(counts["auto"])
           + " dense run " + json.dumps(counts["dense"])
@@ -1127,6 +1266,7 @@ def _serve_large_pages(pa, model, seed):
           f"max_abs_diff={diff} max_abs_logit={scale}; decode-step logits "
           f"(split-KV vs dense) max_abs_diff={step_diff} max_abs_logit="
           f"{step_scale} tol={_LOGIT_REL_TOL}x", flush=True)
+    return k[prefill]
 
 
 def _decode_step_logits(model, cache, table, lengths, tok, mode):
@@ -1147,7 +1287,7 @@ def _decode_step_logits(model, cache, table, lengths, tok, mode):
         sv._paged_decode_impl(
             model.params, cache, table, lengths, tok, n_new=1,
             temperature=0.0, top_k=None,
-            **sv._meta_statics(model, mode, cache, table.shape[1]))
+            **sv._meta_statics(model, mode, cache))
     finally:
         sv._row_logits = real
     return seen[0].float()
@@ -1218,13 +1358,20 @@ def _worst(got, want, rtol, atol, rms_dims=None):
     return float(diff.max()), float((diff / limit).max())
 
 
+def _flash_tol(dtype, what, d):
+    """(rtol, atol) of flash output ``what`` ("o" or a gradient) in
+    ``dtype`` at head dim ``d`` (``_FLASH_TOL``'s comment)."""
+    if what != "o" and dtype == torch.bfloat16 and d <= 64:
+        return _FLASH_NARROW_GRAD_TOL
+    return _FLASH_TOL[(dtype, "o" if what == "o" else "grad")]
+
+
 def _flash_err(what, got, want):
     """Max abs error of one flash output against its plain version, and
     the worst ratio of an element's error to its limit (pass: <= 1)."""
     if what == "lse":
         return _worst(got, want, None, _LSE_TOL)
-    return _worst(got, want, *_FLASH_TOL[(want.dtype, "o" if what == "o"
-                                          else "grad")])
+    return _worst(got, want, *_flash_tol(want.dtype, what, want.shape[-1]))
 
 
 def _flash_outputs(fa, q, k, v, do, scale, causal, kernel):
@@ -1261,7 +1408,9 @@ def _flash_tails(fa, gen):
     head dim both causal and not. Head dim 32 is the train main's
     default width (d_model 128, 4 heads); 192 and 256 run the tiles past
     D 128 (64-key forward tiles, one-warpgroup dq, the split dk/dv
-    kernel; f32 tiles of 32 rows), both causal and not in each dtype."""
+    kernel; f32 tiles of 32 rows), both causal and not in each dtype;
+    320, 384 and 512 the D-sliced kernels (5, 6 and 8 slices of 64
+    columns), both causal and not in each dtype."""
     for b, sq, skv, h, d, causal, dtype in (
             (2, 100, 100, 3, 32, True, torch.float32),
             (1, 130, 200, 2, 32, False, torch.float32),
@@ -1283,7 +1432,13 @@ def _flash_tails(fa, gen):
             (2, 100, 100, 3, 256, True, torch.float32),
             (1, 130, 200, 2, 256, False, torch.float32),
             (1, 200, 200, 2, 256, True, torch.bfloat16),
-            (1, 130, 77, 2, 256, False, torch.bfloat16)):
+            (1, 130, 77, 2, 256, False, torch.bfloat16),
+            *((b_, sq_, skv_, 2, d_, c_, t_) for d_ in (320, 384, 512)
+              for b_, sq_, skv_, c_, t_ in (
+                  (2, 200, 200, True, torch.float32),
+                  (1, 130, 200, False, torch.float32),
+                  (2, 200, 200, True, torch.bfloat16),
+                  (1, 200, 136, False, torch.bfloat16)))):
         q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
                  .to(_DEV) for _ in range(2))
         k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
@@ -1366,7 +1521,7 @@ def _flash_timed(fa, gen, b, s, h, d):
             rows[(kname, dtype)] = row
             print(f"[kernels] {kname}[{name}] B={b} S={s} H={h} D={d} "
                   f"causal " + json.dumps(row), flush=True)
-        o_tol, g_tol = (_FLASH_TOL[(dtype, w)] for w in ("o", "grad"))
+        o_tol, g_tol = (_flash_tol(dtype, w, d) for w in ("o", "dq"))
         print(f"[kernels] flash [{name}] D={d} max abs errs vs plain "
               + json.dumps(errs) + " worst error / limit "
               + json.dumps(worst) + f" (limit rtol·|plain| + atol·"
@@ -1377,19 +1532,44 @@ def _flash_timed(fa, gen, b, s, h, d):
     return rows
 
 
+def _flash_narrow(fa, gen):
+    """bf16 fwd, dq and dk/dv in full at ``_FLASH_NARROW`` (B4 S2048 H16
+    D64, causal) against their plain versions, within ``_FLASH_TOL``'s
+    limits at D 64."""
+    c = _FLASH_NARROW
+    b, s, h, d = c["batch"], c["seq"], c["heads"], c["head_dim"]
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen)
+                   .to(torch.bfloat16).to(_DEV) for _ in range(4))
+    got = _flash_outputs(fa, q, k, v, do, d ** -0.5, True, True)
+    torch.cuda.synchronize()
+    want = _flash_outputs(fa, q, k, v, do, d ** -0.5, True, False)
+    label = f"B={b} S={s} H={h} D={d} causal bfloat16"
+    errs, worst = _flash_compare(got, want, label)
+    print(f"[kernels] flash {label} max abs errs " + json.dumps(errs)
+          + " worst error / limit " + json.dumps(worst) + " (limit "
+          f"rtol·|plain| + atol·rms(plain): o "
+          f"{_flash_tol(torch.bfloat16, 'o', d)}, dq/dk/dv "
+          f"{_flash_tol(torch.bfloat16, 'dq', d)})", flush=True)
+    del got, want, q, k, v, do
+    torch.cuda.empty_cache()
+
+
 def phase_flash(fa, gen):
-    """The three flash kernels vs their plain versions on ragged tails,
-    then timed at the training shapes (B4 S2048 H8 D128, causal) and at
-    head dim 256 (B4 S2048 H4 D256), bf16 (tensor cores) and f32 (CUDA
-    cores); SDPA as the library yardstick. Each row also gives the
-    kernel's rate over the causal half's operations and its share of the
-    bound (bound_ms / ms). Rows by (kernel, dtype, head dim)."""
+    """The three flash kernels vs their plain versions on ragged tails
+    and in bf16 at ``_FLASH_NARROW``, then timed at the training shapes
+    (B4 S2048 H8 D128, causal), at head dim 256 (B4 S2048 H4 D256) and at
+    512 (B2 S2048 H2, the D-sliced kernels), bf16 (tensor cores up to D
+    256) and f32 (CUDA cores); SDPA as the library yardstick. Each row
+    also gives the kernel's rate over the causal half's operations and
+    its share of the bound (bound_ms / ms). Rows by (kernel, dtype, head
+    dim)."""
     _flash_tails(fa, gen)
-    w = _FLASH_WIDE
+    _flash_narrow(fa, gen)
     rows = {}
     for b, s, h, d in ((_TRAIN["batch"], _TRAIN["seq"], _TRAIN["heads"],
                         _TRAIN["d_model"] // _TRAIN["heads"]),
-                       (w["batch"], w["seq"], w["heads"], w["head_dim"])):
+                       *((w["batch"], w["seq"], w["heads"], w["head_dim"])
+                         for w in (_FLASH_WIDE, _FLASH_SLICED))):
         for (kname, dtype), row in _flash_timed(fa, gen, b, s, h, d).items():
             rows[(kname, dtype, d)] = row
     return rows
@@ -1813,10 +1993,13 @@ def _perf_fused(fce, card):
     return launches, numbers
 
 
-def phase_perf(fce):
+def phase_perf(fce, fa):
     """The throughput harness: the fused transformer step (``_perf_fused``),
     the unfused step's peak memory against the fused one's, and the
-    attention mode once."""
+    attention mode at each of ``_PERF_ATTENTION``'s head dims, the flash
+    counters set to 0 just before each run and read just after (1 warm-up
+    and 3 timed fwd+bwd: 4 launches of each kernel). Returns the fused-CE
+    launches and the flash launches at D 512 (the D-sliced kernels)."""
     from bigdl_tpu_torch.models.utils import perf
     card = _card()
     launches, fused = _perf_fused(fce, card)
@@ -1837,19 +2020,25 @@ def phase_perf(fce):
           f"bf16 logits' {logits})", flush=True)
     del off
     torch.cuda.empty_cache()
+    flash = {}
     for a in _PERF_ATTENTION:
+        fa.fwd_launches = fa.dq_launches = fa.dkdv_launches = 0
         att = perf.main(["-m", "attention", "-b", str(a["batch"]),
                          "--seqLen", str(a["seq"]), "--heads",
                          str(a["heads"]), "--headDim", str(a["head_dim"]),
                          "--warmUp", "1", "-i", "3", "--device", _DEV])
-        if att["flash"] is None:
+        counts = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+                  "dkdv": fa.dkdv_launches}
+        if att["flash"] is None or counts != dict.fromkeys(counts, 4):
             raise AssertionError(f"perf -m attention at head dim "
-                                 f"{a['head_dim']}: the flash path failed")
+                                 f"{a['head_dim']}: the flash path failed "
+                                 f"or launched {counts}, not 4 of each")
+        flash[a["head_dim"]] = counts
         print(f"[perf] card='{card}' attention " + json.dumps(a) + " bf16 "
-              f"causal, fwd+bwd ms per iteration: " + json.dumps(att),
-              flush=True)
+              f"causal, fwd+bwd ms per iteration: " + json.dumps(att)
+              + f" flash_launches={counts}", flush=True)
         torch.cuda.empty_cache()
-    return launches
+    return launches, flash[512]
 
 
 def _lrn_bound(shape, dtype, size, backward):
@@ -2142,6 +2331,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs the "
               "card", file=sys.stderr)
@@ -2180,21 +2370,24 @@ def main(argv=None) -> int:
     fce_rows = phase_fused_ce(fce, gen)
     lrn_rows = phase_lrn(lrn, gen)
     mp_row = phase_maxpool(mp, gen)
-    launches, tc_launches = phase_serve(pa, args.seed)
+    launches, tc_launches, row_launches = phase_serve(pa, args.seed)
     flash_launches = phase_train(fa, args.seed)
     torch.cuda.empty_cache()
     wide_launches = phase_train_wide(fa, args.seed)
-    fce_launches = phase_perf(fce)
+    fce_launches, sliced_launches = phase_perf(fce, fa)
     torch.cuda.empty_cache()
     conv_launches, _ = phase_inception(lrn, mp)
 
-    # errors: the paged_attention entry takes the split-KV and row-tile
-    # calls, paged_prefill_tc the tensor-core ones
+    # errors: the paged_attention entry takes the split-KV calls,
+    # paged_prefill_tc the tensor-core ones, paged_row_tile the row-tile
+    # ones
     dec = rows["decode"]
-    geo = rows["prefill_geometries"].values()
+    geo = [*rows["prefill_geometries"].values(),
+           *rows["pool_geometries"].values()]
     err = max([r["max_abs_err"] for k, r in rows.items()
                if k.startswith("decode") or k == "dense_cache"]
-              + [r["max_abs_err"] for r in geo if r["route"] == "row"])
+              + [r["max_abs_err"] for r in geo if r["route"] == "split"])
+    row_err = max(r["max_abs_err"] for r in geo if r["route"] == "row")
     pre_err = max([rows["prefill"]["max_abs_err"],
                    rows["prefill_nan_pool"]["max_abs_err"]]
                   + [r["max_abs_err"]
@@ -2218,15 +2411,28 @@ def main(argv=None) -> int:
         "launches": tc_launches, "max_abs_err": pre_err,
         **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_gather_ms")}})
+    # the row-tile kernel: timed at the 300-slot pool (pages streamed in
+    # chunks), its launches those of [serve]'s 300-slot tail
+    row = rows["pool_geometries"][_POOL_TIMED]
+    kernels.append({
+        "name": "paged_row_tile", "route": "cuda",
+        "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
+        "launches": row_launches, "max_abs_err": row_err,
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "library_gather_ms")}})
     # the main paths train in bf16: their rows are the bf16 measurements
     # (the line keeps its keys; tflops, share_of_bound and the forward's
     # gemm_ms are in [kernels])
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # and the D 256 rows: the kernels past D 128, timed at B4 S2048 H4
-    # D256, their launches those of the D 256 [train] run
+    # D256, their launches those of the D 256 [train] run; and the D 512
+    # rows: the D-sliced kernels, timed at B2 S2048 H2 D512, their
+    # launches those of [perf]'s -m attention at D 512
     for d, counts, suffix in ((128, flash_launches, ""),
-                              (256, wide_launches, "_d256")):
+                              (256, wide_launches, "_d256"),
+                              (512, sliced_launches, "_d512")):
         for name, line, count in (("flash_fwd", 190, "fwd"),
                                   ("flash_dq", 306, "dq"),
                                   ("flash_dkdv", 322, "dkdv")):
@@ -2261,6 +2467,8 @@ def main(argv=None) -> int:
         "source": "bigdl_tpu_torch/csrc/maxpool.cu",
         "replaces": "bigdl_tpu/ops/pallas/maxpool.py:186",
         "launches": conv_launches["maxpool3x3s1_bwd"], **mp_row})
+    print(f"[smoke] card='{card}' wall_s={time.perf_counter() - t_run} "
+          f"(from the start of main, builds included)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -178,18 +178,24 @@ def test_dot_product_attention_offsets_and_unsupported_shapes():
                                    q_offset=1, flash=True)
 
 
-@pytest.mark.parametrize("what", ["head_dim", "offsets", "head_dim_320"])
+@pytest.mark.parametrize("what", ["head_dim", "offsets", "head_dim_320",
+                                  "head_dim_288"])
 def test_auto_refuses_unsupported_calls_off_the_cpu(what):
     """Off the CPU (meta tensors stand in for the card's here), "auto"
     raises where the kernels do not take the call instead of quietly
     building the (B, H, S, S) plain path; flash=False still takes it.
-    Head dim 320, which the JAX kernel takes (a multiple of 64), is past
-    the port's 256 (ROADMAP.md queue C, C7)."""
+    Head dim 320, which the JAX kernel takes (a multiple of 64), is no
+    longer refused: the D-sliced kernels take it, so "auto" hands it to
+    the kernel wrappers, which need a CUDA device. Head dim 288, which
+    the JAX kernel refuses too (no multiple of 64), is refused."""
     d, kw = {"head_dim": (16, {}),
              "offsets": (64, dict(q_offset=4, kv_offset=2)),
-             "head_dim_320": (320, {})}[what]
+             "head_dim_320": (320, {}),
+             "head_dim_288": (288, {})}[what]
     q = torch.empty((1, 8, 2, d), device="meta")
-    with pytest.raises(ValueError, match="flash=False takes the plain"):
+    refusal = ("one CUDA device" if what == "head_dim_320"
+               else "flash=False takes the plain")
+    with pytest.raises(ValueError, match=refusal):
         tseq.dot_product_attention(q, q, q, causal=True, **kw)
     o = tseq.dot_product_attention(q, q, q, causal=True, flash=False, **kw)
     assert o.shape == q.shape and o.device.type == "meta"
@@ -204,12 +210,13 @@ def test_flash_matches_jax_kernel_at_head_dim_32(causal, dtype):
     _check_against_jax_kernel(2, 128, 2, 32, causal, dtype)
 
 
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 384, 512])
 def test_auto_takes_wide_head_dims_off_the_cpu(d):
-    """Head dims 192 and 256 are no longer refused off the CPU: "auto"
-    hands the call to the kernel wrappers, which need a CUDA device (the
-    meta tensors standing in for the card's reach them and stop there),
-    and never to the plain path."""
+    """Head dims 192 and 256, and past 256 every multiple of 64 (the
+    D-sliced kernels), are not refused off the CPU: "auto" hands the call
+    to the kernel wrappers, which need a CUDA device (the meta tensors
+    standing in for the card's reach them and stop there), and never to
+    the plain path."""
     q = torch.empty((1, 8, 2, d), device="meta")
     assert tfa.flash_supported(q, q)
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -217,15 +224,16 @@ def test_auto_takes_wide_head_dims_off_the_cpu(d):
 
 
 def test_flash_supported_head_dims():
-    """The head dims the kernels take (32, 64, 128, 192, 256) and two they
-    refuse: 16 (below the 64-wide chunks the JAX kernel needs too) and
-    320 (a multiple of 64 the JAX kernel takes; ROADMAP.md queue C,
-    C7). Both dtypes; fp16 is refused."""
-    for d in (32, 64, 128, 192, 256):
+    """The head dims the kernels take (32, 64, 128, 192, 256, and past 256
+    every multiple of 64, as the JAX kernel takes them: 320 among them)
+    and those they refuse with the JAX kernel: 16 (below the 64-wide
+    chunks it needs), 96 and 288 (no multiple of 64). Both dtypes; fp16
+    is refused."""
+    for d in (32, 64, 128, 192, 256, 320, 384, 448, 512, 576, 1024):
         for dt in (torch.float32, torch.bfloat16):
             q = torch.empty((1, 4, 2, d), dtype=dt, device="meta")
             assert tfa.flash_supported(q, q), (d, dt)
-    for d in (16, 96, 320):
+    for d in (16, 96, 288):
         q = torch.empty((1, 4, 2, d), device="meta")
         assert not tfa.flash_supported(q, q), d
     q = torch.empty((1, 4, 2, 128), dtype=torch.float16, device="meta")
@@ -234,15 +242,19 @@ def test_flash_supported_head_dims():
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,s,d", [(2, 128, 192), (1, 128, 256)],
-                         ids=["d192", "d256"])
+@pytest.mark.parametrize("b,s,d", [(2, 128, 192), (1, 128, 256),
+                                   (1, 128, 320), (1, 128, 384),
+                                   (1, 128, 512)],
+                         ids=["d192", "d256", "d320", "d384", "d512"])
 def test_flash_matches_jax_kernel_at_wide_head_dims(b, s, d, causal,
                                                      dtype):
     """Head dims 192 and 256 (Gemma's heads are 256 wide), which the
     card's kernels take with tiles of their own (64-key forward tiles,
     one-warpgroup dq CTAs, dk and dv split between the warpgroups; f32
-    tiles of 32 rows): (B, S128, H2, D) against the JAX kernel at the
-    file's tolerances. In bf16 a wider head changes nothing they rest on:
+    tiles of 32 rows), and 320, 384 and 512, which they take D-sliced (a
+    CTA per 64 output columns, the scores summed over 64-column chunks):
+    (B, S128, H2, D) against the JAX kernel at the file's tolerances. In
+    bf16 a wider head changes nothing they rest on:
     o, dv and dq/dk are sums over keys of bf16-rounded P or dS times
     unit-variance values, at the same S as the D 64 case, and the extra
     dims only lengthen f32 sums of exact bf16 products."""

@@ -15,9 +15,11 @@ The tensor-core prefill kernel's arithmetic in its order
 (``paged_attention_tile_ref``: an online softmax over key tiles, p
 rounded to the pool dtype at the running max) is held to the JAX kernel
 at tiles of one page, where both walk the same tiles, and to the plain
-version at the kernel's 64-key tiles; the route mirror
-(``kernel_route``) is pinned for the serving geometry and for each
-geometry that goes to the row-tile kernel.
+version at the kernel's 64-key tiles; the row-tile kernel's
+(``paged_attention_row_ref``: 8-key groups a page, whatever chunk of the
+page the kernel stages) to the JAX kernel at the plain version's
+tolerances; the route mirror (``kernel_route``) is pinned for the serving
+geometry and for each geometry that goes to the row-tile kernel.
 
 Tolerances: f32 pools 2e-5 (the JAX tests' own: same math, sums in
 another order). bf16 pools 1e-2 absolute: both sides round the softmax
@@ -120,25 +122,36 @@ class TestRefParity:
 # (B, T, H, KV, D, page size, table entries, q_start of each row): head
 # dim 192 (three 64-wide chunks; 24 bf16 / 48 f32 16-byte vectors a row,
 # which do not divide the split kernel's 128 threads) and pages of 256
-# slots (past the row-tile kernel's limit at bf16 D 128), each for a
-# decode call (T·G <= 16: the split route) and a prefill call
+# slots (the row-tile kernel streams them in chunks: f32 pools, G 3),
+# each for a decode call (T·G <= 16: the split route) and a prefill
+# call; head dims 320 and 512, which every call runs on the row-tile
+# kernel; pages of 300 slots (S % 8 != 0: the row-tile kernel's last
+# 8-key group of a page is short)
 _WIDE_CASES = {
     "d192-decode": (3, 1, 4, 2, 192, 16, 6, [0, 37, 95]),
     "d192-prefill": (2, 40, 4, 2, 192, 16, 6, [0, 50]),
     "s256-decode": (2, 1, 8, 2, 128, 256, 3, [100, 700]),
     "s256-prefill": (2, 70, 8, 2, 128, 256, 3, [0, 300]),
+    "d320-decode": (3, 1, 4, 2, 320, 16, 6, [0, 37, 95]),
+    "d320-prefill": (2, 40, 4, 2, 320, 16, 6, [0, 50]),
+    "d512-decode": (3, 1, 4, 2, 512, 16, 6, [0, 37, 95]),
+    "d512-prefill": (2, 40, 4, 2, 512, 16, 6, [0, 50]),
+    "s256-g3-prefill": (2, 40, 6, 2, 64, 256, 3, [0, 300]),
+    "s300-prefill": (2, 40, 8, 2, 64, 300, 3, [0, 500]),
 }
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(_WIDE_CASES))
 def test_wide_heads_and_large_pages_match_jax(case, dtype):
-    """Paged attention at head dim 192 and at pages of 256 slots against
-    the JAX kernel in interpret mode, at the file's tolerances: the plain
-    version, and the plain version of the kernel the call's route runs
-    on the card (``paged_attention_split_ref`` at one and at two pages a
-    split for a decode call, ``paged_attention_tile_ref`` at the
-    tensor-core kernel's 64-key tiles for a prefill call)."""
+    """Paged attention at head dims 192, 320 and 512, at pages of 256 and
+    300 slots and at G 3 against the JAX kernel in interpret mode, at the
+    file's tolerances: the plain version, and the plain versions of the
+    kernels a call of its shape runs on the card
+    (``paged_attention_split_ref`` at one and at two pages a split for a
+    decode call, ``paged_attention_tile_ref`` at the tensor-core kernel's
+    64-key tiles for a prefill call, and ``paged_attention_row_ref``
+    where the call's route is the row-tile kernel)."""
     b, t, h, kv, d, s, p, starts = _WIDE_CASES[case]
     q, kp, vp, table = _geometry(b, t, h, kv, d, b * p + 1, s, p, seed=31)
     _compare(q, kp, vp, table, starts, dtype)
@@ -149,6 +162,40 @@ def test_wide_heads_and_large_pages_match_jax(case, dtype):
     else:
         _compare(q, kp, vp, table, starts, dtype, fn=functools.partial(
             tpa.paged_attention_tile_ref, key_tile=64))
+    if tpa.kernel_route(t, h, kv, d, s, p, _DTYPES[dtype][1]) == "row":
+        _compare(q, kp, vp, table, starts, dtype,
+                 fn=tpa.paged_attention_row_ref)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("s,q_start", [(8, [0, 37]), (12, [5, 50]),
+                                       (7, [0, 30])],
+                         ids=["s8", "s12", "s7"])
+def test_row_ref_matches_jax(s, q_start, dtype):
+    """The row-tile kernel's arithmetic in its order
+    (``paged_attention_row_ref``: 8-key groups from each multiple of 8
+    of a page, the last one short where S % 8 != 0) against the JAX
+    kernel in interpret mode at the file's tolerances (the JAX kernel
+    rounds p at its own running maxima, a page a tile, as the plain
+    version does at another point), G 3 over pages of 8, 12 and 7."""
+    q, kp, vp, table = _geometry(2, 20, 6, 2, 32, 2 * 8 + 1, s, 8,
+                                 seed=40 + s)
+    _compare(q, kp, vp, table, q_start, dtype,
+             fn=tpa.paged_attention_row_ref)
+
+
+@pytest.mark.parametrize("s", [8, 16, 24])
+def test_row_ref_at_whole_groups_is_the_tile_ref_at_8(s):
+    """Where S % 8 == 0 the row-tile kernel's 8-key groups a page are
+    the 8-key tiles of the whole view: the two plain versions walk the
+    same spans, bit for bit (bf16 pools, G 4)."""
+    q, kp, vp, table = _geometry(2, 17, 8, 2, 32, 2 * 6 + 1, s, 6,
+                                 seed=50 + s)
+    args = (torch.from_numpy(q), torch.from_numpy(kp).to(torch.bfloat16),
+            torch.from_numpy(vp).to(torch.bfloat16), torch.from_numpy(table),
+            torch.tensor([0, 41], dtype=torch.int32))
+    assert torch.equal(tpa.paged_attention_row_ref(*args),
+                       tpa.paged_attention_tile_ref(*args, key_tile=8))
 
 
 def _edge_starts(width, n_keys):
@@ -317,6 +364,11 @@ _ROUTE_CASES = {
     "g3": ((64, 6, 2, 64, 16, 9, _BF16), "row"),
     "g128": ((1, 128, 1, 64, 16, 9, _BF16), "row"),
     "4097-pages": ((64, 8, 2, 128, 16, 4097, _BF16), "row"),
+    # past head dim 256 every call, decode too, runs the row-tile kernel
+    "d320-decode": ((1, 8, 2, 320, 16, 9, _BF16), "row"),
+    "d320-prefill": ((64, 8, 2, 320, 16, 9, _BF16), "row"),
+    "d512-decode": ((1, 8, 2, 512, 16, 9, _F32), "row"),
+    "d512-prefill": ((64, 8, 2, 512, 16, 9, _BF16), "row"),
 }
 
 
@@ -328,8 +380,10 @@ def test_kernel_route(case):
 
 def test_route_constants_match_the_c_entry():
     """The mirror's limits are the C entry's: split rows, the tensor-core
-    CTA's folded rows and its staged table entries, and route_of's test
-    of page size."""
+    CTA's folded rows and its staged table entries, the head dim past
+    which only the row-tile kernel is built, and route_of's tests of head
+    dim (first) and page size; and the row-tile kernel's chunk plan
+    (``row_chunk_slots``: its key group, shared memory and formula)."""
     src = (Path(tpa.__file__).resolve().parents[1] / "csrc"
            / "paged_attention.cu").read_text()
 
@@ -338,10 +392,36 @@ def test_route_constants_match_the_c_entry():
     assert const("kSplitRows") == tpa._SPLIT_ROWS
     assert const("kWgRows") == tpa._TC_ROWS
     assert const("kTcMaxPages") == tpa._TC_MAX_PAGES
+    assert const("kRowOnlyPast") == tpa._ROW_ONLY_PAST
+    assert const("kKeyChunk") == tpa._KEY_CHUNK
+    assert const("kSmemMax") == tpa._SMEM_LIMIT
     route_of = src[src.index("Route route_of("):]
     route_of = route_of[:route_of.index("\n}\n")]
     assert "dtype == 1 && S % 8 == 0 && tc::kWgRows % G == 0" in route_of
     assert "P <= tc::kTcMaxPages" in route_of
+    assert route_of.index("if (D > kRowOnlyPast) return kRouteRow;") \
+        < route_of.index("kSplitRows")
+    chunk = src[src.index("int row_chunk_slots("):]
+    chunk = chunk[:chunk.index("\n}\n")]
+    assert "const int fit = kSmemMax / (4 * D * elt);" in chunk
+    assert "return S <= fit ? S : fit / kKeyChunk * kKeyChunk;" in chunk
+
+
+@pytest.mark.parametrize("d,s,dtype,want", [
+    (128, 16, torch.bfloat16, 16), (128, 227, torch.bfloat16, 227),
+    (128, 228, torch.bfloat16, 224), (128, 300, torch.bfloat16, 224),
+    (128, 113, torch.float32, 113), (128, 256, torch.float32, 112),
+    (512, 16, torch.float32, 16), (512, 64, torch.float32, 24),
+    (320, 7, torch.bfloat16, 7), (512, 4096, torch.bfloat16, 56)])
+def test_row_chunk_slots(d, s, dtype, want):
+    """The row-tile kernel's chunk: the whole page where 4·S·D·bytes fit
+    232,448 bytes of shared memory (so such pages run the loop they ran
+    before chunks), else the most slots that fit in a multiple of 8."""
+    c = tpa.row_chunk_slots(d, s, dtype)
+    elt = torch.empty((), dtype=dtype).element_size()
+    assert c == want
+    assert 4 * c * d * elt <= tpa._SMEM_LIMIT
+    assert c == s or (c % 8 == 0 and 4 * (c + 8) * d * elt > tpa._SMEM_LIMIT)
 
 
 def test_binding_matches_the_c_entry():
@@ -427,7 +507,7 @@ class TestNoSilentFallback:
                             device="meta"), qs)
 
     def test_kernel_mode_on_cpu_pools_raises(self):
-        geom = (128, 16, torch.bfloat16, 8, 2, 9)
+        geom = (128, 16, torch.bfloat16, 8, 2)
         cpu, cuda = torch.device("cpu"), torch.device("cuda")
         with pytest.raises(ValueError, match="CUDA"):
             tsv._resolve_paged_kernel("kernel", cpu, *geom)
@@ -436,41 +516,54 @@ class TestNoSilentFallback:
         assert tsv._resolve_paged_kernel("auto", cpu, *geom) == "dense"
         assert tsv._resolve_paged_kernel("auto", cuda, *geom) == "kernel"
 
-    # (head dim, page size, pool dtype, heads, kv heads, table entries)
-    # -> the kernels take it
+    # (head dim, page size, pool dtype, heads, kv heads) -> the kernels
+    # take it
     _GEOMETRIES = {
-        "d32": ((32, 16, torch.bfloat16, 1, 1, 1), True),
-        "d96": ((96, 16, torch.bfloat16, 1, 1, 1), False),
-        "d16": ((16, 16, torch.bfloat16, 1, 1, 1), False),
-        "d192": ((192, 16, torch.bfloat16, 1, 1, 1), True),
-        "d192-f32": ((192, 16, torch.float32, 1, 1, 1), True),
-        "d320": ((320, 16, torch.bfloat16, 1, 1, 1), False),
-        "s128-f32-d128": ((128, 128, torch.float32, 1, 1, 1), False),
-        "s112-f32-d128": ((128, 112, torch.float32, 1, 1, 1), True),
-        # bf16 pages of a multiple of 8 slots take the split and
-        # tensor-core routes, which hold any page size
-        "s256-bf16-d128": ((128, 256, torch.bfloat16, 1, 1, 1), True),
-        "s256-bf16-d128-g4": ((128, 256, torch.bfloat16, 8, 2, 9), True),
-        "s1024-bf16-d256-g4": ((256, 1024, torch.bfloat16, 8, 2, 2), True),
-        # ... but G 3, a 4097-entry table or pages of 300 slots send
-        # prefill to the row-tile kernel, which stages whole pages
-        "s256-bf16-d128-g3": ((128, 256, torch.bfloat16, 6, 2, 9), False),
+        "d32": ((32, 16, torch.bfloat16, 1, 1), True),
+        "d96": ((96, 16, torch.bfloat16, 1, 1), False),
+        "d16": ((16, 16, torch.bfloat16, 1, 1), False),
+        "d192": ((192, 16, torch.bfloat16, 1, 1), True),
+        "d192-f32": ((192, 16, torch.float32, 1, 1), True),
+        # past 256 the row-tile kernel takes every call, up to D 512 (a
+        # multiple of 64 that is not one of them is refused, as the JAX
+        # kernel refuses 288; past 512 is ROADMAP.md queue C, C7)
+        "d320": ((320, 16, torch.bfloat16, 1, 1), True),
+        "d288": ((288, 16, torch.bfloat16, 1, 1), False),
+        "d512-f32": ((512, 16, torch.float32, 8, 2), True),
+        "d576": ((576, 16, torch.bfloat16, 1, 1), False),
+        # every route takes any page size: the row-tile kernel streams a
+        # page in chunks of slots
+        "s128-f32-d128": ((128, 128, torch.float32, 1, 1), True),
+        "s128-f16-d128": ((128, 128, torch.float16, 1, 1), False),
+        "s112-f32-d128": ((128, 112, torch.float32, 1, 1), True),
+        "s256-bf16-d128": ((128, 256, torch.bfloat16, 1, 1), True),
+        "s256-bf16-d128-g4": ((128, 256, torch.bfloat16, 8, 2), True),
+        "s1024-bf16-d256-g4": ((256, 1024, torch.bfloat16, 8, 2), True),
+        # G 3, a 4097-entry table and pages of 300 slots send prefill to
+        # the row-tile kernel, which now takes them (the table width is
+        # no longer asked: every route takes any); the same pools at a
+        # head dim the JAX kernel refuses too are refused
+        "s256-bf16-d128-g3": ((128, 256, torch.bfloat16, 6, 2), True),
+        "s256-bf16-d96-g3": ((96, 256, torch.bfloat16, 6, 2), False),
         "s256-bf16-d128-4097-pages": (
-            (128, 256, torch.bfloat16, 8, 2, 4097), False),
-        "s300-bf16-d128": ((128, 300, torch.bfloat16, 1, 1, 1), False),
-        "s12-bf16-d192": ((192, 12, torch.bfloat16, 1, 1, 1), True),
-        "s128-bf16-d128": ((128, 128, torch.bfloat16, 1, 1, 1), True),
-        "fp16": ((128, 16, torch.float16, 1, 1, 1), False),
+            (128, 256, torch.bfloat16, 8, 2), True),
+        "s256-bf16-d288-4097-pages": (
+            (288, 256, torch.bfloat16, 8, 2), False),
+        "s300-bf16-d128": ((128, 300, torch.bfloat16, 1, 1), True),
+        "s300-bf16-d96": ((96, 300, torch.bfloat16, 1, 1), False),
+        "s12-bf16-d192": ((192, 12, torch.bfloat16, 1, 1), True),
+        "s128-bf16-d128": ((128, 128, torch.bfloat16, 1, 1), True),
+        "fp16": ((128, 16, torch.float16, 1, 1), False),
     }
 
     @pytest.mark.parametrize("case", sorted(_GEOMETRIES))
     def test_auto_consults_the_pool_geometry(self, case):
-        """``paged_kernel_supported`` asks of a pool what every route a
-        call on it can take needs (head dim in (32, 64, 128, 192, 256),
-        f32 or bf16; 4·S·D·bytes within shared memory where a prefill
-        call takes the row-tile kernel); "auto" takes the kernel for a
-        CUDA pool where it holds and refuses the pool where it does not,
-        naming "dense"; "kernel" and "dense" are taken as asked."""
+        """``paged_kernel_supported`` asks of a pool what the kernels
+        take (head dim in (32, 64, 128, 192, 256, 320, 384, 448, 512), f32
+        or bf16, any page size, G and table width); "auto" takes the
+        kernel for a CUDA pool where it holds and refuses the pool where
+        it does not, naming "dense"; "kernel" and "dense" are taken as
+        asked."""
         geom, ok = self._GEOMETRIES[case]
         assert tpa.paged_kernel_supported(*geom) is ok
         cuda = torch.device("cuda")
@@ -495,46 +588,49 @@ class TestNoSilentFallback:
         meta = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
                                 device="meta")
         with pytest.raises(ValueError, match="head dim 96"):
-            tsv._meta_statics(_Model, "auto", meta, 1)
-        assert tsv._meta_statics(_Model, "dense", meta, 1)["paged_kernel"] \
+            tsv._meta_statics(_Model, "auto", meta)
+        assert tsv._meta_statics(_Model, "dense", meta)["paged_kernel"] \
             == "dense"
         cpu = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
                                device="cpu")
-        assert tsv._meta_statics(_Model, "auto", cpu, 1)["paged_kernel"] \
+        assert tsv._meta_statics(_Model, "auto", cpu)["paged_kernel"] \
             == "dense"
 
 
 def test_auto_is_route_aware_off_the_cpu():
     """The batcher's step path (``_meta_statics``, meta pools standing in
     for the card's) at the serving heads (8 over 2 kv heads): bf16 pages
-    of 256 slots and head dim 192 take the kernels, an f32 pool past the
-    row-tile kernel's limit (pages of 128 slots at D 128: 256 KB) raises
-    before any work."""
+    of 256 slots, head dim 192 and an f32 pool of 128-slot pages at D 128
+    (256 KB a page of K and V, which the row-tile kernel streams in
+    chunks) take the kernels; a head dim that the JAX kernel refuses too
+    (96) raises before any work."""
     class _Model:
         lm_meta = dict(num_layers=1, num_heads=8, num_kv_heads=2)
 
     for s, d, dtype, ok in ((256, 128, torch.bfloat16, True),
                             (16, 192, torch.bfloat16, True),
                             (16, 192, torch.float32, True),
-                            (128, 128, torch.float32, False)):
+                            (128, 128, torch.float32, True),
+                            (16, 96, torch.bfloat16, False)):
         meta = tsv.PagedKVCache(1, 4, s, 2, d, dtype, device="meta")
         if ok:
-            assert tsv._meta_statics(_Model, "auto", meta, 9)[
+            assert tsv._meta_statics(_Model, "auto", meta)[
                 "paged_kernel"] == "kernel"
         else:
             with pytest.raises(ValueError, match="paged_kernel='dense'"):
-                tsv._meta_statics(_Model, "auto", meta, 9)
-        assert tsv._meta_statics(_Model, "dense", meta, 9)[
+                tsv._meta_statics(_Model, "auto", meta)
+        assert tsv._meta_statics(_Model, "dense", meta)[
             "paged_kernel"] == "dense"
 
 
 def test_wrapper_refuses_by_the_calls_route(monkeypatch):
-    """The wrapper's own check follows the call's route: at bf16 D 128
-    pages of 256 slots a prefill call with G 3 (the row-tile route) is
-    refused as a geometry; with G 4 (the tensor-core route) it passes
-    every check. Meta tensors stand in for the card's, with the device
-    check waived, so the G 4 call stops only where the kernel library is
-    built."""
+    """The wrapper's own check no longer depends on the call's route: at
+    bf16 D 128 pages of 256 slots a prefill call with G 3 (the row-tile
+    route, which streams such pages in chunks) passes every check as one
+    with G 4 (the tensor-core route) does, and the same call at head dim
+    288, which no route takes, is refused as a geometry. Meta tensors
+    stand in for the card's, with the device check waived, so the calls
+    that pass stop only where the kernel library is built."""
     real = tpa._check
 
     def check(cond, msg):
@@ -542,15 +638,16 @@ def test_wrapper_refuses_by_the_calls_route(monkeypatch):
             real(cond, msg)
     monkeypatch.setattr(tpa, "_check", check)
 
-    def call(h):
-        q = torch.empty((1, 32, h, 128), dtype=torch.bfloat16, device="meta")
-        kp = torch.empty((4, 256, 2, 128), dtype=torch.bfloat16,
+    def call(h, d=128):
+        q = torch.empty((1, 32, h, d), dtype=torch.bfloat16, device="meta")
+        kp = torch.empty((4, 256, 2, d), dtype=torch.bfloat16,
                          device="meta")
         table = torch.zeros((1, 3), dtype=torch.int32, device="meta")
         qs = torch.zeros((1,), dtype=torch.int32, device="meta")
         tpa.paged_attention(q, kp, kp, table, qs)
-    with pytest.raises(ValueError, match="pool geometry.*the row route"):
-        call(6)
-    with pytest.raises(Exception) as e:
-        call(8)
-    assert "pool geometry" not in str(e.value)
+    with pytest.raises(ValueError, match="pool geometry.*head dim 288"):
+        call(6, 288)
+    for h in (6, 8):
+        with pytest.raises(Exception) as e:
+            call(h)
+        assert "pool geometry" not in str(e.value)
