@@ -15,15 +15,16 @@
 // The C entry picks one of three designs by dtype and shape alone
 // (route_of; ops/paged_attention.kernel_route mirrors it, and the entry
 // reports the route it took so the wrapper can hold the mirror to it):
-// a call past head dim kRowOnlyPast (256) takes `paged_attention_kernel`,
-// the only kernel built for D 320-512; otherwise a call whose T·G query
+// a call past head dim kRowOnlyPast (256) takes the row-tile kernel, the
+// only one built there (`paged_attention_wide_kernel`, D a runtime
+// value); otherwise a call whose T·G query
 // rows of a kv head fit one tile (T·G <= kSplitRows, every decode step)
-// takes the split-KV decode kernel; a bf16 call with more rows (prefill)
-// whose geometry the tensor cores tile (pages of S % 8 == 0 slots, 64 %
-// G == 0, P <= kTcMaxPages) takes `paged_prefill_tc_kernel`; every other
-// call (f32 pools, pages of 7, odd G) takes `paged_attention_kernel`.
-// Every route takes any page size and table width. No call reroutes
-// after a failed map or launch: the entry returns the error.
+// takes the split-KV decode kernel; a bf16 call with more rows
+// (prefill) takes `paged_prefill_tc_kernel` at any page size, unless G >
+// kWgRows (64) or P > kTcMaxPages (4096). So the row-tile kernel keeps
+// four cases: f32 pools, D > 256, G > 64 and tables wider than 4096
+// entries. Every route takes any page size and table width. No call
+// reroutes after a failed map or launch: the entry returns the error.
 //
 // paged_prefill_tc_kernel (bf16 prefill, tensor cores):
 // - Bound: prefill of a 512-token bucket (H 8, KV 2, D 128) does 0.54
@@ -33,19 +34,30 @@
 //   waits on is latency: its chain of 1-8 key tiles, each a TMA load,
 //   two dependent products and the softmax between them.
 // - One CTA = one consumer warpgroup of 64 folded query rows of one (row
-//   b, kv head) and one producer warp: row r is query column t0 + r / G,
-//   head h·G + r % G, as the TPU kernel folds G into the matmul's rows. Q lands by one TMA load per
-//   64-dim chunk from a 4-D (D, H, T, B) map with a box of (64, G, 64/G,
-//   1): at (d0, h·G, t0, b) the box's rows are exactly the folded rows in
-//   order, [64 rows][128 bytes] with 128-byte swizzle, the wgmma operand
-//   layout; columns past T read as zeros within row b. So 64 % G == 0.
+//   b, kv head) and one producer warp. The G query heads of a kv head
+//   are padded to gp, the smallest power of two >= G (G itself where 64
+//   % G == 0): row r is query column t0 + r / gp, head h·G + r % gp, as
+//   the TPU kernel folds G, padded to a multiple of 8, into the matmul's
+//   rows. Q lands by one TMA load per 64-dim chunk from a 4-D (D, H, T,
+//   B) map with a box of (64, gp, 64/gp, 1): at (d0, h·G, t0, b) the
+//   box's rows are exactly the folded rows in order, [64 rows][128
+//   bytes] with 128-byte swizzle, the wgmma operand layout; columns past
+//   T read as zeros within row b. Rows with r % gp >= G hold the next
+//   group's heads (or zeros past H): computed, finite, never written.
+//   Grid (B·KV, ceil(T·gp / 64)).
 // - Keys come in tiles of 64 straight off the pools through the block
-//   table: each pool is a (D, KV, S, num_pages) map with boxes of (64, 1,
-//   gcd(S, 64), 1), so a tile is 64 / gcd(S, 64) boxes per chunk, each at
-//   (d0, h, slot, table[b, page]), landing at its rows of the tile. Boxes
-//   stay whole 1024-byte swizzle atoms only when S % 8 == 0. The CTA
-//   stages its row's page ids (at most kTcMaxPages) in shared memory with
-//   q_start before the first load, so no TMA issue waits on a DRAM read.
+//   table. Each page is padded to S8 = ceil(S / 8)·8 slots: slot s of
+//   page j is padded key j·S8 + s, and tiles walk padded keys. Each pool
+//   is a (D, KV, S, num_pages) map with boxes of (64, 1, br, 1), br the
+//   largest of 64/32/16/8 dividing S8, so a tile is 64 / br boxes per
+//   chunk, each at (d0, h, slot, table[b, page]), landing at its rows of
+//   the tile as a whole 1024-byte swizzle atom. Where S % 8 != 0 a
+//   page's last box reaches past slot S - 1, and TMA fills those rows
+//   with zeros; the consumer scores them -inf (they are no keys, so each
+//   weighs exactly 0), in every tile, and compares the logical key j·S +
+//   s with the query position. The CTA stages its row's page ids (at
+//   most kTcMaxPages) in shared memory with q_start before the first
+//   load, so no TMA issue waits on a DRAM read.
 // - Pages whose first slot lies past the CTA's last query position (or
 //   past P) are never read: their slots, in the one tile that can have
 //   them (the last), are boxes at page -1, out of bounds, which TMA
@@ -60,21 +72,23 @@
 //   bf16 at the running max (the TPU kernel's rounding point), and V
 //   MN-major from shared memory: no transposed copy. Online softmax in
 //   f32 registers, in base 2 (ex2.approx); scores are masked element-wise
-//   only in tiles that reach past the CTA's first query position.
+//   only in tiles that reach past the CTA's first query position, or in
+//   every tile where pages are padded.
 // - K/V tiles run through a ring of 4 stages (2 past D 128: at D 192
 //   four would take 24 KB of Q + 4 x 48 KB + the page ids) with full/empty
 //   mbarriers. The producer warp issues every tile's boxes, a lane a box
 //   (one TMA issue costs some 100 cycles: a tile of 4 pages at D 128 is
 //   16 boxes), and refills a stage as soon as the 4 consumer warps
 //   release it, so only the first tile's issue is on the consumers'
-//   path. Grid (B·KV, ceil(T·G / 64)), the tiles with the most keys
-//   launched first. Output f32 straight from the accumulator; rows past
-//   T·G are not written.
+//   path. The tiles with the most keys are launched first. Output f32
+//   straight from the accumulator; padded rows and rows past T are not
+//   written.
 // - Tensor maps are encoded on the host per call (the pool pointer
 //   changes with each layer); at D 32 the 64-wide boxes reach past D and
 //   fill with zeros, as flash's do.
 //
-// paged_attention_kernel (f32, other prefill geometries, D past 256):
+// paged_attention_kernel (f32 pools, G > 64, P > 4096; past D 256 its
+// wide form):
 // - One CTA of 4 warps per (row b, kv head, tile of query rows). The G
 //   query heads that share a kv head fold into the tile's rows (row r is
 //   query column r / G, head r % G), as the TPU kernel folds them into the
@@ -85,21 +99,33 @@
 // - K/V are staged in shared memory with cp.async in chunks of C slots of
 //   a page, double buffered, so the next chunk's load overlaps this
 //   chunk's arithmetic. C (row_chunk_slots, on the host) is the whole
-//   page where 4·S·D·bytes fit the 227 KB a block may use, so such pages
+//   page where 4·S·D·bytes fit the 227 KB a block may use (beside the
+//   wide kernel's q and accumulator, row_fixed_bytes), so such pages
 //   run the loop they always ran, else the most slots that fit in a
-//   multiple of kKeyChunk: 224 of a 300-slot bf16 page at D 128, 112 of
-//   an f32 one, 24 at f32 D 512. Keys are scored kKeyChunk at a time
-//   from each multiple of kKeyChunk of the page either way, so the
-//   arithmetic does not depend on C.
+//   multiple of kKeyChunk: 112 of a 256-slot f32 page at D 128, 24 at
+//   f32 D 512. Keys are scored kKeyChunk at a time from each multiple of
+//   kKeyChunk of the page either way, so the arithmetic does not depend
+//   on C.
 // - Chunks whose first slot lies past the tile's last query position
 //   (and every page past it) are never loaded: a short row in a long
 //   table reads only its own keys.
-// - Each warp owns 4 query rows (2 past D 256); each lane owns D/32 of
-//   the head dims (q and the accumulator: 64 f32 registers a lane at D
-//   512 with 2 rows; 4 rows spilled at D 384).
-//   Scores are f32 dot products finished with warp shuffles; the running
-//   max, sum and accumulator are f32 in registers (online softmax). P·V
-//   takes p rounded to the pool dtype, as the TPU kernel does. Output f32.
+// - Each warp owns 4 query rows; each lane owns D/32 of the head dims
+//   (q and the accumulator in registers). Scores are f32 dot products
+//   finished with warp shuffles; the running max, sum and accumulator
+//   are f32 (online softmax). P·V takes p rounded to the pool dtype, as
+//   the TPU kernel does. Output f32.
+// - Past D 256 (kRowOnlyPast) `paged_attention_wide_kernel` runs the
+//   same loop with D a runtime value: 2 rows a warp, whose q and f32
+//   accumulator (64·D bytes a CTA) sit in shared memory beside the
+//   chunks, lane l owning columns 32c + l, so a warp reads a K or V row
+//   in consecutive words. It takes every multiple of 64 up to
+//   wide_max_d: the smallest chunk (8 slots of K and V, double buffered,
+//   32·D·elt bytes) must fit beside them in 232,448 bytes, so D <= 1152
+//   for f32 pools and D <= 1792 for bf16 ones. Lanes that owned D/32
+//   contiguous columns (the layout below D 256) would read K and V
+//   2·D/32 bytes apart, 8 words at bf16 D 512, so a warp would hit 4
+//   banks: measured, that took 2.1× this kernel's time at D 512 (and
+//   1.03× at D 320, whose 5-word stride spreads; PERF.md §6).
 // - It does its operations on the CUDA cores: f32 pools have no other
 //   exact route, and the geometries the tensor-core kernel does not tile
 //   are rare ones.
@@ -170,6 +196,8 @@ constexpr int kSmemMax = 232448;   // bytes of shared memory one block may use
 // the split-KV and tensor-core kernels are built up to this head dim;
 // past it every call runs the row-tile kernel (route_of)
 constexpr int kRowOnlyPast = 256;
+constexpr int kWideRpw = 2;                    // query rows a wide warp
+constexpr int kWideRows = kWarps * kWideRpw;   // query rows a wide CTA
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -198,18 +226,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Stage slots [slot0, slot0 + n) of physical page `page`, kv head `h`,
-// of both pools into smem (n rows of D elements each, rows contiguous).
-template <typename T, int D>
+// of both pools into smem (n rows of D elements each, rows contiguous;
+// D a multiple of 16 bytes' elements, a compile-time constant where the
+// caller's is)
+template <typename T>
 __device__ __forceinline__ void load_slots(T* ks, T* vs, const T* kp,
                                            const T* vp, int64_t page,
                                            int slot0, int n, int h, int S,
-                                           int KV) {
+                                           int KV, int D) {
   constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte copy
-  constexpr int kPerSlot = D / kVec;
+  const int per_slot = D / kVec;
   const int64_t base =
       (page * S + slot0) * KV * D + static_cast<int64_t>(h) * D;
-  for (int c = threadIdx.x; c < n * kPerSlot; c += kThreads) {
-    const int s = c / kPerSlot, w = (c % kPerSlot) * kVec;
+  for (int c = threadIdx.x; c < n * per_slot; c += kThreads) {
+    const int s = c / per_slot, w = (c % per_slot) * kVec;
     const int64_t g = base + static_cast<int64_t>(s) * KV * D + w;
     cp_async16(ks + s * D + w, kp + g);
     cp_async16(vs + s * D + w, vp + g);
@@ -276,8 +306,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // chunk u (slots [s0, s0 + Cs) of page j) into buffer u & 1
   auto load = [&](int u, int j, int s0) {
     T* const dst = buf + (u & 1) * 2 * Cs * D;
-    load_slots<T, D>(dst, dst + Cs * D, kp, vp, row_table[j], s0,
-                     CHUNKS ? min(Cs, S - s0) : S, h, S, KV);
+    load_slots<T>(dst, dst + Cs * D, kp, vp, row_table[j], s0,
+                  CHUNKS ? min(Cs, S - s0) : S, h, S, KV, D);
   };
   if (n_chunks > 0) load(0, 0, 0);
   cp_async_commit();
@@ -358,11 +388,28 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
+// shared memory a row-tile CTA keeps beside its K/V chunks: none up to
+// kRowOnlyPast (q and the accumulator live in registers), past it q and
+// the f32 accumulator of the wide kernel's kWideRows rows (f32 each)
+__host__ __device__ constexpr int row_fixed_bytes(int D) {
+  return D > kRowOnlyPast ? 2 * kWideRows * D * 4 : 0;
+}
+
+// the largest head dim, a multiple of 64, that the wide kernel takes for
+// pools of elt-byte elements: its smallest chunk (kKeyChunk slots of K
+// and V, double buffered: 4·8·D·elt bytes) beside q and the accumulator
+// (64·D bytes) within kSmemMax: 232448 / (128 + 64) -> 1152 for f32,
+// 232448 / (64 + 64) -> 1792 for bf16
+constexpr int wide_max_d(int elt) {
+  return kSmemMax / (4 * kKeyChunk * elt + 2 * kWideRows * 4) / 64 * 64;
+}
+
 // slots of a row-tile chunk: the whole page where its K and V, double
-// buffered (4·S·D·elt bytes), fit a block's shared memory, else the
-// most that do in a multiple of kKeyChunk
+// buffered (4·S·D·elt bytes), fit a block's shared memory beside the
+// CTA's fixed part (row_fixed_bytes), else the most that do in a
+// multiple of kKeyChunk
 int row_chunk_slots(int D, int S, int elt) {
-  const int fit = kSmemMax / (4 * D * elt);
+  const int fit = (kSmemMax - row_fixed_bytes(D)) / (4 * D * elt);
   return S <= fit ? S : fit / kKeyChunk * kKeyChunk;
 }
 
@@ -386,6 +433,175 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), table, q_start, out, T_, H, KV, S, P, C,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// Row-tile past D 256: the head dim a runtime value
+
+// The row-tile kernel's loop (chunks of C slots, double buffered, 8-key
+// groups from each multiple of 8 of a page, the same masks, roundings
+// and online softmax) for any head dim past kRowOnlyPast. A warp's
+// kWideRpw rows keep q and their f32 accumulator in shared memory after
+// the K/V chunks (so one kernel serves every D); lane l owns columns 32c
+// + l of both, so no lane reads another's and a warp reads 32
+// consecutive elements of a K or V row at a time. A score is the
+// lane's f32 sum over its D/32 columns, in order, finished with the
+// template kernel's shuffle tree.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_wide_kernel(const T* __restrict__ q,
+                            const T* __restrict__ kp,
+                            const T* __restrict__ vp,
+                            const int* __restrict__ table,
+                            const int* __restrict__ q_start,
+                            float* __restrict__ out, int T_, int H, int KV,
+                            int D, int S, int P, int C, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf = reinterpret_cast<T*>(smem_raw);   // [2][K|V][C][D]
+  float* const q_all =                             // [kWideRows][D]
+      reinterpret_cast<float*>(smem_raw + 4ull * C * D * sizeof(T));
+  float* const acc_all = q_all + kWideRows * D;    // [kWideRows][D]
+
+  const int b = blockIdx.x / KV, h = blockIdx.x % KV;
+  const int G = H / KV;
+  const int rows_total = T_ * G;
+  const int row0 = blockIdx.y * kWideRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nsl = D / 32;                          // 32-column slices
+  const int qs = q_start[b];
+  const int q_last = qs + (min(row0 + kWideRows, rows_total) - 1) / G;
+  // the chunks whose first key lies at or before q_last, as the template
+  // kernel counts them
+  const int cpp = (S + C - 1) / C;
+  const int last_page = min(P - 1, q_last / S);
+  const int n_chunks =
+      P > 0 ? last_page * cpp + min(cpp, (q_last - last_page * S) / C + 1)
+            : 0;
+
+  float m[kWideRpw], l[kWideRpw];
+  int qpos[kWideRpw];
+  int64_t obase[kWideRpw];
+  bool live[kWideRpw];
+#pragma unroll
+  for (int i = 0; i < kWideRpw; ++i) {
+    const int r = row0 + warp * kWideRpw + i;
+    live[i] = r < rows_total;
+    const int t = r / G, head = h * G + r % G;
+    qpos[i] = qs + t;
+    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * D + lane;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    float* const qr = q_all + (warp * kWideRpw + i) * D + lane;
+    float* const ar = acc_all + (warp * kWideRpw + i) * D + lane;
+    for (int c = 0; c < nsl; ++c) {
+      qr[32 * c] = live[i] ? to_f32(q[obase[i] + 32 * c]) : 0.f;
+      ar[32 * c] = 0.f;
+    }
+  }
+
+  const int* row_table = table + static_cast<int64_t>(b) * P;
+  auto load = [&](int u, int j, int s0) {
+    T* const dst = buf + static_cast<size_t>(u & 1) * 2 * C * D;
+    load_slots<T>(dst, dst + static_cast<size_t>(C) * D, kp, vp,
+                  row_table[j], s0, min(C, S - s0), h, S, KV, D);
+  };
+  if (n_chunks > 0) load(0, 0, 0);
+  cp_async_commit();
+  int j = 0, slot0 = 0;                 // chunk u: slots [slot0, + C) of j
+  for (int u = 0; u < n_chunks; ++u) {
+    const T* const ks = buf + static_cast<size_t>(u & 1) * 2 * C * D;
+    const T* const vs = ks + static_cast<size_t>(C) * D;
+    const bool wrap = slot0 + C >= S;   // the next chunk opens a page
+    const int j_next = wrap ? j + 1 : j, s_next = wrap ? 0 : slot0 + C;
+    if (u + 1 < n_chunks) load(u + 1, j_next, s_next);
+    cp_async_commit();
+    cp_async_wait_prev();               // chunk u has landed
+    __syncthreads();
+    const int n = min(C, S - slot0), key0 = j * S + slot0;
+#pragma unroll
+    for (int i = 0; i < kWideRpw; ++i) {
+      if (!live[i]) continue;           // warp-uniform
+      const float* const qr = q_all + (warp * kWideRpw + i) * D + lane;
+      float* const ar = acc_all + (warp * kWideRpw + i) * D + lane;
+      for (int c0 = 0; c0 < n; c0 += kKeyChunk) {
+        const int nk = min(kKeyChunk, n - c0);
+        const T* const kr = ks + static_cast<size_t>(c0) * D + lane;
+        const T* const vr = vs + static_cast<size_t>(c0) * D + lane;
+        float s[kKeyChunk];
+#pragma unroll
+        for (int kk = 0; kk < kKeyChunk; ++kk) s[kk] = 0.f;
+        for (int c = 0; c < nsl; ++c) {
+          const float qv = qr[32 * c];
+#pragma unroll
+          for (int kk = 0; kk < kKeyChunk; ++kk)
+            if (kk < nk) s[kk] += qv * to_f32(kr[kk * D + 32 * c]);
+        }
+        float m_chunk = -INFINITY;
+#pragma unroll
+        for (int kk = 0; kk < kKeyChunk; ++kk) {
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            s[kk] += __shfl_xor_sync(0xffffffffu, s[kk], o);
+          s[kk] = kk >= nk                     ? -INFINITY   // no key
+                  : key0 + c0 + kk > qpos[i]   ? kMask
+                                               : s[kk] * scale;
+          m_chunk = fmaxf(m_chunk, s[kk]);
+        }
+        const float m_new = fmaxf(m[i], m_chunk);
+        const float corr = expf(m[i] - m_new);
+        float psum = 0.f, pr[kKeyChunk];
+#pragma unroll
+        for (int kk = 0; kk < kKeyChunk; ++kk) {
+          const float p = expf(s[kk] - m_new);
+          psum += p;
+          pr[kk] = round_as(p, T{});
+        }
+        for (int c = 0; c < nsl; ++c) {
+          float a = ar[32 * c] * corr;
+#pragma unroll
+          for (int kk = 0; kk < kKeyChunk; ++kk)
+            if (kk < nk) a += pr[kk] * to_f32(vr[kk * D + 32 * c]);
+          ar[32 * c] = a;
+        }
+        l[i] = l[i] * corr + psum;
+        m[i] = m_new;
+      }
+    }
+    __syncthreads();                    // buffer u & 1 is refilled next
+    j = j_next;
+    slot0 = s_next;
+  }
+
+#pragma unroll
+  for (int i = 0; i < kWideRpw; ++i) {
+    if (!live[i]) continue;
+    const float* const ar = acc_all + (warp * kWideRpw + i) * D + lane;
+    for (int c = 0; c < nsl; ++c) out[obase[i] + 32 * c] = ar[32 * c] / l[i];
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* kp, const void* vp,
+                const int* table, const int* q_start, float* out, int B,
+                int T_, int H, int KV, int D, int S, int P, float scale,
+                cudaStream_t stream) {
+  if (D % 64 != 0 || D > wide_max_d(sizeof(T))) return -1;
+  const int rows_total = T_ * (H / KV);
+  const dim3 grid(B * KV, (rows_total + kWideRows - 1) / kWideRows);
+  const int C = row_chunk_slots(D, S, sizeof(T));
+  const size_t smem = 4ull * C * D * sizeof(T) + row_fixed_bytes(D);
+  auto kernel = paged_attention_wide_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, D, S, P, C,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -862,9 +1078,25 @@ constexpr int kTcThreads = kConsumers + 32;        // + the producer warp
 constexpr int kTcRows = kWgRows * kTcWarpgroups;   // folded rows a CTA
 constexpr int kTcKeys = 64;        // keys a tile
 constexpr int kTcMaxPages = 4096;  // block-table entries a CTA stages
+constexpr int kSlotPad = 8;        // a page's slots padded to a multiple
 
 // 64-wide column chunks of a D-wide tile (D 32: one, zero-filled past D)
 __host__ __device__ constexpr int chunks(int D) { return (D + 63) / 64; }
+// gp: the group of G query heads padded to a power of two, which divides
+// the kWgRows folded rows (G itself where 64 % G == 0)
+__host__ __device__ inline int pad_group(int G) {
+  int gp = 1;
+  while (gp < G) gp <<= 1;
+  return gp;
+}
+// S8: a page's slots padded to a multiple of kSlotPad (S where S % 8 == 0)
+__host__ __device__ inline int pad_slots(int S) {
+  return (S + kSlotPad - 1) / kSlotPad * kSlotPad;
+}
+// rows of a K/V box: the largest of 64, 32, 16, 8 that divides S8
+__host__ __device__ inline int box_rows(int S8) {
+  return S8 % 64 == 0 ? 64 : S8 % 32 == 0 ? 32 : S8 % 16 == 0 ? 16 : 8;
+}
 
 template <int D>
 struct TcShape {
@@ -898,9 +1130,10 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
   const int tid = threadIdx.x, g = tid / 128, w = (tid / 32) % 4;
   const int l = tid % 32;
   const int b = blockIdx.x / KV, h = blockIdx.x % KV, G = H / KV;
+  const int gp = pad_group(G), S8 = pad_slots(S);
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // most keys first
-  const int t0 = r0 / G;                 // first query column (64 % G == 0)
-  const int tn = min(T_ - t0, kTcRows / G);   // query columns here
+  const int t0 = r0 / gp;                // first query column (64 % gp == 0)
+  const int tn = min(T_ - t0, kTcRows / gp);  // query columns here
 
   // the row's page ids and q_start, read together, once, before any load
   unsigned char* const base =
@@ -914,11 +1147,12 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
       make_ring<kStages>(smem_raw, Sh::L::kBars, kConsumers / 32);
 
   const int first = qs + t0;             // the CTA's first query position
-  // pages j with j·S <= the last query position hold every key read
+  // pages j with j·S <= the last query position hold every key read;
+  // tiles walk padded keys, slot s of page j being padded key j·S8 + s
   const int n_pages = min(P, (first + tn - 1) / S + 1);
-  const int kend = n_pages * S;          // keys loaded
+  const int kend = n_pages * S8;         // padded keys loaded
   const int nkt = (kend + kTcKeys - 1) / kTcKeys;
-  const int br = S % 64 == 0 ? 64 : S % 32 == 0 ? 32 : S % 16 == 0 ? 16 : 8;
+  const int br = box_rows(S8);
   const uint32_t qsm = ring.base, kv0 = ring.base + Sh::kQ;
 
   if (tid >= kConsumers) {
@@ -929,7 +1163,10 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     // tile's). Slots of pages < n_pages come from the pools; the rest
     // are boxes at page -1, out of bounds, which TMA fills with zeros:
     // their scores are masked and their V rows must be finite (0 x NaN
-    // is NaN), whatever a stage held before.
+    // is NaN), whatever a stage held before. A page's last box reaches
+    // past slot S - 1 where S % 8 != 0: those rows are out of bounds
+    // too, zeros as well. Q's box holds gp heads from h·G: past G it
+    // reads the next group's heads, or zeros past H.
     if (l == 0) {
       bar_expect(ring.once(), Sh::kQ);
 #pragma unroll
@@ -945,10 +1182,10 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
       const uint32_t ks = kv0 + st * 2 * Sh::kKV, vs = ks + Sh::kKV;
       for (int e = l; e < 2 * kC * (kTcKeys / br); e += 32) {
         const int i = e / (2 * kC) * br, c = e / 2 % kC, k = k0 + i;
-        const int page = k < kend ? pages[k / S] : -1;
+        const int page = k < kend ? pages[k / S8] : -1;
         const uint32_t at = c * kTcKeys * kRowBytes + i * kRowBytes;
         tma_load((e % 2 ? vs : ks) + at, e % 2 ? &vm : &km, ring.full(st),
-                 c * 64, h, k % S, page);
+                 c * 64, h, k % S8, page);
       }
     }
     return;
@@ -957,8 +1194,9 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
   // this thread's accumulator rows: folded rows rl and rl + 8; its
   // warpgroup's first row sits at query position first_wg
   const int rl = kWgRows * g + 16 * w + l / 4;
-  const int qpos[2] = {first + rl / G, first + (rl + 8) / G};
-  const int first_wg = first + kWgRows * g / G;
+  const int qpos[2] = {first + rl / gp, first + (rl + 8) / gp};
+  const int first_wg = first + kWgRows * g / gp;
+  const int klast = n_pages * S - 1;     // the last key loaded, unpadded
   const float scale2 = scale * 1.4426950408889634f;   // log2 e
   float acc[kC][32], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
 #pragma unroll
@@ -989,10 +1227,41 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     // CTA's last one, score the finite -1e9, whose weight is 0 in either
     // base
     float mx[2] = {-INFINITY, -INFINITY};
-    if (k0 + kTcKeys - 1 > first_wg) {
+    if (S8 != S) {
+      // padded pages: every tile holds padded slots (s >= S), which are
+      // no keys and score -inf, so each weighs exactly 0. Elements 4j..4j
+      // + 3 sit in the 8-slot group of padded key k0 + 8j, at slot sb of
+      // page pg (stepped along, one division a tile); element i at slot
+      // sb + i%2 + 2·(l%4), logical key pg·S + that slot, masked (-1e9)
+      // past the row's query position or the last key loaded. Where S8
+      // == S this loop computes what the next one does (room >= 2), but
+      // slower: with it for every page, pages of 16-256 slots took up to
+      // 4.1 % more than a kernel without padding, with two loops up to
+      // 2.7 % (PERF.md §6), so those keep their own loop
+      const int o = 2 * (l % 4);
+      const int lim[2] = {min(qpos[0], klast), min(qpos[1], klast)};
+      int pg = k0 / S8, sb = k0 - pg * S8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = pg * S + sb + o, room = S - sb - o;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, r = e / 2;
+          s[i] = e % 2 >= room             ? -INFINITY
+                 : key + e % 2 > lim[r]    ? kMask
+                                           : s[i] * scale2;
+          mx[r] = fmaxf(mx[r], s[i]);
+        }
+        sb += 8;
+        if (sb == S8) {
+          sb = 0;
+          ++pg;
+        }
+      }
+    } else if (k0 + kTcKeys - 1 > first_wg) {
       // element i sits at key k0 + 8·(i/4) + i%2 + 2·(l%4)
-      const int lim[2] = {min(qpos[0], kend - 1) - k0 - 2 * (l % 4),
-                          min(qpos[1], kend - 1) - k0 - 2 * (l % 4)};
+      const int lim[2] = {min(qpos[0], klast) - k0 - 2 * (l % 4),
+                          min(qpos[1], klast) - k0 - 2 * (l % 4)};
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         s[i] = 8 * (i / 4) + i % 2 > lim[(i % 4) / 2] ? kMask
@@ -1042,14 +1311,15 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
   }
 
   // f32 rows straight from the accumulator: folded row rl + 8r is query
-  // column t0 + (rl + 8r) / G, head h·G + (rl + 8r) % G
+  // column t0 + (rl + 8r) / gp, head h·G + (rl + 8r) % gp; the padded
+  // rows (a head past the group's G) are never written
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float inv = 1.f / quad_sum(lsum[r]);
-    const int fr = rl + 8 * r, t = t0 + fr / G;
-    if (t >= T_) continue;
+    const int fr = rl + 8 * r, t = t0 + fr / gp;
+    if (t >= T_ || fr % gp >= G) continue;
     float* const row =
-        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % G) * D;
+        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % gp) * D;
 #pragma unroll
     for (int c = 0; c < kC; ++c)
 #pragma unroll
@@ -1084,9 +1354,8 @@ int make_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
 template <int D>
 int launch(const Call& a) {
   using Sh = TcShape<D>;
-  const int G = a.H / a.KV;
-  const cuuint32_t br = a.S % 64 == 0 ? 64 : a.S % 32 == 0 ? 32
-                        : a.S % 16 == 0 ? 16 : 8;
+  const int G = a.H / a.KV, gp = pad_group(G);
+  const cuuint32_t br = box_rows(pad_slots(a.S));
   const cuuint64_t dq[4] = {static_cast<cuuint64_t>(D),
                             static_cast<cuuint64_t>(a.H),
                             static_cast<cuuint64_t>(a.T),
@@ -1095,8 +1364,8 @@ int launch(const Call& a) {
                             static_cast<cuuint64_t>(a.KV),
                             static_cast<cuuint64_t>(a.S),
                             static_cast<cuuint64_t>(a.NP)};
-  const cuuint32_t bq[4] = {64, static_cast<cuuint32_t>(G),
-                            static_cast<cuuint32_t>(kTcRows / G), 1};
+  const cuuint32_t bq[4] = {64, static_cast<cuuint32_t>(gp),
+                            static_cast<cuuint32_t>(kTcRows / gp), 1};
   const cuuint32_t bp[4] = {64, 1, br, 1};
   CUtensorMap qm, km, vm;
   if (int e = make_map(&qm, a.q, dq, bq)) return e;
@@ -1105,7 +1374,7 @@ int launch(const Call& a) {
   const size_t smem = Sh::smem(a.P);
   auto kernel = paged_prefill_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(a.B * a.KV, (a.T * G + kTcRows - 1) / kTcRows);
+  const dim3 grid(a.B * a.KV, (a.T * gp + kTcRows - 1) / kTcRows);
   kernel<<<grid, kTcThreads, smem, a.stream>>>(
       qm, km, vm, a.table, a.q_start, a.out, a.T, a.H, a.KV, a.S, a.P,
       a.scale);
@@ -1121,36 +1390,27 @@ Route route_of(int dtype, int T, int H, int KV, int D, int S, int P) {
   const int G = H / KV;
   if (D > kRowOnlyPast) return kRouteRow;
   if (T * G <= kSplitRows) return kRouteSplit;
-  if (dtype == 1 && S % 8 == 0 && tc::kWgRows % G == 0 &&
-      P <= tc::kTcMaxPages)
+  if (dtype == 1 && G <= tc::kWgRows && P <= tc::kTcMaxPages)
     return kRouteTc;
   return kRouteRow;
 }
 
 template <typename T, int D>
 int launch_call(const Call& a, Route route) {
-  if constexpr (D > kRowOnlyPast) {      // the row-tile kernel alone
-    if (route != kRouteRow) return -1;
-  } else if (route == kRouteSplit) {
+  if (route == kRouteSplit) {
     if (a.ws == nullptr || a.counters == nullptr || a.pps < 1) return -3;
     const int rows = a.T * (a.H / a.KV);
     return rows <= 4 ? launch_split<T, D, 4>(a) : launch_split<T, D, 16>(a);
   }
-  if constexpr (D <= kRowOnlyPast) {
-    if (route == kRouteTc) {
-      if constexpr (sizeof(T) == 2) {
-        const int e = tc::launch<D>(a);
-        return e == hopper::kNoEncoder ? -5 : e;
-      }
-      return -2;
+  if (route == kRouteTc) {
+    if constexpr (sizeof(T) == 2) {
+      const int e = tc::launch<D>(a);
+      return e == hopper::kNoEncoder ? -5 : e;
     }
+    return -2;
   }
-  // rows per warp: 4, or 2 past D 256, where q and the accumulator take
-  // D/16 registers a lane per row (4 rows spilled at D 384)
-  constexpr int kRpw = D > kRowOnlyPast ? 2 : 4;
-  return launch<T, D, kRpw>(a.q, a.kp, a.vp, a.table, a.q_start, a.out,
-                            a.B, a.T, a.H, a.KV, a.S, a.P, a.scale,
-                            a.stream);
+  return launch<T, D, 4>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
+                         a.T, a.H, a.KV, a.S, a.P, a.scale, a.stream);
 }
 
 template <typename T>
@@ -1166,16 +1426,11 @@ int launch_dims(const Call& a, Route route) {
       return launch_call<T, 192>(a, route);
     case 256:
       return launch_call<T, 256>(a, route);
-    case 320:
-      return launch_call<T, 320>(a, route);
-    case 384:
-      return launch_call<T, 384>(a, route);
-    case 448:
-      return launch_call<T, 448>(a, route);
-    case 512:
-      return launch_call<T, 512>(a, route);
-    default:
-      return -1;
+    default:                             // past 256: the wide kernel alone
+      if (a.D <= kRowOnlyPast || route != kRouteRow) return -1;
+      return launch_wide<T>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
+                            a.T, a.H, a.KV, a.D, a.S, a.P, a.scale,
+                            a.stream);
   }
 }
 

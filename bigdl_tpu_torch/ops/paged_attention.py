@@ -19,16 +19,19 @@ the route the entry reports):
   (row, kv head, split) writing an f32 partial (max, sum, accumulator) to
   a workspace allocated here, the last CTA of each (row, kv head) merging
   them; ``paged_attention_split_ref`` is its plain version.
-- ``"tc"``: a bf16 call with more rows (prefill) whose pages hold a
-  multiple of 8 slots, with G dividing 64 and at most 4096 table entries a
-  row, runs the tensor-core prefill kernel — ``wgmma`` products on tiles
-  of 64 folded query rows and 64 keys that TMA reads straight off the
-  pools through the block table; ``paged_attention_tile_ref`` is its
-  arithmetic in its order.
-- ``"row"``: every other call (f32 pools, pages of 7, odd G, and every
-  call past head dim 256) runs the row-tile kernel on the CUDA cores,
-  which streams each page in chunks of ``row_chunk_slots`` slots;
-  ``paged_attention_row_ref`` is its arithmetic in its order.
+- ``"tc"``: a bf16 call with more rows (prefill) at head dim <= 256 runs
+  the tensor-core prefill kernel at any page size — ``wgmma`` products on
+  tiles of 64 folded query rows (the G heads of a kv head padded to a
+  power of two) and 64 keys (each page padded to a multiple of 8 slots)
+  that TMA reads straight off the pools through the block table —
+  unless G > 64 or the table holds more than 4096 entries a row;
+  ``paged_attention_tile_ref`` is its arithmetic in its order.
+- ``"row"``: every other call — f32 pools, head dims past 256 (decode
+  too), G > 64, tables past 4096 entries — runs the row-tile kernel on
+  the CUDA cores, which streams each page in chunks of
+  ``row_chunk_slots`` slots (past head dim 256 with D a runtime value,
+  q and its accumulator in shared memory); ``paged_attention_row_ref``
+  is its arithmetic in its order.
 
 ``dense_cache_attention`` serves a dense per-row (B, M, KV, D) cache
 through the same kernel: the cache is a pool of ``M // S`` contiguous
@@ -51,11 +54,13 @@ __all__ = ["paged_attention", "paged_attention_ref",
            "paged_attention_row_ref",
            "decode_split_pages", "kernel_route", "row_chunk_slots",
            "dense_cache_attention", "dense_cache_page_size",
-           "paged_kernel_supported", "launches", "split_launches",
-           "tc_launches"]
+           "paged_kernel_supported", "wide_max_head_dim", "launches",
+           "split_launches", "tc_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
-_HEAD_DIMS = (32, 64, 128, 192, 256, 320, 384, 448, 512)
+#: head dims every route is built for (past them, multiples of 64 on the
+#: row-tile kernel alone: ``_takes_head_dim``)
+_HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 #: keys the row-tile kernel scores per online-softmax update (kKeyChunk)
@@ -63,15 +68,21 @@ _KEY_CHUNK = 8
 #: head dims past which every call runs the row-tile kernel (kRowOnlyPast
 #: in csrc/paged_attention.cu)
 _ROW_ONLY_PAST = 256
+#: query rows a CTA of the row-tile kernel past head dim 256 holds, whose
+#: q and f32 accumulator it keeps in shared memory (kWideRows)
+_WIDE_ROWS = 8
 #: query rows (T·G) per kv head up to which the C entry takes the split-KV
 #: decode kernel (kSplitRows in csrc/paged_attention.cu)
 _SPLIT_ROWS = 16
 _SPLIT_MAX_PAGES = 4096
 #: folded query rows a warpgroup of the tensor-core prefill kernel holds,
-#: which G must divide, and the block-table entries a CTA of it stages in
-#: shared memory (kWgRows, kTcMaxPages in csrc/paged_attention.cu)
+#: the most G it takes (padded to a power of two, which divides them),
+#: the block-table entries a CTA of it stages in shared memory, and the
+#: multiple of slots its walk pads each page to (kWgRows, kTcMaxPages,
+#: kSlotPad in csrc/paged_attention.cu)
 _TC_ROWS = 64
 _TC_MAX_PAGES = 4096
+_SLOT_PAD = 8
 #: the C entry's route codes
 _ROUTES = ("split", "tc", "row")
 #: the C entry's own error codes (others: 1000 + a refused tensor map's
@@ -95,23 +106,51 @@ tc_launches = 0
 _counters: dict = {}
 
 
+def _fixed_bytes(head_dim: int) -> int:
+    """Shared memory a row-tile CTA keeps beside its K/V chunks
+    (``row_fixed_bytes``): q and the f32 accumulator of the wide kernel's
+    rows past head dim 256, none below."""
+    return 2 * _WIDE_ROWS * head_dim * 4 if head_dim > _ROW_ONLY_PAST else 0
+
+
+@functools.cache
+def wide_max_head_dim(dtype) -> int:
+    """The largest head dim, a multiple of 64, the row-tile kernel takes
+    past 256 for pools of ``dtype`` (``wide_max_d``): its smallest chunk
+    (8 slots of K and V, double buffered, 4·8·D·bytes) beside q and the
+    accumulator (64·D bytes) within 232,448 bytes of shared memory —
+    1152 for float32 pools, 1792 for bfloat16 ones."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return (_SMEM_LIMIT // (4 * _KEY_CHUNK * elt + 2 * _WIDE_ROWS * 4)
+            // 64 * 64)
+
+
+def _takes_head_dim(head_dim: int, dtype) -> bool:
+    """Head dims the kernels take: 32, 64, 128, 192 and 256 on every
+    route, and past 256 every multiple of 64 up to
+    :func:`wide_max_head_dim` (the row-tile kernel)."""
+    if head_dim <= _ROW_ONLY_PAST:
+        return head_dim in _HEAD_DIMS
+    return head_dim % 64 == 0 and head_dim <= wide_max_head_dim(dtype)
+
+
 def paged_kernel_supported(head_dim: int, page_size: int, dtype,
                            num_heads: int, num_kv_heads: int) -> bool:
     """Pool geometries the kernels take (the counterpart of the
     reference's ``paged_supported``), for pools of ``num_kv_heads`` kv
-    heads serving ``num_heads`` query heads: head dim in (32, 64, 128,
-    192, 256, 320, 384, 448, 512), float32 or bfloat16, G = heads / kv
-    heads whole.
+    heads serving ``num_heads`` query heads: float32 or bfloat16, G =
+    heads / kv heads whole, head dim 32, 64, 128, 192 or 256, or a
+    multiple of 64 past 256 up to a cap that shared memory sets (1152
+    for float32 pools, 1792 for bfloat16: :func:`wide_max_head_dim`).
 
     Every route takes any page size and table width: the split-KV kernel
-    stages key rows, not pages; the tensor-core kernel reads a page as
-    TMA boxes of gcd(S, 64) rows; the row-tile kernel streams a page in
-    chunks of :func:`row_chunk_slots` slots. So every pool of those head
-    dims and dtypes is taken (the JAX ``paged_supported``'s, S % 8 == 0
-    and D a multiple of 64, among them), pages of any size, any G, any
-    table width. Head dims past 512 stay refused (ROADMAP.md queue C,
-    C7)."""
-    return (head_dim in _HEAD_DIMS and dtype in _DTYPE_CODES
+    stages key rows, not pages; the tensor-core kernel pads each page to
+    a multiple of 8 slots, which TMA fills with zeros; the row-tile
+    kernel streams a page in chunks of :func:`row_chunk_slots` slots. So
+    every pool of those head dims and dtypes is taken (the JAX
+    ``paged_supported``'s, S % 8 == 0 and D a multiple of 64, among them
+    up to the cap), pages of any size, any G, any table width."""
+    return (dtype in _DTYPE_CODES and _takes_head_dim(head_dim, dtype)
             and page_size >= 1 and num_kv_heads >= 1
             and num_heads % num_kv_heads == 0)
 
@@ -120,11 +159,12 @@ def row_chunk_slots(head_dim: int, page_size: int, dtype) -> int:
     """Slots of a page the row-tile kernel stages at a time (its C, from
     ``row_chunk_slots`` in csrc/paged_attention.cu): the whole page where
     K and V, double buffered (4·S·D·bytes), fit a block's 232,448 bytes
-    of shared memory, else the most slots that do, in a multiple of the
-    8 keys it scores per softmax update (so its arithmetic is the same
-    whatever the chunk)."""
+    of shared memory beside the CTA's fixed part (past head dim 256, q
+    and the accumulator: 64·D bytes), else the most slots that do, in a
+    multiple of the 8 keys it scores per softmax update (so its
+    arithmetic is the same whatever the chunk)."""
     elt = torch.empty((), dtype=dtype).element_size()
-    fit = _SMEM_LIMIT // (4 * head_dim * elt)
+    fit = (_SMEM_LIMIT - _fixed_bytes(head_dim)) // (4 * head_dim * elt)
     return page_size if page_size <= fit else fit // _KEY_CHUNK * _KEY_CHUNK
 
 
@@ -133,17 +173,18 @@ def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
     """The kernel the C entry runs for q (B, t, h, d) against pools of
     pages of ``s`` slots, ``kv`` kv heads and ``dtype``, through a table of
     ``p`` entries a row: ``"row"`` past head dim 256, else ``"split"``
-    (T·G <= 16 query rows per kv head), ``"tc"`` (bf16, S % 8 == 0, G
-    dividing 64, p <= 4096) or ``"row"``. Shapes and dtype only, as the C
-    entry's ``route_of``; the wrapper raises if the entry reports another
-    route."""
+    (T·G <= 16 query rows per kv head), ``"tc"`` (bf16 at any page size,
+    G <= 64, p <= 4096) or ``"row"``. So the row-tile kernel keeps four
+    cases: f32 pools, head dims past 256, G > 64 and tables wider than
+    4096 entries. Shapes and dtype only, as the C entry's ``route_of``;
+    the wrapper raises if the entry reports another route."""
     g = h // kv
     if d > _ROW_ONLY_PAST:
         return "row"
     if t * g <= _SPLIT_ROWS:
         return "split"
-    if (dtype == torch.bfloat16 and d in _HEAD_DIMS and s % 8 == 0
-            and _TC_ROWS % g == 0 and p <= _TC_MAX_PAGES):
+    if (dtype == torch.bfloat16 and d in _HEAD_DIMS and g <= _TC_ROWS
+            and p <= _TC_MAX_PAGES):
         return "tc"
     return "row"
 
@@ -271,17 +312,31 @@ def paged_attention_tile_ref(q, kp, vp, table, q_start, *, key_tile,
                              scale=None):
     """Plain PyTorch version of the tensor-core prefill kernel's
     arithmetic, in its order (same arguments as :func:`paged_attention`):
-    an online softmax over tiles of ``key_tile`` keys of each row's
-    gathered view — m_new = max(m, tile max), p = exp(score - m_new), l =
-    l·e^(m - m_new) + sum p, acc = acc·e^(m - m_new) + (p rounded to the
-    pool dtype)·V — then o = acc / l. Keys past q_start + t score the
-    finite -1e9; keys past the table's end, -inf. At ``key_tile`` = the
-    page size it walks the JAX kernel's tiles. For the tests and
-    ``chip_smoke.py``; no path calls it."""
-    n = table.shape[1] * kp.shape[1]
+    an online softmax over tiles of ``key_tile`` keys — m_new = max(m,
+    tile max), p = exp(score - m_new), l = l·e^(m - m_new) + sum p, acc =
+    acc·e^(m - m_new) + (p rounded to the pool dtype)·V — then o = acc /
+    l. Keys past q_start + t score the finite -1e9; keys past the table's
+    end, -inf.
+
+    The tiles walk the padded slot space of the kernel: each page of S
+    slots padded to S8, the next multiple of 8 (``kSlotPad``; slot s of
+    page j is padded key j·S8 + s), and each tile of ``key_tile`` padded
+    keys takes the logical keys among them, so at S % 8 != 0 the spans
+    are uneven (the padded slots are no keys: the kernel scores them -inf,
+    which weighs 0). At S % 8 == 0 the tiles are ``key_tile`` keys of the
+    view each, and at ``key_tile`` = the page size they are the JAX
+    kernel's tiles. For the tests and ``chip_smoke.py``; no path calls
+    it."""
+    s = kp.shape[1]
+    s8 = -(-s // _SLOT_PAD) * _SLOT_PAD
+    n_pad = table.shape[1] * s8
+
+    def logical(k):              # keys of the view before padded key k
+        return k // s8 * s + min(k % s8, s)
     return _online_over_spans(
         q, kp, vp, table, q_start,
-        [(k0, k0 + key_tile) for k0 in range(0, n, key_tile)], scale)
+        [(logical(k0), logical(min(k0 + key_tile, n_pad)))
+         for k0 in range(0, n_pad, key_tile)], scale)
 
 
 def paged_attention_row_ref(q, kp, vp, table, q_start, *, scale=None):
@@ -340,6 +395,49 @@ def _check(cond, msg):
         raise ValueError(f"paged_attention: {msg}")
 
 
+def _launch(fn, q, kp, vp, table, q_start, scale, route):
+    """Run ``fn``, a C entry ``bigdl_paged_attention`` (``_bind``), on a
+    call the wrapper has checked, with the workspace and counters that
+    ``route`` needs (the split-KV kernel's); returns the f32 output and
+    the route the entry reports. Raises on an error code."""
+    b, t, h, d = q.shape
+    _, s, kv, _ = kp.shape
+    p = table.shape[1]
+    qc = q.to(kp.dtype).contiguous()
+    if qc.data_ptr() % 16:          # the kernels copy q in 16-byte vectors
+        qc = qc.clone()
+    table = table.to(torch.int32).contiguous()
+    q_start = q_start.to(torch.int32).contiguous()
+    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pps, ws, counters = 0, None, None
+    if route == "split":
+        # f32 (max, sum, accumulator) per (row, kv head, split)
+        pps = decode_split_pages(b, kv, p, _sm_count(q.device.index))
+        ws = torch.empty(b * kv * -(-p // pps) * t * (h // kv) * (d + 2),
+                         dtype=torch.float32, device=q.device)
+        counters = _counters.get((q.device, stream))
+        if counters is None or counters.numel() < b * kv:
+            counters = torch.zeros(b * kv, dtype=torch.int32,
+                                   device=q.device)
+            _counters[(q.device, stream)] = counters
+    took = ctypes.c_int(-1)
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPE_CODES[kp.dtype], qc.data_ptr(), kp.data_ptr(),
+                 vp.data_ptr(), table.data_ptr(), q_start.data_ptr(),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr(),
+                 ctypes.byref(took), b, t, h, kv, d, s, p, kp.shape[0],
+                 pps, float(scale), stream)
+    took = _ROUTES[took.value] if 0 <= took.value < 3 else took.value
+    if err:
+        why = _ERRORS.get(err, f"tensor map refused (CUresult {err - 1000})"
+                          if err >= 1000 else "CUDA error")
+        raise RuntimeError(f"paged_attention {took} kernel launch failed "
+                           f"(code {err}: {why})")
+    return out, took
+
+
 def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     """Grouped causal attention of ``q`` (B, T, H, D) directly against
     the page pools — no dense per-row view on the card.
@@ -351,8 +449,9 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     q_start + t. Returns (B, T, H, D) float32. On the card the call runs
     the kernel ``kernel_route`` names: the split-KV decode kernels (T·G
     <= 16 query rows per kv head; split count from shapes alone), the
-    tensor-core prefill kernel, or the row-tile kernel (every call past
-    head dim 256)."""
+    tensor-core prefill kernel (bf16), or the row-tile kernel (f32
+    prefill, G > 64, tables past 4096 entries, and every call past head
+    dim 256)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
     global launches, split_launches, tc_launches
@@ -367,11 +466,14 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     _check(h % kv == 0, f"{h} query heads not divisible by {kv} kv heads")
     p = table.shape[1] if table.dim() == 2 else 0
     want = kernel_route(t, h, kv, d, s, p, kp.dtype)
-    _check(d in _HEAD_DIMS and kp.dtype in _DTYPE_CODES
-           and vp.dtype == kp.dtype,
+    _check(kp.dtype in _DTYPE_CODES and vp.dtype == kp.dtype
+           and _takes_head_dim(d, kp.dtype),
            f"pool geometry the kernel does not take: head dim {d} (need "
-           f"one of {_HEAD_DIMS}; past 512 is ROADMAP.md queue C, C7), "
-           f"pool dtype {kp.dtype}/{vp.dtype} (need float32 or bfloat16)")
+           f"one of {_HEAD_DIMS} or a multiple of 64 past 256 whose "
+           f"smallest K/V chunk fits shared memory beside q and the "
+           f"accumulator: up to {wide_max_head_dim(kp.dtype)} for "
+           f"{kp.dtype} pools), pool dtype {kp.dtype}/{vp.dtype} (need "
+           f"float32 or bfloat16)")
     _check(kp.is_contiguous() and vp.is_contiguous(),
            "pools must be contiguous")
     _check(kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0,
@@ -381,45 +483,13 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
            f"table {tuple(table.shape)} / q_start {tuple(q_start.shape)} "
            f"do not match batch {b}")
     scale = d ** -0.5 if scale is None else scale
-    fn = _kernel_fn()
-    qc = q.to(kp.dtype).contiguous()
-    if qc.data_ptr() % 16:          # the kernels copy q in 16-byte vectors
-        qc = qc.clone()
-    table = table.to(torch.int32).contiguous()
-    q_start = q_start.to(torch.int32).contiguous()
-    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
-    rows = t * (h // kv)
-    split = want == "split"
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    pps, ws, counters = 0, None, None
-    if split:     # f32 (max, sum, accumulator) per (row, kv head, split)
-        pps = decode_split_pages(b, kv, p, _sm_count(q.device.index))
-        ws = torch.empty(b * kv * -(-p // pps) * rows * (d + 2),
-                         dtype=torch.float32, device=q.device)
-        counters = _counters.get((q.device, stream))
-        if counters is None or counters.numel() < b * kv:
-            counters = torch.zeros(b * kv, dtype=torch.int32,
-                                   device=q.device)
-            _counters[(q.device, stream)] = counters
-    route = ctypes.c_int(-1)
-    with torch.cuda.device(q.device):
-        err = fn(_DTYPE_CODES[kp.dtype], qc.data_ptr(), kp.data_ptr(),
-                 vp.data_ptr(), table.data_ptr(), q_start.data_ptr(),
-                 out.data_ptr(), None if ws is None else ws.data_ptr(),
-                 None if counters is None else counters.data_ptr(),
-                 ctypes.byref(route), b, t, h, kv, d, s, p, kp.shape[0],
-                 pps, float(scale), stream)
-    took = _ROUTES[route.value] if 0 <= route.value < 3 else route.value
-    if err:
-        why = _ERRORS.get(err, f"tensor map refused (CUresult {err - 1000})"
-                          if err >= 1000 else "CUDA error")
-        raise RuntimeError(f"paged_attention {took} kernel launch failed "
-                           f"(code {err}: {why})")
+    out, took = _launch(_kernel_fn(), q, kp, vp, table, q_start, scale,
+                        want)
     if took != want:
         raise RuntimeError(f"paged_attention: the C entry ran the {took} "
                            f"kernel where kernel_route names {want}")
     launches += 1
-    split_launches += split
+    split_launches += want == "split"
     tc_launches += want == "tc"
     return out
 

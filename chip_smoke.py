@@ -9,10 +9,12 @@ the full width of the flagship LM with weights made from a seed:
 
 - ``[serve]``: 16 requests through ``ContinuousBatcher`` (d_model 1024,
   12 layers, 8 heads, 2 kv heads, RoPE, vocab 32768) — paged attention:
-  the split-KV decode kernel and the tensor-core prefill kernel; two
-  tails serve 4 requests each through pages of 256 slots (prefill on
-  the tensor cores) and of 300 (prefill on the row-tile kernel, which
-  streams such a page in chunks) against the dense plain path;
+  the split-KV decode kernel and the tensor-core prefill kernel; four
+  tails serve 4 requests each against the dense plain path: through
+  pages of 256 slots and of 300 (prefill on the tensor cores, which pad
+  such a page to 304 slots), at Qwen2.5-7B's attention width (G 7:
+  prefill on the tensor cores, decode on the split-KV kernel) and at
+  Falcon-7B's (G 71: every call on the row-tile kernel);
 - ``[train]``: the port's train main (``models/transformer/train.py``)
   on a generated text, at the ``bench.py:1040-1063`` training geometry
   (learned positions, full MHA, batch 4 x 2048, bf16 policy) for two
@@ -121,11 +123,26 @@ _FLASH_SLICED = dict(batch=2, seq=2048, heads=2, head_dim=512)
 # bf16 flash held in full at the width where one flipped rounding read
 # past the old gradient limit (B4 S2048 H16 D64, ``_FLASH_TOL``)
 _FLASH_NARROW = dict(batch=4, seq=2048, heads=16, head_dim=64)
-# the serving tails through large pages: 4 requests whose prompts span
-# two to four pages of 256 slots (prefill on the tensor cores) and of
-# 300 slots (S % 8 != 0: prefill on the row-tile kernel, 224-slot chunks)
-_SERVE_LARGE_PAGES = dict(page_sizes=(256, 300), requests=4, new_tokens=16,
-                          prompt_lens=(300, 520, 777, 1000))
+# the serving tails, 4 requests of 16 new tokens each: (label, the LM
+# (None: [serve]'s own model, else the widths of another one, built from
+# the seed at ``_LM``'s vocab, max_len, RoPE and ffn_mult 4), page size,
+# prompt lengths (None: 4 drawn from the seed in 300..1000)). Pages of
+# 256 slots and of 300 (S % 8 != 0: padded to 304 in the tensor-core
+# kernel's walk), whose prompts span two to four pages; Qwen2.5-7B's
+# attention (d_model 3584, 28 heads over 4 kv heads: G 7, padded to 8;
+# 4 of its 28 layers, the LM's own FFN) through pages of 16, prefill on
+# the tensor cores and decode (T·G 7) on the split-KV kernel; and
+# Falcon-7B's (d_model 4544, 71 heads over one kv head, D 64; 2 of its
+# 32 layers), whose G past 64 runs every call on the row-tile kernel
+_SERVE_TAILS = (
+    ("pages of 256", None, 256, (300, 520, 777, 1000)),
+    ("pages of 300", None, 300, (300, 520, 777, 1000)),
+    ("Qwen2.5-7B attention", dict(d_model=3584, num_heads=28,
+                                  num_kv_heads=4, num_layers=4), 16, None),
+    ("Falcon-7B attention", dict(d_model=4544, num_heads=71,
+                                 num_kv_heads=1, num_layers=2), 16, None),
+)
+_TAIL_REQUESTS, _TAIL_NEW_TOKENS = 4, 16
 #: flash kernel vs plain, element by element: |kernel - plain| <=
 #: rtol·|plain| + atol·rms(plain), the rms over the whole output, as
 #: (rtol, atol) by dtype and output. bf16: where the f32 sums differ in
@@ -326,7 +343,13 @@ def _print_ptxas(report: str) -> None:
                        r"(\w+?)Li(\d+)ELi(\d+)E", line)
         pt = re.search(r"entry function '\S*?paged_prefill_tc_kernelILi(\d+)E",
                        line)
-        if pt:
+        pw = re.search(r"entry function '\S*?paged_attention_wide_kernelI"
+                       r"(\w+?)E", line)
+        if pw:
+            name = (f"paged_attention_wide "
+                    f"{'bf16' if 'bfloat16' in pw.group(1) else 'f32'} "
+                    f"(D past 256, a runtime value)")
+        elif pt:
             name = f"paged_prefill_tc bf16 (tensor cores) D={pt.group(1)}"
         elif ps:
             dt, d, rows = ps.groups()
@@ -589,8 +612,11 @@ _DECODE_GEOMETRIES = (
 
 
 #: geometry rows that are also timed (beside their bound, plain version
-#: and library calls): head dim 192 and pages of 256 slots
-_TIMED_GEOMETRIES = ("d192", "s256")
+#: and library calls): head dim 192, pages of 256 slots, Qwen2.5-7B's G 7
+#: and 14B's G 5 at the T 512 bucket, and Falcon-7B's G 71 (the row-tile
+#: kernel)
+_TIMED_GEOMETRIES = ("d192", "s256", "qwen7b-g7", "qwen14b-g5",
+                     "falcon7b-g71")
 
 
 def _geometry_times(pa, args, s, kv):
@@ -735,14 +761,41 @@ _PREFILL_GEOMETRIES = (
     ("chunked", 2, 64, 8, 2, 128, 16, 129, torch.bfloat16, [100, 517],
      "tc"),
     ("f32-pools", 1, 128, 8, 2, 128, 16, 20, torch.float32, [0], "row"),
-    ("s7", 1, 128, 8, 2, 64, 7, 30, torch.bfloat16, [0], "row"),
+    # pages padded to a multiple of 8 slots (a box of 8 rows past a
+    # 7-slot page's own 7)
+    ("s7", 1, 128, 8, 2, 64, 7, 30, torch.bfloat16, [0], "tc"),
     # head dim 192 on each prefill route, and pages of 256 slots
     ("d192", 2, 96, 4, 2, 192, 16, 20, torch.bfloat16, [0, 30], "tc"),
     ("d192-f32", 1, 128, 8, 2, 192, 16, 20, torch.float32, [0], "row"),
-    ("d192-s12", 1, 64, 8, 2, 192, 12, 30, torch.bfloat16, [0], "row"),
+    ("d192-s12", 1, 64, 8, 2, 192, 12, 30, torch.bfloat16, [0], "tc"),
     ("s256", 2, 300, 8, 2, 128, 256, 9, torch.bfloat16, [0, 700], "tc"),
     ("s256-chunked", 1, 64, 8, 2, 128, 256, 9, torch.bfloat16, [1500],
      "tc"),
+    # groups padded to a power of two: Qwen2.5-7B's attention (28 heads
+    # over 4 kv heads, G 7) and 14B's (40 over 8, G 5) at the T 512
+    # bucket, 1.5B's G 6 (12 over 2), chunked rows deep in their tables,
+    # G 7 over one kv head (the box of 8 heads past H 7) and G 64
+    ("qwen7b-g7", 1, 512, 28, 4, 128, 16, 40, torch.bfloat16, [0], "tc"),
+    ("qwen14b-g5", 1, 512, 40, 8, 128, 16, 40, torch.bfloat16, [0], "tc"),
+    ("g6", 2, 200, 12, 2, 128, 16, 30, torch.bfloat16, [0, 150], "tc"),
+    ("g7-chunked", 2, 64, 28, 4, 128, 16, 129, torch.bfloat16, [100, 517],
+     "tc"),
+    ("g5-chunked", 1, 64, 40, 8, 128, 16, 129, torch.bfloat16, [1000],
+     "tc"),
+    ("g7-kv1", 2, 100, 7, 1, 64, 16, 12, torch.bfloat16, [0, 60], "tc"),
+    ("g64", 1, 17, 64, 1, 64, 16, 4, torch.bfloat16, [20], "tc"),
+    # pages of 300 slots at G 7 and of 125 (the dense view of a
+    # 1000-slot cache: dense_cache_page_size(1000))
+    ("s300-g7", 2, 300, 28, 4, 128, 300, 6, torch.bfloat16, [0, 700],
+     "tc"),
+    ("s125", 2, 200, 8, 2, 128, 125, 16, torch.bfloat16, [0, 900], "tc"),
+    ("g6-s12-chunked", 1, 48, 12, 2, 64, 12, 60, torch.bfloat16, [500],
+     "tc"),
+    # the row-tile kernel's bf16 and f32 cases: f32 pools at G 7, and
+    # Falcon-7B's attention (71 heads over one kv head, D 64: G past 64)
+    ("g7-f32", 1, 128, 28, 4, 128, 16, 20, torch.float32, [0], "row"),
+    ("falcon7b-g71", 1, 512, 71, 1, 64, 16, 40, torch.bfloat16, [0],
+     "row"),
 )
 
 
@@ -782,46 +835,63 @@ def _prefill_nan_pool(pa, gen):
     last query hold NaN (pages no kernel may read, as the TPU kernel
     reads none): the output must equal, bit for bit, the kernel's on the
     same pools without the NaN, and be within ``_PAGED_TOL`` of the
-    plain version on those."""
-    q, kp, vp, table, qs = _paged_case(2, 64, [0, 40], [6, 8], 12,
-                                       torch.bfloat16, gen)
-    kn, vn = kp.clone(), vp.clone()
-    for i in range(2):
-        past = table[i, (int(qs[i]) + 63) // _S + 1:].long()
-        kn[past] = float("nan")
-        vn[past] = float("nan")
-    clean = _paged_call(pa, "prefill NaN pool (clean)", "tc", q, kp, vp,
-                        table, qs)
-    got = _paged_call(pa, "prefill NaN pool", "tc", q, kn, vn, table, qs)
-    if not torch.equal(got, clean):
-        raise AssertionError("prefill over a pool with NaN past each row's "
-                             "last query differs from the clean pool's")
-    err, worst = _paged_check("prefill NaN pool", got,
-                              pa.paged_attention_ref(q, kp, vp, table, qs),
-                              _PAGED_TOL[torch.bfloat16])
-    row = dict(equal_to_clean_pool=True, max_abs_err=err,
-               worst_err_over_limit=worst)
+    plain version on those. Pages of 16 slots (a random table), then of
+    300 (S % 8 != 0), whose table puts a NaN page right after each page
+    read in memory: a page's last 8-row box reaches 4 slots past its
+    300, which must read as zeros, not as the next page's first slots."""
+    cases = {16: _paged_case(2, 64, [0, 40], [6, 8], 12, torch.bfloat16,
+                             gen)}
+    q, kp, vp, _, qs = _paged_case(2, 64, [0, 400], [4, 4], 4,
+                                   torch.bfloat16, gen, s=300)
+    # row 0 reads page 0, row 1 pages 2 and 4; every odd page is unread
+    table = torch.tensor([[0, 3, 5, 7], [2, 4, 1, 6]], dtype=torch.int32,
+                         device=_DEV)
+    cases[300] = (q, kp[:8].contiguous(), vp[:8].contiguous(), table, qs)
+    rows = {}
+    for s, (q, kp, vp, table, qs) in cases.items():
+        kn, vn = kp.clone(), vp.clone()
+        for i in range(2):
+            past = table[i, (int(qs[i]) + 63) // s + 1:].long()
+            kn[past] = float("nan")
+            vn[past] = float("nan")
+        clean = _paged_call(pa, f"prefill NaN pool S={s} (clean)", "tc", q,
+                            kp, vp, table, qs)
+        got = _paged_call(pa, f"prefill NaN pool S={s}", "tc", q, kn, vn,
+                          table, qs)
+        if not torch.equal(got, clean):
+            raise AssertionError(f"prefill over a pool of {s}-slot pages "
+                                 f"with NaN past each row's last query "
+                                 f"differs from the clean pool's")
+        err, worst = _paged_check(
+            f"prefill NaN pool S={s}", got,
+            pa.paged_attention_ref(q, kp, vp, table, qs),
+            _PAGED_TOL[torch.bfloat16])
+        rows[s] = dict(equal_to_clean_pool=True, max_abs_err=err,
+                       worst_err_over_limit=worst)
     print("[kernels] paged_attention prefill, NaN in the pages past each "
-          "row's last query: " + json.dumps(row), flush=True)
-    return row
+          "row's last query (by page size): " + json.dumps(rows),
+          flush=True)
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                by_page_size=rows)
 
 
 #: pools the kernels took only from their own PR on, each held against
 #: the plain version with its route checked (same columns as
 #: ``_PREFILL_GEOMETRIES``): pages past the row-tile kernel's whole-page
-#: staging (f32 pages of 256 slots, bf16 pages of 300, G 3 at 256, a
-#: 4097-entry table of 256-slot pages), streamed in chunks of
-#: ``row_chunk_slots`` slots, and head dims 320 and 512, which every call
-#: runs on the row-tile kernel (an f32 D 512 pool of 64-slot pages takes
-#: chunks of 24, 24 and 16)
+#: staging (f32 pages of 256 slots, a 4097-entry table of 256-slot
+#: pages), streamed in chunks of ``row_chunk_slots`` slots; bf16 pages of
+#: 300 and G 3 at 256, which the tensor-core kernel takes; and head dims
+#: 320, 512, 576 and 1024, which every call runs on the row-tile kernel's
+#: wide form, D a runtime value (an f32 D 512 pool of 64-slot pages takes
+#: chunks of 24, 24 and 16, an f32 D 1024 pool chunks of 8)
 _POOL_GEOMETRIES = (
     ("s256-f32", 2, 300, 8, 2, 128, 256, 9, torch.float32, [0, 700],
      "row"),
     ("s256-f32-decode", 4, 1, 8, 2, 128, 256, 9, torch.float32,
      [0, 255, 256, 2099], "split"),
-    ("s300", 2, 300, 8, 2, 128, 300, 8, torch.bfloat16, [0, 700], "row"),
+    ("s300", 2, 300, 8, 2, 128, 300, 8, torch.bfloat16, [0, 700], "tc"),
     ("s256-g3", 2, 100, 6, 2, 128, 256, 9, torch.bfloat16, [0, 300],
-     "row"),
+     "tc"),
     ("s256-4097-pages", 1, 64, 8, 2, 128, 256, 4097, torch.bfloat16,
      [600], "row"),
     ("d320", 2, 96, 4, 2, 320, 16, 20, torch.bfloat16, [0, 30], "row"),
@@ -831,18 +901,36 @@ _POOL_GEOMETRIES = (
     ("d512-decode", 3, 1, 4, 2, 512, 16, 12, torch.bfloat16,
      [0, 64, 191], "row"),
     ("d512-f32-s64", 1, 64, 4, 2, 512, 64, 6, torch.float32, [100], "row"),
+    ("d576", 2, 96, 4, 2, 576, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d576-f32", 2, 96, 4, 2, 576, 16, 20, torch.float32, [0, 30], "row"),
+    ("d576-decode", 3, 1, 4, 2, 576, 16, 12, torch.bfloat16, [0, 64, 191],
+     "row"),
+    ("d576-f32-decode", 3, 1, 4, 2, 576, 16, 12, torch.float32,
+     [0, 64, 191], "row"),
+    ("d1024", 2, 96, 4, 2, 1024, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d1024-f32", 2, 96, 4, 2, 1024, 16, 20, torch.float32, [0, 30],
+     "row"),
+    ("d1024-decode", 3, 1, 4, 2, 1024, 16, 12, torch.bfloat16,
+     [0, 64, 191], "row"),
+    ("d1024-f32-decode", 3, 1, 4, 2, 1024, 16, 12, torch.float32,
+     [0, 64, 191], "row"),
+    ("d1024-s300", 1, 64, 2, 1, 1024, 300, 4, torch.bfloat16, [500],
+     "row"),
 )
-#: the row of ``_POOL_GEOMETRIES`` timed beside its bound, plain version
-#: and library calls: the ``[serve]`` tail's 300-slot pages
-_POOL_TIMED = "s300"
+#: the rows of ``_POOL_GEOMETRIES`` timed beside their bound, plain
+#: version and library calls: the ``[serve]`` tail's 300-slot pages and
+#: the bf16 prefill rows of the wide row-tile kernel at head dims 512,
+#: 576 and 1024
+_POOL_TIMED = ("s300", "d512", "d576", "d1024")
 
 
 def _pool_geometries(pa, gen):
     """Every row of ``_POOL_GEOMETRIES``: the route it took and the
     kernel against ``paged_attention_ref`` within ``_PAGED_TOL`` (the
-    row-tile kernel also against ``paged_attention_row_ref``), with the
-    row-tile kernel's chunk (``row_chunk_slots``); ``_POOL_TIMED`` timed
-    too. Returns the rows by label."""
+    row-tile kernel also against ``paged_attention_row_ref``, with its
+    chunk ``row_chunk_slots``; the tensor-core kernel against
+    ``paged_attention_tile_ref``); ``_POOL_TIMED`` timed too. Returns the
+    rows by label."""
     rows = {}
     for label, b, t, h, kv, d, s, p, dtype, starts, route in \
             _POOL_GEOMETRIES:
@@ -860,7 +948,10 @@ def _pool_geometries(pa, gen):
                 chunk_slots=pa.row_chunk_slots(d, s, dtype),
                 vs_row_ref=_row_check(pa, f"pool geometry {label}", got,
                                       *args))
-        if label == _POOL_TIMED:
+        elif route == "tc":
+            rows[label]["vs_tile_ref"] = _tile_check(
+                pa, f"pool geometry {label}", got, *args)
+        if label in _POOL_TIMED:
             rows[label].update(_geometry_times(pa, args, s, kv))
         del args, got
     torch.cuda.empty_cache()
@@ -1143,39 +1234,62 @@ def phase_serve(pa, seed):
     _profile_decode(batcher, prompts[:8], card)
     del batcher
     torch.cuda.empty_cache()
-    rows = {page: _serve_large_pages(pa, model, seed, page)
-            for page in _SERVE_LARGE_PAGES["page_sizes"]}
-    return launches, tcs, rows[300]
+    tails = {}
+    for label, widths, page, lens in _SERVE_TAILS:
+        lm = model if widths is None else _tail_model(widths, seed)
+        tails[label] = _serve_tail(pa, lm, seed, label, page, lens)
+        del lm
+        torch.cuda.empty_cache()
+    return launches, tcs, tails
 
 
-def _serve_large_pages(pa, model, seed, page):
-    """``[serve]``'s tails: ``_SERVE_LARGE_PAGES``' 4 requests (prompts
-    of two to four pages) through a ``ContinuousBatcher`` with pages of
-    ``page`` slots and bf16 pools, the counters set to 0 just before and
-    read just after: every prefill call on the kernel ``kernel_route``
-    names (the tensor-core kernel for pages of 256 slots, the row-tile
-    kernel for pages of 300), every decode call on the split-KV kernel;
-    then the same requests with ``paged_kernel="dense"`` (no launch),
-    their tokens compared. Held within ``_LOGIT_REL_TOL`` as ``[serve]``
-    holds its prefill: the prefill logits of both paths, and the logits
-    of one decode step over the kernel-prefilled pools, split-KV kernel
-    against dense (tokens are printed, not held: a near-tie that flips
-    one greedy token changes every later one). Returns the prefill
-    kernel's launches."""
+def _tail_model(widths, seed):
+    """A ``TransformerLM`` of ``widths`` at ``_LM``'s vocab, max_len and
+    RoPE, weights from the seed (the bf16 policy [serve] set)."""
+    from bigdl_tpu_torch.models import TransformerLM
+    cfg = dict(_LM, **widths)
+    t0 = time.perf_counter()
+    model = TransformerLM(**cfg, device=_DEV,
+                          generator=torch.Generator().manual_seed(seed))
+    model.evaluate()
+    print(f"[serve] tail model {widths} built in "
+          f"{time.perf_counter() - t0:.3f} s: "
+          f"{sum(p.numel() for p in model.parameters())} params",
+          flush=True)
+    return model
+
+
+def _serve_tail(pa, model, seed, label, page, prompt_lens):
+    """One of ``[serve]``'s tails (``_SERVE_TAILS``): 4 requests through a
+    ``ContinuousBatcher`` with pages of ``page`` slots and bf16 pools,
+    the counters set to 0 just before and read just after: every prefill
+    call on the kernel ``kernel_route`` names for the model's heads (T·G
+    past 16), every decode call on the one it names at T 1; then the
+    same requests with ``paged_kernel="dense"`` (no launch), their tokens
+    compared. Held within ``_LOGIT_REL_TOL`` as ``[serve]`` holds its
+    prefill: the prefill logits of both paths, and the logits of one
+    decode step over the kernel-prefilled pools, kernel against dense
+    (tokens are printed, not held: a near-tie that flips one greedy
+    token changes every later one). Returns the run's launches by route
+    (split, tc, row)."""
     from bigdl_tpu_torch.models.transformer.serving import (
         ContinuousBatcher, PagedKVCache, _meta_statics, _paged_prefill_impl)
-    c = _SERVE_LARGE_PAGES
-    new, layers = c["new_tokens"], _LM["num_layers"]
+    meta = model.lm_meta
+    layers, h = meta["num_layers"], meta["num_heads"]
+    kv = meta["num_kv_heads"] or h
+    d = meta["d_model"] // h
+    new, n = _TAIL_NEW_TOKENS, _TAIL_REQUESTS
     rs = np.random.default_rng(seed + 1)
-    prompts = [rs.integers(1, _LM["vocab_size"] + 1, size=n).tolist()
-               for n in c["prompt_lens"]]
-    n = len(prompts)
+    lens = (list(prompt_lens) if prompt_lens is not None
+            else rs.integers(300, 1001, size=n).tolist())
+    prompts = [rs.integers(1, _LM["vocab_size"] + 1, size=m).tolist()
+               for m in lens]
     kw = dict(max_batch=n, page_size=page, max_new_tokens=new, max_burst=8)
-    need = -(-(ContinuousBatcher._bucket(max(c["prompt_lens"])) + new + 8)
-             // page)
+    need = -(-(ContinuousBatcher._bucket(max(lens)) + new + 8) // page)
     # every prefill call has more than 16 query rows per kv head
-    prefill = pa.kernel_route(pa._SPLIT_ROWS + 1, _H, _KV, _D, page, need,
+    prefill = pa.kernel_route(pa._SPLIT_ROWS + 1, h, kv, d, page, need,
                               torch.bfloat16)
+    decode = pa.kernel_route(1, h, kv, d, page, need, torch.bfloat16)
     tokens, counts = {}, {}
     for mode in ("auto", "dense"):
         batcher = ContinuousBatcher(model, num_pages=n * need + 1,
@@ -1196,19 +1310,20 @@ def _serve_large_pages(pa, model, seed, page):
                             - pa.tc_launches, bursts=bursts)
         del batcher
     k = counts["auto"]
-    if not (k[prefill] == layers * n
-            and k["split"] == layers * 8 * k["bursts"]
-            and k["launches"] == k[prefill] + k["split"]):
-        raise AssertionError(f"pages of {page}: launches {k}, expected "
-                             f"{layers * n} {prefill} prefill calls and "
-                             f"12 x 8 x bursts split-KV decode calls")
+    want = {"split": 0, "tc": 0, "row": 0}
+    want[prefill] += layers * n
+    want[decode] += layers * 8 * k["bursts"]
+    if {r: k[r] for r in want} != want:
+        raise AssertionError(f"{label}: launches {k}, expected {want}: "
+                             f"{layers} x {n} {prefill} prefill calls and "
+                             f"{layers} x 8 x bursts {decode} decode calls")
     if counts["dense"]["launches"]:
-        raise AssertionError(f"pages of {page}: the dense run launched "
+        raise AssertionError(f"{label}: the dense run launched "
                              f"{counts['dense']['launches']} kernels")
     if sorted(tokens["auto"]) != list(range(n)) or any(
             len(t) != new for t in tokens["auto"].values()):
-        raise AssertionError(f"pages of {page}: not every request returned "
-                             f"{new} tokens")
+        raise AssertionError(f"{label}: not every request returned {new} "
+                             f"tokens")
     equal = float(np.mean([a == b for i in range(n) for a, b in
                            zip(tokens["auto"][i], tokens["dense"][i])]))
     # the prefill logits at each prompt's last position, both paths
@@ -1222,7 +1337,7 @@ def _serve_large_pages(pa, model, seed, page):
     table = np.arange(n * n_tab, dtype=np.int32).reshape(n, n_tab)
     logits, caches = {}, {}
     for mode in ("kernel", "dense"):
-        caches[mode] = PagedKVCache(layers, n * n_tab, page, _KV, _D,
+        caches[mode] = PagedKVCache(layers, n * n_tab, page, kv, d,
                                     device=_DEV)
         logits[mode] = _paged_prefill_impl(
             model.params, caches[mode], table, batch, lengths,
@@ -1231,8 +1346,8 @@ def _serve_large_pages(pa, model, seed, page):
     scale = float(logits["dense"].abs().max())
     if not (torch.isfinite(logits["kernel"]).all()
             and diff <= _LOGIT_REL_TOL * scale):
-        raise AssertionError(f"pages of {page}: kernel vs dense prefill "
-                             f"logits differ by {diff} > {_LOGIT_REL_TOL} x "
+        raise AssertionError(f"{label}: kernel vs dense prefill logits "
+                             f"differ by {diff} > {_LOGIT_REL_TOL} x "
                              f"{scale}")
     del caches["dense"]
     # the next token at each prompt's end, decoded over the same pools
@@ -1241,32 +1356,37 @@ def _serve_large_pages(pa, model, seed, page):
     tok0 = logits["kernel"].argmax(-1) + 1
     step = {}
     for mode in ("kernel", "dense"):
-        splits = pa.split_launches
+        before = pa.launches, pa.split_launches, pa.tc_launches
         step[mode] = _decode_step_logits(model, caches["kernel"], table_t,
                                          lens_t, tok0, mode)
-        if pa.split_launches - splits != (layers if mode == "kernel"
-                                          else 0):
-            raise AssertionError(f"pages of {page}: the {mode} decode step "
-                                 f"made {pa.split_launches - splits} "
-                                 f"split-KV calls")
+        moved = [a - b for a, b in zip((pa.launches, pa.split_launches,
+                                        pa.tc_launches), before)]
+        by = dict(split=moved[1], tc=moved[2],
+                  row=moved[0] - moved[1] - moved[2])
+        if by[decode] != (layers if mode == "kernel" else 0) \
+                or moved[0] != by[decode]:
+            raise AssertionError(f"{label}: the {mode} decode step made "
+                                 f"{by} kernel calls, expected "
+                                 f"{layers} {decode} calls or none")
     del caches
     step_diff = float((step["kernel"] - step["dense"]).abs().max())
     step_scale = float(step["dense"].abs().max())
     if not (torch.isfinite(step["kernel"]).all()
             and step_diff <= _LOGIT_REL_TOL * step_scale):
-        raise AssertionError(f"pages of {page}: kernel vs dense decode-step "
+        raise AssertionError(f"{label}: kernel vs dense decode-step "
                              f"logits differ by {step_diff} > "
                              f"{_LOGIT_REL_TOL} x {step_scale}")
-    print(f"[serve] card='{_card()}' pages of {page} slots (bf16 pools, "
-          f"prefill on the {prefill} kernel): "
-          f"requests={n} prompt_lens={list(c['prompt_lens'])} "
+    print(f"[serve] card='{_card()}' tail {label}: {layers} layers, {h} "
+          f"heads over {kv} kv heads, D {d}, pages of {page} slots (bf16 "
+          f"pools; prefill on the {prefill} kernel, decode on the "
+          f"{decode} kernel): requests={n} prompt_lens={lens} "
           f"new_tokens={new} kernel run " + json.dumps(counts["auto"])
           + " dense run " + json.dumps(counts["dense"])
           + f" equal tokens kernel/dense={equal}; prefill logits "
           f"max_abs_diff={diff} max_abs_logit={scale}; decode-step logits "
-          f"(split-KV vs dense) max_abs_diff={step_diff} max_abs_logit="
+          f"({decode} vs dense) max_abs_diff={step_diff} max_abs_logit="
           f"{step_scale} tol={_LOGIT_REL_TOL}x", flush=True)
-    return k[prefill]
+    return {r: k[r] for r in ("split", "tc", "row")}
 
 
 def _decode_step_logits(model, cache, table, lengths, tok, mode):
@@ -2370,7 +2490,7 @@ def main(argv=None) -> int:
     fce_rows = phase_fused_ce(fce, gen)
     lrn_rows = phase_lrn(lrn, gen)
     mp_row = phase_maxpool(mp, gen)
-    launches, tc_launches, row_launches = phase_serve(pa, args.seed)
+    launches, tc_launches, tails = phase_serve(pa, args.seed)
     flash_launches = phase_train(fa, args.seed)
     torch.cuda.empty_cache()
     wide_launches = phase_train_wide(fa, args.seed)
@@ -2402,23 +2522,29 @@ def main(argv=None) -> int:
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
         "library_gather_ms": dec["library_gather_ms"]}]
     # B1's prefill calls: the tensor-core kernel at the [kernels] prefill
-    # case, its launches those of [serve]'s 16 prefills
+    # case, its launches those of [serve]'s 16 prefills and its tails'
+    # (pages of 256 and 300 slots, Qwen2.5-7B's G 7), each run with the
+    # counters set to 0 before it and read after it
     pre = rows["prefill"]
     kernels.append({
         "name": "paged_prefill_tc", "route": "cuda",
         "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
-        "launches": tc_launches, "max_abs_err": pre_err,
+        "launches": tc_launches + sum(t["tc"] for t in tails.values()),
+        "max_abs_err": pre_err,
         **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_gather_ms")}})
-    # the row-tile kernel: timed at the 300-slot pool (pages streamed in
-    # chunks), its launches those of [serve]'s 300-slot tail
-    row = rows["pool_geometries"][_POOL_TIMED]
+    # the row-tile kernel (its wide form past D 256 among its errors):
+    # timed at Falcon-7B's prefill (G 71, past the tensor cores' 64), its
+    # launches those of [serve]'s Falcon-7B tail, every call of which it
+    # runs
+    row = rows["prefill_geometries"]["falcon7b-g71"]
     kernels.append({
         "name": "paged_row_tile", "route": "cuda",
         "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
         "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
-        "launches": row_launches, "max_abs_err": row_err,
+        "launches": sum(t["row"] for t in tails.values()),
+        "max_abs_err": row_err,
         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_gather_ms")}})
     # the main paths train in bf16: their rows are the bf16 measurements

@@ -6,20 +6,31 @@ Builds ``bigdl_tpu_torch/csrc/paged_attention.cu`` of this checkout and
 the one under ``--other`` (a directory holding a ``paged_attention.cu``,
 such as another checkout's ``bigdl_tpu_torch/csrc``; both built with
 this checkout's headers) into a temporary directory and runs each
-version's C entry through this checkout's wrapper on each route at
-``chip_smoke.py``'s shapes: the split-KV decode (its ``[kernels]``
-decode case: 8 rows of 16..1100 keys, pages of 16, the batcher's
-129-entry table), the tensor-core prefill (the T 512 bucket) and the
-row-tile prefill at the geometries of ``chip_smoke._PREFILL_GEOMETRIES``
-that take it with one chunk a page (an f32 pool, pages of 7, f32 at D
-192, pages of 12 at D 192). For each case it prints whether the two
-versions' outputs are bit-equal and each version's worst error over
+version's C entry through this checkout's wrapper at ``chip_smoke.py``'s
+shapes: the split-KV decode (its ``[kernels]`` decode case: 8 rows of
+16..1100 keys, pages of 16, the batcher's 129-entry table), the
+tensor-core prefill (the T 512 bucket and the rows of
+``chip_smoke._PREFILL_GEOMETRIES`` at head dims 64, 192 and 256, pages
+of 24 and 256 and chunked rows), the rows that took the row-tile kernel
+with one chunk a page before the tensor-core kernel took every bf16 page
+size (an f32 pool, pages of 7, f32 at D 192, pages of 12 at D 192),
+Qwen2.5's G 7 and G 5 at the T 512 bucket, Falcon-7B's G 71, and
+``_POOL_GEOMETRIES``' 300-slot pages and head dims 320 and 512 (prefill
+and decode, bf16 and f32).
+
+The two versions may take different routes on a case. Each C entry is
+run through ``paged_attention._launch`` (the wrapper's launch, after
+its checks) and reports the route it took: this checkout's is held to
+its ``kernel_route``, the other's is printed as it reported it. For each
+case it prints both routes, whether the two outputs are bit-equal (where
+both took one route; else null) and each version's worst error over
 ``chip_smoke._PAGED_TOL`` against the plain version, then times the
 calls in turns (this, other, other, this; ``chip_smoke._time_ms`` each:
 L2 flushed, median of 20): one line per case with both versions' times
 and the ratio of their means (this / other). Last, the card's name and
-power limit. It exits 1 if any output of either version is non-finite
-or past its limit, after every case has been checked and timed.
+power limit. It exits 1 if any output of either version is non-finite or
+past its limit, or this checkout's route is not its ``kernel_route``,
+after every case has been checked and timed.
 
     python3 scripts/paged_ab.py --other DIR [--seed N]
 """
@@ -43,26 +54,29 @@ from bigdl_tpu_torch.ops import _build  # noqa: E402
 from bigdl_tpu_torch.ops import paged_attention as pa  # noqa: E402
 
 _ORDER = ("this", "other", "other", "this")
-#: the row-tile geometries of ``chip_smoke._PREFILL_GEOMETRIES``
-_ROW_CASES = ("f32-pools", "s7", "d192-f32", "d192-s12")
+#: the rows of ``chip_smoke._PREFILL_GEOMETRIES`` and ``_POOL_GEOMETRIES``
+#: compared
+_GEOMETRY_CASES = ("d64", "d256", "s24", "chunked", "d192", "s256",
+                   "f32-pools", "s7", "d192-f32", "d192-s12", "qwen7b-g7",
+                   "qwen14b-g5", "falcon7b-g71", "s300", "d320",
+                   "d320-decode", "d512", "d512-decode", "d512-f32-s64")
 
 
 def _cases(gen):
-    """(label, route, (q, kp, vp, table, q_start)) at chip_smoke's
-    shapes."""
+    """(label, (q, kp, vp, table, q_start)) at chip_smoke's shapes."""
     decode_len = [16, 47, 128, 300, 511, 767, 1024, 1100]
     p_slot = -(-(2048 - 64 + 64 + 8) // cs._S)
-    out = [("decode", "split", cs._paged_case(
+    out = [("decode", cs._paged_case(
                 8, 1, [n - 1 for n in decode_len],
                 [-(-n // cs._S) for n in decode_len], p_slot,
                 torch.bfloat16, gen)),
-           ("prefill T=512", "tc", cs._paged_case(
+           ("prefill T=512", cs._paged_case(
                 1, 512, [0], [-(-(512 + 72) // cs._S)], p_slot,
                 torch.bfloat16, gen))]
-    for label, b, t, h, kv, d, s, p, dtype, starts, route in \
-            cs._PREFILL_GEOMETRIES:
-        if label in _ROW_CASES:
-            out.append((label, route, cs._paged_case(
+    for label, b, t, h, kv, d, s, p, dtype, starts, _ in \
+            cs._PREFILL_GEOMETRIES + cs._POOL_GEOMETRIES:
+        if label in _GEOMETRY_CASES:
+            out.append((label, cs._paged_case(
                 b, t, starts, [min(p, (x + t) // s + 1) for x in starts],
                 p, dtype, gen, h=h, kv=kv, d=d, s=s)))
     return out
@@ -82,7 +96,6 @@ def main(argv=None) -> int:
                "other": (Path(args.other) / "paged_attention.cu")
                .read_text()}
     card = cs._card()
-    chosen = pa._kernel_fn
     past = []
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(sources)) as pool:
@@ -91,29 +104,35 @@ def main(argv=None) -> int:
                                                       Path(tmp) / kv[0])),
                 sources.items())))
         cs._warm_card()
-        try:
-            for label, route, case in _cases(
-                    torch.Generator().manual_seed(args.seed)):
-                past += _ab(fns, label, route, case, card)
-        finally:
-            pa._kernel_fn = chosen
+        for label, case in _cases(torch.Generator().manual_seed(args.seed)):
+            past += _ab(fns, label, case, card)
     if past:
-        print("[ab] past the limit (or non-finite): " + "; ".join(past),
-              flush=True)
+        print("[ab] past the limit, non-finite or off its route: "
+              + "; ".join(past), flush=True)
     print(card)
     return 1 if past else 0
 
 
-def _ab(fns, label, route, case, card):
+def _ab(fns, label, case, card):
     """One case: both versions checked, then timed in turns; returns the
-    versions whose output is non-finite or past its limit."""
+    versions whose output is non-finite or past its limit, or whose route
+    (this checkout's) is not the one ``kernel_route`` names."""
     want = pa.paged_attention_ref(*case)
-    tol = cs._PAGED_TOL[case[1].dtype]
-    outs, worst, past = {}, {}, []
-    for version, fn in fns.items():
-        pa._kernel_fn = lambda f=fn: f
-        outs[version] = cs._paged_call(pa, f"{version} {label}", route,
-                                       *case)
+    q, kp = case[0], case[1]
+    _, t, h, d = q.shape
+    route = pa.kernel_route(t, h, kp.shape[2], d, kp.shape[1],
+                            case[3].shape[1], kp.dtype)
+    tol = cs._PAGED_TOL[kp.dtype]
+    scale = d ** -0.5
+    outs, worst, routes, past = {}, {}, {}, []
+    calls = {v: (lambda f=fn: pa._launch(f, *case, scale, route))
+             for v, fn in fns.items()}
+    for version, call in calls.items():
+        outs[version], routes[version] = call()
+        torch.cuda.synchronize()
+        if version == "this" and routes[version] != route:
+            past.append(f"this {label} took {routes[version]}, "
+                        f"kernel_route names {route}")
         worst[version] = cs._worst(outs[version], want, *tol,
                                    rms_dims=(2, 3))[1]
         if not (worst[version] <= 1 and torch.isfinite(
@@ -121,10 +140,11 @@ def _ab(fns, label, route, case, card):
             past.append(f"{version} {label} ({worst[version]})")
     times = {"this": [], "other": []}
     for version in _ORDER:
-        pa._kernel_fn = lambda f=fns[version]: f
-        times[version].append(cs._time_ms(lambda: pa.paged_attention(*case)))
-    row = dict(route=route, bit_equal=torch.equal(outs["this"],
-                                                  outs["other"]),
+        times[version].append(cs._time_ms(calls[version]))
+    same = routes["this"] == routes["other"]
+    row = dict(routes=routes,
+               bit_equal=torch.equal(outs["this"], outs["other"])
+               if same else None,
                worst_error_over_limit=worst, this_ms=times["this"],
                other_ms=times["other"],
                ratio=float(np.mean(times["this"])

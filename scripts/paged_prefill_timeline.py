@@ -86,7 +86,7 @@ _ONCE = (
 )
 # the producer's stamps, in slots len(_ONCE) and len(_ONCE) + 1
 _PRODUCER = (
-    ("first tile issued", "                 c * 64, h, k % S, page);\n"
+    ("first tile issued", "                 c * 64, h, k % S8, page);\n"
      "      }\n", "      if (t == 0) PSTAMP(%d);\n"),
     ("all tiles issued", "    return;\n  }\n\n  // this thread's "
      "accumulator rows", "    PSTAMP(%d);\n"),
@@ -225,8 +225,8 @@ def main(argv=None) -> int:
         "built": src + _ENCODE_BENCH,
         "two warpgroups": _swap(src, "constexpr int kTcWarpgroups = 1;",
                                 "constexpr int kTcWarpgroups = 2;"),
-        "row-tile": _swap(src, "  if (dtype == 1 && S % 8 == 0",
-                          "  if (false && dtype == 1 && S % 8 == 0"),
+        "row-tile": _swap(src, "  if (dtype == 1 && G <= tc::kWgRows",
+                          "  if (false && dtype == 1 && G <= tc::kWgRows"),
         "timeline": instrumented(src)}
     gen = torch.Generator().manual_seed(args.seed)
     cases = {t: cs._paged_case(1, t, [0], [-(-(t + 72) // cs._S)], 129,

@@ -138,20 +138,35 @@ _WIDE_CASES = {
     "d512-prefill": (2, 40, 4, 2, 512, 16, 6, [0, 50]),
     "s256-g3-prefill": (2, 40, 6, 2, 64, 256, 3, [0, 300]),
     "s300-prefill": (2, 40, 8, 2, 64, 300, 3, [0, 500]),
+    # Qwen2.5's G 7 (14 heads over 2 kv heads, as the 0.5B model): decode
+    # (T·G 14, the split route) and prefill over pages of 12 and of 300
+    # slots and the dense view's 125 (the tensor-core route, its padded
+    # walk); G 5 over pages of 7
+    "g7-decode": (2, 2, 14, 2, 32, 16, 4, [5, 40]),
+    "g7-s12-prefill": (2, 20, 14, 2, 32, 12, 6, [0, 30]),
+    "g7-s300-prefill": (2, 12, 14, 2, 32, 300, 2, [0, 400]),
+    "g7-s125-prefill": (1, 24, 14, 2, 32, 125, 3, [200]),
+    "g5-s7-prefill": (2, 9, 10, 2, 32, 7, 6, [0, 20]),
+    # head dim 576, past the head dims the JAX tests reach (the row-tile
+    # kernel takes D at run time past 256)
+    "d576-decode": (3, 1, 2, 1, 576, 16, 4, [0, 17, 50]),
+    "d576-prefill": (2, 3, 2, 1, 576, 16, 3, [0, 20]),
 }
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("case", sorted(_WIDE_CASES))
 def test_wide_heads_and_large_pages_match_jax(case, dtype):
-    """Paged attention at head dims 192, 320 and 512, at pages of 256 and
-    300 slots and at G 3 against the JAX kernel in interpret mode, at the
-    file's tolerances: the plain version, and the plain versions of the
+    """Paged attention at head dims 192, 320, 512 and 576, at pages of 7,
+    12, 125, 256 and 300 slots and at G 3, 5 and 7 against the JAX
+    kernel in interpret mode, at the file's tolerances: the plain
+    version, and the plain versions of the
     kernels a call of its shape runs on the card
     (``paged_attention_split_ref`` at one and at two pages a split for a
     decode call, ``paged_attention_tile_ref`` at the tensor-core kernel's
-    64-key tiles for a prefill call, and ``paged_attention_row_ref``
-    where the call's route is the row-tile kernel)."""
+    64-key tiles of its padded walk for a prefill call, and
+    ``paged_attention_row_ref`` where the call's route is the row-tile
+    kernel)."""
     b, t, h, kv, d, s, p, starts = _WIDE_CASES[case]
     q, kp, vp, table = _geometry(b, t, h, kv, d, b * p + 1, s, p, seed=31)
     _compare(q, kp, vp, table, starts, dtype)
@@ -331,6 +346,54 @@ def test_tile_ref_at_kernel_tiles_matches_plain(s, p, q_start, dtype):
                                rtol=rtol)
 
 
+@pytest.mark.parametrize("s,p,q_start", [(7, 40, [0, 150, 270]),
+                                         (12, 24, [3, 100, 250]),
+                                         (125, 3, [0, 200, 330]),
+                                         (300, 2, [0, 290, 560])],
+                         ids=["s7", "s12", "s125", "s300"])
+def test_padded_tile_ref_matches_plain(s, p, q_start):
+    """The tensor-core kernel's walk over pages padded to a multiple of 8
+    slots (``paged_attention_tile_ref``'s default: each 64-key tile of
+    the padded slot space takes the logical keys among its slots, so the
+    spans are uneven) is the plain version's function in f32, within sum
+    order (2e-5): pages of 7, 12, 125 and 300 slots, G 7 (14 heads over
+    2 kv heads), rows starting at 0 and deep in their tables."""
+    q, kp, vp, table = _geometry(3, 33, 14, 2, 32, 3 * p + 1, s, p,
+                                 seed=60 + s)
+    args = (torch.from_numpy(q), torch.from_numpy(kp),
+            torch.from_numpy(vp), torch.from_numpy(table),
+            torch.tensor(q_start, dtype=torch.int32))
+    got = tpa.paged_attention_tile_ref(*args, key_tile=64)
+    np.testing.assert_allclose(got.numpy(),
+                               tpa.paged_attention_ref(*args).numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s", [8, 16, 24, 256])
+def test_padded_tile_ref_at_whole_groups_is_unpadded(s):
+    """Where S % 8 == 0 no slot is padded (bf16 pools, G 4): tiles of one
+    page are the JAX kernel's own tiles, the same running max and
+    rounding points (2e-5 of the JAX kernel in interpret mode), and the
+    kernel's 64-key tiles hold the JAX kernel's function at the file's
+    bf16 tolerance."""
+    q, kp, vp, table = _geometry(2, 40, 8, 2, 32, 2 * 5 + 1, s, 5,
+                                 seed=70 + s)
+    jdt, tdt, atol, rtol = _DTYPES["bf16"]
+    qs = np.asarray([0, 37], np.int32)
+    args = (torch.from_numpy(q), torch.from_numpy(kp).to(tdt),
+            torch.from_numpy(vp).to(tdt), torch.from_numpy(table),
+            torch.from_numpy(qs))
+    want = np.asarray(jpa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(table), jnp.asarray(qs), interpret=True))
+    np.testing.assert_allclose(
+        tpa.paged_attention_tile_ref(*args, key_tile=s).numpy(), want,
+        atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        tpa.paged_attention_tile_ref(*args, key_tile=64).numpy(), want,
+        atol=atol, rtol=rtol)
+
+
 _BF16, _F32 = torch.bfloat16, torch.float32
 
 # (t, h, kv, d, s, p, dtype) -> the kernel the C entry runs
@@ -355,20 +418,40 @@ _ROUTE_CASES = {
     "s8": ((64, 8, 2, 128, 8, 9, _BF16), "tc"),
     "s32": ((64, 8, 2, 128, 32, 9, _BF16), "tc"),
     "4096-pages": ((64, 8, 2, 128, 16, 4096, _BF16), "tc"),
-    # the row-tile kernel: f32 pools, pages of 7, G not dividing 64, a
-    # table too long to stage
+    # every bf16 prefill at D <= 256 takes the tensor cores at any page
+    # size (pages padded to a multiple of 8 slots) and any G up to 64
+    # (padded to a power of two): pages of 7, 12, 125 (the dense view of
+    # a 1000-slot cache) and 300, G 3, and Qwen2.5's G 7 (0.5B, 7B), 6
+    # (1.5B) and 5 (14B, 32B)
+    "s7": ((64, 8, 2, 64, 7, 30, _BF16), "tc"),
+    "s12": ((64, 8, 2, 64, 12, 30, _BF16), "tc"),
+    "s125": ((64, 8, 2, 128, 125, 8, _BF16), "tc"),
+    "s300": ((300, 8, 2, 128, 300, 8, _BF16), "tc"),
+    "g3": ((64, 6, 2, 64, 16, 9, _BF16), "tc"),
+    "g5": ((512, 40, 8, 128, 16, 129, _BF16), "tc"),
+    "g6": ((512, 12, 2, 128, 16, 129, _BF16), "tc"),
+    "g7": ((512, 28, 4, 128, 16, 129, _BF16), "tc"),
+    "g7-s300": ((64, 14, 2, 64, 300, 4, _BF16), "tc"),
+    "g64": ((17, 64, 1, 64, 16, 9, _BF16), "tc"),
+    # decode at G 7 stays on the split-KV kernel (T·G 7 <= 16)
+    "g7-decode": ((1, 28, 4, 128, 16, 129, _BF16), "split"),
+    # the row-tile kernel: f32 pools, G past 64 (Falcon-7B's 71 heads
+    # over one kv head), a table too long to stage, head dims past 256
     "f32": ((512, 8, 2, 128, 16, 129, _F32), "row"),
     "s256-f32": ((512, 8, 2, 128, 256, 9, _F32), "row"),
-    "s7": ((64, 8, 2, 64, 7, 30, _BF16), "row"),
-    "s12": ((64, 8, 2, 64, 12, 30, _BF16), "row"),
-    "g3": ((64, 6, 2, 64, 16, 9, _BF16), "row"),
+    "g7-f32": ((512, 28, 4, 128, 16, 129, _F32), "row"),
     "g128": ((1, 128, 1, 64, 16, 9, _BF16), "row"),
+    "g71": ((64, 71, 1, 64, 16, 9, _BF16), "row"),
     "4097-pages": ((64, 8, 2, 128, 16, 4097, _BF16), "row"),
     # past head dim 256 every call, decode too, runs the row-tile kernel
     "d320-decode": ((1, 8, 2, 320, 16, 9, _BF16), "row"),
     "d320-prefill": ((64, 8, 2, 320, 16, 9, _BF16), "row"),
     "d512-decode": ((1, 8, 2, 512, 16, 9, _F32), "row"),
     "d512-prefill": ((64, 8, 2, 512, 16, 9, _BF16), "row"),
+    "d576-decode": ((1, 2, 1, 576, 16, 9, _BF16), "row"),
+    "d576-prefill": ((64, 8, 2, 576, 16, 9, _F32), "row"),
+    "d1024-decode": ((1, 8, 2, 1024, 16, 9, _F32), "row"),
+    "d1024-prefill": ((64, 8, 2, 1024, 16, 9, _BF16), "row"),
 }
 
 
@@ -380,31 +463,80 @@ def test_kernel_route(case):
 
 def test_route_constants_match_the_c_entry():
     """The mirror's limits are the C entry's: split rows, the tensor-core
-    CTA's folded rows and its staged table entries, the head dim past
-    which only the row-tile kernel is built, and route_of's tests of head
-    dim (first) and page size; and the row-tile kernel's chunk plan
-    (``row_chunk_slots``: its key group, shared memory and formula)."""
+    CTA's folded rows (the most G it takes) and its staged table entries,
+    the head dim past which only the row-tile kernel is built, and
+    route_of's tests of head dim (first), G and table width, none of page
+    size; the tensor-core kernel's padding (G to a power of two, pages to
+    a multiple of kSlotPad slots, boxes of the largest of 64/32/16/8
+    rows dividing the padded page); and the row-tile kernel's chunk plan
+    (``row_chunk_slots``: its key group, shared memory, the wide kernel's
+    fixed part past head dim 256 and its cap)."""
     src = (Path(tpa.__file__).resolve().parents[1] / "csrc"
            / "paged_attention.cu").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    def body(head):
+        part = src[src.index(head):]
+        return part[:part.index("\n}\n")]
     assert const("kSplitRows") == tpa._SPLIT_ROWS
     assert const("kWgRows") == tpa._TC_ROWS
     assert const("kTcMaxPages") == tpa._TC_MAX_PAGES
     assert const("kRowOnlyPast") == tpa._ROW_ONLY_PAST
     assert const("kKeyChunk") == tpa._KEY_CHUNK
     assert const("kSmemMax") == tpa._SMEM_LIMIT
-    route_of = src[src.index("Route route_of("):]
-    route_of = route_of[:route_of.index("\n}\n")]
-    assert "dtype == 1 && S % 8 == 0 && tc::kWgRows % G == 0" in route_of
-    assert "P <= tc::kTcMaxPages" in route_of
+    assert const("kSlotPad") == tpa._SLOT_PAD
+    assert const("kWarps") * const("kWideRpw") == tpa._WIDE_ROWS
+    route_of = body("Route route_of(")
+    assert ("dtype == 1 && G <= tc::kWgRows && P <= tc::kTcMaxPages"
+            in route_of)
+    assert "S" not in route_of.split("kRouteSplit;")[1]
     assert route_of.index("if (D > kRowOnlyPast) return kRouteRow;") \
         < route_of.index("kSplitRows")
-    chunk = src[src.index("int row_chunk_slots("):]
-    chunk = chunk[:chunk.index("\n}\n")]
-    assert "const int fit = kSmemMax / (4 * D * elt);" in chunk
+    assert "while (gp < G) gp <<= 1;" in body("inline int pad_group(")
+    assert ("return (S + kSlotPad - 1) / kSlotPad * kSlotPad;"
+            in body("inline int pad_slots("))
+    assert ("S8 % 64 == 0 ? 64 : S8 % 32 == 0 ? 32 : S8 % 16 == 0 ? 16 : 8"
+            in body("inline int box_rows("))
+    chunk = body("int row_chunk_slots(")
+    assert ("const int fit = (kSmemMax - row_fixed_bytes(D)) / (4 * D * elt);"
+            in chunk)
     assert "return S <= fit ? S : fit / kKeyChunk * kKeyChunk;" in chunk
+    assert ("return D > kRowOnlyPast ? 2 * kWideRows * D * 4 : 0;"
+            in body("constexpr int row_fixed_bytes("))
+    assert ("return kSmemMax / (4 * kKeyChunk * elt + 2 * kWideRows * 4) / "
+            "64 * 64;" in body("constexpr int wide_max_d("))
+    assert "D > wide_max_d(sizeof(T))) return -1;" in body("int launch_wide(")
+
+
+@pytest.mark.parametrize("g,gp", [(1, 1), (2, 2), (3, 4), (5, 8), (6, 8),
+                                  (7, 8), (8, 8), (33, 64), (64, 64)])
+def test_group_padding(g, gp):
+    """G padded to the power of two the C kernel folds (``pad_group``):
+    the smallest one >= G, which divides the 64 folded rows, G itself
+    where 64 % G == 0 (so those geometries keep their code path)."""
+    got = 1 << (g - 1).bit_length()
+    assert got == gp and 64 % got == 0 and (64 % g or got == g)
+
+
+@pytest.mark.parametrize("dtype,cap", [(torch.float32, 1152),
+                                       (torch.bfloat16, 1792)])
+def test_wide_head_dim_cap(dtype, cap):
+    """Past head dim 256 the row-tile kernel takes every multiple of 64
+    whose smallest chunk (8 slots of K and V, double buffered) fits
+    232,448 bytes beside q and the f32 accumulator of the CTA's 8 rows;
+    the next multiple of 64 does not fit, and is refused."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    assert tpa.wide_max_head_dim(dtype) == cap
+    assert 4 * 8 * cap * elt + 64 * cap <= tpa._SMEM_LIMIT
+    assert 4 * 8 * (cap + 64) * elt + 64 * (cap + 64) > tpa._SMEM_LIMIT
+    assert tpa.row_chunk_slots(cap, 4096, dtype) == 8
+    assert tpa.paged_kernel_supported(cap, 16, dtype, 8, 2)
+    assert not tpa.paged_kernel_supported(cap + 64, 16, dtype, 8, 2)
+    assert all(tpa.paged_kernel_supported(d, 7, dtype, 4, 2)
+               for d in range(576, cap + 1, 64))
+    assert not tpa.paged_kernel_supported(600, 16, dtype, 8, 2)
 
 
 @pytest.mark.parametrize("d,s,dtype,want", [
@@ -412,16 +544,23 @@ def test_route_constants_match_the_c_entry():
     (128, 228, torch.bfloat16, 224), (128, 300, torch.bfloat16, 224),
     (128, 113, torch.float32, 113), (128, 256, torch.float32, 112),
     (512, 16, torch.float32, 16), (512, 64, torch.float32, 24),
-    (320, 7, torch.bfloat16, 7), (512, 4096, torch.bfloat16, 56)])
+    (320, 7, torch.bfloat16, 7), (512, 4096, torch.bfloat16, 48),
+    (576, 16, torch.bfloat16, 16), (576, 300, torch.bfloat16, 40),
+    (1024, 16, torch.float32, 8), (1024, 16, torch.bfloat16, 16),
+    (1024, 300, torch.bfloat16, 16), (1792, 64, torch.bfloat16, 8)])
 def test_row_chunk_slots(d, s, dtype, want):
     """The row-tile kernel's chunk: the whole page where 4·S·D·bytes fit
-    232,448 bytes of shared memory (so such pages run the loop they ran
-    before chunks), else the most slots that fit in a multiple of 8."""
+    232,448 bytes of shared memory beside the CTA's fixed part (past head
+    dim 256, q and the f32 accumulator of its 8 rows: 64·D bytes; so such
+    pages run the loop they ran before chunks), else the most slots that
+    fit in a multiple of 8."""
     c = tpa.row_chunk_slots(d, s, dtype)
     elt = torch.empty((), dtype=dtype).element_size()
+    fixed = 64 * d if d > 256 else 0
     assert c == want
-    assert 4 * c * d * elt <= tpa._SMEM_LIMIT
-    assert c == s or (c % 8 == 0 and 4 * (c + 8) * d * elt > tpa._SMEM_LIMIT)
+    assert 4 * c * d * elt + fixed <= tpa._SMEM_LIMIT
+    assert c == s or (c % 8 == 0 and 4 * (c + 8) * d * elt + fixed
+                      > tpa._SMEM_LIMIT)
 
 
 def test_binding_matches_the_c_entry():
@@ -524,13 +663,20 @@ class TestNoSilentFallback:
         "d16": ((16, 16, torch.bfloat16, 1, 1), False),
         "d192": ((192, 16, torch.bfloat16, 1, 1), True),
         "d192-f32": ((192, 16, torch.float32, 1, 1), True),
-        # past 256 the row-tile kernel takes every call, up to D 512 (a
-        # multiple of 64 that is not one of them is refused, as the JAX
-        # kernel refuses 288; past 512 is ROADMAP.md queue C, C7)
+        # past 256 the row-tile kernel takes every call, at every
+        # multiple of 64 (288 is refused, as the JAX kernel refuses it)
+        # up to the head dim whose smallest K/V chunk still fits shared
+        # memory beside q and the accumulator: 1152 for f32, 1792 bf16
         "d320": ((320, 16, torch.bfloat16, 1, 1), True),
         "d288": ((288, 16, torch.bfloat16, 1, 1), False),
         "d512-f32": ((512, 16, torch.float32, 8, 2), True),
-        "d576": ((576, 16, torch.bfloat16, 1, 1), False),
+        "d576": ((576, 16, torch.bfloat16, 1, 1), True),
+        "d1024-f32": ((1024, 16, torch.float32, 8, 2), True),
+        "d1152-f32": ((1152, 16, torch.float32, 8, 2), True),
+        "d1216-f32": ((1216, 16, torch.float32, 8, 2), False),
+        "d1792": ((1792, 300, torch.bfloat16, 8, 2), True),
+        "d1856": ((1856, 16, torch.bfloat16, 8, 2), False),
+        "d1000": ((1000, 16, torch.bfloat16, 1, 1), False),
         # every route takes any page size: the row-tile kernel streams a
         # page in chunks of slots
         "s128-f32-d128": ((128, 128, torch.float32, 1, 1), True),
@@ -559,8 +705,9 @@ class TestNoSilentFallback:
     @pytest.mark.parametrize("case", sorted(_GEOMETRIES))
     def test_auto_consults_the_pool_geometry(self, case):
         """``paged_kernel_supported`` asks of a pool what the kernels
-        take (head dim in (32, 64, 128, 192, 256, 320, 384, 448, 512), f32
-        or bf16, any page size, G and table width); "auto" takes the
+        take (head dim in (32, 64, 128, 192, 256) or a multiple of 64 up
+        to 1152 for f32 and 1792 for bf16, any page size, G and table
+        width); "auto" takes the
         kernel for a CUDA pool where it holds and refuses the pool where
         it does not, naming "dense"; "kernel" and "dense" are taken as
         asked."""
