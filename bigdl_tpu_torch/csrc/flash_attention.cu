@@ -100,9 +100,64 @@
 // dq and dkdv stage six tiles of R x (D + 4) floats and the R x (R + 1)
 // p/dS tile: 219 KB at D 128 with R 64, 199 + 4 KB at D 256 with R 32.
 //
-// past D 256, either dtype -> CUDA cores, D sliced (namespace sliced,
-// flash_*_sliced_kernel<T>; D any multiple of 64, a runtime value, so one
-// instantiation per dtype serves every D). Whole D-wide tiles no longer
+// past D 256, the bf16 forward -> tensor cores, D sliced
+// (tc::flash_fwd_sliced_tc_kernel<OWN>; D any multiple of 64, a runtime
+// value; no D limit). At D 512 the D 256 forward's tiles would need 128
+// KB of Q + 2 x 128 KB of K/V and an f32 o of 256 registers a thread:
+// a 64-row warpgroup holds an accumulator of at most 256 columns (128
+// registers) beside s (32) and P (16), the D 256 forward's budget. So:
+// - A CTA owns one slice of OWN 64-column output chunks, OWN <= 4 (256
+//   columns: 128 registers of o): the fewest slices, as even as they
+//   come (sl_own: D 320 3 + 2 chunks, 384 3 + 3, 448 4 + 3, 512 4 + 4,
+//   576 3 x 3, 1024 4 x 4), the last slice's chunks past D computed on
+//   TMA's zeros and not stored; slices of 4 alone (4 + 2 at D 384, 4 +
+//   4 + 1 at 576) cost 1.027x and 1.042x (knockout own4). Its two
+//   consumer warpgroups hold 64-row query tiles: 128 consecutive rows,
+//   the heaviest CTAs first; or, causal where the grid fits one wave of
+//   the card's SMs, tiles i and n - 1 - i of the n, so every CTA does
+//   the same work (the heaviest
+//   128-row CTA does twice the mean, and one wave has no later CTA to
+//   even it out). Past one wave the scheduler balances whole CTAs, and a
+//   paired CTA's lone heavy warpgroup is slower. scripts/
+//   flash_sliced_knockout.py (one NVIDIA H100 80GB HBM3, 700 W, 132
+//   SMs; causal, H2, ms paired / unpaired): 128 CTAs (B2 S2048 D512)
+//   0.1367 / 0.1616, (D 384) 0.1103 / 0.1288; 192 CTAs (D 576) 0.2130 /
+//   0.1698; 256 (B2 S4096 D512) 0.4155 / 0.3182; 384 (B3) 0.6249 /
+//   0.5092; 512 (B4) 0.8104 / 0.6208. Pairing wins within one wave and
+//   loses by 1.22-1.31x from 1.45 waves on, hence the cut at grid <=
+//   SMs. The warpgroup past its last key tile waits for and releases
+//   the rest without products. Grid (B·H·slices, ceil(n / 2)).
+// - S = Q·Kᵀ over 64-key tiles sums over D in 64-column chunks (m64n64k16
+//   x 4 a chunk, both operands K-major [rows][64] boxes), a chunk a step
+//   of one loop, every slice in the same order, so every slice forms the
+//   same m and l (lse from slice 0); the S groups of consecutive steps
+//   overlap (wgmma.wait_group 1).
+// - A producer warpgroup (setmaxnreg 24 / 240) streams K chunks (8 KB)
+//   through a ring of full/empty mbarriers, and a second of its warps
+//   each key tile's V slice (OWN boxes of [64][64]), single-buffered:
+//   loaded once the previous tile's P·V has read it, needed only after
+//   the tile's nc S steps. Q stays resident (nc x 16 KB) where it fits
+//   beside V and 6 stages, else Q chunks ride the ring with K: the ring
+//   takes what is left, up to 16 stages: 8 at D 512 (Q 128 + V 32 + 8 x
+//   8 = 224 KB), 7 at D 576, 8 of 24 KB past it (4 stages time the
+//   same, 0.987-1.001x: the producer warpgroup, not the depth, keeps the
+//   loads ahead of the consumers, none of whose warps waits for
+//   another's release). Q streamed where it could stay costs 1.014x at D
+//   384, 1.022-1.033x at D 512 on 128-512 CTAs and 1.046x at D 576
+//   (knockout q_streamed).
+// - P·V takes P from registers (bf16 at the running max, as below) and
+//   V MN-major, OWN m64n64k16 products a K step. Registers: o OWN x 32 +
+//   s 32 + P 16, as at D 256. The warpgroup index is broadcast from lane
+//   0 (__shfl_sync), so ptxas sees the branches on it as uniform: on
+//   tid / 128 it serialises every wgmma (C7518), 1.44x the time.
+// - Cost: the score product is recomputed once per slice, so the
+//   forward does slices + 1 half-products where one D-wide CTA would do
+//   2 (3 at D 512, against the CUDA-core sliced kernel's 9).
+//
+// past D 256, float32, and the bf16 dq and dk/dv -> CUDA cores, D sliced
+// (namespace sliced, flash_*_sliced_kernel<T>; D any multiple of 64, a
+// runtime value, so one instantiation per dtype serves every D; no bf16
+// forward is built of them). Whole D-wide tiles no longer
 // fit: at D 320 a 64-row bf16 tile is 40 KB (240 KB for the bf16
 // kernels' tiles against 227), and a D-wide f32 accumulator is 32·D/64
 // registers a thread (160 at D 320) beside the score tiles. So a CTA
@@ -123,7 +178,7 @@
 // P is rounded to bf16 before P·V and Pᵀ·dO, dS before dS·K and dSᵀ·Q.
 // Shared memory, f32: 6, 10 and 12 chunks of 64 x 68 floats (17 KB)
 // beside the 64 x 65 f32 p/dS tile: 118, 186 and 220 KB; bf16 about
-// half. Right first; a tensor-core design past 256 is later work.
+// half. Right first; tensor-core dq and dk/dv past 256 are later work.
 //
 // The kernels allocate nothing; the Python wrapper allocates outputs
 // and checks shapes, dtypes, contiguity and alignment.
@@ -1806,6 +1861,271 @@ flash_dkdv_split_tc_kernel(const __grid_constant__ CUtensorMap qm,
   store_acc<D>(g == 0 ? dv : dk, acc, one, b, h, krow0, Skv, H, l);
 }
 
+// ---------------------------------------------------------------------------
+// forward past D 256 (header): CTA = two 64-row query tiles of one (b,
+// h), a consumer warpgroup each — rows [128·y, + 128), the heaviest
+// first, or where `paired`, tiles i and n - 1 - i of its n (so under the
+// causal mask every CTA has the same work) — and one slice of OWN
+// 64-column chunks of the output (grid (B·H·slices, ceil(n / 2)), the
+// slice innermost), plus a producer warpgroup. Step t of the loop is
+// (key tile t / nc, chunk t % nc) of the nc = D/64 chunks: S = Q·Kᵀ
+// gains the chunk's product, both operands K-major [rows][64] boxes; K
+// chunks (and Q chunks where Q is not resident) come through a ring of
+// ns stages, every slice in the same chunk order, so every slice forms
+// the same m and l. A key tile's V slice (OWN boxes of [64][64]) is
+// loaded once the previous tile's P·V has read the buffer, and taken by
+// P·V after the tile's last chunk. The key tiles are those of the later
+// query tile; the other warpgroup waits for and releases the stages
+// past its own last key tile without products. lse comes from slice 0.
+// ---------------------------------------------------------------------------
+
+constexpr int kSlConsumers = 256;  // two consumer warpgroups
+constexpr int kSlThreads = kSlConsumers + 128;   // + the producer warpgroup
+constexpr int kSlProducerRegs = 24, kSlConsumerRegs = 240;   // setmaxnreg
+static_assert(128 * kSlProducerRegs + kSlConsumers * kSlConsumerRegs <= 65536,
+              "setmaxnreg counts must fit the register file");
+constexpr int kSlMinStages = 6;    // ring of K (+ Q) chunks past D 256
+constexpr int kSlMaxStages = 16;
+constexpr int kSlKeys = 64;        // keys a tile past D 256
+constexpr int kSlMaxChunks = 4;    // output chunks a slice: 256 columns
+constexpr int kQChunk = kRows * kRowBytes;     // [128][64] bf16: 16 KB
+constexpr int kKChunk = kSlKeys * kRowBytes;   // [64][64] bf16: 8 KB
+constexpr int kSmemMax = 232448;   // bytes of shared memory a block may use
+
+// Shared memory of the sliced forward: Q where resident (nc chunks), the
+// V slice, the ring of ns stages, then barriers full[kSlMaxStages],
+// empty[kSlMaxStages], vfull, vempty, qonce; 1024 bytes of alignment
+__host__ __device__ constexpr int sl_q_bytes(int nc, bool q_res) {
+  return q_res ? nc * kQChunk : 0;
+}
+__host__ __device__ constexpr int sl_stage_bytes(bool q_res) {
+  return q_res ? kKChunk : kQChunk + kKChunk;
+}
+__host__ __device__ constexpr int sl_bars_at(int nc, int own, bool q_res,
+                                             int ns) {
+  return sl_q_bytes(nc, q_res) + own * kKChunk + ns * sl_stage_bytes(q_res);
+}
+__host__ __device__ constexpr size_t sl_smem(int nc, int own, bool q_res,
+                                             int ns) {
+  return 1024 + sl_bars_at(nc, own, q_res, ns) + 8 * (2 * kSlMaxStages + 3);
+}
+
+template <int OWN>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_fwd_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int H, int Sq, int Skv, int D, int nsl, int q_res,
+                           int ns, int paired, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 64;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qs = base;                            // resident Q
+  const uint32_t vb = base + sl_q_bytes(nc, q_res);    // [OWN][64][64]
+  const uint32_t ring0 = vb + OWN * kKChunk;
+  const int stage_bytes = sl_stage_bytes(q_res);
+  const uint32_t bars = base + sl_bars_at(nc, OWN, q_res, ns);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kSlMaxStages + s); };
+  const uint32_t vfull = bars + 8 * 2 * kSlMaxStages;
+  const uint32_t vempty = vfull + 8, qonce = vfull + 16;
+
+  const int z = blockIdx.x % nsl, bh = blockIdx.x / nsl;
+  const int b = bh / H, h = bh % H;
+  const int col0 = 64 * OWN * z;
+  // query tiles of 64 rows for warpgroups 0 and 1: i and n - 1 - i
+  // where paired (where they are one tile, warpgroup 1 computes
+  // nothing), else two consecutive ones, the heaviest first
+  const int nq = (Sq + 63) / 64, tid = threadIdx.x, y = blockIdx.y;
+  const int qa = paired ? 64 * y : 128 * (gridDim.y - 1 - y);
+  const int qb = paired ? 64 * (nq - 1 - y) : qa + 64;
+  const int nk = (Skv + kSlKeys - 1) / kSlKeys;
+  auto tiles_of = [&](int q0) {            // key tiles rows [q0, + 64) see
+    return causal ? min(nk, (min(q0 + 64, Sq) - 1) / kSlKeys + 1) : nk;
+  };
+  const int nkt = max(tiles_of(qa), tiles_of(qb));
+  const int steps = nkt * nc;
+
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), kSlConsumers / 32);
+    }
+    bar_init(vfull, 1);
+    bar_init(vempty, kSlConsumers / 32);
+    bar_init(qonce, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kSlProducerRegs>();
+    if (tid == kSlConsumers) {
+      // Q (where resident), then every step's K chunk (and Q chunk) in
+      // order, each stage once all eight consumer warps released it
+      if (q_res) {
+        bar_expect(qonce, nc * kQChunk);
+        for (int c = 0; c < nc; ++c) {
+          tma_load(qs + c * kQChunk, &qm, qonce, 64 * c, h, qa, b);
+          tma_load(qs + c * kQChunk + kKChunk, &qm, qonce, 64 * c, h, qb, b);
+        }
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int st = t % ns, c = t % nc;
+        if (t >= ns) bar_wait(empty(st), (t / ns - 1) & 1);
+        const uint32_t dst = ring0 + st * stage_bytes;
+        bar_expect(full(st), stage_bytes);
+        if (!q_res) {
+          tma_load(dst + kKChunk, &qm, full(st), 64 * c, h, qa, b);
+          tma_load(dst + 2 * kKChunk, &qm, full(st), 64 * c, h, qb, b);
+        }
+        tma_load(dst, &km, full(st), 64 * c, h, (t / nc) * kSlKeys, b);
+      }
+    } else if (tid == kSlConsumers + 32) {
+      // each key tile's V slice, once the previous tile's P·V read it
+      for (int kt = 0; kt < nkt; ++kt) {
+        if (kt > 0) bar_wait(vempty, (kt - 1) & 1);
+        bar_expect(vfull, OWN * kKChunk);
+        for (int j = 0; j < OWN; ++j)
+          tma_load(vb + j * kKChunk, &vm, vfull, col0 + 64 * j, h,
+                   kt * kSlKeys, b);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kSlConsumerRegs>();
+
+  // the warpgroup index broadcast from lane 0, so ptxas sees the branches
+  // on it as warp-uniform (else it serialises the wgmma after them)
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0), l = tid % 32;
+  const int q0 = g == 0 ? qa : qb;
+  const bool live = g == 0 || qb != qa;
+  const int my_nkt = live ? tiles_of(q0) : 0;
+  const int row0 = q0 + 16 * ((tid / 32) % 4) + l / 4;
+  float acc[OWN][32], s[32], m[2] = {-INFINITY, -INFINITY};
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < OWN; ++j) zero(acc[j]);
+  zero(s);
+  if (q_res) warp_wait(qonce, 0);
+
+  // released by a warp once the products that read the stage are done
+  auto release = [&](int t) {
+    __syncwarp();
+    if (l == 0) bar_arrive(empty(t % ns));
+  };
+  for (int t = 0; t < steps; ++t) {
+    const int kt = t / nc, c = t % nc, st = t % ns;
+    warp_wait(full(st), (t / ns) & 1);
+    if (kt >= my_nkt) {                     // past this warpgroup's keys:
+      release(t);                           // keep the barriers' order
+      if (c == nc - 1) {
+        warp_wait(vfull, kt & 1);
+        if (l == 0) bar_arrive(vempty);
+      }
+      continue;
+    }
+    const uint32_t stage = ring0 + st * stage_bytes;
+    const uint32_t qc = q_res ? qs + c * kQChunk : stage + kKChunk;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(s, desc_k<kRows>(qc, 64 * g, kk),
+                   desc_k<kSlKeys>(stage, 0, kk), c > 0 || kk > 0);
+    wg_commit();
+    if (c > 0) {                            // step t - 1's chunk is read
+      wg_wait<1>();
+      release(t - 1);
+    }
+    if (c < nc - 1) continue;
+    wg_wait();
+    keep(s);
+    release(t);
+
+    // scale, mask where the tile crosses the diagonal or the end
+    const int k0 = kt * kSlKeys;
+    const bool edge = (causal && k0 + kSlKeys - 1 > q0) || k0 + kSlKeys > Skv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale;
+      if (edge) {
+        const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+        x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+      }
+      s[i] = x;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      lsum[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = expf(s[i] - m[(i % 4) / 2]);
+      lsum[(i % 4) / 2] += s[i];           // this thread's part of the row
+    }
+    uint32_t pf[kSlKeys / 16][4];
+    to_frags<kSlKeys / 16>(s, pf);        // p in bf16 at the running max
+#pragma unroll
+    for (int j = 0; j < OWN; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] *= corr[(i % 4) / 2];
+
+    warp_wait(vfull, kt & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSlKeys / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < OWN; ++j)
+        wgmma_rs_n64(acc[j], pf[kk], desc_mn<kSlKeys>(vb, j, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) keep(acc[j]);
+    keep(pf);
+    __syncwarp();
+    if (l == 0) bar_arrive(vempty);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] = quad_sum(lsum[r]);
+    inv[r] = 1.f / lsum[r];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s_ = row0 + 8 * r;
+    if (s_ >= Sq || !live) continue;
+    bf16* row = o + ((static_cast<int64_t>(b) * Sq + s_) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) {
+      if (col0 + 64 * j >= D) continue;    // the last slice's zero chunks
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int i = 4 * jj + 2 * r;
+        *reinterpret_cast<uint32_t*>(row + col0 + 64 * j + acc_col(i, l)) =
+            pack_bf16(acc[j][i] * inv[r], acc[j][i + 1] * inv[r]);
+      }
+    }
+  }
+  if (z == 0 && live && l % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s_ = row0 + 8 * r;
+      if (s_ < Sq)
+        lse[(static_cast<int64_t>(b) * Sq + s_) * H + h] =
+            m[r] + logf(lsum[r]);
+    }
+  }
+}
+
 // --- host: tensor maps and launchers ---
 
 // (B, S, H, D) bf16 at ptr as a (D, H, S, B) map with boxes (64, 1, rows,
@@ -1906,12 +2226,68 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// output chunks a slice of the forward past D 256 owns: the fewest
+// slices of at most kSlMaxChunks, as even as they come (3 or 4 for every
+// nc >= 5); the last slice's chunks past D are TMA's zeros, not stored
+inline int sl_own(int nc) {
+  const int fewest = (nc + kSlMaxChunks - 1) / kSlMaxChunks;
+  return (nc + fewest - 1) / fewest;
+}
+
+template <int OWN>
+int fwd_sliced_own(int D, const CUtensorMap& qm, const CUtensorMap& km,
+                   const CUtensorMap& vm, void* o, float* lse, int B, int H,
+                   int Sq, int Skv, float scale, int causal,
+                   cudaStream_t st) {
+  const int nc = D / 64, nsl = (nc + OWN - 1) / OWN;
+  // Q stays in shared memory for the whole walk where it fits beside the
+  // V slice and a ring of kSlMinStages (D <= 576), else comes a chunk a
+  // step; the ring takes the rest, up to kSlMaxStages
+  const bool q_res = sl_smem(nc, OWN, true, kSlMinStages) <= kSmemMax;
+  const int ns = min(kSlMaxStages,
+                     static_cast<int>((kSmemMax - sl_smem(nc, OWN, q_res, 0)) /
+                                      sl_stage_bytes(q_res)));
+  const size_t smem = sl_smem(nc, OWN, q_res, ns);
+  auto kernel = flash_fwd_sliced_tc_kernel<OWN>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H * nsl, (Sq + 127) / 128);
+  // causal tiles paired where the grid fills the card at most once; past
+  // that the heaviest-first order balances whole CTAs across the waves
+  // better (scripts/flash_sliced_knockout.py)
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  if (cudaError_t e = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev))
+    return static_cast<int>(e);
+  const int paired = causal && grid.x * grid.y <= static_cast<unsigned>(sms);
+  kernel<<<grid, kSlThreads, smem, st>>>(qm, km, vm, static_cast<bf16*>(o),
+                                         lse, H, Sq, Skv, D, nsl, q_res, ns,
+                                         paired, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fwd_sliced(int D, const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Sq, int Skv, float scale,
+               int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (int e = make_map(&qm, q, B, Sq, H, D, 64)) return e;
+  if (int e = make_map(&km, k, B, Skv, H, D, kSlKeys)) return e;
+  if (int e = make_map(&vm, v, B, Skv, H, D, kSlKeys)) return e;
+  if (sl_own(D / 64) == 3)
+    return fwd_sliced_own<3>(D, qm, km, vm, o, lse, B, H, Sq, Skv, scale,
+                             causal, st);
+  return fwd_sliced_own<4>(D, qm, km, vm, o, lse, B, H, Sq, Skv, scale,
+                           causal, st);
+}
+
 }  // namespace tc
 
 // dispatch on (dtype code, head dim): 0 = float32 (CUDA cores), 1 =
-// bfloat16 (tensor cores); past D 256 either dtype takes the D-sliced
-// CUDA-core kernels, any D that is a multiple of 64
-#define BIGDL_FLASH_DISPATCH(FN, ...)                                    \
+// bfloat16 (tensor cores); past D 256, any D that is a multiple of 64,
+// float32 takes the D-sliced CUDA-core kernels and bfloat16 WIDE_BF16:
+// the sliced tensor-core forward (tc::fwd_sliced), or the D-sliced
+// CUDA-core dq and dk/dv
+#define BIGDL_FLASH_DISPATCH(FN, WIDE_BF16, ...)                         \
   do {                                                                    \
     if (dtype == 0 && D == 32) return FN<float, 32>(__VA_ARGS__);         \
     if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);         \
@@ -1926,7 +2302,7 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
     if (dtype == 0 && D > 256 && D % 64 == 0)                             \
       return sliced::FN<float>(D, __VA_ARGS__);                           \
     if (dtype == 1 && D > 256 && D % 64 == 0)                             \
-      return sliced::FN<__nv_bfloat16>(D, __VA_ARGS__);                   \
+      return WIDE_BF16(D, __VA_ARGS__);                                   \
     return -1;                                                            \
   } while (0)
 
@@ -1941,8 +2317,8 @@ extern "C" int bigdl_flash_fwd(int dtype, const void* q, const void* k,
                                int H, int Sq, int Skv, int D, float scale,
                                int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(fwd, q, k, v, o, lse, B, H, Sq, Skv, scale, causal,
-                       st);
+  BIGDL_FLASH_DISPATCH(fwd, tc::fwd_sliced, q, k, v, o, lse, B, H, Sq, Skv,
+                       scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
@@ -1951,8 +2327,8 @@ extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
                               void* dq_out, int B, int H, int Sq, int Skv,
                               int D, float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, B, H, Sq, Skv,
-                       scale, causal, st);
+  BIGDL_FLASH_DISPATCH(dq, sliced::dq<__nv_bfloat16>, q, k, v, dout, lse,
+                       delta, dq_out, B, H, Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
@@ -1962,6 +2338,6 @@ extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
                                 int Skv, int D, float scale, int causal,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(dkdv, q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                       Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(dkdv, sliced::dkdv<__nv_bfloat16>, q, k, v, dout,
+                       lse, delta, dk, dv, B, H, Sq, Skv, scale, causal, st);
 }

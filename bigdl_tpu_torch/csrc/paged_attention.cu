@@ -17,7 +17,9 @@
 // reports the route it took so the wrapper can hold the mirror to it):
 // a call past head dim kRowOnlyPast (256) takes the row-tile kernel, the
 // only one built there (`paged_attention_wide_kernel`, D a runtime
-// value); otherwise a call whose T·G query
+// value, up to wide_max_d; past it the route "row_sliced",
+// `paged_attention_sliced_kernel`, its output columns sliced, so every
+// multiple of 64 runs); otherwise a call whose T·G query
 // rows of a kv head fit one tile (T·G <= kSplitRows, every decode step)
 // takes the split-KV decode kernel; a bf16 call with more rows
 // (prefill) takes `paged_prefill_tc_kernel` at any page size, unless G >
@@ -88,7 +90,7 @@
 //   fill with zeros, as flash's do.
 //
 // paged_attention_kernel (f32 pools, G > 64, P > 4096; past D 256 its
-// wide form):
+// wide form, and past the wide form's cap its column-sliced form):
 // - One CTA of 4 warps per (row b, kv head, tile of query rows). The G
 //   query heads that share a kv head fold into the tile's rows (row r is
 //   query column r / G, head r % G), as the TPU kernel folds them into the
@@ -121,11 +123,27 @@
 //   in consecutive words. It takes every multiple of 64 up to
 //   wide_max_d: the smallest chunk (8 slots of K and V, double buffered,
 //   32·D·elt bytes) must fit beside them in 232,448 bytes, so D <= 1152
-//   for f32 pools and D <= 1792 for bf16 ones. Lanes that owned D/32
-//   contiguous columns (the layout below D 256) would read K and V
-//   2·D/32 bytes apart, 8 words at bf16 D 512, so a warp would hit 4
-//   banks: measured, that took 2.1× this kernel's time at D 512 (and
-//   1.03× at D 320, whose 5-word stride spreads; PERF.md §6).
+//   for f32 pools and D <= 1792 for bf16 ones.
+// - Past wide_max_d `paged_attention_sliced_kernel` runs the same
+//   arithmetic in the same order with shared memory that does not grow
+//   with D: grid (B·KV, row tiles, ceil(D / 512)), a CTA's f32
+//   accumulator holding its 8 rows' slice of 512 columns (the last
+//   slice narrower). Each score still sums over all of D: q and the
+//   8-key group's K rows come in 512-column pieces through a 2-stage
+//   cp.async ring, lane l adding columns 32c + l in the wide kernel's
+//   order, so every slice forms the same scores, m and l; V rows of the
+//   slice only are staged, a group at a time, double buffered. 64 KB of
+//   shared memory for bf16 pools, 112 KB for f32, at any D; the cost is
+//   the scores recomputed once a slice (4 times at D 2048). Calls at or
+//   under wide_max_d keep the wide kernel: forced there, the sliced form
+//   gives the same bits at 1.02-1.69x its time (scripts/paged_ab.py
+//   --sliced, one NVIDIA H100 80GB HBM3, 700 W, D 320-1792: bf16
+//   1.2-1.4x, 1.02x at the D 1024 decode; f32 1.2-1.7x), as it stages q
+//   again with each 8-key group and syncs once a group. In the wide
+//   kernel, lanes that owned D/32 contiguous columns (the layout below
+//   D 256) would read K and V 2·D/32 bytes apart, 8 words at bf16 D 512,
+//   so a warp would hit 4 banks: measured, that took 2.1× its time at D
+//   512 (and 1.03× at D 320, whose 5-word stride spreads; PERF.md §6).
 // - It does its operations on the CUDA cores: f32 pools have no other
 //   exact route, and the geometries the tensor-core kernel does not tile
 //   are rare ones.
@@ -404,11 +422,26 @@ constexpr int wide_max_d(int elt) {
   return kSmemMax / (4 * kKeyChunk * elt + 2 * kWideRows * 4) / 64 * 64;
 }
 
+// output columns a CTA of the row-tile kernel past wide_max_d owns, and
+// the width of the column pieces it stages q and K in
+constexpr int kSliceCols = 512;
+
+// shared memory of that kernel, whatever D: 2 stages of q (kWideRows
+// rows) and K (kKeyChunk rows) pieces and 2 groups of V rows of the
+// slice, elt-byte elements, beside the f32 accumulator of its rows:
+// 48·512·elt + 16 KB (64 KB bf16, 112 KB f32)
+__host__ __device__ constexpr int sliced_smem_bytes(int elt) {
+  return (2 * (kWideRows + kKeyChunk) + 2 * kKeyChunk) * kSliceCols * elt +
+         kWideRows * kSliceCols * 4;
+}
+
 // slots of a row-tile chunk: the whole page where its K and V, double
 // buffered (4·S·D·elt bytes), fit a block's shared memory beside the
 // CTA's fixed part (row_fixed_bytes), else the most that do in a
-// multiple of kKeyChunk
+// multiple of kKeyChunk; past wide_max_d one 8-key group (the sliced
+// form stages a group at a time)
 int row_chunk_slots(int D, int S, int elt) {
+  if (D > wide_max_d(elt)) return S < kKeyChunk ? S : kKeyChunk;
   const int fit = (kSmemMax - row_fixed_bytes(D)) / (4 * D * elt);
   return S <= fit ? S : fit / kKeyChunk * kKeyChunk;
 }
@@ -602,6 +635,212 @@ int launch_wide(const void* q, const void* kp, const void* vp,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), table, q_start, out, T_, H, KV, D, S, P, C,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// Row-tile past wide_max_d: the output's columns sliced
+
+// The wide kernel's arithmetic, in its order, for head dims past its cap
+// (header). A CTA owns kWideRows query rows and the output columns
+// [kSliceCols·z, + kSliceCols) (blockIdx.z = z, the last slice
+// narrower); its f32 accumulator holds only those. Step t of its loop is
+// (8-key group u = t / np, piece p = t % np) of the np column pieces of
+// kSliceCols: the q rows and the group's K rows of the piece are staged
+// (double-buffered with cp.async) and lane l adds the products of its
+// columns 32c + l to its partial scores, so every lane sums its columns
+// in the wide kernel's order and every slice forms the same scores, m
+// and l; a group's first step also stages its V rows of the CTA's slice
+// (double-buffered by group), which P·V takes at the group's last step.
+// Groups are those of the wide kernel: 8 slots from each multiple of 8
+// of each page, those whose first key lies past the CTA's last query
+// never loaded.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_sliced_kernel(const T* __restrict__ q,
+                              const T* __restrict__ kp,
+                              const T* __restrict__ vp,
+                              const int* __restrict__ table,
+                              const int* __restrict__ q_start,
+                              float* __restrict__ out, int T_, int H, int KV,
+                              int D, int S, int P, float scale) {
+  constexpr int kVec = 16 / sizeof(T);             // elements a copy
+  constexpr int kStage = (kWideRows + kKeyChunk) * kSliceCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);  // [2][q rows|K rows][piece]
+  T* const vbuf = ring + 2 * kStage;               // [2][kKeyChunk][slice]
+  float* const acc_all =                           // [kWideRows][slice]
+      reinterpret_cast<float*>(vbuf + 2 * kKeyChunk * kSliceCols);
+
+  const int b = blockIdx.x / KV, h = blockIdx.x % KV;
+  const int G = H / KV;
+  const int rows_total = T_ * G;
+  const int row0 = blockIdx.y * kWideRows;
+  const int col0 = blockIdx.z * kSliceCols, width = min(kSliceCols, D - col0);
+  const int np = (D + kSliceCols - 1) / kSliceCols;   // pieces of a score
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qs = q_start[b];
+  const int q_last = qs + (min(row0 + kWideRows, rows_total) - 1) / G;
+  // the row's 8-key groups whose first key lies at or before q_last
+  const int gpp = (S + kKeyChunk - 1) / kKeyChunk;
+  const int last_page = min(P - 1, q_last / S);
+  const int n_groups =
+      P > 0 ? last_page * gpp +
+                  min(gpp, (q_last - last_page * S) / kKeyChunk + 1)
+            : 0;
+  const int steps = n_groups * np;
+
+  float m[kWideRpw], l[kWideRpw];
+  int qpos[kWideRpw];
+  int64_t obase[kWideRpw];
+  bool live[kWideRpw];
+#pragma unroll
+  for (int i = 0; i < kWideRpw; ++i) {
+    const int r = row0 + warp * kWideRpw + i;
+    live[i] = r < rows_total;
+    const int t = r / G, head = h * G + r % G;
+    qpos[i] = qs + t;
+    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * D;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    float* const ar = acc_all + (warp * kWideRpw + i) * kSliceCols + lane;
+    for (int c = 0; c < width / 32; ++c) ar[32 * c] = 0.f;
+  }
+
+  const int* row_table = table + static_cast<int64_t>(b) * P;
+  // step t: the piece's columns of the CTA's live q rows and of the
+  // group's K rows; at the group's first piece its V rows of the slice
+  auto load = [&](int t) {
+    const int u = t / np, p = t % np, j = u / gpp;
+    const int slot0 = (u % gpp) * kKeyChunk, n = min(kKeyChunk, S - slot0);
+    const int d0 = p * kSliceCols, pw = min(kSliceCols, D - d0);
+    const int per = pw / kVec;                     // copies a row
+    T* const st = ring + (t & 1) * kStage;
+    const int64_t page = row_table[j];
+    const int64_t kbase = ((page * S + slot0) * KV + h) * D;
+    for (int c = threadIdx.x; c < (kWideRows + n) * per; c += kThreads) {
+      const int r = c / per, w = (c % per) * kVec;
+      if (r < kWideRows) {
+        const int qr = row0 + r;
+        if (qr < rows_total) {
+          const int tq = qr / G, head = h * G + qr % G;
+          cp_async16(st + r * kSliceCols + w,
+                     q + ((static_cast<int64_t>(b) * T_ + tq) * H + head) * D
+                         + d0 + w);
+        }
+      } else {
+        const int s = r - kWideRows;
+        cp_async16(st + r * kSliceCols + w,
+                   kp + kbase + static_cast<int64_t>(s) * KV * D + d0 + w);
+      }
+    }
+    if (p == 0) {
+      T* const vs = vbuf + (u & 1) * kKeyChunk * kSliceCols;
+      const int wper = width / kVec;
+      for (int c = threadIdx.x; c < n * wper; c += kThreads) {
+        const int s = c / wper, w = (c % wper) * kVec;
+        cp_async16(vs + s * kSliceCols + w,
+                   vp + kbase + static_cast<int64_t>(s) * KV * D + col0 + w);
+      }
+    }
+  };
+
+  float s[kWideRpw][kKeyChunk];
+  if (steps > 0) load(0);
+  cp_async_commit();
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) load(t + 1);
+    cp_async_commit();
+    cp_async_wait_prev();               // step t (and its V rows) landed
+    __syncthreads();
+    const int u = t / np, p = t % np, j = u / gpp;
+    const int slot0 = (u % gpp) * kKeyChunk, nk = min(kKeyChunk, S - slot0);
+    const int pw = min(kSliceCols, D - p * kSliceCols);
+    const T* const st = ring + (t & 1) * kStage;
+    const T* const kr = st + kWideRows * kSliceCols + lane;
+#pragma unroll
+    for (int i = 0; i < kWideRpw; ++i) {
+      if (!live[i]) continue;           // warp-uniform
+      if (p == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kKeyChunk; ++kk) s[i][kk] = 0.f;
+      }
+      const T* const qr = st + (warp * kWideRpw + i) * kSliceCols + lane;
+      for (int c = 0; c < pw / 32; ++c) {
+        const float qv = to_f32(qr[32 * c]);
+#pragma unroll
+        for (int kk = 0; kk < kKeyChunk; ++kk)
+          if (kk < nk) s[i][kk] += qv * to_f32(kr[kk * kSliceCols + 32 * c]);
+      }
+      if (p < np - 1) continue;
+      // the group's scores are whole: the wide kernel's softmax and P·V
+      const int key0 = j * S + slot0;
+      float m_chunk = -INFINITY;
+#pragma unroll
+      for (int kk = 0; kk < kKeyChunk; ++kk) {
+        float x = s[i][kk];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        x = kk >= nk                   ? -INFINITY   // no key
+            : key0 + kk > qpos[i]      ? kMask
+                                       : x * scale;
+        s[i][kk] = x;
+        m_chunk = fmaxf(m_chunk, x);
+      }
+      const float m_new = fmaxf(m[i], m_chunk);
+      const float corr = expf(m[i] - m_new);
+      float psum = 0.f, pr[kKeyChunk];
+#pragma unroll
+      for (int kk = 0; kk < kKeyChunk; ++kk) {
+        const float pv = expf(s[i][kk] - m_new);
+        psum += pv;
+        pr[kk] = round_as(pv, T{});
+      }
+      const T* const vr = vbuf + (u & 1) * kKeyChunk * kSliceCols + lane;
+      float* const ar = acc_all + (warp * kWideRpw + i) * kSliceCols + lane;
+      for (int c = 0; c < width / 32; ++c) {
+        float a = ar[32 * c] * corr;
+#pragma unroll
+        for (int kk = 0; kk < kKeyChunk; ++kk)
+          if (kk < nk) a += pr[kk] * to_f32(vr[kk * kSliceCols + 32 * c]);
+        ar[32 * c] = a;
+      }
+      l[i] = l[i] * corr + psum;
+      m[i] = m_new;
+    }
+    __syncthreads();                    // stage t & 1 is refilled next
+  }
+
+#pragma unroll
+  for (int i = 0; i < kWideRpw; ++i) {
+    if (!live[i]) continue;
+    const float* const ar =
+        acc_all + (warp * kWideRpw + i) * kSliceCols + lane;
+    for (int c = 0; c < width / 32; ++c)
+      out[obase[i] + col0 + lane + 32 * c] = ar[32 * c] / l[i];
+  }
+}
+
+template <typename T>
+int launch_sliced(const void* q, const void* kp, const void* vp,
+                  const int* table, const int* q_start, float* out, int B,
+                  int T_, int H, int KV, int D, int S, int P, float scale,
+                  cudaStream_t stream) {
+  if (D % 64 != 0 || D <= wide_max_d(sizeof(T))) return -1;
+  const int rows_total = T_ * (H / KV);
+  const dim3 grid(B * KV, (rows_total + kWideRows - 1) / kWideRows,
+                  (D + kSliceCols - 1) / kSliceCols);
+  const size_t smem = sliced_smem_bytes(sizeof(T));
+  auto kernel = paged_attention_sliced_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, D, S, P,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1383,12 +1622,14 @@ int launch(const Call& a) {
 
 }  // namespace tc
 
-enum Route { kRouteSplit = 0, kRouteTc = 1, kRouteRow = 2 };
+enum Route { kRouteSplit = 0, kRouteTc = 1, kRouteRow = 2,
+             kRouteRowSliced = 3 };
 
 // the kernel a call runs, by dtype and shape alone
 Route route_of(int dtype, int T, int H, int KV, int D, int S, int P) {
   const int G = H / KV;
-  if (D > kRowOnlyPast) return kRouteRow;
+  if (D > kRowOnlyPast)
+    return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : kRouteRow;
   if (T * G <= kSplitRows) return kRouteSplit;
   if (dtype == 1 && G <= tc::kWgRows && P <= tc::kTcMaxPages)
     return kRouteTc;
@@ -1426,8 +1667,13 @@ int launch_dims(const Call& a, Route route) {
       return launch_call<T, 192>(a, route);
     case 256:
       return launch_call<T, 256>(a, route);
-    default:                             // past 256: the wide kernel alone
-      if (a.D <= kRowOnlyPast || route != kRouteRow) return -1;
+    default:             // past 256: the wide kernel, or its sliced form
+      if (a.D <= kRowOnlyPast) return -1;
+      if (route == kRouteRowSliced)
+        return launch_sliced<T>(a.q, a.kp, a.vp, a.table, a.q_start, a.out,
+                                a.B, a.T, a.H, a.KV, a.D, a.S, a.P, a.scale,
+                                a.stream);
+      if (route != kRouteRow) return -1;
       return launch_wide<T>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
                             a.T, a.H, a.KV, a.D, a.S, a.P, a.scale,
                             a.stream);
@@ -1438,7 +1684,8 @@ int launch_dims(const Call& a, Route route) {
 
 // dtype: 0 = float32 pools, 1 = bfloat16 pools; NP: pages in each pool.
 // Writes the route the call takes to *route (0 split-KV, 1 tensor-core
-// prefill, 2 row-tile; route_of) before launching. A split call (T·G <=
+// prefill, 2 row-tile, 3 row-tile with its columns sliced; route_of)
+// before launching. A split call (T·G <=
 // 16 query rows per kv head) needs `ws`, an f32 workspace of
 // B·KV·ceil(P/pps)·T·G·(D + 2) elements, `counters`, B·KV ints that are 0
 // (the kernel leaves them 0), and `pps` pages per split; the other routes

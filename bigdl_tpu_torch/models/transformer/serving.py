@@ -40,7 +40,7 @@ from bigdl_tpu_torch.models.transformer.generate import (
 # plain version of; they are importable from here as in the JAX package
 from bigdl_tpu_torch.ops.paged_attention import (  # noqa: F401
     _attend_grouped, _paged_view, paged_attention, paged_attention_ref,
-    paged_kernel_supported, wide_max_head_dim)
+    paged_kernel_supported)
 from bigdl_tpu_torch.tensor import activation_dtype, resolve_device
 
 __all__ = ["PagedKVCache", "paged_prefill", "paged_decode",
@@ -158,10 +158,8 @@ def _resolve_paged_kernel(mode, device: torch.device, head_dim: int,
             f"do not take their geometry: head dim {head_dim}, pages of "
             f"{page_size} slots, {dtype}, {num_heads} heads over "
             f"{num_kv_heads} kv heads (need float32 or bfloat16, head "
-            f"dim 32, 64, 128, 192 or 256, or a multiple of 64 past 256 "
-            f"up to {wide_max_head_dim(torch.float32)} for float32 pools "
-            f"and {wide_max_head_dim(torch.bfloat16)} for bfloat16 ones, "
-            f"where shared memory ends, and kv heads dividing the heads); "
+            f"dim 32, 64, 128, 192 or 256, or a multiple of 64 past 256, "
+            f"and kv heads dividing the heads); "
             f"paged_kernel='dense' takes the plain path")
     return "kernel" if mode == "auto" else mode
 

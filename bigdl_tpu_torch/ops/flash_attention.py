@@ -35,13 +35,13 @@ import functools
 import torch
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
-           "flash_attention_ref", "flash_fwd", "flash_dq", "flash_dkdv",
-           "flash_fwd_ref", "flash_dq_ref", "flash_dkdv_ref",
+           "flash_route", "flash_attention_ref", "flash_fwd", "flash_dq",
+           "flash_dkdv", "flash_fwd_ref", "flash_dq_ref", "flash_dkdv_ref",
            "fwd_launches", "dq_launches", "dkdv_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
 #: head dims with kernels of their own; past 256 every multiple of 64
-#: runs the D-sliced kernels
+#: runs the D-sliced kernels (``flash_route``)
 _HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,13 +61,33 @@ def flash_supported(q, k) -> bool:
     256 (as the JAX kernel, plus D 32), float32 or bfloat16. Any
     sequence lengths (ragged tile tails are masked in the kernel).
 
-    Past D 256 the C entries route to the D-sliced CUDA-core kernels: a
-    CTA owns a 64-column slice of the output and sums the scores over
-    all of D in 64-column chunks (csrc/flash_attention.cu's header)."""
+    Past D 256 the C entries route to D-sliced kernels: a CTA owns a
+    slice of the output's columns and sums the scores over all of D in
+    64-column chunks (``flash_route``; csrc/flash_attention.cu's
+    header)."""
     return (q.dim() == 4 and k.dim() == 4 and _head_dim_ok(q.shape[-1])
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
             and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
             and q.shape[1] > 0 and k.shape[1] > 0)
+
+
+def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
+    """The kernel family the C entry of ``kernel`` ("fwd", "dq" or
+    "dkdv") runs for ``dtype`` at head dim ``d``, as
+    ``BIGDL_FLASH_DISPATCH`` in csrc/flash_attention.cu picks it (by
+    dtype and head dim alone): ``"tc"`` (bf16 at D 32-256: ``wgmma``
+    with TMA tiles), ``"cuda_cores"`` (f32 at D 32-256), ``"sliced_tc"``
+    (the bf16 forward past 256: ``flash_fwd_sliced_tc_kernel``, slices
+    of up to 256 output columns on the tensor cores), ``"sliced"`` (f32
+    past 256, and the bf16 dq and dk/dv there: the D-sliced CUDA-core
+    kernels, 64 columns a CTA); None where no kernel takes the call."""
+    if d in _HEAD_DIMS:
+        return {torch.bfloat16: "tc", torch.float32: "cuda_cores"}.get(dtype)
+    if d > 256 and d % 64 == 0 and dtype in _DTYPE_CODES:
+        if dtype == torch.bfloat16 and kernel == "fwd":
+            return "sliced_tc"
+        return "sliced"
+    return None
 
 
 # --------------------------------------------------------------------------

@@ -32,6 +32,12 @@ the route the entry reports):
   ``row_chunk_slots`` slots (past head dim 256 with D a runtime value,
   q and its accumulator in shared memory); ``paged_attention_row_ref``
   is its arithmetic in its order.
+- ``"row_sliced"``: past :func:`wide_max_head_dim` (1152 for f32 pools,
+  1792 for bf16), where q and the accumulator of the row-tile kernel's
+  wide form no longer fit beside a chunk, the same arithmetic in the
+  same order with the output's columns sliced (512 a CTA) and q and K
+  staged in column pieces: shared memory no longer grows with D, so
+  every multiple of 64 runs.
 
 ``dense_cache_attention`` serves a dense per-row (B, M, KV, D) cache
 through the same kernel: the cache is a pool of ``M // S`` contiguous
@@ -71,6 +77,9 @@ _ROW_ONLY_PAST = 256
 #: query rows a CTA of the row-tile kernel past head dim 256 holds, whose
 #: q and f32 accumulator it keeps in shared memory (kWideRows)
 _WIDE_ROWS = 8
+#: output columns a CTA of the row-tile kernel's sliced form owns
+#: (kSliceCols)
+_SLICE_COLS = 512
 #: query rows (T·G) per kv head up to which the C entry takes the split-KV
 #: decode kernel (kSplitRows in csrc/paged_attention.cu)
 _SPLIT_ROWS = 16
@@ -84,7 +93,7 @@ _TC_ROWS = 64
 _TC_MAX_PAGES = 4096
 _SLOT_PAD = 8
 #: the C entry's route codes
-_ROUTES = ("split", "tc", "row")
+_ROUTES = ("split", "tc", "row", "row_sliced")
 #: the C entry's own error codes (others: 1000 + a refused tensor map's
 #: CUresult, or the CUDA error of the launch)
 _ERRORS = {-1: "a head dim the kernels were not built for",
@@ -115,23 +124,24 @@ def _fixed_bytes(head_dim: int) -> int:
 
 @functools.cache
 def wide_max_head_dim(dtype) -> int:
-    """The largest head dim, a multiple of 64, the row-tile kernel takes
-    past 256 for pools of ``dtype`` (``wide_max_d``): its smallest chunk
-    (8 slots of K and V, double buffered, 4·8·D·bytes) beside q and the
-    accumulator (64·D bytes) within 232,448 bytes of shared memory —
-    1152 for float32 pools, 1792 for bfloat16 ones."""
+    """The largest head dim, a multiple of 64, the row-tile kernel's wide
+    form takes past 256 for pools of ``dtype`` (``wide_max_d``): its
+    smallest chunk (8 slots of K and V, double buffered, 4·8·D·bytes)
+    beside q and the accumulator (64·D bytes) within 232,448 bytes of
+    shared memory — 1152 for float32 pools, 1792 for bfloat16 ones.
+    Past it the sliced form runs (route ``"row_sliced"``)."""
     elt = torch.empty((), dtype=dtype).element_size()
     return (_SMEM_LIMIT // (4 * _KEY_CHUNK * elt + 2 * _WIDE_ROWS * 4)
             // 64 * 64)
 
 
-def _takes_head_dim(head_dim: int, dtype) -> bool:
+def _takes_head_dim(head_dim: int) -> bool:
     """Head dims the kernels take: 32, 64, 128, 192 and 256 on every
-    route, and past 256 every multiple of 64 up to
-    :func:`wide_max_head_dim` (the row-tile kernel)."""
+    route, and past 256 every multiple of 64 (the row-tile kernel's wide
+    form, then its sliced form), as the JAX ``paged_supported``."""
     if head_dim <= _ROW_ONLY_PAST:
         return head_dim in _HEAD_DIMS
-    return head_dim % 64 == 0 and head_dim <= wide_max_head_dim(dtype)
+    return head_dim % 64 == 0
 
 
 def paged_kernel_supported(head_dim: int, page_size: int, dtype,
@@ -139,18 +149,18 @@ def paged_kernel_supported(head_dim: int, page_size: int, dtype,
     """Pool geometries the kernels take (the counterpart of the
     reference's ``paged_supported``), for pools of ``num_kv_heads`` kv
     heads serving ``num_heads`` query heads: float32 or bfloat16, G =
-    heads / kv heads whole, head dim 32, 64, 128, 192 or 256, or a
-    multiple of 64 past 256 up to a cap that shared memory sets (1152
-    for float32 pools, 1792 for bfloat16: :func:`wide_max_head_dim`).
+    heads / kv heads whole, head dim 32, 64, 128, 192 or 256, or any
+    multiple of 64 past 256 (past :func:`wide_max_head_dim` the row-tile
+    kernel slices its output's columns, so no head dim is capped).
 
     Every route takes any page size and table width: the split-KV kernel
     stages key rows, not pages; the tensor-core kernel pads each page to
     a multiple of 8 slots, which TMA fills with zeros; the row-tile
     kernel streams a page in chunks of :func:`row_chunk_slots` slots. So
     every pool of those head dims and dtypes is taken (the JAX
-    ``paged_supported``'s, S % 8 == 0 and D a multiple of 64, among them
-    up to the cap), pages of any size, any G, any table width."""
-    return (dtype in _DTYPE_CODES and _takes_head_dim(head_dim, dtype)
+    ``paged_supported``'s, S % 8 == 0 and D a multiple of 64, among
+    them), pages of any size, any G, any table width."""
+    return (dtype in _DTYPE_CODES and _takes_head_dim(head_dim)
             and page_size >= 1 and num_kv_heads >= 1
             and num_heads % num_kv_heads == 0)
 
@@ -162,7 +172,10 @@ def row_chunk_slots(head_dim: int, page_size: int, dtype) -> int:
     of shared memory beside the CTA's fixed part (past head dim 256, q
     and the accumulator: 64·D bytes), else the most slots that do, in a
     multiple of the 8 keys it scores per softmax update (so its
-    arithmetic is the same whatever the chunk)."""
+    arithmetic is the same whatever the chunk); past
+    :func:`wide_max_head_dim` one 8-key group (the sliced form)."""
+    if head_dim > _ROW_ONLY_PAST and head_dim > wide_max_head_dim(dtype):
+        return min(page_size, _KEY_CHUNK)
     elt = torch.empty((), dtype=dtype).element_size()
     fit = (_SMEM_LIMIT - _fixed_bytes(head_dim)) // (4 * head_dim * elt)
     return page_size if page_size <= fit else fit // _KEY_CHUNK * _KEY_CHUNK
@@ -172,15 +185,16 @@ def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
                  dtype) -> str:
     """The kernel the C entry runs for q (B, t, h, d) against pools of
     pages of ``s`` slots, ``kv`` kv heads and ``dtype``, through a table of
-    ``p`` entries a row: ``"row"`` past head dim 256, else ``"split"``
-    (T·G <= 16 query rows per kv head), ``"tc"`` (bf16 at any page size,
-    G <= 64, p <= 4096) or ``"row"``. So the row-tile kernel keeps four
-    cases: f32 pools, head dims past 256, G > 64 and tables wider than
-    4096 entries. Shapes and dtype only, as the C entry's ``route_of``;
-    the wrapper raises if the entry reports another route."""
+    ``p`` entries a row: ``"row"`` past head dim 256 (``"row_sliced"``
+    past :func:`wide_max_head_dim`), else ``"split"`` (T·G <= 16 query
+    rows per kv head), ``"tc"`` (bf16 at any page size, G <= 64, p <=
+    4096) or ``"row"``. So the row-tile kernel keeps four cases: f32
+    pools, head dims past 256, G > 64 and tables wider than 4096 entries.
+    Shapes and dtype only, as the C entry's ``route_of``; the wrapper
+    raises if the entry reports another route."""
     g = h // kv
     if d > _ROW_ONLY_PAST:
-        return "row"
+        return "row_sliced" if d > wide_max_head_dim(dtype) else "row"
     if t * g <= _SPLIT_ROWS:
         return "split"
     if (dtype == torch.bfloat16 and d in _HEAD_DIMS and g <= _TC_ROWS
@@ -429,7 +443,8 @@ def _launch(fn, q, kp, vp, table, q_start, scale, route):
                  None if counters is None else counters.data_ptr(),
                  ctypes.byref(took), b, t, h, kv, d, s, p, kp.shape[0],
                  pps, float(scale), stream)
-    took = _ROUTES[took.value] if 0 <= took.value < 3 else took.value
+    took = (_ROUTES[took.value] if 0 <= took.value < len(_ROUTES)
+            else took.value)
     if err:
         why = _ERRORS.get(err, f"tensor map refused (CUresult {err - 1000})"
                           if err >= 1000 else "CUDA error")
@@ -451,7 +466,7 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     <= 16 query rows per kv head; split count from shapes alone), the
     tensor-core prefill kernel (bf16), or the row-tile kernel (f32
     prefill, G > 64, tables past 4096 entries, and every call past head
-    dim 256)."""
+    dim 256; past :func:`wide_max_head_dim` its column-sliced form)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
     global launches, split_launches, tc_launches
@@ -467,13 +482,10 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     p = table.shape[1] if table.dim() == 2 else 0
     want = kernel_route(t, h, kv, d, s, p, kp.dtype)
     _check(kp.dtype in _DTYPE_CODES and vp.dtype == kp.dtype
-           and _takes_head_dim(d, kp.dtype),
+           and _takes_head_dim(d),
            f"pool geometry the kernel does not take: head dim {d} (need "
-           f"one of {_HEAD_DIMS} or a multiple of 64 past 256 whose "
-           f"smallest K/V chunk fits shared memory beside q and the "
-           f"accumulator: up to {wide_max_head_dim(kp.dtype)} for "
-           f"{kp.dtype} pools), pool dtype {kp.dtype}/{vp.dtype} (need "
-           f"float32 or bfloat16)")
+           f"one of {_HEAD_DIMS} or a multiple of 64 past 256), pool "
+           f"dtype {kp.dtype}/{vp.dtype} (need float32 or bfloat16)")
     _check(kp.is_contiguous() and vp.is_contiguous(),
            "pools must be contiguous")
     _check(kp.data_ptr() % 16 == 0 and vp.data_ptr() % 16 == 0,

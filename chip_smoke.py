@@ -23,8 +23,8 @@ the full width of the flagship LM with weights made from a seed:
 - ``[perf]``: the throughput harness (``models/utils/perf.py -m
   transformer``) at the same geometry with the fused LM head + CE — the
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
-  its ``-m attention`` mode at head dims 128, 256 and 512 (the D-sliced
-  flash kernels);
+  its ``-m attention`` mode at head dims 128, 256 and 512 (the sliced
+  tensor-core flash forward and the D-sliced CUDA-core dq and dk/dv);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels.
@@ -334,6 +334,8 @@ def _print_ptxas(report: str) -> None:
                       r"flash_dkdv_split)_tc_kernelILi(\d+)E", line)
         sl = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
                        r"_sliced_kernelI(\w+?)E", line)
+        st = re.search(r"entry function '\S*?flash_fwd_sliced_tc_kernelILi"
+                       r"(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
@@ -343,11 +345,15 @@ def _print_ptxas(report: str) -> None:
                        r"(\w+?)Li(\d+)ELi(\d+)E", line)
         pt = re.search(r"entry function '\S*?paged_prefill_tc_kernelILi(\d+)E",
                        line)
-        pw = re.search(r"entry function '\S*?paged_attention_wide_kernelI"
-                       r"(\w+?)E", line)
-        if pw:
+        pw = re.search(r"entry function '\S*?paged_attention_(wide|sliced)_"
+                       r"kernelI(\w+?)E", line)
+        if pw and pw.group(1) == "sliced":
+            name = (f"paged_attention_sliced "
+                    f"{'bf16' if 'bfloat16' in pw.group(2) else 'f32'} "
+                    f"(D past the wide form's cap, a runtime value)")
+        elif pw:
             name = (f"paged_attention_wide "
-                    f"{'bf16' if 'bfloat16' in pw.group(1) else 'f32'} "
+                    f"{'bf16' if 'bfloat16' in pw.group(2) else 'f32'} "
                     f"(D past 256, a runtime value)")
         elif pt:
             name = f"paged_prefill_tc bf16 (tensor cores) D={pt.group(1)}"
@@ -356,6 +362,9 @@ def _print_ptxas(report: str) -> None:
             name = (f"paged_decode_split "
                     f"{'bf16' if 'bfloat16' in dt else 'f32'} D={d} "
                     f"rows<={rows}")
+        elif st:
+            name = (f"flash_fwd_sliced_tc bf16 (tensor cores, D past 256) "
+                    f"OWN={st.group(1)}")
         elif t:
             name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
         elif sl:
@@ -401,9 +410,10 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     ``cuobjdump --dump-sass`` of the built libraries; fails unless each
     of the nine flash kernels (fwd, dq, dkdv x D 32, 64, 128) has some,
     and the six past D 128 (D 192, 256; dk/dv from
-    ``flash_dkdv_split_tc_kernel``), all three fused-CE kernels and the
-    five paged prefill kernels (D 32, 64, 128, 192, 256) have
-    ``HGMMA``."""
+    ``flash_dkdv_split_tc_kernel``), the bf16 forward past D 256 (both
+    instantiations of ``flash_fwd_sliced_tc_kernel``: slices of 3 and of
+    4 chunks), all three fused-CE kernels and the five paged prefill
+    kernels (D 32, 64, 128, 192, 256) have ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -416,8 +426,11 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)(?:_split)?"
                               r"_tc_kernelILi(\d+)E", line)
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
+                sl = re.search(r"flash_fwd_sliced_tc_kernelILi(\d+)E", line)
                 p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
+                        f"flash_fwd_sliced_tc bf16 OWN={sl.group(1)}" if sl
+                        else
                         f"paged_prefill_tc bf16 D={p.group(1)}" if p else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
                         if c else "fused_ce_fwd bf16"
@@ -440,6 +453,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                                                          "flash_dq",
                                                          "flash_dkdv")
                              for d in (192, 256)) + tuple(
+                             f"flash_fwd_sliced_tc bf16 OWN={n}"
+                             for n in (3, 4)) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
                              for d in (32, 64, 128, 192, 256))
              if not counts.get(k, {}).get("HGMMA")]
@@ -674,8 +689,8 @@ def _decode_geometries(pa, gen):
 
 def _paged_call(pa, label, route, q, kp, vp, table, qs):
     """One ``paged_attention`` call, synchronised; raises unless it ran
-    ``route``'s kernel ("split", "tc" or "row"), as ``kernel_route``
-    names it and the counters show."""
+    ``route``'s kernel ("split", "tc", "row" or "row_sliced"), as
+    ``kernel_route`` names it and the counters show."""
     counts = pa.launches, pa.split_launches, pa.tc_launches
     got = pa.paged_attention(q, kp, vp, table, qs)
     torch.cuda.synchronize()
@@ -881,9 +896,10 @@ def _prefill_nan_pool(pa, gen):
 #: staging (f32 pages of 256 slots, a 4097-entry table of 256-slot
 #: pages), streamed in chunks of ``row_chunk_slots`` slots; bf16 pages of
 #: 300 and G 3 at 256, which the tensor-core kernel takes; and head dims
-#: 320, 512, 576 and 1024, which every call runs on the row-tile kernel's
-#: wide form, D a runtime value (an f32 D 512 pool of 64-slot pages takes
-#: chunks of 24, 24 and 16, an f32 D 1024 pool chunks of 8)
+#: 320, 512, 576 and 1024 and the caps (bf16 1792, f32 1152), which
+#: every call runs on the row-tile kernel's wide form, D a runtime value
+#: (an f32 D 512 pool of 64-slot pages takes chunks of 24, 24 and 16, an
+#: f32 D 1024 pool chunks of 8); past the caps its column-sliced form
 _POOL_GEOMETRIES = (
     ("s256-f32", 2, 300, 8, 2, 128, 256, 9, torch.float32, [0, 700],
      "row"),
@@ -916,19 +932,40 @@ _POOL_GEOMETRIES = (
      [0, 64, 191], "row"),
     ("d1024-s300", 1, 64, 2, 1, 1024, 300, 4, torch.bfloat16, [500],
      "row"),
+    # at the wide form's cap (1792 bf16, 1152 f32: one 8-slot chunk)
+    ("d1792", 2, 96, 4, 2, 1792, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d1152-f32", 2, 96, 4, 2, 1152, 16, 20, torch.float32, [0, 30],
+     "row"),
+    # past the wide form's cap (1792 bf16, 1152 f32): its column-sliced
+    # form (4, 4 and 3 slices of 512 columns), prefill and decode
+    ("d1856", 2, 96, 4, 2, 1856, 16, 20, torch.bfloat16, [0, 30],
+     "row_sliced"),
+    ("d1856-decode", 3, 1, 4, 2, 1856, 16, 12, torch.bfloat16,
+     [0, 64, 191], "row_sliced"),
+    ("d2048", 2, 96, 4, 2, 2048, 16, 20, torch.bfloat16, [0, 30],
+     "row_sliced"),
+    ("d2048-s300", 1, 64, 2, 1, 2048, 300, 4, torch.bfloat16, [500],
+     "row_sliced"),
+    ("d1216-f32", 2, 96, 4, 2, 1216, 16, 20, torch.float32, [0, 30],
+     "row_sliced"),
+    ("d1216-f32-decode", 3, 1, 4, 2, 1216, 16, 12, torch.float32,
+     [0, 64, 191], "row_sliced"),
 )
 #: the rows of ``_POOL_GEOMETRIES`` timed beside their bound, plain
-#: version and library calls: the ``[serve]`` tail's 300-slot pages and
+#: version and library calls: the ``[serve]`` tail's 300-slot pages,
 #: the bf16 prefill rows of the wide row-tile kernel at head dims 512,
-#: 576 and 1024
-_POOL_TIMED = ("s300", "d512", "d576", "d1024")
+#: 576, 1024 and 1792 (its cap), and the sliced form's prefill rows at
+#: bf16 D 1856 and 2048 and f32 D 1216
+_POOL_TIMED = ("s300", "d512", "d576", "d1024", "d1792", "d1856", "d2048",
+               "d1216-f32")
 
 
 def _pool_geometries(pa, gen):
     """Every row of ``_POOL_GEOMETRIES``: the route it took and the
     kernel against ``paged_attention_ref`` within ``_PAGED_TOL`` (the
-    row-tile kernel also against ``paged_attention_row_ref``, with its
-    chunk ``row_chunk_slots``; the tensor-core kernel against
+    row-tile kernel, its sliced form too, also against
+    ``paged_attention_row_ref``, with its chunk ``row_chunk_slots``; the
+    tensor-core kernel against
     ``paged_attention_tile_ref``); ``_POOL_TIMED`` timed too. Returns the
     rows by label."""
     rows = {}
@@ -943,7 +980,7 @@ def _pool_geometries(pa, gen):
                                   _PAGED_TOL[dtype])
         rows[label] = dict(route=route, max_abs_err=err,
                            worst_err_over_limit=worst)
-        if route == "row":
+        if route in ("row", "row_sliced"):
             rows[label].update(
                 chunk_slots=pa.row_chunk_slots(d, s, dtype),
                 vs_row_ref=_row_check(pa, f"pool geometry {label}", got,
@@ -1530,7 +1567,14 @@ def _flash_tails(fa, gen):
     D 128 (64-key forward tiles, one-warpgroup dq, the split dk/dv
     kernel; f32 tiles of 32 rows), both causal and not in each dtype;
     320, 384 and 512 the D-sliced kernels (5, 6 and 8 slices of 64
-    columns), both causal and not in each dtype."""
+    columns), both causal and not in each dtype, and in bf16 also 448,
+    576, 640 and 1024: the bf16 forward past 256 on the sliced
+    tensor-core kernel (slices of 3 + 2, 3 + 3, 4 + 3, 4 + 4, 3 x 3, 4 +
+    4 + 2 and 4 x 4 chunks, Q resident up to 576 and streamed past it;
+    query tiles paired where the causal grid fits one wave, and unpaired
+    at B4 S1000 H8 D512, 512 CTAs; its SASS is held to HGMMA by
+    ``_check_tensor_cores``), dq and dk/dv on the CUDA-core ones; f32 at
+    576 and 1024 too."""
     for b, sq, skv, h, d, causal, dtype in (
             (2, 100, 100, 3, 32, True, torch.float32),
             (1, 130, 200, 2, 32, False, torch.float32),
@@ -1553,12 +1597,20 @@ def _flash_tails(fa, gen):
             (1, 130, 200, 2, 256, False, torch.float32),
             (1, 200, 200, 2, 256, True, torch.bfloat16),
             (1, 130, 77, 2, 256, False, torch.bfloat16),
-            *((b_, sq_, skv_, 2, d_, c_, t_) for d_ in (320, 384, 512)
+            *((b_, sq_, skv_, 2, d_, c_, t_)
+              for d_ in (320, 384, 512, 576, 1024)
               for b_, sq_, skv_, c_, t_ in (
                   (2, 200, 200, True, torch.float32),
                   (1, 130, 200, False, torch.float32),
                   (2, 200, 200, True, torch.bfloat16),
-                  (1, 200, 136, False, torch.bfloat16)))):
+                  (1, 200, 136, False, torch.bfloat16))),
+            *((b_, sq_, skv_, 2, d_, c_, torch.bfloat16)
+              for d_ in (448, 640)
+              for b_, sq_, skv_, c_ in ((2, 200, 200, True),
+                                        (1, 130, 77, False))),
+            # a causal bf16 grid past one wave of the card (512 CTAs):
+            # the sliced forward's query tiles unpaired, heaviest first
+            (4, 1000, 1000, 8, 512, True, torch.bfloat16)):
         q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
                  .to(_DEV) for _ in range(2))
         k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
@@ -1632,7 +1684,8 @@ def _flash_timed(fa, gen, b, s, h, d):
         for kname, (kern, plain, halves, lib, err) in kernels.items():
             bound, by = _flash_bound(b, s, h, d, dtype, halves)
             ms = _time_ms(kern)
-            row = dict(max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
+            row = dict(kernel=fa.flash_route(dtype, d, kname[6:]),
+                       max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
                        bound_ms=bound, bound_by=by, library_ms=lib,
                        tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
                        share_of_bound=bound / ms)
@@ -1650,6 +1703,50 @@ def _flash_timed(fa, gen, b, s, h, d):
         del q, k, v, do, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return rows
+
+
+def _flash_fwd_main_shape(fa, gen):
+    """The bf16 forward past D 256 at ``[perf]``'s ``-m attention`` D 512
+    shape (``_PERF_ATTENTION``'s last: B4 S4096 H2, causal; 512 CTAs, so
+    the query tiles unpaired, as the main path runs them): o and lse held
+    against ``flash_fwd_ref`` within ``_FLASH_TOL``, then timed beside its
+    bound, its plain version and SDPA's forward. The ``{"kernels"}``
+    line's D 512 forward row."""
+    import torch.nn.functional as F
+    a = _PERF_ATTENTION[-1]
+    b, s, h, d = a["batch"], a["seq"], a["heads"], a["head_dim"]
+    scale = d ** -0.5
+    q, k, v = (torch.randn((b, s, h, d), generator=gen)
+               .to(torch.bfloat16).to(_DEV) for _ in range(3))
+    got = fa.flash_fwd(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    want = fa.flash_fwd_ref(q, k, v, scale, True)
+    label = f"B={b} S={s} H={h} D={d} causal bfloat16"
+    errs, worst = {}, {}
+    for what, g, w in zip(("o", "lse"), got, want):
+        errs[what], worst[what] = _flash_err(what, g, w)
+        if not (torch.isfinite(g).all() and worst[what] <= 1):
+            raise AssertionError(
+                f"flash_fwd {what} {label}: max abs err {errs[what]}, "
+                f"{worst[what]} x its limit")
+    del got, want
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bound, by = _flash_bound(b, s, h, d, torch.bfloat16, 2)
+    ms = _time_ms(lambda: fa.flash_fwd(q, k, v, scale, True))
+    row = dict(kernel=fa.flash_route(torch.bfloat16, d), max_abs_err=max(
+        errs.values()), ms=ms, plain_ms=_time_ms(
+            lambda: fa.flash_fwd_ref(q, k, v, scale, True)),
+        bound_ms=bound, bound_by=by, library_ms=_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True)),
+        tflops=_flash_flops(b, s, h, d, 2) / ms / 1e9,
+        share_of_bound=bound / ms)
+    print(f"[kernels] flash_fwd[bfloat16] {label} (the main path's shape) "
+          + json.dumps(row) + " worst error / limit " + json.dumps(worst),
+          flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 def _flash_narrow(fa, gen):
@@ -1682,7 +1779,10 @@ def phase_flash(fa, gen):
     256) and f32 (CUDA cores); SDPA as the library yardstick. Each row
     also gives the kernel's rate over the causal half's operations and
     its share of the bound (bound_ms / ms). Rows by (kernel, dtype, head
-    dim)."""
+    dim); under "fwd_main_shape" the bf16 forward past D 256 held and
+    timed at ``-m attention``'s B4 S4096 H2 D512 as well (at B2 S2048 its
+    causal grid fits one wave of SMs and pairs its query tiles; at B4
+    S4096 it does not)."""
     _flash_tails(fa, gen)
     _flash_narrow(fa, gen)
     rows = {}
@@ -1692,6 +1792,7 @@ def phase_flash(fa, gen):
                          for w in (_FLASH_WIDE, _FLASH_SLICED))):
         for (kname, dtype), row in _flash_timed(fa, gen, b, s, h, d).items():
             rows[(kname, dtype, d)] = row
+    rows["fwd_main_shape"] = _flash_fwd_main_shape(fa, gen)
     return rows
 
 
@@ -2507,7 +2608,8 @@ def main(argv=None) -> int:
     err = max([r["max_abs_err"] for k, r in rows.items()
                if k.startswith("decode") or k == "dense_cache"]
               + [r["max_abs_err"] for r in geo if r["route"] == "split"])
-    row_err = max(r["max_abs_err"] for r in geo if r["route"] == "row")
+    row_err = max(r["max_abs_err"] for r in geo
+                  if r["route"] in ("row", "row_sliced"))
     pre_err = max([rows["prefill"]["max_abs_err"],
                    rows["prefill_nan_pool"]["max_abs_err"]]
                   + [r["max_abs_err"]
@@ -2534,7 +2636,8 @@ def main(argv=None) -> int:
         "max_abs_err": pre_err,
         **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_gather_ms")}})
-    # the row-tile kernel (its wide form past D 256 among its errors):
+    # the row-tile kernel (its wide form past D 256 and its sliced form
+    # past the wide form's cap among its errors):
     # timed at Falcon-7B's prefill (G 71, past the tensor cores' 64), its
     # launches those of [serve]'s Falcon-7B tail, every call of which it
     # runs
@@ -2554,17 +2657,23 @@ def main(argv=None) -> int:
             "library_ms")
     # and the D 256 rows: the kernels past D 128, timed at B4 S2048 H4
     # D256, their launches those of the D 256 [train] run; and the D 512
-    # rows: the D-sliced kernels, timed at B2 S2048 H2 D512, their
-    # launches those of [perf]'s -m attention at D 512
+    # rows, their launches those of [perf]'s -m attention at D 512: the
+    # sliced tensor-core forward timed at that run's shape (B4 S4096 H2,
+    # query tiles unpaired), the D-sliced CUDA-core dq and dk/dv at B2
+    # S2048 H2
     for d, counts, suffix in ((128, flash_launches, ""),
                               (256, wide_launches, "_d256"),
                               (512, sliced_launches, "_d512")):
         for name, line, count in (("flash_fwd", 190, "fwd"),
                                   ("flash_dq", 306, "dq"),
                                   ("flash_dkdv", 322, "dkdv")):
-            row = flash_rows[(name, torch.bfloat16, d)]
+            row = (flash_rows["fwd_main_shape"] if (name, d) == (
+                "flash_fwd", 512) else flash_rows[(name, torch.bfloat16, d)])
+            # past D 256 the bf16 forward is the sliced tensor-core kernel
+            kname = ("flash_fwd_sliced_tc" if fa.flash_route(
+                torch.bfloat16, d, count) == "sliced_tc" else name)
             kernels.append({
-                "name": name + suffix, "route": "cuda",
+                "name": kname + suffix, "route": "cuda",
                 "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
                 "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:"
                             f"{line}",

@@ -10,7 +10,9 @@ H·D = 1024 (H8 at D 128), causal, in bf16 (tensor cores) and f32 (CUDA
 cores). For each head dim and dtype it prints whether the two versions'
 outputs are bit-equal (the kernels use no atomics, so unchanged code
 gives equal bits) and each version's worst error over ``chip_smoke.py``'s
-limits against the plain versions, then times the kernels in turns
+limits against the plain versions (bit-equality also output by output:
+where this checkout routes a call to a new kernel, ``flash_route`` of
+each version is printed beside it), then times the kernels in turns
 (this, other, other, this; ``chip_smoke._time_ms`` each: L2 flushed,
 median of 20): one line per kernel with both versions' times and the
 ratio of their means (this / other). Last, the card's name and power
@@ -110,9 +112,13 @@ def _ab(fns, gen, b, s, d, dtype, card):
                  for (what, w), x in zip(worst[version].items(),
                                          outs[version])
                  if not (w <= 1.0 and torch.isfinite(x).all())]
-    equal = all(torch.equal(a, b) for a, b in zip(*outs.values()))
-    print(f"[ab] check B={b} S={s} H={h} D={d} {name}: bit_equal={equal} "
-          f"worst error / limit " + json.dumps(worst), flush=True)
+    each = {what: torch.equal(x, y) for what, x, y in
+            zip(("o", "lse", "dq", "dk", "dv"), *outs.values())}
+    routes = {k: fa.flash_route(dtype, d, k) for k in ("fwd", "dq", "dkdv")}
+    print(f"[ab] check B={b} S={s} H={h} D={d} {name}: bit_equal="
+          f"{all(each.values())} by output {json.dumps(each)} this "
+          f"checkout's routes {json.dumps(routes)} worst error / limit "
+          + json.dumps(worst), flush=True)
     calls = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True),
         "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, scale,

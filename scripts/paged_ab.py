@@ -15,15 +15,24 @@ of 24 and 256 and chunked rows), the rows that took the row-tile kernel
 with one chunk a page before the tensor-core kernel took every bf16 page
 size (an f32 pool, pages of 7, f32 at D 192, pages of 12 at D 192),
 Qwen2.5's G 7 and G 5 at the T 512 bucket, Falcon-7B's G 71, and
-``_POOL_GEOMETRIES``' 300-slot pages and head dims 320 and 512 (prefill
-and decode, bf16 and f32).
+``_POOL_GEOMETRIES``' 300-slot pages and head dims 320, 512, 576, 1024
+and the wide kernel's caps, bf16 1792 and f32 1152 (prefill and decode,
+bf16 and f32; the wide kernel's head dims up to its cap, which must
+keep their route and bits).
+
+With ``--sliced`` instead of ``--other``, the other version is this
+checkout's source with every head dim past 256 routed to the row-tile
+kernel's column-sliced form (``SLICED_EVERYWHERE``: exact text
+replacements, exit 1 if one is not found), and only the cases past D
+256 run: the sliced form against the wide kernel at the head dims the
+wide kernel takes.
 
 The two versions may take different routes on a case. Each C entry is
 run through ``paged_attention._launch`` (the wrapper's launch, after
 its checks) and reports the route it took: this checkout's is held to
 its ``kernel_route``, the other's is printed as it reported it. For each
-case it prints both routes, whether the two outputs are bit-equal (where
-both took one route; else null) and each version's worst error over
+case it prints both routes, whether the two outputs are bit-equal and
+each version's worst error over
 ``chip_smoke._PAGED_TOL`` against the plain version, then times the
 calls in turns (this, other, other, this; ``chip_smoke._time_ms`` each:
 L2 flushed, median of 20): one line per case with both versions' times
@@ -32,7 +41,7 @@ power limit. It exits 1 if any output of either version is non-finite or
 past its limit, or this checkout's route is not its ``kernel_route``,
 after every case has been checked and timed.
 
-    python3 scripts/paged_ab.py --other DIR [--seed N]
+    python3 scripts/paged_ab.py (--other DIR | --sliced) [--seed N]
 """
 from __future__ import annotations
 
@@ -59,7 +68,17 @@ _ORDER = ("this", "other", "other", "this")
 _GEOMETRY_CASES = ("d64", "d256", "s24", "chunked", "d192", "s256",
                    "f32-pools", "s7", "d192-f32", "d192-s12", "qwen7b-g7",
                    "qwen14b-g5", "falcon7b-g71", "s300", "d320",
-                   "d320-decode", "d512", "d512-decode", "d512-f32-s64")
+                   "d320-decode", "d512", "d512-decode", "d512-f32-s64",
+                   "d576", "d576-f32", "d1024", "d1024-f32",
+                   "d1024-decode", "d1024-f32-decode", "d1792",
+                   "d1152-f32")
+#: (text of paged_attention.cu, its replacement) that route every head
+#: dim past 256 to the column-sliced row-tile kernel
+SLICED_EVERYWHERE = (
+    ("    return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : "
+     "kRouteRow;", "    return kRouteRowSliced;"),
+    ("  if (D % 64 != 0 || D <= wide_max_d(sizeof(T))) return -1;",
+     "  if (D % 64 != 0) return -1;"))
 
 
 def _cases(gen):
@@ -84,19 +103,29 @@ def _cases(gen):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True,
-                    help="directory holding the other paged_attention.cu")
+    other = ap.add_mutually_exclusive_group(required=True)
+    other.add_argument("--other",
+                       help="directory holding the other paged_attention.cu")
+    other.add_argument("--sliced", action="store_true",
+                       help="the other version: this source with every D "
+                            "past 256 on the column-sliced form")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("paged_ab: CUDA is not available", file=sys.stderr)
         return 2
-    sources = {"this": (ROOT / "bigdl_tpu_torch/csrc/paged_attention.cu")
-               .read_text(),
-               "other": (Path(args.other) / "paged_attention.cu")
-               .read_text()}
-    card = cs._card()
+    this = (ROOT / "bigdl_tpu_torch/csrc/paged_attention.cu").read_text()
     past = []
+    if args.sliced:
+        theirs = this
+        for old, new in SLICED_EVERYWHERE:
+            if theirs.count(old) != 1:
+                past.append(f"replacement text not found: {old.strip()!r}")
+            theirs = theirs.replace(old, new)
+    else:
+        theirs = (Path(args.other) / "paged_attention.cu").read_text()
+    sources = {"this": this, "other": theirs}
+    card = cs._card()
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(sources)) as pool:
             fns = dict(zip(sources, pool.map(
@@ -105,7 +134,8 @@ def main(argv=None) -> int:
                 sources.items())))
         cs._warm_card()
         for label, case in _cases(torch.Generator().manual_seed(args.seed)):
-            past += _ab(fns, label, case, card)
+            if not args.sliced or case[0].shape[-1] > 256:
+                past += _ab(fns, label, case, card)
     if past:
         print("[ab] past the limit, non-finite or off its route: "
               + "; ".join(past), flush=True)
@@ -141,10 +171,8 @@ def _ab(fns, label, case, card):
     times = {"this": [], "other": []}
     for version in _ORDER:
         times[version].append(cs._time_ms(calls[version]))
-    same = routes["this"] == routes["other"]
     row = dict(routes=routes,
-               bit_equal=torch.equal(outs["this"], outs["other"])
-               if same else None,
+               bit_equal=torch.equal(outs["this"], outs["other"]),
                worst_error_over_limit=worst, this_ms=times["this"],
                other_ms=times["other"],
                ratio=float(np.mean(times["this"])

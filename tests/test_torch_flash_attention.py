@@ -15,6 +15,9 @@ bf16): 2e-2 absolute on values of order 1 — one bf16 rounding step
 (2^-8 relative) of the output, plus P rounded to bf16 at different
 points of the two online softmaxes; lse stays f32 and is held at 1e-4.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -244,18 +247,69 @@ def test_flash_supported_head_dims():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,d", [(2, 128, 192), (1, 128, 256),
                                    (1, 128, 320), (1, 128, 384),
-                                   (1, 128, 512)],
-                         ids=["d192", "d256", "d320", "d384", "d512"])
+                                   (1, 128, 512), (1, 128, 576),
+                                   (1, 128, 1024)],
+                         ids=["d192", "d256", "d320", "d384", "d512",
+                              "d576", "d1024"])
 def test_flash_matches_jax_kernel_at_wide_head_dims(b, s, d, causal,
                                                      dtype):
     """Head dims 192 and 256 (Gemma's heads are 256 wide), which the
     card's kernels take with tiles of their own (64-key forward tiles,
     one-warpgroup dq CTAs, dk and dv split between the warpgroups; f32
-    tiles of 32 rows), and 320, 384 and 512, which they take D-sliced (a
-    CTA per 64 output columns, the scores summed over 64-column chunks):
-    (B, S128, H2, D) against the JAX kernel at the file's tolerances. In
+    tiles of 32 rows), and 320, 384, 512, 576 and 1024, which they take
+    D-sliced (the scores summed over 64-column chunks; a CTA per 64
+    output columns, or per slice of up to 256 in the bf16 forward, with
+    Q resident at D 576 and streamed at 1024: ``flash_route``):
+    (B, S, H2, D) against the JAX kernel at the file's tolerances. In
     bf16 a wider head changes nothing they rest on:
     o, dv and dq/dk are sums over keys of bf16-rounded P or dS times
     unit-variance values, at the same S as the D 64 case, and the extra
     dims only lengthen f32 sums of exact bf16 products."""
     _check_against_jax_kernel(b, s, 2, d, causal, dtype)
+
+
+def test_flash_route_matches_the_c_dispatch():
+    """``flash_route`` against ``BIGDL_FLASH_DISPATCH`` and its three
+    uses in csrc/flash_attention.cu, for every head dim that is a
+    multiple of 32 up to 4096, each dtype and kernel: the head dims with
+    kernels of their own (``tc::`` for bf16, the CUDA-core templates for
+    f32), and past 256 the sliced CUDA-core kernels for f32 and the
+    entry's own bf16 choice — ``tc::fwd_sliced`` (which launches
+    ``flash_fwd_sliced_tc_kernel``) for the forward, the sliced
+    CUDA-core dq and dk/dv for the backward."""
+    src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+    macro = src[src.index("#define BIGDL_FLASH_DISPATCH(FN, WIDE_BF16, "):]
+    macro = macro[:macro.index("} while (0)")]
+    own = {(int(dt), int(d)): "tc" if ns else "cuda_cores"
+           for dt, d, ns in re.findall(
+               r"if \(dtype == (\d) && D == (\d+)\) return (tc::)?FN<",
+               macro)}
+    wide = dict(re.findall(r"if \(dtype == (\d) && D > 256 && D % 64 == 0\)"
+                           r"\s*\\\s*return (\S+)\(D, __VA_ARGS__\);",
+                           macro))
+    assert wide == {"0": "sliced::FN<float>", "1": "WIDE_BF16"}
+    launcher = src[src.index("int fwd_sliced_own("):]
+    assert "flash_fwd_sliced_tc_kernel<OWN>" in launcher[:launcher.index(
+        "\n}\n")]
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    for kernel in ("fwd", "dq", "dkdv"):
+        bf16_wide = re.search(rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+),",
+                              src)[1]
+        assert bf16_wide == {"fwd": "tc::fwd_sliced",
+                             "dq": "sliced::dq<__nv_bfloat16>",
+                             "dkdv": "sliced::dkdv<__nv_bfloat16>"}[kernel]
+        for dtype, code in codes.items():
+            for d in range(32, 4097, 32):
+                if (code, d) in own:
+                    want = own[(code, d)]
+                elif d > 256 and d % 64 == 0:
+                    want = ("sliced" if code == 0 or bf16_wide.startswith(
+                        "sliced::") else "sliced_tc")
+                else:
+                    want = None
+                assert tfa.flash_route(dtype, d, kernel) == want, \
+                    (kernel, dtype, d)
+    assert tfa.flash_route(torch.float16, 128) is None
+    assert all(tfa.flash_route(torch.bfloat16, d) == "sliced_tc"
+               for d in (320, 384, 448, 512, 576, 1024))

@@ -182,6 +182,37 @@ def test_wide_heads_and_large_pages_match_jax(case, dtype):
                  fn=tpa.paged_attention_row_ref)
 
 
+# (B, T, H, KV, D, page size, table entries, q_start of each row, pool
+# dtype): head dims past the row-tile kernel's wide form (1152 f32, 1792
+# bf16), which run its column-sliced form (4 and 3 slices of 512
+# columns, the last one narrower): decode and prefill, pages of 8 and of
+# 12 (S % 8 != 0: a short last key group a page), G 2 and 3
+_PAST_CAP_CASES = {
+    "d1856-bf16-decode": (2, 1, 4, 2, 1856, 8, 3, [0, 17], "bf16"),
+    "d1856-bf16-prefill": (2, 5, 6, 2, 1856, 12, 3, [0, 20], "bf16"),
+    "d1216-f32-decode": (2, 1, 4, 2, 1216, 8, 3, [3, 20], "f32"),
+    "d1216-f32-prefill": (2, 5, 6, 2, 1216, 12, 3, [0, 25], "f32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PAST_CAP_CASES))
+def test_past_the_wide_cap_matches_jax(case):
+    """Head dims past the wide form's cap (bf16 D 1856, f32 D 1216), which
+    the JAX kernel takes as it takes every multiple of 64: the route is
+    the sliced row-tile kernel's, and the plain version and the row-tile
+    kernel's arithmetic in its order (``paged_attention_row_ref``, which
+    the sliced form keeps) match the JAX kernel in interpret mode at the
+    file's tolerances."""
+    b, t, h, kv, d, s, p, starts, dtype = _PAST_CAP_CASES[case]
+    tdt = _DTYPES[dtype][1]
+    assert tpa.kernel_route(t, h, kv, d, s, p, tdt) == "row_sliced"
+    assert tpa.paged_kernel_supported(d, s, tdt, h, kv)
+    q, kp, vp, table = _geometry(b, t, h, kv, d, b * p + 1, s, p, seed=47)
+    _compare(q, kp, vp, table, starts, dtype)
+    _compare(q, kp, vp, table, starts, dtype,
+             fn=tpa.paged_attention_row_ref)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("s,q_start", [(8, [0, 37]), (12, [5, 50]),
                                        (7, [0, 30])],
@@ -452,6 +483,17 @@ _ROUTE_CASES = {
     "d576-prefill": ((64, 8, 2, 576, 16, 9, _F32), "row"),
     "d1024-decode": ((1, 8, 2, 1024, 16, 9, _F32), "row"),
     "d1024-prefill": ((64, 8, 2, 1024, 16, 9, _BF16), "row"),
+    # past the wide form's cap (1152 f32, 1792 bf16) its column-sliced
+    # form; at the cap the wide form
+    "d1152-f32": ((64, 8, 2, 1152, 16, 9, _F32), "row"),
+    "d1216-f32": ((64, 8, 2, 1216, 16, 9, _F32), "row_sliced"),
+    "d1216-f32-decode": ((1, 8, 2, 1216, 16, 9, _F32), "row_sliced"),
+    "d1792": ((64, 8, 2, 1792, 16, 9, _BF16), "row"),
+    "d1856": ((64, 8, 2, 1856, 16, 9, _BF16), "row_sliced"),
+    "d1856-decode": ((1, 8, 2, 1856, 16, 9, _BF16), "row_sliced"),
+    "d2048": ((64, 8, 2, 2048, 300, 9, _BF16), "row_sliced"),
+    "d4096": ((1, 8, 2, 4096, 16, 9, _BF16), "row_sliced"),
+    "d4096-f32": ((64, 8, 2, 4096, 16, 9, _F32), "row_sliced"),
 }
 
 
@@ -492,14 +534,21 @@ def test_route_constants_match_the_c_entry():
     assert ("dtype == 1 && G <= tc::kWgRows && P <= tc::kTcMaxPages"
             in route_of)
     assert "S" not in route_of.split("kRouteSplit;")[1]
-    assert route_of.index("if (D > kRowOnlyPast) return kRouteRow;") \
+    assert route_of.index("if (D > kRowOnlyPast)") \
         < route_of.index("kSplitRows")
+    assert ("return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : "
+            "kRouteRow;" in route_of)
+    assert (re.search(r"enum Route \{ kRouteSplit = 0, kRouteTc = 1, "
+                      r"kRouteRow = 2,\s+kRouteRowSliced = 3 \};", src)
+            and tpa._ROUTES == ("split", "tc", "row", "row_sliced"))
     assert "while (gp < G) gp <<= 1;" in body("inline int pad_group(")
     assert ("return (S + kSlotPad - 1) / kSlotPad * kSlotPad;"
             in body("inline int pad_slots("))
     assert ("S8 % 64 == 0 ? 64 : S8 % 32 == 0 ? 32 : S8 % 16 == 0 ? 16 : 8"
             in body("inline int box_rows("))
     chunk = body("int row_chunk_slots(")
+    assert ("if (D > wide_max_d(elt)) return S < kKeyChunk ? S : kKeyChunk;"
+            in chunk)
     assert ("const int fit = (kSmemMax - row_fixed_bytes(D)) / (4 * D * elt);"
             in chunk)
     assert "return S <= fit ? S : fit / kKeyChunk * kKeyChunk;" in chunk
@@ -508,6 +557,9 @@ def test_route_constants_match_the_c_entry():
     assert ("return kSmemMax / (4 * kKeyChunk * elt + 2 * kWideRows * 4) / "
             "64 * 64;" in body("constexpr int wide_max_d("))
     assert "D > wide_max_d(sizeof(T))) return -1;" in body("int launch_wide(")
+    assert ("D <= wide_max_d(sizeof(T))) return -1;"
+            in body("int launch_sliced("))
+    assert const("kSliceCols") == tpa._SLICE_COLS
 
 
 @pytest.mark.parametrize("g,gp", [(1, 1), (2, 2), (3, 4), (5, 8), (6, 8),
@@ -523,20 +575,29 @@ def test_group_padding(g, gp):
 @pytest.mark.parametrize("dtype,cap", [(torch.float32, 1152),
                                        (torch.bfloat16, 1792)])
 def test_wide_head_dim_cap(dtype, cap):
-    """Past head dim 256 the row-tile kernel takes every multiple of 64
-    whose smallest chunk (8 slots of K and V, double buffered) fits
-    232,448 bytes beside q and the f32 accumulator of the CTA's 8 rows;
-    the next multiple of 64 does not fit, and is refused."""
+    """Past head dim 256 the row-tile kernel's wide form takes every
+    multiple of 64 whose smallest chunk (8 slots of K and V, double
+    buffered) fits 232,448 bytes beside q and the f32 accumulator of the
+    CTA's 8 rows; the next multiple of 64 does not fit and runs the
+    column-sliced form, whose shared memory (2 stages of q and K pieces,
+    2 groups of V rows, the accumulator of a 512-column slice) fits
+    whatever the head dim: every multiple of 64 is taken, as the JAX
+    ``paged_supported`` takes it, and no other head dim past 256."""
     elt = torch.empty((), dtype=dtype).element_size()
     assert tpa.wide_max_head_dim(dtype) == cap
     assert 4 * 8 * cap * elt + 64 * cap <= tpa._SMEM_LIMIT
     assert 4 * 8 * (cap + 64) * elt + 64 * (cap + 64) > tpa._SMEM_LIMIT
     assert tpa.row_chunk_slots(cap, 4096, dtype) == 8
+    assert tpa.kernel_route(64, 8, 2, cap, 16, 9, dtype) == "row"
+    assert tpa.kernel_route(64, 8, 2, cap + 64, 16, 9, dtype) == "row_sliced"
+    sliced = 48 * tpa._SLICE_COLS * elt + 8 * tpa._SLICE_COLS * 4
+    assert sliced <= tpa._SMEM_LIMIT // 2
     assert tpa.paged_kernel_supported(cap, 16, dtype, 8, 2)
-    assert not tpa.paged_kernel_supported(cap + 64, 16, dtype, 8, 2)
+    assert tpa.paged_kernel_supported(cap + 64, 16, dtype, 8, 2)
     assert all(tpa.paged_kernel_supported(d, 7, dtype, 4, 2)
-               for d in range(576, cap + 1, 64))
+               for d in range(576, 4096 + 1, 64))
     assert not tpa.paged_kernel_supported(600, 16, dtype, 8, 2)
+    assert not tpa.paged_kernel_supported(cap + 32, 16, dtype, 8, 2)
 
 
 @pytest.mark.parametrize("d,s,dtype,want", [
@@ -547,17 +608,23 @@ def test_wide_head_dim_cap(dtype, cap):
     (320, 7, torch.bfloat16, 7), (512, 4096, torch.bfloat16, 48),
     (576, 16, torch.bfloat16, 16), (576, 300, torch.bfloat16, 40),
     (1024, 16, torch.float32, 8), (1024, 16, torch.bfloat16, 16),
-    (1024, 300, torch.bfloat16, 16), (1792, 64, torch.bfloat16, 8)])
+    (1024, 300, torch.bfloat16, 16), (1792, 64, torch.bfloat16, 8),
+    (1856, 64, torch.bfloat16, 8), (1216, 300, torch.float32, 8),
+    (2048, 7, torch.bfloat16, 7), (4096, 16, torch.float32, 8)])
 def test_row_chunk_slots(d, s, dtype, want):
     """The row-tile kernel's chunk: the whole page where 4·S·D·bytes fit
     232,448 bytes of shared memory beside the CTA's fixed part (past head
     dim 256, q and the f32 accumulator of its 8 rows: 64·D bytes; so such
     pages run the loop they ran before chunks), else the most slots that
-    fit in a multiple of 8."""
+    fit in a multiple of 8; past the wide form's cap (its column-sliced
+    form) one 8-key group, or the page where it is shorter."""
     c = tpa.row_chunk_slots(d, s, dtype)
     elt = torch.empty((), dtype=dtype).element_size()
     fixed = 64 * d if d > 256 else 0
     assert c == want
+    if d > tpa.wide_max_head_dim(dtype):
+        assert c == min(s, 8)
+        return
     assert 4 * c * d * elt + fixed <= tpa._SMEM_LIMIT
     assert c == s or (c % 8 == 0 and 4 * (c + 8) * d * elt + fixed
                       > tpa._SMEM_LIMIT)
@@ -664,18 +731,21 @@ class TestNoSilentFallback:
         "d192": ((192, 16, torch.bfloat16, 1, 1), True),
         "d192-f32": ((192, 16, torch.float32, 1, 1), True),
         # past 256 the row-tile kernel takes every call, at every
-        # multiple of 64 (288 is refused, as the JAX kernel refuses it)
-        # up to the head dim whose smallest K/V chunk still fits shared
-        # memory beside q and the accumulator: 1152 for f32, 1792 bf16
+        # multiple of 64 (288 is refused, as the JAX kernel refuses it):
+        # its wide form up to 1152 for f32 and 1792 for bf16, its
+        # column-sliced form past them
         "d320": ((320, 16, torch.bfloat16, 1, 1), True),
         "d288": ((288, 16, torch.bfloat16, 1, 1), False),
         "d512-f32": ((512, 16, torch.float32, 8, 2), True),
         "d576": ((576, 16, torch.bfloat16, 1, 1), True),
         "d1024-f32": ((1024, 16, torch.float32, 8, 2), True),
         "d1152-f32": ((1152, 16, torch.float32, 8, 2), True),
-        "d1216-f32": ((1216, 16, torch.float32, 8, 2), False),
+        "d1216-f32": ((1216, 16, torch.float32, 8, 2), True),
         "d1792": ((1792, 300, torch.bfloat16, 8, 2), True),
-        "d1856": ((1856, 16, torch.bfloat16, 8, 2), False),
+        "d1856": ((1856, 16, torch.bfloat16, 8, 2), True),
+        "d2048": ((2048, 16, torch.bfloat16, 8, 2), True),
+        "d4096-f32": ((4096, 300, torch.float32, 8, 2), True),
+        "d1880": ((1880, 16, torch.bfloat16, 8, 2), False),
         "d1000": ((1000, 16, torch.bfloat16, 1, 1), False),
         # every route takes any page size: the row-tile kernel streams a
         # page in chunks of slots
@@ -705,9 +775,8 @@ class TestNoSilentFallback:
     @pytest.mark.parametrize("case", sorted(_GEOMETRIES))
     def test_auto_consults_the_pool_geometry(self, case):
         """``paged_kernel_supported`` asks of a pool what the kernels
-        take (head dim in (32, 64, 128, 192, 256) or a multiple of 64 up
-        to 1152 for f32 and 1792 for bf16, any page size, G and table
-        width); "auto" takes the
+        take (head dim in (32, 64, 128, 192, 256) or any multiple of 64
+        past 256, any page size, G and table width); "auto" takes the
         kernel for a CUDA pool where it holds and refuses the pool where
         it does not, naming "dense"; "kernel" and "dense" are taken as
         asked."""
