@@ -22,11 +22,12 @@
 // multiple of 64 runs); otherwise a call whose T·G query
 // rows of a kv head fit one tile (T·G <= kSplitRows, every decode step)
 // takes the split-KV decode kernel; a bf16 call with more rows
-// (prefill) takes `paged_prefill_tc_kernel` at any page size, unless G >
-// kWgRows (64) or P > kTcMaxPages (4096). So the row-tile kernel keeps
-// four cases: f32 pools, D > 256, G > 64 and tables wider than 4096
-// entries. Every route takes any page size and table width. No call
-// reroutes after a failed map or launch: the entry returns the error.
+// (prefill, and decode past 16 rows: Falcon-7B's 71 heads over one kv
+// head) takes `paged_prefill_tc_kernel` at any page size and any G,
+// unless P > kTcMaxPages (4096). So the row-tile kernel keeps three
+// cases: f32 pools, D > 256 and tables wider than 4096 entries. Every
+// route takes any page size, G and table width. No call reroutes after
+// a failed map or launch: the entry returns the error.
 //
 // paged_prefill_tc_kernel (bf16 prefill, tensor cores):
 // - Bound: prefill of a 512-token bucket (H 8, KV 2, D 128) does 0.54
@@ -36,17 +37,40 @@
 //   waits on is latency: its chain of 1-8 key tiles, each a TMA load,
 //   two dependent products and the softmax between them.
 // - One CTA = one consumer warpgroup of 64 folded query rows of one (row
-//   b, kv head) and one producer warp. The G query heads of a kv head
-//   are padded to gp, the smallest power of two >= G (G itself where 64
-//   % G == 0): row r is query column t0 + r / gp, head h·G + r % gp, as
-//   the TPU kernel folds G, padded to a multiple of 8, into the matmul's
-//   rows. Q lands by one TMA load per 64-dim chunk from a 4-D (D, H, T,
-//   B) map with a box of (64, gp, 64/gp, 1): at (d0, h·G, t0, b) the
-//   box's rows are exactly the folded rows in order, [64 rows][128
-//   bytes] with 128-byte swizzle, the wgmma operand layout; columns past
-//   T read as zeros within row b. Rows with r % gp >= G hold the next
-//   group's heads (or zeros past H): computed, finite, never written.
-//   Grid (B·KV, ceil(T·gp / 64)).
+//   b, kv head) and one producer warp. Folded row R of a kv head is
+//   (query column, head) = divmod(R, F), head h·G + R % F, F the fold
+//   (fold_of); tile y holds rows 64·y to 64·y + 63. Grid (B·KV,
+//   ceil(T·F / 64)).
+//   - G <= 64: F = gp, G padded to the smallest power of two >= G (G
+//     itself where 64 % G == 0), as the TPU kernel folds G, padded to a
+//     multiple of 8, into the matmul's rows. Q lands by one TMA load per
+//     64-dim chunk from a 4-D (D, H, T, B) map with a box of (64, gp,
+//     64/gp, 1): at (d0, h·G, t0, b) the box's rows are exactly the
+//     folded rows in order, [64 rows][128 bytes] with 128-byte swizzle,
+//     the wgmma operand layout; columns past T read as zeros within row
+//     b. Rows with R % gp >= G hold the next group's heads (or zeros past
+//     H): computed, finite, never written.
+//   - G > 64: F = G, a flat fold, no padding (Falcon-7B: 71 query heads
+//     over one kv head). A tile spans at most two query columns, whose
+//     rows lie in two runs of heads where KV > 1, which no one box
+//     holds: the consumer warpgroup loads Q itself, once a CTA (64 x D
+//     bf16, 16-byte loads, 4 a thread at D 64, all issued before the
+//     first store: one load at a time took Falcon-7B's prefill 0.02518
+//     ms and its decode 0.01997, together 0.02322 and 0.01878 on one
+//     NVIDIA H100 80GB HBM3, scripts/paged_prefill_timeline.py), into
+//     the layout TMA's 128-byte swizzle gives (16-byte chunk j of row r
+//     at j ^ (r % 8) of its 128-byte row), zeros past T and D, then
+//     fences the async proxy and meets the other consumers at a named
+//     barrier before its first wgmma. Rows past T·G are computed on
+//     zeros, never written. A decode step (T 1) is ceil(G / 64) CTAs of
+//     (row, kv head): two at G 71, the second with 7 real rows.
+//   - Headroom (ptxas and the layout below, one NVIDIA H100 80GB HBM3):
+//     one kernel serves both folds, so G > 64 holds what G <= 64 holds.
+//     D 64: 118 registers, 74,832 + 4·P bytes of shared memory
+//     (8 KB of Q, 4 stages of 16 KB, barriers, page ids), so 3 CTAs an
+//     SM (registers and shared memory both); D 256, the widest: 228
+//     registers (212 before the flat fold), 164,912 + 4·P bytes, 1 CTA
+//     an SM. No spills.
 // - Keys come in tiles of 64 straight off the pools through the block
 //   table. Each page is padded to S8 = ceil(S / 8)·8 slots: slot s of
 //   page j is padded key j·S8 + s, and tiles walk padded keys. Each pool
@@ -86,11 +110,11 @@
 //   straight from the accumulator; padded rows and rows past T are not
 //   written.
 // - Tensor maps are encoded on the host per call (the pool pointer
-//   changes with each layer); at D 32 the 64-wide boxes reach past D and
-//   fill with zeros, as flash's do.
+//   changes with each layer; Q's only where G <= 64); at D 32 the
+//   64-wide boxes reach past D and fill with zeros, as flash's do.
 //
-// paged_attention_kernel (f32 pools, G > 64, P > 4096; past D 256 its
-// wide form, and past the wide form's cap its column-sliced form):
+// paged_attention_kernel (f32 pools, P > 4096; past D 256 its wide
+// form, and past the wide form's cap its column-sliced form):
 // - One CTA of 4 warps per (row b, kv head, tile of query rows). The G
 //   query heads that share a kv head fold into the tile's rows (row r is
 //   query column r / G, head r % G), as the TPU kernel folds them into the
@@ -1319,6 +1343,12 @@ constexpr int kTcKeys = 64;        // keys a tile
 constexpr int kTcMaxPages = 4096;  // block-table entries a CTA stages
 constexpr int kSlotPad = 8;        // a page's slots padded to a multiple
 
+// named barrier 1 over the consumer warpgroups' threads (the producer
+// warp is elsewhere)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
 // 64-wide column chunks of a D-wide tile (D 32: one, zero-filled past D)
 __host__ __device__ constexpr int chunks(int D) { return (D + 63) / 64; }
 // gp: the group of G query heads padded to a power of two, which divides
@@ -1327,6 +1357,11 @@ __host__ __device__ inline int pad_group(int G) {
   int gp = 1;
   while (gp < G) gp <<= 1;
   return gp;
+}
+// F: folded rows a query column takes, gp up to kWgRows heads, else G
+// itself (the flat fold, Q loaded by the consumers)
+__host__ __device__ inline int fold_of(int G) {
+  return G > kWgRows ? G : pad_group(G);
 }
 // S8: a page's slots padded to a multiple of kSlotPad (S where S % 8 == 0)
 __host__ __device__ inline int pad_slots(int S) {
@@ -1359,6 +1394,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
                         const __grid_constant__ CUtensorMap km,
                         const __grid_constant__ CUtensorMap vm,
+                        const __nv_bfloat16* __restrict__ q,
                         const int* __restrict__ table,
                         const int* __restrict__ q_start,
                         float* __restrict__ out, int T_, int H, int KV,
@@ -1369,10 +1405,11 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
   const int tid = threadIdx.x, g = tid / 128, w = (tid / 32) % 4;
   const int l = tid % 32;
   const int b = blockIdx.x / KV, h = blockIdx.x % KV, G = H / KV;
-  const int gp = pad_group(G), S8 = pad_slots(S);
+  const int F = fold_of(G), S8 = pad_slots(S);
+  const bool flat = G > kWgRows;         // Q loaded by the consumers
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // most keys first
-  const int t0 = r0 / gp;                // first query column (64 % gp == 0)
-  const int tn = min(T_ - t0, kTcRows / gp);  // query columns here
+  const int t0 = r0 / F;                 // first query column
+  const int tn = min(T_ - t0, (r0 + kTcRows - 1) / F - t0 + 1);  // columns
 
   // the row's page ids and q_start, read together, once, before any load
   unsigned char* const base =
@@ -1406,7 +1443,7 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     // past slot S - 1 where S % 8 != 0: those rows are out of bounds
     // too, zeros as well. Q's box holds gp heads from h·G: past G it
     // reads the next group's heads, or zeros past H.
-    if (l == 0) {
+    if (l == 0 && !flat) {
       bar_expect(ring.once(), Sh::kQ);
 #pragma unroll
       for (int c = 0; c < kC; ++c)
@@ -1430,17 +1467,48 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     return;
   }
 
-  // this thread's accumulator rows: folded rows rl and rl + 8; its
-  // warpgroup's first row sits at query position first_wg
+  // this thread's accumulator rows: folded rows rl and rl + 8 of the
+  // tile; its warpgroup's first row sits at query position first_wg
   const int rl = kWgRows * g + 16 * w + l / 4;
-  const int qpos[2] = {first + rl / gp, first + (rl + 8) / gp};
-  const int first_wg = first + kWgRows * g / gp;
+  const int qpos[2] = {qs + (r0 + rl) / F, qs + (r0 + rl + 8) / F};
+  const int first_wg = qs + (r0 + kWgRows * g) / F;
   const int klast = n_pages * S - 1;     // the last key loaded, unpadded
   const float scale2 = scale * 1.4426950408889634f;   // log2 e
   float acc[kC][32], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
 #pragma unroll
   for (int c = 0; c < kC; ++c) zero(acc[c]);
-  warp_wait(ring.once(), 0);
+  if (flat) {
+    // Q of the flat fold: 16-byte chunk j of 64-column chunk c of folded
+    // row r (query column R / G, head h·G + R % G) lands at chunk j ^ (r
+    // % 8) of its row, as TMA's 128-byte swizzle puts it; zeros past T
+    // and D. A thread issues all its kLoads loads before its first store,
+    // so they are in flight together. Fenced for the async proxy, then
+    // every consumer waits for every other's part before the first wgmma
+    constexpr int kLoads = kTcRows * kC * 8 / kConsumers;   // 4·kC
+    uint4 v[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = tid + i * kConsumers;
+      const int j = e % 8, c = e / 8 % kC, r = e / (8 * kC);
+      const int R = r0 + r, t = R / G, col = 64 * c + 8 * j;
+      v[i] = t < T_ && col < D
+                 ? *reinterpret_cast<const uint4*>(
+                       q + ((static_cast<int64_t>(b) * T_ + t) * H + h * G +
+                            R % G) * D + col)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = tid + i * kConsumers;
+      const int j = e % 8, c = e / 8 % kC, r = e / (8 * kC);
+      *reinterpret_cast<uint4*>(base + (c * kTcRows + r) * kRowBytes +
+                                16 * (j ^ (r % 8))) = v[i];
+    }
+    fence_proxy_async();
+    consumers_sync();
+  } else {
+    warp_wait(ring.once(), 0);
+  }
 
   for (int kt = 0; kt < nkt; ++kt) {
     const int st = kt % kStages;
@@ -1549,16 +1617,16 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     if (l == 0) bar_arrive(ring.empty(st));
   }
 
-  // f32 rows straight from the accumulator: folded row rl + 8r is query
-  // column t0 + (rl + 8r) / gp, head h·G + (rl + 8r) % gp; the padded
-  // rows (a head past the group's G) are never written
+  // f32 rows straight from the accumulator: folded row R = r0 + rl + 8r
+  // is query column R / F, head h·G + R % F; the padded rows (a head
+  // past the group's G) and rows past T are never written
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float inv = 1.f / quad_sum(lsum[r]);
-    const int fr = rl + 8 * r, t = t0 + fr / gp;
-    if (t >= T_ || fr % gp >= G) continue;
+    const int fr = r0 + rl + 8 * r, t = fr / F;
+    if (t >= T_ || fr % F >= G) continue;
     float* const row =
-        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % gp) * D;
+        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % F) * D;
 #pragma unroll
     for (int c = 0; c < kC; ++c)
 #pragma unroll
@@ -1593,7 +1661,7 @@ int make_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
 template <int D>
 int launch(const Call& a) {
   using Sh = TcShape<D>;
-  const int G = a.H / a.KV, gp = pad_group(G);
+  const int G = a.H / a.KV, F = fold_of(G);
   const cuuint32_t br = box_rows(pad_slots(a.S));
   const cuuint64_t dq[4] = {static_cast<cuuint64_t>(D),
                             static_cast<cuuint64_t>(a.H),
@@ -1603,20 +1671,21 @@ int launch(const Call& a) {
                             static_cast<cuuint64_t>(a.KV),
                             static_cast<cuuint64_t>(a.S),
                             static_cast<cuuint64_t>(a.NP)};
-  const cuuint32_t bq[4] = {64, static_cast<cuuint32_t>(gp),
-                            static_cast<cuuint32_t>(kTcRows / gp), 1};
+  const cuuint32_t bq[4] = {64, static_cast<cuuint32_t>(F),
+                            static_cast<cuuint32_t>(kTcRows / F), 1};
   const cuuint32_t bp[4] = {64, 1, br, 1};
-  CUtensorMap qm, km, vm;
-  if (int e = make_map(&qm, a.q, dq, bq)) return e;
+  CUtensorMap qm{}, km, vm;              // the flat fold has no Q map
+  if (G <= kWgRows)
+    if (int e = make_map(&qm, a.q, dq, bq)) return e;
   if (int e = make_map(&km, a.kp, dp, bp)) return e;
   if (int e = make_map(&vm, a.vp, dp, bp)) return e;
   const size_t smem = Sh::smem(a.P);
   auto kernel = paged_prefill_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(a.B * a.KV, (a.T * gp + kTcRows - 1) / kTcRows);
+  const dim3 grid(a.B * a.KV, (a.T * F + kTcRows - 1) / kTcRows);
   kernel<<<grid, kTcThreads, smem, a.stream>>>(
-      qm, km, vm, a.table, a.q_start, a.out, a.T, a.H, a.KV, a.S, a.P,
-      a.scale);
+      qm, km, vm, static_cast<const __nv_bfloat16*>(a.q), a.table,
+      a.q_start, a.out, a.T, a.H, a.KV, a.S, a.P, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1631,8 +1700,7 @@ Route route_of(int dtype, int T, int H, int KV, int D, int S, int P) {
   if (D > kRowOnlyPast)
     return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : kRouteRow;
   if (T * G <= kSplitRows) return kRouteSplit;
-  if (dtype == 1 && G <= tc::kWgRows && P <= tc::kTcMaxPages)
-    return kRouteTc;
+  if (dtype == 1 && P <= tc::kTcMaxPages) return kRouteTc;
   return kRouteRow;
 }
 

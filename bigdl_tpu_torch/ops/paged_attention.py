@@ -19,15 +19,17 @@ the route the entry reports):
   (row, kv head, split) writing an f32 partial (max, sum, accumulator) to
   a workspace allocated here, the last CTA of each (row, kv head) merging
   them; ``paged_attention_split_ref`` is its plain version.
-- ``"tc"``: a bf16 call with more rows (prefill) at head dim <= 256 runs
-  the tensor-core prefill kernel at any page size — ``wgmma`` products on
-  tiles of 64 folded query rows (the G heads of a kv head padded to a
-  power of two) and 64 keys (each page padded to a multiple of 8 slots)
-  that TMA reads straight off the pools through the block table —
-  unless G > 64 or the table holds more than 4096 entries a row;
+- ``"tc"``: a bf16 call with more rows (prefill, and decode past 16
+  rows: Falcon-7B's 71 heads over one kv head) at head dim <= 256 runs
+  the tensor-core prefill kernel at any page size and any G — ``wgmma``
+  products on tiles of 64 folded query rows (the G heads of a kv head
+  padded to a power of two up to G 64, past it folded flat: a tile then
+  spans two query columns) and 64 keys (each page padded to a multiple
+  of 8 slots) that TMA reads straight off the pools through the block
+  table — unless the table holds more than 4096 entries a row;
   ``paged_attention_tile_ref`` is its arithmetic in its order.
 - ``"row"``: every other call — f32 pools, head dims past 256 (decode
-  too), G > 64, tables past 4096 entries — runs the row-tile kernel on
+  too), tables past 4096 entries — runs the row-tile kernel on
   the CUDA cores, which streams each page in chunks of
   ``row_chunk_slots`` slots (past head dim 256 with D a runtime value,
   q and its accumulator in shared memory); ``paged_attention_row_ref``
@@ -85,10 +87,10 @@ _SLICE_COLS = 512
 _SPLIT_ROWS = 16
 _SPLIT_MAX_PAGES = 4096
 #: folded query rows a warpgroup of the tensor-core prefill kernel holds,
-#: the most G it takes (padded to a power of two, which divides them),
-#: the block-table entries a CTA of it stages in shared memory, and the
-#: multiple of slots its walk pads each page to (kWgRows, kTcMaxPages,
-#: kSlotPad in csrc/paged_attention.cu)
+#: the most G it pads to a power of two (which divides them; past it the
+#: fold is G itself), the block-table entries a CTA of it stages in
+#: shared memory, and the multiple of slots its walk pads each page to
+#: (kWgRows, kTcMaxPages, kSlotPad in csrc/paged_attention.cu)
 _TC_ROWS = 64
 _TC_MAX_PAGES = 4096
 _SLOT_PAD = 8
@@ -187,18 +189,18 @@ def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
     pages of ``s`` slots, ``kv`` kv heads and ``dtype``, through a table of
     ``p`` entries a row: ``"row"`` past head dim 256 (``"row_sliced"``
     past :func:`wide_max_head_dim`), else ``"split"`` (T·G <= 16 query
-    rows per kv head), ``"tc"`` (bf16 at any page size, G <= 64, p <=
-    4096) or ``"row"``. So the row-tile kernel keeps four cases: f32
-    pools, head dims past 256, G > 64 and tables wider than 4096 entries.
-    Shapes and dtype only, as the C entry's ``route_of``; the wrapper
-    raises if the entry reports another route."""
+    rows per kv head), ``"tc"`` (bf16 at any page size and any G, p <=
+    4096; Falcon-7B's decode, T·G 71, among them) or ``"row"``. So the
+    row-tile kernel keeps three cases: f32 pools, head dims past 256 and
+    tables wider than 4096 entries. Shapes and dtype only, as the C
+    entry's ``route_of``; the wrapper raises if the entry reports another
+    route."""
     g = h // kv
     if d > _ROW_ONLY_PAST:
         return "row_sliced" if d > wide_max_head_dim(dtype) else "row"
     if t * g <= _SPLIT_ROWS:
         return "split"
-    if (dtype == torch.bfloat16 and d in _HEAD_DIMS and g <= _TC_ROWS
-            and p <= _TC_MAX_PAGES):
+    if dtype == torch.bfloat16 and d in _HEAD_DIMS and p <= _TC_MAX_PAGES:
         return "tc"
     return "row"
 
@@ -464,9 +466,9 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     q_start + t. Returns (B, T, H, D) float32. On the card the call runs
     the kernel ``kernel_route`` names: the split-KV decode kernels (T·G
     <= 16 query rows per kv head; split count from shapes alone), the
-    tensor-core prefill kernel (bf16), or the row-tile kernel (f32
-    prefill, G > 64, tables past 4096 entries, and every call past head
-    dim 256; past :func:`wide_max_head_dim` its column-sliced form)."""
+    tensor-core prefill kernel (bf16, any G), or the row-tile kernel (f32
+    prefill, tables past 4096 entries, and every call past head dim 256;
+    past :func:`wide_max_head_dim` its column-sliced form)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
     global launches, split_launches, tc_launches

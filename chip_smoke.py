@@ -14,7 +14,8 @@ the full width of the flagship LM with weights made from a seed:
   pages of 256 slots and of 300 (prefill on the tensor cores, which pad
   such a page to 304 slots), at Qwen2.5-7B's attention width (G 7:
   prefill on the tensor cores, decode on the split-KV kernel) and at
-  Falcon-7B's (G 71: every call on the row-tile kernel);
+  Falcon-7B's (G 71, folded flat: prefill and decode, 71 rows a step,
+  on the tensor cores);
 - ``[train]``: the port's train main (``models/transformer/train.py``)
   on a generated text, at the ``bench.py:1040-1063`` training geometry
   (learned positions, full MHA, batch 4 x 2048, bf16 policy) for two
@@ -133,7 +134,8 @@ _FLASH_NARROW = dict(batch=4, seq=2048, heads=16, head_dim=64)
 # 4 of its 28 layers, the LM's own FFN) through pages of 16, prefill on
 # the tensor cores and decode (T·G 7) on the split-KV kernel; and
 # Falcon-7B's (d_model 4544, 71 heads over one kv head, D 64; 2 of its
-# 32 layers), whose G past 64 runs every call on the row-tile kernel
+# 32 layers), whose G past 64 the tensor-core kernel folds flat: every
+# call, decode too (T·G 71), on the tensor cores
 _SERVE_TAILS = (
     ("pages of 256", None, 256, (300, 520, 777, 1000)),
     ("pages of 300", None, 300, (300, 520, 777, 1000)),
@@ -628,10 +630,10 @@ _DECODE_GEOMETRIES = (
 
 #: geometry rows that are also timed (beside their bound, plain version
 #: and library calls): head dim 192, pages of 256 slots, Qwen2.5-7B's G 7
-#: and 14B's G 5 at the T 512 bucket, and Falcon-7B's G 71 (the row-tile
-#: kernel)
+#: and 14B's G 5 at the T 512 bucket, Falcon-7B's G 71 prefill and decode
+#: (the flat fold), and f32 pools at G 7 (the row-tile kernel)
 _TIMED_GEOMETRIES = ("d192", "s256", "qwen7b-g7", "qwen14b-g5",
-                     "falcon7b-g71")
+                     "falcon7b-g71", "falcon7b-g71-decode", "g7-f32")
 
 
 def _geometry_times(pa, args, s, kv):
@@ -806,11 +808,26 @@ _PREFILL_GEOMETRIES = (
     ("s125", 2, 200, 8, 2, 128, 125, 16, torch.bfloat16, [0, 900], "tc"),
     ("g6-s12-chunked", 1, 48, 12, 2, 64, 12, 60, torch.bfloat16, [500],
      "tc"),
-    # the row-tile kernel's bf16 and f32 cases: f32 pools at G 7, and
-    # Falcon-7B's attention (71 heads over one kv head, D 64: G past 64)
+    # the row-tile kernel's f32 pools at G 7
     ("g7-f32", 1, 128, 28, 4, 128, 16, 20, torch.float32, [0], "row"),
+    # G past 64, folded flat (F = G): Falcon-7B's attention (71 heads
+    # over one kv head, D 64) at the T 512 bucket and a decode step of
+    # [serve]'s Falcon-7B tail (4 rows, keys 308-1013 of 66-entry
+    # tables: 71 rows, two CTAs a row); G 65 over one kv head (a tile
+    # straddles two query columns by one row; D 32, zeros past D); G 96
+    # over 2 kv heads (two runs of heads a tile) deep in chunked tables;
+    # G 71 through 300-slot pages; a G 128 decode at D 256
     ("falcon7b-g71", 1, 512, 71, 1, 64, 16, 40, torch.bfloat16, [0],
-     "row"),
+     "tc"),
+    ("falcon7b-g71-decode", 4, 1, 71, 1, 64, 16, 66, torch.bfloat16,
+     [307, 548, 790, 1012], "tc"),
+    ("g65-kv1", 2, 40, 65, 1, 32, 16, 8, torch.bfloat16, [0, 50], "tc"),
+    ("g96-kv2-chunked", 2, 64, 192, 2, 128, 16, 129, torch.bfloat16,
+     [100, 517], "tc"),
+    ("g71-s300", 2, 100, 71, 1, 64, 300, 6, torch.bfloat16, [0, 700],
+     "tc"),
+    ("g128-decode", 3, 1, 128, 1, 256, 16, 40, torch.bfloat16,
+     [0, 200, 600], "tc"),
 )
 
 
@@ -2625,8 +2642,9 @@ def main(argv=None) -> int:
         "library_gather_ms": dec["library_gather_ms"]}]
     # B1's prefill calls: the tensor-core kernel at the [kernels] prefill
     # case, its launches those of [serve]'s 16 prefills and its tails'
-    # (pages of 256 and 300 slots, Qwen2.5-7B's G 7), each run with the
-    # counters set to 0 before it and read after it
+    # (pages of 256 and 300 slots, Qwen2.5-7B's G 7 prefills, all 40 of
+    # Falcon-7B's G 71 calls, decode too), each run with the counters set
+    # to 0 before it and read after it
     pre = rows["prefill"]
     kernels.append({
         "name": "paged_prefill_tc", "route": "cuda",
@@ -2637,11 +2655,13 @@ def main(argv=None) -> int:
         **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_gather_ms")}})
     # the row-tile kernel (its wide form past D 256 and its sliced form
-    # past the wide form's cap among its errors):
-    # timed at Falcon-7B's prefill (G 71, past the tensor cores' 64), its
-    # launches those of [serve]'s Falcon-7B tail, every call of which it
-    # runs
-    row = rows["prefill_geometries"]["falcon7b-g71"]
+    # past the wide form's cap among its errors): timed at f32 pools at
+    # G 7 (g7-f32); its launches those of [serve]'s tails, now 0, since
+    # the tensor-core kernel takes every bf16 call at D <= 256 (Falcon-7B's
+    # G 71 too): it keeps f32 pools, tables past 4096 entries and head
+    # dims past 256, which no main path runs, and is held at every "row"
+    # and "row_sliced" geometry of [kernels]
+    row = rows["prefill_geometries"]["g7-f32"]
     kernels.append({
         "name": "paged_row_tile", "route": "cuda",
         "source": "bigdl_tpu_torch/csrc/paged_attention.cu",

@@ -9,23 +9,25 @@ this checkout's headers) into a temporary directory and runs each
 version's C entry through this checkout's wrapper at ``chip_smoke.py``'s
 shapes: the split-KV decode (its ``[kernels]`` decode case: 8 rows of
 16..1100 keys, pages of 16, the batcher's 129-entry table), the
-tensor-core prefill (the T 512 bucket and the rows of
-``chip_smoke._PREFILL_GEOMETRIES`` at head dims 64, 192 and 256, pages
-of 24 and 256 and chunked rows), the rows that took the row-tile kernel
-with one chunk a page before the tensor-core kernel took every bf16 page
-size (an f32 pool, pages of 7, f32 at D 192, pages of 12 at D 192),
-Qwen2.5's G 7 and G 5 at the T 512 bucket, Falcon-7B's G 71, and
-``_POOL_GEOMETRIES``' 300-slot pages and head dims 320, 512, 576, 1024
-and the wide kernel's caps, bf16 1792 and f32 1152 (prefill and decode,
-bf16 and f32; the wide kernel's head dims up to its cap, which must
-keep their route and bits).
+tensor-core prefill at the T 512 bucket, and every row of
+``chip_smoke._DECODE_GEOMETRIES`` (the split-KV kernel's other
+instantiations), ``_PREFILL_GEOMETRIES`` (head dims 32-256, G 1-64
+padded to a power of two, pages of 7-300 slots, chunked rows, f32 pools,
+and the groups past G 64 that the tensor-core kernel folds flat:
+Falcon-7B's G 71 prefill and decode, G 65, 96 and 128) and
+``_POOL_GEOMETRIES`` (pages of 256 and 300 slots, a 4097-entry table,
+head dims 320 to 2048 on the row-tile kernel's wide and sliced forms,
+prefill and decode, bf16 and f32).
 
 With ``--sliced`` instead of ``--other``, the other version is this
 checkout's source with every head dim past 256 routed to the row-tile
 kernel's column-sliced form (``SLICED_EVERYWHERE``: exact text
 replacements, exit 1 if one is not found), and only the cases past D
 256 run: the sliced form against the wide kernel at the head dims the
-wide kernel takes.
+wide kernel takes. With ``--fold``, the other version is this source
+with the tensor-core route refused past G 64 (``ROW_PAST_G64``), so
+those calls take the row-tile kernel, and only the cases past G 64 run:
+the flat fold against the row-tile kernel, in turns.
 
 The two versions may take different routes on a case. Each C entry is
 run through ``paged_attention._launch`` (the wrapper's launch, after
@@ -36,12 +38,14 @@ each version's worst error over
 ``chip_smoke._PAGED_TOL`` against the plain version, then times the
 calls in turns (this, other, other, this; ``chip_smoke._time_ms`` each:
 L2 flushed, median of 20): one line per case with both versions' times
-and the ratio of their means (this / other). Last, the card's name and
-power limit. It exits 1 if any output of either version is non-finite or
-past its limit, or this checkout's route is not its ``kernel_route``,
-after every case has been checked and timed.
+and the ratio of their means (this / other). Then a summary of the cases
+both versions ran on one route (how many are bit-equal, the range of
+their ratios) and the card's name and power limit. It exits 1 if any
+output of either version is non-finite or past its limit, or this
+checkout's route is not its ``kernel_route``, after every case has been
+checked and timed.
 
-    python3 scripts/paged_ab.py (--other DIR | --sliced) [--seed N]
+    python3 scripts/paged_ab.py (--other DIR | --sliced | --fold) [--seed N]
 """
 from __future__ import annotations
 
@@ -63,15 +67,6 @@ from bigdl_tpu_torch.ops import _build  # noqa: E402
 from bigdl_tpu_torch.ops import paged_attention as pa  # noqa: E402
 
 _ORDER = ("this", "other", "other", "this")
-#: the rows of ``chip_smoke._PREFILL_GEOMETRIES`` and ``_POOL_GEOMETRIES``
-#: compared
-_GEOMETRY_CASES = ("d64", "d256", "s24", "chunked", "d192", "s256",
-                   "f32-pools", "s7", "d192-f32", "d192-s12", "qwen7b-g7",
-                   "qwen14b-g5", "falcon7b-g71", "s300", "d320",
-                   "d320-decode", "d512", "d512-decode", "d512-f32-s64",
-                   "d576", "d576-f32", "d1024", "d1024-f32",
-                   "d1024-decode", "d1024-f32-decode", "d1792",
-                   "d1152-f32")
 #: (text of paged_attention.cu, its replacement) that route every head
 #: dim past 256 to the column-sliced row-tile kernel
 SLICED_EVERYWHERE = (
@@ -79,6 +74,12 @@ SLICED_EVERYWHERE = (
      "kRouteRow;", "    return kRouteRowSliced;"),
     ("  if (D % 64 != 0 || D <= wide_max_d(sizeof(T))) return -1;",
      "  if (D % 64 != 0) return -1;"))
+#: (text of paged_attention.cu, its replacement) that refuse the
+#: tensor-core route past G 64, the parent's route for those calls
+ROW_PAST_G64 = (
+    ("  if (dtype == 1 && P <= tc::kTcMaxPages) return kRouteTc;",
+     "  if (dtype == 1 && G <= tc::kWgRows && P <= tc::kTcMaxPages)\n"
+     "    return kRouteTc;"),)
 
 
 def _cases(gen):
@@ -92,12 +93,14 @@ def _cases(gen):
            ("prefill T=512", cs._paged_case(
                 1, 512, [0], [-(-(512 + 72) // cs._S)], p_slot,
                 torch.bfloat16, gen))]
+    rows = [(f"decode {r[0]}", *r[1:9],
+             [x - r[2] + 1 if x >= r[2] - 1 else 0 for x in r[9]], None)
+            for r in cs._DECODE_GEOMETRIES]
     for label, b, t, h, kv, d, s, p, dtype, starts, _ in \
-            cs._PREFILL_GEOMETRIES + cs._POOL_GEOMETRIES:
-        if label in _GEOMETRY_CASES:
-            out.append((label, cs._paged_case(
-                b, t, starts, [min(p, (x + t) // s + 1) for x in starts],
-                p, dtype, gen, h=h, kv=kv, d=d, s=s)))
+            rows + list(cs._PREFILL_GEOMETRIES + cs._POOL_GEOMETRIES):
+        out.append((label, cs._paged_case(
+            b, t, starts, [min(p, (x + t) // s + 1) for x in starts], p,
+            dtype, gen, h=h, kv=kv, d=d, s=s)))
     return out
 
 
@@ -109,6 +112,9 @@ def main(argv=None) -> int:
     other.add_argument("--sliced", action="store_true",
                        help="the other version: this source with every D "
                             "past 256 on the column-sliced form")
+    other.add_argument("--fold", action="store_true",
+                       help="the other version: this source with every G "
+                            "past 64 on the row-tile kernel")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -116,9 +122,9 @@ def main(argv=None) -> int:
         return 2
     this = (ROOT / "bigdl_tpu_torch/csrc/paged_attention.cu").read_text()
     past = []
-    if args.sliced:
+    if args.sliced or args.fold:
         theirs = this
-        for old, new in SLICED_EVERYWHERE:
+        for old, new in SLICED_EVERYWHERE if args.sliced else ROW_PAST_G64:
             if theirs.count(old) != 1:
                 past.append(f"replacement text not found: {old.strip()!r}")
             theirs = theirs.replace(old, new)
@@ -133,9 +139,20 @@ def main(argv=None) -> int:
                                                       Path(tmp) / kv[0])),
                 sources.items())))
         cs._warm_card()
+        same = []
         for label, case in _cases(torch.Generator().manual_seed(args.seed)):
-            if not args.sliced or case[0].shape[-1] > 256:
-                past += _ab(fns, label, case, card)
+            g = case[0].shape[2] // case[1].shape[2]
+            if ((not args.sliced or case[0].shape[-1] > 256)
+                    and (not args.fold or g > 64)):
+                row, bad = _ab(fns, label, case, card)
+                past += bad
+                if row["routes"]["this"] == row["routes"]["other"]:
+                    same.append(row)
+    if same:
+        ratios = [r["ratio"] for r in same]
+        print(f"[ab] {len(same)} cases on one route in both versions: "
+              f"{sum(r['bit_equal'] for r in same)} bit-equal, this / "
+              f"other {min(ratios):.4f}-{max(ratios):.4f}", flush=True)
     if past:
         print("[ab] past the limit, non-finite or off its route: "
               + "; ".join(past), flush=True)
@@ -144,9 +161,10 @@ def main(argv=None) -> int:
 
 
 def _ab(fns, label, case, card):
-    """One case: both versions checked, then timed in turns; returns the
-    versions whose output is non-finite or past its limit, or whose route
-    (this checkout's) is not the one ``kernel_route`` names."""
+    """One case: both versions checked, then timed in turns; returns its
+    row and the versions whose output is non-finite or past its limit,
+    or whose route (this checkout's) is not the one ``kernel_route``
+    names."""
     want = pa.paged_attention_ref(*case)
     q, kp = case[0], case[1]
     _, t, h, d = q.shape
@@ -179,7 +197,7 @@ def _ab(fns, label, case, card):
                            / np.mean(times["other"])))
     print(f"[ab] paged_attention {label} pool={str(case[1].dtype)[6:]} "
           f"card='{card}' " + json.dumps(row), flush=True)
-    return past
+    return row, past
 
 
 if __name__ == "__main__":

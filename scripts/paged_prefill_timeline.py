@@ -3,13 +3,17 @@
 and what it is measured against: instrumented and edited copies of
 ``bigdl_tpu_torch/csrc/paged_attention.cu`` run at ``chip_smoke.py``'s
 prefill shapes (q (1, T, 8, 128) bf16, q_start 0, pages of 16 through
-the batcher's 129-entry table).
+the batcher's 129-entry table) and at Falcon-7B's G 71, which the
+kernel folds flat (``chip_smoke._PREFILL_GEOMETRIES``' ``falcon7b-g71``
+prefill, q (1, 512, 71, 64), and ``falcon7b-g71-decode``, q (4, 1, 71,
+64)).
 
     python3 scripts/paged_prefill_timeline.py [--seed N]
 
 Run it from the root of a checkout on the card. It prints:
 
-- a timeline per bucket T of 512 and 1024: thread 0 of every CTA (a
+- a timeline per bucket T of 512 and 1024 and per Falcon-7B case:
+  thread 0 of every CTA (a
   consumer) stamps ``clock64`` at each one-off phase (page ids and
   q_start read and the ring made; Q landed; key tiles walked; output
   stored) and sums, over the CTA's key tiles, the cycles of each
@@ -18,12 +22,13 @@ Run it from the root of a checkout on the card. It prints:
   them; medians and largest over the CTAs, and the kernel's span on the
   global timer (steps of some 0.25 µs);
 - device ms a call (CUDA events, L2 flushed, median of 20, as
-  ``chip_smoke._time_ms``) at buckets 32 / 128 / 512 / 1024 of the
-  kernel as built, of a copy with two warpgroups (128 folded rows) a
-  CTA, and of the row-tile kernel the tensor-core one replaced (a copy
-  whose route sends bf16 prefill there), in turns (built, two
-  warpgroups, row-tile, row-tile, two warpgroups, built), each held
-  against ``paged_attention_ref`` within ``chip_smoke._PAGED_TOL``;
+  ``chip_smoke._time_ms``) at buckets 32 / 128 / 512 / 1024 and the two
+  Falcon-7B cases of the kernel as built, of a copy with two warpgroups
+  (128 folded rows) a CTA, and of the row-tile kernel the tensor-core
+  one replaced (a copy whose route sends every bf16 call with more than
+  16 rows there), in turns (built, two warpgroups, row-tile, row-tile,
+  two warpgroups, built), each held against ``paged_attention_ref``
+  within ``chip_smoke._PAGED_TOL``;
 - the host's µs for the three tensor-map encodes of a call, and for one
   wrapper call of ``paged_attention`` (enqueue only) at T 512.
 
@@ -78,9 +83,9 @@ _ONCE = (
      "before any load\n", "before"),
     ("page ids read, ring made", "      make_ring<kStages>(smem_raw, "
      "Sh::L::kBars, kConsumers / 32);\n", "after"),
-    ("Q landed", "  warp_wait(ring.once(), 0);\n", "after"),
+    ("Q landed", "    warp_wait(ring.once(), 0);\n  }\n", "after"),
     ("tiles walked", "  // f32 rows straight from the accumulator: "
-     "folded row rl + 8r is query\n", "before"),
+     "folded row R = r0 + rl + 8r\n", "before"),
     ("stored", "            make_float2(acc[c][i] * inv, acc[c][i + 1] * "
      "inv);\n      }\n  }\n", "after"),
 )
@@ -177,8 +182,10 @@ def _call(fn, q, kp, vp, table, qs, out):
 
 
 def _timeline(fn, lib, args, label):
-    q = args[0]
-    n_ctas = cs._KV * -(-q.shape[1] * (q.shape[2] // cs._KV) // 64)
+    q, kv = args[0], args[1].shape[2]
+    g = q.shape[2] // kv
+    fold = g if g > pa._TC_ROWS else 1 << (g - 1).bit_length()
+    n_ctas = q.shape[0] * kv * -(-q.shape[1] * fold // 64)
     stamps = torch.zeros(n_ctas * _SLOTS * 2, dtype=torch.int64,
                          device="cuda")
     if lib.set_stamps(stamps.data_ptr()):
@@ -225,13 +232,19 @@ def main(argv=None) -> int:
         "built": src + _ENCODE_BENCH,
         "two warpgroups": _swap(src, "constexpr int kTcWarpgroups = 1;",
                                 "constexpr int kTcWarpgroups = 2;"),
-        "row-tile": _swap(src, "  if (dtype == 1 && G <= tc::kWgRows",
-                          "  if (false && dtype == 1 && G <= tc::kWgRows"),
+        "row-tile": _swap(src, "  if (dtype == 1 && P <= tc::kTcMaxPages)",
+                          "  if (false && P <= tc::kTcMaxPages)"),
         "timeline": instrumented(src)}
     gen = torch.Generator().manual_seed(args.seed)
-    cases = {t: cs._paged_case(1, t, [0], [-(-(t + 72) // cs._S)], 129,
-                               torch.bfloat16, gen)
+    cases = {f"T={t}": cs._paged_case(1, t, [0], [-(-(t + 72) // cs._S)],
+                                      129, torch.bfloat16, gen)
              for t in cs._PREFILL_BUCKETS}
+    for label, b, t, h, kv, d, s, p, dtype, starts, _ in \
+            cs._PREFILL_GEOMETRIES:
+        if label.startswith("falcon7b-g71"):
+            cases[label] = cs._paged_case(
+                b, t, starts, [min(p, (x + t) // s + 1) for x in starts], p,
+                dtype, gen, h=h, kv=kv, d=d, s=s)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
@@ -247,9 +260,10 @@ def main(argv=None) -> int:
         fns = {k: pa._bind(lib) for k, lib in libs.items()}
         libs["timeline"].set_stamps.argtypes = [ctypes.c_void_p]
         cs._warm_card()
-        for t in (512, 1024):
-            _timeline(fns["timeline"], libs["timeline"], cases[t],
-                      f"prefill T={t} bf16")
+        for label in ("T=512", "T=1024", "falcon7b-g71",
+                      "falcon7b-g71-decode"):
+            _timeline(fns["timeline"], libs["timeline"], cases[label],
+                      f"{label} bf16")
         order = ("built", "two warpgroups", "row-tile", "row-tile",
                  "two warpgroups", "built")
         want_route = {"built": 1, "two warpgroups": 1, "row-tile": 2}
@@ -262,13 +276,13 @@ def main(argv=None) -> int:
                 if _call(fns[name], *case, out) != want_route[name]:
                     raise AssertionError(f"{name} took another route")
                 torch.cuda.synchronize()
-                cs._paged_check(f"{name} T={t}", out, ref,
+                cs._paged_check(f"{name} {t}", out, ref,
                                 cs._PAGED_TOL[torch.bfloat16])
                 ms.setdefault(name, []).append(cs._time_ms(
                     lambda f=fns[name], o=out: _call(f, *case, o)))
-            print(f"T={t} device ms a call (in turns): " + ", ".join(
+            print(f"{t} device ms a call (in turns): " + ", ".join(
                 f"{k} {v}" for k, v in ms.items()), flush=True)
-        q, kp, vp, table, qs = cases[512]
+        q, kp, vp, table, qs = cases["T=512"]
         enc = libs["built"].encode_us
         enc.restype = ctypes.c_double
         enc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7

@@ -464,16 +464,23 @@ _ROUTE_CASES = {
     "g7": ((512, 28, 4, 128, 16, 129, _BF16), "tc"),
     "g7-s300": ((64, 14, 2, 64, 300, 4, _BF16), "tc"),
     "g64": ((17, 64, 1, 64, 16, 9, _BF16), "tc"),
+    # past G 64 the fold is G itself, on the tensor cores too, decode
+    # (T·G past 16) as well: Falcon-7B's 71 heads over one kv head, G 128
+    # decode, G 96 over 2 kv heads
+    "g71": ((64, 71, 1, 64, 16, 9, _BF16), "tc"),
+    "g71-decode": ((1, 71, 1, 64, 16, 9, _BF16), "tc"),
+    "g128": ((1, 128, 1, 64, 16, 9, _BF16), "tc"),
+    "g96-kv2": ((64, 192, 2, 64, 16, 9, _BF16), "tc"),
     # decode at G 7 stays on the split-KV kernel (T·G 7 <= 16)
     "g7-decode": ((1, 28, 4, 128, 16, 129, _BF16), "split"),
-    # the row-tile kernel: f32 pools, G past 64 (Falcon-7B's 71 heads
-    # over one kv head), a table too long to stage, head dims past 256
+    # the row-tile kernel: f32 pools, a table too long to stage (at any
+    # G), head dims past 256
     "f32": ((512, 8, 2, 128, 16, 129, _F32), "row"),
     "s256-f32": ((512, 8, 2, 128, 256, 9, _F32), "row"),
     "g7-f32": ((512, 28, 4, 128, 16, 129, _F32), "row"),
-    "g128": ((1, 128, 1, 64, 16, 9, _BF16), "row"),
-    "g71": ((64, 71, 1, 64, 16, 9, _BF16), "row"),
+    "g71-f32": ((64, 71, 1, 64, 16, 9, _F32), "row"),
     "4097-pages": ((64, 8, 2, 128, 16, 4097, _BF16), "row"),
+    "g71-4097-pages": ((64, 71, 1, 64, 16, 4097, _BF16), "row"),
     # past head dim 256 every call, decode too, runs the row-tile kernel
     "d320-decode": ((1, 8, 2, 320, 16, 9, _BF16), "row"),
     "d320-prefill": ((64, 8, 2, 320, 16, 9, _BF16), "row"),
@@ -505,12 +512,14 @@ def test_kernel_route(case):
 
 def test_route_constants_match_the_c_entry():
     """The mirror's limits are the C entry's: split rows, the tensor-core
-    CTA's folded rows (the most G it takes) and its staged table entries,
+    CTA's folded rows (the most G it pads) and its staged table entries,
     the head dim past which only the row-tile kernel is built, and
-    route_of's tests of head dim (first), G and table width, none of page
-    size; the tensor-core kernel's padding (G to a power of two, pages to
-    a multiple of kSlotPad slots, boxes of the largest of 64/32/16/8
-    rows dividing the padded page); and the row-tile kernel's chunk plan
+    route_of's tests of head dim (first), rows (T·G), dtype and table
+    width, none of G alone or of page size; the tensor-core kernel's fold
+    and padding (G to a power of two up to kWgRows, G itself past it;
+    pages to a multiple of kSlotPad slots, boxes of the largest of
+    64/32/16/8 rows dividing the padded page); and the row-tile kernel's
+    chunk plan
     (``row_chunk_slots``: its key group, shared memory, the wide kernel's
     fixed part past head dim 256 and its cap)."""
     src = (Path(tpa.__file__).resolve().parents[1] / "csrc"
@@ -531,9 +540,10 @@ def test_route_constants_match_the_c_entry():
     assert const("kSlotPad") == tpa._SLOT_PAD
     assert const("kWarps") * const("kWideRpw") == tpa._WIDE_ROWS
     route_of = body("Route route_of(")
-    assert ("dtype == 1 && G <= tc::kWgRows && P <= tc::kTcMaxPages"
+    assert ("if (dtype == 1 && P <= tc::kTcMaxPages) return kRouteTc;"
             in route_of)
-    assert "S" not in route_of.split("kRouteSplit;")[1]
+    after_split = route_of.split("kRouteSplit;")[1]
+    assert "S" not in after_split and "G" not in after_split
     assert route_of.index("if (D > kRowOnlyPast)") \
         < route_of.index("kSplitRows")
     assert ("return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : "
@@ -542,6 +552,8 @@ def test_route_constants_match_the_c_entry():
                       r"kRouteRow = 2,\s+kRouteRowSliced = 3 \};", src)
             and tpa._ROUTES == ("split", "tc", "row", "row_sliced"))
     assert "while (gp < G) gp <<= 1;" in body("inline int pad_group(")
+    assert ("return G > kWgRows ? G : pad_group(G);"
+            in body("inline int fold_of("))
     assert ("return (S + kSlotPad - 1) / kSlotPad * kSlotPad;"
             in body("inline int pad_slots("))
     assert ("S8 % 64 == 0 ? 64 : S8 % 32 == 0 ? 32 : S8 % 16 == 0 ? 16 : 8"
@@ -570,6 +582,73 @@ def test_group_padding(g, gp):
     where 64 % G == 0 (so those geometries keep their code path)."""
     got = 1 << (g - 1).bit_length()
     assert got == gp and 64 % got == 0 and (64 % g or got == g)
+
+
+def _fold(g):
+    """The tensor-core kernel's fold F (``fold_of``): G padded to a power
+    of two up to ``_TC_ROWS`` heads, G itself past it."""
+    return g if g > tpa._TC_ROWS else 1 << (g - 1).bit_length()
+
+
+@pytest.mark.parametrize("g,f", [(1, 1), (7, 8), (33, 64), (64, 64),
+                                 (65, 65), (71, 71), (96, 96), (128, 128),
+                                 (200, 200)])
+@pytest.mark.parametrize("t", [1, 2, 5, 64])
+def test_fold_covers_every_row_once(g, f, t):
+    """Folded row R of a kv head is (query column, head) = divmod(R, F)
+    (F: gp up to G 64, G past it). Walked as the kernel walks it — tiles
+    of 64 rows, ceil(T·F / 64) of them, each writing the rows with
+    column < T and head < G — every (column, head) is written exactly
+    once; the kernel's count of a tile's query columns, min(T - t0,
+    (R0 + 63) // F - t0 + 1), covers every column a written row lies in;
+    past G 64 a tile spans at most two columns, and up to G 64 exactly
+    64 / gp (the parent's count, so those CTAs walk the same keys)."""
+    assert _fold(g) == f
+    written = []
+    for y in range(-(-t * f // 64)):
+        r0 = 64 * y
+        t0 = r0 // f
+        tn = min(t - t0, (r0 + 63) // f - t0 + 1)
+        rows = [divmod(r0 + r, f) for r in range(64)]
+        cols = {c for c, hd in rows if c < t and hd < g}
+        assert cols <= set(range(t0, t0 + tn))
+        if g > 64:
+            assert (r0 + 63) // f - t0 <= 1
+        else:
+            assert tn == min(t - t0, 64 // f)
+        written += [(c, hd) for c, hd in rows if c < t and hd < g]
+    assert sorted(written) == [(c, hd) for c in range(t) for hd in range(g)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("q_start", [[0, 0], [5, 13]], ids=["qs0", "qs>0"])
+@pytest.mark.parametrize("g,kv", [(71, 1), (65, 2)],
+                         ids=["g71-kv1", "g65-kv2"])
+def test_tile_ref_past_g64_matches_jax(g, kv, q_start, dtype):
+    """The tensor-core kernel's arithmetic (``paged_attention_tile_ref``)
+    at the groups it now folds flat: Falcon-7B's G 71 over one kv head,
+    and G 65 over 2 kv heads (tiles whose rows are two runs of heads in
+    two query columns on the card). At tiles of one page it walks the
+    JAX kernel's own tiles (which pad G to 72): 2e-5 in both dtypes, as
+    ``test_tile_ref_at_page_tiles_matches_jax``; at the card's 64-key
+    tiles, the file's tolerance of the dtype. T 3, D 16, pages of 8, a
+    6-entry table, rows starting at 0 and past it."""
+    q, kp, vp, table = _geometry(2, 3, g * kv, kv, 16, 13, 8, 6,
+                                 seed=g + kv)
+    jdt, tdt, atol, rtol = _DTYPES[dtype]
+    qs = np.asarray(q_start, np.int32)
+    want = np.asarray(jpa.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(table), jnp.asarray(qs), interpret=True))
+    args = (torch.from_numpy(q), torch.from_numpy(kp).to(tdt),
+            torch.from_numpy(vp).to(tdt), torch.from_numpy(table),
+            torch.from_numpy(qs))
+    got = tpa.paged_attention_tile_ref(*args, key_tile=8)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        tpa.paged_attention_tile_ref(*args, key_tile=64).numpy(), want,
+        atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype,cap", [(torch.float32, 1152),

@@ -19,9 +19,10 @@ from bigdl_tpu_torch.models import TransformerLM
 from bigdl_tpu_torch.models.transformer import serving as tsv
 
 
-def _models(kv=2, pos="rope"):
+def _models(kv=2, pos="rope", **widths):
     geom = dict(d_model=64, num_heads=4, num_layers=2, max_len=64,
                 with_log_softmax=False, num_kv_heads=kv, pos_encoding=pos)
+    geom.update(widths)
     jm = JaxLM(128, **geom)
     jm.materialize(jax.random.PRNGKey(0))
     jm.evaluate()
@@ -63,6 +64,39 @@ def test_prefill_decode_tokens_match_jax(kv, pos):
     for li in range(2):
         np.testing.assert_allclose(tcache.kp[li].numpy(),
                                    np.asarray(jcache.kp[li]), atol=1e-5)
+
+
+def test_falcon_shaped_prefill_decode_match_jax():
+    """Falcon-7B's attention shape at the tests' scale: 71 query heads
+    over one kv head (G 71, past the 64 rows that the card's tensor-core
+    kernel used to cap), head dim 8 (d_model 568), 2 layers. The port's
+    paged prefill and decode (their plain versions here) give the JAX
+    serving functions' greedy tokens and pools (1e-5)."""
+    jm, tm = _models(1, "rope", d_model=568, num_heads=71)
+    prompts = _prompts((5, 11, 3), seed=3)
+    table = np.arange(24, dtype=np.int32).reshape(3, 8)
+
+    jcache = jsv.PagedKVCache(2, num_pages=25, page_size=4, kv_heads=1,
+                              head_dim=8)
+    jfirst, jlen = jsv.paged_prefill(jm, jcache, table, prompts,
+                                     paged_kernel="dense")
+    jtoks, jnew = jsv.paged_decode(jm, jcache, table, jlen, jfirst, 6,
+                                   paged_kernel="dense")
+
+    tcache = tsv.PagedKVCache(2, num_pages=25, page_size=4, kv_heads=1,
+                              head_dim=8, device="cpu")
+    tfirst, tlen = tsv.paged_prefill(tm, tcache, table, prompts)
+    ttoks, tnew = tsv.paged_decode(tm, tcache, table, tlen, tfirst, 6)
+
+    np.testing.assert_array_equal(tfirst.numpy(), np.asarray(jfirst))
+    np.testing.assert_array_equal(tlen, np.asarray(jlen))
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+    np.testing.assert_array_equal(tnew.numpy(), np.asarray(jnew))
+    for li in range(2):
+        np.testing.assert_allclose(tcache.kp[li].numpy(),
+                                   np.asarray(jcache.kp[li]), atol=1e-5)
+        np.testing.assert_allclose(tcache.vp[li].numpy(),
+                                   np.asarray(jcache.vp[li]), atol=1e-5)
 
 
 def _run_jax(jm, prompts, cancel=(), **kw):
