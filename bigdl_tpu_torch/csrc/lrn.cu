@@ -21,9 +21,9 @@
 //   h*w of one channel plane: every read and write is coalesced. VEC = 4
 //   (16-byte f32 / 8-byte bf16 accesses) where H*W and the pointers allow,
 //   else 1.
-// - The window lives in a register ring of n f32 values per position
-//   (the window size is a template parameter, 1..9, so the ring is fully
-//   unrolled into registers). Each window sum is taken afresh over the
+// - Up to kMaxSize (9) the window lives in a register ring of n f32
+//   values per position (the window size is a template parameter, 1..9,
+//   so the ring is fully unrolled into registers). Each window sum is taken afresh over the
 //   ring in channel order, not as a running add/subtract sum, whose
 //   rounding would drift across the channels.
 // - Backward reads x ahead of the output channel by n-1: s_j, s_j^-beta
@@ -31,6 +31,14 @@
 //   ring, t goes into a second ring that holds exactly adj(c), and g and
 //   s^-beta wait in short rings until channel c is written. Nothing but x
 //   is saved from the forward.
+// - Past kMaxSize the window is a runtime value (`lrn_fwd_any_kernel`,
+//   `lrn_bwd_any_kernel`): no register ring, so each window sum is taken
+//   afresh, in channel order, from the channel column the thread walks
+//   (r^2 of the in-range channels of win(c), read again from L1/L2),
+//   which gives the sums the ring would. The backward walks the column
+//   twice: first t_j for every channel into an f32 scratch column that
+//   the wrapper allocates (the thread's own, so no barrier), then dx_c
+//   with the adjoint sum over the scratch, s_c recomputed.
 // - All arithmetic is f32; inputs and outputs keep the activation dtype.
 //
 // Bound on the H100: bytes. The forward reads x and writes y, the
@@ -231,6 +239,113 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// r of channel j at this thread's positions, or zeros past [0, C)
+template <typename T, int VEC>
+__device__ __forceinline__ void load_r(const T* __restrict__ x, int64_t at,
+                                       int j, int C, int64_t HW, int relu,
+                                       float (&r)[VEC]) {
+  if (j < 0 || j >= C) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) r[v] = 0.0f;
+    return;
+  }
+  load_vec<T, VEC>(x + at + j * HW, r);
+  relu_if(r, relu);
+}
+
+// s_c = k + coef * sum over win(c) = [c-lo, c-lo+size-1] of r^2, the sum
+// taken in channel order from 0 as the ring's (out-of-range channels add
+// nothing)
+template <typename T, int VEC>
+__device__ __forceinline__ void window_s(const T* __restrict__ x,
+                                         int64_t at, int c, int C,
+                                         int64_t HW, int size, int lo,
+                                         float coef, float k, int relu,
+                                         float (&s)[VEC]) {
+  float sum[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) sum[v] = 0.0f;
+  for (int j = max(c - lo, 0); j <= min(c - lo + size - 1, C - 1); ++j) {
+    float r[VEC];
+    load_r<T, VEC>(x, at, j, C, HW, relu, r);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) sum[v] += r[v] * r[v];
+  }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) s[v] = k + coef * sum[v];
+}
+
+// Past kMaxSize: the forward with the window size a runtime value
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    lrn_fwd_any_kernel(const T* __restrict__ x, T* __restrict__ y, int C,
+                       int64_t HW, int64_t HWv, int64_t total, int size,
+                       float coef, float k, int mode, float beta, int relu) {
+  const int lo = (size - 1) / 2;
+  const int64_t idx = blockIdx.x * (int64_t)kThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t n = idx / HWv;
+  const int64_t base = n * C * HW + (idx - n * HWv) * VEC;
+  for (int c = 0; c < C; ++c) {
+    float s[VEC], r[VEC], out[VEC];
+    window_s<T, VEC>(x, base, c, C, HW, size, lo, coef, k, relu, s);
+    load_r<T, VEC>(x, base, c, C, HW, relu, r);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      out[v] = r[v] * pow_neg_beta(s[v], mode, beta);
+    store_vec<T, VEC>(y + base + c * HW, out);
+  }
+}
+
+// Past kMaxSize: the backward with the window size a runtime value. Pass
+// 1 writes t_j = g_j*r_j*s_j^-beta / s_j of every channel to `tbuf` (f32,
+// laid out as x); pass 2 takes the adjoint sum of c, adj(c) = [c-hi,
+// c+lo], over it in channel order, as the ring's
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    lrn_bwd_any_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                       T* __restrict__ dx, float* __restrict__ tbuf, int C,
+                       int64_t HW, int64_t HWv, int64_t total, int size,
+                       float coef, float k, int mode, float beta, float coef2,
+                       int relu) {
+  const int lo = (size - 1) / 2, hi = size - 1 - lo;
+  const int64_t idx = blockIdx.x * (int64_t)kThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int64_t n = idx / HWv;
+  const int64_t base = n * C * HW + (idx - n * HWv) * VEC;
+  for (int j = 0; j < C; ++j) {
+    float s[VEC], r[VEC], gj[VEC], t[VEC];
+    window_s<T, VEC>(x, base, j, C, HW, size, lo, coef, k, relu, s);
+    load_r<T, VEC>(x, base, j, C, HW, relu, r);
+    load_vec<T, VEC>(g + base + j * HW, gj);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      t[v] = gj[v] * r[v] * pow_neg_beta(s[v], mode, beta) / s[v];
+    store_vec<float, VEC>(tbuf + base + j * HW, t);
+  }
+  for (int c = 0; c < C; ++c) {
+    float acc[VEC], s[VEC], r[VEC], gc[VEC], out[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+    for (int j = max(c - hi, 0); j <= min(c + lo, C - 1); ++j) {
+      float t[VEC];
+      load_vec<float, VEC>(tbuf + base + j * HW, t);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] += t[v];
+    }
+    window_s<T, VEC>(x, base, c, C, HW, size, lo, coef, k, relu, s);
+    load_r<T, VEC>(x, base, c, C, HW, relu, r);
+    load_vec<T, VEC>(g + base + c * HW, gc);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const float d =
+          gc[v] * pow_neg_beta(s[v], mode, beta) - coef2 * r[v] * acc[v];
+      out[v] = (relu && !(r[v] > 0.0f)) ? 0.0f : d;
+    }
+    store_vec<T, VEC>(dx + base + c * HW, out);
+  }
+}
+
 int beta_mode(float beta) {
   return beta == 0.75f ? 0 : beta == 0.5f ? 1 : beta == 1.0f ? 2 : 3;
 }
@@ -245,6 +360,7 @@ struct Args {
   int64_t HW;
   float alpha, beta, k;
   int size, relu;
+  float* tbuf;       // the backward's t scratch past kMaxSize
   cudaStream_t st;
 };
 
@@ -270,13 +386,41 @@ int launch(bool bwd, const void* g, const void* x, void* out,
   return (int)cudaGetLastError();
 }
 
+// past kMaxSize (SIZE 0): the runtime-size kernels
+template <typename T, int VEC>
+int launch_any(bool bwd, const void* g, const void* x, void* out,
+               const Args& a) {
+  const int64_t HWv = a.HW / VEC;
+  const int64_t total = (int64_t)a.N * HWv;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return -4;
+  const float coef = a.alpha / a.size;
+  const int mode = beta_mode(a.beta);
+  if (bwd) {
+    if (a.tbuf == nullptr) return -5;
+    lrn_bwd_any_kernel<T, VEC><<<(unsigned)blocks, kThreads, 0, a.st>>>(
+        static_cast<const T*>(g), static_cast<const T*>(x),
+        static_cast<T*>(out), a.tbuf, a.C, a.HW, HWv, total, a.size, coef,
+        a.k, mode, a.beta, 2.0f * a.alpha * a.beta / a.size, a.relu);
+  } else {
+    lrn_fwd_any_kernel<T, VEC><<<(unsigned)blocks, kThreads, 0, a.st>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), a.C, a.HW, HWv,
+        total, a.size, coef, a.k, mode, a.beta, a.relu);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int SIZE>
 int launch_vec(bool bwd, const void* g, const void* x, void* out,
                const Args& a) {
   const bool vec4 = a.HW % 4 == 0 && aligned<T>(x, 4) && aligned<T>(out, 4)
                     && (!bwd || aligned<T>(g, 4));
-  return vec4 ? launch<T, SIZE, 4>(bwd, g, x, out, a)
-              : launch<T, SIZE, 1>(bwd, g, x, out, a);
+  if constexpr (SIZE == 0)
+    return vec4 ? launch_any<T, 4>(bwd, g, x, out, a)
+                : launch_any<T, 1>(bwd, g, x, out, a);
+  else
+    return vec4 ? launch<T, SIZE, 4>(bwd, g, x, out, a)
+                : launch<T, SIZE, 1>(bwd, g, x, out, a);
 }
 
 template <typename T>
@@ -292,7 +436,8 @@ int launch_size(bool bwd, const void* g, const void* x, void* out,
     case 7: return launch_vec<T, 7>(bwd, g, x, out, a);
     case 8: return launch_vec<T, 8>(bwd, g, x, out, a);
     case 9: return launch_vec<T, kMaxSize>(bwd, g, x, out, a);
-    default: return -3;
+    default: return a.size > kMaxSize ? launch_vec<T, 0>(bwd, g, x, out, a)
+                                      : -3;
   }
 }
 
@@ -305,22 +450,25 @@ int dispatch(int dtype, bool bwd, const void* g, const void* x, void* out,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. x, y: contiguous (N, C, H*W). Returns 0,
-// or a CUDA error code (negative: unsupported dtype / size / grid).
+// dtype: 0 float32, 1 bfloat16. x, y: contiguous (N, C, H*W); any size
+// >= 1. Returns 0, or a CUDA error code (negative: unsupported dtype /
+// size / grid, or -5 for a backward past kMaxSize without its scratch).
 extern "C" int bigdl_lrn_fwd(int dtype, const void* x, void* y, int N, int C,
                              int HW, int size, float alpha, float beta,
                              float k, int relu, void* stream) {
-  Args a{N, C, HW, alpha, beta, k, size, relu,
+  Args a{N, C, HW, alpha, beta, k, size, relu, nullptr,
          static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, false, nullptr, x, y, a);
 }
 
-// g, x, dx: contiguous (N, C, H*W) of one dtype; x is the pre-ReLU input
+// g, x, dx: contiguous (N, C, H*W) of one dtype; x is the pre-ReLU input.
+// tbuf: past kMaxSize an f32 scratch of N*C*H*W elements, 16-byte
+// aligned (unused, and may be null, up to it)
 extern "C" int bigdl_lrn_bwd(int dtype, const void* g, const void* x,
-                             void* dx, int N, int C, int HW, int size,
-                             float alpha, float beta, float k, int relu,
-                             void* stream) {
-  Args a{N, C, HW, alpha, beta, k, size, relu,
+                             void* dx, float* tbuf, int N, int C, int HW,
+                             int size, float alpha, float beta, float k,
+                             int relu, void* stream) {
+  Args a{N, C, HW, alpha, beta, k, size, relu, tbuf,
          static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, true, g, x, dx, a);
 }

@@ -29,6 +29,34 @@
 // route takes any page size, G and table width. No call reroutes after
 // a failed map or launch: the entry returns the error.
 //
+// Every head dim D >= 1 runs, padded inside the kernels: the pools are
+// the whole cache, and a zero-padded copy of them on each step would
+// cost more than the attention. A call carries two head dims (Call): the
+// true one, Dt, for every stride, extent and store, and the built one,
+// D = built_dim(Dt) (32, 64, 128, 192 or 256, past 256 the next multiple
+// of 64), which picks the instantiation and lays out shared memory and
+// the split workspace. Each kernel reads Dt columns of q and K/V and
+// holds zeros from Dt to D: the split and row-tile kernels store zeros
+// there as they stage, the tensor-core kernel's maps have a global
+// extent of Dt, so TMA fills its 64-column boxes past it (as at D 32);
+// zero columns add exact zeros to every q·k, and the scale is the
+// caller's (the true D's). Output columns past Dt are never stored.
+// Where Dt·elt is no multiple of 16 bytes (bf16 Dt % 8, f32 Dt % 4), a
+// pool row is not 16-byte aligned: the split kernel's copies and a TMA
+// map's strides need that, so route_of sends such calls to the row-tile
+// kernels, which stage those rows element by element. The split and
+// row-tile kernels take a PAD template flag, set where Dt < D: at a built
+// head dim the padding's guards and branches compile away, and the
+// kernel is the one it was (as run-time branches they cost those kernels
+// up to 1.23x their time at built head dims; with the flag, bit-equal at
+// 0.99-1.02x: scripts/paged_ab.py, one NVIDIA H100 80GB HBM3, 700 W).
+// The flag alone keeps load_slots and the split kernel's chunk load as
+// they were (one loop each, guarded by !PAD: row-tile 0.998-1.002x,
+// split 0.996-1.010x the parent, bit-equal). The sliced kernel keeps a
+// copy of its unpadded load beside the padded one: without it the sliced
+// cases ran 1.14-1.22x, with the padded load's guards on !PAD still
+// 1.06-1.09x.
+//
 // paged_prefill_tc_kernel (bf16 prefill, tensor cores):
 // - Bound: prefill of a 512-token bucket (H 8, KV 2, D 128) does 0.54
 //   GFLOP on 3.7 MB (2.1 of it the f32 output): some 150 operations a
@@ -268,38 +296,60 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Stage slots [slot0, slot0 + n) of physical page `page`, kv head `h`,
-// of both pools into smem (n rows of D elements each, rows contiguous;
-// D a multiple of 16 bytes' elements, a compile-time constant where the
-// caller's is)
-template <typename T>
+// of both pools into smem: n rows of D elements each (the built head
+// dim, a compile-time constant where the caller's is), rows contiguous,
+// the pools' Dt columns copied and the D - Dt past them zeros. Rows of
+// Dt·elt bytes a multiple of 16 go in 16-byte cp.async copies, other
+// rows are not 16-byte aligned in the pool and go element by element
+// (plain loads and stores, route "row" only). PAD as the kernels': where
+// it is false, Dt == D and the guards compile away
+template <typename T, bool PAD>
 __device__ __forceinline__ void load_slots(T* ks, T* vs, const T* kp,
                                            const T* vp, int64_t page,
                                            int slot0, int n, int h, int S,
-                                           int KV, int D) {
+                                           int KV, int D, int Dt) {
   constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte copy
-  const int per_slot = D / kVec;
   const int64_t base =
-      (page * S + slot0) * KV * D + static_cast<int64_t>(h) * D;
-  for (int c = threadIdx.x; c < n * per_slot; c += kThreads) {
-    const int s = c / per_slot, w = (c % per_slot) * kVec;
-    const int64_t g = base + static_cast<int64_t>(s) * KV * D + w;
-    cp_async16(ks + s * D + w, kp + g);
-    cp_async16(vs + s * D + w, vp + g);
+      (page * S + slot0) * KV * Dt + static_cast<int64_t>(h) * Dt;
+  if (!PAD || Dt % kVec == 0) {
+    const int per_slot = D / kVec, valid = Dt / kVec;
+    for (int c = threadIdx.x; c < n * per_slot; c += kThreads) {
+      const int s = c / per_slot, v = c % per_slot, w = v * kVec;
+      if (!PAD || v < valid) {
+        const int64_t g = base + static_cast<int64_t>(s) * KV * Dt + w;
+        cp_async16(ks + s * D + w, kp + g);
+        cp_async16(vs + s * D + w, vp + g);
+      } else {
+        *reinterpret_cast<uint4*>(ks + s * D + w) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(vs + s * D + w) = make_uint4(0, 0, 0, 0);
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < n * D; c += kThreads) {
+      const int s = c / D, w = c % D;
+      const int64_t g = base + static_cast<int64_t>(s) * KV * Dt + w;
+      ks[s * D + w] = w < Dt ? kp[g] : T{};
+      vs[s * D + w] = w < Dt ? vp[g] : T{};
+    }
   }
 }
 
 // CHUNKS: pages in chunks of C < S slots; else whole pages (C == S), the
 // loop the kernel ran before it streamed chunks (its own instantiation,
-// so a page that fits runs it as it ran)
-template <typename T, int D, int RPW, bool CHUNKS>
+// so a page that fits runs it as it ran). PAD: the pools' head dim
+// dt_arg lies below D (zeros staged past it, stores stopped at it); an
+// instantiation of its own, so a head dim the kernel is built for runs
+// the code it ran before
+template <typename T, int D, int RPW, bool CHUNKS, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp,
                        const int* __restrict__ table,
                        const int* __restrict__ q_start,
                        float* __restrict__ out, int T_, int H, int KV,
-                       int S, int P, int C, float scale) {
+                       int dt_arg, int S, int P, int C, float scale) {
   constexpr int kDpl = D / 32;           // head dims per lane
+  const int Dt = PAD ? dt_arg : D;
   constexpr int kRows = kWarps * RPW;    // query rows per CTA
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const buf = reinterpret_cast<T*>(smem_raw);   // [2][K|V][C][D]
@@ -333,13 +383,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     live[i] = r < rows_total;
     const int t = r / G, head = h * G + r % G;
     qpos[i] = qs + t;
-    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * D +
+    // q, the pools and out have rows of Dt; columns past Dt are zeros
+    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * Dt +
                lane * kDpl;
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int d = 0; d < kDpl; ++d) {
-      qr[i][d] = live[i] ? to_f32(q[obase[i] + d]) : 0.f;
+      qr[i][d] = live[i] && (!PAD || lane * kDpl + d < Dt)
+                     ? to_f32(q[obase[i] + d]) : 0.f;
       acc[i][d] = 0.f;
     }
   }
@@ -348,8 +400,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // chunk u (slots [s0, s0 + Cs) of page j) into buffer u & 1
   auto load = [&](int u, int j, int s0) {
     T* const dst = buf + (u & 1) * 2 * Cs * D;
-    load_slots<T>(dst, dst + Cs * D, kp, vp, row_table[j], s0,
-                  CHUNKS ? min(Cs, S - s0) : S, h, S, KV, D);
+    load_slots<T, PAD>(dst, dst + Cs * D, kp, vp, row_table[j], s0,
+                       CHUNKS ? min(Cs, S - s0) : S, h, S, KV, D, Dt);
   };
   if (n_chunks > 0) load(0, 0, 0);
   cp_async_commit();
@@ -426,7 +478,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   for (int i = 0; i < RPW; ++i) {
     if (!live[i]) continue;
 #pragma unroll
-    for (int d = 0; d < kDpl; ++d) out[obase[i] + d] = acc[i][d] / l[i];
+    for (int d = 0; d < kDpl; ++d)
+      if (!PAD || lane * kDpl + d < Dt) out[obase[i] + d] = acc[i][d] / l[i];
   }
 }
 
@@ -473,14 +526,17 @@ int row_chunk_slots(int D, int S, int elt) {
 template <typename T, int D, int RPW>
 int launch(const void* q, const void* kp, const void* vp, const int* table,
            const int* q_start, float* out, int B, int T_, int H, int KV,
-           int S, int P, float scale, cudaStream_t stream) {
+           int Dt, int S, int P, float scale, cudaStream_t stream) {
   constexpr int kRows = kWarps * RPW;
   const int rows_total = T_ * (H / KV);
   const dim3 grid(B * KV, (rows_total + kRows - 1) / kRows);
   const int C = row_chunk_slots(D, S, sizeof(T));
   const size_t smem = 4ull * C * D * sizeof(T);
-  auto kernel = C < S ? paged_attention_kernel<T, D, RPW, true>
-                      : paged_attention_kernel<T, D, RPW, false>;
+  const bool pad = Dt != D;
+  auto kernel = C < S ? (pad ? paged_attention_kernel<T, D, RPW, true, true>
+                             : paged_attention_kernel<T, D, RPW, true, false>)
+                      : (pad ? paged_attention_kernel<T, D, RPW, false, true>
+                             : paged_attention_kernel<T, D, RPW, false, false>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -489,8 +545,8 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   }
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, S, P, C,
-      scale);
+      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, Dt, S, P,
+      C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,8 +561,8 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
 // + l of both, so no lane reads another's and a warp reads 32
 // consecutive elements of a K or V row at a time. A score is the
 // lane's f32 sum over its D/32 columns, in order, finished with the
-// template kernel's shuffle tree.
-template <typename T>
+// template kernel's shuffle tree. PAD as the template kernel's.
+template <typename T, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_wide_kernel(const T* __restrict__ q,
                             const T* __restrict__ kp,
@@ -514,7 +570,9 @@ paged_attention_wide_kernel(const T* __restrict__ q,
                             const int* __restrict__ table,
                             const int* __restrict__ q_start,
                             float* __restrict__ out, int T_, int H, int KV,
-                            int D, int S, int P, int C, float scale) {
+                            int D, int dt_arg, int S, int P, int C,
+                            float scale) {
+  const int Dt = PAD ? dt_arg : D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const buf = reinterpret_cast<T*>(smem_raw);   // [2][K|V][C][D]
   float* const q_all =                             // [kWideRows][D]
@@ -547,13 +605,15 @@ paged_attention_wide_kernel(const T* __restrict__ q,
     live[i] = r < rows_total;
     const int t = r / G, head = h * G + r % G;
     qpos[i] = qs + t;
-    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * D + lane;
+    // q, the pools and out have rows of Dt; columns past Dt are zeros
+    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * Dt + lane;
     m[i] = -INFINITY;
     l[i] = 0.f;
     float* const qr = q_all + (warp * kWideRpw + i) * D + lane;
     float* const ar = acc_all + (warp * kWideRpw + i) * D + lane;
     for (int c = 0; c < nsl; ++c) {
-      qr[32 * c] = live[i] ? to_f32(q[obase[i] + 32 * c]) : 0.f;
+      qr[32 * c] = live[i] && (!PAD || 32 * c + lane < Dt)
+                       ? to_f32(q[obase[i] + 32 * c]) : 0.f;
       ar[32 * c] = 0.f;
     }
   }
@@ -561,8 +621,8 @@ paged_attention_wide_kernel(const T* __restrict__ q,
   const int* row_table = table + static_cast<int64_t>(b) * P;
   auto load = [&](int u, int j, int s0) {
     T* const dst = buf + static_cast<size_t>(u & 1) * 2 * C * D;
-    load_slots<T>(dst, dst + static_cast<size_t>(C) * D, kp, vp,
-                  row_table[j], s0, min(C, S - s0), h, S, KV, D);
+    load_slots<T, PAD>(dst, dst + static_cast<size_t>(C) * D, kp, vp,
+                       row_table[j], s0, min(C, S - s0), h, S, KV, D, Dt);
   };
   if (n_chunks > 0) load(0, 0, 0);
   cp_async_commit();
@@ -635,21 +695,24 @@ paged_attention_wide_kernel(const T* __restrict__ q,
   for (int i = 0; i < kWideRpw; ++i) {
     if (!live[i]) continue;
     const float* const ar = acc_all + (warp * kWideRpw + i) * D + lane;
-    for (int c = 0; c < nsl; ++c) out[obase[i] + 32 * c] = ar[32 * c] / l[i];
+    for (int c = 0; c < nsl; ++c)
+      if (!PAD || 32 * c + lane < Dt)
+        out[obase[i] + 32 * c] = ar[32 * c] / l[i];
   }
 }
 
 template <typename T>
 int launch_wide(const void* q, const void* kp, const void* vp,
                 const int* table, const int* q_start, float* out, int B,
-                int T_, int H, int KV, int D, int S, int P, float scale,
-                cudaStream_t stream) {
+                int T_, int H, int KV, int D, int Dt, int S, int P,
+                float scale, cudaStream_t stream) {
   if (D % 64 != 0 || D > wide_max_d(sizeof(T))) return -1;
   const int rows_total = T_ * (H / KV);
   const dim3 grid(B * KV, (rows_total + kWideRows - 1) / kWideRows);
   const int C = row_chunk_slots(D, S, sizeof(T));
   const size_t smem = 4ull * C * D * sizeof(T) + row_fixed_bytes(D);
-  auto kernel = paged_attention_wide_kernel<T>;
+  auto kernel = Dt != D ? paged_attention_wide_kernel<T, true>
+                        : paged_attention_wide_kernel<T, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -658,8 +721,8 @@ int launch_wide(const void* q, const void* kp, const void* vp,
   }
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, D, S, P, C,
-      scale);
+      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, D, Dt, S, P,
+      C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -679,8 +742,8 @@ int launch_wide(const void* q, const void* kp, const void* vp,
 // (double-buffered by group), which P·V takes at the group's last step.
 // Groups are those of the wide kernel: 8 slots from each multiple of 8
 // of each page, those whose first key lies past the CTA's last query
-// never loaded.
-template <typename T>
+// never loaded. PAD as the template kernel's.
+template <typename T, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_sliced_kernel(const T* __restrict__ q,
                               const T* __restrict__ kp,
@@ -688,7 +751,9 @@ paged_attention_sliced_kernel(const T* __restrict__ q,
                               const int* __restrict__ table,
                               const int* __restrict__ q_start,
                               float* __restrict__ out, int T_, int H, int KV,
-                              int D, int S, int P, float scale) {
+                              int D, int dt_arg, int S, int P,
+                              float scale) {
+  const int Dt = PAD ? dt_arg : D;
   constexpr int kVec = 16 / sizeof(T);             // elements a copy
   constexpr int kStage = (kWideRows + kKeyChunk) * kSliceCols;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -725,7 +790,7 @@ paged_attention_sliced_kernel(const T* __restrict__ q,
     live[i] = r < rows_total;
     const int t = r / G, head = h * G + r % G;
     qpos[i] = qs + t;
-    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * D;
+    obase[i] = ((static_cast<int64_t>(b) * T_ + t) * H + head) * Dt;
     m[i] = -INFINITY;
     l[i] = 0.f;
     float* const ar = acc_all + (warp * kWideRpw + i) * kSliceCols + lane;
@@ -733,39 +798,86 @@ paged_attention_sliced_kernel(const T* __restrict__ q,
   }
 
   const int* row_table = table + static_cast<int64_t>(b) * P;
+  // q, the pools and out have rows of Dt; staged columns past Dt are
+  // zeros. Rows of Dt·elt bytes a multiple of 16 go in 16-byte cp.async
+  // copies, others element by element (plain loads and stores)
+  const bool vec = Dt % kVec == 0;
+  const int step = vec ? kVec : 1;                 // elements a copy
+  // `w` elements from column d0 of a row (`src`, nullptr: a q row past
+  // the CTA's rows, never read, not loaded) into `dst`
+  auto stage = [&](T* dst, const T* src, int d0, int w) {
+    if (src == nullptr) return;
+    if (d0 + w >= Dt) {
+      if (vec)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      else
+        *dst = T{};
+    } else if (vec) {
+      cp_async16(dst, src + d0 + w);
+    } else {
+      *dst = src[d0 + w];
+    }
+  };
   // step t: the piece's columns of the CTA's live q rows and of the
   // group's K rows; at the group's first piece its V rows of the slice
   auto load = [&](int t) {
     const int u = t / np, p = t % np, j = u / gpp;
     const int slot0 = (u % gpp) * kKeyChunk, n = min(kKeyChunk, S - slot0);
     const int d0 = p * kSliceCols, pw = min(kSliceCols, D - d0);
-    const int per = pw / kVec;                     // copies a row
     T* const st = ring + (t & 1) * kStage;
     const int64_t page = row_table[j];
-    const int64_t kbase = ((page * S + slot0) * KV + h) * D;
+    const int64_t kbase = ((page * S + slot0) * KV + h) * Dt;
+    if (Dt == D) {      // no padding: 16-byte copies (header: kept)
+      const int per = pw / kVec;
+      for (int c = threadIdx.x; c < (kWideRows + n) * per; c += kThreads) {
+        const int r = c / per, w = (c % per) * kVec;
+        if (r < kWideRows) {
+          const int qr = row0 + r;
+          if (qr < rows_total) {
+            const int tq = qr / G, head = h * G + qr % G;
+            cp_async16(st + r * kSliceCols + w,
+                       q + ((static_cast<int64_t>(b) * T_ + tq) * H + head)
+                           * D + d0 + w);
+          }
+        } else {
+          const int s = r - kWideRows;
+          cp_async16(st + r * kSliceCols + w,
+                     kp + kbase + static_cast<int64_t>(s) * KV * D + d0 + w);
+        }
+      }
+      if (p == 0) {
+        T* const vs = vbuf + (u & 1) * kKeyChunk * kSliceCols;
+        const int wper = width / kVec;
+        for (int c = threadIdx.x; c < n * wper; c += kThreads) {
+          const int s = c / wper, w = (c % wper) * kVec;
+          cp_async16(vs + s * kSliceCols + w,
+                     vp + kbase + static_cast<int64_t>(s) * KV * D + col0 + w);
+        }
+      }
+      return;
+    }
+    const int per = pw / step;                     // copies a row
     for (int c = threadIdx.x; c < (kWideRows + n) * per; c += kThreads) {
-      const int r = c / per, w = (c % per) * kVec;
+      const int r = c / per, w = (c % per) * step;
+      const T* src;
       if (r < kWideRows) {
         const int qr = row0 + r;
-        if (qr < rows_total) {
-          const int tq = qr / G, head = h * G + qr % G;
-          cp_async16(st + r * kSliceCols + w,
-                     q + ((static_cast<int64_t>(b) * T_ + tq) * H + head) * D
-                         + d0 + w);
-        }
+        const int tq = qr / G, head = h * G + qr % G;
+        src = qr < rows_total
+                  ? q + ((static_cast<int64_t>(b) * T_ + tq) * H + head) * Dt
+                  : nullptr;
       } else {
-        const int s = r - kWideRows;
-        cp_async16(st + r * kSliceCols + w,
-                   kp + kbase + static_cast<int64_t>(s) * KV * D + d0 + w);
+        src = kp + kbase + static_cast<int64_t>(r - kWideRows) * KV * Dt;
       }
+      stage(st + r * kSliceCols + w, src, d0, w);
     }
     if (p == 0) {
       T* const vs = vbuf + (u & 1) * kKeyChunk * kSliceCols;
-      const int wper = width / kVec;
+      const int wper = width / step;
       for (int c = threadIdx.x; c < n * wper; c += kThreads) {
-        const int s = c / wper, w = (c % wper) * kVec;
-        cp_async16(vs + s * kSliceCols + w,
-                   vp + kbase + static_cast<int64_t>(s) * KV * D + col0 + w);
+        const int s = c / wper, w = (c % wper) * step;
+        stage(vs + s * kSliceCols + w,
+              vp + kbase + static_cast<int64_t>(s) * KV * Dt, col0, w);
       }
     }
   };
@@ -843,28 +955,30 @@ paged_attention_sliced_kernel(const T* __restrict__ q,
     const float* const ar =
         acc_all + (warp * kWideRpw + i) * kSliceCols + lane;
     for (int c = 0; c < width / 32; ++c)
-      out[obase[i] + col0 + lane + 32 * c] = ar[32 * c] / l[i];
+      if (!PAD || col0 + lane + 32 * c < Dt)
+        out[obase[i] + col0 + lane + 32 * c] = ar[32 * c] / l[i];
   }
 }
 
 template <typename T>
 int launch_sliced(const void* q, const void* kp, const void* vp,
                   const int* table, const int* q_start, float* out, int B,
-                  int T_, int H, int KV, int D, int S, int P, float scale,
-                  cudaStream_t stream) {
+                  int T_, int H, int KV, int D, int Dt, int S, int P,
+                  float scale, cudaStream_t stream) {
   if (D % 64 != 0 || D <= wide_max_d(sizeof(T))) return -1;
   const int rows_total = T_ * (H / KV);
   const dim3 grid(B * KV, (rows_total + kWideRows - 1) / kWideRows,
                   (D + kSliceCols - 1) / kSliceCols);
   const size_t smem = sliced_smem_bytes(sizeof(T));
-  auto kernel = paged_attention_sliced_kernel<T>;
+  auto kernel = Dt != D ? paged_attention_sliced_kernel<T, true>
+                        : paged_attention_sliced_kernel<T, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, D, S, P,
+      static_cast<const T*>(vp), table, q_start, out, T_, H, KV, D, Dt, S, P,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -879,7 +993,11 @@ struct Call {                      // one call's operands and geometry
   const int *table, *q_start;
   float *out, *ws;
   int* counters;
-  int B, T, H, KV, D, S, P, NP, pps;   // NP: pages in each pool
+  // D: the head dim the call's kernel is built for (built_dim), which
+  // picks the instantiation and lays out shared memory and the split
+  // workspace; Dt: the pools', q's and out's, for every stride, extent
+  // and store. NP: pages in each pool
+  int B, T, H, KV, D, Dt, S, P, NP, pps;
   float scale;
   cudaStream_t stream;
 };
@@ -963,8 +1081,9 @@ struct SplitShape {
 // One CTA per (row b, kv head, split of pps pages). Writes the split's f32
 // partial (m, l, unnormalised acc) per query row; the last live split CTA
 // of a (row, kv head) to finish (counted in `counters`, which it resets to
-// 0 for the next call) merges the row's live partials into `out`.
-template <typename T, int D, int ROWS>
+// 0 for the next call) merges the row's live partials into `out`. PAD:
+// the pools' head dim dt_arg lies below D, as the row-tile kernel's.
+template <typename T, int D, int ROWS, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                           const T* __restrict__ vp,
@@ -972,8 +1091,9 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                           const int* __restrict__ q_start,
                           float* __restrict__ out, float* part_acc,
                           float* part_ml, int* counters, int T_, int H,
-                          int KV, int S, int P, int pps, int kc, int nst,
-                          float scale) {
+                          int KV, int dt_arg, int S, int P, int pps, int kc,
+                          int nst, float scale) {
+  const int Dt = PAD ? dt_arg : D;
   using Sh = SplitShape<T, D>;
   constexpr int kVec = Sh::kVec, kVpr = Sh::kVpr, kRowB = Sh::kRowB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -999,18 +1119,21 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   // q_start, the split's page ids and the q rows (cp.async, one 16-byte
   // vector a thread): loads issued together, before the row's length is
-  // known; the rows past R are zeros, so the row loops need no bound
+  // known; the rows past R are zeros, so the row loops need no bound.
+  // q, the pools and out have rows of Dt (a multiple of kVec: route_of);
+  // the columns past it are zeros in q and in every staged K/V row
   const int qs = q_start[b];
   const int p0 = split * pps, n_pages = min(pps, P - p0);
+  const int valid = Dt / kVec;                  // vectors of a pool row
   for (int i = tid; i < n_pages; i += kThreads)
     pages[i] = table[static_cast<int64_t>(b) * P + p0 + i];
   for (int i = tid; i < ROWS * kVpr; i += kThreads) {
     const int r = i / kVpr, v = i % kVpr;
     T* const dst = q_raw + r * D + v * kVec;
-    if (r < R) {
+    if (r < R && v < valid) {
       const int t = r / G, head = h * G + r % G;
       cp_async16(dst, q + ((static_cast<int64_t>(b) * T_ + t) * H + head) *
-                              D + v * kVec);
+                              Dt + v * kVec);
     } else {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -1040,16 +1163,23 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int k = tid; k < n; k += kThreads) {
       const int rel = k0 + k;
       off[k] = ((static_cast<int64_t>(pages[rel / S]) * S + rel % S) * KV +
-                h) * D;
+                h) * Dt;
     }
     __syncthreads();
     unsigned char* const ks = stage + static_cast<size_t>(st) * 2 * kc * kRowB;
     unsigned char* const vs = ks + static_cast<size_t>(kc) * kRowB;
     for (int i = tid; i < n * kVpr; i += kThreads) {
       const int k = i / kVpr, v = i % kVpr;
-      const int64_t g = off[k] + v * kVec;
-      cp_async16(ks + k * kRowB + v * 16, kp + g);
-      cp_async16(vs + k * kRowB + v * 16, vp + g);
+      if (!PAD || v < valid) {
+        const int64_t g = off[k] + v * kVec;
+        cp_async16(ks + k * kRowB + v * 16, kp + g);
+        cp_async16(vs + k * kRowB + v * 16, vp + g);
+      } else {
+        *reinterpret_cast<uint4*>(ks + k * kRowB + v * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vs + k * kRowB + v * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   };
   load_chunk(0, 0);
@@ -1283,9 +1413,11 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
     }
     const int t = r / G, head = h * G + r % G;
-    float* const dst = out + ((static_cast<int64_t>(b) * T_ + t) * H + head) * D;
+    float* const dst =
+        out + ((static_cast<int64_t>(b) * T_ + t) * H + head) * Dt;
 #pragma unroll
-    for (int i = 0; i < kDpl; ++i) dst[lane + 32 * i] = o[i] / l_all;
+    for (int i = 0; i < kDpl; ++i)
+      if (!PAD || lane + 32 * i < Dt) dst[lane + 32 * i] = o[i] / l_all;
   }
 }
 
@@ -1312,7 +1444,8 @@ int launch_split(const Call& a) {
   float* const part_acc = a.ws;
   float* const part_ml =
       a.ws + static_cast<size_t>(a.B) * a.KV * n_split * R * D;
-  auto split = paged_decode_split_kernel<T, D, ROWS>;
+  auto split = a.Dt != D ? paged_decode_split_kernel<T, D, ROWS, true>
+                         : paged_decode_split_kernel<T, D, ROWS, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         split, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1322,7 +1455,7 @@ int launch_split(const Call& a) {
   split<<<dim3(a.B * a.KV, n_split), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
       static_cast<const T*>(a.vp), a.table, a.q_start, a.out, part_acc,
-      part_ml, a.counters, a.T, a.H, a.KV, a.S, a.P, a.pps, kc, nst,
+      part_ml, a.counters, a.T, a.H, a.KV, a.Dt, a.S, a.P, a.pps, kc, nst,
       a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1398,7 +1531,7 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
                         const int* __restrict__ table,
                         const int* __restrict__ q_start,
                         float* __restrict__ out, int T_, int H, int KV,
-                        int S, int P, float scale) {
+                        int Dt, int S, int P, float scale) {
   using Sh = TcShape<D>;
   constexpr int kC = Sh::kC, kStages = Sh::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -1481,7 +1614,8 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     // Q of the flat fold: 16-byte chunk j of 64-column chunk c of folded
     // row r (query column R / G, head h·G + R % G) lands at chunk j ^ (r
     // % 8) of its row, as TMA's 128-byte swizzle puts it; zeros past T
-    // and D. A thread issues all its kLoads loads before its first store,
+    // and past q's Dt columns (a multiple of 8: route_of). A thread
+    // issues all its kLoads loads before its first store,
     // so they are in flight together. Fenced for the async proxy, then
     // every consumer waits for every other's part before the first wgmma
     constexpr int kLoads = kTcRows * kC * 8 / kConsumers;   // 4·kC
@@ -1491,10 +1625,10 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
       const int e = tid + i * kConsumers;
       const int j = e % 8, c = e / 8 % kC, r = e / (8 * kC);
       const int R = r0 + r, t = R / G, col = 64 * c + 8 * j;
-      v[i] = t < T_ && col < D
+      v[i] = t < T_ && col < Dt
                  ? *reinterpret_cast<const uint4*>(
                        q + ((static_cast<int64_t>(b) * T_ + t) * H + h * G +
-                            R % G) * D + col)
+                            R % G) * Dt + col)
                  : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
@@ -1619,19 +1753,20 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
 
   // f32 rows straight from the accumulator: folded row R = r0 + rl + 8r
   // is query column R / F, head h·G + R % F; the padded rows (a head
-  // past the group's G) and rows past T are never written
+  // past the group's G) and rows past T are never written, nor the
+  // columns past out's Dt (a multiple of 8)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float inv = 1.f / quad_sum(lsum[r]);
     const int fr = r0 + rl + 8 * r, t = fr / F;
     if (t >= T_ || fr % F >= G) continue;
     float* const row =
-        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % F) * D;
+        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % F) * Dt;
 #pragma unroll
     for (int c = 0; c < kC; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (64 * c + 8 * j >= D) continue;       // zero padding past D
+        if (64 * c + 8 * j >= Dt) continue;      // zero padding past Dt
         const int i = 4 * j + 2 * r;
         *reinterpret_cast<float2*>(row + 64 * c + acc_col(i, l)) =
             make_float2(acc[c][i] * inv, acc[c][i + 1] * inv);
@@ -1663,11 +1798,13 @@ int launch(const Call& a) {
   using Sh = TcShape<D>;
   const int G = a.H / a.KV, F = fold_of(G);
   const cuuint32_t br = box_rows(pad_slots(a.S));
-  const cuuint64_t dq[4] = {static_cast<cuuint64_t>(D),
+  // q's and the pools' rows are Dt wide: the 64-column boxes read zeros
+  // past Dt (and past D at D 32), so the tiles hold D columns
+  const cuuint64_t dq[4] = {static_cast<cuuint64_t>(a.Dt),
                             static_cast<cuuint64_t>(a.H),
                             static_cast<cuuint64_t>(a.T),
                             static_cast<cuuint64_t>(a.B)};
-  const cuuint64_t dp[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dp[4] = {static_cast<cuuint64_t>(a.Dt),
                             static_cast<cuuint64_t>(a.KV),
                             static_cast<cuuint64_t>(a.S),
                             static_cast<cuuint64_t>(a.NP)};
@@ -1685,7 +1822,7 @@ int launch(const Call& a) {
   const dim3 grid(a.B * a.KV, (a.T * F + kTcRows - 1) / kTcRows);
   kernel<<<grid, kTcThreads, smem, a.stream>>>(
       qm, km, vm, static_cast<const __nv_bfloat16*>(a.q), a.table,
-      a.q_start, a.out, a.T, a.H, a.KV, a.S, a.P, a.scale);
+      a.q_start, a.out, a.T, a.H, a.KV, a.Dt, a.S, a.P, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1694,11 +1831,26 @@ int launch(const Call& a) {
 enum Route { kRouteSplit = 0, kRouteTc = 1, kRouteRow = 2,
              kRouteRowSliced = 3 };
 
-// the kernel a call runs, by dtype and shape alone
-Route route_of(int dtype, int T, int H, int KV, int D, int S, int P) {
-  const int G = H / KV;
+// the head dim a call of true head dim Dt runs at: the smallest of 32,
+// 64, 128, 192 and 256 not below it, past 256 the next multiple of 64
+// (the wide and sliced kernels take any multiple of 64)
+int built_dim(int Dt) {
+  if (Dt > kRowOnlyPast) return (Dt + 63) / 64 * 64;
+  return Dt <= 32 ? 32 : Dt <= 64 ? 64 : Dt <= 128 ? 128 : Dt <= 192 ? 192
+                                                                     : 256;
+}
+
+// the kernel a call runs, by dtype and shape alone: by the built head
+// dim, except that a pool row of Dt·elt bytes that is no multiple of 16
+// (bf16 Dt % 8 != 0, f32 Dt % 4 != 0) cannot be read in the split
+// kernel's 16-byte copies nor be a TMA map's row (its strides must be
+// multiples of 16 bytes), so such calls take the row-tile kernel, which
+// stages those rows element by element
+Route route_of(int dtype, int T, int H, int KV, int Dt, int S, int P) {
+  const int G = H / KV, D = built_dim(Dt), elt = dtype == 0 ? 4 : 2;
   if (D > kRowOnlyPast)
-    return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : kRouteRow;
+    return D > wide_max_d(elt) ? kRouteRowSliced : kRouteRow;
+  if (Dt * elt % 16 != 0) return kRouteRow;
   if (T * G <= kSplitRows) return kRouteSplit;
   if (dtype == 1 && P <= tc::kTcMaxPages) return kRouteTc;
   return kRouteRow;
@@ -1719,7 +1871,7 @@ int launch_call(const Call& a, Route route) {
     return -2;
   }
   return launch<T, D, 4>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
-                         a.T, a.H, a.KV, a.S, a.P, a.scale, a.stream);
+                         a.T, a.H, a.KV, a.Dt, a.S, a.P, a.scale, a.stream);
 }
 
 template <typename T>
@@ -1739,26 +1891,28 @@ int launch_dims(const Call& a, Route route) {
       if (a.D <= kRowOnlyPast) return -1;
       if (route == kRouteRowSliced)
         return launch_sliced<T>(a.q, a.kp, a.vp, a.table, a.q_start, a.out,
-                                a.B, a.T, a.H, a.KV, a.D, a.S, a.P, a.scale,
-                                a.stream);
+                                a.B, a.T, a.H, a.KV, a.D, a.Dt, a.S, a.P,
+                                a.scale, a.stream);
       if (route != kRouteRow) return -1;
       return launch_wide<T>(a.q, a.kp, a.vp, a.table, a.q_start, a.out, a.B,
-                            a.T, a.H, a.KV, a.D, a.S, a.P, a.scale,
+                            a.T, a.H, a.KV, a.D, a.Dt, a.S, a.P, a.scale,
                             a.stream);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32 pools, 1 = bfloat16 pools; NP: pages in each pool.
+// dtype: 0 = float32 pools, 1 = bfloat16 pools; D: the head dim of q,
+// the pools and out, any D >= 1 (the call runs at built_dim(D), its
+// columns past D zeros that are never stored); NP: pages in each pool.
 // Writes the route the call takes to *route (0 split-KV, 1 tensor-core
 // prefill, 2 row-tile, 3 row-tile with its columns sliced; route_of)
 // before launching. A split call (T·G <=
 // 16 query rows per kv head) needs `ws`, an f32 workspace of
-// B·KV·ceil(P/pps)·T·G·(D + 2) elements, `counters`, B·KV ints that are 0
-// (the kernel leaves them 0), and `pps` pages per split; the other routes
-// leave ws, counters and pps unused. Returns 0 on a clean launch, -1 for
-// a head dim the kernels were not built for, -2 for another dtype, -3
+// B·KV·ceil(P/pps)·T·G·(built_dim(D) + 2) elements, `counters`, B·KV
+// ints that are 0 (the kernel leaves them 0), and `pps` pages per split;
+// the other routes leave ws, counters and pps unused. Returns 0 on a
+// clean launch, -1 for a head dim below 1, -2 for another dtype, -3
 // for a split call without a workspace, counters or pages per split, -4
 // for a split whose page ids do not fit shared memory, -5 where the
 // driver offers no tensor-map encoder, 1000 + the CUresult of a tensor
@@ -1770,8 +1924,10 @@ extern "C" int bigdl_paged_attention(int dtype, const void* q,
                                      int* route, int B, int T, int H, int KV,
                                      int D, int S, int P, int NP, int pps,
                                      float scale, void* stream) {
+  if (D < 1) return -1;
   const Call a{q, kp, vp, table, q_start, out, ws, counters, B, T, H, KV,
-               D, S, P, NP, pps, scale, static_cast<cudaStream_t>(stream)};
+               built_dim(D), D, S, P, NP, pps, scale,
+               static_cast<cudaStream_t>(stream)};
   const Route r = route_of(dtype, T, H, KV, D, S, P);
   *route = r;
   if (dtype == 0) return launch_dims<float>(a, r);

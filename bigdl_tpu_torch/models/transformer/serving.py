@@ -157,9 +157,8 @@ def _resolve_paged_kernel(mode, device: torch.device, head_dim: int,
             f"paged_kernel='auto' on {device.type} pools but the kernels "
             f"do not take their geometry: head dim {head_dim}, pages of "
             f"{page_size} slots, {dtype}, {num_heads} heads over "
-            f"{num_kv_heads} kv heads (need float32 or bfloat16, head "
-            f"dim 32, 64, 128, 192 or 256, or a multiple of 64 past 256, "
-            f"and kv heads dividing the heads); "
+            f"{num_kv_heads} kv heads (need float32 or bfloat16 and kv "
+            f"heads dividing the heads); "
             f"paged_kernel='dense' takes the plain path")
     return "kernel" if mode == "auto" else mode
 

@@ -62,10 +62,11 @@ def build_copy(text: str, out: Path) -> ctypes.CDLL:
     """Build ``text``, an edited copy of a ``csrc/`` source, as
     ``out.cu`` into ``out.so`` and load it (for the scripts that plant
     faults or knock parts out of a kernel; ``out`` lies outside the
-    checkout, and the copy includes the checkout's headers)."""
+    checkout, and the copy includes the checkout's headers). The
+    compiler's register/spill report is kept as ``out.ptxas.txt``."""
     cu, lib = out.with_suffix(".cu"), out.with_suffix(".so")
     cu.write_text(text)
-    _nvcc(cu, lib)
+    out.with_suffix(".ptxas.txt").write_text(_nvcc(cu, lib))
     return ctypes.CDLL(str(lib))
 
 

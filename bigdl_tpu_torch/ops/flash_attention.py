@@ -33,16 +33,17 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
+
+from . import padded_head_dim
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
-           "flash_route", "flash_attention_ref", "flash_fwd", "flash_dq",
-           "flash_dkdv", "flash_fwd_ref", "flash_dq_ref", "flash_dkdv_ref",
+           "flash_route", "padded_head_dim", "flash_attention_ref",
+           "flash_fwd", "flash_dq", "flash_dkdv", "flash_fwd_ref",
+           "flash_dq_ref", "flash_dkdv_ref",
            "fwd_launches", "dq_launches", "dkdv_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
-#: head dims with kernels of their own; past 256 every multiple of 64
-#: runs the D-sliced kernels (``flash_route``)
-_HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since import (reset by assigning 0)
@@ -52,20 +53,23 @@ dkdv_launches = 0
 
 
 def _head_dim_ok(d: int) -> bool:
-    return d in _HEAD_DIMS or (d > 256 and d % 64 == 0)
+    """Head dims the kernels are built for (the C entries take no other):
+    32, 64, 128, 192, 256 and past 256 every multiple of 64."""
+    return d >= 1 and padded_head_dim(d) == d
 
 
 def flash_supported(q, k) -> bool:
     """Shapes and dtypes the kernels take: (B, S, H, D) q and k with equal
-    B, H and D, D in (32, 64, 128, 192, 256) or any multiple of 64 past
-    256 (as the JAX kernel, plus D 32), float32 or bfloat16. Any
-    sequence lengths (ragged tile tails are masked in the kernel).
+    B, H and D, any D >= 1, float32 or bfloat16. Any sequence lengths
+    (ragged tile tails are masked in the kernel).
 
+    A head dim the kernels are not built for runs zero-padded to
+    :func:`padded_head_dim` (D 16 -> 32, 80 and 96 -> 128, 288 -> 320).
     Past D 256 the C entries route to D-sliced kernels: a CTA owns a
     slice of the output's columns and sums the scores over all of D in
     64-column chunks (``flash_route``; csrc/flash_attention.cu's
     header)."""
-    return (q.dim() == 4 and k.dim() == 4 and _head_dim_ok(q.shape[-1])
+    return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] >= 1
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
             and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
             and q.shape[1] > 0 and k.shape[1] > 0)
@@ -80,10 +84,15 @@ def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
     (the bf16 forward past 256: ``flash_fwd_sliced_tc_kernel``, slices
     of up to 256 output columns on the tensor cores), ``"sliced"`` (f32
     past 256, and the bf16 dq and dk/dv there: the D-sliced CUDA-core
-    kernels, 64 columns a CTA); None where no kernel takes the call."""
-    if d in _HEAD_DIMS:
+    kernels, 64 columns a CTA); None where no kernel takes the call. A
+    head dim the kernels are not built for reports the route of
+    :func:`padded_head_dim`, the width it runs at."""
+    if d < 1:
+        return None
+    d = padded_head_dim(d)
+    if d <= 256:
         return {torch.bfloat16: "tc", torch.float32: "cuda_cores"}.get(dtype)
-    if d > 256 and d % 64 == 0 and dtype in _DTYPE_CODES:
+    if dtype in _DTYPE_CODES:
         if dtype == torch.bfloat16 and kernel == "fwd":
             return "sliced_tc"
         return "sliced"
@@ -196,12 +205,12 @@ def _check_cuda(q, k, v, *rest):
     """Device, shape, dtype, contiguity and alignment of the inputs."""
     _check(q.is_cuda and all(x.device == q.device for x in (k, v, *rest)),
            "all tensors must be on one CUDA device")
-    _check(flash_supported(q, k) and v.shape == k.shape
-           and v.dtype == q.dtype,
+    _check(flash_supported(q, k) and _head_dim_ok(q.shape[-1])
+           and v.shape == k.shape and v.dtype == q.dtype,
            f"unsupported q{tuple(q.shape)} k{tuple(k.shape)} "
            f"v{tuple(v.shape)} {q.dtype}: need (B, S, H, D) with D in "
-           f"{_HEAD_DIMS} or a multiple of 64 past 256, equal B/H/D, "
-           f"float32 or bfloat16")
+           f"(32, 64, 128, 192, 256) or a multiple of 64 past 256, equal "
+           f"B/H/D, float32 or bfloat16")
     for x in (q, k, v, *rest):
         _check(x.is_contiguous(), "inputs must be contiguous")
         _check(x.data_ptr() % 16 == 0, "inputs must be 16-byte aligned")
@@ -296,10 +305,23 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
                              scale: float | None = None):
     """Tiled online-softmax attention over (B, S, H, D) that also returns
     the per-row logsumexp (B, S, H) f32 of the scaled scores. Both
-    outputs are differentiable."""
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    outputs are differentiable.
+
+    Any head dim D: where the kernels are not built for D, q, k and v are
+    zero-padded to :func:`padded_head_dim` and o is sliced back to D. The
+    scale comes from the true D; the zero columns add exact zeros to the
+    scores, and autograd through the pad and the slice gives dq, dk and
+    dv at D (delta = rowsum(dO∘O) sums o's zero columns, adding nothing).
+    """
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else float(scale)
     q, k, v = (x.contiguous() for x in (q, k, v))
-    return _Flash.apply(q, k, v, scale, bool(causal))
+    width = padded_head_dim(d) if d >= 1 else d
+    if width == d:
+        return _Flash.apply(q, k, v, scale, bool(causal))
+    q, k, v = (F.pad(x, (0, width - d)) for x in (q, k, v))
+    o, lse = _Flash.apply(q, k, v, scale, bool(causal))
+    return o[..., :d], lse
 
 
 def flash_attention(q, k, v, *, causal: bool = False,

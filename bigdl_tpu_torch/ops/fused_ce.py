@@ -30,6 +30,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["linear_cross_entropy", "linear_ce_supported",
            "linear_cross_entropy_ref", "fused_ce_fwd", "fused_ce_dh",
@@ -45,11 +46,12 @@ dw_launches = 0
 
 
 def linear_ce_supported(h, w) -> bool:
-    """Shapes and dtypes the kernels take: (N, D) h and (V, D) w of one
-    dtype, float32 or bfloat16, D a multiple of 8. Any N and V (ragged
-    tiles are masked in the kernels)."""
+    """Shapes and dtypes ``linear_cross_entropy`` takes to the kernels:
+    (N, D) h and (V, D) w of one dtype, float32 or bfloat16. Any N, V and
+    D (ragged tiles are masked in the kernels; a D that is not a multiple
+    of 8, which the kernels need, is zero-padded to one first)."""
     return (h.dim() == 2 and w.dim() == 2 and h.shape[1] == w.shape[1]
-            and h.shape[1] % 8 == 0 and h.shape[0] > 0 and w.shape[0] > 0
+            and h.shape[1] > 0 and h.shape[0] > 0 and w.shape[0] > 0
             and h.dtype in _DTYPE_CODES and w.dtype == h.dtype)
 
 
@@ -154,7 +156,7 @@ def _check_cuda(h, w, b, t, *rest):
     n, v = h.shape[0], w.shape[0]
     _check(h.is_cuda and all(x.device == h.device for x in (w, b, t, *rest)),
            "all tensors must be on one CUDA device")
-    _check(linear_ce_supported(h, w),
+    _check(linear_ce_supported(h, w) and h.shape[1] % 8 == 0,
            f"unsupported h{tuple(h.shape)} {h.dtype}, w{tuple(w.shape)} "
            f"{w.dtype}: need (N, D) and (V, D) of one dtype, float32 or "
            f"bfloat16, D a multiple of 8")
@@ -266,7 +268,12 @@ def linear_cross_entropy(h, w, b, targets, *, reduction: str = "mean",
     support (``linear_ce_supported``). A call they do not support raises
     under True, and under "auto" too unless the tensors lie on the CPU: on
     the card the materialised path is taken only when asked for. False
-    takes ``linear_cross_entropy_ref`` (materialised logits)."""
+    takes ``linear_cross_entropy_ref`` (materialised logits).
+
+    The kernels read rows of D elements in 16-byte pieces, so a D that is
+    not a multiple of 8 runs on h and w zero-padded to the next multiple:
+    the zero columns add exact zeros to every logit, and autograd through
+    the pad gives dh and dW at D."""
     if use_kernel:
         supported = linear_ce_supported(h, w)
         if not supported and (use_kernel is True or h.device.type != "cpu"):
@@ -275,10 +282,13 @@ def linear_cross_entropy(h, w, b, targets, *, reduction: str = "mean",
                 f"the fused CE kernels do not support this call: "
                 f"h{tuple(h.shape)} {h.dtype}, w{tuple(w.shape)} {w.dtype} "
                 f"(need (N, D) and (V, D) of one dtype, float32 or "
-                f"bfloat16, D a multiple of 8); use_kernel=False takes the "
+                f"bfloat16); use_kernel=False takes the "
                 f"materialised path")
         if supported:
             t = targets.reshape(-1).to(torch.int32).contiguous()
+            pad = -h.shape[1] % 8
+            if pad:
+                h, w = F.pad(h, (0, pad)), F.pad(w, (0, pad))
             nll = _LinearCE.apply(h.contiguous(), w.contiguous(), b, t)
             total = nll.sum()
             return total / h.shape[0] if reduction == "mean" else total

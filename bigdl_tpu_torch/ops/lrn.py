@@ -25,7 +25,9 @@ CPU tensor it takes its plain version (``lrn_ref`` / ``lrn_bwd_ref``).
 activation dtype (float32 or bfloat16).
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches, so a run
-can show its main path went through the kernels.
+can show its main path went through the kernels; ``fwd_any_launches``
+and ``bwd_any_launches`` count those among them past window 9 (the
+runtime-size kernels).
 """
 from __future__ import annotations
 
@@ -38,16 +40,22 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.ops import pow_neg_beta
 
 __all__ = ["lrn", "lrn_fwd", "lrn_bwd", "lrn_ref", "lrn_bwd_ref",
-           "MAX_SIZE", "fwd_launches", "bwd_launches"]
+           "fwd_launches", "bwd_launches", "fwd_any_launches",
+           "bwd_any_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: widest window the kernels take (each size is its own instantiation,
-#: the window kept in registers)
-MAX_SIZE = 9
+#: widest window with kernels of its own (each size up to it an
+#: instantiation, the window kept in registers); past it the window is a
+#: runtime value and the backward needs an f32 scratch as large as x
+#: (kMaxSize in csrc/lrn.cu)
+_RING_MAX = 9
 
 #: kernel launches since import (reset by assigning 0)
 fwd_launches = 0
 bwd_launches = 0
+#: launches past ``_RING_MAX``, among the above
+fwd_any_launches = 0
+bwd_any_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -107,7 +115,7 @@ def _kernel_fns():
     tail = ([ctypes.c_int] * 4 + [ctypes.c_float] * 3
             + [ctypes.c_int, ctypes.c_void_p])
     fns = {}
-    for name, n_ptr in (("fwd", 2), ("bwd", 3)):
+    for name, n_ptr in (("fwd", 2), ("bwd", 4)):
         fn = getattr(lib, f"bigdl_lrn_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + tail
@@ -126,8 +134,7 @@ def _check_cuda(x, size, *rest):
     _check(x.dim() == 4, f"need an NCHW tensor, got shape {tuple(x.shape)}")
     _check(x.dtype in _DTYPE_CODES,
            f"dtype {x.dtype} not supported (float32 or bfloat16)")
-    _check(1 <= size <= MAX_SIZE,
-           f"size {size} outside the kernels' 1..{MAX_SIZE}")
+    _check(size >= 1, f"size {size}: need a window of at least 1")
     for t in (x, *rest):
         _check(t.shape == x.shape and t.dtype == x.dtype,
                "g must match x in shape and dtype")
@@ -139,7 +146,8 @@ def _launch(name, x, ptrs, size, alpha, beta, k, relu):
     fn = _kernel_fns()[name]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODES[x.dtype], *[t.data_ptr() for t in ptrs], n, c,
+        err = fn(_DTYPE_CODES[x.dtype],
+                 *[None if t is None else t.data_ptr() for t in ptrs], n, c,
                  h * w, size, float(alpha), float(beta), float(k),
                  int(bool(relu)), stream)
     if err:
@@ -150,12 +158,13 @@ def lrn_fwd(x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
     """Forward: y (x's dtype) of NCHW x."""
     if x.device.type == "cpu":
         return lrn_ref(x, size, alpha, beta, k, relu)
-    global fwd_launches
+    global fwd_launches, fwd_any_launches
     _check_cuda(x, size)
     y = torch.empty_like(x)
     if x.numel():
         _launch("fwd", x, (x, y), size, alpha, beta, k, relu)
         fwd_launches += 1
+        fwd_any_launches += size > _RING_MAX
     return y
 
 
@@ -163,12 +172,16 @@ def lrn_bwd(g, x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
     """Backward: dx (x's dtype) from the cotangent g and the saved x."""
     if x.device.type == "cpu":
         return lrn_bwd_ref(g, x, size, alpha, beta, k, relu)
-    global bwd_launches
+    global bwd_launches, bwd_any_launches
     _check_cuda(x, size, g)
     dx = torch.empty_like(x)
+    # past _RING_MAX the kernel parks t = g·r·s^-β/s in an f32 scratch
+    tbuf = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+            if size > _RING_MAX else None)
     if x.numel():
-        _launch("bwd", x, (g, x, dx), size, alpha, beta, k, relu)
+        _launch("bwd", x, (g, x, dx, tbuf), size, alpha, beta, k, relu)
         bwd_launches += 1
+        bwd_any_launches += size > _RING_MAX
     return dx
 
 

@@ -41,6 +41,14 @@ the route the entry reports):
   staged in column pieces: shared memory no longer grows with D, so
   every multiple of 64 runs.
 
+Every head dim D >= 1 runs, padded inside the kernels (the pools are the
+whole cache, never copied): each runs at ``ops.padded_head_dim`` (32,
+64, 128, 192 or 256, past 256 the next multiple of 64) with zeros past D
+in its staged q and K/V rows, and stores D columns. A pool row of D·elt
+bytes that is no multiple of 16 (bf16 D % 8, f32 D % 4) cannot be read in
+16-byte copies or by TMA, so such calls take the row-tile kernel, which
+stages those rows element by element.
+
 ``dense_cache_attention`` serves a dense per-row (B, M, KV, D) cache
 through the same kernel: the cache is a pool of ``M // S`` contiguous
 pages per row with an identity block table (a reshape, not a copy).
@@ -48,7 +56,8 @@ pages per row with an identity block table (a reshape, not a copy).
 ``launches`` counts wrapper calls that launched a kernel, so a run can
 show its main path went through the kernel; ``split_launches`` and
 ``tc_launches`` count the calls among them that ran the split-KV decode
-and the tensor-core prefill kernels.
+and the tensor-core prefill kernels, ``unaligned_launches`` those whose
+pool rows the row-tile kernel staged element by element.
 """
 from __future__ import annotations
 
@@ -57,18 +66,17 @@ import functools
 
 import torch
 
+from . import padded_head_dim
+
 __all__ = ["paged_attention", "paged_attention_ref",
            "paged_attention_split_ref", "paged_attention_tile_ref",
-           "paged_attention_row_ref",
-           "decode_split_pages", "kernel_route", "row_chunk_slots",
+           "paged_attention_row_ref", "decode_split_pages", "kernel_route",
+           "row_chunk_slots",
            "dense_cache_attention", "dense_cache_page_size",
            "paged_kernel_supported", "wide_max_head_dim", "launches",
-           "split_launches", "tc_launches"]
+           "split_launches", "tc_launches", "unaligned_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
-#: head dims every route is built for (past them, multiples of 64 on the
-#: row-tile kernel alone: ``_takes_head_dim``)
-_HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 #: keys the row-tile kernel scores per online-softmax update (kKeyChunk)
@@ -111,6 +119,9 @@ launches = 0
 split_launches = 0
 #: calls that ran the tensor-core prefill kernel, among ``launches``
 tc_launches = 0
+#: calls whose pool rows are no multiple of 16 bytes (staged element by
+#: element on the row-tile kernel), among ``launches``
+unaligned_launches = 0
 #: per (CUDA device, stream): int32 counters, one per (row, kv head),
 #: that the split-KV kernel needs zeroed and leaves zeroed (a stream's
 #: calls run in order, so they can share them)
@@ -132,18 +143,9 @@ def wide_max_head_dim(dtype) -> int:
     beside q and the accumulator (64·D bytes) within 232,448 bytes of
     shared memory — 1152 for float32 pools, 1792 for bfloat16 ones.
     Past it the sliced form runs (route ``"row_sliced"``)."""
-    elt = torch.empty((), dtype=dtype).element_size()
+    elt = dtype.itemsize
     return (_SMEM_LIMIT // (4 * _KEY_CHUNK * elt + 2 * _WIDE_ROWS * 4)
             // 64 * 64)
-
-
-def _takes_head_dim(head_dim: int) -> bool:
-    """Head dims the kernels take: 32, 64, 128, 192 and 256 on every
-    route, and past 256 every multiple of 64 (the row-tile kernel's wide
-    form, then its sliced form), as the JAX ``paged_supported``."""
-    if head_dim <= _ROW_ONLY_PAST:
-        return head_dim in _HEAD_DIMS
-    return head_dim % 64 == 0
 
 
 def paged_kernel_supported(head_dim: int, page_size: int, dtype,
@@ -151,18 +153,19 @@ def paged_kernel_supported(head_dim: int, page_size: int, dtype,
     """Pool geometries the kernels take (the counterpart of the
     reference's ``paged_supported``), for pools of ``num_kv_heads`` kv
     heads serving ``num_heads`` query heads: float32 or bfloat16, G =
-    heads / kv heads whole, head dim 32, 64, 128, 192 or 256, or any
-    multiple of 64 past 256 (past :func:`wide_max_head_dim` the row-tile
-    kernel slices its output's columns, so no head dim is capped).
+    heads / kv heads whole, any head dim (run at ``padded_head_dim``
+    with zero columns past it; past :func:`wide_max_head_dim` the
+    row-tile kernel slices its output's columns, so no head dim is
+    capped).
 
     Every route takes any page size and table width: the split-KV kernel
     stages key rows, not pages; the tensor-core kernel pads each page to
     a multiple of 8 slots, which TMA fills with zeros; the row-tile
     kernel streams a page in chunks of :func:`row_chunk_slots` slots. So
-    every pool of those head dims and dtypes is taken (the JAX
-    ``paged_supported``'s, S % 8 == 0 and D a multiple of 64, among
-    them), pages of any size, any G, any table width."""
-    return (dtype in _DTYPE_CODES and _takes_head_dim(head_dim)
+    every pool of those dtypes is taken (the JAX ``paged_supported``'s,
+    S % 8 == 0 and D a multiple of 64, among them, and those it serves
+    on its dense path), pages of any size, any G, any table width."""
+    return (dtype in _DTYPE_CODES and head_dim >= 1
             and page_size >= 1 and num_kv_heads >= 1
             and num_heads % num_kv_heads == 0)
 
@@ -175,10 +178,12 @@ def row_chunk_slots(head_dim: int, page_size: int, dtype) -> int:
     and the accumulator: 64·D bytes), else the most slots that do, in a
     multiple of the 8 keys it scores per softmax update (so its
     arithmetic is the same whatever the chunk); past
-    :func:`wide_max_head_dim` one 8-key group (the sliced form)."""
+    :func:`wide_max_head_dim` one 8-key group (the sliced form). Shared
+    memory holds rows of ``padded_head_dim`` columns."""
+    head_dim = padded_head_dim(head_dim)
     if head_dim > _ROW_ONLY_PAST and head_dim > wide_max_head_dim(dtype):
         return min(page_size, _KEY_CHUNK)
-    elt = torch.empty((), dtype=dtype).element_size()
+    elt = dtype.itemsize
     fit = (_SMEM_LIMIT - _fixed_bytes(head_dim)) // (4 * head_dim * elt)
     return page_size if page_size <= fit else fit // _KEY_CHUNK * _KEY_CHUNK
 
@@ -187,20 +192,26 @@ def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
                  dtype) -> str:
     """The kernel the C entry runs for q (B, t, h, d) against pools of
     pages of ``s`` slots, ``kv`` kv heads and ``dtype``, through a table of
-    ``p`` entries a row: ``"row"`` past head dim 256 (``"row_sliced"``
-    past :func:`wide_max_head_dim`), else ``"split"`` (T·G <= 16 query
-    rows per kv head), ``"tc"`` (bf16 at any page size and any G, p <=
-    4096; Falcon-7B's decode, T·G 71, among them) or ``"row"``. So the
-    row-tile kernel keeps three cases: f32 pools, head dims past 256 and
+    ``p`` entries a row, by ``padded_head_dim``: ``"row"`` past 256
+    (``"row_sliced"`` past :func:`wide_max_head_dim`), else ``"row"``
+    where a pool row of ``d`` elements is no multiple of 16 bytes (bf16 d
+    % 8, f32 d % 4: no 16-byte copy or TMA map reads it), else
+    ``"split"`` (T·G <= 16 query rows per kv head), ``"tc"`` (bf16 at any
+    page size and any G, p <= 4096; Falcon-7B's decode, T·G 71, among
+    them) or ``"row"``. So the row-tile kernel keeps four cases: f32
+    pools, head dims past 256, rows that are no multiple of 16 bytes and
     tables wider than 4096 entries. Shapes and dtype only, as the C
     entry's ``route_of``; the wrapper raises if the entry reports another
     route."""
     g = h // kv
-    if d > _ROW_ONLY_PAST:
-        return "row_sliced" if d > wide_max_head_dim(dtype) else "row"
+    built = padded_head_dim(d)
+    if built > _ROW_ONLY_PAST:
+        return "row_sliced" if built > wide_max_head_dim(dtype) else "row"
+    if d * dtype.itemsize % 16:
+        return "row"
     if t * g <= _SPLIT_ROWS:
         return "split"
-    if dtype == torch.bfloat16 and d in _HEAD_DIMS and p <= _TC_MAX_PAGES:
+    if dtype == torch.bfloat16 and p <= _TC_MAX_PAGES:
         return "tc"
     return "row"
 
@@ -428,9 +439,11 @@ def _launch(fn, q, kp, vp, table, q_start, scale, route):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pps, ws, counters = 0, None, None
     if route == "split":
-        # f32 (max, sum, accumulator) per (row, kv head, split)
+        # f32 (max, sum, accumulator at the built head dim) per (row, kv
+        # head, split)
         pps = decode_split_pages(b, kv, p, _sm_count(q.device.index))
-        ws = torch.empty(b * kv * -(-p // pps) * t * (h // kv) * (d + 2),
+        ws = torch.empty(b * kv * -(-p // pps) * t * (h // kv)
+                         * (padded_head_dim(d) + 2),
                          dtype=torch.float32, device=q.device)
         counters = _counters.get((q.device, stream))
         if counters is None or counters.numel() < b * kv:
@@ -457,7 +470,7 @@ def _launch(fn, q, kp, vp, table, q_start, scale, route):
 
 def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     """Grouped causal attention of ``q`` (B, T, H, D) directly against
-    the page pools — no dense per-row view on the card.
+    the page pools — no dense per-row view on the card. Any head dim.
 
     ``kp``/``vp``: (num_pages, S, KV, D) pools (float32 or bfloat16;
     q is cast to their dtype); ``table``: (B, P) physical page ids, every
@@ -471,7 +484,7 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     past :func:`wide_max_head_dim` its column-sliced form)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
-    global launches, split_launches, tc_launches
+    global launches, split_launches, tc_launches, unaligned_launches
     b, t, h, d = q.shape
     _, s, kv, _ = kp.shape
     _check(q.is_cuda and all(x.device == q.device
@@ -483,10 +496,8 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     _check(h % kv == 0, f"{h} query heads not divisible by {kv} kv heads")
     p = table.shape[1] if table.dim() == 2 else 0
     want = kernel_route(t, h, kv, d, s, p, kp.dtype)
-    _check(kp.dtype in _DTYPE_CODES and vp.dtype == kp.dtype
-           and _takes_head_dim(d),
-           f"pool geometry the kernel does not take: head dim {d} (need "
-           f"one of {_HEAD_DIMS} or a multiple of 64 past 256), pool "
+    _check(kp.dtype in _DTYPE_CODES and vp.dtype == kp.dtype and d >= 1,
+           f"pool geometry the kernel does not take: head dim {d}, pool "
            f"dtype {kp.dtype}/{vp.dtype} (need float32 or bfloat16)")
     _check(kp.is_contiguous() and vp.is_contiguous(),
            "pools must be contiguous")
@@ -505,6 +516,7 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     launches += 1
     split_launches += want == "split"
     tc_launches += want == "tc"
+    unaligned_launches += d * kp.dtype.itemsize % 16 != 0
     return out
 
 

@@ -23,9 +23,9 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
     causal masking stays correct on sequence shards).
 
     ``flash="auto"`` routes to the flash kernels
-    (``ops/flash_attention.py``) for every call they support: head dim
-    32, 64, 128, 192, 256 or a multiple of 64 past 256, float32 or
-    bfloat16, zero offsets when causal. On a CUDA tensor that is the
+    (``ops/flash_attention.py``) for every call they support: any head
+    dim (zero-padded to a width the kernels are built for, see
+    ``padded_head_dim``), float32 or bfloat16, zero offsets when causal. On a CUDA tensor that is the
     hand-written kernel, on a CPU tensor its plain version. A call they
     do not support raises under ``flash=True``, and under ``"auto"`` too
     unless the tensors lie on the CPU: on the card the plain path is
@@ -42,9 +42,8 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
                 f"kernel does not support this call: q{tuple(q.shape)} "
                 f"{q.dtype}, k{tuple(k.shape)} {k.dtype}, "
                 f"q_offset={q_offset} kv_offset={kv_offset} (need "
-                f"head_dim 32, 64, 128, 192, 256 or a multiple of 64 "
-                f"past 256, float32 or bfloat16, equal batch/heads, zero "
-                f"offsets when causal); "
+                f"float32 or bfloat16, equal batch, heads and head dim, "
+                f"zero offsets when causal); "
                 f"flash=False takes the plain path")
         if supported:
             return flash_attention(q, k, v, causal=causal, scale=scale)

@@ -9,26 +9,32 @@ the full width of the flagship LM with weights made from a seed:
 
 - ``[serve]``: 16 requests through ``ContinuousBatcher`` (d_model 1024,
   12 layers, 8 heads, 2 kv heads, RoPE, vocab 32768) — paged attention:
-  the split-KV decode kernel and the tensor-core prefill kernel; four
+  the split-KV decode kernel and the tensor-core prefill kernel; five
   tails serve 4 requests each against the dense plain path: through
   pages of 256 slots and of 300 (prefill on the tensor cores, which pad
   such a page to 304 slots), at Qwen2.5-7B's attention width (G 7:
-  prefill on the tensor cores, decode on the split-KV kernel) and at
+  prefill on the tensor cores, decode on the split-KV kernel), at
   Falcon-7B's (G 71, folded flat: prefill and decode, 71 rows a step,
-  on the tensor cores);
+  on the tensor cores) and at Phi-3-mini's (head dim 96, run at 128
+  inside the kernels: prefill on the tensor cores, decode on the
+  split-KV kernel);
 - ``[train]``: the port's train main (``models/transformer/train.py``)
   on a generated text, at the ``bench.py:1040-1063`` training geometry
   (learned positions, full MHA, batch 4 x 2048, bf16 policy) for two
   epochs — flash attention forward, dq and dkdv — then one epoch at head
-  dim 256 (``--numHeads 4``);
+  dim 256 (``--numHeads 4``) and one at head dim 16 (``--dModel 128
+  --numHeads 8``, which the flash entry pads to 32);
 - ``[perf]``: the throughput harness (``models/utils/perf.py -m
   transformer``) at the same geometry with the fused LM head + CE — the
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
-  its ``-m attention`` mode at head dims 128, 256 and 512 (the sliced
-  tensor-core flash forward and the D-sliced CUDA-core dq and dk/dv);
+  its ``-m attention`` mode at head dims 128, 256, 96 (Phi-3-mini's,
+  padded to 128) and 512 (the sliced tensor-core flash forward and the
+  D-sliced CUDA-core dq and dk/dv);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
-  policy, SGD with momentum) — the LRN forward and backward kernels.
+  policy, SGD with momentum) — the LRN forward and backward kernels
+  (windows of 5: the runtime-size kernels past window 9 must launch 0
+  times there, counted apart).
   The opt-in 3x3 / stride-1 max-pool backward kernel is held against its
   plain version at the in-block pools' shapes and must launch 0 times
   there.
@@ -117,6 +123,16 @@ _TRAIN = dict(vocab=32768, d_model=1024, heads=8, layers=12, seq=2048,
 # the same at head dim 256 (4 heads, as Gemma's heads are wide): one
 # epoch of 4 steps
 _TRAIN_WIDE = dict(_TRAIN, heads=4, epochs=1)
+# the train main's default width (--dModel 128) at --numHeads 8: head
+# dim 16, which the flash kernels run zero-padded to 32; one epoch
+_TRAIN_NARROW = dict(_TRAIN, d_model=128, heads=8, epochs=1)
+# flash at head dims the kernels run zero-padded (``padded_head_dim``),
+# timed: the [train] narrow run's shape (D 16 -> 32), Phi-3-mini's
+# attention (32 heads of 96 -> 128) and Phi-2's (32 of 80 -> 128), at
+# batch 2 and length 2048
+_FLASH_PADDED = (dict(batch=4, seq=2048, heads=8, head_dim=16),
+                 dict(batch=2, seq=2048, heads=32, head_dim=96),
+                 dict(batch=2, seq=2048, heads=32, head_dim=80))
 # the flash kernels past D 128 timed at the training batch and length,
 # and the D-sliced kernels at D 512 (2 heads, batch 2)
 _FLASH_WIDE = dict(batch=4, seq=2048, heads=4, head_dim=256)
@@ -135,7 +151,10 @@ _FLASH_NARROW = dict(batch=4, seq=2048, heads=16, head_dim=64)
 # the tensor cores and decode (T·G 7) on the split-KV kernel; and
 # Falcon-7B's (d_model 4544, 71 heads over one kv head, D 64; 2 of its
 # 32 layers), whose G past 64 the tensor-core kernel folds flat: every
-# call, decode too (T·G 71), on the tensor cores
+# call, decode too (T·G 71), on the tensor cores; and Phi-3-mini's
+# (d_model 3072, 32 heads over 32 kv heads, D 96; 2 of its 32 layers),
+# whose head dim the kernels run at 128 with zero columns past 96:
+# prefill on the tensor cores, decode (T·G 1) on the split-KV kernel
 _SERVE_TAILS = (
     ("pages of 256", None, 256, (300, 520, 777, 1000)),
     ("pages of 300", None, 300, (300, 520, 777, 1000)),
@@ -143,6 +162,8 @@ _SERVE_TAILS = (
                                   num_kv_heads=4, num_layers=4), 16, None),
     ("Falcon-7B attention", dict(d_model=4544, num_heads=71,
                                  num_kv_heads=1, num_layers=2), 16, None),
+    ("Phi-3-mini attention", dict(d_model=3072, num_heads=32,
+                                  num_kv_heads=32, num_layers=2), 16, None),
 )
 _TAIL_REQUESTS, _TAIL_NEW_TOKENS = 4, 16
 #: flash kernel vs plain, element by element: |kernel - plain| <=
@@ -215,6 +236,9 @@ _TRAIN_GRAD_REL_TOL = 5e-2
 # two accumulator blocks along D)
 _FCE_CASES = (("main", 8192, 32768, 1024), ("tails", 1000, 50257, 1024),
               ("narrow", 300, 1000, 72), ("wide", 300, 1000, 1032))
+# a feature width no multiple of 8, which ``linear_cross_entropy`` pads
+# with zero columns to 1032 for the kernels: (label, N, V, D)
+_FCE_PADDED = ("padded", 300, 1000, 1028)
 #: fused-CE kernel vs plain, element by element as the flash outputs:
 #: (rtol, atol) for |kernel - plain| <= rtol·|plain| + atol·rms(plain).
 #: Both sides take f32 sums of the same products (exact in f32) and round
@@ -244,10 +268,13 @@ _PERF = dict(batch=4, seq=2048, vocab=32768, d_model=1024, layers=12,
 
 
 # the harness's attention mode at the long-context shape it defaults to
-# (B4 S4096 H8 D128), at head dim 256 (4 heads) and at 512 (2 heads:
-# the D-sliced kernels)
+# (B4 S4096 H8 D128), at head dim 256 (4 heads), at Phi-3-mini's
+# attention (32 heads of 96, run zero-padded to 128; B2 S2048, the shape
+# [kernels] times it at) and at 512 (2 heads: the D-sliced kernels; the
+# last, as ``_flash_fwd_main_shape`` reads it)
 _PERF_ATTENTION = (dict(batch=4, seq=4096, heads=8, head_dim=128),
                    dict(batch=4, seq=4096, heads=4, head_dim=256),
+                   dict(batch=2, seq=2048, heads=32, head_dim=96),
                    dict(batch=4, seq=4096, heads=2, head_dim=512))
 
 # the LRN kernels: norm1 and norm2 of Inception-v1 at batch 256 (the
@@ -259,7 +286,16 @@ _LRN_ARGS = dict(size=5, alpha=1e-4, beta=0.75, k=1.0, relu=True)
 _LRN_CASES = (("norm1", (256, 64, 56, 56), _LRN_ARGS),
               ("norm2", (256, 192, 56, 56), _LRN_ARGS),
               ("ragged", (3, 13, 5, 7),
-               dict(size=4, alpha=0.5, beta=0.75, k=1.0, relu=False)))
+               dict(size=4, alpha=0.5, beta=0.75, k=1.0, relu=False)),
+              # windows past 9, on the runtime-size kernels: 11 at norm2's
+              # channels and 16 (even: the JAX window's asymmetry) without
+              # ReLU, at batch 32, and 16 at a ragged shape narrower than
+              # the window
+              ("size11", (32, 192, 56, 56), dict(_LRN_ARGS, size=11)),
+              ("size16", (32, 64, 56, 56),
+               dict(size=16, alpha=1e-2, beta=0.75, k=2.0, relu=False)),
+              ("ragged16", (3, 13, 5, 7),
+               dict(size=16, alpha=0.5, beta=0.75, k=1.0, relu=True)))
 #: LRN kernel vs plain, element by element: |kernel - plain| <=
 #: rtol·|plain| + atol·rms(plain). Both compute in f32 from the same
 #: inputs and differ in rsqrt/sqrt routines and the order of a few sums
@@ -331,7 +367,7 @@ def _print_ptxas(report: str) -> None:
             spilled += 1
         m = re.search(r"entry function '\S*?(paged_attention|flash_fwd|"
                       r"flash_dq|flash_dkdv)_kernelI(\w+?)Li(\d+)E"
-                      r"(?:Li(\d+)ELb([01])E)?", line)
+                      r"(?:Li(\d+)ELb([01])E(?:Lb([01])E)?)?", line)
         t = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv|"
                       r"flash_dkdv_split)_tc_kernelILi(\d+)E", line)
         sl = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
@@ -341,29 +377,35 @@ def _print_ptxas(report: str) -> None:
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
+        la = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_any_kernelI"
+                       r"(\w+?)Li(\d+)E", line)
         mp = re.search(r"entry function '\S*?(maxpool3x3s1_bwd)_kernelI(\w+?)"
                        r"E", line)
         ps = re.search(r"entry function '\S*?paged_decode_split_kernelI"
-                       r"(\w+?)Li(\d+)ELi(\d+)E", line)
+                       r"(\w+?)Li(\d+)ELi(\d+)E(?:Lb([01])E)?", line)
         pt = re.search(r"entry function '\S*?paged_prefill_tc_kernelILi(\d+)E",
                        line)
         pw = re.search(r"entry function '\S*?paged_attention_(wide|sliced)_"
                        r"kernelI(\w+?)E", line)
+        # the row-tile and split-KV kernels' PAD instantiations (a head
+        # dim below the built one) are marked "padded"
         if pw and pw.group(1) == "sliced":
             name = (f"paged_attention_sliced "
                     f"{'bf16' if 'bfloat16' in pw.group(2) else 'f32'} "
-                    f"(D past the wide form's cap, a runtime value)")
+                    f"(D past the wide form's cap, a runtime value)"
+                    + (" padded" if "Lb1" in pw.group(2) else ""))
         elif pw:
             name = (f"paged_attention_wide "
                     f"{'bf16' if 'bfloat16' in pw.group(2) else 'f32'} "
-                    f"(D past 256, a runtime value)")
+                    f"(D past 256, a runtime value)"
+                    + (" padded" if "Lb1" in pw.group(2) else ""))
         elif pt:
             name = f"paged_prefill_tc bf16 (tensor cores) D={pt.group(1)}"
         elif ps:
-            dt, d, rows = ps.groups()
+            dt, d, rows, pad = ps.groups()
             name = (f"paged_decode_split "
                     f"{'bf16' if 'bfloat16' in dt else 'f32'} D={d} "
-                    f"rows<={rows}")
+                    f"rows<={rows}" + (" padded" if pad == "1" else ""))
         elif st:
             name = (f"flash_fwd_sliced_tc bf16 (tensor cores, D past 256) "
                     f"OWN={st.group(1)}")
@@ -373,6 +415,10 @@ def _print_ptxas(report: str) -> None:
             name = (f"{sl.group(1)}_sliced "
                     f"{'bf16' if 'bfloat16' in sl.group(2) else 'f32'} "
                     f"(CUDA cores, D past 256)")
+        elif la:
+            name = (f"{la.group(1)}_any "
+                    f"{'bf16' if 'bfloat16' in la.group(2) else 'f32'} "
+                    f"(window past 9, a runtime value) vec={la.group(3)}")
         elif lr:
             # the path's instantiations: window 5, 4-wide vectors
             name = (f"{lr.group(1)} "
@@ -387,7 +433,8 @@ def _print_ptxas(report: str) -> None:
                     f"{'bf16' if 'bfloat16' in m.group(2) else 'f32'} "
                     f"D={m.group(3)}"
                     + (f" rows/warp={m.group(4)}" if m.group(4) else "")
-                    + (" chunks" if m.group(5) == "1" else ""))
+                    + (" chunks" if m.group(5) == "1" else "")
+                    + (" padded" if m.group(6) == "1" else ""))
         elif f:
             # fce_bwd's template flag: Lb0 dh, Lb1 dW/db
             kind, rest = f.groups()
@@ -967,14 +1014,59 @@ _POOL_GEOMETRIES = (
      "row_sliced"),
     ("d1216-f32-decode", 3, 1, 4, 2, 1216, 16, 12, torch.float32,
      [0, 64, 191], "row_sliced"),
+    # head dims the kernels run at the next built one (padded_head_dim),
+    # zeros past D in every staged row, D columns stored: the train
+    # main's 16 (-> 32), Phi-2's 80 and Phi-3-mini's 96 (-> 128) on the
+    # split-KV and tensor-core kernels (TMA maps of extent D), f32 96 on
+    # the split-KV and row-tile kernels; rows of no 16-byte multiple on
+    # the row-tile kernels' element-wise staging, decode and prefill
+    # alike: bf16 20 (40 bytes, -> 32), 300 (the wide form at 320) and
+    # 1860 (the sliced form at 1920), f32 1190 (sliced at 1216); and 288
+    # (the wide form at 320, 576-byte rows in 16-byte copies)
+    ("d16", 2, 96, 8, 2, 16, 16, 20, torch.bfloat16, [0, 30], "tc"),
+    ("d16-decode", 3, 1, 8, 8, 16, 16, 12, torch.bfloat16, [0, 64, 191],
+     "split"),
+    ("d80", 2, 96, 8, 2, 80, 16, 20, torch.bfloat16, [0, 30], "tc"),
+    ("d80-decode", 3, 1, 8, 2, 80, 16, 12, torch.bfloat16, [0, 64, 191],
+     "split"),
+    ("d96", 2, 96, 8, 8, 96, 16, 20, torch.bfloat16, [0, 30], "tc"),
+    ("d96-g4", 2, 100, 8, 2, 96, 12, 20, torch.bfloat16, [0, 30], "tc"),
+    ("d96-decode", 3, 1, 32, 32, 96, 16, 12, torch.bfloat16, [0, 64, 191],
+     "split"),
+    ("d96-f32", 2, 96, 8, 2, 96, 16, 20, torch.float32, [0, 30], "row"),
+    ("d96-f32-decode", 3, 1, 8, 2, 96, 16, 12, torch.float32,
+     [0, 64, 191], "split"),
+    ("d20", 2, 96, 6, 2, 20, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d20-decode", 3, 1, 6, 2, 20, 16, 12, torch.bfloat16, [0, 64, 191],
+     "row"),
+    ("d20-f32-decode", 3, 1, 6, 2, 20, 16, 12, torch.float32,
+     [0, 64, 191], "split"),
+    ("d288", 2, 96, 4, 2, 288, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d288-decode", 3, 1, 4, 2, 288, 16, 12, torch.bfloat16, [0, 64, 191],
+     "row"),
+    ("d300", 2, 96, 4, 2, 300, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d1860", 2, 96, 4, 2, 1860, 16, 20, torch.bfloat16, [0, 30],
+     "row_sliced"),
+    ("d1190-f32", 2, 96, 4, 2, 1190, 16, 20, torch.float32, [0, 30],
+     "row_sliced"),
+    # Phi-3-mini's attention at the T 512 bucket and a decode step of
+    # [serve]'s tail (8 rows, the batcher's 129-entry table), Phi-2's
+    # prefill (32 heads of 80)
+    ("phi3-d96", 1, 512, 32, 32, 96, 16, 40, torch.bfloat16, [0], "tc"),
+    ("phi3-d96-decode", 8, 1, 32, 32, 96, 16, 129, torch.bfloat16,
+     [15, 46, 127, 299, 510, 766, 1023, 1099], "split"),
+    ("phi2-d80", 1, 512, 32, 32, 80, 16, 40, torch.bfloat16, [0], "tc"),
 )
 #: the rows of ``_POOL_GEOMETRIES`` timed beside their bound, plain
 #: version and library calls: the ``[serve]`` tail's 300-slot pages,
 #: the bf16 prefill rows of the wide row-tile kernel at head dims 512,
-#: 576, 1024 and 1792 (its cap), and the sliced form's prefill rows at
-#: bf16 D 1856 and 2048 and f32 D 1216
+#: 576, 1024 and 1792 (its cap), the sliced form's prefill rows at
+#: bf16 D 1856 and 2048 and f32 D 1216, and the padded head dims:
+#: Phi-3-mini's prefill and decode, Phi-2's prefill, bf16 D 20 (the
+#: element-wise staging) and D 288 (the wide form at 320)
 _POOL_TIMED = ("s300", "d512", "d576", "d1024", "d1792", "d1856", "d2048",
-               "d1216-f32")
+               "d1216-f32", "phi3-d96", "phi3-d96-decode", "phi2-d80",
+               "d20", "d288")
 
 
 def _pool_geometries(pa, gen):
@@ -1325,7 +1417,8 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
     decode step over the kernel-prefilled pools, kernel against dense
     (tokens are printed, not held: a near-tie that flips one greedy
     token changes every later one). Returns the run's launches by route
-    (split, tc, row)."""
+    (split, tc, row) and its row-tile launches on rows staged element by
+    element (unaligned)."""
     from bigdl_tpu_torch.models.transformer.serving import (
         ContinuousBatcher, PagedKVCache, _meta_statics, _paged_prefill_impl)
     meta = model.lm_meta
@@ -1349,6 +1442,7 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
         batcher = ContinuousBatcher(model, num_pages=n * need + 1,
                                     paged_kernel=mode, **kw)
         pa.launches = pa.split_launches = pa.tc_launches = 0
+        pa.unaligned_launches = 0
         t0 = time.perf_counter()
         for i, p in enumerate(prompts):
             batcher.submit(i, p)
@@ -1361,7 +1455,8 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
                             launches=pa.launches, split=pa.split_launches,
                             tc=pa.tc_launches,
                             row=pa.launches - pa.split_launches
-                            - pa.tc_launches, bursts=bursts)
+                            - pa.tc_launches,
+                            unaligned=pa.unaligned_launches, bursts=bursts)
         del batcher
     k = counts["auto"]
     want = {"split": 0, "tc": 0, "row": 0}
@@ -1440,7 +1535,7 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
           f"max_abs_diff={diff} max_abs_logit={scale}; decode-step logits "
           f"({decode} vs dense) max_abs_diff={step_diff} max_abs_logit="
           f"{step_scale} tol={_LOGIT_REL_TOL}x", flush=True)
-    return {r: k[r] for r in ("split", "tc", "row")}
+    return {r: k[r] for r in ("split", "tc", "row", "unaligned")}
 
 
 def _decode_step_logits(model, cache, table, lengths, tok, mode):
@@ -1548,15 +1643,34 @@ def _flash_err(what, got, want):
     return _worst(got, want, *_flash_tol(want.dtype, what, want.shape[-1]))
 
 
+def _flash_entry_outputs(fa, q, k, v, do, causal):
+    """o, lse, dq, dk, dv of ``flash_attention_with_lse``, the backward
+    through autograd from the cotangent dO of o. It is given no scale, so
+    it takes it from the true head dim; at a head dim the kernels are not
+    built for it pads q, k and v, runs the kernels at the padded width
+    and slices o back: its own logic, which the plain versions at the
+    true head dim hold."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    return (o.detach(), lse.detach(),
+            *torch.autograd.grad(o, (q, k, v), do))
+
+
 def _flash_outputs(fa, q, k, v, do, scale, causal, kernel):
     """o, lse, dq, dk, dv of the kernels (``kernel``) or their plain
-    versions, the backward from the plain forward's lse and delta."""
+    versions at the true head dim, the backward from the plain forward's
+    lse and delta. At a head dim the kernels are not built for
+    (``padded_head_dim``) the kernels' outputs are those of the entry
+    (``_flash_entry_outputs``: padded by the entry, the backward from
+    its own lse and o; ``scale`` must be the true D's)."""
     ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do.float() * ro.float()).sum(-1)
     if not kernel:
         return (ro, rlse, fa.flash_dq_ref(q, k, v, do, rlse, delta, scale,
                                           causal),
                 *fa.flash_dkdv_ref(q, k, v, do, rlse, delta, scale, causal))
+    if fa.padded_head_dim(q.shape[-1]) != q.shape[-1]:
+        return _flash_entry_outputs(fa, q, k, v, do, causal)
     o, lse = fa.flash_fwd(q, k, v, scale, causal)
     return (o, lse, fa.flash_dq(q, k, v, do, rlse, delta, scale, causal),
             *fa.flash_dkdv(q, k, v, do, rlse, delta, scale, causal))
@@ -1591,7 +1705,11 @@ def _flash_tails(fa, gen):
     query tiles paired where the causal grid fits one wave, and unpaired
     at B4 S1000 H8 D512, 512 CTAs; its SASS is held to HGMMA by
     ``_check_tensor_cores``), dq and dk/dv on the CUDA-core ones; f32 at
-    576 and 1024 too."""
+    576 and 1024 too. Head dims 16, 80, 96 and 288, both causal and not
+    in each dtype, go through ``flash_attention_with_lse`` and autograd,
+    which run the kernels zero-padded to 32, 128, 128 and 320
+    (``padded_head_dim``), held against the plain versions at the true
+    head dim."""
     for b, sq, skv, h, d, causal, dtype in (
             (2, 100, 100, 3, 32, True, torch.float32),
             (1, 130, 200, 2, 32, False, torch.float32),
@@ -1627,7 +1745,14 @@ def _flash_tails(fa, gen):
                                         (1, 130, 77, False))),
             # a causal bf16 grid past one wave of the card (512 CTAs):
             # the sliced forward's query tiles unpaired, heaviest first
-            (4, 1000, 1000, 8, 512, True, torch.bfloat16)):
+            (4, 1000, 1000, 8, 512, True, torch.bfloat16),
+            *((b_, sq_, skv_, 2, d_, c_, t_)
+              for d_ in (16, 80, 96, 288)
+              for b_, sq_, skv_, c_, t_ in (
+                  (2, 200, 200, True, torch.float32),
+                  (1, 130, 200, False, torch.float32),
+                  (2, 200, 200, True, torch.bfloat16),
+                  (1, 200, 136, False, torch.bfloat16)))):
         q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
                  .to(_DEV) for _ in range(2))
         k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
@@ -1664,8 +1789,17 @@ def _sdpa_ms(qt, kt, vt, dot):
 def _flash_timed(fa, gen, b, s, h, d):
     """The three flash kernels vs their plain versions at (b, s, h, d),
     causal, bf16 (tensor cores) and f32 (CUDA cores), each timed beside
-    its bound, its plain version and SDPA; rows by (kernel, dtype)."""
+    its bound, its plain version and SDPA; rows by (kernel, dtype). At a
+    head dim the kernels run zero-padded, the errors are those of
+    ``flash_attention_with_lse`` and autograd against the plain versions
+    at the true head dim (``_flash_outputs``), and the kernels are
+    timed on operands padded as the entry pads them (``padded_to``; the
+    padding, done outside the timed call, is ``pad_ms``: q, k and v, once
+    a forward), the bound, the plain versions and SDPA at the true head
+    dim."""
+    import torch.nn.functional as F
     scale = d ** -0.5
+    width = fa.padded_head_dim(d)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
@@ -1683,21 +1817,26 @@ def _flash_timed(fa, gen, b, s, h, d):
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
                            for x in (q, k, v, do))
         lib_fwd, lib_bwd, refused = _sdpa_ms(qt, kt, vt, dot)
+        qp, kp, vp, dop = (F.pad(x, (0, width - d)) if width != d else x
+                           for x in (q, k, v, do))
         kernels = {
-            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
+            "flash_fwd": (lambda: fa.flash_fwd(qp, kp, vp, scale, True),
                           lambda: fa.flash_fwd_ref(q, k, v, scale, True),
                           2, lib_fwd, max(errs["o"], errs["lse"])),
-            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, rlse, delta,
+            "flash_dq": (lambda: fa.flash_dq(qp, kp, vp, dop, rlse, delta,
                                              scale, True),
                          lambda: fa.flash_dq_ref(q, k, v, do, rlse, delta,
                                                  scale, True),
                          3, lib_bwd, errs["dq"]),
-            "flash_dkdv": (lambda: fa.flash_dkdv(q, k, v, do, rlse, delta,
-                                                 scale, True),
+            "flash_dkdv": (lambda: fa.flash_dkdv(qp, kp, vp, dop, rlse,
+                                                 delta, scale, True),
                            lambda: fa.flash_dkdv_ref(q, k, v, do, rlse,
                                                      delta, scale, True),
                            4, lib_bwd, max(errs["dk"], errs["dv"])),
         }
+        pad_ms = (_time_ms(lambda: [F.pad(x, (0, width - d))
+                                    for x in (q, k, v)])
+                  if width != d else None)
         for kname, (kern, plain, halves, lib, err) in kernels.items():
             bound, by = _flash_bound(b, s, h, d, dtype, halves)
             ms = _time_ms(kern)
@@ -1708,6 +1847,8 @@ def _flash_timed(fa, gen, b, s, h, d):
                        share_of_bound=bound / ms)
             if refused:
                 row["library"] = refused
+            if width != d:
+                row.update(padded_to=width, pad_ms=pad_ms)
             rows[(kname, dtype)] = row
             print(f"[kernels] {kname}[{name}] B={b} S={s} H={h} D={d} "
                   f"causal " + json.dumps(row), flush=True)
@@ -1717,7 +1858,7 @@ def _flash_timed(fa, gen, b, s, h, d):
               + json.dumps(worst) + f" (limit rtol·|plain| + atol·"
               f"rms(plain): o {o_tol}, dq/dk/dv {g_tol}; lse {_LSE_TOL})",
               flush=True)
-        del q, k, v, do, qt, kt, vt, dot
+        del q, k, v, do, qt, kt, vt, dot, qp, kp, vp, dop
         torch.cuda.empty_cache()
     return rows
 
@@ -1799,14 +1940,17 @@ def phase_flash(fa, gen):
     dim); under "fwd_main_shape" the bf16 forward past D 256 held and
     timed at ``-m attention``'s B4 S4096 H2 D512 as well (at B2 S2048 its
     causal grid fits one wave of SMs and pairs its query tiles; at B4
-    S4096 it does not)."""
+    S4096 it does not). Then at the padded head dims of
+    ``_FLASH_PADDED``: the kernels on zero-padded operands, the rest at
+    the true head dim."""
     _flash_tails(fa, gen)
     _flash_narrow(fa, gen)
     rows = {}
     for b, s, h, d in ((_TRAIN["batch"], _TRAIN["seq"], _TRAIN["heads"],
                         _TRAIN["d_model"] // _TRAIN["heads"]),
                        *((w["batch"], w["seq"], w["heads"], w["head_dim"])
-                         for w in (_FLASH_WIDE, _FLASH_SLICED))):
+                         for w in (_FLASH_WIDE, _FLASH_SLICED)
+                         + _FLASH_PADDED)):
         for (kname, dtype), row in _flash_timed(fa, gen, b, s, h, d).items():
             rows[(kname, dtype, d)] = row
     rows["fwd_main_shape"] = _flash_fwd_main_shape(fa, gen)
@@ -1964,6 +2108,21 @@ def phase_train_wide(fa, seed):
                            compute_dtype=torch.bfloat16,
                            activation_dtype=torch.bfloat16))
     opt, launches = _train_main_run(fa, seed, _TRAIN_WIDE, "train d256")
+    del opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_narrow(fa, seed):
+    """The train main at head dim 16: ``--dModel 128 --numHeads 8``, one
+    epoch, through ``dot_product_attention(flash="auto")``, which runs
+    the flash kernels on q, k and v zero-padded to 32 (their launches
+    counted as ``[train]``'s)."""
+    from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
+    set_policy(DTypePolicy(param_dtype=torch.float32,
+                           compute_dtype=torch.bfloat16,
+                           activation_dtype=torch.bfloat16))
+    opt, launches = _train_main_run(fa, seed, _TRAIN_NARROW, "train d16")
     del opt
     torch.cuda.empty_cache()
     return launches
@@ -2163,6 +2322,60 @@ def phase_fused_ce(fce, gen):
                 del kernels
             del h, w, b, t, g, rlse
             torch.cuda.empty_cache()
+    rows["padded"] = _fce_padded(fce, gen)
+    return rows
+
+
+def _fce_padded(fce, gen):
+    """``linear_cross_entropy`` at ``_FCE_PADDED``'s D 1028, which it
+    pads with zero columns to 1032 for the kernels, in bf16 and f32: the
+    loss and dh, dW and db of one forward and backward on the card (each
+    kernel launched once, counted) against the same call on CPU copies,
+    where the wrappers take their plain versions behind the same padding
+    (``_FCE_ABS_TOL`` on the loss, ``_FCE_TOL`` / ``_FCE_DB_TOL`` on the
+    gradients). Returns the rows by dtype."""
+    case, n, v, d = _FCE_PADDED
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        h, w, b, t, _ = _fce_inputs(n, v, d, dtype, gen, True)
+        out = {}
+        before = fce.fwd_launches, fce.dh_launches, fce.dw_launches
+        for where in ("cuda", "cpu"):
+            hg, wg, bg = (x.detach().to(where).clone().requires_grad_()
+                          for x in (h, w, b))
+            loss = fce.linear_cross_entropy(hg, wg, bg, t.to(where),
+                                            use_kernel=True)
+            loss.backward()
+            out[where] = (loss.detach(), hg.grad, wg.grad, bg.grad)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                moved = [a - b_ for a, b_ in zip(
+                    (fce.fwd_launches, fce.dh_launches, fce.dw_launches),
+                    before)]
+                if moved != [1, 1, 1]:
+                    raise AssertionError(f"fused_ce[{case} {name}] launched "
+                                         f"{moved} kernels, not one each")
+        errs, worst = {}, {}
+        for what, got, want, lim in zip(
+                ("loss", "dh", "dw", "db"), out["cuda"], out["cpu"],
+                ((None, _FCE_ABS_TOL), _FCE_TOL[dtype], _FCE_TOL[dtype],
+                 _FCE_DB_TOL)):
+            if got.shape != want.shape:
+                raise AssertionError(f"fused_ce[{case} {name}] {what} "
+                                     f"shape {tuple(got.shape)}")
+            errs[what], worst[what] = _worst(got, want.to(_DEV), *lim)
+            if not (torch.isfinite(got).all() and worst[what] <= 1):
+                raise AssertionError(
+                    f"fused_ce[{case} {name}] {what}: max abs err "
+                    f"{errs[what]}, {worst[what]} x its limit")
+        rows[dtype] = dict(max_abs_err=errs, worst_err_over_limit=worst)
+        print(f"[kernels] fused_ce[{case} {name}] N={n} V={v} D={d} (padded "
+              f"to {d + -d % 8}) through linear_cross_entropy, card vs CPU "
+              f"plain versions: max abs errs " + json.dumps(errs)
+              + " worst error / limit " + json.dumps(worst), flush=True)
+        del h, w, b, t, out
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2237,7 +2450,7 @@ def phase_perf(fce, fa):
     attention mode at each of ``_PERF_ATTENTION``'s head dims, the flash
     counters set to 0 just before each run and read just after (1 warm-up
     and 3 timed fwd+bwd: 4 launches of each kernel). Returns the fused-CE
-    launches and the flash launches at D 512 (the D-sliced kernels)."""
+    launches and the flash launches by head dim."""
     from bigdl_tpu_torch.models.utils import perf
     card = _card()
     launches, fused = _perf_fused(fce, card)
@@ -2276,7 +2489,7 @@ def phase_perf(fce, fa):
               f"causal, fwd+bwd ms per iteration: " + json.dumps(att)
               + f" flash_launches={counts}", flush=True)
         torch.cuda.empty_cache()
-    return launches, flash[512]
+    return launches, flash
 
 
 def _lrn_bound(shape, dtype, size, backward):
@@ -2295,8 +2508,9 @@ def _lrn_bound(shape, dtype, size, backward):
 
 def _lrn_library_ms(x, g, a):
     """``F.local_response_norm`` after ``F.relu`` (odd window: the same
-    function), timed here only: the forward, and autograd's forward +
-    backward minus the forward."""
+    function; at an even one its window lies one channel the other way,
+    the same work), timed here only: the forward, and autograd's forward
+    + backward minus the forward."""
     import torch.nn.functional as F
 
     def fwd(v):
@@ -2314,14 +2528,15 @@ def _lrn_library_ms(x, g, a):
 
 def phase_lrn(lrn, gen):
     """The LRN kernels vs their plain versions at norm1 and norm2 of the
-    Inception-v1 step (batch 256) in bf16 and f32 and at a ragged case;
-    each path row timed against its bound, its plain version and the
+    Inception-v1 step (batch 256) in bf16 and f32 and at a ragged case,
+    and the runtime-size kernels at windows 11 and 16; each row but the
+    ragged ones timed against its bound, its plain version and the
     library call."""
     rows = {}
     for case, shape, a in _LRN_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype)[6:]
-            scale = 4.0 if case != "ragged" else 1.5
+            scale = 1.5 if case.startswith("ragged") else 4.0
             x = (scale * torch.randn(shape, generator=gen)).to(dtype).to(_DEV)
             g = torch.randn(shape, generator=gen).to(dtype).to(_DEV)
             args = (a["size"], a["alpha"], a["beta"], a["k"], a["relu"])
@@ -2345,7 +2560,7 @@ def phase_lrn(lrn, gen):
                   + " worst error / limit " + json.dumps(worst)
                   + f" (limit rtol·|plain| + atol·rms(plain), {tol})",
                   flush=True)
-            if case != "ragged":
+            if not case.startswith("ragged"):
                 lib_fwd, lib_bwd = _lrn_library_ms(x, g, a)
                 for what, kern, plain, lib in (
                         ("fwd", lambda: lrn.lrn_fwd(x, *args),
@@ -2464,15 +2679,19 @@ def phase_inception(lrn, mp):
     card = _card()
     c = _INCEPTION
     lrn.fwd_launches = lrn.bwd_launches = mp.bwd_launches = 0
+    lrn.fwd_any_launches = lrn.bwd_any_launches = 0
     out = perf.main(["-m", "inception_v1", "-b", str(c["batch"]),
                      "--warmUp", str(c["warm_up"]), "-i",
                      str(c["iterations"]), "--classNum", str(c["classes"]),
                      "--device", _DEV])
     launches = {"lrn_fwd": lrn.fwd_launches, "lrn_bwd": lrn.bwd_launches,
+                "lrn_fwd_any": lrn.fwd_any_launches,
+                "lrn_bwd_any": lrn.bwd_any_launches,
                 "maxpool3x3s1_bwd": mp.bwd_launches}
     steps = c["warm_up"] + c["iterations"]
-    expect = {"lrn_fwd": 2 * steps, "lrn_bwd": 2 * steps,
-              "maxpool3x3s1_bwd": 0}
+    # Inception-v1's windows are 5: no launch of the runtime-size kernels
+    expect = {"lrn_fwd": 2 * steps, "lrn_bwd": 2 * steps, "lrn_fwd_any": 0,
+              "lrn_bwd_any": 0, "maxpool3x3s1_bwd": 0}
     if launches != expect:
         raise AssertionError(f"[inception] launches {launches}, expected "
                              f"{expect} ({steps} steps)")
@@ -2612,7 +2831,8 @@ def main(argv=None) -> int:
     flash_launches = phase_train(fa, args.seed)
     torch.cuda.empty_cache()
     wide_launches = phase_train_wide(fa, args.seed)
-    fce_launches, sliced_launches = phase_perf(fce, fa)
+    narrow_launches = phase_train_narrow(fa, args.seed)
+    fce_launches, perf_flash = phase_perf(fce, fa)
     torch.cuda.empty_cache()
     conv_launches, _ = phase_inception(lrn, mp)
 
@@ -2643,8 +2863,8 @@ def main(argv=None) -> int:
     # B1's prefill calls: the tensor-core kernel at the [kernels] prefill
     # case, its launches those of [serve]'s 16 prefills and its tails'
     # (pages of 256 and 300 slots, Qwen2.5-7B's G 7 prefills, all 40 of
-    # Falcon-7B's G 71 calls, decode too), each run with the counters set
-    # to 0 before it and read after it
+    # Falcon-7B's G 71 calls, decode too, Phi-3-mini's prefills), each
+    # run with the counters set to 0 before it and read after it
     pre = rows["prefill"]
     kernels.append({
         "name": "paged_prefill_tc", "route": "cuda",
@@ -2670,6 +2890,28 @@ def main(argv=None) -> int:
         "max_abs_err": row_err,
         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_gather_ms")}})
+    # the padded head dims on those kernels: Phi-3-mini's 96 (at 128) on
+    # the split-KV and tensor-core kernels, timed at its decode step and
+    # T 512 prefill, their launches those of [serve]'s Phi-3-mini tail;
+    # bf16 D 20 on the row-tile kernel's element-wise staging, timed at
+    # its prefill row, its launches those of [serve]'s tails on rows
+    # staged element by element (none: every tail's rows are 16-byte
+    # multiples; [serve]'s own run launches split and tc alone)
+    phi3 = tails["Phi-3-mini attention"]
+    for name, label, launched in (
+            ("paged_attention_d96", "phi3-d96-decode", phi3["split"]),
+            ("paged_prefill_tc_d96", "phi3-d96", phi3["tc"]),
+            ("paged_row_tile_d20", "d20",
+             sum(t["unaligned"] for t in tails.values()))):
+        row = rows["pool_geometries"][label]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
+            "launches": launched,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "library_gather_ms")}})
     # the main paths train in bf16: their rows are the bf16 measurements
     # (the line keeps its keys; tflops, share_of_bound and the forward's
     # gemm_ms are in [kernels])
@@ -2680,10 +2922,16 @@ def main(argv=None) -> int:
     # rows, their launches those of [perf]'s -m attention at D 512: the
     # sliced tensor-core forward timed at that run's shape (B4 S4096 H2,
     # query tiles unpaired), the D-sliced CUDA-core dq and dk/dv at B2
-    # S2048 H2
+    # S2048 H2; the D 16 rows, the kernels at D 32 on zero-padded
+    # operands, timed at the D 16 [train] run's B4 S2048 H8, its
+    # launches; the D 96 rows (Phi-3-mini's heads, padded to 128), timed
+    # at B2 S2048 H32, their launches those of [perf]'s -m attention at
+    # that shape
     for d, counts, suffix in ((128, flash_launches, ""),
                               (256, wide_launches, "_d256"),
-                              (512, sliced_launches, "_d512")):
+                              (512, perf_flash[512], "_d512"),
+                              (16, narrow_launches, "_d16"),
+                              (96, perf_flash[96], "_d96")):
         for name, line, count in (("flash_fwd", 190, "fwd"),
                                   ("flash_dq", 306, "dq"),
                                   ("flash_dkdv", 322, "dkdv")):
@@ -2709,7 +2957,10 @@ def main(argv=None) -> int:
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fce_launches[count],
             **{k: row[k] for k in keys}})
-    # the path's LRN rows: norm2, the larger of the two, in bf16
+    # the path's LRN rows: norm2, the larger of the two, in bf16; and the
+    # runtime-size kernels past window 9 at size 11, bf16, their launches
+    # those of [inception] past window 9 (counted apart: none, as its
+    # windows are 5)
     for name in ("lrn_fwd", "lrn_bwd"):
         kernels.append({
             "name": name, "route": "cuda",
@@ -2717,6 +2968,13 @@ def main(argv=None) -> int:
             "replaces": "bigdl_tpu/ops/pallas/lrn.py:150",
             "launches": conv_launches[name],
             **lrn_rows[(name, "norm2", torch.bfloat16)]})
+    for name in ("lrn_fwd", "lrn_bwd"):
+        kernels.append({
+            "name": name + "_any", "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/lrn.cu",
+            "replaces": "bigdl_tpu/ops/pallas/lrn.py:150",
+            "launches": conv_launches[name + "_any"],
+            **lrn_rows[(name, "size11", torch.bfloat16)]})
     kernels.append({
         "name": "maxpool3x3s1_bwd", "route": "cuda",
         "source": "bigdl_tpu_torch/csrc/maxpool.cu",

@@ -38,12 +38,16 @@ each version's worst error over
 ``chip_smoke._PAGED_TOL`` against the plain version, then times the
 calls in turns (this, other, other, this; ``chip_smoke._time_ms`` each:
 L2 flushed, median of 20): one line per case with both versions' times
-and the ratio of their means (this / other). Then a summary of the cases
-both versions ran on one route (how many are bit-equal, the range of
-their ratios) and the card's name and power limit. It exits 1 if any
-output of either version is non-finite or past its limit, or this
-checkout's route is not its ``kernel_route``, after every case has been
-checked and timed.
+and the ratio of their means (this / other). A case the other version
+refuses (a head dim it was not built for: its entry's error) is checked
+and timed for this version alone, and counted as refused. Then a
+summary of the cases both versions ran on one route (how many are
+bit-equal, the range of their ratios), each version's registers and
+spills of the tensor-core prefill kernel at D 64, 128 and 256 and of
+the split-KV kernel at D 128 (from ptxas), and the card's name and
+power limit. It exits 1 if any output of either version is non-finite
+or past its limit, or this checkout's route is not its
+``kernel_route``, after every case has been checked and timed.
 
     python3 scripts/paged_ab.py (--other DIR | --sliced | --fold) [--seed N]
 """
@@ -51,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -70,8 +75,8 @@ _ORDER = ("this", "other", "other", "this")
 #: (text of paged_attention.cu, its replacement) that route every head
 #: dim past 256 to the column-sliced row-tile kernel
 SLICED_EVERYWHERE = (
-    ("    return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : "
-     "kRouteRow;", "    return kRouteRowSliced;"),
+    ("    return D > wide_max_d(elt) ? kRouteRowSliced : kRouteRow;",
+     "    return kRouteRowSliced;"),
     ("  if (D % 64 != 0 || D <= wide_max_d(sizeof(T))) return -1;",
      "  if (D % 64 != 0) return -1;"))
 #: (text of paged_attention.cu, its replacement) that refuse the
@@ -138,21 +143,30 @@ def main(argv=None) -> int:
                 lambda kv: pa._bind(_build.build_copy(kv[1],
                                                       Path(tmp) / kv[0])),
                 sources.items())))
+        regs = {v: _registers((Path(tmp) / v).with_suffix(".ptxas.txt")
+                              .read_text()) for v in sources}
         cs._warm_card()
-        same = []
+        same, refused = [], []
         for label, case in _cases(torch.Generator().manual_seed(args.seed)):
             g = case[0].shape[2] // case[1].shape[2]
             if ((not args.sliced or case[0].shape[-1] > 256)
                     and (not args.fold or g > 64)):
                 row, bad = _ab(fns, label, case, card)
                 past += bad
-                if row["routes"]["this"] == row["routes"]["other"]:
+                if row["routes"]["other"] is None:
+                    refused.append(label)
+                elif row["routes"]["this"] == row["routes"]["other"]:
                     same.append(row)
     if same:
         ratios = [r["ratio"] for r in same]
         print(f"[ab] {len(same)} cases on one route in both versions: "
               f"{sum(r['bit_equal'] for r in same)} bit-equal, this / "
               f"other {min(ratios):.4f}-{max(ratios):.4f}", flush=True)
+    if refused:
+        print(f"[ab] {len(refused)} cases the other version refuses, run "
+              f"by this one alone: {', '.join(refused)}", flush=True)
+    print("[ab] ptxas registers (spill stores) by version: "
+          + json.dumps(regs), flush=True)
     if past:
         print("[ab] past the limit, non-finite or off its route: "
               + "; ".join(past), flush=True)
@@ -160,11 +174,41 @@ def main(argv=None) -> int:
     return 1 if past else 0
 
 
+def _registers(report):
+    """{kernel: "registers (spill store bytes)"} of the tensor-core
+    prefill kernel at D 64, 128 and 256 and the bf16 split-KV kernel at
+    D 128 (both row counts), from a ``-Xptxas=-v`` report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        t = re.search(r"entry function '\S*?paged_prefill_tc_kernelILi(\d+)E",
+                      line)
+        sp = re.search(r"entry function '\S*?paged_decode_split_kernelI"
+                       r"(\w+?)Li(\d+)ELi(\d+)E(?:Lb([01])E)?", line)
+        if "entry function" in line:
+            # the split kernel's instantiation at a built head dim (not
+            # its PAD one)
+            name = (f"tc D={t.group(1)}" if t and t.group(1) in (
+                "64", "128", "256") else
+                f"split bf16 D=128 rows<={sp.group(3)}" if sp and
+                "bfloat16" in sp.group(1) and sp.group(2) == "128"
+                and sp.group(4) != "1" else None)
+        elif name:
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            used = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out[name] = f"({spill.group(1)})"
+            if used:
+                out[name] = f"{used.group(1)} {out.get(name, '')}".strip()
+    return out
+
+
 def _ab(fns, label, case, card):
     """One case: both versions checked, then timed in turns; returns its
     row and the versions whose output is non-finite or past its limit,
     or whose route (this checkout's) is not the one ``kernel_route``
-    names."""
+    names. Where the other version refuses the case (its entry returns
+    an error), this version alone is checked and timed, the other's
+    route None."""
     want = pa.paged_attention_ref(*case)
     q, kp = case[0], case[1]
     _, t, h, d = q.shape
@@ -175,8 +219,17 @@ def _ab(fns, label, case, card):
     outs, worst, routes, past = {}, {}, {}, []
     calls = {v: (lambda f=fn: pa._launch(f, *case, scale, route))
              for v, fn in fns.items()}
-    for version, call in calls.items():
-        outs[version], routes[version] = call()
+    for version, call in list(calls.items()):
+        try:
+            outs[version], routes[version] = call()
+        except RuntimeError as e:
+            if version == "this":
+                raise
+            print(f"[ab] paged_attention {label}: the other version "
+                  f"refuses it ({e})", flush=True)
+            routes[version] = None
+            del calls[version]
+            continue
         torch.cuda.synchronize()
         if version == "this" and routes[version] != route:
             past.append(f"this {label} took {routes[version]}, "
@@ -188,13 +241,15 @@ def _ab(fns, label, case, card):
             past.append(f"{version} {label} ({worst[version]})")
     times = {"this": [], "other": []}
     for version in _ORDER:
-        times[version].append(cs._time_ms(calls[version]))
+        if version in calls:
+            times[version].append(cs._time_ms(calls[version]))
+    both = "other" in calls
     row = dict(routes=routes,
-               bit_equal=torch.equal(outs["this"], outs["other"]),
+               bit_equal=both and torch.equal(outs["this"], outs["other"]),
                worst_error_over_limit=worst, this_ms=times["this"],
                other_ms=times["other"],
                ratio=float(np.mean(times["this"])
-                           / np.mean(times["other"])))
+                           / np.mean(times["other"])) if both else None)
     print(f"[ab] paged_attention {label} pool={str(case[1].dtype)[6:]} "
           f"card='{card}' " + json.dumps(row), flush=True)
     return row, past

@@ -65,7 +65,7 @@ _PHASES = (
     ("partials written", "  // the last live split of (b, h) to get here "
      "merges", "before"),
     ("counted", "  if (!*last_flag) return;\n", "after"),
-    ("merged", "    for (int i = 0; i < kDpl; ++i) dst[lane + 32 * i] = "
+    ("merged", "      if (!PAD || lane + 32 * i < Dt) dst[lane + 32 * i] = "
      "o[i] / l_all;\n  }\n", "after"),
 )
 _EXIT = ("  if (k_begin > last) {                         // split wholly "

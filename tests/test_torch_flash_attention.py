@@ -159,8 +159,10 @@ def test_dot_product_attention_gqa_matches_jax_xla_path(causal, flash):
 
 def test_dot_product_attention_offsets_and_unsupported_shapes():
     """Causal offsets take the plain path (as in the JAX package);
-    flash=True refuses what the kernels do not take; head dim 16 on CPU
-    tensors takes the plain path under "auto"."""
+    flash=True refuses what the kernels do not take (causal offsets,
+    float16); head dim 16 is taken, under flash=True too, zero-padded to
+    the kernels' 32 (on CPU tensors their plain versions): 2e-5 against
+    JAX's XLA path."""
     q, k, v, _, _ = _inputs(1, 8, 2, 16, seed=3)
     want = jseq.dot_product_attention(jnp.asarray(q), jnp.asarray(k),
                                       jnp.asarray(v), causal=True,
@@ -169,9 +171,14 @@ def test_dot_product_attention_offsets_and_unsupported_shapes():
     got = tseq.dot_product_attention(tq, tk, tv, causal=True, q_offset=4,
                                      kv_offset=2)
     _close(got, want, 2e-5, "offsets")
+    assert tfa.flash_supported(tq, tk)
+    want = jseq.dot_product_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), flash=False)
+    _close(tseq.dot_product_attention(tq, tk, tv, flash=True), want, 2e-5,
+           "head dim 16")
     with pytest.raises(ValueError, match="flash=True"):
-        tseq.dot_product_attention(tq, tk, tv, flash=True)
-    assert not tfa.flash_supported(tq, tk)
+        tseq.dot_product_attention(*(x.half() for x in (tq, tk, tv)),
+                                   flash=True)
     q64, k64, _, _, _ = _inputs(1, 8, 2, 64, seed=3)
     assert tfa.flash_supported(torch.from_numpy(q64), torch.from_numpy(k64))
     with pytest.raises(ValueError, match="flash=True"):
@@ -187,17 +194,17 @@ def test_auto_refuses_unsupported_calls_off_the_cpu(what):
     """Off the CPU (meta tensors stand in for the card's here), "auto"
     raises where the kernels do not take the call instead of quietly
     building the (B, H, S, S) plain path; flash=False still takes it.
-    Head dim 320, which the JAX kernel takes (a multiple of 64), is no
-    longer refused: the D-sliced kernels take it, so "auto" hands it to
-    the kernel wrappers, which need a CUDA device. Head dim 288, which
-    the JAX kernel refuses too (no multiple of 64), is refused."""
+    Only causal offsets are refused now. Every head dim is taken: 320
+    by the D-sliced kernels, 16 and 288 zero-padded to 32 and 320, so
+    "auto" hands each to the kernel wrappers, which need a CUDA
+    device."""
     d, kw = {"head_dim": (16, {}),
              "offsets": (64, dict(q_offset=4, kv_offset=2)),
              "head_dim_320": (320, {}),
              "head_dim_288": (288, {})}[what]
     q = torch.empty((1, 8, 2, d), device="meta")
-    refusal = ("one CUDA device" if what == "head_dim_320"
-               else "flash=False takes the plain")
+    refusal = ("flash=False takes the plain" if what == "offsets"
+               else "one CUDA device")
     with pytest.raises(ValueError, match=refusal):
         tseq.dot_product_attention(q, q, q, causal=True, **kw)
     o = tseq.dot_product_attention(q, q, q, causal=True, flash=False, **kw)
@@ -227,18 +234,19 @@ def test_auto_takes_wide_head_dims_off_the_cpu(d):
 
 
 def test_flash_supported_head_dims():
-    """The head dims the kernels take (32, 64, 128, 192, 256, and past 256
-    every multiple of 64, as the JAX kernel takes them: 320 among them)
-    and those they refuse with the JAX kernel: 16 (below the 64-wide
-    chunks it needs), 96 and 288 (no multiple of 64). Both dtypes; fp16
-    is refused."""
-    for d in (32, 64, 128, 192, 256, 320, 384, 448, 512, 576, 1024):
+    """Every head dim is taken: those the kernels are built for (32, 64,
+    128, 192, 256, and past 256 every multiple of 64) as they are, the
+    rest zero-padded (``padded_head_dim``: 16 -> 32, 80 and 96 -> 128,
+    288 -> 320), also those the JAX kernel leaves to XLA (16, 96, 288).
+    Both dtypes; fp16 is refused."""
+    for d in (1, 16, 20, 32, 64, 80, 96, 128, 192, 200, 256, 288, 320,
+              384, 448, 512, 576, 1000, 1024):
         for dt in (torch.float32, torch.bfloat16):
             q = torch.empty((1, 4, 2, d), dtype=dt, device="meta")
             assert tfa.flash_supported(q, q), (d, dt)
-    for d in (16, 96, 288):
-        q = torch.empty((1, 4, 2, d), device="meta")
-        assert not tfa.flash_supported(q, q), d
+    assert [tfa.padded_head_dim(d) for d in (1, 16, 33, 80, 96, 129, 193,
+                                             256, 257, 288, 320, 1000)] \
+        == [32, 32, 64, 128, 128, 192, 256, 256, 320, 320, 320, 1024]
     q = torch.empty((1, 4, 2, 128), dtype=torch.float16, device="meta")
     assert not tfa.flash_supported(q, q)
 
@@ -270,8 +278,9 @@ def test_flash_matches_jax_kernel_at_wide_head_dims(b, s, d, causal,
 
 def test_flash_route_matches_the_c_dispatch():
     """``flash_route`` against ``BIGDL_FLASH_DISPATCH`` and its three
-    uses in csrc/flash_attention.cu, for every head dim that is a
-    multiple of 32 up to 4096, each dtype and kernel: the head dims with
+    uses in csrc/flash_attention.cu, for every head dim up to 4096 (each
+    at the route of ``padded_head_dim``), each dtype and kernel: the head
+    dims with
     kernels of their own (``tc::`` for bf16, the CUDA-core templates for
     f32), and past 256 the sliced CUDA-core kernels for f32 and the
     entry's own bf16 choice — ``tc::fwd_sliced`` (which launches
@@ -300,16 +309,58 @@ def test_flash_route_matches_the_c_dispatch():
                              "dq": "sliced::dq<__nv_bfloat16>",
                              "dkdv": "sliced::dkdv<__nv_bfloat16>"}[kernel]
         for dtype, code in codes.items():
+            built = {}
             for d in range(32, 4097, 32):
                 if (code, d) in own:
-                    want = own[(code, d)]
+                    built[d] = own[(code, d)]
                 elif d > 256 and d % 64 == 0:
-                    want = ("sliced" if code == 0 or bf16_wide.startswith(
-                        "sliced::") else "sliced_tc")
-                else:
-                    want = None
-                assert tfa.flash_route(dtype, d, kernel) == want, \
-                    (kernel, dtype, d)
+                    built[d] = ("sliced" if code == 0 or bf16_wide
+                                .startswith("sliced::") else "sliced_tc")
+            assert set(built) == {d for d in range(32, 4097, 32)
+                                  if tfa._head_dim_ok(d)}
+            # every other head dim runs padded to the next built one, on
+            # its route
+            for d in range(1, 4097):
+                assert tfa.flash_route(dtype, d, kernel) == built[
+                    tfa.padded_head_dim(d)], (kernel, dtype, d)
     assert tfa.flash_route(torch.float16, 128) is None
     assert all(tfa.flash_route(torch.bfloat16, d) == "sliced_tc"
                for d in (320, 384, 448, 512, 576, 1024))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 80, 96, 288])
+def test_padded_head_dims_match_jax_xla_path(d, causal, dtype):
+    """Head dims the kernels are not built for (16: the train main's at
+    --numHeads 8; Phi-2's 80; Phi-3-mini's 96; 288, past 256 and no
+    multiple of 64), which ``flash_attention`` runs zero-padded to 32,
+    128, 128 and 320 with the scale of the true D: o and its gradients,
+    through ``flash_attention`` and ``dot_product_attention`` ("auto"),
+    against JAX's ``dot_product_attention(flash=False)`` (the XLA path,
+    which JAX takes at these head dims) and its ``jax.grad``, at (B1, S40,
+    H2). f32: 2e-5 on o, 5e-5 on the gradients (the same math, sums in
+    another order). bf16: 2e-2, the file's tolerance (P rounded to bf16
+    in the flash arithmetic, f32 throughout in JAX's)."""
+    jdt, tdt, tol, gtol = _DTYPES[dtype]
+    q, k, v, g, _ = _inputs(1, 40, 2, d, seed=d)
+
+    def jloss(q_, k_, v_):
+        o = jseq.dot_product_attention(q_, k_, v_, causal=causal,
+                                       flash=False)
+        return (o.astype(jnp.float32) * jnp.asarray(g)).sum(), o
+
+    (_, jo), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                         has_aux=True)(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    for fn in (tfa.flash_attention, tseq.dot_product_attention):
+        tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                      for x in (q, k, v))
+        to = fn(tq, tk, tv, causal=causal)
+        assert to.shape == tq.shape and to.dtype == tdt
+        grads = torch.autograd.grad(
+            (to.float() * torch.from_numpy(g)).sum(), (tq, tk, tv))
+        _close(to, jo, tol, f"{fn.__name__} o")
+        for name, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
+            assert got.dtype == tdt and got.shape == tq.shape, name
+            _close(got, want, gtol, f"{fn.__name__} {name}")

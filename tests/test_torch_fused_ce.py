@@ -215,15 +215,23 @@ def test_cpu_path_counts_no_kernel_launches_and_refuses_bad_calls():
     tce.linear_cross_entropy(hh, w, b, t).backward()
     assert (tce.fwd_launches, tce.dh_launches, tce.dw_launches) == before
     assert tce.linear_ce_supported(h, w)
-    # fp16, or a feature width that is no multiple of 8: "auto" on CPU
-    # tensors takes the materialised path, True raises
-    for hb, wb in ((h.half(), w.half()), (h[:, :12], w[:, :12])):
-        assert not tce.linear_ce_supported(hb, wb)
-        want = tce.linear_cross_entropy_ref(hb.float(), wb.float(), b, t)
-        got = tce.linear_cross_entropy(hb, wb, b, t)
-        torch.testing.assert_close(got.float(), want, rtol=2e-3, atol=0)
-        with pytest.raises(ValueError, match="use_kernel=False"):
-            tce.linear_cross_entropy(hb, wb, b, t, use_kernel=True)
+    # fp16: "auto" on CPU tensors takes the materialised path, True raises
+    hb, wb = h.half(), w.half()
+    assert not tce.linear_ce_supported(hb, wb)
+    want = tce.linear_cross_entropy_ref(hb.float(), wb.float(), b, t)
+    got = tce.linear_cross_entropy(hb, wb, b, t)
+    torch.testing.assert_close(got.float(), want, rtol=2e-3, atol=0)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        tce.linear_cross_entropy(hb, wb, b, t, use_kernel=True)
+    # a feature width that is no multiple of 8 is taken, True as well,
+    # on h and W zero-padded to one
+    hb, wb = h[:, :12], w[:, :12]
+    assert tce.linear_ce_supported(hb, wb)
+    want = tce.linear_cross_entropy_ref(hb, wb, b, t)
+    for mode in ("auto", True):
+        got = tce.linear_cross_entropy(hb, wb, b, t, use_kernel=mode)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=0)
+    assert (tce.fwd_launches, tce.dh_launches, tce.dw_launches) == before
 
 
 def test_auto_refuses_unsupported_calls_off_the_cpu():
@@ -235,3 +243,32 @@ def test_auto_refuses_unsupported_calls_off_the_cpu():
     t = torch.ones(8, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="use_kernel=False takes"):
         tce.linear_cross_entropy(h, w, None, t)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_feature_width_100_matches_jax(dtype):
+    """D 100, no multiple of 8: the port pads h and W with zero columns to
+    104 for the kernels (on CPU tensors their plain versions, inside the
+    same autograd function) and autograd slices dh and dW back. f32:
+    loss and gradients against JAX's ``linear_cross_entropy`` at D 100,
+    which takes its XLA path there (the Pallas kernel needs D % 128 ==
+    0), rtol 2e-5 as ``_grad_close``. bf16 (where that path rounds the
+    logits to bf16, the kernels do not): against the interpret-mode
+    Pallas kernel on the same problem with zero columns to D 128 (exact:
+    they add no product terms), the unpadded gradients compared, at the
+    file's bf16 tolerances."""
+    jdt, tdt = _DTYPES[dtype]
+    h, w, b, t = _case(n=256, d=100, v=512, seed=6)
+    if dtype == "f32":
+        jl, jg = _jax_value_and_grads(h, w, b, t, jdt)
+    else:
+        hp, wp = (np.pad(x, ((0, 0), (0, 28))) for x in (h, w))
+        jl, jg = _jax_value_and_grads(hp, wp, b, t, jdt, use_kernel=True,
+                                      interpret=True)
+        jg = [jg[0][:, :100], jg[1][:, :100], jg[2]]
+    tl, tg = _torch_value_and_grads(h, w, b, t, tdt)
+    np.testing.assert_allclose(tl, jl, rtol=2e-5 if dtype == "f32"
+                               else 1e-5)
+    for what, got, want in zip(("dh", "dw", "db"), tg, jg):
+        assert got.shape == want.shape, what
+        _grad_close(got, want, dtype, what)

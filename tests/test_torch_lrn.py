@@ -70,7 +70,7 @@ _ARGS = dict(alpha=0.5, beta=0.75, k=1.0)
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("relu", [False, True])
-@pytest.mark.parametrize("size", [4, 5])
+@pytest.mark.parametrize("size", [4, 5, 11, 16])
 def test_lrn_matches_pallas_kernel(size, relu, dtype):
     jx, jct, tx, tct = _inputs(size + 2 * relu, dtype)
     a = _ARGS
@@ -112,7 +112,8 @@ def _lrn_direct(x, size, alpha, beta, k):
 
 
 @pytest.mark.parametrize("size,beta", [(1, 0.75), (4, 0.75), (5, 0.5),
-                                       (6, 1.0), (9, 0.6)])
+                                       (6, 1.0), (9, 0.6), (11, 0.75),
+                                       (16, 0.5)])
 def test_analytic_backward_matches_autodiff(size, beta):
     x = torch.as_tensor(np.random.default_rng(size).standard_normal(
         _SHAPE)).double()
@@ -171,3 +172,32 @@ def test_wrapper_refuses_non_cuda_non_cpu_tensors():
         tlrn.lrn_fwd(x)
     with pytest.raises(ValueError, match="CUDA"):
         tlrn.lrn_bwd(x, x)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("size", [2, 4, 11, 16, 17])
+def test_window_is_the_jax_band(size, adjoint):
+    """The window (and its mirror, the adjoint) the plain versions and
+    the kernels sum, [c - lo, c + hi] with lo = (size - 1) // 2 and hi =
+    size - 1 - lo, is the JAX kernel's ``_band_matrix``, asymmetric for
+    even sizes (which the card's runtime-size kernels past 9 take too):
+    exact on integer-valued f32 inputs, C 13 narrower than size 16 and
+    17."""
+    rs = np.random.default_rng(size)
+    v = rs.integers(-8, 9, size=(2, 13, 3, 1)).astype(np.float32)
+    band = plrn._band_matrix(13, size, adjoint)
+    want = np.einsum("dc,nchw->ndhw", band, v)
+    got = tlrn._window_sum(torch.from_numpy(v), size, adjoint=adjoint)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrapper_takes_every_window_size_off_the_cpu():
+    """Windows past 9 (the register ring's instantiations) are no longer
+    refused: off the CPU the wrappers stop only at the device check (a
+    meta tensor stands in for the card's)."""
+    x = torch.empty(_SHAPE, device="meta")
+    for size in (10, 11, 16, 64):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            tlrn.lrn_fwd(x, size)
+        with pytest.raises(ValueError, match="one CUDA device"):
+            tlrn.lrn_bwd(x, x, size)

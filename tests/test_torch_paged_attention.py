@@ -35,6 +35,7 @@ the other way; none does at these seeds).
 """
 import functools
 import inspect
+import itertools
 import re
 from pathlib import Path
 
@@ -45,6 +46,7 @@ import torch
 import jax.numpy as jnp
 
 from bigdl_tpu.ops.pallas import paged_attention as jpa
+from bigdl_tpu_torch import ops
 from bigdl_tpu_torch.models.transformer import serving as tsv
 from bigdl_tpu_torch.ops import paged_attention as tpa
 
@@ -544,10 +546,21 @@ def test_route_constants_match_the_c_entry():
             in route_of)
     after_split = route_of.split("kRouteSplit;")[1]
     assert "S" not in after_split and "G" not in after_split
+    # by the built head dim first, then rows of no 16-byte multiple
+    assert "D = built_dim(Dt), elt = dtype == 0 ? 4 : 2;" in route_of
     assert route_of.index("if (D > kRowOnlyPast)") \
+        < route_of.index("if (Dt * elt % 16 != 0) return kRouteRow;") \
         < route_of.index("kSplitRows")
-    assert ("return D > wide_max_d(dtype == 0 ? 4 : 2) ? kRouteRowSliced : "
-            "kRouteRow;" in route_of)
+    assert ("return D > wide_max_d(elt) ? kRouteRowSliced : kRouteRow;"
+            in route_of)
+    built = body("int built_dim(")
+    assert "if (Dt > kRowOnlyPast) return (Dt + 63) / 64 * 64;" in built
+    assert ("return Dt <= 32 ? 32 : Dt <= 64 ? 64 : Dt <= 128 ? 128 : Dt "
+            "<= 192 ? 192" in " ".join(built.split()))
+    assert "built_dim(D), D, S, P, NP, pps, scale," in src
+    assert [ops.padded_head_dim(d) for d in (1, 20, 32, 33, 80, 96, 129,
+                                             200, 256, 257, 288, 1000)] \
+        == [32, 32, 32, 64, 128, 128, 192, 256, 256, 320, 320, 1024]
     assert (re.search(r"enum Route \{ kRouteSplit = 0, kRouteTc = 1, "
                       r"kRouteRow = 2,\s+kRouteRowSliced = 3 \};", src)
             and tpa._ROUTES == ("split", "tc", "row", "row_sliced"))
@@ -675,8 +688,14 @@ def test_wide_head_dim_cap(dtype, cap):
     assert tpa.paged_kernel_supported(cap + 64, 16, dtype, 8, 2)
     assert all(tpa.paged_kernel_supported(d, 7, dtype, 4, 2)
                for d in range(576, 4096 + 1, 64))
-    assert not tpa.paged_kernel_supported(600, 16, dtype, 8, 2)
-    assert not tpa.paged_kernel_supported(cap + 32, 16, dtype, 8, 2)
+    # every other head dim too, at the next multiple of 64: 600 on the
+    # wide form (640), cap + 32 on the sliced one (cap + 64)
+    assert tpa.paged_kernel_supported(600, 16, dtype, 8, 2)
+    assert tpa.paged_kernel_supported(cap + 32, 16, dtype, 8, 2)
+    assert tpa.kernel_route(64, 8, 2, 600, 16, 9, dtype) == "row"
+    assert tpa.kernel_route(64, 8, 2, cap - 32, 16, 9, dtype) == "row"
+    assert tpa.kernel_route(64, 8, 2, cap + 32, 16, 9, dtype) \
+        == "row_sliced"
 
 
 @pytest.mark.parametrize("d,s,dtype,want", [
@@ -805,16 +824,18 @@ class TestNoSilentFallback:
     # take it
     _GEOMETRIES = {
         "d32": ((32, 16, torch.bfloat16, 1, 1), True),
-        "d96": ((96, 16, torch.bfloat16, 1, 1), False),
-        "d16": ((16, 16, torch.bfloat16, 1, 1), False),
+        # every other head dim runs at the next built one (zero columns
+        # past it in the kernels' staged rows)
+        "d96": ((96, 16, torch.bfloat16, 1, 1), True),
+        "d16": ((16, 16, torch.bfloat16, 1, 1), True),
         "d192": ((192, 16, torch.bfloat16, 1, 1), True),
         "d192-f32": ((192, 16, torch.float32, 1, 1), True),
-        # past 256 the row-tile kernel takes every call, at every
-        # multiple of 64 (288 is refused, as the JAX kernel refuses it):
-        # its wide form up to 1152 for f32 and 1792 for bf16, its
-        # column-sliced form past them
+        # past 256 the row-tile kernel takes every call, at the next
+        # multiple of 64 (288 at 320, where the JAX kernel leaves it to
+        # its dense path): its wide form up to 1152 for f32 and 1792 for
+        # bf16, its column-sliced form past them
         "d320": ((320, 16, torch.bfloat16, 1, 1), True),
-        "d288": ((288, 16, torch.bfloat16, 1, 1), False),
+        "d288": ((288, 16, torch.bfloat16, 1, 1), True),
         "d512-f32": ((512, 16, torch.float32, 8, 2), True),
         "d576": ((576, 16, torch.bfloat16, 1, 1), True),
         "d1024-f32": ((1024, 16, torch.float32, 8, 2), True),
@@ -824,8 +845,8 @@ class TestNoSilentFallback:
         "d1856": ((1856, 16, torch.bfloat16, 8, 2), True),
         "d2048": ((2048, 16, torch.bfloat16, 8, 2), True),
         "d4096-f32": ((4096, 300, torch.float32, 8, 2), True),
-        "d1880": ((1880, 16, torch.bfloat16, 8, 2), False),
-        "d1000": ((1000, 16, torch.bfloat16, 1, 1), False),
+        "d1880": ((1880, 16, torch.bfloat16, 8, 2), True),
+        "d1000": ((1000, 16, torch.bfloat16, 1, 1), True),
         # every route takes any page size: the row-tile kernel streams a
         # page in chunks of slots
         "s128-f32-d128": ((128, 128, torch.float32, 1, 1), True),
@@ -834,18 +855,17 @@ class TestNoSilentFallback:
         "s256-bf16-d128": ((128, 256, torch.bfloat16, 1, 1), True),
         "s256-bf16-d128-g4": ((128, 256, torch.bfloat16, 8, 2), True),
         "s1024-bf16-d256-g4": ((256, 1024, torch.bfloat16, 8, 2), True),
-        # G 3, a 4097-entry table and pages of 300 slots send prefill to
-        # the row-tile kernel, which now takes them (the table width is
-        # no longer asked: every route takes any); the same pools at a
-        # head dim the JAX kernel refuses too are refused
+        # G 3, a 4097-entry table and pages of 300 slots: every route
+        # takes any G, page size and table width; the same pools at a
+        # head dim the JAX kernel leaves to its dense path are taken too
         "s256-bf16-d128-g3": ((128, 256, torch.bfloat16, 6, 2), True),
-        "s256-bf16-d96-g3": ((96, 256, torch.bfloat16, 6, 2), False),
+        "s256-bf16-d96-g3": ((96, 256, torch.bfloat16, 6, 2), True),
         "s256-bf16-d128-4097-pages": (
             (128, 256, torch.bfloat16, 8, 2), True),
         "s256-bf16-d288-4097-pages": (
-            (288, 256, torch.bfloat16, 8, 2), False),
+            (288, 256, torch.bfloat16, 8, 2), True),
         "s300-bf16-d128": ((128, 300, torch.bfloat16, 1, 1), True),
-        "s300-bf16-d96": ((96, 300, torch.bfloat16, 1, 1), False),
+        "s300-bf16-d96": ((96, 300, torch.bfloat16, 1, 1), True),
         "s12-bf16-d192": ((192, 12, torch.bfloat16, 1, 1), True),
         "s128-bf16-d128": ((128, 128, torch.bfloat16, 1, 1), True),
         "fp16": ((128, 16, torch.float16, 1, 1), False),
@@ -854,8 +874,8 @@ class TestNoSilentFallback:
     @pytest.mark.parametrize("case", sorted(_GEOMETRIES))
     def test_auto_consults_the_pool_geometry(self, case):
         """``paged_kernel_supported`` asks of a pool what the kernels
-        take (head dim in (32, 64, 128, 192, 256) or any multiple of 64
-        past 256, any page size, G and table width); "auto" takes the
+        take (float32 or bfloat16; any head dim, page size, G and table
+        width); "auto" takes the
         kernel for a CUDA pool where it holds and refuses the pool where
         it does not, naming "dense"; "kernel" and "dense" are taken as
         asked."""
@@ -874,18 +894,24 @@ class TestNoSilentFallback:
 
     def test_auto_refuses_unsupported_pools_off_the_cpu(self):
         """A prefill/decode step over a pool off the CPU whose geometry
-        the kernel does not take raises under "auto" instead of taking
-        the dense path unseen (meta pools stand in for the card's);
-        "dense" is taken as asked, and CPU pools take it under "auto"."""
+        the kernel does not take (float16) raises under "auto" instead of
+        taking the dense path unseen (meta pools stand in for the
+        card's); "dense" is taken as asked, and CPU pools take it under
+        "auto". Head dim 96, which the kernels refused before they took
+        every head dim, takes the kernel."""
         class _Model:
             lm_meta = dict(num_layers=1, num_heads=2, num_kv_heads=1)
 
-        meta = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
+        meta = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.float16,
                                 device="meta")
         with pytest.raises(ValueError, match="head dim 96"):
             tsv._meta_statics(_Model, "auto", meta)
         assert tsv._meta_statics(_Model, "dense", meta)["paged_kernel"] \
             == "dense"
+        meta = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
+                                device="meta")
+        assert tsv._meta_statics(_Model, "auto", meta)["paged_kernel"] \
+            == "kernel"
         cpu = tsv.PagedKVCache(1, 4, 16, 1, 96, torch.bfloat16,
                                device="cpu")
         assert tsv._meta_statics(_Model, "auto", cpu)["paged_kernel"] \
@@ -897,8 +923,9 @@ def test_auto_is_route_aware_off_the_cpu():
     for the card's) at the serving heads (8 over 2 kv heads): bf16 pages
     of 256 slots, head dim 192 and an f32 pool of 128-slot pages at D 128
     (256 KB a page of K and V, which the row-tile kernel streams in
-    chunks) take the kernels; a head dim that the JAX kernel refuses too
-    (96) raises before any work."""
+    chunks) take the kernels, and so does head dim 96 (Phi-3-mini's),
+    which the JAX kernel leaves to its dense path; a float16 pool raises
+    before any work."""
     class _Model:
         lm_meta = dict(num_layers=1, num_heads=8, num_kv_heads=2)
 
@@ -906,7 +933,8 @@ def test_auto_is_route_aware_off_the_cpu():
                             (16, 192, torch.bfloat16, True),
                             (16, 192, torch.float32, True),
                             (128, 128, torch.float32, True),
-                            (16, 96, torch.bfloat16, False)):
+                            (16, 96, torch.bfloat16, True),
+                            (16, 96, torch.float16, False)):
         meta = tsv.PagedKVCache(1, 4, s, 2, d, dtype, device="meta")
         if ok:
             assert tsv._meta_statics(_Model, "auto", meta)[
@@ -922,8 +950,9 @@ def test_wrapper_refuses_by_the_calls_route(monkeypatch):
     """The wrapper's own check no longer depends on the call's route: at
     bf16 D 128 pages of 256 slots a prefill call with G 3 (the row-tile
     route, which streams such pages in chunks) passes every check as one
-    with G 4 (the tensor-core route) does, and the same call at head dim
-    288, which no route takes, is refused as a geometry. Meta tensors
+    with G 4 (the tensor-core route) does, and so does the same call at
+    head dim 288 (the row-tile kernel at 320) and 20 (its element-wise
+    row staging); a float16 pool is refused as a geometry. Meta tensors
     stand in for the card's, with the device check waived, so the calls
     that pass stop only where the kernel library is built."""
     real = tpa._check
@@ -933,16 +962,89 @@ def test_wrapper_refuses_by_the_calls_route(monkeypatch):
             real(cond, msg)
     monkeypatch.setattr(tpa, "_check", check)
 
-    def call(h, d=128):
-        q = torch.empty((1, 32, h, d), dtype=torch.bfloat16, device="meta")
-        kp = torch.empty((4, 256, 2, d), dtype=torch.bfloat16,
-                         device="meta")
+    def call(h, d=128, dtype=torch.bfloat16):
+        q = torch.empty((1, 32, h, d), dtype=dtype, device="meta")
+        kp = torch.empty((4, 256, 2, d), dtype=dtype, device="meta")
         table = torch.zeros((1, 3), dtype=torch.int32, device="meta")
         qs = torch.zeros((1,), dtype=torch.int32, device="meta")
         tpa.paged_attention(q, kp, kp, table, qs)
     with pytest.raises(ValueError, match="pool geometry.*head dim 288"):
-        call(6, 288)
-    for h in (6, 8):
+        call(6, 288, torch.float16)
+    for h, d in ((6, 128), (8, 128), (6, 288), (8, 20)):
         with pytest.raises(Exception) as e:
-            call(h)
+            call(h, d)
         assert "pool geometry" not in str(e.value)
+
+
+# (B, T, H, KV, D, page size, table entries, q_start of each row) at head
+# dims the kernels are not built for, which they run at
+# ``ops.padded_head_dim`` with zero columns past D: the train main's 16,
+# Phi-2's 80, Phi-3-mini's 96 (4 heads over 4 kv heads here), 20 (bf16
+# rows of 40 bytes, no 16-byte multiple: the row-tile kernel's
+# element-wise staging) and 300 (past 256, 600-byte bf16 rows: the wide
+# form's element-wise staging); decode (T·G <= 16) and prefill
+_PADDED_CASES = {
+    "d16-decode": (2, 1, 4, 2, 16, 16, 4, [0, 37]),
+    "d16-prefill": (2, 20, 4, 4, 16, 16, 4, [0, 30]),
+    "d80-decode": (2, 1, 4, 2, 80, 16, 4, [5, 50]),
+    "d80-prefill": (2, 20, 4, 4, 80, 12, 5, [0, 25]),
+    "d96-decode": (2, 1, 4, 4, 96, 16, 4, [3, 44]),
+    "d96-prefill": (2, 20, 4, 4, 96, 16, 4, [0, 30]),
+    "d20-decode": (2, 1, 4, 2, 20, 16, 4, [0, 37]),
+    "d20-prefill": (2, 20, 6, 2, 20, 7, 8, [0, 30]),
+    "d300-prefill": (2, 5, 4, 2, 300, 16, 3, [0, 20]),
+}
+# the route of each case by pool dtype (``kernel_route``, the C entry's)
+_PADDED_ROUTES = {
+    "d16-decode": ("split", "split"), "d16-prefill": ("row", "tc"),
+    "d80-decode": ("split", "split"), "d80-prefill": ("row", "tc"),
+    "d96-decode": ("split", "split"), "d96-prefill": ("row", "tc"),
+    "d20-decode": ("split", "row"), "d20-prefill": ("row", "row"),
+    "d300-prefill": ("row", "row"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_PADDED_CASES))
+def test_padded_head_dims_match_jax(case, dtype):
+    """Paged attention at head dims the kernels run padded (D 16, 80, 96,
+    20 and 300) against the JAX kernel in interpret mode (which runs any
+    geometry there; its batcher serves these pools on its dense path),
+    at the file's tolerances: the plain version, and the plain version
+    of the kernel each call's route runs on the card (the split-KV
+    merge at one and two pages a split, the tensor-core walk at its
+    64-key tiles, the row-tile kernel's 8-key groups). The route is
+    pinned: bf16 rows of 40 and 600 bytes (D 20, 300) take the row-tile
+    kernel whatever T·G, f32 D 20 (80-byte rows) the split kernel."""
+    b, t, h, kv, d, s, p, starts = _PADDED_CASES[case]
+    tdt = _DTYPES[dtype][1]
+    route = tpa.kernel_route(t, h, kv, d, s, p, tdt)
+    assert route == _PADDED_ROUTES[case][dtype == "bf16"]
+    assert tpa.paged_kernel_supported(d, s, tdt, h, kv)
+    q, kp, vp, table = _geometry(b, t, h, kv, d, b * p + 1, s, p, seed=d)
+    _compare(q, kp, vp, table, starts, dtype)
+    refs = {"split": [functools.partial(tpa.paged_attention_split_ref,
+                                        pages_per_split=pps)
+                      for pps in (1, 2)],
+            "tc": [functools.partial(tpa.paged_attention_tile_ref,
+                                     key_tile=64)],
+            "row": [tpa.paged_attention_row_ref]}[route]
+    for fn in refs:
+        _compare(q, kp, vp, table, starts, dtype, fn=fn)
+
+
+def test_kernel_route_by_row_bytes():
+    """At every head dim up to 256 the route is the built head dim's,
+    except where a pool row (d elements) is no multiple of 16 bytes:
+    bf16 d % 8 != 0 and f32 d % 4 != 0 take the row-tile kernel, decode
+    and prefill alike."""
+    for d, (dtype, vec) in itertools.product(
+            range(1, 257), ((torch.bfloat16, 8), (torch.float32, 4))):
+        decode = tpa.kernel_route(1, 8, 2, d, 16, 9, dtype)
+        prefill = tpa.kernel_route(64, 8, 2, d, 16, 9, dtype)
+        if d % vec:
+            assert decode == prefill == "row", (dtype, d)
+        else:
+            assert decode == "split", (dtype, d)
+            assert prefill == ("tc" if dtype == torch.bfloat16
+                               else "row"), (dtype, d)

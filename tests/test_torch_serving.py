@@ -152,6 +152,24 @@ class TestBatcherMatchesJax:
         assert sorted(got) == ["r1", "r2", "r3"]
 
 
+def test_batcher_at_phi3_head_dim_matches_jax():
+    """Phi-3-mini's attention width at the tests' scale: head dim 96
+    (d_model 384, 4 heads over 4 kv heads), which the card's paged
+    kernels run at 128 with zero columns past 96, 2 layers. The port's
+    batcher (the paged kernels' plain versions here) gives the JAX
+    batcher's greedy tokens, which the JAX batcher serves on its dense
+    path at that head dim."""
+    jm, tm = _models(kv=4, pos="rope", d_model=384, num_heads=4)
+    assert tm.lm_meta["d_model"] // tm.lm_meta["num_heads"] == 96
+    prompts = {f"r{i}": p for i, p in
+               enumerate(_prompts((5, 9, 3, 17, 30), seed=4))}
+    want = _run_jax(jm, prompts, **_BATCHER)
+    got = _drive(tsv.ContinuousBatcher(tm, **_BATCHER), prompts, ())
+    assert got == want
+    assert sorted(got) == sorted(prompts)
+    assert all(len(t) == 6 for t in got.values())
+
+
 def test_prefill_padding_writes_no_page_it_does_not_own():
     """JAX drops padding-column writes through an out-of-range page id; a
     torch index_put with that id would fault. The port writes only the

@@ -485,3 +485,56 @@ def test_train_and_evaluate_set_torchs_plain_flag():
     assert tm.training is False and tm[1][0][1].training is False
     assert tm.train() is tm
     assert tm.training is True and tm[2].training is True
+
+
+def test_train_main_at_head_dim_16_matches_jax(tmp_path, monkeypatch):
+    """The train main at ``--numHeads 8`` with its default ``--dModel
+    128`` (head dim 16, which the card's flash kernels run zero-padded to
+    32; here their plain versions behind the same padding), two layers,
+    one step of the default batch of 32 on the CPU, from the JAX model's
+    weights (``load_jax_params`` on the model the main builds): the
+    step's loss against JAX's on the same batch (the 32 train samples
+    JAX's pipeline builds from the same text, in one batch: the mean
+    loss does not depend on their order) at 1e-5, and every trained
+    parameter against JAX's SGD step (lr 0.02 at step 1) from JAX's
+    gradient at 1e-5."""
+    data = tmp_path / "data"
+    data.mkdir()
+    _write_text(str(data), n_sentences=40)      # 32 train samples
+    from bigdl_tpu_torch import models as tmodels
+    real, built = tmodels.TransformerLM, {}
+
+    def build(vocab, **kw):
+        jkw = {k: v for k, v in kw.items() if k != "device"}
+        jm = JaxLM(vocab, **jkw)
+        jm.materialize(jax.random.PRNGKey(3))
+        model = real(vocab, **kw)
+        load_jax_params(model, jax.tree.map(np.asarray, jm.params))
+        built["jax"] = jm
+        built["start"] = {n: p.detach().clone()
+                          for n, p in model.named_parameters()}
+        return model
+    monkeypatch.setattr(tmodels, "TransformerLM", build)
+    TRandom.set_seed(1)
+    opt = ttrain.main(["-f", str(data), "-e", "1", "--numHeads", "8",
+                       "--device", "cpu"])
+    assert opt.model[1][0][1].head_dim == 16
+    assert len(opt.history) == 1
+    jm = built["jax"]
+    jtrain, _, vocab, _ = build_text_lm_datasets(
+        str(data), 4000, 128, 32, one_hot=False,
+        dictionary_dir=str(tmp_path / "jax_dict"))
+    batch = next(iter(jtrain.data(train=False)))
+    assert np.asarray(batch.data).shape == (32, 128)
+    crit = jnn.CrossEntropyCriterion()
+
+    def jloss(p):
+        y, _ = jm.apply(p, jm.state, jnp.asarray(batch.data), training=True)
+        return crit.apply(y, jnp.asarray(batch.labels))
+
+    jl, jg = jax.value_and_grad(jloss)(jm.params)
+    _close(np.asarray(opt.history[0]["loss"]), np.asarray(jl), 1e-5, "loss")
+    grads = params_from_jax(jax.tree.map(np.asarray, jg))
+    for name, p in opt.model.named_parameters():
+        want = built["start"][name] - 0.02 * grads[name]
+        _close(p, want, 1e-5, name)
