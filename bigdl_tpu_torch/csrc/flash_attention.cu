@@ -154,12 +154,63 @@
 //   forward does slices + 1 half-products where one D-wide CTA would do
 //   2 (3 at D 512, against the CUDA-core sliced kernel's 9).
 //
-// past D 256, float32, and the bf16 dq and dk/dv -> CUDA cores, D sliced
-// (namespace sliced, flash_*_sliced_kernel<T>; D any multiple of 64, a
-// runtime value, so one instantiation per dtype serves every D; no bf16
-// forward is built of them). Whole D-wide tiles no longer
-// fit: at D 320 a 64-row bf16 tile is 40 KB (240 KB for the bf16
-// kernels' tiles against 227), and a D-wide f32 accumulator is 32·D/64
+// past D 256, the bf16 dq and dk/dv -> tensor cores, D sliced
+// (tc::flash_dq_sliced_tc_kernel<OWN>, tc::flash_dkdv_sliced_tc_kernel<
+// OWN>; D any multiple of 64, a runtime value; no D limit). dq is the
+// sliced forward's walk with dP beside S; dk/dv gives the two products
+// over D to the two warpgroups. The arithmetic that bounds them:
+// - Registers. An f32 accumulator of a 64-row warpgroup costs 32
+//   registers a thread per 64-column chunk, so a slice of OWN <= 4
+//   chunks is at most 128. Beside it dq holds S (32), dP (32) and a bf16
+//   dS fragment (16): 208 at OWN 4 under setmaxnreg 240, the producer
+//   warpgroup keeping 24 (setmaxnreg moves registers only within the
+//   CTA, out of the 168 a thread it holds at launch: 128 x 24 + 256 x
+//   240 = 384 x 168; a consumer asking for more waits for ever). A dk/dv
+//   warpgroup holds its accumulator, one 64 x 64 product (Sᵀ or dPᵀ, 32)
+//   and a fragment (16): 176, under 232, so its three producer warps get
+//   32 (at 24 they spilled). ptxas reports no spills.
+// - Shared memory (232,448 bytes a block). At D 512 a 128-row Q plus dO
+//   kept resident is 256 KB, so dq keeps Q resident only where it fits
+//   beside the K slice (OWN x 8 KB) and kDqMinStages stages of K, V and
+//   the dO chunk pair (32 KB): D 320 and 384; past that Q's chunk pair
+//   rides the ring too (48 KB a stage, 4 stages at D 512). dk/dv streams
+//   Q, dO, K and V chunks (32 KB a stage, 4 stages at D 512) beside the
+//   Q and dO slices (2 x OWN x 8 KB) and the f32 Pᵀ tile (16 KB).
+// - Work. With two slices at D 512, dq does 5 half-products (S and dP
+//   per slice, dS·K[:, slice] once in all) where one D-wide CTA would do
+//   3, dk/dv 6 (Sᵀ and dPᵀ per slice) against 4; the CUDA-core pair did
+//   17 and 18 (the scores once per 64 columns). In dk/dv warpgroup 0
+//   forms Sᵀ and warpgroup 1 dPᵀ, each 4 wgmma a chunk; warpgroup 0
+//   hands Pᵀ in f32 to warpgroup 1 through shared memory (named barriers
+//   1 and 2), so neither forms the other's product. Both forming Sᵀ, as
+//   flash_dkdv_split_tc_kernel does at D <= 256, put 8 a chunk on
+//   warpgroup 1 and took 1.34-1.39x the time for the same bits
+//   (scripts/flash_ab.py against that version: 0.2418 against 0.1784 ms
+//   at B2 S2048 H2 D512, 1.7702 against 1.2753 at B4 S4096; NVIDIA H100
+//   80GB HBM3, 700 W).
+// - Balance. dq pairs query tiles i and n - 1 - i as the forward does,
+//   where the grid fits one wave of the SMs; past it 128 consecutive
+//   rows a CTA, the heaviest first. dk/dv takes one key tile a CTA, the
+//   heaviest (the lowest) first. The warpgroup index is broadcast from
+//   lane 0, and dk/dv's two roles are two instances of one walk (no
+//   wgmma under a branch on the role).
+// scripts/flash_sliced_knockout.py (same card; causal bf16; each choice
+// undone against the kept one): dq unpaired within one wave 1.089x at
+// B2 S2048 D512 (1.194x at D 384), paired past it 1.32-1.38x; Q streamed
+// where it can stay 1.026x at D 384 (1.013-1.049x over four runs);
+// slices of 3 at D 512 1.04-1.44x (dq) and 1.33-1.36x (dk/dv); a 2-stage
+// ring beside a resident Q 1.14-1.21x. In dk/dv (both warpgroups forming
+// Sᵀ then), pairing key tiles as two passes of a CTA read 0.982x and
+// 0.989x within one wave and 1.02-1.24x past it, and K and V resident at
+// D 384 1.003x, so neither was kept.
+// The rounding contract holds: P rounded to bf16 before Pᵀ·dO, dS from
+// the unrounded P, rounded to bf16 before dS·K and dSᵀ·Q; sums in f32
+// with the -1e9 finite mask.
+//
+// past D 256, float32 -> CUDA cores, D sliced (namespace sliced,
+// flash_*_sliced_kernel<T>, instantiated for float alone; D any multiple
+// of 64, a runtime value, so one instantiation serves every D). Whole
+// D-wide tiles no longer fit: a D-wide f32 accumulator is 32·D/64
 // registers a thread (160 at D 320) beside the score tiles. So a CTA
 // owns one (b·h, 64-row tile, slice of 64 output columns): grid (B·H,
 // tiles, D/64). The score tiles S = Q·Kᵀ and dP = dO·Vᵀ (Sᵀ, dPᵀ for
@@ -174,11 +225,8 @@
 // the score products are recomputed D/64 times (5 at D 320, 8 at D
 // 512), so the forward does D/64 + 1 half-products of work where one
 // D-wide CTA would do 2, dq 2·D/64 + 1 against 3 and dk/dv 2·D/64 + 2
-// against 4. The bf16 instantiation keeps the rounding contract above:
-// P is rounded to bf16 before P·V and Pᵀ·dO, dS before dS·K and dSᵀ·Q.
-// Shared memory, f32: 6, 10 and 12 chunks of 64 x 68 floats (17 KB)
-// beside the 64 x 65 f32 p/dS tile: 118, 186 and 220 KB; bf16 about
-// half. Right first; tensor-core dq and dk/dv past 256 are later work.
+// against 4. Shared memory: 6, 10 and 12 chunks of 64 x 68 floats (17
+// KB) beside the 64 x 65 f32 p/dS tile: 118, 186 and 220 KB.
 //
 // The kernels allocate nothing; the Python wrapper allocates outputs
 // and checks shapes, dtypes, contiguity and alignment.
@@ -723,8 +771,6 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 
 namespace sliced {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kR = 64;             // rows of a tile: queries and keys alike
 constexpr int kM = kR / 16;        // rows (and score columns) a thread owns
 constexpr int kW = 64;             // output columns a CTA owns: one chunk
@@ -742,35 +788,18 @@ constexpr size_t chunk_bytes() {
 }
 constexpr size_t kWBytes = kR * kPP * sizeof(float);
 
-// 4 adjacent elements of shared memory as f32, and back
+// 4 adjacent elements of shared memory as f32, and back (float32 only:
+// no other type instantiates these kernels)
 __device__ __forceinline__ void vload4(const float* p, float (&x)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
-__device__ __forceinline__ void vload4(const bf16* p, float (&x)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  x[0] = __uint_as_float(v.x << 16);   // element 0: the low half
-  x[1] = __uint_as_float(v.x & 0xffff0000u);
-  x[2] = __uint_as_float(v.y << 16);
-  x[3] = __uint_as_float(v.y & 0xffff0000u);
-}
 __device__ __forceinline__ void vstore4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
-__device__ __forceinline__ void vstore4(bf16* p, const float (&x)[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
-  const __nv_bfloat162 c = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&a);
-  u.y = *reinterpret_cast<const unsigned*>(&c);
-  *reinterpret_cast<uint2*>(p) = u;
-}
 
-// p or dS as the products take it: rounded to the operand type
+// p or dS as the products take it: f32 products take them unrounded
 __device__ __forceinline__ float operand(float x, float) { return x; }
-__device__ __forceinline__ float operand(float x, bf16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Stage rows [row0, row0 + kR), columns [col0, col0 + 64) of head h of x
 // (B, S, H, D) into dst; rows >= S are zero-filled.
@@ -1881,9 +1910,14 @@ flash_dkdv_split_tc_kernel(const __grid_constant__ CUtensorMap qm,
 
 constexpr int kSlConsumers = 256;  // two consumer warpgroups
 constexpr int kSlThreads = kSlConsumers + 128;   // + the producer warpgroup
-constexpr int kSlProducerRegs = 24, kSlConsumerRegs = 240;   // setmaxnreg
-static_assert(128 * kSlProducerRegs + kSlConsumers * kSlConsumerRegs <= 65536,
-              "setmaxnreg counts must fit the register file");
+// setmaxnreg moves registers only within the CTA: the consumers' gain
+// comes from what the producer warpgroup gives up, out of the 168 a
+// thread (65536 / 384, a multiple of 8) the CTA holds at launch; a
+// consumer asking for more waits for ever
+constexpr int kSlProducerRegs = 24, kSlConsumerRegs = 240;
+static_assert(128 * kSlProducerRegs + kSlConsumers * kSlConsumerRegs <=
+                  kSlThreads * 168,
+              "setmaxnreg counts must fit the registers held at launch");
 constexpr int kSlMinStages = 6;    // ring of K (+ Q) chunks past D 256
 constexpr int kSlMaxStages = 16;
 constexpr int kSlKeys = 64;        // keys a tile past D 256
@@ -2126,6 +2160,510 @@ flash_fwd_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dq past D 256 (header): CTA = two 64-row query tiles of one (b, h), a
+// consumer warpgroup each, paired as in the forward, and one slice of OWN
+// 64-column chunks of dq (grid (B·H·slices, ceil(n / 2)), the slice
+// innermost), plus a producer warpgroup. Step t is (key tile t / nc,
+// chunk t % nc): S = Q·Kᵀ and dP = dO·Vᵀ gain the chunk's products, all
+// four operands K-major [rows][64] boxes. A stage of the ring holds the
+// step's K, V and dO chunks, and its Q chunks where Q is not resident
+// (q_res). After a key tile's last chunk each warpgroup
+// forms P = exp(S·scale - lse) and dS = P∘(dP - delta)·scale in
+// registers, rounds dS to bf16 as the A operand and adds dS·K[:, slice],
+// the key tile's K slice (OWN boxes of [64][64], MN-major) loaded, like
+// the forward's V slice, once the previous tile's product has read the
+// buffer.
+// ---------------------------------------------------------------------------
+
+// Shared memory of the sliced dq: Q where resident (nc chunks of
+// [128][64]), the K slice, the ring of ns stages, then the barriers
+// full[kSlMaxStages], empty[kSlMaxStages], kfull, kempty, qonce
+__host__ __device__ constexpr int dq_stage_bytes(bool q_res) {
+  return 2 * kKChunk + (q_res ? 1 : 2) * kQChunk;
+}
+__host__ __device__ constexpr int dq_bars_at(int nc, int own, bool q_res,
+                                             int ns) {
+  return sl_q_bytes(nc, q_res) + own * kKChunk + ns * dq_stage_bytes(q_res);
+}
+__host__ __device__ constexpr size_t dq_smem(int nc, int own, bool q_res,
+                                             int ns) {
+  return 1024 + dq_bars_at(nc, own, q_res, ns) + 8 * (2 * kSlMaxStages + 3);
+}
+
+template <int OWN>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_dq_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                          const __grid_constant__ CUtensorMap km,
+                          const __grid_constant__ CUtensorMap vm,
+                          const __grid_constant__ CUtensorMap dom,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int H, int Sq, int Skv,
+                          int D, int nsl, int q_res, int ns, int paired,
+                          float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 64;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qs = base;                            // resident Q
+  const uint32_t kb = qs + sl_q_bytes(nc, q_res);      // [OWN][64][64]
+  const uint32_t ring0 = kb + OWN * kKChunk;
+  const int stage_bytes = dq_stage_bytes(q_res);
+  const uint32_t bars = base + dq_bars_at(nc, OWN, q_res, ns);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kSlMaxStages + s); };
+  const uint32_t kfull = bars + 8 * 2 * kSlMaxStages;
+  const uint32_t kempty = kfull + 8, qonce = kfull + 16;
+
+  const int z = blockIdx.x % nsl, bh = blockIdx.x / nsl;
+  const int b = bh / H, h = bh % H;
+  const int col0 = 64 * OWN * z;
+  const int nq = (Sq + 63) / 64, tid = threadIdx.x, y = blockIdx.y;
+  const int qa = paired ? 64 * y : 128 * (gridDim.y - 1 - y);
+  const int qb = paired ? 64 * (nq - 1 - y) : qa + 64;
+  const int nk = (Skv + kSlKeys - 1) / kSlKeys;
+  auto tiles_of = [&](int q0) {            // key tiles rows [q0, + 64) see
+    return causal ? min(nk, (min(q0 + 64, Sq) - 1) / kSlKeys + 1) : nk;
+  };
+  const int nkt = max(tiles_of(qa), tiles_of(qb));
+  const int steps = nkt * nc;
+
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), kSlConsumers / 32);
+    }
+    bar_init(kfull, 1);
+    bar_init(kempty, kSlConsumers / 32);
+    bar_init(qonce, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kSlProducerRegs>();
+    if (tid == kSlConsumers) {
+      // Q (where resident), then every step's K, V and dO chunks (and
+      // Q chunks) in order, each stage once all eight consumer warps
+      // released it
+      if (q_res) {
+        bar_expect(qonce, nc * kQChunk);
+        for (int c = 0; c < nc; ++c) {
+          tma_load(qs + c * kQChunk, &qm, qonce, 64 * c, h, qa, b);
+          tma_load(qs + c * kQChunk + kKChunk, &qm, qonce, 64 * c, h, qb, b);
+        }
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int st = t % ns, c = t % nc, k0 = (t / nc) * kSlKeys;
+        if (t >= ns) bar_wait(empty(st), (t / ns - 1) & 1);
+        uint32_t dst = ring0 + st * stage_bytes;
+        bar_expect(full(st), stage_bytes);
+        tma_load(dst, &km, full(st), 64 * c, h, k0, b);
+        tma_load(dst + kKChunk, &vm, full(st), 64 * c, h, k0, b);
+        dst += 2 * kKChunk;
+        tma_load(dst, &dom, full(st), 64 * c, h, qa, b);
+        tma_load(dst + kKChunk, &dom, full(st), 64 * c, h, qb, b);
+        if (!q_res) {
+          tma_load(dst + kQChunk, &qm, full(st), 64 * c, h, qa, b);
+          tma_load(dst + kQChunk + kKChunk, &qm, full(st), 64 * c, h, qb, b);
+        }
+      }
+    } else if (tid == kSlConsumers + 32) {
+      // each key tile's K slice, once the previous tile's dS·K read it
+      for (int kt = 0; kt < nkt; ++kt) {
+        if (kt > 0) bar_wait(kempty, (kt - 1) & 1);
+        bar_expect(kfull, OWN * kKChunk);
+        for (int j = 0; j < OWN; ++j)
+          tma_load(kb + j * kKChunk, &km, kfull, col0 + 64 * j, h,
+                   kt * kSlKeys, b);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kSlConsumerRegs>();
+
+  // the warpgroup index broadcast from lane 0 (as in the forward)
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int l = tid % 32;
+  const int q0 = g == 0 ? qa : qb;
+  const bool live = g == 0 || qb != qa;
+  const int my_nkt = live ? tiles_of(q0) : 0;
+  const int row0 = q0 + 16 * ((tid / 32) % 4) + l / 4;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s_ = row0 + 8 * r;
+    const int64_t at = (static_cast<int64_t>(b) * Sq + s_) * H + h;
+    row_lse[r] = live && s_ < Sq ? lse[at] : 0.f;
+    row_delta[r] = live && s_ < Sq ? delta[at] : 0.f;
+  }
+  float acc[OWN][32], s[32], dp[32];
+#pragma unroll
+  for (int j = 0; j < OWN; ++j) zero(acc[j]);
+  zero(s);
+  zero(dp);
+  if (q_res) warp_wait(qonce, 0);
+
+  auto release = [&](int t) {
+    __syncwarp();
+    if (l == 0) bar_arrive(empty(t % ns));
+  };
+  for (int t = 0; t < steps; ++t) {
+    const int kt = t / nc, c = t % nc, st = t % ns;
+    warp_wait(full(st), (t / ns) & 1);
+    if (kt >= my_nkt) {                     // past this warpgroup's keys:
+      release(t);                           // keep the barriers' order
+      if (c == nc - 1) {
+        warp_wait(kfull, kt & 1);
+        if (l == 0) bar_arrive(kempty);
+      }
+      continue;
+    }
+    const uint32_t stage = ring0 + st * stage_bytes;
+    const uint32_t dc = stage + 2 * kKChunk;
+    const uint32_t qc = q_res ? qs + c * kQChunk : dc + kQChunk;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(s, desc_k<kRows>(qc, 64 * g, kk),
+                   desc_k<kSlKeys>(stage, 0, kk), c > 0 || kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(dp, desc_k<kRows>(dc, 64 * g, kk),
+                   desc_k<kSlKeys>(stage + kKChunk, 0, kk), c > 0 || kk > 0);
+    wg_commit();
+    if (c > 0) {                            // step t - 1's chunks are read
+      wg_wait<1>();
+      release(t - 1);
+    }
+    if (c < nc - 1) continue;
+    wg_wait();
+    keep(s);
+    keep(dp);
+    release(t);
+
+    // P from the scaled, masked scores, then dS in place of S
+    const int k0 = kt * kSlKeys;
+    const bool edge = (causal && k0 + kSlKeys - 1 > q0) || k0 + kSlKeys > Skv;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i % 4) / 2;
+      float x = s[i] * scale;
+      if (edge) {
+        const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+        x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+      }
+      const float p = expf(x - row_lse[r]);
+      s[i] = p * (dp[i] - row_delta[r]) * scale;
+    }
+    uint32_t dsf[kSlKeys / 16][4];
+    to_frags<kSlKeys / 16>(s, dsf);         // dS in bf16
+
+    warp_wait(kfull, kt & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSlKeys / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < OWN; ++j)
+        wgmma_rs_n64(acc[j], dsf[kk], desc_mn<kSlKeys>(kb, j, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) keep(acc[j]);
+    keep(dsf);
+    __syncwarp();
+    if (l == 0) bar_arrive(kempty);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s_ = row0 + 8 * r;
+    if (s_ >= Sq || !live) continue;
+    bf16* row = dq + ((static_cast<int64_t>(b) * Sq + s_) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) {
+      if (col0 + 64 * j >= D) continue;    // the last slice's zero chunks
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int i = 4 * jj + 2 * r;
+        *reinterpret_cast<uint32_t*>(row + col0 + 64 * j + acc_col(i, l)) =
+            pack_bf16(acc[j][i], acc[j][i + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk and dv past D 256 (header): CTA = 64 keys of one (b, h), the heaviest
+// tiles first under the causal mask, and one slice of OWN 64-column
+// chunks of dk and dv (grid (B·H·slices, key tiles), the slice
+// innermost), plus a producer warpgroup. Step t is (query tile, chunk c):
+// warpgroup 0 forms Sᵀ = K·Qᵀ over the chunks and warpgroup 1 dPᵀ =
+// V·dOᵀ, from one stage of the ring holding the step's Q, dO, K and V
+// chunks. After a query tile's last chunk warpgroup 0 forms Pᵀ and hands
+// it, in f32, to warpgroup 1 through shared memory (named barriers 1 and
+// 2, one each way), then adds Pᵀ·dO[:, slice] to dv; warpgroup 1 forms
+// dSᵀ from it and adds dSᵀ·Q[:, slice] to dk. The Q and dO slices (OWN
+// boxes of [64][64] each, MN-major) come from a second producer warp and
+// the tile's lse and delta from a third, once the previous tile's
+// products have read them. Each warpgroup holds one slice-wide
+// accumulator.
+// ---------------------------------------------------------------------------
+
+// a consumer warpgroup's role in the sliced dk/dv, as a type
+template <bool DK>
+struct Role {
+  static constexpr bool kDk = DK;
+};
+
+// Shared memory of the sliced dk/dv: the Q and dO slices, the ring of ns
+// stages of Q, dO, K and V chunks, the f32 Pᵀ tile, the query tile's lse
+// and delta (64 f32 each), then the barriers full[kSlMaxStages],
+// empty[kSlMaxStages], sfull, sempty
+constexpr int kDkdvStageBytes = 4 * kKChunk;
+// three producer warps with loops of their own: at 24 registers they
+// spilled, at 32 none does, and the consumers (176 registers of
+// accumulators and fragments) fit 232
+constexpr int kDkdvProducerRegs = 32, kDkdvConsumerRegs = 232;
+static_assert(128 * kDkdvProducerRegs + kSlConsumers * kDkdvConsumerRegs <=
+                  kSlThreads * 168,
+              "setmaxnreg counts must fit the registers held at launch");
+constexpr int kPBytes = 64 * 64 * 4;
+constexpr int kStatBytes = 2 * 64 * 4;
+__host__ __device__ constexpr int dkdv_bars_at(int own, int ns) {
+  return 2 * own * kKChunk + ns * kDkdvStageBytes + kPBytes + kStatBytes;
+}
+__host__ __device__ constexpr size_t dkdv_smem(int own, int ns) {
+  return 1024 + dkdv_bars_at(own, ns) + 8 * (2 * kSlMaxStages + 2);
+}
+
+template <int OWN>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_dkdv_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                            const __grid_constant__ CUtensorMap km,
+                            const __grid_constant__ CUtensorMap vm,
+                            const __grid_constant__ CUtensorMap dom,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int H, int Sq, int Skv, int D, int nsl, int ns,
+                            float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 64;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qsl = base;                           // [OWN][64][64]
+  const uint32_t dosl = qsl + OWN * kKChunk;
+  const uint32_t ring0 = dosl + OWN * kKChunk;
+  const uint32_t bars = base + dkdv_bars_at(OWN, ns);
+  const uint32_t stats = bars - kStatBytes;  // lse, then delta: f32 [64]
+  const uint32_t pbuf = stats - kPBytes;     // Pᵀ: f32 [8][128 threads][4]
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kSlMaxStages + s); };
+  const uint32_t sfull = bars + 8 * 2 * kSlMaxStages, sempty = sfull + 8;
+
+  const int z = blockIdx.x % nsl, bh = blockIdx.x / nsl;
+  const int b = bh / H, h = bh % H;
+  const int col0 = 64 * OWN * z, k0 = kSlKeys * blockIdx.y;
+  const int nq = (Sq + 63) / 64, tid = threadIdx.x;
+  // causal: query tiles wholly before the key tile see none of its keys
+  const int qt0 = causal ? min(static_cast<int>(blockIdx.y), nq) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), kSlConsumers / 32);
+    }
+    bar_init(sfull, 2);                    // the slices' TMA, the stats
+    bar_init(sempty, kSlConsumers / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kDkdvProducerRegs>();
+    if (tid == kSlConsumers) {
+      // every step's Q, dO, K and V chunks in order, each stage once all
+      // eight consumer warps released it
+      for (int t = 0; t < (nq - qt0) * nc; ++t) {
+        const int st = t % ns, c = t % nc, q0 = 64 * (qt0 + t / nc);
+        if (t >= ns) bar_wait(empty(st), (t / ns - 1) & 1);
+        const uint32_t dst = ring0 + st * kDkdvStageBytes;
+        bar_expect(full(st), kDkdvStageBytes);
+        tma_load(dst, &qm, full(st), 64 * c, h, q0, b);
+        tma_load(dst + kKChunk, &dom, full(st), 64 * c, h, q0, b);
+        tma_load(dst + 2 * kKChunk, &km, full(st), 64 * c, h, k0, b);
+        tma_load(dst + 3 * kKChunk, &vm, full(st), 64 * c, h, k0, b);
+      }
+    } else if (tid == kSlConsumers + 32) {
+      // each query tile's Q and dO slices, once the previous tile's
+      // products read them
+      for (int qt = qt0; qt < nq; ++qt) {
+        if (qt > qt0) bar_wait(sempty, (qt - qt0 - 1) & 1);
+        bar_expect(sfull, 2 * OWN * kKChunk);
+        for (int j = 0; j < OWN; ++j) {
+          tma_load(qsl + j * kKChunk, &qm, sfull, col0 + 64 * j, h, 64 * qt,
+                   b);
+          tma_load(dosl + j * kKChunk, &dom, sfull, col0 + 64 * j, h,
+                   64 * qt, b);
+        }
+      }
+    } else if (tid / 32 == kSlConsumers / 32 + 2) {
+      // and its lse and delta (0 past Sq): the warp's stores, then lane
+      // 0's arrival (a release) on sfull
+      const int ln = tid % 32;
+      const float* const lse_bh = lse + static_cast<int64_t>(b) * Sq * H + h;
+      const float* const delta_bh =
+          delta + static_cast<int64_t>(b) * Sq * H + h;
+      for (int qt = qt0; qt < nq; ++qt) {
+        if (qt > qt0) bar_wait(sempty, (qt - qt0 - 1) & 1);
+        for (int i = 64 * qt + ln; i < 64 * qt + 64; i += 32) {
+          const uint32_t at = stats + 4 * (i - 64 * qt);
+          st_shared(at, i < Sq ? lse_bh[static_cast<int64_t>(i) * H] : 0.f);
+          st_shared(at + 4 * 64,
+                    i < Sq ? delta_bh[static_cast<int64_t>(i) * H] : 0.f);
+        }
+        __threadfence_block();
+        __syncwarp();
+        if (ln == 0) bar_arrive(sfull);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kDkdvConsumerRegs>();
+
+  const int l = tid % 32;
+  const int krow = 16 * ((tid / 32) % 4) + l / 4;     // of the 64 keys
+  // one consumer warpgroup's walk: dv (DK false, warpgroup 0) or dk (DK
+  // true, warpgroup 1), so no wgmma sits under a branch on the role
+  auto consume = [&](auto role) {
+    constexpr bool DK = decltype(role)::kDk;
+    // this thread's slot of the Pᵀ tile: both warpgroups hold a 64 x 64
+    // accumulator in one layout, so thread i of warpgroup 1 reads what
+    // thread i of warpgroup 0 wrote
+    const uint32_t pslot = pbuf + 16 * (tid % 128);
+    float acc[OWN][32], s[32];             // s: Sᵀ (dv) or dPᵀ (dk)
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) zero(acc[j]);
+    zero(s);
+    // the ring walked with counters, not with t % ns and t / ns
+    // (divisions by runtime values): the step's stage and its phase, the
+    // previous step's stage, and the phase of the slice buffer
+    int st = 0, ph = 0, prev = 0, sph = 0;
+    auto release = [&](int stage_index) {
+      __syncwarp();
+      if (l == 0) bar_arrive(empty(stage_index));
+    };
+    for (int q0 = 64 * qt0; q0 < Sq; q0 += 64) {
+      for (int c = 0; c < nc; ++c) {
+        warp_wait(full(st), ph);
+        const uint32_t stage = ring0 + st * kDkdvStageBytes;
+        // K·Qᵀ, or V·dOᵀ: the stage holds Q, dO, K, V
+        const uint32_t a = stage + (DK ? 3 : 2) * kKChunk;
+        const uint32_t bt = stage + (DK ? kKChunk : 0);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(s, desc_k<kSlKeys>(a, 0, kk), desc_k<64>(bt, 0, kk),
+                       c > 0 || kk > 0);
+        wg_commit();
+        if (c > 0) {                        // the previous step's chunks
+          wg_wait<1>();                     // are read
+          release(prev);
+        }
+        prev = st;
+        if (++st == ns) {
+          st = 0;
+          ph ^= 1;
+        }
+        if (c < nc - 1) continue;
+        wg_wait();
+        keep(s);
+        release(prev);
+        warp_wait(sfull, sph);              // the slices, lse and delta
+        sph ^= 1;
+
+        if constexpr (!DK) {
+          // Pᵀ from the scaled, masked scores: rows keys, columns queries
+          const bool edge =
+              (causal && k0 + kSlKeys - 1 > q0) || q0 + 64 > Sq;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int qpos = q0 + acc_col(i, l);
+            const int kpos = k0 + krow + acc_row(i);
+            float x = s[i] * scale;
+            if (edge)
+              x = qpos >= Sq ? -INFINITY
+                  : (causal && kpos > qpos) ? kMask : x;
+            s[i] = expf(x - ld_shared(stats + 4 * acc_col(i, l)));
+          }
+          // hand Pᵀ over once warpgroup 1 has read the previous tile's
+          if (q0 > 64 * qt0) named_sync(2, kSlConsumers);
+#pragma unroll
+          for (int v = 0; v < 8; ++v)
+            st_shared4(pslot + 2048 * v, s[4 * v], s[4 * v + 1],
+                       s[4 * v + 2], s[4 * v + 3]);
+          named_arrive(1, kSlConsumers);
+        } else {
+          // dSᵀ = Pᵀ∘(dPᵀ - delta)·scale, Pᵀ from warpgroup 0, unrounded
+          named_sync(1, kSlConsumers);
+#pragma unroll
+          for (int v = 0; v < 8; ++v) {
+            float pv[4];
+            ld_shared4(pslot + 2048 * v, pv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * v + e;
+              s[i] = pv[e] *
+                     (s[i] - ld_shared(stats + 4 * (64 + acc_col(i, l)))) *
+                     scale;
+            }
+          }
+          if (q0 + 64 < Sq) named_arrive(2, kSlConsumers);
+        }
+        uint32_t f[4][4];                  // pᵀ (dv) or dSᵀ (dk) in bf16
+        to_frags<4>(s, f);
+        // dv += Pᵀ·dO[:, slice], or dk += dSᵀ·Q[:, slice]
+        const uint32_t sl = DK ? qsl : dosl;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < OWN; ++j)
+            wgmma_rs_n64(acc[j], f[kk], desc_mn<64>(sl, j, kk));
+        wg_commit();
+        wg_wait();
+#pragma unroll
+        for (int j = 0; j < OWN; ++j) keep(acc[j]);
+        keep(f);
+        __syncwarp();
+        if (l == 0) bar_arrive(sempty);
+      }
+    }
+    bf16* const out = DK ? dk : dv;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s_ = k0 + krow + 8 * r;
+      if (s_ >= Skv) continue;
+      bf16* row = out + ((static_cast<int64_t>(b) * Skv + s_) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < OWN; ++j) {
+        if (col0 + 64 * j >= D) continue;  // the last slice's zero chunks
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int i = 4 * jj + 2 * r;
+          *reinterpret_cast<uint32_t*>(row + col0 + 64 * j + acc_col(i, l)) =
+              pack_bf16(acc[j][i], acc[j][i + 1]);
+        }
+      }
+    }
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Role<false>{});
+  else
+    consume(Role<true>{});
+}
+
 // --- host: tensor maps and launchers ---
 
 // (B, S, H, D) bf16 at ptr as a (D, H, S, B) map with boxes (64, 1, rows,
@@ -2234,6 +2772,14 @@ inline int sl_own(int nc) {
   return (nc + fewest - 1) / fewest;
 }
 
+// the card's SMs: query tiles are paired where the grid fits them once
+inline int sm_count(int* sms) {
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  return static_cast<int>(
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev));
+}
+
 template <int OWN>
 int fwd_sliced_own(int D, const CUtensorMap& qm, const CUtensorMap& km,
                    const CUtensorMap& vm, void* o, float* lse, int B, int H,
@@ -2254,11 +2800,8 @@ int fwd_sliced_own(int D, const CUtensorMap& qm, const CUtensorMap& km,
   // causal tiles paired where the grid fills the card at most once; past
   // that the heaviest-first order balances whole CTAs across the waves
   // better (scripts/flash_sliced_knockout.py)
-  int dev = 0, sms = 0;
-  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
-  if (cudaError_t e = cudaDeviceGetAttribute(
-          &sms, cudaDevAttrMultiProcessorCount, dev))
-    return static_cast<int>(e);
+  int sms = 0;
+  if (int e = sm_count(&sms)) return e;
   const int paired = causal && grid.x * grid.y <= static_cast<unsigned>(sms);
   kernel<<<grid, kSlThreads, smem, st>>>(qm, km, vm, static_cast<bf16*>(o),
                                          lse, H, Sq, Skv, D, nsl, q_res, ns,
@@ -2278,6 +2821,99 @@ int fwd_sliced(int D, const void* q, const void* k, const void* v, void* o,
                              causal, st);
   return fwd_sliced_own<4>(D, qm, km, vm, o, lse, B, H, Sq, Skv, scale,
                            causal, st);
+}
+
+// dq keeps Q resident where it fits beside a ring of kDqMinStages, the
+// ring taking the rest up to kSlMaxStages (a 2-stage ring beside it is
+// slower than streaming Q: scripts/flash_sliced_knockout.py)
+constexpr int kDqMinStages = 3;
+
+template <int OWN>
+int dq_sliced_own(int D, const CUtensorMap& qm, const CUtensorMap& km,
+                  const CUtensorMap& vm, const CUtensorMap& dom,
+                  const float* lse, const float* delta, void* dq_out, int B,
+                  int H, int Sq, int Skv, float scale, int causal,
+                  cudaStream_t st) {
+  const int nc = D / 64, nsl = (nc + OWN - 1) / OWN;
+  // Q resident where it fits beside the K slice and a ring of
+  // kDqMinStages (D 320 and 384), else a chunk pair a step through the
+  // ring with K, V and dO
+  const bool q_res = dq_smem(nc, OWN, true, kDqMinStages) <= kSmemMax;
+  const int ns = min(kSlMaxStages,
+                     static_cast<int>((kSmemMax - dq_smem(nc, OWN, q_res, 0)) /
+                                      dq_stage_bytes(q_res)));
+  const size_t smem = dq_smem(nc, OWN, q_res, ns);
+  auto kernel = flash_dq_sliced_tc_kernel<OWN>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H * nsl, (Sq + 127) / 128);
+  int sms = 0;
+  if (int e = sm_count(&sms)) return e;
+  // query tiles paired as in the forward: only within one wave
+  const int dq_paired =
+      causal && grid.x * grid.y <= static_cast<unsigned>(sms);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      qm, km, vm, dom, lse, delta, static_cast<bf16*>(dq_out), H, Sq, Skv, D,
+      nsl, q_res, ns, dq_paired, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int OWN>
+int dkdv_sliced_own(int D, const CUtensorMap& qm, const CUtensorMap& km,
+                    const CUtensorMap& vm, const CUtensorMap& dom,
+                    const float* lse, const float* delta, void* dk, void* dv,
+                    int B, int H, int Sq, int Skv, float scale, int causal,
+                    cudaStream_t st) {
+  const int nc = D / 64, nsl = (nc + OWN - 1) / OWN;
+  // every operand streamed a chunk a step: the ring takes what the
+  // slices leave, up to kSlMaxStages (5 at OWN 4)
+  const int ns = min(kSlMaxStages,
+                     static_cast<int>((kSmemMax - dkdv_smem(OWN, 0)) /
+                                      kDkdvStageBytes));
+  const size_t smem = dkdv_smem(OWN, ns);
+  auto kernel = flash_dkdv_sliced_tc_kernel<OWN>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H * nsl, (Skv + kSlKeys - 1) / kSlKeys);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      qm, km, vm, dom, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Sq, Skv, D, nsl, ns, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the maps of the backward past D 256: boxes of 64 rows of every operand
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+             const void* v, const void* dout, int B, int H, int Sq, int Skv,
+             int D) {
+  if (int e = make_map(&m[0], q, B, Sq, H, D, 64)) return e;
+  if (int e = make_map(&m[1], k, B, Skv, H, D, kSlKeys)) return e;
+  if (int e = make_map(&m[2], v, B, Skv, H, D, kSlKeys)) return e;
+  return make_map(&m[3], dout, B, Sq, H, D, 64);
+}
+
+int dq_sliced(int D, const void* q, const void* k, const void* v,
+              const void* dout, const float* lse, const float* delta,
+              void* dq_out, int B, int H, int Sq, int Skv, float scale,
+              int causal, cudaStream_t st) {
+  CUtensorMap m[4];
+  if (int e = bwd_maps(m, q, k, v, dout, B, H, Sq, Skv, D)) return e;
+  // slices as the forward's (sl_own): 4 chunks at D 512
+  return sl_own(D / 64) == 3
+             ? dq_sliced_own<3>(D, m[0], m[1], m[2], m[3], lse, delta,
+                                dq_out, B, H, Sq, Skv, scale, causal, st)
+             : dq_sliced_own<4>(D, m[0], m[1], m[2], m[3], lse, delta,
+                                dq_out, B, H, Sq, Skv, scale, causal, st);
+}
+
+int dkdv_sliced(int D, const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                void* dk, void* dv, int B, int H, int Sq, int Skv,
+                float scale, int causal, cudaStream_t st) {
+  CUtensorMap m[4];
+  if (int e = bwd_maps(m, q, k, v, dout, B, H, Sq, Skv, D)) return e;
+  return sl_own(D / 64) == 3
+             ? dkdv_sliced_own<3>(D, m[0], m[1], m[2], m[3], lse, delta, dk,
+                                  dv, B, H, Sq, Skv, scale, causal, st)
+             : dkdv_sliced_own<4>(D, m[0], m[1], m[2], m[3], lse, delta, dk,
+                                  dv, B, H, Sq, Skv, scale, causal, st);
 }
 
 }  // namespace tc
@@ -2327,8 +2963,8 @@ extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
                               void* dq_out, int B, int H, int Sq, int Skv,
                               int D, float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(dq, sliced::dq<__nv_bfloat16>, q, k, v, dout, lse,
-                       delta, dq_out, B, H, Sq, Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(dq, tc::dq_sliced, q, k, v, dout, lse, delta,
+                       dq_out, B, H, Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
@@ -2338,6 +2974,6 @@ extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
                                 int Skv, int D, float scale, int causal,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(dkdv, sliced::dkdv<__nv_bfloat16>, q, k, v, dout,
-                       lse, delta, dk, dv, B, H, Sq, Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(dkdv, tc::dkdv_sliced, q, k, v, dout, lse, delta,
+                       dk, dv, B, H, Sq, Skv, scale, causal, st);
 }

@@ -33,6 +33,41 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// an f32 of shared memory at a 32-bit shared address, and back
+__device__ __forceinline__ float ld_shared(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr));
+  return x;
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(x) : "memory");
+}
+
+// 4 adjacent f32 of shared memory at a 32-bit shared address (16-byte
+// aligned), and back
+__device__ __forceinline__ void ld_shared4(uint32_t addr, float (&x)[4]) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void st_shared4(uint32_t addr, float a, float b,
+                                           float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `n` threads: wait
+// for all of them, or arrive without waiting (after a fence, so the
+// arriving threads' shared-memory writes are seen by those that wait)
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // --- mbarriers ---
 
 __device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {

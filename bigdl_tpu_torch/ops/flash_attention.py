@@ -66,8 +66,9 @@ def flash_supported(q, k) -> bool:
     A head dim the kernels are not built for runs zero-padded to
     :func:`padded_head_dim` (D 16 -> 32, 80 and 96 -> 128, 288 -> 320).
     Past D 256 the C entries route to D-sliced kernels: a CTA owns a
-    slice of the output's columns and sums the scores over all of D in
-    64-column chunks (``flash_route``; csrc/flash_attention.cu's
+    slice of the output's columns (up to 256 in bf16, on the tensor
+    cores, forward and backward; 64 in f32) and sums the scores over all
+    of D in 64-column chunks (``flash_route``; csrc/flash_attention.cu's
     header)."""
     return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] >= 1
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
@@ -81,22 +82,20 @@ def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
     ``BIGDL_FLASH_DISPATCH`` in csrc/flash_attention.cu picks it (by
     dtype and head dim alone): ``"tc"`` (bf16 at D 32-256: ``wgmma``
     with TMA tiles), ``"cuda_cores"`` (f32 at D 32-256), ``"sliced_tc"``
-    (the bf16 forward past 256: ``flash_fwd_sliced_tc_kernel``, slices
-    of up to 256 output columns on the tensor cores), ``"sliced"`` (f32
-    past 256, and the bf16 dq and dk/dv there: the D-sliced CUDA-core
-    kernels, 64 columns a CTA); None where no kernel takes the call. A
-    head dim the kernels are not built for reports the route of
-    :func:`padded_head_dim`, the width it runs at."""
-    if d < 1:
+    (bf16 past 256: ``flash_fwd_sliced_tc_kernel``,
+    ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``,
+    slices of up to 256 output columns on the tensor cores), ``"sliced"``
+    (f32 past 256: the D-sliced CUDA-core kernels, 64 columns a CTA);
+    None where no kernel takes the call. A head dim the kernels are not
+    built for reports the route of :func:`padded_head_dim`, the width it
+    runs at. The route does not depend on ``kernel``: all three share
+    it."""
+    if d < 1 or kernel not in ("fwd", "dq", "dkdv"):
         return None
     d = padded_head_dim(d)
     if d <= 256:
         return {torch.bfloat16: "tc", torch.float32: "cuda_cores"}.get(dtype)
-    if dtype in _DTYPE_CODES:
-        if dtype == torch.bfloat16 and kernel == "fwd":
-            return "sliced_tc"
-        return "sliced"
-    return None
+    return {torch.bfloat16: "sliced_tc", torch.float32: "sliced"}.get(dtype)
 
 
 # --------------------------------------------------------------------------

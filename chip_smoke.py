@@ -28,8 +28,8 @@ the full width of the flagship LM with weights made from a seed:
   transformer``) at the same geometry with the fused LM head + CE — the
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
   its ``-m attention`` mode at head dims 128, 256, 96 (Phi-3-mini's,
-  padded to 128) and 512 (the sliced tensor-core flash forward and the
-  D-sliced CUDA-core dq and dk/dv);
+  padded to 128) and 512 (the sliced tensor-core flash forward, dq and
+  dk/dv);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
@@ -271,7 +271,7 @@ _PERF = dict(batch=4, seq=2048, vocab=32768, d_model=1024, layers=12,
 # (B4 S4096 H8 D128), at head dim 256 (4 heads), at Phi-3-mini's
 # attention (32 heads of 96, run zero-padded to 128; B2 S2048, the shape
 # [kernels] times it at) and at 512 (2 heads: the D-sliced kernels; the
-# last, as ``_flash_fwd_main_shape`` reads it)
+# last, as ``_flash_main_shape`` reads it)
 _PERF_ATTENTION = (dict(batch=4, seq=4096, heads=8, head_dim=128),
                    dict(batch=4, seq=4096, heads=4, head_dim=256),
                    dict(batch=2, seq=2048, heads=32, head_dim=96),
@@ -372,8 +372,8 @@ def _print_ptxas(report: str) -> None:
                       r"flash_dkdv_split)_tc_kernelILi(\d+)E", line)
         sl = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
                        r"_sliced_kernelI(\w+?)E", line)
-        st = re.search(r"entry function '\S*?flash_fwd_sliced_tc_kernelILi"
-                       r"(\d+)E", line)
+        st = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
+                       r"_sliced_tc_kernelILi(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
@@ -407,8 +407,8 @@ def _print_ptxas(report: str) -> None:
                     f"{'bf16' if 'bfloat16' in dt else 'f32'} D={d} "
                     f"rows<={rows}" + (" padded" if pad == "1" else ""))
         elif st:
-            name = (f"flash_fwd_sliced_tc bf16 (tensor cores, D past 256) "
-                    f"OWN={st.group(1)}")
+            name = (f"{st.group(1)}_sliced_tc bf16 (tensor cores, D past "
+                    f"256) OWN={st.group(2)}")
         elif t:
             name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
         elif sl:
@@ -448,6 +448,9 @@ def _print_ptxas(report: str) -> None:
             name = None
         elif name and ("registers" in line or "spill" in line):
             print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
+        if "wgmma" in line and "warning" in line.lower():
+            # C7518 and its kin: ptxas serialised a kernel's wgmma
+            print(f"[build] ptxas: {line.strip()}")
     print(f"[build] {kernels} instantiations: at most {regs} registers a "
           f"thread, {spilled} spilling")
 
@@ -461,8 +464,10 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     and the six past D 128 (D 192, 256; dk/dv from
     ``flash_dkdv_split_tc_kernel``), the bf16 forward past D 256 (both
     instantiations of ``flash_fwd_sliced_tc_kernel``: slices of 3 and of
-    4 chunks), all three fused-CE kernels and the five paged prefill
-    kernels (D 32, 64, 128, 192, 256) have ``HGMMA``."""
+    4 chunks), the bf16 dq and dk/dv past D 256 (both instantiations of
+    ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``),
+    all three fused-CE kernels and the five paged prefill kernels (D 32,
+    64, 128, 192, 256) have ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -475,10 +480,12 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)(?:_split)?"
                               r"_tc_kernelILi(\d+)E", line)
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
-                sl = re.search(r"flash_fwd_sliced_tc_kernelILi(\d+)E", line)
+                sl = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tc"
+                               r"_kernelILi(\d+)E", line)
                 p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
-                        f"flash_fwd_sliced_tc bf16 OWN={sl.group(1)}" if sl
+                        f"{sl.group(1)}_sliced_tc bf16 OWN={sl.group(2)}"
+                        if sl
                         else
                         f"paged_prefill_tc bf16 D={p.group(1)}" if p else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
@@ -502,7 +509,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                                                          "flash_dq",
                                                          "flash_dkdv")
                              for d in (192, 256)) + tuple(
-                             f"flash_fwd_sliced_tc bf16 OWN={n}"
+                             f"{k}_sliced_tc bf16 OWN={n}"
+                             for k in ("flash_fwd", "flash_dq", "flash_dkdv")
                              for n in (3, 4)) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
                              for d in (32, 64, 128, 192, 256))
@@ -1699,13 +1707,15 @@ def _flash_tails(fa, gen):
     kernel; f32 tiles of 32 rows), both causal and not in each dtype;
     320, 384 and 512 the D-sliced kernels (5, 6 and 8 slices of 64
     columns), both causal and not in each dtype, and in bf16 also 448,
-    576, 640 and 1024: the bf16 forward past 256 on the sliced
-    tensor-core kernel (slices of 3 + 2, 3 + 3, 4 + 3, 4 + 4, 3 x 3, 4 +
-    4 + 2 and 4 x 4 chunks, Q resident up to 576 and streamed past it;
-    query tiles paired where the causal grid fits one wave, and unpaired
-    at B4 S1000 H8 D512, 512 CTAs; its SASS is held to HGMMA by
-    ``_check_tensor_cores``), dq and dk/dv on the CUDA-core ones; f32 at
-    576 and 1024 too. Head dims 16, 80, 96 and 288, both causal and not
+    576, 640 and 1024: the bf16 forward, dq and dk/dv past 256 on the
+    sliced tensor-core kernels (slices of 3 + 2, 3 + 3, 4 + 3, 4 + 4, 3 x
+    3, 4 + 4 + 2 and 4 x 4 chunks; the forward's Q resident up to 576
+    and streamed past it, dq's Q resident up to 384; the forward's and
+    dq's query tiles paired where the causal grid fits one wave, and
+    unpaired at B4 S1000 H8 D512; at S 300, 5 tiles, the middle one
+    alone; their SASS is held to HGMMA by ``_check_tensor_cores``); f32
+    at 576 and 1024 too, on the CUDA-core ones. Head dims 16, 80, 96 and
+    288, both causal and not
     in each dtype, go through ``flash_attention_with_lse`` and autograd,
     which run the kernels zero-padded to 32, 128, 128 and 320
     (``padded_head_dim``), held against the plain versions at the true
@@ -1744,8 +1754,13 @@ def _flash_tails(fa, gen):
               for b_, sq_, skv_, c_ in ((2, 200, 200, True),
                                         (1, 130, 77, False))),
             # a causal bf16 grid past one wave of the card (512 CTAs):
-            # the sliced forward's query tiles unpaired, heaviest first
+            # the sliced forward's and dq's query tiles unpaired,
+            # heaviest first
             (4, 1000, 1000, 8, 512, True, torch.bfloat16),
+            # five 64-row tiles, paired: the middle tile alone (a
+            # forward or dq warpgroup with no rows)
+            *((2, 300, 300, 2, d_, True, torch.bfloat16)
+              for d_ in (384, 512, 1024)),
             *((b_, sq_, skv_, 2, d_, c_, t_)
               for d_ in (16, 80, 96, 288)
               for b_, sq_, skv_, c_, t_ in (
@@ -1863,48 +1878,66 @@ def _flash_timed(fa, gen, b, s, h, d):
     return rows
 
 
-def _flash_fwd_main_shape(fa, gen):
-    """The bf16 forward past D 256 at ``[perf]``'s ``-m attention`` D 512
-    shape (``_PERF_ATTENTION``'s last: B4 S4096 H2, causal; 512 CTAs, so
-    the query tiles unpaired, as the main path runs them): o and lse held
-    against ``flash_fwd_ref`` within ``_FLASH_TOL``, then timed beside its
-    bound, its plain version and SDPA's forward. The ``{"kernels"}``
-    line's D 512 forward row."""
-    import torch.nn.functional as F
+def _flash_main_shape(fa, gen):
+    """The bf16 kernels past D 256 at ``[perf]``'s ``-m attention`` D 512
+    shape (``_PERF_ATTENTION``'s last: B4 S4096 H2, causal; past one wave
+    of the card, so query tiles unpaired, as the main path runs them): o
+    and lse held against ``flash_fwd_ref``, dq against ``flash_dq_ref``
+    and dk, dv against ``flash_dkdv_ref`` (from the plain forward's lse
+    and delta) within ``_FLASH_TOL``, then each timed
+    beside its bound, its plain version and SDPA's forward or whole
+    backward. The ``{"kernels"}`` line's D 512 rows, by kernel name."""
     a = _PERF_ATTENTION[-1]
     b, s, h, d = a["batch"], a["seq"], a["heads"], a["head_dim"]
     scale = d ** -0.5
-    q, k, v = (torch.randn((b, s, h, d), generator=gen)
-               .to(torch.bfloat16).to(_DEV) for _ in range(3))
-    got = fa.flash_fwd(q, k, v, scale, True)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen)
+                   .to(torch.bfloat16).to(_DEV) for _ in range(4))
+    got = _flash_outputs(fa, q, k, v, do, scale, True, True)
     torch.cuda.synchronize()
-    want = fa.flash_fwd_ref(q, k, v, scale, True)
+    want = _flash_outputs(fa, q, k, v, do, scale, True, False)
     label = f"B={b} S={s} H={h} D={d} causal bfloat16"
-    errs, worst = {}, {}
-    for what, g, w in zip(("o", "lse"), got, want):
-        errs[what], worst[what] = _flash_err(what, g, w)
-        if not (torch.isfinite(g).all() and worst[what] <= 1):
-            raise AssertionError(
-                f"flash_fwd {what} {label}: max abs err {errs[what]}, "
-                f"{worst[what]} x its limit")
+    errs, worst = _flash_compare(got, want, f"{label} (main shape)")
+    rlse = want[1]
+    delta = (do.float() * want[0].float()).sum(-1)
     del got, want
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    bound, by = _flash_bound(b, s, h, d, torch.bfloat16, 2)
-    ms = _time_ms(lambda: fa.flash_fwd(q, k, v, scale, True))
-    row = dict(kernel=fa.flash_route(torch.bfloat16, d), max_abs_err=max(
-        errs.values()), ms=ms, plain_ms=_time_ms(
-            lambda: fa.flash_fwd_ref(q, k, v, scale, True)),
-        bound_ms=bound, bound_by=by, library_ms=_time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True)),
-        tflops=_flash_flops(b, s, h, d, 2) / ms / 1e9,
-        share_of_bound=bound / ms)
-    print(f"[kernels] flash_fwd[bfloat16] {label} (the main path's shape) "
-          + json.dumps(row) + " worst error / limit " + json.dumps(worst),
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd, lib_bwd, refused = _sdpa_ms(qt, kt, vt, dot)
+    del qt, kt, vt, dot
+    kernels = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
+                      lambda: fa.flash_fwd_ref(q, k, v, scale, True),
+                      2, lib_fwd, max(errs["o"], errs["lse"])),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, rlse, delta, scale,
+                                         True),
+                     lambda: fa.flash_dq_ref(q, k, v, do, rlse, delta,
+                                             scale, True),
+                     3, lib_bwd, errs["dq"]),
+        "flash_dkdv": (lambda: fa.flash_dkdv(q, k, v, do, rlse, delta,
+                                             scale, True),
+                       lambda: fa.flash_dkdv_ref(q, k, v, do, rlse, delta,
+                                                 scale, True),
+                       4, lib_bwd, max(errs["dk"], errs["dv"])),
+    }
+    rows = {}
+    for kname, (kern, plain, halves, lib, err) in kernels.items():
+        bound, by = _flash_bound(b, s, h, d, torch.bfloat16, halves)
+        ms = _time_ms(kern)
+        rows[kname] = dict(
+            kernel=fa.flash_route(torch.bfloat16, d, kname[6:]),
+            max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
+            bound_ms=bound, bound_by=by, library_ms=lib,
+            tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
+            share_of_bound=bound / ms)
+        if refused:
+            rows[kname]["library"] = refused
+        print(f"[kernels] {kname}[bfloat16] {label} (the main path's "
+              f"shape) " + json.dumps(rows[kname]), flush=True)
+    print(f"[kernels] flash {label} (the main path's shape) max abs errs "
+          + json.dumps(errs) + " worst error / limit " + json.dumps(worst),
           flush=True)
-    del q, k, v, qt, kt, vt
+    del q, k, v, do
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 def _flash_narrow(fa, gen):
@@ -1937,10 +1970,10 @@ def phase_flash(fa, gen):
     256) and f32 (CUDA cores); SDPA as the library yardstick. Each row
     also gives the kernel's rate over the causal half's operations and
     its share of the bound (bound_ms / ms). Rows by (kernel, dtype, head
-    dim); under "fwd_main_shape" the bf16 forward past D 256 held and
-    timed at ``-m attention``'s B4 S4096 H2 D512 as well (at B2 S2048 its
-    causal grid fits one wave of SMs and pairs its query tiles; at B4
-    S4096 it does not). Then at the padded head dims of
+    dim); under "main_shape" the bf16 kernels past D 256 held and timed
+    at ``-m attention``'s B4 S4096 H2 D512 as well (at B2 S2048 the
+    forward's and dq's causal grids fit one wave of SMs and pair their
+    query tiles; at B4 S4096 they do not). Then at the padded head dims of
     ``_FLASH_PADDED``: the kernels on zero-padded operands, the rest at
     the true head dim."""
     _flash_tails(fa, gen)
@@ -1953,7 +1986,7 @@ def phase_flash(fa, gen):
                          + _FLASH_PADDED)):
         for (kname, dtype), row in _flash_timed(fa, gen, b, s, h, d).items():
             rows[(kname, dtype, d)] = row
-    rows["fwd_main_shape"] = _flash_fwd_main_shape(fa, gen)
+    rows["main_shape"] = _flash_main_shape(fa, gen)
     return rows
 
 
@@ -2920,13 +2953,12 @@ def main(argv=None) -> int:
     # and the D 256 rows: the kernels past D 128, timed at B4 S2048 H4
     # D256, their launches those of the D 256 [train] run; and the D 512
     # rows, their launches those of [perf]'s -m attention at D 512: the
-    # sliced tensor-core forward timed at that run's shape (B4 S4096 H2,
-    # query tiles unpaired), the D-sliced CUDA-core dq and dk/dv at B2
-    # S2048 H2; the D 16 rows, the kernels at D 32 on zero-padded
-    # operands, timed at the D 16 [train] run's B4 S2048 H8, its
-    # launches; the D 96 rows (Phi-3-mini's heads, padded to 128), timed
-    # at B2 S2048 H32, their launches those of [perf]'s -m attention at
-    # that shape
+    # sliced tensor-core forward, dq and dk/dv timed at that run's shape
+    # (B4 S4096 H2, query tiles unpaired); the D 16 rows, the kernels at
+    # D 32 on zero-padded operands, timed at the D 16 [train] run's B4
+    # S2048 H8, its launches; the D 96 rows (Phi-3-mini's heads, padded
+    # to 128), timed at B2 S2048 H32, their launches those of [perf]'s
+    # -m attention at that shape
     for d, counts, suffix in ((128, flash_launches, ""),
                               (256, wide_launches, "_d256"),
                               (512, perf_flash[512], "_d512"),
@@ -2935,10 +2967,10 @@ def main(argv=None) -> int:
         for name, line, count in (("flash_fwd", 190, "fwd"),
                                   ("flash_dq", 306, "dq"),
                                   ("flash_dkdv", 322, "dkdv")):
-            row = (flash_rows["fwd_main_shape"] if (name, d) == (
-                "flash_fwd", 512) else flash_rows[(name, torch.bfloat16, d)])
-            # past D 256 the bf16 forward is the sliced tensor-core kernel
-            kname = ("flash_fwd_sliced_tc" if fa.flash_route(
+            row = (flash_rows["main_shape"][name] if d == 512
+                   else flash_rows[(name, torch.bfloat16, d)])
+            # past D 256 the bf16 kernels are the sliced tensor-core ones
+            kname = (name + "_sliced_tc" if fa.flash_route(
                 torch.bfloat16, d, count) == "sliced_tc" else name)
             kernels.append({
                 "name": kname + suffix, "route": "cuda",

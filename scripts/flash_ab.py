@@ -6,22 +6,24 @@ the one under ``--other`` (a directory holding a ``flash_attention.cu``,
 such as another checkout's ``bigdl_tpu_torch/csrc``; both built with
 this checkout's headers) into a temporary directory and runs each
 version's forward, dq and dk/dv at the ``[train]`` shapes B4 S2048 with
-H·D = 1024 (H8 at D 128), causal, in bf16 (tensor cores) and f32 (CUDA
-cores). For each head dim and dtype it prints whether the two versions'
-outputs are bit-equal (the kernels use no atomics, so unchanged code
-gives equal bits) and each version's worst error over ``chip_smoke.py``'s
-limits against the plain versions (bit-equality also output by output:
-where this checkout routes a call to a new kernel, ``flash_route`` of
-each version is printed beside it), then times the kernels in turns
-(this, other, other, this; ``chip_smoke._time_ms`` each: L2 flushed,
-median of 20): one line per kernel with both versions' times and the
-ratio of their means (this / other). Last, the card's name and power
-limit. It exits 1 if any output of either version is non-finite or past
-its limit (after every head dim and dtype has been checked and timed,
-so that a known fault does not hide the other readings).
+H·D = 1024 (H8 at D 128; ``--heads`` fixes H instead, as the wide head
+dims need: ``--dims 320 512 576 1024 --batch 2 --heads 2``), causal, in
+bf16 (tensor cores) and f32 (CUDA cores). For each head dim and dtype it
+prints whether the two versions' outputs are bit-equal (the kernels use
+no atomics, so unchanged code gives equal bits) and each version's worst
+error over ``chip_smoke.py``'s limits against the plain versions
+(bit-equality also output by output: where this checkout routes a call
+to a new kernel, ``flash_route`` of each version is printed beside it),
+then times the kernels in turns (this, other, other, this;
+``chip_smoke._time_ms`` each: L2 flushed, median of 20): one line per
+kernel with both versions' times and the ratio of their means (this /
+other). Last, the card's name and power limit. It exits 1 if any output
+of either version is non-finite or past its limit (after every head dim
+and dtype has been checked and timed, so that a known fault does not
+hide the other readings).
 
     python3 scripts/flash_ab.py --other DIR [--dims 32 64 128]
-        [--batch 4] [--seq 2048] [--seed N]
+        [--batch 4] [--seq 2048] [--heads H] [--seed N]
 """
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dims", type=int, nargs="+", default=[32, 64, 128])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--heads", type=int, default=None,
+                    help="heads at every head dim (default 1024 // D)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -76,7 +80,7 @@ def main(argv=None) -> int:
             for d in args.dims:
                 for dtype in (torch.bfloat16, torch.float32):
                     past += _ab(fns, gen, args.batch, args.seq, d, dtype,
-                                card)
+                                card, args.heads or 1024 // d)
         finally:
             fa._kernel_fns = chosen
     if past:
@@ -86,11 +90,10 @@ def main(argv=None) -> int:
     return 1 if past else 0
 
 
-def _ab(fns, gen, b, s, d, dtype, card):
-    """One head dim and dtype at B ``b``, S ``s`` and H·D = 1024: both
+def _ab(fns, gen, b, s, d, dtype, card, h):
+    """One head dim and dtype at B ``b``, S ``s`` and H ``h``: both
     versions checked, then timed in turns; returns the outputs that are
     non-finite or past their limit, by version."""
-    h = 1024 // d
     scale = d ** -0.5
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(dtype)
                    .to(chip_smoke._DEV) for _ in range(4))

@@ -276,16 +276,27 @@ def test_flash_matches_jax_kernel_at_wide_head_dims(b, s, d, causal,
     _check_against_jax_kernel(b, s, 2, d, causal, dtype)
 
 
-def test_flash_route_matches_the_c_dispatch():
-    """``flash_route`` against ``BIGDL_FLASH_DISPATCH`` and its three
-    uses in csrc/flash_attention.cu, for every head dim up to 4096 (each
-    at the route of ``padded_head_dim``), each dtype and kernel: the head
-    dims with
-    kernels of their own (``tc::`` for bf16, the CUDA-core templates for
-    f32), and past 256 the sliced CUDA-core kernels for f32 and the
-    entry's own bf16 choice — ``tc::fwd_sliced`` (which launches
-    ``flash_fwd_sliced_tc_kernel``) for the forward, the sliced
-    CUDA-core dq and dk/dv for the backward."""
+#: the bf16 launcher past D 256 each C entry names in the dispatch, the
+#: function that launches its kernel, and the kernel
+_WIDE_BF16 = {"fwd": ("tc::fwd_sliced", "int fwd_sliced_own(",
+                      "flash_fwd_sliced_tc_kernel<OWN>"),
+              "dq": ("tc::dq_sliced", "int dq_sliced_own(",
+                     "flash_dq_sliced_tc_kernel<OWN>"),
+              "dkdv": ("tc::dkdv_sliced", "int dkdv_sliced_own(",
+                       "flash_dkdv_sliced_tc_kernel<OWN>")}
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
+def test_flash_route_matches_the_c_dispatch(kernel):
+    """``flash_route`` against ``BIGDL_FLASH_DISPATCH`` and its use in
+    the C entry of ``kernel`` in csrc/flash_attention.cu, for every head
+    dim up to 4096 (each at the route of ``padded_head_dim``) and each
+    dtype: the head dims with kernels of their own (``tc::`` for bf16,
+    the CUDA-core templates for f32), and past 256 the sliced CUDA-core
+    kernels for f32 and the entry's own bf16 choice —
+    ``tc::fwd_sliced``, ``tc::dq_sliced`` and ``tc::dkdv_sliced``, whose
+    launchers launch ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (the
+    tensor cores, route "sliced_tc")."""
     src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
            / "flash_attention.cu").read_text()
     macro = src[src.index("#define BIGDL_FLASH_DISPATCH(FN, WIDE_BF16, "):]
@@ -298,33 +309,35 @@ def test_flash_route_matches_the_c_dispatch():
                            r"\s*\\\s*return (\S+)\(D, __VA_ARGS__\);",
                            macro))
     assert wide == {"0": "sliced::FN<float>", "1": "WIDE_BF16"}
-    launcher = src[src.index("int fwd_sliced_own("):]
-    assert "flash_fwd_sliced_tc_kernel<OWN>" in launcher[:launcher.index(
-        "\n}\n")]
+    entry, launcher, launched = _WIDE_BF16[kernel]
+    bf16_wide = re.search(rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+),",
+                          src)[1]
+    assert bf16_wide == entry
+    body = src[src.index(launcher):]
+    assert launched in body[:body.index("\n}\n")]
+    # the entry's own function picks between the launcher's
+    # instantiations
+    name = entry.split("::")[1]
+    body = src[src.index(f"int {name}(int D, "):]
+    assert launcher[4:-1] + "<" in body[:body.index("\n}\n")]
     codes = {torch.float32: 0, torch.bfloat16: 1}
-    for kernel in ("fwd", "dq", "dkdv"):
-        bf16_wide = re.search(rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+),",
-                              src)[1]
-        assert bf16_wide == {"fwd": "tc::fwd_sliced",
-                             "dq": "sliced::dq<__nv_bfloat16>",
-                             "dkdv": "sliced::dkdv<__nv_bfloat16>"}[kernel]
-        for dtype, code in codes.items():
-            built = {}
-            for d in range(32, 4097, 32):
-                if (code, d) in own:
-                    built[d] = own[(code, d)]
-                elif d > 256 and d % 64 == 0:
-                    built[d] = ("sliced" if code == 0 or bf16_wide
-                                .startswith("sliced::") else "sliced_tc")
-            assert set(built) == {d for d in range(32, 4097, 32)
-                                  if tfa._head_dim_ok(d)}
-            # every other head dim runs padded to the next built one, on
-            # its route
-            for d in range(1, 4097):
-                assert tfa.flash_route(dtype, d, kernel) == built[
-                    tfa.padded_head_dim(d)], (kernel, dtype, d)
-    assert tfa.flash_route(torch.float16, 128) is None
-    assert all(tfa.flash_route(torch.bfloat16, d) == "sliced_tc"
+    for dtype, code in codes.items():
+        built = {}
+        for d in range(32, 4097, 32):
+            if (code, d) in own:
+                built[d] = own[(code, d)]
+            elif d > 256 and d % 64 == 0:
+                built[d] = ("sliced" if code == 0 or bf16_wide
+                            .startswith("sliced::") else "sliced_tc")
+        assert set(built) == {d for d in range(32, 4097, 32)
+                              if tfa._head_dim_ok(d)}
+        # every other head dim runs padded to the next built one, on its
+        # route
+        for d in range(1, 4097):
+            assert tfa.flash_route(dtype, d, kernel) == built[
+                tfa.padded_head_dim(d)], (kernel, dtype, d)
+    assert tfa.flash_route(torch.float16, 128, kernel) is None
+    assert all(tfa.flash_route(torch.bfloat16, d, kernel) == "sliced_tc"
                for d in (320, 384, 448, 512, 576, 1024))
 
 
