@@ -89,8 +89,10 @@
 //     longer path) and 96-column halves at D 192.
 //   They are correct first; their speed is later work (PERF.md).
 //
-// float32 -> CUDA cores (the tensor cores take no f32 operand; TF32
-// would round the inputs): 256 threads per CTA as a 16 x 16 grid (ty,
+// float32 up to D 256 -> CUDA cores (one TF32 product would round the
+// inputs past the f32 limits; the 3xTF32 kernels past D 256, below, keep
+// them, and are the candidate for these widths): 256 threads per CTA as a
+// 16 x 16 grid (ty,
 // tx) over R x R tiles, R = 64 (32 past D 128), thread (ty, tx) owning
 // rows ty*R/16 + i and columns tx + 16*j (of D-wide outputs, 4 adjacent
 // columns in each 64-wide chunk, 2 at D 32), f32 FMAs over vector reads
@@ -207,27 +209,113 @@
 // the unrounded P, rounded to bf16 before dS·K and dSᵀ·Q; sums in f32
 // with the -1e9 finite mask.
 //
-// past D 256, float32 -> CUDA cores, D sliced (namespace sliced,
-// flash_*_sliced_kernel<T>, instantiated for float alone; D any multiple
-// of 64, a runtime value, so one instantiation serves every D). Whole
-// D-wide tiles no longer fit: a D-wide f32 accumulator is 32·D/64
-// registers a thread (160 at D 320) beside the score tiles. So a CTA
-// owns one (b·h, 64-row tile, slice of 64 output columns): grid (B·H,
-// tiles, D/64). The score tiles S = Q·Kᵀ and dP = dO·Vᵀ (Sᵀ, dPᵀ for
-// dk/dv) sum over all of D in 64-column chunks of both operands, staged
-// with cp.async through a 2-stage ring into the same 16 x 16 thread grid
-// over 64 x 64 tiles as the float32 kernels (rows past S zero-filled),
-// every slice in the same chunk order, so every slice forms the same m
-// and l (the forward's lse is written by slice 0). The D-sized products
-// then touch only the CTA's slice: P·V[:, slice], dS·K[:, slice],
-// Pᵀ·dO[:, slice] and dSᵀ·Q[:, slice], the slice of each walked tile
-// staged once a tile (double-buffered by tile) beside the ring. Cost:
-// the score products are recomputed D/64 times (5 at D 320, 8 at D
-// 512), so the forward does D/64 + 1 half-products of work where one
-// D-wide CTA would do 2, dq 2·D/64 + 1 against 3 and dk/dv 2·D/64 + 2
-// against 4. Shared memory: 6, 10 and 12 chunks of 64 x 68 floats (17
-// KB) beside the 64 x 65 f32 p/dS tile: 118, 186 and 220 KB.
+// past D 256, the float32 forward -> CUDA cores, D sliced (namespace
+// sliced, flash_fwd_sliced_kernel<float>; D any multiple of 64, a runtime
+// value). A CTA owns one (b·h, 64-row tile, 64 output columns): grid
+// (B·H, tiles, D/64). S = Q·Kᵀ sums over all of D in 64-column chunks
+// staged with cp.async through a 2-stage ring into the 16 x 16 thread
+// grid over 64 x 64 tiles (rows past S zero-filled), every slice in the
+// same chunk order, so every slice forms the same m and l (lse from slice
+// 0); P·V[:, slice] reads the tile's V slice, staged once a tile. The
+// scores are recomputed D/64 times. Shared memory: 6 chunks of 64 x 68
+// floats beside the 64 x 65 p tile, 118 KB.
 //
+// past D 256, the float32 dq and dk/dv -> tensor cores in 3xTF32
+// (tc::flash_dq_sliced_tf32_kernel<OWN>, tc::flash_dkdv_sliced_tf32_
+// kernel<OWN>; D any multiple of 64, a runtime value; no D limit).
+// - Numbers. One TF32 product keeps 11 of f32's 24 bits: on sums over D
+//   512 its gradients miss the f32 limits (1e-5, 1e-4) by 25-76x
+//   (tests/test_torch_flash_attention.py's emulation). Each operand x
+//   splits into hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact),
+//   and hi·lo + lo·hi + hi·hi keeps about 22 bits (lo·lo, 2^-22 of the
+//   product, is dropped): 0.05-0.12 of the limit there. Rounding is to
+//   nearest, ties away from zero, as cvt.rna.tf32.f32, done in two
+//   integer operations (to_tf32): the same bits as cvt.rna in 0.87-0.95x
+//   the time (knockout cvt_round). P and dS stay f32 and split like any
+//   other operand. A K step's 8 products reach the f32 accumulator
+//   exactly enough (24 bits below the largest term), but the tensor
+//   cores truncate toward zero what they write back, so a chain of
+//   wgmma over all of D, or over the walked tiles, drifts toward zero
+//   by a bit of the running sum at every step: the gradients missed the
+//   limits by 1.25-6.3x (knockout chained_score) and up to 5.2x
+//   (chained_out; scripts/flash_sliced_knockout.py --only tf32, NVIDIA
+//   H100 80GB HBM3, 700 W, B2 S2048 to B4 S4096, D 512 and 1024, held
+//   to the plain versions in float64). So every 2 K steps of 8 of a
+//   score step and every 4 of an output step sum in a fresh
+//   accumulator, added to the running one in f32, to nearest: 0.09-0.24
+//   of the limits there (one fresh sum a score step, knockout
+//   score_ks4, read the same). The low terms go first (knockout
+//   hi_first: no difference seen). Where dS = P∘(dP - delta) cancels
+//   (a causal row whose weight sits on one key), dP's own error shows
+//   whole in dq and dk: there the f32 plain version, a sequential f32
+//   FMA chain over D in cuBLAS, strays by up to 1.09 limits from the
+//   exact function while these kernels stay within 0.16
+//   (scripts/flash_ab.py --worst at B2 S2048 H2 D1024;
+//   scripts/flash_tf32_model.py gives all three dP errors there), so the
+//   checks hold them to the plain versions evaluated in float64.
+//   Splitting dP's operands on each 8-column group's grid, so that its
+//   hi·hi sums exactly (knockout dp_grid), took 1.12-1.37x the time and
+//   erred more (0.10-0.47).
+// - Roles. A CTA holds 64 rows (query rows for dq, keys for dk/dv) and
+//   a slice of 64-column output chunks; warpgroup 0 forms the first score
+//   product over D (S = Q·Kᵀ; Sᵀ = K·Qᵀ), warpgroup 1 the second (dP =
+//   dO·Vᵀ; dPᵀ = V·dOᵀ), each from one [64][32] box of its A rows and the
+//   walked tile's B rows a step. P (dq) or Pᵀ (dk/dv) goes to warpgroup 1
+//   as tf32 parts in shared memory (named barrier 1; barrier 2 says they
+//   were read); dq's warpgroup 1 puts dS in their place for both, dk/dv's
+//   puts dSᵀ in tiles of its own. Both then add products with D as
+//   output: dq splits its slice between the warpgroups (OWN chunks and
+//   the rest), dk/dv gives dv to warpgroup 0 and dk to warpgroup 1.
+// - Layouts. wgmma has transpose bits only for 16-bit types, so a tf32
+//   operand in shared memory must be K-major. The score products take A
+//   (this CTA's rows) from registers, split there from the raw box, and B
+//   (the walked rows) K-major as TMA lands it: natural. The products with
+//   D as output are formed transposed, dqᵀ = Kᵀ·dSᵀ, dvᵀ = dOᵀ·P, dkᵀ =
+//   Qᵀ·dS: M is 64 output columns, read from the walked tile's raw box by
+//   scalar loads into A's register fragments (any layout, split there),
+//   and B is the P or dS parts, K-major as the accumulator's rows lay
+//   them: no transposed copy of any operand, and the accumulator-to-A-
+//   fragment mismatch of k8 steps (a thread holds columns 2t, 2t + 1 of
+//   an accumulator but t, t + 4 of an A fragment) never arises. The
+//   accumulators are the outputs' transposes, stored element-wise.
+// - The split pass. The walked B boxes are needed as parts in shared
+//   memory (wgmma reads them there). A pass before the kernel
+//   (tf32_split_kernel) writes the parts of K and V (dq) or Q and dO
+//   (dk/dv) to a workspace the wrapper allocates (4 floats an element),
+//   and TMA brings hi and lo boxes: at B4 S4096 H2 D512 a dq call holds
+//   320 MiB and a dk/dv call 384 MiB beyond its inputs, 256 of it the
+//   workspace (chip_smoke.py's peak_mib). Converting in the kernel
+//   instead (knockout split_in_kernel: TMA brings the B boxes raw and
+//   each consumer warpgroup splits its box in shared memory before its
+//   score step) took 1.40-2.16x the time: the conversion's
+//   shared-memory traffic sits on the step's critical path. An earlier
+//   form with three producer warps converting between TMA and the
+//   consumers was slower as well (not kept). So was an mma.sync form of the D-output products (B split by every warp of a
+//   warpgroup, the P or dS fragments from the accumulator with the k8
+//   columns permuted): it spilled and its loads and splits were repeated
+//   four times.
+// - Shared memory (232,448 bytes). A stage is six [64][32] f32 boxes
+//   (A0 raw, B0 hi, A1 raw, B1 hi, B0 lo, B1 lo: 48 KB; an output step
+//   uses four raw boxes of it); dq keeps the P/dS parts (32 KB), dk/dv
+//   Pᵀ's and dSᵀ's (64 KB) and the tile's lse and delta: rings of 4 and
+//   3 stages.
+// - Registers. A producer warpgroup (one TMA thread; dk/dv's second warp
+//   stages lse and delta) at 24, the consumers at 240 (setmaxnreg; 128 x
+//   24 + 256 x 240 = 384 x 168). A warpgroup holds OWN <= 4 chunks of
+//   accumulator (128) beside the score tile (32), a fresh sum (32) and
+//   A's parts of 2 K steps (16), or beside an output step's sum and the
+//   parts of 4 of its 8 K steps (two commit groups: all 8 spilled more).
+//   ptxas spills a little in the 4-chunk instantiations (chip_smoke.py
+//   prints the bytes).
+// - Slices. dq: the fewest slices of at most 8 chunks (D 512 is one), or
+//   of 6 where that grid fits one wave of the SMs (the causal rows' work
+//   evens out over more, lighter CTAs): warpgroup 0 takes ceil(own / 2)
+//   chunks; dk/dv: sl_own's (4 + 4 at D 512). The other choices (same
+//   card): slices of 8 whatever the grid 1.15x at B2 S2048 H2 D512 (one
+//   wave), of 6 whatever the grid 1.32-1.38x past one wave; dk/dv slices
+//   of 3 1.19-1.46x (knockouts dq_slices8, dq_slices6, dkdv_own3).
+// - Work. dq does 3 half-products at D 512 (at B2 S2048 H2, one wave: 5),
+//   dk/dv 6 (2 slices), each product three TF32 ones.
 // The kernels allocate nothing; the Python wrapper allocates outputs
 // and checks shapes, dtypes, contiguity and alignment.
 
@@ -988,211 +1076,7 @@ flash_fwd_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dq. CTA: kR queries, dq columns [64·z, 64·z + 64). Each step stages
-// the Q, dO, K and V chunks of (key tile, chunk) and adds to S and dP;
-// a key tile's first step also brings its K slice, which dS·K takes at
-// the tile's last step.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_dq_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, T* __restrict__ dq,
-                       int H, int Sq, int Skv, int D, float scale,
-                       int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kC = kChunk<T>;
-  T* const ring = reinterpret_cast<T*>(smem_raw);   // [2][Q|dO|K|V][chunk]
-  T* const ksl = ring + 8 * kC;                      // [2][K slice]
-  float* const ds_tile = reinterpret_cast<float*>(ksl + 2 * kC);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kR;
-  const int col = kW * blockIdx.z, nc = D / 64;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int steps = key_tiles<kR>(q0, Sq, Skv, causal) * nc;
-
-  auto fetch = [&](int t) {
-    const int kt = t / nc, c = t % nc;
-    T* const st = ring + (t & 1) * 4 * kC;
-    load_chunk<T>(st, q, b, h, q0, 64 * c, Sq, H, D);
-    load_chunk<T>(st + kC, dout, b, h, q0, 64 * c, Sq, H, D);
-    load_chunk<T>(st + 2 * kC, k, b, h, kt * kR, 64 * c, Skv, H, D);
-    load_chunk<T>(st + 3 * kC, v, b, h, kt * kR, 64 * c, Skv, H, D);
-    if (c == 0)
-      load_chunk<T>(ksl + (kt & 1) * kC, k, b, h, kt * kR, col, Skv, H, D);
-  };
-
-  float acc[kM][4], row_lse[kM], row_delta[kM], s[kM][kM], dp[kM][kM];
-#pragma unroll
-  for (int i = 0; i < kM; ++i) {
-    const int s_ = q0 + ty * kM + i;
-    const int64_t at = (static_cast<int64_t>(b) * Sq + s_) * H + h;
-    row_lse[i] = s_ < Sq ? lse[at] : 0.f;
-    row_delta[i] = s_ < Sq ? delta[at] : 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  }
-
-  fetch(0);
-  cp_async_commit();
-  for (int t = 0; t < steps; ++t) {
-    if (t + 1 < steps) fetch(t + 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    const int kt = t / nc, c = t % nc;
-    const T* const st = ring + (t & 1) * 4 * kC;
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < kM; ++i)
-#pragma unroll
-        for (int j = 0; j < kM; ++j) s[i][j] = dp[i][j] = 0.f;
-    }
-    dot_chunk<T>(st, st + 2 * kC, ty, tx, s);           // Q·Kᵀ
-    dot_chunk<T>(st + kC, st + 3 * kC, ty, tx, dp);     // dO·Vᵀ
-    if (c == nc - 1) {
-      const int k0 = kt * kR;
-#pragma unroll
-      for (int i = 0; i < kM; ++i) {
-        const int qpos = q0 + ty * kM + i;
-#pragma unroll
-        for (int j = 0; j < kM; ++j) {
-          const int kpos = k0 + tx + 16 * j;
-          const float sc = kpos >= Skv                ? -INFINITY
-                           : (causal && kpos > qpos) ? kMask
-                                                     : s[i][j] * scale;
-          const float p = expf(sc - row_lse[i]);
-          ds_tile[(ty * kM + i) * kPP + tx + 16 * j] =
-              operand(p * (dp[i][j] - row_delta[i]) * scale, T{});
-        }
-      }
-      __syncthreads();
-      mul_chunk<T>(ds_tile, ksl + (kt & 1) * kC, ty, tx, acc);
-    }
-    __syncthreads();
-  }
-
-  float one[kM];
-#pragma unroll
-  for (int i = 0; i < kM; ++i) one[i] = 1.f;
-  store_slice<T>(dq, acc, one, b, h, q0, col, Sq, H, D, ty, tx);
-}
-
-// dk and dv. CTA: kR keys, dk and dv columns [64·z, 64·z + 64). Each
-// step stages the K, V, Q and dO chunks of (query tile, chunk) and adds
-// to Sᵀ and dPᵀ; a query tile's first step also brings its Q and dO
-// slices, which Pᵀ·dO and dSᵀ·Q take at the tile's last step.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_dkdv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int H,
-                         int Sq, int Skv, int D, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kC = kChunk<T>;
-  T* const ring = reinterpret_cast<T*>(smem_raw);   // [2][K|V|Q|dO][chunk]
-  T* const qsl = ring + 8 * kC;                      // [2][Q | dO slice]
-  float* const w_tile = reinterpret_cast<float*>(qsl + 4 * kC);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = (gridDim.y - 1 - blockIdx.y) * kR;   // heavy tiles first
-  const int col = kW * blockIdx.z, nc = D / 64;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int nq = (Sq + kR - 1) / kR;
-  // causal: query tiles wholly before this key tile see none of its keys
-  const int qt0 = causal ? min(k0 / kR, nq) : 0;
-  const int steps = (nq - qt0) * nc;
-
-  auto fetch = [&](int t) {
-    const int it = t / nc, c = t % nc, qr = (qt0 + it) * kR;
-    T* const st = ring + (t & 1) * 4 * kC;
-    load_chunk<T>(st, k, b, h, k0, 64 * c, Skv, H, D);
-    load_chunk<T>(st + kC, v, b, h, k0, 64 * c, Skv, H, D);
-    load_chunk<T>(st + 2 * kC, q, b, h, qr, 64 * c, Sq, H, D);
-    load_chunk<T>(st + 3 * kC, dout, b, h, qr, 64 * c, Sq, H, D);
-    if (c == 0) {
-      T* const sl = qsl + (it & 1) * 2 * kC;
-      load_chunk<T>(sl, q, b, h, qr, col, Sq, H, D);
-      load_chunk<T>(sl + kC, dout, b, h, qr, col, Sq, H, D);
-    }
-  };
-
-  float dk_acc[kM][4], dv_acc[kM][4], s[kM][kM], dp[kM][kM];
-#pragma unroll
-  for (int i = 0; i < kM; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  if (steps > 0) fetch(0);
-  cp_async_commit();
-  for (int t = 0; t < steps; ++t) {
-    if (t + 1 < steps) fetch(t + 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    const int it = t / nc, c = t % nc;
-    const T* const st = ring + (t & 1) * 4 * kC;
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < kM; ++i)
-#pragma unroll
-        for (int j = 0; j < kM; ++j) s[i][j] = dp[i][j] = 0.f;
-    }
-    // transposed tiles: rows are this CTA's keys, columns the queries
-    dot_chunk<T>(st, st + 2 * kC, ty, tx, s);           // K·Qᵀ
-    dot_chunk<T>(st + kC, st + 3 * kC, ty, tx, dp);     // V·dOᵀ
-    if (c == nc - 1) {
-      const int q0 = (qt0 + it) * kR;
-      const T* const sl = qsl + (it & 1) * 2 * kC;
-      float col_lse[kM], col_delta[kM];
-#pragma unroll
-      for (int j = 0; j < kM; ++j) {
-        const int qpos = q0 + tx + 16 * j;
-        const int64_t at = (static_cast<int64_t>(b) * Sq + qpos) * H + h;
-        col_lse[j] = qpos < Sq ? lse[at] : 0.f;
-        col_delta[j] = qpos < Sq ? delta[at] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kM; ++i) {
-        const int kpos = k0 + ty * kM + i;
-#pragma unroll
-        for (int j = 0; j < kM; ++j) {
-          const int qpos = q0 + tx + 16 * j;
-          const float sc = qpos >= Sq                 ? -INFINITY
-                           : (causal && kpos > qpos) ? kMask
-                                                     : s[i][j] * scale;
-          s[i][j] = expf(sc - col_lse[j]);                  // p
-          w_tile[(ty * kM + i) * kPP + tx + 16 * j] = operand(s[i][j], T{});
-        }
-      }
-      __syncthreads();                     // pᵀ tile complete
-      mul_chunk<T>(w_tile, sl + kC, ty, tx, dv_acc);       // Pᵀ·dO
-      __syncthreads();                     // pᵀ tile read
-#pragma unroll
-      for (int i = 0; i < kM; ++i)
-#pragma unroll
-        for (int j = 0; j < kM; ++j)
-          w_tile[(ty * kM + i) * kPP + tx + 16 * j] =
-              operand(s[i][j] * (dp[i][j] - col_delta[j]) * scale, T{});
-      __syncthreads();                     // dSᵀ tile complete
-      mul_chunk<T>(w_tile, sl, ty, tx, dk_acc);            // dSᵀ·Q
-    }
-    __syncthreads();
-  }
-
-  float one[kM];
-#pragma unroll
-  for (int i = 0; i < kM; ++i) one[i] = 1.f;
-  store_slice<T>(dk, dk_acc, one, b, h, k0, col, Skv, H, D, ty, tx);
-  store_slice<T>(dv, dv_acc, one, b, h, k0, col, Skv, H, D, ty, tx);
-}
-
-// staged chunks: fwd 2 stages x (Q, K) + 2 V slices; dq 2 x (Q, dO, K,
-// V) + 2 K slices; dkdv 2 x (K, V, Q, dO) + 2 x (Q, dO) slices; each
-// beside the f32 p/dS tile (dkdv in f32: 12 x 17,408 + 16,640 bytes)
+// staged chunks: 2 stages x (Q, K) + 2 V slices, beside the f32 p tile
 template <typename T>
 int fwd(int D, const void* q, const void* k, const void* v, void* o,
         float* lse, int B, int H, int Sq, int Skv, float scale, int causal,
@@ -1205,38 +1089,6 @@ int fwd(int D, const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Skv, D,
       scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dq(int D, const void* q, const void* k, const void* v, const void* dout,
-       const float* lse, const float* delta, void* dq_out, int B, int H,
-       int Sq, int Skv, float scale, int causal, cudaStream_t st) {
-  const size_t smem = 10 * chunk_bytes<T>() + kWBytes;
-  auto kernel = flash_dq_sliced_kernel<T>;
-  if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Sq + kR - 1) / kR, D / kW);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq_out), H, Sq, Skv, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dkdv(int D, const void* q, const void* k, const void* v,
-         const void* dout, const float* lse, const float* delta, void* dk,
-         void* dv, int B, int H, int Sq, int Skv, float scale, int causal,
-         cudaStream_t st) {
-  const size_t smem = 12 * chunk_bytes<T>() + kWBytes;
-  auto kernel = flash_dkdv_sliced_kernel<T>;
-  if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Skv + kR - 1) / kR, D / kW);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Skv, D, scale,
-      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2664,23 +2516,577 @@ flash_dkdv_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
     consume(Role<true>{});
 }
 
+// ---------------------------------------------------------------------------
+// float32 dq and dk/dv past D 256: 3xTF32 on the tensor cores (header).
+// A CTA holds 64 rows (query rows for dq, keys for dk/dv) and one slice
+// of the output's 64-column chunks, and walks the other side's 64-row
+// tiles. Per tile the ring brings nc = D/32 score steps (six f32 boxes of
+// [64][32]: this CTA's A rows, raw, and the walked tile's B rows of both
+// score products as their tf32 high and low parts, which a pass before
+// the kernel wrote to a workspace) and then OWN output steps (four raw
+// boxes: a 64-column chunk of the walked tile for each warpgroup). Warpgroup 0 forms the
+// first score product (dq: S = Q·Kᵀ; dk/dv: Sᵀ = K·Qᵀ), warpgroup 1 the
+// second (dP = dO·Vᵀ; dPᵀ = V·dOᵀ); P and dS pass between them through
+// shared memory, as tf32 parts, under named barriers 1 and 2; then each
+// accumulates its chunks of the output's transpose (dqᵀ = Kᵀ·dSᵀ, dvᵀ =
+// dOᵀ·P, dkᵀ = Qᵀ·dS) with wgmma, A the walked tile's columns from
+// registers and B the P or dS parts.
+// ---------------------------------------------------------------------------
+
+constexpr int kTfBox = kSlKeys * kRowBytes;   // [64][32] f32: 8 KB
+// K steps of 8 a score step sums afresh (of its 4)
+constexpr int kTfScoreKs = 2;
+// a stage of the ring: A0, B0 hi, A1, B1 hi, B0 lo, B1 lo: 48 KB
+constexpr int kTfStage = 6 * kTfBox;
+// 64-column chunks a consumer warpgroup accumulates: 128 registers of
+// accumulator beside a score tile, its per-step sum and A's parts (96),
+// or beside an output step's sum and A's parts
+constexpr int kTfMaxOwn = 4;
+// registers a producer thread and a consumer thread hold
+constexpr int kTfProducerRegs = 24, kTfConsumerRegs = 240;
+static_assert(128 * kTfProducerRegs + kSlConsumers * kTfConsumerRegs <=
+                  kSlThreads * 168,
+              "setmaxnreg counts must fit the registers held at launch");
+// shared memory: the ring of ns stages; `outs` tiles of P or dS parts
+// (hi, then lo: [64 rows][64] as two [64][32] tiles each); the walked
+// tile's lse and delta; then the barriers full[kSlMaxStages],
+// empty[kSlMaxStages], sfull, sempty
+__host__ __device__ constexpr int tf_bars_at(int ns, int outs) {
+  return ns * kTfStage + outs * 4 * kTfBox + kStatBytes;
+}
+__host__ __device__ constexpr size_t tf_smem(int ns, int outs) {
+  return 1024 + tf_bars_at(ns, outs) + 8 * (2 * kSlMaxStages + 2);
+}
+
+// byte offset of f32 element (r, c) of a [rows][32] tile in TMA's 128-byte
+// swizzle: 16-byte chunk c / 4 of row r sits at chunk (c / 4) ^ (r % 8)
+__device__ __forceinline__ uint32_t tf_at(int r, int c) {
+  return r * kRowBytes + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// One score step: s (+)= A·Bᵀ over 32 columns, A (a_t, the raw f32 box of
+// this CTA's 64 rows: warp w of the warpgroup rows 16w..16w + 15) split
+// into tf32 high and low parts in registers, B (the walked tile's rows)
+// as its high part at b_t and its low part at blo.
+// The step's products sum in a fresh accumulator, the low terms first
+// (hi·lo, lo·hi: four K steps of 8 each), then hi·hi, 12 wgmma m64n64k8;
+// s gains the sum in f32 (first: s = the sum). The tensor cores add each
+// product to the accumulator truncated to its precision, so a chain over
+// all of D (or low terms added after the high ones) loses a bit of the
+// running sum's magnitude at every step; summing each step apart keeps
+// that loss to the step's own terms. Returns once the products are done,
+// so the caller may release the stage.
+__device__ __forceinline__ void tf_score_step(float (&s)[32], uint32_t a_t,
+                                              uint32_t b_t, uint32_t blo,
+                                              bool first) {
+  const int i = threadIdx.x % 128, l = i % 32;
+  const int r0 = 16 * (i / 32) + l / 4, t = l % 4;
+#pragma unroll
+  for (int k0 = 0; k0 < 4; k0 += kTfScoreKs) {
+    uint32_t ah[kTfScoreKs][4], al[kTfScoreKs][4];
+#pragma unroll
+    for (int kk = 0; kk < kTfScoreKs; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(ld_shared(a_t + tf_at(r0 + 8 * (e & 1),
+                                          8 * (k0 + kk) + t + 4 * (e >> 1))),
+                   ah[kk][e], al[kk][e]);
+    float acc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTfScoreKs; ++kk) {
+      const uint32_t k = 32 * (k0 + kk);
+      wgmma_tf32_rs_n64(acc, ah[kk], desc(blo + k), kk > 0);
+      wgmma_tf32_rs_n64(acc, al[kk], desc(b_t + k), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTfScoreKs; ++kk)
+      wgmma_tf32_rs_n64(acc, ah[kk], desc(b_t + 32 * (k0 + kk)), 1);
+    wg_commit();
+    wg_wait();
+    keep(acc);
+    keep(ah);
+    keep(al);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = first && k0 == 0 ? acc[e] : s[e] + acc[e];
+  }
+}
+
+// s (a 64 x 64 accumulator: rows this CTA's, columns the walked tile's) as
+// tf32 high and low parts into hi and lo, each two [64][32] tiles (columns
+// 0-31, 32-63) in the 128-byte swizzle: the K-major B operand of the
+// output steps. (The caller fences and syncs before wgmma reads them.)
+__device__ __forceinline__ void tf_put(uint32_t hi, uint32_t lo,
+                                       const float (&s)[32]) {
+  const int i = threadIdx.x % 128, l = i % 32;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {           // element pairs 2j, 2j + 1
+    const int r = 16 * (i / 32) + l / 4 + 8 * (j % 2);
+    const int c = 8 * (j / 2) + 2 * (l % 4);
+    const uint32_t off = (c / 32) * kTfBox + tf_at(r, c % 32);
+    uint32_t h0, l0, h1, l1;
+    split_tf32(s[2 * j], h0, l0);
+    split_tf32(s[2 * j + 1], h1, l1);
+    st_shared2(hi + off, __uint_as_float(h0), __uint_as_float(h1));
+    st_shared2(lo + off, __uint_as_float(l0), __uint_as_float(l1));
+  }
+}
+// the f32 values (hi + lo) tf_put wrote, at this thread's positions
+__device__ __forceinline__ void tf_get(float (&s)[32], uint32_t hi,
+                                       uint32_t lo) {
+  const int i = threadIdx.x % 128, l = i % 32;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int r = 16 * (i / 32) + l / 4 + 8 * (j % 2);
+    const int c = 8 * (j / 2) + 2 * (l % 4);
+    const uint32_t off = (c / 32) * kTfBox + tf_at(r, c % 32);
+    float h[2], w[2];
+    ld_shared2(hi + off, h);
+    ld_shared2(lo + off, w);
+    s[2 * j] = h[0] + w[0];
+    s[2 * j + 1] = h[1] + w[1];
+  }
+}
+
+// One output step: acc (a 64 x 64 block of the output's transpose: rows
+// 64 of its columns, columns this CTA's rows) += A·B over the walked
+// tile's 64 rows, A those columns of the walked tile (the raw f32 tiles
+// at `tile`, [64 rows][32 columns] twice) split into tf32 parts in
+// registers, B the parts of P or dS (tf_put's tiles bhi, blo), K-major.
+// Per K step of 8 rows hi·lo, lo·hi, hi·hi, 24 wgmma m64n64k8 into a
+// fresh accumulator added to acc in f32 (tf_score_step's reason).
+__device__ __forceinline__ void tf_out_step(float (&acc)[32], uint32_t tile,
+                                            uint32_t bhi, uint32_t blo) {
+  const int i = threadIdx.x % 128, l = i % 32, t = l % 4;
+  // warp w's rows of A are the block's columns 16w..16w + 15, in tile
+  // (16w) / 32
+  const int c = (16 * (i / 32)) % 32 + l / 4;
+  const uint32_t a_t = tile + (i / 64) * kTfBox;
+  // two groups of 4 K steps, so A's parts of only one are held (all 8
+  // beside a 4-chunk accumulator spilled), each summed afresh
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float d[32];
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(ld_shared(a_t + tf_at(32 * half + 8 * kk + t +
+                                             4 * (e >> 1),
+                                         c + 8 * (e & 1))),
+                   ah[kk][e], al[kk][e]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t k = half * kTfBox + kk * 32;
+      wgmma_tf32_rs_n64(d, ah[kk], desc(blo + k), kk > 0);
+      wgmma_tf32_rs_n64(d, al[kk], desc(bhi + k), 1);
+      wgmma_tf32_rs_n64(d, ah[kk], desc(bhi + k), 1);
+    }
+    wg_commit();
+    wg_wait();
+    keep(d);
+    keep(ah);
+    keep(al);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] += d[e];
+  }
+}
+
+// the rows of a (B, S, H, D) f32 output from `mine` of a warpgroup's OWN
+// transposed accumulators (tf_out_step's), chunk j at column col + 64·j,
+// rows row0 + n below S (chunks past D skipped)
+template <int OWN>
+__device__ __forceinline__ void tf_store(float* out,
+                                         const float (&acc)[OWN][32],
+                                         int mine, int b, int h, int row0,
+                                         int col, int S, int H, int D) {
+  const int i = threadIdx.x % 128, l = i % 32;
+  const int m = 16 * (i / 32) + l / 4;
+#pragma unroll
+  for (int j = 0; j < OWN; ++j) {
+    if (j >= mine || col + 64 * j >= D) continue;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int s_ = row0 + acc_col(e, l);
+      if (s_ < S)
+        out[((static_cast<int64_t>(b) * S + s_) * H + h) * D + col + 64 * j +
+            m + acc_row(e)] = acc[j][e];
+    }
+  }
+}
+
+// a score step's six boxes at column c: A rows of both warpgroups (raw, at
+// rows a0), B rows (the walked tile's, at rows w0) as high and low parts
+__device__ __forceinline__ void tf_load_score(
+    uint32_t dst, uint32_t bar, int c, int h, int a0, int w0, int b,
+    const CUtensorMap* a_0, const CUtensorMap* b0h, const CUtensorMap* b0l,
+    const CUtensorMap* a_1, const CUtensorMap* b1h, const CUtensorMap* b1l) {
+  tma_load(dst, a_0, bar, 32 * c, h, a0, b);
+  tma_load(dst + kTfBox, b0h, bar, 32 * c, h, w0, b);
+  tma_load(dst + 2 * kTfBox, a_1, bar, 32 * c, h, a0, b);
+  tma_load(dst + 3 * kTfBox, b1h, bar, 32 * c, h, w0, b);
+  tma_load(dst + 4 * kTfBox, b0l, bar, 32 * c, h, w0, b);
+  tma_load(dst + 5 * kTfBox, b1l, bar, 32 * c, h, w0, b);
+}
+
+// the ring walked with counters: the step's stage and its phase
+struct TfRing {
+  uint32_t ring0, bars;
+  int ns, st = 0, ph = 0;
+  __device__ uint32_t full() const { return bars + 8 * st; }
+  __device__ uint32_t empty() const { return bars + 8 * (kSlMaxStages + st); }
+  __device__ uint32_t stage() const { return ring0 + st * kTfStage; }
+  __device__ void next() {
+    if (++st == ns) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  // the producer: wait until step t's stage is free, expect its bytes
+  __device__ uint32_t acquire(int t, uint32_t bytes) const {
+    if (t >= ns) bar_wait(empty(), ph ^ 1);
+    bar_expect(full(), bytes);
+    return stage();
+  }
+  // a consumer warp: wait for the step's stage; release it after
+  __device__ uint32_t wait() const {
+    warp_wait(full(), ph);
+    return stage();
+  }
+  __device__ void release() {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) bar_arrive(empty());
+    next();
+  }
+};
+
+__device__ __forceinline__ void tf_init(uint32_t bars, int ns) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      bar_init(bars + 8 * s, 1);
+      bar_init(bars + 8 * (kSlMaxStages + s), kSlConsumers / 32);
+    }
+    bar_init(bars + 16 * kSlMaxStages, 1);                    // sfull
+    bar_init(bars + 16 * kSlMaxStages + 8, kSlConsumers / 32);  // sempty
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// dq: CTA = 64 query rows of one (b, h), the heaviest first, and a slice
+// of `own` 64-column chunks of dq (grid (B·H·slices, ceil(Sq / 64)), the
+// slice innermost): warpgroup 0 accumulates the slice's first OWN
+// chunks, warpgroup 1 the other own - OWN. A score step holds the Q, K,
+// dO and V boxes of (key tile, 32 columns); output step p the key tile's
+// K columns of each warpgroup's chunk p. Warpgroup 0 forms P and puts it
+// in the P/dS tiles; warpgroup 1 reads it, forms dS = P∘(dP -
+// delta)·scale and puts it in the same tiles; both add Kᵀ·dSᵀ to their
+// chunks of dqᵀ. Warpgroup 0 writes the next tile's P only after its
+// nc score steps, and the ring (ns < nc stages) holds it until
+// warpgroup 1 has released a step of that tile: past its output steps.
+template <int OWN>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                            const __grid_constant__ CUtensorMap km,
+                            const __grid_constant__ CUtensorMap dom,
+                            const __grid_constant__ CUtensorMap khm,
+                            const __grid_constant__ CUtensorMap klm,
+                            const __grid_constant__ CUtensorMap vhm,
+                            const __grid_constant__ CUtensorMap vlm,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int H, int Sq, int Skv,
+                            int D, int nsl, int own, int ns, float scale,
+                            int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 32;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xb = base + ns * kTfStage;      // P, then dS, parts
+  TfRing ring{base, base + tf_bars_at(ns, 1), ns};
+
+  const int z = blockIdx.x % nsl, bh = blockIdx.x / nsl;
+  const int b = bh / H, h = bh % H, tid = threadIdx.x;
+  const int col0 = 64 * own * z;
+  const int q0 = 64 * (gridDim.y - 1 - blockIdx.y);    // heaviest first
+  const int nk = (Skv + kSlKeys - 1) / kSlKeys;
+  const int nkt =
+      causal ? min(nk, (min(q0 + 64, Sq) - 1) / kSlKeys + 1) : nk;
+  const int rest = own - OWN;              // warpgroup 1's chunks
+  tf_init(ring.bars, ns);
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kSlConsumers) {
+      int t = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int k0 = kt * kSlKeys;
+        for (int c = 0; c < nc; ++c, ++t, ring.next())
+          tf_load_score(ring.acquire(t, kTfStage), ring.full(), c, h, q0,
+                        k0, b, &qm, &khm, &klm, &dom, &vhm, &vlm);
+        for (int p = 0; p < OWN; ++p, ++t, ring.next()) {
+          const bool two = p < rest;
+          const uint32_t dst = ring.acquire(t, (two ? 4 : 2) * kTfBox);
+          for (int g = 0; g < (two ? 2 : 1); ++g)
+            for (int e = 0; e < 2; ++e)
+              tma_load(dst + (2 * g + e) * kTfBox, &km, ring.full(),
+                       col0 + 64 * (OWN * g + p) + 32 * e, h, k0, b);
+        }
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  const int l = tid % 32;
+  const int row0 = q0 + 16 * ((tid / 32) % 4) + l / 4;
+  auto consume = [&](auto role) {
+    constexpr int G = decltype(role)::kDk ? 1 : 0;
+    const int mine = G ? rest : OWN;
+    float stat[2];                         // lse (warpgroup 0), delta (1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s_ = row0 + 8 * r;
+      stat[r] = s_ < Sq ? (G ? delta : lse)[(static_cast<int64_t>(b) * Sq +
+                                             s_) * H + h]
+                        : 0.f;
+    }
+    float acc[OWN][32], s[32];
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) zero(acc[j]);
+    zero(s);
+    for (int kt = 0; kt < nkt; ++kt) {
+      for (int c = 0; c < nc; ++c) {
+        const uint32_t st = ring.wait();
+        tf_score_step(s, st + 2 * G * kTfBox, st + (2 * G + 1) * kTfBox,
+                      st + (4 + G) * kTfBox, c == 0);
+        ring.release();
+      }
+      if constexpr (G == 0) {
+        // P from the scaled, masked scores, then dS from warpgroup 1
+        const int k0 = kt * kSlKeys;
+        const bool edge =
+            (causal && k0 + kSlKeys - 1 > q0) || k0 + kSlKeys > Skv;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float x = s[i] * scale;
+          if (edge) {
+            const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+            x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+          }
+          s[i] = expf(x - stat[(i % 4) / 2]);
+        }
+        tf_put(xb, xb + 2 * kTfBox, s);
+        named_arrive(1, kSlConsumers);
+        named_sync(2, kSlConsumers);
+      } else {
+        // dS = P∘(dP - delta)·scale, P from warpgroup 0 (its parts)
+        named_sync(1, kSlConsumers);
+        float p[32];
+        tf_get(p, xb, xb + 2 * kTfBox);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = p[i] * (s[i] - stat[(i % 4) / 2]) * scale;
+        tf_put(xb, xb + 2 * kTfBox, s);
+        fence_proxy_async();
+        named_arrive(2, kSlConsumers);
+        named_sync(4, 128);
+      }
+#pragma unroll
+      for (int p = 0; p < OWN; ++p) {
+        const uint32_t tile = ring.wait() + 2 * G * kTfBox;
+        if (p < mine) tf_out_step(acc[p], tile, xb, xb + 2 * kTfBox);
+        ring.release();
+      }
+    }
+    tf_store<OWN>(dq, acc, mine, b, h, q0, col0 + 64 * OWN * G, Sq, H, D);
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Role<false>{});
+  else
+    consume(Role<true>{});
+}
+
+// dk and dv: CTA = 64 keys of one (b, h), the heaviest (lowest) tiles
+// first, and a slice of OWN 64-column chunks of dk and dv (grid
+// (B·H·slices, ceil(Skv / 64)), the slice innermost). A score step holds
+// the K, Q, V and dO boxes of (query tile, 32 columns); output step p the
+// query tile's dO and Q columns of chunk p. Warpgroup 0 forms Pᵀ and puts
+// its parts in tiles warpgroup 1 reads (named barrier 1; barrier 2 says
+// they were read), then adds dOᵀ·P to dvᵀ; warpgroup 1 forms dSᵀ =
+// Pᵀ∘(dPᵀ - delta)·scale, puts it in tiles of its own and adds Qᵀ·dS to
+// dkᵀ. The query tile's lse and delta are staged by a producer warp.
+template <int OWN>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_dkdv_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                              const __grid_constant__ CUtensorMap km,
+                              const __grid_constant__ CUtensorMap vm,
+                              const __grid_constant__ CUtensorMap dom,
+                              const __grid_constant__ CUtensorMap qhm,
+                              const __grid_constant__ CUtensorMap qlm,
+                              const __grid_constant__ CUtensorMap dohm,
+                              const __grid_constant__ CUtensorMap dolm,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int H, int Sq, int Skv, int D, int nsl, int ns,
+                              float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 32;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xb = base + ns * kTfStage;      // Pᵀ, then dSᵀ, parts
+  const uint32_t stats = xb + 8 * kTfBox;  // lse, then delta: f32 [64]
+  TfRing ring{base, base + tf_bars_at(ns, 2), ns};
+  const uint32_t sfull = ring.bars + 16 * kSlMaxStages, sempty = sfull + 8;
+
+  const int z = blockIdx.x % nsl, bh = blockIdx.x / nsl;
+  const int b = bh / H, h = bh % H, tid = threadIdx.x;
+  const int col0 = 64 * OWN * z, k0 = kSlKeys * blockIdx.y;
+  const int nq = (Sq + 63) / 64;
+  // causal: query tiles wholly before the key tile see none of its keys
+  const int qt0 = causal ? min(static_cast<int>(blockIdx.y), nq) : 0;
+  tf_init(ring.bars, ns);
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kSlConsumers) {
+      int t = 0;
+      for (int qt = qt0; qt < nq; ++qt) {
+        const int q0 = 64 * qt;
+        for (int c = 0; c < nc; ++c, ++t, ring.next())
+          tf_load_score(ring.acquire(t, kTfStage), ring.full(), c, h, k0,
+                        q0, b, &km, &qhm, &qlm, &vm, &dohm, &dolm);
+        for (int p = 0; p < OWN; ++p, ++t, ring.next()) {
+          const uint32_t dst = ring.acquire(t, 4 * kTfBox);
+          for (int e = 0; e < 2; ++e) {
+            tma_load(dst + e * kTfBox, &dom, ring.full(),
+                     col0 + 64 * p + 32 * e, h, q0, b);
+            tma_load(dst + (2 + e) * kTfBox, &qm, ring.full(),
+                     col0 + 64 * p + 32 * e, h, q0, b);
+          }
+        }
+      }
+    } else if (tid / 32 == kSlConsumers / 32 + 1) {
+      // each query tile's lse and delta (0 past Sq), once the previous
+      // tile's were read: the warp's stores, then lane 0's arrival (a
+      // release) on sfull
+      const int ln = tid % 32;
+      const float* const lse_bh = lse + static_cast<int64_t>(b) * Sq * H + h;
+      const float* const delta_bh =
+          delta + static_cast<int64_t>(b) * Sq * H + h;
+      for (int qt = qt0; qt < nq; ++qt) {
+        if (qt > qt0) bar_wait(sempty, (qt - qt0 - 1) & 1);
+        for (int i = 64 * qt + ln; i < 64 * qt + 64; i += 32) {
+          const uint32_t at = stats + 4 * (i - 64 * qt);
+          st_shared(at, i < Sq ? lse_bh[static_cast<int64_t>(i) * H] : 0.f);
+          st_shared(at + 4 * 64,
+                    i < Sq ? delta_bh[static_cast<int64_t>(i) * H] : 0.f);
+        }
+        __threadfence_block();
+        __syncwarp();
+        if (ln == 0) bar_arrive(sfull);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  const int l = tid % 32;
+  const int krow = 16 * ((tid / 32) % 4) + l / 4;     // of the 64 keys
+  auto consume = [&](auto role) {
+    constexpr bool DK = decltype(role)::kDk;
+    constexpr int G = DK ? 1 : 0;
+    const uint32_t out = xb + 4 * G * kTfBox;   // Pᵀ (0) or dSᵀ (1) parts
+    float acc[OWN][32], s[32];             // s: Sᵀ (dv) or dPᵀ (dk)
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) zero(acc[j]);
+    zero(s);
+    int sph = 0;
+    for (int q0 = 64 * qt0; q0 < Sq; q0 += 64) {
+      for (int c = 0; c < nc; ++c) {
+        const uint32_t st = ring.wait();
+        tf_score_step(s, st + 2 * G * kTfBox, st + (2 * G + 1) * kTfBox,
+                      st + (4 + G) * kTfBox, c == 0);
+        ring.release();
+      }
+      warp_wait(sfull, sph);               // the tile's lse and delta
+      sph ^= 1;
+      if constexpr (!DK) {
+        // Pᵀ from the scaled, masked scores: rows keys, columns queries
+        const bool edge = (causal && k0 + kSlKeys - 1 > q0) || q0 + 64 > Sq;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qpos = q0 + acc_col(i, l);
+          const int kpos = k0 + krow + acc_row(i);
+          float x = s[i] * scale;
+          if (edge)
+            x = qpos >= Sq ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+          s[i] = expf(x - ld_shared(stats + 4 * acc_col(i, l)));
+        }
+        // put Pᵀ once warpgroup 1 has read the previous tile's
+        if (q0 > 64 * qt0) named_sync(2, kSlConsumers);
+        tf_put(out, out + 2 * kTfBox, s);
+        fence_proxy_async();
+        named_arrive(1, kSlConsumers);
+        named_sync(3, 128);
+      } else {
+        // dSᵀ = Pᵀ∘(dPᵀ - delta)·scale, Pᵀ from warpgroup 0 (its parts)
+        named_sync(1, kSlConsumers);
+        float p[32];
+        tf_get(p, xb, xb + 2 * kTfBox);
+        if (q0 + 64 < Sq) named_arrive(2, kSlConsumers);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = p[i] *
+                 (s[i] - ld_shared(stats + 4 * (64 + acc_col(i, l)))) *
+                 scale;
+        tf_put(out, out + 2 * kTfBox, s);
+        fence_proxy_async();
+        named_sync(4, 128);
+      }
+      __syncwarp();
+      if (l == 0) bar_arrive(sempty);      // lse and delta read
+#pragma unroll
+      for (int p = 0; p < OWN; ++p) {      // dOᵀ·P, or Qᵀ·dS
+        const uint32_t tile = ring.wait() + 2 * G * kTfBox;
+        tf_out_step(acc[p], tile, out, out + 2 * kTfBox);
+        ring.release();
+      }
+    }
+    tf_store<OWN>(DK ? dk : dv, acc, OWN, b, h, k0, col0, Skv, H, D);
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Role<false>{});
+  else
+    consume(Role<true>{});
+}
+
 // --- host: tensor maps and launchers ---
 
 // (B, S, H, D) bf16 at ptr as a (D, H, S, B) map with boxes (64, 1, rows,
-// 1), 128-byte swizzle; reads past S (and past D, at D 32) fill zeros
+// 1), 128-byte swizzle; reads past S (and past D, at D 32) fill zeros.
+// f32: boxes of (32, 1, rows, 1), the same 128-byte rows.
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-             int rows) {
+             int rows, bool f32 = false) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return kNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * (f32 ? 4 : 2);
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = enc(map,
+                         f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         4,
                          const_cast<void*>(ptr), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
@@ -2916,14 +3322,158 @@ int dkdv_sliced(int D, const void* q, const void* k, const void* v,
                                   dv, B, H, Sq, Skv, scale, causal, st);
 }
 
+// x (n4 groups of 4 f32) into its tf32 high and low parts (split_tf32):
+// the pass before the f32 backward past D 256, over the walked B operands
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float4* __restrict__ x, float4* __restrict__ hi,
+                  float4* __restrict__ lo, int64_t n4) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float4 v = x[i];
+    uint32_t h[4], w[4];
+    split_tf32(v.x, h[0], w[0]);
+    split_tf32(v.y, h[1], w[1]);
+    split_tf32(v.z, h[2], w[2]);
+    split_tf32(v.w, h[3], w[3]);
+    hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                        __uint_as_float(h[2]), __uint_as_float(h[3]));
+    lo[i] = make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
+                        __uint_as_float(w[2]), __uint_as_float(w[3]));
+  }
+}
+
+// the parts of two (B, S, H, D) f32 tensors x0, x1 into `work` (hi0, lo0,
+// hi1, lo1, n = B·S·H·D floats each), and their four maps
+int tf_split(CUtensorMap (&m)[4], const void* x0, const void* x1,
+             float* work, int B, int S, int H, int D, cudaStream_t st) {
+  const int64_t n = static_cast<int64_t>(B) * S * H * D;
+  int sms = 0;
+  if (int e = sm_count(&sms)) return e;
+  const int64_t want = (n / 4 + 255) / 256;
+  const int blocks = static_cast<int>(want < 8 * sms ? want : 8 * sms);
+  for (int j = 0; j < 2; ++j) {
+    tf32_split_kernel<<<blocks, 256, 0, st>>>(
+        static_cast<const float4*>(j ? x1 : x0),
+        reinterpret_cast<float4*>(work + 2 * j * n),
+        reinterpret_cast<float4*>(work + (2 * j + 1) * n), n / 4);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  for (int j = 0; j < 4; ++j)
+    if (int e = make_map(&m[j], work + j * n, B, S, H, D, 64, true)) return e;
+  return 0;
+}
+
+// the ring takes what the P/dS tiles and the stats leave, up to
+// kSlMaxStages: dq 4 stages, dk/dv 3
+inline int tf_stages(int outs) {
+  return min(kSlMaxStages,
+             static_cast<int>((kSmemMax - tf_smem(0, outs)) / kTfStage));
+}
+
+template <int OWN>
+int dq_sliced_tf32_own(int D, int own, const CUtensorMap (&m)[3],
+                       const CUtensorMap (&p)[4], const float* lse,
+                       const float* delta, void* dq_out, int B, int H,
+                       int Sq, int Skv, float scale, int causal,
+                       cudaStream_t st) {
+  const int ns = tf_stages(1), nsl = (D / 64 + own - 1) / own;
+  const size_t smem = tf_smem(ns, 1);
+  auto kernel = flash_dq_sliced_tf32_kernel<OWN>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H * nsl, (Sq + 63) / 64);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      m[0], m[1], m[2], p[0], p[1], p[2], p[3], lse, delta,
+      static_cast<float*>(dq_out), H, Sq, Skv, D, nsl, own, ns, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dq: K and V split into `work` (4·B·Skv·H·D floats), then the kernel
+int dq_sliced_tf32(int D, const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq_out, int B, int H, int Sq, int Skv, float scale,
+                   int causal, cudaStream_t st, float* work) {
+  if (!work) return -1;
+  CUtensorMap m[3], p[4];                  // q, k, dO raw; K, V parts
+  if (int e = make_map(&m[0], q, B, Sq, H, D, 64, true)) return e;
+  if (int e = make_map(&m[1], k, B, Skv, H, D, kSlKeys, true)) return e;
+  if (int e = make_map(&m[2], dout, B, Sq, H, D, 64, true)) return e;
+  if (int e = tf_split(p, k, v, work, B, Skv, H, D, st)) return e;
+  // the fewest slices of at most 2 x kTfMaxOwn chunks (D 320-512 one
+  // slice, 576-1024 two), or of 2 x 3 where that grid fits one wave of
+  // the SMs (more, lighter CTAs even out the causal rows' work: D 512
+  // two), as even as they come; warpgroup 0 takes OWN = ceil(own / 2) of
+  // them and warpgroup 1 the rest
+  int sms = 0;
+  if (int e = sm_count(&sms)) return e;
+  const int nc = D / 64, rows = B * H * ((Sq + 63) / 64);
+  int most = 2 * kTfMaxOwn, fewest = (nc + most - 1) / most;
+  if (rows * fewest <= sms) {
+    most = 6;
+    fewest = (nc + most - 1) / most;
+  }
+  const int own = (nc + fewest - 1) / fewest;
+  switch ((own + 1) / 2) {
+    case 2:
+      return dq_sliced_tf32_own<2>(D, own, m, p, lse, delta, dq_out, B, H,
+                                   Sq, Skv, scale, causal, st);
+    case 3:
+      return dq_sliced_tf32_own<3>(D, own, m, p, lse, delta, dq_out, B, H,
+                                   Sq, Skv, scale, causal, st);
+    default:
+      return dq_sliced_tf32_own<4>(D, own, m, p, lse, delta, dq_out, B, H,
+                                   Sq, Skv, scale, causal, st);
+  }
+}
+
+template <int OWN>
+int dkdv_sliced_tf32_own(int D, const CUtensorMap (&m)[4],
+                         const CUtensorMap (&p)[4], const float* lse,
+                         const float* delta, void* dk, void* dv, int B,
+                         int H, int Sq, int Skv, float scale, int causal,
+                         cudaStream_t st) {
+  const int ns = tf_stages(2), nsl = (D / 64 + OWN - 1) / OWN;
+  const size_t smem = tf_smem(ns, 2);
+  auto kernel = flash_dkdv_sliced_tf32_kernel<OWN>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H * nsl, (Skv + kSlKeys - 1) / kSlKeys);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      m[0], m[1], m[2], m[3], p[0], p[1], p[2], p[3], lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Skv, D, nsl,
+      ns, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dk/dv: Q and dO split into `work` (4·B·Sq·H·D floats), then the kernel
+int dkdv_sliced_tf32(int D, const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dk, void* dv, int B, int H, int Sq, int Skv,
+                     float scale, int causal, cudaStream_t st, float* work) {
+  if (!work) return -1;
+  CUtensorMap m[4], p[4];                  // q, k, v, dO raw; Q, dO parts
+  if (int e = make_map(&m[0], q, B, Sq, H, D, 64, true)) return e;
+  if (int e = make_map(&m[1], k, B, Skv, H, D, kSlKeys, true)) return e;
+  if (int e = make_map(&m[2], v, B, Skv, H, D, kSlKeys, true)) return e;
+  if (int e = make_map(&m[3], dout, B, Sq, H, D, 64, true)) return e;
+  if (int e = tf_split(p, q, dout, work, B, Sq, H, D, st)) return e;
+  // each warpgroup holds one accumulator of the whole slice: slices as
+  // the bf16 kernels' (sl_own: 4 + 4 at D 512)
+  return sl_own(D / 64) == 3
+             ? dkdv_sliced_tf32_own<3>(D, m, p, lse, delta, dk, dv, B, H,
+                                       Sq, Skv, scale, causal, st)
+             : dkdv_sliced_tf32_own<4>(D, m, p, lse, delta, dk, dv, B, H,
+                                       Sq, Skv, scale, causal, st);
+}
+
 }  // namespace tc
 
-// dispatch on (dtype code, head dim): 0 = float32 (CUDA cores), 1 =
-// bfloat16 (tensor cores); past D 256, any D that is a multiple of 64,
-// float32 takes the D-sliced CUDA-core kernels and bfloat16 WIDE_BF16:
-// the sliced tensor-core forward (tc::fwd_sliced), or the D-sliced
-// CUDA-core dq and dk/dv
-#define BIGDL_FLASH_DISPATCH(FN, WIDE_BF16, ...)                         \
+// dispatch on (dtype code, head dim): 0 = float32 (CUDA cores up to D
+// 256), 1 = bfloat16 (tensor cores); past D 256, any D that is a multiple
+// of 64, float32 takes WIDE_F32 (the D-sliced CUDA-core forward, or the
+// 3xTF32 tensor-core dq and dk/dv) and bfloat16 WIDE_BF16 (the sliced
+// tensor-core kernels)
+#define BIGDL_FLASH_DISPATCH(FN, WIDE_F32, WIDE_BF16, ...)               \
   do {                                                                    \
     if (dtype == 0 && D == 32) return FN<float, 32>(__VA_ARGS__);         \
     if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);         \
@@ -2936,7 +3486,7 @@ int dkdv_sliced(int D, const void* q, const void* k, const void* v,
     if (dtype == 1 && D == 192) return tc::FN<192>(__VA_ARGS__);          \
     if (dtype == 1 && D == 256) return tc::FN<256>(__VA_ARGS__);          \
     if (dtype == 0 && D > 256 && D % 64 == 0)                             \
-      return sliced::FN<float>(D, __VA_ARGS__);                           \
+      return WIDE_F32(D, __VA_ARGS__);                                    \
     if (dtype == 1 && D > 256 && D % 64 == 0)                             \
       return WIDE_BF16(D, __VA_ARGS__);                                   \
     return -1;                                                            \
@@ -2945,26 +3495,33 @@ int dkdv_sliced(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a (dtype, head dim) the
-// kernels were not built for, -2 where the driver offers no tensor-map
-// encoder, 1000 + the CUresult of a tensor map the driver refused, else
-// the CUDA error code of the launch.
+// kernels were not built for (or an f32 dq or dk/dv past D 256 given no
+// workspace: 4 floats an element of K for dq, of Q for dk/dv), -2 where
+// no tensor-map encoder is found (cuTensorMapEncodeTiled), 1000 + the
+// CUresult of a refused tensor map, else the CUDA error code of the
+// launch.
 extern "C" int bigdl_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, float* lse, int B,
                                int H, int Sq, int Skv, int D, float scale,
                                int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(fwd, tc::fwd_sliced, q, k, v, o, lse, B, H, Sq, Skv,
-                       scale, causal, st);
+  BIGDL_FLASH_DISPATCH(fwd, sliced::fwd<float>, tc::fwd_sliced, q, k, v, o,
+                       lse, B, H, Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
                               const void* v, const void* dout,
                               const float* lse, const float* delta,
                               void* dq_out, int B, int H, int Sq, int Skv,
-                              int D, float scale, int causal, void* stream) {
+                              int D, float scale, int causal, void* stream,
+                              float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(dq, tc::dq_sliced, q, k, v, dout, lse, delta,
-                       dq_out, B, H, Sq, Skv, scale, causal, st);
+  // f32 past D 256 splits K and V into `work` first
+  auto wide_f32 = [work](int D, auto... a) {
+    return tc::dq_sliced_tf32(D, a..., work);
+  };
+  BIGDL_FLASH_DISPATCH(dq, wide_f32, tc::dq_sliced, q, k, v, dout, lse,
+                       delta, dq_out, B, H, Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
@@ -2972,8 +3529,12 @@ extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
                                 const float* lse, const float* delta,
                                 void* dk, void* dv, int B, int H, int Sq,
                                 int Skv, int D, float scale, int causal,
-                                void* stream) {
+                                void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(dkdv, tc::dkdv_sliced, q, k, v, dout, lse, delta,
-                       dk, dv, B, H, Sq, Skv, scale, causal, st);
+  // f32 past D 256 splits Q and dO into `work` first
+  auto wide_f32 = [work](int D, auto... a) {
+    return tc::dkdv_sliced_tf32(D, a..., work);
+  };
+  BIGDL_FLASH_DISPATCH(dkdv, wide_f32, tc::dkdv_sliced, q, k, v, dout, lse,
+                       delta, dk, dv, B, H, Sq, Skv, scale, causal, st);
 }

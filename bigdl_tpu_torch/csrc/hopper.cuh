@@ -57,6 +57,19 @@ __device__ __forceinline__ void st_shared4(uint32_t addr, float a, float b,
                : "memory");
 }
 
+// 2 adjacent f32 of shared memory at a 32-bit shared address (8-byte
+// aligned), and back
+__device__ __forceinline__ void ld_shared2(uint32_t addr, float (&x)[2]) {
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x[0]), "=f"(x[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void st_shared2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b)
+               : "memory");
+}
+
 // named barrier `id` (1..15; 0 is __syncthreads) over `n` threads: wait
 // for all of them, or arrive without waiting (after a fence, so the
 // arriving threads' shared-memory writes are seen by those that wait)
@@ -377,6 +390,45 @@ __device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (+)= A·B in TF32, A (M64 K8: a0 (row g, col t), a1 (g + 8, t), a2
+// (g, t + 4), a3 (g + 8, t + 4) for lane 4g + t of each warp's 16 rows)
+// in registers, B K-major in shared memory, N64; tf32 takes no transpose
+// bits, so B must be K-major. Every operand must hold a valid tf32 bit
+// pattern (to_tf32): the low 13 bits zero.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as an f32 bit pattern with the low 13 bits zero: what cvt.rna.tf32.f32
+// gives for every finite x, in two integer operations (half of the
+// dropped bits' weight added to the magnitude, then the bits cleared)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// x = hi + lo to about 2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (x -
+// hi is exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
 }
 
 // --- accumulator layout ---

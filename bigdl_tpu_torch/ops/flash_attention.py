@@ -22,7 +22,11 @@ materialised. lse is (B, S, H) f32. Arithmetic matches the TPU kernel:
 f32 scores times ``scale``, the finite −1e9 causal mask (key position >
 query position, both counted from 0), P rounded to v's dtype before P·V
 and to dO's dtype before dv, dS rounded to k's dtype for dq and to q's
-dtype for dk; o/dq/dk/dv in the input dtype.
+dtype for dk; o/dq/dk/dv in the input dtype. The f32 dq and dk/dv past
+head dim 256 form their products on the tensor cores in 3xTF32 (each
+operand split into tf32 high and low parts, hi·lo + lo·hi + hi·hi summed
+in f32), which keeps about 22 of f32's 24 bits; they take a workspace for
+the parts (``_work``).
 
 ``fwd_launches``, ``dq_launches`` and ``dkdv_launches`` count kernel
 launches, so a run can show its main path went through the kernels.
@@ -67,9 +71,10 @@ def flash_supported(q, k) -> bool:
     :func:`padded_head_dim` (D 16 -> 32, 80 and 96 -> 128, 288 -> 320).
     Past D 256 the C entries route to D-sliced kernels: a CTA owns a
     slice of the output's columns (up to 256 in bf16, on the tensor
-    cores, forward and backward; 64 in f32) and sums the scores over all
-    of D in 64-column chunks (``flash_route``; csrc/flash_attention.cu's
-    header)."""
+    cores, forward and backward; in f32 64 for the CUDA-core forward and
+    up to 512 for dq and 256 for dk/dv, in 3xTF32 on the tensor cores)
+    and sums the scores over all of D (``flash_route``;
+    csrc/flash_attention.cu's header)."""
     return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] >= 1
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
             and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
@@ -79,33 +84,41 @@ def flash_supported(q, k) -> bool:
 def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
     """The kernel family the C entry of ``kernel`` ("fwd", "dq" or
     "dkdv") runs for ``dtype`` at head dim ``d``, as
-    ``BIGDL_FLASH_DISPATCH`` in csrc/flash_attention.cu picks it (by
-    dtype and head dim alone): ``"tc"`` (bf16 at D 32-256: ``wgmma``
-    with TMA tiles), ``"cuda_cores"`` (f32 at D 32-256), ``"sliced_tc"``
-    (bf16 past 256: ``flash_fwd_sliced_tc_kernel``,
-    ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``,
-    slices of up to 256 output columns on the tensor cores), ``"sliced"``
-    (f32 past 256: the D-sliced CUDA-core kernels, 64 columns a CTA);
-    None where no kernel takes the call. A head dim the kernels are not
-    built for reports the route of :func:`padded_head_dim`, the width it
-    runs at. The route does not depend on ``kernel``: all three share
-    it."""
+    ``BIGDL_FLASH_DISPATCH`` in csrc/flash_attention.cu picks it:
+    ``"tc"`` (bf16 at D 32-256: ``wgmma`` with TMA tiles),
+    ``"cuda_cores"`` (f32 at D 32-256), ``"sliced_tc"`` (bf16 past 256:
+    ``flash_fwd_sliced_tc_kernel``, ``flash_dq_sliced_tc_kernel`` and
+    ``flash_dkdv_sliced_tc_kernel``, slices of up to 256 output columns
+    on the tensor cores), and f32 past 256 by kernel: ``"sliced"`` for
+    the forward (the D-sliced CUDA-core kernel, 64 columns a CTA) and
+    ``"sliced_tf32"`` for dq and dk/dv (``flash_dq_sliced_tf32_kernel``
+    and ``flash_dkdv_sliced_tf32_kernel``: 3xTF32 on the tensor cores,
+    each product split into tf32 high and low parts, hi·hi + hi·lo +
+    lo·hi summed in f32); None where no kernel takes the call. A head dim
+    the kernels are not built for reports the route of
+    :func:`padded_head_dim`, the width it runs at."""
     if d < 1 or kernel not in ("fwd", "dq", "dkdv"):
         return None
     d = padded_head_dim(d)
     if d <= 256:
         return {torch.bfloat16: "tc", torch.float32: "cuda_cores"}.get(dtype)
-    return {torch.bfloat16: "sliced_tc", torch.float32: "sliced"}.get(dtype)
+    f32 = "sliced" if kernel == "fwd" else "sliced_tf32"
+    return {torch.bfloat16: "sliced_tc", torch.float32: f32}.get(dtype)
 
 
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
 
+def _wide(x):
+    """x in f32, or in float64 if it is: the plain versions' sums."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _scores(q, k, scale, causal, q_offset=0, kv_offset=0):
-    """(B, H, Sq, Skv) f32 scaled scores with the −1e9 causal mask
-    (positions counted from the offsets)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    """(B, H, Sq, Skv) f32 (float64 for float64 inputs) scaled scores
+    with the −1e9 causal mask (positions counted from the offsets)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) * scale
     if causal:
         qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
         kpos = kv_offset + torch.arange(k.shape[1], device=q.device)[None, :]
@@ -135,22 +148,23 @@ def flash_fwd_ref(q, k, v, scale, causal):
 def _probs_and_ds(q, k, v, do, lse, delta, scale, causal):
     s = _scores(q, k, scale, causal)
     p = torch.exp(s - _row(lse))
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", _wide(do), _wide(v))
     return p, p * (dp - _row(delta)) * scale
 
 
 def flash_dq_ref(q, k, v, do, lse, delta, scale, causal):
-    """Plain version of :func:`flash_dq`."""
+    """Plain version of :func:`flash_dq` (in float64 for float64
+    inputs, as :func:`flash_dkdv_ref`)."""
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", _wide(ds.to(k.dtype)), _wide(k))
     return dq.to(q.dtype)
 
 
 def flash_dkdv_ref(q, k, v, do, lse, delta, scale, causal):
     """Plain version of :func:`flash_dkdv`: (dk, dv)."""
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale, causal)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _wide(p.to(do.dtype)), _wide(do))
+    dk = torch.einsum("bhqk,bqhd->bkhd", _wide(ds.to(q.dtype)), _wide(q))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -183,14 +197,17 @@ def _kernel_fns():
 
 def bind(lib: ctypes.CDLL) -> dict:
     """The typed entries ``{"fwd", "dq", "dkdv"}`` of a library built from
-    csrc/flash_attention.cu."""
+    csrc/flash_attention.cu. dq and dk/dv take a last pointer, the f32
+    workspace of the route "sliced_tf32" (``_work``), after the stream."""
     dims = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                  ctypes.c_void_p]
     fns = {}
-    for name, n_ptr in (("fwd", 5), ("dq", 7), ("dkdv", 8)):
+    for name, n_ptr, work in (("fwd", 5, []), ("dq", 7, [ctypes.c_void_p]),
+                              ("dkdv", 8, [ctypes.c_void_p])):
         fn = getattr(lib, f"bigdl_flash_{name}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
+                       + work)
         fns[name] = fn
     return fns
 
@@ -223,14 +240,26 @@ def _check_cuda_bwd(q, k, v, do, lse, delta):
            "dO must match q; lse and delta must be (B, S, H) float32")
 
 
+def _work(name, q, k):
+    """The workspace of dq or dk/dv on the route "sliced_tf32": the tf32
+    high and low parts of the two operands the kernel walks (K and V for
+    dq, Q and dO for dk/dv), 4 floats an element of k or q; else None."""
+    if flash_route(q.dtype, q.shape[-1], name) != "sliced_tf32":
+        return None
+    x = k if name == "dq" else q
+    return torch.empty(4 * x.numel(), dtype=torch.float32, device=x.device)
+
+
 def _launch(name, q, k, ptrs, scale, causal):
     b, sq, h, d = q.shape
     fn = _kernel_fns()[name]
+    work = [] if name == "fwd" else [_work(name, q, k)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODES[q.dtype], *[x.data_ptr() for x in ptrs], b, h,
                  sq, k.shape[1], d, float(scale), int(bool(causal)),
-                 stream)
+                 stream, *[w.data_ptr() if w is not None else None
+                           for w in work])
     if err:
         raise RuntimeError(f"flash_{name} kernel launch failed (code {err})")
 

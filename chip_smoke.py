@@ -29,7 +29,8 @@ the full width of the flagship LM with weights made from a seed:
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
   its ``-m attention`` mode at head dims 128, 256, 96 (Phi-3-mini's,
   padded to 128) and 512 (the sliced tensor-core flash forward, dq and
-  dk/dv);
+  dk/dv), and at 512 in f32 (the CUDA-core sliced forward, the 3xTF32
+  dq and dk/dv);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
@@ -68,6 +69,7 @@ import torch
 _HBM_BYTES_PER_S = 3.35e12
 _BF16_FLOPS = 989e12
 _F32_FLOPS = 67e12          # CUDA-core f32 (the f32 kernels do f32 math)
+_TF32_FLOPS = 495e12        # tensor-core TF32 (3xTF32: 3 products a multiply)
 _FLUSH_BYTES = 256 << 20    # > 50 MB L2, and long enough to hide launches
 _DEV = "cuda"
 
@@ -276,6 +278,10 @@ _PERF_ATTENTION = (dict(batch=4, seq=4096, heads=8, head_dim=128),
                    dict(batch=4, seq=4096, heads=4, head_dim=256),
                    dict(batch=2, seq=2048, heads=32, head_dim=96),
                    dict(batch=4, seq=4096, heads=2, head_dim=512))
+# and its f32 run at D 512 (``--dataType f32``: the CUDA-core forward, the
+# 3xTF32 dq and dk/dv), the width the train mains' default f32 policy
+# takes past head dim 256
+_PERF_ATTENTION_F32 = _PERF_ATTENTION[-1]
 
 # the LRN kernels: norm1 and norm2 of Inception-v1 at batch 256 (the
 # path's rows, bf16, fused ReLU, size 5, alpha 1e-4, beta 0.75, k 1), the
@@ -374,6 +380,8 @@ def _print_ptxas(report: str) -> None:
                        r"_sliced_kernelI(\w+?)E", line)
         st = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
                        r"_sliced_tc_kernelILi(\d+)E", line)
+        tf = re.search(r"entry function '\S*?(flash_dq|flash_dkdv)"
+                       r"_sliced_tf32_kernelILi(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
@@ -409,6 +417,11 @@ def _print_ptxas(report: str) -> None:
         elif st:
             name = (f"{st.group(1)}_sliced_tc bf16 (tensor cores, D past "
                     f"256) OWN={st.group(2)}")
+        elif tf:
+            name = (f"{tf.group(1)}_sliced_tf32 f32 (3xTF32 on the tensor "
+                    f"cores, D past 256) OWN={tf.group(2)}")
+        elif "tf32_split_kernel" in line:
+            name = "tf32_split f32 (the 3xTF32 backward's pass before)"
         elif t:
             name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
         elif sl:
@@ -466,8 +479,11 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     instantiations of ``flash_fwd_sliced_tc_kernel``: slices of 3 and of
     4 chunks), the bf16 dq and dk/dv past D 256 (both instantiations of
     ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``),
-    all three fused-CE kernels and the five paged prefill kernels (D 32,
-    64, 128, 192, 256) have ``HGMMA``."""
+    the f32 (3xTF32) dq and dk/dv past D 256 (every instantiation of
+    ``flash_dq_sliced_tf32_kernel``: warpgroup chunks 2, 3, 4, and of
+    ``flash_dkdv_sliced_tf32_kernel``: 3, 4), all three fused-CE kernels
+    and the five paged prefill kernels (D 32, 64, 128, 192, 256) have
+    ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -482,10 +498,14 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
                 sl = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tc"
                                r"_kernelILi(\d+)E", line)
+                tf = re.search(r"(flash_dq|flash_dkdv)_sliced_tf32"
+                               r"_kernelILi(\d+)E", line)
                 p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
                         f"{sl.group(1)}_sliced_tc bf16 OWN={sl.group(2)}"
-                        if sl
+                        if sl else
+                        f"{tf.group(1)}_sliced_tf32 f32 OWN={tf.group(2)}"
+                        if tf
                         else
                         f"paged_prefill_tc bf16 D={p.group(1)}" if p else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
@@ -497,8 +517,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 for op in counts[name]:
                     counts[name][op] += bool(re.search(rf"\b{op}\.", line))
     print("[build] tensor-core instructions in the SASS of the bf16 flash, "
-          "fused-CE and paged prefill kernels: " + json.dumps(counts),
-          flush=True)
+          "f32 3xTF32 flash, fused-CE and paged prefill kernels: "
+          + json.dumps(counts), flush=True)
     bare = sorted(f"{k} bf16 D={d}" for k in ("flash_fwd", "flash_dq",
                                               "flash_dkdv")
                   for d in (32, 64, 128)
@@ -512,6 +532,10 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                              f"{k}_sliced_tc bf16 OWN={n}"
                              for k in ("flash_fwd", "flash_dq", "flash_dkdv")
                              for n in (3, 4)) + tuple(
+                             f"{k}_sliced_tf32 f32 OWN={n}"
+                             for k, owns in (("flash_dq", (2, 3, 4)),
+                                             ("flash_dkdv", (3, 4)))
+                             for n in owns) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
                              for d in (32, 64, 128, 192, 256))
              if not counts.get(k, {}).get("HGMMA")]
@@ -1601,21 +1625,62 @@ def _flash_flops(b, s, h, d, half_products):
     return 2 * d * half_products * (b * h * s * (s + 1) // 2)
 
 
-def _flash_bound(b, s, h, d, dtype, half_products):
-    """Least time for one flash kernel at (b, s, h, d), causal: each
-    input read once and each output written once over the memory rate,
-    vs the operations the causal half needs over the peak for the
-    dtype's arithmetic."""
-    flops = _flash_flops(b, s, h, d, half_products)
+def _flash_bytes_ms(b, s, h, d, dtype, half_products):
+    """Least time for one flash kernel's bytes at (b, s, h, d): each input
+    read once and each output written once over the memory rate."""
     elt = torch.finfo(dtype).bits // 8
     rows = b * s * h
     # fwd: q, k, v in, o and lse out; dq: q, k, v, dO, lse, delta in, dq
     # out; dkdv: the same in, dk and dv out
     tensors, row_arrays = {2: (4, 1), 3: (5, 2), 4: (6, 2)}[half_products]
     bytes_ = tensors * rows * d * elt + row_arrays * rows * 4
+    return bytes_ / _HBM_BYTES_PER_S * 1e3
+
+
+def _flash_bound(b, s, h, d, dtype, half_products):
+    """Least time for one flash kernel at (b, s, h, d), causal: its bytes
+    (``_flash_bytes_ms``) vs the operations the causal half needs over
+    the peak for the dtype's arithmetic."""
+    flops = _flash_flops(b, s, h, d, half_products)
     peak = _BF16_FLOPS if dtype == torch.bfloat16 else _F32_FLOPS
-    tb, tf = bytes_ / _HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    tb = _flash_bytes_ms(b, s, h, d, dtype, half_products)
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _tf32_bound(b, s, h, d, half_products):
+    """The 3xTF32 kernels' own bound (f32 dq and dk/dv past D 256): three
+    tensor-core TF32 products for each multiply of the f32 function, the
+    causal half's operations x 3 over the TF32 peak (or the bytes, where
+    they take longer)."""
+    tf = 3 * _flash_flops(b, s, h, d, half_products) / _TF32_FLOPS * 1e3
+    tb = _flash_bytes_ms(b, s, h, d, torch.float32, half_products)
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _flash_kernel_bound(fa, b, s, h, d, dtype, kernel, half_products):
+    """(bound ms, bound_by, other fields) of flash ``kernel`` ("fwd",
+    "dq", "dkdv") on its route: ``_flash_bound``, or for the 3xTF32 dq
+    and dk/dv (route "sliced_tf32", on the tensor cores) ``_tf32_bound``,
+    with the f32 CUDA-core bound beside it as
+    ``bound_f32_cuda_cores_ms``."""
+    route = fa.flash_route(dtype, d, kernel)
+    bound, by = _flash_bound(b, s, h, d, dtype, half_products)
+    if route != "sliced_tf32":
+        return bound, by, {}
+    return (*_tf32_bound(b, s, h, d, half_products),
+            {"bound_f32_cuda_cores_ms": bound})
+
+
+def _peak_mib(call):
+    """MiB the card's allocator holds at most during ``call`` beyond what
+    it held before (its outputs and any workspace)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
 def _worst(got, want, rtol, atol, rms_dims=None):
@@ -1664,19 +1729,33 @@ def _flash_entry_outputs(fa, q, k, v, do, causal):
             *torch.autograd.grad(o, (q, k, v), do))
 
 
+def _flash_bwd_refs(fa, q, k, v, do, lse, delta, scale, causal):
+    """dq, dk, dv of the plain versions, the f32 ones evaluated in float64
+    on the same inputs (lse and delta as given) and rounded to f32: in f32
+    their own sums (cuBLAS's FMA chain over D) stray from the exact
+    function past the f32 limits where dS = P∘(dP - delta) cancels
+    (PERF.md, Findings). bf16 keeps its rounding points, in f32."""
+    if q.dtype == torch.float32:
+        q, k, v, do, lse, delta = (x.double()
+                                   for x in (q, k, v, do, lse, delta))
+    got = (fa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),
+           *fa.flash_dkdv_ref(q, k, v, do, lse, delta, scale, causal))
+    return tuple(g.float() if g.dtype == torch.float64 else g for g in got)
+
+
 def _flash_outputs(fa, q, k, v, do, scale, causal, kernel):
     """o, lse, dq, dk, dv of the kernels (``kernel``) or their plain
-    versions at the true head dim, the backward from the plain forward's
-    lse and delta. At a head dim the kernels are not built for
+    versions at the true head dim (the backward's by
+    ``_flash_bwd_refs``), the backward from the plain forward's lse and
+    delta. At a head dim the kernels are not built for
     (``padded_head_dim``) the kernels' outputs are those of the entry
     (``_flash_entry_outputs``: padded by the entry, the backward from
     its own lse and o; ``scale`` must be the true D's)."""
     ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
     delta = (do.float() * ro.float()).sum(-1)
     if not kernel:
-        return (ro, rlse, fa.flash_dq_ref(q, k, v, do, rlse, delta, scale,
-                                          causal),
-                *fa.flash_dkdv_ref(q, k, v, do, rlse, delta, scale, causal))
+        return (ro, rlse, *_flash_bwd_refs(fa, q, k, v, do, rlse, delta,
+                                           scale, causal))
     if fa.padded_head_dim(q.shape[-1]) != q.shape[-1]:
         return _flash_entry_outputs(fa, q, k, v, do, causal)
     o, lse = fa.flash_fwd(q, k, v, scale, causal)
@@ -1714,7 +1793,11 @@ def _flash_tails(fa, gen):
     dq's query tiles paired where the causal grid fits one wave, and
     unpaired at B4 S1000 H8 D512; at S 300, 5 tiles, the middle one
     alone; their SASS is held to HGMMA by ``_check_tensor_cores``); f32
-    at 576 and 1024 too, on the CUDA-core ones. Head dims 16, 80, 96 and
+    at 576 and 1024 too: the CUDA-core forward and the 3xTF32 dq and
+    dk/dv, also at S 300 (five tiles, causal), at Sq 300 / Skv 136 (D 320
+    and 512, not causal), on the 512-CTA causal grid, where dq's slice
+    is 8 chunks wide, and at B2 S2048 H2 D1024 causal, where dS cancels
+    in the first row of each (b, h). Head dims 16, 80, 96 and
     288, both causal and not
     in each dtype, go through ``flash_attention_with_lse`` and autograd,
     which run the kernels zero-padded to 32, 128, 128 and 320
@@ -1753,14 +1836,26 @@ def _flash_tails(fa, gen):
               for d_ in (448, 640)
               for b_, sq_, skv_, c_ in ((2, 200, 200, True),
                                         (1, 130, 77, False))),
-            # a causal bf16 grid past one wave of the card (512 CTAs):
-            # the sliced forward's and dq's query tiles unpaired,
-            # heaviest first
-            (4, 1000, 1000, 8, 512, True, torch.bfloat16),
+            # a causal grid past one wave of the card (512 CTAs): the
+            # sliced bf16 forward's and dq's query tiles unpaired,
+            # heaviest first; the f32 dq's slices of up to 8 chunks
+            # (one at D 512: 4 a warpgroup)
+            *((4, 1000, 1000, 8, 512, True, t_)
+              for t_ in (torch.bfloat16, torch.float32)),
             # five 64-row tiles, paired: the middle tile alone (a
-            # forward or dq warpgroup with no rows)
-            *((2, 300, 300, 2, d_, True, torch.bfloat16)
-              for d_ in (384, 512, 1024)),
+            # forward or dq warpgroup with no rows); in f32 ragged
+            # tiles of 3xTF32 dq and dk/dv, causal
+            *((2, 300, 300, 2, d_, True, t_)
+              for d_ in (384, 512, 1024)
+              for t_ in (torch.bfloat16, torch.float32)),
+            # f32, ragged and Sq != Skv, not causal
+            *((1, 300, 136, 2, d_, False, torch.float32)
+              for d_ in (320, 512)),
+            # f32 3xTF32 dq and dk/dv at the widest head dim, causal,
+            # over 2048 rows: row 0 of each (b, h) sees key 0 alone, so
+            # dS = P∘(dP - delta) cancels there and dP's own error shows
+            # whole in dq's row 0 and dk's row 0
+            (2, 2048, 2048, 2, 1024, True, torch.float32),
             *((b_, sq_, skv_, 2, d_, c_, t_)
               for d_ in (16, 80, 96, 288)
               for b_, sq_, skv_, c_, t_ in (
@@ -1803,8 +1898,10 @@ def _sdpa_ms(qt, kt, vt, dot):
 
 def _flash_timed(fa, gen, b, s, h, d):
     """The three flash kernels vs their plain versions at (b, s, h, d),
-    causal, bf16 (tensor cores) and f32 (CUDA cores), each timed beside
-    its bound, its plain version and SDPA; rows by (kernel, dtype). At a
+    causal, bf16 (tensor cores) and f32 (CUDA cores; past D 256 dq and
+    dk/dv in 3xTF32 on the tensor cores), each timed beside its bound
+    (``_flash_kernel_bound``), its plain version and SDPA; rows by
+    (kernel, dtype). At a
     head dim the kernels run zero-padded, the errors are those of
     ``flash_attention_with_lse`` and autograd against the plain versions
     at the true head dim (``_flash_outputs``), and the kernels are
@@ -1853,13 +1950,14 @@ def _flash_timed(fa, gen, b, s, h, d):
                                     for x in (q, k, v)])
                   if width != d else None)
         for kname, (kern, plain, halves, lib, err) in kernels.items():
-            bound, by = _flash_bound(b, s, h, d, dtype, halves)
+            bound, by, more = _flash_kernel_bound(fa, b, s, h, d, dtype,
+                                                  kname[6:], halves)
             ms = _time_ms(kern)
             row = dict(kernel=fa.flash_route(dtype, d, kname[6:]),
                        max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
                        bound_ms=bound, bound_by=by, library_ms=lib,
                        tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
-                       share_of_bound=bound / ms)
+                       share_of_bound=bound / ms, **more)
             if refused:
                 row["library"] = refused
             if width != d:
@@ -1879,64 +1977,74 @@ def _flash_timed(fa, gen, b, s, h, d):
 
 
 def _flash_main_shape(fa, gen):
-    """The bf16 kernels past D 256 at ``[perf]``'s ``-m attention`` D 512
-    shape (``_PERF_ATTENTION``'s last: B4 S4096 H2, causal; past one wave
-    of the card, so query tiles unpaired, as the main path runs them): o
-    and lse held against ``flash_fwd_ref``, dq against ``flash_dq_ref``
-    and dk, dv against ``flash_dkdv_ref`` (from the plain forward's lse
-    and delta) within ``_FLASH_TOL``, then each timed
-    beside its bound, its plain version and SDPA's forward or whole
-    backward. The ``{"kernels"}`` line's D 512 rows, by kernel name."""
+    """The kernels past D 256 at ``[perf]``'s ``-m attention`` D 512 shape
+    (``_PERF_ATTENTION``'s last: B4 S4096 H2, causal; past one wave of
+    the card, so query tiles unpaired, as the main path runs them), in
+    bf16 (the sliced tensor-core kernels) and f32 (the CUDA-core forward,
+    the 3xTF32 dq and dk/dv): o and lse held against ``flash_fwd_ref``,
+    dq against ``flash_dq_ref`` and dk, dv against ``flash_dkdv_ref``
+    (from the plain forward's lse and delta) within ``_FLASH_TOL``, then
+    each timed beside its bound (``_flash_kernel_bound``), its plain
+    version and SDPA's forward or whole backward, with the memory it
+    allocates (``_peak_mib``: outputs, and the 3xTF32 kernels'
+    workspace). The ``{"kernels"}`` line's D 512 rows, by (kernel name,
+    dtype)."""
     a = _PERF_ATTENTION[-1]
     b, s, h, d = a["batch"], a["seq"], a["heads"], a["head_dim"]
     scale = d ** -0.5
-    q, k, v, do = (torch.randn((b, s, h, d), generator=gen)
-                   .to(torch.bfloat16).to(_DEV) for _ in range(4))
-    got = _flash_outputs(fa, q, k, v, do, scale, True, True)
-    torch.cuda.synchronize()
-    want = _flash_outputs(fa, q, k, v, do, scale, True, False)
-    label = f"B={b} S={s} H={h} D={d} causal bfloat16"
-    errs, worst = _flash_compare(got, want, f"{label} (main shape)")
-    rlse = want[1]
-    delta = (do.float() * want[0].float()).sum(-1)
-    del got, want
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    lib_fwd, lib_bwd, refused = _sdpa_ms(qt, kt, vt, dot)
-    del qt, kt, vt, dot
-    kernels = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
-                      lambda: fa.flash_fwd_ref(q, k, v, scale, True),
-                      2, lib_fwd, max(errs["o"], errs["lse"])),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, rlse, delta, scale,
-                                         True),
-                     lambda: fa.flash_dq_ref(q, k, v, do, rlse, delta,
-                                             scale, True),
-                     3, lib_bwd, errs["dq"]),
-        "flash_dkdv": (lambda: fa.flash_dkdv(q, k, v, do, rlse, delta,
-                                             scale, True),
-                       lambda: fa.flash_dkdv_ref(q, k, v, do, rlse, delta,
-                                                 scale, True),
-                       4, lib_bwd, max(errs["dk"], errs["dv"])),
-    }
     rows = {}
-    for kname, (kern, plain, halves, lib, err) in kernels.items():
-        bound, by = _flash_bound(b, s, h, d, torch.bfloat16, halves)
-        ms = _time_ms(kern)
-        rows[kname] = dict(
-            kernel=fa.flash_route(torch.bfloat16, d, kname[6:]),
-            max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
-            bound_ms=bound, bound_by=by, library_ms=lib,
-            tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
-            share_of_bound=bound / ms)
-        if refused:
-            rows[kname]["library"] = refused
-        print(f"[kernels] {kname}[bfloat16] {label} (the main path's "
-              f"shape) " + json.dumps(rows[kname]), flush=True)
-    print(f"[kernels] flash {label} (the main path's shape) max abs errs "
-          + json.dumps(errs) + " worst error / limit " + json.dumps(worst),
-          flush=True)
-    del q, k, v, do
-    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen)
+                       .to(dtype).to(_DEV) for _ in range(4))
+        got = _flash_outputs(fa, q, k, v, do, scale, True, True)
+        torch.cuda.synchronize()
+        want = _flash_outputs(fa, q, k, v, do, scale, True, False)
+        label = f"B={b} S={s} H={h} D={d} causal {name}"
+        errs, worst = _flash_compare(got, want, f"{label} (main shape)")
+        rlse = want[1]
+        delta = (do.float() * want[0].float()).sum(-1)
+        del got, want
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        lib_fwd, lib_bwd, refused = _sdpa_ms(qt, kt, vt, dot)
+        del qt, kt, vt, dot
+        kernels = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, True),
+                          lambda: fa.flash_fwd_ref(q, k, v, scale, True),
+                          2, lib_fwd, max(errs["o"], errs["lse"])),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, rlse, delta,
+                                             scale, True),
+                         lambda: fa.flash_dq_ref(q, k, v, do, rlse, delta,
+                                                 scale, True),
+                         3, lib_bwd, errs["dq"]),
+            "flash_dkdv": (lambda: fa.flash_dkdv(q, k, v, do, rlse, delta,
+                                                 scale, True),
+                           lambda: fa.flash_dkdv_ref(q, k, v, do, rlse,
+                                                     delta, scale, True),
+                           4, lib_bwd, max(errs["dk"], errs["dv"])),
+        }
+        for kname, (kern, plain, halves, lib, err) in kernels.items():
+            bound, by, more = _flash_kernel_bound(fa, b, s, h, d, dtype,
+                                                  kname[6:], halves)
+            ms = _time_ms(kern)
+            row = dict(
+                kernel=fa.flash_route(dtype, d, kname[6:]),
+                max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
+                bound_ms=bound, bound_by=by, library_ms=lib,
+                tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
+                share_of_bound=bound / ms, peak_mib=_peak_mib(kern),
+                **more)
+            if refused:
+                row["library"] = refused
+            rows[(kname, dtype)] = row
+            print(f"[kernels] {kname}[{name}] {label} (the main path's "
+                  f"shape) " + json.dumps(row), flush=True)
+        print(f"[kernels] flash {label} (the main path's shape) max abs "
+              f"errs " + json.dumps(errs) + " worst error / limit "
+              + json.dumps(worst), flush=True)
+        del q, k, v, do
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1966,12 +2074,13 @@ def phase_flash(fa, gen):
     """The three flash kernels vs their plain versions on ragged tails
     and in bf16 at ``_FLASH_NARROW``, then timed at the training shapes
     (B4 S2048 H8 D128, causal), at head dim 256 (B4 S2048 H4 D256) and at
-    512 (B2 S2048 H2, the D-sliced kernels), bf16 (tensor cores up to D
-    256) and f32 (CUDA cores); SDPA as the library yardstick. Each row
-    also gives the kernel's rate over the causal half's operations and
-    its share of the bound (bound_ms / ms). Rows by (kernel, dtype, head
-    dim); under "main_shape" the bf16 kernels past D 256 held and timed
-    at ``-m attention``'s B4 S4096 H2 D512 as well (at B2 S2048 the
+    512 (B2 S2048 H2, the D-sliced kernels), bf16 (tensor cores) and f32
+    (CUDA cores, but the 3xTF32 dq and dk/dv past D 256); SDPA as the
+    library yardstick. Each row also gives the kernel's rate over the
+    causal half's operations and its share of the bound (bound_ms / ms).
+    Rows by (kernel, dtype, head dim); under "main_shape" the kernels
+    past D 256, both dtypes, held and timed at ``-m attention``'s B4
+    S4096 H2 D512 as well (at B2 S2048 the
     forward's and dq's causal grids fit one wave of SMs and pair their
     query tiles; at B4 S4096 they do not). Then at the padded head dims of
     ``_FLASH_PADDED``: the kernels on zero-padded operands, the rest at
@@ -2480,10 +2589,11 @@ def _perf_fused(fce, card):
 def phase_perf(fce, fa):
     """The throughput harness: the fused transformer step (``_perf_fused``),
     the unfused step's peak memory against the fused one's, and the
-    attention mode at each of ``_PERF_ATTENTION``'s head dims, the flash
-    counters set to 0 just before each run and read just after (1 warm-up
-    and 3 timed fwd+bwd: 4 launches of each kernel). Returns the fused-CE
-    launches and the flash launches by head dim."""
+    attention mode at each of ``_PERF_ATTENTION``'s head dims in bf16 and
+    at ``_PERF_ATTENTION_F32`` in f32, the flash counters set to 0 just
+    before each run and read just after (1 warm-up and 3 timed fwd+bwd: 4
+    launches of each kernel). Returns the fused-CE launches and the flash
+    launches by (head dim, "bf16" or "f32")."""
     from bigdl_tpu_torch.models.utils import perf
     card = _card()
     launches, fused = _perf_fused(fce, card)
@@ -2505,20 +2615,22 @@ def phase_perf(fce, fa):
     del off
     torch.cuda.empty_cache()
     flash = {}
-    for a in _PERF_ATTENTION:
+    for a, dt in (*((a, "bf16") for a in _PERF_ATTENTION),
+                  (_PERF_ATTENTION_F32, "f32")):
         fa.fwd_launches = fa.dq_launches = fa.dkdv_launches = 0
         att = perf.main(["-m", "attention", "-b", str(a["batch"]),
                          "--seqLen", str(a["seq"]), "--heads",
                          str(a["heads"]), "--headDim", str(a["head_dim"]),
-                         "--warmUp", "1", "-i", "3", "--device", _DEV])
+                         "--dataType", dt, "--warmUp", "1", "-i", "3",
+                         "--device", _DEV])
         counts = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
                   "dkdv": fa.dkdv_launches}
         if att["flash"] is None or counts != dict.fromkeys(counts, 4):
-            raise AssertionError(f"perf -m attention at head dim "
+            raise AssertionError(f"perf -m attention {dt} at head dim "
                                  f"{a['head_dim']}: the flash path failed "
                                  f"or launched {counts}, not 4 of each")
-        flash[a["head_dim"]] = counts
-        print(f"[perf] card='{card}' attention " + json.dumps(a) + " bf16 "
+        flash[(a["head_dim"], dt)] = counts
+        print(f"[perf] card='{card}' attention " + json.dumps(a) + f" {dt} "
               f"causal, fwd+bwd ms per iteration: " + json.dumps(att)
               + f" flash_launches={counts}", flush=True)
         torch.cuda.empty_cache()
@@ -2961,14 +3073,14 @@ def main(argv=None) -> int:
     # -m attention at that shape
     for d, counts, suffix in ((128, flash_launches, ""),
                               (256, wide_launches, "_d256"),
-                              (512, perf_flash[512], "_d512"),
+                              (512, perf_flash[(512, "bf16")], "_d512"),
                               (16, narrow_launches, "_d16"),
-                              (96, perf_flash[96], "_d96")):
+                              (96, perf_flash[(96, "bf16")], "_d96")):
         for name, line, count in (("flash_fwd", 190, "fwd"),
                                   ("flash_dq", 306, "dq"),
                                   ("flash_dkdv", 322, "dkdv")):
-            row = (flash_rows["main_shape"][name] if d == 512
-                   else flash_rows[(name, torch.bfloat16, d)])
+            row = (flash_rows["main_shape"][(name, torch.bfloat16)]
+                   if d == 512 else flash_rows[(name, torch.bfloat16, d)])
             # past D 256 the bf16 kernels are the sliced tensor-core ones
             kname = (name + "_sliced_tc" if fa.flash_route(
                 torch.bfloat16, d, count) == "sliced_tc" else name)
@@ -2979,6 +3091,23 @@ def main(argv=None) -> int:
                             f"{line}",
                 "launches": counts[count],
                 **{k: row[k] for k in keys}})
+    # the f32 rows at D 512, timed at B4 S4096 H2 (``_flash_main_shape``),
+    # their launches those of [perf]'s -m attention --dataType f32 there:
+    # the CUDA-core sliced forward, and the 3xTF32 dq and dk/dv (bound_ms
+    # theirs on the tensor cores, the f32 CUDA-core one beside it)
+    counts = perf_flash[(512, "f32")]
+    for name, line, count in (("flash_fwd", 190, "fwd"),
+                              ("flash_dq", 306, "dq"),
+                              ("flash_dkdv", 322, "dkdv")):
+        row = flash_rows["main_shape"][(name, torch.float32)]
+        suffix = {"sliced": "_sliced_f32", "sliced_tf32": "_sliced_tf32"}
+        kernels.append({
+            "name": name + suffix[row["kernel"]] + "_d512", "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": counts[count], **{k: row[k] for k in keys},
+            **({"bound_f32_cuda_cores_ms": row["bound_f32_cuda_cores_ms"]}
+               if "bound_f32_cuda_cores_ms" in row else {})})
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash kernels past head dim 256 with one design choice
-undone at a time, in turns, on one NVIDIA card.
+"""Time the flash kernels past head dim 256 with one design choice
+undone at a time, in turns, on one NVIDIA card: the bf16 ones, or
+(``--only tf32``) the f32 3xTF32 dq and dk/dv.
 
 Builds ``bigdl_tpu_torch/csrc/flash_attention.cu`` as it is and copies
 of it with one exact text replacement each (``VARIANTS``: the forward's
@@ -15,15 +16,26 @@ card's 132 SMs (B2 S2048 H2 is ``chip_smoke``'s paired-mode row, B4
 S4096 H2 ``perf -m attention``'s main-path shape), and D 384 and 576,
 where slices are 3 chunks wide and Q is resident in the forward (and in
 dq at D 384). dk/dv has no such choices left: the variants that paired
-its key tiles or kept K and V resident measured no faster, and went. One
-line per shape, version and kernel with both readings, their mean and
-the ratio of means to this checkout's kernel; last, the card's name and
+its key tiles or kept K and V resident measured no faster, and went.
+``--only tf32`` instead runs ``TF32_VARIANTS`` in f32 at ``TF32_SHAPES``
+(B2 S2048 and B4 S4096 H2 D512, B2 S2048 H2 and H4 D1024): S's sums or
+the output products' chained across steps (no fresh sums), S's steps
+summed afresh every 4 or every K step (not every 2), S's high products
+first, cvt.rna.tf32.f32 for the rounding; dP formed as S is (the first
+design), with tf32 splits, without lo·lo, or with hi·hi in the low
+products' sum; the walked operands split inside the kernel (no split
+pass, no workspace); and dq's and dk/dv's slice widths. The variants
+that show the error a choice keeps off are held to nothing. One line
+per shape, version and kernel with both readings, their mean and the
+ratio of means to this checkout's kernel; last, the card's name and
 power limit. ``--only fwd`` or ``--only bwd`` builds and times one
-side's variants alone. It exits 1 if a replacement's text is not in the
-source (the line says which; an edit of those lines must update it) or
-if any output is non-finite or past its limit, after every reading.
+side's bf16 variants alone. It exits 1 if a replacement's text is not in
+the source (the line says which; an edit of those lines must update it)
+or if any output of a variant held to the limits is non-finite or past
+them, after every reading.
 
-    python3 scripts/flash_sliced_knockout.py [--only fwd|bwd] [--seed N]
+    python3 scripts/flash_sliced_knockout.py [--only fwd|bwd|tf32]
+        [--seed N]
 """
 from __future__ import annotations
 
@@ -124,12 +136,291 @@ VARIANTS = {
 SHAPES = ((2, 2048, 2, 512), (2, 4096, 2, 512), (3, 4096, 2, 512),
           (4, 4096, 2, 512), (2, 2048, 2, 384), (2, 2048, 2, 576))
 
+_HOPPER = (ROOT / "bigdl_tpu_torch/csrc/hopper.cuh").read_text()
+_INT_ROUND = "  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;"
+_CVT_ROUND = ("  uint32_t y;\n"
+              "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(y) "
+              ": \"f\"(x));\n  return y;")
+# split_in_kernel's splitter: a warpgroup's walked B box (raw f32 [64][32]
+# in the 128-byte swizzle) into its tf32 parts, in place (hi) and at lo,
+# 16 columns a thread, then a barrier of the warpgroup's own
+_SPLIT_BOX = """__device__ __forceinline__ void tf_split_box(uint32_t b,
+                                             uint32_t lo) {
+  const int i = threadIdx.x % 128, r = i / 2;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t at = tf_at(r, 16 * (i % 2) + j);
+    uint32_t h, w;
+    split_tf32(ld_shared(b + at), h, w);
+    st_shared(b + at, __uint_as_float(h));
+    st_shared(lo + at, __uint_as_float(w));
+  }
+  fence_proxy_async();
+  named_sync(5 + threadIdx.x / 128, 128);
+}
 
-def _variant_sources(text: str) -> tuple[dict, list]:
+"""
+# dp_grid's functions: the group-grid split, tf_dp_step (dP's score step)
+# and the split pass's grid kernel
+_DP_GRID = """\
+// The constant c with which (x + c) - c rounds x to nearest on the grid
+// 2^(e - 10) of a group whose largest magnitude is amax < 2^e (amax's
+// biased exponent E: e = E - 126; c = 1.5 · 2^23 · 2^(e - 10))
+__device__ __forceinline__ float tf32_grid(float amax) {
+  return __uint_as_float((((__float_as_uint(amax) >> 23) + 14u) << 23) |
+                         0x400000u);
+}
+// x = hi + lo on a group's grid (tf32_grid's c): hi a multiple of 2^(e -
+// 10) of at most 11 bits (a valid tf32), lo = tf32(x - hi) (x - hi is
+// exact in f32). Two such hi parts multiply to a multiple of 2^(ea + eb
+// - 20) below 2^(ea + eb): every product of two groups sits on one grid
+// 20 bits below the largest a product of them can be.
+__device__ __forceinline__ void split_tf32_grid(float x, float c,
+                                                uint32_t& hi, uint32_t& lo) {
+  const float h = __fsub_rn(__fadd_rn(x, c), c);
+  hi = __float_as_uint(h);
+  lo = to_tf32(x - h);
+}
+
+// One score step of the second score product (dP = dO·Vᵀ; dPᵀ = V·dOᵀ),
+// whose sums dS = P∘(dP - delta) cancels, as tf_score_step but exact up
+// to the f32 additions: A and B split on the grid of each row's group of
+// 8 columns (split_tf32_grid; B's parts written so by the split pass),
+// so the tensor cores add the hi·hi products of a K step of 8 without
+// dropping a bit (they keep 20 bits below the largest term, the width
+// of that grid) when nothing else is in the sum. Per K step: hi·lo,
+// lo·hi and lo·lo in a fresh accumulator, added to s in f32; then hi·hi
+// alone, added to s in f32.
+__device__ __forceinline__ void tf_dp_step(float (&s)[32], uint32_t a_t,
+                                           uint32_t b_t, uint32_t blo,
+                                           bool first) {
+  const int i = threadIdx.x % 128, l = i % 32;
+  const int r0 = 16 * (i / 32) + l / 4, t = l % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = ld_shared(a_t + tf_at(r0 + 8 * (e & 1), 8 * kk + t +
+                                                         4 * (e >> 1)));
+    // rows r0 and r0 + 8: their 8 columns lie in the lane quad
+    const float c[2] = {
+        tf32_grid(quad_max(fmaxf(fabsf(x[0]), fabsf(x[2])))),
+        tf32_grid(quad_max(fmaxf(fabsf(x[1]), fabsf(x[3]))))};
+    uint32_t ah[1][4], al[1][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_tf32_grid(x[e], c[e & 1], ah[0][e], al[0][e]);
+    const uint32_t k = 32 * kk;
+    float d[32];
+    wg_fence();
+    wgmma_tf32_rs_n64(d, ah[0], desc(blo + k), 0);
+    wgmma_tf32_rs_n64(d, al[0], desc(b_t + k), 1);
+    wgmma_tf32_rs_n64(d, al[0], desc(blo + k), 1);
+    wg_commit();
+    wg_wait();
+    keep(d);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = first && kk == 0 ? d[e] : s[e] + d[e];
+    wg_fence();
+    wgmma_tf32_rs_n64(d, ah[0], desc(b_t + k), 0);
+    wg_commit();
+    wg_wait();
+    keep(d);
+    keep(ah);
+    keep(al);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] += d[e];
+  }
+}
+
+__global__ void __launch_bounds__(256)
+tf32_split_grid_kernel(const float4* __restrict__ x, float4* __restrict__ hi,
+                       float4* __restrict__ lo, int64_t n4) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n4 / 2; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float4 u = x[2 * i], w = x[2 * i + 1];
+    const float v[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+    const float c = tf32_grid(amax);
+    uint32_t hh[8], r[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) split_tf32_grid(v[j], c, hh[j], r[j]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      hi[2 * i + j] = make_float4(
+          __uint_as_float(hh[4 * j]), __uint_as_float(hh[4 * j + 1]),
+          __uint_as_float(hh[4 * j + 2]), __uint_as_float(hh[4 * j + 3]));
+      lo[2 * i + j] = make_float4(
+          __uint_as_float(r[4 * j]), __uint_as_float(r[4 * j + 1]),
+          __uint_as_float(r[4 * j + 2]), __uint_as_float(r[4 * j + 3]));
+    }
+  }
+}
+
+"""
+# dp_grid's call of tf_dp_step for warpgroup 1, in the kernel whose text
+# goes on with `then`
+_DP_CALL = (
+    """        tf_score_step(s, st + 2 * G * kTfBox, st + (2 * G + 1) * kTfBox,
+                      st + (4 + G) * kTfBox, c == 0);
+{then}""",
+    """        if constexpr (G == 0)
+          tf_score_step(s, st, st + kTfBox, st + 4 * kTfBox, c == 0);
+        else
+          tf_dp_step(s, st + 2 * kTfBox, st + 3 * kTfBox, st + 5 * kTfBox,
+                     c == 0);
+{then}""")
+
+
+def _dp_call(then):
+    """dp_grid's replacement at the score step of the kernel whose text
+    goes on with ``then``."""
+    return tuple(x.format(then=then) for x in _DP_CALL)
+
+
+#: the f32 dq and dk/dv past D 256 (``--only tf32``), as ``VARIANTS``;
+#: the fourth field, True, marks a variant held to no limit (its error
+#: is the reading)
+TF32_VARIANTS = {
+    "chained_score": (
+        ("dq", "dkdv"),
+        "the score products summed in one tensor-core chain over all of D "
+        "(no fresh sum every 2 K steps)",
+        [("    float acc[32];\n    wg_fence();",
+          "    float (&acc)[32] = s;\n    wg_fence();"),
+         ("      wgmma_tf32_rs_n64(acc, ah[kk], desc(blo + k), kk > 0);",
+          "      wgmma_tf32_rs_n64(acc, ah[kk], desc(blo + k), "
+          "!first || k0 > 0 || kk > 0);"),
+         ("#pragma unroll\n    for (int e = 0; e < 32; ++e)\n"
+          "      s[e] = first && k0 == 0 ? acc[e] : s[e] + acc[e];", "")],
+        True),
+    "chained_out": (
+        ("dq", "dkdv"),
+        "the output products summed in one tensor-core chain over the "
+        "walked tiles (no fresh sum every 4 K steps)",
+        [("  for (int half = 0; half < 2; ++half) {\n    float d[32];",
+          "  for (int half = 0; half < 2; ++half) {\n"
+          "    float (&d)[32] = acc;"),
+         ("      wgmma_tf32_rs_n64(d, ah[kk], desc(blo + k), kk > 0);",
+          "      wgmma_tf32_rs_n64(d, ah[kk], desc(blo + k), 1);"),
+         ("#pragma unroll\n    for (int e = 0; e < 32; ++e) acc[e] += d[e];"
+          "\n  }\n}", "  }\n}")], True),
+    "score_ks4": (
+        ("dq", "dkdv"),
+        "each score step's 4 K steps in one fresh sum (not 2 + 2)",
+        [("constexpr int kTfScoreKs = 2;", "constexpr int kTfScoreKs = 4;")],
+        True),
+    "score_ks1": (
+        ("dq", "dkdv"),
+        "a fresh sum for every K step of a score step (4, not 2 + 2)",
+        [("constexpr int kTfScoreKs = 2;", "constexpr int kTfScoreKs = 1;")]),
+    "hi_first": (
+        ("dq", "dkdv"),
+        "each fresh score sum's hi·hi products before its low terms",
+        [("""#pragma unroll
+    for (int kk = 0; kk < kTfScoreKs; ++kk) {
+      const uint32_t k = 32 * (k0 + kk);
+      wgmma_tf32_rs_n64(acc, ah[kk], desc(blo + k), kk > 0);
+      wgmma_tf32_rs_n64(acc, al[kk], desc(b_t + k), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTfScoreKs; ++kk)
+      wgmma_tf32_rs_n64(acc, ah[kk], desc(b_t + 32 * (k0 + kk)), 1);""",
+          """#pragma unroll
+    for (int kk = 0; kk < kTfScoreKs; ++kk)
+      wgmma_tf32_rs_n64(acc, ah[kk], desc(b_t + 32 * (k0 + kk)), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kTfScoreKs; ++kk) {
+      const uint32_t k = 32 * (k0 + kk);
+      wgmma_tf32_rs_n64(acc, ah[kk], desc(blo + k), 1);
+      wgmma_tf32_rs_n64(acc, al[kk], desc(b_t + k), 1);
+    }""")], True),
+    "cvt_round": (
+        ("dq", "dkdv"),
+        "the tf32 rounding by cvt.rna.tf32.f32 (the header inlined with it)",
+        [('#include "hopper.cuh"',
+          _HOPPER.replace(_INT_ROUND, _CVT_ROUND)
+          .replace("#pragma once", ""))]),
+    "dp_grid": (
+        ("dq", "dkdv"),
+        "dP (dPᵀ) exact in each tensor-core K step: its operands split on "
+        "the grid of each row's group of 8 columns (hi·hi products on one "
+        "grid), per K step the low products and hi·hi in fresh sums of "
+        "their own, each added in f32 (four TF32 products, two waits)",
+        [("// s (a 64 x 64 accumulator: rows this CTA's, columns the walked "
+          "tile's) as\n",
+          _DP_GRID + "// s (a 64 x 64 accumulator: rows this CTA's, "
+          "columns the walked tile's) as\n"),
+         _dp_call("""        ring.release();
+      }
+      if constexpr (G == 0) {"""),
+         _dp_call("""        ring.release();
+      }
+      warp_wait(sfull, sph);"""),
+         ("    tf32_split_kernel<<<blocks, 256, 0, st>>>(",
+          "    (j ? tf32_split_grid_kernel : tf32_split_kernel)"
+          "<<<blocks, 256, 0, st>>>(")]),
+    "split_in_kernel": (
+        ("dq", "dkdv"),
+        "no split pass and no workspace: TMA brings the walked B boxes "
+        "raw, and each consumer warpgroup splits its box in shared "
+        "memory before its score step",
+        [("// One score step: s (+)= A·Bᵀ over 32 columns",
+          _SPLIT_BOX + "// One score step: s (+)= A·Bᵀ over 32 columns"),
+         ("  const int r0 = 16 * (i / 32) + l / 4, t = l % 4;\n"
+          "#pragma unroll\n"
+          "  for (int k0 = 0; k0 < 4; k0 += kTfScoreKs) {",
+          "  const int r0 = 16 * (i / 32) + l / 4, t = l % 4;\n"
+          "  tf_split_box(b_t, blo);\n#pragma unroll\n"
+          "  for (int k0 = 0; k0 < 4; k0 += kTfScoreKs) {"),
+         ("  tma_load(dst + 4 * kTfBox, b0l, bar, 32 * c, h, w0, b);\n"
+          "  tma_load(dst + 5 * kTfBox, b1l, bar, 32 * c, h, w0, b);\n",
+          ""),
+         ("ring.acquire(t, kTfStage), ring.full(), c, h, q0,",
+          "ring.acquire(t, 4 * kTfBox), ring.full(), c, h, q0,"),
+         ("ring.acquire(t, kTfStage), ring.full(), c, h, k0,",
+          "ring.acquire(t, 4 * kTfBox), ring.full(), c, h, k0,"),
+         ("  if (int e = tf_split(p, k, v, work, B, Skv, H, D, st)) "
+          "return e;",
+          "  if (int e = make_map(&p[0], k, B, Skv, H, D, 64, true)) "
+          "return e;\n"
+          "  if (int e = make_map(&p[2], v, B, Skv, H, D, 64, true)) "
+          "return e;\n  p[1] = p[0];\n  p[3] = p[2];"),
+         ("  if (int e = tf_split(p, q, dout, work, B, Sq, H, D, st)) "
+          "return e;",
+          "  if (int e = make_map(&p[0], q, B, Sq, H, D, 64, true)) "
+          "return e;\n"
+          "  if (int e = make_map(&p[2], dout, B, Sq, H, D, 64, true)) "
+          "return e;\n  p[1] = p[0];\n  p[3] = p[2];")]),
+    "dq_slices8": (
+        ("dq",),
+        "dq: slices of up to 8 chunks whatever the grid (one at D 512)",
+        [("  if (rows * fewest <= sms) {", "  if (false) {")]),
+    "dq_slices6": (
+        ("dq",),
+        "dq: slices of up to 6 chunks whatever the grid (two at D 512)",
+        [("  if (rows * fewest <= sms) {", "  if (true) {")]),
+    "dkdv_own3": (
+        ("dkdv",),
+        "dk/dv: slices of 3 chunks (3 + 3 + 2 at D 512)",
+        [("  return sl_own(D / 64) == 3\n             ? "
+          "dkdv_sliced_tf32_own<3>(",
+          "  return true\n             ? dkdv_sliced_tf32_own<3>(")]),
+}
+TF32_SHAPES = ((2, 2048, 2, 512), (4, 4096, 2, 512), (2, 2048, 2, 1024),
+               (2, 2048, 4, 1024))
+
+
+def _variant_sources(text: str, variants: dict) -> tuple[dict, list]:
     """This checkout's source and each variant's; the replacements whose
     text is not found."""
     out, missing = {"this": text}, []
-    for name, (_, _, edits) in VARIANTS.items():
+    for name, (_, _, edits, *_) in variants.items():
         src = text
         for old, new in edits:
             if src.count(old) != 1:
@@ -141,19 +432,22 @@ def _variant_sources(text: str) -> tuple[dict, list]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("fwd", "bwd"),
-                    help="the forward's variants, or the backward's")
+    ap.add_argument("--only", choices=("fwd", "bwd", "tf32"),
+                    help="the bf16 forward's variants, the bf16 "
+                    "backward's, or the f32 3xTF32 backward's")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_sliced_knockout: CUDA is not available",
               file=sys.stderr)
         return 2
-    chosen_variants = {
+    tf32 = args.only == "tf32"
+    chosen_variants = TF32_VARIANTS if tf32 else {
         name: v for name, v in VARIANTS.items()
         if args.only is None or (v[0] == ("fwd",)) == (args.only == "fwd")}
     sources, past = _variant_sources(
-        (ROOT / "bigdl_tpu_torch/csrc/flash_attention.cu").read_text())
+        (ROOT / "bigdl_tpu_torch/csrc/flash_attention.cu").read_text(),
+        chosen_variants)
     sources = {k: v for k, v in sources.items()
                if k == "this" or k in chosen_variants}
     if past:
@@ -162,8 +456,9 @@ def main(argv=None) -> int:
     kernels = {name: v[0] for name, v in chosen_variants.items()}
     kernels["this"] = tuple(k for k in ("fwd", "dq", "dkdv")
                             if any(k in ks for ks in kernels.values()))
-    for name, (_, what, _) in chosen_variants.items():
+    for name, (_, what, *_) in chosen_variants.items():
         print(f"[knockout] {name}: {what}", flush=True)
+    unheld = {name for name, v in chosen_variants.items() if v[3:]}
     card = chip_smoke._card()
     chosen = fa._kernel_fns
     gen = torch.Generator().manual_seed(args.seed)
@@ -175,8 +470,10 @@ def main(argv=None) -> int:
                 sources.items())))
         chip_smoke._warm_card()
         try:
-            for shape in SHAPES:
-                past += _shape(fns, kernels, gen, *shape, card)
+            for shape in TF32_SHAPES if tf32 else SHAPES:
+                past += _shape(fns, kernels, gen, *shape, card,
+                               torch.float32 if tf32 else torch.bfloat16,
+                               unheld)
         finally:
             fa._kernel_fns = chosen
     if past:
@@ -185,13 +482,15 @@ def main(argv=None) -> int:
     return 1 if past else 0
 
 
-def _shape(fns, kernels, gen, b, s, h, d, card):
-    """Every version at one shape: the kernels it changes checked, then
-    timed in turns; returns the outputs that are non-finite or past
-    their limit."""
+def _shape(fns, kernels, gen, b, s, h, d, card, dtype, unheld):
+    """Every version at one shape in ``dtype``: the kernels it changes
+    checked, then timed in turns; returns the outputs that are
+    non-finite or past their limit (of the versions not in
+    ``unheld``)."""
     scale = d ** -0.5
+    name = str(dtype)[6:]
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen)
-                   .to(torch.bfloat16).to(chip_smoke._DEV)
+                   .to(dtype).to(chip_smoke._DEV)
                    for _ in range(4))
     ro, rlse = fa.flash_fwd_ref(q, k, v, scale, True)
     delta = (do.float() * ro.float()).sum(-1)
@@ -205,12 +504,11 @@ def _shape(fns, kernels, gen, b, s, h, d, card):
     refs = {}
     if "fwd" in wanted:
         refs["fwd"] = (("o", ro), ("lse", rlse))
-    if "dq" in wanted:
-        refs["dq"] = (("dq", fa.flash_dq_ref(q, k, v, do, rlse, delta,
-                                             scale, True)),)
-    if "dkdv" in wanted:
-        refs["dkdv"] = tuple(zip(("dk", "dv"), fa.flash_dkdv_ref(
-            q, k, v, do, rlse, delta, scale, True)))
+    if wanted & {"dq", "dkdv"}:
+        dq, dk, dv = chip_smoke._flash_bwd_refs(fa, q, k, v, do, rlse,
+                                                delta, scale, True)
+        refs["dq"] = (("dq", dq),)
+        refs["dkdv"] = (("dk", dk), ("dv", dv))
     past = []
     for version, fn in fns.items():
         fa._kernel_fns = lambda f=fn: f
@@ -220,7 +518,8 @@ def _shape(fns, kernels, gen, b, s, h, d, card):
             torch.cuda.synchronize()
             worst = {what: chip_smoke._flash_err(what, g, ref)[1]
                      for (what, ref), g in zip(refs[kernel], got)}
-            if not (all(w <= 1 for w in worst.values())
+            if version not in unheld and not (
+                    all(w <= 1 for w in worst.values())
                     and all(torch.isfinite(g.float()).all() for g in got)):
                 past.append(f"{version} {kernel} B={b} S={s} D={d}: "
                             f"{worst}")
@@ -238,7 +537,7 @@ def _shape(fns, kernels, gen, b, s, h, d, card):
                 chip_smoke._time_ms(calls[kernel]))
     for (version, kernel), t in times.items():
         base = float(np.mean(times[("this", kernel)]))
-        print(f"[knockout] flash_{kernel}[bfloat16] {version} B={b} S={s} "
+        print(f"[knockout] flash_{kernel}[{name}] {version} B={b} S={s} "
               f"H={h} D={d} causal card='{card}' " + json.dumps(dict(
                   ms=t, mean_ms=float(np.mean(t)),
                   ratio=float(np.mean(t)) / base)), flush=True)

@@ -15,6 +15,7 @@ bf16): 2e-2 absolute on values of order 1 — one bf16 rounding step
 (2^-8 relative) of the output, plus P rounded to bf16 at different
 points of the two online softmaxes; lse stays f32 and is held at 1e-4.
 """
+import importlib.util
 import re
 from pathlib import Path
 
@@ -284,6 +285,23 @@ _WIDE_BF16 = {"fwd": ("tc::fwd_sliced", "int fwd_sliced_own(",
                      "flash_dq_sliced_tc_kernel<OWN>"),
               "dkdv": ("tc::dkdv_sliced", "int dkdv_sliced_own(",
                        "flash_dkdv_sliced_tc_kernel<OWN>")}
+#: the f32 launcher past D 256 of each C entry (the forward names it in
+#: the dispatch; dq and dk/dv through their ``wide_f32``, which passes the
+#: workspace on), the function that launches its kernel, the kernel and
+#: its route
+_WIDE_F32 = {"fwd": ("sliced::fwd<float>", "int fwd(int D, ",
+                     "flash_fwd_sliced_kernel<T>", "sliced"),
+             "dq": ("tc::dq_sliced_tf32", "int dq_sliced_tf32_own(",
+                    "flash_dq_sliced_tf32_kernel<OWN>", "sliced_tf32"),
+             "dkdv": ("tc::dkdv_sliced_tf32", "int dkdv_sliced_tf32_own(",
+                      "flash_dkdv_sliced_tf32_kernel<OWN>", "sliced_tf32")}
+
+
+def _function_body(src, head):
+    """The text of the function of ``src`` that starts at ``head``, up to
+    its closing brace at column 0."""
+    body = src[src.index(head):]
+    return body[:body.index("\n}\n")]
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
@@ -292,14 +310,19 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     the C entry of ``kernel`` in csrc/flash_attention.cu, for every head
     dim up to 4096 (each at the route of ``padded_head_dim``) and each
     dtype: the head dims with kernels of their own (``tc::`` for bf16,
-    the CUDA-core templates for f32), and past 256 the sliced CUDA-core
-    kernels for f32 and the entry's own bf16 choice —
-    ``tc::fwd_sliced``, ``tc::dq_sliced`` and ``tc::dkdv_sliced``, whose
-    launchers launch ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (the
-    tensor cores, route "sliced_tc")."""
+    the CUDA-core templates for f32), and past 256 the entry's own
+    choices — bf16: ``tc::fwd_sliced``, ``tc::dq_sliced`` and
+    ``tc::dkdv_sliced``, whose launchers launch
+    ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (route "sliced_tc"); f32:
+    the CUDA-core ``sliced::fwd<float>`` for the forward (route
+    "sliced"), and for dq and dk/dv ``tc::dq_sliced_tf32`` and
+    ``tc::dkdv_sliced_tf32`` (through the entry's ``wide_f32``), whose
+    launchers launch ``flash_{dq,dkdv}_sliced_tf32_kernel`` (3xTF32 on
+    the tensor cores, route "sliced_tf32")."""
     src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
            / "flash_attention.cu").read_text()
-    macro = src[src.index("#define BIGDL_FLASH_DISPATCH(FN, WIDE_BF16, "):]
+    macro = src[src.index(
+        "#define BIGDL_FLASH_DISPATCH(FN, WIDE_F32, WIDE_BF16, "):]
     macro = macro[:macro.index("} while (0)")]
     own = {(int(dt), int(d)): "tc" if ns else "cuda_cores"
            for dt, d, ns in re.findall(
@@ -308,18 +331,29 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     wide = dict(re.findall(r"if \(dtype == (\d) && D > 256 && D % 64 == 0\)"
                            r"\s*\\\s*return (\S+)\(D, __VA_ARGS__\);",
                            macro))
-    assert wide == {"0": "sliced::FN<float>", "1": "WIDE_BF16"}
-    entry, launcher, launched = _WIDE_BF16[kernel]
-    bf16_wide = re.search(rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+),",
-                          src)[1]
-    assert bf16_wide == entry
-    body = src[src.index(launcher):]
-    assert launched in body[:body.index("\n}\n")]
-    # the entry's own function picks between the launcher's
-    # instantiations
-    name = entry.split("::")[1]
-    body = src[src.index(f"int {name}(int D, "):]
-    assert launcher[4:-1] + "<" in body[:body.index("\n}\n")]
+    assert wide == {"0": "WIDE_F32", "1": "WIDE_BF16"}
+    f32_wide, bf16_wide = re.search(
+        rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+), ([^,]+),", src).groups()
+    entry = _function_body(src, f'extern "C" int bigdl_flash_{kernel}(')
+    f32_name, f32_launcher, f32_kernel, f32_route = _WIDE_F32[kernel]
+    if kernel == "fwd":
+        assert f32_wide == f32_name
+    else:
+        # the entry's lambda hands every argument and the workspace to
+        # the f32 launcher
+        assert f32_wide == "wide_f32"
+        assert f"return {f32_name}(D, a..., work);" in entry
+    assert f32_kernel in _function_body(src, f32_launcher)
+    if kernel != "fwd":
+        # the launcher's caller picks between its instantiations
+        name = f32_name.split("::")[1]
+        caller = _function_body(src, f"int {name}(int D, ")
+        assert f32_launcher[4:-1] + "<" in caller
+    b_entry, b_launcher, b_kernel = _WIDE_BF16[kernel]
+    assert bf16_wide == b_entry
+    assert b_kernel in _function_body(src, b_launcher)
+    name = b_entry.split("::")[1]
+    assert b_launcher[4:-1] + "<" in _function_body(src, f"int {name}(int D, ")
     codes = {torch.float32: 0, torch.bfloat16: 1}
     for dtype, code in codes.items():
         built = {}
@@ -327,8 +361,7 @@ def test_flash_route_matches_the_c_dispatch(kernel):
             if (code, d) in own:
                 built[d] = own[(code, d)]
             elif d > 256 and d % 64 == 0:
-                built[d] = ("sliced" if code == 0 or bf16_wide
-                            .startswith("sliced::") else "sliced_tc")
+                built[d] = f32_route if code == 0 else "sliced_tc"
         assert set(built) == {d for d in range(32, 4097, 32)
                               if tfa._head_dim_ok(d)}
         # every other head dim runs padded to the next built one, on its
@@ -339,6 +372,116 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     assert tfa.flash_route(torch.float16, 128, kernel) is None
     assert all(tfa.flash_route(torch.bfloat16, d, kernel) == "sliced_tc"
                for d in (320, 384, 448, 512, 576, 1024))
+    assert all(tfa.flash_route(torch.float32, d, kernel) == f32_route
+               for d in (320, 384, 448, 512, 576, 1024))
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` (its limits and ``_worst``;
+    importing it touches no card)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tf32(x):
+    """x rounded to tf32 (10 mantissa bits, to nearest, ties away from
+    zero: ``cvt.rna.tf32.f32``) by integer operations on its bits, as
+    ``to_tf32`` in csrc/hopper.cuh does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b in 3xTF32: each operand split into x = hi + lo, hi = tf32(x),
+    lo = tf32(x - hi), and hi·lo + lo·hi + hi·hi summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    """a @ b as one TF32 product: both operands rounded to tf32."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated_backward(q, k, v, do, lse, delta, scale, causal, mm):
+    """dq, dk, dv of one (b, h) as the f32 kernels past D 256 form them,
+    every product (S = Q·Kᵀ, dP = dO·Vᵀ, dS·K, dSᵀ·Q, Pᵀ·dO) through
+    ``mm``, P and dS left in f32."""
+    s = mm(q, k.T) * scale
+    if causal:
+        pos = torch.arange(q.shape[0])
+        s = torch.where(pos[None, :] > pos[:, None], -1e9, s)
+    p = torch.exp(s - lse[:, None])
+    ds = p * (mm(do, v.T) - delta[:, None]) * scale
+    return mm(ds, k), mm(ds.T, q), mm(p.T, do)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_products_hold_the_f32_limit(causal):
+    """The numerical argument of the f32 dq and dk/dv past D 256: their
+    products split each f32 operand into two tf32 parts on the tensor
+    cores (3xTF32). Emulated here in f32 on the CPU (integer rounding to
+    tf32 as the kernels round, products of parts exact in f32) at D 512
+    (B1 S192 H1, inputs from a numpy seed), the gradients stay within
+    ``chip_smoke._FLASH_TOL[(float32, "grad")]`` of ``flash_dq_ref`` /
+    ``flash_dkdv_ref``, measured as ``chip_smoke._worst`` does, while a
+    single TF32 product of the same operands does not: TF32 keeps 11 of
+    f32's 24 bits, the split about 22. (The card's f32 sums inside the
+    tensor cores drop bits as well; chip_smoke holds the kernels there.)
+    """
+    cs = _chip_smoke()
+    rtol, atol = cs._FLASH_TOL[(torch.float32, "grad")]
+    d = 512
+    q, k, v, g, _ = _inputs(1, 192, 1, d, seed=18)
+    q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, g))
+    scale = d ** -0.5
+    o, lse = tfa.flash_fwd_ref(q, k, v, scale, causal)
+    delta = (do * o).sum(-1)
+    want = (tfa.flash_dq_ref(q, k, v, do, lse, delta, scale, causal),
+            *tfa.flash_dkdv_ref(q, k, v, do, lse, delta, scale, causal))
+    args = (q[0, :, 0], k[0, :, 0], v[0, :, 0], do[0, :, 0], lse[0, :, 0],
+            delta[0, :, 0], scale, causal)
+    for mm, holds in ((_mm_3xtf32, True), (_mm_1xtf32, False)):
+        got = _emulated_backward(*args, mm)
+        worst = {name: cs._worst(gt, w[0, :, 0], rtol, atol)[1]
+                 for name, gt, w in zip(("dq", "dk", "dv"), got, want)}
+        if holds:
+            assert max(worst.values()) <= 1, (mm.__name__, worst)
+        else:
+            assert min(worst.values()) > 1, (mm.__name__, worst)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chip_smoke_holds_f32_gradients_to_the_float64_plain_version(dtype):
+    """``chip_smoke._flash_bwd_refs``, the reference the card's dq, dk and
+    dv are held to: for f32 inputs the plain versions evaluated in
+    float64 (``flash_dq_ref`` / ``flash_dkdv_ref`` keep float64 inputs in
+    float64) and rounded to f32, within ``_FLASH_TOL`` of the f32 plain
+    versions on a small causal case; for bf16 the plain versions
+    themselves, bit for bit (their bf16 rounding points kept)."""
+    cs = _chip_smoke()
+    q, k, v, g, _ = _inputs(1, 96, 2, 64, seed=3)
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
+    scale = 64 ** -0.5
+    o, lse = tfa.flash_fwd_ref(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    got = cs._flash_bwd_refs(tfa, q, k, v, do, lse, delta, scale, True)
+    plain = (tfa.flash_dq_ref(q, k, v, do, lse, delta, scale, True),
+             *tfa.flash_dkdv_ref(q, k, v, do, lse, delta, scale, True))
+    wide = tfa.flash_dq_ref(*(x.double() for x in (q, k, v, do, lse,
+                                                    delta)), scale, True)
+    assert wide.dtype == torch.float64
+    for x, y in zip(got, plain):
+        assert x.dtype == y.dtype == dtype
+        if dtype == torch.bfloat16:
+            assert torch.equal(x, y)
+        else:
+            rtol, atol = cs._FLASH_TOL[(torch.float32, "grad")]
+            assert cs._worst(x, y, rtol, atol)[1] <= 1
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
