@@ -209,20 +209,11 @@
 // the unrounded P, rounded to bf16 before dS·K and dSᵀ·Q; sums in f32
 // with the -1e9 finite mask.
 //
-// past D 256, the float32 forward -> CUDA cores, D sliced (namespace
-// sliced, flash_fwd_sliced_kernel<float>; D any multiple of 64, a runtime
-// value). A CTA owns one (b·h, 64-row tile, 64 output columns): grid
-// (B·H, tiles, D/64). S = Q·Kᵀ sums over all of D in 64-column chunks
-// staged with cp.async through a 2-stage ring into the 16 x 16 thread
-// grid over 64 x 64 tiles (rows past S zero-filled), every slice in the
-// same chunk order, so every slice forms the same m and l (lse from slice
-// 0); P·V[:, slice] reads the tile's V slice, staged once a tile. The
-// scores are recomputed D/64 times. Shared memory: 6 chunks of 64 x 68
-// floats beside the 64 x 65 p tile, 118 KB.
-//
-// past D 256, the float32 dq and dk/dv -> tensor cores in 3xTF32
-// (tc::flash_dq_sliced_tf32_kernel<OWN>, tc::flash_dkdv_sliced_tf32_
-// kernel<OWN>; D any multiple of 64, a runtime value; no D limit).
+// past D 256, the float32 forward, dq and dk/dv -> tensor cores in
+// 3xTF32 (tc::flash_fwd_sliced_tf32_kernel<OWN>, tc::flash_dq_sliced_
+// tf32_kernel<OWN>, tc::flash_dkdv_sliced_tf32_kernel<OWN>; D any
+// multiple of 64, a runtime value; no D limit). The backward pair first;
+// the forward, which reuses its steps, after it.
 // - Numbers. One TF32 product keeps 11 of f32's 24 bits: on sums over D
 //   512 its gradients miss the f32 limits (1e-5, 1e-4) by 25-76x
 //   (tests/test_torch_flash_attention.py's emulation). Each operand x
@@ -316,6 +307,58 @@
 //   of 3 1.19-1.46x (knockouts dq_slices8, dq_slices6, dkdv_own3).
 // - Work. dq does 3 half-products at D 512 (at B2 S2048 H2, one wave: 5),
 //   dk/dv 6 (2 slices), each product three TF32 ones.
+// The forward (flash_fwd_sliced_tf32_kernel<OWN>) is dq's walk without dP
+// and dS, plus the online softmax, which dq does not need (it reads a
+// finished lse):
+// - Products. S = Q·Kᵀ is dq's score step (A, this CTA's 64 query rows,
+//   split in registers from the raw box; B the K parts the split pass
+//   wrote, by TMA). oᵀ = Vᵀ·Pᵀ is dq's output step: A the walked tile's V
+//   columns from its raw box, B P's parts, K-major as the accumulator's
+//   rows lay them. Fresh sums every 2 K steps of a score step and every 4
+//   of an output step, as above: chained_score and chained_out read
+//   0.31-0.67 and 0.34-0.61 of the forward's o limit against the kept
+//   0.05-0.09 (the forward's S error does not cancel as dS's does), in
+//   0.91-1.02x the time. P stays f32: its rounding "to v's dtype" is the
+//   identity.
+// - Roles. dq's two score products fill both warpgroups; the forward has
+//   one. So each warpgroup sums half of it over D: score step j brings
+//   columns 32·j for warpgroup 0 and 32·(D/64 + j) for warpgroup 1 (the
+//   stage of six boxes is dq's), and warpgroup 1 hands its half to
+//   warpgroup 0 through shared memory (16 KB, named barrier 1), which
+//   adds it in f32. A warpgroup then does D/64 score steps a key tile
+//   and OWN output steps, where dq's do D/32 and OWN. The other layouts
+//   cost more: warpgroup 0 forming all of S leaves warpgroup 1 idle for
+//   its D/32 steps (knockout fwd_whole_s; PERF.md's findings have its
+//   time); warpgroups owning 64 rows each and slices of 4 chunks form S
+//   twice at D 512.
+// - The softmax hand-off. Warpgroup 0 holds the row max m and the row
+//   sum l of its rows (as the score accumulator holds them: two rows a
+//   thread, a lane quad a row), scales and masks the summed S, forms P =
+//   exp(S - m_new) and α = exp(m_old - m_new), and puts P's parts and α
+//   (f32 [64]) in shared memory under named barrier 2. In oᵀ the queries
+//   are the accumulator's columns (a thread holds 8j + 2t and 8j + 2t +
+//   1), so both warpgroups read α there and multiply their chunks by it
+//   before the tile's output steps: oᵀ = oᵀ·α + Vᵀ·Pᵀ, the product in its
+//   fresh sums. At the end warpgroup 0 puts 1 / l beside α (barrier 3)
+//   and writes lse (slice 0). Forming S twice instead, first for m and l
+//   and then P = exp(S - lse) with no rescale, costs one more score
+//   product a tile; the rescale costs 32 multiplies a chunk and 16
+//   shared loads a thread a tile.
+// - Shared memory: the ring (3 stages of 48 KB), P's parts (32 KB),
+//   warpgroup 1's half of S (16 KB, in two P/dS tile sets' room: a
+//   fourth stage would not fit either way), α and 1 / l. Barrier 1
+//   orders their reuse too: warpgroup 1 reaches it only past the
+//   previous tile's output steps, and warpgroup 0 writes P and α only
+//   past it.
+// - Slices and work as dq's (one helper, tf_row_slices): one slice at D
+//   320-512, two at 576-1024 and at D 512 where the grid fits one wave
+//   (one slice there: 1.26x at B2 S2048 H2; two past one wave: 1.21-
+//   1.29x; knockouts dq_slices8, dq_slices6).
+//   At D 512 the forward does 2 half-products in one slice (the CUDA-core
+//   kernel it replaced did 9: the scores once per 64 output columns):
+//   2.24 against 26.52 ms at B4 S4096 H2, 0.38 against 3.38 at B2 S2048
+//   (scripts/flash_ab.py, NVIDIA H100 80GB HBM3, 700 W). The split pass
+//   writes K's parts alone (2 floats an element of K).
 // The kernels allocate nothing; the Python wrapper allocates outputs
 // and checks shapes, dtypes, contiguity and alignment.
 
@@ -852,247 +895,6 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Skv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
-
-// ===========================================================================
-// past D 256, float32 and bfloat16: CUDA cores, D sliced (header)
-// ===========================================================================
-
-namespace sliced {
-
-constexpr int kR = 64;             // rows of a tile: queries and keys alike
-constexpr int kM = kR / 16;        // rows (and score columns) a thread owns
-constexpr int kW = 64;             // output columns a CTA owns: one chunk
-constexpr int kPP = kR + 1;        // pitch (floats) of the f32 p/dS tile
-
-// a staged chunk: kR rows of 64 columns at a pitch of 64 elements plus
-// 16 bytes
-template <typename T>
-constexpr int kPitch = 64 + 16 / static_cast<int>(sizeof(T));
-template <typename T>
-constexpr int kChunk = kR * kPitch<T>;                 // elements
-template <typename T>
-constexpr size_t chunk_bytes() {
-  return static_cast<size_t>(kChunk<T>) * sizeof(T);
-}
-constexpr size_t kWBytes = kR * kPP * sizeof(float);
-
-// 4 adjacent elements of shared memory as f32, and back (float32 only:
-// no other type instantiates these kernels)
-__device__ __forceinline__ void vload4(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-__device__ __forceinline__ void vstore4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-// p or dS as the products take it: f32 products take them unrounded
-__device__ __forceinline__ float operand(float x, float) { return x; }
-
-// Stage rows [row0, row0 + kR), columns [col0, col0 + 64) of head h of x
-// (B, S, H, D) into dst; rows >= S are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_chunk(T* dst, const T* x, int b, int h,
-                                           int row0, int col0, int S, int H,
-                                           int D) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPer = 64 / kVec;                      // copies a row
-  for (int c = threadIdx.x; c < kR * kPer; c += kThreads) {
-    const int r = c / kPer, w = (c % kPer) * kVec;
-    const int s = row0 + r;
-    const bool ok = s < S;
-    const T* g = ok ? x + ((static_cast<int64_t>(b) * S + s) * H + h) * D +
-                          col0 + w
-                    : x;
-    cp_async16(dst + r * kPitch<T> + w, g, ok);
-  }
-}
-
-// acc[i][j] += A[ty*kM + i] · B[tx + 16*j] over one chunk's 64 columns
-template <typename T>
-__device__ __forceinline__ void dot_chunk(const T* A, const T* B, int ty,
-                                          int tx, float (&acc)[kM][kM]) {
-#pragma unroll 4
-  for (int d = 0; d < 64; d += 4) {
-    float a[kM][4], bb[kM][4];
-#pragma unroll
-    for (int i = 0; i < kM; ++i)
-      vload4(A + (ty * kM + i) * kPitch<T> + d, a[i]);
-#pragma unroll
-    for (int j = 0; j < kM; ++j)
-      vload4(B + (tx + 16 * j) * kPitch<T> + d, bb[j]);
-#pragma unroll
-    for (int i = 0; i < kM; ++i)
-#pragma unroll
-      for (int j = 0; j < kM; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j] += a[i][e] * bb[j][e];
-  }
-}
-
-// acc[i][e] += Σ_c W[ty*kM + i][c] · X[c][4·tx + e]: W the f32 kR x kR
-// tile, X a staged chunk (the CTA's slice of columns)
-template <typename T>
-__device__ __forceinline__ void mul_chunk(const float* W, const T* X, int ty,
-                                          int tx, float (&acc)[kM][4]) {
-#pragma unroll 4
-  for (int c = 0; c < kR; ++c) {
-    float w[kM], x[4];
-#pragma unroll
-    for (int i = 0; i < kM; ++i) w[i] = W[(ty * kM + i) * kPP + c];
-    vload4(X + c * kPitch<T> + 4 * tx, x);
-#pragma unroll
-    for (int i = 0; i < kM; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] += w[i] * x[e];
-  }
-}
-
-// Write columns [col0 + 4·tx, + 4) of rows ty*kM + i (if below S) of a
-// (B, S, H, D) output, row i scaled by mul[i]
-template <typename T>
-__device__ __forceinline__ void store_slice(T* out,
-                                            const float (&acc)[kM][4],
-                                            const float (&mul)[kM], int b,
-                                            int h, int row0, int col0, int S,
-                                            int H, int D, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kM; ++i) {
-    const int s = row0 + ty * kM + i;
-    if (s >= S) continue;
-    float x[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[e] = acc[i][e] * mul[i];
-    vstore4(out + ((static_cast<int64_t>(b) * S + s) * H + h) * D + col0 +
-                4 * tx,
-            x);
-  }
-}
-
-// Forward. CTA: kR queries of one (b, h), output columns [64·z, 64·z +
-// 64) for blockIdx.z = z. Step t of the loop is (key tile t / nc, chunk
-// t % nc): the Q and K chunks of the step are staged (double-buffered
-// with cp.async) and their product added to the score tile, so every
-// slice sums the chunks in the same order and forms the same m and l;
-// a key tile's first step also brings its V slice (double-buffered by
-// tile), which P·V takes at the tile's last step. lse comes from slice 0.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o,
-                        float* __restrict__ lse, int H, int Sq, int Skv,
-                        int D, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kC = kChunk<T>;
-  T* const ring = reinterpret_cast<T*>(smem_raw);     // [2][Q|K][chunk]
-  T* const vsl = ring + 4 * kC;                        // [2][V slice]
-  float* const ps = reinterpret_cast<float*>(vsl + 2 * kC);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kR;   // heavy tiles first
-  const int col = kW * blockIdx.z, nc = D / 64;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int steps = key_tiles<kR>(q0, Sq, Skv, causal) * nc;
-
-  auto fetch = [&](int t) {
-    const int kt = t / nc, c = t % nc;
-    T* const st = ring + (t & 1) * 2 * kC;
-    load_chunk<T>(st, q, b, h, q0, 64 * c, Sq, H, D);
-    load_chunk<T>(st + kC, k, b, h, kt * kR, 64 * c, Skv, H, D);
-    if (c == 0)
-      load_chunk<T>(vsl + (kt & 1) * kC, v, b, h, kt * kR, col, Skv, H, D);
-  };
-
-  float acc[kM][4], m[kM], l[kM], s[kM][kM];
-#pragma unroll
-  for (int i = 0; i < kM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  }
-
-  fetch(0);
-  cp_async_commit();
-  for (int t = 0; t < steps; ++t) {
-    if (t + 1 < steps) fetch(t + 1);
-    cp_async_commit();
-    cp_async_wait_prev();                  // step t (and its V slice)
-    __syncthreads();
-    const int kt = t / nc, c = t % nc;
-    const T* const st = ring + (t & 1) * 2 * kC;
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < kM; ++i)
-#pragma unroll
-        for (int j = 0; j < kM; ++j) s[i][j] = 0.f;
-    }
-    dot_chunk<T>(st, st + kC, ty, tx, s);
-    if (c == nc - 1) {
-      const int k0 = kt * kR;
-#pragma unroll
-      for (int i = 0; i < kM; ++i) {
-        const int qpos = q0 + ty * kM + i;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kM; ++j) {
-          const int kpos = k0 + tx + 16 * j;
-          s[i][j] = kpos >= Skv                ? -INFINITY
-                    : (causal && kpos > qpos) ? kMask
-                                              : s[i][j] * scale;
-          mx = fmaxf(mx, s[i][j]);
-        }
-        const float m_new = fmaxf(m[i], group16_max(mx));
-        const float corr = expf(m[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < kM; ++j) {
-          const float p = expf(s[i][j] - m_new);
-          sum += p;
-          ps[(ty * kM + i) * kPP + tx + 16 * j] = operand(p, T{});
-        }
-        l[i] = l[i] * corr + group16_sum(sum);
-        m[i] = m_new;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] *= corr;
-      }
-      __syncthreads();                     // p tile complete
-      mul_chunk<T>(ps, vsl + (kt & 1) * kC, ty, tx, acc);
-    }
-    __syncthreads();                       // stage t & 1 and p reusable
-  }
-
-  float inv[kM];
-#pragma unroll
-  for (int i = 0; i < kM; ++i) inv[i] = 1.f / l[i];
-  store_slice<T>(o, acc, inv, b, h, q0, col, Sq, H, D, ty, tx);
-  if (blockIdx.z == 0 && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < kM; ++i) {
-      const int s_ = q0 + ty * kM + i;
-      if (s_ < Sq)
-        lse[(static_cast<int64_t>(b) * Sq + s_) * H + h] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-// staged chunks: 2 stages x (Q, K) + 2 V slices, beside the f32 p tile
-template <typename T>
-int fwd(int D, const void* q, const void* k, const void* v, void* o,
-        float* lse, int B, int H, int Sq, int Skv, float scale, int causal,
-        cudaStream_t st) {
-  const size_t smem = 6 * chunk_bytes<T>() + kWBytes;
-  auto kernel = flash_fwd_sliced_kernel<T>;
-  if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Sq + kR - 1) / kR, D / kW);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Skv, D,
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace sliced
 
 // ===========================================================================
 // bfloat16: tensor cores (wgmma), tiles by TMA
@@ -2776,6 +2578,215 @@ __device__ __forceinline__ void tf_init(uint32_t bars, int ns) {
   __syncthreads();
 }
 
+// A 64 x 64 accumulator (32 f32 a thread) through shared memory between
+// the two consumer warpgroups: element e of thread i of a warpgroup at xs
+// + 16·(128·(e / 4) + i) + 4·(e % 4), so consecutive threads store and
+// load consecutive 16 bytes. tf_give stores s; tf_take adds what the
+// thread of the same index in the other warpgroup stored to s.
+__device__ __forceinline__ void tf_give(uint32_t xs, const float (&s)[32]) {
+  const int i = threadIdx.x % 128;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    st_shared4(xs + 16 * (128 * q + i), s[4 * q], s[4 * q + 1],
+               s[4 * q + 2], s[4 * q + 3]);
+}
+__device__ __forceinline__ void tf_take(float (&s)[32], uint32_t xs) {
+  const int i = threadIdx.x % 128;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    float x[4];
+    ld_shared4(xs + 16 * (128 * q + i), x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * q + e] += x[e];
+  }
+}
+
+// oᵀ's accumulators (columns: this CTA's 64 query rows) times one factor
+// a query, f32 [64] at `at`: a thread's columns 8·jj + 2·(l % 4) + {0, 1}
+template <int OWN>
+__device__ __forceinline__ void tf_scale_cols(float (&acc)[OWN][32],
+                                              uint32_t at) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    float f[2];
+    ld_shared2(at + 4 * (8 * jj + 2 * t), f);
+#pragma unroll
+    for (int j = 0; j < OWN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][4 * jj + e] *= f[e % 2];
+  }
+}
+
+// The forward: CTA = 64 query rows of one (b, h), the heaviest first, and
+// a slice of `own` 64-column chunks of o (grid (B·H·slices, ceil(Sq /
+// 64)), the slice innermost): warpgroup 0 accumulates the slice's first
+// OWN chunks of oᵀ, warpgroup 1 the other own - OWN. Score step j of a
+// key tile (j < nh = D / 64) holds the Q box, raw, and the K parts of
+// columns 32·j for warpgroup 0 and of columns 32·(nh + j) for warpgroup
+// 1: each sums its half of S = Q·Kᵀ over D. Warpgroup 1 hands its half to
+// warpgroup 0 (named barrier 1), which adds it, scales and masks, runs
+// the online softmax (row max m and sum l in registers, rows as the
+// accumulator holds them) and puts P's parts and each row's rescale
+// factor α = exp(m_old - m_new) in shared memory (barrier 2). Both then
+// multiply their chunks of oᵀ, whose columns are the queries, by α and
+// add Vᵀ·Pᵀ over output step p's V columns. Every slice sums S in the
+// same order, so forms the same m and l: lse from slice 0. Barrier 1
+// also orders the reuse of the shared tiles: warpgroup 1 reaches it only
+// past the previous tile's output steps, and warpgroup 0 writes the next
+// P and α only past it.
+template <int OWN>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_fwd_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                             const __grid_constant__ CUtensorMap vm,
+                             const __grid_constant__ CUtensorMap khm,
+                             const __grid_constant__ CUtensorMap klm,
+                             float* __restrict__ o, float* __restrict__ lse,
+                             int H, int Sq, int Skv, int D, int nsl, int own,
+                             int ns, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nh = D / 64;                   // score steps a key tile
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xb = base + ns * kTfStage;      // P's parts
+  const uint32_t xs = xb + 4 * kTfBox;     // warpgroup 1's half of S
+  const uint32_t stats = xb + 8 * kTfBox;  // α, then 1 / l: f32 [64]
+  TfRing ring{base, base + tf_bars_at(ns, 2), ns};
+
+  const int z = blockIdx.x % nsl, bh = blockIdx.x / nsl;
+  const int b = bh / H, h = bh % H, tid = threadIdx.x;
+  const int col0 = 64 * own * z;
+  const int q0 = 64 * (gridDim.y - 1 - blockIdx.y);    // heaviest first
+  const int nk = (Skv + kSlKeys - 1) / kSlKeys;
+  const int nkt =
+      causal ? min(nk, (min(q0 + 64, Sq) - 1) / kSlKeys + 1) : nk;
+  const int rest = own - OWN;              // warpgroup 1's chunks
+  tf_init(ring.bars, ns);
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kSlConsumers) {
+      int t = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int k0 = kt * kSlKeys;
+        for (int j = 0; j < nh; ++j, ++t, ring.next()) {
+          const uint32_t dst = ring.acquire(t, kTfStage);
+          for (int g = 0; g < 2; ++g) {
+            const int c = 32 * (j + nh * g);
+            tma_load(dst + 2 * g * kTfBox, &qm, ring.full(), c, h, q0, b);
+            tma_load(dst + (2 * g + 1) * kTfBox, &khm, ring.full(), c, h,
+                     k0, b);
+            tma_load(dst + (4 + g) * kTfBox, &klm, ring.full(), c, h, k0,
+                     b);
+          }
+        }
+        for (int p = 0; p < OWN; ++p, ++t, ring.next()) {
+          const bool two = p < rest;
+          const uint32_t dst = ring.acquire(t, (two ? 4 : 2) * kTfBox);
+          for (int g = 0; g < (two ? 2 : 1); ++g)
+            for (int e = 0; e < 2; ++e)
+              tma_load(dst + (2 * g + e) * kTfBox, &vm, ring.full(),
+                       col0 + 64 * (OWN * g + p) + 32 * e, h, k0, b);
+        }
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  const int l = tid % 32;
+  const int row0 = q0 + 16 * ((tid / 32) % 4) + l / 4;
+  auto consume = [&](auto role) {
+    constexpr int G = decltype(role)::kDk ? 1 : 0;
+    const int mine = G ? rest : OWN;
+    float acc[OWN][32], s[32];
+    float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) zero(acc[j]);
+    zero(s);
+    for (int kt = 0; kt < nkt; ++kt) {
+      for (int j = 0; j < nh; ++j) {
+        const uint32_t st = ring.wait();
+        tf_score_step(s, st + 2 * G * kTfBox, st + (2 * G + 1) * kTfBox,
+                      st + (4 + G) * kTfBox, j == 0);
+        ring.release();
+      }
+      if constexpr (G == 1) {
+        tf_give(xs, s);                    // this half of S, then wait
+        named_arrive(1, kSlConsumers);     // for P
+        named_sync(2, kSlConsumers);
+      } else {
+        named_sync(1, kSlConsumers);
+        tf_take(s, xs);
+        // scale, mask where the tile crosses the diagonal or the end
+        const int k0 = kt * kSlKeys;
+        const bool edge =
+            (causal && k0 + kSlKeys - 1 > q0) || k0 + kSlKeys > Skv;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float x = s[i] * scale;
+          if (edge) {
+            const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+            x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+          }
+          s[i] = x;
+          mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]));
+          alpha[r] = expf(m[r] - m_new);
+          m[r] = m_new;
+          lsum[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] = expf(s[i] - m[(i % 4) / 2]);
+          lsum[(i % 4) / 2] += s[i];       // this thread's part of the row
+        }
+        tf_put(xb, xb + 2 * kTfBox, s);
+        if (l % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            st_shared(stats + 4 * (row0 - q0 + 8 * r), alpha[r]);
+        }
+        fence_proxy_async();
+        named_sync(2, kSlConsumers);
+      }
+      tf_scale_cols<OWN>(acc, stats);     // oᵀ at the new running max
+#pragma unroll
+      for (int p = 0; p < OWN; ++p) {
+        const uint32_t tile = ring.wait() + 2 * G * kTfBox;
+        if (p < mine) tf_out_step(acc[p], tile, xb, xb + 2 * kTfBox);
+        ring.release();
+      }
+    }
+    // 1 / l of each row from warpgroup 0 (barrier 3), which writes lse
+    if constexpr (G == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int s_ = row0 + 8 * r;
+        lsum[r] = quad_sum(lsum[r]);
+        if (l % 4 == 0) {
+          st_shared(stats + 4 * (64 + s_ - q0), 1.f / lsum[r]);
+          if (z == 0 && s_ < Sq)
+            lse[(static_cast<int64_t>(b) * Sq + s_) * H + h] =
+                m[r] + logf(lsum[r]);
+        }
+      }
+    }
+    named_sync(3, kSlConsumers);
+    tf_scale_cols<OWN>(acc, stats + 4 * 64);
+    tf_store<OWN>(o, acc, mine, b, h, q0, col0 + 64 * OWN * G, Sq, H, D);
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Role<false>{});
+  else
+    consume(Role<true>{});
+}
+
 // dq: CTA = 64 query rows of one (b, h), the heaviest first, and a slice
 // of `own` 64-column chunks of dq (grid (B·H·slices, ceil(Sq / 64)), the
 // slice innermost): warpgroup 0 accumulates the slice's first OWN
@@ -3344,31 +3355,94 @@ tf32_split_kernel(const float4* __restrict__ x, float4* __restrict__ hi,
 }
 
 // the parts of two (B, S, H, D) f32 tensors x0, x1 into `work` (hi0, lo0,
-// hi1, lo1, n = B·S·H·D floats each), and their four maps
+// hi1, lo1, n = B·S·H·D floats each), and their four maps; of x0 alone
+// (hi0, lo0 and their two maps) where x1 is null
 int tf_split(CUtensorMap (&m)[4], const void* x0, const void* x1,
              float* work, int B, int S, int H, int D, cudaStream_t st) {
   const int64_t n = static_cast<int64_t>(B) * S * H * D;
+  const int tensors = x1 ? 2 : 1;
   int sms = 0;
   if (int e = sm_count(&sms)) return e;
   const int64_t want = (n / 4 + 255) / 256;
   const int blocks = static_cast<int>(want < 8 * sms ? want : 8 * sms);
-  for (int j = 0; j < 2; ++j) {
+  for (int j = 0; j < tensors; ++j) {
     tf32_split_kernel<<<blocks, 256, 0, st>>>(
         static_cast<const float4*>(j ? x1 : x0),
         reinterpret_cast<float4*>(work + 2 * j * n),
         reinterpret_cast<float4*>(work + (2 * j + 1) * n), n / 4);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   }
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 2 * tensors; ++j)
     if (int e = make_map(&m[j], work + j * n, B, S, H, D, 64, true)) return e;
   return 0;
 }
 
 // the ring takes what the P/dS tiles and the stats leave, up to
-// kSlMaxStages: dq 4 stages, dk/dv 3
+// kSlMaxStages: dq 4 stages, dk/dv and the forward 3
 inline int tf_stages(int outs) {
   return min(kSlMaxStages,
              static_cast<int>((kSmemMax - tf_smem(0, outs)) / kTfStage));
+}
+
+// chunks of a slice of the kernels whose CTAs hold 64 query rows (dq and
+// the forward; `rows` CTAs a slice): the fewest slices of at most 2 x
+// kTfMaxOwn chunks (D 320-512 one slice, 576-1024 two), or of 2 x 3
+// where that grid fits one wave of the SMs (more, lighter CTAs even out
+// the causal rows' work: D 512 two), as even as they come; warpgroup 0
+// takes OWN = ceil(own / 2) of them and warpgroup 1 the rest
+int tf_row_slices(int D, int rows, int* own) {
+  int sms = 0;
+  if (int e = sm_count(&sms)) return e;
+  const int nc = D / 64;
+  int most = 2 * kTfMaxOwn, fewest = (nc + most - 1) / most;
+  if (rows * fewest <= sms) {
+    most = 6;
+    fewest = (nc + most - 1) / most;
+  }
+  *own = (nc + fewest - 1) / fewest;
+  return 0;
+}
+
+template <int OWN>
+int fwd_sliced_tf32_own(int D, int own, const CUtensorMap (&m)[2],
+                        const CUtensorMap (&kp)[4], void* o, float* lse,
+                        int B, int H, int Sq, int Skv, float scale,
+                        int causal, cudaStream_t st) {
+  // P's parts and warpgroup 1's half of S take the space of two P/dS
+  // tile sets (16 KB of it unused: the ring has 3 stages either way)
+  const int ns = tf_stages(2), nsl = (D / 64 + own - 1) / own;
+  const size_t smem = tf_smem(ns, 2);
+  auto kernel = flash_fwd_sliced_tf32_kernel<OWN>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H * nsl, (Sq + 63) / 64);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      m[0], m[1], kp[0], kp[1], static_cast<float*>(o), lse, H, Sq, Skv, D,
+      nsl, own, ns, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the forward: K split into `work` (2·B·Skv·H·D floats), then the kernel
+int fwd_sliced_tf32(int D, const void* q, const void* k, const void* v,
+                    void* o, float* lse, int B, int H, int Sq, int Skv,
+                    float scale, int causal, cudaStream_t st, float* work) {
+  if (!work) return -1;
+  CUtensorMap m[2], kp[4];                 // q, v raw; K's parts (two)
+  if (int e = make_map(&m[0], q, B, Sq, H, D, 64, true)) return e;
+  if (int e = make_map(&m[1], v, B, Skv, H, D, kSlKeys, true)) return e;
+  if (int e = tf_split(kp, k, nullptr, work, B, Skv, H, D, st)) return e;
+  int own = 0;
+  if (int e = tf_row_slices(D, B * H * ((Sq + 63) / 64), &own)) return e;
+  switch ((own + 1) / 2) {
+    case 2:
+      return fwd_sliced_tf32_own<2>(D, own, m, kp, o, lse, B, H, Sq, Skv,
+                                    scale, causal, st);
+    case 3:
+      return fwd_sliced_tf32_own<3>(D, own, m, kp, o, lse, B, H, Sq, Skv,
+                                    scale, causal, st);
+    default:
+      return fwd_sliced_tf32_own<4>(D, own, m, kp, o, lse, B, H, Sq, Skv,
+                                    scale, causal, st);
+  }
 }
 
 template <int OWN>
@@ -3400,20 +3474,8 @@ int dq_sliced_tf32(int D, const void* q, const void* k, const void* v,
   if (int e = make_map(&m[1], k, B, Skv, H, D, kSlKeys, true)) return e;
   if (int e = make_map(&m[2], dout, B, Sq, H, D, 64, true)) return e;
   if (int e = tf_split(p, k, v, work, B, Skv, H, D, st)) return e;
-  // the fewest slices of at most 2 x kTfMaxOwn chunks (D 320-512 one
-  // slice, 576-1024 two), or of 2 x 3 where that grid fits one wave of
-  // the SMs (more, lighter CTAs even out the causal rows' work: D 512
-  // two), as even as they come; warpgroup 0 takes OWN = ceil(own / 2) of
-  // them and warpgroup 1 the rest
-  int sms = 0;
-  if (int e = sm_count(&sms)) return e;
-  const int nc = D / 64, rows = B * H * ((Sq + 63) / 64);
-  int most = 2 * kTfMaxOwn, fewest = (nc + most - 1) / most;
-  if (rows * fewest <= sms) {
-    most = 6;
-    fewest = (nc + most - 1) / most;
-  }
-  const int own = (nc + fewest - 1) / fewest;
+  int own = 0;
+  if (int e = tf_row_slices(D, B * H * ((Sq + 63) / 64), &own)) return e;
   switch ((own + 1) / 2) {
     case 2:
       return dq_sliced_tf32_own<2>(D, own, m, p, lse, delta, dq_out, B, H,
@@ -3470,9 +3532,9 @@ int dkdv_sliced_tf32(int D, const void* q, const void* k, const void* v,
 
 // dispatch on (dtype code, head dim): 0 = float32 (CUDA cores up to D
 // 256), 1 = bfloat16 (tensor cores); past D 256, any D that is a multiple
-// of 64, float32 takes WIDE_F32 (the D-sliced CUDA-core forward, or the
-// 3xTF32 tensor-core dq and dk/dv) and bfloat16 WIDE_BF16 (the sliced
-// tensor-core kernels)
+// of 64, float32 takes WIDE_F32 (the 3xTF32 tensor-core kernels, through
+// each entry's wide_f32, which passes the workspace on) and bfloat16
+// WIDE_BF16 (the sliced tensor-core kernels)
 #define BIGDL_FLASH_DISPATCH(FN, WIDE_F32, WIDE_BF16, ...)               \
   do {                                                                    \
     if (dtype == 0 && D == 32) return FN<float, 32>(__VA_ARGS__);         \
@@ -3495,18 +3557,23 @@ int dkdv_sliced_tf32(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a (dtype, head dim) the
-// kernels were not built for (or an f32 dq or dk/dv past D 256 given no
-// workspace: 4 floats an element of K for dq, of Q for dk/dv), -2 where
-// no tensor-map encoder is found (cuTensorMapEncodeTiled), 1000 + the
-// CUresult of a refused tensor map, else the CUDA error code of the
-// launch.
+// kernels were not built for (or an f32 call past D 256 given no
+// workspace: 2 floats an element of K for the forward, 4 for dq, 4 an
+// element of Q for dk/dv), -2 where no tensor-map encoder is found
+// (cuTensorMapEncodeTiled), 1000 + the CUresult of a refused tensor map,
+// else the CUDA error code of the launch. The workspace comes last, after
+// the stream.
 extern "C" int bigdl_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, float* lse, int B,
                                int H, int Sq, int Skv, int D, float scale,
-                               int causal, void* stream) {
+                               int causal, void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FLASH_DISPATCH(fwd, sliced::fwd<float>, tc::fwd_sliced, q, k, v, o,
-                       lse, B, H, Sq, Skv, scale, causal, st);
+  // f32 past D 256 splits K into `work` first
+  auto wide_f32 = [work](int D, auto... a) {
+    return tc::fwd_sliced_tf32(D, a..., work);
+  };
+  BIGDL_FLASH_DISPATCH(fwd, wide_f32, tc::fwd_sliced, q, k, v, o, lse, B, H,
+                       Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,

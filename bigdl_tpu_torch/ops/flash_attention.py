@@ -22,11 +22,11 @@ materialised. lse is (B, S, H) f32. Arithmetic matches the TPU kernel:
 f32 scores times ``scale``, the finite −1e9 causal mask (key position >
 query position, both counted from 0), P rounded to v's dtype before P·V
 and to dO's dtype before dv, dS rounded to k's dtype for dq and to q's
-dtype for dk; o/dq/dk/dv in the input dtype. The f32 dq and dk/dv past
-head dim 256 form their products on the tensor cores in 3xTF32 (each
-operand split into tf32 high and low parts, hi·lo + lo·hi + hi·hi summed
-in f32), which keeps about 22 of f32's 24 bits; they take a workspace for
-the parts (``_work``).
+dtype for dk; o/dq/dk/dv in the input dtype. The f32 kernels past head
+dim 256 form their products on the tensor cores in 3xTF32 (each operand
+split into tf32 high and low parts, hi·lo + lo·hi + hi·hi summed in f32),
+which keeps about 22 of f32's 24 bits; they take a workspace for the
+parts (``_work``).
 
 ``fwd_launches``, ``dq_launches`` and ``dkdv_launches`` count kernel
 launches, so a run can show its main path went through the kernels.
@@ -69,41 +69,38 @@ def flash_supported(q, k) -> bool:
 
     A head dim the kernels are not built for runs zero-padded to
     :func:`padded_head_dim` (D 16 -> 32, 80 and 96 -> 128, 288 -> 320).
-    Past D 256 the C entries route to D-sliced kernels: a CTA owns a
-    slice of the output's columns (up to 256 in bf16, on the tensor
-    cores, forward and backward; in f32 64 for the CUDA-core forward and
-    up to 512 for dq and 256 for dk/dv, in 3xTF32 on the tensor cores)
-    and sums the scores over all of D (``flash_route``;
-    csrc/flash_attention.cu's header)."""
+    Past D 256 the C entries route to D-sliced kernels on the tensor
+    cores: a CTA owns a slice of the output's columns (up to 256 in
+    bf16, forward and backward; in f32, in 3xTF32, up to 512 for the
+    forward and dq and 256 for dk/dv) and sums the scores over all of D
+    (``flash_route``; csrc/flash_attention.cu's header)."""
     return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] >= 1
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
             and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
             and q.shape[1] > 0 and k.shape[1] > 0)
 
 
-def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
-    """The kernel family the C entry of ``kernel`` ("fwd", "dq" or
-    "dkdv") runs for ``dtype`` at head dim ``d``, as
-    ``BIGDL_FLASH_DISPATCH`` in csrc/flash_attention.cu picks it:
+def flash_route(dtype, d: int) -> str | None:
+    """The kernel family the three C entries (forward, dq, dk/dv) run for
+    ``dtype`` at head dim ``d``, as ``BIGDL_FLASH_DISPATCH`` in
+    csrc/flash_attention.cu picks it, the same for all three:
     ``"tc"`` (bf16 at D 32-256: ``wgmma`` with TMA tiles),
     ``"cuda_cores"`` (f32 at D 32-256), ``"sliced_tc"`` (bf16 past 256:
     ``flash_fwd_sliced_tc_kernel``, ``flash_dq_sliced_tc_kernel`` and
     ``flash_dkdv_sliced_tc_kernel``, slices of up to 256 output columns
-    on the tensor cores), and f32 past 256 by kernel: ``"sliced"`` for
-    the forward (the D-sliced CUDA-core kernel, 64 columns a CTA) and
-    ``"sliced_tf32"`` for dq and dk/dv (``flash_dq_sliced_tf32_kernel``
-    and ``flash_dkdv_sliced_tf32_kernel``: 3xTF32 on the tensor cores,
-    each product split into tf32 high and low parts, hi·hi + hi·lo +
-    lo·hi summed in f32); None where no kernel takes the call. A head dim
-    the kernels are not built for reports the route of
+    on the tensor cores) and ``"sliced_tf32"`` (f32 past 256:
+    ``flash_fwd_sliced_tf32_kernel``, ``flash_dq_sliced_tf32_kernel`` and
+    ``flash_dkdv_sliced_tf32_kernel``, 3xTF32 on the tensor cores, each
+    product split into tf32 high and low parts, hi·hi + hi·lo + lo·hi
+    summed in f32); None where no kernel takes the call. A head dim the
+    kernels are not built for reports the route of
     :func:`padded_head_dim`, the width it runs at."""
-    if d < 1 or kernel not in ("fwd", "dq", "dkdv"):
+    if d < 1:
         return None
-    d = padded_head_dim(d)
-    if d <= 256:
+    if padded_head_dim(d) <= 256:
         return {torch.bfloat16: "tc", torch.float32: "cuda_cores"}.get(dtype)
-    f32 = "sliced" if kernel == "fwd" else "sliced_tf32"
-    return {torch.bfloat16: "sliced_tc", torch.float32: f32}.get(dtype)
+    return {torch.bfloat16: "sliced_tc",
+            torch.float32: "sliced_tf32"}.get(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -133,13 +130,14 @@ def _row(x):
 
 def flash_fwd_ref(q, k, v, scale, causal):
     """Plain version of :func:`flash_fwd`: o (q's dtype) and lse (B, S, H)
-    f32. P is rounded to v's dtype before P·V, unnormalised, as the
+    f32 (in float64 for float64 inputs, as the backward's plain
+    versions). P is rounded to v's dtype before P·V, unnormalised, as the
     kernel rounds it."""
     s = _scores(q, k, scale, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", _wide(p.to(v.dtype)), _wide(v))
     o = o / l.squeeze(-1).permute(0, 2, 1)[..., None]
     lse = (m + torch.log(l)).squeeze(-1).permute(0, 2, 1)
     return o.to(q.dtype), lse.contiguous()
@@ -197,17 +195,15 @@ def _kernel_fns():
 
 def bind(lib: ctypes.CDLL) -> dict:
     """The typed entries ``{"fwd", "dq", "dkdv"}`` of a library built from
-    csrc/flash_attention.cu. dq and dk/dv take a last pointer, the f32
-    workspace of the route "sliced_tf32" (``_work``), after the stream."""
+    csrc/flash_attention.cu. Each takes a last pointer, the f32 workspace
+    of the route "sliced_tf32" (``_work``), after the stream."""
     dims = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_void_p]
+                                 ctypes.c_void_p, ctypes.c_void_p]
     fns = {}
-    for name, n_ptr, work in (("fwd", 5, []), ("dq", 7, [ctypes.c_void_p]),
-                              ("dkdv", 8, [ctypes.c_void_p])):
+    for name, n_ptr in (("fwd", 5), ("dq", 7), ("dkdv", 8)):
         fn = getattr(lib, f"bigdl_flash_{name}")
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
-                       + work)
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
         fns[name] = fn
     return fns
 
@@ -241,25 +237,25 @@ def _check_cuda_bwd(q, k, v, do, lse, delta):
 
 
 def _work(name, q, k):
-    """The workspace of dq or dk/dv on the route "sliced_tf32": the tf32
-    high and low parts of the two operands the kernel walks (K and V for
-    dq, Q and dO for dk/dv), 4 floats an element of k or q; else None."""
-    if flash_route(q.dtype, q.shape[-1], name) != "sliced_tf32":
+    """The workspace of kernel ``name`` on the route "sliced_tf32": the
+    tf32 high and low parts of the operands it walks, 2 floats an
+    element of K for the forward, 4 for dq (K and V), 4 an element of Q
+    for dk/dv (Q and dO); else None."""
+    if flash_route(q.dtype, q.shape[-1]) != "sliced_tf32":
         return None
-    x = k if name == "dq" else q
-    return torch.empty(4 * x.numel(), dtype=torch.float32, device=x.device)
+    n = {"fwd": 2 * k.numel(), "dq": 4 * k.numel(), "dkdv": 4 * q.numel()}
+    return torch.empty(n[name], dtype=torch.float32, device=q.device)
 
 
 def _launch(name, q, k, ptrs, scale, causal):
     b, sq, h, d = q.shape
     fn = _kernel_fns()[name]
-    work = [] if name == "fwd" else [_work(name, q, k)]
+    work = _work(name, q, k)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODES[q.dtype], *[x.data_ptr() for x in ptrs], b, h,
                  sq, k.shape[1], d, float(scale), int(bool(causal)),
-                 stream, *[w.data_ptr() if w is not None else None
-                           for w in work])
+                 stream, None if work is None else work.data_ptr())
     if err:
         raise RuntimeError(f"flash_{name} kernel launch failed (code {err})")
 

@@ -29,8 +29,7 @@ the full width of the flagship LM with weights made from a seed:
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
   its ``-m attention`` mode at head dims 128, 256, 96 (Phi-3-mini's,
   padded to 128) and 512 (the sliced tensor-core flash forward, dq and
-  dk/dv), and at 512 in f32 (the CUDA-core sliced forward, the 3xTF32
-  dq and dk/dv);
+  dk/dv), and at 512 in f32 (the 3xTF32 forward, dq and dk/dv);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
@@ -278,9 +277,9 @@ _PERF_ATTENTION = (dict(batch=4, seq=4096, heads=8, head_dim=128),
                    dict(batch=4, seq=4096, heads=4, head_dim=256),
                    dict(batch=2, seq=2048, heads=32, head_dim=96),
                    dict(batch=4, seq=4096, heads=2, head_dim=512))
-# and its f32 run at D 512 (``--dataType f32``: the CUDA-core forward, the
-# 3xTF32 dq and dk/dv), the width the train mains' default f32 policy
-# takes past head dim 256
+# and its f32 run at D 512 (``--dataType f32``: the 3xTF32 forward, dq
+# and dk/dv), the width the train mains' default f32 policy takes past
+# head dim 256
 _PERF_ATTENTION_F32 = _PERF_ATTENTION[-1]
 
 # the LRN kernels: norm1 and norm2 of Inception-v1 at batch 256 (the
@@ -376,11 +375,9 @@ def _print_ptxas(report: str) -> None:
                       r"(?:Li(\d+)ELb([01])E(?:Lb([01])E)?)?", line)
         t = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv|"
                       r"flash_dkdv_split)_tc_kernelILi(\d+)E", line)
-        sl = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
-                       r"_sliced_kernelI(\w+?)E", line)
         st = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
                        r"_sliced_tc_kernelILi(\d+)E", line)
-        tf = re.search(r"entry function '\S*?(flash_dq|flash_dkdv)"
+        tf = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
                        r"_sliced_tf32_kernelILi(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
@@ -421,13 +418,9 @@ def _print_ptxas(report: str) -> None:
             name = (f"{tf.group(1)}_sliced_tf32 f32 (3xTF32 on the tensor "
                     f"cores, D past 256) OWN={tf.group(2)}")
         elif "tf32_split_kernel" in line:
-            name = "tf32_split f32 (the 3xTF32 backward's pass before)"
+            name = "tf32_split f32 (the 3xTF32 kernels' pass before)"
         elif t:
             name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
-        elif sl:
-            name = (f"{sl.group(1)}_sliced "
-                    f"{'bf16' if 'bfloat16' in sl.group(2) else 'f32'} "
-                    f"(CUDA cores, D past 256)")
         elif la:
             name = (f"{la.group(1)}_any "
                     f"{'bf16' if 'bfloat16' in la.group(2) else 'f32'} "
@@ -479,7 +472,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     instantiations of ``flash_fwd_sliced_tc_kernel``: slices of 3 and of
     4 chunks), the bf16 dq and dk/dv past D 256 (both instantiations of
     ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``),
-    the f32 (3xTF32) dq and dk/dv past D 256 (every instantiation of
+    the f32 (3xTF32) forward, dq and dk/dv past D 256 (every
+    instantiation of ``flash_fwd_sliced_tf32_kernel`` and
     ``flash_dq_sliced_tf32_kernel``: warpgroup chunks 2, 3, 4, and of
     ``flash_dkdv_sliced_tf32_kernel``: 3, 4), all three fused-CE kernels
     and the five paged prefill kernels (D 32, 64, 128, 192, 256) have
@@ -498,7 +492,7 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
                 sl = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tc"
                                r"_kernelILi(\d+)E", line)
-                tf = re.search(r"(flash_dq|flash_dkdv)_sliced_tf32"
+                tf = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tf32"
                                r"_kernelILi(\d+)E", line)
                 p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
@@ -533,7 +527,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                              for k in ("flash_fwd", "flash_dq", "flash_dkdv")
                              for n in (3, 4)) + tuple(
                              f"{k}_sliced_tf32 f32 OWN={n}"
-                             for k, owns in (("flash_dq", (2, 3, 4)),
+                             for k, owns in (("flash_fwd", (2, 3, 4)),
+                                             ("flash_dq", (2, 3, 4)),
                                              ("flash_dkdv", (3, 4)))
                              for n in owns) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
@@ -1649,7 +1644,7 @@ def _flash_bound(b, s, h, d, dtype, half_products):
 
 
 def _tf32_bound(b, s, h, d, half_products):
-    """The 3xTF32 kernels' own bound (f32 dq and dk/dv past D 256): three
+    """The 3xTF32 kernels' own bound (f32 past D 256): three
     tensor-core TF32 products for each multiply of the f32 function, the
     causal half's operations x 3 over the TF32 peak (or the bytes, where
     they take longer)."""
@@ -1658,13 +1653,13 @@ def _tf32_bound(b, s, h, d, half_products):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def _flash_kernel_bound(fa, b, s, h, d, dtype, kernel, half_products):
-    """(bound ms, bound_by, other fields) of flash ``kernel`` ("fwd",
-    "dq", "dkdv") on its route: ``_flash_bound``, or for the 3xTF32 dq
-    and dk/dv (route "sliced_tf32", on the tensor cores) ``_tf32_bound``,
-    with the f32 CUDA-core bound beside it as
-    ``bound_f32_cuda_cores_ms``."""
-    route = fa.flash_route(dtype, d, kernel)
+def _flash_kernel_bound(fa, b, s, h, d, dtype, half_products):
+    """(bound ms, bound_by, other fields) of the flash kernel of
+    ``half_products`` (2 forward, 3 dq, 4 dk/dv) on its route:
+    ``_flash_bound``, or for the 3xTF32 kernels (route "sliced_tf32", on
+    the tensor cores) ``_tf32_bound``, with the f32 CUDA-core bound beside
+    it as ``bound_f32_cuda_cores_ms``."""
+    route = fa.flash_route(dtype, d)
     bound, by = _flash_bound(b, s, h, d, dtype, half_products)
     if route != "sliced_tf32":
         return bound, by, {}
@@ -1729,6 +1724,18 @@ def _flash_entry_outputs(fa, q, k, v, do, causal):
             *torch.autograd.grad(o, (q, k, v), do))
 
 
+def _flash_fwd_refs(fa, q, k, v, scale, causal):
+    """o and lse of the plain forward, the f32 one evaluated in float64 on
+    the same inputs (``flash_fwd_ref`` keeps float64 inputs in float64)
+    and rounded to f32, as ``_flash_bwd_refs`` holds the backward; bf16
+    as it is, its rounding points kept."""
+    if q.dtype != torch.float32:
+        return fa.flash_fwd_ref(q, k, v, scale, causal)
+    o, lse = fa.flash_fwd_ref(q.double(), k.double(), v.double(), scale,
+                              causal)
+    return o.float(), lse.float()
+
+
 def _flash_bwd_refs(fa, q, k, v, do, lse, delta, scale, causal):
     """dq, dk, dv of the plain versions, the f32 ones evaluated in float64
     on the same inputs (lse and delta as given) and rounded to f32: in f32
@@ -1745,13 +1752,13 @@ def _flash_bwd_refs(fa, q, k, v, do, lse, delta, scale, causal):
 
 def _flash_outputs(fa, q, k, v, do, scale, causal, kernel):
     """o, lse, dq, dk, dv of the kernels (``kernel``) or their plain
-    versions at the true head dim (the backward's by
-    ``_flash_bwd_refs``), the backward from the plain forward's lse and
-    delta. At a head dim the kernels are not built for
-    (``padded_head_dim``) the kernels' outputs are those of the entry
-    (``_flash_entry_outputs``: padded by the entry, the backward from
-    its own lse and o; ``scale`` must be the true D's)."""
-    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    versions at the true head dim (by ``_flash_fwd_refs`` and
+    ``_flash_bwd_refs``: the f32 ones in float64), the backward from the
+    plain forward's lse and delta. At a head dim the kernels are not
+    built for (``padded_head_dim``) the kernels' outputs are those of the
+    entry (``_flash_entry_outputs``: padded by the entry, the backward
+    from its own lse and o; ``scale`` must be the true D's)."""
+    ro, rlse = _flash_fwd_refs(fa, q, k, v, scale, causal)
     delta = (do.float() * ro.float()).sum(-1)
     if not kernel:
         return (ro, rlse, *_flash_bwd_refs(fa, q, k, v, do, rlse, delta,
@@ -1793,16 +1800,43 @@ def _flash_tails(fa, gen):
     dq's query tiles paired where the causal grid fits one wave, and
     unpaired at B4 S1000 H8 D512; at S 300, 5 tiles, the middle one
     alone; their SASS is held to HGMMA by ``_check_tensor_cores``); f32
-    at 576 and 1024 too: the CUDA-core forward and the 3xTF32 dq and
-    dk/dv, also at S 300 (five tiles, causal), at Sq 300 / Skv 136 (D 320
-    and 512, not causal), on the 512-CTA causal grid, where dq's slice
-    is 8 chunks wide, and at B2 S2048 H2 D1024 causal, where dS cancels
-    in the first row of each (b, h). Head dims 16, 80, 96 and
-    288, both causal and not
-    in each dtype, go through ``flash_attention_with_lse`` and autograd,
-    which run the kernels zero-padded to 32, 128, 128 and 320
-    (``padded_head_dim``), held against the plain versions at the true
-    head dim."""
+    at 576 and 1024 too: the 3xTF32 forward, dq and dk/dv, also at S 300
+    (five tiles, causal), at Sq 300 / Skv 136 (D 320 and 512, not
+    causal), on the 512-CTA causal grid, where the forward's and dq's
+    slice is 8 chunks wide, at B2 S2048 H2 D1024 causal, where dS
+    cancels in the first row of each (b, h), and at D 512 with a ramp
+    along the keys' positions (``ramp``), causal and not, so the
+    forward's running max rises at every key tile and each tile rescales
+    o by α = exp(m_old - m_new) far from 1. Head dims 16, 80, 96 and 288,
+    both causal and not in each dtype, go through
+    ``flash_attention_with_lse`` and autograd, which run the kernels
+    zero-padded to 32, 128, 128 and 320 (``padded_head_dim``), held
+    against the plain versions at the true head dim. The f32 outputs
+    are held to the plain versions evaluated in float64
+    (``_flash_outputs``)."""
+    def tail(b, sq, skv, h, d, causal, dtype, ramp=0.0):
+        q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
+                 .to(_DEV) for _ in range(2))
+        k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
+                .to(_DEV) for _ in range(2))
+        if ramp:
+            # q leans toward the all-ones direction (its elements' mean
+            # 1/4), and key s gains ramp·s/skv in every element: the
+            # scores rise by about ramp·D^0.5/4 from the first key to the
+            # last
+            q += 0.25
+            k += ramp * (torch.arange(skv, device=_DEV, dtype=dtype)
+                         / skv)[None, :, None, None]
+        got = _flash_outputs(fa, q, k, v, do, d ** -0.5, causal, True)
+        torch.cuda.synchronize()
+        want = _flash_outputs(fa, q, k, v, do, d ** -0.5, causal, False)
+        label = (f"tails B={b} Sq={sq} Skv={skv} H={h} D={d} "
+                 f"causal={causal} {str(dtype)[6:]}"
+                 + (f" ramp={ramp}" if ramp else ""))
+        errs, worst = _flash_compare(got, want, label)
+        print(f"[kernels] flash {label} max abs errs " + json.dumps(errs)
+              + " worst error / limit " + json.dumps(worst), flush=True)
+
     for b, sq, skv, h, d, causal, dtype in (
             (2, 100, 100, 3, 32, True, torch.float32),
             (1, 130, 200, 2, 32, False, torch.float32),
@@ -1863,18 +1897,11 @@ def _flash_tails(fa, gen):
                   (1, 130, 200, False, torch.float32),
                   (2, 200, 200, True, torch.bfloat16),
                   (1, 200, 136, False, torch.bfloat16)))):
-        q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
-                 .to(_DEV) for _ in range(2))
-        k, v = (torch.randn((b, skv, h, d), generator=gen).to(dtype)
-                .to(_DEV) for _ in range(2))
-        got = _flash_outputs(fa, q, k, v, do, d ** -0.5, causal, True)
-        torch.cuda.synchronize()
-        want = _flash_outputs(fa, q, k, v, do, d ** -0.5, causal, False)
-        label = (f"tails B={b} Sq={sq} Skv={skv} H={h} D={d} "
-                 f"causal={causal} {str(dtype)[6:]}")
-        errs, worst = _flash_compare(got, want, label)
-        print(f"[kernels] flash {label} max abs errs " + json.dumps(errs)
-              + " worst error / limit " + json.dumps(worst), flush=True)
+        tail(b, sq, skv, h, d, causal, dtype)
+    # the forward's running max rising at every key tile (some 11 over
+    # the keys at D 512: about 2 a 64-key tile)
+    for b, sq, skv, causal in ((2, 300, 300, True), (1, 200, 500, False)):
+        tail(b, sq, skv, 2, 512, causal, torch.float32, ramp=2.0)
 
 
 def _sdpa_ms(qt, kt, vt, dot):
@@ -1898,8 +1925,8 @@ def _sdpa_ms(qt, kt, vt, dot):
 
 def _flash_timed(fa, gen, b, s, h, d):
     """The three flash kernels vs their plain versions at (b, s, h, d),
-    causal, bf16 (tensor cores) and f32 (CUDA cores; past D 256 dq and
-    dk/dv in 3xTF32 on the tensor cores), each timed beside its bound
+    causal, bf16 (tensor cores) and f32 (CUDA cores; past D 256 in
+    3xTF32 on the tensor cores), each timed beside its bound
     (``_flash_kernel_bound``), its plain version and SDPA; rows by
     (kernel, dtype). At a
     head dim the kernels run zero-padded, the errors are those of
@@ -1951,9 +1978,9 @@ def _flash_timed(fa, gen, b, s, h, d):
                   if width != d else None)
         for kname, (kern, plain, halves, lib, err) in kernels.items():
             bound, by, more = _flash_kernel_bound(fa, b, s, h, d, dtype,
-                                                  kname[6:], halves)
+                                                  halves)
             ms = _time_ms(kern)
-            row = dict(kernel=fa.flash_route(dtype, d, kname[6:]),
+            row = dict(kernel=fa.flash_route(dtype, d),
                        max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
                        bound_ms=bound, bound_by=by, library_ms=lib,
                        tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
@@ -1980,8 +2007,8 @@ def _flash_main_shape(fa, gen):
     """The kernels past D 256 at ``[perf]``'s ``-m attention`` D 512 shape
     (``_PERF_ATTENTION``'s last: B4 S4096 H2, causal; past one wave of
     the card, so query tiles unpaired, as the main path runs them), in
-    bf16 (the sliced tensor-core kernels) and f32 (the CUDA-core forward,
-    the 3xTF32 dq and dk/dv): o and lse held against ``flash_fwd_ref``,
+    bf16 (the sliced tensor-core kernels) and f32 (the 3xTF32 forward, dq
+    and dk/dv): o and lse held against ``flash_fwd_ref``,
     dq against ``flash_dq_ref`` and dk, dv against ``flash_dkdv_ref``
     (from the plain forward's lse and delta) within ``_FLASH_TOL``, then
     each timed beside its bound (``_flash_kernel_bound``), its plain
@@ -2026,10 +2053,10 @@ def _flash_main_shape(fa, gen):
         }
         for kname, (kern, plain, halves, lib, err) in kernels.items():
             bound, by, more = _flash_kernel_bound(fa, b, s, h, d, dtype,
-                                                  kname[6:], halves)
+                                                  halves)
             ms = _time_ms(kern)
             row = dict(
-                kernel=fa.flash_route(dtype, d, kname[6:]),
+                kernel=fa.flash_route(dtype, d),
                 max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
                 bound_ms=bound, bound_by=by, library_ms=lib,
                 tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
@@ -2075,7 +2102,7 @@ def phase_flash(fa, gen):
     and in bf16 at ``_FLASH_NARROW``, then timed at the training shapes
     (B4 S2048 H8 D128, causal), at head dim 256 (B4 S2048 H4 D256) and at
     512 (B2 S2048 H2, the D-sliced kernels), bf16 (tensor cores) and f32
-    (CUDA cores, but the 3xTF32 dq and dk/dv past D 256); SDPA as the
+    (CUDA cores, but the 3xTF32 kernels past D 256); SDPA as the
     library yardstick. Each row also gives the kernel's rate over the
     causal half's operations and its share of the bound (bound_ms / ms).
     Rows by (kernel, dtype, head dim); under "main_shape" the kernels
@@ -3083,7 +3110,7 @@ def main(argv=None) -> int:
                    if d == 512 else flash_rows[(name, torch.bfloat16, d)])
             # past D 256 the bf16 kernels are the sliced tensor-core ones
             kname = (name + "_sliced_tc" if fa.flash_route(
-                torch.bfloat16, d, count) == "sliced_tc" else name)
+                torch.bfloat16, d) == "sliced_tc" else name)
             kernels.append({
                 "name": kname + suffix, "route": "cuda",
                 "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
@@ -3093,16 +3120,15 @@ def main(argv=None) -> int:
                 **{k: row[k] for k in keys}})
     # the f32 rows at D 512, timed at B4 S4096 H2 (``_flash_main_shape``),
     # their launches those of [perf]'s -m attention --dataType f32 there:
-    # the CUDA-core sliced forward, and the 3xTF32 dq and dk/dv (bound_ms
-    # theirs on the tensor cores, the f32 CUDA-core one beside it)
+    # the 3xTF32 forward, dq and dk/dv (bound_ms theirs on the tensor
+    # cores, the f32 CUDA-core one beside it)
     counts = perf_flash[(512, "f32")]
     for name, line, count in (("flash_fwd", 190, "fwd"),
                               ("flash_dq", 306, "dq"),
                               ("flash_dkdv", 322, "dkdv")):
         row = flash_rows["main_shape"][(name, torch.float32)]
-        suffix = {"sliced": "_sliced_f32", "sliced_tf32": "_sliced_tf32"}
         kernels.append({
-            "name": name + suffix[row["kernel"]] + "_d512", "route": "cuda",
+            "name": f"{name}_{row['kernel']}_d512", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": counts[count], **{k: row[k] for k in keys},

@@ -8,15 +8,15 @@ this checkout's headers) into a temporary directory and runs each
 version's forward, dq and dk/dv at the ``[train]`` shapes B4 S2048 with
 H·D = 1024 (H8 at D 128; ``--heads`` fixes H instead, as the wide head
 dims need: ``--dims 320 512 576 1024 --batch 2 --heads 2``), causal, in
-bf16 (tensor cores) and f32 (CUDA cores up to D 256; past it the
-CUDA-core forward and the 3xTF32 dq and dk/dv, whose workspace pointer
-comes last, so another version's entry that takes none ignores it). For
-each head dim and dtype it
+bf16 (tensor cores) and f32 (CUDA cores up to D 256; past it the 3xTF32
+forward, dq and dk/dv, whose workspace pointer comes last, so another
+version's entry that takes none ignores it). For each head dim and dtype
+it
 prints whether the two versions' outputs are bit-equal (the kernels use
 no atomics, so unchanged code gives equal bits) and each version's worst
 error over ``chip_smoke.py``'s limits against the plain versions
 (bit-equality also output by output: where this checkout routes a call
-to a new kernel, ``flash_route`` of each version is printed beside it),
+to a new kernel, this checkout's ``flash_route`` is printed beside it),
 then times the kernels in turns (this, other, other, this;
 ``chip_smoke._time_ms`` each: L2 flushed, median of 20): one line per
 kernel with both versions' times and the ratio of their means (this /
@@ -24,7 +24,7 @@ other). Last, the card's name and power limit. It exits 1 if any output
 of either version is non-finite or past its limit (after every head dim
 and dtype has been checked and timed, so that a known fault does not
 hide the other readings). The f32 gradients are held against the plain
-versions evaluated in float64 (``chip_smoke._flash_bwd_refs``);
+versions evaluated in float64 (``chip_smoke._flash_outputs``);
 ``--worst N`` also prints, for each f32 draw, the N elements of each
 version's dq, dk and dv farthest from them (in units of their limit),
 each beside the f32 plain version's value and distance.
@@ -138,10 +138,9 @@ def _ab(fns, gen, b, s, d, dtype, card, h, worst_n):
                         worst_n, f"B={b} S={s} H={h} D={d}")
     each = {what: torch.equal(x, y) for what, x, y in
             zip(("o", "lse", "dq", "dk", "dv"), *outs.values())}
-    routes = {k: fa.flash_route(dtype, d, k) for k in ("fwd", "dq", "dkdv")}
     print(f"[ab] check B={b} S={s} H={h} D={d} {name}: bit_equal="
           f"{all(each.values())} by output {json.dumps(each)} this "
-          f"checkout's routes {json.dumps(routes)} worst error / limit "
+          f"checkout's route {fa.flash_route(dtype, d)} worst error / limit "
           + json.dumps(worst), flush=True)
     calls = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True),

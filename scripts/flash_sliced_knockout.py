@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the flash kernels past head dim 256 with one design choice
 undone at a time, in turns, on one NVIDIA card: the bf16 ones, or
-(``--only tf32``) the f32 3xTF32 dq and dk/dv.
+(``--only tf32``) the f32 3xTF32 ones.
 
 Builds ``bigdl_tpu_torch/csrc/flash_attention.cu`` as it is and copies
 of it with one exact text replacement each (``VARIANTS``: the forward's
@@ -21,18 +21,21 @@ its key tiles or kept K and V resident measured no faster, and went.
 (B2 S2048 and B4 S4096 H2 D512, B2 S2048 H2 and H4 D1024): S's sums or
 the output products' chained across steps (no fresh sums), S's steps
 summed afresh every 4 or every K step (not every 2), S's high products
-first, cvt.rna.tf32.f32 for the rounding; dP formed as S is (the first
-design), with tf32 splits, without lo·lo, or with hi·hi in the low
-products' sum; the walked operands split inside the kernel (no split
-pass, no workspace); and dq's and dk/dv's slice widths. The variants
-that show the error a choice keeps off are held to nothing. One line
-per shape, version and kernel with both readings, their mean and the
-ratio of means to this checkout's kernel; last, the card's name and
-power limit. ``--only fwd`` or ``--only bwd`` builds and times one
-side's bf16 variants alone. It exits 1 if a replacement's text is not in
-the source (the line says which; an edit of those lines must update it)
-or if any output of a variant held to the limits is non-finite or past
-them, after every reading.
+first, cvt.rna.tf32.f32 for the rounding (each of these in the forward,
+dq and dk/dv, which share those steps); dP on each row group's grid; the
+walked operands split inside the kernel (no split pass, no workspace);
+the slice widths of the forward and dq (one choice for both) and of
+dk/dv; and the forward's score product formed by one warpgroup alone
+(not half of it by each). The variants that show the error a choice
+keeps off are held to nothing. The f32 outputs are held to the plain
+versions evaluated in float64 (``chip_smoke._flash_fwd_refs``,
+``_flash_bwd_refs``). One line per shape, version and kernel with both
+readings, their mean and the ratio of means to this checkout's kernel;
+last, the card's name and power limit. ``--only fwd`` or ``--only bwd``
+builds and times one side's bf16 variants alone. It exits 1 if a
+replacement's text is not in the source (the line says which; an edit
+of those lines must update it) or if any output of a variant held to
+the limits is non-finite or past them, after every reading.
 
     python3 scripts/flash_sliced_knockout.py [--only fwd|bwd|tf32]
         [--seed N]
@@ -283,12 +286,12 @@ def _dp_call(then):
     return tuple(x.format(then=then) for x in _DP_CALL)
 
 
-#: the f32 dq and dk/dv past D 256 (``--only tf32``), as ``VARIANTS``;
-#: the fourth field, True, marks a variant held to no limit (its error
-#: is the reading)
+#: the f32 kernels past D 256 (``--only tf32``), as ``VARIANTS``; the
+#: fourth field, True, marks a variant held to no limit (its error is the
+#: reading)
 TF32_VARIANTS = {
     "chained_score": (
-        ("dq", "dkdv"),
+        ("fwd", "dq", "dkdv"),
         "the score products summed in one tensor-core chain over all of D "
         "(no fresh sum every 2 K steps)",
         [("    float acc[32];\n    wg_fence();",
@@ -300,7 +303,7 @@ TF32_VARIANTS = {
           "      s[e] = first && k0 == 0 ? acc[e] : s[e] + acc[e];", "")],
         True),
     "chained_out": (
-        ("dq", "dkdv"),
+        ("fwd", "dq", "dkdv"),
         "the output products summed in one tensor-core chain over the "
         "walked tiles (no fresh sum every 4 K steps)",
         [("  for (int half = 0; half < 2; ++half) {\n    float d[32];",
@@ -311,16 +314,16 @@ TF32_VARIANTS = {
          ("#pragma unroll\n    for (int e = 0; e < 32; ++e) acc[e] += d[e];"
           "\n  }\n}", "  }\n}")], True),
     "score_ks4": (
-        ("dq", "dkdv"),
+        ("fwd", "dq", "dkdv"),
         "each score step's 4 K steps in one fresh sum (not 2 + 2)",
         [("constexpr int kTfScoreKs = 2;", "constexpr int kTfScoreKs = 4;")],
         True),
     "score_ks1": (
-        ("dq", "dkdv"),
+        ("fwd", "dq", "dkdv"),
         "a fresh sum for every K step of a score step (4, not 2 + 2)",
         [("constexpr int kTfScoreKs = 2;", "constexpr int kTfScoreKs = 1;")]),
     "hi_first": (
-        ("dq", "dkdv"),
+        ("fwd", "dq", "dkdv"),
         "each fresh score sum's hi·hi products before its low terms",
         [("""#pragma unroll
     for (int kk = 0; kk < kTfScoreKs; ++kk) {
@@ -341,7 +344,7 @@ TF32_VARIANTS = {
       wgmma_tf32_rs_n64(acc, al[kk], desc(b_t + k), 1);
     }""")], True),
     "cvt_round": (
-        ("dq", "dkdv"),
+        ("fwd", "dq", "dkdv"),
         "the tf32 rounding by cvt.rna.tf32.f32 (the header inlined with it)",
         [('#include "hopper.cuh"',
           _HOPPER.replace(_INT_ROUND, _CVT_ROUND)
@@ -398,12 +401,14 @@ TF32_VARIANTS = {
           "  if (int e = make_map(&p[2], dout, B, Sq, H, D, 64, true)) "
           "return e;\n  p[1] = p[0];\n  p[3] = p[2];")]),
     "dq_slices8": (
-        ("dq",),
-        "dq: slices of up to 8 chunks whatever the grid (one at D 512)",
+        ("fwd", "dq"),
+        "the forward and dq: slices of up to 8 chunks whatever the grid "
+        "(one at D 512)",
         [("  if (rows * fewest <= sms) {", "  if (false) {")]),
     "dq_slices6": (
-        ("dq",),
-        "dq: slices of up to 6 chunks whatever the grid (two at D 512)",
+        ("fwd", "dq"),
+        "the forward and dq: slices of up to 6 chunks whatever the grid "
+        "(two at D 512)",
         [("  if (rows * fewest <= sms) {", "  if (true) {")]),
     "dkdv_own3": (
         ("dkdv",),
@@ -411,6 +416,25 @@ TF32_VARIANTS = {
         [("  return sl_own(D / 64) == 3\n             ? "
           "dkdv_sliced_tf32_own<3>(",
           "  return true\n             ? dkdv_sliced_tf32_own<3>(")]),
+    "fwd_whole_s": (
+        ("fwd",),
+        "the forward: warpgroup 0 forms all of S (D / 32 score steps a "
+        "key tile, three boxes a stage), warpgroup 1 no part of it",
+        [("  const int nh = D / 64;                   // score steps a key "
+          "tile",
+          "  const int nh = D / 32;                   // score steps a key "
+          "tile"),
+         ("          const uint32_t dst = ring.acquire(t, kTfStage);\n"
+          "          for (int g = 0; g < 2; ++g) {",
+          "          const uint32_t dst = ring.acquire(t, 3 * kTfBox);\n"
+          "          for (int g = 0; g < 1; ++g) {"),
+         ("        tf_score_step(s, st + 2 * G * kTfBox, st + (2 * G + 1) * "
+          "kTfBox,\n                      st + (4 + G) * kTfBox, j == 0);",
+          "        if (G == 0)\n"
+          "          tf_score_step(s, st, st + kTfBox, st + 4 * kTfBox, "
+          "j == 0);"),
+         ("tf_give(xs, s);", ";"),
+         ("tf_take(s, xs);", ";")]),
 }
 TF32_SHAPES = ((2, 2048, 2, 512), (4, 4096, 2, 512), (2, 2048, 2, 1024),
                (2, 2048, 4, 1024))
@@ -492,7 +516,7 @@ def _shape(fns, kernels, gen, b, s, h, d, card, dtype, unheld):
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen)
                    .to(dtype).to(chip_smoke._DEV)
                    for _ in range(4))
-    ro, rlse = fa.flash_fwd_ref(q, k, v, scale, True)
+    ro, rlse = chip_smoke._flash_fwd_refs(fa, q, k, v, scale, True)
     delta = (do.float() * ro.float()).sum(-1)
     calls = {
         "fwd": lambda: fa.flash_fwd(q, k, v, scale, True),

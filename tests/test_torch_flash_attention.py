@@ -285,16 +285,15 @@ _WIDE_BF16 = {"fwd": ("tc::fwd_sliced", "int fwd_sliced_own(",
                      "flash_dq_sliced_tc_kernel<OWN>"),
               "dkdv": ("tc::dkdv_sliced", "int dkdv_sliced_own(",
                        "flash_dkdv_sliced_tc_kernel<OWN>")}
-#: the f32 launcher past D 256 of each C entry (the forward names it in
-#: the dispatch; dq and dk/dv through their ``wide_f32``, which passes the
-#: workspace on), the function that launches its kernel, the kernel and
-#: its route
-_WIDE_F32 = {"fwd": ("sliced::fwd<float>", "int fwd(int D, ",
-                     "flash_fwd_sliced_kernel<T>", "sliced"),
+#: the f32 launcher past D 256 of each C entry (named in the entry's
+#: ``wide_f32``, which passes the workspace on), the function that
+#: launches its kernel, and the kernel (route "sliced_tf32")
+_WIDE_F32 = {"fwd": ("tc::fwd_sliced_tf32", "int fwd_sliced_tf32_own(",
+                     "flash_fwd_sliced_tf32_kernel<OWN>"),
              "dq": ("tc::dq_sliced_tf32", "int dq_sliced_tf32_own(",
-                    "flash_dq_sliced_tf32_kernel<OWN>", "sliced_tf32"),
+                    "flash_dq_sliced_tf32_kernel<OWN>"),
              "dkdv": ("tc::dkdv_sliced_tf32", "int dkdv_sliced_tf32_own(",
-                      "flash_dkdv_sliced_tf32_kernel<OWN>", "sliced_tf32")}
+                      "flash_dkdv_sliced_tf32_kernel<OWN>")}
 
 
 def _function_body(src, head):
@@ -314,11 +313,11 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     choices — bf16: ``tc::fwd_sliced``, ``tc::dq_sliced`` and
     ``tc::dkdv_sliced``, whose launchers launch
     ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (route "sliced_tc"); f32:
-    the CUDA-core ``sliced::fwd<float>`` for the forward (route
-    "sliced"), and for dq and dk/dv ``tc::dq_sliced_tf32`` and
+    ``tc::fwd_sliced_tf32``, ``tc::dq_sliced_tf32`` and
     ``tc::dkdv_sliced_tf32`` (through the entry's ``wide_f32``), whose
-    launchers launch ``flash_{dq,dkdv}_sliced_tf32_kernel`` (3xTF32 on
-    the tensor cores, route "sliced_tf32")."""
+    launchers launch ``flash_{fwd,dq,dkdv}_sliced_tf32_kernel`` (3xTF32
+    on the tensor cores, route "sliced_tf32"). The route is the same for
+    the three entries."""
     src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
            / "flash_attention.cu").read_text()
     macro = src[src.index(
@@ -335,20 +334,16 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     f32_wide, bf16_wide = re.search(
         rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+), ([^,]+),", src).groups()
     entry = _function_body(src, f'extern "C" int bigdl_flash_{kernel}(')
-    f32_name, f32_launcher, f32_kernel, f32_route = _WIDE_F32[kernel]
-    if kernel == "fwd":
-        assert f32_wide == f32_name
-    else:
-        # the entry's lambda hands every argument and the workspace to
-        # the f32 launcher
-        assert f32_wide == "wide_f32"
-        assert f"return {f32_name}(D, a..., work);" in entry
+    f32_name, f32_launcher, f32_kernel = _WIDE_F32[kernel]
+    # the entry's lambda hands every argument and the workspace to the f32
+    # launcher
+    assert f32_wide == "wide_f32"
+    assert f"return {f32_name}(D, a..., work);" in entry
     assert f32_kernel in _function_body(src, f32_launcher)
-    if kernel != "fwd":
-        # the launcher's caller picks between its instantiations
-        name = f32_name.split("::")[1]
-        caller = _function_body(src, f"int {name}(int D, ")
-        assert f32_launcher[4:-1] + "<" in caller
+    # the launcher's caller picks between its instantiations
+    name = f32_name.split("::")[1]
+    caller = _function_body(src, f"int {name}(int D, ")
+    assert f32_launcher[4:-1] + "<" in caller
     b_entry, b_launcher, b_kernel = _WIDE_BF16[kernel]
     assert bf16_wide == b_entry
     assert b_kernel in _function_body(src, b_launcher)
@@ -361,18 +356,18 @@ def test_flash_route_matches_the_c_dispatch(kernel):
             if (code, d) in own:
                 built[d] = own[(code, d)]
             elif d > 256 and d % 64 == 0:
-                built[d] = f32_route if code == 0 else "sliced_tc"
+                built[d] = "sliced_tf32" if code == 0 else "sliced_tc"
         assert set(built) == {d for d in range(32, 4097, 32)
                               if tfa._head_dim_ok(d)}
         # every other head dim runs padded to the next built one, on its
         # route
         for d in range(1, 4097):
-            assert tfa.flash_route(dtype, d, kernel) == built[
+            assert tfa.flash_route(dtype, d) == built[
                 tfa.padded_head_dim(d)], (kernel, dtype, d)
-    assert tfa.flash_route(torch.float16, 128, kernel) is None
-    assert all(tfa.flash_route(torch.bfloat16, d, kernel) == "sliced_tc"
+    assert tfa.flash_route(torch.float16, 128) is None
+    assert all(tfa.flash_route(torch.bfloat16, d) == "sliced_tc"
                for d in (320, 384, 448, 512, 576, 1024))
-    assert all(tfa.flash_route(torch.float32, d, kernel) == f32_route
+    assert all(tfa.flash_route(torch.float32, d) == "sliced_tf32"
                for d in (320, 384, 448, 512, 576, 1024))
 
 
@@ -453,6 +448,95 @@ def test_3xtf32_products_hold_the_f32_limit(causal):
             assert max(worst.values()) <= 1, (mm.__name__, worst)
         else:
             assert min(worst.values()) > 1, (mm.__name__, worst)
+
+
+def _emulated_forward(q, k, v, scale, causal, mm):
+    """o and lse of one (b, h) as the f32 forward past D 256 forms them:
+    64-key tiles walked with the online softmax (row max m and sum l; o
+    rescaled by exp(m_old - m_new) at each tile), S = Q·Kᵀ and P·V through
+    ``mm``, P left in f32 at the running max, o divided by l at the
+    end."""
+    sq, skv = q.shape[0], k.shape[0]
+    m = torch.full((sq, 1), -torch.inf)
+    lsum = torch.zeros((sq, 1))
+    o = torch.zeros((sq, v.shape[1]))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, 64):
+        s = mm(q, k[k0:k0 + 64].T) * scale
+        if causal:
+            kpos = k0 + torch.arange(s.shape[1])[None, :]
+            s = torch.where(kpos > qpos, -1e9, s)
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        lsum = lsum * alpha + p.sum(dim=1, keepdim=True)
+        o = o * alpha + mm(p, v[k0:k0 + 64])
+        m = m_new
+    return o / lsum, (m + torch.log(lsum))[:, 0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_forward_holds_the_f32_limit(causal):
+    """The numerical argument of the f32 forward past D 256 (3xTF32 on
+    the tensor cores, the online softmax over 64-key tiles), emulated in
+    f32 on the CPU as ``test_3xtf32_products_hold_the_f32_limit`` does
+    the backward: at D 512 (B1 S192 H1, inputs from a numpy seed) o stays
+    within ``chip_smoke._FLASH_TOL[(float32, "o")]`` of ``flash_fwd_ref``
+    evaluated in float64 (measured as ``chip_smoke._worst`` does) and lse
+    within ``chip_smoke._LSE_TOL``, while the same walk with single TF32
+    products misses the o limit: the split keeps about 22 of f32's 24
+    bits, one TF32 product 11."""
+    cs = _chip_smoke()
+    rtol, atol = cs._FLASH_TOL[(torch.float32, "o")]
+    d = 512
+    q, k, v, _, _ = _inputs(1, 192, 1, d, seed=19)
+    q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+    scale = d ** -0.5
+    o64, lse64 = tfa.flash_fwd_ref(q.double(), k.double(), v.double(),
+                                   scale, causal)
+    assert o64.dtype == lse64.dtype == torch.float64
+    args = (q[0, :, 0], k[0, :, 0], v[0, :, 0], scale, causal)
+    for mm, holds in ((_mm_3xtf32, True), (_mm_1xtf32, False)):
+        o, lse = _emulated_forward(*args, mm)
+        worst_o = cs._worst(o, o64[0, :, 0], rtol, atol)[1]
+        worst_lse = cs._worst(lse, lse64[0, :, 0], None, cs._LSE_TOL)[1]
+        if holds:
+            assert max(worst_o, worst_lse) <= 1, (mm.__name__, worst_o,
+                                                  worst_lse)
+        else:
+            assert worst_o > 1, (mm.__name__, worst_o, worst_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_flash_fwd_ref_sums_float64_inputs_in_float64(dtype):
+    """``flash_fwd_ref`` as ``chip_smoke`` holds the f32 forward to it:
+    float64 inputs are summed in float64 (o and lse in float64, equal to
+    softmax·v in float64 to 1e-12), as the backward's plain versions do;
+    f32 and bf16 inputs give the bits they gave when P and v were cast to
+    f32 for P·V whatever the input (P rounded to v's dtype first)."""
+    q, k, v, _, _ = _inputs(1, 40, 2, 64, seed=5)
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    o, lse = tfa.flash_fwd_ref(q, k, v, 0.125, True)
+    s = tfa._scores(q, k, 0.125, True)
+    if dtype == torch.float64:
+        assert o.dtype == lse.dtype == torch.float64
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+        np.testing.assert_allclose(o.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+        np.testing.assert_allclose(
+            lse.numpy(), torch.logsumexp(s, dim=-1).permute(0, 2, 1).numpy(),
+            rtol=1e-12, atol=1e-12)
+        return
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    lsum = p.sum(dim=-1, keepdim=True)
+    want = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    want = want / lsum.squeeze(-1).permute(0, 2, 1)[..., None]
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert torch.equal(o, want.to(dtype))
+    assert torch.equal(lse, (m + torch.log(lsum)).squeeze(-1)
+                       .permute(0, 2, 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
