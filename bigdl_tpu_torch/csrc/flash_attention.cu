@@ -369,6 +369,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"       // mbarriers, TMA, wgmma, tensor maps
+#include "tf32.cuh"         // the 3xTF32 steps, ring and split pass
 
 namespace {
 
@@ -2335,166 +2336,15 @@ flash_dkdv_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
 // registers and B the P or dS parts.
 // ---------------------------------------------------------------------------
 
-constexpr int kTfBox = kSlKeys * kRowBytes;   // [64][32] f32: 8 KB
-// K steps of 8 a score step sums afresh (of its 4)
-constexpr int kTfScoreKs = 2;
-// a stage of the ring: A0, B0 hi, A1, B1 hi, B0 lo, B1 lo: 48 KB
-constexpr int kTfStage = 6 * kTfBox;
-// 64-column chunks a consumer warpgroup accumulates: 128 registers of
-// accumulator beside a score tile, its per-step sum and A's parts (96),
-// or beside an output step's sum and A's parts
-constexpr int kTfMaxOwn = 4;
-// registers a producer thread and a consumer thread hold
-constexpr int kTfProducerRegs = 24, kTfConsumerRegs = 240;
-static_assert(128 * kTfProducerRegs + kSlConsumers * kTfConsumerRegs <=
-                  kSlThreads * 168,
-              "setmaxnreg counts must fit the registers held at launch");
 // shared memory: the ring of ns stages; `outs` tiles of P or dS parts
 // (hi, then lo: [64 rows][64] as two [64][32] tiles each); the walked
-// tile's lse and delta; then the barriers full[kSlMaxStages],
-// empty[kSlMaxStages], sfull, sempty
+// tile's lse and delta; then the barriers full[kTfMaxStages],
+// empty[kTfMaxStages], sfull, sempty (tf32.cuh's TfRing and tf_init)
 __host__ __device__ constexpr int tf_bars_at(int ns, int outs) {
   return ns * kTfStage + outs * 4 * kTfBox + kStatBytes;
 }
 __host__ __device__ constexpr size_t tf_smem(int ns, int outs) {
-  return 1024 + tf_bars_at(ns, outs) + 8 * (2 * kSlMaxStages + 2);
-}
-
-// byte offset of f32 element (r, c) of a [rows][32] tile in TMA's 128-byte
-// swizzle: 16-byte chunk c / 4 of row r sits at chunk (c / 4) ^ (r % 8)
-__device__ __forceinline__ uint32_t tf_at(int r, int c) {
-  return r * kRowBytes + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
-}
-
-// One score step: s (+)= A·Bᵀ over 32 columns, A (a_t, the raw f32 box of
-// this CTA's 64 rows: warp w of the warpgroup rows 16w..16w + 15) split
-// into tf32 high and low parts in registers, B (the walked tile's rows)
-// as its high part at b_t and its low part at blo.
-// The step's products sum in a fresh accumulator, the low terms first
-// (hi·lo, lo·hi: four K steps of 8 each), then hi·hi, 12 wgmma m64n64k8;
-// s gains the sum in f32 (first: s = the sum). The tensor cores add each
-// product to the accumulator truncated to its precision, so a chain over
-// all of D (or low terms added after the high ones) loses a bit of the
-// running sum's magnitude at every step; summing each step apart keeps
-// that loss to the step's own terms. Returns once the products are done,
-// so the caller may release the stage.
-__device__ __forceinline__ void tf_score_step(float (&s)[32], uint32_t a_t,
-                                              uint32_t b_t, uint32_t blo,
-                                              bool first) {
-  const int i = threadIdx.x % 128, l = i % 32;
-  const int r0 = 16 * (i / 32) + l / 4, t = l % 4;
-#pragma unroll
-  for (int k0 = 0; k0 < 4; k0 += kTfScoreKs) {
-    uint32_t ah[kTfScoreKs][4], al[kTfScoreKs][4];
-#pragma unroll
-    for (int kk = 0; kk < kTfScoreKs; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_tf32(ld_shared(a_t + tf_at(r0 + 8 * (e & 1),
-                                          8 * (k0 + kk) + t + 4 * (e >> 1))),
-                   ah[kk][e], al[kk][e]);
-    float acc[32];
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTfScoreKs; ++kk) {
-      const uint32_t k = 32 * (k0 + kk);
-      wgmma_tf32_rs_n64(acc, ah[kk], desc(blo + k), kk > 0);
-      wgmma_tf32_rs_n64(acc, al[kk], desc(b_t + k), 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTfScoreKs; ++kk)
-      wgmma_tf32_rs_n64(acc, ah[kk], desc(b_t + 32 * (k0 + kk)), 1);
-    wg_commit();
-    wg_wait();
-    keep(acc);
-    keep(ah);
-    keep(al);
-#pragma unroll
-    for (int e = 0; e < 32; ++e)
-      s[e] = first && k0 == 0 ? acc[e] : s[e] + acc[e];
-  }
-}
-
-// s (a 64 x 64 accumulator: rows this CTA's, columns the walked tile's) as
-// tf32 high and low parts into hi and lo, each two [64][32] tiles (columns
-// 0-31, 32-63) in the 128-byte swizzle: the K-major B operand of the
-// output steps. (The caller fences and syncs before wgmma reads them.)
-__device__ __forceinline__ void tf_put(uint32_t hi, uint32_t lo,
-                                       const float (&s)[32]) {
-  const int i = threadIdx.x % 128, l = i % 32;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {           // element pairs 2j, 2j + 1
-    const int r = 16 * (i / 32) + l / 4 + 8 * (j % 2);
-    const int c = 8 * (j / 2) + 2 * (l % 4);
-    const uint32_t off = (c / 32) * kTfBox + tf_at(r, c % 32);
-    uint32_t h0, l0, h1, l1;
-    split_tf32(s[2 * j], h0, l0);
-    split_tf32(s[2 * j + 1], h1, l1);
-    st_shared2(hi + off, __uint_as_float(h0), __uint_as_float(h1));
-    st_shared2(lo + off, __uint_as_float(l0), __uint_as_float(l1));
-  }
-}
-// the f32 values (hi + lo) tf_put wrote, at this thread's positions
-__device__ __forceinline__ void tf_get(float (&s)[32], uint32_t hi,
-                                       uint32_t lo) {
-  const int i = threadIdx.x % 128, l = i % 32;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int r = 16 * (i / 32) + l / 4 + 8 * (j % 2);
-    const int c = 8 * (j / 2) + 2 * (l % 4);
-    const uint32_t off = (c / 32) * kTfBox + tf_at(r, c % 32);
-    float h[2], w[2];
-    ld_shared2(hi + off, h);
-    ld_shared2(lo + off, w);
-    s[2 * j] = h[0] + w[0];
-    s[2 * j + 1] = h[1] + w[1];
-  }
-}
-
-// One output step: acc (a 64 x 64 block of the output's transpose: rows
-// 64 of its columns, columns this CTA's rows) += A·B over the walked
-// tile's 64 rows, A those columns of the walked tile (the raw f32 tiles
-// at `tile`, [64 rows][32 columns] twice) split into tf32 parts in
-// registers, B the parts of P or dS (tf_put's tiles bhi, blo), K-major.
-// Per K step of 8 rows hi·lo, lo·hi, hi·hi, 24 wgmma m64n64k8 into a
-// fresh accumulator added to acc in f32 (tf_score_step's reason).
-__device__ __forceinline__ void tf_out_step(float (&acc)[32], uint32_t tile,
-                                            uint32_t bhi, uint32_t blo) {
-  const int i = threadIdx.x % 128, l = i % 32, t = l % 4;
-  // warp w's rows of A are the block's columns 16w..16w + 15, in tile
-  // (16w) / 32
-  const int c = (16 * (i / 32)) % 32 + l / 4;
-  const uint32_t a_t = tile + (i / 64) * kTfBox;
-  // two groups of 4 K steps, so A's parts of only one are held (all 8
-  // beside a 4-chunk accumulator spilled), each summed afresh
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float d[32];
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_tf32(ld_shared(a_t + tf_at(32 * half + 8 * kk + t +
-                                             4 * (e >> 1),
-                                         c + 8 * (e & 1))),
-                   ah[kk][e], al[kk][e]);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t k = half * kTfBox + kk * 32;
-      wgmma_tf32_rs_n64(d, ah[kk], desc(blo + k), kk > 0);
-      wgmma_tf32_rs_n64(d, al[kk], desc(bhi + k), 1);
-      wgmma_tf32_rs_n64(d, ah[kk], desc(bhi + k), 1);
-    }
-    wg_commit();
-    wg_wait();
-    keep(d);
-    keep(ah);
-    keep(al);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] += d[e];
-  }
+  return 1024 + tf_bars_at(ns, outs) + 8 * (2 * kTfMaxStages + 2);
 }
 
 // the rows of a (B, S, H, D) f32 output from `mine` of a warpgroup's OWN
@@ -2532,73 +2382,6 @@ __device__ __forceinline__ void tf_load_score(
   tma_load(dst + 3 * kTfBox, b1h, bar, 32 * c, h, w0, b);
   tma_load(dst + 4 * kTfBox, b0l, bar, 32 * c, h, w0, b);
   tma_load(dst + 5 * kTfBox, b1l, bar, 32 * c, h, w0, b);
-}
-
-// the ring walked with counters: the step's stage and its phase
-struct TfRing {
-  uint32_t ring0, bars;
-  int ns, st = 0, ph = 0;
-  __device__ uint32_t full() const { return bars + 8 * st; }
-  __device__ uint32_t empty() const { return bars + 8 * (kSlMaxStages + st); }
-  __device__ uint32_t stage() const { return ring0 + st * kTfStage; }
-  __device__ void next() {
-    if (++st == ns) {
-      st = 0;
-      ph ^= 1;
-    }
-  }
-  // the producer: wait until step t's stage is free, expect its bytes
-  __device__ uint32_t acquire(int t, uint32_t bytes) const {
-    if (t >= ns) bar_wait(empty(), ph ^ 1);
-    bar_expect(full(), bytes);
-    return stage();
-  }
-  // a consumer warp: wait for the step's stage; release it after
-  __device__ uint32_t wait() const {
-    warp_wait(full(), ph);
-    return stage();
-  }
-  __device__ void release() {
-    __syncwarp();
-    if (threadIdx.x % 32 == 0) bar_arrive(empty());
-    next();
-  }
-};
-
-__device__ __forceinline__ void tf_init(uint32_t bars, int ns) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < ns; ++s) {
-      bar_init(bars + 8 * s, 1);
-      bar_init(bars + 8 * (kSlMaxStages + s), kSlConsumers / 32);
-    }
-    bar_init(bars + 16 * kSlMaxStages, 1);                    // sfull
-    bar_init(bars + 16 * kSlMaxStages + 8, kSlConsumers / 32);  // sempty
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// A 64 x 64 accumulator (32 f32 a thread) through shared memory between
-// the two consumer warpgroups: element e of thread i of a warpgroup at xs
-// + 16·(128·(e / 4) + i) + 4·(e % 4), so consecutive threads store and
-// load consecutive 16 bytes. tf_give stores s; tf_take adds what the
-// thread of the same index in the other warpgroup stored to s.
-__device__ __forceinline__ void tf_give(uint32_t xs, const float (&s)[32]) {
-  const int i = threadIdx.x % 128;
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    st_shared4(xs + 16 * (128 * q + i), s[4 * q], s[4 * q + 1],
-               s[4 * q + 2], s[4 * q + 3]);
-}
-__device__ __forceinline__ void tf_take(float (&s)[32], uint32_t xs) {
-  const int i = threadIdx.x % 128;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    float x[4];
-    ld_shared4(xs + 16 * (128 * q + i), x);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[4 * q + e] += x[e];
-  }
 }
 
 // oᵀ's accumulators (columns: this CTA's 64 query rows) times one factor
@@ -2951,7 +2734,7 @@ flash_dkdv_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
   const uint32_t xb = base + ns * kTfStage;      // Pᵀ, then dSᵀ, parts
   const uint32_t stats = xb + 8 * kTfBox;  // lse, then delta: f32 [64]
   TfRing ring{base, base + tf_bars_at(ns, 2), ns};
-  const uint32_t sfull = ring.bars + 16 * kSlMaxStages, sempty = sfull + 8;
+  const uint32_t sfull = ring.bars + 16 * kTfMaxStages, sempty = sfull + 8;
 
   const int z = blockIdx.x % nsl, bh = blockIdx.x / nsl;
   const int b = bh / H, h = bh % H, tid = threadIdx.x;
@@ -3333,27 +3116,6 @@ int dkdv_sliced(int D, const void* q, const void* k, const void* v,
                                   dv, B, H, Sq, Skv, scale, causal, st);
 }
 
-// x (n4 groups of 4 f32) into its tf32 high and low parts (split_tf32):
-// the pass before the f32 backward past D 256, over the walked B operands
-__global__ void __launch_bounds__(256)
-tf32_split_kernel(const float4* __restrict__ x, float4* __restrict__ hi,
-                  float4* __restrict__ lo, int64_t n4) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float4 v = x[i];
-    uint32_t h[4], w[4];
-    split_tf32(v.x, h[0], w[0]);
-    split_tf32(v.y, h[1], w[1]);
-    split_tf32(v.z, h[2], w[2]);
-    split_tf32(v.w, h[3], w[3]);
-    hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                        __uint_as_float(h[2]), __uint_as_float(h[3]));
-    lo[i] = make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]),
-                        __uint_as_float(w[2]), __uint_as_float(w[3]));
-  }
-}
-
 // the parts of two (B, S, H, D) f32 tensors x0, x1 into `work` (hi0, lo0,
 // hi1, lo1, n = B·S·H·D floats each), and their four maps; of x0 alone
 // (hi0, lo0 and their two maps) where x1 is null
@@ -3363,15 +3125,10 @@ int tf_split(CUtensorMap (&m)[4], const void* x0, const void* x1,
   const int tensors = x1 ? 2 : 1;
   int sms = 0;
   if (int e = sm_count(&sms)) return e;
-  const int64_t want = (n / 4 + 255) / 256;
-  const int blocks = static_cast<int>(want < 8 * sms ? want : 8 * sms);
-  for (int j = 0; j < tensors; ++j) {
-    tf32_split_kernel<<<blocks, 256, 0, st>>>(
-        static_cast<const float4*>(j ? x1 : x0),
-        reinterpret_cast<float4*>(work + 2 * j * n),
-        reinterpret_cast<float4*>(work + (2 * j + 1) * n), n / 4);
-    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  }
+  for (int j = 0; j < tensors; ++j)
+    if (int e = tf_split_pass(j ? x1 : x0, work + 2 * j * n,
+                              work + (2 * j + 1) * n, n, sms, st))
+      return e;
   for (int j = 0; j < 2 * tensors; ++j)
     if (int e = make_map(&m[j], work + j * n, B, S, H, D, 64, true)) return e;
   return 0;

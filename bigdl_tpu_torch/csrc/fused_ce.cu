@@ -128,20 +128,89 @@
 //   that fce_dh_merge_kernel adds in split order and rounds to bf16.
 // - Sums are f32 in a fixed order (no atomics): deterministic.
 //
-// f32 (and the bf16 backward with D > 1024): f32 arithmetic on the CUDA
-// cores, one CTA per 16 resident rows and 64-row X tiles. D is streamed
-// in 64-column chunks of R and X (cp.async, double buffered); the 256
-// threads split a chunk's columns into four parts of 64 threads, each
-// owning 4 x 4 register tiles, summed through shared memory at the end.
-// The backward's accumulator is 16 rows x 1024 columns (thread t:
-// columns 4t .. 4t+3), X's rows read back from L2; D beyond 1024 takes
-// more CTAs along a second grid axis, each recomputing S.
+// Backward, f32, every D (tf::fce_bwd_tf32_kernel<kVocabRows>): 3xTF32
+// on the tensor cores (tf32.cuh, shared with the f32 flash kernels).
+// - Why. Each backward kernel forms the logits again: 4·N·V·D = 1.1e12
+//   operations at the harness head (N 8192, V 32768, D 1024), 16.4 ms at
+//   the CUDA cores' 67 TFLOP/s, so no CUDA-core pair (32.8 ms) can beat
+//   the library's whole f32 backward (23.2 ms: F.cross_entropy over
+//   F.linear, TF32 off; chip_smoke.py's library_ms). One TF32 product
+//   keeps 11 of f32's 24 bits and misses the f32 limits; x = hi + lo, hi
+//   = tf32(x), lo = tf32(x - hi), and hi·lo + lo·hi + hi·hi on wgmma
+//   m64n64k8 keeps about 22, three products a multiply: 6.66 ms a kernel
+//   at 495 TFLOP/s.
+// - Roles, as in the f32 flash forward. A CTA holds 64 resident rows R
+//   (token rows for dh, vocab rows for dW) and walks 64-row tiles of X.
+//   A producer warpgroup (setmaxnreg 24 / 240) streams a 3-stage ring of
+//   six [64][32] f32 boxes (48 KB) by TMA from 2-D maps: per score step
+//   of 32 columns, R's raw box and X's tf32 parts (hi, lo) for each of
+//   the two consumer warpgroups; per output step, X's raw columns of
+//   each warpgroup's 64-column chunk. A split pass (tf32_split_kernel)
+//   writes X's parts to a workspace first (2·nX·D floats: W's 256 MiB
+//   for dh, h's 64 MiB for dW at the harness head).
+// - The logits. Each warpgroup sums its share of S = R·Xᵀ over D
+//   (tf_score_step: A split in registers, a fresh sum every 2 K steps);
+//   warpgroup 1 hands its half to warpgroup 0 (named barrier 1).
+// - The D-wide accumulator. A 64-row f32 accumulator of D 1024 is 256
+//   KB, an SM's registers. Clusters of two CTAs each own 512 output
+//   columns (4 chunks a warpgroup, 128 registers a thread) and sum the
+//   logits over half of D; warpgroup 0 of each puts its CTA's 64 x 64
+//   partial into the other's shared memory (st.shared::cluster, then an
+//   mbarrier arrival released to the cluster; two buffers, so a CTA
+//   waits only until the other has read the tile before last) and adds
+//   the other's from its own: the same f32 sums in both CTAs, the logits
+//   formed once. Forming them in each CTA over all of D instead (no
+//   exchange, 1.5x the products) took 1.35-1.42x (dh) and 1.33-1.38x
+//   (dW) the time (fused_ce_knockout.py --only tf32,
+//   recompute_per_slice; NVIDIA H100 80GB HBM3, 700 W). Past D 1024 a
+//   row block takes ceil(D / 1024) clusters, each forming the logits
+//   over all of D for its columns (D 1032: two of 5 + 5 chunks a CTA).
+// - The epilogue. Warpgroup 0 forms dl = (exp(s + b - lse) - onehot)·g
+//   in f32 from the column values warpgroup 1 loaded under its score
+//   steps and staged in shared memory (dh: the bias; dW: lse, g and the
+//   target column), adds the unrounded dl to db's sums (two rows a
+//   thread, the lane quad added at the end) and puts dl's tf32 parts in
+//   shared memory (barrier 2).
+// - The output, transposed: dhᵀ = Xᵀ·dlᵀ, dWᵀ = Xᵀ·dl (tf_out_step: A
+//   X's raw columns split in registers, B dl's parts, K-major as the
+//   accumulator lays them; a fresh sum every 4 K steps), stored element
+//   by element at the end; dh's split walks (dh_splits) into f32
+//   partials that fce_dh_merge_kernel adds in split order.
+// - Numbers at the harness head, held to the function in float64 (as a
+//   fraction of chip_smoke.py's f32 limits): dh 0.11, dW 0.08, db 0.05.
+//   The output products chained over the walked tiles (no fresh sums)
+//   read 5.6x and 2.3x the limit; the score products chained over D
+//   read the same as the kept fresh sums here (dl does not cancel as
+//   flash's dS does) and 0.95-0.99x the time, but tf32.cuh's steps are
+//   the flash kernels' too, and the fresh sums stay.
+// - Pace (15.3-15.4 ms a kernel, 43 % of the 3xTF32 bound): no one part.
+//   With one taken out at a time (fused_ce_knockout.py): the output
+//   steps' products 0.75-0.78x, the score steps' 0.85-0.86x, A's split
+//   in registers 0.88-0.90x, dl's formation 0.89-0.91x, the exchange
+//   0.98x (dh) and 0.90x (dW), the TMA loads (L2 traffic) 0.97-0.98x.
+//   Half the products gone saves a sixth to a quarter of the time: the
+//   warpgroups wait on each fresh sum's wgmma and on each other (the
+//   epilogue runs while warpgroup 1 waits at barrier 2), not on L2.
+// - Waves. 256 CTAs (128 clusters) at N 8192 fill two waves of one CTA
+//   an SM; dh splits its vocab walk only where that lowers the whole-walk
+//   waves (4 parts at N 1000; none at N 8192).
+//
+// The f32 forward (and the bf16 backward with D > 1024): f32 arithmetic
+// on the CUDA cores, one CTA per 16 resident rows and 64-row X tiles. D
+// is streamed in 64-column chunks of R and X (cp.async, double
+// buffered); the 256 threads split a chunk's columns into four parts of
+// 64 threads, each owning 4 x 4 register tiles, summed through shared
+// memory at the end. The backward's accumulator is 16 rows x 1024
+// columns (thread t: columns 4t .. 4t+3), X's rows read back from L2; D
+// beyond 1024 takes more CTAs along a second grid axis, each recomputing
+// S.
 //
 // Both forwards may split the vocab across a further grid axis so that a
 // few rows still fill the card; fce_merge_kernel merges the per-split
 // (max, sum of exp, target logit) of each row into nll and lse. The
 // kernels allocate nothing: the Python wrapper (ops/fused_ce.py)
-// allocates outputs and the forward's and dh's partials and checks shapes,
+// allocates outputs, the forward's and dh's partials and the f32
+// backward's workspace, and checks shapes,
 // dtypes, contiguity and alignment. Any N, any V, D a multiple of 8
 // (16-byte rows for cp.async and the tensor maps); ragged tiles are
 // zero-filled and masked.
@@ -154,6 +223,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"       // mbarriers, TMA, wgmma, tensor maps
+#include "tf32.cuh"         // the 3xTF32 steps, ring and split pass
 
 namespace {
 
@@ -308,6 +378,91 @@ __global__ void fce_merge_kernel(const float* __restrict__ part, int splits,
 __device__ __forceinline__ float dlogit(float s, float lse, float g,
                                         bool target) {
   return (expf(s - lse) - (target ? 1.f : 0.f)) * g;
+}
+
+// dh = the split walks' f32 partial sums added in split order, in T (n
+// elements, a multiple of 4)
+template <typename T>
+__global__ void fce_dh_merge_kernel(const float* __restrict__ part,
+                                    int splits, int64_t n,
+                                    T* __restrict__ out) {
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x) * 4;
+  if (i >= n) return;
+  float x[4], y[4];
+  load4(part + i, x);
+  for (int z = 1; z < splits; ++z) {
+    load4(part + z * n + i, y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] += y[e];
+  }
+  store4(out + i, x);
+}
+
+template <typename T>
+int dh_merge(const float* part, int splits, int64_t n, T* out,
+             cudaStream_t st) {
+  fce_dh_merge_kernel<T><<<static_cast<unsigned>((n / 4 + 255) / 256), 256,
+                           0, st>>>(part, splits, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many walks a dh kernel splits the vocab into: the clusters the
+// card holds at once come in waves, and `rows` clusters of a whole walk
+// each may leave the last wave nearly empty; S walks of a part each,
+// their f32 partial sums added by fce_dh_merge_kernel, take the S in 1..4
+// (no more than the walk's `tiles`) with the fewest whole-walk waves,
+// ceil(S·rows / clusters) / S (1 where the runtime cannot say)
+int walk_splits(int rows, int tiles, int clusters) {
+  int best = 1;
+  for (int s = 2; s <= 4 && s <= tiles && clusters > 0; ++s)
+    if (((rows * s + clusters - 1) / clusters) * best <
+        ((rows * best + clusters - 1) / clusters) * s)
+      best = s;
+  return best;
+}
+
+// clusters of `kernel` (launched with `threads` and `smem`, its cluster
+// `ranks` CTAs along x, or along y where `along_y`) the card holds at
+// once, 0 if the runtime cannot say
+template <typename Kernel>
+int max_clusters(Kernel kernel, int ranks, bool along_y, int threads,
+                 size_t smem) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = along_y ? dim3(1, ranks) : dim3(ranks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  int n = 0;
+  if (set_smem(kernel, smem) ||
+      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();                    // clear it: no split, no error
+    return 0;
+  }
+  return n;
+}
+
+// (rows, D) bf16 at ptr as a 2-D (D, rows) map with boxes (64, box_rows),
+// the 128-byte swizzle; f32: boxes of (32, box_rows), the same 128-byte
+// rows; reads past either edge fill zeros
+int make_map(CUtensorMap* map, const void* ptr, int rows, int D,
+             int box_rows, bool f32 = false) {
+  const hopper::EncodeTiled enc = hopper::encode_tiled();
+  if (!enc) return hopper::kNoEncoder;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {f32 ? 32u : 64u,
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(map,
+                         f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         2, const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : hopper::kMapFailed + static_cast<int>(r);
 }
 
 // ===========================================================================
@@ -595,26 +750,6 @@ fce_bwd_tc_kernel(const __grid_constant__ CUtensorMap rm,
   }
 }
 
-// (rows, D) bf16 at ptr as a 2-D (D, rows) map with boxes (64, box_rows),
-// 128-byte swizzle; reads past either edge fill zeros
-int make_map(CUtensorMap* map, const void* ptr, int rows, int D,
-             int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return kNoEncoder;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(ptr), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kMapFailed + static_cast<int>(r);
-}
-
 // ---------------------------------------------------------------------------
 // forward: a GEMM with an online-logsumexp epilogue, 128 token rows a CTA
 // ---------------------------------------------------------------------------
@@ -809,59 +944,12 @@ fce_fwd_tc_kernel(const __grid_constant__ CUtensorMap hm,
   }
 }
 
-// dh = the split walks' f32 partial sums added in split order, in bf16
-// (n elements, a multiple of 4)
-__global__ void fce_dh_merge_kernel(const float* __restrict__ part,
-                                    int splits, int64_t n,
-                                    bf16* __restrict__ out) {
-  const int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x) * 4;
-  if (i >= n) return;
-  float x[4], y[4];
-  load4(part + i, x);
-  for (int z = 1; z < splits; ++z) {
-    load4(part + z * n + i, y);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[e] += y[e];
-  }
-  store4(out + i, x);
-}
-
-// How many walks the dh kernel splits the vocab into: the clusters the
-// card holds at once come in waves (30 on an H100 SXM), and N / 128
-// clusters of a whole walk each may leave the last wave nearly empty
-// (64 at N 8192: waves of 30, 30, 4); S walks of a part each, their f32
-// partial sums added by fce_dh_merge_kernel, take the S in 1..4 with the
-// fewest whole-walk waves, ceil(S·N/128 / clusters) / S.
-// clusters of the backward kernel the card holds at once (0 if the
-// runtime cannot say)
-int bwd_clusters() {
-  static const int clusters = [] {
-    auto kernel = fce_bwd_tc_kernel<false>;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(1, kRanks);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = kSmem;
-    int n = 0;
-    if (set_smem(kernel, kSmem) ||
-        cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
-      cudaGetLastError();                  // clear it: no split, no error
-      return 0;
-    }
-    return n;
-  }();
-  return clusters;
-}
-
+// the vocab walks of the dh kernel (walk_splits): N / 128 clusters of a
+// whole walk (64 at N 8192, 30 at once on an H100 SXM) take 4
 int dh_splits(int N, int V) {
-  const int clusters = bwd_clusters();
-  const int rows = (N + kRows - 1) / kRows, tiles = (V + kX - 1) / kX;
-  int best = 1;
-  for (int s = 2; s <= 4 && s <= tiles && clusters > 0; ++s)
-    if (((rows * s + clusters - 1) / clusters) * best <
-        ((rows * best + clusters - 1) / clusters) * s)
-      best = s;
-  return best;
+  static const int clusters = max_clusters(fce_bwd_tc_kernel<false>, kRanks,
+                                           true, kThreads, kSmem);
+  return walk_splits((N + kRows - 1) / kRows, (V + kX - 1) / kX, clusters);
 }
 
 template <bool kVocabRows>
@@ -878,12 +966,9 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
            st>>>(rm, xm, b, t, lse, g, static_cast<bf16*>(out), part, db, N,
                  V, D);
   if (int e = static_cast<int>(cudaGetLastError())) return e;
-  if (splits > 1) {
-    const int64_t n = static_cast<int64_t>(nR) * D;
-    fce_dh_merge_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256, 0,
-                          st>>>(part, splits, n, static_cast<bf16*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return splits > 1 ? dh_merge(part, splits, static_cast<int64_t>(nR) * D,
+                               static_cast<bf16*>(out), st)
+                    : 0;
 }
 
 // the forward's vocab splits: as many as keep one CTA on every SM at once,
@@ -912,8 +997,354 @@ int fwd(const void* h, const void* w, const float* b, const int* t,
 }  // namespace tc
 
 // ===========================================================================
-// f32 (and bf16 with D > 1024): CUDA cores, 16 resident rows a CTA
+// f32 dh and dW/db: 3xTF32 on the tensor cores, clusters of two CTAs
 // ===========================================================================
+
+namespace tf {
+
+using namespace hopper;
+
+constexpr int kRanks = 2;             // CTAs of a cluster
+constexpr int kStages = 3;            // ring stages (of kTfStage bytes)
+// output chunks (64 columns) a cluster owns: kTfMaxOwn a warpgroup
+constexpr int kSliceChunks = kRanks * 2 * kTfMaxOwn;
+constexpr int kTile = 64 * 64 * 4;    // one 64 x 64 f32 tile: 16 KB
+constexpr int kColBytes = 3 * 64 * 4;
+
+// shared memory (bytes from the 1024-aligned base): the ring of ns
+// stages; dl's tf32 parts (hi, then lo, two [64][32] tiles each);
+// warpgroup 1's half of the CTA's partial logits; the partner CTA's
+// partial logits, in two buffers (tile i in buffer i % 2); the walked
+// tile's column values (dh: the bias; dW: each token's lse, g and target
+// column); then the barriers full[kTfMaxStages], empty[kTfMaxStages],
+// xfull[2], xempty[2]
+__host__ __device__ constexpr int bars_at(int ns) {
+  return ns * kTfStage + 4 * kTfBox + 3 * kTile + kColBytes;
+}
+__host__ __device__ constexpr size_t smem_bytes(int ns) {
+  return 1024 + bars_at(ns) + 8 * (2 * kTfMaxStages + 4);
+}
+static_assert(smem_bytes(kStages) <= 232448,
+              "more shared memory than a CTA may have");
+
+// The cluster's logits tile from its CTAs' partials (warpgroup 0; tile
+// i of the walk): this CTA's s (a 64 x 64 accumulator) goes into the
+// partner's buffer i % 2 in tf_give's layout, and the partner's, from
+// this CTA's own buffer, is added to s (tf_take): s0 + s1 in both CTAs,
+// the same f32 sums. xfull[b] completes when the partner's 128 threads
+// have put a tile in buffer b; xempty[b] when they have read the tile
+// this CTA put in theirs, which tile i + 2 waits for.
+__device__ __forceinline__ void exchange(float (&s)[32], uint32_t recv,
+                                         uint32_t xfull, uint32_t xempty,
+                                         int rank, int i) {
+  const int b = i % 2, t = threadIdx.x % 128;
+  const uint32_t buf = recv + b * kTile;
+  if (i >= 2) bar_wait_cluster(xempty + 8 * b, ((i - 2) / 2) & 1);
+  const uint32_t there = mapa(buf, rank ^ 1);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    st_cluster4(there + 16 * (128 * q + t), s[4 * q], s[4 * q + 1],
+                s[4 * q + 2], s[4 * q + 3]);
+  bar_arrive_remote(mapa(xfull + 8 * b, rank ^ 1));
+  bar_wait_cluster(xfull + 8 * b, (i / 2) & 1);
+  tf_take(s, buf);
+  bar_arrive_remote(mapa(xempty + 8 * b, rank ^ 1));
+}
+// before warpgroup 0 leaves: the partner has read the tiles this CTA put
+// in its buffers last, so none of its arrivals lands after this CTA exits
+__device__ __forceinline__ void drain(uint32_t xempty, int nxt) {
+  for (int i = max(0, nxt - 2); i < nxt; ++i)
+    bar_wait_cluster(xempty + 8 * (i % 2), (i / 2) & 1);
+}
+
+// a consumer warpgroup's role, as a type: warpgroup 1 or not
+template <bool W1>
+struct Wg {
+  static constexpr bool kW1 = W1;
+};
+
+// dh (kVocabRows false: resident rows R = h's token rows, walked X = W's
+// vocab rows) or dW and db (true: R = W's rows, X = h's). CTA = 64
+// resident rows (blockIdx.y) and `own` output chunks (64 columns of D)
+// from chunk own·blockIdx.x; blockIdx.z a part of the walk (dh's splits:
+// f32 partial sums into out at split z, merged after). The cluster's two
+// CTAs (blockIdx.x 2q, 2q + 1) share the resident rows and split the
+// logits' sum over D: each of the four consumer warpgroups sums nh score
+// steps of 32 columns. Per walked tile of 64 X rows the ring brings nh
+// score steps (R's box raw for each warpgroup and X's parts, six [64][32]
+// boxes) and own0 = ceil(own / 2) output steps (X's raw columns of each
+// warpgroup's chunk p, two boxes each); warpgroup 1 hands its half of
+// the CTA's partial to warpgroup 0 (named barrier 1), which pushes the
+// CTA's partial into the partner's buffer, adds the partner's from its
+// own (the same f32 sum in both CTAs), forms dl in f32 and puts its tf32
+// parts in shared memory (barrier 2); both add Xᵀ·dl to their chunks of
+// the output's transpose (tf_out_step), A X's raw columns, B dl's parts.
+// db sums the unrounded dl of each row (warpgroup 0 of CTA rank 0).
+template <bool kVocabRows>
+__global__ void __cluster_dims__(kRanks, 1, 1)
+__launch_bounds__(kTfThreads, 1)
+fce_bwd_tf32_kernel(const __grid_constant__ CUtensorMap rm,
+                    const __grid_constant__ CUtensorMap xm,
+                    const __grid_constant__ CUtensorMap xhm,
+                    const __grid_constant__ CUtensorMap xlm,
+                    const float* __restrict__ b, const int* __restrict__ tgt,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ g, float* __restrict__ out,
+                    float* __restrict__ db, int N, int V, int D, int own,
+                    int ns) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xb = base + ns * kTfStage;      // dl's parts
+  const uint32_t xs = xb + 4 * kTfBox;           // warpgroup 1's half
+  const uint32_t recv = xs + kTile;              // the partner's partials
+  const uint32_t cols = recv + 2 * kTile;        // the tile's columns
+  TfRing ring{base, base + bars_at(ns), ns};
+  const uint32_t xfull = ring.bars + 16 * kTfMaxStages, xempty = xfull + 16;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      bar_init(ring.bars + 8 * s, 1);
+      bar_init(ring.bars + 8 * (kTfMaxStages + s), kTfConsumers / 32);
+    }
+    // the partner's 128 warpgroup-0 threads arrive on each
+    for (int i = 0; i < 2; ++i) {
+      bar_init(xfull + 8 * i, 128);
+      bar_init(xempty + 8 * i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // both CTAs' barriers are set up before either arrives on the other's
+  cluster_arrive();
+  cluster_wait();
+
+  const int rank = cluster_rank();
+  const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
+  const int r0 = blockIdx.y * kTfRows;
+  // this walk's X tiles [t0, t0 + nxt): part z of gridDim.z (balanced,
+  // none empty: the launcher takes no more parts than tiles)
+  const int all = (nX + kTfRows - 1) / kTfRows;
+  const int t0 = blockIdx.z * all / gridDim.z;
+  const int nxt = (blockIdx.z + 1) * all / gridDim.z - t0;
+  // score steps a warpgroup sums (steps past D read TMA's zeros); this
+  // CTA's first: the cluster's four warpgroups take D's steps in turn
+  const int nh = ((D + 31) / 32 + 2 * kRanks - 1) / (2 * kRanks);
+  const int sc0 = 2 * nh * rank;
+  // output chunks: warpgroup 0 the CTA's first own0, warpgroup 1 the rest
+  const int own0 = (own + 1) / 2, own1 = own - own0;
+  const int ch0 = own * blockIdx.x;
+
+  if (tid >= kTfConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kTfConsumers) {
+      int t = 0;
+      for (int i = 0; i < nxt; ++i) {
+        const int x0 = (t0 + i) * kTfRows;
+        for (int j = 0; j < nh; ++j, ++t, ring.next()) {
+          const uint32_t dst = ring.acquire(t, kTfStage);
+          for (int w = 0; w < 2; ++w) {
+            const int c = 32 * (sc0 + nh * w + j);
+            tma_load_2d(dst + 2 * w * kTfBox, &rm, ring.full(), c, r0);
+            tma_load_2d(dst + (2 * w + 1) * kTfBox, &xhm, ring.full(), c,
+                        x0);
+            tma_load_2d(dst + (4 + w) * kTfBox, &xlm, ring.full(), c, x0);
+          }
+        }
+        for (int p = 0; p < own0; ++p, ++t, ring.next()) {
+          const bool two = p < own1;
+          const uint32_t dst = ring.acquire(t, (two ? 4 : 2) * kTfBox);
+          for (int w = 0; w < (two ? 2 : 1); ++w)
+            for (int e = 0; e < 2; ++e)
+              tma_load_2d(dst + (2 * w + e) * kTfBox, &xm, ring.full(),
+                          64 * (ch0 + own0 * w + p) + 32 * e, x0);
+        }
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  const int l = tid % 32;
+  const int m = 16 * ((tid / 32) % 4) + l / 4;   // accumulator row
+  auto consume = [&](auto role) {
+    constexpr int G = decltype(role)::kW1 ? 1 : 0;
+    const int mine = G ? own1 : own0;
+    float acc[kTfMaxOwn][32], s[32];
+#pragma unroll
+    for (int j = 0; j < kTfMaxOwn; ++j) zero(acc[j]);
+    zero(s);
+    // warpgroup 0: its two resident rows' values (dh: the token's lse, g
+    // and target column; dW: the vocab row's bias) and db's sums
+    bool rok[2];
+    float rv[2], rg[2], dbs[2] = {0.f, 0.f};
+    int rt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + m + 8 * h;
+      rok[h] = G == 0 && row < nR;
+      rv[h] = !rok[h] ? 0.f : kVocabRows ? b[row] : lse[row];
+      rg[h] = !kVocabRows && rok[h] ? g[row] : 0.f;
+      rt[h] = !kVocabRows && rok[h] ? tgt[row] - 1 : -1;
+    }
+    for (int i = 0; i < nxt; ++i) {
+      const int x0 = (t0 + i) * kTfRows;
+      // warpgroup 1: thread k loads column k % 64's values for the
+      // epilogue now, so the loads run under the score steps
+      const int k = tid - 128, x = x0 + k % 64;
+      float cv[2] = {0.f, 0.f};
+      if (G == 1 && x < nX) {
+        if (!kVocabRows) {
+          cv[0] = k < 64 ? b[x] : 0.f;
+        } else if (k < 64) {
+          cv[0] = lse[x];
+          cv[1] = __int_as_float(tgt[x] - 1);
+        } else {
+          cv[0] = g[x];
+        }
+      }
+      for (int j = 0; j < nh; ++j) {
+        const uint32_t st = ring.wait();
+        tf_score_step(s, st + 2 * G * kTfBox, st + (2 * G + 1) * kTfBox,
+                      st + (4 + G) * kTfBox, j == 0);
+        ring.release();
+      }
+      if constexpr (G == 1) {
+        tf_give(xs, s);                    // this half of S, the columns'
+        st_shared(cols + 4 * k, cv[0]);    // values, then wait for dl
+        if (k < 64) st_shared(cols + 4 * (128 + k), cv[1]);
+        named_arrive(1, kTfConsumers);
+        named_sync(2, kTfConsumers);
+      } else {
+        named_sync(1, kTfConsumers);
+        tf_take(s, xs);                    // the CTA's partial
+        exchange(s, recv, xfull, xempty, rank, i);
+        // dl = (exp(s + bias - lse) - onehot)·g, 0 past N or V
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int c = 8 * jj + 2 * (l % 4);
+          float c0[2], c1[2], c2[2];
+          ld_shared2(cols + 4 * c, c0);
+          if (kVocabRows) {
+            ld_shared2(cols + 4 * (64 + c), c1);
+            ld_shared2(cols + 4 * (128 + c), c2);
+          }
+#pragma unroll
+          for (int e = 4 * jj; e < 4 * jj + 4; ++e) {
+            const int h = (e % 4) / 2, u = e % 2;
+            float d = 0.f;
+            if (rok[h] && x0 + c + u < nX)
+              d = kVocabRows
+                      ? dlogit(s[e] + rv[h], c0[u], c1[u],
+                               __float_as_int(c2[u]) == r0 + m + 8 * h)
+                      : dlogit(s[e] + c0[u], rv[h], rg[h],
+                               x0 + c + u == rt[h]);
+            dbs[h] += d;
+            s[e] = d;
+          }
+        }
+        tf_put(xb, xb + 2 * kTfBox, s);
+        fence_proxy_async();
+        named_sync(2, kTfConsumers);
+      }
+#pragma unroll
+      for (int p = 0; p < kTfMaxOwn; ++p) {
+        if (p >= own0) break;
+        const uint32_t tile = ring.wait() + 2 * G * kTfBox;
+        if (p < mine) tf_out_step(acc[p], tile, xb, xb + 2 * kTfBox);
+        ring.release();
+      }
+    }
+    if constexpr (G == 0) drain(xempty, nxt);
+    // this warpgroup's chunks of the output's transpose: element e of
+    // chunk j at column 64·(chw + j) + m + acc_row(e) of resident row r0 +
+    // acc_col(e, l) (columns past D and rows past nR not stored)
+    const int chw = ch0 + own0 * G;
+    float* const dst = out + static_cast<int64_t>(blockIdx.z) * nR * D;
+#pragma unroll
+    for (int j = 0; j < kTfMaxOwn; ++j) {
+      if (j >= mine) break;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int row = r0 + acc_col(e, l);
+        const int col = 64 * (chw + j) + m + acc_row(e);
+        if (row < nR && col < D)
+          dst[static_cast<int64_t>(row) * D + col] = acc[j][e];
+      }
+    }
+    if (kVocabRows && G == 0 && blockIdx.x == 0) {   // slice 0, rank 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {        // the row's db, over its 4 lanes
+        const float sum = quad_sum(dbs[h]);
+        if (l % 4 == 0 && rok[h]) db[r0 + m + 8 * h] = sum;
+      }
+    }
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Wg<false>{});
+  else
+    consume(Wg<true>{});
+}
+
+// the clusters of a row block (slices of at most kSliceChunks 64-column
+// chunks, 1024 columns, as many as D needs), and the chunks a CTA owns,
+// as even as they come: D 1024 one cluster of 8 + 8, D 1032 two of 5 + 5
+inline int slices_of(int D) {
+  return ((D + 63) / 64 + kSliceChunks - 1) / kSliceChunks;
+}
+inline int own_chunks(int D) {
+  return ((D + 63) / 64 + kRanks * slices_of(D) - 1) /
+         (kRanks * slices_of(D));
+}
+
+// the vocab walks of the dh kernel (walk_splits): clusters of 64 token
+// rows, (D + 1023) / 1024 of them a row block
+int dh_splits(int N, int V, int D) {
+  static const int clusters =
+      max_clusters(fce_bwd_tf32_kernel<false>, kRanks, false, kTfThreads,
+                   smem_bytes(kStages));
+  return walk_splits((N + kTfRows - 1) / kTfRows * slices_of(D),
+                     (V + kTfRows - 1) / kTfRows, clusters);
+}
+
+// dh (kVocabRows false) or dW and db (true), f32: X's tf32 parts into
+// `work` (hi, then lo: 2 x nX x D floats), then the kernel; dh's `splits`
+// walks write f32 partial sums to `part` (splits x N x D) and
+// fce_dh_merge_kernel adds them into out
+template <bool kVocabRows>
+int bwd(const void* h, const void* w, const float* b, const int* t,
+        const float* lse, const float* g, float* out, float* part,
+        float* db, int N, int V, int D, int splits, cudaStream_t st,
+        float* work) {
+  if (!work) return -1;
+  const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
+  const void* R = kVocabRows ? w : h;
+  const void* X = kVocabRows ? h : w;
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  if (cudaError_t e = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev))
+    return static_cast<int>(e);
+  const int64_t n = static_cast<int64_t>(nX) * D;
+  if (int e = tf_split_pass(X, work, work + n, n, sms, st)) return e;
+  CUtensorMap rm, xm, xhm, xlm;
+  if (int e = make_map(&rm, R, nR, D, kTfRows, true)) return e;
+  if (int e = make_map(&xm, X, nX, D, kTfRows, true)) return e;
+  if (int e = make_map(&xhm, work, nX, D, kTfRows, true)) return e;
+  if (int e = make_map(&xlm, work + n, nX, D, kTfRows, true)) return e;
+  constexpr size_t smem = smem_bytes(kStages);
+  auto kernel = fce_bwd_tf32_kernel<kVocabRows>;
+  if (int e = set_smem(kernel, smem)) return e;
+  kernel<<<dim3(kRanks * slices_of(D), (nR + kTfRows - 1) / kTfRows, splits),
+           kTfThreads, smem, st>>>(rm, xm, xhm, xlm, b, t, lse, g,
+                                   splits > 1 ? part : out, db, N, V, D,
+                                   own_chunks(D), kStages);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  return splits > 1
+             ? dh_merge(part, splits, static_cast<int64_t>(nR) * D, out, st)
+             : 0;
+}
+
+}  // namespace tf
 
 constexpr int kR = 16;        // resident rows per CTA
 constexpr int kKC = 64;       // feature columns per staged chunk
@@ -1165,26 +1596,31 @@ int fwd(const void* h, const void* w, const float* b, const int* t,
   }
 }
 
-// dh (kVocabRows false: out = dh, db unused; the bf16 cluster kernel
-// walks `splits` parts of the vocab into `part`, f32 splits x N x D, when
-// splits > 1) or dW and db (true: one walk)
+// dh (kVocabRows false: out = dh, db unused; the cluster kernels walk
+// `splits` parts of the vocab into `part`, f32 splits x N x D, when
+// splits > 1) or dW and db (true: one walk). f32 takes the 3xTF32 kernel
+// at every D (its workspace `work`), bf16 the cluster kernel up to D 1024
+// and the CUDA-core kernel past it.
 template <typename T, bool kVocabRows>
 int bwd(const void* h, const void* w, const float* b, const int* t,
         const float* lse, const float* g, void* out, float* part, float* db,
-        int N, int V, int D, int splits, cudaStream_t st) {
+        int N, int V, int D, int splits, cudaStream_t st, float* work) {
   const int nR = kVocabRows ? V : N;
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 4) {
+    return tf::bwd<kVocabRows>(h, w, b, t, lse, g, static_cast<float*>(out),
+                               part, db, N, V, D, splits, st, work);
+  } else {
     if (clustered<T>(D))
       return tc::bwd<kVocabRows>(h, w, b, t, lse, g, out, part, db, N, V, D,
                                  splits, st);
+    constexpr size_t smem = smem_bytes<T>(true);
+    auto kernel = fce_bwd_kernel<T, kVocabRows>;
+    if (int e = set_smem(kernel, smem)) return e;
+    kernel<<<dim3((nR + kR - 1) / kR, (D + kDAcc - 1) / kDAcc), kThreads,
+             smem, st>>>(static_cast<const T*>(h), static_cast<const T*>(w),
+                         b, t, lse, g, static_cast<T*>(out), db, N, V, D);
+    return static_cast<int>(cudaGetLastError());
   }
-  constexpr size_t smem = smem_bytes<T>(true);
-  auto kernel = fce_bwd_kernel<T, kVocabRows>;
-  if (int e = set_smem(kernel, smem)) return e;
-  kernel<<<dim3((nR + kR - 1) / kR, (D + kDAcc - 1) / kDAcc), kThreads, smem,
-           st>>>(static_cast<const T*>(h), static_cast<const T*>(w), b, t,
-                 lse, g, static_cast<T*>(out), db, N, V, D);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // dispatch on the dtype code: 0 = float32, 1 = bfloat16
@@ -1199,23 +1635,26 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
 template <typename T>
 int dh(const void* h, const void* w, const float* b, const int* t,
        const float* lse, const float* g, void* out, float* part, int N,
-       int V, int D, int splits, cudaStream_t st) {
+       int V, int D, int splits, cudaStream_t st, float* work) {
   return bwd<T, false>(h, w, b, t, lse, g, out, part, nullptr, N, V, D,
-                       splits, st);
+                       splits, st, work);
 }
 
 template <typename T>
 int dw(const void* h, const void* w, const float* b, const int* t,
        const float* lse, const float* g, void* out, float* db, int N, int V,
-       int D, cudaStream_t st) {
-  return bwd<T, true>(h, w, b, t, lse, g, out, nullptr, db, N, V, D, 1, st);
+       int D, cudaStream_t st, float* work) {
+  return bwd<T, true>(h, w, b, t, lse, g, out, nullptr, db, N, V, D, 1, st,
+                      work);
 }
 
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a dtype or feature
-// width the kernels were not built for, else the CUDA error code.
-// `part` holds 3 x splits x N floats, splits from bigdl_fce_fwd_splits.
+// width the kernels were not built for (or an f32 dh or dW given no
+// workspace), -2 where no tensor-map encoder is found, 1000 + the
+// CUresult of a refused tensor map, else the CUDA error code. `part`
+// holds 3 x splits x N floats, splits from bigdl_fce_fwd_splits.
 extern "C" int bigdl_fce_fwd(int dtype, const void* h, const void* w,
                              const float* b, const int* t, float* part,
                              float* nll, float* lse, int N, int V, int D,
@@ -1232,26 +1671,30 @@ extern "C" int bigdl_fce_fwd_splits(int dtype, int N, int V, int D,
 }
 
 // `part` holds splits x N x D floats when splits > 1 (else unused),
-// splits from bigdl_fce_dh_splits.
+// splits from bigdl_fce_dh_splits. f32 needs `work`, 2 x V x D floats
+// (W's tf32 parts); it comes last, after the stream.
 extern "C" int bigdl_fce_dh(int dtype, const void* h, const void* w,
                             const float* b, const int* t, const float* lse,
                             const float* g, void* dh_out, float* part, int N,
-                            int V, int D, int splits, void* stream) {
+                            int V, int D, int splits, void* stream,
+                            float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   BIGDL_FCE_DISPATCH(dh, h, w, b, t, lse, g, dh_out, part, N, V, D, splits,
-                     st);
+                     st, work);
 }
 
-// how many parts the bf16 dh kernel splits the vocab into (1 for the
-// CUDA-core kernels)
+// how many parts the dh kernel splits the vocab into (1 for the
+// CUDA-core kernel)
 extern "C" int bigdl_fce_dh_splits(int dtype, int N, int V, int D) {
+  if (dtype == 0) return tf::dh_splits(N, V, D);
   return dtype == 1 && clustered<bf16>(D) ? tc::dh_splits(N, V) : 1;
 }
 
+// f32 needs `work`, 2 x N x D floats (h's tf32 parts), after the stream
 extern "C" int bigdl_fce_dw(int dtype, const void* h, const void* w,
                             const float* b, const int* t, const float* lse,
                             const float* g, void* dw_out, float* db, int N,
-                            int V, int D, void* stream) {
+                            int V, int D, void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FCE_DISPATCH(dw, h, w, b, t, lse, g, dw_out, db, N, V, D, st);
+  BIGDL_FCE_DISPATCH(dw, h, w, b, t, lse, g, dw_out, db, N, V, D, st, work);
 }

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
 // flash_attention.cu, fused_ce.cu and paged_attention.cu: mbarriers, TMA
-// loads, wgmma descriptors and products, the wgmma accumulator layout
-// with its row reductions and 2^x, the ring of shared-memory stages,
-// and the host's tensor-map encoder. Included by
+// loads, wgmma descriptors and products, tf32 rounding, a cluster's
+// distributed shared memory (ranks, mapped addresses, remote stores and
+// mbarrier arrivals), the wgmma accumulator layout with its row
+// reductions and 2^x, the ring of shared-memory stages, and the host's
+// tensor-map encoder. Included by
 // each source, which _build.py compiles with this directory on the
 // include path; everything has internal linkage.
 
@@ -184,6 +186,52 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+// a shared-memory address of this CTA as the same place in the shared
+// memory of the cluster's CTA `rank` (a shared::cluster address)
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// 4 adjacent f32 (16-byte aligned) at a shared::cluster address
+__device__ __forceinline__ void st_cluster4(uint32_t addr, float a, float b,
+                                            float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+// arrive on an mbarrier at a shared::cluster address (another CTA's),
+// releasing this thread's earlier shared-memory accesses to the cluster
+__device__ __forceinline__ void bar_arrive_remote(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+// bar_wait for an mbarrier that CTAs of the cluster arrive on: acquires
+// what their arrivals released
+__device__ __forceinline__ void bar_wait_cluster(uint32_t bar,
+                                                 uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
 }
 
 // hand registers between the warpgroups of a warp-specialised kernel:

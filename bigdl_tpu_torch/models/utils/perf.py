@@ -14,14 +14,15 @@ kernels' plain versions).
 ``Inception_v1_NoAuxClassifier`` (ClassNLL, SGD(0.01, momentum 0.9),
 weights from seed 0, (B, 3, 224, 224) standard-normal images and 1-based
 labels from ``np.random.default_rng(0)``, the bf16 policy under
-``--dataType bf16``); its two LRN layers run the hand-written LRN
+``--dataType bf16``, the default f32 one under ``f32``); its two LRN
+layers run the hand-written LRN
 kernels on the card, and its dropout draws from a generator seeded 0 on
 the device. In place of XLA's cost analysis it reports the analytic step
 FLOPs (counted by forward hooks on the first step) and the step's peak
 device memory.
 ``-m transformer`` times the LM train step (SGD(0.01), learned positions
 unless ``--posEncoding rope``, the bf16 policy under ``--dataType
-bf16``). With ``--fusedHeadLoss auto`` on the card it runs the body up to
+bf16``, the default f32 one under ``f32``). With ``--fusedHeadLoss auto`` on the card it runs the body up to
 the final LayerNorm and hands the hidden states and the LM head's weight
 to ``ops.fused_ce.linear_cross_entropy``, so the (B·S, V) logits never
 exist; on the CPU, or with ``off``, it runs ``CrossEntropyCriterion`` on
@@ -157,10 +158,12 @@ def _transformer_perf(args, device):
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
 
-    if args.dataType == "bf16":
-        set_policy(DTypePolicy(param_dtype=torch.float32,
-                               compute_dtype=torch.bfloat16,
-                               activation_dtype=torch.bfloat16))
+    # the policy the flag names, whatever an earlier run in this process
+    # set (f32: the default policy)
+    set_policy(DTypePolicy(param_dtype=torch.float32,
+                           compute_dtype=torch.bfloat16,
+                           activation_dtype=torch.bfloat16)
+               if args.dataType == "bf16" else DTypePolicy())
     vocab, s, b = args.classNum, args.seqLen, args.batchSize
     model = TransformerLM(vocab, d_model=args.dModel,
                           num_heads=args.dModel // 128,
@@ -257,10 +260,12 @@ def _conv_perf(args, device):
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.tensor import DTypePolicy, set_policy
 
-    if args.dataType == "bf16":
-        set_policy(DTypePolicy(param_dtype=torch.float32,
-                               compute_dtype=torch.bfloat16,
-                               activation_dtype=torch.bfloat16))
+    # the policy the flag names, whatever an earlier run in this process
+    # set (f32: the default policy)
+    set_policy(DTypePolicy(param_dtype=torch.float32,
+                           compute_dtype=torch.bfloat16,
+                           activation_dtype=torch.bfloat16)
+               if args.dataType == "bf16" else DTypePolicy())
     ctor, size = CONV_MODELS[args.module]
     b = args.batchSize
     model = getattr(models, ctor)(args.classNum, device=device,

@@ -20,7 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build_copy", "build_dir", "find_nvcc", "load_library"]
+__all__ = ["build_copy", "build_dir", "find_nvcc", "inline_header",
+           "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -68,6 +69,22 @@ def build_copy(text: str, out: Path) -> ctypes.CDLL:
     cu.write_text(text)
     out.with_suffix(".ptxas.txt").write_text(_nvcc(cu, lib))
     return ctypes.CDLL(str(lib))
+
+
+def inline_header(text: str, header: str) -> str:
+    """``text``, a ``csrc/`` source, with its ``#include "<header>"``
+    line replaced by that header's text, less its ``#pragma once`` and
+    its includes of headers ``text`` includes before it: the form in
+    which the fault and knockout scripts edit code that lives in a
+    shared header (their copies build against the checkout's headers,
+    which they cannot edit)."""
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith(f'#include "{header}"'))
+    before = text[:text.index(line)]
+    body = [ln for ln in (_CSRC / header).read_text().splitlines()
+            if ln != "#pragma once" and not (
+                ln.startswith('#include "') and ln.split('"')[1] in before)]
+    return text.replace(line, "\n".join(body), 1)
 
 
 def load_library(source: str) -> ctypes.CDLL:

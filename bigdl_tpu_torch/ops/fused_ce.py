@@ -8,6 +8,13 @@ Three kernels, each with its plain PyTorch version beside it:
 - ``fused_ce_dh``  — dh = Σ_v dlogits·W;
 - ``fused_ce_dw``  — dW = Σ_n dlogitsᵀ·h and db = Σ_n dlogits.
 
+Which kernel of ``csrc/fused_ce.cu`` runs a call is :func:`kernel_route`:
+in bf16 the forward, and dh and dW/db up to D 1024, run on the tensor
+cores; in f32 dh and dW/db run in 3xTF32 on the tensor cores (each
+operand split into tf32 high and low parts, summed in f32), with the
+parts of the operand they walk written first to a workspace the wrapper
+allocates (:func:`workspace_floats`).
+
 On a CUDA tensor each launches the hand-written Hopper kernel of
 ``csrc/fused_ce.cu`` (built at first use, see ``_build.py``) or raises;
 on a CPU tensor it takes its plain version (``*_ref``). ``_LinearCE``
@@ -22,7 +29,9 @@ sums the unrounded f32 dlogits. Targets are 1-based; a target outside
 one-hot is zero in the backward. A bias of None counts as zeros.
 
 ``fwd_launches``, ``dh_launches`` and ``dw_launches`` count kernel
-launches, so a run can show its main path went through the kernels.
+launches, so a run can show its main path went through the kernels;
+``dh_tf32_launches`` and ``dw_tf32_launches`` count those of dh and dW
+on the route "tf32" (f32: the 3xTF32 kernel) apart.
 """
 from __future__ import annotations
 
@@ -35,14 +44,22 @@ import torch.nn.functional as F
 __all__ = ["linear_cross_entropy", "linear_ce_supported",
            "linear_cross_entropy_ref", "fused_ce_fwd", "fused_ce_dh",
            "fused_ce_dw", "fused_ce_fwd_ref", "fused_ce_dh_ref",
-           "fused_ce_dw_ref", "fwd_launches", "dh_launches", "dw_launches"]
+           "fused_ce_dw_ref", "kernel_route", "workspace_floats",
+           "fwd_launches", "dh_launches", "dw_launches",
+           "dh_tf32_launches", "dw_tf32_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the bf16 backward's cluster kernels take D up to this (four CTAs of
+#: 256 columns: ``kClusterD`` in csrc/fused_ce.cu)
+_CLUSTER_D = 1024
 
 #: kernel launches since import (reset by assigning 0)
 fwd_launches = 0
 dh_launches = 0
 dw_launches = 0
+#: of them, dh and dW launches on the route "tf32"
+dh_tf32_launches = 0
+dw_tf32_launches = 0
 
 
 def linear_ce_supported(h, w) -> bool:
@@ -53,6 +70,38 @@ def linear_ce_supported(h, w) -> bool:
     return (h.dim() == 2 and w.dim() == 2 and h.shape[1] == w.shape[1]
             and h.shape[1] > 0 and h.shape[0] > 0 and w.shape[0] > 0
             and h.dtype in _DTYPE_CODES and w.dtype == h.dtype)
+
+
+def kernel_route(dtype, d: int, kernel: str) -> str | None:
+    """The kernel of csrc/fused_ce.cu that ``kernel`` ("fwd", "dh" or
+    "dw") runs for ``dtype`` at feature width ``d``, as its C entries
+    pick it: the forward ``"tc"`` in bf16 (``fce_fwd_tc_kernel``) and
+    ``"cuda_cores"`` in f32 (``fce_fwd_kernel<float>``); dh and dW/db
+    ``"tc_cluster"`` in bf16 up to D 1024 (``fce_bwd_tc_kernel``: wgmma
+    in four-CTA clusters), ``"cuda_cores"`` in bf16 past it
+    (``fce_bwd_kernel``) and ``"tf32"`` in f32 at every D
+    (``fce_bwd_tf32_kernel``: 3xTF32 on the tensor cores, two-CTA
+    clusters). None where no kernel takes the call. A width the kernels
+    do not take (no multiple of 8) reports the route of the width
+    ``linear_cross_entropy`` pads it to."""
+    if d < 1 or dtype not in _DTYPE_CODES or kernel not in ("fwd", "dh",
+                                                            "dw"):
+        return None
+    d += -d % 8
+    if kernel == "fwd":
+        return "tc" if dtype == torch.bfloat16 else "cuda_cores"
+    if dtype == torch.float32:
+        return "tf32"
+    return "tc_cluster" if d <= _CLUSTER_D else "cuda_cores"
+
+
+def workspace_floats(kernel: str, n: int, v: int, d: int, dtype) -> int:
+    """f32 elements of the workspace ``kernel`` needs at (N, V, D): on
+    the route "tf32" the tf32 high and low parts of the operand it walks,
+    2·V·D for dh (W's) and 2·N·D for dW (h's); else 0."""
+    if kernel_route(dtype, d, kernel) != "tf32":
+        return 0
+    return 2 * (v if kernel == "dh" else n) * d
 
 
 # --------------------------------------------------------------------------
@@ -129,14 +178,18 @@ def _kernel_fns():
 
 def bind(lib: ctypes.CDLL) -> dict:
     """The typed entries ``{"fwd", "fwd_splits", "dh", "dh_splits",
-    "dw"}`` of a library built from csrc/fused_ce.cu."""
+    "dw"}`` of a library built from csrc/fused_ce.cu. dh and dW take the
+    workspace last, after the stream (a library built before they took
+    one ignores it)."""
     dims = [ctypes.c_int] * 3
     fns = {}
-    for name, n_ptr, extra in (("fwd", 7, 1), ("dh", 8, 1), ("dw", 8, 0)):
+    for name, n_ptr, extra, work in (("fwd", 7, 1, 0), ("dh", 8, 1, 1),
+                                     ("dw", 8, 0, 1)):
         fn = getattr(lib, f"bigdl_fce_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
-                       + [ctypes.c_int] * extra + [ctypes.c_void_p])
+                       + [ctypes.c_int] * extra
+                       + [ctypes.c_void_p] * (1 + work))
         fns[name] = fn
     for name, n_int in (("fwd_splits", 5), ("dh_splits", 4)):
         fn = getattr(lib, f"bigdl_fce_{name}")
@@ -173,12 +226,20 @@ def _check_cuda(h, w, b, t, *rest):
 
 def _launch(name, h, ptrs, *extra):
     n, d = h.shape
+    v = ptrs[1].shape[0]
     fn = _kernel_fns()[name]
+    work = None
+    if name in ("dh", "dw"):
+        floats = workspace_floats(name, n, v, d, h.dtype)
+        work = (torch.empty(floats, dtype=torch.float32, device=h.device)
+                if floats else None)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(_DTYPE_CODES[h.dtype],
-                 *[0 if x is None else x.data_ptr() for x in ptrs], n,
-                 ptrs[1].shape[0], d, *extra, stream)
+                 *[0 if x is None else x.data_ptr() for x in ptrs], n, v, d,
+                 *extra, stream,
+                 *(() if name == "fwd" else
+                   (None if work is None else work.data_ptr(),)))
     if err:
         raise RuntimeError(f"fused_ce_{name} kernel launch failed "
                            f"(code {err})")
@@ -207,17 +268,18 @@ def fused_ce_dh(h, w, b, t, lse, g):
     """dh (h's dtype) from the saved lse and the nll cotangent g."""
     if h.device.type == "cpu":
         return fused_ce_dh_ref(h, w, b, t, lse, g)
-    global dh_launches
+    global dh_launches, dh_tf32_launches
     _check_cuda(h, w, b, t, lse, g)
     (n, d), v = h.shape, w.shape[0]
     dh = torch.empty_like(h)
-    # the bf16 kernel may split the vocab into walks whose f32 partial
-    # sums it adds up, so that the last wave of clusters is not near empty
+    # the cluster kernels may split the vocab into walks whose f32
+    # partial sums they add up, so that the last wave is not near empty
     splits = _kernel_fns()["dh_splits"](_DTYPE_CODES[h.dtype], n, v, d)
     part = (torch.empty((splits, n, d), dtype=torch.float32, device=h.device)
             if splits > 1 else None)
     _launch("dh", h, (h, w, b, t, lse, g, dh, part), splits)
     dh_launches += 1
+    dh_tf32_launches += kernel_route(h.dtype, d, "dh") == "tf32"
     return dh
 
 
@@ -225,12 +287,13 @@ def fused_ce_dw(h, w, b, t, lse, g):
     """(dW in w's dtype, db in f32) from the saved lse and g."""
     if h.device.type == "cpu":
         return fused_ce_dw_ref(h, w, b, t, lse, g)
-    global dw_launches
+    global dw_launches, dw_tf32_launches
     _check_cuda(h, w, b, t, lse, g)
     dw = torch.empty_like(w)
     db = torch.empty(w.shape[0], dtype=torch.float32, device=w.device)
     _launch("dw", h, (h, w, b, t, lse, g, dw, db))
     dw_launches += 1
+    dw_tf32_launches += kernel_route(h.dtype, h.shape[1], "dw") == "tf32"
     return dw, db
 
 

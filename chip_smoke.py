@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``bigdl_tpu_torch``) on one NVIDIA
 card: build every kernel from the checkout's sources (one nvcc per
-source, all at once), count the tensor-core instructions in the bf16
-flash kernels' SASS (none fails the run), and hold each kernel against
-its plain PyTorch version at
-the shapes its path gives it, then drive the main paths end to end at
+source, all at once), count the tensor-core instructions in the SASS
+of the tensor-core kernels (none fails the run), and hold each kernel
+against its plain PyTorch version at the shapes its path gives it, then
+drive the main paths end to end at
 the full width of the flagship LM with weights made from a seed:
 
 - ``[serve]``: 16 requests through ``ContinuousBatcher`` (d_model 1024,
@@ -29,7 +29,10 @@ the full width of the flagship LM with weights made from a seed:
   fused-CE forward, dh and dW/db kernels (and flash attention) — then
   its ``-m attention`` mode at head dims 128, 256, 96 (Phi-3-mini's,
   padded to 128) and 512 (the sliced tensor-core flash forward, dq and
-  dk/dv), and at 512 in f32 (the 3xTF32 forward, dq and dk/dv);
+  dk/dv), and at 512 in f32 (the 3xTF32 forward, dq and dk/dv); then
+  ``-m transformer --dataType f32`` at the same geometry (the f32
+  fused-CE forward on the CUDA cores, dh and dW/db in 3xTF32 on the
+  tensor cores);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
@@ -232,9 +235,11 @@ _TRAIN_GRAD_REL_TOL = 5e-2
 # vocab and a row count that no tile divides; two small cases take the
 # kernels' other widths: D 72 (bf16 forward: two 64-column boxes, most
 # of the second zero fill; bf16 backward: three of a cluster's four
-# feature slices empty) and D 1032 (bf16 forward: 17 boxes; past the
-# backward cluster path's 1024: the CUDA-core backward in both dtypes,
-# two accumulator blocks along D)
+# feature slices empty; f32 backward: one 64-column chunk a CTA, score
+# steps past D read as zeros) and D 1032 (bf16 forward: 17 boxes; past
+# the bf16 backward cluster path's 1024: the CUDA-core backward, two
+# accumulator blocks along D; the f32 backward: two clusters a row
+# block, each forming the logits over all of D)
 _FCE_CASES = (("main", 8192, 32768, 1024), ("tails", 1000, 50257, 1024),
               ("narrow", 300, 1000, 72), ("wide", 300, 1000, 1032))
 # a feature width no multiple of 8, which ``linear_cross_entropy`` pads
@@ -380,6 +385,8 @@ def _print_ptxas(report: str) -> None:
         tf = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
                        r"_sliced_tf32_kernelILi(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
+        ft = re.search(r"entry function '\S*?fce_bwd_tf32_kernelILb([01])E",
+                       line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
         la = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_any_kernelI"
@@ -441,6 +448,9 @@ def _print_ptxas(report: str) -> None:
                     + (f" rows/warp={m.group(4)}" if m.group(4) else "")
                     + (" chunks" if m.group(5) == "1" else "")
                     + (" padded" if m.group(6) == "1" else ""))
+        elif ft:
+            name = (f"fce_{'dw' if ft.group(1) == '1' else 'dh'}_tf32 f32 "
+                    f"(3xTF32 on the tensor cores)")
         elif f:
             # fce_bwd's template flag: Lb0 dh, Lb1 dW/db
             kind, rest = f.groups()
@@ -475,9 +485,10 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     the f32 (3xTF32) forward, dq and dk/dv past D 256 (every
     instantiation of ``flash_fwd_sliced_tf32_kernel`` and
     ``flash_dq_sliced_tf32_kernel``: warpgroup chunks 2, 3, 4, and of
-    ``flash_dkdv_sliced_tf32_kernel``: 3, 4), all three fused-CE kernels
-    and the five paged prefill kernels (D 32, 64, 128, 192, 256) have
-    ``HGMMA``."""
+    ``flash_dkdv_sliced_tf32_kernel``: 3, 4), all three bf16 fused-CE
+    kernels, the f32 (3xTF32) fused-CE dh and dW/db
+    (``fce_bwd_tf32_kernel``) and the five paged prefill kernels (D 32,
+    64, 128, 192, 256) have ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -490,6 +501,7 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 f = re.search(r"(flash_fwd|flash_dq|flash_dkdv)(?:_split)?"
                               r"_tc_kernelILi(\d+)E", line)
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
+                ct = re.search(r"fce_bwd_tf32_kernelILb([01])E", line)
                 sl = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tc"
                                r"_kernelILi(\d+)E", line)
                 tf = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tf32"
@@ -503,7 +515,9 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                         else
                         f"paged_prefill_tc bf16 D={p.group(1)}" if p else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
-                        if c else "fused_ce_fwd bf16"
+                        if c else
+                        f"fused_ce_{'dw' if ct.group(1) == '1' else 'dh'}"
+                        f" f32 tf32" if ct else "fused_ce_fwd bf16"
                         if "fce_fwd_tc_kernel" in line else None)
                 if name:
                     counts[name] = {"HGMMA": 0, "HMMA": 0}
@@ -518,7 +532,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                   for d in (32, 64, 128)
                   if not sum(counts.get(f"{k} bf16 D={d}", {}).values()))
     bare += [k for k in ("fused_ce_fwd bf16", "fused_ce_dh bf16",
-                         "fused_ce_dw bf16") + tuple(
+                         "fused_ce_dw bf16", "fused_ce_dh f32 tf32",
+                         "fused_ce_dw f32 tf32") + tuple(
                              f"{k} bf16 D={d}" for k in ("flash_fwd",
                                                          "flash_dq",
                                                          "flash_dkdv")
@@ -2372,20 +2387,45 @@ def _fce_inputs(n, v, d, dtype, gen, zero_target):
     return h, w, b, t.to(_DEV), torch.full((n,), 1.0 / n, device=_DEV)
 
 
-def _fce_bound(n, v, d, dtype, kernel):
-    """Least time for one fused-CE kernel: each input read once and each
-    output written once over the memory rate, vs 2·N·V·D operations
-    (forward) or 4·N·V·D (each backward kernel: the logits once more and
-    one product) over the peak for the dtype's arithmetic."""
+def _fce_bytes_ms(n, v, d, dtype, kernel):
+    """Least time for one fused-CE kernel's bytes: each input read once
+    and each output written once over the memory rate."""
     elt = torch.finfo(dtype).bits // 8
     ins = (n + v) * d * elt + v * 4 + n * 4          # h, W, b, t
     bytes_ = {"fwd": ins + 2 * n * 4,                 # nll, lse out
               "dh": ins + 2 * n * 4 + n * d * elt,    # lse, g in; dh out
               "dw": ins + 2 * n * 4 + v * d * elt + v * 4}[kernel]
-    flops = (2 if kernel == "fwd" else 4) * n * v * d
+    return bytes_ / _HBM_BYTES_PER_S * 1e3
+
+
+def _fce_flops(n, v, d, kernel):
+    """2·N·V·D operations (forward) or 4·N·V·D (each backward kernel:
+    the logits once more and one product)."""
+    return (2 if kernel == "fwd" else 4) * n * v * d
+
+
+def _fce_bound(n, v, d, dtype, kernel):
+    """Least time for one fused-CE kernel: its bytes (``_fce_bytes_ms``)
+    vs its operations over the peak for the dtype's arithmetic."""
     peak = _BF16_FLOPS if dtype == torch.bfloat16 else _F32_FLOPS
-    tb, tf = bytes_ / _HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    tb = _fce_bytes_ms(n, v, d, dtype, kernel)
+    tf = _fce_flops(n, v, d, kernel) / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _fce_kernel_bound(fce, n, v, d, dtype, kernel):
+    """(bound ms, bound_by, other fields) of fused-CE ``kernel`` on its
+    route: ``_fce_bound``, or for the 3xTF32 dh and dW/db (route "tf32",
+    on the tensor cores) three TF32 products for each multiply over the
+    TF32 peak (or the bytes, where they take longer), with the f32
+    CUDA-core bound beside it as ``bound_f32_cuda_cores_ms``."""
+    bound, by = _fce_bound(n, v, d, dtype, kernel)
+    if fce.kernel_route(dtype, d, kernel) != "tf32":
+        return bound, by, {}
+    tf = 3 * _fce_flops(n, v, d, kernel) / _TF32_FLOPS * 1e3
+    tb = _fce_bytes_ms(n, v, d, dtype, kernel)
+    return (*((tb, "bytes") if tb >= tf else (tf, "operations")),
+            {"bound_f32_cuda_cores_ms": bound})
 
 
 def _fce_library_ms(h, w, b, t):
@@ -2437,13 +2477,18 @@ def _fce_check(fce, h, w, b, t, g, label):
 
 def phase_fused_ce(fce, gen):
     """The three fused-CE kernels vs their plain versions at the harness
-    head's shapes (N 8192, V 32768, D 1024) in bf16 and f32 and at a
-    tails case (N 1000, V 50257, one target 0); at the main shapes each
-    is timed against its bound, its plain version and the library
-    composition. The forward's rows also give its rate over 2·N·V·D,
-    its share of the bound (bound_ms / ms) and, as the product's
-    yardstick, the time of a bare ``F.linear(h, w)`` at the same shape
-    and dtype (``gemm_ms``: the logits alone, not the same function)."""
+    head's shapes (N 8192, V 32768, D 1024) in bf16 and f32, at a tails
+    case (N 1000, V 50257, one target 0) and at D 72 and 1032; at the
+    main shapes each is timed against its bound, its plain version and
+    the library composition. Each row names its route
+    (``fce.kernel_route``). The forward's rows also give its rate over
+    2·N·V·D, its share of the bound (bound_ms / ms) and, as the
+    product's yardstick, the time of a bare ``F.linear(h, w)`` at the
+    same shape and dtype (``gemm_ms``: the logits alone, not the same
+    function). The f32 dh and dW/db rows (route "tf32") give the 3xTF32
+    bound as ``bound_ms`` with the f32 CUDA-core one beside it, the
+    share of the 3xTF32 bound, the workspace (``workspace_mib``) and the
+    most the call holds beyond its inputs (``peak_mib``)."""
     import torch.nn.functional as F
     sms = torch.cuda.get_device_properties(_DEV).multi_processor_count
     rows = {}
@@ -2456,7 +2501,10 @@ def phase_fused_ce(fce, gen):
             code = fce._DTYPE_CODES[dtype]
             fwd_splits = fce._kernel_fns()["fwd_splits"](code, n, v, d, sms)
             splits = fce._kernel_fns()["dh_splits"](code, n, v, d)
+            routes = {k: fce.kernel_route(dtype, d, k)
+                      for k in ("fwd", "dh", "dw")}
             print(f"[kernels] fused_ce[{case} {name}] N={n} V={v} D={d} "
+                  f"routes={routes} "
                   f"fwd_splits={fwd_splits} dh_splits={splits} "
                   f"max abs errs " + json.dumps(errs) + " worst error / "
                   "limit " + json.dumps(worst) + f" (limit rtol·|plain| + "
@@ -2476,11 +2524,18 @@ def phase_fused_ce(fce, gen):
                            lib_bwd, max(errs["dw"], errs["db"])),
                 }
                 for kname, (kern, plain, lib, err) in kernels.items():
-                    bound, by = _fce_bound(n, v, d, dtype, kname)
+                    bound, by, extra = _fce_kernel_bound(fce, n, v, d,
+                                                         dtype, kname)
                     ms = _time_ms(kern)
-                    row = dict(max_abs_err=err, ms=ms,
+                    row = dict(route=routes[kname], max_abs_err=err, ms=ms,
                                plain_ms=_time_ms(plain), bound_ms=bound,
-                               bound_by=by, library_ms=lib)
+                               bound_by=by, library_ms=lib, **extra)
+                    if routes[kname] == "tf32":
+                        row.update(
+                            share_of_bound=bound / ms,
+                            workspace_mib=fce.workspace_floats(
+                                kname, n, v, d, dtype) * 4 / 2 ** 20,
+                            peak_mib=_peak_mib(kern))
                     if kname == "fwd":
                         row.update(tflops=2 * n * v * d / ms / 1e9,
                                    share_of_bound=bound / ms,
@@ -2556,13 +2611,17 @@ def _perf_fused(fce, card):
     from bigdl_tpu_torch.models.utils import perf
     from bigdl_tpu_torch.optim import SGD
     fce.fwd_launches = fce.dh_launches = fce.dw_launches = 0
+    fce.dh_tf32_launches = fce.dw_tf32_launches = 0
     out = perf.main(_perf_args())
     launches = {"fwd": fce.fwd_launches, "dh": fce.dh_launches,
                 "dw": fce.dw_launches}
     steps = _PERF["warm_up"] + _PERF["iterations"]
-    if not out["fused"] or launches != dict.fromkeys(launches, steps):
-        raise AssertionError(f"fused-CE launches {launches}, expected "
-                             f"{steps} of each (fused={out['fused']})")
+    if (not out["fused"] or launches != dict.fromkeys(launches, steps)
+            or fce.dh_tf32_launches or fce.dw_tf32_launches):
+        raise AssertionError(f"fused-CE launches {launches} (f32 route: "
+                             f"{fce.dh_tf32_launches}, "
+                             f"{fce.dw_tf32_launches}), expected {steps} "
+                             f"of each, none f32 (fused={out['fused']})")
     first, final = out["first_loss"], out["final_loss"]
     if not (math.isfinite(first) and math.isfinite(final)):
         raise AssertionError(f"non-finite harness loss: {first}, {final}")
@@ -2613,14 +2672,52 @@ def _perf_fused(fce, card):
     return launches, numbers
 
 
+def _perf_f32(fce, card):
+    """The transformer step in f32 (``--dataType f32``) at ``_PERF``'s
+    geometry, 1 warm-up and 3 timed steps: the f32 fused-CE forward (CUDA
+    cores) and the 3xTF32 dh and dW/db, the counters set to 0 just
+    before and read just after (4 launches of each, dh's and dW's on the
+    route "tf32"), the first loss within 0.5 of ln V. Returns the
+    launches."""
+    from bigdl_tpu_torch.models.utils import perf
+    fce.fwd_launches = fce.dh_launches = fce.dw_launches = 0
+    fce.dh_tf32_launches = fce.dw_tf32_launches = 0
+    out = perf.main(_perf_args(warm_up=1, iterations=3)
+                    + ["--dataType", "f32"])
+    launches = {"fwd": fce.fwd_launches, "dh": fce.dh_tf32_launches,
+                "dw": fce.dw_tf32_launches}
+    if (not out["fused"] or launches != dict.fromkeys(launches, 4)
+            or (fce.dh_launches, fce.dw_launches) != (4, 4)):
+        raise AssertionError(f"f32 fused-CE launches {launches} (all dh, "
+                             f"dW: {fce.dh_launches}, {fce.dw_launches}), "
+                             f"expected 4 of each on the f32 route "
+                             f"(fused={out['fused']})")
+    first, final = out["first_loss"], out["final_loss"]
+    if not (math.isfinite(first) and math.isfinite(final)
+            and abs(first - math.log(_PERF["vocab"])) <= 0.5):
+        raise AssertionError(f"f32 harness losses {first}, {final}: the "
+                             f"first not within 0.5 of ln {_PERF['vocab']}")
+    numbers = {k: out[k] for k in ("ms_per_step", "tokens_per_s",
+                                   "peak_bytes", "first_loss",
+                                   "final_loss")}
+    print(f"[perf] card='{card}' transformer "
+          + json.dumps(dict(_PERF, warm_up=1, iterations=3))
+          + " f32, fused head+CE (dh and dW/db on the route "
+          + f"{fce.kernel_route(torch.float32, _PERF['d_model'], 'dh')!r}): "
+          + json.dumps(numbers) + f" fused_ce_launches={launches}",
+          flush=True)
+    return launches
+
+
 def phase_perf(fce, fa):
     """The throughput harness: the fused transformer step (``_perf_fused``),
-    the unfused step's peak memory against the fused one's, and the
+    the unfused step's peak memory against the fused one's, the
     attention mode at each of ``_PERF_ATTENTION``'s head dims in bf16 and
     at ``_PERF_ATTENTION_F32`` in f32, the flash counters set to 0 just
     before each run and read just after (1 warm-up and 3 timed fwd+bwd: 4
-    launches of each kernel). Returns the fused-CE launches and the flash
-    launches by (head dim, "bf16" or "f32")."""
+    launches of each kernel), and the f32 transformer step
+    (``_perf_f32``). Returns the fused-CE launches of the bf16 and of the
+    f32 step and the flash launches by (head dim, "bf16" or "f32")."""
     from bigdl_tpu_torch.models.utils import perf
     card = _card()
     launches, fused = _perf_fused(fce, card)
@@ -2661,7 +2758,9 @@ def phase_perf(fce, fa):
               f"causal, fwd+bwd ms per iteration: " + json.dumps(att)
               + f" flash_launches={counts}", flush=True)
         torch.cuda.empty_cache()
-    return launches, flash
+    f32_launches = _perf_f32(fce, card)
+    torch.cuda.empty_cache()
+    return launches, f32_launches, flash
 
 
 def _lrn_bound(shape, dtype, size, backward):
@@ -3004,7 +3103,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     wide_launches = phase_train_wide(fa, args.seed)
     narrow_launches = phase_train_narrow(fa, args.seed)
-    fce_launches, perf_flash = phase_perf(fce, fa)
+    fce_launches, fce_f32_launches, perf_flash = phase_perf(fce, fa)
     torch.cuda.empty_cache()
     conv_launches, _ = phase_inception(lrn, mp)
 
@@ -3144,6 +3243,23 @@ def main(argv=None) -> int:
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fce_launches[count],
             **{k: row[k] for k in keys}})
+    # the f32 rows at the harness head (N 8192, V 32768, D 1024), their
+    # launches those of [perf]'s f32 transformer step: the forward on the
+    # CUDA cores, dh and dW/db in 3xTF32 (bound_ms theirs on the tensor
+    # cores, the f32 CUDA-core one beside it)
+    for name, line, count in (("fused_ce_fwd", 184, "fwd"),
+                              ("fused_ce_dh", 214, "dh"),
+                              ("fused_ce_dw", 230, "dw")):
+        row = fce_rows[(name, torch.float32)]
+        kernels.append({
+            "name": f"{name}_{'f32' if count == 'fwd' else row['route']}",
+            "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/fused_ce.cu",
+            "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
+            "launches": fce_f32_launches[count],
+            **{k: row[k] for k in keys},
+            **({"bound_f32_cuda_cores_ms": row["bound_f32_cuda_cores_ms"]}
+               if "bound_f32_cuda_cores_ms" in row else {})})
     # the path's LRN rows: norm2, the larger of the two, in bf16; and the
     # runtime-size kernels past window 9 at size 11, bf16, their launches
     # those of [inception] past window 9 (counted apart: none, as its

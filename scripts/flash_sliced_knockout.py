@@ -3,8 +3,9 @@
 undone at a time, in turns, on one NVIDIA card: the bf16 ones, or
 (``--only tf32``) the f32 3xTF32 ones.
 
-Builds ``bigdl_tpu_torch/csrc/flash_attention.cu`` as it is and copies
-of it with one exact text replacement each (``VARIANTS``: the forward's
+Builds ``bigdl_tpu_torch/csrc/flash_attention.cu`` as it is (with
+``tf32.cuh``, which holds the 3xTF32 steps, inlined) and copies of it
+with one exact text replacement each (``VARIANTS``: the forward's
 choices, then those of the sliced dq and dk/dv) into a temporary
 directory, holds every version's outputs of the kernels a variant
 changes against the plain versions (``chip_smoke``'s limits; dq and
@@ -365,9 +366,19 @@ TF32_VARIANTS = {
          _dp_call("""        ring.release();
       }
       warp_wait(sfull, sph);"""),
-         ("    tf32_split_kernel<<<blocks, 256, 0, st>>>(",
-          "    (j ? tf32_split_grid_kernel : tf32_split_kernel)"
-          "<<<blocks, 256, 0, st>>>(")]),
+         ("""  for (int j = 0; j < tensors; ++j)
+    if (int e = tf_split_pass(j ? x1 : x0, work + 2 * j * n,
+                              work + (2 * j + 1) * n, n, sms, st))
+      return e;""",
+          """  for (int j = 0; j < tensors; ++j) {
+    const int64_t want = (n / 4 + 255) / 256;
+    const int blocks = static_cast<int>(want < 8 * sms ? want : 8 * sms);
+    (j ? tf32_split_grid_kernel : tf32_split_kernel)<<<blocks, 256, 0, st>>>(
+        static_cast<const float4*>(j ? x1 : x0),
+        reinterpret_cast<float4*>(work + 2 * j * n),
+        reinterpret_cast<float4*>(work + (2 * j + 1) * n), n / 4);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }""")]),
     "split_in_kernel": (
         ("dq", "dkdv"),
         "no split pass and no workspace: TMA brings the walked B boxes "
@@ -469,9 +480,11 @@ def main(argv=None) -> int:
     chosen_variants = TF32_VARIANTS if tf32 else {
         name: v for name, v in VARIANTS.items()
         if args.only is None or (v[0] == ("fwd",)) == (args.only == "fwd")}
-    sources, past = _variant_sources(
+    # the 3xTF32 steps live in tf32.cuh: every version builds with it
+    # inlined, so that a variant may edit them
+    sources, past = _variant_sources(_build.inline_header(
         (ROOT / "bigdl_tpu_torch/csrc/flash_attention.cu").read_text(),
-        chosen_variants)
+        "tf32.cuh"), chosen_variants)
     sources = {k: v for k, v in sources.items()
                if k == "this" or k in chosen_variants}
     if past:

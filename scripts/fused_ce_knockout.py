@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the bf16 fused-CE kernels spend their time, on one NVIDIA card,
-and a planted fault in the forward against ``chip_smoke.py``'s limit.
+"""Where the fused-CE kernels spend their time, on one NVIDIA card, and a
+planted fault in the forward against ``chip_smoke.py``'s limit.
 
 Builds ``bigdl_tpu_torch/csrc/fused_ce.cu`` as it is and in copies with
 one part knocked out or one fault planted (written to a temporary
@@ -59,12 +59,48 @@ plain version as ``chip_smoke.py`` holds them, absolutely at
 - ``w_prev_stage_last_tile``: the same, in each split's last vocab tile
   only.
 
+``--only tf32`` instead times the f32 dh and dW/db
+(``fce_bwd_tf32_kernel``: 3xTF32 on the tensor cores, two-CTA clusters)
+at the same shapes in f32, each version's outputs held against the f32
+plain versions at ``chip_smoke``'s limits and against the function
+evaluated in float64 (the ratio to the same limit), then timed in turns
+(the versions in order, then in reverse):
+
+- ``chained_score``, ``chained_out``: the precision knockouts of
+  ``flash_sliced_knockout.py`` (the score products, or the output
+  products, summed in one tensor-core chain, not in fresh sums), applied
+  to ``tf32.cuh``'s steps, which every version here builds inlined;
+  their errors are the reading, held to nothing;
+- ``recompute_per_slice``: the design not kept for the D-wide
+  accumulator: each CTA of a cluster forms the logits over all of D (its
+  warpgroups half each) instead of half and an exchange through
+  distributed shared memory;
+- what sets the pace, one part out at a time (wrong values, read for
+  their time): ``no_tma_load`` (no L2 traffic into the ring),
+  ``no_a_split`` (A's parts not split in registers), ``no_exchange``
+  (no exchange between the cluster's CTAs), ``no_dl`` (no dl formed:
+  no exp, no column values), ``no_score_wgmma`` and ``no_out_wgmma``
+  (no products in the score or the output steps).
+
+With ``--parent FILE`` (a ``fused_ce.cu`` of another version; without
+it, ``git show HEAD~1:bigdl_tpu_torch/csrc/fused_ce.cu`` where the
+checkout is a git repository), it then builds that version too (in the
+temporary directory, against this checkout's headers) and reads both in
+turns (this, parent, parent, this): the f32 dh and dW/db (the parent's
+own kernels: before this route, the CUDA-core pair), the f32 forward and
+the three bf16 kernels, whose outputs must be bit-equal to the parent's;
+then the harness step ``perf -m transformer --dataType f32`` at
+``chip_smoke._PERF``'s geometry (1 warm-up, 3 timed steps) with each
+version's kernels, in the same turns.
+
     python3 scripts/fused_ce_knockout.py [--seed N]
+    python3 scripts/fused_ce_knockout.py --only tf32 [--parent FILE]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -74,8 +110,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke  # noqa: E402
+import flash_sliced_knockout  # noqa: E402
 from bigdl_tpu_torch.ops import _build  # noqa: E402
 from bigdl_tpu_torch.ops import fused_ce as fce  # noqa: E402
 
@@ -152,13 +190,277 @@ def _fault_source(src: str, where: str) -> str:
         "hs + kHBox;\n"))
 
 
+#: the f32 3xTF32 backward's knockouts (``--only tf32``): name -> (what it
+#: undoes, [(text, its replacement)], held to the limits)
+TF32_KNOCKOUTS = {
+    name: (flash_sliced_knockout.TF32_VARIANTS[name][1],
+           flash_sliced_knockout.TF32_VARIANTS[name][2], False)
+    for name in ("chained_score", "chained_out")}
+TF32_KNOCKOUTS["recompute_per_slice"] = (
+    "each CTA of a cluster forms the logits over all of D (a 512-column "
+    "output slice each, the logits recomputed by both), no exchange",
+    [("  const int nh = ((D + 31) / 32 + 2 * kRanks - 1) / (2 * kRanks);\n"
+      "  const int sc0 = 2 * nh * rank;",
+      "  const int nh = ((D + 31) / 32 + 1) / 2;\n  const int sc0 = 0;"),
+     ("        exchange(s, recv, xfull, xempty, rank, i);\n", ""),
+     ("    if constexpr (G == 0) drain(xempty, nxt);\n", "")], True)
+# what sets the pace: one part taken out at a time (wrong values, read
+# for their time alone)
+TF32_KNOCKOUTS.update({
+    "no_tma_load": (
+        "the producer completes each stage's barrier without loading: no "
+        "L2 traffic into the ring (the split pass still runs)",
+        [("          const uint32_t dst = ring.acquire(t, kTfStage);\n"
+          "          for (int w = 0; w < 2; ++w) {\n"
+          "            const int c = 32 * (sc0 + nh * w + j);\n"
+          "            tma_load_2d(dst + 2 * w * kTfBox, &rm, ring.full(), "
+          "c, r0);\n"
+          "            tma_load_2d(dst + (2 * w + 1) * kTfBox, &xhm, "
+          "ring.full(), c,\n                        x0);\n"
+          "            tma_load_2d(dst + (4 + w) * kTfBox, &xlm, ring.full(), "
+          "c, x0);\n          }\n",
+          "          ring.acquire(t, 0);\n"),
+         ("          const uint32_t dst = ring.acquire(t, (two ? 4 : 2) * "
+          "kTfBox);\n"
+          "          for (int w = 0; w < (two ? 2 : 1); ++w)\n"
+          "            for (int e = 0; e < 2; ++e)\n"
+          "              tma_load_2d(dst + (2 * w + e) * kTfBox, &xm, "
+          "ring.full(),\n"
+          "                          64 * (ch0 + own0 * w + p) + 32 * e, "
+          "x0);\n",
+          "          ring.acquire(t, 0);\n")], False),
+    "no_a_split": (
+        "A's raw f32 taken as both tf32 parts, not split in registers (the "
+        "shared-memory loads stay)",
+        [("// One score step: s (+)= A·Bᵀ over 32 columns",
+          "__device__ __forceinline__ void no_split(float x, uint32_t& hi,\n"
+          "                                         uint32_t& lo) {\n"
+          "  hi = lo = __float_as_uint(x);\n}\n\n"
+          "// One score step: s (+)= A·Bᵀ over 32 columns"),
+         ("        split_tf32(ld_shared(a_t + tf_at(r0 + 8 * (e & 1),",
+          "        no_split(ld_shared(a_t + tf_at(r0 + 8 * (e & 1),"),
+         ("        split_tf32(ld_shared(a_t + tf_at(32 * half + 8 * kk + t +",
+          "        no_split(ld_shared(a_t + tf_at(32 * half + 8 * kk + t +")],
+        False),
+    "no_exchange": (
+        "no exchange through distributed shared memory: each CTA forms dl "
+        "from its own half of the logits",
+        [("        exchange(s, recv, xfull, xempty, rank, i);\n", ""),
+         ("    if constexpr (G == 0) drain(xempty, nxt);\n", "")], False),
+    "no_dl": (
+        "no dl formed (no column values read, no exp): the logits pass as "
+        "dl",
+        [("            float d = 0.f;\n"
+          "            if (rok[h] && x0 + c + u < nX)\n",
+          "            float d = s[e];\n            if (false)\n")], False),
+    "no_score_wgmma": (
+        "no wgmma in the score steps (A still split, the fresh sums still "
+        "waited for and added)",
+        [("      wgmma_tf32_rs_n64(acc, ah[kk], desc(blo + k), kk > 0);\n"
+          "      wgmma_tf32_rs_n64(acc, al[kk], desc(b_t + k), 1);\n", ""),
+         ("      wgmma_tf32_rs_n64(acc, ah[kk], desc(b_t + 32 * (k0 + kk)), "
+          "1);\n", "      ;\n")], False),
+    "no_out_wgmma": (
+        "no wgmma in the output steps (A still split, the fresh sums still "
+        "waited for and added)",
+        [("      wgmma_tf32_rs_n64(d, ah[kk], desc(blo + k), kk > 0);\n"
+          "      wgmma_tf32_rs_n64(d, al[kk], desc(bhi + k), 1);\n"
+          "      wgmma_tf32_rs_n64(d, ah[kk], desc(bhi + k), 1);\n", "")],
+        False),
+})
+_ORDER = ("this", "parent", "parent", "this")
+
+
+def _f64_backward(h, w, b, t, lse, g):
+    """dh, dW and db of the function evaluated in float64 from the same
+    inputs (the plain forward's lse among them)."""
+    h64, w64 = h.double(), w.double()
+    s = h64 @ w64.T + b.double()
+    dl = torch.exp(s - lse.double()[:, None])
+    rows = torch.arange(h.shape[0], device=h.device)
+    ok = (t >= 1) & (t <= w.shape[0])
+    dl[rows[ok], (t[ok] - 1).long()] -= 1.0
+    dl *= g.double()[:, None]
+    return dl @ w64, dl.T @ h64, dl.sum(dim=0)
+
+
+def _held(got, plain, exact, lim):
+    """Max abs error against the plain version, and the worst error /
+    limit against it and against the float64 function."""
+    err, worst = chip_smoke._worst(got, plain, *lim)
+    return {"max_abs_err": err, "over_limit": worst,
+            "over_limit_f64": chip_smoke._worst(got, exact, *lim)[1]}
+
+
+def _parent_source(path):
+    """The other version's fused_ce.cu: ``path``, or HEAD~1's."""
+    if path:
+        return Path(path).read_text()
+    return subprocess.run(
+        ["git", "show", "HEAD~1:bigdl_tpu_torch/csrc/fused_ce.cu"],
+        cwd=ROOT, check=True, capture_output=True, text=True).stdout
+
+
+def _tf32(args) -> int:
+    """``--only tf32``: the knockouts, then the A/B against the parent."""
+    src = _build.inline_header(
+        (ROOT / "bigdl_tpu_torch/csrc/fused_ce.cu").read_text(), "tf32.cuh")
+    sources, failed = {"as_is": src}, []
+    for name, (what, edits, _) in TF32_KNOCKOUTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                failed.append(f"{name}: {old.strip()[:60]!r} moved")
+            text = text.replace(old, new)
+        sources[name] = text
+        print(f"[knockout] {name}: {what}", flush=True)
+    parent = _parent_source(args.parent) if args.compare else None
+    if parent is not None:
+        sources["parent"] = parent
+    card = chip_smoke._card()
+    gen = torch.Generator().manual_seed(args.seed)
+    n, v, d = 8192, 32768, 1024
+    h, w, b, t, g = chip_smoke._fce_inputs(n, v, d, torch.float32, gen,
+                                           False)
+    _, lse = fce.fused_ce_fwd_ref(h, w, b, t)
+    plain = (fce.fused_ce_dh_ref(h, w, b, t, lse, g),
+             *fce.fused_ce_dw_ref(h, w, b, t, lse, g))
+    exact = _f64_backward(h, w, b, t, lse, g)
+    torch.cuda.empty_cache()
+    lims = (chip_smoke._FCE_TOL[torch.float32],) * 2 + (
+        chip_smoke._FCE_DB_TOL,)
+    calls = {"dh": lambda: fce.fused_ce_dh(h, w, b, t, lse, g),
+             "dw": lambda: fce.fused_ce_dw(h, w, b, t, lse, g)}
+    chosen = fce._kernel_fns
+    with tempfile.TemporaryDirectory() as tmp:
+        with ThreadPoolExecutor(len(sources)) as pool:
+            fns = dict(zip(sources, pool.map(
+                lambda kv: fce.bind(_build.build_copy(kv[1],
+                                                      Path(tmp) / kv[0])),
+                sources.items())))
+        try:
+            chip_smoke._warm_card()
+            times = {k: {"dh": [], "dw": []} for k in sources}
+            names = [k for k in sources if k != "parent"]
+            for name in names:
+                fce._kernel_fns = lambda f=fns[name]: f
+                dh = calls["dh"]()
+                dw, db = calls["dw"]()
+                torch.cuda.synchronize()
+                row = {what: _held(got, p, e, lim) for what, got, p, e, lim
+                       in zip(("dh", "dw", "db"), (dh, dw, db), plain, exact,
+                              lims)}
+                held = name == "as_is" or TF32_KNOCKOUTS[name][2]
+                bad = [k for k, r in row.items() if not r["over_limit"] <= 1]
+                if held and bad:
+                    failed.append(f"{name}: {bad} past the limit")
+                print(f"[tf32] {name} N={n} V={v} D={d} f32 errors "
+                      + json.dumps(row) + (" (held to the limits)" if held
+                                           else " (held to nothing)"),
+                      flush=True)
+                del dh, dw, db
+            for name in names + names[::-1]:
+                fce._kernel_fns = lambda f=fns[name]: f
+                for k in ("dh", "dw"):
+                    times[name][k].append(chip_smoke._time_ms(calls[k]))
+            for name in names:
+                ms = {k: sum(x) / len(x) for k, x in times[name].items()}
+                ratio = {k: ms[k] / (sum(times["as_is"][k])
+                                     / len(times["as_is"][k]))
+                         for k in ms}
+                print(f"[knockout] card='{card}' N={n} V={v} D={d} f32 "
+                      f"{name}: ms " + json.dumps(times[name]) + " mean "
+                      + json.dumps(ms) + " ratio to as_is "
+                      + json.dumps(ratio), flush=True)
+            if parent is not None:
+                failed += _against_parent(fns, gen, card)
+        finally:
+            fce._kernel_fns = chosen
+    if failed:
+        print("[knockout] failed: " + "; ".join(failed), flush=True)
+    print(card)
+    return 1 if failed else 0
+
+
+def _against_parent(fns, gen, card):
+    """This version against the parent in turns: the f32 pair, the f32
+    forward and the bf16 kernels at the harness head (those two
+    bit-equal), then the f32 harness step. Returns what failed."""
+    from bigdl_tpu_torch.models.utils import perf
+    n, v, d = 8192, 32768, 1024
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        h, w, b, t, g = chip_smoke._fce_inputs(n, v, d, dtype, gen, False)
+        _, lse = fce.fused_ce_fwd_ref(h, w, b, t)
+        calls = {"fwd": lambda: fce.fused_ce_fwd(h, w, b, t),
+                 "dh": lambda: fce.fused_ce_dh(h, w, b, t, lse, g),
+                 "dw": lambda: fce.fused_ce_dw(h, w, b, t, lse, g)}
+        outs, ms = {}, {k: {"this": [], "parent": []} for k in calls}
+        for ver in _ORDER:
+            fce._kernel_fns = lambda f=fns["as_is" if ver == "this"
+                                         else "parent"]: f
+            for k, call in calls.items():
+                if ver not in outs.get(k, {}):
+                    out = call()
+                    torch.cuda.synchronize()
+                    outs.setdefault(k, {})[ver] = out
+                ms[k][ver].append(chip_smoke._time_ms(call))
+        for k in calls:
+            a, p = outs[k]["this"], outs[k]["parent"]
+            a, p = (a, p) if isinstance(a, tuple) else ((a,), (p,))
+            equal = all(torch.equal(x, y) for x, y in zip(a, p))
+            mean = {ver: sum(x) / len(x) for ver, x in ms[k].items()}
+            rebuilt = dtype == torch.float32 and k != "fwd"
+            if not equal and not rebuilt:
+                failed.append(f"{k} {name}: not bit-equal to the parent")
+            print(f"[parent] card='{card}' fused_ce_{k} {name} N={n} V={v} "
+                  f"D={d}: route {fce.kernel_route(dtype, d, k)!r} ms "
+                  + json.dumps(ms[k]) + " mean " + json.dumps(mean)
+                  + f" this/parent {mean['this'] / mean['parent']} "
+                  f"bit_equal={equal}", flush=True)
+        del h, w, b, t, g, lse, outs
+        torch.cuda.empty_cache()
+    p = chip_smoke._PERF
+    argv = chip_smoke._perf_args(warm_up=1, iterations=3) + [
+        "--dataType", "f32"]
+    steps = {"this": [], "parent": []}
+    for ver in _ORDER:
+        fce._kernel_fns = lambda f=fns["as_is" if ver == "this"
+                                     else "parent"]: f
+        out = perf.main(argv)
+        steps[ver].append(out["ms_per_step"])
+        print(f"[parent] card='{card}' perf -m transformer --dataType f32 "
+              f"B{p['batch']} S{p['seq']} V{p['vocab']} d{p['d_model']} "
+              f"L{p['layers']} {ver}: ms_per_step={out['ms_per_step']} "
+              f"peak_bytes={out['peak_bytes']} first_loss="
+              f"{out['first_loss']}", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    mean = {ver: sum(x) / len(x) for ver, x in steps.items()}
+    print(f"[parent] card='{card}' f32 step ms " + json.dumps(steps)
+          + " mean " + json.dumps(mean) + f" this - parent "
+          f"{mean['this'] - mean['parent']}", flush=True)
+    return failed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("bf16", "tf32"), default="bf16",
+                    help="the bf16 kernels' knockouts and faults, or the "
+                    "f32 3xTF32 backward's knockouts and A/B")
+    ap.add_argument("--parent", default=None,
+                    help="the fused_ce.cu to hold --only tf32 against "
+                    "(default: HEAD~1's, from git)")
+    ap.add_argument("--no-parent", dest="compare", action="store_false",
+                    help="--only tf32 without the A/B against the parent")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fused_ce_knockout: CUDA is not available", file=sys.stderr)
         return 2
+    if args.only == "tf32":
+        return _tf32(args)
     src = (ROOT / "bigdl_tpu_torch/csrc/fused_ce.cu").read_text()
     if src.count(_STAGE_LINE) != 1:
         raise RuntimeError("the forward's stage line has moved; update the "

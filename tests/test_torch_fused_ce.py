@@ -18,14 +18,21 @@ neighbouring bf16 value on one side, one step of 2^-8 relative, so they
 are held at rtol 2^-7 plus atol 2^-7·max|grad|; db stays f32 (rtol
 2e-5).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from bigdl_tpu.ops.pallas import fused_ce as jce
 from bigdl_tpu_torch.ops import fused_ce as tce
+# the 3xTF32 emulation and the source readers of the flash tests
+from test_torch_flash_attention import (_chip_smoke, _function_body,
+                                        _mm_1xtf32, _mm_3xtf32)
 
 
 def _case(n=256, d=128, v=512, seed=0):
@@ -272,3 +279,177 @@ def test_feature_width_100_matches_jax(dtype):
     for what, got, want in zip(("dh", "dw", "db"), tg, jg):
         assert got.shape == want.shape, what
         _grad_close(got, want, dtype, what)
+
+
+# --------------------------------------------------------------------------
+# the f32 backward on the card (route "tf32"): its arithmetic and dispatch
+# --------------------------------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parents[1] / "bigdl_tpu_torch" / "csrc"
+
+
+def _emulated_bwd(h, w, b, t, lse, g, vocab_rows, parts, mm):
+    """dh (``vocab_rows`` False) or (dW, db) as ``fce_bwd_tf32_kernel``
+    forms them, every product through ``mm``: the logits of resident
+    rows R against walked rows X summed over D in score steps of 32
+    columns, each step's two K groups of 16 in fresh sums added in f32;
+    ``parts`` warpgroups each sum an equal run of steps (4: a cluster's
+    two CTAs, each the sum of its two warpgroups, added in rank order;
+    2: one CTA's, the logits recomputed by every slice), steps past D
+    zero; dl in f32; the output's transpose Xᵀ·dl over walked tiles of 64
+    rows, each half tile of 32 rows a fresh sum added in f32; db the sum
+    of the unrounded dl."""
+    r, x = (w, h) if vocab_rows else (h, w)
+    d = x.shape[1]
+    nh = -(-(-(-d // 32)) // parts)
+    pad = parts * nh * 32 - d
+    rp, xp = F.pad(r, (0, pad)), F.pad(x, (0, pad))
+    sums = []
+    for p in range(parts):
+        s = 0
+        for c in range(32 * p * nh, 32 * (p + 1) * nh, 16):
+            s = s + mm(rp[:, c:c + 16], xp[:, c:c + 16].T)
+        sums.append(s)
+    s = (sums[0] + sums[1]) + ((sums[2] + sums[3]) if parts == 4 else 0)
+    onehot = (torch.arange(w.shape[0])[None, :]
+              == (t.long() - 1)[:, None]).float()
+    if vocab_rows:
+        dl = (torch.exp(s + b[:, None] - lse[None, :]) - onehot.T) * g
+    else:
+        dl = (torch.exp(s + b[None, :] - lse[:, None]) - onehot) * g[:, None]
+    out = torch.zeros((r.shape[0], d))
+    for x0 in range(0, x.shape[0], 32):
+        out = out + mm(x[x0:x0 + 32].T, dl[:, x0:x0 + 32].T).T
+    return (out, dl.sum(dim=1)) if vocab_rows else out
+
+
+@pytest.mark.parametrize("parts", [4, 2], ids=["cluster", "slice"])
+def test_3xtf32_backward_holds_the_f32_limit(parts):
+    """The numerical argument of the f32 dh and dW/db on the card (route
+    "tf32"): 3xTF32 on the tensor cores, emulated in f32 on the CPU
+    (``_emulated_bwd``: the split, fresh sums every 2 K steps of a score
+    step and every 4 of an output step, the cluster's halves added in
+    rank order, db from the unrounded dl) at D 1024, V 512, N 64 (inputs
+    from a numpy seed, as ``chip_smoke._fce_inputs`` scales them), at the
+    cluster's split of the logits and at a slice's: dh, dW and db stay
+    within ``chip_smoke._FCE_TOL[float32]`` of the function evaluated in
+    float64 (measured as ``chip_smoke._worst`` does), while single TF32
+    products miss it on dh and dW: TF32 keeps 11 of f32's 24 bits, the
+    split about 22."""
+    cs = _chip_smoke()
+    rtol, atol = cs._FCE_TOL[torch.float32]
+    n, v, d = 64, 512, 1024
+    rs = np.random.default_rng(20)
+    h = torch.from_numpy(rs.standard_normal((n, d)).astype(np.float32))
+    w = torch.from_numpy((rs.standard_normal((v, d)) / np.sqrt(d))
+                         .astype(np.float32))
+    b = torch.from_numpy((0.1 * rs.standard_normal(v)).astype(np.float32))
+    t = torch.from_numpy(rs.integers(1, v + 1, size=n).astype(np.int32))
+    g = torch.full((n,), 1.0 / n)
+    s64 = h.double() @ w.double().T + b.double()
+    lse = torch.logsumexp(s64, dim=1).float()
+    onehot = (torch.arange(v)[None, :] == (t.long() - 1)[:, None]).double()
+    dl64 = (torch.exp(s64 - lse.double()[:, None]) - onehot) * g.double()[
+        :, None]
+    want = {"dh": dl64 @ w.double(), "dw": dl64.T @ h.double(),
+            "db": dl64.sum(dim=0)}
+    for mm, holds in ((_mm_3xtf32, True), (_mm_1xtf32, False)):
+        got = {"dh": _emulated_bwd(h, w, b, t, lse, g, False, parts, mm)}
+        got["dw"], got["db"] = _emulated_bwd(h, w, b, t, lse, g, True, parts,
+                                            mm)
+        worst = {k: cs._worst(got[k], want[k], rtol if k != "db" else
+                              cs._FCE_DB_TOL[0],
+                              atol if k != "db" else cs._FCE_DB_TOL[1])[1]
+                 for k in want}
+        if holds:
+            assert max(worst.values()) <= 1, (mm.__name__, worst)
+        else:
+            assert min(worst["dh"], worst["dw"]) > 1, (mm.__name__, worst)
+
+
+def test_kernel_route_matches_the_c_dispatch():
+    """``kernel_route`` against csrc/fused_ce.cu: ``BIGDL_FCE_DISPATCH``
+    takes dtype code 0 as float and 1 as bf16, D a multiple of 8; the
+    forward runs ``tc::fwd`` for bf16 and ``fce_fwd_kernel`` for f32;
+    dh and dW/db run ``tf::bwd`` (which launches
+    ``fce_bwd_tf32_kernel``) for f32 at every D, ``tc::bwd`` (the
+    cluster kernel) for bf16 where ``clustered`` (D <= kRanks · kSlice)
+    and ``fce_bwd_kernel`` past it; ``bigdl_fce_dh_splits`` asks
+    ``tf::dh_splits`` for f32. Every width up to 2100 of both dtypes,
+    each at the route of the width it is padded to."""
+    src = (_CSRC / "fused_ce.cu").read_text()
+    macro = src[src.index("#define BIGDL_FCE_DISPATCH"):]
+    macro = macro[:macro.index("while (0)")]
+    assert "if (D <= 0 || D % 8 != 0) return -1;" in macro
+    assert "if (dtype == 0) return FN<float>(__VA_ARGS__);" in macro
+    assert "if (dtype == 1) return FN<bf16>(__VA_ARGS__);" in macro
+    fwd = _function_body(src, "template <typename T>\nint fwd(")
+    assert "if constexpr (sizeof(T) == 2) {\n    return tc::fwd(" in fwd
+    assert "fce_fwd_kernel<T>" in fwd
+    bwd = _function_body(src, "template <typename T, bool kVocabRows>\nint "
+                              "bwd(")
+    f32, bf16 = bwd.split("} else {")
+    assert "if constexpr (sizeof(T) == 4)" in f32
+    assert "return tf::bwd<kVocabRows>(" in f32
+    assert "if (clustered<T>(D))\n      return tc::bwd<kVocabRows>(" in bf16
+    assert "fce_bwd_kernel<T, kVocabRows>" in bf16
+    assert "fce_bwd_tf32_kernel<kVocabRows>" in _function_body(
+        src[src.index("namespace tf {"):],
+        "template <bool kVocabRows>\nint bwd(")
+    assert "return sizeof(T) == 2 && D <= kClusterD;" in src
+    bf16_consts = src[src.index("// bf16: tensor cores"):
+                      src.index("namespace tc {")]
+    consts = dict(re.findall(r"constexpr int (kRanks|kSlice) = (\d+);",
+                             bf16_consts))
+    assert int(consts["kRanks"]) * int(consts["kSlice"]) == tce._CLUSTER_D
+    splits = _function_body(src, 'extern "C" int bigdl_fce_dh_splits(')
+    assert "if (dtype == 0) return tf::dh_splits(N, V, D);" in splits
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in range(1, 2101):
+            dp = d + -d % 8
+            bwd_route = ("tf32" if code == 0 else "tc_cluster"
+                         if dp <= tce._CLUSTER_D else "cuda_cores")
+            assert tce.kernel_route(dtype, d, "dh") == bwd_route, (dtype, d)
+            assert tce.kernel_route(dtype, d, "dw") == bwd_route, (dtype, d)
+            assert tce.kernel_route(dtype, d, "fwd") == (
+                "tc" if code == 1 else "cuda_cores")
+    assert tce.kernel_route(torch.float16, 1024, "dh") is None
+    assert tce.kernel_route(torch.float32, 0, "dh") is None
+    assert tce.kernel_route(torch.float32, 1024, "dq") is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_workspace_and_binding_match_the_c_entries(dtype):
+    """The workspace the wrapper allocates on each route: on "tf32" (f32
+    dh and dW/db) the tf32 parts of the walked operand, hi then lo, 2 x
+    nX x D floats as ``tf::bwd`` splits them (2·V·D for dh, 2·N·D for
+    dW), none on the others nor for the forward; and the ctypes binding
+    of the C entries (dh and dW take it after the stream, the forward
+    none), parameter for parameter."""
+    n, v, d = 100, 3000, 72
+    f32 = dtype == torch.float32
+    assert tce.workspace_floats("dh", n, v, d, dtype) == (2 * v * d if f32
+                                                          else 0)
+    assert tce.workspace_floats("dw", n, v, d, dtype) == (2 * n * d if f32
+                                                          else 0)
+    assert tce.workspace_floats("fwd", n, v, d, dtype) == 0
+    src = (_CSRC / "fused_ce.cu").read_text()
+    body = _function_body(src[src.index("namespace tf {"):],
+                          "template <bool kVocabRows>\nint bwd(")
+    assert "const int64_t n = static_cast<int64_t>(nX) * D;" in body
+    assert "tf_split_pass(X, work, work + n, n, sms, st)" in body
+    assert "if (!work) return -1;" in body
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+    fns = tce.bind(Lib())
+    for name in ("fwd", "dh", "dw"):
+        head = f'extern "C" int bigdl_fce_{name}('
+        sig = src[src.index(head) + len(head):]
+        params = [p.strip() for p in sig[:sig.index(")")].split(",")]
+        assert len(fns[name].argtypes) == len(params), name
+        assert params[-1] == ("float* work" if name != "fwd"
+                              else "void* stream"), name
