@@ -195,22 +195,48 @@
 //   an SM; dh splits its vocab walk only where that lowers the whole-walk
 //   waves (4 parts at N 1000; none at N 8192).
 //
-// The f32 forward (and the bf16 backward with D > 1024): f32 arithmetic
-// on the CUDA cores, one CTA per 16 resident rows and 64-row X tiles. D
-// is streamed in 64-column chunks of R and X (cp.async, double
-// buffered); the 256 threads split a chunk's columns into four parts of
-// 64 threads, each owning 4 x 4 register tiles, summed through shared
-// memory at the end. The backward's accumulator is 16 rows x 1024
-// columns (thread t: columns 4t .. 4t+3), X's rows read back from L2; D
-// beyond 1024 takes more CTAs along a second grid axis, each recomputing
-// S.
+// Forward, f32, every D (tf::fce_fwd_tf32_kernel): 3xTF32 on the tensor
+// cores (tf32.cuh's split and ring) with the bf16 forward's epilogue.
+// - Why. 2·N·V·D = 5.5e11 operations at the harness head take 8.2 ms at
+//   the CUDA cores' 67 TFLOP/s, so no CUDA-core kernel (28.6 ms, the one
+//   this replaced) can beat the library's f32 forward (12.0 ms:
+//   F.cross_entropy over F.linear, TF32 off). One TF32 product misses
+//   the f32 limit on nll; hi·lo + lo·hi + hi·hi keeps it: 3.33 ms at 495
+//   TFLOP/s.
+// - Tile and roles. A CTA holds 128 token rows, two consumer warpgroups
+//   of 64, and walks vocab tiles of 128 columns; a producer warpgroup
+//   (setmaxnreg 24 / 240) streams a 4-stage ring of 48 KB stages by TMA
+//   from 2-D f32 maps: per score step of 32 columns of D, h's raw box
+//   [128][32] and W's tf32 parts (hi, lo) [128][32] each. Both operands
+//   are K-major as stored (D is contiguous in h and in W), so no product
+//   needs a transpose. tf32_split_kernel writes W's parts to a workspace
+//   first (2·V·D floats: 256 MiB at the harness head).
+// - Products. A warpgroup splits its 64 rows of h's box into tf32 parts
+//   in registers and sums the step's 12 wgmma m64n128k8 in a fresh
+//   accumulator that the logits tile gains in f32: a 64 x 128 tile and
+//   its fresh sum take 128 registers a thread, A's parts 32 and the
+//   tile's bias 32.
+// - Epilogue: tc::fold, as the bf16 forward (bias, -inf past V, target
+//   logit, ex2 of one FMA, four chains a row); (max, sum of exp, target
+//   logit) of each row go to the split's partials for fce_merge_kernel.
+// - Grid: N/128 row tiles x vocab splits, one CTA an SM (vocab_splits),
+//   the CTAs of a split walking the same W tiles in step.
+//
+// The bf16 backward with D > 1024 (fce_bwd_kernel): f32 arithmetic on
+// the CUDA cores, one CTA per 16 resident rows and 64-row X tiles. D is
+// streamed in 64-column chunks of R and X (cp.async, double buffered);
+// the 256 threads split a chunk's columns into four parts of 64 threads,
+// each owning 4 x 4 register tiles, summed through shared memory at the
+// end. The accumulator is 16 rows x 1024 columns (thread t: columns 4t ..
+// 4t+3), X's rows read back from L2; D beyond 1024 takes more CTAs along
+// a second grid axis, each recomputing S.
 //
 // Both forwards may split the vocab across a further grid axis so that a
 // few rows still fill the card; fce_merge_kernel merges the per-split
 // (max, sum of exp, target logit) of each row into nll and lse. The
 // kernels allocate nothing: the Python wrapper (ops/fused_ce.py)
 // allocates outputs, the forward's and dh's partials and the f32
-// backward's workspace, and checks shapes,
+// kernels' workspace, and checks shapes,
 // dtypes, contiguity and alignment. Any N, any V, D a multiple of 8
 // (16-byte rows for cp.async and the tensor maps); ragged tiles are
 // zero-filled and masked.
@@ -259,8 +285,7 @@ __device__ __forceinline__ void store4(bf16* p, const float (&x)[4]) {
   *reinterpret_cast<uint2*>(p) = v;
 }
 
-// x as a product operand of dtype T sees it
-__device__ __forceinline__ float round_as(float x, float) { return x; }
+// x as a bf16 product operand sees it
 __device__ __forceinline__ float round_as(float x, bf16) {
   return __bfloat162float(__float2bfloat16(x));
 }
@@ -311,48 +336,6 @@ __device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* x,
   }
 }
 
-// one vocab tile of the online logsumexp: thread t holds s[e] = S[row]
-// [4(t%16) + e] of vocab tile xt for its row; the 16 lanes of a row keep
-// identical (m, l) and each its share of the target logit
-struct OnlineLse {
-  const float* b;
-  int V, tcol;
-  float m, l, tl;
-  __device__ void operator()(int xt, float (&s)[4]) {
-    const int v0 = xt * kX + (threadIdx.x % 16) * 4;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int v = v0 + e;
-      if (v < V) {
-        s[e] += b[v];
-        if (v == tcol) tl += s[e];
-      } else {
-        s[e] = -INFINITY;                   // past the vocab's end
-      }
-      mx = fmaxf(mx, s[e]);
-    }
-    const float m_new = fmaxf(m, group_max<16>(mx));
-    float sum = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sum += expf(s[e] - m_new);
-    l = l * expf(m - m_new) + group_sum<16>(sum);
-    m = m_new;
-  }
-  // this row's (m, l, tl) into the forward's partials
-  __device__ void write(float* part, int split, int splits, int N,
-                        int row) {
-    const float t = group_sum<16>(tl);
-    if (threadIdx.x % 16 == 0 && row < N) {
-      const int64_t at = static_cast<int64_t>(split) * N + row;
-      const int64_t plane = static_cast<int64_t>(splits) * N;
-      part[at] = m;
-      part[plane + at] = l;
-      part[2 * plane + at] = t;
-    }
-  }
-};
-
 __global__ void fce_merge_kernel(const float* __restrict__ part, int splits,
                                  int N, float* __restrict__ nll,
                                  float* __restrict__ lse) {
@@ -371,6 +354,14 @@ __global__ void fce_merge_kernel(const float* __restrict__ part, int splits,
   const float out = m + logf(l);
   lse[row] = out;
   nll[row] = out - tl;
+}
+
+// nll and lse from the forward's `splits` partials
+int merge(const float* part, int splits, int N, float* nll, float* lse,
+          cudaStream_t st) {
+  fce_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, splits, N, nll,
+                                                     lse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dl of logit s at (resident row, streamed column) — which of the two is
@@ -420,6 +411,14 @@ int walk_splits(int rows, int tiles, int clusters) {
         ((rows * best + clusters - 1) / clusters) * s)
       best = s;
   return best;
+}
+
+// the vocab splits of a forward of CTAs of `rows` token rows walking
+// tiles of `cols` vocab columns: as many as keep one CTA on every SM of
+// the card's `sms` at once, no more than the vocab tiles
+int vocab_splits(int N, int V, int rows, int cols, int sms) {
+  const int ctas = (N + rows - 1) / rows;
+  return max(1, min((V + cols - 1) / cols, sms / ctas));
 }
 
 // clusters of `kernel` (launched with `threads` and `smem`, its cluster
@@ -769,19 +768,20 @@ using FwdLayout = Layout<kFwdStages, 0, kFwdStage>;
 static_assert(FwdLayout::kSmem <= 232448,
               "more shared memory than a CTA may have");
 
-// this thread's bias pairs of a vocab tile (columns c0 + 8j, +1; c0
-// even), -inf past V. Loaded when the tile's products start, so that the
-// loads' latency hides behind them, not in the epilogue.
-__device__ __forceinline__ void load_bias(float2 (&bias)[32],
+// this thread's bias pairs of a vocab tile of 8J columns (columns c0 +
+// 8j, +1; c0 even), -inf past V. Loaded when the tile's products start,
+// so that the loads' latency hides behind them, not in the epilogue.
+template <int J>
+__device__ __forceinline__ void load_bias(float2 (&bias)[J],
                                           const float* __restrict__ b,
                                           int V, int v0, int c0) {
-  if (v0 + kFwdCols <= V) {                // every column in the vocab
+  if (v0 + 8 * J <= V) {                   // every column in the vocab
 #pragma unroll
-    for (int j = 0; j < 32; ++j)
+    for (int j = 0; j < J; ++j)
       bias[j] = __ldg(reinterpret_cast<const float2*>(b + c0 + 8 * j));
   } else {
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < J; ++j) {
       const int c = c0 + 8 * j;
       bias[j].x = c < V ? __ldg(b + c) : -INFINITY;
       bias[j].y = c + 1 < V ? __ldg(b + c + 1) : -INFINITY;
@@ -789,17 +789,18 @@ __device__ __forceinline__ void load_bias(float2 (&bias)[32],
   }
 }
 
-// Fold one logits tile into its rows' online logsumexp. This thread holds
-// 2 rows x 64 columns of the tile's accumulator (rows h = 0, 1 at +8h,
-// columns c0 + 8j + e, c0 = v0 + 2(lane % 4)): add the bias (-inf past
-// V, which masks those columns), add the target column's logit to tl,
-// then rescale the rows' sums of exp to the new row max, taken over the
-// four lanes of the row, and add this thread's exps. m is the same in
-// the four lanes; ls and tl are this lane's shares. Maxima and sums run
-// in four independent chains a row, so that two warps a scheduler are
-// not bound by the latency of one chain of 64.
-__device__ __forceinline__ void fold(float (&acc)[128],
-                                     const float2 (&bias)[32], int c0,
+// Fold one logits tile of 8J columns into its rows' online logsumexp.
+// This thread holds 2 rows x 2J columns of the tile's accumulator (rows h
+// = 0, 1 at +8h, columns c0 + 8j + e, c0 = v0 + 2(lane % 4)): add the
+// bias (-inf past V, which masks those columns), add the target column's
+// logit to tl, then rescale the rows' sums of exp to the new row max,
+// taken over the four lanes of the row, and add this thread's exps. m is
+// the same in the four lanes; ls and tl are this lane's shares. Maxima
+// and sums run in four independent chains a row, so that two warps a
+// scheduler are not bound by the latency of one chain of 2J.
+template <int J>
+__device__ __forceinline__ void fold(float (&acc)[4 * J],
+                                     const float2 (&bias)[J], int c0,
                                      const int (&tcol)[2], float (&m)[2],
                                      float (&ls)[2], float (&tl)[2]) {
   constexpr float kLog2e = 1.4426950408889634f;
@@ -809,7 +810,7 @@ __device__ __forceinline__ void fold(float (&acc)[128],
 #pragma unroll
     for (int k = 0; k < 4; ++k) mx[h][k] = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < J; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float& s0 = acc[4 * j + 2 * h];
@@ -822,9 +823,9 @@ __device__ __forceinline__ void fold(float (&acc)[128],
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     // the target's logit, in the one tile of the walk that holds it
-    if (static_cast<unsigned>(tcol[h] - c0) < kFwdCols) {
+    if (static_cast<unsigned>(tcol[h] - c0) < 8 * J) {
 #pragma unroll
-      for (int j = 0; j < 32; ++j)
+      for (int j = 0; j < J; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           if (c0 + 8 * j + e == tcol[h]) tl[h] += acc[4 * j + 2 * h + e];
@@ -838,7 +839,7 @@ __device__ __forceinline__ void fold(float (&acc)[128],
   float sum[2][4] = {};
   const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
 #pragma unroll
-  for (int i = 0; i < 128; ++i) {
+  for (int i = 0; i < 4 * J; ++i) {
     const int h = (i % 4) / 2;
     sum[h][(i / 4) % 4] += ex2(fmaf(acc[i], kLog2e, -ml[h]));
   }
@@ -971,11 +972,8 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
                     : 0;
 }
 
-// the forward's vocab splits: as many as keep one CTA on every SM at once,
-// no more than the vocab tiles
 int fwd_splits(int N, int V, int sms) {
-  const int ctas = (N + kFwdRows - 1) / kFwdRows;
-  return max(1, min((V + kFwdCols - 1) / kFwdCols, sms / ctas));
+  return vocab_splits(N, V, kFwdRows, kFwdCols, sms);
 }
 
 int fwd(const void* h, const void* w, const float* b, const int* t,
@@ -989,9 +987,7 @@ int fwd(const void* h, const void* w, const float* b, const int* t,
                       kFwdThreads, FwdLayout::kSmem, st>>>(hm, wm, b, t,
                                                            part, N, V, D);
   if (int e = static_cast<int>(cudaGetLastError())) return e;
-  fce_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, splits, N, nll,
-                                                     lse);
-  return static_cast<int>(cudaGetLastError());
+  return merge(part, splits, N, nll, lse, st);
 }
 
 }  // namespace tc
@@ -1306,6 +1302,17 @@ int dh_splits(int N, int V, int D) {
                      (V + kTfRows - 1) / kTfRows, clusters);
 }
 
+// the tf32 parts of the n f32 at x into work (hi) and work + n (lo), on
+// the current card
+int split_pass(const void* x, float* work, int64_t n, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  if (cudaError_t e = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev))
+    return static_cast<int>(e);
+  return tf_split_pass(x, work, work + n, n, sms, st);
+}
+
 // dh (kVocabRows false) or dW and db (true), f32: X's tf32 parts into
 // `work` (hi, then lo: 2 x nX x D floats), then the kernel; dh's `splits`
 // walks write f32 partial sums to `part` (splits x N x D) and
@@ -1319,13 +1326,8 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
   const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
   const void* R = kVocabRows ? w : h;
   const void* X = kVocabRows ? h : w;
-  int dev = 0, sms = 0;
-  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
-  if (cudaError_t e = cudaDeviceGetAttribute(
-          &sms, cudaDevAttrMultiProcessorCount, dev))
-    return static_cast<int>(e);
   const int64_t n = static_cast<int64_t>(nX) * D;
-  if (int e = tf_split_pass(X, work, work + n, n, sms, st)) return e;
+  if (int e = split_pass(X, work, n, st)) return e;
   CUtensorMap rm, xm, xhm, xlm;
   if (int e = make_map(&rm, R, nR, D, kTfRows, true)) return e;
   if (int e = make_map(&xm, X, nX, D, kTfRows, true)) return e;
@@ -1342,6 +1344,172 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
   return splits > 1
              ? dh_merge(part, splits, static_cast<int64_t>(nR) * D, out, st)
              : 0;
+}
+
+// ---------------------------------------------------------------------------
+// forward, f32: 3xTF32 products, the bf16 forward's epilogue
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;         // token rows a CTA: 64 a warpgroup
+constexpr int kFwdCols = 128;         // vocab columns a tile
+constexpr int kFwdStages = 4;         // ring stages
+// a stage (tf32.cuh's kTfStage): h's raw box of the CTA's rows, then W's
+// tf32 parts hi and lo of the tile's rows, three [128][32] f32 boxes
+constexpr int kFwdWHi = 2 * kTfBox, kFwdWLo = 4 * kTfBox;
+constexpr int kFwdStage = kTfStage;
+// the ring, then tf_init's barriers
+constexpr size_t kFwdSmem =
+    1024 + kFwdStages * kFwdStage + 8 * (2 * kTfMaxStages + 2);
+static_assert(kFwdSmem <= 232448, "more shared memory than a CTA may have");
+
+// One score step of the forward: s += A·Bᵀ over 32 columns of D, A this
+// warpgroup's 64 token rows of the stage's raw h box (a_t; warp w rows
+// 16w..16w + 15) split into tf32 parts in registers, B the vocab tile's
+// 128 rows as W's parts (hi at b_t, lo at blo). The step's products sum
+// in one fresh accumulator, the low terms first (hi·lo, lo·hi, four K
+// steps of 8 each), then hi·hi, 12 wgmma m64n128k8, and s gains the sum
+// in f32: the tensor cores truncate what they add to a running sum
+// (tf_score_step), so no sum runs across steps. The caller zeroes s at a
+// tile's start, so no step selects between setting and adding.
+__device__ __forceinline__ void fwd_score_step(float (&s)[64], uint32_t a_t,
+                                               uint32_t b_t, uint32_t blo) {
+  const int i = threadIdx.x % 128, l = i % 32;
+  const int r0 = 16 * (i / 32) + l / 4, t = l % 4;
+  uint32_t ah[4][4], al[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_tf32(ld_shared(a_t + tf_at(r0 + 8 * (e & 1),
+                                       8 * kk + t + 4 * (e >> 1))),
+                 ah[kk][e], al[kk][e]);
+  float acc[64];
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32_rs_n128(acc, ah[kk], desc(blo + 32 * kk), kk > 0);
+    wgmma_tf32_rs_n128(acc, al[kk], desc(b_t + 32 * kk), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_tf32_rs_n128(acc, ah[kk], desc(b_t + 32 * kk), 1);
+  wg_commit();
+  wg_wait();
+  keep(acc);
+  keep(ah);
+  keep(al);
+#pragma unroll
+  for (int e = 0; e < 64; ++e) s[e] += acc[e];
+}
+
+// The f32 forward. CTA = 128 token rows from kFwdRows·blockIdx.x against
+// the vocab tiles of split blockIdx.y (balanced, none empty: the launcher
+// takes no more splits than tiles). Per tile of 128 vocab rows the ring
+// brings ceil(D / 32) stages, each one score step of both consumer
+// warpgroups: h's raw box (TMA reads zeros past N and past D) and W's
+// tf32 parts from the split pass (zeros past V and D). A warpgroup sums
+// its 64 rows' logits tile over D (fwd_score_step) and folds it into the
+// rows' online logsumexp (tc::fold: the bias loaded before the products,
+// -inf past V, the target logit, ex2 of one FMA); after the walk (max,
+// sum of exp, target logit) of each row go to the split's partials.
+__global__ void __launch_bounds__(kTfThreads, 1)
+fce_fwd_tf32_kernel(const __grid_constant__ CUtensorMap hm,
+                    const __grid_constant__ CUtensorMap whm,
+                    const __grid_constant__ CUtensorMap wlm,
+                    const float* __restrict__ b, const int* __restrict__ tgt,
+                    float* __restrict__ part, int N, int V, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  TfRing ring{base, base + kFwdStages * kFwdStage, kFwdStages};
+  tf_init(ring.bars, kFwdStages);
+  const int r0 = blockIdx.x * kFwdRows;
+  const int all = (V + kFwdCols - 1) / kFwdCols;
+  const int t0 = blockIdx.y * all / gridDim.y;
+  const int nt = (blockIdx.y + 1) * all / gridDim.y - t0;
+  const int nb = (D + 31) / 32;            // score steps of 32 columns
+  const int tid = threadIdx.x;
+
+  if (tid >= kTfConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kTfConsumers) {
+      for (int i = 0, t = 0; i < nt; ++i) {
+        const int v0 = (t0 + i) * kFwdCols;
+        for (int j = 0; j < nb; ++j, ++t, ring.next()) {
+          const uint32_t dst = ring.acquire(t, kFwdStage);
+          tma_load_2d(dst, &hm, ring.full(), 32 * j, r0);
+          tma_load_2d(dst + kFwdWHi, &whm, ring.full(), 32 * j, v0);
+          tma_load_2d(dst + kFwdWLo, &wlm, ring.full(), 32 * j, v0);
+        }
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  // the warpgroup index broadcast from lane 0 (uniform in the warp)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), l = tid % 32;
+  const int row = r0 + 64 * wg + 16 * ((tid / 32) % 4) + l / 4;  // and +8
+  int tcol[2];                             // the target column, or -1
+  float m[2], ls[2], tl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = row + 8 * h < N ? tgt[row + 8 * h] - 1 : -1;
+    tcol[h] = t >= 0 && t < V ? t : -1;
+    m[h] = -INFINITY;
+    ls[h] = tl[h] = 0.f;
+  }
+  float s[64];                             // the tile's logits
+  for (int t = 0; t < nt; ++t) {
+    const int v0 = (t0 + t) * kFwdCols, c0 = v0 + 2 * (l % 4);
+    float2 bias[kFwdCols / 8];
+    tc::load_bias(bias, b, V, v0, c0);
+    zero(s);
+    for (int j = 0; j < nb; ++j) {
+      const uint32_t st = ring.wait();
+      fwd_score_step(s, st + wg * kTfBox, st + kFwdWHi, st + kFwdWLo);
+      ring.release();
+    }
+    tc::fold(s, bias, c0, tcol, m, ls, tl);
+  }
+
+  // this split's (max, sum of exp, target logit) of the two rows
+  const int64_t plane = static_cast<int64_t>(gridDim.y) * N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(ls[h]), t = quad_sum(tl[h]);
+    const int r = row + 8 * h;
+    if (l % 4 == 0 && r < N) {
+      const int64_t at = static_cast<int64_t>(blockIdx.y) * N + r;
+      part[at] = m[h];
+      part[plane + at] = sum;
+      part[2 * plane + at] = t;
+    }
+  }
+}
+
+int fwd_splits(int N, int V, int sms) {
+  return vocab_splits(N, V, kFwdRows, kFwdCols, sms);
+}
+
+// the f32 forward: W's tf32 parts into `work` (hi, then lo: 2 x V x D
+// floats), the kernel into `part` (3 x splits x N floats), then
+// fce_merge_kernel
+int fwd(const void* h, const void* w, const float* b, const int* t,
+        float* part, float* nll, float* lse, int N, int V, int D,
+        int splits, cudaStream_t st, float* work) {
+  if (!work) return -1;
+  const int64_t n = static_cast<int64_t>(V) * D;
+  if (int e = split_pass(w, work, n, st)) return e;
+  CUtensorMap hm, whm, wlm;
+  if (int e = make_map(&hm, h, N, D, kFwdRows, true)) return e;
+  if (int e = make_map(&whm, work, V, D, kFwdCols, true)) return e;
+  if (int e = make_map(&wlm, work + n, V, D, kFwdCols, true)) return e;
+  if (int e = set_smem(fce_fwd_tf32_kernel, kFwdSmem)) return e;
+  fce_fwd_tf32_kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, splits),
+                        kTfThreads, kFwdSmem, st>>>(hm, whm, wlm, b, t, part,
+                                                    N, V, D);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  return merge(part, splits, N, nll, lse, st);
 }
 
 }  // namespace tf
@@ -1364,12 +1532,12 @@ __host__ __device__ constexpr int stage_elems() {
   return (kR + kX) * pitch<T>();
 }
 
-// bytes: the double-buffered stage, the partial S tiles and, for the
-// backward, the dlogits tile
+// bytes: the double-buffered stage, the partial S tiles and the dlogits
+// tile
 template <typename T>
-constexpr size_t smem_bytes(bool backward) {
+constexpr size_t smem_bytes() {
   return 2 * stage_elems<T>() * sizeof(T) + kParts * kR * kX * sizeof(float) +
-         (backward ? kX * kGF * sizeof(float) : 0);
+         kX * kGF * sizeof(float);
 }
 
 // Walk streamed tiles [xt0, xt1) against the resident rows: for each,
@@ -1449,26 +1617,6 @@ __device__ __forceinline__ void walk(const T* __restrict__ R, int r0, int nR,
       epi(xt, s);
     }
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-fce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
-               const float* __restrict__ b, const int* __restrict__ tgt,
-               float* __restrict__ part, int N, int V, int D,
-               int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const stages = reinterpret_cast<T*>(smem_raw);
-  float* const red = reinterpret_cast<float*>(stages + 2 * stage_elems<T>());
-
-  const int r0 = blockIdx.x * kR, split = blockIdx.y;
-  const int row = r0 + threadIdx.x / 16;
-  const int nvt = (V + kX - 1) / kX;
-  const int xt0 = split * tiles_per_split;
-  const int xt1 = min(xt0 + tiles_per_split, nvt);
-  OnlineLse epi{b, V, row < N ? tgt[row] - 1 : -1, -INFINITY, 0.f, 0.f};
-  walk<T>(h, r0, N, w, V, xt0, xt1, D, stages, red, epi);
-  epi.write(part, split, gridDim.y, N, row);
 }
 
 // thread t's share of the dlogits tile into gs ([x][row], f32 holding
@@ -1568,32 +1716,16 @@ constexpr bool clustered(int D) {
   return sizeof(T) == 2 && D <= kClusterD;
 }
 
-// vocab splits of the f32 forward: as many as keep every CTA resident at
-// once (two CTAs share an SM)
-int fwd_splits_f32(int N, int V, int sms) {
-  const int ctas = (N + kR - 1) / kR;
-  return max(1, min((V + kX - 1) / kX, 2 * sms / ctas));
-}
-
+// the forward: f32 takes the 3xTF32 kernel (its workspace `work`), bf16
+// the bf16 tensor-core kernel
 template <typename T>
 int fwd(const void* h, const void* w, const float* b, const int* t,
         float* part, float* nll, float* lse, int N, int V, int D,
-        int splits, cudaStream_t st) {
-  if constexpr (sizeof(T) == 2) {
+        int splits, cudaStream_t st, float* work) {
+  if constexpr (sizeof(T) == 4)
+    return tf::fwd(h, w, b, t, part, nll, lse, N, V, D, splits, st, work);
+  else
     return tc::fwd(h, w, b, t, part, nll, lse, N, V, D, splits, st);
-  } else {
-    const int tiles_per_split = ((V + kX - 1) / kX + splits - 1) / splits;
-    constexpr size_t smem = smem_bytes<T>(false);
-    auto kernel = fce_fwd_kernel<T>;
-    if (int e = set_smem(kernel, smem)) return e;
-    kernel<<<dim3((N + kR - 1) / kR, splits), kThreads, smem, st>>>(
-        static_cast<const T*>(h), static_cast<const T*>(w), b, t, part, N,
-        V, D, tiles_per_split);
-    if (int e = static_cast<int>(cudaGetLastError())) return e;
-    fce_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, splits, N, nll,
-                                                       lse);
-    return static_cast<int>(cudaGetLastError());
-  }
 }
 
 // dh (kVocabRows false: out = dh, db unused; the cluster kernels walk
@@ -1613,7 +1745,7 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
     if (clustered<T>(D))
       return tc::bwd<kVocabRows>(h, w, b, t, lse, g, out, part, db, N, V, D,
                                  splits, st);
-    constexpr size_t smem = smem_bytes<T>(true);
+    constexpr size_t smem = smem_bytes<T>();
     auto kernel = fce_bwd_kernel<T, kVocabRows>;
     if (int e = set_smem(kernel, smem)) return e;
     kernel<<<dim3((nR + kR - 1) / kR, (D + kDAcc - 1) / kDAcc), kThreads,
@@ -1651,23 +1783,26 @@ int dw(const void* h, const void* w, const float* b, const int* t,
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a dtype or feature
-// width the kernels were not built for (or an f32 dh or dW given no
+// width the kernels were not built for (or an f32 call given no
 // workspace), -2 where no tensor-map encoder is found, 1000 + the
 // CUresult of a refused tensor map, else the CUDA error code. `part`
-// holds 3 x splits x N floats, splits from bigdl_fce_fwd_splits.
+// holds 3 x splits x N floats, splits from bigdl_fce_fwd_splits. f32
+// needs `work`, 2 x V x D floats (W's tf32 parts); it comes last, after
+// the stream.
 extern "C" int bigdl_fce_fwd(int dtype, const void* h, const void* w,
                              const float* b, const int* t, float* part,
                              float* nll, float* lse, int N, int V, int D,
-                             int splits, void* stream) {
+                             int splits, void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BIGDL_FCE_DISPATCH(fwd, h, w, b, t, part, nll, lse, N, V, D, splits, st);
+  BIGDL_FCE_DISPATCH(fwd, h, w, b, t, part, nll, lse, N, V, D, splits, st,
+                     work);
 }
 
 // how many parts the forward splits the vocab into on a card of `sms`
 // SMs
 extern "C" int bigdl_fce_fwd_splits(int dtype, int N, int V, int D,
                                     int sms) {
-  return dtype == 1 ? tc::fwd_splits(N, V, sms) : fwd_splits_f32(N, V, sms);
+  return dtype == 1 ? tc::fwd_splits(N, V, sms) : tf::fwd_splits(N, V, sms);
 }
 
 // `part` holds splits x N x D floats when splits > 1 (else unused),

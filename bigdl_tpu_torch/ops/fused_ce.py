@@ -10,10 +10,10 @@ Three kernels, each with its plain PyTorch version beside it:
 
 Which kernel of ``csrc/fused_ce.cu`` runs a call is :func:`kernel_route`:
 in bf16 the forward, and dh and dW/db up to D 1024, run on the tensor
-cores; in f32 dh and dW/db run in 3xTF32 on the tensor cores (each
-operand split into tf32 high and low parts, summed in f32), with the
-parts of the operand they walk written first to a workspace the wrapper
-allocates (:func:`workspace_floats`).
+cores; in f32 all three run in 3xTF32 on the tensor cores (each operand
+split into tf32 high and low parts, summed in f32), with the parts of
+the operand they walk written first to a workspace the wrapper allocates
+(:func:`workspace_floats`).
 
 On a CUDA tensor each launches the hand-written Hopper kernel of
 ``csrc/fused_ce.cu`` (built at first use, see ``_build.py``) or raises;
@@ -30,8 +30,8 @@ one-hot is zero in the backward. A bias of None counts as zeros.
 
 ``fwd_launches``, ``dh_launches`` and ``dw_launches`` count kernel
 launches, so a run can show its main path went through the kernels;
-``dh_tf32_launches`` and ``dw_tf32_launches`` count those of dh and dW
-on the route "tf32" (f32: the 3xTF32 kernel) apart.
+``fwd_tf32_launches``, ``dh_tf32_launches`` and ``dw_tf32_launches``
+count those on the route "tf32" (f32: the 3xTF32 kernels) apart.
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ __all__ = ["linear_cross_entropy", "linear_ce_supported",
            "fused_ce_dw", "fused_ce_fwd_ref", "fused_ce_dh_ref",
            "fused_ce_dw_ref", "kernel_route", "workspace_floats",
            "fwd_launches", "dh_launches", "dw_launches",
-           "dh_tf32_launches", "dw_tf32_launches"]
+           "fwd_tf32_launches", "dh_tf32_launches", "dw_tf32_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the bf16 backward's cluster kernels take D up to this (four CTAs of
@@ -57,7 +57,8 @@ _CLUSTER_D = 1024
 fwd_launches = 0
 dh_launches = 0
 dw_launches = 0
-#: of them, dh and dW launches on the route "tf32"
+#: of them, launches on the route "tf32"
+fwd_tf32_launches = 0
 dh_tf32_launches = 0
 dw_tf32_launches = 0
 
@@ -76,11 +77,11 @@ def kernel_route(dtype, d: int, kernel: str) -> str | None:
     """The kernel of csrc/fused_ce.cu that ``kernel`` ("fwd", "dh" or
     "dw") runs for ``dtype`` at feature width ``d``, as its C entries
     pick it: the forward ``"tc"`` in bf16 (``fce_fwd_tc_kernel``) and
-    ``"cuda_cores"`` in f32 (``fce_fwd_kernel<float>``); dh and dW/db
-    ``"tc_cluster"`` in bf16 up to D 1024 (``fce_bwd_tc_kernel``: wgmma
-    in four-CTA clusters), ``"cuda_cores"`` in bf16 past it
-    (``fce_bwd_kernel``) and ``"tf32"`` in f32 at every D
-    (``fce_bwd_tf32_kernel``: 3xTF32 on the tensor cores, two-CTA
+    ``"tf32"`` in f32 (``fce_fwd_tf32_kernel``: 3xTF32 on the tensor
+    cores); dh and dW/db ``"tc_cluster"`` in bf16 up to D 1024
+    (``fce_bwd_tc_kernel``: wgmma in four-CTA clusters), ``"cuda_cores"``
+    in bf16 past it (``fce_bwd_kernel``) and ``"tf32"`` in f32 at every
+    D (``fce_bwd_tf32_kernel``: 3xTF32 on the tensor cores, two-CTA
     clusters). None where no kernel takes the call. A width the kernels
     do not take (no multiple of 8) reports the route of the width
     ``linear_cross_entropy`` pads it to."""
@@ -88,20 +89,20 @@ def kernel_route(dtype, d: int, kernel: str) -> str | None:
                                                             "dw"):
         return None
     d += -d % 8
-    if kernel == "fwd":
-        return "tc" if dtype == torch.bfloat16 else "cuda_cores"
     if dtype == torch.float32:
         return "tf32"
+    if kernel == "fwd":
+        return "tc"
     return "tc_cluster" if d <= _CLUSTER_D else "cuda_cores"
 
 
 def workspace_floats(kernel: str, n: int, v: int, d: int, dtype) -> int:
     """f32 elements of the workspace ``kernel`` needs at (N, V, D): on
     the route "tf32" the tf32 high and low parts of the operand it walks,
-    2·V·D for dh (W's) and 2·N·D for dW (h's); else 0."""
+    2·V·D for the forward and dh (W's) and 2·N·D for dW (h's); else 0."""
     if kernel_route(dtype, d, kernel) != "tf32":
         return 0
-    return 2 * (v if kernel == "dh" else n) * d
+    return 2 * (n if kernel == "dw" else v) * d
 
 
 # --------------------------------------------------------------------------
@@ -178,18 +179,16 @@ def _kernel_fns():
 
 def bind(lib: ctypes.CDLL) -> dict:
     """The typed entries ``{"fwd", "fwd_splits", "dh", "dh_splits",
-    "dw"}`` of a library built from csrc/fused_ce.cu. dh and dW take the
-    workspace last, after the stream (a library built before they took
-    one ignores it)."""
+    "dw"}`` of a library built from csrc/fused_ce.cu. Each of the three
+    kernels' entries takes the workspace last, after the stream (a
+    library built before it took one ignores it)."""
     dims = [ctypes.c_int] * 3
     fns = {}
-    for name, n_ptr, extra, work in (("fwd", 7, 1, 0), ("dh", 8, 1, 1),
-                                     ("dw", 8, 0, 1)):
+    for name, n_ptr, extra in (("fwd", 7, 1), ("dh", 8, 1), ("dw", 8, 0)):
         fn = getattr(lib, f"bigdl_fce_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + dims
-                       + [ctypes.c_int] * extra
-                       + [ctypes.c_void_p] * (1 + work))
+                       + [ctypes.c_int] * extra + [ctypes.c_void_p] * 2)
         fns[name] = fn
     for name, n_int in (("fwd_splits", 5), ("dh_splits", 4)):
         fn = getattr(lib, f"bigdl_fce_{name}")
@@ -228,18 +227,14 @@ def _launch(name, h, ptrs, *extra):
     n, d = h.shape
     v = ptrs[1].shape[0]
     fn = _kernel_fns()[name]
-    work = None
-    if name in ("dh", "dw"):
-        floats = workspace_floats(name, n, v, d, h.dtype)
-        work = (torch.empty(floats, dtype=torch.float32, device=h.device)
-                if floats else None)
+    floats = workspace_floats(name, n, v, d, h.dtype)
+    work = (torch.empty(floats, dtype=torch.float32, device=h.device)
+            if floats else None)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = fn(_DTYPE_CODES[h.dtype],
                  *[0 if x is None else x.data_ptr() for x in ptrs], n, v, d,
-                 *extra, stream,
-                 *(() if name == "fwd" else
-                   (None if work is None else work.data_ptr(),)))
+                 *extra, stream, None if work is None else work.data_ptr())
     if err:
         raise RuntimeError(f"fused_ce_{name} kernel launch failed "
                            f"(code {err})")
@@ -250,7 +245,7 @@ def fused_ce_fwd(h, w, b, t):
     (V,) f32 bias and (N,) int32 1-based targets."""
     if h.device.type == "cpu":
         return fused_ce_fwd_ref(h, w, b, t)
-    global fwd_launches
+    global fwd_launches, fwd_tf32_launches
     _check_cuda(h, w, b, t)
     (n, d), v = h.shape, w.shape[0]
     # the kernel splits the vocab so that a few rows still fill the card
@@ -261,6 +256,7 @@ def fused_ce_fwd(h, w, b, t):
     lse = torch.empty_like(nll)
     _launch("fwd", h, (h, w, b, t, part, nll, lse), splits)
     fwd_launches += 1
+    fwd_tf32_launches += kernel_route(h.dtype, d, "fwd") == "tf32"
     return nll, lse
 
 

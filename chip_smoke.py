@@ -387,6 +387,7 @@ def _print_ptxas(report: str) -> None:
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         ft = re.search(r"entry function '\S*?fce_bwd_tf32_kernelILb([01])E",
                        line)
+        fw = re.search(r"entry function '\S*?fce_fwd_tf32_kernel", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
         la = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_any_kernelI"
@@ -451,6 +452,8 @@ def _print_ptxas(report: str) -> None:
         elif ft:
             name = (f"fce_{'dw' if ft.group(1) == '1' else 'dh'}_tf32 f32 "
                     f"(3xTF32 on the tensor cores)")
+        elif fw:
+            name = "fce_fwd_tf32 f32 (3xTF32 on the tensor cores)"
         elif f:
             # fce_bwd's template flag: Lb0 dh, Lb1 dW/db
             kind, rest = f.groups()
@@ -486,9 +489,9 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     instantiation of ``flash_fwd_sliced_tf32_kernel`` and
     ``flash_dq_sliced_tf32_kernel``: warpgroup chunks 2, 3, 4, and of
     ``flash_dkdv_sliced_tf32_kernel``: 3, 4), all three bf16 fused-CE
-    kernels, the f32 (3xTF32) fused-CE dh and dW/db
-    (``fce_bwd_tf32_kernel``) and the five paged prefill kernels (D 32,
-    64, 128, 192, 256) have ``HGMMA``."""
+    kernels, the f32 (3xTF32) fused-CE forward (``fce_fwd_tf32_kernel``)
+    and dh and dW/db (``fce_bwd_tf32_kernel``) and the five paged prefill
+    kernels (D 32, 64, 128, 192, 256) have ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -518,7 +521,9 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                         if c else
                         f"fused_ce_{'dw' if ct.group(1) == '1' else 'dh'}"
                         f" f32 tf32" if ct else "fused_ce_fwd bf16"
-                        if "fce_fwd_tc_kernel" in line else None)
+                        if "fce_fwd_tc_kernel" in line else
+                        "fused_ce_fwd f32 tf32"
+                        if "fce_fwd_tf32_kernel" in line else None)
                 if name:
                     counts[name] = {"HGMMA": 0, "HMMA": 0}
             elif name:
@@ -532,7 +537,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                   for d in (32, 64, 128)
                   if not sum(counts.get(f"{k} bf16 D={d}", {}).values()))
     bare += [k for k in ("fused_ce_fwd bf16", "fused_ce_dh bf16",
-                         "fused_ce_dw bf16", "fused_ce_dh f32 tf32",
+                         "fused_ce_dw bf16", "fused_ce_fwd f32 tf32",
+                         "fused_ce_dh f32 tf32",
                          "fused_ce_dw f32 tf32") + tuple(
                              f"{k} bf16 D={d}" for k in ("flash_fwd",
                                                          "flash_dq",
@@ -1673,11 +1679,15 @@ def _flash_kernel_bound(fa, b, s, h, d, dtype, half_products):
     ``half_products`` (2 forward, 3 dq, 4 dk/dv) on its route:
     ``_flash_bound``, or for the 3xTF32 kernels (route "sliced_tf32", on
     the tensor cores) ``_tf32_bound``, with the f32 CUDA-core bound beside
-    it as ``bound_f32_cuda_cores_ms``."""
+    it as ``bound_f32_cuda_cores_ms``; the f32 CUDA-core kernels give the
+    3xTF32 bound beside theirs as ``bound_3xtf32_ms``, what a tensor-core
+    design could reach."""
     route = fa.flash_route(dtype, d)
     bound, by = _flash_bound(b, s, h, d, dtype, half_products)
     if route != "sliced_tf32":
-        return bound, by, {}
+        return bound, by, (
+            {"bound_3xtf32_ms": _tf32_bound(b, s, h, d, half_products)[0]}
+            if dtype == torch.float32 else {})
     return (*_tf32_bound(b, s, h, d, half_products),
             {"bound_f32_cuda_cores_ms": bound})
 
@@ -2315,7 +2325,9 @@ def phase_train_narrow(fa, seed):
 def _lm_kind(name: str) -> str:
     """Kernel kind of a device kernel of the LM steps, by its name."""
     low = name.lower()
-    return ("fused_ce" if "fce_" in low else
+    # the split pass of the LM steps is the f32 fused CE's (the flash
+    # kernels that take one run past head dim 256, which no LM step has)
+    return ("fused_ce" if "fce_" in low or "tf32_split" in low else
             "flash" if "flash_" in low else
             "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma",
                                              "nvjet", "cublas", "sm90_"))
@@ -2444,11 +2456,26 @@ def _fce_library_ms(h, w, b, t):
     return fwd, _time_ms(fwd_bwd) - fwd
 
 
+def _fce_fwd_f64(h, w, b, t):
+    """nll and lse of the function evaluated in float64 on the same
+    inputs, rounded to f32 (the f32 plain version's own sums, cuBLAS's
+    FMA chain over D, stray from it a few f32 steps)."""
+    s = h.double() @ w.double().T + b.double()
+    lse = torch.logsumexp(s, dim=1)
+    t0 = t.long() - 1
+    ok = (t0 >= 0) & (t0 < w.shape[0])
+    tl = torch.where(ok, s.gather(1, t0.clamp(0, w.shape[0] - 1)[:, None])
+                     [:, 0], 0.0)
+    return (lse - tl).float(), lse.float()
+
+
 def _fce_check(fce, h, w, b, t, g, label):
     """Each fused-CE kernel's outputs against its plain version's (the
-    backward kernels from the plain forward's lse); raises where one is
-    not finite or past its limit. Returns the max abs errors, the worst
-    error / limit ratios and the plain lse."""
+    backward kernels from the plain forward's lse), and the f32 forward's
+    nll and lse also against the function in float64 (``_fce_fwd_f64``,
+    as ``nll_f64`` and ``lse_f64``), at the same limits; raises where one
+    is not finite or past its limit. Returns the max abs errors, the
+    worst error / limit ratios and the plain lse."""
     tol = _FCE_TOL[h.dtype]
     errs, worst = {}, {}
 
@@ -2463,6 +2490,11 @@ def _fce_check(fce, h, w, b, t, g, label):
     rnll, rlse = fce.fused_ce_fwd_ref(h, w, b, t)
     hold("nll", nll, rnll, (None, _FCE_ABS_TOL))
     hold("lse", lse, rlse, (None, _FCE_ABS_TOL))
+    if h.dtype == torch.float32:
+        enll, else_ = _fce_fwd_f64(h, w, b, t)
+        hold("nll_f64", nll, enll, (None, _FCE_ABS_TOL))
+        hold("lse_f64", lse, else_, (None, _FCE_ABS_TOL))
+        del enll, else_
     dh = fce.fused_ce_dh(h, w, b, t, rlse, g)
     torch.cuda.synchronize()
     hold("dh", dh, fce.fused_ce_dh_ref(h, w, b, t, rlse, g), tol)
@@ -2485,10 +2517,13 @@ def phase_fused_ce(fce, gen):
     2·N·V·D, its share of the bound (bound_ms / ms) and, as the
     product's yardstick, the time of a bare ``F.linear(h, w)`` at the
     same shape and dtype (``gemm_ms``: the logits alone, not the same
-    function). The f32 dh and dW/db rows (route "tf32") give the 3xTF32
-    bound as ``bound_ms`` with the f32 CUDA-core one beside it, the
-    share of the 3xTF32 bound, the workspace (``workspace_mib``) and the
-    most the call holds beyond its inputs (``peak_mib``)."""
+    function). The f32 rows (route "tf32": the forward, dh and dW/db)
+    give the 3xTF32 bound as ``bound_ms`` with the f32 CUDA-core one
+    beside it, the share of the 3xTF32 bound, the workspace
+    (``workspace_mib``) and the most the call holds beyond its inputs
+    (``peak_mib``); the f32 forward's nll and lse are held to the
+    function in float64 as well (``nll_f64``, ``lse_f64``: worst error /
+    limit)."""
     import torch.nn.functional as F
     sms = torch.cuda.get_device_properties(_DEV).multi_processor_count
     rows = {}
@@ -2540,6 +2575,9 @@ def phase_fused_ce(fce, gen):
                         row.update(tflops=2 * n * v * d / ms / 1e9,
                                    share_of_bound=bound / ms,
                                    gemm_ms=_time_ms(lambda: F.linear(h, w)))
+                        if "nll_f64" in worst:
+                            row.update(nll_f64=worst["nll_f64"],
+                                       lse_f64=worst["lse_f64"])
                     rows[(f"fused_ce_{kname}", dtype)] = row
                     print(f"[kernels] fused_ce_{kname}[{name}] N={n} V={v} "
                           f"D={d} " + json.dumps(row), flush=True)
@@ -2672,26 +2710,37 @@ def _perf_fused(fce, card):
     return launches, numbers
 
 
-def _perf_f32(fce, card):
+def _perf_f32(fce, fa, card):
     """The transformer step in f32 (``--dataType f32``) at ``_PERF``'s
-    geometry, 1 warm-up and 3 timed steps: the f32 fused-CE forward (CUDA
-    cores) and the 3xTF32 dh and dW/db, the counters set to 0 just
-    before and read just after (4 launches of each, dh's and dW's on the
-    route "tf32"), the first loss within 0.5 of ln V. Returns the
-    launches."""
+    geometry, 1 warm-up and 3 timed steps: the 3xTF32 fused-CE forward,
+    dh and dW/db and the f32 flash kernels at head dim 128 (CUDA cores),
+    the counters set to 0 just before and read just after (4 launches of
+    each fused-CE kernel, all on the route "tf32"; 12 layers x 4 steps =
+    48 of each flash kernel), the first loss within 0.5 of ln V; then a
+    profile of the f32 step by kernel kind (``_profile_steps``). Returns
+    the fused-CE and the flash launches."""
     from bigdl_tpu_torch.models.utils import perf
+    from bigdl_tpu_torch.optim import SGD
     fce.fwd_launches = fce.dh_launches = fce.dw_launches = 0
-    fce.dh_tf32_launches = fce.dw_tf32_launches = 0
+    fce.fwd_tf32_launches = fce.dh_tf32_launches = fce.dw_tf32_launches = 0
+    fa.fwd_launches = fa.dq_launches = fa.dkdv_launches = 0
     out = perf.main(_perf_args(warm_up=1, iterations=3)
                     + ["--dataType", "f32"])
-    launches = {"fwd": fce.fwd_launches, "dh": fce.dh_tf32_launches,
+    launches = {"fwd": fce.fwd_tf32_launches, "dh": fce.dh_tf32_launches,
                 "dw": fce.dw_tf32_launches}
+    flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
+             "dkdv": fa.dkdv_launches}
     if (not out["fused"] or launches != dict.fromkeys(launches, 4)
-            or (fce.dh_launches, fce.dw_launches) != (4, 4)):
-        raise AssertionError(f"f32 fused-CE launches {launches} (all dh, "
-                             f"dW: {fce.dh_launches}, {fce.dw_launches}), "
+            or (fce.fwd_launches, fce.dh_launches, fce.dw_launches)
+            != (4, 4, 4)):
+        raise AssertionError(f"f32 fused-CE launches {launches} (all fwd, "
+                             f"dh, dW: {fce.fwd_launches}, "
+                             f"{fce.dh_launches}, {fce.dw_launches}), "
                              f"expected 4 of each on the f32 route "
                              f"(fused={out['fused']})")
+    if flash != dict.fromkeys(flash, _PERF["layers"] * 4):
+        raise AssertionError(f"f32 step flash launches {flash}, expected "
+                             f"{_PERF['layers'] * 4} of each")
     first, final = out["first_loss"], out["final_loss"]
     if not (math.isfinite(first) and math.isfinite(final)
             and abs(first - math.log(_PERF["vocab"])) <= 0.5):
@@ -2702,11 +2751,18 @@ def _perf_f32(fce, card):
                                    "final_loss")}
     print(f"[perf] card='{card}' transformer "
           + json.dumps(dict(_PERF, warm_up=1, iterations=3))
-          + " f32, fused head+CE (dh and dW/db on the route "
-          + f"{fce.kernel_route(torch.float32, _PERF['d_model'], 'dh')!r}): "
-          + json.dumps(numbers) + f" fused_ce_launches={launches}",
-          flush=True)
-    return launches
+          + " f32, fused head+CE (on the route "
+          + f"{fce.kernel_route(torch.float32, _PERF['d_model'], 'fwd')!r}): "
+          + json.dumps(numbers) + f" fused_ce_launches={launches} "
+          f"flash_launches={flash} (head dim 128, the harness's "
+          f"d_model / 128 heads: route "
+          f"{fa.flash_route(torch.float32, 128)!r})", flush=True)
+    sgd = SGD(learning_rate=0.01)
+    model = out["model"]
+    _profile_steps(perf.make_step(model, sgd, True),
+                   sgd.init_state(dict(model.named_parameters())),
+                   out["data"], out["labels"], "perf f32", card)
+    return launches, flash
 
 
 def phase_perf(fce, fa):
@@ -2717,7 +2773,8 @@ def phase_perf(fce, fa):
     before each run and read just after (1 warm-up and 3 timed fwd+bwd: 4
     launches of each kernel), and the f32 transformer step
     (``_perf_f32``). Returns the fused-CE launches of the bf16 and of the
-    f32 step and the flash launches by (head dim, "bf16" or "f32")."""
+    f32 step and the flash launches by (head dim, "bf16" or "f32"), the
+    f32 step's under (128, "f32 step")."""
     from bigdl_tpu_torch.models.utils import perf
     card = _card()
     launches, fused = _perf_fused(fce, card)
@@ -2758,7 +2815,7 @@ def phase_perf(fce, fa):
               f"causal, fwd+bwd ms per iteration: " + json.dumps(att)
               + f" flash_launches={counts}", flush=True)
         torch.cuda.empty_cache()
-    f32_launches = _perf_f32(fce, card)
+    f32_launches, flash[(128, "f32 step")] = _perf_f32(fce, fa, card)
     torch.cuda.empty_cache()
     return launches, f32_launches, flash
 
@@ -3233,6 +3290,20 @@ def main(argv=None) -> int:
             "launches": counts[count], **{k: row[k] for k in keys},
             **({"bound_f32_cuda_cores_ms": row["bound_f32_cuda_cores_ms"]}
                if "bound_f32_cuda_cores_ms" in row else {})})
+    # the f32 rows at head dim 128 (the CUDA-core kernels), timed at B4
+    # S2048 H8, their launches those of [perf]'s f32 transformer step
+    # (the 3xTF32 bound beside theirs)
+    counts = perf_flash[(128, "f32 step")]
+    for name, line, count in (("flash_fwd", 190, "fwd"),
+                              ("flash_dq", 306, "dq"),
+                              ("flash_dkdv", 322, "dkdv")):
+        row = flash_rows[(name, torch.float32, 128)]
+        kernels.append({
+            "name": f"{name}_f32", "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": counts[count], **{k: row[k] for k in keys},
+            "bound_3xtf32_ms": row["bound_3xtf32_ms"]})
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):
@@ -3244,15 +3315,15 @@ def main(argv=None) -> int:
             "launches": fce_launches[count],
             **{k: row[k] for k in keys}})
     # the f32 rows at the harness head (N 8192, V 32768, D 1024), their
-    # launches those of [perf]'s f32 transformer step: the forward on the
-    # CUDA cores, dh and dW/db in 3xTF32 (bound_ms theirs on the tensor
-    # cores, the f32 CUDA-core one beside it)
+    # launches those of [perf]'s f32 transformer step: the forward, dh and
+    # dW/db in 3xTF32 (bound_ms theirs on the tensor cores, the f32
+    # CUDA-core one beside it)
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):
         row = fce_rows[(name, torch.float32)]
         kernels.append({
-            "name": f"{name}_{'f32' if count == 'fwd' else row['route']}",
+            "name": f"{name}_{row['route']}",
             "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",

@@ -59,12 +59,13 @@ plain version as ``chip_smoke.py`` holds them, absolutely at
 - ``w_prev_stage_last_tile``: the same, in each split's last vocab tile
   only.
 
-``--only tf32`` instead times the f32 dh and dW/db
-(``fce_bwd_tf32_kernel``: 3xTF32 on the tensor cores, two-CTA clusters)
-at the same shapes in f32, each version's outputs held against the f32
-plain versions at ``chip_smoke``'s limits and against the function
-evaluated in float64 (the ratio to the same limit), then timed in turns
-(the versions in order, then in reverse):
+``--only tf32`` instead times the f32 kernels, the forward
+(``fce_fwd_tf32_kernel``) and dh and dW/db (``fce_bwd_tf32_kernel``:
+two-CTA clusters), 3xTF32 on the tensor cores, at the same shapes in
+f32, each version's outputs held against the f32 plain versions at
+``chip_smoke``'s limits and against the function evaluated in float64
+(the ratio to the same limit), then timed in turns (the versions in
+order, then in reverse). The backward's versions:
 
 - ``chained_score``, ``chained_out``: the precision knockouts of
   ``flash_sliced_knockout.py`` (the score products, or the output
@@ -82,12 +83,29 @@ evaluated in float64 (the ratio to the same limit), then timed in turns
   no exp, no column values), ``no_score_wgmma`` and ``no_out_wgmma``
   (no products in the score or the output steps).
 
+The forward's versions (``TF32_FWD_KNOCKOUTS``):
+
+- ``fwd_chained_score``: the score products summed in one tensor-core
+  chain over all of a tile's D (no fresh sum a score step), read against
+  float64 and held to nothing;
+- ``fwd_select_first_step``: the design not kept for the logits tile:
+  set from a tile's first step by a select in every step, not zeroed at
+  the tile's start; held to the limits;
+- ``fwd_a_parts_split_pass``: the design option not kept for A: h's
+  tf32 parts from a second split pass (2·N·D floats more of workspace),
+  the ring carrying h's hi and lo boxes beside W's (64 KB stages, 3 of
+  them), no split in registers; held to the limits;
+- one part out at a time (wrong values, read for their time):
+  ``fwd_no_tma_load``, ``fwd_no_a_split``, ``fwd_no_epilogue`` (no fold:
+  the logits tile summed into two floats, so that no step's sums are
+  dead), ``fwd_no_wgmma``.
+
 With ``--parent FILE`` (a ``fused_ce.cu`` of another version; without
 it, ``git show HEAD~1:bigdl_tpu_torch/csrc/fused_ce.cu`` where the
 checkout is a git repository), it then builds that version too (in the
 temporary directory, against this checkout's headers) and reads both in
-turns (this, parent, parent, this): the f32 dh and dW/db (the parent's
-own kernels: before this route, the CUDA-core pair), the f32 forward and
+turns (this, parent, parent, this): the f32 forward (the parent's own
+kernel: before this route, the CUDA-core one), the f32 dh and dW/db and
 the three bf16 kernels, whose outputs must be bit-equal to the parent's;
 then the harness step ``perf -m transformer --dataType f32`` at
 ``chip_smoke._PERF``'s geometry (1 warm-up, 3 timed steps) with each
@@ -268,6 +286,119 @@ TF32_KNOCKOUTS.update({
           "      wgmma_tf32_rs_n64(d, ah[kk], desc(bhi + k), 1);\n", "")],
         False),
 })
+
+#: the f32 3xTF32 forward's versions: name -> (what it changes, [(text,
+#: its replacement)], held to the limits, extra workspace floats at (N,
+#: D))
+_FWD_A_SPLIT = ("      split_tf32(ld_shared(a_t + tf_at(r0 + 8 * (e & 1),\n"
+                "                                       8 * kk + t + 4 * "
+                "(e >> 1))),\n                 ah[kk][e], al[kk][e]);\n")
+_FWD_LOADS = ("          const uint32_t dst = ring.acquire(t, kFwdStage);\n"
+              "          tma_load_2d(dst, &hm, ring.full(), 32 * j, r0);\n"
+              "          tma_load_2d(dst + kFwdWHi, &whm, ring.full(), "
+              "32 * j, v0);\n"
+              "          tma_load_2d(dst + kFwdWLo, &wlm, ring.full(), "
+              "32 * j, v0);\n")
+TF32_FWD_KNOCKOUTS = {
+    "fwd_chained_score": (
+        "the score products summed in one tensor-core chain over all of a "
+        "tile's D (no fresh sum a score step)",
+        [("  float acc[64];\n  wg_fence();",
+          "  float (&acc)[64] = s;\n  wg_fence();"),
+         ("    wgmma_tf32_rs_n128(acc, ah[kk], desc(blo + 32 * kk), kk > 0);",
+          "    wgmma_tf32_rs_n128(acc, ah[kk], desc(blo + 32 * kk), 1);"),
+         ("#pragma unroll\n  for (int e = 0; e < 64; ++e) s[e] += acc[e];\n",
+          "")], False, 0),
+    "fwd_select_first_step": (
+        "the design not kept for the logits tile: not zeroed at a tile's "
+        "start but set from the first step's sum, a select in every step",
+        [("                                               uint32_t b_t, "
+          "uint32_t blo) {",
+          "                                               uint32_t b_t, "
+          "uint32_t blo, bool first) {"),
+         ("      fwd_score_step(s, st + wg * kTfBox, st + kFwdWHi, "
+          "st + kFwdWLo);",
+          "      fwd_score_step(s, st + wg * kTfBox, st + kFwdWHi, "
+          "st + kFwdWLo, j == 0);"),
+         ("  for (int e = 0; e < 64; ++e) s[e] += acc[e];",
+          "  for (int e = 0; e < 64; ++e) s[e] = first ? acc[e] : s[e] + "
+          "acc[e];"),
+         ("    tc::load_bias(bias, b, V, v0, c0);\n    zero(s);\n",
+          "    tc::load_bias(bias, b, V, v0, c0);\n")], True, 0),
+    "fwd_a_parts_split_pass": (
+        "h's tf32 parts from a second split pass: the ring carries h's hi "
+        "and lo boxes beside W's (64 KB stages, 3), no split in registers",
+        [("constexpr int kFwdStages = 4;         // ring stages",
+          "constexpr int kFwdStages = 3;         // ring stages"),
+         ("constexpr int kFwdWHi = 2 * kTfBox, kFwdWLo = 4 * kTfBox;\n"
+          "constexpr int kFwdStage = kTfStage;",
+          "constexpr int kFwdWHi = 4 * kTfBox, kFwdWLo = 6 * kTfBox;\n"
+          "constexpr int kFwdStage = 8 * kTfBox;"),
+         # the ring's stages are kTfStage apart; these are kFwdStage
+         ("          const uint32_t dst = ring.acquire(t, kFwdStage);\n",
+          "          ring.acquire(t, kFwdStage);\n"
+          "          const uint32_t dst = base + ring.st * kFwdStage;\n"),
+         ("      const uint32_t st = ring.wait();\n"
+          "      fwd_score_step(",
+          "      ring.wait();\n"
+          "      const uint32_t st = base + ring.st * kFwdStage;\n"
+          "      fwd_score_step("),
+         ("fce_fwd_tf32_kernel(const __grid_constant__ CUtensorMap hm,\n",
+          "fce_fwd_tf32_kernel(const __grid_constant__ CUtensorMap hm,\n"
+          "                    const __grid_constant__ CUtensorMap hlm,\n"),
+         ("          tma_load_2d(dst, &hm, ring.full(), 32 * j, r0);\n",
+          "          tma_load_2d(dst, &hm, ring.full(), 32 * j, r0);\n"
+          "          tma_load_2d(dst + 2 * kTfBox, &hlm, ring.full(), 32 * j, "
+          "r0);\n"),
+         (_FWD_A_SPLIT,
+          "      {\n        const uint32_t off = tf_at(r0 + 8 * (e & 1), "
+          "8 * kk + t + 4 * (e >> 1));\n"
+          "        ah[kk][e] = __float_as_uint(ld_shared(a_t + off));\n"
+          "        al[kk][e] = __float_as_uint(ld_shared(a_t + 2 * kTfBox + "
+          "off));\n      }\n"),
+         ("  if (int e = split_pass(w, work, n, st)) return e;\n"
+          "  CUtensorMap hm, whm, wlm;\n"
+          "  if (int e = make_map(&hm, h, N, D, kFwdRows, true)) return e;\n",
+          "  if (int e = split_pass(w, work, n, st)) return e;\n"
+          "  const int64_t nh = static_cast<int64_t>(N) * D;\n"
+          "  if (int e = split_pass(h, work + 2 * n, nh, st)) return e;\n"
+          "  CUtensorMap hm, hlm, whm, wlm;\n"
+          "  if (int e = make_map(&hm, work + 2 * n, N, D, kFwdRows, true)) "
+          "return e;\n"
+          "  if (int e = make_map(&hlm, work + 2 * n + nh, N, D, kFwdRows, "
+          "true)) return e;\n"),
+         ("(hm, whm, wlm, b, t, part,", "(hm, hlm, whm, wlm, b, t, part,")],
+        True, 2),
+    "fwd_no_tma_load": (
+        "the producer completes each stage's barrier without loading: no "
+        "L2 traffic into the ring (the split pass still runs)",
+        [(_FWD_LOADS, "          ring.acquire(t, 0);\n")], False, 0),
+    "fwd_no_a_split": (
+        "h's raw f32 taken as both tf32 parts, not split in registers (the "
+        "shared-memory loads stay)",
+        [("// One score step of the forward:",
+          "__device__ __forceinline__ void no_split(float x, uint32_t& hi,\n"
+          "                                         uint32_t& lo) {\n"
+          "  hi = lo = __float_as_uint(x);\n}\n\n"
+          "// One score step of the forward:"),
+         (_FWD_A_SPLIT, _FWD_A_SPLIT.replace("split_tf32(", "no_split(")
+          .replace("\n                 ah", "\n               ah"))],
+        False, 0),
+    "fwd_no_epilogue": (
+        "no fold (bias, mask, target, max, ex2): the logits tile summed "
+        "into two floats instead",
+        [("    tc::fold(s, bias, c0, tcol, m, ls, tl);\n",
+          "    for (int e = 0; e < 64; ++e) ls[e & 1] += s[e];\n")],
+        False, 0),
+    "fwd_no_wgmma": (
+        "no wgmma in the score steps (A still split, the fresh sums still "
+        "waited for and added)",
+        [("    wgmma_tf32_rs_n128(acc, ah[kk], desc(blo + 32 * kk), kk > 0);\n"
+          "    wgmma_tf32_rs_n128(acc, al[kk], desc(b_t + 32 * kk), 1);\n",
+          ""),
+         ("    wgmma_tf32_rs_n128(acc, ah[kk], desc(b_t + 32 * kk), 1);\n",
+          "    ;\n")], False, 0),
+}
 _ORDER = ("this", "parent", "parent", "this")
 
 
@@ -282,6 +413,18 @@ def _f64_backward(h, w, b, t, lse, g):
     dl[rows[ok], (t[ok] - 1).long()] -= 1.0
     dl *= g.double()[:, None]
     return dl @ w64, dl.T @ h64, dl.sum(dim=0)
+
+
+def _f64_forward(h, w, b, t):
+    """nll and lse of the function evaluated in float64 from the same
+    inputs."""
+    s = h.double() @ w.double().T + b.double()
+    lse = torch.logsumexp(s, dim=1)
+    t0 = t.long() - 1
+    ok = (t0 >= 0) & (t0 < w.shape[0])
+    tl = torch.where(ok, s.gather(1, t0.clamp(0, w.shape[0] - 1)[:, None])
+                     [:, 0], 0.0)
+    return (lse - tl).float(), lse.float()
 
 
 def _held(got, plain, exact, lim):
@@ -301,18 +444,30 @@ def _parent_source(path):
         cwd=ROOT, check=True, capture_output=True, text=True).stdout
 
 
+def _edited(src, edits, name, failed):
+    """``src`` with each (text, replacement) of ``edits`` applied; a text
+    that is not in ``src`` exactly once goes into ``failed``."""
+    for old, new in edits:
+        if src.count(old) != 1:
+            failed.append(f"{name}: {old.strip()[:60]!r} moved")
+        src = src.replace(old, new)
+    return src
+
+
 def _tf32(args) -> int:
-    """``--only tf32``: the knockouts, then the A/B against the parent."""
+    """``--only tf32``: the knockouts of the forward and the backward,
+    then the A/B against the parent."""
     src = _build.inline_header(
         (ROOT / "bigdl_tpu_torch/csrc/fused_ce.cu").read_text(), "tf32.cuh")
     sources, failed = {"as_is": src}, []
+    kernels = {"as_is": ("fwd", "dh", "dw")}
     for name, (what, edits, _) in TF32_KNOCKOUTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                failed.append(f"{name}: {old.strip()[:60]!r} moved")
-            text = text.replace(old, new)
-        sources[name] = text
+        sources[name] = _edited(src, edits, name, failed)
+        kernels[name] = ("dh", "dw")
+        print(f"[knockout] {name}: {what}", flush=True)
+    for name, (what, edits, _, _) in TF32_FWD_KNOCKOUTS.items():
+        sources[name] = _edited(src, edits, name, failed)
+        kernels[name] = ("fwd",)
         print(f"[knockout] {name}: {what}", flush=True)
     parent = _parent_source(args.parent) if args.compare else None
     if parent is not None:
@@ -322,16 +477,33 @@ def _tf32(args) -> int:
     n, v, d = 8192, 32768, 1024
     h, w, b, t, g = chip_smoke._fce_inputs(n, v, d, torch.float32, gen,
                                            False)
-    _, lse = fce.fused_ce_fwd_ref(h, w, b, t)
-    plain = (fce.fused_ce_dh_ref(h, w, b, t, lse, g),
-             *fce.fused_ce_dw_ref(h, w, b, t, lse, g))
-    exact = _f64_backward(h, w, b, t, lse, g)
+    pnll, lse = fce.fused_ce_fwd_ref(h, w, b, t)
+    plain = {"nll": pnll, "lse": lse,
+             "dh": fce.fused_ce_dh_ref(h, w, b, t, lse, g)}
+    plain["dw"], plain["db"] = fce.fused_ce_dw_ref(h, w, b, t, lse, g)
+    exact = dict(zip(("nll", "lse"), _f64_forward(h, w, b, t)))
+    exact.update(zip(("dh", "dw", "db"), _f64_backward(h, w, b, t, lse, g)))
     torch.cuda.empty_cache()
-    lims = (chip_smoke._FCE_TOL[torch.float32],) * 2 + (
-        chip_smoke._FCE_DB_TOL,)
-    calls = {"dh": lambda: fce.fused_ce_dh(h, w, b, t, lse, g),
+    lims = {k: (None, chip_smoke._FCE_ABS_TOL) for k in ("nll", "lse")}
+    lims.update(dh=chip_smoke._FCE_TOL[torch.float32],
+                dw=chip_smoke._FCE_TOL[torch.float32],
+                db=chip_smoke._FCE_DB_TOL)
+    calls = {"fwd": lambda: fce.fused_ce_fwd(h, w, b, t),
+             "dh": lambda: fce.fused_ce_dh(h, w, b, t, lse, g),
              "dw": lambda: fce.fused_ce_dw(h, w, b, t, lse, g)}
-    chosen = fce._kernel_fns
+    outputs = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw", "db")}
+    chosen, floats = fce._kernel_fns, fce.workspace_floats
+
+    def use(name):
+        """This process's fused-CE calls on version ``name``'s library,
+        with the workspace it needs."""
+        fce._kernel_fns = lambda f=fns[name]: f
+        more = (TF32_FWD_KNOCKOUTS[name][3] if name in TF32_FWD_KNOCKOUTS
+                else 0)
+        fce.workspace_floats = (
+            lambda k, n_, v_, d_, dt: floats(k, n_, v_, d_, dt)
+            + (more * n_ * d_ if k == "fwd" else 0))
+
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(sources)) as pool:
             fns = dict(zip(sources, pool.map(
@@ -340,17 +512,23 @@ def _tf32(args) -> int:
                 sources.items())))
         try:
             chip_smoke._warm_card()
-            times = {k: {"dh": [], "dw": []} for k in sources}
             names = [k for k in sources if k != "parent"]
+            times = {k: {c: [] for c in kernels[k]} for k in names}
             for name in names:
-                fce._kernel_fns = lambda f=fns[name]: f
-                dh = calls["dh"]()
-                dw, db = calls["dw"]()
-                torch.cuda.synchronize()
-                row = {what: _held(got, p, e, lim) for what, got, p, e, lim
-                       in zip(("dh", "dw", "db"), (dh, dw, db), plain, exact,
-                              lims)}
-                held = name == "as_is" or TF32_KNOCKOUTS[name][2]
+                use(name)
+                row = {}
+                for c in kernels[name]:
+                    got = calls[c]()
+                    torch.cuda.synchronize()
+                    got = got if isinstance(got, tuple) else (got,)
+                    for what, x in zip(outputs[c], got):
+                        row[what] = _held(x, plain[what], exact[what],
+                                          lims[what])
+                    del got
+                held = (name == "as_is" or name in TF32_KNOCKOUTS
+                        and TF32_KNOCKOUTS[name][2]
+                        or name in TF32_FWD_KNOCKOUTS
+                        and TF32_FWD_KNOCKOUTS[name][2])
                 bad = [k for k, r in row.items() if not r["over_limit"] <= 1]
                 if held and bad:
                     failed.append(f"{name}: {bad} past the limit")
@@ -358,11 +536,10 @@ def _tf32(args) -> int:
                       + json.dumps(row) + (" (held to the limits)" if held
                                            else " (held to nothing)"),
                       flush=True)
-                del dh, dw, db
             for name in names + names[::-1]:
-                fce._kernel_fns = lambda f=fns[name]: f
-                for k in ("dh", "dw"):
-                    times[name][k].append(chip_smoke._time_ms(calls[k]))
+                use(name)
+                for c in kernels[name]:
+                    times[name][c].append(chip_smoke._time_ms(calls[c]))
             for name in names:
                 ms = {k: sum(x) / len(x) for k, x in times[name].items()}
                 ratio = {k: ms[k] / (sum(times["as_is"][k])
@@ -372,10 +549,11 @@ def _tf32(args) -> int:
                       f"{name}: ms " + json.dumps(times[name]) + " mean "
                       + json.dumps(ms) + " ratio to as_is "
                       + json.dumps(ratio), flush=True)
+            fce.workspace_floats = floats
             if parent is not None:
                 failed += _against_parent(fns, gen, card)
         finally:
-            fce._kernel_fns = chosen
+            fce._kernel_fns, fce.workspace_floats = chosen, floats
     if failed:
         print("[knockout] failed: " + "; ".join(failed), flush=True)
     print(card)
@@ -411,7 +589,7 @@ def _against_parent(fns, gen, card):
             a, p = (a, p) if isinstance(a, tuple) else ((a,), (p,))
             equal = all(torch.equal(x, y) for x, y in zip(a, p))
             mean = {ver: sum(x) / len(x) for ver, x in ms[k].items()}
-            rebuilt = dtype == torch.float32 and k != "fwd"
+            rebuilt = dtype == torch.float32 and k == "fwd"
             if not equal and not rebuilt:
                 failed.append(f"{k} {name}: not bit-equal to the parent")
             print(f"[parent] card='{card}' fused_ce_{k} {name} N={n} V={v} "

@@ -282,7 +282,7 @@ def test_feature_width_100_matches_jax(dtype):
 
 
 # --------------------------------------------------------------------------
-# the f32 backward on the card (route "tf32"): its arithmetic and dispatch
+# the f32 kernels on the card (route "tf32"): their arithmetic and dispatch
 # --------------------------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parents[1] / "bigdl_tpu_torch" / "csrc"
@@ -367,16 +367,92 @@ def test_3xtf32_backward_holds_the_f32_limit(parts):
             assert min(worst["dh"], worst["dw"]) > 1, (mm.__name__, worst)
 
 
+def _emulated_fwd(h, w, b, t, splits, mm, cols=128):
+    """nll and lse as ``fce_fwd_tf32_kernel`` forms them, every product
+    through ``mm``: vocab tiles of ``cols`` rows, the logits of a tile
+    summed over D in score steps of 32 columns (columns past D zero), each
+    step one fresh sum added in f32, plus the bias; the tiles folded into
+    each row's online logsumexp (max, sum of exp) and target logit in
+    ``splits`` balanced parts of the walk, merged as ``fce_merge_kernel``
+    merges them."""
+    n, d = h.shape
+    v = w.shape[0]
+    pad = -d % 32
+    hp, wp = F.pad(h, (0, pad)), F.pad(w, (0, pad))
+    tiles = -(-v // cols)
+    t0 = t.long() - 1
+    parts = []
+    for z in range(splits):
+        m = torch.full((n,), -torch.inf)
+        ls, tl = torch.zeros(n), torch.zeros(n)
+        for tile in range(z * tiles // splits, (z + 1) * tiles // splits):
+            v0, v1 = tile * cols, min(v, tile * cols + cols)
+            s = 0
+            for c in range(0, d + pad, 32):
+                s = s + mm(hp[:, c:c + 32], wp[v0:v1, c:c + 32].T)
+            s = s + b[v0:v1]
+            hit = (t0 >= v0) & (t0 < v1)
+            at = (t0 - v0).clamp(0, v1 - v0 - 1)[:, None]
+            tl = tl + torch.where(hit, s.gather(1, at)[:, 0], 0.0)
+            m_new = torch.maximum(m, s.max(dim=1).values)
+            ls = (ls * torch.exp(m - m_new)
+                  + torch.exp(s - m_new[:, None]).sum(dim=1))
+            m = m_new
+        parts.append((m, ls, tl))
+    top = torch.stack([p[0] for p in parts]).max(dim=0).values
+    lse = top + torch.log(sum(p[1] * torch.exp(p[0] - top) for p in parts))
+    return lse - sum(p[2] for p in parts), lse
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_3xtf32_forward_holds_the_f32_limit(splits):
+    """The numerical argument of the f32 forward on the card (route
+    "tf32"): 3xTF32 on the tensor cores, emulated in f32 on the CPU
+    (``_emulated_fwd``: the split, a fresh sum a score step of 32
+    columns, vocab tiles of 128, the online logsumexp and the merge of
+    ``splits`` parts of the walk) at D 1024, V 512, N 64 (inputs from a
+    numpy seed, as ``chip_smoke._fce_inputs`` scales them, one target 0):
+    nll and lse stay within ``chip_smoke._FCE_ABS_TOL`` of the function
+    evaluated in float64, while single TF32 products miss it on nll
+    (a target logit summed over D keeps TF32's 11 bits)."""
+    cs = _chip_smoke()
+    n, v, d = 64, 512, 1024
+    rs = np.random.default_rng(21)
+    h = torch.from_numpy(rs.standard_normal((n, d)).astype(np.float32))
+    w = torch.from_numpy((rs.standard_normal((v, d)) / np.sqrt(d))
+                         .astype(np.float32))
+    b = torch.from_numpy((0.1 * rs.standard_normal(v)).astype(np.float32))
+    t = torch.from_numpy(rs.integers(1, v + 1, size=n).astype(np.int32))
+    t[n // 2] = 0
+    s64 = h.double() @ w.double().T + b.double()
+    lse64 = torch.logsumexp(s64, dim=1)
+    t0 = t.long() - 1
+    tl64 = torch.where((t0 >= 0) & (t0 < v),
+                       s64.gather(1, t0.clamp(0, v - 1)[:, None])[:, 0], 0.0)
+    for mm, holds in ((_mm_3xtf32, True), (_mm_1xtf32, False)):
+        nll, lse = _emulated_fwd(h, w, b, t, splits, mm)
+        assert nll[n // 2] == lse[n // 2]
+        worst = {k: cs._worst(got, want, None, cs._FCE_ABS_TOL)[1]
+                 for k, got, want in (("nll", nll, lse64 - tl64),
+                                      ("lse", lse, lse64))}
+        if holds:
+            assert max(worst.values()) <= 1, (mm.__name__, worst)
+        else:
+            assert worst["nll"] > 1, (mm.__name__, worst)
+
+
 def test_kernel_route_matches_the_c_dispatch():
     """``kernel_route`` against csrc/fused_ce.cu: ``BIGDL_FCE_DISPATCH``
     takes dtype code 0 as float and 1 as bf16, D a multiple of 8; the
-    forward runs ``tc::fwd`` for bf16 and ``fce_fwd_kernel`` for f32;
-    dh and dW/db run ``tf::bwd`` (which launches
-    ``fce_bwd_tf32_kernel``) for f32 at every D, ``tc::bwd`` (the
-    cluster kernel) for bf16 where ``clustered`` (D <= kRanks · kSlice)
-    and ``fce_bwd_kernel`` past it; ``bigdl_fce_dh_splits`` asks
-    ``tf::dh_splits`` for f32. Every width up to 2100 of both dtypes,
-    each at the route of the width it is padded to."""
+    forward runs ``tc::fwd`` for bf16 and ``tf::fwd`` (which launches
+    ``fce_fwd_tf32_kernel``) for f32; dh and dW/db run ``tf::bwd``
+    (which launches ``fce_bwd_tf32_kernel``) for f32 at every D,
+    ``tc::bwd`` (the cluster kernel) for bf16 where ``clustered`` (D <=
+    kRanks · kSlice) and ``fce_bwd_kernel`` past it;
+    ``bigdl_fce_dh_splits`` asks ``tf::dh_splits`` and
+    ``bigdl_fce_fwd_splits`` ``tf::fwd_splits`` for f32. Every width up
+    to 2100 of both dtypes, each at the route of the width it is padded
+    to."""
     src = (_CSRC / "fused_ce.cu").read_text()
     macro = src[src.index("#define BIGDL_FCE_DISPATCH"):]
     macro = macro[:macro.index("while (0)")]
@@ -384,8 +460,11 @@ def test_kernel_route_matches_the_c_dispatch():
     assert "if (dtype == 0) return FN<float>(__VA_ARGS__);" in macro
     assert "if (dtype == 1) return FN<bf16>(__VA_ARGS__);" in macro
     fwd = _function_body(src, "template <typename T>\nint fwd(")
-    assert "if constexpr (sizeof(T) == 2) {\n    return tc::fwd(" in fwd
-    assert "fce_fwd_kernel<T>" in fwd
+    assert "if constexpr (sizeof(T) == 4)\n    return tf::fwd(" in fwd
+    assert "  else\n    return tc::fwd(" in fwd
+    tf_src = src[src.index("namespace tf {"):]
+    assert "fce_fwd_tf32_kernel<<<" in _function_body(tf_src, "int fwd(")
+    assert "fce_fwd_kernel" not in src.replace("fce_fwd_tf32_kernel", "")
     bwd = _function_body(src, "template <typename T, bool kVocabRows>\nint "
                               "bwd(")
     f32, bf16 = bwd.split("} else {")
@@ -404,6 +483,9 @@ def test_kernel_route_matches_the_c_dispatch():
     assert int(consts["kRanks"]) * int(consts["kSlice"]) == tce._CLUSTER_D
     splits = _function_body(src, 'extern "C" int bigdl_fce_dh_splits(')
     assert "if (dtype == 0) return tf::dh_splits(N, V, D);" in splits
+    splits = _function_body(src, 'extern "C" int bigdl_fce_fwd_splits(')
+    assert ("return dtype == 1 ? tc::fwd_splits(N, V, sms) : "
+            "tf::fwd_splits(N, V, sms);") in splits
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         for d in range(1, 2101):
             dp = d + -d % 8
@@ -412,7 +494,7 @@ def test_kernel_route_matches_the_c_dispatch():
             assert tce.kernel_route(dtype, d, "dh") == bwd_route, (dtype, d)
             assert tce.kernel_route(dtype, d, "dw") == bwd_route, (dtype, d)
             assert tce.kernel_route(dtype, d, "fwd") == (
-                "tc" if code == 1 else "cuda_cores")
+                "tc" if code == 1 else "tf32")
     assert tce.kernel_route(torch.float16, 1024, "dh") is None
     assert tce.kernel_route(torch.float32, 0, "dh") is None
     assert tce.kernel_route(torch.float32, 1024, "dq") is None
@@ -420,25 +502,32 @@ def test_kernel_route_matches_the_c_dispatch():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_workspace_and_binding_match_the_c_entries(dtype):
-    """The workspace the wrapper allocates on each route: on "tf32" (f32
-    dh and dW/db) the tf32 parts of the walked operand, hi then lo, 2 x
-    nX x D floats as ``tf::bwd`` splits them (2·V·D for dh, 2·N·D for
-    dW), none on the others nor for the forward; and the ctypes binding
-    of the C entries (dh and dW take it after the stream, the forward
-    none), parameter for parameter."""
+    """The workspace the wrapper allocates on each route: on "tf32" (the
+    f32 forward, dh and dW/db) the tf32 parts of the walked operand, hi
+    then lo, 2 x nX x D floats as ``tf::fwd`` and ``tf::bwd`` split them
+    (2·V·D for the forward and dh, 2·N·D for dW), none on the others; and
+    the ctypes binding of the C entries (each takes it after the stream),
+    parameter for parameter."""
     n, v, d = 100, 3000, 72
     f32 = dtype == torch.float32
     assert tce.workspace_floats("dh", n, v, d, dtype) == (2 * v * d if f32
                                                           else 0)
     assert tce.workspace_floats("dw", n, v, d, dtype) == (2 * n * d if f32
                                                           else 0)
-    assert tce.workspace_floats("fwd", n, v, d, dtype) == 0
+    assert tce.workspace_floats("fwd", n, v, d, dtype) == (2 * v * d if f32
+                                                           else 0)
     src = (_CSRC / "fused_ce.cu").read_text()
-    body = _function_body(src[src.index("namespace tf {"):],
-                          "template <bool kVocabRows>\nint bwd(")
+    tf_src = src[src.index("namespace tf {"):]
+    body = _function_body(tf_src, "template <bool kVocabRows>\nint bwd(")
     assert "const int64_t n = static_cast<int64_t>(nX) * D;" in body
-    assert "tf_split_pass(X, work, work + n, n, sms, st)" in body
+    assert "split_pass(X, work, n, st)" in body
     assert "if (!work) return -1;" in body
+    body = _function_body(tf_src, "int fwd(")
+    assert "const int64_t n = static_cast<int64_t>(V) * D;" in body
+    assert "split_pass(w, work, n, st)" in body
+    assert "if (!work) return -1;" in body
+    assert "tf_split_pass(x, work, work + n, n, sms, st)" in _function_body(
+        tf_src, "int split_pass(")
 
     class Lib:
         def __getattr__(self, name):
@@ -451,5 +540,4 @@ def test_workspace_and_binding_match_the_c_entries(dtype):
         sig = src[src.index(head) + len(head):]
         params = [p.strip() for p in sig[:sig.index(")")].split(",")]
         assert len(fns[name].argtypes) == len(params), name
-        assert params[-1] == ("float* work" if name != "fwd"
-                              else "void* stream"), name
+        assert params[-2:] == ["void* stream", "float* work"], name
