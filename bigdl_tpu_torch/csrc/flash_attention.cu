@@ -89,18 +89,52 @@
 //     longer path) and 96-column halves at D 192.
 //   They are correct first; their speed is later work (PERF.md).
 //
-// float32 up to D 256 -> CUDA cores (one TF32 product would round the
-// inputs past the f32 limits; the 3xTF32 kernels past D 256, below, keep
-// them, and are the candidate for these widths): 256 threads per CTA as a
-// 16 x 16 grid (ty,
-// tx) over R x R tiles, R = 64 (32 past D 128), thread (ty, tx) owning
-// rows ty*R/16 + i and columns tx + 16*j (of D-wide outputs, 4 adjacent
-// columns in each 64-wide chunk, 2 at D 32), f32 FMAs over vector reads
-// of the shared-memory operands; products with D as output read the p or
-// dS tile back from shared memory. One CTA per (b·h, R-row tile), the
-// walked tiles double-buffered with cp.async, rows past S zero-filled.
-// dq and dkdv stage six tiles of R x (D + 4) floats and the R x (R + 1)
-// p/dS tile: 219 KB at D 128 with R 64, 199 + 4 KB at D 256 with R 32.
+// float32 -> dq and dk/dv at every head dim on the tensor cores in
+// 3xTF32; the forward up to D 256 on the CUDA cores, past it in 3xTF32
+// (one TF32 product would round the inputs past the f32 limits):
+// - dk/dv up to D 256, and dq at D 192 and 256, run the 3xTF32 kernels
+//   of the widths past 256 (tc::flash_dkdv_sliced_tf32_kernel<OWN>,
+//   tc::flash_dq_sliced_tf32_kernel<OWN>, below) with one slice of all
+//   of D: chunks(D) 64-column chunks, 1, 1, 2, 3, 4 at D 32, 64, 128,
+//   192, 256. In dk/dv each warpgroup holds all of them (OWN =
+//   chunks(D)); dq's warpgroup 0 takes ceil(chunks / 2) (OWN 2) and
+//   warpgroup 1 the rest. A walked tile costs D/32 score steps and OWN
+//   output steps; dq does 3 half-products and dk/dv 4, each three TF32
+//   products, the least the function needs. At D 32 a chunk is half a
+//   chunk: output steps load one [64][32] raw box of each operand, A's
+//   rows past D are zeros (tf_out_step's `cols`) and tf_store stops at D.
+// - dq up to D 128 (tc::flash_dq_rows_tf32_kernel<NC>, NC = chunks(D)):
+//   CTAs of 128 query rows whose two warpgroups each form S and dP of
+//   their own 64 rows and dS in registers, with no P/dS hand-off between
+//   them; K's and V's parts come once a 128 rows. In the sliced kernel
+//   (64 rows a CTA, warpgroup 0 forming S and P, warpgroup 1 dP and dS,
+//   P and dS handed through shared memory) it took 1.100x, 1.384x and
+//   1.454x the time at D 128, 64 and 32 (B4 S2048, H·D = 1024, causal;
+//   scripts/flash_sliced_knockout.py --only tf32_narrow, dq_handoff,
+//   NVIDIA H100 80GB HBM3, 700 W). The same layout for dk/dv (128-key
+//   CTAs, each warpgroup forming Sᵀ and dPᵀ of its own keys and
+//   accumulating both dv and dk: 128 registers of accumulator beside the
+//   score tiles, and a ring of 3 stages beside 128 KB of Pᵀ and dSᵀ
+//   parts) took 2.55x, 1.27x and 1.10x the kept kernel's time (knockout
+//   dkdv_rows), so dk/dv keeps its hand-off. (The sliced dq, which
+//   dq_handoff runs at D 64 and 32, has fewer score steps a key tile
+//   there than its ring has stages, so its warpgroup 0 waits on named
+//   barrier 3 for warpgroup 1's output steps to have read dS before it
+//   puts the next P in its place.)
+// - At the f32 training step's shape (B4 S2048 H8 D128, causal) dq is
+//   512 CTAs and dk/dv 1024, past one wave of the SMs: the heaviest
+//   first, not paired. dq takes 0.8538 ms and dk/dv 1.1203, 37 % of
+//   their 3xTF32 bounds (chip_smoke.py's [kernels]), 0.521x and 0.469x
+//   the CUDA-core kernels they replaced (FMA tiles over staged rows) in
+//   turns (scripts/flash_ab.py; NVIDIA H100 80GB HBM3, 700 W).
+// - The forward up to D 256 (flash_fwd_kernel<float, D>): 256 threads
+//   per CTA as a 16 x 16 grid (ty, tx) over R x R tiles, R = 64 (32 past
+//   D 128), thread (ty, tx) owning rows ty*R/16 + i and columns tx + 16*j
+//   (of o, 4 adjacent columns in each 64-wide chunk, 2 at D 32), f32 FMAs
+//   over vector reads of the shared-memory operands; P·V reads the p
+//   tile back from shared memory. One CTA per (b·h, R-row tile), the K
+//   and V tiles double-buffered with cp.async, rows past S zero-filled:
+//   five tiles of R x (D + 4) floats and the R x (R + 1) p tile.
 //
 // past D 256, the bf16 forward -> tensor cores, D sliced
 // (tc::flash_fwd_sliced_tc_kernel<OWN>; D any multiple of 64, a runtime
@@ -212,8 +246,9 @@
 // past D 256, the float32 forward, dq and dk/dv -> tensor cores in
 // 3xTF32 (tc::flash_fwd_sliced_tf32_kernel<OWN>, tc::flash_dq_sliced_
 // tf32_kernel<OWN>, tc::flash_dkdv_sliced_tf32_kernel<OWN>; D any
-// multiple of 64, a runtime value; no D limit). The backward pair first;
-// the forward, which reuses its steps, after it.
+// multiple of 64, a runtime value; no D limit; dq and dk/dv also up to D
+// 256, above). The backward pair first; the forward, which reuses its
+// steps, after it.
 // - Numbers. One TF32 product keeps 11 of f32's 24 bits: on sums over D
 //   512 its gradients miss the f32 limits (1e-5, 1e-4) by 25-76x
 //   (tests/test_torch_flash_attention.py's emulation). Each operand x
@@ -378,21 +413,21 @@ using hopper::set_smem;
 constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
 
 // ===========================================================================
-// float32: CUDA cores
+// float32 forward up to D 256: CUDA cores
 // ===========================================================================
 
 constexpr int kThreads = 256;      // 16 x 16 thread grid
 
 // rows of a tile (query rows and key rows alike): 64, or 32 past D 128,
-// where the six staged tiles of dq and dkdv (64 rows of D + 4 floats
-// each: 416 KB at D 256) would pass the 227 KB a block may use; at 32
-// rows they take 6 · 33 KB + 4 KB at D 256
+// where the forward's five staged tiles (64 rows of D + 4 floats each:
+// 325 KB at D 256, 245 KB at D 192) and its p tile would pass the 227 KB
+// a block may use; at 32 rows they take 5 · 32.5 KB + 4 KB at D 256
 template <int D>
 constexpr int kTileOf = D > 128 ? 32 : 64;
 // rows (and score columns) a thread owns: kTileOf / 16
 template <int D>
 constexpr int kMine = kTileOf<D> / 16;
-// pitch (floats) of the f32 p/dS tile
+// pitch (floats) of the f32 p tile
 template <int D>
 constexpr int kPP = kTileOf<D> + 1;
 
@@ -668,187 +703,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward: dq
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int H,
-                int Sq, int Skv, float scale, int causal) {
-  constexpr int R = kTileOf<D>, M = kMine<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kT = R * pitch<T, D>();
-  T* const qs = reinterpret_cast<T*>(smem_raw);
-  T* const dos = qs + kT;
-  T* const kv = dos + kT;                             // [2][K|V][tile]
-  float* const ds_tile = reinterpret_cast<float*>(kv + 4 * kT);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int nkt = key_tiles<R>(q0, Sq, Skv, causal);
-
-  float acc[M][D / 16], row_lse[M], row_delta[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    const int s = q0 + ty * M + i;
-    const int64_t at = (static_cast<int64_t>(b) * Sq + s) * H + h;
-    row_lse[i] = s < Sq ? lse[at] : 0.f;
-    row_delta[i] = s < Sq ? delta[at] : 0.f;
-#pragma unroll
-    for (int d = 0; d < D / 16; ++d) acc[i][d] = 0.f;
-  }
-
-  load_tile<T, D>(qs, q, b, h, q0, Sq, H);
-  load_tile<T, D>(dos, dout, b, h, q0, Sq, H);
-  load_tile<T, D>(kv, k, b, h, 0, Skv, H);
-  load_tile<T, D>(kv + kT, v, b, h, 0, Skv, H);
-  cp_async_commit();
-  for (int kt = 0; kt < nkt; ++kt) {
-    const T* ks = kv + (kt & 1) * 2 * kT;
-    const T* vs = ks + kT;
-    if (kt + 1 < nkt) {
-      T* nk = kv + ((kt + 1) & 1) * 2 * kT;
-      load_tile<T, D>(nk, k, b, h, (kt + 1) * R, Skv, H);
-      load_tile<T, D>(nk + kT, v, b, h, (kt + 1) * R, Skv, H);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    float s[M][M], dp[M][M];
-    dot_tile<T, D>(qs, ks, ty, tx, s);
-    dot_tile<T, D>(dos, vs, ty, tx, dp);
-    const int k0 = kt * R;
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const int qpos = q0 + ty * M + i;
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float sc = kpos >= Skv                ? -INFINITY
-                         : (causal && kpos > qpos) ? kMask
-                                                   : s[i][j] * scale;
-        const float p = expf(sc - row_lse[i]);
-        const float ds = p * (dp[i][j] - row_delta[i]) * scale;
-        ds_tile[(ty * M + i) * kPP<D> + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-    mul_tile<T, D>(ds_tile, ks, ty, tx, acc);
-    __syncthreads();
-  }
-
-  float one[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) one[i] = 1.f;
-  store_rows<T, D>(dq, acc, one, b, h, q0, Sq, H, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
-// backward: dk and dv
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, int H, int Sq, int Skv, float scale,
-                  int causal) {
-  constexpr int R = kTileOf<D>, M = kMine<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kT = R * pitch<T, D>();
-  T* const ks = reinterpret_cast<T*>(smem_raw);
-  T* const vs = ks + kT;
-  T* const qd = vs + kT;                              // [2][Q|dO][tile]
-  float* const w_tile = reinterpret_cast<float*>(qd + 4 * kT);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = (gridDim.y - 1 - blockIdx.y) * R;   // heavy tiles first
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int nq = (Sq + R - 1) / R;
-  // causal: query tiles wholly before this key tile see none of its keys
-  const int qt0 = causal ? min(k0 / R, nq) : 0;
-
-  float dk_acc[M][D / 16], dv_acc[M][D / 16];
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int d = 0; d < D / 16; ++d) dk_acc[i][d] = dv_acc[i][d] = 0.f;
-
-  load_tile<T, D>(ks, k, b, h, k0, Skv, H);
-  load_tile<T, D>(vs, v, b, h, k0, Skv, H);
-  if (qt0 < nq) {
-    load_tile<T, D>(qd, q, b, h, qt0 * R, Sq, H);
-    load_tile<T, D>(qd + kT, dout, b, h, qt0 * R, Sq, H);
-  }
-  cp_async_commit();
-  for (int qt = qt0; qt < nq; ++qt) {
-    const T* qs = qd + ((qt - qt0) & 1) * 2 * kT;
-    const T* dos = qs + kT;
-    if (qt + 1 < nq) {
-      T* nq_tile = qd + ((qt + 1 - qt0) & 1) * 2 * kT;
-      load_tile<T, D>(nq_tile, q, b, h, (qt + 1) * R, Sq, H);
-      load_tile<T, D>(nq_tile + kT, dout, b, h, (qt + 1) * R, Sq, H);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    // transposed tiles: rows are this CTA's keys, columns the queries
-    float s[M][M], dp[M][M], col_lse[M], col_delta[M];
-    const int q0 = qt * R;
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const int qpos = q0 + tx + 16 * j;
-      const int64_t at = (static_cast<int64_t>(b) * Sq + qpos) * H + h;
-      col_lse[j] = qpos < Sq ? lse[at] : 0.f;
-      col_delta[j] = qpos < Sq ? delta[at] : 0.f;
-    }
-    dot_tile<T, D>(ks, qs, ty, tx, s);
-    dot_tile<T, D>(vs, dos, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const int kpos = k0 + ty * M + i;
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const int qpos = q0 + tx + 16 * j;
-        const float sc = qpos >= Sq                 ? -INFINITY
-                         : (causal && kpos > qpos) ? kMask
-                                                   : s[i][j] * scale;
-        s[i][j] = expf(sc - col_lse[j]);                  // p
-        w_tile[(ty * M + i) * kPP<D> + tx + 16 * j] = s[i][j];
-      }
-    }
-    __syncthreads();                       // pᵀ tile complete
-    mul_tile<T, D>(w_tile, dos, ty, tx, dv_acc);
-    __syncthreads();                       // pᵀ tile read
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const float ds = s[i][j] * (dp[i][j] - col_delta[j]) * scale;
-        w_tile[(ty * M + i) * kPP<D> + tx + 16 * j] = ds;
-      }
-    __syncthreads();                       // dSᵀ tile complete
-    mul_tile<T, D>(w_tile, qs, ty, tx, dk_acc);
-    __syncthreads();                       // buffers free for reuse
-  }
-
-  float one[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) one[i] = 1.f;
-  store_rows<T, D>(dk, dk_acc, one, b, h, k0, Skv, H, ty, tx);
-  store_rows<T, D>(dv, dv_acc, one, b, h, k0, Skv, H, ty, tx);
-}
-
-// the f32 p/dS tile
+// the f32 p tile
 template <int D>
 constexpr size_t kWTileBytes = kTileOf<D> * kPP<D> * sizeof(float);
 
@@ -864,36 +719,6 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Skv, scale,
       causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int D>
-int dq(const void* q, const void* k, const void* v, const void* dout,
-       const float* lse, const float* delta, void* dq_out, int B, int H,
-       int Sq, int Skv, float scale, int causal, cudaStream_t st) {
-  const size_t smem = 6 * tile_bytes<T, D>() + kWTileBytes<D>;
-  auto kernel = flash_dq_kernel<T, D>;
-  if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Sq + kTileOf<D> - 1) / kTileOf<D>);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq_out), H, Sq, Skv, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int D>
-int dkdv(const void* q, const void* k, const void* v, const void* dout,
-         const float* lse, const float* delta, void* dk, void* dv, int B,
-         int H, int Sq, int Skv, float scale, int causal, cudaStream_t st) {
-  const size_t smem = 6 * tile_bytes<T, D>() + kWTileBytes<D>;
-  auto kernel = flash_dkdv_kernel<T, D>;
-  if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Skv + kTileOf<D> - 1) / kTileOf<D>);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Skv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2320,20 +2145,22 @@ flash_dkdv_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
 }
 
 // ---------------------------------------------------------------------------
-// float32 dq and dk/dv past D 256: 3xTF32 on the tensor cores (header).
-// A CTA holds 64 rows (query rows for dq, keys for dk/dv) and one slice
-// of the output's 64-column chunks, and walks the other side's 64-row
-// tiles. Per tile the ring brings nc = D/32 score steps (six f32 boxes of
-// [64][32]: this CTA's A rows, raw, and the walked tile's B rows of both
-// score products as their tf32 high and low parts, which a pass before
-// the kernel wrote to a workspace) and then OWN output steps (four raw
-// boxes: a 64-column chunk of the walked tile for each warpgroup). Warpgroup 0 forms the
-// first score product (dq: S = Q·Kᵀ; dk/dv: Sᵀ = K·Qᵀ), warpgroup 1 the
-// second (dP = dO·Vᵀ; dPᵀ = V·dOᵀ); P and dS pass between them through
-// shared memory, as tf32 parts, under named barriers 1 and 2; then each
-// accumulates its chunks of the output's transpose (dqᵀ = Kᵀ·dSᵀ, dvᵀ =
-// dOᵀ·P, dkᵀ = Qᵀ·dS) with wgmma, A the walked tile's columns from
-// registers and B the P or dS parts.
+// float32 dk/dv at every head dim and dq past D 128 (up to it, the
+// 128-row dq below): 3xTF32 on the tensor cores (header). A CTA holds 64
+// rows (query rows for dq, keys for dk/dv) and one slice of the output's
+// 64-column chunks (all of them up to D 256),
+// and walks the other side's 64-row tiles. Per tile the ring brings nc =
+// D/32 score steps (six f32 boxes of [64][32]: this CTA's A rows, raw,
+// and the walked tile's B rows of both score products as their tf32 high
+// and low parts, which a pass before the kernel wrote to a workspace) and
+// then OWN output steps (four raw boxes: a 64-column chunk of the walked
+// tile for each warpgroup; at D 32 two, the chunk's first half).
+// Warpgroup 0 forms the first score product (dq: S = Q·Kᵀ; dk/dv: Sᵀ =
+// K·Qᵀ), warpgroup 1 the second (dP = dO·Vᵀ; dPᵀ = V·dOᵀ); P and dS pass
+// between them through shared memory, as tf32 parts, under named
+// barriers; then each accumulates its chunks of the output's transpose
+// (dqᵀ = Kᵀ·dSᵀ, dvᵀ = dOᵀ·P, dkᵀ = Qᵀ·dS) with wgmma, A the walked
+// tile's columns from registers and B the P or dS parts.
 // ---------------------------------------------------------------------------
 
 // shared memory: the ring of ns stages; `outs` tiles of P or dS parts
@@ -2349,7 +2176,8 @@ __host__ __device__ constexpr size_t tf_smem(int ns, int outs) {
 
 // the rows of a (B, S, H, D) f32 output from `mine` of a warpgroup's OWN
 // transposed accumulators (tf_out_step's), chunk j at column col + 64·j,
-// rows row0 + n below S (chunks past D skipped)
+// rows row0 + n below S (columns past D skipped: whole chunks past it in
+// a last slice, half of the one chunk at head dim 32)
 template <int OWN>
 __device__ __forceinline__ void tf_store(float* out,
                                          const float (&acc)[OWN][32],
@@ -2359,13 +2187,12 @@ __device__ __forceinline__ void tf_store(float* out,
   const int m = 16 * (i / 32) + l / 4;
 #pragma unroll
   for (int j = 0; j < OWN; ++j) {
-    if (j >= mine || col + 64 * j >= D) continue;
+    if (j >= mine) continue;
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
-      const int s_ = row0 + acc_col(e, l);
-      if (s_ < S)
-        out[((static_cast<int64_t>(b) * S + s_) * H + h) * D + col + 64 * j +
-            m + acc_row(e)] = acc[j][e];
+      const int s_ = row0 + acc_col(e, l), c = col + 64 * j + m + acc_row(e);
+      if (s_ < S && c < D)
+        out[((static_cast<int64_t>(b) * S + s_) * H + h) * D + c] = acc[j][e];
     }
   }
 }
@@ -2578,9 +2405,13 @@ flash_fwd_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
 // K columns of each warpgroup's chunk p. Warpgroup 0 forms P and puts it
 // in the P/dS tiles; warpgroup 1 reads it, forms dS = P∘(dP -
 // delta)·scale and puts it in the same tiles; both add Kᵀ·dSᵀ to their
-// chunks of dqᵀ. Warpgroup 0 writes the next tile's P only after its
-// nc score steps, and the ring (ns < nc stages) holds it until
-// warpgroup 1 has released a step of that tile: past its output steps.
+// chunks of dqᵀ. Warpgroup 0 writes the next tile's P only once
+// warpgroup 1's output steps have read this tile's dS (named barrier 3:
+// at head dim 64 and 32, where the knockout dq_handoff runs this kernel
+// in place of the 128-row one, a key tile has fewer score steps than the
+// ring has stages, so the ring alone does not hold warpgroup 0 back).
+// At head dim 32 a chunk is half a chunk: output steps load and use its
+// first 32 columns (`halves`).
 template <int OWN>
 __global__ void __launch_bounds__(kSlThreads, 1)
 flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
@@ -2596,7 +2427,7 @@ flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
                             int D, int nsl, int own, int ns, float scale,
                             int causal) {
   extern __shared__ unsigned char smem_raw[];
-  const int nc = D / 32;
+  const int nc = D / 32, halves = D % 64 ? 1 : 2;  // 32-column tiles a chunk
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t xb = base + ns * kTfStage;      // P, then dS, parts
   TfRing ring{base, base + tf_bars_at(ns, 1), ns};
@@ -2622,9 +2453,10 @@ flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
                         k0, b, &qm, &khm, &klm, &dom, &vhm, &vlm);
         for (int p = 0; p < OWN; ++p, ++t, ring.next()) {
           const bool two = p < rest;
-          const uint32_t dst = ring.acquire(t, (two ? 4 : 2) * kTfBox);
+          const uint32_t dst =
+              ring.acquire(t, (two ? 2 : 1) * halves * kTfBox);
           for (int g = 0; g < (two ? 2 : 1); ++g)
-            for (int e = 0; e < 2; ++e)
+            for (int e = 0; e < halves; ++e)
               tma_load(dst + (2 * g + e) * kTfBox, &km, ring.full(),
                        col0 + 64 * (OWN * g + p) + 32 * e, h, k0, b);
         }
@@ -2672,6 +2504,8 @@ flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
           }
           s[i] = expf(x - stat[(i % 4) / 2]);
         }
+        // once warpgroup 1 has read the previous tile's dS
+        if (kt > 0) named_sync(3, kSlConsumers);
         tf_put(xb, xb + 2 * kTfBox, s);
         named_arrive(1, kSlConsumers);
         named_sync(2, kSlConsumers);
@@ -2691,11 +2525,159 @@ flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
       for (int p = 0; p < OWN; ++p) {
         const uint32_t tile = ring.wait() + 2 * G * kTfBox;
-        if (p < mine) tf_out_step(acc[p], tile, xb, xb + 2 * kTfBox);
+        if (p < mine)
+          tf_out_step(acc[p], tile, xb, xb + 2 * kTfBox, 32 * halves);
+        ring.release();
+      }
+      if (G == 1 && kt + 1 < nkt) named_arrive(3, kSlConsumers);  // dS read
+    }
+    tf_store<OWN>(dq, acc, mine, b, h, q0, col0 + 64 * OWN * G, Sq, H, D);
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Role<false>{});
+  else
+    consume(Role<true>{});
+}
+
+// dq at head dims up to 128: CTA = 128 query rows of one (b, h), the
+// heaviest first (grid (B·H, ceil(Sq / 128))), each consumer warpgroup
+// its own 64 (no P/dS hand-off): per key tile it forms S = Q·Kᵀ over nc
+// = D/32 score steps, P in registers, dP = dO·Vᵀ over nc more, dS = P∘(dP
+// - delta)·scale in registers, puts dS's parts in a tile of its own
+// (named barrier 1 + g over its 128 threads) and adds Kᵀ·dSᵀ to each of
+// its NC = chunks(D) 64-column chunks of dqᵀ. A stage of the ring holds
+// both warpgroups' A boxes (Q, or dO, raw) and the walked tile's B parts
+// (K's, or V's): four [64][32] boxes; an output step a chunk of K's
+// columns (its first half at D 32). K's and V's parts come once a 128
+// rows; under the causal mask a warpgroup passes the key tiles past its
+// last row without products.
+constexpr int kRowsStage = 4 * kTfBox;
+template <int NC>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_dq_rows_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                          const __grid_constant__ CUtensorMap km,
+                          const __grid_constant__ CUtensorMap dom,
+                          const __grid_constant__ CUtensorMap khm,
+                          const __grid_constant__ CUtensorMap klm,
+                          const __grid_constant__ CUtensorMap vhm,
+                          const __grid_constant__ CUtensorMap vlm,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq, int H, int Sq, int Skv,
+                          int D, int ns, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 32, halves = D % 64 ? 1 : 2;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xb = base + ns * kRowsStage;    // dS parts, a tile each
+  TfRing ring{base, xb + 8 * kTfBox, ns};
+  auto at = [&] { return base + ring.st * kRowsStage; };   // the stage
+  const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
+  const int q0 = 128 * (gridDim.y - 1 - blockIdx.y);    // heaviest first
+  const int nk = (Skv + kSlKeys - 1) / kSlKeys;
+  const int nkt =
+      causal ? min(nk, (min(q0 + 128, Sq) - 1) / kSlKeys + 1) : nk;
+  tf_init(ring.bars, ns);
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kSlConsumers) {
+      int t = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int k0 = kt * kSlKeys;
+        for (int j = 0; j < 2 * nc; ++j, ++t, ring.next()) {
+          const bool dp = j >= nc;         // S's steps, then dP's
+          const int c = 32 * (j % nc);
+          ring.acquire(t, kRowsStage);
+          const uint32_t dst = at();
+          tma_load(dst, dp ? &dom : &qm, ring.full(), c, h, q0, b);
+          tma_load(dst + kTfBox, dp ? &dom : &qm, ring.full(), c, h, q0 + 64,
+                   b);
+          tma_load(dst + 2 * kTfBox, dp ? &vhm : &khm, ring.full(), c, h, k0,
+                   b);
+          tma_load(dst + 3 * kTfBox, dp ? &vlm : &klm, ring.full(), c, h, k0,
+                   b);
+        }
+        for (int p = 0; p < NC; ++p, ++t, ring.next()) {
+          ring.acquire(t, halves * kTfBox);
+          for (int e = 0; e < halves; ++e)
+            tma_load(at() + e * kTfBox, &km, ring.full(), 64 * p + 32 * e, h,
+                     k0, b);
+        }
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  const int l = tid % 32;
+  auto consume = [&](auto role) {
+    constexpr int G = decltype(role)::kDk ? 1 : 0;
+    const int qg = q0 + 64 * G;            // this warpgroup's rows
+    const int row0 = qg + 16 * ((tid / 32) % 4) + l / 4;
+    const uint32_t mine = xb + 4 * G * kTfBox;   // its dS parts
+    const int nmine =
+        causal ? min(nkt, (min(qg + 64, Sq) - 1) / kSlKeys + 1) : nkt;
+    float rl[2], rd[2];                    // lse and delta of its rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s_ = row0 + 8 * r;
+      const int64_t i = (static_cast<int64_t>(b) * Sq + s_) * H + h;
+      rl[r] = s_ < Sq ? lse[i] : 0.f;
+      rd[r] = s_ < Sq ? delta[i] : 0.f;
+    }
+    float acc[NC][32], s[32], p[32];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) zero(acc[j]);
+    zero(s);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const bool live = kt < nmine;
+      for (int c = 0; c < nc; ++c) {       // S = Q·Kᵀ
+        ring.wait();
+        const uint32_t st = at();
+        if (live)
+          tf_score_step(s, st + G * kTfBox, st + 2 * kTfBox, st + 3 * kTfBox,
+                        c == 0);
+        ring.release();
+      }
+      // P from the scaled, masked scores
+      const int k0 = kt * kSlKeys;
+      const bool edge =
+          (causal && k0 + kSlKeys - 1 > qg) || k0 + kSlKeys > Skv;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = s[i] * scale;
+        if (edge) {
+          const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+          x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+        }
+        p[i] = expf(x - rl[(i % 4) / 2]);
+      }
+      for (int c = 0; c < nc; ++c) {       // dP = dO·Vᵀ
+        ring.wait();
+        const uint32_t st = at();
+        if (live)
+          tf_score_step(s, st + G * kTfBox, st + 2 * kTfBox, st + 3 * kTfBox,
+                        c == 0);
+        ring.release();
+      }
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = p[i] * (s[i] - rd[(i % 4) / 2]) * scale;
+        tf_put(mine, mine + 2 * kTfBox, s);   // past its last tile's reads
+        fence_proxy_async();
+        named_sync(1 + G, 128);
+      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {       // dqᵀ += Kᵀ·dSᵀ
+        ring.wait();
+        if (live)
+          tf_out_step(acc[j], at(), mine, mine + 2 * kTfBox, 32 * halves);
         ring.release();
       }
     }
-    tf_store<OWN>(dq, acc, mine, b, h, q0, col0 + 64 * OWN * G, Sq, H, D);
+    tf_store<NC>(dq, acc, NC, b, h, qg, 0, Sq, H, D);
   };
   // the warpgroup index broadcast from lane 0, so the branch is uniform
   if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
@@ -2712,7 +2694,9 @@ flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
 // its parts in tiles warpgroup 1 reads (named barrier 1; barrier 2 says
 // they were read), then adds dOᵀ·P to dvᵀ; warpgroup 1 forms dSᵀ =
 // Pᵀ∘(dPᵀ - delta)·scale, puts it in tiles of its own and adds Qᵀ·dS to
-// dkᵀ. The query tile's lse and delta are staged by a producer warp.
+// dkᵀ. The query tile's lse and delta are staged by a producer warp. At
+// head dim 32 output steps load and use a chunk's first 32 columns
+// (`halves`), as dq's.
 template <int OWN>
 __global__ void __launch_bounds__(kSlThreads, 1)
 flash_dkdv_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
@@ -2729,7 +2713,7 @@ flash_dkdv_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
                               int H, int Sq, int Skv, int D, int nsl, int ns,
                               float scale, int causal) {
   extern __shared__ unsigned char smem_raw[];
-  const int nc = D / 32;
+  const int nc = D / 32, halves = D % 64 ? 1 : 2;  // 32-column tiles a chunk
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t xb = base + ns * kTfStage;      // Pᵀ, then dSᵀ, parts
   const uint32_t stats = xb + 8 * kTfBox;  // lse, then delta: f32 [64]
@@ -2754,8 +2738,8 @@ flash_dkdv_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
           tf_load_score(ring.acquire(t, kTfStage), ring.full(), c, h, k0,
                         q0, b, &km, &qhm, &qlm, &vm, &dohm, &dolm);
         for (int p = 0; p < OWN; ++p, ++t, ring.next()) {
-          const uint32_t dst = ring.acquire(t, 4 * kTfBox);
-          for (int e = 0; e < 2; ++e) {
+          const uint32_t dst = ring.acquire(t, 2 * halves * kTfBox);
+          for (int e = 0; e < halves; ++e) {
             tma_load(dst + e * kTfBox, &dom, ring.full(),
                      col0 + 64 * p + 32 * e, h, q0, b);
             tma_load(dst + (2 + e) * kTfBox, &qm, ring.full(),
@@ -2846,7 +2830,7 @@ flash_dkdv_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
       for (int p = 0; p < OWN; ++p) {      // dOᵀ·P, or Qᵀ·dS
         const uint32_t tile = ring.wait() + 2 * G * kTfBox;
-        tf_out_step(acc[p], tile, out, out + 2 * kTfBox);
+        tf_out_step(acc[p], tile, out, out + 2 * kTfBox, 32 * halves);
         ring.release();
       }
     }
@@ -3143,14 +3127,14 @@ inline int tf_stages(int outs) {
 
 // chunks of a slice of the kernels whose CTAs hold 64 query rows (dq and
 // the forward; `rows` CTAs a slice): the fewest slices of at most 2 x
-// kTfMaxOwn chunks (D 320-512 one slice, 576-1024 two), or of 2 x 3
+// kTfMaxOwn chunks (dq's D 192-512 one slice, 576-1024 two), or of 2 x 3
 // where that grid fits one wave of the SMs (more, lighter CTAs even out
 // the causal rows' work: D 512 two), as even as they come; warpgroup 0
 // takes OWN = ceil(own / 2) of them and warpgroup 1 the rest
 int tf_row_slices(int D, int rows, int* own) {
   int sms = 0;
   if (int e = sm_count(&sms)) return e;
-  const int nc = D / 64;
+  const int nc = chunks(D);
   int most = 2 * kTfMaxOwn, fewest = (nc + most - 1) / most;
   if (rows * fewest <= sms) {
     most = 6;
@@ -3208,7 +3192,7 @@ int dq_sliced_tf32_own(int D, int own, const CUtensorMap (&m)[3],
                        const float* delta, void* dq_out, int B, int H,
                        int Sq, int Skv, float scale, int causal,
                        cudaStream_t st) {
-  const int ns = tf_stages(1), nsl = (D / 64 + own - 1) / own;
+  const int ns = tf_stages(1), nsl = (chunks(D) + own - 1) / own;
   const size_t smem = tf_smem(ns, 1);
   auto kernel = flash_dq_sliced_tf32_kernel<OWN>;
   if (int e = set_smem(kernel, smem)) return e;
@@ -3220,7 +3204,28 @@ int dq_sliced_tf32_own(int D, int own, const CUtensorMap (&m)[3],
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq: K and V split into `work` (4·B·Skv·H·D floats), then the kernel
+// the 128-row dq up to D 128: a ring of 32 KB stages beside the two dS
+// part tiles (5 stages)
+template <int NC>
+int dq_rows_tf32(int D, const CUtensorMap (&m)[3], const CUtensorMap (&p)[4],
+                 const float* lse, const float* delta, void* dq_out, int B,
+                 int H, int Sq, int Skv, float scale, int causal,
+                 cudaStream_t st) {
+  constexpr int kFixed = 1024 + 8 * kTfBox + 8 * (2 * kTfMaxStages + 2);
+  const int ns =
+      min(kTfMaxStages, static_cast<int>((kSmemMax - kFixed) / kRowsStage));
+  const size_t smem = kFixed + ns * kRowsStage;
+  auto kernel = flash_dq_rows_tf32_kernel<NC>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Sq + 127) / 128);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      m[0], m[1], m[2], p[0], p[1], p[2], p[3], lse, delta,
+      static_cast<float*>(dq_out), H, Sq, Skv, D, ns, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dq: K and V split into `work` (4·B·Skv·H·D floats), then the kernel: up
+// to D 128 the 128-row one, past it the 64-row one with the P/dS hand-off
 int dq_sliced_tf32(int D, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq_out, int B, int H, int Sq, int Skv, float scale,
@@ -3231,6 +3236,12 @@ int dq_sliced_tf32(int D, const void* q, const void* k, const void* v,
   if (int e = make_map(&m[1], k, B, Skv, H, D, kSlKeys, true)) return e;
   if (int e = make_map(&m[2], dout, B, Sq, H, D, 64, true)) return e;
   if (int e = tf_split(p, k, v, work, B, Skv, H, D, st)) return e;
+  if (D <= 64)
+    return dq_rows_tf32<1>(D, m, p, lse, delta, dq_out, B, H, Sq, Skv, scale,
+                           causal, st);
+  if (D <= 128)
+    return dq_rows_tf32<2>(D, m, p, lse, delta, dq_out, B, H, Sq, Skv, scale,
+                           causal, st);
   int own = 0;
   if (int e = tf_row_slices(D, B * H * ((Sq + 63) / 64), &own)) return e;
   switch ((own + 1) / 2) {
@@ -3252,7 +3263,7 @@ int dkdv_sliced_tf32_own(int D, const CUtensorMap (&m)[4],
                          const float* delta, void* dk, void* dv, int B,
                          int H, int Sq, int Skv, float scale, int causal,
                          cudaStream_t st) {
-  const int ns = tf_stages(2), nsl = (D / 64 + OWN - 1) / OWN;
+  const int ns = tf_stages(2), nsl = (chunks(D) + OWN - 1) / OWN;
   const size_t smem = tf_smem(ns, 2);
   auto kernel = flash_dkdv_sliced_tf32_kernel<OWN>;
   if (int e = set_smem(kernel, smem)) return e;
@@ -3277,28 +3288,39 @@ int dkdv_sliced_tf32(int D, const void* q, const void* k, const void* v,
   if (int e = make_map(&m[3], dout, B, Sq, H, D, 64, true)) return e;
   if (int e = tf_split(p, q, dout, work, B, Sq, H, D, st)) return e;
   // each warpgroup holds one accumulator of the whole slice: slices as
-  // the bf16 kernels' (sl_own: 4 + 4 at D 512)
-  return sl_own(D / 64) == 3
-             ? dkdv_sliced_tf32_own<3>(D, m, p, lse, delta, dk, dv, B, H,
-                                       Sq, Skv, scale, causal, st)
-             : dkdv_sliced_tf32_own<4>(D, m, p, lse, delta, dk, dv, B, H,
-                                       Sq, Skv, scale, causal, st);
+  // the bf16 kernels' (sl_own: 4 + 4 at D 512), one of every chunk up to
+  // D 256 (half of one at D 32)
+  switch (sl_own(chunks(D))) {
+    case 1:
+      return dkdv_sliced_tf32_own<1>(D, m, p, lse, delta, dk, dv, B, H, Sq,
+                                     Skv, scale, causal, st);
+    case 2:
+      return dkdv_sliced_tf32_own<2>(D, m, p, lse, delta, dk, dv, B, H, Sq,
+                                     Skv, scale, causal, st);
+    case 3:
+      return dkdv_sliced_tf32_own<3>(D, m, p, lse, delta, dk, dv, B, H, Sq,
+                                     Skv, scale, causal, st);
+    default:
+      return dkdv_sliced_tf32_own<4>(D, m, p, lse, delta, dk, dv, B, H, Sq,
+                                     Skv, scale, causal, st);
+  }
 }
 
 }  // namespace tc
 
-// dispatch on (dtype code, head dim): 0 = float32 (CUDA cores up to D
-// 256), 1 = bfloat16 (tensor cores); past D 256, any D that is a multiple
-// of 64, float32 takes WIDE_F32 (the 3xTF32 tensor-core kernels, through
-// each entry's wide_f32, which passes the workspace on) and bfloat16
-// WIDE_BF16 (the sliced tensor-core kernels)
-#define BIGDL_FLASH_DISPATCH(FN, WIDE_F32, WIDE_BF16, ...)               \
+// dispatch on (dtype code, head dim): 0 = float32, 1 = bfloat16. At the
+// head dims with kernels of their own (32, 64, 128, 192, 256) bfloat16
+// runs tc::FN<D> (tensor cores) and float32 the entry's F32: the
+// CUDA-core forward (the entry's cuda_cores), or the 3xTF32 dq and dk/dv
+// (each entry's wide_f32, which passes the workspace on). Past D 256, any
+// D that is a multiple of 64, float32 takes WIDE_F32 (the 3xTF32
+// tensor-core kernels, through wide_f32) and bfloat16 WIDE_BF16 (the
+// sliced tensor-core kernels)
+#define BIGDL_FLASH_DISPATCH(FN, F32, WIDE_F32, WIDE_BF16, ...)          \
   do {                                                                    \
-    if (dtype == 0 && D == 32) return FN<float, 32>(__VA_ARGS__);         \
-    if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);         \
-    if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__);       \
-    if (dtype == 0 && D == 192) return FN<float, 192>(__VA_ARGS__);       \
-    if (dtype == 0 && D == 256) return FN<float, 256>(__VA_ARGS__);       \
+    if (dtype == 0 &&                                                     \
+        (D == 32 || D == 64 || D == 128 || D == 192 || D == 256))         \
+      return F32(D, __VA_ARGS__);                                         \
     if (dtype == 1 && D == 32) return tc::FN<32>(__VA_ARGS__);            \
     if (dtype == 1 && D == 64) return tc::FN<64>(__VA_ARGS__);            \
     if (dtype == 1 && D == 128) return tc::FN<128>(__VA_ARGS__);          \
@@ -3314,23 +3336,33 @@ int dkdv_sliced_tf32(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a (dtype, head dim) the
-// kernels were not built for (or an f32 call past D 256 given no
-// workspace: 2 floats an element of K for the forward, 4 for dq, 4 an
-// element of Q for dk/dv), -2 where no tensor-map encoder is found
-// (cuTensorMapEncodeTiled), 1000 + the CUresult of a refused tensor map,
-// else the CUDA error code of the launch. The workspace comes last, after
-// the stream.
+// kernels were not built for (or an f32 call given no workspace where it
+// needs one: the forward past D 256, 2 floats an element of K; dq at any
+// D, 4; dk/dv at any D, 4 an element of Q), -2 where no tensor-map
+// encoder is found (cuTensorMapEncodeTiled), 1000 + the CUresult of a
+// refused tensor map, else the CUDA error code of the launch. The
+// workspace comes last, after the stream.
 extern "C" int bigdl_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, float* lse, int B,
                                int H, int Sq, int Skv, int D, float scale,
                                int causal, void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // f32 up to D 256: the CUDA-core kernel of D
+  auto cuda_cores = [](int D, auto... a) {
+    switch (D) {
+      case 32: return fwd<float, 32>(a...);
+      case 64: return fwd<float, 64>(a...);
+      case 128: return fwd<float, 128>(a...);
+      case 192: return fwd<float, 192>(a...);
+      default: return fwd<float, 256>(a...);
+    }
+  };
   // f32 past D 256 splits K into `work` first
   auto wide_f32 = [work](int D, auto... a) {
     return tc::fwd_sliced_tf32(D, a..., work);
   };
-  BIGDL_FLASH_DISPATCH(fwd, wide_f32, tc::fwd_sliced, q, k, v, o, lse, B, H,
-                       Sq, Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(fwd, cuda_cores, wide_f32, tc::fwd_sliced, q, k, v,
+                       o, lse, B, H, Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
@@ -3340,12 +3372,12 @@ extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
                               int D, float scale, int causal, void* stream,
                               float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // f32 past D 256 splits K and V into `work` first
+  // f32 at every D splits K and V into `work` first
   auto wide_f32 = [work](int D, auto... a) {
     return tc::dq_sliced_tf32(D, a..., work);
   };
-  BIGDL_FLASH_DISPATCH(dq, wide_f32, tc::dq_sliced, q, k, v, dout, lse,
-                       delta, dq_out, B, H, Sq, Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(dq, wide_f32, wide_f32, tc::dq_sliced, q, k, v, dout,
+                       lse, delta, dq_out, B, H, Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
@@ -3355,10 +3387,11 @@ extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
                                 int Skv, int D, float scale, int causal,
                                 void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // f32 past D 256 splits Q and dO into `work` first
+  // f32 at every D splits Q and dO into `work` first
   auto wide_f32 = [work](int D, auto... a) {
     return tc::dkdv_sliced_tf32(D, a..., work);
   };
-  BIGDL_FLASH_DISPATCH(dkdv, wide_f32, tc::dkdv_sliced, q, k, v, dout, lse,
-                       delta, dk, dv, B, H, Sq, Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(dkdv, wide_f32, wide_f32, tc::dkdv_sliced, q, k, v,
+                       dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, causal,
+                       st);
 }

@@ -1,6 +1,7 @@
 // 3xTF32 on Hopper's tensor cores (sm_90a): the building blocks shared by
-// the f32 kernels of flash_attention.cu (the forward, dq and dk/dv past
-// head dim 256) and of fused_ce.cu (dh and dW/db), which their headers
+// the f32 kernels of flash_attention.cu (dq and dk/dv at every head dim,
+// the forward past 256) and of fused_ce.cu (the forward, dh and dW/db),
+// which their headers
 // describe. A float x splits into hi = tf32(x) and lo = tf32(x - hi);
 // hi·lo + lo·hi + hi·hi on wgmma m64n64k8.f32.tf32.tf32 keeps about 22 of
 // f32's 24 bits, and every few K steps sum in a fresh accumulator added
@@ -140,14 +141,19 @@ __device__ __forceinline__ void tf_get(float (&s)[32], uint32_t hi,
 // at `tile`, [64 rows][32 columns] twice) split into tf32 parts in
 // registers, B the parts of P or dS (tf_put's tiles bhi, blo), K-major.
 // Per K step of 8 rows hi·lo, lo·hi, hi·hi, 24 wgmma m64n64k8 into a
-// fresh accumulator added to acc in f32 (tf_score_step's reason).
+// fresh accumulator added to acc in f32 (tf_score_step's reason). Where
+// the chunk holds `cols` 32 columns (head dim 32: its second raw tile was
+// not loaded), warps 2 and 3 take zeros for A, and their rows of acc stay
+// zero.
 __device__ __forceinline__ void tf_out_step(float (&acc)[32], uint32_t tile,
-                                            uint32_t bhi, uint32_t blo) {
+                                            uint32_t bhi, uint32_t blo,
+                                            int cols = 64) {
   const int i = threadIdx.x % 128, l = i % 32, t = l % 4;
   // warp w's rows of A are the block's columns 16w..16w + 15, in tile
   // (16w) / 32
   const int c = (16 * (i / 32)) % 32 + l / 4;
   const uint32_t a_t = tile + (i / 64) * kTfBox;
+  const bool live = 16 * (i / 32) < cols;     // uniform in the warp
   // two groups of 4 K steps, so A's parts of only one are held (all 8
   // beside a 4-chunk accumulator spilled), each summed afresh
 #pragma unroll
@@ -157,11 +163,12 @@ __device__ __forceinline__ void tf_out_step(float (&acc)[32], uint32_t tile,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_tf32(ld_shared(a_t + tf_at(32 * half + 8 * kk + t +
-                                             4 * (e >> 1),
-                                         c + 8 * (e & 1))),
-                   ah[kk][e], al[kk][e]);
+      for (int e = 0; e < 4; ++e) {
+        const float x = ld_shared(a_t + tf_at(32 * half + 8 * kk + t +
+                                                  4 * (e >> 1),
+                                              c + 8 * (e & 1)));
+        split_tf32(live ? x : 0.f, ah[kk][e], al[kk][e]);
+      }
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {

@@ -22,14 +22,18 @@ materialised. lse is (B, S, H) f32. Arithmetic matches the TPU kernel:
 f32 scores times ``scale``, the finite −1e9 causal mask (key position >
 query position, both counted from 0), P rounded to v's dtype before P·V
 and to dO's dtype before dv, dS rounded to k's dtype for dq and to q's
-dtype for dk; o/dq/dk/dv in the input dtype. The f32 kernels past head
-dim 256 form their products on the tensor cores in 3xTF32 (each operand
-split into tf32 high and low parts, hi·lo + lo·hi + hi·hi summed in f32),
-which keeps about 22 of f32's 24 bits; they take a workspace for the
-parts (``_work``).
+dtype for dk; o/dq/dk/dv in the input dtype. The f32 dq and dk/dv at
+every head dim, and the f32 forward past head dim 256, form their
+products on the tensor cores in 3xTF32 (each operand split into tf32
+high and low parts, hi·lo + lo·hi + hi·hi summed in f32), which keeps
+about 22 of f32's 24 bits; they take a workspace for the parts
+(``_work``). The f32 forward up to head dim 256 runs on the CUDA cores.
 
 ``fwd_launches``, ``dq_launches`` and ``dkdv_launches`` count kernel
-launches, so a run can show its main path went through the kernels.
+launches, so a run can show its main path went through the kernels;
+``fwd_tf32_launches``, ``dq_tf32_launches`` and ``dkdv_tf32_launches``
+count those of them on the 3xTF32 routes (``TF32_ROUTES``,
+``flash_route``).
 """
 from __future__ import annotations
 
@@ -42,18 +46,27 @@ import torch.nn.functional as F
 from . import padded_head_dim
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_supported",
-           "flash_route", "padded_head_dim", "flash_attention_ref",
+           "flash_route", "TF32_ROUTES", "padded_head_dim",
+           "flash_attention_ref",
            "flash_fwd", "flash_dq", "flash_dkdv", "flash_fwd_ref",
            "flash_dq_ref", "flash_dkdv_ref",
-           "fwd_launches", "dq_launches", "dkdv_launches"]
+           "fwd_launches", "dq_launches", "dkdv_launches",
+           "fwd_tf32_launches", "dq_tf32_launches", "dkdv_tf32_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
+#: the routes of ``flash_route`` whose kernels run in 3xTF32 and take a
+#: workspace
+TF32_ROUTES = ("rows_tf32", "sliced_tf32")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches since import (reset by assigning 0)
 fwd_launches = 0
 dq_launches = 0
 dkdv_launches = 0
+#: of those, the launches on a 3xTF32 route (``TF32_ROUTES``)
+fwd_tf32_launches = 0
+dq_tf32_launches = 0
+dkdv_tf32_launches = 0
 
 
 def _head_dim_ok(d: int) -> bool:
@@ -72,7 +85,9 @@ def flash_supported(q, k) -> bool:
     Past D 256 the C entries route to D-sliced kernels on the tensor
     cores: a CTA owns a slice of the output's columns (up to 256 in
     bf16, forward and backward; in f32, in 3xTF32, up to 512 for the
-    forward and dq and 256 for dk/dv) and sums the scores over all of D
+    forward and dq and 256 for dk/dv) and sums the scores over all of D;
+    the f32 dq and dk/dv run 3xTF32 kernels at every head dim (one slice
+    of all of D up to 256; dq up to 128 in CTAs of 128 rows)
     (``flash_route``; csrc/flash_attention.cu's header)."""
     return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] >= 1
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
@@ -80,27 +95,35 @@ def flash_supported(q, k) -> bool:
             and q.shape[1] > 0 and k.shape[1] > 0)
 
 
-def flash_route(dtype, d: int) -> str | None:
-    """The kernel family the three C entries (forward, dq, dk/dv) run for
-    ``dtype`` at head dim ``d``, as ``BIGDL_FLASH_DISPATCH`` in
-    csrc/flash_attention.cu picks it, the same for all three:
+def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
+    """The kernel family the C entry of ``kernel`` ("fwd", "dq" or
+    "dkdv") runs for ``dtype`` at head dim ``d``, as
+    ``BIGDL_FLASH_DISPATCH`` in csrc/flash_attention.cu picks it:
     ``"tc"`` (bf16 at D 32-256: ``wgmma`` with TMA tiles),
-    ``"cuda_cores"`` (f32 at D 32-256), ``"sliced_tc"`` (bf16 past 256:
-    ``flash_fwd_sliced_tc_kernel``, ``flash_dq_sliced_tc_kernel`` and
-    ``flash_dkdv_sliced_tc_kernel``, slices of up to 256 output columns
-    on the tensor cores) and ``"sliced_tf32"`` (f32 past 256:
-    ``flash_fwd_sliced_tf32_kernel``, ``flash_dq_sliced_tf32_kernel`` and
-    ``flash_dkdv_sliced_tf32_kernel``, 3xTF32 on the tensor cores, each
-    product split into tf32 high and low parts, hi·hi + hi·lo + lo·hi
-    summed in f32); None where no kernel takes the call. A head dim the
-    kernels are not built for reports the route of
-    :func:`padded_head_dim`, the width it runs at."""
-    if d < 1:
+    ``"sliced_tc"`` (bf16 past 256: ``flash_fwd_sliced_tc_kernel``,
+    ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``,
+    slices of up to 256 output columns on the tensor cores),
+    ``"cuda_cores"`` (the f32 forward at D 32-256), and in 3xTF32 on the
+    tensor cores (each product split into tf32 high and low parts, hi·hi
+    + hi·lo + lo·hi summed in f32; ``TF32_ROUTES``) ``"rows_tf32"`` (the
+    f32 dq at D 32-128: ``flash_dq_rows_tf32_kernel``, 128-row CTAs, each
+    warpgroup forming S and dP of its own 64 rows) and ``"sliced_tf32"``
+    (``flash_fwd_sliced_tf32_kernel`` past 256,
+    ``flash_dq_sliced_tf32_kernel`` past 128 and
+    ``flash_dkdv_sliced_tf32_kernel`` at every D, one slice of all of D up
+    to 256); None where no kernel takes the call. A head dim the kernels
+    are not built for reports the route of :func:`padded_head_dim`, the
+    width it runs at."""
+    if d < 1 or kernel not in ("fwd", "dq", "dkdv"):
         return None
-    if padded_head_dim(d) <= 256:
-        return {torch.bfloat16: "tc", torch.float32: "cuda_cores"}.get(dtype)
-    return {torch.bfloat16: "sliced_tc",
-            torch.float32: "sliced_tf32"}.get(dtype)
+    width = padded_head_dim(d)
+    if dtype == torch.bfloat16:
+        return "tc" if width <= 256 else "sliced_tc"
+    if dtype != torch.float32:
+        return None
+    if kernel == "fwd" and width <= 256:
+        return "cuda_cores"
+    return "rows_tf32" if kernel == "dq" and width <= 128 else "sliced_tf32"
 
 
 # --------------------------------------------------------------------------
@@ -196,7 +219,7 @@ def _kernel_fns():
 def bind(lib: ctypes.CDLL) -> dict:
     """The typed entries ``{"fwd", "dq", "dkdv"}`` of a library built from
     csrc/flash_attention.cu. Each takes a last pointer, the f32 workspace
-    of the route "sliced_tf32" (``_work``), after the stream."""
+    of the 3xTF32 routes (``_work``), after the stream."""
     dims = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                  ctypes.c_void_p, ctypes.c_void_p]
     fns = {}
@@ -237,17 +260,19 @@ def _check_cuda_bwd(q, k, v, do, lse, delta):
 
 
 def _work(name, q, k):
-    """The workspace of kernel ``name`` on the route "sliced_tf32": the
-    tf32 high and low parts of the operands it walks, 2 floats an
-    element of K for the forward, 4 for dq (K and V), 4 an element of Q
-    for dk/dv (Q and dO); else None."""
-    if flash_route(q.dtype, q.shape[-1]) != "sliced_tf32":
+    """The workspace of kernel ``name`` on a 3xTF32 route: the tf32 high
+    and low parts of the operands it walks, 2 floats an element of K for
+    the forward, 4 for dq (K and V), 4 an element of Q for dk/dv (Q and
+    dO); else None."""
+    if flash_route(q.dtype, q.shape[-1], name) not in TF32_ROUTES:
         return None
     n = {"fwd": 2 * k.numel(), "dq": 4 * k.numel(), "dkdv": 4 * q.numel()}
     return torch.empty(n[name], dtype=torch.float32, device=q.device)
 
 
 def _launch(name, q, k, ptrs, scale, causal):
+    """Launch kernel ``name``; True where it ran on a 3xTF32 route (it
+    took a workspace)."""
     b, sq, h, d = q.shape
     fn = _kernel_fns()[name]
     work = _work(name, q, k)
@@ -258,17 +283,19 @@ def _launch(name, q, k, ptrs, scale, causal):
                  stream, None if work is None else work.data_ptr())
     if err:
         raise RuntimeError(f"flash_{name} kernel launch failed (code {err})")
+    return work is not None
 
 
 def flash_fwd(q, k, v, scale, causal):
     """Forward: (o, lse) of q (B, Sq, H, D) against k, v (B, Skv, H, D)."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, scale, causal)
-    global fwd_launches
+    global fwd_launches, fwd_tf32_launches
     _check_cuda(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("fwd", q, k, (q, k, v, o, lse), scale, causal)
+    fwd_tf32_launches += _launch("fwd", q, k, (q, k, v, o, lse), scale,
+                                 causal)
     fwd_launches += 1
     return o, lse
 
@@ -277,10 +304,11 @@ def flash_dq(q, k, v, do, lse, delta, scale, causal):
     """dq from the saved lse and delta = rowsum(dO∘O) − g_lse."""
     if q.device.type == "cpu":
         return flash_dq_ref(q, k, v, do, lse, delta, scale, causal)
-    global dq_launches
+    global dq_launches, dq_tf32_launches
     _check_cuda_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch("dq", q, k, (q, k, v, do, lse, delta, dq), scale, causal)
+    dq_tf32_launches += _launch("dq", q, k, (q, k, v, do, lse, delta, dq),
+                                scale, causal)
     dq_launches += 1
     return dq
 
@@ -289,11 +317,12 @@ def flash_dkdv(q, k, v, do, lse, delta, scale, causal):
     """(dk, dv) from the saved lse and delta."""
     if q.device.type == "cpu":
         return flash_dkdv_ref(q, k, v, do, lse, delta, scale, causal)
-    global dkdv_launches
+    global dkdv_launches, dkdv_tf32_launches
     _check_cuda_bwd(q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("dkdv", q, k, (q, k, v, do, lse, delta, dk, dv), scale, causal)
+    dkdv_tf32_launches += _launch(
+        "dkdv", q, k, (q, k, v, do, lse, delta, dk, dv), scale, causal)
     dkdv_launches += 1
     return dk, dv
 

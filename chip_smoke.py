@@ -31,8 +31,8 @@ the full width of the flagship LM with weights made from a seed:
   padded to 128) and 512 (the sliced tensor-core flash forward, dq and
   dk/dv), and at 512 in f32 (the 3xTF32 forward, dq and dk/dv); then
   ``-m transformer --dataType f32`` at the same geometry (the f32
-  fused-CE forward on the CUDA cores, dh and dW/db in 3xTF32 on the
-  tensor cores);
+  fused-CE forward, dh and dW/db and flash's dq and dk/dv in 3xTF32 on
+  the tensor cores, flash's forward on the CUDA cores);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
@@ -383,7 +383,7 @@ def _print_ptxas(report: str) -> None:
         st = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
                        r"_sliced_tc_kernelILi(\d+)E", line)
         tf = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv)"
-                       r"_sliced_tf32_kernelILi(\d+)E", line)
+                       r"_(sliced|rows)_tf32_kernelILi(\d+)E", line)
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         ft = re.search(r"entry function '\S*?fce_bwd_tf32_kernelILb([01])E",
                        line)
@@ -423,8 +423,8 @@ def _print_ptxas(report: str) -> None:
             name = (f"{st.group(1)}_sliced_tc bf16 (tensor cores, D past "
                     f"256) OWN={st.group(2)}")
         elif tf:
-            name = (f"{tf.group(1)}_sliced_tf32 f32 (3xTF32 on the tensor "
-                    f"cores, D past 256) OWN={tf.group(2)}")
+            name = (f"{tf.group(1)}_{tf.group(2)}_tf32 f32 (3xTF32 on the "
+                    f"tensor cores) OWN={tf.group(3)}")
         elif "tf32_split_kernel" in line:
             name = "tf32_split f32 (the 3xTF32 kernels' pass before)"
         elif t:
@@ -485,10 +485,13 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     instantiations of ``flash_fwd_sliced_tc_kernel``: slices of 3 and of
     4 chunks), the bf16 dq and dk/dv past D 256 (both instantiations of
     ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``),
-    the f32 (3xTF32) forward, dq and dk/dv past D 256 (every
-    instantiation of ``flash_fwd_sliced_tf32_kernel`` and
-    ``flash_dq_sliced_tf32_kernel``: warpgroup chunks 2, 3, 4, and of
-    ``flash_dkdv_sliced_tf32_kernel``: 3, 4), all three bf16 fused-CE
+    the f32 (3xTF32) forward past D 256 and dq and dk/dv at every head
+    dim (every instantiation of ``flash_fwd_sliced_tf32_kernel`` and
+    ``flash_dq_sliced_tf32_kernel``: warpgroup chunks 2, 3, 4, of
+    ``flash_dkdv_sliced_tf32_kernel``: 1, 2, 3, 4, the 1- and 2-chunk
+    ones for the head dims up to 128, and of
+    ``flash_dq_rows_tf32_kernel``: 1, 2, dq up to D 128), all three
+    bf16 fused-CE
     kernels, the f32 (3xTF32) fused-CE forward (``fce_fwd_tf32_kernel``)
     and dh and dW/db (``fce_bwd_tf32_kernel``) and the five paged prefill
     kernels (D 32, 64, 128, 192, 256) have ``HGMMA``."""
@@ -507,14 +510,14 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 ct = re.search(r"fce_bwd_tf32_kernelILb([01])E", line)
                 sl = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tc"
                                r"_kernelILi(\d+)E", line)
-                tf = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tf32"
-                               r"_kernelILi(\d+)E", line)
+                tf = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_(sliced|rows)"
+                               r"_tf32_kernelILi(\d+)E", line)
                 p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
                         f"{sl.group(1)}_sliced_tc bf16 OWN={sl.group(2)}"
                         if sl else
-                        f"{tf.group(1)}_sliced_tf32 f32 OWN={tf.group(2)}"
-                        if tf
+                        f"{tf.group(1)}_{tf.group(2)}_tf32 f32 "
+                        f"OWN={tf.group(3)}" if tf
                         else
                         f"paged_prefill_tc bf16 D={p.group(1)}" if p else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
@@ -550,8 +553,10 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                              f"{k}_sliced_tf32 f32 OWN={n}"
                              for k, owns in (("flash_fwd", (2, 3, 4)),
                                              ("flash_dq", (2, 3, 4)),
-                                             ("flash_dkdv", (3, 4)))
+                                             ("flash_dkdv", (1, 2, 3, 4)))
                              for n in owns) + tuple(
+                             f"flash_dq_rows_tf32 f32 OWN={n}"
+                             for n in (1, 2)) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
                              for d in (32, 64, 128, 192, 256))
              if not counts.get(k, {}).get("HGMMA")]
@@ -1635,6 +1640,10 @@ def _profile_decode(batcher, prompts, card):
     batcher.run_to_completion()
 
 
+#: the flash kernel of each count of half-products
+_FLASH_KERNELS = {2: "fwd", 3: "dq", 4: "dkdv"}
+
+
 def _flash_flops(b, s, h, d, half_products):
     """Operations of one flash kernel at (b, s, h, d), causal: 2·d per
     (q, k) pair of the causal half and per half-product."""
@@ -1676,15 +1685,16 @@ def _tf32_bound(b, s, h, d, half_products):
 
 def _flash_kernel_bound(fa, b, s, h, d, dtype, half_products):
     """(bound ms, bound_by, other fields) of the flash kernel of
-    ``half_products`` (2 forward, 3 dq, 4 dk/dv) on its route:
-    ``_flash_bound``, or for the 3xTF32 kernels (route "sliced_tf32", on
-    the tensor cores) ``_tf32_bound``, with the f32 CUDA-core bound beside
-    it as ``bound_f32_cuda_cores_ms``; the f32 CUDA-core kernels give the
-    3xTF32 bound beside theirs as ``bound_3xtf32_ms``, what a tensor-core
-    design could reach."""
-    route = fa.flash_route(dtype, d)
+    ``half_products`` (2 forward, 3 dq, 4 dk/dv) on its route
+    (``flash_route(dtype, d, kernel)``): ``_flash_bound``, or for the
+    3xTF32 kernels (``fa.TF32_ROUTES``, on the tensor cores)
+    ``_tf32_bound``, with the f32 CUDA-core bound beside it as
+    ``bound_f32_cuda_cores_ms``; the f32 CUDA-core forward gives the
+    3xTF32 bound beside its own as ``bound_3xtf32_ms``, what a
+    tensor-core design could reach."""
+    route = fa.flash_route(dtype, d, _FLASH_KERNELS[half_products])
     bound, by = _flash_bound(b, s, h, d, dtype, half_products)
-    if route != "sliced_tf32":
+    if route not in fa.TF32_ROUTES:
         return bound, by, (
             {"bound_3xtf32_ms": _tf32_bound(b, s, h, d, half_products)[0]}
             if dtype == torch.float32 else {})
@@ -1832,12 +1842,15 @@ def _flash_tails(fa, gen):
     cancels in the first row of each (b, h), and at D 512 with a ramp
     along the keys' positions (``ramp``), causal and not, so the
     forward's running max rises at every key tile and each tile rescales
-    o by α = exp(m_old - m_new) far from 1. Head dims 16, 80, 96 and 288,
-    both causal and not in each dtype, go through
-    ``flash_attention_with_lse`` and autograd, which run the kernels
-    zero-padded to 32, 128, 128 and 320 (``padded_head_dim``), held
-    against the plain versions at the true head dim. The f32 outputs
-    are held to the plain versions evaluated in float64
+    o by α = exp(m_old - m_new) far from 1. The f32 dq and dk/dv at head
+    dims 32, 64, 128, 192 and 256 (the 3xTF32 kernels: dq up to 128 in
+    CTAs of 128 rows, the others one slice of all of D) also at S 300,
+    causal and not, and at Sq 300 / Skv 136. Head
+    dims 16, 80, 96 and 288, both causal and not in each dtype, go
+    through ``flash_attention_with_lse`` and autograd, which run the
+    kernels zero-padded to 32, 128, 128 and 320 (``padded_head_dim``),
+    held against the plain versions at the true head dim. The f32
+    outputs are held to the plain versions evaluated in float64
     (``_flash_outputs``)."""
     def tail(b, sq, skv, h, d, causal, dtype, ramp=0.0):
         q, do = (torch.randn((b, sq, h, d), generator=gen).to(dtype)
@@ -1910,6 +1923,14 @@ def _flash_tails(fa, gen):
             # f32, ragged and Sq != Skv, not causal
             *((1, 300, 136, 2, d_, False, torch.float32)
               for d_ in (320, 512)),
+            # the f32 3xTF32 dq and dk/dv at the head dims up to 256 (dq
+            # up to 128 in 128-row CTAs: three, the last ragged; the
+            # others one slice of all of D, at D 32 half a chunk): S 300,
+            # causal and not, and Sq 300 / Skv 136, not causal
+            *((b_, 300, skv_, 2, d_, c_, torch.float32)
+              for d_ in (32, 64, 128, 192, 256)
+              for b_, skv_, c_ in ((2, 300, True), (2, 300, False),
+                                   (1, 136, False))),
             # f32 3xTF32 dq and dk/dv at the widest head dim, causal,
             # over 2048 rows: row 0 of each (b, h) sees key 0 alone, so
             # dS = P∘(dP - delta) cancels there and dP's own error shows
@@ -1950,10 +1971,13 @@ def _sdpa_ms(qt, kt, vt, dot):
 
 def _flash_timed(fa, gen, b, s, h, d):
     """The three flash kernels vs their plain versions at (b, s, h, d),
-    causal, bf16 (tensor cores) and f32 (CUDA cores; past D 256 in
-    3xTF32 on the tensor cores), each timed beside its bound
-    (``_flash_kernel_bound``), its plain version and SDPA; rows by
-    (kernel, dtype). At a
+    causal, bf16 (tensor cores) and f32 (dq and dk/dv in 3xTF32 on the
+    tensor cores; the forward on the CUDA cores up to D 256, in 3xTF32
+    past it), each timed beside its bound (``_flash_kernel_bound``: the
+    3xTF32 one with the CUDA-core one beside it, or the reverse), its
+    plain version and SDPA, with the memory it allocates (``_peak_mib``:
+    outputs, and the 3xTF32 kernels' workspace), each row naming its
+    route (``kernel``); rows by (kernel, dtype). At a
     head dim the kernels run zero-padded, the errors are those of
     ``flash_attention_with_lse`` and autograd against the plain versions
     at the true head dim (``_flash_outputs``), and the kernels are
@@ -2005,11 +2029,12 @@ def _flash_timed(fa, gen, b, s, h, d):
             bound, by, more = _flash_kernel_bound(fa, b, s, h, d, dtype,
                                                   halves)
             ms = _time_ms(kern)
-            row = dict(kernel=fa.flash_route(dtype, d),
+            row = dict(kernel=fa.flash_route(dtype, d, kname[6:]),
                        max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
                        bound_ms=bound, bound_by=by, library_ms=lib,
                        tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
-                       share_of_bound=bound / ms, **more)
+                       share_of_bound=bound / ms, peak_mib=_peak_mib(kern),
+                       **more)
             if refused:
                 row["library"] = refused
             if width != d:
@@ -2081,7 +2106,7 @@ def _flash_main_shape(fa, gen):
                                                   halves)
             ms = _time_ms(kern)
             row = dict(
-                kernel=fa.flash_route(dtype, d),
+                kernel=fa.flash_route(dtype, d, kname[6:]),
                 max_abs_err=err, ms=ms, plain_ms=_time_ms(plain),
                 bound_ms=bound, bound_by=by, library_ms=lib,
                 tflops=_flash_flops(b, s, h, d, halves) / ms / 1e9,
@@ -2127,12 +2152,13 @@ def phase_flash(fa, gen):
     and in bf16 at ``_FLASH_NARROW``, then timed at the training shapes
     (B4 S2048 H8 D128, causal), at head dim 256 (B4 S2048 H4 D256) and at
     512 (B2 S2048 H2, the D-sliced kernels), bf16 (tensor cores) and f32
-    (CUDA cores, but the 3xTF32 kernels past D 256); SDPA as the
-    library yardstick. Each row also gives the kernel's rate over the
-    causal half's operations and its share of the bound (bound_ms / ms).
-    Rows by (kernel, dtype, head dim); under "main_shape" the kernels
-    past D 256, both dtypes, held and timed at ``-m attention``'s B4
-    S4096 H2 D512 as well (at B2 S2048 the
+    (``_flash_timed``'s routes); SDPA as the library yardstick. Each row
+    also gives the kernel's rate over the causal half's operations and
+    its share of the bound (bound_ms / ms). Rows by (kernel, dtype, head
+    dim), each naming its route (in f32 dq and dk/dv in 3xTF32 at every
+    head dim, the forward on the CUDA cores up to D 256); under
+    "main_shape" the kernels past D 256, both dtypes, held and timed at
+    ``-m attention``'s B4 S4096 H2 D512 as well (at B2 S2048 the
     forward's and dq's causal grids fit one wave of SMs and pair their
     query tiles; at B4 S4096 they do not). Then at the padded head dims of
     ``_FLASH_PADDED``: the kernels on zero-padded operands, the rest at
@@ -2523,7 +2549,8 @@ def phase_fused_ce(fce, gen):
     (``workspace_mib``) and the most the call holds beyond its inputs
     (``peak_mib``); the f32 forward's nll and lse are held to the
     function in float64 as well (``nll_f64``, ``lse_f64``: worst error /
-    limit)."""
+    limit). Last, the bf16 dh and dW/db past D 1024 at N 8192, V 32768,
+    D 2048 (``_fce_wide_bwd``)."""
     import torch.nn.functional as F
     sms = torch.cuda.get_device_properties(_DEV).multi_processor_count
     rows = {}
@@ -2585,6 +2612,59 @@ def phase_fused_ce(fce, gen):
             del h, w, b, t, g, rlse
             torch.cuda.empty_cache()
     rows["padded"] = _fce_padded(fce, gen)
+    rows.update(_fce_wide_bwd(fce, gen))
+    return rows
+
+
+#: the bf16 fused-CE backward past the cluster kernels' D 1024, timed at
+#: the harness head's rows and vocabulary: (label, N, V, D)
+_FCE_WIDE_BWD = ("wide_bwd", 8192, 32768, 2048)
+
+
+def _fce_wide_bwd(fce, gen):
+    """The bf16 dh and dW/db past D 1024 (route "cuda_cores",
+    ``fce_bwd_kernel<bf16>``, which no main path runs) at
+    ``_FCE_WIDE_BWD``: each held against its plain version (from the
+    plain forward's lse) within ``_FCE_TOL`` and timed beside its bound,
+    its plain version and the library composition's whole backward
+    (``_fce_library_ms``). Returns the rows by (kernel name, "d2048")."""
+    case, n, v, d = _FCE_WIDE_BWD
+    dtype = torch.bfloat16
+    h, w, b, t, g = _fce_inputs(n, v, d, dtype, gen, False)
+    _, rlse = fce.fused_ce_fwd_ref(h, w, b, t)
+    _, lib_bwd = _fce_library_ms(h, w, b, t)
+    tol = _FCE_TOL[dtype]
+    kernels = {
+        "dh": (lambda: fce.fused_ce_dh(h, w, b, t, rlse, g),
+               lambda: fce.fused_ce_dh_ref(h, w, b, t, rlse, g)),
+        "dw": (lambda: fce.fused_ce_dw(h, w, b, t, rlse, g),
+               lambda: fce.fused_ce_dw_ref(h, w, b, t, rlse, g)),
+    }
+    rows = {}
+    for kname, (kern, plain) in kernels.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got, want = ((got,), (want,)) if kname == "dh" else (got, want)
+        errs = [_worst(x, y, *(tol if i == 0 else _FCE_DB_TOL))
+                for i, (x, y) in enumerate(zip(got, want))]
+        if not all(torch.isfinite(x).all() and e[1] <= 1
+                   for x, e in zip(got, errs)):
+            raise AssertionError(f"fused_ce_{kname}[{case} bf16] N={n} V={v} "
+                                 f"D={d}: max abs err / limit {errs}")
+        del got, want
+        bound, by, extra = _fce_kernel_bound(fce, n, v, d, dtype, kname)
+        row = dict(route=fce.kernel_route(dtype, d, kname),
+                   max_abs_err=max(e[0] for e in errs),
+                   worst_err_over_limit=max(e[1] for e in errs),
+                   ms=_time_ms(kern), plain_ms=_time_ms(plain),
+                   bound_ms=bound, bound_by=by, library_ms=lib_bwd, **extra)
+        row["share_of_bound"] = bound / row["ms"]
+        rows[(f"fused_ce_{kname}", "d2048")] = row
+        print(f"[kernels] fused_ce_{kname}[{case} bf16] N={n} V={v} D={d} "
+              f"(library_ms: the whole backward) " + json.dumps(row),
+              flush=True)
+    del h, w, b, t, g, rlse, kernels
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2713,23 +2793,30 @@ def _perf_fused(fce, card):
 def _perf_f32(fce, fa, card):
     """The transformer step in f32 (``--dataType f32``) at ``_PERF``'s
     geometry, 1 warm-up and 3 timed steps: the 3xTF32 fused-CE forward,
-    dh and dW/db and the f32 flash kernels at head dim 128 (CUDA cores),
-    the counters set to 0 just before and read just after (4 launches of
-    each fused-CE kernel, all on the route "tf32"; 12 layers x 4 steps =
-    48 of each flash kernel), the first loss within 0.5 of ln V; then a
-    profile of the f32 step by kernel kind (``_profile_steps``). Returns
-    the fused-CE and the flash launches."""
+    dh and dW/db and the f32 flash kernels at head dim 128 (dq and dk/dv
+    in 3xTF32, the forward on the CUDA cores), the counters set to 0
+    just before and read just after (4 launches of each fused-CE kernel,
+    all on the route "tf32"; 12 layers x 4 steps = 48 of each flash
+    kernel, dq's and dk/dv's all on 3xTF32 routes, "rows_tf32" and
+    "sliced_tf32", the forward's none), the first loss within 0.5 of ln
+    V; then a profile
+    of the f32 step by kernel kind (``_profile_steps``). Returns the
+    fused-CE and the flash launches."""
     from bigdl_tpu_torch.models.utils import perf
     from bigdl_tpu_torch.optim import SGD
     fce.fwd_launches = fce.dh_launches = fce.dw_launches = 0
     fce.fwd_tf32_launches = fce.dh_tf32_launches = fce.dw_tf32_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkdv_launches = 0
+    fa.fwd_tf32_launches = fa.dq_tf32_launches = fa.dkdv_tf32_launches = 0
     out = perf.main(_perf_args(warm_up=1, iterations=3)
                     + ["--dataType", "f32"])
     launches = {"fwd": fce.fwd_tf32_launches, "dh": fce.dh_tf32_launches,
                 "dw": fce.dw_tf32_launches}
     flash = {"fwd": fa.fwd_launches, "dq": fa.dq_launches,
              "dkdv": fa.dkdv_launches}
+    flash_tf32 = {"fwd": fa.fwd_tf32_launches, "dq": fa.dq_tf32_launches,
+                  "dkdv": fa.dkdv_tf32_launches}
+    flash_routes = {k: fa.flash_route(torch.float32, 128, k) for k in flash}
     if (not out["fused"] or launches != dict.fromkeys(launches, 4)
             or (fce.fwd_launches, fce.dh_launches, fce.dw_launches)
             != (4, 4, 4)):
@@ -2738,9 +2825,13 @@ def _perf_f32(fce, fa, card):
                              f"{fce.dh_launches}, {fce.dw_launches}), "
                              f"expected 4 of each on the f32 route "
                              f"(fused={out['fused']})")
-    if flash != dict.fromkeys(flash, _PERF["layers"] * 4):
-        raise AssertionError(f"f32 step flash launches {flash}, expected "
-                             f"{_PERF['layers'] * 4} of each")
+    n = _PERF["layers"] * 4
+    if (flash != dict.fromkeys(flash, n)
+            or flash_tf32 != {"fwd": 0, "dq": n, "dkdv": n}):
+        raise AssertionError(f"f32 step flash launches {flash} (on 3xTF32 "
+                             f"routes: {flash_tf32}), expected {n} of "
+                             f"each, dq's and dk/dv's all on those "
+                             f"routes, the forward's none")
     first, final = out["first_loss"], out["final_loss"]
     if not (math.isfinite(first) and math.isfinite(final)
             and abs(first - math.log(_PERF["vocab"])) <= 0.5):
@@ -2754,9 +2845,9 @@ def _perf_f32(fce, fa, card):
           + " f32, fused head+CE (on the route "
           + f"{fce.kernel_route(torch.float32, _PERF['d_model'], 'fwd')!r}): "
           + json.dumps(numbers) + f" fused_ce_launches={launches} "
-          f"flash_launches={flash} (head dim 128, the harness's "
-          f"d_model / 128 heads: route "
-          f"{fa.flash_route(torch.float32, 128)!r})", flush=True)
+          f"flash_launches={flash} (on 3xTF32 routes: {flash_tf32}; "
+          f"head dim 128, the harness's d_model / 128 heads: routes "
+          f"{json.dumps(flash_routes)})", flush=True)
     sgd = SGD(learning_rate=0.01)
     model = out["model"]
     _profile_steps(perf.make_step(model, sgd, True),
@@ -3269,6 +3360,7 @@ def main(argv=None) -> int:
                 torch.bfloat16, d) == "sliced_tc" else name)
             kernels.append({
                 "name": kname + suffix, "route": "cuda",
+                "kernel_route": row["kernel"],
                 "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
                 "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:"
                             f"{line}",
@@ -3285,35 +3377,52 @@ def main(argv=None) -> int:
         row = flash_rows["main_shape"][(name, torch.float32)]
         kernels.append({
             "name": f"{name}_{row['kernel']}_d512", "route": "cuda",
+            "kernel_route": row["kernel"],
             "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": counts[count], **{k: row[k] for k in keys},
             **({"bound_f32_cuda_cores_ms": row["bound_f32_cuda_cores_ms"]}
                if "bound_f32_cuda_cores_ms" in row else {})})
-    # the f32 rows at head dim 128 (the CUDA-core kernels), timed at B4
-    # S2048 H8, their launches those of [perf]'s f32 transformer step
-    # (the 3xTF32 bound beside theirs)
+    # the f32 rows at head dim 128, timed at B4 S2048 H8, their launches
+    # those of [perf]'s f32 transformer step: the CUDA-core forward (the
+    # 3xTF32 bound beside its own), the 3xTF32 dq and dk/dv (bound_ms
+    # theirs on the tensor cores, the f32 CUDA-core one beside it), with
+    # the memory each call allocates
     counts = perf_flash[(128, "f32 step")]
     for name, line, count in (("flash_fwd", 190, "fwd"),
                               ("flash_dq", 306, "dq"),
                               ("flash_dkdv", 322, "dkdv")):
         row = flash_rows[(name, torch.float32, 128)]
         kernels.append({
-            "name": f"{name}_f32", "route": "cuda",
+            "name": (f"{name}_f32" if row["kernel"] == "cuda_cores"
+                     else f"{name}_{row['kernel']}"),
+            "route": "cuda", "kernel_route": row["kernel"],
             "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": counts[count], **{k: row[k] for k in keys},
-            "bound_3xtf32_ms": row["bound_3xtf32_ms"]})
+            **{k: row[k] for k in ("bound_3xtf32_ms",
+                                   "bound_f32_cuda_cores_ms", "peak_mib")
+               if k in row}})
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):
         row = fce_rows[(name, torch.bfloat16)]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "kernel_route": row["route"],
             "source": "bigdl_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fce_launches[count],
             **{k: row[k] for k in keys}})
+    # the bf16 dh and dW/db past D 1024 (the CUDA-core backward), timed at
+    # N 8192 V 32768 D 2048; no main path runs them
+    for name, line in (("fused_ce_dh", 214), ("fused_ce_dw", 230)):
+        row = fce_rows[(name, "d2048")]
+        kernels.append({
+            "name": f"{name}_d2048", "route": "cuda",
+            "kernel_route": row["route"],
+            "source": "bigdl_tpu_torch/csrc/fused_ce.cu",
+            "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
+            "launches": 0, **{k: row[k] for k in keys}})
     # the f32 rows at the harness head (N 8192, V 32768, D 1024), their
     # launches those of [perf]'s f32 transformer step: the forward, dh and
     # dW/db in 3xTF32 (bound_ms theirs on the tensor cores, the f32
@@ -3324,7 +3433,7 @@ def main(argv=None) -> int:
         row = fce_rows[(name, torch.float32)]
         kernels.append({
             "name": f"{name}_{row['route']}",
-            "route": "cuda",
+            "route": "cuda", "kernel_route": row["route"],
             "source": "bigdl_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fce_f32_launches[count],

@@ -8,9 +8,11 @@ this checkout's headers) into a temporary directory and runs each
 version's forward, dq and dk/dv at the ``[train]`` shapes B4 S2048 with
 H·D = 1024 (H8 at D 128; ``--heads`` fixes H instead, as the wide head
 dims need: ``--dims 320 512 576 1024 --batch 2 --heads 2``), causal, in
-bf16 (tensor cores) and f32 (CUDA cores up to D 256; past it the 3xTF32
-forward, dq and dk/dv, whose workspace pointer comes last, so another
-version's entry that takes none ignores it). For each head dim and dtype
+bf16 (tensor cores) and f32 (the forward on the CUDA cores up to D 256;
+dq and dk/dv at every D and the forward past 256 in 3xTF32, given a
+workspace by this checkout's ``flash_route`` as the last pointer, so
+another version's entry that takes none, or routes the call to a kernel
+that needs none, ignores it). For each head dim and dtype
 it
 prints whether the two versions' outputs are bit-equal (the kernels use
 no atomics, so unchanged code gives equal bits) and each version's worst
@@ -138,9 +140,10 @@ def _ab(fns, gen, b, s, d, dtype, card, h, worst_n):
                         worst_n, f"B={b} S={s} H={h} D={d}")
     each = {what: torch.equal(x, y) for what, x, y in
             zip(("o", "lse", "dq", "dk", "dv"), *outs.values())}
+    routes = {k: fa.flash_route(dtype, d, k) for k in ("fwd", "dq", "dkdv")}
     print(f"[ab] check B={b} S={s} H={h} D={d} {name}: bit_equal="
           f"{all(each.values())} by output {json.dumps(each)} this "
-          f"checkout's route {fa.flash_route(dtype, d)} worst error / limit "
+          f"checkout's routes {json.dumps(routes)} worst error / limit "
           + json.dumps(worst), flush=True)
     calls = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True),

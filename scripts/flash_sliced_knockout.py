@@ -27,9 +27,16 @@ dq and dk/dv, which share those steps); dP on each row group's grid; the
 walked operands split inside the kernel (no split pass, no workspace);
 the slice widths of the forward and dq (one choice for both) and of
 dk/dv; and the forward's score product formed by one warpgroup alone
-(not half of it by each). The variants that show the error a choice
-keeps off are held to nothing. The f32 outputs are held to the plain
-versions evaluated in float64 (``chip_smoke._flash_fwd_refs``,
+(not half of it by each). ``--only tf32_narrow`` runs
+``TF32_NARROW_VARIANTS`` in f32 at ``TF32_NARROW_SHAPES`` (B4 S2048 with
+H·D = 1024 at D 128, 64 and 32, the f32 training step's width and the
+narrower ones): dq at D <= 128 on the sliced kernel with its P/dS
+hand-off (64 rows a CTA), not the 128-row one; and dk/dv at D <= 128 in
+128-key CTAs whose warpgroups each form Sᵀ and dPᵀ of their own keys
+and accumulate both dv and dk (no Pᵀ hand-off). The variants that show
+the error a choice keeps off are held to nothing. The f32 outputs are
+held to the plain versions evaluated in float64
+(``chip_smoke._flash_fwd_refs``,
 ``_flash_bwd_refs``). One line per shape, version and kernel with both
 readings, their mean and the ratio of means to this checkout's kernel;
 last, the card's name and power limit. ``--only fwd`` or ``--only bwd``
@@ -38,8 +45,8 @@ replacement's text is not in the source (the line says which; an edit
 of those lines must update it) or if any output of a variant held to
 the limits is non-finite or past them, after every reading.
 
-    python3 scripts/flash_sliced_knockout.py [--only fwd|bwd|tf32]
-        [--seed N]
+    python3 scripts/flash_sliced_knockout.py
+        [--only fwd|bwd|tf32|tf32_narrow] [--seed N]
 """
 from __future__ import annotations
 
@@ -424,9 +431,10 @@ TF32_VARIANTS = {
     "dkdv_own3": (
         ("dkdv",),
         "dk/dv: slices of 3 chunks (3 + 3 + 2 at D 512)",
-        [("  return sl_own(D / 64) == 3\n             ? "
-          "dkdv_sliced_tf32_own<3>(",
-          "  return true\n             ? dkdv_sliced_tf32_own<3>(")]),
+        [("  switch (sl_own(chunks(D))) {\n    case 1:\n"
+          "      return dkdv_sliced_tf32_own<1>(",
+          "  switch (3) {\n    case 1:\n"
+          "      return dkdv_sliced_tf32_own<1>(")]),
     "fwd_whole_s": (
         ("fwd",),
         "the forward: warpgroup 0 forms all of S (D / 32 score steps a "
@@ -450,6 +458,244 @@ TF32_VARIANTS = {
 TF32_SHAPES = ((2, 2048, 2, 512), (4, 4096, 2, 512), (2, 2048, 2, 1024),
                (2, 2048, 4, 1024))
 
+# dkdv_rows's kernel and launcher: a CTA of 128 keys, each consumer
+# warpgroup forming Sᵀ and dPᵀ of its own 64, Pᵀ's and dSᵀ's parts in
+# tiles of its own, and both dv and dk of its keys; a stage holds both
+# warpgroups' A boxes (K, or V) and the walked tile's B parts (Q's, or
+# dO's), an output step the tile's dO and Q columns of a chunk
+_DKDV_ROWS = """\
+template <int NC>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_dkdv_rows_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                            const __grid_constant__ CUtensorMap km,
+                            const __grid_constant__ CUtensorMap vm,
+                            const __grid_constant__ CUtensorMap dom,
+                            const __grid_constant__ CUtensorMap qhm,
+                            const __grid_constant__ CUtensorMap qlm,
+                            const __grid_constant__ CUtensorMap dohm,
+                            const __grid_constant__ CUtensorMap dolm,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int Sq, int Skv, int D, int ns,
+                            float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 32, halves = D % 64 ? 1 : 2;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xb = base + ns * kRowsStage;   // Pᵀ, dSᵀ parts, a set each
+  const uint32_t stats = xb + 16 * kTfBox;     // lse, then delta: f32 [64]
+  TfRing ring{base, stats + kStatBytes, ns};
+  const uint32_t sfull = ring.bars + 16 * kTfMaxStages, sempty = sfull + 8;
+  auto at = [&] { return base + ring.st * kRowsStage; };
+  const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
+  const int k0 = 128 * blockIdx.y;          // the lowest, heaviest, first
+  const int nq = (Sq + 63) / 64;
+  const int qt0 = causal ? min(k0 / 64, nq) : 0;
+  tf_init(ring.bars, ns);
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kSlConsumers) {
+      int t = 0;
+      for (int qt = qt0; qt < nq; ++qt) {
+        const int q0 = 64 * qt;
+        for (int j = 0; j < 2 * nc; ++j, ++t, ring.next()) {
+          const bool dp = j >= nc;
+          const int c = 32 * (j % nc);
+          ring.acquire(t, kRowsStage);
+          const uint32_t dst = at();
+          tma_load(dst, dp ? &vm : &km, ring.full(), c, h, k0, b);
+          tma_load(dst + kTfBox, dp ? &vm : &km, ring.full(), c, h, k0 + 64,
+                   b);
+          tma_load(dst + 2 * kTfBox, dp ? &dohm : &qhm, ring.full(), c, h,
+                   q0, b);
+          tma_load(dst + 3 * kTfBox, dp ? &dolm : &qlm, ring.full(), c, h,
+                   q0, b);
+        }
+        for (int p = 0; p < NC; ++p, ++t, ring.next()) {
+          ring.acquire(t, 2 * halves * kTfBox);
+          for (int e = 0; e < halves; ++e) {
+            tma_load(at() + e * kTfBox, &dom, ring.full(), 64 * p + 32 * e,
+                     h, q0, b);
+            tma_load(at() + (2 + e) * kTfBox, &qm, ring.full(),
+                     64 * p + 32 * e, h, q0, b);
+          }
+        }
+      }
+    } else if (tid / 32 == kSlConsumers / 32 + 1) {
+      const int ln = tid % 32;
+      const float* const lse_bh = lse + static_cast<int64_t>(b) * Sq * H + h;
+      const float* const delta_bh =
+          delta + static_cast<int64_t>(b) * Sq * H + h;
+      for (int qt = qt0; qt < nq; ++qt) {
+        if (qt > qt0) bar_wait(sempty, (qt - qt0 - 1) & 1);
+        for (int i = 64 * qt + ln; i < 64 * qt + 64; i += 32) {
+          const uint32_t a = stats + 4 * (i - 64 * qt);
+          st_shared(a, i < Sq ? lse_bh[static_cast<int64_t>(i) * H] : 0.f);
+          st_shared(a + 4 * 64,
+                    i < Sq ? delta_bh[static_cast<int64_t>(i) * H] : 0.f);
+        }
+        __threadfence_block();
+        __syncwarp();
+        if (ln == 0) bar_arrive(sfull);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  const int l = tid % 32;
+  const int krow = 16 * ((tid / 32) % 4) + l / 4;     // of the 64 keys
+  auto consume = [&](auto role) {
+    constexpr int G = decltype(role)::kDk ? 1 : 0;
+    const int kg = k0 + 64 * G;            // this warpgroup's keys
+    const uint32_t pp = xb + 8 * G * kTfBox, dsp = pp + 4 * kTfBox;
+    // query tiles wholly before its keys (causal) pass without products
+    const int first = causal ? kg / 64 : 0;
+    float adv[NC][32], adk[NC][32], s[32];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      zero(adv[j]);
+      zero(adk[j]);
+    }
+    zero(s);
+    int sph = 0;
+    for (int qt = qt0; qt < nq; ++qt) {
+      const bool live = qt >= first;
+      const int q0 = 64 * qt;
+      for (int c = 0; c < nc; ++c) {       // Sᵀ = K·Qᵀ
+        ring.wait();
+        const uint32_t st = at();
+        if (live)
+          tf_score_step(s, st + G * kTfBox, st + 2 * kTfBox, st + 3 * kTfBox,
+                        c == 0);
+        ring.release();
+      }
+      warp_wait(sfull, sph);               // the tile's lse and delta
+      sph ^= 1;
+      if (live) {
+        const bool edge = (causal && kg + 63 > q0) || q0 + 64 > Sq;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qpos = q0 + acc_col(i, l), kpos = kg + krow + acc_row(i);
+          float x = s[i] * scale;
+          if (edge)
+            x = qpos >= Sq ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+          s[i] = expf(x - ld_shared(stats + 4 * acc_col(i, l)));
+        }
+        tf_put(pp, pp + 2 * kTfBox, s);
+      }
+      for (int c = 0; c < nc; ++c) {       // dPᵀ = V·dOᵀ
+        ring.wait();
+        const uint32_t st = at();
+        if (live)
+          tf_score_step(s, st + G * kTfBox, st + 2 * kTfBox, st + 3 * kTfBox,
+                        c == 0);
+        ring.release();
+      }
+      if (live) {
+        float p[32];
+        tf_get(p, pp, pp + 2 * kTfBox);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = p[i] *
+                 (s[i] - ld_shared(stats + 4 * (64 + acc_col(i, l)))) *
+                 scale;
+        tf_put(dsp, dsp + 2 * kTfBox, s);
+        fence_proxy_async();
+        named_sync(1 + G, 128);
+      }
+      __syncwarp();
+      if (l == 0) bar_arrive(sempty);      // lse and delta read
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {       // dvᵀ += dOᵀ·P, dkᵀ += Qᵀ·dS
+        ring.wait();
+        if (live) {
+          tf_out_step(adv[j], at(), pp, pp + 2 * kTfBox, 32 * halves);
+          tf_out_step(adk[j], at() + 2 * kTfBox, dsp, dsp + 2 * kTfBox,
+                      32 * halves);
+        }
+        ring.release();
+      }
+    }
+    tf_store<NC>(dv, adv, NC, b, h, kg, 0, Skv, H, D);
+    tf_store<NC>(dk, adk, NC, b, h, kg, 0, Skv, H, D);
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Role<false>{});
+  else
+    consume(Role<true>{});
+}
+
+template <int NC>
+int dkdv_rows_tf32(int D, const CUtensorMap (&m)[4],
+                   const CUtensorMap (&p)[4], const float* lse,
+                   const float* delta, void* dk, void* dv, int B, int H,
+                   int Sq, int Skv, float scale, int causal,
+                   cudaStream_t st) {
+  const int ns = min(kTfMaxStages,
+                     static_cast<int>((kSmemMax - 1024 - 16 * kTfBox -
+                                       kStatBytes -
+                                       8 * (2 * kTfMaxStages + 2)) /
+                                      kRowsStage));
+  const size_t smem = 1024 + ns * kRowsStage + 16 * kTfBox + kStatBytes +
+                      8 * (2 * kTfMaxStages + 2);
+  auto kernel = flash_dkdv_rows_tf32_kernel<NC>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Skv + 127) / 128);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      m[0], m[1], m[2], m[3], p[0], p[1], p[2], p[3], lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Skv, D, ns,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+"""
+
+#: the f32 dq and dk/dv at head dims up to 128 (``--only tf32_narrow``),
+#: as ``TF32_VARIANTS``: the 128-row dq undone (the P/dS hand-off back),
+#: and dk/dv in 128-key CTAs without its Pᵀ hand-off
+TF32_NARROW_VARIANTS = {
+    "dq_handoff": (
+        ("dq",),
+        "dq at D <= 128 on the sliced kernel of D 192 and 256 (64 query "
+        "rows a CTA, warpgroup 0 forming S and P, warpgroup 1 dP and dS, "
+        "P and dS handed between them through shared memory; the walked K "
+        "and V parts loaded once a 64 rows), not the 128-row kernel",
+        [("  if (D <= 64)\n    return dq_rows_tf32<1>(D, m, p, lse, delta, "
+          "dq_out, B, H, Sq, Skv, scale,\n                           causal, "
+          "st);\n  if (D <= 128)\n    return dq_rows_tf32<2>(D, m, p, lse, "
+          "delta, dq_out, B, H, Sq, Skv, scale,\n                           "
+          "causal, st);\n", ""),
+         ("  switch ((own + 1) / 2) {\n    case 2:\n      return "
+          "dq_sliced_tf32_own<2>(",
+          "  switch ((own + 1) / 2) {\n    case 1:\n      return "
+          "dq_sliced_tf32_own<1>(D, own, m, p, lse, delta, dq_out, B, H, "
+          "Sq, Skv, scale, causal, st);\n    case 2:\n      return "
+          "dq_sliced_tf32_own<2>(")]),
+    "dkdv_rows": (
+        ("dkdv",),
+        "dk/dv at D <= 128: CTAs of 128 keys, each warpgroup forming Sᵀ "
+        "and dPᵀ of its own 64 and accumulating both dv and dk of them "
+        "(no Pᵀ hand-off; the walked Q and dO parts loaded once a 128 "
+        "keys)",
+        [("// dk and dv: CTA = 64 keys of one (b, h), the heaviest (lowest) "
+          "tiles\n",
+          _DKDV_ROWS + "// dk and dv: CTA = 64 keys of one (b, h), the "
+          "heaviest (lowest) tiles\n"),
+         ("  if (int e = tf_split(p, q, dout, work, B, Sq, H, D, st)) "
+          "return e;\n",
+          "  if (int e = tf_split(p, q, dout, work, B, Sq, H, D, st)) "
+          "return e;\n"
+          "  if (D <= 64)\n    return dkdv_rows_tf32<1>(D, m, p, lse, "
+          "delta, dk, dv, B, H, Sq, Skv, scale, causal, st);\n"
+          "  if (D <= 128)\n    return dkdv_rows_tf32<2>(D, m, p, lse, "
+          "delta, dk, dv, B, H, Sq, Skv, scale, causal, st);\n")]),
+}
+TF32_NARROW_SHAPES = ((4, 2048, 8, 128), (4, 2048, 16, 64),
+                      (4, 2048, 32, 32))
+
 
 def _variant_sources(text: str, variants: dict) -> tuple[dict, list]:
     """This checkout's source and each variant's; the replacements whose
@@ -467,17 +713,19 @@ def _variant_sources(text: str, variants: dict) -> tuple[dict, list]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("fwd", "bwd", "tf32"),
+    ap.add_argument("--only", choices=("fwd", "bwd", "tf32", "tf32_narrow"),
                     help="the bf16 forward's variants, the bf16 "
-                    "backward's, or the f32 3xTF32 backward's")
+                    "backward's, the f32 3xTF32 kernels' past D 256, or "
+                    "the f32 3xTF32 dq's and dk/dv's up to D 128")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_sliced_knockout: CUDA is not available",
               file=sys.stderr)
         return 2
-    tf32 = args.only == "tf32"
-    chosen_variants = TF32_VARIANTS if tf32 else {
+    tf32 = args.only in ("tf32", "tf32_narrow")
+    chosen_variants = (TF32_NARROW_VARIANTS if args.only == "tf32_narrow"
+                       else TF32_VARIANTS) if tf32 else {
         name: v for name, v in VARIANTS.items()
         if args.only is None or (v[0] == ("fwd",)) == (args.only == "fwd")}
     # the 3xTF32 steps live in tf32.cuh: every version builds with it
@@ -507,7 +755,8 @@ def main(argv=None) -> int:
                 sources.items())))
         chip_smoke._warm_card()
         try:
-            for shape in TF32_SHAPES if tf32 else SHAPES:
+            for shape in (TF32_NARROW_SHAPES if args.only == "tf32_narrow"
+                          else TF32_SHAPES if tf32 else SHAPES):
                 past += _shape(fns, kernels, gen, *shape, card,
                                torch.float32 if tf32 else torch.bfloat16,
                                unheld)

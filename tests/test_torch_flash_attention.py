@@ -303,36 +303,55 @@ def _function_body(src, head):
     return body[:body.index("\n}\n")]
 
 
+#: the instantiations each f32 backward launcher must call for the head
+#: dims up to 256, one slice of all of D: chunks(D) = 1, 1, 2, 3, 4 at D
+#: 32, 64, 128, 192, 256. dq up to 128 runs the 128-row kernel of
+#: chunks(D) (route "rows_tf32"), at 192 and 256 the sliced one whose
+#: warpgroup 0 takes ceil(chunks / 2); dk/dv's warpgroups take all of them
+_NARROW_F32_CALLS = {"dq": ("dq_rows_tf32<1>(", "dq_rows_tf32<2>(",
+                            "dq_sliced_tf32_own<2>("),
+                     "dkdv": tuple(f"dkdv_sliced_tf32_own<{n}>("
+                                   for n in (1, 2, 3, 4))}
+
+
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
 def test_flash_route_matches_the_c_dispatch(kernel):
-    """``flash_route`` against ``BIGDL_FLASH_DISPATCH`` and its use in
-    the C entry of ``kernel`` in csrc/flash_attention.cu, for every head
-    dim up to 4096 (each at the route of ``padded_head_dim``) and each
-    dtype: the head dims with kernels of their own (``tc::`` for bf16,
-    the CUDA-core templates for f32), and past 256 the entry's own
-    choices — bf16: ``tc::fwd_sliced``, ``tc::dq_sliced`` and
-    ``tc::dkdv_sliced``, whose launchers launch
-    ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (route "sliced_tc"); f32:
-    ``tc::fwd_sliced_tf32``, ``tc::dq_sliced_tf32`` and
+    """``flash_route(dtype, d, kernel)`` against ``BIGDL_FLASH_DISPATCH``
+    and its use in the C entry of ``kernel`` in csrc/flash_attention.cu,
+    for every head dim up to 4096 (each at the route of
+    ``padded_head_dim``) and each dtype. bf16: the head dims with kernels
+    of their own run ``tc::`` (route "tc"); past 256 ``tc::fwd_sliced``,
+    ``tc::dq_sliced`` and ``tc::dkdv_sliced``, whose launchers launch
+    ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (route "sliced_tc"). f32:
+    past 256 ``tc::fwd_sliced_tf32``, ``tc::dq_sliced_tf32`` and
     ``tc::dkdv_sliced_tf32`` (through the entry's ``wide_f32``), whose
     launchers launch ``flash_{fwd,dq,dkdv}_sliced_tf32_kernel`` (3xTF32
-    on the tensor cores, route "sliced_tf32"). The route is the same for
-    the three entries."""
+    on the tensor cores, route "sliced_tf32"); at the head dims up to
+    256 the forward's ``cuda_cores`` (the CUDA-core
+    ``flash_fwd_kernel<float, D>``, route "cuda_cores") and dq's and
+    dk/dv's ``wide_f32`` (3xTF32, their launchers calling every
+    instantiation those head dims need: dq up to 128
+    ``flash_dq_rows_tf32_kernel``, route "rows_tf32", then the sliced
+    kernel, route "sliced_tf32"; dk/dv the sliced kernel). The CUDA-core
+    dq and dk/dv kernels are gone."""
     src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
            / "flash_attention.cu").read_text()
     macro = src[src.index(
-        "#define BIGDL_FLASH_DISPATCH(FN, WIDE_F32, WIDE_BF16, "):]
+        "#define BIGDL_FLASH_DISPATCH(FN, F32, WIDE_F32, WIDE_BF16, "):]
     macro = macro[:macro.index("} while (0)")]
-    own = {(int(dt), int(d)): "tc" if ns else "cuda_cores"
-           for dt, d, ns in re.findall(
-               r"if \(dtype == (\d) && D == (\d+)\) return (tc::)?FN<",
-               macro)}
+    own = {int(d): "tc" for d in re.findall(
+        r"if \(dtype == 1 && D == (\d+)\) return tc::FN<\1>", macro)}
+    narrow = re.search(r"if \(dtype == 0 &&\s*\\\s*\(([^)]*)\)\)\s*\\\s*"
+                       r"return F32\(D, __VA_ARGS__\);", macro)
+    f32_dims = {int(d) for d in re.findall(r"D == (\d+)", narrow.group(1))}
+    assert f32_dims == set(own) == {32, 64, 128, 192, 256}
     wide = dict(re.findall(r"if \(dtype == (\d) && D > 256 && D % 64 == 0\)"
                            r"\s*\\\s*return (\S+)\(D, __VA_ARGS__\);",
                            macro))
     assert wide == {"0": "WIDE_F32", "1": "WIDE_BF16"}
-    f32_wide, bf16_wide = re.search(
-        rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+), ([^,]+),", src).groups()
+    f32_narrow, f32_wide, bf16_wide = re.search(
+        rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+), ([^,]+), ([^,]+),",
+        src).groups()
     entry = _function_body(src, f'extern "C" int bigdl_flash_{kernel}(')
     f32_name, f32_launcher, f32_kernel = _WIDE_F32[kernel]
     # the entry's lambda hands every argument and the workspace to the f32
@@ -344,6 +363,34 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     name = f32_name.split("::")[1]
     caller = _function_body(src, f"int {name}(int D, ")
     assert f32_launcher[4:-1] + "<" in caller
+    if kernel == "fwd":
+        # f32 up to 256: the CUDA-core forward of each head dim
+        assert f32_narrow == "cuda_cores"
+        lam = entry[entry.index("auto cuda_cores = "):]
+        lam = lam[:lam.index("};")]
+        cases = re.findall(r"(?:case (\d+)|default): return "
+                           r"fwd<float, (\d+)>\(a\.\.\.\);", lam)
+        assert {int(d) for _, d in cases} == f32_dims
+        assert all(c in ("", d) for c, d in cases)
+        assert "flash_fwd_kernel<T, D>" in _function_body(
+            src, "template <typename T, int D>\nint fwd(")
+        narrow_f32 = "cuda_cores"
+    else:
+        # f32 up to 256: the 3xTF32 launcher past 256, which calls every
+        # instantiation those head dims need
+        assert f32_narrow == "wide_f32"
+        for call in _NARROW_F32_CALLS[kernel]:
+            assert call in caller, (kernel, call)
+        if kernel == "dq":
+            assert ("flash_dq_rows_tf32_kernel<NC>" in _function_body(
+                src, "int dq_rows_tf32("))
+            # up to 128 the 128-row kernel, past it the sliced one
+            assert re.search(r"if \(D <= 64\)\s*return dq_rows_tf32<1>\("
+                             r"[^;]*;\s*if \(D <= 128\)\s*return "
+                             r"dq_rows_tf32<2>\(", caller)
+        # the CUDA-core dq and dk/dv they replaced are gone
+        assert f"flash_{kernel}_kernel<" not in src
+        narrow_f32 = "sliced_tf32"
     b_entry, b_launcher, b_kernel = _WIDE_BF16[kernel]
     assert bf16_wide == b_entry
     assert b_kernel in _function_body(src, b_launcher)
@@ -353,8 +400,9 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     for dtype, code in codes.items():
         built = {}
         for d in range(32, 4097, 32):
-            if (code, d) in own:
-                built[d] = own[(code, d)]
+            if d in own:
+                built[d] = (own[d] if code == 1 else "rows_tf32"
+                            if kernel == "dq" and d <= 128 else narrow_f32)
             elif d > 256 and d % 64 == 0:
                 built[d] = "sliced_tf32" if code == 0 else "sliced_tc"
         assert set(built) == {d for d in range(32, 4097, 32)
@@ -362,13 +410,25 @@ def test_flash_route_matches_the_c_dispatch(kernel):
         # every other head dim runs padded to the next built one, on its
         # route
         for d in range(1, 4097):
-            assert tfa.flash_route(dtype, d) == built[
+            assert tfa.flash_route(dtype, d, kernel) == built[
                 tfa.padded_head_dim(d)], (kernel, dtype, d)
-    assert tfa.flash_route(torch.float16, 128) is None
-    assert all(tfa.flash_route(torch.bfloat16, d) == "sliced_tc"
+    assert tfa.flash_route(torch.float16, 128, kernel) is None
+    assert all(tfa.flash_route(torch.bfloat16, d, kernel) == "sliced_tc"
                for d in (320, 384, 448, 512, 576, 1024))
-    assert all(tfa.flash_route(torch.float32, d) == "sliced_tf32"
+    assert all(tfa.flash_route(torch.float32, d, kernel) == "sliced_tf32"
                for d in (320, 384, 448, 512, 576, 1024))
+    # the workspace follows the route: f32 dq and dk/dv take one at every
+    # head dim, the f32 forward past 256 only, bf16 never
+    for dtype in codes:
+        for d in (32, 96, 128, 256, 320):
+            q = torch.empty((1, 2, 1, d), dtype=dtype, device="meta")
+            work = tfa._work(kernel, q, q)
+            assert (work is not None) == (tfa.flash_route(dtype, d, kernel)
+                                          in tfa.TF32_ROUTES), (dtype, d)
+            assert (work is not None) == (dtype == torch.float32 and (
+                kernel != "fwd" or d > 256)), (dtype, d)
+            if work is not None:
+                assert work.numel() == (2 if kernel == "fwd" else 4) * 2 * d
 
 
 def _chip_smoke():
@@ -415,22 +475,24 @@ def _emulated_backward(q, k, v, do, lse, delta, scale, causal, mm):
     return mm(ds, k), mm(ds.T, q), mm(p.T, do)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_3xtf32_products_hold_the_f32_limit(causal):
-    """The numerical argument of the f32 dq and dk/dv past D 256: their
-    products split each f32 operand into two tf32 parts on the tensor
-    cores (3xTF32). Emulated here in f32 on the CPU (integer rounding to
-    tf32 as the kernels round, products of parts exact in f32) at D 512
-    (B1 S192 H1, inputs from a numpy seed), the gradients stay within
-    ``chip_smoke._FLASH_TOL[(float32, "grad")]`` of ``flash_dq_ref`` /
-    ``flash_dkdv_ref``, measured as ``chip_smoke._worst`` does, while a
-    single TF32 product of the same operands does not: TF32 keeps 11 of
-    f32's 24 bits, the split about 22. (The card's f32 sums inside the
-    tensor cores drop bits as well; chip_smoke holds the kernels there.)
-    """
+@pytest.mark.parametrize(
+    "causal,d", [pytest.param(c, d, id=f"{c}" + ("" if d == 512 else f"-d{d}"))
+                 for d in (512, 32, 128, 256) for c in (True, False)])
+def test_3xtf32_products_hold_the_f32_limit(causal, d):
+    """The numerical argument of the f32 dq and dk/dv (at every head
+    dim): their products split each f32 operand into two tf32 parts on
+    the tensor cores (3xTF32). Emulated here in f32 on the CPU (integer
+    rounding to tf32 as the kernels round, products of parts exact in
+    f32) at D 512, 256, 128 and 32 (B1 S192 H1, inputs from a numpy
+    seed), the gradients stay within ``chip_smoke._FLASH_TOL[(float32,
+    "grad")]`` of ``flash_dq_ref`` / ``flash_dkdv_ref``, measured as
+    ``chip_smoke._worst`` does (0.03-0.12 of the limit), while a single
+    TF32 product of the same operands does not, at any of these widths
+    (21-95 x the limit): TF32 keeps 11 of f32's 24 bits, the split about
+    22. (The card's f32 sums inside the tensor cores drop bits as well;
+    chip_smoke holds the kernels there.)"""
     cs = _chip_smoke()
     rtol, atol = cs._FLASH_TOL[(torch.float32, "grad")]
-    d = 512
     q, k, v, g, _ = _inputs(1, 192, 1, d, seed=18)
     q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, g))
     scale = d ** -0.5
