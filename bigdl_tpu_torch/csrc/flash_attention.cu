@@ -89,52 +89,56 @@
 //     longer path) and 96-column halves at D 192.
 //   They are correct first; their speed is later work (PERF.md).
 //
-// float32 -> dq and dk/dv at every head dim on the tensor cores in
-// 3xTF32; the forward up to D 256 on the CUDA cores, past it in 3xTF32
-// (one TF32 product would round the inputs past the f32 limits):
-// - dk/dv up to D 256, and dq at D 192 and 256, run the 3xTF32 kernels
-//   of the widths past 256 (tc::flash_dkdv_sliced_tf32_kernel<OWN>,
-//   tc::flash_dq_sliced_tf32_kernel<OWN>, below) with one slice of all
+// float32 -> every kernel at every head dim on the tensor cores in
+// 3xTF32 (one TF32 product would round the inputs past the f32 limits):
+// - dk/dv up to D 256, and dq and the forward at D 192 and 256, run the
+//   3xTF32 kernels of the widths past 256
+//   (tc::flash_dkdv_sliced_tf32_kernel<OWN>,
+//   tc::flash_dq_sliced_tf32_kernel<OWN>,
+//   tc::flash_fwd_sliced_tf32_kernel<OWN>, below) with one slice of all
 //   of D: chunks(D) 64-column chunks, 1, 1, 2, 3, 4 at D 32, 64, 128,
 //   192, 256. In dk/dv each warpgroup holds all of them (OWN =
-//   chunks(D)); dq's warpgroup 0 takes ceil(chunks / 2) (OWN 2) and
-//   warpgroup 1 the rest. A walked tile costs D/32 score steps and OWN
-//   output steps; dq does 3 half-products and dk/dv 4, each three TF32
-//   products, the least the function needs. At D 32 a chunk is half a
-//   chunk: output steps load one [64][32] raw box of each operand, A's
-//   rows past D are zeros (tf_out_step's `cols`) and tf_store stops at D.
-// - dq up to D 128 (tc::flash_dq_rows_tf32_kernel<NC>, NC = chunks(D)):
-//   CTAs of 128 query rows whose two warpgroups each form S and dP of
-//   their own 64 rows and dS in registers, with no P/dS hand-off between
-//   them; K's and V's parts come once a 128 rows. In the sliced kernel
-//   (64 rows a CTA, warpgroup 0 forming S and P, warpgroup 1 dP and dS,
-//   P and dS handed through shared memory) it took 1.100x, 1.384x and
-//   1.454x the time at D 128, 64 and 32 (B4 S2048, H·D = 1024, causal;
-//   scripts/flash_sliced_knockout.py --only tf32_narrow, dq_handoff,
-//   NVIDIA H100 80GB HBM3, 700 W). The same layout for dk/dv (128-key
-//   CTAs, each warpgroup forming Sᵀ and dPᵀ of its own keys and
-//   accumulating both dv and dk: 128 registers of accumulator beside the
-//   score tiles, and a ring of 3 stages beside 128 KB of Pᵀ and dSᵀ
-//   parts) took 2.55x, 1.27x and 1.10x the kept kernel's time (knockout
-//   dkdv_rows), so dk/dv keeps its hand-off. (The sliced dq, which
-//   dq_handoff runs at D 64 and 32, has fewer score steps a key tile
-//   there than its ring has stages, so its warpgroup 0 waits on named
-//   barrier 3 for warpgroup 1's output steps to have read dS before it
-//   puts the next P in its place.)
-// - At the f32 training step's shape (B4 S2048 H8 D128, causal) dq is
-//   512 CTAs and dk/dv 1024, past one wave of the SMs: the heaviest
-//   first, not paired. dq takes 0.8538 ms and dk/dv 1.1203, 37 % of
-//   their 3xTF32 bounds (chip_smoke.py's [kernels]), 0.521x and 0.469x
-//   the CUDA-core kernels they replaced (FMA tiles over staged rows) in
-//   turns (scripts/flash_ab.py; NVIDIA H100 80GB HBM3, 700 W).
-// - The forward up to D 256 (flash_fwd_kernel<float, D>): 256 threads
-//   per CTA as a 16 x 16 grid (ty, tx) over R x R tiles, R = 64 (32 past
-//   D 128), thread (ty, tx) owning rows ty*R/16 + i and columns tx + 16*j
-//   (of o, 4 adjacent columns in each 64-wide chunk, 2 at D 32), f32 FMAs
-//   over vector reads of the shared-memory operands; P·V reads the p
-//   tile back from shared memory. One CTA per (b·h, R-row tile), the K
-//   and V tiles double-buffered with cp.async, rows past S zero-filled:
-//   five tiles of R x (D + 4) floats and the R x (R + 1) p tile.
+//   chunks(D)); dq's and the forward's warpgroup 0 takes ceil(chunks /
+//   2) (OWN 2) and warpgroup 1 the rest. A walked tile costs D/32 score
+//   steps and OWN output steps; dq does 3 half-products, dk/dv 4 and the
+//   forward 2, each three TF32 products, the least the function needs.
+//   At D 32 a chunk is half a chunk: output steps load one [64][32] raw
+//   box of each operand, A's rows past D are zeros (tf_out_step's
+//   `cols`) and tf_store stops at D.
+// - dq and the forward up to D 128 (tc::flash_dq_rows_tf32_kernel<NC>,
+//   tc::flash_fwd_rows_tf32_kernel<NC>, NC = chunks(D)): CTAs of 128
+//   query rows whose two warpgroups each form S (and dq's dP) of their
+//   own 64 rows over all of D, with no hand-off between them; K's (and
+//   V's) parts come once a 128 rows. The forward's warpgroup runs the
+//   online softmax on its own S and puts P's parts and α in a tile of
+//   its own. In the sliced kernels (64 rows a CTA; dq's warpgroup 0
+//   forming S and P, warpgroup 1 dP and dS, P and dS handed through
+//   shared memory; the forward's warpgroups each summing half of S,
+//   warpgroup 1 handing its half to warpgroup 0, which hands P and α
+//   back) dq took 1.100x, 1.384x and 1.454x the time at D 128, 64 and
+//   32, and the forward 1.130x and 1.313x at D 128 and 64 (B4 S2048, H·D
+//   = 1024, causal; scripts/flash_sliced_knockout.py --only tf32_narrow,
+//   dq_handoff and fwd_handoff, NVIDIA H100 80GB HBM3, 700 W; the sliced
+//   forward cannot run D 32, where its warpgroups' halves of S would be
+//   16 columns). The same layout for dk/dv (128-key CTAs, each
+//   warpgroup forming Sᵀ and dPᵀ of its own keys and accumulating both
+//   dv and dk: 128 registers of accumulator beside the score tiles, and
+//   a ring of 3 stages beside 128 KB of Pᵀ and dSᵀ parts) took 2.55x,
+//   1.27x and 1.10x the kept kernel's time (knockout dkdv_rows), so
+//   dk/dv keeps its hand-off. (The sliced dq, which dq_handoff runs at D
+//   64 and 32, has fewer score steps a key tile there than its ring has
+//   stages, so its warpgroup 0 waits on named barrier 3 for warpgroup
+//   1's output steps to have read dS before it puts the next P in its
+//   place.)
+// - At the f32 training step's shape (B4 S2048 H8 D128, causal) the
+//   forward and dq are 512 CTAs and dk/dv 1024, past one wave of the
+//   SMs: the heaviest first, not paired. The forward takes 0.5776 ms, dq
+//   0.8538 and dk/dv 1.1203, 36 %, 37 % and 37 % of their 3xTF32 bounds
+//   (chip_smoke.py's [kernels]), 0.501x, 0.521x and 0.469x the CUDA-core
+//   kernels they replaced (FMA tiles over staged rows) in turns
+//   (scripts/flash_ab.py; NVIDIA H100 80GB HBM3, 700 W). The forward at
+//   D 256 (one slice of the sliced kernel) takes 0.5540 ms, 0.298x the
+//   CUDA-core one.
 //
 // past D 256, the bf16 forward -> tensor cores, D sliced
 // (tc::flash_fwd_sliced_tc_kernel<OWN>; D any multiple of 64, a runtime
@@ -246,9 +250,9 @@
 // past D 256, the float32 forward, dq and dk/dv -> tensor cores in
 // 3xTF32 (tc::flash_fwd_sliced_tf32_kernel<OWN>, tc::flash_dq_sliced_
 // tf32_kernel<OWN>, tc::flash_dkdv_sliced_tf32_kernel<OWN>; D any
-// multiple of 64, a runtime value; no D limit; dq and dk/dv also up to D
+// multiple of 64, a runtime value; no D limit; all three also up to D
 // 256, above). The backward pair first; the forward, which reuses its
-// steps, after it.
+// steps, after it, then the 128-row forward up to D 128.
 // - Numbers. One TF32 product keeps 11 of f32's 24 bits: on sums over D
 //   512 its gradients miss the f32 limits (1e-5, 1e-4) by 25-76x
 //   (tests/test_torch_flash_attention.py's emulation). Each operand x
@@ -393,7 +397,30 @@
 //   kernel it replaced did 9: the scores once per 64 output columns):
 //   2.24 against 26.52 ms at B4 S4096 H2, 0.38 against 3.38 at B2 S2048
 //   (scripts/flash_ab.py, NVIDIA H100 80GB HBM3, 700 W). The split pass
-//   writes K's parts alone (2 floats an element of K).
+//   writes K's parts alone (2 floats an element of K). At D 192 and 256
+//   the kernel runs one slice of all of D (OWN 2: warpgroup 0 holds two
+//   chunks of oᵀ, warpgroup 1 the other one or two).
+// The forward up to D 128 (flash_fwd_rows_tf32_kernel<NC>) is dq_rows's
+// walk without dP and dS. Each warpgroup forms S of its own 64 rows over
+// all of D (D/32 score steps a key tile, where the sliced forward's
+// warpgroups do D/64 each and add the halves in f32, so the bits
+// differ), runs the online softmax above on it in registers and puts
+// P's parts and α in a tile of its own (named barrier 1 + g over its
+// 128 threads), then does NC output steps: no hand-off between the
+// warpgroups, and K's parts come once a 128 rows.
+// - Shared memory: a ring of 5 stages of 32 KB (a score step's two raw
+//   Q boxes and K's high and low boxes; an output step a chunk of V's
+//   columns, raw), the two warpgroups' P parts (64 KB), their α and 1 /
+//   l (1 KB). Q streams with K: kept resident, 128 rows of D 128 in f32
+//   would take 64 KB, two of the five stages.
+// - Registers: oᵀ (NC x 32) beside S (32), a score step's fresh sum (32)
+//   and A's parts (16), under the consumers' 240.
+// - The warpgroup's barrier is taken before P and α are written as well
+//   as after: a warp's wgmma wait covers the 16 rows of the product its
+//   own, so a warp past its output steps could overwrite the P parts
+//   another warp's output step still reads (at D 32 and 64 a key tile
+//   has fewer steps than the ring has stages, so the ring does not hold
+//   it back).
 // The kernels allocate nothing; the Python wrapper allocates outputs
 // and checks shapes, dtypes, contiguity and alignment.
 
@@ -408,319 +435,7 @@
 
 namespace {
 
-using hopper::set_smem;
-
 constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
-
-// ===========================================================================
-// float32 forward up to D 256: CUDA cores
-// ===========================================================================
-
-constexpr int kThreads = 256;      // 16 x 16 thread grid
-
-// rows of a tile (query rows and key rows alike): 64, or 32 past D 128,
-// where the forward's five staged tiles (64 rows of D + 4 floats each:
-// 325 KB at D 256, 245 KB at D 192) and its p tile would pass the 227 KB
-// a block may use; at 32 rows they take 5 · 32.5 KB + 4 KB at D 256
-template <int D>
-constexpr int kTileOf = D > 128 ? 32 : 64;
-// rows (and score columns) a thread owns: kTileOf / 16
-template <int D>
-constexpr int kMine = kTileOf<D> / 16;
-// pitch (floats) of the f32 p tile
-template <int D>
-constexpr int kPP = kTileOf<D> + 1;
-
-// shared-memory row pitch in elements: D plus 16 bytes of padding, so
-// 16-byte cp.async chunks stay aligned and strided rows spread banks
-template <typename T, int D>
-__host__ __device__ constexpr int pitch() {
-  return D + 16 / static_cast<int>(sizeof(T));
-}
-
-template <typename T, int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return kTileOf<D> * pitch<T, D>() * static_cast<int>(sizeof(T));
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-// Products with D as output cover it in chunks of kChunk<D> columns, 16
-// threads across a chunk, kPer<D> adjacent columns each (4 at D 64 and
-// up, 2 at D 32).
-template <int D>
-constexpr int kChunk = D < 64 ? D : 64;
-template <int D>
-constexpr int kPer = kChunk<D> / 16;
-
-template <int N>
-__device__ __forceinline__ void load_n(const float* p, float (&x)[N]) {
-  if constexpr (N == 4) {
-    load4(p, x);
-  } else {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x; x[1] = v.y;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_n(float* p, const float (&x)[N]) {
-  if constexpr (N == 4)
-    store4(p, x);
-  else
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;        // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Stage rows [row0, row0 + R) of head h of x (B, S, H, D) into dst
-// (R = kTileOf<D> rows at pitch P); rows >= S are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* x, int b, int h,
-                                          int row0, int S, int H) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  constexpr int P = pitch<T, D>();
-  for (int c = threadIdx.x; c < kTileOf<D> * kChunks; c += kThreads) {
-    const int r = c / kChunks, w = (c % kChunks) * kVec;
-    const int s = row0 + r;
-    const bool ok = s < S;
-    const T* g = ok ? x + ((static_cast<int64_t>(b) * S + s) * H + h) * D + w
-                    : x;
-    cp_async16(dst + r * P + w, g, ok);
-  }
-}
-
-// acc[i][j] = A[ty*M + i] · B[tx + 16*j] over D (both tiles at pitch P,
-// M = kMine<D>)
-template <typename T, int D>
-__device__ __forceinline__ void dot_tile(const T* A, const T* B, int ty,
-                                         int tx,
-                                         float (&acc)[kMine<D>][kMine<D>]) {
-  constexpr int P = pitch<T, D>(), M = kMine<D>;
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float a[M][4], bb[M][4];
-#pragma unroll
-    for (int i = 0; i < M; ++i) load4(A + (ty * M + i) * P + d, a[i]);
-#pragma unroll
-    for (int j = 0; j < M; ++j) load4(B + (tx + 16 * j) * P + d, bb[j]);
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j] += a[i][e] * bb[j][e];
-  }
-}
-
-// acc[i][u*E + e] += Σ_c W[ty*M + i][c] · X[c][tx*E + kChunk*u + e]
-// (E = kPer<D>, M = kMine<D>): W the f32 R x R tile at pitch kPP, X a
-// staged tile at pitch P
-template <typename T, int D>
-__device__ __forceinline__ void mul_tile(const float* W, const T* X, int ty,
-                                         int tx,
-                                         float (&acc)[kMine<D>][D / 16]) {
-  constexpr int P = pitch<T, D>(), M = kMine<D>;
-#pragma unroll 4
-  for (int c = 0; c < kTileOf<D>; ++c) {
-    float w[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) w[i] = W[(ty * M + i) * kPP<D> + c];
-    constexpr int E = kPer<D>;
-#pragma unroll
-    for (int u = 0; u < D / kChunk<D>; ++u) {
-      float x[E];
-      load_n(X + c * P + tx * E + kChunk<D> * u, x);
-#pragma unroll
-      for (int i = 0; i < M; ++i)
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[i][u * E + e] += w[i] * x[e];
-    }
-  }
-}
-
-// Write rows ty*M + i (if below S) of a (B, S, H, D) output, scaled by
-// inv[i]
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(
-    T* out, const float (&acc)[kMine<D>][D / 16],
-    const float (&inv)[kMine<D>], int b, int h, int row0, int S, int H,
-    int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kMine<D>; ++i) {
-    const int s = row0 + ty * kMine<D> + i;
-    if (s >= S) continue;
-    T* row = out + ((static_cast<int64_t>(b) * S + s) * H + h) * D;
-    constexpr int E = kPer<D>;
-#pragma unroll
-    for (int u = 0; u < D / kChunk<D>; ++u) {
-      float x[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) x[e] = acc[i][u * E + e] * inv[i];
-      store_n(row + tx * E + kChunk<D> * u, x);
-    }
-  }
-}
-
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// number of key tiles of R rows a query tile starting at q0 attends
-template <int R>
-__device__ __forceinline__ int key_tiles(int q0, int Sq, int Skv,
-                                         bool causal) {
-  const int nk = (Skv + R - 1) / R;
-  if (!causal) return nk;
-  const int q_last = min(q0 + R - 1, Sq - 1);
-  return min(nk, q_last / R + 1);
-}
-
-// ---------------------------------------------------------------------------
-// forward: o and lse
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Sq, int Skv,
-                 float scale, int causal) {
-  constexpr int R = kTileOf<D>, M = kMine<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kT = R * pitch<T, D>();              // elements per tile
-  T* const qs = reinterpret_cast<T*>(smem_raw);
-  T* const kv = qs + kT;                              // [2][K|V][tile]
-  float* const ps = reinterpret_cast<float*>(kv + 4 * kT);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;   // heavy tiles first
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int nkt = key_tiles<R>(q0, Sq, Skv, causal);
-
-  float acc[M][D / 16], m[M], l[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int d = 0; d < D / 16; ++d) acc[i][d] = 0.f;
-  }
-
-  load_tile<T, D>(qs, q, b, h, q0, Sq, H);
-  load_tile<T, D>(kv, k, b, h, 0, Skv, H);
-  load_tile<T, D>(kv + kT, v, b, h, 0, Skv, H);
-  cp_async_commit();
-  for (int kt = 0; kt < nkt; ++kt) {
-    const T* ks = kv + (kt & 1) * 2 * kT;
-    const T* vs = ks + kT;
-    if (kt + 1 < nkt) {
-      T* nk = kv + ((kt + 1) & 1) * 2 * kT;
-      load_tile<T, D>(nk, k, b, h, (kt + 1) * R, Skv, H);
-      load_tile<T, D>(nk + kT, v, b, h, (kt + 1) * R, Skv, H);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();                  // tile kt (and q) has landed
-    __syncthreads();
-
-    float s[M][M];
-    dot_tile<T, D>(qs, ks, ty, tx, s);
-    const int k0 = kt * R;
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const int qpos = q0 + ty * M + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        s[i][j] = kpos >= Skv                ? -INFINITY   // past the end
-                  : (causal && kpos > qpos) ? kMask
-                                            : s[i][j] * scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group16_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty * M + i) * kPP<D> + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + group16_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) acc[i][d] *= corr;
-    }
-    __syncthreads();                       // p tile complete
-    mul_tile<T, D>(ps, vs, ty, tx, acc);
-    __syncthreads();                       // buffers free for reuse
-  }
-
-  float inv[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) inv[i] = 1.f / l[i];
-  store_rows<T, D>(o, acc, inv, b, h, q0, Sq, H, ty, tx);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const int s = q0 + ty * M + i;
-      if (s < Sq)
-        lse[(static_cast<int64_t>(b) * Sq + s) * H + h] = m[i] + logf(l[i]);
-    }
-  }
-}
-
-// the f32 p tile
-template <int D>
-constexpr size_t kWTileBytes = kTileOf<D> * kPP<D> * sizeof(float);
-
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-        int B, int H, int Sq, int Skv, float scale, int causal,
-        cudaStream_t st) {
-  const size_t smem = 5 * tile_bytes<T, D>() + kWTileBytes<D>;
-  auto kernel = flash_fwd_kernel<T, D>;
-  if (int e = set_smem(kernel, smem)) return e;
-  const dim3 grid(B * H, (Sq + kTileOf<D> - 1) / kTileOf<D>);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Skv, scale,
-      causal);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ===========================================================================
 // bfloat16: tensor cores (wgmma), tiles by TMA
@@ -2553,6 +2268,9 @@ flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
 // rows; under the causal mask a warpgroup passes the key tiles past its
 // last row without products.
 constexpr int kRowsStage = 4 * kTfBox;
+// the 128-row forward's α and 1 / l of both warpgroups' rows: f32 [64]
+// each, 512 bytes a warpgroup
+constexpr int kRowsStats = 2 * 2 * 64 * 4;
 template <int NC>
 __global__ void __launch_bounds__(kSlThreads, 1)
 flash_dq_rows_tf32_kernel(const __grid_constant__ CUtensorMap qm,
@@ -2678,6 +2396,166 @@ flash_dq_rows_tf32_kernel(const __grid_constant__ CUtensorMap qm,
       }
     }
     tf_store<NC>(dq, acc, NC, b, h, qg, 0, Sq, H, D);
+  };
+  // the warpgroup index broadcast from lane 0, so the branch is uniform
+  if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
+    consume(Role<false>{});
+  else
+    consume(Role<true>{});
+}
+
+// The forward at head dims up to 128: dq_rows's walk without dP and dS,
+// and the online softmax inside each warpgroup. CTA = 128 query rows of
+// one (b, h), the heaviest first (grid (B·H, ceil(Sq / 128))), each
+// consumer warpgroup its own 64: per key tile it forms S = Q·Kᵀ over nc
+// = D/32 score steps (a stage: both warpgroups' raw Q boxes and K's high
+// and low boxes), scales and masks S, updates its rows' max m and sum l
+// in registers, puts P's parts and each row's rescale factor α =
+// exp(m_old - m_new) in tiles of its own (named barrier 1 + g over its
+// 128 threads), multiplies its NC = chunks(D) chunks of oᵀ, whose
+// columns are the queries, by α and adds Vᵀ·Pᵀ over NC output steps (a
+// stage: a 64-column chunk of V, raw; its first half at D 32). At the
+// end 1 / l goes through its tile too, and lse = m + log l. The barrier
+// is also taken before P and α are written: a warp's wgmma wait covers
+// its own rows only, so the warpgroup's other warps may still be reading
+// the last tile's. Under the causal mask a warpgroup passes the key
+// tiles past its last row without products.
+template <int NC>
+__global__ void __launch_bounds__(kSlThreads, 1)
+flash_fwd_rows_tf32_kernel(const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap vm,
+                           const __grid_constant__ CUtensorMap khm,
+                           const __grid_constant__ CUtensorMap klm,
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int H, int Sq, int Skv, int D, int ns,
+                           float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 32, halves = D % 64 ? 1 : 2;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t xb = base + ns * kRowsStage;    // P's parts, a tile each
+  const uint32_t stats = xb + 8 * kTfBox;  // α and 1 / l, f32 [64] each
+  TfRing ring{base, stats + kRowsStats, ns};
+  auto at = [&] { return base + ring.st * kRowsStage; };   // the stage
+  const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
+  const int q0 = 128 * (gridDim.y - 1 - blockIdx.y);    // heaviest first
+  const int nk = (Skv + kSlKeys - 1) / kSlKeys;
+  const int nkt =
+      causal ? min(nk, (min(q0 + 128, Sq) - 1) / kSlKeys + 1) : nk;
+  tf_init(ring.bars, ns);
+
+  if (tid >= kSlConsumers) {               // the producer warpgroup
+    regs_dec<kTfProducerRegs>();
+    if (tid == kSlConsumers) {
+      int t = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int k0 = kt * kSlKeys;
+        for (int c = 0; c < nc; ++c, ++t, ring.next()) {
+          ring.acquire(t, kRowsStage);
+          const uint32_t dst = at();
+          tma_load(dst, &qm, ring.full(), 32 * c, h, q0, b);
+          tma_load(dst + kTfBox, &qm, ring.full(), 32 * c, h, q0 + 64, b);
+          tma_load(dst + 2 * kTfBox, &khm, ring.full(), 32 * c, h, k0, b);
+          tma_load(dst + 3 * kTfBox, &klm, ring.full(), 32 * c, h, k0, b);
+        }
+        for (int p = 0; p < NC; ++p, ++t, ring.next()) {
+          ring.acquire(t, halves * kTfBox);
+          for (int e = 0; e < halves; ++e)
+            tma_load(at() + e * kTfBox, &vm, ring.full(), 64 * p + 32 * e, h,
+                     k0, b);
+        }
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kTfConsumerRegs>();
+
+  const int l = tid % 32;
+  auto consume = [&](auto role) {
+    constexpr int G = decltype(role)::kDk ? 1 : 0;
+    const int qg = q0 + 64 * G;            // this warpgroup's rows
+    const int row0 = qg + 16 * ((tid / 32) % 4) + l / 4;
+    const uint32_t mine = xb + 4 * G * kTfBox;   // its P parts
+    const uint32_t rs = stats + G * kRowsStats / 2;   // its α, 1 / l
+    const int nmine =
+        causal ? min(nkt, (min(qg + 64, Sq) - 1) / kSlKeys + 1) : nkt;
+    float acc[NC][32], s[32];
+    float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NC; ++j) zero(acc[j]);
+    zero(s);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const bool live = kt < nmine;
+      for (int c = 0; c < nc; ++c) {       // S = Q·Kᵀ
+        ring.wait();
+        const uint32_t st = at();
+        if (live)
+          tf_score_step(s, st + G * kTfBox, st + 2 * kTfBox, st + 3 * kTfBox,
+                        c == 0);
+        ring.release();
+      }
+      if (live) {
+        // scale, mask where the tile crosses the diagonal or the end
+        const int k0 = kt * kSlKeys;
+        const bool edge =
+            (causal && k0 + kSlKeys - 1 > qg) || k0 + kSlKeys > Skv;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float x = s[i] * scale;
+          if (edge) {
+            const int kpos = k0 + acc_col(i, l), qpos = row0 + acc_row(i);
+            x = kpos >= Skv ? -INFINITY : (causal && kpos > qpos) ? kMask : x;
+          }
+          s[i] = x;
+          mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], x);
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]));
+          alpha[r] = expf(m[r] - m_new);
+          m[r] = m_new;
+          lsum[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] = expf(s[i] - m[(i % 4) / 2]);
+          lsum[(i % 4) / 2] += s[i];       // this thread's part of the row
+        }
+        named_sync(1 + G, 128);            // the last tile's P, α read
+        tf_put(mine, mine + 2 * kTfBox, s);
+        if (l % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            st_shared(rs + 4 * (row0 - qg + 8 * r), alpha[r]);
+        }
+        fence_proxy_async();
+        named_sync(1 + G, 128);
+        tf_scale_cols<NC>(acc, rs);        // oᵀ at the new running max
+      }
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {       // oᵀ += Vᵀ·Pᵀ
+        ring.wait();
+        if (live)
+          tf_out_step(acc[j], at(), mine, mine + 2 * kTfBox, 32 * halves);
+        ring.release();
+      }
+    }
+    // 1 / l of each row beside α, and lse
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s_ = row0 + 8 * r;
+      lsum[r] = quad_sum(lsum[r]);
+      if (l % 4 == 0) {
+        st_shared(rs + 4 * (64 + s_ - qg), 1.f / lsum[r]);
+        if (s_ < Sq)
+          lse[(static_cast<int64_t>(b) * Sq + s_) * H + h] =
+              m[r] + logf(lsum[r]);
+      }
+    }
+    named_sync(1 + G, 128);
+    tf_scale_cols<NC>(acc, rs + 4 * 64);
+    tf_store<NC>(o, acc, NC, b, h, qg, 0, Sq, H, D);
   };
   // the warpgroup index broadcast from lane 0, so the branch is uniform
   if (__shfl_sync(0xffffffffu, tid / 128, 0) == 0)
@@ -3162,7 +3040,29 @@ int fwd_sliced_tf32_own(int D, int own, const CUtensorMap (&m)[2],
   return static_cast<int>(cudaGetLastError());
 }
 
-// the forward: K split into `work` (2·B·Skv·H·D floats), then the kernel
+// the 128-row forward up to D 128: a ring of 32 KB stages beside the two
+// P part tiles and the rows' α and 1 / l (5 stages)
+template <int NC>
+int fwd_rows_tf32(int D, const CUtensorMap (&m)[2], const CUtensorMap (&kp)[4],
+                  void* o, float* lse, int B, int H, int Sq, int Skv,
+                  float scale, int causal, cudaStream_t st) {
+  constexpr int kFixed =
+      1024 + 8 * kTfBox + kRowsStats + 8 * (2 * kTfMaxStages + 2);
+  const int ns =
+      min(kTfMaxStages, static_cast<int>((kSmemMax - kFixed) / kRowsStage));
+  const size_t smem = kFixed + ns * kRowsStage;
+  auto kernel = flash_fwd_rows_tf32_kernel<NC>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(B * H, (Sq + 127) / 128);
+  kernel<<<grid, kSlThreads, smem, st>>>(
+      m[0], m[1], kp[0], kp[1], static_cast<float*>(o), lse, H, Sq, Skv, D,
+      ns, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the forward: K split into `work` (2·B·Skv·H·D floats), then the kernel:
+// up to D 128 the 128-row one, past it the 64-row one whose warpgroups
+// each sum half of S (one slice of all of D at 192 and 256)
 int fwd_sliced_tf32(int D, const void* q, const void* k, const void* v,
                     void* o, float* lse, int B, int H, int Sq, int Skv,
                     float scale, int causal, cudaStream_t st, float* work) {
@@ -3171,6 +3071,12 @@ int fwd_sliced_tf32(int D, const void* q, const void* k, const void* v,
   if (int e = make_map(&m[0], q, B, Sq, H, D, 64, true)) return e;
   if (int e = make_map(&m[1], v, B, Skv, H, D, kSlKeys, true)) return e;
   if (int e = tf_split(kp, k, nullptr, work, B, Skv, H, D, st)) return e;
+  if (D <= 64)
+    return fwd_rows_tf32<1>(D, m, kp, o, lse, B, H, Sq, Skv, scale, causal,
+                            st);
+  if (D <= 128)
+    return fwd_rows_tf32<2>(D, m, kp, o, lse, B, H, Sq, Skv, scale, causal,
+                            st);
   int own = 0;
   if (int e = tf_row_slices(D, B * H * ((Sq + 63) / 64), &own)) return e;
   switch ((own + 1) / 2) {
@@ -3308,26 +3214,23 @@ int dkdv_sliced_tf32(int D, const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-// dispatch on (dtype code, head dim): 0 = float32, 1 = bfloat16. At the
-// head dims with kernels of their own (32, 64, 128, 192, 256) bfloat16
-// runs tc::FN<D> (tensor cores) and float32 the entry's F32: the
-// CUDA-core forward (the entry's cuda_cores), or the 3xTF32 dq and dk/dv
-// (each entry's wide_f32, which passes the workspace on). Past D 256, any
-// D that is a multiple of 64, float32 takes WIDE_F32 (the 3xTF32
-// tensor-core kernels, through wide_f32) and bfloat16 WIDE_BF16 (the
-// sliced tensor-core kernels)
-#define BIGDL_FLASH_DISPATCH(FN, F32, WIDE_F32, WIDE_BF16, ...)          \
+// dispatch on (dtype code, head dim): 0 = float32, 1 = bfloat16. float32
+// runs the entry's F32 at every head dim the kernels are built for (32,
+// 64, 128, 192, 256, and past 256 any multiple of 64): the 3xTF32
+// tensor-core kernels, through the entry's tf32, which passes the
+// workspace on. bfloat16 runs tc::FN<D> (tensor cores) at the head dims
+// with kernels of their own and, past 256, WIDE_BF16 (the sliced
+// tensor-core kernels)
+#define BIGDL_FLASH_DISPATCH(FN, F32, WIDE_BF16, ...)                    \
   do {                                                                    \
-    if (dtype == 0 &&                                                     \
-        (D == 32 || D == 64 || D == 128 || D == 192 || D == 256))         \
+    if (dtype == 0 && (D == 32 || D == 64 || D == 128 || D == 192 ||      \
+                       D == 256 || (D > 256 && D % 64 == 0)))             \
       return F32(D, __VA_ARGS__);                                         \
     if (dtype == 1 && D == 32) return tc::FN<32>(__VA_ARGS__);            \
     if (dtype == 1 && D == 64) return tc::FN<64>(__VA_ARGS__);            \
     if (dtype == 1 && D == 128) return tc::FN<128>(__VA_ARGS__);          \
     if (dtype == 1 && D == 192) return tc::FN<192>(__VA_ARGS__);          \
     if (dtype == 1 && D == 256) return tc::FN<256>(__VA_ARGS__);          \
-    if (dtype == 0 && D > 256 && D % 64 == 0)                             \
-      return WIDE_F32(D, __VA_ARGS__);                                    \
     if (dtype == 1 && D > 256 && D % 64 == 0)                             \
       return WIDE_BF16(D, __VA_ARGS__);                                   \
     return -1;                                                            \
@@ -3336,33 +3239,22 @@ int dkdv_sliced_tf32(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a (dtype, head dim) the
-// kernels were not built for (or an f32 call given no workspace where it
-// needs one: the forward past D 256, 2 floats an element of K; dq at any
-// D, 4; dk/dv at any D, 4 an element of Q), -2 where no tensor-map
-// encoder is found (cuTensorMapEncodeTiled), 1000 + the CUresult of a
-// refused tensor map, else the CUDA error code of the launch. The
-// workspace comes last, after the stream.
+// kernels were not built for (or an f32 call given no workspace: the
+// forward needs 2 floats an element of K, dq 4, dk/dv 4 an element of Q),
+// -2 where no tensor-map encoder is found (cuTensorMapEncodeTiled), 1000
+// + the CUresult of a refused tensor map, else the CUDA error code of the
+// launch. The workspace comes last, after the stream.
 extern "C" int bigdl_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, float* lse, int B,
                                int H, int Sq, int Skv, int D, float scale,
                                int causal, void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // f32 up to D 256: the CUDA-core kernel of D
-  auto cuda_cores = [](int D, auto... a) {
-    switch (D) {
-      case 32: return fwd<float, 32>(a...);
-      case 64: return fwd<float, 64>(a...);
-      case 128: return fwd<float, 128>(a...);
-      case 192: return fwd<float, 192>(a...);
-      default: return fwd<float, 256>(a...);
-    }
-  };
-  // f32 past D 256 splits K into `work` first
-  auto wide_f32 = [work](int D, auto... a) {
+  // f32 at every D splits K into `work` first
+  auto tf32 = [work](int D, auto... a) {
     return tc::fwd_sliced_tf32(D, a..., work);
   };
-  BIGDL_FLASH_DISPATCH(fwd, cuda_cores, wide_f32, tc::fwd_sliced, q, k, v,
-                       o, lse, B, H, Sq, Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(fwd, tf32, tc::fwd_sliced, q, k, v, o, lse, B, H, Sq,
+                       Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
@@ -3373,11 +3265,11 @@ extern "C" int bigdl_flash_dq(int dtype, const void* q, const void* k,
                               float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // f32 at every D splits K and V into `work` first
-  auto wide_f32 = [work](int D, auto... a) {
+  auto tf32 = [work](int D, auto... a) {
     return tc::dq_sliced_tf32(D, a..., work);
   };
-  BIGDL_FLASH_DISPATCH(dq, wide_f32, wide_f32, tc::dq_sliced, q, k, v, dout,
-                       lse, delta, dq_out, B, H, Sq, Skv, scale, causal, st);
+  BIGDL_FLASH_DISPATCH(dq, tf32, tc::dq_sliced, q, k, v, dout, lse, delta,
+                       dq_out, B, H, Sq, Skv, scale, causal, st);
 }
 
 extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
@@ -3388,10 +3280,9 @@ extern "C" int bigdl_flash_dkdv(int dtype, const void* q, const void* k,
                                 void* stream, float* work) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // f32 at every D splits Q and dO into `work` first
-  auto wide_f32 = [work](int D, auto... a) {
+  auto tf32 = [work](int D, auto... a) {
     return tc::dkdv_sliced_tf32(D, a..., work);
   };
-  BIGDL_FLASH_DISPATCH(dkdv, wide_f32, wide_f32, tc::dkdv_sliced, q, k, v,
-                       dout, lse, delta, dk, dv, B, H, Sq, Skv, scale, causal,
-                       st);
+  BIGDL_FLASH_DISPATCH(dkdv, tf32, tc::dkdv_sliced, q, k, v, dout, lse,
+                       delta, dk, dv, B, H, Sq, Skv, scale, causal, st);
 }

@@ -1,8 +1,7 @@
 // 3xTF32 on Hopper's tensor cores (sm_90a): the building blocks shared by
-// the f32 kernels of flash_attention.cu (dq and dk/dv at every head dim,
-// the forward past 256) and of fused_ce.cu (the forward, dh and dW/db),
-// which their headers
-// describe. A float x splits into hi = tf32(x) and lo = tf32(x - hi);
+// the f32 kernels of flash_attention.cu (the forward, dq and dk/dv at
+// every head dim) and of fused_ce.cu (the forward, dh and dW/db), which
+// their headers describe. A float x splits into hi = tf32(x) and lo = tf32(x - hi);
 // hi·lo + lo·hi + hi·hi on wgmma m64n64k8.f32.tf32.tf32 keeps about 22 of
 // f32's 24 bits, and every few K steps sum in a fresh accumulator added
 // in f32, because the tensor cores truncate what they add to a running

@@ -22,18 +22,17 @@ materialised. lse is (B, S, H) f32. Arithmetic matches the TPU kernel:
 f32 scores times ``scale``, the finite −1e9 causal mask (key position >
 query position, both counted from 0), P rounded to v's dtype before P·V
 and to dO's dtype before dv, dS rounded to k's dtype for dq and to q's
-dtype for dk; o/dq/dk/dv in the input dtype. The f32 dq and dk/dv at
-every head dim, and the f32 forward past head dim 256, form their
-products on the tensor cores in 3xTF32 (each operand split into tf32
-high and low parts, hi·lo + lo·hi + hi·hi summed in f32), which keeps
-about 22 of f32's 24 bits; they take a workspace for the parts
-(``_work``). The f32 forward up to head dim 256 runs on the CUDA cores.
+dtype for dk; o/dq/dk/dv in the input dtype. The f32 kernels, the
+forward, dq and dk/dv at every head dim, form their products on the
+tensor cores in 3xTF32 (each operand split into tf32 high and low parts,
+hi·lo + lo·hi + hi·hi summed in f32), which keeps about 22 of f32's 24
+bits; they take a workspace for the parts (``_work``).
 
 ``fwd_launches``, ``dq_launches`` and ``dkdv_launches`` count kernel
 launches, so a run can show its main path went through the kernels;
 ``fwd_tf32_launches``, ``dq_tf32_launches`` and ``dkdv_tf32_launches``
 count those of them on the 3xTF32 routes (``TF32_ROUTES``,
-``flash_route``).
+``flash_route``): every f32 launch.
 """
 from __future__ import annotations
 
@@ -85,10 +84,12 @@ def flash_supported(q, k) -> bool:
     Past D 256 the C entries route to D-sliced kernels on the tensor
     cores: a CTA owns a slice of the output's columns (up to 256 in
     bf16, forward and backward; in f32, in 3xTF32, up to 512 for the
-    forward and dq and 256 for dk/dv) and sums the scores over all of D;
-    the f32 dq and dk/dv run 3xTF32 kernels at every head dim (one slice
-    of all of D up to 256; dq up to 128 in CTAs of 128 rows)
-    (``flash_route``; csrc/flash_attention.cu's header)."""
+    forward and dq and 256 for dk/dv) and sums the scores over all of D.
+    Every f32 kernel runs in 3xTF32 on the tensor cores at every head
+    dim: one slice of all of D up to 256, and the forward and dq up to
+    128 in CTAs of 128 rows whose warpgroups each form the scores of
+    their own 64 (``flash_route``; csrc/flash_attention.cu's
+    header)."""
     return (q.dim() == 4 and k.dim() == 4 and q.shape[-1] >= 1
             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]
             and q.dtype in _DTYPE_CODES and k.dtype == q.dtype
@@ -102,14 +103,14 @@ def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
     ``"tc"`` (bf16 at D 32-256: ``wgmma`` with TMA tiles),
     ``"sliced_tc"`` (bf16 past 256: ``flash_fwd_sliced_tc_kernel``,
     ``flash_dq_sliced_tc_kernel`` and ``flash_dkdv_sliced_tc_kernel``,
-    slices of up to 256 output columns on the tensor cores),
-    ``"cuda_cores"`` (the f32 forward at D 32-256), and in 3xTF32 on the
-    tensor cores (each product split into tf32 high and low parts, hi·hi
-    + hi·lo + lo·hi summed in f32; ``TF32_ROUTES``) ``"rows_tf32"`` (the
-    f32 dq at D 32-128: ``flash_dq_rows_tf32_kernel``, 128-row CTAs, each
-    warpgroup forming S and dP of its own 64 rows) and ``"sliced_tf32"``
-    (``flash_fwd_sliced_tf32_kernel`` past 256,
-    ``flash_dq_sliced_tf32_kernel`` past 128 and
+    slices of up to 256 output columns on the tensor cores), and for
+    f32, in 3xTF32 on the tensor cores (each product split into tf32 high
+    and low parts, hi·hi + hi·lo + lo·hi summed in f32; ``TF32_ROUTES``),
+    ``"rows_tf32"`` (the forward and dq at D 32-128:
+    ``flash_fwd_rows_tf32_kernel`` and ``flash_dq_rows_tf32_kernel``,
+    128-row CTAs, each warpgroup forming the scores of its own 64 rows)
+    and ``"sliced_tf32"`` (``flash_fwd_sliced_tf32_kernel`` and
+    ``flash_dq_sliced_tf32_kernel`` past 128,
     ``flash_dkdv_sliced_tf32_kernel`` at every D, one slice of all of D up
     to 256); None where no kernel takes the call. A head dim the kernels
     are not built for reports the route of :func:`padded_head_dim`, the
@@ -121,9 +122,8 @@ def flash_route(dtype, d: int, kernel: str = "fwd") -> str | None:
         return "tc" if width <= 256 else "sliced_tc"
     if dtype != torch.float32:
         return None
-    if kernel == "fwd" and width <= 256:
-        return "cuda_cores"
-    return "rows_tf32" if kernel == "dq" and width <= 128 else "sliced_tf32"
+    return ("rows_tf32" if kernel != "dkdv" and width <= 128
+            else "sliced_tf32")
 
 
 # --------------------------------------------------------------------------
@@ -260,10 +260,10 @@ def _check_cuda_bwd(q, k, v, do, lse, delta):
 
 
 def _work(name, q, k):
-    """The workspace of kernel ``name`` on a 3xTF32 route: the tf32 high
-    and low parts of the operands it walks, 2 floats an element of K for
-    the forward, 4 for dq (K and V), 4 an element of Q for dk/dv (Q and
-    dO); else None."""
+    """The workspace of kernel ``name`` on a 3xTF32 route (every f32
+    call): the tf32 high and low parts of the operands it walks, 2 floats
+    an element of K for the forward, 4 for dq (K and V), 4 an element of
+    Q for dk/dv (Q and dO); else None."""
     if flash_route(q.dtype, q.shape[-1], name) not in TF32_ROUTES:
         return None
     n = {"fwd": 2 * k.numel(), "dq": 4 * k.numel(), "dkdv": 4 * q.numel()}

@@ -31,8 +31,8 @@ the full width of the flagship LM with weights made from a seed:
   padded to 128) and 512 (the sliced tensor-core flash forward, dq and
   dk/dv), and at 512 in f32 (the 3xTF32 forward, dq and dk/dv); then
   ``-m transformer --dataType f32`` at the same geometry (the f32
-  fused-CE forward, dh and dW/db and flash's dq and dk/dv in 3xTF32 on
-  the tensor cores, flash's forward on the CUDA cores);
+  fused-CE forward, dh and dW/db and flash's forward, dq and dk/dv in
+  3xTF32 on the tensor cores);
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
@@ -375,8 +375,8 @@ def _print_ptxas(report: str) -> None:
             regs = max(regs, int(r.group(1)))
         if re.search(r"[1-9]\d* bytes spill stores", line):
             spilled += 1
-        m = re.search(r"entry function '\S*?(paged_attention|flash_fwd|"
-                      r"flash_dq|flash_dkdv)_kernelI(\w+?)Li(\d+)E"
+        m = re.search(r"entry function '\S*?(paged_attention)_kernelI(\w+?)"
+                      r"Li(\d+)E"
                       r"(?:Li(\d+)ELb([01])E(?:Lb([01])E)?)?", line)
         t = re.search(r"entry function '\S*?(flash_fwd|flash_dq|flash_dkdv|"
                       r"flash_dkdv_split)_tc_kernelILi(\d+)E", line)
@@ -490,7 +490,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     ``flash_dq_sliced_tf32_kernel``: warpgroup chunks 2, 3, 4, of
     ``flash_dkdv_sliced_tf32_kernel``: 1, 2, 3, 4, the 1- and 2-chunk
     ones for the head dims up to 128, and of
-    ``flash_dq_rows_tf32_kernel``: 1, 2, dq up to D 128), all three
+    ``flash_fwd_rows_tf32_kernel`` and ``flash_dq_rows_tf32_kernel``: 1,
+    2, the forward and dq up to D 128), all three
     bf16 fused-CE
     kernels, the f32 (3xTF32) fused-CE forward (``fce_fwd_tf32_kernel``)
     and dh and dW/db (``fce_bwd_tf32_kernel``) and the five paged prefill
@@ -555,7 +556,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                                              ("flash_dq", (2, 3, 4)),
                                              ("flash_dkdv", (1, 2, 3, 4)))
                              for n in owns) + tuple(
-                             f"flash_dq_rows_tf32 f32 OWN={n}"
+                             f"{k}_rows_tf32 f32 OWN={n}"
+                             for k in ("flash_fwd", "flash_dq")
                              for n in (1, 2)) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
                              for d in (32, 64, 128, 192, 256))
@@ -1686,18 +1688,14 @@ def _tf32_bound(b, s, h, d, half_products):
 def _flash_kernel_bound(fa, b, s, h, d, dtype, half_products):
     """(bound ms, bound_by, other fields) of the flash kernel of
     ``half_products`` (2 forward, 3 dq, 4 dk/dv) on its route
-    (``flash_route(dtype, d, kernel)``): ``_flash_bound``, or for the
-    3xTF32 kernels (``fa.TF32_ROUTES``, on the tensor cores)
-    ``_tf32_bound``, with the f32 CUDA-core bound beside it as
-    ``bound_f32_cuda_cores_ms``; the f32 CUDA-core forward gives the
-    3xTF32 bound beside its own as ``bound_3xtf32_ms``, what a
-    tensor-core design could reach."""
+    (``flash_route(dtype, d, kernel)``): ``_flash_bound`` (bf16), or for
+    the 3xTF32 kernels (``fa.TF32_ROUTES``: every f32 one, on the tensor
+    cores) ``_tf32_bound``, with the f32 CUDA-core bound beside it as
+    ``bound_f32_cuda_cores_ms``."""
     route = fa.flash_route(dtype, d, _FLASH_KERNELS[half_products])
     bound, by = _flash_bound(b, s, h, d, dtype, half_products)
     if route not in fa.TF32_ROUTES:
-        return bound, by, (
-            {"bound_3xtf32_ms": _tf32_bound(b, s, h, d, half_products)[0]}
-            if dtype == torch.float32 else {})
+        return bound, by, {}
     return (*_tf32_bound(b, s, h, d, half_products),
             {"bound_f32_cuda_cores_ms": bound})
 
@@ -1842,10 +1840,12 @@ def _flash_tails(fa, gen):
     cancels in the first row of each (b, h), and at D 512 with a ramp
     along the keys' positions (``ramp``), causal and not, so the
     forward's running max rises at every key tile and each tile rescales
-    o by α = exp(m_old - m_new) far from 1. The f32 dq and dk/dv at head
-    dims 32, 64, 128, 192 and 256 (the 3xTF32 kernels: dq up to 128 in
-    CTAs of 128 rows, the others one slice of all of D) also at S 300,
-    causal and not, and at Sq 300 / Skv 136. Head
+    o by α = exp(m_old - m_new) far from 1. The f32 forward, dq and
+    dk/dv at head dims 32, 64, 128, 192 and 256 (the 3xTF32 kernels: the
+    forward and dq up to 128 in CTAs of 128 rows, the others one slice of
+    all of D) also at S 300, causal and not, and at Sq 300 / Skv 136,
+    and the forward's ramp at D 32 and 128 (its 128-row kernel, whose
+    warpgroups each run the softmax of their own rows) and 256. Head
     dims 16, 80, 96 and 288, both causal and not in each dtype, go
     through ``flash_attention_with_lse`` and autograd, which run the
     kernels zero-padded to 32, 128, 128 and 320 (``padded_head_dim``),
@@ -1945,9 +1945,11 @@ def _flash_tails(fa, gen):
                   (1, 200, 136, False, torch.bfloat16)))):
         tail(b, sq, skv, h, d, causal, dtype)
     # the forward's running max rising at every key tile (some 11 over
-    # the keys at D 512: about 2 a 64-key tile)
+    # the keys at D 512: about 2 a 64-key tile), at D 512 and on the
+    # kernels up to D 256
     for b, sq, skv, causal in ((2, 300, 300, True), (1, 200, 500, False)):
-        tail(b, sq, skv, 2, 512, causal, torch.float32, ramp=2.0)
+        for d in (32, 128, 256, 512):
+            tail(b, sq, skv, 2, d, causal, torch.float32, ramp=2.0)
 
 
 def _sdpa_ms(qt, kt, vt, dot):
@@ -1971,10 +1973,9 @@ def _sdpa_ms(qt, kt, vt, dot):
 
 def _flash_timed(fa, gen, b, s, h, d):
     """The three flash kernels vs their plain versions at (b, s, h, d),
-    causal, bf16 (tensor cores) and f32 (dq and dk/dv in 3xTF32 on the
-    tensor cores; the forward on the CUDA cores up to D 256, in 3xTF32
-    past it), each timed beside its bound (``_flash_kernel_bound``: the
-    3xTF32 one with the CUDA-core one beside it, or the reverse), its
+    causal, bf16 (tensor cores) and f32 (3xTF32 on the tensor cores),
+    each timed beside its bound (``_flash_kernel_bound``: in f32 the
+    3xTF32 one with the CUDA-core one beside it), its
     plain version and SDPA, with the memory it allocates (``_peak_mib``:
     outputs, and the 3xTF32 kernels' workspace), each row naming its
     route (``kernel``); rows by (kernel, dtype). At a
@@ -2155,8 +2156,8 @@ def phase_flash(fa, gen):
     (``_flash_timed``'s routes); SDPA as the library yardstick. Each row
     also gives the kernel's rate over the causal half's operations and
     its share of the bound (bound_ms / ms). Rows by (kernel, dtype, head
-    dim), each naming its route (in f32 dq and dk/dv in 3xTF32 at every
-    head dim, the forward on the CUDA cores up to D 256); under
+    dim), each naming its route (in f32 all three in 3xTF32 at every
+    head dim); under
     "main_shape" the kernels past D 256, both dtypes, held and timed at
     ``-m attention``'s B4 S4096 H2 D512 as well (at B2 S2048 the
     forward's and dq's causal grids fit one wave of SMs and pair their
@@ -2793,13 +2794,12 @@ def _perf_fused(fce, card):
 def _perf_f32(fce, fa, card):
     """The transformer step in f32 (``--dataType f32``) at ``_PERF``'s
     geometry, 1 warm-up and 3 timed steps: the 3xTF32 fused-CE forward,
-    dh and dW/db and the f32 flash kernels at head dim 128 (dq and dk/dv
-    in 3xTF32, the forward on the CUDA cores), the counters set to 0
-    just before and read just after (4 launches of each fused-CE kernel,
-    all on the route "tf32"; 12 layers x 4 steps = 48 of each flash
-    kernel, dq's and dk/dv's all on 3xTF32 routes, "rows_tf32" and
-    "sliced_tf32", the forward's none), the first loss within 0.5 of ln
-    V; then a profile
+    dh and dW/db and the f32 flash kernels at head dim 128 (all three in
+    3xTF32), the counters set to 0 just before and read just after (4
+    launches of each fused-CE kernel, all on the route "tf32"; 12 layers
+    x 4 steps = 48 of each flash kernel, all on 3xTF32 routes: the
+    forward's and dq's "rows_tf32", dk/dv's "sliced_tf32", printed
+    beside them), the first loss within 0.5 of ln V; then a profile
     of the f32 step by kernel kind (``_profile_steps``). Returns the
     fused-CE and the flash launches."""
     from bigdl_tpu_torch.models.utils import perf
@@ -2827,11 +2827,12 @@ def _perf_f32(fce, fa, card):
                              f"(fused={out['fused']})")
     n = _PERF["layers"] * 4
     if (flash != dict.fromkeys(flash, n)
-            or flash_tf32 != {"fwd": 0, "dq": n, "dkdv": n}):
+            or flash_tf32 != dict.fromkeys(flash, n)
+            or any(r not in fa.TF32_ROUTES for r in flash_routes.values())):
         raise AssertionError(f"f32 step flash launches {flash} (on 3xTF32 "
-                             f"routes: {flash_tf32}), expected {n} of "
-                             f"each, dq's and dk/dv's all on those "
-                             f"routes, the forward's none")
+                             f"routes: {flash_tf32}; routes "
+                             f"{flash_routes}), expected {n} of each, all "
+                             f"on those routes")
     first, final = out["first_loss"], out["final_loss"]
     if not (math.isfinite(first) and math.isfinite(final)
             and abs(first - math.log(_PERF["vocab"])) <= 0.5):
@@ -3381,28 +3382,25 @@ def main(argv=None) -> int:
             "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": counts[count], **{k: row[k] for k in keys},
-            **({"bound_f32_cuda_cores_ms": row["bound_f32_cuda_cores_ms"]}
-               if "bound_f32_cuda_cores_ms" in row else {})})
+            "bound_f32_cuda_cores_ms": row["bound_f32_cuda_cores_ms"]})
     # the f32 rows at head dim 128, timed at B4 S2048 H8, their launches
-    # those of [perf]'s f32 transformer step: the CUDA-core forward (the
-    # 3xTF32 bound beside its own), the 3xTF32 dq and dk/dv (bound_ms
-    # theirs on the tensor cores, the f32 CUDA-core one beside it), with
-    # the memory each call allocates
+    # those of [perf]'s f32 transformer step: the 3xTF32 forward, dq and
+    # dk/dv, each named by its route (bound_ms theirs on the tensor cores,
+    # the f32 CUDA-core one beside it), with the memory each call
+    # allocates
     counts = perf_flash[(128, "f32 step")]
     for name, line, count in (("flash_fwd", 190, "fwd"),
                               ("flash_dq", 306, "dq"),
                               ("flash_dkdv", 322, "dkdv")):
         row = flash_rows[(name, torch.float32, 128)]
         kernels.append({
-            "name": (f"{name}_f32" if row["kernel"] == "cuda_cores"
-                     else f"{name}_{row['kernel']}"),
+            "name": f"{name}_{row['kernel']}",
             "route": "cuda", "kernel_route": row["kernel"],
             "source": "bigdl_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"bigdl_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": counts[count], **{k: row[k] for k in keys},
-            **{k: row[k] for k in ("bound_3xtf32_ms",
-                                   "bound_f32_cuda_cores_ms", "peak_mib")
-               if k in row}})
+            **{k: row[k] for k in ("bound_f32_cuda_cores_ms",
+                                   "peak_mib")}})
     for name, line, count in (("fused_ce_fwd", 184, "fwd"),
                               ("fused_ce_dh", 214, "dh"),
                               ("fused_ce_dw", 230, "dw")):

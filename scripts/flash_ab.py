@@ -8,28 +8,29 @@ this checkout's headers) into a temporary directory and runs each
 version's forward, dq and dk/dv at the ``[train]`` shapes B4 S2048 with
 H·D = 1024 (H8 at D 128; ``--heads`` fixes H instead, as the wide head
 dims need: ``--dims 320 512 576 1024 --batch 2 --heads 2``), causal, in
-bf16 (tensor cores) and f32 (the forward on the CUDA cores up to D 256;
-dq and dk/dv at every D and the forward past 256 in 3xTF32, given a
-workspace by this checkout's ``flash_route`` as the last pointer, so
-another version's entry that takes none, or routes the call to a kernel
-that needs none, ignores it). For each head dim and dtype
-it
-prints whether the two versions' outputs are bit-equal (the kernels use
-no atomics, so unchanged code gives equal bits) and each version's worst
-error over ``chip_smoke.py``'s limits against the plain versions
-(bit-equality also output by output: where this checkout routes a call
-to a new kernel, this checkout's ``flash_route`` is printed beside it),
-then times the kernels in turns (this, other, other, this;
-``chip_smoke._time_ms`` each: L2 flushed, median of 20): one line per
-kernel with both versions' times and the ratio of their means (this /
-other). Last, the card's name and power limit. It exits 1 if any output
-of either version is non-finite or past its limit (after every head dim
-and dtype has been checked and timed, so that a known fault does not
-hide the other readings). The f32 gradients are held against the plain
-versions evaluated in float64 (``chip_smoke._flash_outputs``);
-``--worst N`` also prints, for each f32 draw, the N elements of each
-version's dq, dk and dv farthest from them (in units of their limit),
-each beside the f32 plain version's value and distance.
+bf16 (tensor cores) and f32 (every kernel at every D in 3xTF32 on the
+tensor cores: the forward and dq up to D 128 on the 128-row kernels,
+route "rows_tf32", the rest "sliced_tf32"; each given a workspace by
+this checkout's ``flash_route`` as the last pointer, so another
+version's entry that takes none, or routes the call to a kernel that
+needs none, such as an older CUDA-core f32 forward, ignores it). For
+each head dim and dtype it prints whether the two versions' outputs are
+bit-equal (the kernels use no atomics, so unchanged code gives equal
+bits) and each version's worst error over ``chip_smoke.py``'s limits
+against the plain versions (bit-equality also output by output: where
+this checkout routes a call to a new kernel, this checkout's
+``flash_route`` is printed beside it), then times the kernels in turns
+(this, other, other, this; ``chip_smoke._time_ms`` each: L2 flushed,
+median of 20): one line per kernel with both versions' times and the
+ratio of their means (this / other). Last, the card's name and power
+limit. It exits 1 if any output of either version is non-finite or past
+its limit (after every head dim and dtype has been checked and timed, so
+that a known fault does not hide the other readings). The f32 gradients
+are held against the plain versions evaluated in float64
+(``chip_smoke._flash_outputs``); ``--worst N`` also prints, for each f32
+draw, the N elements of each version's dq, dk and dv farthest from them
+(in units of their limit), each beside the f32 plain version's value and
+distance.
 
     python3 scripts/flash_ab.py --other DIR [--dims 32 64 128]
         [--batch 4] [--seq 2048] [--heads H] [--seed N] [--worst N]

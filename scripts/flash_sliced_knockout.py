@@ -30,10 +30,13 @@ dk/dv; and the forward's score product formed by one warpgroup alone
 (not half of it by each). ``--only tf32_narrow`` runs
 ``TF32_NARROW_VARIANTS`` in f32 at ``TF32_NARROW_SHAPES`` (B4 S2048 with
 H·D = 1024 at D 128, 64 and 32, the f32 training step's width and the
-narrower ones): dq at D <= 128 on the sliced kernel with its P/dS
-hand-off (64 rows a CTA), not the 128-row one; and dk/dv at D <= 128 in
-128-key CTAs whose warpgroups each form Sᵀ and dPᵀ of their own keys
-and accumulate both dv and dk (no Pᵀ hand-off). The variants that show
+narrower ones): the forward at D 64 and 128 and dq at D <= 128 on the
+sliced kernels with their hand-offs (64 rows a CTA; the forward's S
+summed half by each warpgroup, P and α handed back; dq's P and dS),
+not the 128-row ones (at D 32 the forward's variant runs the 128-row
+kernel, as the sliced one cannot); and dk/dv at D <= 128 in 128-key
+CTAs whose warpgroups each form Sᵀ and dPᵀ of their own keys and
+accumulate both dv and dk (no Pᵀ hand-off). The variants that show
 the error a choice keeps off are held to nothing. The f32 outputs are
 held to the plain versions evaluated in float64
 (``chip_smoke._flash_fwd_refs``,
@@ -653,10 +656,33 @@ int dkdv_rows_tf32(int D, const CUtensorMap (&m)[4],
 
 """
 
-#: the f32 dq and dk/dv at head dims up to 128 (``--only tf32_narrow``),
-#: as ``TF32_VARIANTS``: the 128-row dq undone (the P/dS hand-off back),
-#: and dk/dv in 128-key CTAs without its Pᵀ hand-off
+#: the f32 forward, dq and dk/dv at head dims up to 128 (``--only
+#: tf32_narrow``), as ``TF32_VARIANTS``: the 128-row forward and dq undone
+#: (the S half and P/α hand-off, or the P/dS hand-off, back), and dk/dv
+#: in 128-key CTAs without its Pᵀ hand-off
 TF32_NARROW_VARIANTS = {
+    "fwd_handoff": (
+        ("fwd",),
+        "the forward at D 64 and 128 on the sliced kernel of D 192 and "
+        "256 (64 query rows a CTA, each warpgroup summing half of S over "
+        "D, warpgroup 1 handing its half to warpgroup 0, which runs the "
+        "softmax and hands P's parts and α back; warpgroup 0 one chunk "
+        "of oᵀ, warpgroup 1 the rest), not the 128-row kernel; at D 32, "
+        "where the sliced kernel's halves of S would be 16 columns, the "
+        "128-row kernel still",
+        [("  if (D <= 64)\n    return fwd_rows_tf32<1>(D, m, kp, o, lse, B, "
+          "H, Sq, Skv, scale, causal,\n                            st);\n"
+          "  if (D <= 128)\n    return fwd_rows_tf32<2>(D, m, kp, o, lse, "
+          "B, H, Sq, Skv, scale, causal,\n                            "
+          "st);\n",
+          "  if (D <= 32)\n    return fwd_rows_tf32<1>(D, m, kp, o, lse, B, "
+          "H, Sq, Skv, scale, causal,\n                            st);\n"),
+         ("  switch ((own + 1) / 2) {\n    case 2:\n      return "
+          "fwd_sliced_tf32_own<2>(",
+          "  switch ((own + 1) / 2) {\n    case 1:\n      return "
+          "fwd_sliced_tf32_own<1>(D, own, m, kp, o, lse, B, H, Sq, Skv, "
+          "scale, causal, st);\n    case 2:\n      return "
+          "fwd_sliced_tf32_own<2>(")]),
     "dq_handoff": (
         ("dq",),
         "dq at D <= 128 on the sliced kernel of D 192 and 256 (64 query "
@@ -716,7 +742,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("fwd", "bwd", "tf32", "tf32_narrow"),
                     help="the bf16 forward's variants, the bf16 "
                     "backward's, the f32 3xTF32 kernels' past D 256, or "
-                    "the f32 3xTF32 dq's and dk/dv's up to D 128")
+                    "the f32 3xTF32 forward's, dq's and dk/dv's up to D 128")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -285,9 +285,9 @@ _WIDE_BF16 = {"fwd": ("tc::fwd_sliced", "int fwd_sliced_own(",
                      "flash_dq_sliced_tc_kernel<OWN>"),
               "dkdv": ("tc::dkdv_sliced", "int dkdv_sliced_own(",
                        "flash_dkdv_sliced_tc_kernel<OWN>")}
-#: the f32 launcher past D 256 of each C entry (named in the entry's
-#: ``wide_f32``, which passes the workspace on), the function that
-#: launches its kernel, and the kernel (route "sliced_tf32")
+#: the f32 launcher of each C entry at every head dim (named in the
+#: entry's ``tf32``, which passes the workspace on), the function that
+#: launches its kernel past D 256, and that kernel (route "sliced_tf32")
 _WIDE_F32 = {"fwd": ("tc::fwd_sliced_tf32", "int fwd_sliced_tf32_own(",
                      "flash_fwd_sliced_tf32_kernel<OWN>"),
              "dq": ("tc::dq_sliced_tf32", "int dq_sliced_tf32_own(",
@@ -303,12 +303,14 @@ def _function_body(src, head):
     return body[:body.index("\n}\n")]
 
 
-#: the instantiations each f32 backward launcher must call for the head
-#: dims up to 256, one slice of all of D: chunks(D) = 1, 1, 2, 3, 4 at D
-#: 32, 64, 128, 192, 256. dq up to 128 runs the 128-row kernel of
+#: the instantiations each f32 launcher must call for the head dims up to
+#: 256, one slice of all of D: chunks(D) = 1, 1, 2, 3, 4 at D 32, 64, 128,
+#: 192, 256. The forward and dq up to 128 run the 128-row kernel of
 #: chunks(D) (route "rows_tf32"), at 192 and 256 the sliced one whose
 #: warpgroup 0 takes ceil(chunks / 2); dk/dv's warpgroups take all of them
-_NARROW_F32_CALLS = {"dq": ("dq_rows_tf32<1>(", "dq_rows_tf32<2>(",
+_NARROW_F32_CALLS = {"fwd": ("fwd_rows_tf32<1>(", "fwd_rows_tf32<2>(",
+                             "fwd_sliced_tf32_own<2>("),
+                     "dq": ("dq_rows_tf32<1>(", "dq_rows_tf32<2>(",
                             "dq_sliced_tf32_own<2>("),
                      "dkdv": tuple(f"dkdv_sliced_tf32_own<{n}>("
                                    for n in (1, 2, 3, 4))}
@@ -322,75 +324,62 @@ def test_flash_route_matches_the_c_dispatch(kernel):
     ``padded_head_dim``) and each dtype. bf16: the head dims with kernels
     of their own run ``tc::`` (route "tc"); past 256 ``tc::fwd_sliced``,
     ``tc::dq_sliced`` and ``tc::dkdv_sliced``, whose launchers launch
-    ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (route "sliced_tc"). f32:
-    past 256 ``tc::fwd_sliced_tf32``, ``tc::dq_sliced_tf32`` and
-    ``tc::dkdv_sliced_tf32`` (through the entry's ``wide_f32``), whose
-    launchers launch ``flash_{fwd,dq,dkdv}_sliced_tf32_kernel`` (3xTF32
-    on the tensor cores, route "sliced_tf32"); at the head dims up to
-    256 the forward's ``cuda_cores`` (the CUDA-core
-    ``flash_fwd_kernel<float, D>``, route "cuda_cores") and dq's and
-    dk/dv's ``wide_f32`` (3xTF32, their launchers calling every
-    instantiation those head dims need: dq up to 128
-    ``flash_dq_rows_tf32_kernel``, route "rows_tf32", then the sliced
-    kernel, route "sliced_tf32"; dk/dv the sliced kernel). The CUDA-core
-    dq and dk/dv kernels are gone."""
+    ``flash_{fwd,dq,dkdv}_sliced_tc_kernel`` (route "sliced_tc"). f32, at
+    every head dim the kernels are built for: ``tc::fwd_sliced_tf32``,
+    ``tc::dq_sliced_tf32`` and ``tc::dkdv_sliced_tf32`` (through the
+    entry's ``tf32``, which passes the workspace on; 3xTF32 on the tensor
+    cores), whose launchers launch ``flash_{fwd,dq,dkdv}_sliced_tf32_
+    kernel`` past 256 (route "sliced_tf32") and call every instantiation
+    the head dims up to 256 need: the forward and dq up to 128
+    ``flash_fwd_rows_tf32_kernel`` and ``flash_dq_rows_tf32_kernel``
+    (route "rows_tf32"), then the sliced kernel (route "sliced_tf32");
+    dk/dv the sliced kernel. The CUDA-core forward, dq and dk/dv kernels
+    are gone."""
     src = (Path(tfa.__file__).resolve().parents[1] / "csrc"
            / "flash_attention.cu").read_text()
     macro = src[src.index(
-        "#define BIGDL_FLASH_DISPATCH(FN, F32, WIDE_F32, WIDE_BF16, "):]
+        "#define BIGDL_FLASH_DISPATCH(FN, F32, WIDE_BF16, "):]
     macro = macro[:macro.index("} while (0)")]
     own = {int(d): "tc" for d in re.findall(
         r"if \(dtype == 1 && D == (\d+)\) return tc::FN<\1>", macro)}
-    narrow = re.search(r"if \(dtype == 0 &&\s*\\\s*\(([^)]*)\)\)\s*\\\s*"
-                       r"return F32\(D, __VA_ARGS__\);", macro)
-    f32_dims = {int(d) for d in re.findall(r"D == (\d+)", narrow.group(1))}
+    f32 = re.search(r"if \(dtype == 0 && \(((?:[^()]|\([^()]*\))*)\)\)"
+                    r"\s*\\\s*return F32\(D, __VA_ARGS__\);", macro)
+    f32_dims = {int(d) for d in re.findall(r"D == (\d+)", f32.group(1))}
     assert f32_dims == set(own) == {32, 64, 128, 192, 256}
+    # and past 256 every multiple of 64, in the same branch
+    assert re.search(r"\|\|\s*(?:\\\s*)?\(D > 256 && D % 64 == 0\)$",
+                     f32.group(1).strip())
     wide = dict(re.findall(r"if \(dtype == (\d) && D > 256 && D % 64 == 0\)"
                            r"\s*\\\s*return (\S+)\(D, __VA_ARGS__\);",
                            macro))
-    assert wide == {"0": "WIDE_F32", "1": "WIDE_BF16"}
-    f32_narrow, f32_wide, bf16_wide = re.search(
-        rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+), ([^,]+), ([^,]+),",
-        src).groups()
+    assert wide == {"1": "WIDE_BF16"}
+    f32_lambda, bf16_wide = re.search(
+        rf"BIGDL_FLASH_DISPATCH\({kernel}, ([^,]+), ([^,]+),", src).groups()
     entry = _function_body(src, f'extern "C" int bigdl_flash_{kernel}(')
     f32_name, f32_launcher, f32_kernel = _WIDE_F32[kernel]
     # the entry's lambda hands every argument and the workspace to the f32
     # launcher
-    assert f32_wide == "wide_f32"
-    assert f"return {f32_name}(D, a..., work);" in entry
+    assert f32_lambda == "tf32"
+    assert f"auto tf32 = [work](int D, auto... a) {{\n    return " \
+        f"{f32_name}(D, a..., work);" in entry
     assert f32_kernel in _function_body(src, f32_launcher)
-    # the launcher's caller picks between its instantiations
+    # the launcher's caller picks between its instantiations: every one
+    # the head dims up to 256 need, and past 256 the sliced kernel's
     name = f32_name.split("::")[1]
     caller = _function_body(src, f"int {name}(int D, ")
     assert f32_launcher[4:-1] + "<" in caller
-    if kernel == "fwd":
-        # f32 up to 256: the CUDA-core forward of each head dim
-        assert f32_narrow == "cuda_cores"
-        lam = entry[entry.index("auto cuda_cores = "):]
-        lam = lam[:lam.index("};")]
-        cases = re.findall(r"(?:case (\d+)|default): return "
-                           r"fwd<float, (\d+)>\(a\.\.\.\);", lam)
-        assert {int(d) for _, d in cases} == f32_dims
-        assert all(c in ("", d) for c, d in cases)
-        assert "flash_fwd_kernel<T, D>" in _function_body(
-            src, "template <typename T, int D>\nint fwd(")
-        narrow_f32 = "cuda_cores"
-    else:
-        # f32 up to 256: the 3xTF32 launcher past 256, which calls every
-        # instantiation those head dims need
-        assert f32_narrow == "wide_f32"
-        for call in _NARROW_F32_CALLS[kernel]:
-            assert call in caller, (kernel, call)
-        if kernel == "dq":
-            assert ("flash_dq_rows_tf32_kernel<NC>" in _function_body(
-                src, "int dq_rows_tf32("))
-            # up to 128 the 128-row kernel, past it the sliced one
-            assert re.search(r"if \(D <= 64\)\s*return dq_rows_tf32<1>\("
-                             r"[^;]*;\s*if \(D <= 128\)\s*return "
-                             r"dq_rows_tf32<2>\(", caller)
-        # the CUDA-core dq and dk/dv they replaced are gone
-        assert f"flash_{kernel}_kernel<" not in src
-        narrow_f32 = "sliced_tf32"
+    for call in _NARROW_F32_CALLS[kernel]:
+        assert call in caller, (kernel, call)
+    if kernel != "dkdv":
+        assert (f"flash_{kernel}_rows_tf32_kernel<NC>" in _function_body(
+            src, f"int {kernel}_rows_tf32("))
+        # up to 128 the 128-row kernel, past it the sliced one
+        assert re.search(rf"if \(D <= 64\)\s*return {kernel}_rows_tf32<1>\("
+                         rf"[^;]*;\s*if \(D <= 128\)\s*return "
+                         rf"{kernel}_rows_tf32<2>\(", caller)
+    # the CUDA-core kernels they replaced are gone
+    assert f"flash_{kernel}_kernel<" not in src
+    assert "cuda_cores" not in src
     b_entry, b_launcher, b_kernel = _WIDE_BF16[kernel]
     assert bf16_wide == b_entry
     assert b_kernel in _function_body(src, b_launcher)
@@ -402,7 +391,8 @@ def test_flash_route_matches_the_c_dispatch(kernel):
         for d in range(32, 4097, 32):
             if d in own:
                 built[d] = (own[d] if code == 1 else "rows_tf32"
-                            if kernel == "dq" and d <= 128 else narrow_f32)
+                            if kernel != "dkdv" and d <= 128
+                            else "sliced_tf32")
             elif d > 256 and d % 64 == 0:
                 built[d] = "sliced_tf32" if code == 0 else "sliced_tc"
         assert set(built) == {d for d in range(32, 4097, 32)
@@ -417,16 +407,15 @@ def test_flash_route_matches_the_c_dispatch(kernel):
                for d in (320, 384, 448, 512, 576, 1024))
     assert all(tfa.flash_route(torch.float32, d, kernel) == "sliced_tf32"
                for d in (320, 384, 448, 512, 576, 1024))
-    # the workspace follows the route: f32 dq and dk/dv take one at every
-    # head dim, the f32 forward past 256 only, bf16 never
+    # the workspace follows the route: f32 takes one at every head dim,
+    # bf16 never
     for dtype in codes:
         for d in (32, 96, 128, 256, 320):
             q = torch.empty((1, 2, 1, d), dtype=dtype, device="meta")
             work = tfa._work(kernel, q, q)
             assert (work is not None) == (tfa.flash_route(dtype, d, kernel)
                                           in tfa.TF32_ROUTES), (dtype, d)
-            assert (work is not None) == (dtype == torch.float32 and (
-                kernel != "fwd" or d > 256)), (dtype, d)
+            assert (work is not None) == (dtype == torch.float32), (dtype, d)
             if work is not None:
                 assert work.numel() == (2 if kernel == "fwd" else 4) * 2 * d
 
@@ -537,20 +526,23 @@ def _emulated_forward(q, k, v, scale, causal, mm):
     return o / lsum, (m + torch.log(lsum))[:, 0]
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_3xtf32_forward_holds_the_f32_limit(causal):
-    """The numerical argument of the f32 forward past D 256 (3xTF32 on
-    the tensor cores, the online softmax over 64-key tiles), emulated in
-    f32 on the CPU as ``test_3xtf32_products_hold_the_f32_limit`` does
-    the backward: at D 512 (B1 S192 H1, inputs from a numpy seed) o stays
-    within ``chip_smoke._FLASH_TOL[(float32, "o")]`` of ``flash_fwd_ref``
-    evaluated in float64 (measured as ``chip_smoke._worst`` does) and lse
-    within ``chip_smoke._LSE_TOL``, while the same walk with single TF32
-    products misses the o limit: the split keeps about 22 of f32's 24
-    bits, one TF32 product 11."""
+@pytest.mark.parametrize(
+    "causal,d", [pytest.param(c, d, id=f"{c}" + ("" if d == 512 else f"-d{d}"))
+                 for d in (512, 32, 64, 128, 256) for c in (True, False)])
+def test_3xtf32_forward_holds_the_f32_limit(causal, d):
+    """The numerical argument of the f32 forward (3xTF32 on the tensor
+    cores at every head dim, the online softmax over 64-key tiles),
+    emulated in f32 on the CPU as ``test_3xtf32_products_hold_the_f32_
+    limit`` does the backward: at D 512, 256 (the sliced kernel, one
+    slice), 128, 64 and 32 (the 128-row kernel; B1 S192 H1, inputs from a
+    numpy seed) o stays within ``chip_smoke._FLASH_TOL[(float32, "o")]``
+    of ``flash_fwd_ref`` evaluated in float64 (measured as
+    ``chip_smoke._worst`` does: 0.02-0.06 of the limit) and lse within
+    ``chip_smoke._LSE_TOL``, while the same walk with single TF32 products
+    misses the o limit at every one of these widths (20-33 x it): the
+    split keeps about 22 of f32's 24 bits, one TF32 product 11."""
     cs = _chip_smoke()
     rtol, atol = cs._FLASH_TOL[(torch.float32, "o")]
-    d = 512
     q, k, v, _, _ = _inputs(1, 192, 1, d, seed=19)
     q, k, v = (torch.from_numpy(x) for x in (q, k, v))
     scale = d ** -0.5
