@@ -24,10 +24,13 @@
 // X: the forward and dh take R = token rows, X = vocab tiles; dW takes R
 // = vocab rows, X = token tiles. For each X tile it forms the logits
 // tile S = R·Xᵀ over the whole feature axis D, then either folds S into
-// an online logsumexp (forward) or turns it into dlogits and adds dl·X
-// into a D-wide accumulator (dh, dW). The TPU grid carries that state
-// across its sequential axis in VMEM scratch; here the axis is a loop
-// inside the CTA and the state lives in registers.
+// an online logsumexp (forward) or turns it into dlogits dl for the
+// product dl·X (dh, dW). The TPU grid carries its state (the logsumexp,
+// the dh / dW accumulator) across its sequential axis in VMEM scratch;
+// here the axis is a loop inside the CTA and the state lives in
+// registers, but for the bf16 backward past D 1024, which writes dl to a
+// workspace a chunk of resident rows at a time and multiplies it by X in
+// a second pass.
 //
 // Bound on the H100: at the harness shapes (N 8192, V 32768, D 1024,
 // bf16) the forward does 2·N·V·D = 5.5e11 operations on 85 MB of inputs
@@ -222,14 +225,53 @@
 // - Grid: N/128 row tiles x vocab splits, one CTA an SM (vocab_splits),
 //   the CTAs of a split walking the same W tiles in step.
 //
-// The bf16 backward with D > 1024 (fce_bwd_kernel): f32 arithmetic on
-// the CUDA cores, one CTA per 16 resident rows and 64-row X tiles. D is
-// streamed in 64-column chunks of R and X (cp.async, double buffered);
-// the 256 threads split a chunk's columns into four parts of 64 threads,
-// each owning 4 x 4 register tiles, summed through shared memory at the
-// end. The accumulator is 16 rows x 1024 columns (thread t: columns 4t ..
-// 4t+3), X's rows read back from L2; D beyond 1024 takes more CTAs along
-// a second grid axis, each recomputing S.
+// Backward, bf16 with D > 1024 (tc::fce_dl_tc_kernel<kVocabRows>, then
+// tc::fce_gemm_tc_kernel): two passes over chunks of resident rows, with
+// no D-wide accumulator.
+// - Why. The cluster kernel's R slice (128 rows x 256 columns a CTA)
+//   covers D 1024 in a cluster of four. Past it, a wider accumulator
+//   means more exchange (what bounds the cluster kernel) or the logits
+//   formed again for every slice of D. A reduction across blocks takes a
+//   second pass instead: dl goes to device memory and comes back as a
+//   GEMM operand.
+// - Pass 1, dl (fce_dl_tc_kernel): the forward's GEMM, tile, ring and
+//   roles (128 R rows x 256 X columns a CTA, two consumer warpgroups of
+//   wgmma m64n256k16, a producer warpgroup streaming the 4-stage TMA
+//   ring, setmaxnreg 40 / 232) with a dl epilogue in registers: dl =
+//   (2^((s + b)·log2 e - lse·log2 e) - onehot)·g in f32, zero past nR
+//   and nX, rounded to bf16 and stored 4 bytes (two columns) at a time
+//   straight from the accumulator's layout into the chunk buffer
+//   dl[rows][nXp] (nXp: nX rounded up to 8, for TMA's 16-byte pitch),
+//   row-major: K-major for pass 2 in dh and dW alike. A second producer
+//   warp stages each tile's column values in shared memory (dh: the
+//   bias; dW: each token's lse·log2 e, g and target column), two slots
+//   under full and empty mbarriers. dW also sums each vocab row's
+//   unrounded dl over the tile's 256 tokens (the lane quad's shares) into
+//   one f32 partial a (row, token tile); fce_db_merge_kernel adds them in
+//   tile order.
+// - Pass 2, out = dl·X (fce_gemm_tc_kernel, one kernel for dh and dW): 128
+//   output rows x 256 columns a CTA, the forward's roles and ring; A the
+//   dl chunk, K-major [128][64] boxes; B X's [64][64] boxes, read
+//   MN-major (wgmma's transposed B, four 64-column chunks); K is the
+//   whole walk, so each output is one f32 sum in registers, rounded to
+//   bf16 once. X boxes wholly past D are not loaded: the columns they
+//   feed are never stored.
+// - Chunks: the most 128-row tiles whose bf16 dl fits the workspace's
+//   kChunkBytes beside dW's db partials (chunk_rows); the wrapper
+//   allocates the workspace (ops.fused_ce.workspace_floats). Two
+//   launches a chunk, and the db merge for dW.
+// - Bound: operations, 4·N·V·D a kernel as the TPU's pair (each forms the
+//   logits once more), with the dl chunks' round trip (2·N·V bytes
+//   written and read back per kernel) beside them. At N 8192 V 32768 D
+//   2048 dh takes 3.07-3.35 ms and dW 3.58-3.65, 61-72 % of the 2.22 ms
+//   bound (chip_smoke.py, fused_ce_knockout.py --only chunked, PERF.md;
+//   NVIDIA H100 80GB HBM3, 700 W). Pass 1 alone is 0.53-0.58 of the
+//   pair, pass 2 alone 0.45-0.47. Neither the loads nor the epilogue set
+//   the pace: with no TMA loads a pass saves 5-8 %, with no exps nothing,
+//   with no dl stores 1-6 % (so a staged TMA store could save no more);
+//   the products themselves run at 58-69 % of the card's peak. A
+//   workspace of 64 MiB leaves dh's pass 2 64 CTAs on 132 SMs (1.32-1.36x).
+// - Sums are f32 in a fixed order (no atomics): deterministic.
 //
 // Both forwards may split the vocab across a further grid axis so that a
 // few rows still fill the card; fce_merge_kernel merges the per-split
@@ -264,14 +306,6 @@ __device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
-__device__ __forceinline__ void load4(const bf16* p, float (&x)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
 
 __device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -283,25 +317,6 @@ __device__ __forceinline__ void store4(bf16* p, const float (&x)[4]) {
   v.x = *reinterpret_cast<unsigned*>(&a);
   v.y = *reinterpret_cast<unsigned*>(&b);
   *reinterpret_cast<uint2*>(p) = v;
-}
-
-// x as a bf16 product operand sees it
-__device__ __forceinline__ float round_as(float x, bf16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;        // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 template <int kLanes>
@@ -317,23 +332,6 @@ __device__ __forceinline__ float group_sum(float x) {
   for (int o = kLanes / 2; o > 0; o >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// Stage `rows` rows from `row0` (valid below n) and `cols` feature
-// columns from d0 (valid below D) of x (rows of D) into dst at `pitch`
-// elements a row; the rest is zero-filled.
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* x,
-                                           int row0, int rows, int n, int D,
-                                           int d0, int cols) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int chunks = cols / kVec;
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks, w = (i % chunks) * kVec;
-    const bool ok = row0 + r < n && d0 + w < D;
-    cp_async16(dst + r * pitch + w,
-               ok ? x + static_cast<int64_t>(row0 + r) * D + d0 + w : x, ok);
-  }
 }
 
 __global__ void fce_merge_kernel(const float* __restrict__ part, int splits,
@@ -442,14 +440,16 @@ int max_clusters(Kernel kernel, int ranks, bool along_y, int threads,
 
 // (rows, D) bf16 at ptr as a 2-D (D, rows) map with boxes (64, box_rows),
 // the 128-byte swizzle; f32: boxes of (32, box_rows), the same 128-byte
-// rows; reads past either edge fill zeros
+// rows; reads past either edge fill zeros. Rows lie `pitch` elements
+// apart (a multiple of 16 bytes), D where it is 0.
 int make_map(CUtensorMap* map, const void* ptr, int rows, int D,
-             int box_rows, bool f32 = false) {
+             int box_rows, bool f32 = false, int pitch = 0) {
   const hopper::EncodeTiled enc = hopper::encode_tiled();
   if (!enc) return hopper::kNoEncoder;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * (f32 ? 4 : 2)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch ? pitch : D) *
+                                 (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {f32 ? 32u : 64u,
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
@@ -990,6 +990,342 @@ int fwd(const void* h, const void* w, const float* b, const int* t,
   return merge(part, splits, N, nll, lse, st);
 }
 
+// ---------------------------------------------------------------------------
+// backward past D 1024: dl of a chunk of resident rows (pass 1), then the
+// chunk's dl · X (pass 2)
+// ---------------------------------------------------------------------------
+
+// the workspace's bytes: one chunk of resident rows' bf16 dl, and dW's db
+// partials
+constexpr int64_t kChunkBytes = 128ll << 20;
+constexpr int kColWords = 3 * kFwdCols;    // a tile's column values
+// pass 1's shared memory (from the 1024-aligned base): the forward's ring,
+// two slots of column values, then the ring's barriers (Ring) and
+// colfull[2], colempty[2]
+constexpr int kDlCols = kFwdStages * kFwdStage;
+constexpr int kDlBars = kDlCols + 2 * kColWords * 4;
+constexpr int kDlColBars = kDlBars + 8 * (2 * kFwdStages + 1);
+constexpr size_t kDlSmem = 1024 + kDlColBars + 8 * 4;
+static_assert(kDlSmem <= 232448, "more shared memory than a CTA may have");
+
+// Pass 1. dl of the chunk's resident rows [r0, r0 + rows) (this CTA's
+// 128 from r0 + 128·blockIdx.x) against the walked tiles of 256 columns
+// of split blockIdx.y (balanced, none empty), into `dl` (rows x nXp bf16,
+// row-major; columns past nX are not written: pass 2's map stops at nX).
+// The forward's products; the producer warpgroup's first thread streams
+// the ring, its second warp the tiles' column values. dW (kVocabRows)
+// writes each vocab row's unrounded dl summed over a tile to dbp[tile][row].
+template <bool kVocabRows>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fce_dl_tc_kernel(const __grid_constant__ CUtensorMap rm,
+                 const __grid_constant__ CUtensorMap xm,
+                 const float* __restrict__ b, const int* __restrict__ tgt,
+                 const float* __restrict__ lse, const float* __restrict__ g,
+                 bf16* __restrict__ dl, float* __restrict__ dbp, int r0,
+                 int rows, int nR, int nX, int nXp, int D) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  // colfull[s] takes the column warp's 32 arrivals, colempty[s] one from
+  // each consumer warp
+  const uint32_t cbar = ((smem_u32(smem_raw) + 1023) & ~1023u) + kDlColBars;
+  if (threadIdx.x == 0)
+    for (int s = 0; s < 2; ++s) {
+      bar_init(cbar + 8 * s, 32);
+      bar_init(cbar + 16 + 8 * s, kConsumers / 32);
+    }
+  const Ring<kFwdStages> ring =
+      make_ring<kFwdStages>(smem_raw, kDlBars, kConsumers / 32);
+  float* const cols = reinterpret_cast<float*>(
+      smem_raw + (ring.base - smem_u32(smem_raw)) + kDlCols);
+  const int rt = r0 + blockIdx.x * kFwdRows;
+  const int all = (nX + kFwdCols - 1) / kFwdCols;
+  const int t0 = blockIdx.y * all / gridDim.y;
+  const int nt = (blockIdx.y + 1) * all / gridDim.y - t0;
+  const int nb = (D + 63) / 64;            // 64-column boxes of D
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {                 // the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      for (int i = 0; i < nt * nb; ++i) {
+        const int st = i % kFwdStages;
+        if (i >= kFwdStages)
+          bar_wait(ring.empty(st), (i / kFwdStages - 1) & 1);
+        const uint32_t dst = ring.base + st * kFwdStage;
+        const int d0 = 64 * (i % nb);
+        bar_expect(ring.full(st), kFwdStage);
+        tma_load_2d(dst, &rm, ring.full(st), d0, rt);
+        tma_load_2d(dst + kHBox, &xm, ring.full(st), d0,
+                    (t0 + i / nb) * kFwdCols);
+      }
+    } else if (tid / 32 == kConsumers / 32 + 1) {   // the column warp
+      for (int t = 0; t < nt; ++t) {
+        const int s = t & 1;
+        if (t >= 2) bar_wait(cbar + 16 + 8 * s, ((t >> 1) - 1) & 1);
+        float* const c = cols + s * kColWords;
+        for (int k = tid % 32; k < kFwdCols; k += 32) {
+          const int x = (t0 + t) * kFwdCols + k;
+          const bool ok = x < nX;
+          if (kVocabRows) {
+            c[k] = ok ? lse[x] * kLog2e : 0.f;
+            c[kFwdCols + k] = ok ? g[x] : 0.f;
+            reinterpret_cast<int*>(c)[2 * kFwdCols + k] = ok ? tgt[x] - 1
+                                                              : -1;
+          } else {
+            c[k] = ok ? b[x] : 0.f;
+          }
+        }
+        bar_arrive(cbar + 8 * s);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = tid / 128, l = tid % 32;
+  // this thread's rows of the CTA's 128: lr and lr + 8
+  const int lr = 64 * wg + 16 * ((tid / 32) % 4) + l / 4;
+  // dh: the token's lse·log2 e, g and target column; dW: the vocab
+  // entry's bias. Rows past the chunk store nothing.
+  float rv[2], rg[2];
+  int rcol[2];
+  bool rok[2];
+  bf16* rdl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rt + lr + 8 * h;
+    rok[h] = r - r0 < rows;
+    rv[h] = !rok[h] ? 0.f : kVocabRows ? b[r] : lse[r] * kLog2e;
+    rg[h] = !kVocabRows && rok[h] ? g[r] : 0.f;
+    rcol[h] = !kVocabRows && rok[h] ? tgt[r] - 1 : -1;
+    rdl[h] = dl + static_cast<int64_t>(r - r0) * nXp;
+  }
+  auto release = [&](int i) {
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(i % kFwdStages));
+  };
+
+  float acc[128];
+  zero(acc);
+  keep(acc);
+  for (int t = 0, i = 0; t < nt; ++t) {
+    for (int kb = 0; kb < nb; ++kb, ++i) {
+      const int st = i % kFwdStages;
+      const uint32_t rs = ring.base + st * kFwdStage, xs = rs + kHBox;
+      warp_wait(ring.full(st), (i / kFwdStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n256(acc, desc_k<kFwdRows>(rs, 64 * wg, kk),
+                      desc_k<kFwdCols>(xs, 0, kk), kb > 0 || kk > 0);
+      wg_commit();
+      if (kb > 0) {
+        wg_wait<1>();                      // the previous box's products
+        release(i - 1);
+      }
+    }
+    wg_wait();
+    keep(acc);
+    release(i - 1);
+
+    const int s = t & 1;
+    warp_wait(cbar + 8 * s, (t >> 1) & 1);
+    const float* const c = cols + s * kColWords;
+    const int x0 = (t0 + t) * kFwdCols;
+    float dbs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kFwdCols / 8; ++j) {
+      const int cl = 8 * j + 2 * (l % 4), x = x0 + cl;
+      float2 cv = *reinterpret_cast<const float2*>(c + cl);
+      float2 cg = make_float2(0.f, 0.f);
+      int2 ct = make_int2(-1, -1);
+      if (kVocabRows) {
+        cg = *reinterpret_cast<const float2*>(c + kFwdCols + cl);
+        ct = *reinterpret_cast<const int2*>(c + 2 * kFwdCols + cl);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rt + lr + 8 * h;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sv = acc[4 * j + 2 * h + e];
+          const float cvv = e ? cv.y : cv.x;
+          d[e] = kVocabRows
+                     ? (ex2(fmaf(sv + rv[h], kLog2e, -cvv)) -
+                        ((e ? ct.y : ct.x) == r ? 1.f : 0.f)) *
+                           (e ? cg.y : cg.x)
+                     : (ex2(fmaf(sv + cvv, kLog2e, -rv[h])) -
+                        (x + e == rcol[h] ? 1.f : 0.f)) * rg[h];
+          if (x + e >= nX) d[e] = 0.f;
+          dbs[h] += d[e];
+        }
+        if (rok[h] && x < nX)
+          *reinterpret_cast<uint32_t*>(rdl[h] + x) = pack_bf16(d[0], d[1]);
+      }
+    }
+    __syncwarp();
+    if (l == 0) bar_arrive(cbar + 16 + 8 * s);
+    if (kVocabRows) {                      // the rows' db over this tile
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sum = quad_sum(dbs[h]);
+        if (l % 4 == 0 && rok[h])
+          dbp[static_cast<int64_t>(t0 + t) * nR + rt + lr + 8 * h] = sum;
+      }
+    }
+  }
+}
+
+// Pass 2. out rows [128·blockIdx.y, +128) of the chunk, columns [256·
+// blockIdx.x, +256): the chunk's dl (A, rows x nX from the map am: [128]
+// [64] K-major boxes) times X (B, nX x D from bm: [64][64] boxes, read
+// MN-major), K the whole walk in 64-row steps through the forward's ring;
+// the f32 sums rounded to bf16 once. X boxes wholly past D are not
+// loaded: the stale columns they leave feed only outputs past D.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fce_gemm_tc_kernel(const __grid_constant__ CUtensorMap am,
+                   const __grid_constant__ CUtensorMap bm,
+                   bf16* __restrict__ out, int rows, int nX, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<kFwdStages> ring =
+      make_ring<kFwdStages>(smem_raw, FwdLayout::kBars, kConsumers / 32);
+  const int r0 = blockIdx.y * kFwdRows, d0 = blockIdx.x * kFwdCols;
+  const int nk = (nX + 63) / 64;           // K steps of 64 walked rows
+  const int nc = min(kFwdCols / 64, (D - d0 + 63) / 64);
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {                 // the producer warpgroup
+    regs_dec<kProducerRegs>();
+    if (tid == kConsumers) {
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % kFwdStages;
+        if (i >= kFwdStages)
+          bar_wait(ring.empty(st), (i / kFwdStages - 1) & 1);
+        const uint32_t dst = ring.base + st * kFwdStage;
+        bar_expect(ring.full(st), kHBox + nc * 64 * kRowBytes);
+        tma_load_2d(dst, &am, ring.full(st), 64 * i, r0);
+        for (int c = 0; c < nc; ++c)
+          tma_load_2d(dst + kHBox + c * 64 * kRowBytes, &bm, ring.full(st),
+                      d0 + 64 * c, 64 * i);
+      }
+    }
+    return;                                // no CTA barrier after this
+  }
+  regs_inc<kConsumerRegs>();
+
+  const int wg = tid / 128, l = tid % 32;
+  auto release = [&](int i) {
+    __syncwarp();
+    if (l == 0) bar_arrive(ring.empty(i % kFwdStages));
+  };
+  float acc[128];
+  zero(acc);
+  keep(acc);
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % kFwdStages;
+    const uint32_t as = ring.base + st * kFwdStage, bs = as + kHBox;
+    warp_wait(ring.full(st), (i / kFwdStages) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n256<1>(acc, desc_k<kFwdRows>(as, 64 * wg, kk),
+                       desc_mn_wide<64>(bs, kk), i > 0 || kk > 0);
+    wg_commit();
+    if (i > 0) {
+      wg_wait<1>();                        // the previous step's products
+      release(i - 1);
+    }
+  }
+  wg_wait();
+  keep(acc);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 64 * wg + 16 * ((tid / 32) % 4) + l / 4 + 8 * h;
+    if (r >= rows) continue;
+    bf16* const o = out + static_cast<int64_t>(r) * D + d0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + 2 * (l % 4);
+      if (d0 + c < D)                      // D a multiple of 8: c + 1 too
+        *reinterpret_cast<uint32_t*>(o + c) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// db[v] = the walked tiles' partial sums of row v (`tiles` planes of n),
+// added in tile order
+__global__ void fce_db_merge_kernel(const float* __restrict__ part,
+                                    int tiles, int n, float* __restrict__ db) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < tiles; ++z) s += part[static_cast<int64_t>(z) * n + v];
+  db[v] = s;
+}
+
+// the resident rows of a chunk: the most 128-row tiles whose bf16 dl (a
+// row of nX rounded up to 8) fits kChunkBytes beside `fixed` bytes (dW's
+// db partials), at least one, no more than nR needs
+inline int chunk_rows(int nR, int nX, int64_t fixed) {
+  const int64_t row = static_cast<int64_t>((nX + 7) / 8 * 8) * 2;
+  const int64_t tiles = (kChunkBytes - fixed) / row / kFwdRows;
+  const int fit = static_cast<int>(tiles > 1 ? tiles : 1) * kFwdRows;
+  const int need = (nR + kFwdRows - 1) / kFwdRows * kFwdRows;
+  return fit < need ? fit : need;
+}
+
+// dh (kVocabRows false) or dW and db (true) past D 1024: for each chunk of
+// chunk_rows resident rows, pass 1 writes its dl into `work` (rows x nXp
+// bf16; dW's db partials follow the chunk, walked tiles x nR f32), pass 2
+// its rows of out; dW then merges db
+template <bool kVocabRows>
+int chunked(const void* h, const void* w, const float* b, const int* t,
+            const float* lse, const float* g, void* out, float* db, int N,
+            int V, int D, cudaStream_t st, float* work) {
+  if (!work) return -1;
+  const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
+  const void* const X = kVocabRows ? h : w;
+  const int tiles = (nX + kFwdCols - 1) / kFwdCols;
+  const int64_t parts = kVocabRows ? static_cast<int64_t>(tiles) * nR : 0;
+  const int nXp = (nX + 7) / 8 * 8, rc = chunk_rows(nR, nX, 4 * parts);
+  bf16* const dl = reinterpret_cast<bf16*>(work);
+  float* const dbp = work + static_cast<int64_t>(rc) * nXp / 2;
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  if (cudaError_t e = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev))
+    return static_cast<int>(e);
+  CUtensorMap rm, xm, bm;
+  if (int e = make_map(&rm, kVocabRows ? w : h, nR, D, kFwdRows)) return e;
+  if (int e = make_map(&xm, X, nX, D, kFwdCols)) return e;
+  if (int e = make_map(&bm, X, nX, D, 64)) return e;
+  auto pass1 = fce_dl_tc_kernel<kVocabRows>;
+  if (int e = set_smem(pass1, kDlSmem)) return e;
+  if (int e = set_smem(fce_gemm_tc_kernel, FwdLayout::kSmem)) return e;
+  for (int r0 = 0; r0 < nR; r0 += rc) {
+    const int rows = min(rc, nR - r0);
+    const int rtiles = (rows + kFwdRows - 1) / kFwdRows;
+    CUtensorMap am;
+    if (int e = make_map(&am, dl, rows, nX, kFwdRows, false, nXp)) return e;
+    pass1<<<dim3(rtiles, vocab_splits(rows, nX, kFwdRows, kFwdCols, sms)),
+            kFwdThreads, kDlSmem, st>>>(rm, xm, b, t, lse, g, dl, dbp, r0,
+                                        rows, nR, nX, nXp, D);
+    if (int e = static_cast<int>(cudaGetLastError())) return e;
+    fce_gemm_tc_kernel<<<dim3((D + kFwdCols - 1) / kFwdCols, rtiles),
+                         kFwdThreads, FwdLayout::kSmem, st>>>(
+        am, bm, static_cast<bf16*>(out) + static_cast<int64_t>(r0) * D, rows,
+        nX, D);
+    if (int e = static_cast<int>(cudaGetLastError())) return e;
+  }
+  if (!kVocabRows) return 0;
+  fce_db_merge_kernel<<<(nR + 255) / 256, 256, 0, st>>>(dbp, tiles, nR,
+                                                          db);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tc
 
 // ===========================================================================
@@ -1514,198 +1850,6 @@ int fwd(const void* h, const void* w, const float* b, const int* t,
 
 }  // namespace tf
 
-constexpr int kR = 16;        // resident rows per CTA
-constexpr int kKC = 64;       // feature columns per staged chunk
-constexpr int kParts = 4;     // column parts of a chunk (K split)
-constexpr int kDAcc = 4 * kThreads;   // accumulator columns per CTA
-constexpr int kGF = kR + 4;   // pitch (f32) of the dlogits tile
-
-// shared-memory row pitch in elements: the chunk plus 16 bytes, so
-// 16-byte cp.async chunks stay aligned and strided rows spread banks
-template <typename T>
-__host__ __device__ constexpr int pitch() {
-  return kKC + 16 / static_cast<int>(sizeof(T));
-}
-
-template <typename T>
-__host__ __device__ constexpr int stage_elems() {
-  return (kR + kX) * pitch<T>();
-}
-
-// bytes: the double-buffered stage, the partial S tiles and the dlogits
-// tile
-template <typename T>
-constexpr size_t smem_bytes() {
-  return 2 * stage_elems<T>() * sizeof(T) + kParts * kR * kX * sizeof(float) +
-         kX * kGF * sizeof(float);
-}
-
-// Walk streamed tiles [xt0, xt1) against the resident rows: for each,
-// S = R·Xᵀ over all of D, then `epi(xt, s)` with s[e] = S[t/16][4(t%16)+e]
-// (every thread calls it; it may synchronise).
-template <typename T, typename Epi>
-__device__ __forceinline__ void walk(const T* __restrict__ R, int r0, int nR,
-                                     const T* __restrict__ X, int nX, int xt0,
-                                     int xt1, int D, T* stages, float* red,
-                                     Epi& epi) {
-  constexpr int P = pitch<T>();
-  const int tid = threadIdx.x;
-  const int part = tid / 64, rb = (tid % 64) / 16, cb = tid % 16;
-  const int nc = (D + kKC - 1) / kKC;
-  const int total = (xt1 - xt0) * nc;
-  if (total <= 0) return;
-
-  auto load = [&](int step) {
-    T* dst = stages + (step & 1) * stage_elems<T>();
-    const int c = step % nc;
-    stage_rows<T>(dst, P, R, r0, kR, nR, D, c * kKC, kKC);
-    stage_rows<T>(dst + kR * P, P, X, (xt0 + step / nc) * kX, kX, nX, D,
-                  c * kKC, kKC);
-  };
-  float acc[4][4];
-  load(0);
-  cp_async_commit();
-  for (int step = 0; step < total; ++step) {
-    const int xt = xt0 + step / nc, c = step % nc;
-    if (step + 1 < total) load(step + 1);
-    cp_async_commit();
-    cp_async_wait_prev();                  // this step's chunk has landed
-    __syncthreads();
-
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-    const T* Rs = stages + (step & 1) * stage_elems<T>();
-    const T* Xs = Rs + kR * P;
-    const int k0 = part * (kKC / kParts);
-#pragma unroll
-    for (int kk = 0; kk < kKC / kParts; kk += 4) {
-      float a[4][4], bb[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) load4(Rs + (rb * 4 + i) * P + k0 + kk, a[i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        load4(Xs + (cb + 16 * j) * P + k0 + kk, bb[j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j] += a[i][e] * bb[j][e];
-    }
-    __syncthreads();                       // stage free for reuse
-
-    if (c == nc - 1) {
-      // sum the four column parts; thread t then owns S[t/16][4(t%16)..]
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          red[(part * kR + rb * 4 + i) * kX + cb + 16 * j] = acc[i][j];
-      __syncthreads();
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int p = 0; p < kParts; ++p) {
-        float x[4];
-        load4(red + (p * kR + tid / 16) * kX + (tid % 16) * 4, x);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[e] += x[e];
-      }
-      epi(xt, s);
-    }
-  }
-}
-
-// thread t's share of the dlogits tile into gs ([x][row], f32 holding
-// T-rounded values), then acc (16 rows x columns d .. d+3) += dl · X's
-// rows of tile xt (read from L2)
-template <typename T, bool kVocabRows>
-struct BwdEpi {
-  const T* X;
-  const float *b, *lse, *g;
-  const int* tgt;
-  float* gs;
-  int nX, D, d, rr;
-  bool row_ok;
-  float row_v;          // dh: the row's lse; dW: the row's bias
-  float row_g;          // dh: the row's g
-  int row_t;            // dh: the row's target column
-  float db;
-  float acc[kR][4];
-  __device__ void operator()(int xt, float (&s)[4]) {
-    const int xq = (threadIdx.x % 16) * 4, r = threadIdx.x / 16;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int x = xt * kX + xq + e;
-      float dl = 0.f;
-      if (row_ok && x < nX)
-        dl = kVocabRows ? dlogit(s[e] + row_v, lse[x], g[x], tgt[x] - 1 == rr)
-                        : dlogit(s[e] + b[x], row_v, row_g, x == row_t);
-      db += dl;
-      gs[(xq + e) * kGF + r] = round_as(dl, T{});
-    }
-    __syncthreads();                       // dlogits tile complete
-    if (d >= D) return;
-    const int x_first = xt * kX, xn = min(kX, nX - x_first);
-#pragma unroll 8
-    for (int x = 0; x < xn; ++x) {
-      float xv[4];
-      load4(X + static_cast<int64_t>(x_first + x) * D + d, xv);
-      float gv[kR];
-#pragma unroll
-      for (int q = 0; q < kR / 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(gs + x * kGF + 4 * q);
-        gv[4 * q] = v.x; gv[4 * q + 1] = v.y;
-        gv[4 * q + 2] = v.z; gv[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] += gv[i] * xv[e];
-    }
-  }
-};
-
-template <typename T, bool kVocabRows>
-__global__ void __launch_bounds__(kThreads, 1)
-fce_bwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
-               const float* __restrict__ b, const int* __restrict__ tgt,
-               const float* __restrict__ lse, const float* __restrict__ g,
-               T* __restrict__ out, float* __restrict__ db, int N, int V,
-               int D) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const stages = reinterpret_cast<T*>(smem_raw);
-  float* const red = reinterpret_cast<float*>(stages + 2 * stage_elems<T>());
-  float* const gs = red + kParts * kR * kX;
-  const T* R = kVocabRows ? w : h;
-  const T* X = kVocabRows ? h : w;
-  const int nR = kVocabRows ? V : N, nX = kVocabRows ? N : V;
-
-  const int r0 = blockIdx.x * kR;
-  const int rr = r0 + threadIdx.x / 16;
-  const bool ok = rr < nR;
-  const int d = static_cast<int>(blockIdx.y * kDAcc + 4 * threadIdx.x);
-  BwdEpi<T, kVocabRows> epi{
-      X, b, lse, g, tgt, gs, nX, D, d, rr, ok,
-      !ok ? 0.f : kVocabRows ? b[rr] : lse[rr],
-      !kVocabRows && ok ? g[rr] : 0.f,
-      !kVocabRows && ok ? tgt[rr] - 1 : -1, 0.f, {}};
-  walk<T>(R, r0, nR, X, nX, 0, (nX + kX - 1) / kX, D, stages, red, epi);
-  if (d < D) {
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-      if (r0 + i < nR)
-        store4(out + static_cast<int64_t>(r0 + i) * D + d, epi.acc[i]);
-  }
-  if (kVocabRows) {
-    const float sum = group_sum<16>(epi.db);
-    if (blockIdx.y == 0 && threadIdx.x % 16 == 0 && ok) db[rr] = sum;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -1732,12 +1876,11 @@ int fwd(const void* h, const void* w, const float* b, const int* t,
 // `splits` parts of the vocab into `part`, f32 splits x N x D, when
 // splits > 1) or dW and db (true: one walk). f32 takes the 3xTF32 kernel
 // at every D (its workspace `work`), bf16 the cluster kernel up to D 1024
-// and the CUDA-core kernel past it.
+// and the two chunked passes past it (their workspace `work`).
 template <typename T, bool kVocabRows>
 int bwd(const void* h, const void* w, const float* b, const int* t,
         const float* lse, const float* g, void* out, float* part, float* db,
         int N, int V, int D, int splits, cudaStream_t st, float* work) {
-  const int nR = kVocabRows ? V : N;
   if constexpr (sizeof(T) == 4) {
     return tf::bwd<kVocabRows>(h, w, b, t, lse, g, static_cast<float*>(out),
                                part, db, N, V, D, splits, st, work);
@@ -1745,13 +1888,8 @@ int bwd(const void* h, const void* w, const float* b, const int* t,
     if (clustered<T>(D))
       return tc::bwd<kVocabRows>(h, w, b, t, lse, g, out, part, db, N, V, D,
                                  splits, st);
-    constexpr size_t smem = smem_bytes<T>();
-    auto kernel = fce_bwd_kernel<T, kVocabRows>;
-    if (int e = set_smem(kernel, smem)) return e;
-    kernel<<<dim3((nR + kR - 1) / kR, (D + kDAcc - 1) / kDAcc), kThreads,
-             smem, st>>>(static_cast<const T*>(h), static_cast<const T*>(w),
-                         b, t, lse, g, static_cast<T*>(out), db, N, V, D);
-    return static_cast<int>(cudaGetLastError());
+    return tc::chunked<kVocabRows>(h, w, b, t, lse, g, out, db, N, V, D, st,
+                                   work);
   }
 }
 
@@ -1783,8 +1921,8 @@ int dw(const void* h, const void* w, const float* b, const int* t,
 }  // namespace
 
 // Each entry returns 0 on a clean launch, -1 for a dtype or feature
-// width the kernels were not built for (or an f32 call given no
-// workspace), -2 where no tensor-map encoder is found, 1000 + the
+// width the kernels were not built for (or a call given no workspace
+// that needs one), -2 where no tensor-map encoder is found, 1000 + the
 // CUresult of a refused tensor map, else the CUDA error code. `part`
 // holds 3 x splits x N floats, splits from bigdl_fce_fwd_splits. f32
 // needs `work`, 2 x V x D floats (W's tf32 parts); it comes last, after
@@ -1807,7 +1945,8 @@ extern "C" int bigdl_fce_fwd_splits(int dtype, int N, int V, int D,
 
 // `part` holds splits x N x D floats when splits > 1 (else unused),
 // splits from bigdl_fce_dh_splits. f32 needs `work`, 2 x V x D floats
-// (W's tf32 parts); it comes last, after the stream.
+// (W's tf32 parts), bf16 past D 1024 one dl chunk (chunk_rows(N, V, 0) x
+// V rounded up to 8, bf16); it comes last, after the stream.
 extern "C" int bigdl_fce_dh(int dtype, const void* h, const void* w,
                             const float* b, const int* t, const float* lse,
                             const float* g, void* dh_out, float* part, int N,
@@ -1818,14 +1957,17 @@ extern "C" int bigdl_fce_dh(int dtype, const void* h, const void* w,
                      st, work);
 }
 
-// how many parts the dh kernel splits the vocab into (1 for the
-// CUDA-core kernel)
+// how many parts the dh kernel splits the vocab into (1 for the bf16
+// chunked passes past D 1024)
 extern "C" int bigdl_fce_dh_splits(int dtype, int N, int V, int D) {
   if (dtype == 0) return tf::dh_splits(N, V, D);
   return dtype == 1 && clustered<bf16>(D) ? tc::dh_splits(N, V) : 1;
 }
 
-// f32 needs `work`, 2 x N x D floats (h's tf32 parts), after the stream
+// f32 needs `work`, 2 x N x D floats (h's tf32 parts), bf16 past D 1024
+// one dl chunk (chunk_rows(V, N, db partials' bytes) x N rounded up to 8,
+// bf16) and the db partials (ceil(N / 256) x V floats); it comes after
+// the stream
 extern "C" int bigdl_fce_dw(int dtype, const void* h, const void* w,
                             const float* b, const int* t, const float* lse,
                             const float* g, void* dw_out, float* db, int N,

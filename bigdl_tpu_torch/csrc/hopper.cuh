@@ -320,7 +320,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
-// the same at N256 (B: 256 K-major rows)
+// the same at N256 (B: 256 K-major rows; with kTransB 1, B MN-major,
+// its 256 columns four 64-wide chunks: desc_mn_wide)
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
                                               uint64_t b, int acc) {
   asm volatile(
@@ -338,7 +340,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -365,7 +367,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(acc));
+      : "l"(a), "l"(b), "r"(acc), "n"(kTransB));
 }
 
 // d += A·B, A (M64 K16 bf16) in registers, B MN-major in shared memory

@@ -9,11 +9,12 @@ Three kernels, each with its plain PyTorch version beside it:
 - ``fused_ce_dw``  — dW = Σ_n dlogitsᵀ·h and db = Σ_n dlogits.
 
 Which kernel of ``csrc/fused_ce.cu`` runs a call is :func:`kernel_route`:
-in bf16 the forward, and dh and dW/db up to D 1024, run on the tensor
-cores; in f32 all three run in 3xTF32 on the tensor cores (each operand
-split into tf32 high and low parts, summed in f32), with the parts of
-the operand they walk written first to a workspace the wrapper allocates
-(:func:`workspace_floats`).
+in bf16 all three run on the tensor cores, dh and dW/db past D 1024 as
+two passes a chunk of rows (dl into a workspace, then dl times the
+walked operand); in f32 all three run in 3xTF32 on the tensor cores
+(each operand split into tf32 high and low parts, summed in f32), with
+the parts of the operand they walk written first to a workspace. The
+wrapper allocates each workspace (:func:`workspace_floats`).
 
 On a CUDA tensor each launches the hand-written Hopper kernel of
 ``csrc/fused_ce.cu`` (built at first use, see ``_build.py``) or raises;
@@ -31,7 +32,9 @@ one-hot is zero in the backward. A bias of None counts as zeros.
 ``fwd_launches``, ``dh_launches`` and ``dw_launches`` count kernel
 launches, so a run can show its main path went through the kernels;
 ``fwd_tf32_launches``, ``dh_tf32_launches`` and ``dw_tf32_launches``
-count those on the route "tf32" (f32: the 3xTF32 kernels) apart.
+count those on the route "tf32" (f32: the 3xTF32 kernels) apart, and
+``dh_chunked_launches`` and ``dw_chunked_launches`` those on the route
+"tc_chunked" (bf16 past D 1024).
 """
 from __future__ import annotations
 
@@ -46,12 +49,18 @@ __all__ = ["linear_cross_entropy", "linear_ce_supported",
            "fused_ce_dw", "fused_ce_fwd_ref", "fused_ce_dh_ref",
            "fused_ce_dw_ref", "kernel_route", "workspace_floats",
            "fwd_launches", "dh_launches", "dw_launches",
-           "fwd_tf32_launches", "dh_tf32_launches", "dw_tf32_launches"]
+           "fwd_tf32_launches", "dh_tf32_launches", "dw_tf32_launches",
+           "dh_chunked_launches", "dw_chunked_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the bf16 backward's cluster kernels take D up to this (four CTAs of
 #: 256 columns: ``kClusterD`` in csrc/fused_ce.cu)
 _CLUSTER_D = 1024
+#: past it the two chunked passes: the bytes of their workspace, one chunk
+#: of resident rows' bf16 dl and dW's db partials (``kChunkBytes``), in
+#: tiles of 128 rows x 256 walked columns (``kFwdRows`` x ``kFwdCols``)
+_CHUNK_BYTES = 128 << 20
+_TILE_ROWS, _TILE_COLS = 128, 256
 
 #: kernel launches since import (reset by assigning 0)
 fwd_launches = 0
@@ -61,6 +70,9 @@ dw_launches = 0
 fwd_tf32_launches = 0
 dh_tf32_launches = 0
 dw_tf32_launches = 0
+#: and on the route "tc_chunked"
+dh_chunked_launches = 0
+dw_chunked_launches = 0
 
 
 def linear_ce_supported(h, w) -> bool:
@@ -79,12 +91,13 @@ def kernel_route(dtype, d: int, kernel: str) -> str | None:
     pick it: the forward ``"tc"`` in bf16 (``fce_fwd_tc_kernel``) and
     ``"tf32"`` in f32 (``fce_fwd_tf32_kernel``: 3xTF32 on the tensor
     cores); dh and dW/db ``"tc_cluster"`` in bf16 up to D 1024
-    (``fce_bwd_tc_kernel``: wgmma in four-CTA clusters), ``"cuda_cores"``
-    in bf16 past it (``fce_bwd_kernel``) and ``"tf32"`` in f32 at every
-    D (``fce_bwd_tf32_kernel``: 3xTF32 on the tensor cores, two-CTA
-    clusters). None where no kernel takes the call. A width the kernels
-    do not take (no multiple of 8) reports the route of the width
-    ``linear_cross_entropy`` pads it to."""
+    (``fce_bwd_tc_kernel``: wgmma in four-CTA clusters), ``"tc_chunked"``
+    in bf16 past it (``fce_dl_tc_kernel`` then ``fce_gemm_tc_kernel``, a
+    chunk of resident rows at a time: wgmma fed by TMA) and ``"tf32"`` in
+    f32 at every D (``fce_bwd_tf32_kernel``: 3xTF32 on the tensor cores,
+    two-CTA clusters). None where no kernel takes the call. A width the
+    kernels do not take (no multiple of 8) reports the route of the
+    width ``linear_cross_entropy`` pads it to."""
     if d < 1 or dtype not in _DTYPE_CODES or kernel not in ("fwd", "dh",
                                                             "dw"):
         return None
@@ -93,16 +106,37 @@ def kernel_route(dtype, d: int, kernel: str) -> str | None:
         return "tf32"
     if kernel == "fwd":
         return "tc"
-    return "tc_cluster" if d <= _CLUSTER_D else "cuda_cores"
+    return "tc_cluster" if d <= _CLUSTER_D else "tc_chunked"
+
+
+def _chunk_rows(n_res: int, n_walk: int, fixed: int) -> int:
+    """Resident rows a chunk of the route "tc_chunked" takes
+    (``chunk_rows`` in csrc/fused_ce.cu): the most tiles of 128 whose
+    bf16 dl, ``n_walk`` columns rounded up to 8 a row, fits
+    ``_CHUNK_BYTES`` beside ``fixed`` bytes, at least one, no more than
+    ``n_res`` rows need."""
+    row = (n_walk + -n_walk % 8) * 2
+    fit = max(1, (_CHUNK_BYTES - fixed) // row // _TILE_ROWS) * _TILE_ROWS
+    return min(fit, -(-n_res // _TILE_ROWS) * _TILE_ROWS)
 
 
 def workspace_floats(kernel: str, n: int, v: int, d: int, dtype) -> int:
     """f32 elements of the workspace ``kernel`` needs at (N, V, D): on
     the route "tf32" the tf32 high and low parts of the operand it walks,
-    2·V·D for the forward and dh (W's) and 2·N·D for dW (h's); else 0."""
-    if kernel_route(dtype, d, kernel) != "tf32":
+    2·V·D for the forward and dh (W's) and 2·N·D for dW (h's); on
+    "tc_chunked" one chunk of bf16 dl (``_chunk_rows`` resident rows x
+    the walked rows rounded up to 8: V for dh, N for dW) and, for dW, db's
+    f32 partials (one a vocab row and tile of 256 tokens), together at
+    most ``_CHUNK_BYTES`` where one tile of rows fits; else 0."""
+    route = kernel_route(dtype, d, kernel)
+    if route == "tf32":
+        return 2 * (n if kernel == "dw" else v) * d
+    if route != "tc_chunked":
         return 0
-    return 2 * (n if kernel == "dw" else v) * d
+    n_res, n_walk = (v, n) if kernel == "dw" else (n, v)
+    parts = -(-n_walk // _TILE_COLS) * n_res if kernel == "dw" else 0
+    return (_chunk_rows(n_res, n_walk, 4 * parts)
+            * (n_walk + -n_walk % 8) // 2 + parts)
 
 
 # --------------------------------------------------------------------------
@@ -264,7 +298,7 @@ def fused_ce_dh(h, w, b, t, lse, g):
     """dh (h's dtype) from the saved lse and the nll cotangent g."""
     if h.device.type == "cpu":
         return fused_ce_dh_ref(h, w, b, t, lse, g)
-    global dh_launches, dh_tf32_launches
+    global dh_launches, dh_tf32_launches, dh_chunked_launches
     _check_cuda(h, w, b, t, lse, g)
     (n, d), v = h.shape, w.shape[0]
     dh = torch.empty_like(h)
@@ -275,7 +309,9 @@ def fused_ce_dh(h, w, b, t, lse, g):
             if splits > 1 else None)
     _launch("dh", h, (h, w, b, t, lse, g, dh, part), splits)
     dh_launches += 1
-    dh_tf32_launches += kernel_route(h.dtype, d, "dh") == "tf32"
+    route = kernel_route(h.dtype, d, "dh")
+    dh_tf32_launches += route == "tf32"
+    dh_chunked_launches += route == "tc_chunked"
     return dh
 
 
@@ -283,13 +319,15 @@ def fused_ce_dw(h, w, b, t, lse, g):
     """(dW in w's dtype, db in f32) from the saved lse and g."""
     if h.device.type == "cpu":
         return fused_ce_dw_ref(h, w, b, t, lse, g)
-    global dw_launches, dw_tf32_launches
+    global dw_launches, dw_tf32_launches, dw_chunked_launches
     _check_cuda(h, w, b, t, lse, g)
     dw = torch.empty_like(w)
     db = torch.empty(w.shape[0], dtype=torch.float32, device=w.device)
     _launch("dw", h, (h, w, b, t, lse, g, dw, db))
     dw_launches += 1
-    dw_tf32_launches += kernel_route(h.dtype, h.shape[1], "dw") == "tf32"
+    route = kernel_route(h.dtype, h.shape[1], "dw")
+    dw_tf32_launches += route == "tf32"
+    dw_chunked_launches += route == "tc_chunked"
     return dw, db
 
 

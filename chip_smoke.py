@@ -237,11 +237,16 @@ _TRAIN_GRAD_REL_TOL = 5e-2
 # of the second zero fill; bf16 backward: three of a cluster's four
 # feature slices empty; f32 backward: one 64-column chunk a CTA, score
 # steps past D read as zeros) and D 1032 (bf16 forward: 17 boxes; past
-# the bf16 backward cluster path's 1024: the CUDA-core backward, two
-# accumulator blocks along D; the f32 backward: two clusters a row
-# block, each forming the logits over all of D)
+# the bf16 backward cluster path's 1024: the chunked passes, one chunk,
+# pass 2's last column tile 8 columns wide; the f32 backward: two
+# clusters a row block, each forming the logits over all of D); the
+# ragged case takes the bf16 chunked passes past D 2048 with GPT-2's
+# vocab (no multiple of 8: dl's padded pitch, the masks past V and N)
+# and dh in three chunks of token rows, the last 440 rows, no multiple of
+# 128
 _FCE_CASES = (("main", 8192, 32768, 1024), ("tails", 1000, 50257, 1024),
-              ("narrow", 300, 1000, 72), ("wide", 300, 1000, 1032))
+              ("narrow", 300, 1000, 72), ("wide", 300, 1000, 1032),
+              ("ragged", 3000, 50257, 2056))
 # a feature width no multiple of 8, which ``linear_cross_entropy`` pads
 # with zero columns to 1032 for the kernels: (label, N, V, D)
 _FCE_PADDED = ("padded", 300, 1000, 1028)
@@ -387,6 +392,8 @@ def _print_ptxas(report: str) -> None:
         f = re.search(r"entry function '\S*?(fce_\w+?)_kernel(\w*)'", line)
         ft = re.search(r"entry function '\S*?fce_bwd_tf32_kernelILb([01])E",
                        line)
+        fc = re.search(r"entry function '\S*?fce_(dl_tc_kernelILb([01])E|"
+                       r"gemm_tc_kernel|db_merge_kernel)", line)
         fw = re.search(r"entry function '\S*?fce_fwd_tf32_kernel", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
@@ -452,6 +459,12 @@ def _print_ptxas(report: str) -> None:
         elif ft:
             name = (f"fce_{'dw' if ft.group(1) == '1' else 'dh'}_tf32 f32 "
                     f"(3xTF32 on the tensor cores)")
+        elif fc:
+            name = (f"fce_dl_{'dw' if fc.group(2) == '1' else 'dh'} bf16 "
+                    f"(chunked pass 1, tensor cores)" if fc.group(2) else
+                    "fce_gemm bf16 (chunked pass 2 of dh and dW, tensor "
+                    "cores)" if fc.group(1) == "gemm_tc_kernel" else
+                    "fce_db_merge (chunked dW's db)")
         elif fw:
             name = "fce_fwd_tf32 f32 (3xTF32 on the tensor cores)"
         elif f:
@@ -494,8 +507,10 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     2, the forward and dq up to D 128), all three
     bf16 fused-CE
     kernels, the f32 (3xTF32) fused-CE forward (``fce_fwd_tf32_kernel``)
-    and dh and dW/db (``fce_bwd_tf32_kernel``) and the five paged prefill
-    kernels (D 32, 64, 128, 192, 256) have ``HGMMA``."""
+    and dh and dW/db (``fce_bwd_tf32_kernel``), the bf16 dh and dW/db
+    past D 1024 (both instantiations of pass 1, ``fce_dl_tc_kernel``,
+    and pass 2, ``fce_gemm_tc_kernel``, which both run) and the five
+    paged prefill kernels (D 32, 64, 128, 192, 256) have ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -509,6 +524,7 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                               r"_tc_kernelILi(\d+)E", line)
                 c = re.search(r"fce_bwd_tc_kernelILb([01])E", line)
                 ct = re.search(r"fce_bwd_tf32_kernelILb([01])E", line)
+                cd = re.search(r"fce_dl_tc_kernelILb([01])E", line)
                 sl = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_sliced_tc"
                                r"_kernelILi(\d+)E", line)
                 tf = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_(sliced|rows)"
@@ -524,7 +540,12 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
                         if c else
                         f"fused_ce_{'dw' if ct.group(1) == '1' else 'dh'}"
-                        f" f32 tf32" if ct else "fused_ce_fwd bf16"
+                        f" f32 tf32" if ct else
+                        f"fused_ce_dl_{'dw' if cd.group(1) == '1' else 'dh'}"
+                        f" bf16 chunked" if cd else
+                        "fused_ce_gemm bf16 chunked"
+                        if "fce_gemm_tc_kernel" in line else
+                        "fused_ce_fwd bf16"
                         if "fce_fwd_tc_kernel" in line else
                         "fused_ce_fwd f32 tf32"
                         if "fce_fwd_tf32_kernel" in line else None)
@@ -543,7 +564,9 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     bare += [k for k in ("fused_ce_fwd bf16", "fused_ce_dh bf16",
                          "fused_ce_dw bf16", "fused_ce_fwd f32 tf32",
                          "fused_ce_dh f32 tf32",
-                         "fused_ce_dw f32 tf32") + tuple(
+                         "fused_ce_dw f32 tf32", "fused_ce_dl_dh bf16 chunked",
+                         "fused_ce_dl_dw bf16 chunked",
+                         "fused_ce_gemm bf16 chunked") + tuple(
                              f"{k} bf16 D={d}" for k in ("flash_fwd",
                                                          "flash_dq",
                                                          "flash_dkdv")
@@ -2620,15 +2643,22 @@ def phase_fused_ce(fce, gen):
 #: the bf16 fused-CE backward past the cluster kernels' D 1024, timed at
 #: the harness head's rows and vocabulary: (label, N, V, D)
 _FCE_WIDE_BWD = ("wide_bwd", 8192, 32768, 2048)
+#: ms of the CUDA-core dh and dW/db (``fce_bwd_kernel<bf16>``) that the
+#: chunked passes replaced, at ``_FCE_WIDE_BWD`` on an NVIDIA H100 80GB
+#: HBM3 at 700 W (PERF.md): printed beside the new times, as text only
+_FCE_WIDE_CUDA_CORES_MS = {"dh": 197.80, "dw": 200.67}
 
 
 def _fce_wide_bwd(fce, gen):
-    """The bf16 dh and dW/db past D 1024 (route "cuda_cores",
-    ``fce_bwd_kernel<bf16>``, which no main path runs) at
-    ``_FCE_WIDE_BWD``: each held against its plain version (from the
-    plain forward's lse) within ``_FCE_TOL`` and timed beside its bound,
-    its plain version and the library composition's whole backward
-    (``_fce_library_ms``). Returns the rows by (kernel name, "d2048")."""
+    """The bf16 dh and dW/db past D 1024 (route "tc_chunked":
+    ``fce_dl_tc_kernel`` then ``fce_gemm_tc_kernel``, a chunk of resident
+    rows at a time) at ``_FCE_WIDE_BWD``: each held against its plain
+    version (from the plain forward's lse) within ``_FCE_TOL`` and timed
+    beside its bound, its plain version and the library composition's
+    whole backward (``_fce_library_ms``), with its workspace
+    (``workspace_mib``) and the most the call holds beyond its inputs
+    (``peak_mib``: the workspace and its outputs). Returns the rows by
+    (kernel name, "d2048")."""
     case, n, v, d = _FCE_WIDE_BWD
     dtype = torch.bfloat16
     h, w, b, t, g = _fce_inputs(n, v, d, dtype, gen, False)
@@ -2659,11 +2689,15 @@ def _fce_wide_bwd(fce, gen):
                    worst_err_over_limit=max(e[1] for e in errs),
                    ms=_time_ms(kern), plain_ms=_time_ms(plain),
                    bound_ms=bound, bound_by=by, library_ms=lib_bwd, **extra)
-        row["share_of_bound"] = bound / row["ms"]
+        row.update(share_of_bound=bound / row["ms"],
+                   workspace_mib=fce.workspace_floats(
+                       kname, n, v, d, dtype) * 4 / 2 ** 20,
+                   peak_mib=_peak_mib(kern))
         rows[(f"fused_ce_{kname}", "d2048")] = row
         print(f"[kernels] fused_ce_{kname}[{case} bf16] N={n} V={v} D={d} "
-              f"(library_ms: the whole backward) " + json.dumps(row),
-              flush=True)
+              f"(library_ms: the whole backward; the CUDA-core kernel it "
+              f"replaced took [{_FCE_WIDE_CUDA_CORES_MS[kname]}] ms, "
+              f"PERF.md) " + json.dumps(row), flush=True)
     del h, w, b, t, g, rlse, kernels
     torch.cuda.empty_cache()
     return rows
@@ -2755,10 +2789,26 @@ def _perf_fused(fce, card):
           + f" fused_ce_launches={launches} (=1 per step x {steps} steps; "
           f"TFLOP/s from bench.py's analytic step count, host clock over "
           f"the timed steps ending in the loss readback)", flush=True)
+    _fused_vs_unfused(out, _PERF["layers"], True)
+    sgd = SGD(learning_rate=0.01)
+    model = out["model"]
+    _profile_steps(perf.make_step(model, sgd, True),
+                   sgd.init_state(dict(model.named_parameters())),
+                   out["data"], out["labels"], "perf", card)
+    return launches, numbers
 
+
+def _fused_vs_unfused(out, layers, watch_q):
+    """One batch of a harness run (``out``'s model, data and labels)
+    through the fused and the unfused head: the losses within
+    ``_PERF_LOSS_TOL`` and the gradients of the LM head's weight (and,
+    with ``watch_q``, block 0's q weight) within ``_PERF_GRAD_REL_TOL``
+    of their largest element. Prints and returns the report."""
+    from bigdl_tpu_torch.models.utils import perf
     model, data, labels = out["model"], out["data"], out["labels"]
-    watch = {"lm_head.weight": model[_PERF["layers"] + 2].weight,
-             "block_0.q_weight": model[1][0][1].q_weight}
+    watch = {"lm_head.weight": model[layers + 2].weight}
+    if watch_q:
+        watch["block_0.q_weight"] = model[1][0][1].q_weight
     res = {}
     for fused in (True, False):
         fwd, crit = perf.body_and_loss(model, fused)
@@ -2781,14 +2831,90 @@ def _perf_fused(fce, card):
             raise AssertionError(f"fused vs unfused grad of {name} differs "
                                  f"by {diff} > {_PERF_GRAD_REL_TOL} x "
                                  f"{scale}")
-    print(f"[perf] fused vs unfused head on one batch (bf16 policy): "
+    print(f"[perf] fused vs unfused head on one batch (bf16 policy, "
+          f"{layers} layers, d_model {watch['lm_head.weight'].shape[1]}): "
           + json.dumps(report) + f" tol loss {_PERF_LOSS_TOL}, grads "
           f"{_PERF_GRAD_REL_TOL} x max|grad|", flush=True)
-    sgd = SGD(learning_rate=0.01)
-    _profile_steps(perf.make_step(model, sgd, True),
-                   sgd.init_state(dict(model.named_parameters())), data,
-                   labels, "perf", card)
-    return launches, numbers
+    return report
+
+
+def _unfused_peak(perf, fused_peak, over, card):
+    """The harness step with the unfused head (``--fusedHeadLoss off``, 1
+    warm-up and 2 timed steps) at ``_PERF`` with ``over``: its peak must
+    be at least the bf16 (B·S, V) logits above the fused step's
+    ``fused_peak``. Prints its numbers."""
+    geo = dict(_PERF, **over)
+    off = perf.main(_perf_args(**dict(over, warm_up=1, iterations=2))
+                    + ["--fusedHeadLoss", "off"])
+    saved = off["peak_bytes"] - fused_peak
+    logits = geo["batch"] * geo["seq"] * geo["vocab"] * 2
+    if off["fused"] or saved < logits:
+        raise AssertionError(f"fused step peak {fused_peak} at d_model "
+                             f"{geo['d_model']} is not {logits} below the "
+                             f"unfused {off['peak_bytes']}")
+    print(f"[perf] card='{card}' unfused head (--fusedHeadLoss off) at "
+          f"d_model {geo['d_model']}, {geo['layers']} layers: "
+          f"tokens_per_s={off['tokens_per_s']} ms_per_step="
+          f"{off['ms_per_step']} peak_bytes={off['peak_bytes']}; the fused "
+          f"step's peak is {saved} bytes lower ({saved / logits} x the "
+          f"bf16 logits' {logits})", flush=True)
+    del off
+    torch.cuda.empty_cache()
+
+
+#: the harness past the bf16 cluster kernels' D 1024: d_model 2048 (the
+#: LM head of Llama-3.2-1B and Qwen2.5-3B; 16 heads of 128), 2 layers,
+#: 1 warm-up and 3 timed steps: the fused head's dh and dW/db on the
+#: route "tc_chunked"
+_PERF_WIDE = dict(d_model=2048, layers=2, warm_up=1, iterations=3)
+
+
+def _perf_wide(fce, card):
+    """The harness at ``_PERF_WIDE`` under the bf16 policy, the fused-CE
+    counters set to 0 just before and read just after: 4 launches of
+    each kernel, dh's and dW's all on the route "tc_chunked"; finite
+    losses, the first within 0.5 of ln V; one batch through the fused and
+    the unfused head (``_fused_vs_unfused``, the LM head's gradient); the
+    unfused step's peak at least the bf16 logits above the fused one's
+    (``_unfused_peak``). Returns the launches of dh and dW/db."""
+    from bigdl_tpu_torch.models.utils import perf
+    fce.fwd_launches = fce.dh_launches = fce.dw_launches = 0
+    fce.dh_chunked_launches = fce.dw_chunked_launches = 0
+    out = perf.main(_perf_args(**_PERF_WIDE))
+    launches = {"fwd": fce.fwd_launches, "dh": fce.dh_launches,
+                "dw": fce.dw_launches}
+    chunked = {"dh": fce.dh_chunked_launches, "dw": fce.dw_chunked_launches}
+    steps = _PERF_WIDE["warm_up"] + _PERF_WIDE["iterations"]
+    routes = {k: fce.kernel_route(torch.bfloat16, _PERF_WIDE["d_model"], k)
+              for k in chunked}
+    if (not out["fused"] or launches != dict.fromkeys(launches, steps)
+            or chunked != dict.fromkeys(chunked, steps)
+            or set(routes.values()) != {"tc_chunked"}):
+        raise AssertionError(f"d_model {_PERF_WIDE['d_model']} fused-CE "
+                             f"launches {launches} (on the route "
+                             f"'tc_chunked': {chunked}; routes {routes}), "
+                             f"expected {steps} of each, dh and dW all "
+                             f"chunked (fused={out['fused']})")
+    first, final = out["first_loss"], out["final_loss"]
+    if not (math.isfinite(first) and math.isfinite(final)
+            and abs(first - math.log(_PERF["vocab"])) <= 0.5):
+        raise AssertionError(f"d_model {_PERF_WIDE['d_model']} harness "
+                             f"losses {first}, {final}: the first not "
+                             f"within 0.5 of ln {_PERF['vocab']}")
+    numbers = {k: out[k] for k in ("ms_per_step", "tokens_per_s",
+                                   "peak_bytes", "first_loss",
+                                   "final_loss")}
+    print(f"[perf] card='{card}' transformer "
+          + json.dumps(dict(_PERF, **_PERF_WIDE)) + f" bf16, "
+          f"{_PERF_WIDE['d_model'] // 128} heads of 128, fused head+CE "
+          f"(dh and dW/db on the route 'tc_chunked'): "
+          + json.dumps(numbers) + f" fused_ce_launches={launches} "
+          f"chunked_launches={chunked}", flush=True)
+    _fused_vs_unfused(out, _PERF_WIDE["layers"], False)
+    del out
+    torch.cuda.empty_cache()
+    _unfused_peak(perf, numbers["peak_bytes"], _PERF_WIDE, card)
+    return chunked
 
 
 def _perf_f32(fce, fa, card):
@@ -2866,26 +2992,14 @@ def phase_perf(fce, fa):
     launches of each kernel), and the f32 transformer step
     (``_perf_f32``). Returns the fused-CE launches of the bf16 and of the
     f32 step and the flash launches by (head dim, "bf16" or "f32"), the
-    f32 step's under (128, "f32 step")."""
+    f32 step's under (128, "f32 step"), and the chunked dh and dW/db
+    launches of the step at d_model 2048 (``_perf_wide``)."""
     from bigdl_tpu_torch.models.utils import perf
     card = _card()
     launches, fused = _perf_fused(fce, card)
     torch.cuda.empty_cache()
-    off = perf.main(_perf_args(warm_up=1, iterations=2)
-                    + ["--fusedHeadLoss", "off"])
-    saved = off["peak_bytes"] - fused["peak_bytes"]
-    # the bf16 (B·S, V) logits
-    logits = _PERF["batch"] * _PERF["seq"] * _PERF["vocab"] * 2
-    if off["fused"] or saved < logits:
-        raise AssertionError(f"fused step peak {fused['peak_bytes']} is not "
-                             f"{logits} below the unfused "
-                             f"{off['peak_bytes']}")
-    print(f"[perf] card='{card}' unfused head (--fusedHeadLoss off): "
-          f"tokens_per_s={off['tokens_per_s']} ms_per_step="
-          f"{off['ms_per_step']} peak_bytes={off['peak_bytes']}; the fused "
-          f"step's peak is {saved} bytes lower ({saved / logits} x the "
-          f"bf16 logits' {logits})", flush=True)
-    del off
+    _unfused_peak(perf, fused["peak_bytes"], {}, card)
+    wide = _perf_wide(fce, card)
     torch.cuda.empty_cache()
     flash = {}
     for a, dt in (*((a, "bf16") for a in _PERF_ATTENTION),
@@ -2909,7 +3023,7 @@ def phase_perf(fce, fa):
         torch.cuda.empty_cache()
     f32_launches, flash[(128, "f32 step")] = _perf_f32(fce, fa, card)
     torch.cuda.empty_cache()
-    return launches, f32_launches, flash
+    return launches, f32_launches, flash, wide
 
 
 def _lrn_bound(shape, dtype, size, backward):
@@ -3252,7 +3366,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     wide_launches = phase_train_wide(fa, args.seed)
     narrow_launches = phase_train_narrow(fa, args.seed)
-    fce_launches, fce_f32_launches, perf_flash = phase_perf(fce, fa)
+    fce_launches, fce_f32_launches, perf_flash, fce_wide_launches = (
+        phase_perf(fce, fa))
     torch.cuda.empty_cache()
     conv_launches, _ = phase_inception(lrn, mp)
 
@@ -3411,16 +3526,19 @@ def main(argv=None) -> int:
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fce_launches[count],
             **{k: row[k] for k in keys}})
-    # the bf16 dh and dW/db past D 1024 (the CUDA-core backward), timed at
-    # N 8192 V 32768 D 2048; no main path runs them
-    for name, line in (("fused_ce_dh", 214), ("fused_ce_dw", 230)):
+    # the bf16 dh and dW/db past D 1024 (the chunked passes), timed at
+    # N 8192 V 32768 D 2048, their launches those of [perf]'s step at
+    # d_model 2048
+    for name, line, count in (("fused_ce_dh", 214, "dh"),
+                              ("fused_ce_dw", 230, "dw")):
         row = fce_rows[(name, "d2048")]
         kernels.append({
             "name": f"{name}_d2048", "route": "cuda",
             "kernel_route": row["route"],
             "source": "bigdl_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"bigdl_tpu/ops/pallas/fused_ce.py:{line}",
-            "launches": 0, **{k: row[k] for k in keys}})
+            "launches": fce_wide_launches[count],
+            **{k: row[k] for k in keys}})
     # the f32 rows at the harness head (N 8192, V 32768, D 1024), their
     # launches those of [perf]'s f32 transformer step: the forward, dh and
     # dW/db in 3xTF32 (bound_ms theirs on the tensor cores, the f32

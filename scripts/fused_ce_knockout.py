@@ -111,8 +111,40 @@ then the harness step ``perf -m transformer --dataType f32`` at
 ``chip_smoke._PERF``'s geometry (1 warm-up, 3 timed steps) with each
 version's kernels, in the same turns.
 
+``--only chunked`` instead reads the bf16 dh and dW/db past D 1024
+(route "tc_chunked": ``fce_dl_tc_kernel`` writes a chunk of resident
+rows' dl, ``fce_gemm_tc_kernel`` multiplies it by the walked operand) at
+``chip_smoke._FCE_WIDE_BWD`` (N 8192, V 32768, D 2048), each version's
+outputs held against the plain versions at ``chip_smoke``'s limits
+(``CHUNKED_VERSIONS``' third field: the knockouts' are printed, held to
+nothing), then timed in turns (the versions in order, then in reverse):
+
+- ``no_pass1``, ``no_pass2``: one pass not launched, the other timed
+  alone (pass 2 then reads a stale chunk; dW's db merge stays with pass
+  1's time);
+- ``no_dl_store``: pass 1 forms dl but stores none, so its time less
+  the kept one's is what the direct stores from the accumulator cost,
+  and the most a staged TMA store could save;
+- ``no_dl_epilogue``: pass 1 stores the logits as dl (no exp, no column
+  values, no one-hot);
+- ``pass1_no_tma_load``, ``pass2_no_tma_load``: one pass's producer
+  completes each ring stage's barrier without loading (its products
+  without the L2 traffic into the ring; the other pass as kept);
+- ``budget_64``, ``budget_32``: the workspace's ``kChunkBytes`` at 64
+  and 32 MiB (more, smaller chunks), held to the limits.
+
+Then the harness head's D 1024, which the cluster kernels take: the
+kept dh and dW/db (route "tc_cluster") against a copy that sends bf16
+past D 0 to the chunked passes (``chunked_d1024``, held to the limits),
+in turns. With ``--parent FILE`` (as ``--only tf32`` takes it), last
+the A/B in turns against the parent: the D 2048 pair (the parent's own
+kernels: before this route, the CUDA-core ``fce_bwd_kernel<bf16>``),
+then at the harness head the bf16 forward, dh and dW/db and the f32
+forward, dh and dW/db, which must be bit-equal to the parent's.
+
     python3 scripts/fused_ce_knockout.py [--seed N]
     python3 scripts/fused_ce_knockout.py --only tf32 [--parent FILE]
+    python3 scripts/fused_ce_knockout.py --only chunked [--parent FILE]
 """
 from __future__ import annotations
 
@@ -199,6 +231,29 @@ FAULTS = {
     "w_prev_stage_last_tile": "kb == nb - 1 && t == nt - 1",
 }
 DESIGNS = ("fwd_no_setmaxnreg", "fwd_skewed_warpgroups")
+
+
+def _knocked_out(src: str, name: str, kernels, edits) -> str:
+    """``src`` with a knockout's edits: each (text, replacement, count),
+    within the body of the kernel it knocks a part out of
+    (``fce_fwd_tc_kernel`` or ``fce_bwd_tc_kernel``) where the text lies
+    there (the chunked backward's kernels repeat the forward's producer
+    and products), else in the whole source; a text found another number
+    of times raises."""
+    text = src
+    kernel = "fce_fwd_tc_kernel" if kernels == ("fwd",) else \
+        "fce_bwd_tc_kernel"
+    for old, new, count in edits:
+        a, z = 0, len(text)
+        start = text.index(f"\n{kernel}(")
+        end = text.index("\n}\n", start) + 3
+        if old in text[start:end]:
+            a, z = start, end
+        if text[a:z].count(old) != count:
+            raise RuntimeError(f"{name}: the text it knocks out has moved; "
+                               f"update the knockouts")
+        text = text[:a] + text[a:z].replace(old, new) + text[z:]
+    return text
 
 
 def _fault_source(src: str, where: str) -> str:
@@ -401,6 +456,62 @@ TF32_FWD_KNOCKOUTS = {
 }
 _ORDER = ("this", "parent", "parent", "this")
 
+#: the bf16 chunked backward's versions (``--only chunked``): name ->
+#: (what it changes, [(text, its replacement)], held to the limits)
+_PASS1 = ("    pass1<<<dim3(rtiles, vocab_splits(rows, nX, kFwdRows, "
+          "kFwdCols, sms)),\n            kFwdThreads, kDlSmem, st>>>(rm, xm, "
+          "b, t, lse, g, dl, dbp, r0,\n" + " " * 40
+          + "rows, nR, nX, nXp, D);\n")
+_PASS2 = ("    fce_gemm_tc_kernel<<<dim3((D + kFwdCols - 1) / kFwdCols, "
+          "rtiles),\n                         kFwdThreads, FwdLayout::kSmem, "
+          "st>>>(\n        am, bm, static_cast<bf16*>(out) + "
+          "static_cast<int64_t>(r0) * D, rows,\n        nX, D);\n")
+_DL_STORE = "        if (rok[h] && x < nX)\n"
+_DL_FORMULA = "\n".join((
+    "          d[e] = kVocabRows",
+    "                     ? (ex2(fmaf(sv + rv[h], kLog2e, -cvv)) -",
+    "                        ((e ? ct.y : ct.x) == r ? 1.f : 0.f)) *",
+    "                           (e ? cg.y : cg.x)",
+    "                     : (ex2(fmaf(sv + cvv, kLog2e, -rv[h])) -",
+    "                        (x + e == rcol[h] ? 1.f : 0.f)) * rg[h];", ""))
+_BUDGET = "constexpr int64_t kChunkBytes = 128ll << 20;"
+CHUNKED_VERSIONS = {
+    "no_pass1": ("pass 1 not launched: pass 2 alone, on a stale chunk",
+                 [(_PASS1, "")], False),
+    "no_pass2": ("pass 2 not launched: pass 1 (and dW's db merge) alone",
+                 [(_PASS2, "")], False),
+    "no_dl_store": (
+        "pass 1 forms dl but stores none (a never-true test keeps dl "
+        "live): the direct stores' cost",
+        [(_DL_STORE, "        if (__float_as_uint(d[0]) == 0xffffffffu)\n")],
+        False),
+    "no_dl_epilogue": (
+        "pass 1 stores the logits as dl: no exp, no column values, no "
+        "one-hot", [(_DL_FORMULA, "          d[e] = sv;\n")], False),
+    "pass1_no_tma_load": (
+        "pass 1's producer completes each stage's barrier without loading: "
+        "its products and epilogue without the L2 traffic into the ring",
+        [("        bar_expect(ring.full(st), kFwdStage);\n"
+          "        tma_load_2d(dst, &rm, ring.full(st), d0, rt);\n"
+          "        tma_load_2d(dst + kHBox, &xm, ring.full(st), d0,\n"
+          "                    (t0 + i / nb) * kFwdCols);\n",
+          "        bar_arrive(ring.full(st));\n")], False),
+    "pass2_no_tma_load": (
+        "pass 2's producer completes each stage's barrier without loading",
+        [("        bar_expect(ring.full(st), kHBox + nc * 64 * kRowBytes);\n"
+          "        tma_load_2d(dst, &am, ring.full(st), 64 * i, r0);\n"
+          "        for (int c = 0; c < nc; ++c)\n"
+          "          tma_load_2d(dst + kHBox + c * 64 * kRowBytes, &bm, "
+          "ring.full(st),\n                      d0 + 64 * c, 64 * i);\n",
+          "        bar_arrive(ring.full(st));\n")], False),
+    "budget_64": ("a workspace of 64 MiB: smaller chunks, twice as many",
+                  [(_BUDGET, _BUDGET.replace("128ll", "64ll"))], True),
+    "budget_32": ("a workspace of 32 MiB: four times the chunks",
+                  [(_BUDGET, _BUDGET.replace("128ll", "32ll"))], True),
+}
+#: the copy that sends bf16 at every D to the chunked passes
+_CLUSTERED = "  return sizeof(T) == 2 && D <= kClusterD;"
+
 
 def _f64_backward(h, w, b, t, lse, g):
     """dh, dW and db of the function evaluated in float64 from the same
@@ -560,10 +671,13 @@ def _tf32(args) -> int:
     return 1 if failed else 0
 
 
-def _against_parent(fns, gen, card):
-    """This version against the parent in turns: the f32 pair, the f32
-    forward and the bf16 kernels at the harness head (those two
-    bit-equal), then the f32 harness step. Returns what failed."""
+def _against_parent(fns, gen, card, rebuilt=(("fwd", torch.float32),),
+                    step=True):
+    """This version against the parent in turns: the f32 and bf16
+    forward, dh and dW/db at the harness head, each bit-equal to the
+    parent's but those ``rebuilt`` ((kernel, dtype) pairs: by default the
+    f32 forward), then, with ``step``, the f32 harness step. Returns what
+    failed."""
     from bigdl_tpu_torch.models.utils import perf
     n, v, d = 8192, 32768, 1024
     failed = []
@@ -589,8 +703,7 @@ def _against_parent(fns, gen, card):
             a, p = (a, p) if isinstance(a, tuple) else ((a,), (p,))
             equal = all(torch.equal(x, y) for x, y in zip(a, p))
             mean = {ver: sum(x) / len(x) for ver, x in ms[k].items()}
-            rebuilt = dtype == torch.float32 and k == "fwd"
-            if not equal and not rebuilt:
+            if not equal and (k, dtype) not in rebuilt:
                 failed.append(f"{k} {name}: not bit-equal to the parent")
             print(f"[parent] card='{card}' fused_ce_{k} {name} N={n} V={v} "
                   f"D={d}: route {fce.kernel_route(dtype, d, k)!r} ms "
@@ -599,6 +712,8 @@ def _against_parent(fns, gen, card):
                   f"bit_equal={equal}", flush=True)
         del h, w, b, t, g, lse, outs
         torch.cuda.empty_cache()
+    if not step:
+        return failed
     p = chip_smoke._PERF
     argv = chip_smoke._perf_args(warm_up=1, iterations=3) + [
         "--dataType", "f32"]
@@ -622,36 +737,203 @@ def _against_parent(fns, gen, card):
     return failed
 
 
+def _in_turns(names, calls, use):
+    """Device ms of each of ``calls`` (name -> call) on each version of
+    ``names``, timed with ``use(version)`` in force, the versions in
+    order and then in reverse: version -> call -> [ms, ms]."""
+    times = {k: {c: [] for c in calls} for k in names}
+    for name in list(names) + list(names)[::-1]:
+        use(name)
+        for c, call in calls.items():
+            times[name][c].append(chip_smoke._time_ms(call))
+    return times
+
+
+def _chunked_rows(label, times, base, card, shape):
+    """Print each version's times, their means and the ratio of each
+    mean to ``base``'s."""
+    n, v, d = shape
+    mean = {k: {c: sum(x) / len(x) for c, x in r.items()}
+            for k, r in times.items()}
+    for name, ms in mean.items():
+        print(f"[{label}] card='{card}' N={n} V={v} D={d} bf16 {name}: ms "
+              + json.dumps(times[name]) + " mean " + json.dumps(ms)
+              + f" ratio to {base} " + json.dumps(
+                  {c: ms[c] / mean[base][c] for c in ms})
+              + f" pair {ms['dh'] + ms['dw']}", flush=True)
+
+
+def _chunked(args) -> int:
+    """``--only chunked``: the chunked backward's knockouts at D 2048,
+    the D 1024 reading against the cluster kernels, then the A/B against
+    the parent."""
+    src = (ROOT / "bigdl_tpu_torch/csrc/fused_ce.cu").read_text()
+    sources, failed = {"as_is": src}, []
+    for name, (what, edits, _) in CHUNKED_VERSIONS.items():
+        sources[name] = _edited(src, edits, name, failed)
+        print(f"[knockout] {name}: {what}", flush=True)
+    sources["chunked_d1024"] = _edited(
+        src, [(_CLUSTERED, "  return sizeof(T) == 2 && D < 0;")],
+        "chunked_d1024", failed)
+    if args.compare:
+        sources["parent"] = _parent_source(args.parent)
+    card = chip_smoke._card()
+    gen = torch.Generator().manual_seed(args.seed)
+    chosen, cluster_d = fce._kernel_fns, fce._CLUSTER_D
+    lims = {"dh": chip_smoke._FCE_TOL[torch.bfloat16],
+            "dw": chip_smoke._FCE_TOL[torch.bfloat16],
+            "db": chip_smoke._FCE_DB_TOL}
+
+    def use(name):
+        fce._kernel_fns = lambda f=fns[name]: f
+
+    def held_rows(names, h, w, b, t, g, lse, held, shape):
+        """Each version's dh, dW and db against the plain versions."""
+        plain = {"dh": fce.fused_ce_dh_ref(h, w, b, t, lse, g)}
+        plain["dw"], plain["db"] = fce.fused_ce_dw_ref(h, w, b, t, lse, g)
+        for name in names:
+            use(name)
+            got = {"dh": fce.fused_ce_dh(h, w, b, t, lse, g)}
+            got["dw"], got["db"] = fce.fused_ce_dw(h, w, b, t, lse, g)
+            torch.cuda.synchronize()
+            row = {k: chip_smoke._worst(got[k], plain[k], *lims[k])
+                   for k in got}
+            bad = [k for k, (_, r) in row.items()
+                   if not (r <= 1 and torch.isfinite(got[k]).all())]
+            if held(name) and bad:
+                failed.append(f"{name} at {shape}: {bad} past the limit")
+            print(f"[chunked] {name} N, V, D = {shape} bf16 (max abs err, "
+                  f"worst error / limit) " + json.dumps(row)
+                  + (" (held to the limits)" if held(name)
+                     else " (held to nothing)"), flush=True)
+            del got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with ThreadPoolExecutor(len(sources)) as pool:
+            fns = dict(zip(sources, pool.map(
+                lambda kv: fce.bind(_build.build_copy(kv[1],
+                                                      Path(tmp) / kv[0])),
+                sources.items())))
+        try:
+            chip_smoke._warm_card()
+            shape = chip_smoke._FCE_WIDE_BWD[1:]
+            h, w, b, t, g = chip_smoke._fce_inputs(*shape, torch.bfloat16,
+                                                   gen, False)
+            _, lse = fce.fused_ce_fwd_ref(h, w, b, t)
+            names = ["as_is", *CHUNKED_VERSIONS]
+            held_rows(names, h, w, b, t, g, lse,
+                      lambda k: k == "as_is" or CHUNKED_VERSIONS[k][2], shape)
+            calls = {"dh": lambda: fce.fused_ce_dh(h, w, b, t, lse, g),
+                     "dw": lambda: fce.fused_ce_dw(h, w, b, t, lse, g)}
+            _chunked_rows("knockout", _in_turns(names, calls, use), "as_is",
+                          card, shape)
+            del h, w, b, t, g, lse, calls
+            torch.cuda.empty_cache()
+
+            # D 1024: the cluster kernels (as_is) against the chunked passes
+            # (_CLUSTER_D 0: the route, its workspace and its counters)
+            shape = (8192, 32768, 1024)
+            h, w, b, t, g = chip_smoke._fce_inputs(*shape, torch.bfloat16,
+                                                   gen, False)
+            _, lse = fce.fused_ce_fwd_ref(h, w, b, t)
+
+            def at_1024(name):
+                use(name)
+                fce._CLUSTER_D = 0 if name == "chunked_d1024" else cluster_d
+
+            calls = {"dh": lambda: fce.fused_ce_dh(h, w, b, t, lse, g),
+                     "dw": lambda: fce.fused_ce_dw(h, w, b, t, lse, g)}
+            fce._CLUSTER_D = 0
+            held_rows(["chunked_d1024"], h, w, b, t, g, lse, lambda k: True,
+                      shape)
+            times = _in_turns(["as_is", "chunked_d1024"], calls, at_1024)
+            fce._CLUSTER_D = cluster_d
+            _chunked_rows("d1024", times, "as_is", card, shape)
+            del h, w, b, t, g, lse, calls
+            torch.cuda.empty_cache()
+
+            if args.compare:
+                failed += _chunked_against_parent(fns, gen, card)
+        finally:
+            fce._kernel_fns, fce._CLUSTER_D = chosen, cluster_d
+    if failed:
+        print("[knockout] failed: " + "; ".join(failed), flush=True)
+    print(card)
+    return 1 if failed else 0
+
+
+def _chunked_against_parent(fns, gen, card):
+    """The D 2048 pair against the parent's in turns (this, parent,
+    parent, this; each version's outputs held to the limits), then
+    ``_against_parent``'s kernels at the harness head, every one
+    bit-equal. Returns what failed."""
+    shape = chip_smoke._FCE_WIDE_BWD[1:]
+    h, w, b, t, g = chip_smoke._fce_inputs(*shape, torch.bfloat16, gen,
+                                           False)
+    _, lse = fce.fused_ce_fwd_ref(h, w, b, t)
+    plain = {"dh": fce.fused_ce_dh_ref(h, w, b, t, lse, g)}
+    plain["dw"], plain["db"] = fce.fused_ce_dw_ref(h, w, b, t, lse, g)
+    calls = {"dh": lambda: fce.fused_ce_dh(h, w, b, t, lse, g),
+             "dw": lambda: fce.fused_ce_dw(h, w, b, t, lse, g)}
+    failed, ms = [], {k: {"this": [], "parent": []} for k in calls}
+    for ver in _ORDER:
+        fce._kernel_fns = lambda f=fns["as_is" if ver == "this"
+                                     else "parent"]: f
+        if not ms["dh"][ver]:
+            got = {"dh": calls["dh"]()}
+            got["dw"], got["db"] = calls["dw"]()
+            torch.cuda.synchronize()
+            lim = {"dh": chip_smoke._FCE_TOL[torch.bfloat16],
+                   "dw": chip_smoke._FCE_TOL[torch.bfloat16],
+                   "db": chip_smoke._FCE_DB_TOL}
+            row = {k: chip_smoke._worst(got[k], plain[k], *lim[k])
+                   for k in got}
+            if any(r > 1 for _, r in row.values()):
+                failed.append(f"{ver} at D 2048: past the limit")
+            print(f"[parent] {ver} N, V, D = {shape} bf16 (max abs err, "
+                  f"worst error / limit) " + json.dumps(row), flush=True)
+            del got
+        for k, call in calls.items():
+            ms[k][ver].append(chip_smoke._time_ms(call))
+    for k in calls:
+        mean = {ver: sum(x) / len(x) for ver, x in ms[k].items()}
+        print(f"[parent] card='{card}' fused_ce_{k} bf16 N, V, D = {shape}: "
+              f"ms " + json.dumps(ms[k]) + " mean " + json.dumps(mean)
+              + f" parent/this {mean['parent'] / mean['this']}", flush=True)
+    del h, w, b, t, g, lse, plain, calls
+    torch.cuda.empty_cache()
+    return failed + _against_parent(fns, gen, card, rebuilt=(), step=False)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("bf16", "tf32"), default="bf16",
-                    help="the bf16 kernels' knockouts and faults, or the "
-                    "f32 3xTF32 backward's knockouts and A/B")
+    ap.add_argument("--only", choices=("bf16", "tf32", "chunked"),
+                    default="bf16",
+                    help="the bf16 kernels' knockouts and faults, the f32 "
+                    "3xTF32 kernels' knockouts and A/B, or the bf16 "
+                    "chunked backward's knockouts and A/B")
     ap.add_argument("--parent", default=None,
-                    help="the fused_ce.cu to hold --only tf32 against "
-                    "(default: HEAD~1's, from git)")
+                    help="the fused_ce.cu to hold --only tf32 or chunked "
+                    "against (default: HEAD~1's, from git)")
     ap.add_argument("--no-parent", dest="compare", action="store_false",
-                    help="--only tf32 without the A/B against the parent")
+                    help="--only tf32 or chunked without the A/B against "
+                    "the parent")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fused_ce_knockout: CUDA is not available", file=sys.stderr)
         return 2
     if args.only == "tf32":
         return _tf32(args)
+    if args.only == "chunked":
+        return _chunked(args)
     src = (ROOT / "bigdl_tpu_torch/csrc/fused_ce.cu").read_text()
     if src.count(_STAGE_LINE) != 1:
         raise RuntimeError("the forward's stage line has moved; update the "
                            "planted faults")
     sources = {"as_is": (("fwd", "dh", "dw"), src)}
     for name, (kernels, edits) in KNOCKOUTS.items():
-        text = src
-        for old, new, count in edits:
-            if text.count(old) != count:
-                raise RuntimeError(f"{name}: the text it knocks out has "
-                                   f"moved; update the knockouts")
-            text = text.replace(old, new)
-        sources[name] = (kernels, text)
+        sources[name] = (kernels, _knocked_out(src, name, kernels, edits))
     for name, where in FAULTS.items():
         sources[name] = ((), _fault_source(src, where))
     gen = torch.Generator().manual_seed(args.seed)

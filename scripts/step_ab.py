@@ -4,18 +4,20 @@
 Runs the throughput harness (``bigdl_tpu_torch.models.utils.perf -m
 transformer``) at ``chip_smoke.py``'s ``[perf]`` geometry (B4 S2048,
 vocab 32768, d_model 1024, 8 heads of 128, 12 layers; ``--dataType``
-f32 by default) for this checkout and for the one whose root is
-``--other`` (such as a ``git archive`` of the parent unpacked under the
-git-ignored ``build/``), each in a process of its own started from that
-checkout's root, in turns: other, this, this, other. Prints each run's
-ms a step (host clock over the timed steps, ending in the loss
-readback), tokens/s, peak device bytes and first and last loss, then the
-ratio of the means (this / other) and the largest peak of each, and
-last the card's name and power limit. It exits 1 if a run fails or a
-loss is not finite.
+f32 by default; ``--dModel`` and ``--numLayers`` change the width, with
+d_model / 128 heads, and the depth: ``--dModel 2048 --numLayers 2`` is
+``chip_smoke._PERF_WIDE``'s step) for this checkout and for the one
+whose root is ``--other`` (such as a ``git archive`` of the parent
+unpacked under the git-ignored ``build/``), each in a process of its
+own started from that checkout's root, in turns: other, this, this,
+other. Prints each run's ms a step (host clock over the timed steps,
+ending in the loss readback), tokens/s, peak device bytes and first and
+last loss, then the ratio of the means (this / other) and the largest
+peak of each, and last the card's name and power limit. It exits 1 if a
+run fails or a loss is not finite.
 
     python3 scripts/step_ab.py --other DIR [--dataType f32|bf16]
-        [--warmUp 2] [-i 8]
+        [--dModel 1024] [--numLayers 12] [--warmUp 2] [-i 8]
 """
 from __future__ import annotations
 
@@ -51,11 +53,17 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True,
                     help="the root of the other checkout")
     ap.add_argument("--dataType", default="f32", choices=("f32", "bf16"))
+    ap.add_argument("--dModel", type=int,
+                    default=chip_smoke._PERF["d_model"])
+    ap.add_argument("--numLayers", type=int,
+                    default=chip_smoke._PERF["layers"])
     ap.add_argument("--warmUp", type=int, default=2)
     ap.add_argument("-i", "--iteration", type=int, default=8)
     args = ap.parse_args(argv)
     harness = chip_smoke._perf_args(warm_up=args.warmUp,
-                                    iterations=args.iteration) + [
+                                    iterations=args.iteration,
+                                    d_model=args.dModel,
+                                    layers=args.numLayers) + [
         "--dataType", args.dataType]
     roots = {"this": ROOT, "other": Path(args.other).resolve()}
     runs = {"this": [], "other": []}

@@ -121,15 +121,41 @@ def test_ragged_bf16_matches_jax_interpret_kernel():
     n, d, v = 130, 72, 300
     h, w, b, t = _case(n=n, d=d, v=v, seed=5)
     t[17] = 0
-    hp = np.zeros((256, 128), np.float32)
+    jl, jnll, jlse, (jdh, jdw, jdb) = _padded_interpret(h, w, b, t, 256, 384,
+                                                        128)
+    tl, (tdh, tdw, tdb) = _torch_value_and_grads(h, w, b, t, torch.bfloat16)
+    tnll, tlse = tce.fused_ce_fwd_ref(
+        torch.from_numpy(h).to(torch.bfloat16),
+        torch.from_numpy(w).to(torch.bfloat16), torch.from_numpy(b),
+        torch.from_numpy(t))
+    np.testing.assert_allclose(tnll.numpy(), jnll, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tlse.numpy(), jlse, rtol=1e-5, atol=1e-5)
+    assert tnll[17] == tlse[17]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for what, got, want in (("dh", tdh, jdh), ("dw", tdw, jdw),
+                            ("db", tdb, jdb)):
+        _grad_close(got, want, "bf16", what)
+
+
+def _padded_interpret(h, w, b, t, n_pad, v_pad, d_pad):
+    """The mean loss, per-row nll and lse, and (dh, dW, db) of the
+    interpret-mode Pallas kernel in bf16 on a problem it does not tile,
+    run padded to h (n_pad, d_pad) and W (v_pad, d_pad): zero feature
+    columns add no product terms, padded vocab rows carry a bias of -1e30
+    (exp 0 in every lse, no dW or db) and padded token rows a zero
+    cotangent (no share of dh, dW or db). All cut back to the problem's
+    shapes, as float32 numpy."""
+    n, d = h.shape
+    v = w.shape[0]
+    hp = np.zeros((n_pad, d_pad), np.float32)
     hp[:n, :d] = h
-    wp = np.zeros((384, 128), np.float32)
+    wp = np.zeros((v_pad, d_pad), np.float32)
     wp[:v, :d] = w
-    bp = np.full(384, -1e30, np.float32)
+    bp = np.full(v_pad, -1e30, np.float32)
     bp[:v] = b
-    tp = np.ones(256, np.int32)
+    tp = np.ones(n_pad, np.int32)
     tp[:n] = t
-    mask = jnp.asarray(np.arange(256) < n, jnp.float32)
+    mask = jnp.asarray(np.arange(n_pad) < n, jnp.float32)
     targets = jnp.asarray(tp)
 
     def f(hh, ww, bb):
@@ -141,20 +167,28 @@ def test_ragged_bf16_matches_jax_interpret_kernel():
     jl, jg = jax.value_and_grad(f, argnums=(0, 1, 2))(*args)
     jnll, jlse = jce._forward(*args, targets, True)
     jdh, jdw, jdb = (np.asarray(jnp.asarray(g, jnp.float32)) for g in jg)
+    return (float(jl), np.asarray(jnll)[:n], np.asarray(jlse)[:n, 0],
+            (jdh[:n, :d], jdw[:v, :d], jdb[:v]))
 
-    tl, (tdh, tdw, tdb) = _torch_value_and_grads(h, w, b, t, torch.bfloat16)
-    tnll, tlse = tce.fused_ce_fwd_ref(
-        torch.from_numpy(h).to(torch.bfloat16),
-        torch.from_numpy(w).to(torch.bfloat16), torch.from_numpy(b),
-        torch.from_numpy(t))
-    np.testing.assert_allclose(tnll.numpy(), np.asarray(jnll)[:n],
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse)[:n, 0],
-                               rtol=1e-5, atol=1e-5)
-    assert tnll[17] == tlse[17]
-    np.testing.assert_allclose(tl, float(jl), rtol=1e-5)
-    for what, got, want in (("dh", tdh, jdh[:n, :d]), ("dw", tdw, jdw[:v, :d]),
-                            ("db", tdb, jdb[:v])):
+
+def test_bf16_past_d1024_matches_jax_interpret_kernel():
+    """bf16 past the cluster kernels' D 1024, where the card runs dh and
+    dW/db on the route "tc_chunked": N 24, V 40, D 1032 (one target 0)
+    through ``linear_cross_entropy`` (on CPU tensors the plain versions
+    inside the same autograd function) against the interpret-mode Pallas
+    kernel, which does not tile these shapes and so runs them padded to
+    h (128, 1152) and W (128, 1152) (``_padded_interpret``): the loss at
+    rtol 1e-5, the gradients as in ``_grad_close``."""
+    n, d, v = 24, 1032, 40
+    assert tce.kernel_route(torch.bfloat16, d, "dh") == "tc_chunked"
+    assert tce.kernel_route(torch.bfloat16, d, "dw") == "tc_chunked"
+    h, w, b, t = _case(n=n, d=d, v=v, seed=7)
+    t[3] = 0
+    jl, _, _, jg = _padded_interpret(h, w, b, t, 128, 128, 1152)
+    tl, tg = _torch_value_and_grads(h, w, b, t, torch.bfloat16)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for what, got, want in zip(("dh", "dw", "db"), tg, jg):
+        assert got.shape == want.shape, what
         _grad_close(got, want, "bf16", what)
 
 
@@ -448,11 +482,13 @@ def test_kernel_route_matches_the_c_dispatch():
     ``fce_fwd_tf32_kernel``) for f32; dh and dW/db run ``tf::bwd``
     (which launches ``fce_bwd_tf32_kernel``) for f32 at every D,
     ``tc::bwd`` (the cluster kernel) for bf16 where ``clustered`` (D <=
-    kRanks · kSlice) and ``fce_bwd_kernel`` past it;
-    ``bigdl_fce_dh_splits`` asks ``tf::dh_splits`` and
-    ``bigdl_fce_fwd_splits`` ``tf::fwd_splits`` for f32. Every width up
-    to 2100 of both dtypes, each at the route of the width it is padded
-    to."""
+    kRanks · kSlice) and ``tc::chunked`` past it (which launches
+    ``fce_dl_tc_kernel`` and ``fce_gemm_tc_kernel`` a chunk at a time;
+    the CUDA-core ``fce_bwd_kernel`` is gone); ``bigdl_fce_dh_splits``
+    asks ``tf::dh_splits`` for f32 and gives 1 for bf16 past
+    ``clustered``, and ``bigdl_fce_fwd_splits`` asks ``tf::fwd_splits``
+    for f32. Every width up to 2100 of both dtypes, each at the route of
+    the width it is padded to."""
     src = (_CSRC / "fused_ce.cu").read_text()
     macro = src[src.index("#define BIGDL_FCE_DISPATCH"):]
     macro = macro[:macro.index("while (0)")]
@@ -471,7 +507,15 @@ def test_kernel_route_matches_the_c_dispatch():
     assert "if constexpr (sizeof(T) == 4)" in f32
     assert "return tf::bwd<kVocabRows>(" in f32
     assert "if (clustered<T>(D))\n      return tc::bwd<kVocabRows>(" in bf16
-    assert "fce_bwd_kernel<T, kVocabRows>" in bf16
+    assert "return tc::chunked<kVocabRows>(" in bf16
+    tc_src = src[src.index("namespace tc {"):]
+    chunked = _function_body(tc_src, "template <bool kVocabRows>\nint "
+                                     "chunked(")
+    assert "auto pass1 = fce_dl_tc_kernel<kVocabRows>;" in chunked
+    assert "pass1<<<" in chunked and "fce_gemm_tc_kernel<<<" in chunked
+    assert "fce_bwd_kernel" not in src.replace("fce_bwd_tc_kernel",
+                                               "").replace(
+        "fce_bwd_tf32_kernel", "")
     assert "fce_bwd_tf32_kernel<kVocabRows>" in _function_body(
         src[src.index("namespace tf {"):],
         "template <bool kVocabRows>\nint bwd(")
@@ -483,6 +527,8 @@ def test_kernel_route_matches_the_c_dispatch():
     assert int(consts["kRanks"]) * int(consts["kSlice"]) == tce._CLUSTER_D
     splits = _function_body(src, 'extern "C" int bigdl_fce_dh_splits(')
     assert "if (dtype == 0) return tf::dh_splits(N, V, D);" in splits
+    assert ("return dtype == 1 && clustered<bf16>(D) ? tc::dh_splits(N, V) "
+            ": 1;") in splits
     splits = _function_body(src, 'extern "C" int bigdl_fce_fwd_splits(')
     assert ("return dtype == 1 ? tc::fwd_splits(N, V, sms) : "
             "tf::fwd_splits(N, V, sms);") in splits
@@ -490,9 +536,11 @@ def test_kernel_route_matches_the_c_dispatch():
         for d in range(1, 2101):
             dp = d + -d % 8
             bwd_route = ("tf32" if code == 0 else "tc_cluster"
-                         if dp <= tce._CLUSTER_D else "cuda_cores")
-            assert tce.kernel_route(dtype, d, "dh") == bwd_route, (dtype, d)
-            assert tce.kernel_route(dtype, d, "dw") == bwd_route, (dtype, d)
+                         if dp <= tce._CLUSTER_D else "tc_chunked")
+            for kernel in ("dh", "dw"):
+                for width in (d, dp):
+                    assert (tce.kernel_route(dtype, width, kernel)
+                            == bwd_route), (dtype, width, kernel)
             assert tce.kernel_route(dtype, d, "fwd") == (
                 "tc" if code == 1 else "tf32")
     assert tce.kernel_route(torch.float16, 1024, "dh") is None
@@ -534,6 +582,8 @@ def test_workspace_and_binding_match_the_c_entries(dtype):
             fn = type("Fn", (), {})()
             setattr(self, name, fn)
             return fn
+    if not f32:
+        _chunked_workspace_matches_the_c_launcher(src)
     fns = tce.bind(Lib())
     for name in ("fwd", "dh", "dw"):
         head = f'extern "C" int bigdl_fce_{name}('
@@ -541,3 +591,63 @@ def test_workspace_and_binding_match_the_c_entries(dtype):
         params = [p.strip() for p in sig[:sig.index(")")].split(",")]
         assert len(fns[name].argtypes) == len(params), name
         assert params[-2:] == ["void* stream", "float* work"], name
+
+
+def _chunked_workspace_matches_the_c_launcher(src):
+    """``workspace_floats`` on the route "tc_chunked" (bf16 dh and dW/db
+    past D 1024) against what ``tc::chunked`` carves out of ``work``: one
+    chunk of ``chunk_rows`` resident rows of bf16 dl, each row the walked
+    rows rounded up to 8 (V for dh, N for dW), then, for dW, one f32 db
+    partial a vocab row and walked tile of ``kFwdCols`` tokens; chunks of
+    the most ``kFwdRows``-row tiles whose dl fits ``kChunkBytes`` beside
+    the partials, at least one tile, no more than the rows need. The
+    constants are read off the source, and the sizes worked out here
+    from them at shapes with one chunk, several, a ragged last chunk and
+    a row wider than the budget."""
+    tc_src = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    consts = dict(re.findall(r"constexpr int (kFwdRows|kFwdCols) = (\d+);",
+                             tc_src))
+    rows_, cols = int(consts["kFwdRows"]), int(consts["kFwdCols"])
+    budget = int(re.search(r"constexpr int64_t kChunkBytes = (\d+)ll << 20;",
+                           tc_src).group(1)) << 20
+    assert (rows_, cols, budget) == (tce._TILE_ROWS, tce._TILE_COLS,
+                                     tce._CHUNK_BYTES)
+    body = _function_body(tc_src, "inline int chunk_rows(")
+    assert "const int64_t row = static_cast<int64_t>((nX + 7) / 8 * 8) * 2;" \
+        in body
+    assert "const int64_t tiles = (kChunkBytes - fixed) / row / kFwdRows;" \
+        in body
+    assert "return fit < need ? fit : need;" in body
+    body = _function_body(tc_src, "template <bool kVocabRows>\nint chunked(")
+    for line in (
+            "if (!work) return -1;",
+            "const int tiles = (nX + kFwdCols - 1) / kFwdCols;",
+            "const int64_t parts = kVocabRows ? static_cast<int64_t>(tiles) "
+            "* nR : 0;",
+            "const int nXp = (nX + 7) / 8 * 8, rc = chunk_rows(nR, nX, 4 * "
+            "parts);",
+            "bf16* const dl = reinterpret_cast<bf16*>(work);",
+            "float* const dbp = work + static_cast<int64_t>(rc) * nXp / 2;"):
+        assert line in body, line
+
+    def carved(n_res, n_walk, dw):
+        pitch = -(-n_walk // 8) * 8
+        parts = -(-n_walk // cols) * n_res if dw else 0
+        fit = max(1, (budget - 4 * parts) // (2 * pitch) // rows_) * rows_
+        return min(fit, -(-n_res // rows_) * rows_) * pitch // 2 + parts
+
+    for n, v, d in ((8192, 32768, 2048), (3000, 50257, 2056),
+                    (1000, 50257, 2056), (24, 40, 1032), (300, 1000, 1032),
+                    (7, 70_000_001, 1040)):
+        for kernel in ("dh", "dw"):
+            dw = kernel == "dw"
+            want = carved(v if dw else n, n if dw else v, dw)
+            assert tce.workspace_floats(kernel, n, v, d,
+                                        torch.bfloat16) == want, (n, v, d)
+        assert tce.workspace_floats("fwd", n, v, d, torch.bfloat16) == 0
+    # the harness head at D 2048: four chunks of 2048 token rows (dh),
+    # five of 7936 vocab rows (dW, beside 4 MiB of db partials): 128 MiB
+    assert tce.workspace_floats("dh", 8192, 32768, 2048,
+                                torch.bfloat16) * 4 == 128 << 20
+    assert tce.workspace_floats("dw", 8192, 32768, 2048,
+                                torch.bfloat16) * 4 == 128 << 20
