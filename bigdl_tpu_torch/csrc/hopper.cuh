@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu, fused_ce.cu and paged_attention.cu: mbarriers, TMA
-// loads, wgmma descriptors and products, tf32 rounding, a cluster's
-// distributed shared memory (ranks, mapped addresses, remote stores and
-// mbarrier arrivals), the wgmma accumulator layout with its row
-// reductions and 2^x, the ring of shared-memory stages, and the host's
-// tensor-map encoder. Included by
-// each source, which _build.py compiles with this directory on the
-// include path; everything has internal linkage.
+// flash_attention.cu, fused_ce.cu and paged_attention.cu, and by
+// maxpool.cu's bulk copies: mbarriers, 1-D bulk copies, TMA loads, wgmma
+// descriptors and products, tf32 rounding, a cluster's distributed
+// shared memory (ranks, mapped addresses, remote stores and mbarrier
+// arrivals), the wgmma accumulator layout with its row reductions and
+// 2^x, the ring of shared-memory stages, and the host's tensor-map
+// encoder. Included by each source, which _build.py compiles with this
+// directory on the include path; everything has internal linkage.
 
 #pragma once
 
@@ -114,6 +114,34 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void warp_wait(uint32_t bar, uint32_t parity) {
   bar_wait(bar, parity);
   __syncwarp();
+}
+
+// --- 1-D bulk copies (no tensor map) ---
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// memory into shared memory, completing as transactions on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// the same from shared memory to global memory, as one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(src), "r"(bytes) : "memory");
+}
+// until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// until they have completed
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // --- TMA ---

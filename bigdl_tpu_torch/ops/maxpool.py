@@ -20,6 +20,14 @@ order and round once, so they agree bit for bit; the JAX kernel sums in
 dy's dtype, which agrees with them wherever the sums are exact (integer
 cotangents).
 
+Out-of-image x takes ``FILL``, float32's lowest finite value, as in the
+JAX kernel (``maxpool.py:90``), and not -inf: a window whose in-image
+maximum is -inf would otherwise match first at a padded position and
+drop its cotangent, where the JAX kernel and the library send it to the
+window's first in-image position. bf16 compares in f32 after an exact
+cast, so no bf16 value equals ``FILL``; NaN matches nothing, so a window
+whose maximum is NaN sends its cotangent nowhere, as in the JAX kernel.
+
 ``bwd_launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -30,8 +38,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-__all__ = ["maxpool3x3s1", "maxpool3x3s1_bwd", "maxpool3x3s1_bwd_ref",
-           "bwd_launches"]
+__all__ = ["FILL", "maxpool3x3s1", "maxpool3x3s1_bwd",
+           "maxpool3x3s1_bwd_ref", "bwd_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,14 +47,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 bwd_launches = 0
 
 
+#: out-of-image x: float32's lowest finite value, as in the JAX kernel
+#: (``maxpool.py:90``)
+FILL = torch.finfo(torch.float32).min
+
+
 def maxpool3x3s1_bwd_ref(x, y, dy):
     """Plain version of :func:`maxpool3x3s1_bwd`: dx in x's dtype."""
     h, w = x.shape[2], x.shape[3]
-    neg = float("-inf")
-    # x padded by 2 (-inf): window grid rows/cols [-1, H], positions
-    # [-2, H+1]; y and dy padded by 1 (-inf / 0)
-    xp = F.pad(x.float(), (2, 2, 2, 2), value=neg)
-    yp = F.pad(y.float(), (1, 1, 1, 1), value=neg)
+    # x padded by 2 (FILL): window grid rows/cols [-1, H], positions
+    # [-2, H+1]; y and dy padded by 1 (FILL / 0); compares in f32 after
+    # an exact cast of bf16
+    xp = F.pad(x.float(), (2, 2, 2, 2), value=FILL)
+    yp = F.pad(y.float(), (1, 1, 1, 1), value=FILL)
     gp = F.pad(dy.float(), (1, 1, 1, 1))
     taken = torch.zeros(yp.shape, dtype=torch.bool, device=x.device)
     acc = torch.zeros(x.shape[:2] + (h + 4, w + 4), dtype=torch.float32,

@@ -39,8 +39,9 @@ the full width of the flagship LM with weights made from a seed:
   (windows of 5: the runtime-size kernels past window 9 must launch 0
   times there, counted apart).
   The opt-in 3x3 / stride-1 max-pool backward kernel is held against its
-  plain version at the in-block pools' shapes and must launch 0 times
-  there.
+  plain version at the in-block pools' shapes, on -inf planes, on a
+  plane past its whole-plane cap and on an odd plane, timed at the nine
+  in-block pools' shapes, and must launch 0 times there.
 
     python3 chip_smoke.py [--seed N]
 
@@ -321,16 +322,33 @@ _LRN_CASES = (("norm1", (256, 64, 56, 56), _LRN_ARGS),
 _LRN_TOL = {torch.bfloat16: (2 ** -7, 2 ** -7), torch.float32: (1e-5, 1e-5)}
 # the max-pool backward at the in-block pools' planes (28x28 of
 # inception_3a/3b, 14x14 of 4a-4e, 7x7 of 5a/5b) at batch 256: small
-# integers (ties in every window) with integer cotangents, and random
-# normals; all must be bit-exact (the kernel and the plain version add
-# the same f32 terms in the same order and round once)
-_MAXPOOL_CASES = (((256, 256, 28, 28), torch.bfloat16, False),
-                  ((256, 192, 28, 28), torch.bfloat16, True),
-                  ((256, 512, 14, 14), torch.bfloat16, True),
-                  ((256, 832, 7, 7), torch.bfloat16, False),
-                  ((256, 192, 28, 28), torch.float32, False),
-                  ((256, 480, 14, 14), torch.float32, True),
-                  ((256, 832, 7, 7), torch.float32, True))
+# integers (ties in every window) with integer cotangents ("ties"), and
+# random normals ("normal"); then planes of -inf ("neginf": 60 % -inf,
+# each sample's first plane all -inf, which the fill value of
+# out-of-image x must not outrank), a 224x224 plane (100 KB a tensor in
+# bf16: past the whole-plane cap, on the band route), an odd 57x33
+# plane, rows of 1500 f32 (past the band route: blocks staged element by
+# element) and x and dy one element past 16-byte alignment ("shifted":
+# the spans' unaligned ends); all must be bit-exact (the kernel and the
+# plain version add the same f32 terms in the same order and round once)
+_MAXPOOL_CASES = (((256, 256, 28, 28), torch.bfloat16, "normal"),
+                  ((256, 192, 28, 28), torch.bfloat16, "ties"),
+                  ((256, 512, 14, 14), torch.bfloat16, "ties"),
+                  ((256, 832, 7, 7), torch.bfloat16, "normal"),
+                  ((256, 192, 28, 28), torch.float32, "normal"),
+                  ((256, 480, 14, 14), torch.float32, "ties"),
+                  ((256, 832, 7, 7), torch.float32, "ties"),
+                  ((32, 64, 28, 28), torch.bfloat16, "neginf"),
+                  ((4, 16, 224, 224), torch.bfloat16, "ties"),
+                  ((8, 24, 57, 33), torch.float32, "normal"),
+                  ((2, 3, 20, 1500), torch.float32, "ties"),
+                  ((8, 24, 57, 33), torch.bfloat16, "shifted"))
+#: Inception-v1's nine in-block pools (3x3, stride 1, SAME) at batch 256:
+#: (name, input channels, plane side, pools of that shape)
+_MAXPOOL_BATCH = 256
+_MAXPOOL_POOLS = (("3a", 192, 28, 1), ("3b", 256, 28, 1), ("4a", 480, 14, 1),
+                  ("4b-4d", 512, 14, 3), ("4e", 528, 14, 1),
+                  ("5a-5b", 832, 7, 2))
 # the Inception-v1 harness run: bench.py:109-202's geometry, 2 warm-up
 # steps and 8 timed ones
 _INCEPTION = dict(batch=256, warm_up=2, iterations=8, classes=1000)
@@ -3114,58 +3132,100 @@ def phase_lrn(lrn, gen):
     return rows
 
 
-def _maxpool_inputs(shape, dtype, ties, gen):
-    if ties:
-        x = torch.randint(0, 4, shape, generator=gen)
-        dy = torch.randint(-8, 9, shape, generator=gen)
-    else:
+def _maxpool_inputs(shape, dtype, kind, gen):
+    if kind == "normal":
         x = torch.randn(shape, generator=gen)
         dy = torch.randn(shape, generator=gen)
-    return x.to(dtype).to(_DEV), dy.to(dtype).to(_DEV)
+    else:
+        x = torch.randint(0, 4, shape, generator=gen).float()
+        dy = torch.randint(-8, 9, shape, generator=gen)
+        if kind == "neginf":
+            x[torch.rand(shape, generator=gen) < 0.6] = float("-inf")
+            x[:, 0] = float("-inf")
+    x, dy = x.to(dtype).to(_DEV), dy.to(dtype).to(_DEV)
+    if kind == "shifted":   # contiguous, one element into a fresh buffer
+        x, dy = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(shape)
+                 for t in (x, dy))
+    return x, dy
 
 
-def phase_maxpool(mp, gen):
+def _maxpool_library_ms(x, dy):
+    """The library's max-pool backward: its forward + backward less its
+    forward, through autograd on the same inputs."""
+    import torch.nn.functional as F
+    xg = x.detach().clone().requires_grad_()
+
+    def lib_fwd_bwd():
+        xg.grad = None
+        F.max_pool2d(xg, 3, 1, 1).backward(dy)
+    return _time_ms(lib_fwd_bwd) - _time_ms(lambda: F.max_pool2d(x, 3, 1, 1))
+
+
+def _maxpool_pools(mp, seed):
+    """The kernel, its bound and the library's backward at the nine
+    in-block pools' shapes (bf16, batch 256, random normals made on the
+    card), and their sums over the nine pools."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=_DEV).manual_seed(seed)
+    pools, total = {}, dict(ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for name, c, side, count in _MAXPOOL_POOLS:
+        shape = (_MAXPOOL_BATCH, c, side, side)
+        x = torch.randn(shape, generator=gen, device=_DEV,
+                        dtype=torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=_DEV,
+                         dtype=torch.bfloat16)
+        y = F.max_pool2d(x, 3, 1, 1)
+        row = dict(shape=list(shape), pools=count,
+                   ms=_time_ms(lambda: mp.maxpool3x3s1_bwd(x, y, dy)),
+                   bound_ms=4 * x.numel() * x.element_size()
+                   / _HBM_BYTES_PER_S * 1e3,
+                   library_ms=_maxpool_library_ms(x, dy))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        pools[name] = row
+        for k in total:
+            total[k] += count * row[k]
+        del x, dy, y
+    torch.cuda.empty_cache()
+    return dict(pools=pools, nine_pools=total)
+
+
+def phase_maxpool(mp, gen, seed=0):
     """The opt-in max-pool backward kernel vs its plain version, bit for
     bit, at the in-block pools' shapes (batch 256, bf16 and f32, tied and
-    random inputs); the first bf16 case is timed against its bound, its
-    plain version and the library's backward."""
+    random inputs), on -inf planes, past the whole-plane cap and at an
+    odd plane; the first bf16 case is timed against its bound, its plain
+    version and the library's backward, then the kernel at the nine
+    in-block pools' shapes against theirs."""
     import torch.nn.functional as F
     row = None
-    for shape, dtype, ties in _MAXPOOL_CASES:
+    for shape, dtype, kind in _MAXPOOL_CASES:
         name = str(dtype)[6:]
-        x, dy = _maxpool_inputs(shape, dtype, ties, gen)
+        x, dy = _maxpool_inputs(shape, dtype, kind, gen)
         y = F.max_pool2d(x, 3, 1, 1)
         got = mp.maxpool3x3s1_bwd(x, y, dy)
         torch.cuda.synchronize()
         want = mp.maxpool3x3s1_bwd_ref(x, y, dy)
         err = float((got.float() - want.float()).abs().max())
         if not torch.equal(got, want):
-            raise AssertionError(f"maxpool3x3s1_bwd {shape} {name} ties="
-                                 f"{ties}: not bit-exact (max abs err "
-                                 f"{err})")
+            raise AssertionError(f"maxpool3x3s1_bwd {shape} {name} {kind}: "
+                                 f"not bit-exact (max abs err {err})")
         print(f"[kernels] maxpool3x3s1_bwd shape={list(shape)} {name} "
-              f"{'ties, integer dy' if ties else 'random normal'}: "
-              f"bit-exact", flush=True)
+              f"{kind}: bit-exact", flush=True)
         if row is None:
-            xg = x.detach().clone().requires_grad_()
-
-            def lib_fwd_bwd():
-                xg.grad = None
-                F.max_pool2d(xg, 3, 1, 1).backward(dy)
-            lib = _time_ms(lib_fwd_bwd) - _time_ms(
-                lambda: F.max_pool2d(x, 3, 1, 1))
             bytes_ = 4 * x.numel() * x.element_size()   # x, y, dy, dx
             row = dict(max_abs_err=err,
                        ms=_time_ms(lambda: mp.maxpool3x3s1_bwd(x, y, dy)),
                        plain_ms=_time_ms(
                            lambda: mp.maxpool3x3s1_bwd_ref(x, y, dy)),
                        bound_ms=bytes_ / _HBM_BYTES_PER_S * 1e3,
-                       bound_by="bytes", library_ms=lib)
+                       bound_by="bytes",
+                       library_ms=_maxpool_library_ms(x, dy))
             print(f"[kernels] maxpool3x3s1_bwd[{name}] shape={list(shape)} "
                   + json.dumps(row), flush=True)
-            del xg
         del x, dy, y, got, want
         torch.cuda.empty_cache()
+    print("[kernels] maxpool3x3s1_bwd[shapes] "
+          + json.dumps(_maxpool_pools(mp, seed)), flush=True)
     return row
 
 
@@ -3360,7 +3420,7 @@ def main(argv=None) -> int:
     flash_rows = phase_flash(fa, gen)
     fce_rows = phase_fused_ce(fce, gen)
     lrn_rows = phase_lrn(lrn, gen)
-    mp_row = phase_maxpool(mp, gen)
+    mp_row = phase_maxpool(mp, gen, args.seed)
     launches, tc_launches, tails = phase_serve(pa, args.seed)
     flash_launches = phase_train(fa, args.seed)
     torch.cuda.empty_cache()
