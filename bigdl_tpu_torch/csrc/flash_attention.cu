@@ -2260,8 +2260,11 @@ flash_dq_sliced_tf32_kernel(const __grid_constant__ CUtensorMap qm,
 // its own 64 (no P/dS hand-off): per key tile it forms S = Q·Kᵀ over nc
 // = D/32 score steps, P in registers, dP = dO·Vᵀ over nc more, dS = P∘(dP
 // - delta)·scale in registers, puts dS's parts in a tile of its own
-// (named barrier 1 + g over its 128 threads) and adds Kᵀ·dSᵀ to each of
-// its NC = chunks(D) 64-column chunks of dqᵀ. A stage of the ring holds
+// (named barrier 1 + g over its 128 threads, taken before the writes too,
+// as the 128-row forward takes it: the previous tile's output steps read
+// that tile as B, and a warp's wgmma wait covers its own products only)
+// and adds Kᵀ·dSᵀ to each of its NC = chunks(D) 64-column chunks of dqᵀ.
+// A stage of the ring holds
 // both warpgroups' A boxes (Q, or dO, raw) and the walked tile's B parts
 // (K's, or V's): four [64][32] boxes; an output step a chunk of K's
 // columns (its first half at D 32). K's and V's parts come once a 128
@@ -2383,7 +2386,11 @@ flash_dq_rows_tf32_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
         for (int i = 0; i < 32; ++i)
           s[i] = p[i] * (s[i] - rd[(i % 4) / 2]) * scale;
-        tf_put(mine, mine + 2 * kTfBox, s);   // past its last tile's reads
+        // the last tile's output steps read this tile as B: a warp's
+        // wgmma wait covers its own products only, so every warp of the
+        // warpgroup must be past its reads before any warp writes
+        named_sync(1 + G, 128);
+        tf_put(mine, mine + 2 * kTfBox, s);
         fence_proxy_async();
         named_sync(1 + G, 128);
       }

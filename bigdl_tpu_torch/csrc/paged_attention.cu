@@ -15,19 +15,24 @@
 // The C entry picks one of three designs by dtype and shape alone
 // (route_of; ops/paged_attention.kernel_route mirrors it, and the entry
 // reports the route it took so the wrapper can hold the mirror to it):
-// a call past head dim kRowOnlyPast (256) takes the row-tile kernel, the
-// only one built there (`paged_attention_wide_kernel`, D a runtime
-// value, up to wide_max_d; past it the route "row_sliced",
-// `paged_attention_sliced_kernel`, its output columns sliced, so every
-// multiple of 64 runs); otherwise a call whose T·G query
+// past head dim kRowOnlyPast (256) a bf16 call (G <= 64, rows of a
+// 16-byte multiple, P <= kTcMaxPages; decode too) takes the tensor-core
+// prefill with its output's columns
+// sliced (route "tc_sliced", `paged_prefill_sliced_tc_kernel`, D a
+// runtime value), every other call there the row-tile kernel
+// (`paged_attention_wide_kernel`, D a runtime value, up to wide_max_d;
+// past it the route "row_sliced", `paged_attention_sliced_kernel`, its
+// output columns sliced, so every multiple of 64 runs); otherwise a call
+// whose T·G query
 // rows of a kv head fit one tile (T·G <= kSplitRows, every decode step)
 // takes the split-KV decode kernel; a bf16 call with more rows
 // (prefill, and decode past 16 rows: Falcon-7B's 71 heads over one kv
 // head) takes `paged_prefill_tc_kernel` at any page size and any G,
-// unless P > kTcMaxPages (4096). So the row-tile kernel keeps three
-// cases: f32 pools, D > 256 and tables wider than 4096 entries. Every
-// route takes any page size, G and table width. No call reroutes after
-// a failed map or launch: the entry returns the error.
+// unless P > kTcMaxPages (4096). So the row-tile kernel keeps f32
+// pools, tables wider than 4096 entries, unaligned rows and, past D
+// 256, G > 64. Every route takes any page size, G and table
+// width. No call reroutes after a failed map or launch: the entry
+// returns the error.
 //
 // Every head dim D >= 1 runs, padded inside the kernels: the pools are
 // the whole cache, and a zero-padded copy of them on each step would
@@ -141,6 +146,61 @@
 //   changes with each layer; Q's only where G <= 64); at D 32 the
 //   64-wide boxes reach past D and fill with zeros, as flash's do.
 //
+// paged_prefill_sliced_tc_kernel<OWN> (bf16 past D 256, prefill and
+// decode, tensor cores, the output's columns sliced):
+// - Past D 256 the kernel above has no registers left: an f32
+//   accumulator of 64 rows costs 32 registers a thread per 64-column
+//   chunk, 128 at D 256 beside s (32) and P (16). So a CTA owns one
+//   slice of OWN <= 4 output chunks (256 columns), the fewest slices, as
+//   even as they come (sl_own, as flash_attention.cu's sliced forward:
+//   D 320 3 + 2 chunks, 512 4 + 4, 576 3 x 3, 1024 4 x 4, 1856 8 slices
+//   of 4, the last holding 3 chunks of TMA's zeros, 2048 8 x 4); chunks
+//   past D are never stored. Grid (B·KV, ceil(T·F / 64), slices), the
+//   fold of the kernel above (F = gp, G <= 64: Q by one TMA box a
+//   chunk), one consumer warpgroup of 64 folded rows (kSlRows),
+//   the most keys first. A copy with two (128 rows sharing each K chunk,
+//   half the CTAs, a producer warpgroup with setmaxnreg 40 / 232, no
+//   spills) took 1.11-1.43x its time at every case, decode and the
+//   512-token prefill too (scripts/paged_ab.py --two-warpgroups, one
+//   NVIDIA H100 80GB HBM3, 700 W): the grids are under a wave of the
+//   SMs, so halving them halves the parallel K streams.
+// - S = Q·Kᵀ over 64-key tiles of the padded slot space sums over all
+//   of D in 64-column chunks (m64n64k16 x 4 a chunk, both operands
+//   K-major [64][64] boxes), a chunk a step, in the same order in every
+//   slice, so every slice forms the same scores, m and l; step t - 1's
+//   group overlaps step t's (wgmma.wait_group 1) before its stage is
+//   released. Masks, p rounded to bf16 at the running max and P·V (OWN
+//   m64n64k16 a K step, V MN-major) as in the kernel above.
+// - A producer warp streams step t's K chunk (64 / br boxes of (64, 1,
+//   br, 1) at each page id, staged in shared memory first, page -1 past
+//   the CTA's last query) through a ring of up to kSlMaxStages
+//   full/empty stages; Q's chunk c comes with step c into a place of its
+//   own where all of Q fits (resident: nc x 8 KB beside the V slice, the
+//   page ids and kSlMinStages stages, D <= 1280 at short tables), else
+//   with every step's K chunk (16 KB a stage). A second producer warp
+//   loads each key tile's V slice (OWN chunks) once the previous tile's
+//   P·V has read the buffer. 192 threads: no setmaxnreg (255 registers
+//   a thread fit).
+// - Bound: bytes (q, the K/V rows the queries reach, the f32 output; at
+//   q (2,96,4,2048) 13 MB, 3.9 µs at 3.35 TB/s), the tensor cores' 989
+//   TFLOP/s far behind. The cost of the slices: each recomputes S, so a
+//   call does slices + 1 half-products where one D-wide CTA would do 2
+//   (3 at D 512, 9 at D 2048), and re-reads Q and K from L2 once a
+//   slice; the row-tile kernels it replaces scored on the CUDA cores,
+//   each K/V row staged once per 8 query rows. At q (2,96,4,D), D
+//   512-2048, it takes 0.020-0.053 ms, 0.35-0.37x SDPA's time and
+//   0.17-0.25x the row-tile kernels' (scripts/paged_ab.py, chip_smoke.py;
+//   one NVIDIA H100 80GB HBM3, 700 W), at 5-7 % of its bound. What sets
+//   the pace is each CTA's serial chain of (key tile, chunk) steps: the
+//   times fit 8.7 us a call + 0.69 us a step of the CTA with the most
+//   keys, within 7 %. Not the K bytes (no K loads: 0.82-0.96x), not the
+//   TMA issues (a box a 64-slot chunk: the same), not the grid (at D
+//   512, B 8's 96 CTAs take 1.03x B 2's 24) (scripts/paged_ab.py --fit,
+//   --no-k-loads, --one-box; the same card).
+// - Headroom (ptxas, one NVIDIA H100 80GB HBM3): OWN 4 205 registers,
+//   OWN 3 175, no spills; shared memory 230,752 bytes at D 512 (Q
+//   resident, 16 stages), 1 CTA an SM.
+//
 // paged_attention_kernel (f32 pools, P > 4096; past D 256 its wide
 // form, and past the wide form's cap its column-sliced form):
 // - One CTA of 4 warps per (row b, kv head, tile of query rows). The G
@@ -197,8 +257,10 @@
 //   so a warp would hit 4 banks: measured, that took 2.1× its time at D
 //   512 (and 1.03× at D 320, whose 5-word stride spreads; PERF.md §6).
 // - It does its operations on the CUDA cores: f32 pools have no other
-//   exact route, and the geometries the tensor-core kernel does not tile
-//   are rare ones.
+//   exact route, and the geometries the tensor-core kernels do not tile
+//   are rare ones. Past D 256 it keeps f32, G > 64, unaligned rows and
+//   tables past 4096 entries; bf16 prefill and decode went to the
+//   sliced tensor-core kernel.
 //
 // paged_decode_split_kernel (decode, flash-decoding):
 // - Bound: a decode step does ~4·D operations per key and head, far under
@@ -263,8 +325,9 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kKeyChunk = 8;       // keys scored per online-softmax update
 constexpr float kMask = -1e9f;     // finite mask value, as the TPU kernel
 constexpr int kSmemMax = 232448;   // bytes of shared memory one block may use
-// the split-KV and tensor-core kernels are built up to this head dim;
-// past it every call runs the row-tile kernel (route_of)
+// the split-KV kernel and the tensor-core prefill of a compile-time D
+// are built up to this head dim; past it a call runs the sliced
+// tensor-core prefill or the row-tile kernel (route_of)
 constexpr int kRowOnlyPast = 256;
 constexpr int kWideRpw = 2;                    // query rows a wide warp
 constexpr int kWideRows = kWarps * kWideRpw;   // query rows a wide CTA
@@ -1520,6 +1583,121 @@ struct TcShape {
   }
 };
 
+// One 64-key tile of the online softmax, shared by both tensor-core
+// prefill kernels: this thread's scores s (rows rl and rl + 8 of the
+// tile, element i at padded key k0 + 8·(i/4) + i%2 + 2·(l%4)) become P
+// in bf16 fragments pf at the running max m, the row sums lsum take the
+// tile's part, and the N 64-column accumulator chunks are rescaled to
+// the new max. Scaled to base 2 (exp(x) = 2^(x·log2 e)); only a tile
+// that reaches past the warpgroup's first query position first_wg
+// masks, in a loop of its own (a test inside one loop costs every tile
+// the masking): keys past a row's query position qpos, and so the
+// unloaded slots past the CTA's last one (klast, unpadded), score the
+// finite -1e9, whose weight is 0 in either base
+template <int N>
+__device__ __forceinline__ void softmax_tile(
+    float (&acc)[N][32], float (&s)[32], float (&m)[2], float (&lsum)[2],
+    uint32_t (&pf)[kTcKeys / 16][4], int k0, int S, int S8,
+    const int (&qpos)[2], int klast, int first_wg, float scale2, int l) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (S8 != S) {
+    // padded pages: every tile holds padded slots (s >= S), which are
+    // no keys and score -inf, so each weighs exactly 0. Elements 4j..4j
+    // + 3 sit in the 8-slot group of padded key k0 + 8j, at slot sb of
+    // page pg (stepped along, one division a tile); element i at slot
+    // sb + i%2 + 2·(l%4), logical key pg·S + that slot, masked (-1e9)
+    // past the row's query position or the last key loaded. Where S8
+    // == S this loop computes what the next one does (room >= 2), but
+    // slower: with it for every page, pages of 16-256 slots took up to
+    // 4.1 % more than a kernel without padding, with two loops up to
+    // 2.7 % (PERF.md §6), so those keep their own loop
+    const int o = 2 * (l % 4);
+    const int lim[2] = {min(qpos[0], klast), min(qpos[1], klast)};
+    int pg = k0 / S8, sb = k0 - pg * S8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = pg * S + sb + o, room = S - sb - o;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, r = e / 2;
+        s[i] = e % 2 >= room             ? -INFINITY
+               : key + e % 2 > lim[r]    ? kMask
+                                         : s[i] * scale2;
+        mx[r] = fmaxf(mx[r], s[i]);
+      }
+      sb += 8;
+      if (sb == S8) {
+        sb = 0;
+        ++pg;
+      }
+    }
+  } else if (k0 + kTcKeys - 1 > first_wg) {
+    // element i sits at key k0 + 8·(i/4) + i%2 + 2·(l%4)
+    const int lim[2] = {min(qpos[0], klast) - k0 - 2 * (l % 4),
+                        min(qpos[1], klast) - k0 - 2 * (l % 4)};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 8 * (i / 4) + i % 2 > lim[(i % 4) / 2] ? kMask
+                                                    : s[i] * scale2;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] *= scale2;
+      mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
+    }
+  }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    lsum[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2(s[i] - m[(i % 4) / 2]);
+    lsum[(i % 4) / 2] += s[i];           // this thread's part of the row
+  }
+  to_frags<kTcKeys / 16>(s, pf);        // p in bf16 at the running max
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i % 4) / 2];
+}
+
+// f32 rows straight from the accumulator's N 64-column chunks, which
+// start at out's column col0: folded row R = r0 + rl + 8r is query
+// column R / F, head h·G + R % F; the padded rows (a head past the
+// group's G) and rows past T are never written, nor the columns past
+// out's Dt (a multiple of 8)
+template <int N>
+__device__ __forceinline__ void store_rows(
+    const float (&acc)[N][32], const float (&lsum)[2], float* out, int b,
+    int h, int T_, int H, int G, int F, int Dt, int r0, int rl, int col0,
+    int l) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv = 1.f / quad_sum(lsum[r]);
+    const int fr = r0 + rl + 8 * r, t = fr / F;
+    if (t >= T_ || fr % F >= G) continue;
+    float* const row =
+        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % F) * Dt +
+        col0;
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (col0 + 64 * c + 8 * j >= Dt) continue;    // zeros past Dt
+        const int i = 4 * j + 2 * r;
+        *reinterpret_cast<float2*>(row + 64 * c + acc_col(i, l)) =
+            make_float2(acc[c][i] * inv, acc[c][i + 1] * inv);
+      }
+  }
+}
+
 // One CTA per (row b, kv head, kTcRows folded query rows); see the
 // header.
 template <int D>
@@ -1661,80 +1839,9 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     wg_wait();
     keep(s);
 
-    // scale (to base 2: exp(x) = 2^(x·log2 e)); only a tile that reaches
-    // past the warpgroup's first query position masks, in a loop of its
-    // own (a test inside one loop costs every tile the masking): keys
-    // past a row's query position, and so the unloaded slots past the
-    // CTA's last one, score the finite -1e9, whose weight is 0 in either
-    // base
-    float mx[2] = {-INFINITY, -INFINITY};
-    if (S8 != S) {
-      // padded pages: every tile holds padded slots (s >= S), which are
-      // no keys and score -inf, so each weighs exactly 0. Elements 4j..4j
-      // + 3 sit in the 8-slot group of padded key k0 + 8j, at slot sb of
-      // page pg (stepped along, one division a tile); element i at slot
-      // sb + i%2 + 2·(l%4), logical key pg·S + that slot, masked (-1e9)
-      // past the row's query position or the last key loaded. Where S8
-      // == S this loop computes what the next one does (room >= 2), but
-      // slower: with it for every page, pages of 16-256 slots took up to
-      // 4.1 % more than a kernel without padding, with two loops up to
-      // 2.7 % (PERF.md §6), so those keep their own loop
-      const int o = 2 * (l % 4);
-      const int lim[2] = {min(qpos[0], klast), min(qpos[1], klast)};
-      int pg = k0 / S8, sb = k0 - pg * S8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = pg * S + sb + o, room = S - sb - o;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * j + e, r = e / 2;
-          s[i] = e % 2 >= room             ? -INFINITY
-                 : key + e % 2 > lim[r]    ? kMask
-                                           : s[i] * scale2;
-          mx[r] = fmaxf(mx[r], s[i]);
-        }
-        sb += 8;
-        if (sb == S8) {
-          sb = 0;
-          ++pg;
-        }
-      }
-    } else if (k0 + kTcKeys - 1 > first_wg) {
-      // element i sits at key k0 + 8·(i/4) + i%2 + 2·(l%4)
-      const int lim[2] = {min(qpos[0], klast) - k0 - 2 * (l % 4),
-                          min(qpos[1], klast) - k0 - 2 * (l % 4)};
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        s[i] = 8 * (i / 4) + i % 2 > lim[(i % 4) / 2] ? kMask
-                                                      : s[i] * scale2;
-        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        s[i] *= scale2;
-        mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-      lsum[r] *= corr[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = ex2(s[i] - m[(i % 4) / 2]);
-      lsum[(i % 4) / 2] += s[i];           // this thread's part of the row
-    }
-    uint32_t pf[kTcKeys / 16][4];
-    to_frags<kTcKeys / 16>(s, pf);        // p in bf16 at the running max
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i % 4) / 2];
+    uint32_t pf[kTcKeys / 16][4];         // masked, P in bf16, acc rescaled
+    softmax_tile<kC>(acc, s, m, lsum, pf, k0, S, S8, qpos, klast, first_wg,
+                     scale2, l);
 
     wg_fence();
 #pragma unroll
@@ -1751,27 +1858,7 @@ paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap qm,
     if (l == 0) bar_arrive(ring.empty(st));
   }
 
-  // f32 rows straight from the accumulator: folded row R = r0 + rl + 8r
-  // is query column R / F, head h·G + R % F; the padded rows (a head
-  // past the group's G) and rows past T are never written, nor the
-  // columns past out's Dt (a multiple of 8)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / quad_sum(lsum[r]);
-    const int fr = r0 + rl + 8 * r, t = fr / F;
-    if (t >= T_ || fr % F >= G) continue;
-    float* const row =
-        out + ((static_cast<int64_t>(b) * T_ + t) * H + h * G + fr % F) * Dt;
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (64 * c + 8 * j >= Dt) continue;      // zero padding past Dt
-        const int i = 4 * j + 2 * r;
-        *reinterpret_cast<float2*>(row + 64 * c + acc_col(i, l)) =
-            make_float2(acc[c][i] * inv, acc[c][i + 1] * inv);
-      }
-  }
+  store_rows<kC>(acc, lsum, out, b, h, T_, H, G, F, Dt, r0, rl, 0, l);
 }
 
 // a contiguous bf16 tensor whose dims, innermost first, are `dims`, as a
@@ -1793,9 +1880,11 @@ int make_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
   return r == CUDA_SUCCESS ? 0 : kMapFailed + static_cast<int>(r);
 }
 
-template <int D>
-int launch(const Call& a) {
-  using Sh = TcShape<D>;
+// Q's map (where G <= kWgRows) and the pools' maps of a call: boxes of
+// (64, gp, rows / gp, 1) of a (Dt, H, T, B) q and (64, 1, br, 1) of the
+// (Dt, KV, S, NP) pools
+int make_maps(const Call& a, int rows, CUtensorMap* qm, CUtensorMap* km,
+              CUtensorMap* vm) {
   const int G = a.H / a.KV, F = fold_of(G);
   const cuuint32_t br = box_rows(pad_slots(a.S));
   // q's and the pools' rows are Dt wide: the 64-column boxes read zeros
@@ -1809,13 +1898,20 @@ int launch(const Call& a) {
                             static_cast<cuuint64_t>(a.S),
                             static_cast<cuuint64_t>(a.NP)};
   const cuuint32_t bq[4] = {64, static_cast<cuuint32_t>(F),
-                            static_cast<cuuint32_t>(kTcRows / F), 1};
+                            static_cast<cuuint32_t>(rows / F), 1};
   const cuuint32_t bp[4] = {64, 1, br, 1};
-  CUtensorMap qm{}, km, vm;              // the flat fold has no Q map
-  if (G <= kWgRows)
-    if (int e = make_map(&qm, a.q, dq, bq)) return e;
-  if (int e = make_map(&km, a.kp, dp, bp)) return e;
-  if (int e = make_map(&vm, a.vp, dp, bp)) return e;
+  if (G <= kWgRows)                      // the flat fold has no Q map
+    if (int e = make_map(qm, a.q, dq, bq)) return e;
+  if (int e = make_map(km, a.kp, dp, bp)) return e;
+  return make_map(vm, a.vp, dp, bp);
+}
+
+template <int D>
+int launch(const Call& a) {
+  using Sh = TcShape<D>;
+  const int F = fold_of(a.H / a.KV);
+  CUtensorMap qm{}, km, vm;
+  if (int e = make_maps(a, kTcRows, &qm, &km, &vm)) return e;
   const size_t smem = Sh::smem(a.P);
   auto kernel = paged_prefill_tc_kernel<D>;
   if (int e = set_smem(kernel, smem)) return e;
@@ -1826,10 +1922,245 @@ int launch(const Call& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// Tensor-core prefill past D 256 (bf16): the output's columns sliced
+
+constexpr int kSlOwnMax = 4;       // 64-column output chunks a slice
+constexpr int kSlMinStages = 4;    // ring stages beside a resident Q
+constexpr int kSlMaxStages = 16;
+constexpr int kSlConsumers = 128;  // one consumer warpgroup (header)
+constexpr int kSlRows = kWgRows;   // folded rows a CTA
+constexpr int kSlThreads = kSlConsumers + 64;   // + a K (and Q), a V warp
+constexpr int kChunk = kTcKeys * kRowBytes;     // [64][64] bf16: 8 KB
+constexpr int kQChunk = kSlRows * kRowBytes;    // a chunk of the CTA's Q
+
+// output chunks a slice owns: the fewest slices of at most kSlOwnMax
+// chunks, as even as they come (3 or 4 for every nc >= 5); the last
+// slice's chunks past D are TMA's zeros, not stored
+inline int sl_own(int nc) {
+  const int fewest = (nc + kSlOwnMax - 1) / kSlOwnMax;
+  return (nc + fewest - 1) / fewest;
+}
+
+// Shared memory: Q where resident (nc chunks), the V slice (OWN chunks),
+// the ring of ns stages (a K chunk, and the step's Q chunk where Q is
+// not resident), the barriers full[kSlMaxStages], empty[kSlMaxStages],
+// vfull, vempty, then the page ids; 1024 bytes of alignment
+__host__ __device__ constexpr int sl_q_bytes(int nc, bool q_res) {
+  return q_res ? nc * kQChunk : 0;
+}
+__host__ __device__ constexpr int sl_stage_bytes(bool q_res) {
+  return q_res ? kChunk : kChunk + kQChunk;
+}
+__host__ __device__ constexpr int sl_bars_at(int nc, int own, bool q_res,
+                                             int ns) {
+  return sl_q_bytes(nc, q_res) + own * kChunk + ns * sl_stage_bytes(q_res);
+}
+__host__ __device__ constexpr int sl_pages_at(int nc, int own, bool q_res,
+                                              int ns) {
+  return sl_bars_at(nc, own, q_res, ns) + 8 * (2 * kSlMaxStages + 2);
+}
+inline size_t sl_smem(int nc, int own, bool q_res, int ns, int P) {
+  return 1024 + sl_pages_at(nc, own, q_res, ns) + static_cast<size_t>(P) * 4;
+}
+
+// One CTA per (row b, kv head; kSlRows folded query rows; a slice of OWN
+// output chunks); see the header. D is the built head dim, a runtime
+// multiple of 64.
+template <int OWN>
+__global__ void __launch_bounds__(kSlThreads, 1)
+paged_prefill_sliced_tc_kernel(const __grid_constant__ CUtensorMap qm,
+                               const __grid_constant__ CUtensorMap km,
+                               const __grid_constant__ CUtensorMap vm,
+                               const int* __restrict__ table,
+                               const int* __restrict__ q_start,
+                               float* __restrict__ out, int T_, int H,
+                               int KV, int D, int Dt, int S, int P,
+                               int q_res, int ns, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nc = D / 64, tid = threadIdx.x, l = tid % 32;
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qsm = base;                          // resident Q
+  const uint32_t vb = base + sl_q_bytes(nc, q_res);   // [OWN][64][64]
+  const uint32_t ring0 = vb + OWN * kChunk;
+  const int stage_bytes = sl_stage_bytes(q_res);
+  const uint32_t bars = base + sl_bars_at(nc, OWN, q_res, ns);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kSlMaxStages + s); };
+  const uint32_t vfull = bars + 16 * kSlMaxStages, vempty = vfull + 8;
+  int* const pages = reinterpret_cast<int*>(
+      smem_raw + (base - smem_u32(smem_raw)) +
+      sl_pages_at(nc, OWN, q_res, ns));
+
+  const int b = blockIdx.x / KV, h = blockIdx.x % KV, G = H / KV;
+  const int F = pad_group(G), S8 = pad_slots(S);   // G <= kWgRows
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kSlRows;  // most keys first
+  const int t0 = r0 / F;                 // first query column
+  const int tn = min(T_ - t0, (r0 + kSlRows - 1) / F - t0 + 1);  // columns
+  const int col0 = 64 * OWN * blockIdx.z;
+
+  // the ids of the pages the CTA reads (q_start counts them), staged in
+  // shared memory before any load
+  const int qs = q_start[b];
+  const int first = qs + t0;             // the CTA's first query position
+  const int n_pages = min(P, (first + tn - 1) / S + 1);
+  const int* const row_table = table + static_cast<int64_t>(b) * P;
+  for (int j = tid; j < n_pages; j += kSlThreads) pages[j] = row_table[j];
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      bar_init(full(s), 1);
+      bar_init(empty(s), kSlConsumers / 32);
+    }
+    bar_init(vfull, 1);
+    bar_init(vempty, kSlConsumers / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int kend = n_pages * S8;         // padded keys loaded
+  const int nkt = (kend + kTcKeys - 1) / kTcKeys;
+  const int steps = nkt * nc;            // (key tile, 64-column chunk)
+  const int br = box_rows(S8), nbox = kTcKeys / br;
+
+  if (tid >= kSlConsumers) {
+    // the producer warps; a tile's boxes are issued by a warp's lanes
+    // together. Slots of pages < n_pages come from the pools, the rest
+    // are boxes at page -1, out of bounds, which TMA fills with zeros,
+    // as are rows past slot S - 1 of a page and columns past Dt
+    if (tid < kSlConsumers + 32) {
+      // step t's K chunk (Q's too: where Q is resident its chunk c comes
+      // once, with the first key tile's step c, into its own place), each
+      // stage refilled once the consumer warps released it
+      for (int t = 0; t < steps; ++t) {
+        const int st = t % ns, c = t % nc, k0 = t / nc * kTcKeys;
+        const uint32_t dst = ring0 + st * stage_bytes;
+        if (t >= ns) warp_wait(empty(st), (t / ns - 1) & 1);
+        if (l == 0) {
+          const bool q_now = !q_res || t < nc;
+          bar_expect(full(st), kChunk + (q_now ? kQChunk : 0));
+          const uint32_t qdst = q_res ? qsm + c * kQChunk : dst + kChunk;
+          if (q_now) tma_load(qdst, &qm, full(st), 64 * c, h * G, t0, b);
+        }
+        __syncwarp();
+        for (int e = l; e < nbox; e += 32) {
+          const int k = k0 + e * br;
+          tma_load(dst + e * br * kRowBytes, &km, full(st), 64 * c, h,
+                   k % S8, k < kend ? pages[k / S8] : -1);
+        }
+      }
+    } else {
+      // each key tile's V slice, once the previous tile's P·V read it
+      for (int kt = 0; kt < nkt; ++kt) {
+        if (kt > 0) warp_wait(vempty, (kt - 1) & 1);
+        if (l == 0) bar_expect(vfull, OWN * kChunk);
+        __syncwarp();
+        for (int e = l; e < OWN * nbox; e += 32) {
+          const int j = e / nbox, k = kt * kTcKeys + e % nbox * br;
+          tma_load(vb + j * kChunk + e % nbox * br * kRowBytes, &vm, vfull,
+                   col0 + 64 * j, h, k % S8, k < kend ? pages[k / S8] : -1);
+        }
+      }
+    }
+    return;                              // no CTA barrier after this
+  }
+
+  // this thread's accumulator rows: folded rows rl and rl + 8 of the
+  // tile, which starts at query position first_wg
+  const int rl = 16 * (tid / 32) + l / 4;
+  const int qpos[2] = {qs + (r0 + rl) / F, qs + (r0 + rl + 8) / F};
+  const int first_wg = qs + r0 / F;
+  const int klast = n_pages * S - 1;     // the last key loaded, unpadded
+  const float scale2 = scale * 1.4426950408889634f;   // log2 e
+  float acc[OWN][32], s[32], m[2] = {-INFINITY, -INFINITY};
+  float lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < OWN; ++j) zero(acc[j]);
+  zero(s);
+
+  // released by a warp once the products that read the stage are done
+  auto release = [&](int t) {
+    __syncwarp();
+    if (l == 0) bar_arrive(empty(t % ns));
+  };
+  for (int t = 0; t < steps; ++t) {
+    const int kt = t / nc, c = t % nc, st = t % ns;
+    warp_wait(full(st), (t / ns) & 1);
+    const uint32_t stage = ring0 + st * stage_bytes;
+    const uint32_t qc = q_res ? qsm + c * kQChunk : stage + kChunk;
+    // S = Q·Kᵀ over all of D, a 64-column chunk a step, in the same
+    // order in every slice; step t - 1's group overlaps this one's
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(s, desc_k<kSlRows>(qc, 0, kk),
+                   desc_k<kTcKeys>(stage, 0, kk), c > 0 || kk > 0);
+    wg_commit();
+    if (c > 0) {                         // step t - 1's chunk is read
+      wg_wait<1>();
+      release(t - 1);
+    }
+    if (c < nc - 1) continue;
+    wg_wait();
+    keep(s);
+    release(t);
+
+    uint32_t pf[kTcKeys / 16][4];       // masked, P in bf16, acc rescaled
+    softmax_tile<OWN>(acc, s, m, lsum, pf, kt * kTcKeys, S, S8, qpos, klast,
+                      first_wg, scale2, l);
+
+    warp_wait(vfull, kt & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < OWN; ++j)
+        wgmma_rs_n64(acc[j], pf[kk], desc_mn<kTcKeys>(vb, j, kk));
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) keep(acc[j]);
+    keep(pf);
+    __syncwarp();
+    if (l == 0) bar_arrive(vempty);
+  }
+
+  store_rows<OWN>(acc, lsum, out, b, h, T_, H, G, F, Dt, r0, rl, col0,
+                  l);
+}
+
+template <int OWN>
+int launch_sliced_own(const Call& a, const CUtensorMap& qm,
+                      const CUtensorMap& km, const CUtensorMap& vm) {
+  const int nc = a.D / 64, nsl = (nc + OWN - 1) / OWN;
+  // Q stays in shared memory where it fits beside the V slice, the page
+  // ids and kSlMinStages stages of K, else comes with K a chunk a step;
+  // the ring takes the rest, up to kSlMaxStages
+  const bool q_res = sl_smem(nc, OWN, true, kSlMinStages, a.P) <= kSmemMax;
+  const int ns = min(kSlMaxStages,
+                     static_cast<int>((kSmemMax - sl_smem(nc, OWN, q_res, 0,
+                                                          a.P)) /
+                                      sl_stage_bytes(q_res)));
+  const size_t smem = sl_smem(nc, OWN, q_res, ns, a.P);
+  auto kernel = paged_prefill_sliced_tc_kernel<OWN>;
+  if (int e = set_smem(kernel, smem)) return e;
+  const dim3 grid(a.B * a.KV,
+                  (a.T * pad_group(a.H / a.KV) + kSlRows - 1) / kSlRows, nsl);
+  kernel<<<grid, kSlThreads, smem, a.stream>>>(
+      qm, km, vm, a.table, a.q_start, a.out, a.T, a.H, a.KV, a.D, a.Dt, a.S,
+      a.P, q_res, ns, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_sliced(const Call& a) {
+  CUtensorMap qm, km, vm;
+  if (int e = make_maps(a, kWgRows, &qm, &km, &vm)) return e;
+  if (sl_own(a.D / 64) == 3) return launch_sliced_own<3>(a, qm, km, vm);
+  return launch_sliced_own<4>(a, qm, km, vm);
+}
+
 }  // namespace tc
 
 enum Route { kRouteSplit = 0, kRouteTc = 1, kRouteRow = 2,
-             kRouteRowSliced = 3 };
+             kRouteRowSliced = 3, kRouteTcSliced = 4 };
 
 // the head dim a call of true head dim Dt runs at: the smallest of 32,
 // 64, 128, 192 and 256 not below it, past 256 the next multiple of 64
@@ -1840,6 +2171,20 @@ int built_dim(int Dt) {
                                                                      : 256;
 }
 
+// past D 256, the calls the sliced tensor-core prefill takes
+// (tc::paged_prefill_sliced_tc_kernel): bf16 pools whose rows are
+// 16-byte multiples (TMA maps), tables it stages (kTcMaxPages) and G it
+// folds by boxes (up to kWgRows). Decode too (T·G <= kSplitRows): its
+// 64-row tile holds at most 16 real rows, but it took the bf16 decode
+// cases past 256 in 0.20-0.22x the row-tile kernels' time (D 288-1856,
+// scripts/paged_ab.py --tc-sliced, one NVIDIA H100 80GB HBM3, 700 W).
+// The rest stay on the row-tile kernels: f32 pools, unaligned rows,
+// longer tables and G past 64
+bool takes_tc_sliced(int dtype, int G, int Dt, int P) {
+  return dtype == 1 && Dt * 2 % 16 == 0 && P <= tc::kTcMaxPages &&
+         G <= tc::kWgRows;
+}
+
 // the kernel a call runs, by dtype and shape alone: by the built head
 // dim, except that a pool row of Dt·elt bytes that is no multiple of 16
 // (bf16 Dt % 8 != 0, f32 Dt % 4 != 0) cannot be read in the split
@@ -1848,8 +2193,10 @@ int built_dim(int Dt) {
 // stages those rows element by element
 Route route_of(int dtype, int T, int H, int KV, int Dt, int S, int P) {
   const int G = H / KV, D = built_dim(Dt), elt = dtype == 0 ? 4 : 2;
-  if (D > kRowOnlyPast)
+  if (D > kRowOnlyPast) {
+    if (takes_tc_sliced(dtype, G, Dt, P)) return kRouteTcSliced;
     return D > wide_max_d(elt) ? kRouteRowSliced : kRouteRow;
+  }
   if (Dt * elt % 16 != 0) return kRouteRow;
   if (T * G <= kSplitRows) return kRouteSplit;
   if (dtype == 1 && P <= tc::kTcMaxPages) return kRouteTc;
@@ -1887,8 +2234,16 @@ int launch_dims(const Call& a, Route route) {
       return launch_call<T, 192>(a, route);
     case 256:
       return launch_call<T, 256>(a, route);
-    default:             // past 256: the wide kernel, or its sliced form
+    default:             // past 256: the tensor-core prefill sliced,
+                         // or the row-tile kernel, wide or sliced
       if (a.D <= kRowOnlyPast) return -1;
+      if (route == kRouteTcSliced) {
+        if constexpr (sizeof(T) == 2) {
+          const int e = tc::launch_sliced(a);
+          return e == hopper::kNoEncoder ? -5 : e;
+        }
+        return -2;
+      }
       if (route == kRouteRowSliced)
         return launch_sliced<T>(a.q, a.kp, a.vp, a.table, a.q_start, a.out,
                                 a.B, a.T, a.H, a.KV, a.D, a.Dt, a.S, a.P,
@@ -1906,7 +2261,8 @@ int launch_dims(const Call& a, Route route) {
 // the pools and out, any D >= 1 (the call runs at built_dim(D), its
 // columns past D zeros that are never stored); NP: pages in each pool.
 // Writes the route the call takes to *route (0 split-KV, 1 tensor-core
-// prefill, 2 row-tile, 3 row-tile with its columns sliced; route_of)
+// prefill, 2 row-tile, 3 row-tile with its columns sliced, 4 tensor-core
+// prefill with its columns sliced; route_of)
 // before launching. A split call (T·G <=
 // 16 query rows per kv head) needs `ws`, an f32 workspace of
 // B·KV·ceil(P/pps)·T·G·(built_dim(D) + 2) elements, `counters`, B·KV

@@ -28,8 +28,18 @@ the route the entry reports):
   of 8 slots) that TMA reads straight off the pools through the block
   table — unless the table holds more than 4096 entries a row;
   ``paged_attention_tile_ref`` is its arithmetic in its order.
-- ``"row"``: every other call — f32 pools, head dims past 256 (decode
-  too), tables past 4096 entries — runs the row-tile kernel on
+- ``"tc_sliced"``: a bf16 call past head dim 256 (pool rows a multiple
+  of 16 bytes, G <= 64, p <= 4096; decode too, which it runs in a fifth
+  of the row-tile kernels' time on an NVIDIA H100 80GB HBM3 at 700 W)
+  runs the tensor-core prefill with its output's columns sliced: a CTA
+  of 64 folded query rows owns 3 or 4 64-column chunks of the output,
+  sums every score over all of D in 64-column chunks (the same order in
+  every slice, so every slice forms the same running max and sum) and
+  adds P·V for its chunks alone; ``paged_attention_tile_ref`` is its
+  arithmetic in its order too.
+- ``"row"``: every other call — f32 pools, tables past 4096 entries,
+  and the calls past head dim 256 that ``"tc_sliced"`` does not take
+  (f32, unaligned rows, G past 64) — runs the row-tile kernel on
   the CUDA cores, which streams each page in chunks of
   ``row_chunk_slots`` slots (past head dim 256 with D a runtime value,
   q and its accumulator in shared memory); ``paged_attention_row_ref``
@@ -54,10 +64,11 @@ through the same kernel: the cache is a pool of ``M // S`` contiguous
 pages per row with an identity block table (a reshape, not a copy).
 
 ``launches`` counts wrapper calls that launched a kernel, so a run can
-show its main path went through the kernel; ``split_launches`` and
-``tc_launches`` count the calls among them that ran the split-KV decode
-and the tensor-core prefill kernels, ``unaligned_launches`` those whose
-pool rows the row-tile kernel staged element by element.
+show its main path went through the kernel; ``split_launches``,
+``tc_launches`` and ``tc_sliced_launches`` count the calls among them
+that ran the split-KV decode, the tensor-core prefill and its sliced
+form past head dim 256, ``unaligned_launches`` those whose pool rows
+the row-tile kernel staged element by element.
 """
 from __future__ import annotations
 
@@ -74,7 +85,8 @@ __all__ = ["paged_attention", "paged_attention_ref",
            "row_chunk_slots",
            "dense_cache_attention", "dense_cache_page_size",
            "paged_kernel_supported", "wide_max_head_dim", "launches",
-           "split_launches", "tc_launches", "unaligned_launches"]
+           "split_launches", "tc_launches", "tc_sliced_launches",
+           "unaligned_launches"]
 
 _NEG = -1e9  # finite mask value, as in the JAX package
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -103,7 +115,7 @@ _TC_ROWS = 64
 _TC_MAX_PAGES = 4096
 _SLOT_PAD = 8
 #: the C entry's route codes
-_ROUTES = ("split", "tc", "row", "row_sliced")
+_ROUTES = ("split", "tc", "row", "row_sliced", "tc_sliced")
 #: the C entry's own error codes (others: 1000 + a refused tensor map's
 #: CUresult, or the CUDA error of the launch)
 _ERRORS = {-1: "a head dim the kernels were not built for",
@@ -119,6 +131,9 @@ launches = 0
 split_launches = 0
 #: calls that ran the tensor-core prefill kernel, among ``launches``
 tc_launches = 0
+#: calls that ran its column-sliced form past head dim 256, among
+#: ``launches``
+tc_sliced_launches = 0
 #: calls whose pool rows are no multiple of 16 bytes (staged element by
 #: element on the row-tile kernel), among ``launches``
 unaligned_launches = 0
@@ -192,20 +207,25 @@ def kernel_route(t: int, h: int, kv: int, d: int, s: int, p: int,
                  dtype) -> str:
     """The kernel the C entry runs for q (B, t, h, d) against pools of
     pages of ``s`` slots, ``kv`` kv heads and ``dtype``, through a table of
-    ``p`` entries a row, by ``padded_head_dim``: ``"row"`` past 256
-    (``"row_sliced"`` past :func:`wide_max_head_dim`), else ``"row"``
+    ``p`` entries a row, by ``padded_head_dim``: past 256
+    ``"tc_sliced"`` (bf16 pools, rows of a multiple of 16 bytes, G <= 64,
+    p <= 4096; decode too), else ``"row"`` (``"row_sliced"`` past
+    :func:`wide_max_head_dim`); up to 256 ``"row"``
     where a pool row of ``d`` elements is no multiple of 16 bytes (bf16 d
     % 8, f32 d % 4: no 16-byte copy or TMA map reads it), else
     ``"split"`` (T·G <= 16 query rows per kv head), ``"tc"`` (bf16 at any
     page size and any G, p <= 4096; Falcon-7B's decode, T·G 71, among
     them) or ``"row"``. So the row-tile kernel keeps four cases: f32
-    pools, head dims past 256, rows that are no multiple of 16 bytes and
-    tables wider than 4096 entries. Shapes and dtype only, as the C
-    entry's ``route_of``; the wrapper raises if the entry reports another
-    route."""
+    pools, rows that are no multiple of 16 bytes, tables wider than 4096
+    entries, and past head dim 256 G past 64. Shapes and dtype only, as
+    the C entry's ``route_of``; the wrapper raises if the entry reports
+    another route."""
     g = h // kv
     built = padded_head_dim(d)
     if built > _ROW_ONLY_PAST:
+        if (dtype == torch.bfloat16 and d * 2 % 16 == 0
+                and g <= _TC_ROWS and p <= _TC_MAX_PAGES):
+            return "tc_sliced"
         return "row_sliced" if built > wide_max_head_dim(dtype) else "row"
     if d * dtype.itemsize % 16:
         return "row"
@@ -479,12 +499,14 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     q_start + t. Returns (B, T, H, D) float32. On the card the call runs
     the kernel ``kernel_route`` names: the split-KV decode kernels (T·G
     <= 16 query rows per kv head; split count from shapes alone), the
-    tensor-core prefill kernel (bf16, any G), or the row-tile kernel (f32
-    prefill, tables past 4096 entries, and every call past head dim 256;
-    past :func:`wide_max_head_dim` its column-sliced form)."""
+    tensor-core prefill kernel (bf16, any G; past head dim 256 its
+    column-sliced form, G <= 64, decode too), or the row-tile kernel (f32
+    prefill, tables past 4096 entries, and past head dim 256 f32 and G
+    past 64; past :func:`wide_max_head_dim` its column-sliced form)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, table, q_start, scale=scale)
-    global launches, split_launches, tc_launches, unaligned_launches
+    global launches, split_launches, tc_launches, tc_sliced_launches
+    global unaligned_launches
     b, t, h, d = q.shape
     _, s, kv, _ = kp.shape
     _check(q.is_cuda and all(x.device == q.device
@@ -516,6 +538,7 @@ def paged_attention(q, kp, vp, table, q_start, *, scale=None):
     launches += 1
     split_launches += want == "split"
     tc_launches += want == "tc"
+    tc_sliced_launches += want == "tc_sliced"
     unaligned_launches += d * kp.dtype.itemsize % 16 != 0
     return out
 

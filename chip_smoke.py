@@ -159,7 +159,11 @@ _FLASH_NARROW = dict(batch=4, seq=2048, heads=16, head_dim=64)
 # call, decode too (T·G 71), on the tensor cores; and Phi-3-mini's
 # (d_model 3072, 32 heads over 32 kv heads, D 96; 2 of its 32 layers),
 # whose head dim the kernels run at 128 with zero columns past 96:
-# prefill on the tensor cores, decode (T·G 1) on the split-KV kernel
+# prefill on the tensor cores, decode (T·G 1) on the split-KV kernel;
+# and a synthetic head dim of 512 (d_model 1024, 2 heads over one kv
+# head: G 2; no public model runs a head dim past 256), there to put the
+# sliced tensor-core prefill on the batcher's path: every call, decode
+# (T·G 2) too, "tc_sliced"
 _SERVE_TAILS = (
     ("pages of 256", None, 256, (300, 520, 777, 1000)),
     ("pages of 300", None, 300, (300, 520, 777, 1000)),
@@ -169,6 +173,8 @@ _SERVE_TAILS = (
                                  num_kv_heads=1, num_layers=2), 16, None),
     ("Phi-3-mini attention", dict(d_model=3072, num_heads=32,
                                   num_kv_heads=32, num_layers=2), 16, None),
+    ("head dim 512", dict(d_model=1024, num_heads=2, num_kv_heads=1,
+                          num_layers=2), 16, None),
 )
 _TAIL_REQUESTS, _TAIL_NEW_TOKENS = 4, 16
 #: flash kernel vs plain, element by element: |kernel - plain| <=
@@ -527,8 +533,10 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
     kernels, the f32 (3xTF32) fused-CE forward (``fce_fwd_tf32_kernel``)
     and dh and dW/db (``fce_bwd_tf32_kernel``), the bf16 dh and dW/db
     past D 1024 (both instantiations of pass 1, ``fce_dl_tc_kernel``,
-    and pass 2, ``fce_gemm_tc_kernel``, which both run) and the five
-    paged prefill kernels (D 32, 64, 128, 192, 256) have ``HGMMA``."""
+    and pass 2, ``fce_gemm_tc_kernel``, which both run), the five
+    paged prefill kernels (D 32, 64, 128, 192, 256) and its sliced form
+    past D 256 (``paged_prefill_sliced_tc_kernel``: slices of 3 and of
+    4 chunks) have ``HGMMA``."""
     from bigdl_tpu_torch.ops import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     counts, name = {}, None
@@ -548,6 +556,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                 tf = re.search(r"(flash_fwd|flash_dq|flash_dkdv)_(sliced|rows)"
                                r"_tf32_kernelILi(\d+)E", line)
                 p = re.search(r"paged_prefill_tc_kernelILi(\d+)E", line)
+                ps = re.search(r"paged_prefill_sliced_tc_kernelILi(\d+)E",
+                               line)
                 name = (f"{f.group(1)} bf16 D={f.group(2)}" if f else
                         f"{sl.group(1)}_sliced_tc bf16 OWN={sl.group(2)}"
                         if sl else
@@ -555,6 +565,8 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                         f"OWN={tf.group(3)}" if tf
                         else
                         f"paged_prefill_tc bf16 D={p.group(1)}" if p else
+                        f"paged_prefill_sliced_tc bf16 OWN={ps.group(1)}"
+                        if ps else
                         f"fused_ce_{'dw' if c.group(1) == '1' else 'dh'} bf16"
                         if c else
                         f"fused_ce_{'dw' if ct.group(1) == '1' else 'dh'}"
@@ -601,7 +613,9 @@ def _check_tensor_cores(flash_lib: str, fce_lib: str, paged_lib: str) -> dict:
                              for k in ("flash_fwd", "flash_dq")
                              for n in (1, 2)) + tuple(
                              f"paged_prefill_tc bf16 D={d}"
-                             for d in (32, 64, 128, 192, 256))
+                             for d in (32, 64, 128, 192, 256)) + tuple(
+                             f"paged_prefill_sliced_tc bf16 OWN={n}"
+                             for n in (3, 4))
              if not counts.get(k, {}).get("HGMMA")]
     if bare:
         raise AssertionError(f"no (wgmma) tensor-core instructions in {bare}")
@@ -834,14 +848,17 @@ def _decode_geometries(pa, gen):
 
 def _paged_call(pa, label, route, q, kp, vp, table, qs):
     """One ``paged_attention`` call, synchronised; raises unless it ran
-    ``route``'s kernel ("split", "tc", "row" or "row_sliced"), as
-    ``kernel_route`` names it and the counters show."""
-    counts = pa.launches, pa.split_launches, pa.tc_launches
+    ``route``'s kernel ("split", "tc", "tc_sliced", "row" or
+    "row_sliced"), as ``kernel_route`` names it and the counters show."""
+    counts = (pa.launches, pa.split_launches, pa.tc_launches,
+              pa.tc_sliced_launches)
     got = pa.paged_attention(q, kp, vp, table, qs)
     torch.cuda.synchronize()
     moved = [a - b for a, b in zip((pa.launches, pa.split_launches,
-                                    pa.tc_launches), counts)]
-    want = [1, int(route == "split"), int(route == "tc")]
+                                    pa.tc_launches, pa.tc_sliced_launches),
+                                   counts)]
+    want = [1, int(route == "split"), int(route == "tc"),
+            int(route == "tc_sliced")]
     took = pa.kernel_route(q.shape[1], q.shape[2], kp.shape[2], q.shape[3],
                            kp.shape[1], table.shape[1], kp.dtype)
     if moved != want or took != route:
@@ -1056,10 +1073,15 @@ def _prefill_nan_pool(pa, gen):
 #: staging (f32 pages of 256 slots, a 4097-entry table of 256-slot
 #: pages), streamed in chunks of ``row_chunk_slots`` slots; bf16 pages of
 #: 300 and G 3 at 256, which the tensor-core kernel takes; and head dims
-#: 320, 512, 576 and 1024 and the caps (bf16 1792, f32 1152), which
-#: every call runs on the row-tile kernel's wide form, D a runtime value
-#: (an f32 D 512 pool of 64-slot pages takes chunks of 24, 24 and 16, an
-#: f32 D 1024 pool chunks of 8); past the caps its column-sliced form
+#: 320, 512, 576 and 1024 and the caps (bf16 1792, f32 1152), whose bf16
+#: calls, decode too, run the sliced tensor-core kernel (D a runtime
+#: value, 3 or 4 64-column output chunks a CTA; G <= 64 and tables of
+#: up to 4096 entries, the last rows holding the bf16 calls past either
+#: on the row-tile kernels) and whose f32 calls run the row-tile
+#: kernel's wide form, D a runtime value (an f32 D 512 pool of 64-slot
+#: pages takes chunks of 24, 24 and 16, an f32 D 1024 pool chunks of 8);
+#: past the caps the sliced tensor-core kernel (bf16) or the row-tile
+#: kernel's column-sliced form
 _POOL_GEOMETRIES = (
     ("s256-f32", 2, 300, 8, 2, 128, 256, 9, torch.float32, [0, 700],
      "row"),
@@ -1070,44 +1092,67 @@ _POOL_GEOMETRIES = (
      "tc"),
     ("s256-4097-pages", 1, 64, 8, 2, 128, 256, 4097, torch.bfloat16,
      [600], "row"),
-    ("d320", 2, 96, 4, 2, 320, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d320", 2, 96, 4, 2, 320, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
     ("d320-decode", 3, 1, 4, 2, 320, 16, 12, torch.bfloat16, [0, 64, 191],
-     "row"),
-    ("d512", 2, 96, 4, 2, 512, 16, 20, torch.bfloat16, [0, 30], "row"),
+     "tc_sliced"),
+    ("d512", 2, 96, 4, 2, 512, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
     ("d512-decode", 3, 1, 4, 2, 512, 16, 12, torch.bfloat16,
-     [0, 64, 191], "row"),
+     [0, 64, 191], "tc_sliced"),
     ("d512-f32-s64", 1, 64, 4, 2, 512, 64, 6, torch.float32, [100], "row"),
-    ("d576", 2, 96, 4, 2, 576, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d576", 2, 96, 4, 2, 576, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
     ("d576-f32", 2, 96, 4, 2, 576, 16, 20, torch.float32, [0, 30], "row"),
     ("d576-decode", 3, 1, 4, 2, 576, 16, 12, torch.bfloat16, [0, 64, 191],
-     "row"),
+     "tc_sliced"),
     ("d576-f32-decode", 3, 1, 4, 2, 576, 16, 12, torch.float32,
      [0, 64, 191], "row"),
-    ("d1024", 2, 96, 4, 2, 1024, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d1024", 2, 96, 4, 2, 1024, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
     ("d1024-f32", 2, 96, 4, 2, 1024, 16, 20, torch.float32, [0, 30],
      "row"),
     ("d1024-decode", 3, 1, 4, 2, 1024, 16, 12, torch.bfloat16,
-     [0, 64, 191], "row"),
+     [0, 64, 191], "tc_sliced"),
     ("d1024-f32-decode", 3, 1, 4, 2, 1024, 16, 12, torch.float32,
      [0, 64, 191], "row"),
     ("d1024-s300", 1, 64, 2, 1, 1024, 300, 4, torch.bfloat16, [500],
-     "row"),
+     "tc_sliced"),
     # at the wide form's cap (1792 bf16, 1152 f32: one 8-slot chunk)
-    ("d1792", 2, 96, 4, 2, 1792, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d1792", 2, 96, 4, 2, 1792, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
     ("d1152-f32", 2, 96, 4, 2, 1152, 16, 20, torch.float32, [0, 30],
      "row"),
     # past the wide form's cap (1792 bf16, 1152 f32): its column-sliced
     # form (4, 4 and 3 slices of 512 columns), prefill and decode
     ("d1856", 2, 96, 4, 2, 1856, 16, 20, torch.bfloat16, [0, 30],
-     "row_sliced"),
+     "tc_sliced"),
     ("d1856-decode", 3, 1, 4, 2, 1856, 16, 12, torch.bfloat16,
-     [0, 64, 191], "row_sliced"),
+     [0, 64, 191], "tc_sliced"),
     ("d2048", 2, 96, 4, 2, 2048, 16, 20, torch.bfloat16, [0, 30],
-     "row_sliced"),
+     "tc_sliced"),
     ("d2048-s300", 1, 64, 2, 1, 2048, 300, 4, torch.bfloat16, [500],
-     "row_sliced"),
+     "tc_sliced"),
     ("d1216-f32", 2, 96, 4, 2, 1216, 16, 20, torch.float32, [0, 30],
      "row_sliced"),
+    # past D 256 the bf16 rows above, decode too, run the sliced
+    # tensor-core kernel; beside them G 7 through pages of 12, G 64 over
+    # one kv head, a short prefill (T 9: 18 rows a kv head, q_start past
+    # 0) and the padded head dims 304 (at 320) and 1864 (at 1920)
+    ("d512-g7-s12", 2, 40, 14, 2, 512, 12, 30, torch.bfloat16, [0, 50],
+     "tc_sliced"),
+    ("d320-g64", 1, 17, 64, 1, 320, 16, 4, torch.bfloat16, [20],
+     "tc_sliced"),
+    ("d512-t9", 2, 9, 4, 2, 512, 16, 12, torch.bfloat16, [40, 100],
+     "tc_sliced"),
+    ("d304", 2, 96, 4, 2, 304, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
+    ("d1864", 2, 96, 4, 2, 1864, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
+    # a 512-token prefill at D 512: 16 row tiles a kv head, up to 8 key
+    # tiles a CTA
+    ("d512-t512", 1, 512, 8, 2, 512, 16, 40, torch.bfloat16, [0],
+     "tc_sliced"),
     ("d1216-f32-decode", 3, 1, 4, 2, 1216, 16, 12, torch.float32,
      [0, 64, 191], "row_sliced"),
     # head dims the kernels run at the next built one (padded_head_dim),
@@ -1118,7 +1163,7 @@ _POOL_GEOMETRIES = (
     # the row-tile kernels' element-wise staging, decode and prefill
     # alike: bf16 20 (40 bytes, -> 32), 300 (the wide form at 320) and
     # 1860 (the sliced form at 1920), f32 1190 (sliced at 1216); and 288
-    # (the wide form at 320, 576-byte rows in 16-byte copies)
+    # (at 320 on the sliced tensor-core kernel, 576-byte rows as TMA rows)
     ("d16", 2, 96, 8, 2, 16, 16, 20, torch.bfloat16, [0, 30], "tc"),
     ("d16-decode", 3, 1, 8, 8, 16, 16, 12, torch.bfloat16, [0, 64, 191],
      "split"),
@@ -1137,9 +1182,10 @@ _POOL_GEOMETRIES = (
      "row"),
     ("d20-f32-decode", 3, 1, 6, 2, 20, 16, 12, torch.float32,
      [0, 64, 191], "split"),
-    ("d288", 2, 96, 4, 2, 288, 16, 20, torch.bfloat16, [0, 30], "row"),
+    ("d288", 2, 96, 4, 2, 288, 16, 20, torch.bfloat16, [0, 30],
+     "tc_sliced"),
     ("d288-decode", 3, 1, 4, 2, 288, 16, 12, torch.bfloat16, [0, 64, 191],
-     "row"),
+     "tc_sliced"),
     ("d300", 2, 96, 4, 2, 300, 16, 20, torch.bfloat16, [0, 30], "row"),
     ("d1860", 2, 96, 4, 2, 1860, 16, 20, torch.bfloat16, [0, 30],
      "row_sliced"),
@@ -1152,17 +1198,38 @@ _POOL_GEOMETRIES = (
     ("phi3-d96-decode", 8, 1, 32, 32, 96, 16, 129, torch.bfloat16,
      [15, 46, 127, 299, 510, 766, 1023, 1099], "split"),
     ("phi2-d80", 1, 512, 32, 32, 80, 16, 40, torch.bfloat16, [0], "tc"),
+    # bf16 calls past D 256 whose rows are 16-byte multiples but which
+    # the sliced tensor-core kernel refuses, so the row-tile kernels'
+    # 16-byte copies stage them, prefill and decode: G 71 over one kv
+    # head at D 512 (the wide form; at D 1024 through 300-slot pages, in
+    # chunks of row_chunk_slots), G 65 at D 2048 (the column-sliced
+    # form) and a 4097-entry table at D 512 (the wide form)
+    ("d512-g71", 1, 9, 71, 1, 512, 16, 12, torch.bfloat16, [40], "row"),
+    ("d512-g71-decode", 2, 1, 71, 1, 512, 16, 12, torch.bfloat16,
+     [64, 191], "row"),
+    ("d1024-g71-s300", 1, 9, 71, 1, 1024, 300, 4, torch.bfloat16, [500],
+     "row"),
+    ("d2048-g65", 1, 9, 65, 1, 2048, 16, 12, torch.bfloat16, [40],
+     "row_sliced"),
+    ("d2048-g65-decode", 2, 1, 65, 1, 2048, 16, 12, torch.bfloat16,
+     [64, 191], "row_sliced"),
+    ("d512-4097-pages", 1, 64, 4, 2, 512, 16, 4097, torch.bfloat16, [600],
+     "row"),
+    ("d512-4097-pages-decode", 2, 1, 4, 2, 512, 16, 4097, torch.bfloat16,
+     [600, 3000], "row"),
 )
 #: the rows of ``_POOL_GEOMETRIES`` timed beside their bound, plain
 #: version and library calls: the ``[serve]`` tail's 300-slot pages,
-#: the bf16 prefill rows of the wide row-tile kernel at head dims 512,
-#: 576, 1024 and 1792 (its cap), the sliced form's prefill rows at
-#: bf16 D 1856 and 2048 and f32 D 1216, and the padded head dims:
-#: Phi-3-mini's prefill and decode, Phi-2's prefill, bf16 D 20 (the
-#: element-wise staging) and D 288 (the wide form at 320)
+#: the bf16 prefill rows of the sliced tensor-core kernel at head dims
+#: 512, 576, 1024, 1792, 1856 and 2048 and its decode rows at D 512, 576,
+#: 1024 and 1856, the row-tile kernel's f32 prefill rows at D 576 and
+#: 1024 (the wide form) and 1216 (its sliced form), and the padded head
+#: dims: Phi-3-mini's prefill and decode, Phi-2's prefill, bf16 D 20 (the
+#: element-wise staging) and D 288 (at 320)
 _POOL_TIMED = ("s300", "d512", "d576", "d1024", "d1792", "d1856", "d2048",
-               "d1216-f32", "phi3-d96", "phi3-d96-decode", "phi2-d80",
-               "d20", "d288")
+               "d512-decode", "d576-decode", "d1024-decode", "d1856-decode",
+               "d576-f32", "d1024-f32", "d1216-f32", "phi3-d96",
+               "phi3-d96-decode", "phi2-d80", "d20", "d288")
 
 
 def _pool_geometries(pa, gen):
@@ -1170,7 +1237,7 @@ def _pool_geometries(pa, gen):
     kernel against ``paged_attention_ref`` within ``_PAGED_TOL`` (the
     row-tile kernel, its sliced form too, also against
     ``paged_attention_row_ref``, with its chunk ``row_chunk_slots``; the
-    tensor-core kernel against
+    tensor-core kernel, its sliced form too, against
     ``paged_attention_tile_ref``); ``_POOL_TIMED`` timed too. Returns the
     rows by label."""
     rows = {}
@@ -1190,7 +1257,7 @@ def _pool_geometries(pa, gen):
                 chunk_slots=pa.row_chunk_slots(d, s, dtype),
                 vs_row_ref=_row_check(pa, f"pool geometry {label}", got,
                                       *args))
-        elif route == "tc":
+        elif route in ("tc", "tc_sliced"):
             rows[label]["vs_tile_ref"] = _tile_check(
                 pa, f"pool geometry {label}", got, *args)
         if label in _POOL_TIMED:
@@ -1391,6 +1458,7 @@ def phase_serve(pa, seed):
     batcher = ContinuousBatcher(model, num_pages=num_pages, **kw)
     torch.cuda.reset_peak_memory_stats()
     pa.launches = pa.split_launches = pa.tc_launches = 0
+    pa.tc_sliced_launches = 0
     t0 = time.perf_counter()
     for i in range(8):
         batcher.submit(i, prompts[i])
@@ -1513,8 +1581,8 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
     decode step over the kernel-prefilled pools, kernel against dense
     (tokens are printed, not held: a near-tie that flips one greedy
     token changes every later one). Returns the run's launches by route
-    (split, tc, row) and its row-tile launches on rows staged element by
-    element (unaligned)."""
+    (split, tc, tc_sliced, row) and its row-tile launches on rows staged
+    element by element (unaligned)."""
     from bigdl_tpu_torch.models.transformer.serving import (
         ContinuousBatcher, PagedKVCache, _meta_statics, _paged_prefill_impl)
     meta = model.lm_meta
@@ -1538,7 +1606,7 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
         batcher = ContinuousBatcher(model, num_pages=n * need + 1,
                                     paged_kernel=mode, **kw)
         pa.launches = pa.split_launches = pa.tc_launches = 0
-        pa.unaligned_launches = 0
+        pa.tc_sliced_launches = pa.unaligned_launches = 0
         t0 = time.perf_counter()
         for i, p in enumerate(prompts):
             batcher.submit(i, p)
@@ -1550,12 +1618,13 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
         counts[mode] = dict(wall_s=time.perf_counter() - t0,
                             launches=pa.launches, split=pa.split_launches,
                             tc=pa.tc_launches,
+                            tc_sliced=pa.tc_sliced_launches,
                             row=pa.launches - pa.split_launches
-                            - pa.tc_launches,
+                            - pa.tc_launches - pa.tc_sliced_launches,
                             unaligned=pa.unaligned_launches, bursts=bursts)
         del batcher
     k = counts["auto"]
-    want = {"split": 0, "tc": 0, "row": 0}
+    want = {"split": 0, "tc": 0, "tc_sliced": 0, "row": 0}
     want[prefill] += layers * n
     want[decode] += layers * 8 * k["bursts"]
     if {r: k[r] for r in want} != want:
@@ -1601,13 +1670,15 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
     tok0 = logits["kernel"].argmax(-1) + 1
     step = {}
     for mode in ("kernel", "dense"):
-        before = pa.launches, pa.split_launches, pa.tc_launches
+        before = (pa.launches, pa.split_launches, pa.tc_launches,
+                  pa.tc_sliced_launches)
         step[mode] = _decode_step_logits(model, caches["kernel"], table_t,
                                          lens_t, tok0, mode)
         moved = [a - b for a, b in zip((pa.launches, pa.split_launches,
-                                        pa.tc_launches), before)]
-        by = dict(split=moved[1], tc=moved[2],
-                  row=moved[0] - moved[1] - moved[2])
+                                        pa.tc_launches,
+                                        pa.tc_sliced_launches), before)]
+        by = dict(split=moved[1], tc=moved[2], tc_sliced=moved[3],
+                  row=moved[0] - moved[1] - moved[2] - moved[3])
         if by[decode] != (layers if mode == "kernel" else 0) \
                 or moved[0] != by[decode]:
             raise AssertionError(f"{label}: the {mode} decode step made "
@@ -1631,7 +1702,8 @@ def _serve_tail(pa, model, seed, label, page, prompt_lens):
           f"max_abs_diff={diff} max_abs_logit={scale}; decode-step logits "
           f"({decode} vs dense) max_abs_diff={step_diff} max_abs_logit="
           f"{step_scale} tol={_LOGIT_REL_TOL}x", flush=True)
-    return {r: k[r] for r in ("split", "tc", "row", "unaligned")}
+    return {r: k[r] for r in ("split", "tc", "tc_sliced", "row",
+                              "unaligned")}
 
 
 def _decode_step_logits(model, cache, table, lengths, tok, mode):
@@ -3469,13 +3541,28 @@ def main(argv=None) -> int:
         "max_abs_err": pre_err,
         **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "library_gather_ms")}})
+    # the sliced tensor-core prefill past D 256: timed at q (2,96,4,512)
+    # bf16 (d512), its launches those of [serve]'s head dim 512 tail,
+    # prefill and decode (the counters set to 0 before it and read after
+    # it), its errors those of every "tc_sliced" geometry of [kernels]
+    sl = rows["pool_geometries"]["d512"]
+    kernels.append({
+        "name": "paged_prefill_sliced_tc", "route": "cuda",
+        "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "bigdl_tpu/ops/pallas/paged_attention.py:225",
+        "launches": sum(t["tc_sliced"] for t in tails.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in geo
+                           if r["route"] == "tc_sliced"),
+        **{k: sl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library_gather_ms")}})
     # the row-tile kernel (its wide form past D 256 and its sliced form
     # past the wide form's cap among its errors): timed at f32 pools at
     # G 7 (g7-f32); its launches those of [serve]'s tails, now 0, since
-    # the tensor-core kernel takes every bf16 call at D <= 256 (Falcon-7B's
-    # G 71 too): it keeps f32 pools, tables past 4096 entries and head
-    # dims past 256, which no main path runs, and is held at every "row"
-    # and "row_sliced" geometry of [kernels]
+    # the tensor-core kernels take every bf16 call of the tails (past D
+    # 256 the sliced one, decode too): it keeps f32 pools, tables past
+    # 4096 entries, unaligned rows and, past D 256, G past 64, which no
+    # main path runs, and is held at every "row" and "row_sliced"
+    # geometry of [kernels]
     row = rows["prefill_geometries"]["g7-f32"]
     kernels.append({
         "name": "paged_row_tile", "route": "cuda",

@@ -201,18 +201,130 @@ _PAST_CAP_CASES = {
 def test_past_the_wide_cap_matches_jax(case):
     """Head dims past the wide form's cap (bf16 D 1856, f32 D 1216), which
     the JAX kernel takes as it takes every multiple of 64: the route is
-    the sliced row-tile kernel's, and the plain version and the row-tile
-    kernel's arithmetic in its order (``paged_attention_row_ref``, which
-    the sliced form keeps) match the JAX kernel in interpret mode at the
-    file's tolerances."""
+    the sliced row-tile kernel's for f32 pools and the sliced tensor-core
+    kernel's for bf16 ones, and the plain version, the row-tile kernel's
+    arithmetic in its order (``paged_attention_row_ref``, which the
+    sliced form keeps) and, for bf16, the sliced tensor-core kernel's
+    (``_sliced_tc``) match the JAX kernel in interpret mode at the file's
+    tolerances."""
     b, t, h, kv, d, s, p, starts, dtype = _PAST_CAP_CASES[case]
     tdt = _DTYPES[dtype][1]
-    assert tpa.kernel_route(t, h, kv, d, s, p, tdt) == "row_sliced"
+    assert tpa.kernel_route(t, h, kv, d, s, p, tdt) == (
+        "tc_sliced" if dtype == "bf16" else "row_sliced")
     assert tpa.paged_kernel_supported(d, s, tdt, h, kv)
     q, kp, vp, table = _geometry(b, t, h, kv, d, b * p + 1, s, p, seed=47)
     _compare(q, kp, vp, table, starts, dtype)
     _compare(q, kp, vp, table, starts, dtype,
              fn=tpa.paged_attention_row_ref)
+    if dtype == "bf16":
+        _compare(q, kp, vp, table, starts, dtype,
+                 fn=functools.partial(_sliced_tc, own=4))
+
+
+def _sliced_tc(q, kp, vp, table, q_start, own, scale=None):
+    """The sliced tensor-core prefill's arithmetic (route "tc_sliced"),
+    on the CPU: q, K and V zero-padded to the built head dim D
+    (``ops.padded_head_dim``), every score summed over D in 64-column
+    chunks in order, then the output cut into slices of ``own`` chunks,
+    each running its own online softmax over the kernel's 64-key tiles of
+    the padded slot space (``paged_attention_tile_ref``'s spans), p
+    rounded to the pool dtype at the running max, and P·V over its own
+    columns alone, a key at a time. Each slice forms its scores afresh,
+    as each CTA does."""
+    b, t, h, d = q.shape
+    kv = kp.shape[2]
+    g = h // kv
+    dd = ops.padded_head_dim(d)
+    nc = dd // 64
+    scale = d ** -0.5 if scale is None else scale
+
+    def pad(x):
+        return torch.nn.functional.pad(x.float(), (0, dd - d))
+    qg = pad(q.to(kp.dtype)).reshape(b, t, kv, g, dd)
+    ck, cv = (pad(tpa._paged_view(x, table)) for x in (kp, vp))
+    n = ck.shape[1]
+    upto = q_start.long()[:, None] + torch.arange(t)[None, :]
+    s_ = kp.shape[1]
+    s8 = -(-s_ // tpa._SLOT_PAD) * tpa._SLOT_PAD
+    n_pad = table.shape[1] * s8
+
+    def logical(k):
+        return k // s8 * s_ + min(k % s8, s_)
+    spans = [(logical(k0), logical(min(k0 + 64, n_pad)))
+             for k0 in range(0, n_pad, 64)]
+    slices = []
+    for c0 in range(0, nc, own):
+        sc = torch.zeros((b, kv, g, t, n))
+        for c in range(nc):
+            cols = slice(64 * c, 64 * c + 64)
+            sc = sc + torch.einsum("btkgd,bmkd->bkgtm", qg[..., cols],
+                                   ck[..., cols])
+        sc = sc * scale
+        sc = torch.where(torch.arange(n) > upto[:, None, None, :, None],
+                         tpa._NEG, sc)
+        cols = slice(64 * c0, 64 * min(c0 + own, nc))
+        v = cv[..., cols]
+        m = torch.full(sc.shape[:-1], -torch.inf)
+        l_ = torch.zeros_like(m)
+        acc = torch.zeros(sc.shape[:-1] + (v.shape[-1],))
+        for k0, k1 in spans:
+            if k0 == k1:
+                continue
+            st = sc[..., k0:k1]
+            m_new = torch.maximum(m, st.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(st - m_new[..., None]).to(kp.dtype).float()
+            l_ = l_ * corr + torch.exp(st - m_new[..., None]).sum(-1)
+            pv = torch.zeros_like(acc)
+            for k in range(k1 - k0):
+                pv = pv + p[..., k, None] * v[:, k0 + k, :, None, None, :]
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        slices.append(acc / l_[..., None])
+    o = torch.cat(slices, -1)[..., :d]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+
+
+# (B, T, H, KV, D, page size, table entries, q_start of each row): bf16
+# calls past head dim 256, which take the sliced tensor-core kernel: D
+# 320 (slices of 3 + 2 chunks), 512 (4 + 4) and 1856 (29 chunks: 4 x 7
+# + 1, the built 1856 a multiple of 64), G 2 and 7 (padded to 8 in the
+# kernel's fold), pages of 12 (padded to 16 slots) and 16, rows starting
+# past 0, prefill and a decode step
+_SLICED_TC_CASES = {
+    "d320-g7-s16": (2, 4, 14, 2, 320, 16, 5, [3, 40]),
+    "d512-g2-s12": (2, 12, 4, 2, 512, 12, 6, [5, 40]),
+    "d512-g7-s16": (2, 3, 14, 2, 512, 16, 4, [0, 33]),
+    "d1856-g2-s12": (2, 9, 4, 2, 1856, 12, 5, [7, 30]),
+    "d512-g2-decode": (3, 1, 4, 2, 512, 16, 4, [0, 17, 50]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SLICED_TC_CASES))
+def test_sliced_tc_arithmetic_matches_jax(case):
+    """The sliced tensor-core prefill's arithmetic (``_sliced_tc``: scores
+    over 64-column chunks in order, a per-slice online softmax at 64-key
+    tiles, p rounded to bf16) against the JAX kernel in interpret mode at
+    the file's bf16 tolerance, and against the kernel's own order without
+    slices (``paged_attention_tile_ref`` at 64-key tiles, 2e-5: the same
+    tiles and roundings, f32 sums in another order); every slicing (1, 2,
+    3, 4 chunks a slice, and one slice of all of D) gives the same bits,
+    since every slice forms the same scores, running max and sum."""
+    b, t, h, kv, d, s, p, starts = _SLICED_TC_CASES[case]
+    assert tpa.kernel_route(t, h, kv, d, s, p, torch.bfloat16) == "tc_sliced"
+    q, kp, vp, table = _geometry(b, t, h, kv, d, b * p + 1, s, p, seed=d + h)
+    fn = functools.partial(_sliced_tc, own=4)
+    _compare(q, kp, vp, table, starts, "bf16", fn=fn)
+    args = (torch.from_numpy(q), torch.from_numpy(kp).to(torch.bfloat16),
+            torch.from_numpy(vp).to(torch.bfloat16), torch.from_numpy(table),
+            torch.tensor(starts, dtype=torch.int32))
+    got = _sliced_tc(*args, own=4)
+    np.testing.assert_allclose(
+        got.numpy(), tpa.paged_attention_tile_ref(*args, key_tile=64).numpy(),
+        atol=2e-5, rtol=2e-5)
+    nc = ops.padded_head_dim(d) // 64
+    for own in (1, 2, 3, nc):
+        assert torch.equal(_sliced_tc(*args, own=own), got), own
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -483,25 +595,48 @@ _ROUTE_CASES = {
     "g71-f32": ((64, 71, 1, 64, 16, 9, _F32), "row"),
     "4097-pages": ((64, 8, 2, 128, 16, 4097, _BF16), "row"),
     "g71-4097-pages": ((64, 71, 1, 64, 16, 4097, _BF16), "row"),
-    # past head dim 256 every call, decode too, runs the row-tile kernel
-    "d320-decode": ((1, 8, 2, 320, 16, 9, _BF16), "row"),
-    "d320-prefill": ((64, 8, 2, 320, 16, 9, _BF16), "row"),
+    # past head dim 256 a bf16 call, decode too, runs the tensor-core
+    # prefill with its output's columns sliced, at any head dim whose
+    # rows are 16-byte multiples (1864 padded to 1920, 304 to 320), any
+    # page size (300), G up to 64 and tables up to 4096 entries; f32 and
+    # the rest stay on the row-tile kernel
+    "d320-decode": ((1, 8, 2, 320, 16, 9, _BF16), "tc_sliced"),
+    "d320-prefill": ((64, 8, 2, 320, 16, 9, _BF16), "tc_sliced"),
     "d512-decode": ((1, 8, 2, 512, 16, 9, _F32), "row"),
-    "d512-prefill": ((64, 8, 2, 512, 16, 9, _BF16), "row"),
-    "d576-decode": ((1, 2, 1, 576, 16, 9, _BF16), "row"),
+    "d512-prefill": ((64, 8, 2, 512, 16, 9, _BF16), "tc_sliced"),
+    "d576-decode": ((1, 2, 1, 576, 16, 9, _BF16), "tc_sliced"),
     "d576-prefill": ((64, 8, 2, 576, 16, 9, _F32), "row"),
     "d1024-decode": ((1, 8, 2, 1024, 16, 9, _F32), "row"),
-    "d1024-prefill": ((64, 8, 2, 1024, 16, 9, _BF16), "row"),
+    "d1024-prefill": ((64, 8, 2, 1024, 16, 9, _BF16), "tc_sliced"),
+    "d304-prefill": ((64, 8, 2, 304, 16, 9, _BF16), "tc_sliced"),
+    "d1864-prefill": ((96, 4, 2, 1864, 16, 20, _BF16), "tc_sliced"),
+    "d512-s300": ((64, 8, 2, 512, 300, 9, _BF16), "tc_sliced"),
+    "d512-g7-s12": ((40, 14, 2, 512, 12, 30, _BF16), "tc_sliced"),
+    "d320-g64": ((17, 64, 1, 320, 16, 4, _BF16), "tc_sliced"),
+    "d512-17-rows": ((17, 1, 1, 512, 16, 9, _BF16), "tc_sliced"),
+    "d512-4096-pages": ((64, 8, 2, 512, 16, 4096, _BF16), "tc_sliced"),
+    "d512-16-rows": ((8, 4, 2, 512, 16, 9, _BF16), "tc_sliced"),
+    "d512-decode-bf16": ((1, 8, 2, 512, 16, 9, _BF16), "tc_sliced"),
+    "d512-g71-decode": ((1, 71, 1, 512, 16, 9, _BF16), "row"),
+    "d2048-g65-decode": ((1, 65, 1, 2048, 16, 9, _BF16), "row_sliced"),
+    "d512-f32-prefill": ((64, 8, 2, 512, 16, 9, _F32), "row"),
+    "d512-g71": ((64, 71, 1, 512, 16, 9, _BF16), "row"),
+    "d512-g65-kv2": ((64, 130, 2, 512, 16, 9, _BF16), "row"),
+    "d512-4097-pages": ((64, 8, 2, 512, 16, 4097, _BF16), "row"),
+    "d300-prefill": ((64, 8, 2, 300, 16, 9, _BF16), "row"),
+    "d1860-prefill": ((96, 4, 2, 1860, 16, 20, _BF16), "row_sliced"),
+    "d2048-4097-pages": ((64, 8, 2, 2048, 16, 4097, _BF16), "row_sliced"),
     # past the wide form's cap (1152 f32, 1792 bf16) its column-sliced
     # form; at the cap the wide form
     "d1152-f32": ((64, 8, 2, 1152, 16, 9, _F32), "row"),
     "d1216-f32": ((64, 8, 2, 1216, 16, 9, _F32), "row_sliced"),
     "d1216-f32-decode": ((1, 8, 2, 1216, 16, 9, _F32), "row_sliced"),
-    "d1792": ((64, 8, 2, 1792, 16, 9, _BF16), "row"),
-    "d1856": ((64, 8, 2, 1856, 16, 9, _BF16), "row_sliced"),
-    "d1856-decode": ((1, 8, 2, 1856, 16, 9, _BF16), "row_sliced"),
-    "d2048": ((64, 8, 2, 2048, 300, 9, _BF16), "row_sliced"),
-    "d4096": ((1, 8, 2, 4096, 16, 9, _BF16), "row_sliced"),
+    "d1792": ((64, 8, 2, 1792, 16, 9, _BF16), "tc_sliced"),
+    "d1792-decode": ((1, 8, 2, 1792, 16, 9, _BF16), "tc_sliced"),
+    "d1856": ((64, 8, 2, 1856, 16, 9, _BF16), "tc_sliced"),
+    "d1856-decode": ((1, 8, 2, 1856, 16, 9, _BF16), "tc_sliced"),
+    "d2048": ((64, 8, 2, 2048, 300, 9, _BF16), "tc_sliced"),
+    "d4096": ((1, 8, 2, 4096, 16, 9, _BF16), "tc_sliced"),
     "d4096-f32": ((64, 8, 2, 4096, 16, 9, _F32), "row_sliced"),
 }
 
@@ -517,7 +652,11 @@ def test_route_constants_match_the_c_entry():
     CTA's folded rows (the most G it pads) and its staged table entries,
     the head dim past which only the row-tile kernel is built, and
     route_of's tests of head dim (first), rows (T·G), dtype and table
-    width, none of G alone or of page size; the tensor-core kernel's fold
+    width, none of G alone or of page size up to head dim 256, and past
+    it the sliced tensor-core kernel's (``takes_tc_sliced``: bf16, rows
+    of a 16-byte multiple, G up to the boxed fold's 64, tables it
+    stages, decode too; its slices of at most 4 chunks, as
+    even as they come, ``sl_own``); the tensor-core kernel's fold
     and padding (G to a power of two up to kWgRows, G itself past it;
     pages to a multiple of kSlotPad slots, boxes of the largest of
     64/32/16/8 rows dividing the padded page); and the row-tile kernel's
@@ -549,8 +688,21 @@ def test_route_constants_match_the_c_entry():
     # by the built head dim first, then rows of no 16-byte multiple
     assert "D = built_dim(Dt), elt = dtype == 0 ? 4 : 2;" in route_of
     assert route_of.index("if (D > kRowOnlyPast)") \
+        < route_of.index("takes_tc_sliced(dtype, G, Dt, P)") \
         < route_of.index("if (Dt * elt % 16 != 0) return kRouteRow;") \
         < route_of.index("kSplitRows")
+    assert ("if (takes_tc_sliced(dtype, G, Dt, P)) return kRouteTcSliced;"
+            in route_of)
+    takes = " ".join(body("bool takes_tc_sliced(").split())
+    assert ("return dtype == 1 && Dt * 2 % 16 == 0 && P <= tc::kTcMaxPages "
+            "&& G <= tc::kWgRows;" in takes)
+    assert const("kSlOwnMax") == 4
+    own = body("inline int sl_own(")
+    assert "const int fewest = (nc + kSlOwnMax - 1) / kSlOwnMax;" in own
+    assert "return (nc + fewest - 1) / fewest;" in own
+    for nc in range(5, 65):
+        fewest = -(-nc // 4)
+        assert -(-nc // fewest) in (3, 4)
     assert ("return D > wide_max_d(elt) ? kRouteRowSliced : kRouteRow;"
             in route_of)
     built = body("int built_dim(")
@@ -562,8 +714,10 @@ def test_route_constants_match_the_c_entry():
                                              200, 256, 257, 288, 1000)] \
         == [32, 32, 32, 64, 128, 128, 192, 256, 256, 320, 320, 1024]
     assert (re.search(r"enum Route \{ kRouteSplit = 0, kRouteTc = 1, "
-                      r"kRouteRow = 2,\s+kRouteRowSliced = 3 \};", src)
-            and tpa._ROUTES == ("split", "tc", "row", "row_sliced"))
+                      r"kRouteRow = 2,\s+kRouteRowSliced = 3, "
+                      r"kRouteTcSliced = 4 \};", src)
+            and tpa._ROUTES == ("split", "tc", "row", "row_sliced",
+                                "tc_sliced"))
     assert "while (gp < G) gp <<= 1;" in body("inline int pad_group(")
     assert ("return G > kWgRows ? G : pad_group(G);"
             in body("inline int fold_of("))
@@ -680,8 +834,14 @@ def test_wide_head_dim_cap(dtype, cap):
     assert 4 * 8 * cap * elt + 64 * cap <= tpa._SMEM_LIMIT
     assert 4 * 8 * (cap + 64) * elt + 64 * (cap + 64) > tpa._SMEM_LIMIT
     assert tpa.row_chunk_slots(cap, 4096, dtype) == 8
-    assert tpa.kernel_route(64, 8, 2, cap, 16, 9, dtype) == "row"
-    assert tpa.kernel_route(64, 8, 2, cap + 64, 16, 9, dtype) == "row_sliced"
+    # G 71 (the row-tile kernel's past 256 in both dtypes; bf16 calls at
+    # G <= 64 run the sliced tensor-core kernel at every such head dim)
+    assert tpa.kernel_route(64, 71, 1, cap, 16, 9, dtype) == "row"
+    assert tpa.kernel_route(64, 71, 1, cap + 64, 16, 9, dtype) \
+        == "row_sliced"
+    for t in (1, 64):
+        assert tpa.kernel_route(t, 8, 2, cap + 64, 16, 9, dtype) == (
+            "tc_sliced" if dtype == torch.bfloat16 else "row_sliced")
     sliced = 48 * tpa._SLICE_COLS * elt + 8 * tpa._SLICE_COLS * 4
     assert sliced <= tpa._SMEM_LIMIT // 2
     assert tpa.paged_kernel_supported(cap, 16, dtype, 8, 2)
@@ -692,9 +852,9 @@ def test_wide_head_dim_cap(dtype, cap):
     # wide form (640), cap + 32 on the sliced one (cap + 64)
     assert tpa.paged_kernel_supported(600, 16, dtype, 8, 2)
     assert tpa.paged_kernel_supported(cap + 32, 16, dtype, 8, 2)
-    assert tpa.kernel_route(64, 8, 2, 600, 16, 9, dtype) == "row"
-    assert tpa.kernel_route(64, 8, 2, cap - 32, 16, 9, dtype) == "row"
-    assert tpa.kernel_route(64, 8, 2, cap + 32, 16, 9, dtype) \
+    assert tpa.kernel_route(1, 71, 1, 600, 16, 9, dtype) == "row"
+    assert tpa.kernel_route(1, 71, 1, cap - 32, 16, 9, dtype) == "row"
+    assert tpa.kernel_route(1, 71, 1, cap + 32, 16, 9, dtype) \
         == "row_sliced"
 
 
