@@ -20,14 +20,20 @@ Two kernels, each with its plain PyTorch version beside it:
 On a CUDA tensor each launches the hand-written Hopper kernel of
 ``csrc/lrn.cu`` (built at first use, see ``_build.py``) or raises; on a
 CPU tensor it takes its plain version (``lrn_ref`` / ``lrn_bwd_ref``).
+The backward has two routes, named by :func:`bwd_route` and reported by
+the C entry: ``"staged"`` (every window up to 9, and past it every
+window whose slots min(size, C) fit the cap) and ``"any"`` (past the
+cap; the only route that takes an f32 scratch as large as x).
 ``lrn`` is a ``torch.autograd.Function`` that saves only x, as the JAX
 ``custom_vjp`` does. All arithmetic is f32; inputs and outputs keep the
 activation dtype (float32 or bfloat16).
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches, so a run
 can show its main path went through the kernels; ``fwd_any_launches``
-and ``bwd_any_launches`` count those among them past window 9 (the
-runtime-size kernels).
+counts the forwards past window 9 (the runtime-size kernel),
+``bwd_wide_launches`` the backwards past it (the staged kernel's
+runtime-window form, or the "any" route), ``bwd_staged_launches`` and
+``bwd_any_launches`` the backwards by route.
 """
 from __future__ import annotations
 
@@ -40,22 +46,106 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.ops import pow_neg_beta
 
 __all__ = ["lrn", "lrn_fwd", "lrn_bwd", "lrn_ref", "lrn_bwd_ref",
-           "fwd_launches", "bwd_launches", "fwd_any_launches",
+           "bwd_route", "run_positions", "chunk_channels", "u_slots",
+           "staged_smem", "fwd_launches", "bwd_launches",
+           "fwd_any_launches", "bwd_wide_launches", "bwd_staged_launches",
            "bwd_any_launches"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: widest window with kernels of its own (each size up to it an
 #: instantiation, the window kept in registers); past it the window is a
-#: runtime value and the backward needs an f32 scratch as large as x
-#: (kMaxSize in csrc/lrn.cu)
+#: runtime value (kMaxSize in csrc/lrn.cu)
 _RING_MAX = 9
+#: the C entry's backward route codes (kRouteStaged, kRouteAny)
+_ROUTES = ("staged", "any")
+#: the staged backward (csrc/lrn.cu): a run's row of x or g in bytes
+#: (kRowBytes), the ring's stages (kStages), the fewest channels a stage
+#: holds (kChunk), the mbarriers' bytes (kBarBytes), a block's shared
+#: memory (kSmemMax); past window 9 the shortest run (kAnyRunMin), the
+#: bytes a CTA shrinks its run to (kAnyCtaBytes), the channels a stage
+#: holds (kSlotChunk) and the most slots min(size, C) (kAnyMaxSlots: the
+#: cap of the "staged" route)
+_ROW_BYTES = 896
+_STAGES = 3
+_CHUNK = 8
+_BAR_BYTES = 128
+_SMEM_MAX = 232448
+_ANY_RUN_MIN = 64
+_ANY_CTA_BYTES = 116224
+_SLOT_CHUNK = 4
+_ANY_MAX_SLOTS = 256
 
 #: kernel launches since import (reset by assigning 0)
 fwd_launches = 0
 bwd_launches = 0
 #: launches past ``_RING_MAX``, among the above
 fwd_any_launches = 0
+bwd_wide_launches = 0
+#: backward launches by route, among ``bwd_launches``
+bwd_staged_launches = 0
 bwd_any_launches = 0
+
+
+def bwd_route(dtype, shape, size: int) -> str:
+    """The backward route the C entry's ``route_of`` takes for an NCHW
+    ``shape`` of ``dtype`` at window ``size``: ``"staged"`` up to window
+    9, and past it while min(size, C) slots fit the cap (256: every
+    window at C <= 256); else ``"any"``. Shapes only."""
+    if size <= _RING_MAX:
+        return "staged"
+    return "staged" if min(size, shape[1]) <= _ANY_MAX_SLOTS else "any"
+
+
+def chunk_channels(size: int) -> int:
+    """Channels a stage of the staged backward holds (``chunk_of``): the
+    least multiple of the window not below 8 (a whole number of turns of
+    its register rings), 4 past window 9."""
+    if size > _RING_MAX:
+        return _SLOT_CHUNK
+    return size * -(-_CHUNK // size)
+
+
+def u_slots(size: int, slots: int) -> int:
+    """Slots of u past window 9 (``u_slots``): channels c .. c + lo."""
+    return min((size - 1) // 2 + 1, slots)
+
+
+def _row_bytes(p: int, elt: int) -> int:
+    return (p * elt + 16 - elt + 15) // 16 * 16
+
+
+def _consumers(p: int, elt: int) -> int:
+    return (p * elt // 4 + 31) // 32 * 32
+
+
+def staged_smem(p: int, elt: int, size: int, slots: int) -> int:
+    """Dynamic shared memory of a staged CTA (``staged_smem``): the
+    mbarriers, the ring of x and g rows, and past window 9 the ``slots``
+    rows of r and t and the :func:`u_slots` of u of each consumer's
+    positions."""
+    ring = _STAGES * 2 * chunk_channels(size) * _row_bytes(p, elt)
+    extra = ((2 * slots + u_slots(size, slots)) * _consumers(p, elt)
+             * (4 // elt) * 4 if size > _RING_MAX else 0)
+    return _BAR_BYTES + ring + extra
+
+
+def run_positions(hw: int, dtype, size: int, c: int) -> int:
+    """Positions of a plane a staged CTA walks (``run_len`` of
+    ``run_cap``): at most 896 bytes of a row (448 bf16, 224 f32; past
+    window 9 shrunk a warp's positions at a time until the CTA, with its
+    slots for C channels, fits 116,224 bytes), the plane cut into as few
+    runs as that takes, as even as multiples of 16 bytes allow; the last
+    run may end mid-plane."""
+    elt = dtype.itemsize
+    cap = _ROW_BYTES // elt
+    if size > _RING_MAX:
+        slots = min(size, c)
+        while cap > _ANY_RUN_MIN and staged_smem(
+                cap, elt, size, slots) > _ANY_CTA_BYTES:
+            cap -= 32 * (4 // elt)
+    runs = -(-hw // cap)
+    a = 16 // elt
+    return -(-(-(-hw // runs)) // a) * a
 
 
 # --------------------------------------------------------------------------
@@ -120,6 +210,8 @@ def _kernel_fns():
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + tail
         fns[name] = fn
+    # the backward reports its route last
+    fns["bwd"].argtypes += [ctypes.POINTER(ctypes.c_int)]
     return fns
 
 
@@ -142,16 +234,22 @@ def _check_cuda(x, size, *rest):
 
 
 def _launch(name, x, ptrs, size, alpha, beta, k, relu):
+    """Run C entry ``name`` on the current stream; the backward's route
+    as the entry reports it (None for the forward). Raises on an error
+    code."""
     n, c, h, w = x.shape
     fn = _kernel_fns()[name]
+    took = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(_DTYPE_CODES[x.dtype],
                  *[None if t is None else t.data_ptr() for t in ptrs], n, c,
                  h * w, size, float(alpha), float(beta), float(k),
-                 int(bool(relu)), stream)
+                 int(bool(relu)), stream,
+                 *((ctypes.byref(took),) if name == "bwd" else ()))
     if err:
         raise RuntimeError(f"lrn_{name} kernel launch failed (code {err})")
+    return _ROUTES[took.value] if name == "bwd" else None
 
 
 def lrn_fwd(x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
@@ -172,16 +270,24 @@ def lrn_bwd(g, x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
     """Backward: dx (x's dtype) from the cotangent g and the saved x."""
     if x.device.type == "cpu":
         return lrn_bwd_ref(g, x, size, alpha, beta, k, relu)
-    global bwd_launches, bwd_any_launches
+    global bwd_launches, bwd_wide_launches, bwd_staged_launches
+    global bwd_any_launches
     _check_cuda(x, size, g)
     dx = torch.empty_like(x)
-    # past _RING_MAX the kernel parks t = g·r·s^-β/s in an f32 scratch
+    want = bwd_route(x.dtype, x.shape, size)
+    # the "any" route parks t = g·r·s^-β/s in an f32 scratch
     tbuf = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
-            if size > _RING_MAX else None)
+            if want == "any" else None)
     if x.numel():
-        _launch("bwd", x, (g, x, dx, tbuf), size, alpha, beta, k, relu)
+        took = _launch("bwd", x, (g, x, dx, tbuf), size, alpha, beta, k,
+                       relu)
+        if took != want:
+            raise RuntimeError(f"lrn_bwd: the C entry took the {took} route "
+                               f"where bwd_route names {want}")
         bwd_launches += 1
-        bwd_any_launches += size > _RING_MAX
+        bwd_wide_launches += size > _RING_MAX
+        bwd_staged_launches += want == "staged"
+        bwd_any_launches += want == "any"
     return dx
 
 

@@ -36,8 +36,11 @@ the full width of the flagship LM with weights made from a seed:
 - ``[inception]``: the harness's ``-m inception_v1`` at the
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
-  (windows of 5: the runtime-size kernels past window 9 must launch 0
-  times there, counted apart).
+  (windows of 5: every backward on the "staged" route's register rings;
+  the runtime-size forward, the backward past window 9 and the "any"
+  backward must launch 0 times there, counted apart). The LRN kernels
+  are also held at AlexNet's odd planes, windows 9 and 10, misaligned
+  tensors and past the staged route's cap (``_LRN_CASES``).
   The opt-in 3x3 / stride-1 max-pool backward kernel is held against its
   plain version at the in-block pools' shapes, on -inf planes, on a
   plane past its whole-plane cap and on an odd plane, timed at the nine
@@ -303,8 +306,11 @@ _PERF_ATTENTION_F32 = _PERF_ATTENTION[-1]
 # path's rows, bf16, fused ReLU, size 5, alpha 1e-4, beta 0.75, k 1), the
 # same in f32, and a ragged case (odd N, C not a multiple of 8, H·W not
 # a multiple of the 4-wide vectors, an even window, no ReLU, a larger
-# alpha so the normalisation is far from the identity)
+# alpha so the normalisation is far from the identity); each case runs
+# in bf16 and f32, and every backward on the route ops.lrn.bwd_route
+# names
 _LRN_ARGS = dict(size=5, alpha=1e-4, beta=0.75, k=1.0, relu=True)
+_ALEXNET_LRN = dict(size=5, alpha=1e-4, beta=0.75, k=1.0, relu=False)
 _LRN_CASES = (("norm1", (256, 64, 56, 56), _LRN_ARGS),
               ("norm2", (256, 192, 56, 56), _LRN_ARGS),
               ("ragged", (3, 13, 5, 7),
@@ -317,7 +323,28 @@ _LRN_CASES = (("norm1", (256, 64, 56, 56), _LRN_ARGS),
               ("size16", (32, 64, 56, 56),
                dict(size=16, alpha=1e-2, beta=0.75, k=2.0, relu=False)),
               ("ragged16", (3, 13, 5, 7),
-               dict(size=16, alpha=0.5, beta=0.75, k=1.0, relu=True)))
+               dict(size=16, alpha=0.5, beta=0.75, k=1.0, relu=True)),
+              # AlexNet's norm1 and norm2 (bigdl_tpu/models/alexnet/
+              # model.py:56,61 at a 227x227 input, batch 128): odd planes,
+              # so the staged backward copies each row's ends element by
+              # element
+              ("alexnet_norm1", (128, 96, 55, 55), _ALEXNET_LRN),
+              ("alexnet_norm2", (128, 256, 27, 27), _ALEXNET_LRN),
+              # one on each side of the register ring (9 in registers, 10
+              # in shared-memory slots), at a ragged shape
+              ("size9", (3, 13, 5, 7),
+               dict(size=9, alpha=0.5, beta=0.5, k=1.0, relu=True)),
+              ("size10", (3, 13, 5, 7),
+               dict(size=10, alpha=0.5, beta=1.0, k=2.0, relu=False)),
+              # x and g one element past 16-byte alignment: every row's
+              # ends copied element by element
+              ("shifted", (4, 24, 28, 28), _LRN_ARGS),
+              # past the staged route's cap (min(size, C) > 256 slots):
+              # the "any" route and its f32 scratch
+              ("past_cap", (8, 320, 28, 28),
+               dict(size=288, alpha=1e-2, beta=0.6, k=1.0, relu=True)))
+#: the LRN cases held but not timed
+_LRN_UNTIMED = ("ragged", "ragged16", "size9", "size10", "shifted")
 #: LRN kernel vs plain, element by element: |kernel - plain| <=
 #: rtol·|plain| + atol·rms(plain). Both compute in f32 from the same
 #: inputs and differ in rsqrt/sqrt routines and the order of a few sums
@@ -391,8 +418,10 @@ def _print_ptxas(report: str) -> None:
     """Registers and spills of each kernel instantiation, from the
     compiler's ``-Xptxas=-v`` report (kernel, type, head dim and, for
     paged attention, rows per warp of the row-tile kernel and query rows
-    of the split-KV decode kernel; of the LRN kernels' 72
-    instantiations, the path's window of 5 with 4-wide vectors), then
+    of the split-KV decode kernel; of the LRN kernels' 84
+    instantiations, the forward's at the path's window of 5 with 4-wide
+    vectors, and the staged backward's at 5 and past 9, rows of whole
+    16-byte chunks or not), then
     the most registers and the spilling instantiations of the file."""
     name = None
     kernels, regs, spilled = 0, 0, 0
@@ -423,6 +452,8 @@ def _print_ptxas(report: str) -> None:
                        r"Li(\d+)ELi(\d+)E", line)
         la = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_any_kernelI"
                        r"(\w+?)Li(\d+)E", line)
+        ls = re.search(r"entry function '\S*?lrn_bwd_staged_kernelI(\w+?)"
+                       r"Li(\d+)ELb([01])E", line)
         mp = re.search(r"entry function '\S*?(maxpool3x3s1_bwd)_kernelI(\w+?)"
                        r"E", line)
         ps = re.search(r"entry function '\S*?paged_decode_split_kernelI"
@@ -460,6 +491,14 @@ def _print_ptxas(report: str) -> None:
             name = "tf32_split f32 (the 3xTF32 kernels' pass before)"
         elif t:
             name = f"{t.group(1)} bf16 (tensor cores) D={t.group(2)}"
+        elif ls:
+            # the path's window of 5, and the runtime window (SIZE 0)
+            name = (f"lrn_bwd_staged "
+                    f"{'bf16' if 'bfloat16' in ls.group(1) else 'f32'} "
+                    + (f"size={ls.group(2)}" if ls.group(2) != "0" else
+                       "(window past 9, a runtime value)")
+                    + (" aligned" if ls.group(3) == "1" else " unaligned")
+                    if ls.group(2) in ("5", "0") else None)
         elif la:
             name = (f"{la.group(1)}_any "
                     f"{'bf16' if 'bfloat16' in la.group(2) else 'f32'} "
@@ -3150,27 +3189,46 @@ def _lrn_library_ms(x, g, a):
     return f, _time_ms(fwd_bwd) - f
 
 
+def _lrn_inputs(case, shape, dtype, gen):
+    """x and g of an LRN case on the card ("shifted": each one element
+    into a fresh buffer, so every row is off 16-byte alignment)."""
+    scale = 1.5 if case in _LRN_UNTIMED else 4.0
+    x = (scale * torch.randn(shape, generator=gen)).to(dtype).to(_DEV)
+    g = torch.randn(shape, generator=gen).to(dtype).to(_DEV)
+    if case == "shifted":
+        x, g = (torch.cat([t.new_zeros(1), t.flatten()])[1:].view(shape)
+                for t in (x, g))
+    return x, g
+
+
 def phase_lrn(lrn, gen):
     """The LRN kernels vs their plain versions at norm1 and norm2 of the
-    Inception-v1 step (batch 256) in bf16 and f32 and at a ragged case,
-    and the runtime-size kernels at windows 11 and 16; each row but the
-    ragged ones timed against its bound, its plain version and the
-    library call."""
+    Inception-v1 step (batch 256) and AlexNet's norm1 and norm2 in bf16
+    and f32, at ragged and misaligned cases, and past window 9 (the
+    runtime-size forward; the staged backward's slots, and past its cap
+    the "any" backward); each row but ``_LRN_UNTIMED`` timed against its
+    bound, its plain version and the library call. Each backward must
+    take the route ``ops.lrn.bwd_route`` names."""
     rows = {}
     for case, shape, a in _LRN_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype)[6:]
-            scale = 1.5 if case.startswith("ragged") else 4.0
-            x = (scale * torch.randn(shape, generator=gen)).to(dtype).to(_DEV)
-            g = torch.randn(shape, generator=gen).to(dtype).to(_DEV)
+            x, g = _lrn_inputs(case, shape, dtype, gen)
             args = (a["size"], a["alpha"], a["beta"], a["k"], a["relu"])
+            route = lrn.bwd_route(dtype, shape, a["size"])
             tol = _LRN_TOL[dtype]
             errs, worst = {}, {}
             y = lrn.lrn_fwd(x, *args)
             torch.cuda.synchronize()
             errs["fwd"], worst["fwd"] = _worst(y, lrn.lrn_ref(x, *args), *tol)
+            before = (lrn.bwd_staged_launches, lrn.bwd_any_launches)
             dx = lrn.lrn_bwd(g, x, *args)
             torch.cuda.synchronize()
+            took = (lrn.bwd_staged_launches - before[0],
+                    lrn.bwd_any_launches - before[1])
+            if took != ((1, 0) if route == "staged" else (0, 1)):
+                raise AssertionError(f"lrn_bwd[{case} {name}]: {took} "
+                                     f"launches (staged, any), route {route}")
             errs["bwd"], worst["bwd"] = _worst(dx, lrn.lrn_bwd_ref(g, x, *args),
                                                *tol)
             del y, dx
@@ -3180,11 +3238,12 @@ def phase_lrn(lrn, gen):
                         f"lrn_{what}[{case} {name}] max abs err "
                         f"{errs[what]}, {worst[what]} x its limit")
             print(f"[kernels] lrn[{case} {name}] shape={list(shape)} "
-                  f"args={json.dumps(a)} max abs errs " + json.dumps(errs)
+                  f"args={json.dumps(a)} bwd route {route} max abs errs "
+                  + json.dumps(errs)
                   + " worst error / limit " + json.dumps(worst)
                   + f" (limit rtol·|plain| + atol·rms(plain), {tol})",
                   flush=True)
-            if not case.startswith("ragged"):
+            if case not in _LRN_UNTIMED:
                 lib_fwd, lib_bwd = _lrn_library_ms(x, g, a)
                 for what, kern, plain, lib in (
                         ("fwd", lambda: lrn.lrn_fwd(x, *args),
@@ -3196,6 +3255,8 @@ def phase_lrn(lrn, gen):
                     row = dict(max_abs_err=errs[what], ms=_time_ms(kern),
                                plain_ms=_time_ms(plain), bound_ms=bound,
                                bound_by=by, library_ms=lib)
+                    if what == "bwd":
+                        row["kernel_route"] = route
                     rows[(f"lrn_{what}", case, dtype)] = row
                     print(f"[kernels] lrn_{what}[{case} {name}] "
                           + json.dumps(row), flush=True)
@@ -3336,9 +3397,10 @@ def _plain_lrn(x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
 
 def phase_inception(lrn, mp):
     """The harness's ``-m inception_v1`` at bench.py:109-202's geometry:
-    exact LRN launch counts (2 forward and 2 backward a step, no max-pool
-    kernel), the first loss, one batch through the kernels and the plain
-    LRN, and a profile of two more steps."""
+    exact LRN launch counts (2 forward and 2 backward a step, the
+    backward on the "staged" route, no max-pool kernel), the first loss,
+    one batch through the kernels and the plain LRN, and a profile of two
+    more steps."""
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.models.utils import perf
     from bigdl_tpu_torch.ops import lrn as lrn_mod
@@ -3346,18 +3408,23 @@ def phase_inception(lrn, mp):
     c = _INCEPTION
     lrn.fwd_launches = lrn.bwd_launches = mp.bwd_launches = 0
     lrn.fwd_any_launches = lrn.bwd_any_launches = 0
+    lrn.bwd_staged_launches = lrn.bwd_wide_launches = 0
     out = perf.main(["-m", "inception_v1", "-b", str(c["batch"]),
                      "--warmUp", str(c["warm_up"]), "-i",
                      str(c["iterations"]), "--classNum", str(c["classes"]),
                      "--device", _DEV])
     launches = {"lrn_fwd": lrn.fwd_launches, "lrn_bwd": lrn.bwd_launches,
+                "lrn_bwd_staged": lrn.bwd_staged_launches,
                 "lrn_fwd_any": lrn.fwd_any_launches,
+                "lrn_bwd_wide": lrn.bwd_wide_launches,
                 "lrn_bwd_any": lrn.bwd_any_launches,
                 "maxpool3x3s1_bwd": mp.bwd_launches}
     steps = c["warm_up"] + c["iterations"]
-    # Inception-v1's windows are 5: no launch of the runtime-size kernels
-    expect = {"lrn_fwd": 2 * steps, "lrn_bwd": 2 * steps, "lrn_fwd_any": 0,
-              "lrn_bwd_any": 0, "maxpool3x3s1_bwd": 0}
+    # Inception-v1's windows are 5: every backward on the staged route's
+    # register rings, none past window 9 or on the "any" route
+    expect = {"lrn_fwd": 2 * steps, "lrn_bwd": 2 * steps,
+              "lrn_bwd_staged": 2 * steps, "lrn_fwd_any": 0,
+              "lrn_bwd_wide": 0, "lrn_bwd_any": 0, "maxpool3x3s1_bwd": 0}
     if launches != expect:
         raise AssertionError(f"[inception] launches {launches}, expected "
                              f"{expect} ({steps} steps)")
@@ -3703,24 +3770,25 @@ def main(argv=None) -> int:
             **{k: row[k] for k in keys},
             **({"bound_f32_cuda_cores_ms": row["bound_f32_cuda_cores_ms"]}
                if "bound_f32_cuda_cores_ms" in row else {})})
-    # the path's LRN rows: norm2, the larger of the two, in bf16; and the
-    # runtime-size kernels past window 9 at size 11, bf16, their launches
-    # those of [inception] past window 9 (counted apart: none, as its
-    # windows are 5)
-    for name in ("lrn_fwd", "lrn_bwd"):
+    # the path's LRN rows: norm2, the larger of the two, in bf16 (the
+    # backward on the staged route's register rings); past window 9 at
+    # size 11, bf16, the runtime-size forward and the staged backward's
+    # slots, their launches those of [inception] past window 9 (counted
+    # apart: none, as its windows are 5); and the "any" backward past the
+    # staged route's cap (no path reaches it)
+    lrn_src = dict(route="cuda", source="bigdl_tpu_torch/csrc/lrn.cu")
+    for name, case, count, line in (
+            ("lrn_fwd", "norm2", "lrn_fwd", 121),
+            ("lrn_bwd_staged", "norm2", "lrn_bwd_staged", 129),
+            ("lrn_fwd_any", "size11", "lrn_fwd_any", 121),
+            ("lrn_bwd_staged_slots", "size11", "lrn_bwd_wide", 129),
+            ("lrn_bwd_any", "past_cap", "lrn_bwd_any", 129)):
+        what = name[:7]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "bigdl_tpu_torch/csrc/lrn.cu",
-            "replaces": "bigdl_tpu/ops/pallas/lrn.py:150",
-            "launches": conv_launches[name],
-            **lrn_rows[(name, "norm2", torch.bfloat16)]})
-    for name in ("lrn_fwd", "lrn_bwd"):
-        kernels.append({
-            "name": name + "_any", "route": "cuda",
-            "source": "bigdl_tpu_torch/csrc/lrn.cu",
-            "replaces": "bigdl_tpu/ops/pallas/lrn.py:150",
-            "launches": conv_launches[name + "_any"],
-            **lrn_rows[(name, "size11", torch.bfloat16)]})
+            "name": name, **lrn_src,
+            "replaces": f"bigdl_tpu/ops/pallas/lrn.py:{line}",
+            "launches": conv_launches[count],
+            **lrn_rows[(what, case, torch.bfloat16)]})
     kernels.append({
         "name": "maxpool3x3s1_bwd", "route": "cuda",
         "source": "bigdl_tpu_torch/csrc/maxpool.cu",

@@ -27,6 +27,9 @@ definition and its autograd gradient (the independent oracle of
 ``tests/test_perf_paths.py``): they compute in f32, so rtol = atol = 1e-6 (a
 few f32 steps; atol for the dx elements that cancel).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -201,3 +204,263 @@ def test_wrapper_takes_every_window_size_off_the_cpu():
             tlrn.lrn_fwd(x, size)
         with pytest.raises(ValueError, match="one CUDA device"):
             tlrn.lrn_bwd(x, x, size)
+
+
+# --------------------------------------------------------------------------
+# the staged backward (csrc/lrn.cu, lrn_bwd_staged_kernel) on the CPU
+# --------------------------------------------------------------------------
+
+def _pow_pair(s, beta):
+    """s^-β and s^-β / s as the staged kernel's ``pow_pair`` forms them:
+    q = rsqrt(s), 1/s = q²; β 0.75: q²·rsqrt(q); 0.5: q; 1: 1/s (the
+    SFU's approximations stand as torch's)."""
+    if beta == 0.75:
+        q = torch.rsqrt(s)
+        q2 = q * q
+        b = q2 * torch.rsqrt(q)
+        return b, b * q2
+    if beta == 0.5:
+        q = torch.rsqrt(s)
+        return q, q * q * q
+    if beta == 1.0:
+        b = torch.reciprocal(s)
+        return b, b * b
+    b = torch.pow(s, -beta)
+    return b, b * torch.reciprocal(s)
+
+
+def _staged_walk(g, x, size, alpha, beta, k, relu, run=None):
+    """The staged backward's walk in its order, in f32: runs of P
+    positions of each plane (``run_positions``, or ``run``), chunks of
+    ``chunk_channels(size)`` channels, one step a channel i that reads r_i,
+    completes the window of j = i - hi (s, u = g·s^-β, t = g·r·s^-β/s)
+    and writes dx of c = i - size + 1; rings of r, u and t indexed by
+    channel mod their length: ``size`` slots up to 9 (the registers:
+    out-of-range channels hold zeros, every window sum runs over all
+    slots), past it min(size, C) of r and t and ``u_slots`` of u (the
+    shared-memory slots: sums over the in-range channels only). dx
+    rounds once to x's dtype."""
+    n, c, h, w = x.shape
+    hw = h * w
+    xf = x.float().reshape(n, c, hw)
+    gf = g.float().reshape(n, c, hw)
+    dx = torch.empty_like(xf)
+    p = run or tlrn.run_positions(hw, x.dtype, size, c)
+    cc = tlrn.chunk_channels(size)
+    lo = (size - 1) // 2
+    hi = size - 1 - lo
+    coef, coef2 = alpha / size, 2.0 * alpha * beta / size
+    regs = size <= 9
+    slots = size if regs else min(size, c)
+    uslots = slots if regs else tlrn.u_slots(size, slots)
+
+    def window(first, last):
+        """Channels a sum visits, in order: every slot's in registers,
+        the in-range ones in shared memory."""
+        return (range(first, last + 1) if regs
+                else range(max(first, 0), min(last, c - 1) + 1))
+
+    for p0 in range(0, hw, p):
+        cols = slice(p0, min(p0 + p, hw))
+        zero = torch.zeros(n, cols.stop - p0)
+        ring_r, ring_t = [zero] * slots, [zero] * slots
+        ring_u = [zero] * uslots
+        for kc in range(-(-(c + size - 1) // cc)):
+            for q in range(cc):
+                i = kc * cc + q
+                j, co = i - hi, i - size + 1
+                if i < c:
+                    r = xf[:, i, cols]
+                    ring_r[i % slots] = (torch.where(r < 0, 0.0, r)
+                                         if relu else r)
+                elif regs:
+                    ring_r[i % slots] = zero
+                if 0 <= j < c:
+                    acc = zero
+                    for ch in window(j - lo, j + hi):
+                        acc = acc + ring_r[ch % slots] * ring_r[ch % slots]
+                    b, bs = _pow_pair(k + coef * acc, beta)
+                    gj = gf[:, j, cols]
+                    ring_u[j % uslots] = gj * b
+                    ring_t[j % slots] = gj * ring_r[j % slots] * bs
+                elif regs:
+                    ring_u[j % uslots] = ring_t[j % slots] = zero
+                if 0 <= co < c:
+                    acc = zero
+                    for ch in window(co - hi, co + lo):
+                        acc = acc + ring_t[ch % slots]
+                    r = ring_r[co % slots]
+                    d = ring_u[co % uslots] - coef2 * r * acc
+                    dx[:, co, cols] = (torch.where(r > 0, d, 0.0) if relu
+                                       else d)
+    return dx.reshape(x.shape).to(x.dtype)
+
+
+_BETAS = (0.75, 0.5, 1.0, 0.6)
+
+
+def _walk_case(size):
+    """Window ``size``'s case: β, relu, C below / at / above the window
+    in turn, every other case in runs of 16 positions (H·W 35: runs of
+    16, 16 and 3, the last ending mid-plane)."""
+    c = (max(size - 2, 1), size, size + 4)[size % 3]
+    return dict(beta=_BETAS[size % 4], relu=size % 5 != 0, c=c,
+                run=16 if size % 2 else None)
+
+
+@pytest.mark.parametrize("size", range(1, 18))
+def test_staged_walk_matches_pallas_kernel(size):
+    """The staged kernel's arithmetic (``_staged_walk``) against the JAX
+    Pallas kernel in interpret mode and against ``lrn_bwd_ref``, f32, at
+    windows 1-17 (odd and even; up to 9 the register rings, past it the
+    shared-memory slots), H·W 35 (odd), relu on and off, β 0.75 / 0.5 / 1
+    / 0.6: the file's f32 tolerances."""
+    case = _walk_case(size)
+    rs = np.random.default_rng(100 + size)
+    shape = (2, case["c"], 5, 7)
+    x = (1.5 * rs.standard_normal(shape)).astype(np.float32)
+    ct = rs.standard_normal(shape).astype(np.float32)
+    args = dict(alpha=0.5, beta=case["beta"], k=1.0)
+    _, jdx = _jax_fwd_grad(lambda v: plrn.lrn(
+        v, size, args["alpha"], args["beta"], args["k"], True,
+        case["relu"]), jnp.asarray(x), jnp.asarray(ct))
+    tx, tct = torch.as_tensor(x), torch.as_tensor(ct)
+    got = _staged_walk(tct, tx, size, relu=case["relu"], run=case["run"],
+                       **args)
+    _hold(got, jdx, 1e-5, 1e-5, "staged walk vs Pallas dx")
+    _hold(got, tlrn.lrn_bwd_ref(tct, tx, size, relu=case["relu"], **args)
+          .numpy(), 1e-5, 1e-5, "staged walk vs lrn_bwd_ref")
+
+
+@pytest.mark.parametrize("size,shape", [(5, (2, 7, 27, 27)),
+                                        (11, (1, 12, 55, 55))])
+def test_staged_walk_in_bf16_on_odd_planes(size, shape):
+    """bf16 at AlexNet's odd planes (27 x 27, 55 x 55): the kernel's own
+    runs (``run_positions``: 368 of 729 positions in registers, 440 of
+    3025 in slots, the last run ending mid-plane), against the Pallas
+    kernel at the file's
+    bf16 tolerance and against ``lrn_bwd_ref`` (the same f32 values
+    rounded once: one bf16 step)."""
+    rs = np.random.default_rng(size)
+    x = (1.5 * rs.standard_normal(shape)).astype(np.float32)
+    ct = rs.standard_normal(shape).astype(np.float32)
+    tx = torch.as_tensor(x).bfloat16()
+    tct = torch.as_tensor(ct).bfloat16()
+    p = tlrn.run_positions(shape[2] * shape[3], torch.bfloat16, size,
+                           shape[1])
+    assert shape[2] * shape[3] % p != 0 and p % 8 == 0
+    _, jdx = _jax_fwd_grad(lambda v: plrn.lrn(
+        v, size, 0.5, 0.75, 1.0, True, True),
+        jnp.asarray(tx.float().numpy(), jnp.bfloat16),
+        jnp.asarray(tct.float().numpy(), jnp.bfloat16))
+    got = _staged_walk(tct, tx, size, 0.5, 0.75, 1.0, True)
+    assert got.dtype == torch.bfloat16
+    _hold(got, np.asarray(jdx, np.float32), 2 ** -7, 1e-4,
+          "staged walk vs Pallas dx")
+    _hold(got, tlrn.lrn_bwd_ref(tct, tx, size, 0.5, 0.75, 1.0, True)
+          .float().numpy(), 2 ** -7, 1e-4, "staged walk vs lrn_bwd_ref")
+
+
+#: (dtype, NCHW shape, window, the backward's route)
+_ROUTE_CASES = (
+    (torch.bfloat16, (256, 192, 56, 56), 5, "staged"),   # norm2
+    (torch.float32, (256, 64, 56, 56), 5, "staged"),     # norm1, f32
+    (torch.bfloat16, (128, 96, 55, 55), 5, "staged"),    # AlexNet norm1
+    (torch.bfloat16, (3, 13, 5, 7), 9, "staged"),
+    (torch.bfloat16, (3, 13, 5, 7), 10, "staged"),
+    (torch.bfloat16, (32, 192, 56, 56), 11, "staged"),
+    (torch.float32, (32, 64, 56, 56), 16, "staged"),
+    (torch.float32, (2, 256, 5, 7), 999, "staged"),      # 256 slots: the cap
+    (torch.bfloat16, (2, 257, 5, 7), 256, "staged"),
+    (torch.bfloat16, (2, 257, 5, 7), 257, "any"),
+    (torch.float32, (8, 320, 28, 28), 288, "any"),
+    (torch.bfloat16, (2, 1000, 5, 7), 9, "staged"),      # registers: any C
+    (torch.float32, (2, 3, 5, 7), 1000, "staged"),       # 3 slots
+)
+
+
+@pytest.mark.parametrize("dtype,shape,size,route", _ROUTE_CASES)
+def test_bwd_route_cases(dtype, shape, size, route):
+    assert tlrn.bwd_route(dtype, shape, size) == route
+
+
+def test_route_constants_match_the_c_entry():
+    """The mirror's constants and formulas are csrc/lrn.cu's: the register
+    ring's widest window, the staged route's cap on min(size, C), its
+    run (row bytes, past window 9 shrunk a warp at a time to fit its
+    bytes, down to the shortest run; runs as even as 16-byte multiples
+    allow), its chunk of channels, the slots of u and its shared memory;
+    and ``route_of`` tests the window first, then the slots against the
+    cap."""
+    src = (Path(tlrn.__file__).resolve().parents[1] / "csrc"
+           / "lrn.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    def body(head):
+        part = src[src.index(head):]
+        return " ".join(part[:part.index("\n}\n")].split())
+    assert const("kMaxSize") == tlrn._RING_MAX
+    assert const("kRowBytes") == tlrn._ROW_BYTES
+    assert const("kStages") == tlrn._STAGES
+    assert const("kChunk") == tlrn._CHUNK
+    assert const("kBarBytes") == tlrn._BAR_BYTES
+    assert const("kSmemMax") == tlrn._SMEM_MAX
+    assert const("kAnyRunMin") == tlrn._ANY_RUN_MIN
+    assert const("kAnyCtaBytes") == tlrn._ANY_CTA_BYTES
+    assert const("kSlotChunk") == tlrn._SLOT_CHUNK
+    assert const("kAnyMaxSlots") == tlrn._ANY_MAX_SLOTS
+    assert "constexpr int kRouteStaged = 0, kRouteAny = 1;" in src
+    assert tlrn._ROUTES == ("staged", "any")
+    route_of = body("int route_of(int C, int size) {")
+    assert ("if (size <= kMaxSize) return kRouteStaged; return (size < C ? "
+            "size : C) <= kAnyMaxSlots ? kRouteStaged : kRouteAny;"
+            in route_of)
+    assert ("return size == 0 || size > kMaxSize ? kSlotChunk : size * "
+            "((kChunk + size - 1) / size);"
+            in body("__host__ __device__ constexpr int chunk_of("))
+    assert ("return (P * elt + 16 - elt + 15) / 16 * 16;"
+            in body("constexpr int row_bytes("))
+    assert ("return (P * elt / 4 + 31) / 32 * 32;"
+            in body("constexpr int consumers_of("))
+    assert ("return (size - 1) / 2 + 1 < L ? (size - 1) / 2 + 1 : L;"
+            in body("constexpr int u_slots("))
+    assert ("return kBarBytes + (int64_t)kStages * 2 * chunk_of(size) * "
+            "row_bytes(P, elt) + (size > kMaxSize ? (int64_t)(2 * L + "
+            "u_slots(size, L)) * consumers_of(P, elt) * (4 / elt) * 4 : 0);"
+            in body("constexpr int64_t staged_smem("))
+    cap = body("int run_cap(int elt, int size, int L) {")
+    assert ("int cap = kRowBytes / elt; if (size <= kMaxSize) return cap; "
+            "while (cap > kAnyRunMin && staged_smem(cap, elt, size, L) > "
+            "kAnyCtaBytes) cap -= 32 * (4 / elt); return cap;" in cap)
+    assert ("const int64_t runs = (HW + cap - 1) / cap, a = 16 / elt; "
+            "return ((HW + runs - 1) / runs + a - 1) / a * a;"
+            in body("int64_t run_len(int64_t HW, int cap, int elt) {"))
+    # the C entry reports the route it takes, from route_of
+    entry = body('extern "C" int bigdl_lrn_bwd(')
+    assert "const int r = route_of(C, size);" in entry
+    assert "if (route != nullptr) *route = r;" in entry
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_staged_runs_fit(dtype):
+    """Every run ``run_positions`` picks is whole 16-byte chunks, at most
+    the row cap, covers its plane in the fewest runs of its cap, and its
+    CTA fits a block's shared memory, up to the cap's 256 slots (the cap
+    fits the shortest run: ``static_assert`` in csrc/lrn.cu); past window
+    9 it fits 116,224 bytes wherever a run longer than the shortest
+    does."""
+    elt = dtype.itemsize
+    for hw in (1, 7, 35, 64, 448, 449, 729, 3025, 3136, 50176):
+        for size, c in ((1, 3), (5, 192), (9, 64), (10, 13), (11, 192),
+                        (16, 64), (64, 300), (300, 256), (5000, 200)):
+            p = tlrn.run_positions(hw, dtype, size, c)
+            assert p % (16 // elt) == 0 and p <= tlrn._ROW_BYTES // elt
+            slots = min(size, c) if size > 9 else size
+            smem = tlrn.staged_smem(p, elt, size, slots)
+            assert smem <= tlrn._SMEM_MAX
+            if size > 9 and p > tlrn._ANY_RUN_MIN:
+                assert smem <= tlrn._ANY_CTA_BYTES
+    assert tlrn.staged_smem(tlrn._ANY_RUN_MIN, elt, 2 * tlrn._ANY_MAX_SLOTS,
+                            tlrn._ANY_MAX_SLOTS) <= tlrn._SMEM_MAX
