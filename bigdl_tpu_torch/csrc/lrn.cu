@@ -3,8 +3,12 @@
 //
 // Replaces the Pallas TPU kernels `_fwd_kernel` (line 121) and
 // `_bwd_kernel` (line 129) launched by `lrn` through `_call` in
-// bigdl_tpu/ops/pallas/lrn.py (the pl.pallas_call at line 150). It
-// computes the same function:
+// bigdl_tpu/ops/pallas/lrn.py (the pl.pallas_call at line 150):
+// `_fwd_kernel` by `lrn_fwd_kernel` (windows 1-9) and the tiled walk's
+// `lrn_tiled_kernel` (past 9); `_bwd_kernel` by `lrn_bwd_staged_kernel`
+// (route "staged") and, past its cap, the tiled walk's
+// `lrn_bwd_tiled_kernel` (route "any"; past its own cap two launches of
+// `lrn_tiled_kernel`). They compute the same function:
 //
 //   r   = x, or max(x, 0) with relu
 //   s_c = k + alpha/n * sum_{j in win(c)} r_j^2,  win(c) = [c-lo, c+hi],
@@ -21,13 +25,12 @@
 // whose rounding would drift across the channels. All arithmetic is f32;
 // inputs and outputs keep the activation dtype.
 //
-// Forward (`lrn_fwd_kernel`, `lrn_fwd_any_kernel`). One thread per (n,
-// VEC positions of h*w) walks the C channels in order, so adjacent
-// threads read adjacent h*w of one channel plane: every read and write is
-// coalesced. VEC = 4 where H*W and the pointers allow, else 1. Up to
-// kMaxSize (9) the window lives in a register ring of n f32 values per
-// position (the window size a template parameter); past it the window is
-// a runtime value and each window sum is read again from L1/L2.
+// Forward up to kMaxSize (`lrn_fwd_kernel`). One thread per (n, VEC
+// positions of h*w) walks the C channels in order, so adjacent threads
+// read adjacent h*w of one channel plane: every read and write is
+// coalesced. VEC = 4 where H*W and the pointers allow, else 1. The window
+// lives in a register ring of n f32 values per position (the window size
+// a template parameter).
 //
 // Backward: two routes, picked by `route_of` (mirrored by
 // ops.lrn.bwd_route; the C entry reports the route it took):
@@ -35,9 +38,101 @@
 //   to kMaxSize (SIZE 1..9, a template parameter), and past it (SIZE 0,
 //   the window a runtime value) every window whose slots min(size, C) are
 //   at most kAnyMaxSlots (256: at C <= 256 every window).
-// - "any" (`lrn_bwd_any_kernel`): past that cap. It walks each channel
-//   column twice, parking t in an f32 scratch as large as x that the
-//   wrapper allocates on this route only.
+// - "any": past that cap, the tiled walk's backward (below).
+//
+// The tiled walk: the forward past kMaxSize and the "any" backward.
+// - Work unit. A CTA takes image n, a run of P = 32*VEC*W consecutive
+//   positions of its plane (VEC: 4 bytes of the dtype a thread; W warps
+//   along the run: kWalkWarps 2, or 1 where the grid would hold fewer
+//   than kWalkMinCtas 528 CTAs; runs never cross images, the last may end
+//   mid-plane) and a tile of CT = kWalkTile 64 consecutive output
+//   channels (fewer where C is): 2400 units at (32, 192, 56, 56) bf16
+//   (P 128), 520 at (8, 320, 28, 28) bf16 (P 64).
+// - Staging. Its span, the rows its windows cover, [c0 - lo, c0 + CT - 1
+//   + hi] clipped to [0, C), lands in shared memory from warp 0: chunks of
+//   kWalkChunk 16 rows, each on its own full mbarrier, lane r copying row
+//   r of a chunk by one bulk copy (`hopper::bulk_load`), the ends of rows
+//   that are no whole 16-byte chunks element by element at the row's own
+//   16-byte offset (ALIGNED false), as the staged backward's warp 0. A
+//   group starts on its first chunks while the rest are in flight.
+//   Where two spans fit kWalkCtaBytes (116,224 bytes), the CTAs are
+//   persistent (as many as fit the card, `lrn_tiled_kernel` bounded to
+//   two an SM: 56 registers a thread) and walk units blockIdx.x, +
+//   gridDim.x, ...: warp 0 stages the next unit's span into the second
+//   buffer while the consumers walk this one, each buffer freed on an
+//   empty mbarrier once every consumer warp is done with it (a group past
+//   C waits for the span first, or it would free the buffer's next use
+//   before that was staged). Past that a CTA takes one unit; where even
+//   one span does not fit, its chunks go round a ring of S slots in
+//   channel order, each freed once every consumer warp has walked it (the
+//   lockstep ring; the forward's r then comes from device memory).
+// - Register-blocked window sums, still in channel order. Consumer warp w
+//   is group w / W: M = kWalkM 8 consecutive output channels at its 32
+//   VEC-wide columns, a warp along one row (its reads one row, no bank
+//   conflict). A thread holds M x VEC accumulators and reads each row of
+//   its group's span once, adding r_j^2 (an fma) into each accumulator
+//   whose window holds j: each sum starts at its own first in-range term
+//   and runs in channel order, the same sum in the same order as the
+//   plain order's (never a running add/subtract sum). Every window past
+//   kMaxSize is at least M wide, so the span's first M - 1 rows (row h
+//   taken by accumulators 0..h) and last M - 1 (row h by h..M-1) are
+//   unrolled with no test; the rows between are in every window. At
+//   window 288 a thread reads (288 + M - 1) / M = 37 rows an output from
+//   shared memory where the runtime-window forward loaded 288 from L1/L2.
+//   A ring walks each chunk's rows with the accumulators tested
+//   (`walk_rows`).
+// - Forward (`lrn_tiled_kernel`, kind kKindFwd): s = k + coef*sum (an
+//   fma), y = r * s^-beta as `pow_neg_beta`: bit-equal to the
+//   runtime-window forward it replaced, `lrn_fwd_any_kernel`
+//   (`scripts/lrn_ab.py kernels`). A whole group's epilogue has beta's
+//   mode fixed and no early exit, so its channels' chains interleave.
+// - "any" backward, one launch (`lrn_bwd_tiled_kernel`): runs of P =
+//   32*VEC, CT the widest multiple of M up to all of C whose x span, f32
+//   t rows and f32 u rows fit a block's 232,448 bytes (`bwd_plan`; at
+//   window 288 over C 320 all of C: a halo covering C would have every
+//   tile redo all of s). Phase A: t-groups of M channels covering
+//   [c0 - hi, c0 + CT - 1 + lo] (neighbouring tiles recompute this
+//   halo), looped over up to kWalkGroups 16 consumer warps: s over the
+//   staged x rows, t = g*r*s^-beta/s into the t rows and, for the tile's
+//   own channels, u = g*s^-beta into the u rows (`pow_pair`; g read from
+//   device memory before each group's walk). A named barrier over the
+//   consumers. Phase B: the same walk over the t rows with the mirrored
+//   window, dx = u - (2*alpha*beta/n)*r*sum (one fma), masked by x > 0
+//   under relu, stored from registers.
+// - Past that cap (no tile fits: the halo rows alone pass shared memory,
+//   as at window 1500 over 2048 channels) the backward is two launches of
+//   `lrn_tiled_kernel` through an f32 scratch of 2*N*C*H*W elements (t,
+//   then u) that the wrapper allocates only there (ops.lrn.any_scratch):
+//   kind kKindT writes t and u, kind kKindDx stages t rows and walks them
+//   with the mirrored window; each may run the ring.
+// - Bound on the H100. At window 288, (8, 320, 28, 28) bf16: operations,
+//   2n + 6 f32 an element forward (1.17 GFLOP, 0.0174 ms at the CUDA
+//   cores' 67 TFLOP/s) and 3n + 10 backward (1.75 GFLOP, 0.0262 ms); its
+//   bytes, 8.0 MB forward even with each of the five tiles' spans
+//   re-reading all 320 rows of x (24 MB, 0.0072 ms at 3.35 TB/s), sit
+//   under that. At window 11, (32, 192, 56, 56) bf16: bytes, x read and
+//   y written once 77.1 MB (0.0230 ms); the three tiles' spans of 69, 74
+//   and 69 rows re-read 20 halo rows of each run's 192, 81.0 MB (0.0242
+//   ms) where no halo row is found in L2.
+// - Measured (NVIDIA H100 80GB HBM3, 700 W, `scripts/lrn_ab.py`, PERF.md
+//   §6): at window 11 the walk, not the bytes, sets the pace (staging
+//   nothing saves a quarter, the powers a sixth, the stores nothing);
+//   register count decides how many 544-thread CTAs share an SM, which
+//   moved the time more than any other setting.
+// - ptxas (sm_90a): `lrn_tiled_kernel` 56 registers a thread, the bound
+//   of two 544-thread CTAs an SM (unbounded, ptxas gave the bf16 forward
+//   87: one CTA an SM, 1.2-1.5x slower), spilling 60 bytes in the bf16
+//   forward (96 unaligned, 56-352 in the scratch passes); the one-launch
+//   `lrn_bwd_tiled_kernel` 83 bf16 and 76-78 f32, no spill. Dynamic shared
+//   memory (`walk_plan`, `bwd_plan`): at window 11 bf16 43,776 bytes a
+//   CTA (two buffers of 5 chunks of 16 rows of 272 bytes); at window 288
+//   92,800 forward and 210,304 bf16 / 128,384 f32 for the one-launch
+//   backward (x span, t and u rows of all 320 channels).
+// - Build: nvcc takes 126.4 s for this file against 98.4 s for its form
+//   before the tiled walk (`scripts/lrn_ab.py --only build`, turns of
+//   two on the card's host): the tiled kernels' 12 instantiations, each
+//   with a forward epilogue at four fixed modes and one read at run
+//   time, and the ring's tested walk beside the unrolled one.
 //
 // The staged backward. A CTA takes image n and a run of P consecutive
 // positions of its H*W plane (runs never cross images; P a multiple of 16
@@ -84,9 +179,10 @@
 //   r_j * (s^-beta * q^2) (s^-beta / s for other betas through rcp(s)).
 //   dx is stored from registers, coalesced along the row.
 //
-// Bound on the H100: bytes. The forward reads x and writes y, the
-// backward reads g and x and writes dx, each once: at norm2 of
-// Inception-v1 ((256, 192, 56, 56), bf16) 0.2761 ms at 3.35 TB/s. Its
+// Bound on the H100 up to window 9 and the staged route's cap: bytes. The
+// forward reads x and writes y, the backward reads g and x and writes dx,
+// each once: at norm2 of Inception-v1 ((256, 192, 56, 56), bf16) 0.2761
+// ms at 3.35 TB/s. Its
 // operations, some 3n+10 f32 an element (0.0415 ms at the CUDA cores' 67
 // TFLOP/s), sit far under that; the issue of some 30 instructions an
 // element (loads, conversions, the two window sums, the SFU calls)
@@ -228,113 +324,6 @@ __global__ void __launch_bounds__(kThreads)
       out[v] = ring[LO][v] * pow_neg_beta(k + coef * sum, mode, beta);
     }
     store_vec<T, VEC>(y + base + c * HW, out);
-  }
-}
-
-// r of channel j at this thread's positions, or zeros past [0, C)
-template <typename T, int VEC>
-__device__ __forceinline__ void load_r(const T* __restrict__ x, int64_t at,
-                                       int j, int C, int64_t HW, int relu,
-                                       float (&r)[VEC]) {
-  if (j < 0 || j >= C) {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) r[v] = 0.0f;
-    return;
-  }
-  load_vec<T, VEC>(x + at + j * HW, r);
-  relu_if(r, relu);
-}
-
-// s_c = k + coef * sum over win(c) = [c-lo, c-lo+size-1] of r^2, the sum
-// taken in channel order from 0 as the ring's (out-of-range channels add
-// nothing)
-template <typename T, int VEC>
-__device__ __forceinline__ void window_s(const T* __restrict__ x,
-                                         int64_t at, int c, int C,
-                                         int64_t HW, int size, int lo,
-                                         float coef, float k, int relu,
-                                         float (&s)[VEC]) {
-  float sum[VEC];
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) sum[v] = 0.0f;
-  for (int j = max(c - lo, 0); j <= min(c - lo + size - 1, C - 1); ++j) {
-    float r[VEC];
-    load_r<T, VEC>(x, at, j, C, HW, relu, r);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) sum[v] += r[v] * r[v];
-  }
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) s[v] = k + coef * sum[v];
-}
-
-// Past kMaxSize: the forward with the window size a runtime value
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    lrn_fwd_any_kernel(const T* __restrict__ x, T* __restrict__ y, int C,
-                       int64_t HW, int64_t HWv, int64_t total, int size,
-                       float coef, float k, int mode, float beta, int relu) {
-  const int lo = (size - 1) / 2;
-  const int64_t idx = blockIdx.x * (int64_t)kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t n = idx / HWv;
-  const int64_t base = n * C * HW + (idx - n * HWv) * VEC;
-  for (int c = 0; c < C; ++c) {
-    float s[VEC], r[VEC], out[VEC];
-    window_s<T, VEC>(x, base, c, C, HW, size, lo, coef, k, relu, s);
-    load_r<T, VEC>(x, base, c, C, HW, relu, r);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v)
-      out[v] = r[v] * pow_neg_beta(s[v], mode, beta);
-    store_vec<T, VEC>(y + base + c * HW, out);
-  }
-}
-
-// Past kMaxSize: the backward with the window size a runtime value. Pass
-// 1 writes t_j = g_j*r_j*s_j^-beta / s_j of every channel to `tbuf` (f32,
-// laid out as x); pass 2 takes the adjoint sum of c, adj(c) = [c-hi,
-// c+lo], over it in channel order, as the ring's
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    lrn_bwd_any_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                       T* __restrict__ dx, float* __restrict__ tbuf, int C,
-                       int64_t HW, int64_t HWv, int64_t total, int size,
-                       float coef, float k, int mode, float beta, float coef2,
-                       int relu) {
-  const int lo = (size - 1) / 2, hi = size - 1 - lo;
-  const int64_t idx = blockIdx.x * (int64_t)kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t n = idx / HWv;
-  const int64_t base = n * C * HW + (idx - n * HWv) * VEC;
-  for (int j = 0; j < C; ++j) {
-    float s[VEC], r[VEC], gj[VEC], t[VEC];
-    window_s<T, VEC>(x, base, j, C, HW, size, lo, coef, k, relu, s);
-    load_r<T, VEC>(x, base, j, C, HW, relu, r);
-    load_vec<T, VEC>(g + base + j * HW, gj);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v)
-      t[v] = gj[v] * r[v] * pow_neg_beta(s[v], mode, beta) / s[v];
-    store_vec<float, VEC>(tbuf + base + j * HW, t);
-  }
-  for (int c = 0; c < C; ++c) {
-    float acc[VEC], s[VEC], r[VEC], gc[VEC], out[VEC];
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-    for (int j = max(c - hi, 0); j <= min(c + lo, C - 1); ++j) {
-      float t[VEC];
-      load_vec<float, VEC>(tbuf + base + j * HW, t);
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[v] += t[v];
-    }
-    window_s<T, VEC>(x, base, c, C, HW, size, lo, coef, k, relu, s);
-    load_r<T, VEC>(x, base, c, C, HW, relu, r);
-    load_vec<T, VEC>(g + base + c * HW, gc);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const float d =
-          gc[v] * pow_neg_beta(s[v], mode, beta) - coef2 * r[v] * acc[v];
-      out[v] = (relu && !(r[v] > 0.0f)) ? 0.0f : d;
-    }
-    store_vec<T, VEC>(dx + base + c * HW, out);
   }
 }
 
@@ -944,6 +933,651 @@ __global__ void __launch_bounds__(kStagedThreads)
   }
 }
 
+// --- the tiled walk: the forward past kMaxSize, the "any" backward ---
+
+constexpr int kWalkM = 8;          // output channels a thread sums (M)
+constexpr int kWalkTile = 64;      // output channels a unit (CT; the
+                                   // one-launch backward sizes its own)
+constexpr int kWalkWarps = 2;      // warps along a run, at most (W)
+constexpr int kWalkMinCtas = 528;  // fewer units than this: one warp a run
+constexpr int kWalkChunk = 16;     // staged rows an mbarrier covers (K)
+constexpr int kWalkGroups = 16;    // the backward's consumer warps, at most
+constexpr int kWalkCtaBytes = 116224;  // two spans past this: one a CTA;
+                                       // one past it: a ring of chunks
+constexpr int kWalkThreads = 32 * (1 + kWalkGroups);
+constexpr int kKindFwd = 0, kKindT = 1, kKindDx = 2;
+static_assert(kWalkTile / kWalkM * kWalkWarps <= kWalkGroups,
+              "a forward CTA fits the launch bound");
+static_assert(kWalkChunk <= 32, "a lane copies a row of a chunk");
+static_assert(kWalkM <= kMaxSize + 1,
+              "every window past kMaxSize holds a group's M channels");
+
+// the mbarriers of S chunks (a full and an empty one each), padded
+__host__ __device__ constexpr int walk_bar_bytes(int S) {
+  return (16 * S + 127) / 128 * 128;
+}
+
+struct Tiled {
+  int C;
+  int64_t HW;
+  int P, W, runs, tiles, CT;  // a run, warps along it, tiles of CT channels
+  int rb;                     // bytes a staged row
+  int a, b;                   // the walked window [c - a, c + b]
+  int S;                      // chunk slots of a buffer (a ring when a
+                              // span has more)
+  int bufs;                   // 2: persistent CTAs, a span staged into
+                              // one buffer while the other is walked
+  int64_t units;              // (image, run, tile) units
+  int lo, hi;                 // the window
+  float coef, k, beta, coef2;
+  int mode, relu;
+};
+
+// s^-beta and s^-beta / s at beta's mode, chosen at run time (once an
+// output group, after its window sums)
+__device__ __forceinline__ void pow_pair_rt(int mode, float s, float beta,
+                                            float& b, float& bs) {
+  switch (mode) {
+    case 0: pow_pair<0>(s, beta, b, bs); break;
+    case 1: pow_pair<1>(s, beta, b, bs); break;
+    case 2: pow_pair<2>(s, beta, b, bs); break;
+    default: pow_pair<3>(s, beta, b, bs); break;
+  }
+}
+
+// beta's mode as a type: 0..3 fixed, -1 read at run time
+template <int V> struct Mode {
+  static constexpr int value = V;
+};
+// pow_neg_beta and pow_pair at a mode fixed at compile time (MODE >= 0:
+// the same expressions as theirs) or read at run time (-1)
+template <int MODE>
+__device__ __forceinline__ float pow_neg_beta_at(float s, int mode,
+                                                 float beta) {
+  if constexpr (MODE < 0) {
+    return pow_neg_beta(s, mode, beta);
+  } else if constexpr (MODE == 0) {
+    float r = rsqrtf(s);
+    return r * sqrtf(r);
+  } else if constexpr (MODE == 1) {
+    return rsqrtf(s);
+  } else if constexpr (MODE == 2) {
+    return 1.0f / s;
+  } else {
+    return powf(s, -beta);
+  }
+}
+template <int MODE>
+__device__ __forceinline__ void pow_pair_at(float s, int mode, float beta,
+                                            float& b, float& bs) {
+  if constexpr (MODE < 0)
+    pow_pair_rt(mode, s, beta, b, bs);
+  else
+    pow_pair<MODE>(s, beta, b, bs);
+}
+
+// this thread's VEC values of a staged row (as read_row; f32 rows of an
+// activation in bf16 hold VEC 2 floats a thread)
+template <typename S, int VEC, bool ALIGNED>
+__device__ __forceinline__ void read_staged(const unsigned char* p, int m,
+                                            float (&v)[VEC]) {
+  if constexpr (sizeof(S) == 4 && VEC == 2) {
+    if (!ALIGNED) p += m;
+    if (ALIGNED || (m & 4) == 0) {
+      const float2 f = *reinterpret_cast<const float2*>(p);
+      v[0] = f.x;
+      v[1] = f.y;
+    } else {
+      v[0] = *reinterpret_cast<const float*>(p);
+      v[1] = *reinterpret_cast<const float*>(p + 4);
+    }
+  } else {
+    read_row<S, VEC, ALIGNED>(p, m, v);
+  }
+}
+
+// a staged row for a window sum: as read_staged, its values first raised
+// to `floor` by max.NaN (floor 0 under relu, -inf otherwise: no change),
+// a bf16 pair in one instruction. Their squares are the plain order's
+// (max(-0, 0) squares as -0 does, a NaN stays NaN); the epilogue's r keeps
+// the exact `r < 0 ? 0 : r`
+template <typename S, int VEC, bool ALIGNED>
+__device__ __forceinline__ void read_sq_row(const unsigned char* p, int m,
+                                            uint32_t floor, float (&v)[VEC]) {
+  if constexpr (sizeof(S) == 2) {
+    if (!ALIGNED) p += m;
+    uint32_t w;
+    if (ALIGNED || (m & 2) == 0) {
+      w = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      w = __byte_perm(*reinterpret_cast<const uint32_t*>(p - 2),
+                      *reinterpret_cast<const uint32_t*>(p + 2), 0x5432);
+    }
+    asm("max.NaN.bf16x2 %0, %1, %2;\n" : "=r"(w) : "r"(w), "r"(floor));
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    read_staged<S, VEC, ALIGNED>(p, m, v);
+#pragma unroll
+    for (int u = 0; u < VEC; ++u)
+      asm("max.NaN.f32 %0, %1, %2;\n"
+          : "=f"(v[u]) : "f"(v[u]), "f"(__uint_as_float(floor)));
+  }
+}
+// the floor of read_sq_row: 0 under relu, else -inf (a bf16 pair's, or
+// an f32's)
+template <typename S>
+__host__ __device__ constexpr uint32_t sq_floor(int relu) {
+  return relu ? 0u : sizeof(S) == 2 ? 0xff80ff80u : 0xff800000u;
+}
+
+// VEC values of a device row from column col of a run of len (zeros
+// past it)
+template <typename S, int VEC, bool ALIGNED>
+__device__ __forceinline__ void load_cols(const S* __restrict__ row, int col,
+                                          int len, float (&v)[VEC]) {
+  if (ALIGNED && col + VEC <= len) {
+    load_vec<S, VEC>(row + col, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      v[e] = col + e < len ? to_f32(row[col + e]) : 0.0f;
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_cols(float* __restrict__ row, int col,
+                                           int len, const float (&v)[VEC]) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    if (col + e < len) row[col + e] = v[e];
+}
+
+// acc[m] += the squares (SQ) or values of the rows j in [j, e] that the
+// window [cb + m - a, cb + m + b] of accumulator m holds, each in channel
+// order. p: row j's staged bytes at this thread's column, rows rb bytes
+// apart; m0: row j's 16-byte offset in device memory, moving dm a row.
+// Rows in [mid0, mid1] are in every window: no test
+template <bool SQ, bool RELU, typename S, int VEC, bool ALIGNED>
+__device__ __forceinline__ void walk_rows(float (&acc)[kWalkM][VEC],
+                                          const unsigned char* p, int rb,
+                                          int m0, int dm, int j, int e,
+                                          int cb, int a, int b, int mid0,
+                                          int mid1) {
+  auto take = [&](float (&v)[VEC], int jj) {
+    read_staged<S, VEC, ALIGNED>(p, m0 & 15, v);
+    if (RELU) relu_if(v, 1);
+    p += rb;
+    m0 += dm;
+    (void)jj;
+  };
+  auto add = [](float& s, float v) { s = SQ ? fmaf(v, v, s) : s + v; };
+  const int h = min(e, mid0 - 1);
+  for (; j <= h; ++j) {  // a head row: the windows of some accumulators
+    float v[VEC];
+    take(v, j);
+    const int d = j - cb;
+#pragma unroll
+    for (int m = 0; m < kWalkM; ++m)
+      if (m >= d - b && m <= d + a)
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) add(acc[m][u], v[u]);
+  }
+  const int mm = min(e, mid1);
+#pragma unroll 4
+  for (; j <= mm; ++j) {  // in every window
+    float v[VEC];
+    take(v, j);
+#pragma unroll
+    for (int m = 0; m < kWalkM; ++m)
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) add(acc[m][u], v[u]);
+  }
+  for (; j <= e; ++j) {  // a tail row
+    float v[VEC];
+    take(v, j);
+    const int d = j - cb;
+#pragma unroll
+    for (int m = 0; m < kWalkM; ++m)
+      if (m >= d - b && m <= d + a)
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) add(acc[m][u], v[u]);
+  }
+}
+
+// acc[m] += the squares (SQ) or values of rows [cb + m - a, cb + m + b] ∩
+// [0, C), each in channel order, for a span whose rows are all staged
+// (row(j, v): row j at this thread's columns). The window is at least M
+// wide (every window past kMaxSize), so the span's first M - 1 rows, row
+// h of them taken by accumulators 0..h, and its last M - 1, row h by
+// h..M-1, are unrolled with no test of which accumulator takes a row;
+// the rows between are in every window
+template <bool SQ, int VEC, typename Row>
+__device__ __forceinline__ void walk_span(float (&acc)[kWalkM][VEC], int cb,
+                                          int a, int b, int C, Row row) {
+  constexpr int M = kWalkM;
+  auto add = [](float& s, float v) { s = SQ ? fmaf(v, v, s) : s + v; };
+#pragma unroll
+  for (int h = 0; h < M - 1; ++h) {
+    const int j = cb - a + h;
+    if (j >= 0 && j < C) {
+      float v[VEC];
+      row(j, v);
+#pragma unroll
+      for (int m = 0; m <= h; ++m)
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) add(acc[m][u], v[u]);
+    }
+  }
+  const int j1 = min(cb + b, C - 1);
+#pragma unroll 4
+  for (int j = max(cb - a + M - 1, 0); j <= j1; ++j) {
+    float v[VEC];
+    row(j, v);
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) add(acc[m][u], v[u]);
+  }
+#pragma unroll
+  for (int h = 1; h < M; ++h) {
+    const int j = cb + b + h;
+    if (j >= 0 && j < C) {
+      float v[VEC];
+      row(j, v);
+#pragma unroll
+      for (int m = h; m < M; ++m)
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) add(acc[m][u], v[u]);
+    }
+  }
+}
+
+// the rows [mid0, mid1] every window [cb + m - a, cb + m + b] of
+// [j0, j1] holds (mid0 > j1: none)
+__device__ __forceinline__ void mid_rows(int cb, int a, int b, int j0,
+                                         int j1, int& mid0, int& mid1) {
+  mid0 = max(cb + kWalkM - 1 - a, j0);
+  mid1 = min(cb + b, j1);
+  if (mid0 > mid1) mid0 = mid1 = j1 + 1;
+}
+
+// The staged span of a CTA: rows [x0, x1] of `src`'s channel planes at
+// its run, in chunks of kWalkChunk rows, chunk k in slot k % S on full
+// mbarrier k % S (S below the chunks: a ring, refilled once every
+// consumer warp has arrived on the slot's empty mbarrier); nk mbarriers
+// complete (a buffer's S, each once a use, where a span has fewer
+// chunks). Warp 0's lane
+// r copies row r of a chunk: its whole 16-byte chunks by one bulk copy,
+// its ends element by element (as the staged backward's warp 0)
+template <typename S>
+__device__ __forceinline__ void stage_span(const S* __restrict__ src,
+                                           int64_t base, int64_t HW, int x0,
+                                           int x1, int len, int slots,
+                                           int nk, int rb,
+                                           unsigned char* stages,
+                                           uint32_t full, uint32_t empty,
+                                           int lane) {
+  const int bytes = len * (int)sizeof(S);
+  for (int k = 0; k < nk; ++k) {  // nk past the span's chunks: arrivals
+    const int s = k % slots;
+    if (k >= slots) hopper::bar_wait(empty + 8 * s, (k / slots - 1) & 1);
+    const uint32_t bar = full + 8 * s;
+    const int ch = x0 + k * kWalkChunk + lane;
+    if (lane < kWalkChunk && ch <= x1) {
+      const RowSpan sp(src + base + (int64_t)ch * HW, bytes);
+      unsigned char* to = stages + (size_t)(s * kWalkChunk + lane) * rb;
+      if (sp.bytes()) {
+        expect_tx(bar, sp.bytes());
+        hopper::bulk_load(hopper::smem_u32(to + sp.at(sp.lo)),
+                          (const void*)sp.lo, sp.bytes(), bar);
+      }
+      for (uintptr_t u = sp.a; u < sp.lo; u += sizeof(S))
+        *reinterpret_cast<S*>(to + sp.at(u)) = *reinterpret_cast<const S*>(u);
+      for (uintptr_t u = sp.hi; u < sp.end; u += sizeof(S))
+        *reinterpret_cast<S*>(to + sp.at(u)) = *reinterpret_cast<const S*>(u);
+    }
+    hopper::bar_arrive(bar);  // one of 32
+  }
+}
+
+// where a CTA of the tiled walk works: image n, a run of len positions
+// from p0, channels from c0
+struct Place {
+  int64_t base;  // (n, p0) in elements
+  int len, c0;
+};
+__device__ __forceinline__ Place place_of(const Tiled& a, int64_t unit) {
+  const int tile = (int)(unit % a.tiles);
+  const int64_t nr = unit / a.tiles;
+  const int64_t n = nr / a.runs;
+  const int64_t p0 = (nr - n * a.runs) * a.P;
+  const int64_t rest = a.HW - p0;
+  return Place{n * a.C * a.HW + p0, (int)(rest < a.P ? rest : a.P),
+               tile * a.CT};
+}
+
+// The tiled walk (forward, and the two launches of the "any" backward
+// past its cap). A CTA: image n, a run of P positions, a tile of CT
+// output channels; warp 0 stages the span of `src` rows the tile's
+// windows [c - a, c + b] cover; consumer warp w is group w / W (M
+// channels from c0 + M*(w / W)) at columns 32*VEC*(w % W) on. KIND:
+// kKindFwd y = r * s^-beta (src x, out y); kKindT t = g*r*s^-beta/s and
+// u = g*s^-beta to tout's two halves (src x); kKindDx dx from the adjoint
+// sums of t (src t, tout's second half u, x for r; out dx)
+template <typename T, typename S, int KIND, bool ALIGNED>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+    lrn_tiled_kernel(const S* __restrict__ src, const T* __restrict__ x,
+                     const T* __restrict__ g, T* __restrict__ out,
+                     float* __restrict__ tout, int64_t numel, Tiled a) {
+  constexpr int M = kWalkM, K = kWalkChunk, VEC = 4 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const bool persist = a.bufs == 2;
+  const int NS = a.bufs * a.S;
+  const uint32_t full = hopper::smem_u32(smem), empty = full + 8 * NS;
+  unsigned char* stages = smem + walk_bar_bytes(NS);
+  const int C = a.C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::bar_init(full + 8 * s, 32);
+      hopper::bar_init(empty + 8 * s, blockDim.x / 32 - 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // this CTA's units: blockIdx.x, + gridDim.x, ... (persistent: the it-th
+  // in buffer it % 2, its mbarriers' phase (it / 2) % 2)
+  auto span_of = [&](const Place& pl, int& x0, int& x1) {
+    x0 = max(pl.c0 - a.a, 0);
+    x1 = min(pl.c0 + a.CT - 1 + a.b, C - 1);
+  };
+  if (warp == 0) {
+    int it = 0;
+    for (int64_t u = blockIdx.x; u < a.units; u += gridDim.x, ++it) {
+      const Place pl = place_of(a, u);
+      int x0, x1;
+      span_of(pl, x0, x1);
+      const int b = persist ? it & 1 : 0;
+      if (persist && it >= 2)
+        hopper::bar_wait(empty + 8 * b * a.S, ((it >> 1) - 1) & 1);
+      stage_span<S>(src, pl.base, a.HW, x0, x1, pl.len, a.S,
+                    persist ? a.S : (x1 - x0 + K) / K, a.rb,
+                    stages + (size_t)b * a.S * K * a.rb, full + 8 * b * a.S,
+                    empty, lane);
+    }
+    return;
+  }
+
+  const int grp = (warp - 1) / a.W;
+  const int col = (((warp - 1) % a.W) * 32 + lane) * VEC;
+  const int dm = (int)((a.HW * (int64_t)sizeof(S)) & 15);
+  const int dmo = (int)((a.HW * (int64_t)sizeof(T)) & 15);
+  const bool relu_rows = KIND != kKindDx && a.relu;
+  int it = 0;
+  for (int64_t unit = blockIdx.x; unit < a.units;
+       unit += gridDim.x, ++it) {
+    const Place pl = place_of(a, unit);
+    int x0, x1;
+    span_of(pl, x0, x1);
+    const int chunks = (x1 - x0 + K) / K;
+    const bool ring = !persist && chunks > a.S;
+    const int b = persist ? it & 1 : 0;
+    unsigned char* st = stages + (size_t)b * a.S * K * a.rb;
+    const uint32_t fb = full + 8 * b * a.S;
+    const uint32_t parity = persist ? (it >> 1) & 1 : 0;
+    const bool active = col < pl.len;
+    const int toff = (active ? col : 0) * (int)sizeof(S);
+    const int cb = pl.c0 + grp * M;
+    const bool idle = cb >= C;
+    const int mx = (int)((uintptr_t)(src + pl.base) & 15);
+    float acc[M][VEC];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[m][u] = 0.0f;
+    if (!idle && !ring) {  // the span staged whole: the group's chunks
+      const int j0 = max(cb - a.a, 0), j1 = min(cb + M - 1 + a.b, C - 1);
+      for (int kc = (j0 - x0) / K; kc <= (j1 - x0) / K; ++kc)
+        hopper::bar_wait(fb + 8 * kc, parity);
+      if constexpr (KIND == kKindDx) {  // t rows: no relu
+        walk_span<false, VEC>(acc, cb, a.a, a.b, C,
+                              [&](int j, float (&v)[VEC]) {
+          read_staged<S, VEC, ALIGNED>(st + (size_t)(j - x0) * a.rb + toff,
+                                       (mx + j * dm) & 15, v);
+        });
+      } else {
+        const uint32_t floor = sq_floor<S>(a.relu);
+        walk_span<true, VEC>(acc, cb, a.a, a.b, C,
+                             [&](int j, float (&v)[VEC]) {
+          read_sq_row<S, VEC, ALIGNED>(st + (size_t)(j - x0) * a.rb + toff,
+                                       (mx + j * dm) & 15, floor, v);
+        });
+      }
+    } else if (ring) {  // each chunk walked, then freed, in channel order
+      int j0 = max(cb - a.a, 0), j1 = min(cb + M - 1 + a.b, C - 1);
+      if (idle) j0 = x1 + 1, j1 = x1;
+      int mid0, mid1;
+      mid_rows(cb, a.a, a.b, j0, j1, mid0, mid1);
+      for (int kc = 0; kc < chunks; ++kc) {
+        const int s = kc % a.S;
+        hopper::bar_wait(full + 8 * s, (kc / a.S) & 1);
+        const int r0 = x0 + kc * K, f = max(j0, r0), e = min(j1, r0 + K - 1);
+        if (f <= e) {
+          const unsigned char* p =
+              stages + (size_t)(s * K + f - r0) * a.rb + toff;
+          const int m0 = mx + f * dm;
+          if (relu_rows)
+            walk_rows<KIND != kKindDx, true, S, VEC, ALIGNED>(
+                acc, p, a.rb, m0, dm, f, e, cb, a.a, a.b, mid0, mid1);
+          else
+            walk_rows<KIND != kKindDx, false, S, VEC, ALIGNED>(
+                acc, p, a.rb, m0, dm, f, e, cb, a.a, a.b, mid0, mid1);
+        }
+        __syncwarp();
+        if (lane == 0) hopper::bar_arrive(empty + 8 * s);
+      }
+    }
+    if (!idle && active) {
+    const int md = (int)((uintptr_t)(out + pl.base) & 15);
+    // output channel cb + m, at beta's mode MODE (-1: chosen at run time).
+    // r: the staged row, or where the span went round a ring (and for
+    // kKindDx, whose rows are t) x from device memory, as g and u
+    auto channel = [&](int m, auto mode) {
+      constexpr int MODE = decltype(mode)::value;
+      const int c = cb + m;
+      const int64_t at = pl.base + (int64_t)c * a.HW;
+      float r[VEC], o[VEC];
+      if (KIND == kKindDx || ring)
+        load_cols<T, VEC, ALIGNED>(x + at, col, pl.len, r);
+      else
+        read_staged<S, VEC, ALIGNED>(st + (size_t)(c - x0) * a.rb + toff,
+                                     (mx + c * dm) & 15, r);
+      relu_if(r, a.relu);
+      if constexpr (KIND == kKindFwd) {
+        // the same expressions as the plain order's: k + coef * sum (an
+        // fma), r * s^-beta
+#pragma unroll
+        for (int u = 0; u < VEC; ++u)
+          o[u] = r[u] * pow_neg_beta_at<MODE>(fmaf(a.coef, acc[m][u], a.k),
+                                              a.mode, a.beta);
+        write_row<T, VEC, ALIGNED>(out + at, md + c * dmo, col, pl.len, o);
+      } else if constexpr (KIND == kKindT) {
+        float gv[VEC], t[VEC];
+        load_cols<T, VEC, ALIGNED>(g + at, col, pl.len, gv);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          float b, bs;
+          pow_pair_at<MODE>(fmaf(a.coef, acc[m][u], a.k), a.mode, a.beta, b,
+                            bs);
+          t[u] = gv[u] * r[u] * bs;
+          o[u] = gv[u] * b;
+        }
+        store_cols<VEC>(tout + at, col, pl.len, t);
+        store_cols<VEC>(tout + numel + at, col, pl.len, o);
+      } else {
+        float uv[VEC];
+        load_cols<float, VEC, false>(tout + numel + at, col, pl.len, uv);
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          // dx = u - coef2*r*sum, one rounding of the product's sum
+          const float d = fmaf(-a.coef2 * r[u], acc[m][u], uv[u]);
+          o[u] = (a.relu && !(r[u] > 0.0f)) ? 0.0f : d;
+        }
+        write_row<T, VEC, ALIGNED>(out + at, md + c * dmo, col, pl.len, o);
+      }
+    };
+    // a whole group: no early exit and beta's mode fixed, so the channels'
+    // chains interleave
+    auto whole = [&](auto mode) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) channel(m, mode);
+    };
+    if (cb + M <= C) {
+      switch (a.mode) {
+        case 0: whole(Mode<0>{}); break;
+        case 1: whole(Mode<1>{}); break;
+        case 2: whole(Mode<2>{}); break;
+        default: whole(Mode<3>{}); break;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        if (cb + m < C) channel(m, Mode<-1>{});
+    }
+    }  // the epilogue
+    if (persist) {  // this buffer's span walked: free it (a group past
+      // C first waits for the span, or it would free the buffer's next
+      // use before that was staged)
+      if (idle) hopper::bar_wait(fb, parity);
+      __syncwarp();
+      if (lane == 0) hopper::bar_arrive(empty + 8 * b * a.S);
+    }
+  }  // the units
+}
+
+// The one-launch "any" backward. A CTA: image n, a run of P = 32*VEC
+// positions, a tile of CT output channels (all of C where it fits). Warp
+// 0 stages the x rows of the tile's adjoint windows' windows, all at
+// once; consumer warp w walks, in phase A, t-groups q = qmin + w - 1,
+// + G, ... (M channels from c0 + M*q each, covering [c0 - hi, c0 + CT -
+// 1 + lo]): s over the staged rows, t = g*r*s^-beta/s into the t rows and,
+// for the tile's own channels, u = g*s^-beta into the u rows (shared
+// memory, f32); in phase B, after a barrier of the consumers, output
+// groups q = w - 1, + G, ...: the adjoint sums over the t rows, dx = u -
+// coef2*r*sum, stored from registers
+template <typename T, bool ALIGNED>
+__global__ void __launch_bounds__(kWalkThreads)
+    lrn_bwd_tiled_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                         T* __restrict__ dx, Tiled a) {
+  constexpr int M = kWalkM, K = kWalkChunk, VEC = 4 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Place pl = place_of(a, blockIdx.x);
+  const int C = a.C, c0 = pl.c0, lo = a.lo, hi = a.hi;
+  const int qmin = -min((hi + M - 1) / M, c0 / M);
+  const int qmax = (min(c0 + a.CT - 1 + lo, C - 1) - c0) / M;
+  const int tbase = c0 + qmin * M;
+  const int x0 = max(tbase - lo, 0);
+  const int x1 = min(c0 + qmax * M + M - 1 + hi, C - 1);
+  const int chunks = (x1 - x0 + K) / K;
+  const uint32_t full = hopper::smem_u32(smem);
+  unsigned char* stages = smem + walk_bar_bytes(a.S);
+  float* tr = reinterpret_cast<float*>(stages + (size_t)a.S * K * a.rb);
+  float* ur = tr + (size_t)(qmax - qmin + 1) * M * a.P;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < chunks; ++s) hopper::bar_init(full + 8 * s, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    stage_span<T>(x, pl.base, a.HW, x0, x1, pl.len, chunks, chunks, a.rb,
+                  stages, full, full + 8 * a.S, lane);
+    return;
+  }
+
+  const int G = blockDim.x / 32 - 1, w = warp - 1;
+  const int col = lane * VEC;
+  const bool active = col < pl.len;
+  const int toff = (active ? col : 0) * (int)sizeof(T);
+  const int mx = (int)((uintptr_t)(x + pl.base) & 15);
+  const int dm = (int)((a.HW * (int64_t)sizeof(T)) & 15);
+
+  const uint32_t floor = sq_floor<T>(a.relu);
+  auto xrow = [&](int j, float (&v)[VEC]) {
+    read_staged<T, VEC, ALIGNED>(stages + (size_t)(j - x0) * a.rb + toff,
+                                 (mx + j * dm) & 15, v);
+    relu_if(v, a.relu);
+  };
+  // phase A: t of channels [tbase, c0 + M*qmax + M), u of [c0, c0 + CT)
+  for (int q = qmin + w; q <= qmax; q += G) {
+    const int jb = c0 + q * M;
+    float gv[M][VEC], acc[M][VEC];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      load_cols<T, VEC, ALIGNED>(
+          g + pl.base + (int64_t)min(jb + m, C - 1) * a.HW, col, pl.len,
+          gv[m]);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[m][u] = 0.0f;
+    }
+    const int j0 = max(jb - lo, 0), j1 = min(jb + M - 1 + hi, C - 1);
+    for (int kc = (j0 - x0) / K; kc <= (j1 - x0) / K; ++kc)
+      hopper::bar_wait(full + 8 * kc, 0);
+    walk_span<true, VEC>(acc, jb, lo, hi, C, [&](int j, float (&v)[VEC]) {
+      read_sq_row<T, VEC, ALIGNED>(stages + (size_t)(j - x0) * a.rb + toff,
+                                   (mx + j * dm) & 15, floor, v);
+    });
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int j = jb + m;
+      if (j >= C) break;
+      float r[VEC], t[VEC], u[VEC];
+      xrow(j, r);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float b, bs;
+        pow_pair_rt(a.mode, fmaf(a.coef, acc[m][e], a.k), a.beta, b, bs);
+        t[e] = gv[m][e] * r[e] * bs;
+        u[e] = gv[m][e] * b;
+      }
+      st_slot<VEC>(tr + (size_t)(j - tbase) * a.P + col, t);
+      if (j - c0 >= 0 && j - c0 < a.CT)
+        st_slot<VEC>(ur + (size_t)(j - c0) * a.P + col, u);
+    }
+  }
+  hopper::named_sync(1, G * 32);
+
+  // phase B: dx of the tile's channels from the adjoint sums of t
+  const int md = (int)((uintptr_t)(dx + pl.base) & 15);
+  for (int q = w; q * M < a.CT && c0 + q * M < C; q += G) {
+    const int cb = c0 + q * M;
+    float acc[M][VEC];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[m][u] = 0.0f;
+    walk_span<false, VEC>(acc, cb, hi, lo, C, [&](int j, float (&v)[VEC]) {
+      ld_slot<VEC>(tr + (size_t)(j - tbase) * a.P + col, v);
+    });
+    if (!active) continue;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int c = cb + m;
+      if (c >= C) break;
+      float r[VEC], u[VEC], o[VEC];
+      xrow(c, r);
+      ld_slot<VEC>(ur + (size_t)(c - c0) * a.P + col, u);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = fmaf(-a.coef2 * r[e], acc[m][e], u[e]);
+        o[e] = (a.relu && !(r[e] > 0.0f)) ? 0.0f : d;
+      }
+      write_row<T, VEC, ALIGNED>(dx + pl.base + (int64_t)c * a.HW,
+                                 md + c * dm, col, pl.len, o);
+    }
+  }
+}
+
 int beta_mode(float beta) {
   return beta == 0.75f ? 0 : beta == 0.5f ? 1 : beta == 1.0f ? 2 : 3;
 }
@@ -958,7 +1592,7 @@ struct Args {
   int64_t HW;
   float alpha, beta, k;
   int size, relu;
-  float* tbuf;       // the "any" backward's t scratch
+  float* scratch;  // the "any" backward's two-launch form: t, then u
   cudaStream_t st;
 };
 
@@ -976,58 +1610,146 @@ int launch(const void* x, void* out, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// past kMaxSize (SIZE 0): the runtime-size kernels
-template <typename T, int VEC>
-int launch_any(bool bwd, const void* g, const void* x, void* out,
-               const Args& a) {
-  const int64_t HWv = a.HW / VEC;
-  const int64_t total = (int64_t)a.N * HWv;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) return -4;
-  const float coef = a.alpha / a.size;
-  const int mode = beta_mode(a.beta);
-  if (bwd) {
-    if (a.tbuf == nullptr) return -5;
-    lrn_bwd_any_kernel<T, VEC><<<(unsigned)blocks, kThreads, 0, a.st>>>(
-        static_cast<const T*>(g), static_cast<const T*>(x),
-        static_cast<T*>(out), a.tbuf, a.C, a.HW, HWv, total, a.size, coef,
-        a.k, mode, a.beta, 2.0f * a.alpha * a.beta / a.size, a.relu);
-  } else {
-    lrn_fwd_any_kernel<T, VEC><<<(unsigned)blocks, kThreads, 0, a.st>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), a.C, a.HW, HWv,
-        total, a.size, coef, a.k, mode, a.beta, a.relu);
+template <typename T, int SIZE>
+int launch_vec(const void* x, void* out, const Args& a) {
+  const bool vec4 = a.HW % 4 == 0 && aligned<T>(x, 4) && aligned<T>(out, 4);
+  return vec4 ? launch<T, SIZE, 4>(x, out, a) : launch<T, SIZE, 1>(x, out, a);
+}
+
+// the tiled walk's launch: runs of P = 32*VEC*W positions (W halved
+// while the grid is under kWalkMinCtas), tiles of CT = kWalkTile channels
+// (fewer where C is), a span of min(C, CT + size - 1) rows of selt-byte
+// elements staged whole, into two buffers (bufs 2: persistent CTAs)
+// where both fit kWalkCtaBytes, else one, or past it through a ring of S
+// chunks. bwd_plan's W: its consumer warps
+struct Plan {
+  int W, P, CT, tiles, rb, S, bufs;
+  int64_t runs, smem;
+};
+Plan walk_plan(int N, int C, int64_t HW, int size, int telt, int selt) {
+  Plan p;
+  p.CT = (C + kWalkM - 1) / kWalkM * kWalkM;
+  if (p.CT > kWalkTile) p.CT = kWalkTile;
+  p.tiles = (C + p.CT - 1) / p.CT;
+  p.W = kWalkWarps;
+  while (p.W > 1 && (int64_t)N * ((HW + 32 * (4 / telt) * p.W - 1)
+                                  / (32 * (4 / telt) * p.W)) * p.tiles
+                        < kWalkMinCtas)
+    p.W /= 2;
+  p.P = 32 * (4 / telt) * p.W;
+  p.runs = (HW + p.P - 1) / p.P;
+  p.rb = row_bytes(p.P, selt);
+  const int rows = C < p.CT + size - 1 ? C : p.CT + size - 1;
+  p.S = (rows + kWalkChunk - 1) / kWalkChunk;
+  p.bufs = walk_bar_bytes(2 * p.S) + (int64_t)2 * p.S * kWalkChunk * p.rb
+                   <= kWalkCtaBytes ? 2 : 1;
+  while (p.S > 2 && walk_bar_bytes(p.bufs * p.S)
+                        + (int64_t)p.bufs * p.S * kWalkChunk * p.rb
+                        > kWalkCtaBytes)
+    --p.S;
+  p.smem = walk_bar_bytes(p.bufs * p.S)
+           + (int64_t)p.bufs * p.S * kWalkChunk * p.rb;
+  return p;
+}
+
+// the one-launch "any" backward's: runs of P = 32*VEC positions, the
+// widest tile CT (a multiple of M, all of C where it fits) whose x span,
+// t rows and u rows fit a block's shared memory; CT 0: none fits, the
+// two-launch form
+Plan bwd_plan(int C, int64_t HW, int size, int elt) {
+  constexpr int M = kWalkM, K = kWalkChunk;
+  const int lo = (size - 1) / 2, hi = size - 1 - lo;
+  Plan p{1, 32 * (4 / elt), 0, 0, row_bytes(32 * (4 / elt), elt), 0, 1, 0,
+         0};
+  const int groups = (C + M - 1) / M;
+  for (int ct = groups * M; ct >= M; ct -= M) {
+    const int span = (hi + M - 1) / M + (ct - 1 + lo) / M + 1;
+    const int trows = M * (span < groups ? span : groups);
+    const int xrows = C < trows + size - 1 ? C : trows + size - 1;
+    const int S = (xrows + K - 1) / K;
+    const int64_t smem = walk_bar_bytes(S) + (int64_t)S * K * p.rb
+                         + (int64_t)(trows + ct) * p.P * 4;
+    if (smem <= kSmemMax) {
+      p.CT = ct;
+      p.S = S;
+      p.W = trows / M < kWalkGroups ? trows / M : kWalkGroups;  // warps
+      p.smem = smem;
+      break;
+    }
   }
+  p.tiles = p.CT ? (C + p.CT - 1) / p.CT : 0;
+  p.runs = (HW + p.P - 1) / p.P;
+  return p;
+}
+
+Tiled tiled_args(const Plan& p, const Args& a, bool adjoint) {
+  const int lo = (a.size - 1) / 2, hi = a.size - 1 - lo;
+  return Tiled{a.C, a.HW, p.P, p.W, (int)p.runs, p.tiles, p.CT, p.rb,
+               adjoint ? hi : lo, adjoint ? lo : hi, p.S, p.bufs,
+               (int64_t)a.N * p.runs * p.tiles, lo, hi,
+               a.alpha / a.size, a.k, a.beta,
+               2.0f * a.alpha * a.beta / a.size, beta_mode(a.beta), a.relu};
+}
+
+// a pass of the tiled walk over rows of src (S: T, or the f32 scratch)
+template <typename T, typename S, int KIND, bool ALIGNED>
+int launch_tiled(const S* src, const T* x, const T* g, T* out, float* tout,
+                 const Args& a) {
+  const Plan p = walk_plan(a.N, a.C, a.HW, a.size, sizeof(T), sizeof(S));
+  const int64_t units = (int64_t)a.N * p.runs * p.tiles;
+  const int threads = 32 * (1 + p.CT / kWalkM * p.W);
+  auto kernel = lrn_tiled_kernel<T, S, KIND, ALIGNED>;
+  int err = hopper::set_smem(kernel, (size_t)p.smem);
+  if (err) return err;
+  int64_t blocks = units;
+  if (p.bufs == 2) {  // persistent: as many CTAs as fit the card at once
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = (int)cudaGetDevice(&dev))
+        || (err = (int)cudaDeviceGetAttribute(
+                &sms, cudaDevAttrMultiProcessorCount, dev))
+        || (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, threads, (size_t)p.smem)))
+      return err;
+    if (per_sm < 1) return -4;
+    if (blocks > (int64_t)sms * per_sm) blocks = (int64_t)sms * per_sm;
+  }
+  if (blocks > 0x7fffffff) return -4;
+  kernel<<<(unsigned)blocks, threads, (size_t)p.smem, a.st>>>(
+      src, x, g, out, tout, (int64_t)a.N * a.C * a.HW,
+      tiled_args(p, a, KIND == kKindDx));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int SIZE>
-int launch_vec(bool bwd, const void* g, const void* x, void* out,
-               const Args& a) {
-  const bool vec4 = a.HW % 4 == 0 && aligned<T>(x, 4) && aligned<T>(out, 4)
-                    && (!bwd || aligned<T>(g, 4));
-  if constexpr (SIZE == 0)
-    return vec4 ? launch_any<T, 4>(bwd, g, x, out, a)
-                : launch_any<T, 1>(bwd, g, x, out, a);
-  else
-    return vec4 ? launch<T, SIZE, 4>(x, out, a) : launch<T, SIZE, 1>(x, out, a);
+// rows of whole 16-byte chunks from 16-byte aligned pointers
+template <typename T>
+bool whole_rows(const Args& a, const void* p, const void* q, const void* r) {
+  return a.HW * sizeof(T) % 16 == 0 && aligned<T>(p, 16 / sizeof(T))
+         && aligned<T>(q, 16 / sizeof(T))
+         && (r == nullptr || aligned<T>(r, 16 / sizeof(T)));
 }
 
 template <typename T>
 int launch_fwd(const void* x, void* y, const Args& a) {
   switch (a.size) {
-    case 1: return launch_vec<T, 1>(false, nullptr, x, y, a);
-    case 2: return launch_vec<T, 2>(false, nullptr, x, y, a);
-    case 3: return launch_vec<T, 3>(false, nullptr, x, y, a);
-    case 4: return launch_vec<T, 4>(false, nullptr, x, y, a);
-    case 5: return launch_vec<T, 5>(false, nullptr, x, y, a);
-    case 6: return launch_vec<T, 6>(false, nullptr, x, y, a);
-    case 7: return launch_vec<T, 7>(false, nullptr, x, y, a);
-    case 8: return launch_vec<T, 8>(false, nullptr, x, y, a);
-    case 9: return launch_vec<T, kMaxSize>(false, nullptr, x, y, a);
-    default: return a.size > kMaxSize ? launch_vec<T, 0>(false, nullptr, x,
-                                                         y, a)
-                                      : -3;
+    case 1: return launch_vec<T, 1>(x, y, a);
+    case 2: return launch_vec<T, 2>(x, y, a);
+    case 3: return launch_vec<T, 3>(x, y, a);
+    case 4: return launch_vec<T, 4>(x, y, a);
+    case 5: return launch_vec<T, 5>(x, y, a);
+    case 6: return launch_vec<T, 6>(x, y, a);
+    case 7: return launch_vec<T, 7>(x, y, a);
+    case 8: return launch_vec<T, 8>(x, y, a);
+    case 9: return launch_vec<T, kMaxSize>(x, y, a);
+    default: break;
   }
+  if (a.size < 1) return -3;
+  const T* xs = static_cast<const T*>(x);
+  T* ys = static_cast<T*>(y);
+  return whole_rows<T>(a, x, y, nullptr)
+             ? launch_tiled<T, T, kKindFwd, true>(xs, xs, nullptr, ys,
+                                                  nullptr, a)
+             : launch_tiled<T, T, kKindFwd, false>(xs, xs, nullptr, ys,
+                                                   nullptr, a);
 }
 
 // the staged backward at window SIZE (0: a runtime window within the cap)
@@ -1057,10 +1779,37 @@ int launch_staged(const void* g, const void* x, void* dx, const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// the "any" backward: one launch of lrn_bwd_tiled_kernel where a tile
+// fits (bwd_plan), else the two-launch form through the scratch
+template <typename T>
+int launch_any(const void* g, const void* x, void* dx, const Args& a) {
+  const Plan p = bwd_plan(a.C, a.HW, a.size, sizeof(T));
+  const T* gs = static_cast<const T*>(g);
+  const T* xs = static_cast<const T*>(x);
+  T* dxs = static_cast<T*>(dx);
+  if (p.CT == 0) {
+    if (a.scratch == nullptr) return -5;
+    int err = launch_tiled<T, T, kKindT, false>(xs, xs, gs, nullptr,
+                                                a.scratch, a);
+    if (err) return err;
+    return launch_tiled<T, float, kKindDx, false>(a.scratch, xs, nullptr,
+                                                  dxs, a.scratch, a);
+  }
+  const int64_t blocks = (int64_t)a.N * p.runs * p.tiles;
+  if (blocks > 0x7fffffff) return -4;
+  auto kernel = whole_rows<T>(a, g, x, dx) ? lrn_bwd_tiled_kernel<T, true>
+                                           : lrn_bwd_tiled_kernel<T, false>;
+  const int err = hopper::set_smem(kernel, (size_t)p.smem);
+  if (err) return err;
+  kernel<<<(unsigned)blocks, 32 * (1 + p.W), (size_t)p.smem, a.st>>>(
+      gs, xs, dxs, tiled_args(p, a, false));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(int route, const void* g, const void* x, void* dx,
                const Args& a) {
-  if (route == kRouteAny) return launch_vec<T, 0>(true, g, x, dx, a);
+  if (route == kRouteAny) return launch_any<T>(g, x, dx, a);
   switch (a.size) {
     case 1: return launch_staged<T, 1>(g, x, dx, a);
     case 2: return launch_staged<T, 2>(g, x, dx, a);
@@ -1091,16 +1840,18 @@ extern "C" int bigdl_lrn_fwd(int dtype, const void* x, void* y, int N, int C,
 }
 
 // g, x, dx: contiguous (N, C, H*W) of one dtype; x is the pre-ReLU input;
-// any size >= 1. tbuf: on the "any" route an f32 scratch of N*C*H*W
-// elements, 16-byte aligned (unused, and may be null, on "staged").
-// *route (when not null): the route taken, 0 "staged", 1 "any"
-// (route_of). Returns 0, or a CUDA error code (negative: unsupported dtype
-// / size / grid, or -5 for the "any" route without its scratch).
+// any size >= 1. scratch: where the "any" route takes its two-launch form
+// (no tile fits shared memory: bwd_plan), an f32 scratch of 2*N*C*H*W
+// elements (t, then u), 16-byte aligned (unused, and may be null,
+// elsewhere). *route (when not null): the route taken, 0 "staged", 1
+// "any" (route_of). Returns 0, or a CUDA error code (negative:
+// unsupported dtype / size / grid, or -5 for the two-launch form without
+// its scratch).
 extern "C" int bigdl_lrn_bwd(int dtype, const void* g, const void* x,
-                             void* dx, float* tbuf, int N, int C, int HW,
+                             void* dx, float* scratch, int N, int C, int HW,
                              int size, float alpha, float beta, float k,
                              int relu, void* stream, int* route) {
-  Args a{N, C, HW, alpha, beta, k, size, relu, tbuf,
+  Args a{N, C, HW, alpha, beta, k, size, relu, scratch,
          static_cast<cudaStream_t>(stream)};
   if (dtype != 0 && dtype != 1) return -2;
   if (size < 1) return -3;

@@ -20,17 +20,20 @@ Two kernels, each with its plain PyTorch version beside it:
 On a CUDA tensor each launches the hand-written Hopper kernel of
 ``csrc/lrn.cu`` (built at first use, see ``_build.py``) or raises; on a
 CPU tensor it takes its plain version (``lrn_ref`` / ``lrn_bwd_ref``).
-The backward has two routes, named by :func:`bwd_route` and reported by
-the C entry: ``"staged"`` (every window up to 9, and past it every
-window whose slots min(size, C) fit the cap) and ``"any"`` (past the
-cap; the only route that takes an f32 scratch as large as x).
+Past window 9 the forward is the tiled walk (:func:`walk_plan`). The
+backward has two routes, named by :func:`bwd_route` and reported by the
+C entry: ``"staged"`` (every window up to 9, and past it every window
+whose slots min(size, C) fit the cap) and ``"any"`` (past the cap: the
+tiled walk's one-launch backward, :func:`bwd_plan`, or where no tile of
+it fits shared memory its two-launch form, the only one that takes an
+f32 scratch, twice as large as x: :func:`any_scratch`).
 ``lrn`` is a ``torch.autograd.Function`` that saves only x, as the JAX
 ``custom_vjp`` does. All arithmetic is f32; inputs and outputs keep the
 activation dtype (float32 or bfloat16).
 
 ``fwd_launches`` and ``bwd_launches`` count kernel launches, so a run
 can show its main path went through the kernels; ``fwd_any_launches``
-counts the forwards past window 9 (the runtime-size kernel),
+counts the forwards past window 9 (the tiled walk),
 ``bwd_wide_launches`` the backwards past it (the staged kernel's
 runtime-window form, or the "any" route), ``bwd_staged_launches`` and
 ``bwd_any_launches`` the backwards by route.
@@ -47,7 +50,8 @@ from bigdl_tpu_torch.ops import pow_neg_beta
 
 __all__ = ["lrn", "lrn_fwd", "lrn_bwd", "lrn_ref", "lrn_bwd_ref",
            "bwd_route", "run_positions", "chunk_channels", "u_slots",
-           "staged_smem", "fwd_launches", "bwd_launches",
+           "staged_smem", "walk_plan", "bwd_plan", "any_scratch",
+           "fwd_launches", "bwd_launches",
            "fwd_any_launches", "bwd_wide_launches", "bwd_staged_launches",
            "bwd_any_launches"]
 
@@ -74,6 +78,20 @@ _ANY_RUN_MIN = 64
 _ANY_CTA_BYTES = 116224
 _SLOT_CHUNK = 4
 _ANY_MAX_SLOTS = 256
+
+#: the tiled walk past window 9 (csrc/lrn.cu): output channels a thread
+#: sums (kWalkM), a CTA's tile of output channels (kWalkTile), warps along
+#: a run at most (kWalkWarps), the grid below which a run is one warp
+#: (kWalkMinCtas), rows a chunk's mbarrier covers (kWalkChunk), the
+#: backward's consumer warps at most (kWalkGroups), and the bytes past
+#: which a staged span is a ring of chunks (kWalkCtaBytes)
+_WALK_M = 8
+_WALK_TILE = 64
+_WALK_WARPS = 2
+_WALK_MIN_CTAS = 528
+_WALK_CHUNK = 16
+_WALK_GROUPS = 16
+_WALK_CTA_BYTES = 116224
 
 #: kernel launches since import (reset by assigning 0)
 fwd_launches = 0
@@ -148,6 +166,78 @@ def run_positions(hw: int, dtype, size: int, c: int) -> int:
     return -(-(-(-hw // runs)) // a) * a
 
 
+def _walk_bar_bytes(slots: int) -> int:
+    return (16 * slots + 127) // 128 * 128
+
+
+def walk_plan(dtype, shape, size: int, staged=None) -> dict:
+    """The tiled walk's launch (``walk_plan``) for an NCHW ``shape`` of
+    ``dtype`` at window ``size`` (past 9), its staged rows of ``staged``
+    (default ``dtype``; float32 for the two-launch backward's second
+    pass): runs of P = 32·VEC·W positions (VEC 4 bytes of ``dtype``, W
+    halved from 2 while the grid is under 528 CTAs), tiles of CT = 64
+    output channels (C rounded up to 8 where fewer), a span of min(C, CT
+    + size − 1) rows staged whole in chunks of 16: into two buffers
+    (``bufs`` 2: persistent CTAs stage a tile's span while they walk the
+    last one's) where both fit 116,224 bytes, else one, and past that
+    through a ring of ``slots`` chunks."""
+    n, c = shape[0], shape[1]
+    hw = shape[2] * shape[3]
+    vec = 4 // dtype.itemsize
+    selt = (staged or dtype).itemsize
+    ct = min(_WALK_TILE, -(-c // _WALK_M) * _WALK_M)
+    tiles = -(-c // ct)
+    w = _WALK_WARPS
+    while w > 1 and n * -(-hw // (32 * vec * w)) * tiles < _WALK_MIN_CTAS:
+        w //= 2
+    p = 32 * vec * w
+    rb = _row_bytes(p, selt)
+    slots = -(-min(c, ct + size - 1) // _WALK_CHUNK)
+    bufs = 2 if (_walk_bar_bytes(2 * slots) + 2 * slots * _WALK_CHUNK * rb
+                 <= _WALK_CTA_BYTES) else 1
+    while slots > 2 and (_walk_bar_bytes(bufs * slots)
+                         + bufs * slots * _WALK_CHUNK * rb) > _WALK_CTA_BYTES:
+        slots -= 1
+    return dict(P=p, W=w, CT=ct, tiles=tiles, runs=-(-hw // p), slots=slots,
+                bufs=bufs, smem=_walk_bar_bytes(bufs * slots)
+                + bufs * slots * _WALK_CHUNK * rb)
+
+
+def bwd_plan(dtype, shape, size: int) -> dict:
+    """The one-launch "any" backward's launch (``bwd_plan``): runs of P =
+    32·VEC positions and the widest tile CT (a multiple of 8, all of C
+    where it fits) whose staged x span, f32 t rows (the tile's adjoint
+    windows) and f32 u rows (its own channels) fit a block's shared
+    memory (232,448 bytes); ``CT`` 0 where none fits (the two-launch
+    form)."""
+    c, hw = shape[1], shape[2] * shape[3]
+    m, k = _WALK_M, _WALK_CHUNK
+    lo = (size - 1) // 2
+    hi = size - 1 - lo
+    p = 32 * (4 // dtype.itemsize)
+    rb = _row_bytes(p, dtype.itemsize)
+    groups = -(-c // m)
+    for ct in range(groups * m, 0, -m):
+        trows = m * min(-(-hi // m) + (ct - 1 + lo) // m + 1, groups)
+        slots = -(-min(c, trows + size - 1) // k)
+        smem = (_walk_bar_bytes(slots) + slots * k * rb
+                + (trows + ct) * p * 4)
+        if smem <= _SMEM_MAX:
+            return dict(P=p, CT=ct, tiles=-(-c // ct), runs=-(-hw // p),
+                        slots=slots, warps=min(trows // m, _WALK_GROUPS),
+                        smem=smem)
+    return dict(P=p, CT=0, tiles=0, runs=-(-hw // p), slots=0, warps=0,
+                smem=0)
+
+
+def any_scratch(dtype, shape, size: int) -> bool:
+    """Whether the backward takes the "any" route's two-launch form, the
+    one that needs an f32 scratch of twice x's elements (t, then u):
+    where no tile of the one-launch form fits (:func:`bwd_plan`)."""
+    return (bwd_route(dtype, shape, size) == "any"
+            and bwd_plan(dtype, shape, size)["CT"] == 0)
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
@@ -196,22 +286,30 @@ def lrn_bwd_ref(g, x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
 # kernel wrappers
 # --------------------------------------------------------------------------
 
+_TAIL = ([ctypes.c_int] * 4 + [ctypes.c_float] * 3
+         + [ctypes.c_int, ctypes.c_void_p])
+#: the C entries' parameters: dtype, the tensors (the backward's last the
+#: two-launch form's f32 scratch), N, C, H*W, size, alpha, beta, k, relu,
+#: the stream; the backward reports its route last
+_ARGTYPES = {
+    "fwd": [ctypes.c_int] + [ctypes.c_void_p] * 2 + _TAIL,
+    "bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 4 + _TAIL
+            + [ctypes.POINTER(ctypes.c_int)]),
+}
+
+
 @functools.cache
 def _kernel_fns():
     """The typed C entries ``{"fwd", "bwd"}`` of csrc/lrn.cu, built at
     first use."""
     from bigdl_tpu_torch.ops._build import load_library
     lib = load_library("lrn.cu")
-    tail = ([ctypes.c_int] * 4 + [ctypes.c_float] * 3
-            + [ctypes.c_int, ctypes.c_void_p])
     fns = {}
-    for name, n_ptr in (("fwd", 2), ("bwd", 4)):
+    for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, f"bigdl_lrn_{name}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + tail
+        fn.argtypes = argtypes
         fns[name] = fn
-    # the backward reports its route last
-    fns["bwd"].argtypes += [ctypes.POINTER(ctypes.c_int)]
     return fns
 
 
@@ -275,11 +373,13 @@ def lrn_bwd(g, x, size=5, alpha=1.0, beta=0.75, k=1.0, relu=False):
     _check_cuda(x, size, g)
     dx = torch.empty_like(x)
     want = bwd_route(x.dtype, x.shape, size)
-    # the "any" route parks t = g·r·s^-β/s in an f32 scratch
-    tbuf = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
-            if want == "any" else None)
+    # the "any" route's two-launch form parks t = g·r·s^-β/s and u =
+    # g·s^-β in an f32 scratch
+    scratch = (torch.empty(2 * x.numel(), dtype=torch.float32,
+                           device=x.device)
+               if any_scratch(x.dtype, x.shape, size) else None)
     if x.numel():
-        took = _launch("bwd", x, (g, x, dx, tbuf), size, alpha, beta, k,
+        took = _launch("bwd", x, (g, x, dx, scratch), size, alpha, beta, k,
                        relu)
         if took != want:
             raise RuntimeError(f"lrn_bwd: the C entry took the {took} route "

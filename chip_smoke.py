@@ -37,10 +37,11 @@ the full width of the flagship LM with weights made from a seed:
   ``bench.py:109-202`` geometry (batch 256, 224x224, 1000 classes, bf16
   policy, SGD with momentum) — the LRN forward and backward kernels
   (windows of 5: every backward on the "staged" route's register rings;
-  the runtime-size forward, the backward past window 9 and the "any"
-  backward must launch 0 times there, counted apart). The LRN kernels
-  are also held at AlexNet's odd planes, windows 9 and 10, misaligned
-  tensors and past the staged route's cap (``_LRN_CASES``).
+  the tiled forward past window 9, the backward past window 9 and the
+  "any" backward must launch 0 times there, counted apart). The LRN
+  kernels are also held at AlexNet's odd planes, windows 9 and 10,
+  misaligned tensors and past the staged route's cap, at windows wider
+  than C and in the "any" backward's two-launch form (``_LRN_CASES``).
   The opt-in 3x3 / stride-1 max-pool backward kernel is held against its
   plain version at the in-block pools' shapes, on -inf planes, on a
   plane past its whole-plane cap and on an odd plane, timed at the nine
@@ -315,7 +316,8 @@ _LRN_CASES = (("norm1", (256, 64, 56, 56), _LRN_ARGS),
               ("norm2", (256, 192, 56, 56), _LRN_ARGS),
               ("ragged", (3, 13, 5, 7),
                dict(size=4, alpha=0.5, beta=0.75, k=1.0, relu=False)),
-              # windows past 9, on the runtime-size kernels: 11 at norm2's
+              # windows past 9 (the tiled forward; the staged backward's
+              # runtime-window form): 11 at norm2's
               # channels and 16 (even: the JAX window's asymmetry) without
               # ReLU, at batch 32, and 16 at a ragged shape narrower than
               # the window
@@ -340,11 +342,24 @@ _LRN_CASES = (("norm1", (256, 64, 56, 56), _LRN_ARGS),
               # ends copied element by element
               ("shifted", (4, 24, 28, 28), _LRN_ARGS),
               # past the staged route's cap (min(size, C) > 256 slots):
-              # the "any" route and its f32 scratch
+              # the "any" route, one launch of the tiled walk's backward
               ("past_cap", (8, 320, 28, 28),
-               dict(size=288, alpha=1e-2, beta=0.6, k=1.0, relu=True)))
+               dict(size=288, alpha=1e-2, beta=0.6, k=1.0, relu=True)),
+              # past it, untimed: an even window on odd planes, C past one
+              # tile (its halos), a window wider than C, and a span past
+              # the forward's ring cap whose backward no tile fits (the
+              # two-launch form and its f32 scratch)
+              ("past_cap_ragged", (3, 300, 5, 7),
+               dict(size=290, alpha=1.0, beta=0.75, k=1.0, relu=True)),
+              ("wide_c", (2, 1100, 7, 9),
+               dict(size=300, alpha=1.0, beta=0.75, k=1.0, relu=False)),
+              ("window_past_c", (4, 264, 14, 14),
+               dict(size=1001, alpha=1.0, beta=0.5, k=2.0, relu=True)),
+              ("two_launch", (1, 2048, 3, 5),
+               dict(size=1500, alpha=1.0, beta=1.0, k=1.0, relu=True)))
 #: the LRN cases held but not timed
-_LRN_UNTIMED = ("ragged", "ragged16", "size9", "size10", "shifted")
+_LRN_UNTIMED = ("ragged", "ragged16", "size9", "size10", "shifted",
+                "past_cap_ragged", "wide_c", "window_past_c", "two_launch")
 #: LRN kernel vs plain, element by element: |kernel - plain| <=
 #: rtol·|plain| + atol·rms(plain). Both compute in f32 from the same
 #: inputs and differ in rsqrt/sqrt routines and the order of a few sums
@@ -450,8 +465,8 @@ def _print_ptxas(report: str) -> None:
         fw = re.search(r"entry function '\S*?fce_fwd_tf32_kernel", line)
         lr = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_kernelI(\w+?)"
                        r"Li(\d+)ELi(\d+)E", line)
-        la = re.search(r"entry function '\S*?(lrn_fwd|lrn_bwd)_any_kernelI"
-                       r"(\w+?)Li(\d+)E", line)
+        la = re.search(r"entry function '\S*?lrn_(bwd_)?tiled_kernelI(\w+?)"
+                       r"(?:Li([012])E)?Lb([01])E", line)
         ls = re.search(r"entry function '\S*?lrn_bwd_staged_kernelI(\w+?)"
                        r"Li(\d+)ELb([01])E", line)
         mp = re.search(r"entry function '\S*?(maxpool3x3s1_bwd)_kernelI(\w+?)"
@@ -500,9 +515,15 @@ def _print_ptxas(report: str) -> None:
                     + (" aligned" if ls.group(3) == "1" else " unaligned")
                     if ls.group(2) in ("5", "0") else None)
         elif la:
-            name = (f"{la.group(1)}_any "
-                    f"{'bf16' if 'bfloat16' in la.group(2) else 'f32'} "
-                    f"(window past 9, a runtime value) vec={la.group(3)}")
+            # the tiled walk past window 9: the forward and the two-launch
+            # "any" backward's passes (kind 0 / 1 / 2), the one-launch
+            # "any" backward
+            name = ("lrn_" + (
+                "bwd_tiled (one launch)" if la.group(1) else
+                ("fwd_tiled", "bwd_tiled pass t", "bwd_tiled pass dx")[
+                    int(la.group(3))])
+                + f" {'bf16' if 'bfloat16' in la.group(2) else 'f32'}"
+                + (" aligned" if la.group(4) == "1" else " unaligned"))
         elif lr:
             # the path's instantiations: window 5, 4-wide vectors
             name = (f"{lr.group(1)} "
@@ -1268,7 +1289,11 @@ _POOL_GEOMETRIES = (
 _POOL_TIMED = ("s300", "d512", "d576", "d1024", "d1792", "d1856", "d2048",
                "d512-decode", "d576-decode", "d1024-decode", "d1856-decode",
                "d576-f32", "d1024-f32", "d1216-f32", "phi3-d96",
-               "phi3-d96-decode", "phi2-d80", "d20", "d288")
+               "phi3-d96-decode", "phi2-d80", "d20", "d288",
+               # the bf16 row-tile kernels past D 256 (G > 64, a 4097-entry
+               # table, rows of no 16-byte multiple), prefill and decode
+               "d512-g71", "d512-g71-decode", "d2048-g65", "d2048-g65-decode",
+               "d512-4097-pages", "d512-4097-pages-decode", "d300", "d1860")
 
 
 def _pool_geometries(pa, gen):
@@ -3205,8 +3230,9 @@ def phase_lrn(lrn, gen):
     """The LRN kernels vs their plain versions at norm1 and norm2 of the
     Inception-v1 step (batch 256) and AlexNet's norm1 and norm2 in bf16
     and f32, at ragged and misaligned cases, and past window 9 (the
-    runtime-size forward; the staged backward's slots, and past its cap
-    the "any" backward); each row but ``_LRN_UNTIMED`` timed against its
+    tiled forward; the staged backward's slots, and past its cap the
+    "any" backward, the tiled walk's); each row but ``_LRN_UNTIMED`` timed
+    against its
     bound, its plain version and the library call. Each backward must
     take the route ``ops.lrn.bwd_route`` names."""
     rows = {}
@@ -3772,15 +3798,17 @@ def main(argv=None) -> int:
                if "bound_f32_cuda_cores_ms" in row else {})})
     # the path's LRN rows: norm2, the larger of the two, in bf16 (the
     # backward on the staged route's register rings); past window 9 at
-    # size 11, bf16, the runtime-size forward and the staged backward's
-    # slots, their launches those of [inception] past window 9 (counted
-    # apart: none, as its windows are 5); and the "any" backward past the
-    # staged route's cap (no path reaches it)
+    # size 11, bf16, the tiled forward and the staged backward's slots,
+    # their launches those of [inception] past window 9 (counted apart:
+    # none, as its windows are 5); the tiled forward at window 288 too,
+    # and the "any" backward past the staged route's cap (no path reaches
+    # either)
     lrn_src = dict(route="cuda", source="bigdl_tpu_torch/csrc/lrn.cu")
     for name, case, count, line in (
             ("lrn_fwd", "norm2", "lrn_fwd", 121),
             ("lrn_bwd_staged", "norm2", "lrn_bwd_staged", 129),
             ("lrn_fwd_any", "size11", "lrn_fwd_any", 121),
+            ("lrn_fwd_any_past_cap", "past_cap", "lrn_fwd_any", 121),
             ("lrn_bwd_staged_slots", "size11", "lrn_bwd_wide", 129),
             ("lrn_bwd_any", "past_cap", "lrn_bwd_any", 129)):
         what = name[:7]

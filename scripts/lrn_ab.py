@@ -34,6 +34,16 @@ whether bytes or issue set the pace. A copy that changes a setting
 shrinks its run to and the channels a stage) changes no arithmetic and
 is held bit for bit against the kept kernel.
 
+(c') ``walk`` (only when named): the same for the tiled walk past
+window 9 (``_WALK_KNOCKOUTS``): its forward at windows 11, 16 and 288
+and its "any" backward at 288, each copy against the kept kernel in
+turns; ``any_past_9`` times the tiled backward at windows 11 and 16
+against the staged slots form.
+
+(c'') ``build`` (with ``--parent``): nvcc's wall time for both versions'
+``lrn.cu`` in turns. ``sass``: the tiled walk's kernels' instruction
+counts, by opcode, from ``cuobjdump --dump-sass``.
+
 (d) ``step``: ``perf -m inception_v1 -b 256`` (``chip_smoke._INCEPTION``)
 of the ``--parent`` checkout and of this one in turns (parent, this,
 this, parent), each in a process of its own started from that
@@ -45,7 +55,9 @@ fails, the forwards differ or a run fails.
 
     python3 scripts/lrn_ab.py --only check
     python3 scripts/lrn_ab.py --parent DIR [--only kernels|step]
-    python3 scripts/lrn_ab.py --only knockout
+    python3 scripts/lrn_ab.py --only knockout|walk
+    python3 scripts/lrn_ab.py --parent DIR --only build
+    python3 scripts/lrn_ab.py --only sass
 """
 from __future__ import annotations
 
@@ -138,6 +150,98 @@ _KNOCKOUT_CASES = (("norm2", torch.bfloat16), ("norm1", torch.bfloat16),
                    ("size16", torch.bfloat16),
                    ("alexnet_norm2", torch.bfloat16))
 
+#: the tiled walk past window 9: (_LRN_CASES row, dtype, kernel) its
+#: knockouts are timed at: the forward at windows 11, 16 and 288, the
+#: "any" backward at 288
+#: the forward's rows, for the copies that change only the forward
+_WALK_FWD_ROWS = (("size11", torch.bfloat16, "fwd"),
+                  ("size16", torch.bfloat16, "fwd"),
+                  ("past_cap", torch.bfloat16, "fwd"),
+                  ("size11", torch.float32, "fwd"),
+                  ("size16", torch.float32, "fwd"))
+_WALK_ROWS = (("size11", torch.bfloat16, "fwd"),
+              ("size16", torch.bfloat16, "fwd"),
+              ("past_cap", torch.bfloat16, "fwd"),
+              ("past_cap", torch.bfloat16, "bwd"),
+              ("past_cap", torch.float32, "fwd"),
+              ("past_cap", torch.float32, "bwd"))
+
+
+def _setting(name, value):
+    line = next(ln for ln in (_build_src().splitlines())
+                if ln.startswith(f"constexpr int {name} = "))
+    return line, line.replace(line.split("=")[1].split(";")[0], f" {value}",
+                              1)
+
+
+def _build_src():
+    from bigdl_tpu_torch.ops import _build
+    return (_build._CSRC / "lrn.cu").read_text()
+
+
+#: the walk's copies: (name, [(text, replacement)], computes the same
+#: outputs, rows). walk_no_loads stages nothing (the walk sums whatever
+#: the chunks hold: bytes against issue); M 4 (with one warp a run: 16
+#: groups of two warps would pass the launch bound) and 16 (at windows
+#: of 16 and more only: the unrolled ramps need M no wider than the
+#: window); CT halved (the
+#: backward's widest tile too) and doubled (one warp a run, as M 4); P
+#: halved (one warp a run where it was two); walk_one_buffer stages one
+#: tile a CTA (no persistent CTAs), walk_bounds_1 drops the launch
+#: bound's two CTAs an SM (ptxas then gave the bf16 forward 87
+#: registers), walk_small_ctas halves CT and P
+#: together; walk_no_store and
+#: walk_no_pow leave out the forward's stores and its powers (pace
+#: knockouts, outputs wrong by design). any_past_9 sends every
+#: backward past window 9 to "any" (the one-launch tiled backward), timed
+#: against the staged slots form at windows 11 and 16: a lead only, its
+#: outputs differ in the last bits
+_WALK_KNOCKOUTS = (
+    ("walk_no_loads",
+     [("    if (lane < kWalkChunk && ch <= x1) {",
+       "    if (false && lane < kWalkChunk && ch <= x1) {")], False,
+     _WALK_ROWS),
+    ("walk_one_buffer", [("<= kWalkCtaBytes ? 2 : 1;",
+                          "<= kWalkCtaBytes ? 1 : 1;")], True,
+     _WALK_FWD_ROWS),
+    ("walk_bounds_1", [("__launch_bounds__(kWalkThreads, 2)\n"
+                        "    lrn_tiled_kernel(",
+                        "__launch_bounds__(kWalkThreads)\n"
+                        "    lrn_tiled_kernel(")], True, _WALK_FWD_ROWS),
+    ("walk_small_ctas", [_setting("kWalkTile", 32),
+                         _setting("kWalkWarps", 1)], True, _WALK_FWD_ROWS),
+    ("walk_m_4", [_setting("kWalkM", 4), _setting("kWalkWarps", 1)], True,
+     _WALK_ROWS),
+    ("walk_m_16", [_setting("kWalkM", 16),
+                   ("static_assert(kWalkM <= kMaxSize + 1,", "static_assert("
+                    "true,")], True,
+     tuple(r for r in _WALK_ROWS if r[0] != "size11")),
+    ("walk_ct_half", [_setting("kWalkTile", 32),
+                      ("for (int ct = groups * M; ct >= M; ct -= M) {",
+                       "for (int ct = (groups + 1) / 2 * M; ct >= M; "
+                       "ct -= M) {")], True, _WALK_ROWS),
+    ("walk_ct_double", [_setting("kWalkTile", 128),
+                        _setting("kWalkWarps", 1)], True, _WALK_ROWS),
+    ("walk_p_half", [_setting("kWalkWarps", 1)], True, _WALK_ROWS),
+    ("walk_no_store",
+     [("        write_row<T, VEC, ALIGNED>(out + at, md + c * dmo, col, "
+       "pl.len, o);\n      } else if constexpr (KIND == kKindT) {",
+       "        if (o[0] == 1234.5f)\n"
+       "        write_row<T, VEC, ALIGNED>(out + at, md + c * dmo, col, "
+       "pl.len, o);\n      } else if constexpr (KIND == kKindT) {")], False,
+     _WALK_ROWS[:3]),
+    ("walk_no_pow",
+     [("          o[u] = r[u] * pow_neg_beta_at<MODE>(fmaf(a.coef, acc[m][u], "
+       "a.k),\n                                              a.mode, a.beta);",
+       "          o[u] = r[u] * fmaf(a.coef, acc[m][u], a.k);")], False,
+     _WALK_ROWS[:3]),
+    ("any_past_9",
+     [("  return (size < C ? size : C) <= kAnyMaxSlots ? kRouteStaged : "
+       "kRouteAny;", "  return kRouteAny;")], False,
+     (("size11", torch.bfloat16, "bwd"), ("size16", torch.bfloat16, "bwd"),
+      ("size11", torch.float32, "bwd"), ("size16", torch.float32, "bwd"))),
+)
+
 
 def _entries(lib):
     """The forward and backward C entries of a built ``lrn.cu``. The
@@ -219,10 +323,11 @@ def kernels(parent: Path, seed: int) -> bool:
     ok = True
     for case, shape, a, dtype in _cases(True):
         x, g = chip_smoke._lrn_inputs(case, shape, dtype, gen)
-        # the parent's runtime-window backward and this one's "any"
-        # route take the scratch; allocated once, outside the turns
-        tbuf = (torch.empty(shape, dtype=torch.float32, device="cuda")
-                if a["size"] > 9 else None)
+        # the parent's "any" backward takes an f32 scratch as large as x,
+        # this one's two-launch form one twice as large; allocated once,
+        # outside the turns (a version that needs none ignores it)
+        tbuf = (torch.empty(2 * x.numel(), dtype=torch.float32,
+                            device="cuda") if a["size"] > 9 else None)
         y = {k: torch.empty_like(x) for k in fns}
         dx = {k: torch.empty_like(x) for k in fns}
         for k, (fwd, bwd) in fns.items():
@@ -251,13 +356,17 @@ def kernels(parent: Path, seed: int) -> bool:
     return ok
 
 
-def knockouts(seed: int) -> bool:
+def knockouts(seed: int, walk: bool) -> bool:
     from concurrent.futures import ThreadPoolExecutor
 
     from bigdl_tpu_torch.ops import _build
-    text = (_build._CSRC / "lrn.cu").read_text()
+    text = _build_src()
+    table = (_WALK_KNOCKOUTS if walk else tuple(
+        (name, edits, same, tuple((c, d, "bwd") for c, d in
+                                  _KNOCKOUT_CASES))
+        for name, edits, same in _KNOCKOUTS))
     copies = {}
-    for name, edits, _ in _KNOCKOUTS:
+    for name, edits, _, _ in table:
         t = text
         for old, new in edits:
             if old not in t:
@@ -265,48 +374,128 @@ def knockouts(seed: int) -> bool:
                                  f"lrn.cu")
             t = t.replace(old, new)
         copies[name] = t
+    marks = (("lrn_tiled_kernel", "lrn_bwd_tiled_kernel") if walk
+             else ("lrn_bwd_staged",))
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(
             len(copies) + 1) as pool:
         kept = pool.submit(_build.load_library, "lrn.cu")
         built = {k: pool.submit(_build.build_copy, t, Path(tmp) / k)
                  for k, t in copies.items()}
-        fns = {"kept": _entries(kept.result())[1],
-               **{k: _entries(f.result())[1] for k, f in built.items()}}
+        fns = {"kept": _entries(kept.result()),
+               **{k: _entries(f.result()) for k, f in built.items()}}
         for k in copies:
-            print(f"[lrn_ab] knockout {k} build: " + " | ".join(
-                ln.strip() for ln in (Path(tmp) / k).with_suffix(
-                    ".ptxas.txt").read_text().splitlines()
-                if "lrn_bwd_staged_kernelI" in ln and "Li5ELb1E" in ln
-                or ("registers" in ln and "lrn_bwd_staged" in ln)),
-                flush=True)
+            # each marked kernel's entry line and the register line after
+            regs, name = [], None
+            for ln in (Path(tmp) / k).with_suffix(
+                    ".ptxas.txt").read_text().splitlines():
+                if "Compiling entry" in ln:
+                    name = next((ln.split("'")[1].split(m, 1)[1][:40]
+                                 for m in marks if m in ln), None)
+                elif name and "registers" in ln:
+                    regs.append(name + " " + ln.split(":", 1)[-1].strip())
+                    name = None
+            print(f"[lrn_ab] knockout {k} build: " + " | ".join(regs),
+                  flush=True)
     cases = {c: (shape, a) for c, shape, a in chip_smoke._LRN_CASES}
+    rows = sorted({r for *_, where in table for r in where},
+                  key=lambda r: [w for *_, where in table
+                                 for w in where].index(r))
     gen = torch.Generator().manual_seed(seed)
     ok = True
-    for case, dtype in _KNOCKOUT_CASES:
+    for case, dtype, what in rows:
         shape, a = cases[case]
         x, g = chip_smoke._lrn_inputs(case, shape, dtype, gen)
+        scratch = torch.empty(2 * x.numel(), dtype=torch.float32,
+                              device="cuda")
         out = {k: torch.empty_like(x) for k in fns}
+
+        def run(who):
+            fwd, bwd = fns[who]
+            if what == "fwd":
+                _fwd(fwd, x, out[who], a)
+            else:
+                _bwd(bwd, g, x, out[who], scratch, a)
         row = {}
-        for name, _, same in _KNOCKOUTS:
+        for name, _, same, where in table:
+            if (case, dtype, what) not in where:
+                continue
             times = {"kept": [], name: []}
             for who in ("kept", name, name, "kept"):
-                times[who].append(chip_smoke._time_ms(
-                    lambda: _bwd(fns[who], g, x, out[who], None, a)))
+                times[who].append(chip_smoke._time_ms(lambda: run(who)))
             entry = dict(ms=float(np.mean(times[name])),
                          kept_ms=float(np.mean(times["kept"])))
             entry["ratio"] = entry["ms"] / entry["kept_ms"]
+            run(name)
+            run("kept")
+            torch.cuda.synchronize()
             if same:
-                _bwd(fns[name], g, x, out[name], None, a)
-                _bwd(fns["kept"], g, x, out["kept"], None, a)
-                torch.cuda.synchronize()
                 entry["bit_equal"] = torch.equal(out[name], out["kept"])
                 ok &= entry["bit_equal"]
+            else:
+                entry["max_abs_diff"] = float(
+                    (out[name].float() - out["kept"].float()).abs().max())
             row[name] = entry
-        print(f"[lrn_ab] knockout {case} {str(dtype)[6:]} "
+        print(f"[lrn_ab] knockout {what} {case} {str(dtype)[6:]} "
               f"shape={list(shape)} " + json.dumps(row), flush=True)
-        del x, g, out
+        del x, g, out, scratch
         torch.cuda.empty_cache()
     return ok
+
+
+def builds(parent: Path) -> bool:
+    """nvcc's wall time for the parent's lrn.cu and this one's, each
+    built afresh into a temporary directory, in turns (parent, this, this,
+    parent), one at a time."""
+    import time
+
+    from bigdl_tpu_torch.ops import _build
+    texts = {"this": _build_src(), "parent": (
+        parent / "bigdl_tpu_torch" / "csrc" / "lrn.cu").read_text()}
+    secs = {"this": [], "parent": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, who in enumerate(_ORDER):
+            t0 = time.perf_counter()
+            _build.build_copy(texts[who], Path(tmp) / f"{who}{i}")
+            secs[who].append(time.perf_counter() - t0)
+    print("[lrn_ab] build lrn.cu s " + json.dumps(
+        {k: {"turns": v, "mean": float(np.mean(v))} for k, v in
+         secs.items()}), flush=True)
+    return True
+
+
+def sass() -> bool:
+    """The SASS of this checkout's tiled walk kernels (``cuobjdump
+    --dump-sass`` beside nvcc): each kernel's instruction count and its
+    counts of the opcodes that pace it."""
+    import collections
+    import re
+
+    from bigdl_tpu_torch.ops import _build
+    lib = _build.load_library("lrn.cu")._name
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "--dump-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    name, ops = None, collections.Counter()
+
+    def flush():
+        if name and "tiled_kernel" in name:
+            keys = ("FFMA", "FADD", "FMUL", "LDS", "LDG", "STG", "MUFU",
+                    "FSEL", "FSETP", "ISETP", "BRA", "SYNCS", "IMAD",
+                    "LOP3", "SHF")
+            print(f"[lrn_ab] sass {name} " + json.dumps(
+                {"instructions": sum(ops.values()),
+                 **{k: ops[k] for k in keys}}), flush=True)
+    for line in text.splitlines():
+        if "Function :" in line:
+            flush()
+            name, ops = line.split("Function :")[1].strip(), \
+                collections.Counter()
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9]*)", line)
+        if m:
+            ops[m.group(1)] += 1
+    flush()
+    return True
 
 
 #: the child: the harness's main from the checkout it starts in
@@ -355,7 +544,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="the root of the other checkout")
     ap.add_argument("--only", choices=("check", "kernels", "step",
-                                       "knockout"))
+                                       "knockout", "walk", "build",
+                                       "sass"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--warmUp", type=int, default=2)
     ap.add_argument("-i", "--iteration", type=int, default=8)
@@ -365,9 +555,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     ok = True
-    if args.only in ("check", "knockout"):
-        ok &= check(args.seed) if args.only == "check" else knockouts(
-            args.seed)
+    if args.only == "check":
+        ok &= check(args.seed)
+    elif args.only == "sass":
+        ok &= sass()
+    elif args.only in ("knockout", "walk"):
+        ok &= knockouts(args.seed, args.only == "walk")
+    elif args.only == "build" and not args.parent:
+        ap.error("--only build times this and the --parent build")
+    elif args.only == "build":
+        ok &= builds(Path(args.parent).resolve())
     else:
         if not args.parent:
             ap.error("--parent is needed for the kernel and step turns")

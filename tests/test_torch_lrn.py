@@ -183,7 +183,7 @@ def test_window_is_the_jax_band(size, adjoint):
     """The window (and its mirror, the adjoint) the plain versions and
     the kernels sum, [c - lo, c + hi] with lo = (size - 1) // 2 and hi =
     size - 1 - lo, is the JAX kernel's ``_band_matrix``, asymmetric for
-    even sizes (which the card's runtime-size kernels past 9 take too):
+    even sizes (which the card's kernels past 9 take too):
     exact on integer-valued f32 inputs, C 13 narrower than size 16 and
     17."""
     rs = np.random.default_rng(size)
@@ -361,6 +361,155 @@ def test_staged_walk_in_bf16_on_odd_planes(size, shape):
           .float().numpy(), 2 ** -7, 1e-4, "staged walk vs lrn_bwd_ref")
 
 
+# --------------------------------------------------------------------------
+# the tiled walk past window 9 (csrc/lrn.cu, lrn_tiled_kernel and
+# lrn_bwd_tiled_kernel) on the CPU
+# --------------------------------------------------------------------------
+
+def _group_sums(rows, cbs, a, b, m, span):
+    """The m accumulators of each thread group of a tile (channels cb ..
+    cb + m - 1 for cb in ``cbs``), the groups walking side by side: at
+    step d each reads row cb - a + d of its span once and adds it into
+    every accumulator whose window [cb + i - a, cb + i + b] ∩ [0, C)
+    holds it, so each sum starts at its first in-range term and runs in
+    channel order. ``rows``: what each channel's row adds (r², or t),
+    channels first; a read outside the staged ``span`` fails."""
+    c = rows.shape[0]
+    cbs = torch.as_tensor(cbs)
+    i = torch.arange(m)
+    acc = torch.zeros((len(cbs), m) + rows.shape[1:])
+    ones = [1] * (rows.dim() - 1)
+    for rel in range(-a, m + b):
+        j = cbs + rel
+        valid = (j >= 0) & (j < c)
+        assert bool(((j[valid] >= span[0]) & (j[valid] <= span[1])).all())
+        take = valid[:, None] & ((i >= rel - b) & (i <= rel + a))[None]
+        v = rows[j.clamp(0, c - 1)][:, None]
+        acc = torch.where(take.view(*take.shape, *ones), acc + v, acc)
+    return acc.flatten(0, 1)
+
+
+def _tiled_walk(g, x, size, alpha, beta, k, relu, ct=None, m=8, run=None,
+                form=None):
+    """The tiled walk in its order, in f32: y and dx. Runs of P positions
+    (``walk_plan`` / ``bwd_plan``, or ``run``), tiles of CT output channels
+    (or ``ct``), groups of ``m`` channels each summing its windows over its
+    tile's staged span (:func:`_group_sums`). The forward: y = r·s^-β.
+    The backward, one launch (``form`` "one", the default where
+    ``bwd_plan`` fits a tile): phase A sums s of the t-groups q = qmin ..
+    qmax around the tile (held bit for bit to the forward's: the same
+    window in the same order), t = g·r·s^-β/s of them and u = g·s^-β of
+    the tile's own channels; phase B dx = u - (2αβ/n)·r·Σ_adj t over the
+    tile's t rows only (the others NaN); two launches ("two"): t and u of
+    every channel, then dx by tiles of the forward's plan. The powers are
+    taken once over whole tensors (CPU pow rounds its vector body and its
+    tail differently). Both outputs round once to x's dtype."""
+    n, c, h, w = x.shape
+    hw = h * w
+    r = x.float().reshape(n, c, hw).transpose(0, 1)     # channels first
+    if relu:
+        r = torch.where(r < 0, 0.0, r)
+    gf = g.float().reshape(n, c, hw).transpose(0, 1)
+    lo = (size - 1) // 2
+    hi = size - 1 - lo
+    coef, coef2 = alpha / size, 2.0 * alpha * beta / size
+    fplan = tlrn.walk_plan(x.dtype, x.shape, size)
+    bplan = tlrn.bwd_plan(x.dtype, x.shape, size)
+    form = form or ("one" if bplan["CT"] else "two")
+    s = torch.full_like(r, float("nan"))
+    dx = s.clone()
+
+    def tiles(p, ct):
+        for p0 in range(0, hw, p):
+            cols = slice(p0, min(p0 + p, hw))
+            for c0 in range(0, c, ct):
+                yield cols, c0, list(range(c0, min(c0 + ct, c), m))
+
+    def groups(cbs, acc):
+        for cb, a in zip(cbs, acc.split(m)):
+            e = min(cb + m, c)
+            yield cb, e, a[:e - cb]
+
+    def dx_of(cols, cbs, acc, u):
+        for cb, e, a in groups(cbs, acc):
+            rc = r[cb:e, :, cols]
+            d = u[cb:e, :, cols] - coef2 * rc * a
+            dx[cb:e, :, cols] = torch.where(rc > 0, d, 0.0) if relu else d
+
+    # the forward's window sums
+    fct = ct or fplan["CT"]
+    for cols, c0, cbs in tiles(run or fplan["P"], fct):
+        rr = r[:, :, cols]
+        acc = _group_sums(rr * rr, cbs, lo, hi, m,
+                          (max(c0 - lo, 0), c0 + fct - 1 + hi))
+        for cb, e, a in groups(cbs, acc):
+            s[cb:e, :, cols] = k + coef * a
+    y = r * pow_neg_beta(s, beta)
+    b, bs = _pow_pair(s, beta)
+    t_all, u_all = gf * r * bs, gf * b
+    if form == "two":
+        for cols, c0, cbs in tiles(run or fplan["P"], fct):
+            acc = _group_sums(t_all[:, :, cols], cbs, hi, lo, m,
+                              (max(c0 - hi, 0), c0 + fct - 1 + lo))
+            dx_of(cols, cbs, acc, u_all)
+    else:
+        bct = ct or bplan["CT"]
+        for cols, c0, cbs in tiles(run or bplan["P"], bct):
+            rr = r[:, :, cols]
+            qmin = -min(-(-hi // m), c0 // m)
+            qmax = (min(c0 + bct - 1 + lo, c - 1) - c0) // m
+            jbs = [c0 + q * m for q in range(qmin, qmax + 1)]
+            acc = _group_sums(rr * rr, jbs, lo, hi, m,    # phase A
+                              (max(jbs[0] - lo, 0), jbs[-1] + m - 1 + hi))
+            t = torch.full_like(rr, float("nan"))
+            for jb, e, a in groups(jbs, acc):
+                assert torch.equal(k + coef * a, s[jb:e, :, cols])
+                t[jb:e] = t_all[jb:e, :, cols]
+            acc = _group_sums(t, cbs, hi, lo, m,          # phase B
+                              (jbs[0], jbs[-1] + m - 1))
+            dx_of(cols, cbs, acc, u_all)
+    back = (lambda v: v.transpose(0, 1).reshape(x.shape).to(x.dtype))
+    return back(y), back(dx)
+
+
+#: (window, C, β, relu, run): odd and even windows past 9, C below the
+#: window, at it, above it and past one tile, H·W 15 (odd), runs of the
+#: plan or of 8 positions (8 and 7)
+_TILED_CASES = ((10, 9, 0.75, True, None), (11, 11, 0.5, False, 8),
+                (16, 150, 1.0, False, None), (17, 70, 0.6, True, 8),
+                (257, 260, 0.75, True, None), (290, 300, 0.5, True, 8))
+
+
+@pytest.mark.parametrize("size,c,beta,relu,run", _TILED_CASES)
+def test_tiled_walk_matches_pallas_kernel(size, c, beta, relu, run):
+    """The tiled walk's arithmetic (``_tiled_walk``), f32: bit for bit the
+    same as with one tile of all C and one channel a group (the tiling
+    changes no sum's order), and the backward's one- and two-launch forms
+    bit for bit alike; against the JAX Pallas kernel in interpret mode and
+    against ``lrn_ref`` / ``lrn_bwd_ref`` at the file's f32 tolerances."""
+    rs = np.random.default_rng(200 + size)
+    shape = (2, c, 3, 5)
+    x = (1.5 * rs.standard_normal(shape)).astype(np.float32)
+    ct = rs.standard_normal(shape).astype(np.float32)
+    args = dict(alpha=0.5, beta=beta, k=1.0, relu=relu)
+    tx, tct = torch.as_tensor(x), torch.as_tensor(ct)
+    y, dx = _tiled_walk(tct, tx, size, run=run, **args)
+    y1, dx1 = _tiled_walk(tct, tx, size, ct=-(-c // 8) * 8, m=1, run=run,
+                          form="one", **args)
+    _, dx2 = _tiled_walk(tct, tx, size, run=run, form="two", **args)
+    assert torch.equal(y, y1) and torch.equal(dx, dx1)
+    assert torch.equal(dx, dx2)
+    jy, jdx = _jax_fwd_grad(lambda v: plrn.lrn(
+        v, size, args["alpha"], beta, args["k"], True, relu),
+        jnp.asarray(x), jnp.asarray(ct))
+    _hold(y, jy, 1e-5, 1e-5, "tiled walk vs Pallas y")
+    _hold(dx, jdx, 1e-5, 1e-5, "tiled walk vs Pallas dx")
+    _hold(y, tlrn.lrn_ref(tx, size, **args).numpy(), 1e-5, 1e-5,
+          "tiled walk vs lrn_ref")
+    _hold(dx, tlrn.lrn_bwd_ref(tct, tx, size, **args).numpy(), 1e-5, 1e-5,
+          "tiled walk vs lrn_bwd_ref")
+
+
 #: (dtype, NCHW shape, window, the backward's route)
 _ROUTE_CASES = (
     (torch.bfloat16, (256, 192, 56, 56), 5, "staged"),   # norm2
@@ -441,6 +590,47 @@ def test_route_constants_match_the_c_entry():
     entry = body('extern "C" int bigdl_lrn_bwd(')
     assert "const int r = route_of(C, size);" in entry
     assert "if (route != nullptr) *route = r;" in entry
+    # the tiled walk past window 9: its settings, its two launch plans
+    # (walk_plan, bwd_plan) and the scratch only where no tile fits
+    assert const("kWalkM") == tlrn._WALK_M
+    assert const("kWalkTile") == tlrn._WALK_TILE
+    assert const("kWalkWarps") == tlrn._WALK_WARPS
+    assert const("kWalkMinCtas") == tlrn._WALK_MIN_CTAS
+    assert const("kWalkChunk") == tlrn._WALK_CHUNK
+    assert const("kWalkGroups") == tlrn._WALK_GROUPS
+    assert const("kWalkCtaBytes") == tlrn._WALK_CTA_BYTES
+    assert ("return (16 * S + 127) / 128 * 128;"
+            in body("__host__ __device__ constexpr int walk_bar_bytes("))
+    plan = body("Plan walk_plan(")
+    for line in ("p.CT = (C + kWalkM - 1) / kWalkM * kWalkM; if (p.CT > "
+                 "kWalkTile) p.CT = kWalkTile; p.tiles = (C + p.CT - 1) / "
+                 "p.CT; p.W = kWalkWarps;",
+                 "while (p.W > 1 && (int64_t)N * ((HW + 32 * (4 / telt) * "
+                 "p.W - 1) / (32 * (4 / telt) * p.W)) * p.tiles < "
+                 "kWalkMinCtas) p.W /= 2; p.P = 32 * (4 / telt) * p.W;",
+                 "p.rb = row_bytes(p.P, selt); const int rows = C < p.CT + "
+                 "size - 1 ? C : p.CT + size - 1; p.S = (rows + kWalkChunk "
+                 "- 1) / kWalkChunk; p.bufs = walk_bar_bytes(2 * p.S) + "
+                 "(int64_t)2 * p.S * kWalkChunk * p.rb <= kWalkCtaBytes ? 2 "
+                 ": 1; while (p.S > 2 && walk_bar_bytes(p.bufs * p.S) + "
+                 "(int64_t)p.bufs * p.S * kWalkChunk * p.rb > kWalkCtaBytes)"
+                 " --p.S;"):
+        assert line in plan, line
+    plan = body("Plan bwd_plan(")
+    for line in ("Plan p{1, 32 * (4 / elt), 0, 0, row_bytes(32 * (4 / elt), "
+                 "elt), 0, 1, 0, 0}; const int groups = (C + M - 1) / M; for "
+                 "(int ct = groups * M; ct >= M; ct -= M) {",
+                 "const int span = (hi + M - 1) / M + (ct - 1 + lo) / M + 1;"
+                 " const int trows = M * (span < groups ? span : groups); "
+                 "const int xrows = C < trows + size - 1 ? C : trows + size "
+                 "- 1; const int S = (xrows + K - 1) / K; const int64_t "
+                 "smem = walk_bar_bytes(S) + (int64_t)S * K * p.rb + "
+                 "(int64_t)(trows + ct) * p.P * 4; if (smem <= kSmemMax) {",
+                 "p.W = trows / M < kWalkGroups ? trows / M : kWalkGroups;"):
+        assert line in plan, line
+    launch = body("int launch_any(")
+    assert ("if (p.CT == 0) { if (a.scratch == nullptr) return -5;"
+            in launch)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -464,3 +654,64 @@ def test_staged_runs_fit(dtype):
                 assert smem <= tlrn._ANY_CTA_BYTES
     assert tlrn.staged_smem(tlrn._ANY_RUN_MIN, elt, 2 * tlrn._ANY_MAX_SLOTS,
                             tlrn._ANY_MAX_SLOTS) <= tlrn._SMEM_MAX
+
+
+def test_c_entries_match_their_binding():
+    """``_kernel_fns`` binds each C entry with ``_ARGTYPES``, held here to
+    the parameter lists of ``bigdl_lrn_fwd`` and ``bigdl_lrn_bwd`` in
+    csrc/lrn.cu (the backward's scratch pointer among them)."""
+    import ctypes
+    src = (Path(tlrn.__file__).resolve().parents[1] / "csrc"
+           / "lrn.cu").read_text()
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "int*": ctypes.POINTER(ctypes.c_int)}
+    for name in ("fwd", "bwd"):
+        head = src[src.index(f'extern "C" int bigdl_lrn_{name}('):]
+        params = head[head.index("(") + 1:head.index(")")].split(",")
+        want = []
+        for param in params:
+            words = param.replace("*", " * ").split()[:-1]
+            pointer = "*" in words
+            base = [w for w in words if w not in ("const", "*")][0]
+            want.append(kinds["int*"] if pointer and base == "int" else
+                        ctypes.c_void_p if pointer else kinds[base])
+        assert tlrn._ARGTYPES[name] == want, name
+    assert "float* scratch" in src[src.index('extern "C" int bigdl_lrn_bwd('):]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_walk_plans_fit(dtype):
+    """Every plan of the tiled walk fits its launch: a forward CTA's
+    threads (32 a warp, a producer and CT/8 groups of W warps) within the
+    kernels' bound of 544, its span staged whole or through a ring of at
+    least 2 chunks within 116,224 bytes; the one-launch backward's span,
+    t rows and u rows within a block's shared memory; the scratch only
+    where no tile fits, and only on the "any" route."""
+    elt = dtype.itemsize
+    for shape, size in (((8, 320, 28, 28), 288), ((32, 192, 56, 56), 11),
+                        ((32, 64, 56, 56), 16), ((3, 300, 5, 7), 290),
+                        ((2, 1100, 7, 9), 300), ((4, 264, 14, 14), 1001),
+                        ((1, 2048, 3, 5), 1500), ((3, 13, 5, 7), 10),
+                        ((2, 257, 3, 3), 257), ((1, 9000, 2, 2), 9000)):
+        for staged in (None, torch.float32):
+            p = tlrn.walk_plan(dtype, shape, size, staged)
+            assert 32 * (1 + p["CT"] // tlrn._WALK_M * p["W"]) <= 544
+            assert p["slots"] >= 2 or p["slots"] * tlrn._WALK_CHUNK >= min(
+                shape[1], p["CT"] + size - 1)
+            assert p["smem"] <= tlrn._WALK_CTA_BYTES
+            assert p["P"] == 32 * (4 // elt) * p["W"]
+            # two buffers only where each holds the whole span
+            assert p["bufs"] == 1 or p["slots"] * tlrn._WALK_CHUNK >= min(
+                shape[1], p["CT"] + size - 1)
+        b = tlrn.bwd_plan(dtype, shape, size)
+        scratch = tlrn.any_scratch(dtype, shape, size)
+        assert scratch == (b["CT"] == 0 and tlrn.bwd_route(
+            dtype, shape, size) == "any")
+        if b["CT"]:
+            assert b["smem"] <= tlrn._SMEM_MAX and b["CT"] % 8 == 0
+            assert 32 * (1 + b["warps"]) <= 544
+    # the issue's rows: one launch of all C at past_cap, the scratch only
+    # past the cap (a span no tile fits)
+    assert tlrn.bwd_plan(dtype, (8, 320, 28, 28), 288)["CT"] == 320
+    assert tlrn.any_scratch(dtype, (1, 2048, 3, 5), 1500)
+    assert not tlrn.any_scratch(dtype, (2, 1100, 7, 9), 300)
